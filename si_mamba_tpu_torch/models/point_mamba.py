@@ -1,0 +1,176 @@
+"""PointMamba classifier, eval forward.
+
+PyTorch counterpart of ``si_mamba_tpu/models/point_mamba.py``: Group ->
+PatchEncoder -> pos-embed -> ordering (SAST or xyz 'MAMBA') -> MixerModel ->
+LayerNorm -> mean-pool -> classification head. Module names follow the
+reference's state-dict keys.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from si_mamba_tpu_torch.models.embed import ClsHead, PatchEncoder, PosEmbedMLP
+from si_mamba_tpu_torch.models.grouping import group_divider
+from si_mamba_tpu_torch.models.layers import MixerModel
+from si_mamba_tpu_torch.models.ordering import sast_sequence, xyz_sequence
+from si_mamba_tpu_torch.ops.graph import knn_adjacency, rw_laplacian, sym_laplacian
+from si_mamba_tpu_torch.ops.spectral import topk_eigh
+
+
+@dataclasses.dataclass(frozen=True)
+class PointMambaConfig:
+    """The reference model YAML keys (cfgs/finetune_*.yaml), the same fields
+    and defaults as the JAX package's ``PointMambaConfig``."""
+
+    trans_dim: int = 384
+    depth: int = 12
+    cls_dim: int = 40
+    group_size: int = 32
+    num_group: int = 64
+    encoder_dims: int = 384
+    rms_norm: bool = False
+    drop_path: float = 0.1
+    drop_out: float = 0.0
+    drop_out_in_block: float = 0.0
+    cls_head_dropout: float = 0.5
+    use_cls_token: bool = False
+    method: str = "SAST"  # SAST | HLT | MAMBA
+    reverse: bool = True
+    reverse_2: bool = False
+    reverse_3: bool = False
+    knn_graph: int = 20
+    k_top_eigenvectors: int = 4
+    alpha: float = 100.0
+    smallest: bool = True
+    symmetric: bool = True
+    self_loop: bool = False
+    binary: bool = True
+    matrix: str = "laplacian"  # laplacian | symmetric
+    add_after_layer: bool = False
+    scan_impl: str = "auto"
+    spectral_method: str = "eigh"
+    mixer: str = "mamba"
+    ssd_chunk: int = 128
+    dtype: str = "float32"
+    tp_axis: Optional[str] = None
+
+    @property
+    def seq_len(self) -> int:
+        if self.method == "MAMBA":
+            return 3 * self.num_group
+        if self.method == "HLT":
+            return 2 * self.num_group
+        mult = 2 if (self.reverse or self.reverse_2) else 1
+        return mult * self.k_top_eigenvectors * self.num_group
+
+    @classmethod
+    def from_dict(cls, d) -> "PointMambaConfig":
+        """Build from a config-model mapping, ignoring non-field keys."""
+        return cls(**{k: v for k, v in dict(d).items() if k in cls.__dataclass_fields__})
+
+
+def _check_supported(cfg: PointMambaConfig) -> None:
+    """Raise for the options whose port is still queued in ROADMAP.md."""
+    later = {
+        "method='HLT'": cfg.method == "HLT",
+        "add_after_layer": cfg.add_after_layer,
+        "mixer='ssd'": cfg.mixer == "ssd",
+        "tp_axis": cfg.tp_axis is not None,
+        "rms_norm": cfg.rms_norm,
+        "spectral_method='subspace'": cfg.spectral_method == "subspace",
+        f"dtype={cfg.dtype!r}": cfg.dtype != "float32",
+    }
+    for name, on in later.items():
+        if on:
+            raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md, queue 1)")
+    if cfg.method not in ("SAST", "MAMBA"):
+        raise ValueError(f"unknown method {cfg.method!r}")
+    if cfg.reverse_3:
+        raise NotImplementedError(
+            "reverse_3 is a dead config in the reference (hard-coded 32-token blocks)")
+
+
+def spectral_eigvecs(center: torch.Tensor, cfg: PointMambaConfig):
+    """Graph -> Laplacian -> top-k eigenpairs: (eigvals (B, k), eigvecs (B, G, k))."""
+    A = knn_adjacency(center, k=cfg.knn_graph, alpha=cfg.alpha, symmetric=cfg.symmetric,
+                      self_loop=cfg.self_loop, binary=cfg.binary)
+    if cfg.matrix == "laplacian":
+        vals, vecs, _, _ = topk_eigh(rw_laplacian(A, eps=1e-6, eps_mode="add"),
+                                     cfg.k_top_eigenvectors, smallest=cfg.smallest)
+        return vals, vecs
+    # the symmetric variant computes k+1 pairs and drops the first
+    vals, vecs, _, _ = topk_eigh(sym_laplacian(A), cfg.k_top_eigenvectors + 1,
+                                 smallest=cfg.smallest)
+    return vals[..., 1:], vecs[..., 1:]
+
+
+class PointMamba(nn.Module):
+    """The classifier. Built on the CPU from a seeded ``torch.Generator``
+    (seed 0 when none is given); move it with ``.to(device)``. Only the eval
+    forward is ported: call ``.eval()`` first."""
+
+    def __init__(self, config: PointMambaConfig, generator: torch.Generator | None = None):
+        super().__init__()
+        _check_supported(config)
+        self.config = cfg = config
+        self.encoder = PatchEncoder(cfg.encoder_dims)
+        self.pos_embed = PosEmbedMLP(cfg.trans_dim)
+        self.blocks = MixerModel(cfg.trans_dim, cfg.depth, drop_path=cfg.drop_path,
+                                 scan_impl=cfg.scan_impl)
+        self.norm = nn.LayerNorm(cfg.trans_dim, eps=1e-5)
+        self.cls_head_finetune = ClsHead(cfg.trans_dim, cfg.cls_dim, drop=cfg.cls_head_dropout)
+        self.reset_parameters(generator or torch.Generator().manual_seed(0))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for m in (self.encoder, self.pos_embed, self.blocks, self.cls_head_finetune):
+            m.reset_parameters(generator)
+        for m in self.modules():
+            if isinstance(m, nn.BatchNorm1d):
+                m.reset_parameters()
+        self.norm.reset_parameters()
+
+    # -- the pieces of the forward, public so that tests can compose them --
+    def embed(self, pts: torch.Tensor, fps_start_idx=0):
+        """pts (B, N, 3) -> (tokens (B, G, C), pos (B, G, C), centres (B, G, 3))."""
+        cfg = self.config
+        grouped = group_divider(pts, cfg.num_group, cfg.group_size, start_idx=fps_start_idx)
+        return self.encoder(grouped.neighborhood), self.pos_embed(grouped.center), grouped.center
+
+    def sequence(self, tokens, pos, center, eigvecs=None):
+        """Order the tokens: (x, pos_seq), each (B, seq_len, C). For SAST the
+        eigenvectors are computed from ``center`` unless given."""
+        cfg = self.config
+        if cfg.method == "MAMBA":
+            return xyz_sequence(tokens, pos, center)
+        if eigvecs is None:
+            _, eigvecs = spectral_eigvecs(center, cfg)
+        return sast_sequence(tokens, pos, eigvecs, reverse=cfg.reverse, reverse_2=cfg.reverse_2)
+
+    def classify(self, x, pos_seq, return_features: bool = False):
+        """Mamba stack -> LayerNorm -> mean-pool -> head: logits (B, cls_dim)."""
+        feat = torch.mean(self.norm(self.blocks(x, pos_seq)), dim=1)
+        logits = self.cls_head_finetune(feat)
+        return (logits, feat) if return_features else logits
+
+    def forward(self, pts: torch.Tensor, fps_start_idx=0, return_features: bool = False):
+        if self.training:
+            raise NotImplementedError(
+                "only the eval forward is ported (call .eval()); training is "
+                "ROADMAP.md queue 1, slice 2")
+        tokens, pos, center = self.embed(pts, fps_start_idx)
+        x, pos_seq = self.sequence(tokens, pos, center)
+        return self.classify(x, pos_seq, return_features)
+
+
+def cross_entropy_loss_acc(logits: torch.Tensor, labels: torch.Tensor):
+    """Per-sample CE loss and accuracy in percent."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    loss = -torch.gather(logp, -1, labels[:, None].long())[:, 0]
+    acc = torch.mean((torch.argmax(logits, -1) == labels).float()) * 100.0
+    return loss, acc

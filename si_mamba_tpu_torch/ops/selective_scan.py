@@ -1,0 +1,156 @@
+"""Mamba-1 selective scan and mixer forward in PyTorch.
+
+Same maths and parameter layout as ``si_mamba_tpu/ops/selective_scan.py``:
+
+    delta = softplus(dt + dt_bias)
+    h_t   = exp(delta_t * A) * h_{t-1} + (delta_t * B_t) * u_t      (fp32 state)
+    y_t   = C_t . h_t + D * u_t
+    out   = y * silu(z)
+
+Implementations of the scan:
+- ``selective_scan_seq``: sequential in time, the oracle (the kernel's plain
+  version, :func:`~si_mamba_tpu_torch.ops.kernels.selective_scan.selective_scan_ref`);
+- ``selective_scan_chunked``: a log-depth scan inside chunks of time with the
+  state carried across chunks, the default on the CPU;
+- the CUDA kernel (``ops/kernels/selective_scan.py``), which ``impl='auto'``
+  launches for a CUDA tensor (or raises).
+
+Layout is batch-major, time second: u (B, L, D).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_ref, causal_conv1d_silu
+from si_mamba_tpu_torch.ops.kernels.selective_scan import selective_scan_fwd, selective_scan_ref
+
+causal_conv1d = causal_conv1d_ref
+selective_scan_seq = selective_scan_ref
+
+# Scan implementations of the JAX package that the port does not have yet,
+# with the ROADMAP item that will bring each.
+_NOT_PORTED = {
+    "pallas": "ROADMAP queue 2, K3/K4 (training scan kernels); 'auto' already "
+              "runs the forward kernel on a CUDA tensor",
+    "assoc": "ROADMAP queue 1, M6b (whole-sequence associative scan)",
+    "fused": "ROADMAP queue 2, K10/K11 (whole-mixer kernel)",
+    "fused_interpret": "ROADMAP queue 2, K10/K11 (whole-mixer kernel)",
+}
+
+
+def _raise_not_ported(impl: str):
+    raise NotImplementedError(f"impl={impl!r} is not ported: {_NOT_PORTED[impl]}")
+
+
+def _scan_in_chunk(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of the affine maps (a, b) along dim 1 (Hillis-Steele):
+    returns (prod a_{0..t}, h_t with h_{-1} = 0)."""
+    T = a.shape[1]
+    k = 1
+    while k < T:
+        b = torch.cat([b[:, :k], b[:, k:] + a[:, k:] * b[:, :-k]], dim=1)
+        a = torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], dim=1)
+        k *= 2
+    return a, b
+
+
+_CHUNK = 64
+
+
+def selective_scan_chunked(u, delta, A, B, C, D=None, z=None, delta_bias=None,
+                           delta_softplus: bool = True) -> torch.Tensor:
+    """Memory-bounded scan: chunks of 64 steps, a log-depth scan inside each,
+    the (b, d, n) fp32 state carried across chunks. Live temporaries are
+    (b, 64, d, n), never (b, l, d, n)."""
+    delta32 = delta.float()
+    if delta_bias is not None:
+        delta32 = delta32 + delta_bias.float()
+    if delta_softplus:
+        delta32 = F.softplus(delta32)
+    u32, A32, B32, C32 = u.float(), A.float(), B.float(), C.float()
+    b, l, d = u32.shape
+    h = u32.new_zeros((b, d, A32.shape[1]))
+    ys = []
+    for s in range(0, l, _CHUNK):
+        d_c, u_c = delta32[:, s:s + _CHUNK], u32[:, s:s + _CHUNK]
+        dA = torch.exp(d_c[..., None] * A32)  # (b, T, d, n)
+        dBu = (d_c * u_c)[..., None] * B32[:, s:s + _CHUNK, None, :]
+        acc_a, acc_b = _scan_in_chunk(dA, dBu)
+        hs = acc_a * h[:, None] + acc_b
+        ys.append(torch.einsum("bldn,bln->bld", hs, C32[:, s:s + _CHUNK]))
+        h = hs[:, -1]
+    y = torch.cat(ys, dim=1) if ys else u32.new_zeros((b, 0, d))
+    if D is not None:
+        y = y + u32 * D.float()
+    if z is not None:
+        y = y * F.silu(z.float())
+    return y.to(u.dtype)
+
+
+def selective_scan(u, delta, A, B, C, D=None, z=None, delta_bias=None,
+                   delta_softplus: bool = True, impl: str = "auto") -> torch.Tensor:
+    """Dispatch: 'auto' | 'seq' | 'chunked'.
+
+    'auto' launches the CUDA kernel for a CUDA tensor, which takes only the
+    full fused signature (softplus, D, z, delta_bias) and raises without it;
+    for a CPU tensor it is the chunked scan. 'seq' and 'chunked' are the
+    plain versions, chosen explicitly, on any device."""
+    if impl == "auto":
+        if u.is_cuda:
+            missing = [name for name, given in (
+                ("delta_softplus=True", delta_softplus), ("D", D is not None),
+                ("z", z is not None), ("delta_bias", delta_bias is not None)) if not given]
+            if missing:
+                raise NotImplementedError(
+                    f"the scan kernel needs {', '.join(missing)}; pass impl='seq' or "
+                    f"'chunked' for the plain scan")
+            return selective_scan_fwd(u, delta, A, B, C, D, z, delta_bias)
+        impl = "chunked"
+    if impl == "seq":
+        return selective_scan_seq(u, delta, A, B, C, D, z, delta_bias, delta_softplus)
+    if impl == "chunked":
+        return selective_scan_chunked(u, delta, A, B, C, D, z, delta_bias, delta_softplus)
+    if impl in _NOT_PORTED:
+        _raise_not_ported(impl)
+    raise ValueError(f"unknown impl {impl!r}")
+
+
+def mamba_mixer_apply(params: dict, x: torch.Tensor, *, d_state: int, dt_rank: int,
+                      impl: str = "auto") -> torch.Tensor:
+    """Functional Mamba-1 mixer forward, the JAX package's parameter layout:
+
+      in_proj_w   (d_model, 2*d_inner)   [torch in_proj.weight^T]
+      conv_w      (d_inner, d_conv)      [torch conv1d.weight squeezed]
+      conv_b      (d_inner,)
+      x_proj_w    (d_inner, dt_rank+2*d_state)
+      dt_proj_w   (dt_rank, d_inner)
+      dt_proj_b   (d_inner,)
+      A_log       (d_inner, d_state)
+      D           (d_inner,)
+      out_proj_w  (d_inner, d_model)
+
+    x: (B, L, d_model) -> (B, L, d_model). ``impl='auto'`` runs the conv and
+    the scan through their CUDA kernels on a CUDA tensor, for any d_inner;
+    'seq' and 'chunked' compose the plain conv with that plain scan."""
+    if impl in _NOT_PORTED:
+        _raise_not_ported(impl)
+    if x.dtype != torch.float32:
+        raise NotImplementedError(
+            "the mixer runs in float32; bf16 waits for ROADMAP queue 1, M20 (perf mode)")
+    xz = x @ params["in_proj_w"]  # (B, L, 2*d_inner)
+    d_inner = xz.shape[-1] // 2
+    xi, z = xz[..., :d_inner], xz[..., d_inner:]  # column views, no copy
+    if impl == "auto":
+        xi = causal_conv1d_silu(xi, params["conv_w"], params["conv_b"])
+    else:
+        xi = causal_conv1d(xi, params["conv_w"], params["conv_b"], activation="silu")
+    x_dbl = xi @ params["x_proj_w"]  # (B, L, dt_rank + 2n)
+    dt = x_dbl[..., :dt_rank] @ params["dt_proj_w"]  # (B, L, d_inner)
+    Bc = x_dbl[..., dt_rank:dt_rank + d_state]
+    Cc = x_dbl[..., dt_rank + d_state:]
+    A = -torch.exp(params["A_log"].float())
+    y = selective_scan(xi, dt, A, Bc, Cc, D=params["D"], z=z,
+                       delta_bias=params["dt_proj_b"], delta_softplus=True, impl=impl)
+    return y @ params["out_proj_w"]

@@ -1,0 +1,195 @@
+"""The port's two kernels (causal conv + SiLU, selective-scan forward): their
+plain versions against the JAX package's XLA oracles and its Pallas kernels
+in interpret mode, on the same numpy inputs; the dispatch and the mixer. The
+CUDA kernels themselves are held against these plain versions on the card in
+tests/test_torch_port_cuda.py."""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from si_mamba_tpu.ops.pallas.causal_conv_kernel import causal_conv1d_silu_pallas
+from si_mamba_tpu.ops.pallas.selective_scan_kernel import selective_scan_pallas
+from si_mamba_tpu_torch.ops import selective_scan as tss
+from si_mamba_tpu_torch.ops.kernels import causal_conv as kconv
+from si_mamba_tpu_torch.ops.kernels import selective_scan as kscan
+
+# the package re-exports the function under the module's name
+jss = importlib.import_module("si_mamba_tpu.ops.selective_scan")
+
+
+def _t(a, device="cpu"):
+    return torch.tensor(np.asarray(a), device=device)
+
+
+# ---------------------------------------------------------------------------
+# K1: causal conv + SiLU
+# ---------------------------------------------------------------------------
+
+def _conv_inputs(b=2, l=37, d=24, w=4, seed=0):
+    rng = np.random.default_rng(seed)
+    xz = rng.standard_normal((b, l, 2 * d)).astype(np.float32)
+    weight = (rng.standard_normal((d, w)) * 0.5).astype(np.float32)
+    bias = (rng.standard_normal(d) * 0.1).astype(np.float32)
+    return xz, weight, bias
+
+
+@pytest.mark.parametrize("bias_on,activation", [(True, "silu"), (True, None), (False, "silu")])
+def test_conv_plain_matches_jax_oracle(bias_on, activation):
+    xz, w, b = _conv_inputs()
+    x = xz[..., :24]
+    bias = b if bias_on else None
+    got = kconv.causal_conv1d_ref(_t(xz)[..., :24], _t(w),
+                                  _t(bias) if bias_on else None, activation=activation)
+    want = jss.causal_conv1d(jnp.asarray(x), jnp.asarray(w),
+                             None if bias is None else jnp.asarray(bias), activation=activation)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+def test_conv_plain_matches_pallas_interpret():
+    xz, w, b = _conv_inputs(l=50, d=32)
+    got = kconv.causal_conv1d_ref(_t(xz)[..., :32], _t(w), _t(b))
+    want = causal_conv1d_silu_pallas(jnp.asarray(xz[..., :32]), jnp.asarray(w),
+                                     jnp.asarray(b), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+def test_conv_wrapper_on_cpu_is_the_plain_version():
+    xz, w, b = _conv_inputs()
+    before = kconv.causal_conv1d_silu.launches
+    got = kconv.causal_conv1d_silu(_t(xz)[..., :24], _t(w), _t(b))
+    np.testing.assert_array_equal(got.numpy(),
+                                  kconv.causal_conv1d_ref(_t(xz)[..., :24], _t(w), _t(b)).numpy())
+    assert kconv.causal_conv1d_silu.launches == before  # counts kernel launches only
+
+
+# ---------------------------------------------------------------------------
+# K2: selective scan forward
+# ---------------------------------------------------------------------------
+
+def _scan_inputs(b=2, l=64, d=32, n=4, seed=0):
+    """As in tests/test_pallas_scan.py; B and C are also given as column
+    slices of one (b, l, 2 + 2n) buffer, as the mixer's x_dbl makes them."""
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: rng.standard_normal(s).astype(np.float32)
+    kw = dict(u=mk(b, l, d), delta=mk(b, l, d) * 0.5, A=-np.exp(mk(d, n)),
+              x_dbl=mk(b, l, 2 + 2 * n), D=mk(d), z=mk(b, l, d), delta_bias=mk(d) * 0.1)
+    kw["B"] = kw["x_dbl"][..., 2:2 + n]
+    kw["C"] = kw["x_dbl"][..., 2 + n:]
+    return kw
+
+
+def _jax_args(kw):
+    return [jnp.asarray(kw[k]) for k in ("u", "delta", "A", "B", "C")]
+
+
+def _port_args(kw, device="cpu"):
+    n = kw["A"].shape[1]
+    x_dbl = _t(kw["x_dbl"], device)
+    return [_t(kw["u"], device), _t(kw["delta"], device), _t(kw["A"], device),
+            x_dbl[..., 2:2 + n], x_dbl[..., 2 + n:]]
+
+
+def _port_kw(kw, device="cpu"):
+    return dict(D=_t(kw["D"], device), z=_t(kw["z"], device),
+                delta_bias=_t(kw["delta_bias"], device))
+
+
+@pytest.mark.parametrize("impl", ["seq", "chunked"])
+@pytest.mark.parametrize("l", [64, 50])
+def test_scan_plain_matches_jax_seq_and_pallas(impl, l):
+    kw = _scan_inputs(l=l)
+    fn = tss.selective_scan_seq if impl == "seq" else tss.selective_scan_chunked
+    got = fn(*_port_args(kw), **_port_kw(kw)).numpy()
+    jkw = dict(D=jnp.asarray(kw["D"]), z=jnp.asarray(kw["z"]),
+               delta_bias=jnp.asarray(kw["delta_bias"]))
+    want_seq = jss.selective_scan_seq(*_jax_args(kw), **jkw)
+    want_pallas = selective_scan_pallas(*_jax_args(kw), **jkw, block_d=32, chunk=16,
+                                        interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want_seq), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(got, np.asarray(want_pallas), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("optional", [dict(), dict(D=None), dict(z=None),
+                                      dict(delta_bias=None, delta_softplus=False)])
+def test_scan_plain_optional_terms_match_jax(optional):
+    kw = _scan_inputs(l=20, seed=1)
+    pkw = {**_port_kw(kw), **optional}
+    jkw = {k: (jnp.asarray(v.numpy()) if isinstance(v, torch.Tensor) else v)
+           for k, v in pkw.items()}
+    want = np.asarray(jss.selective_scan_seq(*_jax_args(kw), **jkw))
+    for fn in (tss.selective_scan_seq, tss.selective_scan_chunked):
+        got = fn(*_port_args(kw), **pkw).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_scan_wrapper_on_cpu_is_the_plain_version():
+    kw = _scan_inputs(l=16)
+    before = kscan.selective_scan_fwd.launches
+    args, pkw = _port_args(kw), _port_kw(kw)
+    got = kscan.selective_scan_fwd(*args, pkw["D"], pkw["z"], pkw["delta_bias"])
+    np.testing.assert_array_equal(got.numpy(), kscan.selective_scan_ref(*args, **pkw).numpy())
+    assert kscan.selective_scan_fwd.launches == before
+
+
+def test_scan_dispatch():
+    kw = _scan_inputs(l=24)
+    args, pkw = _port_args(kw), _port_kw(kw)
+    np.testing.assert_array_equal(tss.selective_scan(*args, **pkw, impl="auto").numpy(),
+                                  tss.selective_scan_chunked(*args, **pkw).numpy())
+    for impl in ("pallas", "assoc", "fused"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tss.selective_scan(*args, **pkw, impl=impl)
+    with pytest.raises(ValueError, match="unknown impl"):
+        tss.selective_scan(*args, **pkw, impl="nope")
+
+
+@pytest.mark.parametrize("optional", [dict(D=None), dict(z=None), dict(delta_bias=None),
+                                      dict(delta_softplus=False)])
+def test_scan_auto_on_cpu_is_chunked_for_a_partial_signature(optional):
+    """Only a CPU tensor takes the plain scan under 'auto' (a CUDA tensor
+    with a partial signature raises, tests/test_torch_port_cuda.py)."""
+    kw = _scan_inputs(l=24, seed=2)
+    args, pkw = _port_args(kw), {**_port_kw(kw), **optional}
+    np.testing.assert_array_equal(tss.selective_scan(*args, **pkw, impl="auto").numpy(),
+                                  tss.selective_scan_chunked(*args, **pkw).numpy())
+
+
+# ---------------------------------------------------------------------------
+# the mixer: the same parameter dict through both packages
+# ---------------------------------------------------------------------------
+
+def _mixer_params(d_model=16, d_state=4, dt_rank=2, d_conv=4, seed=3):
+    rng = np.random.default_rng(seed)
+    di = 2 * d_model
+    mk = lambda *s, sc=0.3: (rng.standard_normal(s) * sc).astype(np.float32)
+    return {
+        "in_proj_w": mk(d_model, 2 * di), "conv_w": mk(di, d_conv), "conv_b": mk(di),
+        "x_proj_w": mk(di, dt_rank + 2 * d_state), "dt_proj_w": mk(dt_rank, di),
+        "dt_proj_b": mk(di, sc=0.1),
+        "A_log": np.log(np.tile(np.arange(1, d_state + 1, dtype=np.float32), (di, 1))),
+        "D": np.ones(di, np.float32), "out_proj_w": mk(di, d_model),
+    }
+
+
+@pytest.mark.parametrize("impl", ["auto", "seq", "chunked"])
+def test_mixer_matches_jax(impl):
+    p = _mixer_params()
+    x = np.random.default_rng(4).standard_normal((2, 40, 16)).astype(np.float32)
+    got = tss.mamba_mixer_apply({k: _t(v) for k, v in p.items()}, _t(x), d_state=4,
+                                dt_rank=2, impl=impl)
+    want = jss.mamba_mixer_apply({k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x),
+                                 d_state=4, dt_rank=2, impl="seq")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+
+
+def test_mixer_rejects_unported_impls_and_dtypes():
+    p = {k: _t(v) for k, v in _mixer_params().items()}
+    x = torch.zeros(1, 4, 16)
+    with pytest.raises(NotImplementedError, match="K10"):
+        tss.mamba_mixer_apply(p, x, d_state=4, dt_rank=2, impl="fused")
+    with pytest.raises(NotImplementedError, match="bf16"):
+        tss.mamba_mixer_apply(p, x.bfloat16(), d_state=4, dt_rank=2)
