@@ -10,11 +10,16 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
 
 1. device: requires CUDA, prints ``nvidia-smi``'s name and power limit, turns
    TF32 off for matmuls and convolutions;
-2. build: both CUDA sources, one ``nvcc`` each, in parallel;
+2. build: the three CUDA sources, one ``nvcc`` each, in parallel;
 3. kernels: at the serving path's full-width shapes (B=32, L=512, d_inner=768,
-   d_state=16, fp32, strided views as the mixer makes them) each kernel is
-   held against its plain PyTorch version on the card and timed beside it
-   (and, for the conv, beside ``F.conv1d(groups=D)`` + ``F.silu``);
+   d_state=16, fp32, strided views as the mixer makes them) each forward
+   kernel is held against its plain PyTorch version on the card and timed
+   beside it (and, for the conv, beside ``F.conv1d(groups=D)`` + ``F.silu``);
+   then, with a seeded output gradient, the training kernels: the scan
+   forward that keeps its tile entry states (its y equal to the lean
+   kernel's, its states to the plain version's), the scan backward and the
+   conv backward (every gradient against the plain backward; the conv's also
+   timed beside autograd of ``F.conv1d`` + ``F.silu``);
 4. serving: a ``Predictor`` over the ModelNet40 ``PointMamba`` (12 x 384,
    L=512, seeded random weights) answers requests of 1, 20 and 64 clouds of
    1024 points; every forward must launch each kernel 12 times, and its
@@ -26,11 +31,25 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    and the head), each ended by ``torch.cuda.synchronize()`` and so including
    its launch cost; then one forward under ``torch.profiler``: device time by
    kernel name (top 8), the summed kernel and copy time, and its share of the
-   forward's wall time (the device's busy share).
+   forward's wall time (the device's busy share);
+6. train: ``make_train_step`` over the same model at its training settings
+   (drop_path 0.3, head dropout 0.5), AdamW at the timm stepped cosine
+   (lr 3e-4, wd 0.05, 300 epochs with 10 of warm-up, clip 10, 2 steps an
+   epoch), TRAIN_STEPS steps at batch 32 on 8192-point clouds (FPS to 1200,
+   1024 kept, scale + translate). Every step must launch the conv forward and
+   backward and the training scan forward and backward 12 times each and the
+   lean scan forward never, give a finite loss, and move every mixer
+   parameter and the BatchNorm statistics; then an eval forward must take
+   the lean scan again. p50 step time, clouds/s and peak memory are printed,
+   then one more step timed in its pieces (resample + augment, forward,
+   backward, optimizer) and one under ``torch.profiler``;
+7. gradients: one train-mode step's loss and every parameter gradient of the
+   kernel path against the plain path (``scan_impl='seq'``), same weights and
+   clouds, drop rates 0, at B=4, within 1e-3 of the largest gradient.
 
-The last four lines of standard output are the serving and profile record,
-the kernels' record (each one JSON object), the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.
+The last four lines of standard output are the serving, profile, train and
+gradient record, the kernels' record (each one JSON object), the card's name
+and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -59,6 +78,11 @@ NPOINTS = 1024
 REQUEST_SIZES = (1, 20, 64)
 REPEATS = 5
 PROFILE_REPEATS = 10
+TRAIN_BATCH = 32
+TRAIN_POINTS = 8192
+TRAIN_STEPS = 8
+PARITY_BATCH = 4
+GRAD_TOL = 1e-3
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) op/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -180,6 +204,128 @@ def kernel_phase(device) -> list[dict]:
     return records
 
 
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max |got - want|, that over max |want|)."""
+    err = (got - want).abs().max().item()
+    return err, err / max(want.abs().max().item(), 1e-30)
+
+
+def backward_kernel_phase(device) -> list[dict]:
+    """The training kernels at the serving path's shapes, with a seeded
+    output gradient: K3 (scan forward with residuals), K4 (scan backward),
+    K5 (conv backward), each against its plain version, then timed."""
+    from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
+    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
+
+    mixer, p, xz = mixer_inputs(device)
+    d_inner, n, dt_rank = mixer.d_inner, mixer.d_state, mixer.dt_rank
+    xi, z = xz[..., :d_inner], xz[..., d_inner:]
+    B, L, D = xi.shape
+    W = p["conv_w"].shape[1]
+    rng = np.random.default_rng(3)
+    g = torch.from_numpy(rng.standard_normal((B, L, D), dtype=np.float32)).to(device)
+    records = []
+
+    # K5: conv backward. Tolerance rel-to-max 1e-4: dw and db are sums over
+    # B*L terms, taken per time tile and then by torch.sum, in another order
+    # than the plain version's.
+    conv_args = (xi, p["conv_w"], p["conv_b"], g)
+    got = kc.causal_conv1d_silu_bwd(*conv_args)
+    want = kc.causal_conv1d_silu_bwd_ref(*conv_args)
+    torch.cuda.synchronize()
+    err5 = 0.0
+    for name, a, b in zip(("dx", "dw", "db"), got, want):
+        err, rel = _rel_err(a, b)
+        err5 = max(err5, err)
+        if rel > 1e-4:
+            raise AssertionError(f"conv backward kernel: {name} disagrees with the plain "
+                                 f"backward: max |diff| {err} ({rel:.3e} of max)")
+    x_lib = xi.detach().transpose(1, 2).requires_grad_()
+    w_lib = p["conv_w"][:, None, :].detach().clone().requires_grad_()
+    b_lib = p["conv_b"].detach().clone().requires_grad_()
+    y_lib = F.silu(F.conv1d(x_lib, w_lib, b_lib, padding=W - 1, groups=D)[..., :L])
+    g_lib = g.transpose(1, 2)
+    lib = lambda: torch.autograd.grad(y_lib, (x_lib, w_lib, b_lib), g_lib, retain_graph=True)
+    # bytes: x and g read, dx written (plus w, b, dw, db); operations per
+    # element: s 2W+1, sigmoid 4, ds 4, dx 2W, dw and db 2W+2
+    bound_ms, bound_by = bound((3 * B * L * D + 2 * D * (W + 1)) * 4, B * L * D * (6 * W + 11))
+    records.append(dict(
+        name="causal_conv1d_silu_bwd", route="cuda",
+        source="si_mamba_tpu_torch/csrc/causal_conv.cu",
+        replaces="si_mamba_tpu/ops/pallas/causal_conv_kernel.py:58",
+        max_abs_err=err5,
+        ms=time_ms(lambda: kc.causal_conv1d_silu_bwd(*conv_args), 50),
+        plain_ms=time_ms(lambda: kc.causal_conv1d_silu_bwd_ref(*conv_args), 10),
+        library_ms=time_ms(lib, 20), bound_ms=bound_ms, bound_by=bound_by))
+    log(f"conv backward ok: max |diff| {err5:.3e}")
+
+    # K3: the scan forward that keeps its tile entry states, on the conv's output
+    y1 = kc.causal_conv1d_silu_fwd(xi, p["conv_w"], p["conv_b"])
+    x_dbl = y1 @ p["x_proj_w"]
+    dt = x_dbl[..., :dt_rank] @ p["dt_proj_w"]
+    Bc, Cc = x_dbl[..., dt_rank:dt_rank + n], x_dbl[..., dt_rank + n:]
+    A = -torch.exp(p["A_log"])
+    args = (y1, dt, A, Bc, Cc, p["D"], z, p["dt_proj_b"])
+    y3, h3 = ks.selective_scan_fwd_residuals(*args)
+    y2 = ks.selective_scan_fwd(*args)
+    y_ref, h_ref = ks.selective_scan_fwd_residuals_ref(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(y3, y2):
+        raise AssertionError(f"the training scan forward's y differs from the lean "
+                             f"kernel's: max |diff| {(y3 - y2).abs().max().item()}")
+    err3, rel_y = _rel_err(y3, y_ref)
+    err_h, rel_h = _rel_err(h3, h_ref)
+    if rel_y > 1e-4 or rel_h > 1e-4:
+        raise AssertionError(f"training scan forward disagrees with its plain version: "
+                             f"y {err3} ({rel_y:.3e}), h_entries {err_h} ({rel_h:.3e})")
+    nc = h3.shape[1]
+    scan_bytes = (4 * B * L * D + 2 * B * L * n + D * n + 2 * D) * 4
+    bound_ms, bound_by = bound(scan_bytes + B * nc * n * D * 4, B * L * D * (10 + 7 * n))
+    records.append(dict(
+        name="selective_scan_fwd_residuals", route="cuda",
+        source="si_mamba_tpu_torch/csrc/selective_scan_fwd.cu",
+        replaces="si_mamba_tpu/ops/pallas/selective_scan_kernel.py:407",
+        max_abs_err=max(err3, err_h),
+        ms=time_ms(lambda: ks.selective_scan_fwd_residuals(*args), 20),
+        plain_ms=time_ms(lambda: ks.selective_scan_fwd_residuals_ref(*args), 2, warmup=1),
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+    log(f"training scan forward ok: y == lean y; vs plain y {err3:.3e}, h_entries "
+        f"{err_h:.3e} (T = {ks.CHUNK}, {nc} entries per channel)")
+
+    # K4: scan backward, from the kernel's own h_entries. Tolerance
+    # rel-to-max 1e-3: dA, dB, dC, dD and ddelta_bias are sums over channels
+    # or over B*L, taken in another order than the plain version's.
+    bwd_args = (*args, g, h3)
+    got = ks.selective_scan_bwd(*bwd_args)
+    want = ks.selective_scan_bwd_ref(*bwd_args)
+    torch.cuda.synchronize()
+    err4 = 0.0
+    for name, a, b in zip(("du", "ddelta", "dA", "dB", "dC", "dD", "dz", "ddelta_bias"),
+                          got, want):
+        err, rel = _rel_err(a, b)
+        err4 = max(err4, err)
+        if rel > 1e-3:
+            raise AssertionError(f"scan backward kernel: {name} disagrees with the plain "
+                                 f"backward: max |diff| {err} ({rel:.3e} of max)")
+    # bytes: u, dt, z, g, B, C, h_entries (and A, D, dt_bias) read once; du,
+    # ddelta, dz, dB, dC (and dA, dD, ddelta_bias) written once. Operations per
+    # state element: one exp and about 19 fp32 operations; per (b, l, d) about 20.
+    bwd_bytes = (7 * B * L * D + 4 * B * L * n + B * nc * n * D + 2 * D * n + 4 * D) * 4
+    bound_ms, bound_by = bound(bwd_bytes, B * L * D * (20 * n + 20))
+    records.append(dict(
+        name="selective_scan_bwd", route="cuda",
+        source="si_mamba_tpu_torch/csrc/selective_scan_bwd.cu",
+        replaces="si_mamba_tpu/ops/pallas/selective_scan_kernel.py:211",
+        max_abs_err=err4,
+        ms=time_ms(lambda: ks.selective_scan_bwd(*bwd_args), 20),
+        plain_ms=time_ms(lambda: ks.selective_scan_bwd_ref(*bwd_args), 1, warmup=1),
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+    log(f"scan backward ok: max |diff| {err4:.3e}")
+    for r in records:
+        r["kernel_ms"] = r["ms"]
+    return records
+
+
 def clouds(n: int, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     pts = rng.standard_normal((n, NPOINTS, 3)).astype(np.float32)
@@ -272,8 +418,8 @@ def piece_times(model, pts) -> dict[str, float]:
     return out
 
 
-def device_profile(model, pts) -> dict:
-    """One forward under torch.profiler: device-side events (kernels,
+def device_profile(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: device-side events (kernels,
     copies) only, since an operator's own row repeats its kernels' time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -281,7 +427,7 @@ def device_profile(model, pts) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model(pts)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
@@ -289,7 +435,7 @@ def device_profile(model, pts) -> dict:
     rows.sort(key=lambda r: -r[2])
     device_ms = sum(r[2] for r in rows)
     if device_ms <= 0:
-        raise AssertionError("the profiler saw no device time in a forward on the card")
+        raise AssertionError("the profiler saw no device time in a call on the card")
     return {"wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms,
             "top": [{"name": k[:90], "count": c, "device_ms": ms} for k, c, ms in rows[:8]]}
 
@@ -304,7 +450,7 @@ def profile_phase(model, requests) -> dict:
                 piece_times(model, pts)
             runs = [piece_times(model, pts) for _ in range(PROFILE_REPEATS)]
             med = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
-            prof = device_profile(model, pts)
+            prof = device_profile(lambda: model(pts))
             result[str(n)] = {"piece_ms_median": med, "profile": prof}
             log(f"{n:2d} clouds: " + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items()) +
                 f"; device {prof['device_ms']:.3f} of {prof['wall_ms']:.3f} ms wall "
@@ -312,6 +458,203 @@ def profile_phase(model, requests) -> dict:
             for row in prof["top"]:
                 log(f"    {row['device_ms']:9.3f} ms  x{row['count']:<5d} {row['name']}")
     return result
+
+
+def _train_clouds(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    pts = rng.standard_normal((n, TRAIN_POINTS, 3)).astype(np.float32)
+    pts /= np.abs(pts).max(axis=(1, 2), keepdims=True)
+    return pts, rng.integers(0, MODELNET40["cls_dim"], n)
+
+
+def _launch_counts() -> dict[str, int]:
+    from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
+    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
+
+    return {"causal_conv1d_silu": kc.causal_conv1d_silu.launches,
+            "selective_scan_fwd": ks.selective_scan_fwd.launches,
+            "selective_scan_fwd_residuals": ks.selective_scan_fwd_residuals.launches,
+            "selective_scan_bwd": ks.selective_scan_bwd.launches,
+            "causal_conv1d_silu_bwd": kc.causal_conv1d_silu_bwd.launches}
+
+
+def _reset_launch_counts() -> None:
+    from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
+    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
+
+    kc.causal_conv1d_silu.launches = kc.causal_conv1d_silu_bwd.launches = 0
+    ks.selective_scan_fwd.launches = ks.selective_scan_fwd_residuals.launches = 0
+    ks.selective_scan_bwd.launches = 0
+
+
+def train_phase(device, card: str) -> tuple[dict, dict]:
+    """TRAIN_STEPS steps of the port's finetune step at the ModelNet40
+    settings; returns (record, launches over the steps)."""
+    from si_mamba_tpu_torch.data import transforms
+    from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
+    from si_mamba_tpu_torch.models.point_mamba import cross_entropy_loss_acc
+    from si_mamba_tpu_torch.train.optim import build_optimizer
+    from si_mamba_tpu_torch.train.runner_finetune import make_train_step
+    from si_mamba_tpu_torch.train.train_state import TrainState
+
+    cfg = PointMambaConfig.from_dict(MODELNET40)
+    model = PointMamba(cfg, generator=torch.Generator().manual_seed(0)).to(device)
+    optimizer, schedule = build_optimizer(model, opt_type="AdamW", lr=3e-4, weight_decay=0.05,
+                                          epochs=300, warmup_epochs=10, steps_per_epoch=2,
+                                          grad_clip=10.0)
+    state = TrainState.create(model, optimizer)
+    step = make_train_step(model, NPOINTS, rotation=False)
+    pts_np, labels_np = _train_clouds(TRAIN_BATCH, seed=7)
+    points = torch.from_numpy(pts_np).to(device)
+    labels = torch.from_numpy(labels_np).to(device)
+    generator = torch.Generator(device=device).manual_seed(0)
+    params0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    stats0 = {k: v.clone() for k, v in model.named_buffers() if "running" in k}
+
+    expect = {"causal_conv1d_silu": cfg.depth, "selective_scan_fwd": 0,
+              "selective_scan_fwd_residuals": cfg.depth, "selective_scan_bwd": cfg.depth,
+              "causal_conv1d_silu_bwd": cfg.depth}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_launch_counts()  # the main path: counts from 0, then only the steps
+    times, losses, per_step = [], [], []
+    for _ in range(TRAIN_STEPS):
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, points, labels, generator)
+        loss = metrics["loss"].item()  # a host copy: synchronises
+        times.append(time.perf_counter() - t0)
+        now = _launch_counts()
+        per_step.append({k: now[k] - before[k] for k in now})
+        losses.append(loss)
+        if per_step[-1] != expect:
+            raise AssertionError(f"train step {len(losses)} launched {per_step[-1]}, "
+                                 f"expected {expect}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"train step {len(losses)} gave loss {loss}")
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+
+    moved = {k for k, v in model.named_parameters() if not torch.equal(v.detach(), params0[k])}
+    mixer_params = [k for k in params0 if ".mixer." in k]
+    stuck = [k for k in mixer_params if k not in moved]
+    if stuck or len(moved) < 0.9 * len(params0):
+        raise AssertionError(f"parameters did not move: {sorted(set(params0) - moved)}")
+    stats_stuck = [k for k, v in model.named_buffers() if k in stats0 and torch.equal(v, stats0[k])]
+    if stats_stuck:
+        raise AssertionError(f"BatchNorm statistics did not move: {stats_stuck}")
+
+    # one more step in its pieces, each ended by a synchronise, then one
+    # under the profiler
+    pieces, t = {}, time.perf_counter()
+
+    def mark(name):
+        nonlocal t
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        pieces[name] = (now - t) * 1e3
+        t = now
+
+    pts = transforms.scale_and_translate(
+        transforms.fps_resample(points, generator, NPOINTS, point_all=1200), generator)
+    mark("resample_augment")
+    per, _ = cross_entropy_loss_acc(model.train()(pts, generator=generator), labels)
+    loss = per.mean()
+    mark("forward")
+    loss.backward()
+    mark("backward")
+    optimizer.step()
+    mark("optimizer")
+    prof = device_profile(lambda: step(state, points, labels, generator))
+    log("train step pieces: " + ", ".join(f"{k} {v:.3f} ms" for k, v in pieces.items()) +
+        f"; profiled step: device {prof['device_ms']:.3f} of {prof['wall_ms']:.3f} ms wall "
+        f"(busy {prof['busy_share']:.3f})")
+    for row in prof["top"]:
+        log(f"    {row['device_ms']:9.3f} ms  x{row['count']:<5d} {row['name']}")
+
+    # an eval forward after training takes the lean scan again
+    _reset_launch_counts()
+    with torch.inference_mode():
+        logits = model.eval()(points[:, :NPOINTS])
+    counts = _launch_counts()
+    if counts["selective_scan_fwd"] != cfg.depth or counts["selective_scan_fwd_residuals"] != 0:
+        raise AssertionError(f"an eval forward after training launched {counts}")
+    if logits.shape != (TRAIN_BATCH, cfg.cls_dim) or not torch.isfinite(logits).all():
+        raise AssertionError("bad eval logits after training")
+
+    # the input pipeline's FPS (8192 -> 1200 points, a host loop) on its own
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    transforms.fps_resample(points, generator, NPOINTS, point_all=1200)
+    torch.cuda.synchronize()
+    fps_ms = (time.perf_counter() - t0) * 1e3
+
+    p50 = statistics.median(times[1:])
+    record = {"batch": TRAIN_BATCH, "points": TRAIN_POINTS, "steps": TRAIN_STEPS,
+              "p50_step_ms": p50 * 1e3, "clouds_per_s": TRAIN_BATCH / p50,
+              "step_ms": [t * 1e3 for t in times], "losses": losses,
+              "lr": [schedule(i) for i in range(TRAIN_STEPS)],
+              "max_memory_allocated_bytes": peak, "fps_resample_ms": fps_ms,
+              "piece_ms": pieces, "profile": prof,
+              "params_moved": len(moved), "params": len(params0),
+              "launches_per_step": expect, "card": card}
+    log(f"train: {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, p50 {p50 * 1e3:.3f} ms "
+        f"(steps 2 onward), {TRAIN_BATCH / p50:.2f} clouds/s, peak memory "
+        f"{peak / 2**30:.3f} GiB, losses {['%.4f' % v for v in losses]}; "
+        f"fps_resample alone {fps_ms:.3f} ms; {card}")
+    log(f"train launches {launches}; {len(moved)} of {len(params0)} parameters moved")
+    return record, launches
+
+
+def gradient_phase(device) -> dict:
+    """One train-mode forward + backward of the kernel path and of the plain
+    path (scan_impl='seq'), same weights and clouds, drop rates 0: the loss
+    and every parameter gradient. The tolerance has the form of
+    tests/test_full_parity.py:541-545 (there 1.5e-2 across frameworks),
+    tightened for one framework on one card: each leaf within GRAD_TOL of
+    the largest gradient, dominant leaves (above a tenth of it) within
+    GRAD_TOL relative. The sums of the kernels and of the plain path run in
+    other orders; the worst leaf measured on the H100 was 1.3e-5 of the
+    largest gradient."""
+    from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
+    from si_mamba_tpu_torch.models.point_mamba import cross_entropy_loss_acc
+
+    no_drop = {**MODELNET40, "drop_path": 0.0, "cls_head_dropout": 0.0}
+    model = PointMamba(PointMambaConfig.from_dict(no_drop),
+                       generator=torch.Generator().manual_seed(5)).to(device)
+    plain = PointMamba(PointMambaConfig.from_dict({**no_drop, "scan_impl": "seq"})).to(device)
+    plain.load_state_dict(model.state_dict(), strict=True)
+    pts_np, labels_np = _train_clouds(PARITY_BATCH, seed=11)
+    pts = torch.from_numpy(pts_np[:, :NPOINTS]).to(device)
+    labels = torch.from_numpy(labels_np).to(device)
+    losses = {}
+    for name, m in (("kernel", model), ("plain", plain)):
+        per, _ = cross_entropy_loss_acc(m.train()(pts), labels)
+        loss = per.mean()
+        loss.backward()
+        losses[name] = loss.item()
+    if not np.isclose(losses["kernel"], losses["plain"], rtol=2e-4, atol=0):
+        raise AssertionError(f"losses differ: {losses}")
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    ref = {k: p.grad for k, p in plain.named_parameters()}
+    gmax = max(g.abs().max().item() for g in ref.values())
+    worst_leaf, worst_dominant = 0.0, 0.0
+    for k, g in grads.items():
+        diff = (g - ref[k]).abs().max().item()
+        worst_leaf = max(worst_leaf, diff / gmax)
+        if diff >= GRAD_TOL * gmax:
+            raise AssertionError(f"{k}: gradient differs by {diff} (max gradient {gmax})")
+        bmax = ref[k].abs().max().item()
+        if bmax > 0.1 * gmax:
+            worst_dominant = max(worst_dominant, diff / bmax)
+            if diff / bmax >= GRAD_TOL:
+                raise AssertionError(f"{k}: gradient differs by {diff / bmax:.3e} relative")
+    log(f"gradients at B={PARITY_BATCH}: loss kernel {losses['kernel']:.7f}, plain "
+        f"{losses['plain']:.7f}; worst leaf |diff| {worst_leaf:.3e} of max gradient "
+        f"{gmax:.3e}, worst dominant leaf {worst_dominant:.3e} relative")
+    return {"batch": PARITY_BATCH, "losses": losses, "max_grad": gmax,
+            "worst_leaf_diff_over_max_grad": worst_leaf,
+            "worst_dominant_leaf_rel_diff": worst_dominant, "leaves": len(grads)}
 
 
 def main() -> int:
@@ -338,12 +681,22 @@ def main() -> int:
                 log(f"{name}: {line.strip()}")
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
-    records = kernel_phase(device)
+    records = kernel_phase(device) + backward_kernel_phase(device)
     launches, serving, model, requests = serving_phase(device)
-    for r in records:
-        r["launches"] = launches[r["name"]]
     profile = profile_phase(model, requests)
-    print(json.dumps({"serving": serving, "profile": profile, "card": card}), flush=True)
+    del model
+    train, train_launches = train_phase(device, card)
+    grads = gradient_phase(device)
+    # each kernel's launches on the path it serves: the forward kernels on the
+    # serving path, the training kernels on the train path (K1 runs on both)
+    for r in records:
+        by_path = {"serving": launches.get(r["name"], 0), "train": train_launches[r["name"]]}
+        r["launches_by_path"] = by_path
+        r["launches"] = by_path["serving"] if r["name"] in launches else by_path["train"]
+        if r["launches"] <= 0:
+            raise AssertionError(f"{r['name']} was not launched on its path")
+    print(json.dumps({"serving": serving, "profile": profile, "train": train,
+                      "gradients": grads, "card": card}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -32,6 +32,18 @@
 // This grid has B * d / 128 blocks: 192 at B=32, 12 at B=2, so small serve
 // batches leave most of the 132 SMs idle; a split-L two-pass scan is the
 // known remedy.
+//
+// Training variant (template flag kResiduals, entry point
+// `selective_scan_fwd_residuals`): replaces the same TPU kernel with
+// `emit_residuals=True` (reached through `_vjp_fwd`). It also writes the fp32
+// state at the entry of every kChunk-step tile, h_entries (B, ceil(L/kChunk),
+// N, D), the anchors from which the backward (selective_scan_bwd.cu) rebuilds
+// each tile's states. That adds L/kChunk * N floats per channel: 50.3 MB at
+// B=32, L=512, d=768 (kChunk = 16, chosen for the backward's shared memory),
+// coalesced across the block's channels. The TPU kernel also saves the
+// pre-gate output y_pre so that its backward skips the C-contraction; here
+// the backward has each state in hand when it needs y_pre and recomputes it
+// with N fused multiply-adds, which saves a 50.3 MB write and a 50.3 MB read.
 
 #include <cuda_runtime.h>
 
@@ -40,7 +52,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kChunk = 16;
 
-template <int N>
+template <int N, bool kResiduals>
 __global__ void __launch_bounds__(kThreads)
 selective_scan_fwd_kernel(const float* __restrict__ u,
                           const float* __restrict__ dt,
@@ -50,7 +62,8 @@ selective_scan_fwd_kernel(const float* __restrict__ u,
                           const float* __restrict__ Dp,
                           const float* __restrict__ z,
                           const float* __restrict__ dt_bias,
-                          float* __restrict__ y, int L, int D,
+                          float* __restrict__ y,
+                          float* __restrict__ h_entries, int L, int D,
                           long long u_sb, long long u_sr,
                           long long dt_sb, long long dt_sr,
                           long long B_sb, long long B_sr,
@@ -81,6 +94,13 @@ selective_scan_fwd_kernel(const float* __restrict__ u,
   float* yb = y + static_cast<long long>(b) * L * D + dd;
 
   for (int t0 = 0; t0 < L; t0 += kChunk) {
+    if (kResiduals && active) {
+      const long long tile =
+          static_cast<long long>(b) * ((L + kChunk - 1) / kChunk) + t0 / kChunk;
+      float* he = h_entries + tile * N * D + dd;
+#pragma unroll
+      for (int n = 0; n < N; ++n) he[static_cast<long long>(n) * D] = h[n];
+    }
     for (int i = threadIdx.x; i < kChunk * N; i += kThreads) {
       const int r = i / N, n = i % N, t = t0 + r;
       sB[r][n] = t < L ? Bb[t * B_sr + n] : 0.f;
@@ -118,15 +138,16 @@ selective_scan_fwd_kernel(const float* __restrict__ u,
   }
 }
 
-template <int N>
+template <int N, bool kResiduals>
 cudaError_t launch(const float* u, const float* dt, const float* A,
                    const float* Bm, const float* Cm, const float* Dp,
-                   const float* z, const float* dt_bias, float* y, int Bsz,
-                   int L, int D, const long long* s, cudaStream_t stream) {
+                   const float* z, const float* dt_bias, float* y,
+                   float* h_entries, int Bsz, int L, int D, const long long* s,
+                   cudaStream_t stream) {
   const dim3 grid(Bsz, (D + kThreads - 1) / kThreads);
-  selective_scan_fwd_kernel<N><<<grid, kThreads, 0, stream>>>(
-      u, dt, A, Bm, Cm, Dp, z, dt_bias, y, L, D, s[0], s[1], s[2], s[3], s[4],
-      s[5], s[6], s[7], s[8], s[9]);
+  selective_scan_fwd_kernel<N, kResiduals><<<grid, kThreads, 0, stream>>>(
+      u, dt, A, Bm, Cm, Dp, z, dt_bias, y, h_entries, L, D, s[0], s[1], s[2],
+      s[3], s[4], s[5], s[6], s[7], s[8], s[9]);
   return cudaGetLastError();
 }
 
@@ -156,8 +177,29 @@ int selective_scan_fwd(const void* u, const void* dt, const void* A,
   auto s = static_cast<cudaStream_t>(stream);
   // d_state 16 is the only one a ported model uses
   if (N != 16) return cudaErrorInvalidValue;
-  return launch<16>(uf, dtf, Af, Bf, Cf, Df, zf, bf, yf, Bsz, L, D, strides, s);
+  return launch<16, false>(uf, dtf, Af, Bf, Cf, Df, zf, bf, yf, nullptr, Bsz, L,
+                           D, strides, s);
 }
+
+// Training variant: as selective_scan_fwd, and also writes h_entries
+// (Bsz, ceil(L / kChunk), N, D) fp32 contiguous, the state before each tile.
+int selective_scan_fwd_residuals(const void* u, const void* dt, const void* A,
+                                 const void* Bm, const void* Cm,
+                                 const void* Dp, const void* z,
+                                 const void* dt_bias, void* y, void* h_entries,
+                                 int Bsz, int L, int D, int N,
+                                 const long long* strides, void* stream) {
+  if (N != 16) return cudaErrorInvalidValue;
+  return launch<16, true>(
+      static_cast<const float*>(u), static_cast<const float*>(dt),
+      static_cast<const float*>(A), static_cast<const float*>(Bm),
+      static_cast<const float*>(Cm), static_cast<const float*>(Dp),
+      static_cast<const float*>(z), static_cast<const float*>(dt_bias),
+      static_cast<float*>(y), static_cast<float*>(h_entries), Bsz, L, D,
+      strides, static_cast<cudaStream_t>(stream));
+}
+
+int selective_scan_chunk_len() { return kChunk; }
 
 const char* selective_scan_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -7,8 +7,12 @@ The reference's k=1 ``Conv1d`` layers keep their (out, in, 1) weights but
 compute as ``F.linear`` over channel-last activations: a float32 convolution
 would go through cuDNN in TF32 by default.
 
-BatchNorm here is evaluated with the running statistics (eps 1e-5); the
-training-mode statistics wait for the training slice.
+BatchNorm is torch's own ``BatchNorm1d`` (eps 1e-5): in training mode it
+normalises with the biased batch variance and folds the unbiased one into
+the running statistics, the semantics of the JAX package's
+``TorchBatchNorm``; torch's momentum is 1 - the flax retention factor
+(:func:`set_bn_momentum`). Dropout draws from a generator that the caller
+passes (:class:`Dropout`).
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import torch.nn.functional as F
 
 def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Tensor:
     """Normal(0, std) truncated at +-2 std, the form of the JAX package's Dense
-    init (its draws differ; exact init parity waits for the training slice)."""
+    init. The two frameworks draw from different streams, so initialisers
+    agree in form and statistics; parity tests carry weights across."""
     return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
@@ -39,6 +44,35 @@ class PointwiseConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight[..., 0], self.bias)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout whose mask draws from a ``torch.Generator`` passed to
+    ``forward`` (``nn.Dropout`` reads the global generator); identity in eval
+    or at rate 0."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        if self.p == 0.0 or not self.training:
+            return x
+        if generator is None:
+            raise ValueError("dropout in training mode needs a torch.Generator")
+        keep = 1.0 - self.p
+        mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+        return x * mask / keep
+
+
+def set_bn_momentum(module: nn.Module, momentum: float) -> None:
+    """Set every BatchNorm's running-average momentum from the flax-convention
+    retention factor ``momentum`` (torch momentum = 1 - momentum): the
+    counterpart of the JAX model's ``bn_momentum=`` argument, fed once per
+    epoch from ``train.optim.bn_momentum_schedule``."""
+    for m in module.modules():
+        if isinstance(m, nn.modules.batchnorm._BatchNorm):
+            m.momentum = 1.0 - float(momentum)
 
 
 class ChannelLastBatchNorm(nn.BatchNorm1d):
@@ -94,10 +128,15 @@ class ClsHead(nn.Sequential):
 
     def __init__(self, in_dim: int, cls_dim: int, hidden: int = 256, drop: float = 0.5):
         super().__init__(
-            nn.Linear(in_dim, hidden), nn.BatchNorm1d(hidden), nn.ReLU(), nn.Dropout(drop),
-            nn.Linear(hidden, hidden), nn.BatchNorm1d(hidden), nn.ReLU(), nn.Dropout(drop),
+            nn.Linear(in_dim, hidden), nn.BatchNorm1d(hidden), nn.ReLU(), Dropout(drop),
+            nn.Linear(hidden, hidden), nn.BatchNorm1d(hidden), nn.ReLU(), Dropout(drop),
             nn.Linear(hidden, cls_dim))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for i in (0, 4, 8):
             _init_linear(self[i], generator)
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        for m in self:
+            x = m(x, generator) if isinstance(m, Dropout) else m(x)
+        return x

@@ -20,6 +20,7 @@ import math
 import torch
 import torch.nn as nn
 
+from si_mamba_tpu_torch.models.embed import Dropout
 from si_mamba_tpu_torch.ops.selective_scan import mamba_mixer_apply
 
 
@@ -103,19 +104,24 @@ class MambaMixer(nn.Module):
 
 
 class DropPath(nn.Module):
-    """Per-sample stochastic depth (timm semantics); identity in eval."""
+    """Per-sample stochastic depth (timm semantics); identity in eval. The
+    mask draws from the generator passed to ``forward``, else from the one
+    given at construction; training at a rate above 0 needs one of them."""
 
     def __init__(self, rate: float, generator: torch.Generator | None = None):
         super().__init__()
         self.rate = rate
         self.generator = generator
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
+        generator = generator if generator is not None else self.generator
+        if generator is None:
+            raise ValueError("DropPath in training mode needs a torch.Generator")
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.empty(shape, device=x.device).bernoulli_(keep, generator=self.generator)
+        mask = torch.empty(shape, device=x.device).bernoulli_(keep, generator=generator)
         return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
 
 
@@ -130,22 +136,26 @@ class Block(nn.Module):
         self.mixer = MambaMixer(d_model, out_proj_div=out_proj_div, scan_impl=scan_impl)
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, hidden: torch.Tensor, residual: torch.Tensor | None = None):
-        residual = hidden if residual is None else self.drop_path(hidden) + residual
+    def forward(self, hidden: torch.Tensor, residual: torch.Tensor | None = None,
+                generator: torch.Generator | None = None):
+        residual = hidden if residual is None else self.drop_path(hidden, generator) + residual
         return self.mixer(self.norm(residual)), residual
 
 
 class MixerModel(nn.Module):
-    """Stack of Mamba blocks + final LayerNorm."""
+    """Stack of Mamba blocks + final LayerNorm; in training, dropout at
+    ``drop_out_in_block`` after every block's mixer output."""
 
     def __init__(self, d_model: int, n_layer: int, norm_eps: float = 1e-5,
-                 drop_path: float = 0.0, scan_impl: str = "auto"):
+                 drop_path: float = 0.0, drop_out_in_block: float = 0.0,
+                 scan_impl: str = "auto"):
         super().__init__()
         div = math.sqrt(n_layer)  # one residual per layer
         self.layers = nn.ModuleList(
             Block(d_model, norm_eps=norm_eps, drop_path=drop_path, out_proj_div=div,
                   scan_impl=scan_impl)
             for _ in range(n_layer))
+        self.block_dropout = Dropout(drop_out_in_block)
         self.norm_f = nn.LayerNorm(d_model, eps=norm_eps)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -154,9 +164,11 @@ class MixerModel(nn.Module):
             layer.mixer.reset_parameters(generator)
         self.norm_f.reset_parameters()
 
-    def forward(self, x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pos: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         hidden, residual = x + pos, None
         for layer in self.layers:
-            hidden, residual = layer(hidden, residual)
+            hidden, residual = layer(hidden, residual, generator)
+            hidden = self.block_dropout(hidden, generator)
         residual = hidden + residual if residual is not None else hidden
         return self.norm_f(residual)

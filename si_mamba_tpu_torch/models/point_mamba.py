@@ -1,9 +1,11 @@
-"""PointMamba classifier, eval forward.
+"""PointMamba classifier.
 
 PyTorch counterpart of ``si_mamba_tpu/models/point_mamba.py``: Group ->
 PatchEncoder -> pos-embed -> ordering (SAST or xyz 'MAMBA') -> MixerModel ->
 LayerNorm -> mean-pool -> classification head. Module names follow the
-reference's state-dict keys.
+reference's state-dict keys. ``.train()`` is the JAX model's ``train=True``:
+BatchNorm on batch statistics, DropPath and dropout drawing from the
+``generator`` passed to ``forward``.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from si_mamba_tpu_torch.models.embed import ClsHead, PatchEncoder, PosEmbedMLP
+from si_mamba_tpu_torch.models.embed import ClsHead, Dropout, PatchEncoder, PosEmbedMLP
 from si_mamba_tpu_torch.models.grouping import group_divider
 from si_mamba_tpu_torch.models.layers import MixerModel
 from si_mamba_tpu_torch.models.ordering import sast_sequence, xyz_sequence
@@ -112,8 +114,9 @@ def spectral_eigvecs(center: torch.Tensor, cfg: PointMambaConfig):
 
 class PointMamba(nn.Module):
     """The classifier. Built on the CPU from a seeded ``torch.Generator``
-    (seed 0 when none is given); move it with ``.to(device)``. Only the eval
-    forward is ported: call ``.eval()`` first."""
+    (seed 0 when none is given); move it with ``.to(device)``. In training
+    mode a forward with a drop rate above 0 needs a ``generator`` on the
+    input's device for its random draws."""
 
     def __init__(self, config: PointMambaConfig, generator: torch.Generator | None = None):
         super().__init__()
@@ -121,7 +124,9 @@ class PointMamba(nn.Module):
         self.config = cfg = config
         self.encoder = PatchEncoder(cfg.encoder_dims)
         self.pos_embed = PosEmbedMLP(cfg.trans_dim)
+        self.drop_out = Dropout(cfg.drop_out)
         self.blocks = MixerModel(cfg.trans_dim, cfg.depth, drop_path=cfg.drop_path,
+                                 drop_out_in_block=cfg.drop_out_in_block,
                                  scan_impl=cfg.scan_impl)
         self.norm = nn.LayerNorm(cfg.trans_dim, eps=1e-5)
         self.cls_head_finetune = ClsHead(cfg.trans_dim, cfg.cls_dim, drop=cfg.cls_head_dropout)
@@ -152,20 +157,20 @@ class PointMamba(nn.Module):
             _, eigvecs = spectral_eigvecs(center, cfg)
         return sast_sequence(tokens, pos, eigvecs, reverse=cfg.reverse, reverse_2=cfg.reverse_2)
 
-    def classify(self, x, pos_seq, return_features: bool = False):
-        """Mamba stack -> LayerNorm -> mean-pool -> head: logits (B, cls_dim)."""
-        feat = torch.mean(self.norm(self.blocks(x, pos_seq)), dim=1)
-        logits = self.cls_head_finetune(feat)
+    def classify(self, x, pos_seq, return_features: bool = False,
+                 generator: torch.Generator | None = None):
+        """Dropout -> Mamba stack -> LayerNorm -> mean-pool -> head: logits
+        (B, cls_dim)."""
+        x = self.drop_out(x, generator)
+        feat = torch.mean(self.norm(self.blocks(x, pos_seq, generator)), dim=1)
+        logits = self.cls_head_finetune(feat, generator)
         return (logits, feat) if return_features else logits
 
-    def forward(self, pts: torch.Tensor, fps_start_idx=0, return_features: bool = False):
-        if self.training:
-            raise NotImplementedError(
-                "only the eval forward is ported (call .eval()); training is "
-                "ROADMAP.md queue 1, slice 2")
+    def forward(self, pts: torch.Tensor, fps_start_idx=0, return_features: bool = False,
+                generator: torch.Generator | None = None):
         tokens, pos, center = self.embed(pts, fps_start_idx)
         x, pos_seq = self.sequence(tokens, pos, center)
-        return self.classify(x, pos_seq, return_features)
+        return self.classify(x, pos_seq, return_features, generator)
 
 
 def cross_entropy_loss_acc(logits: torch.Tensor, labels: torch.Tensor):

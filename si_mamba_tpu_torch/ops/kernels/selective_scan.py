@@ -1,17 +1,26 @@
-"""Mamba-1 selective scan forward: the CUDA kernel and its plain version.
+"""Mamba-1 selective scan, forward and backward: the CUDA kernels, their
+plain versions and the autograd Function over them.
 
-Kernel: ``csrc/selective_scan_fwd.cu``, which replaces the lean inference
-variant of the TPU kernel ``_fwd_kernel`` (``_pallas_scan_fwd(...,
-emit_residuals=False)`` behind ``selective_scan_pallas``,
-si_mamba_tpu/ops/pallas/selective_scan_kernel.py). On the H100 it is bound by
-bytes (one read of u, dt, z, B, C and one write of y) with its exponentials
-close behind; one thread per channel keeps the fp32 state in registers and
-loops over time, so the (B, L, d, n) discretised tensors never reach device
-memory. The source describes the design.
+Kernels:
+- ``csrc/selective_scan_fwd.cu``, two variants of the TPU kernel
+  ``_fwd_kernel`` (si_mamba_tpu/ops/pallas/selective_scan_kernel.py):
+  the lean inference forward (K2, ``emit_residuals=False``), and the training
+  forward (K3, ``emit_residuals=True`` through ``_vjp_fwd``), which also writes
+  the fp32 state at the entry of every :data:`CHUNK`-step tile. Both are bound
+  by bytes on the H100 with their exponentials close behind; one thread per
+  channel keeps the state in registers, so the (B, L, d, n) discretised
+  tensors never reach device memory.
+- ``csrc/selective_scan_bwd.cu`` (K4), which replaces ``_bwd_kernel``
+  (``_pallas_scan_bwd``) and the partial sums of ``_vjp_bwd``. Bound by bytes
+  and exponentials alike; it walks the tiles in reverse inside each block,
+  rebuilds a tile's states from its entry state in shared memory and carries
+  dh in registers, and writes the channel and batch sums as partials that
+  ``torch.sum`` finishes.
+The sources describe the designs.
 
-:func:`selective_scan_fwd` takes the plain version for a tensor on the CPU
-and launches the kernel for a CUDA tensor; it never falls back from one to
-the other.
+:func:`selective_scan_fused` runs K2 when no gradient is wanted and
+:class:`SelectiveScanFn` (K3 forward, K4 backward) when one is; on a CPU
+tensor each is its plain version. Nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -24,20 +33,32 @@ import torch.nn.functional as F
 
 from si_mamba_tpu_torch.ops.kernels.build import load_library
 
+# Steps per tile of the forward kernels' h_entries and of the backward's
+# rebuild (kChunk in both CUDA sources; checked when they are loaded).
+CHUNK = 16
+
+_NAMES = ("u", "delta", "A", "B", "C", "D", "z", "delta_bias")
+
+
+def _acc_dtype(u: torch.Tensor) -> torch.dtype:
+    """The plain versions compute in fp32, or in fp64 for fp64 input."""
+    return torch.promote_types(u.dtype, torch.float32)
+
 
 def selective_scan_ref(u, delta, A, B, C, D=None, z=None, delta_bias=None,
                        delta_softplus: bool = True) -> torch.Tensor:
     """Plain version, sequential in time: the correctness oracle.
 
     u, delta, z: (b, l, d); A: (d, n); B, C: (b, l, n); D, delta_bias: (d,).
-    The (b, d, n) fp32 state is carried one step at a time, so no (b, l, d, n)
-    tensor is built. Returns (b, l, d) in u's dtype."""
-    delta = delta.float()
+    The (b, d, n) state (fp32, or fp64 for fp64 input) is carried one step at
+    a time, so no (b, l, d, n) tensor is built. Returns (b, l, d) in u's dtype."""
+    acc = _acc_dtype(u)
+    delta = delta.to(acc)
     if delta_bias is not None:
-        delta = delta + delta_bias.float()
+        delta = delta + delta_bias.to(acc)
     if delta_softplus:
         delta = F.softplus(delta)
-    u32, A32, B32, C32 = u.float(), A.float(), B.float(), C.float()
+    u32, A32, B32, C32 = u.to(acc), A.to(acc), B.to(acc), C.to(acc)
     b, l, d = u32.shape
     h = u32.new_zeros((b, d, A32.shape[1]))
     ys = []
@@ -47,71 +68,276 @@ def selective_scan_ref(u, delta, A, B, C, D=None, z=None, delta_bias=None,
         ys.append(torch.einsum("bdn,bn->bd", h, C32[:, t]))
     y = torch.stack(ys, dim=1) if ys else u32.new_zeros((b, 0, d))
     if D is not None:
-        y = y + u32 * D.float()
+        y = y + u32 * D.to(acc)
     if z is not None:
-        y = y * F.silu(z.float())
+        y = y * F.silu(z.to(acc))
     return y.to(u.dtype)
 
 
+def selective_scan_fwd_residuals_ref(u, delta, A, B, C, D, z, delta_bias):
+    """Plain version of the training forward: (y, h_entries), where
+    h_entries (b, ceil(l / CHUNK), n, d) holds the state before steps 0,
+    CHUNK, 2 CHUNK, ... (fp32, or fp64 for fp64 input)."""
+    acc = _acc_dtype(u)
+    dl = F.softplus(delta.to(acc) + delta_bias.to(acc))
+    u32, A32, B32, C32 = u.to(acc), A.to(acc), B.to(acc), C.to(acc)
+    b, l, d = u32.shape
+    h = u32.new_zeros((b, d, A32.shape[1]))
+    ys, entries = [], []
+    for t in range(l):
+        if t % CHUNK == 0:
+            entries.append(h.transpose(1, 2))
+        dt_t = dl[:, t, :, None]
+        h = torch.exp(dt_t * A32) * h + (dt_t * u32[:, t, :, None]) * B32[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, C32[:, t]))
+    y = torch.stack(ys, dim=1) if ys else u32.new_zeros((b, 0, d))
+    y = (y + u32 * D.to(acc)) * F.silu(z.to(acc))
+    h_entries = (torch.stack(entries, dim=1) if entries
+                 else u32.new_zeros((b, 0, A32.shape[1], d)))
+    return y.to(u.dtype), h_entries
+
+
+def selective_scan_bwd_ref(u, delta, A, B, C, D, z, delta_bias, g, h_entries):
+    """Plain backward, written out as the kernel computes it: for each tile,
+    last first, a plain forward recompute of the tile's states from its entry
+    state, then the explicit reverse recurrence
+
+        dh_t = gy_t C_t + a_{t+1} dh_{t+1},   gy_t = g_t silu(z_t),
+
+    with dh carried across tiles. Returns (du, ddelta, dA, dB, dC, dD, dz,
+    ddelta_bias) in the dtypes of the corresponding inputs."""
+    acc = _acc_dtype(u)
+    raw = delta.to(acc) + delta_bias.to(acc)
+    dl, sig_raw = F.softplus(raw), torch.sigmoid(raw)
+    u32, A32, B32, C32 = u.to(acc), A.to(acc), B.to(acc), C.to(acc)
+    D32, z32, g32 = D.to(acc), z.to(acc), g.to(acc)
+    b, l, d = u32.shape
+    sig_z = torch.sigmoid(z32)
+    gy = g32 * z32 * sig_z
+    dz_gate = g32 * sig_z * (1.0 + z32 * (1.0 - sig_z))
+    du, dlt, dz = (torch.empty_like(u32) for _ in range(3))
+    dB, dC = torch.empty_like(B32), torch.empty_like(C32)
+    dA = torch.zeros_like(A32)
+    dh = u32.new_zeros((b, d, A32.shape[1]))  # a_{t+1} dh_{t+1}
+    for c in reversed(range(h_entries.shape[1])):
+        t0, t1 = c * CHUNK, min((c + 1) * CHUNK, l)
+        h = h_entries[:, c].to(acc).transpose(1, 2)  # (b, d, n)
+        prev = []  # the state before each step of the tile
+        for t in range(t0, t1):
+            prev.append(h)
+            dt_t = dl[:, t, :, None]
+            h = torch.exp(dt_t * A32) * h + (dt_t * u32[:, t, :, None]) * B32[:, t, None, :]
+        for t in reversed(range(t0, t1)):
+            hp = prev[t - t0]
+            dt_t = dl[:, t, :, None]
+            a = torch.exp(dt_t * A32)
+            dbu = dt_t * u32[:, t, :, None]  # (b, d, 1)
+            ht = a * hp + dbu * B32[:, t, None, :]
+            y_pre = torch.einsum("bdn,bn->bd", ht, C32[:, t]) + D32 * u32[:, t]
+            dz[:, t] = dz_gate[:, t] * y_pre
+            dh = gy[:, t, :, None] * C32[:, t, None, :] + dh
+            daa = dh * hp * a
+            dA += torch.sum(daa * dt_t, dim=0)
+            dhb = torch.einsum("bdn,bn->bd", dh, B32[:, t])
+            ddelta = torch.sum(daa * A32, dim=-1) + dhb * u32[:, t]
+            dlt[:, t] = ddelta * sig_raw[:, t]
+            du[:, t] = dl[:, t] * dhb + gy[:, t] * D32
+            dB[:, t] = torch.sum(dh * dbu, dim=1)
+            dC[:, t] = torch.einsum("bdn,bd->bn", ht, gy[:, t])
+            dh = a * dh
+    dD = torch.sum(gy * u32, dim=(0, 1))
+    ddb = torch.sum(dlt, dim=(0, 1))
+    outs = (du, dlt, dA, dB, dC, dD, dz, ddb)
+    like = (u, delta, A, B, C, D, z, delta_bias)
+    return tuple(o.to(t.dtype) for o, t in zip(outs, like))
+
+
+def _set_argtypes(fn, argtypes):
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+
+
 @functools.cache
-def _library() -> ctypes.CDLL:
+def _fwd_library() -> ctypes.CDLL:
     lib = load_library("selective_scan_fwd")
-    lib.selective_scan_fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + \
-        [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
-    lib.selective_scan_fwd.restype = ctypes.c_int
+    strides = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+    _set_argtypes(lib.selective_scan_fwd, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + strides)
+    _set_argtypes(lib.selective_scan_fwd_residuals,
+                  [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + strides)
+    lib.selective_scan_chunk_len.restype = ctypes.c_int
+    if lib.selective_scan_chunk_len() != CHUNK:
+        raise RuntimeError("csrc/selective_scan_fwd.cu's kChunk differs from CHUNK")
     lib.selective_scan_error_string.argtypes = [ctypes.c_int]
     lib.selective_scan_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(u, delta, A, B, C, D, z, delta_bias) -> torch.Tensor:
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    lib = load_library("selective_scan_bwd")
+    _set_argtypes(lib.selective_scan_bwd,
+                  [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 +
+                  [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    lib.selective_scan_bwd_chunk_len.restype = ctypes.c_int
+    lib.selective_scan_bwd_block_channels.restype = ctypes.c_int
+    if lib.selective_scan_bwd_chunk_len() != CHUNK:
+        raise RuntimeError("csrc/selective_scan_bwd.cu's kChunk differs from CHUNK")
+    lib.selective_scan_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.selective_scan_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_inputs(tensors: dict, extra: dict | None = None) -> tuple[int, int, int, int]:
+    """Raise for anything the kernels do not take; returns (b, l, d, n)."""
+    u, A = tensors["u"], tensors["A"]
     bsz, L, d = u.shape
     n = A.shape[1]
-    named = dict(u=u, delta=delta, A=A, B=B, C=C, D=D, z=z, delta_bias=delta_bias)
-    for name, t in named.items():
+    for name, t in (tensors | (extra or {})).items():
         if t.dtype != torch.float32:
-            raise TypeError(f"the selective-scan kernel takes float32 inputs; {name} is {t.dtype}")
+            raise TypeError(f"the selective-scan kernels take float32 inputs; {name} is {t.dtype}")
         if not t.is_cuda or t.device != u.device:
             raise ValueError(f"{name} must lie on u's CUDA device")
         if t.stride(-1) != 1:
-            raise ValueError(f"the selective-scan kernel needs unit stride along {name}'s last axis")
-    for name, t, shape in (("delta", delta, (bsz, L, d)), ("z", z, (bsz, L, d)),
-                           ("A", A, (d, n)), ("B", B, (bsz, L, n)), ("C", C, (bsz, L, n)),
-                           ("D", D, (d,)), ("delta_bias", delta_bias, (d,))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+            raise ValueError(f"the selective-scan kernels need unit stride along "
+                             f"{name}'s last axis")
+    shapes = dict(u=(bsz, L, d), delta=(bsz, L, d), z=(bsz, L, d), A=(d, n), B=(bsz, L, n),
+                  C=(bsz, L, n), D=(d,), delta_bias=(d,), g=(bsz, L, d),
+                  h_entries=(bsz, -(-L // CHUNK), n, d))
+    for name, t in (tensors | (extra or {})).items():
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shapes[name]}")
     if n != 16:
-        raise ValueError(f"the selective-scan kernel is built for d_state 16, got {n}")
+        raise ValueError(f"the selective-scan kernels are built for d_state 16, got {n}")
+    return bsz, L, d, n
+
+
+def _rows(*ts):
+    """The (batch, row) strides of each tensor, as the kernels take them."""
+    vals = [s for t in ts for s in (t.stride(0), t.stride(1))]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _launch_fwd(u, delta, A, B, C, D, z, delta_bias, residuals: bool):
+    args = dict(zip(_NAMES, (u, delta, A, B, C, D, z, delta_bias)))
+    bsz, L, d, n = _check_inputs(args)
     A, D, delta_bias = A.contiguous(), D.contiguous(), delta_bias.contiguous()
     y = torch.empty((bsz, L, d), dtype=torch.float32, device=u.device)
+    h_entries = (torch.empty((bsz, -(-L // CHUNK), n, d), dtype=torch.float32,
+                             device=u.device) if residuals else None)
     if y.numel() == 0:
-        return y
-    strides = (ctypes.c_longlong * 10)(*(s for t in (u, delta, B, C, z)
-                                         for s in (t.stride(0), t.stride(1))))
-    lib = _library()
+        return y, h_entries
+    lib = _fwd_library()
+    ptrs = [t.data_ptr() for t in (u, delta, A, B, C, D, z, delta_bias, y)]
+    strides = _rows(u, delta, B, C, z)
     stream = torch.cuda.current_stream(u.device).cuda_stream
     with torch.cuda.device(u.device):
-        err = lib.selective_scan_fwd(
-            u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-            D.data_ptr(), z.data_ptr(), delta_bias.data_ptr(), y.data_ptr(),
-            bsz, L, d, n, strides, stream)
+        if residuals:
+            err = lib.selective_scan_fwd_residuals(*ptrs, h_entries.data_ptr(), bsz, L, d, n,
+                                                   strides, stream)
+        else:
+            err = lib.selective_scan_fwd(*ptrs, bsz, L, d, n, strides, stream)
     if err != 0:
         msg = lib.selective_scan_error_string(err).decode()
-        raise RuntimeError(f"selective-scan kernel launch failed: {msg} ({err})")
-    selective_scan_fwd.launches += 1
-    return y
+        raise RuntimeError(f"selective-scan forward kernel launch failed: {msg} ({err})")
+    if residuals:
+        selective_scan_fwd_residuals.launches += 1
+    else:
+        selective_scan_fwd.launches += 1
+    return y, h_entries
+
+
+def _launch_bwd(u, delta, A, B, C, D, z, delta_bias, g, h_entries):
+    args = dict(zip(_NAMES, (u, delta, A, B, C, D, z, delta_bias)))
+    bsz, L, d, n = _check_inputs(args, dict(g=g, h_entries=h_entries))
+    A, D, delta_bias = A.contiguous(), D.contiguous(), delta_bias.contiguous()
+    h_entries = h_entries.contiguous()
+    lib = _bwd_library()
+    n_blk = -(-d // lib.selective_scan_bwd_block_channels())
+    f32 = dict(dtype=torch.float32, device=u.device)
+    du, ddelta, dz = (torch.empty((bsz, L, d), **f32) for _ in range(3))
+    dB_part, dC_part = (torch.empty((bsz, n_blk, L, n), **f32) for _ in range(2))
+    dA_part = torch.empty((bsz, d, n), **f32)
+    dD_part, ddb_part = (torch.empty((bsz, d), **f32) for _ in range(2))
+    if du.numel() == 0:
+        return (du, ddelta, torch.zeros_like(A), torch.zeros_like(B), torch.zeros_like(C),
+                torch.zeros_like(D), dz, torch.zeros_like(delta_bias))
+    ins = (ctypes.c_void_p * 10)(*(t.data_ptr() for t in (
+        u, delta, A, B, C, D, z, delta_bias, g, h_entries)))
+    outs = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in (
+        du, ddelta, dz, dB_part, dC_part, dA_part, dD_part, ddb_part)))
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    with torch.cuda.device(u.device):
+        err = lib.selective_scan_bwd(ins, outs, bsz, L, d, n, _rows(u, delta, B, C, z, g), stream)
+    if err != 0:
+        msg = lib.selective_scan_bwd_error_string(err).decode()
+        raise RuntimeError(f"selective-scan backward kernel launch failed: {msg} ({err})")
+    selective_scan_bwd.launches += 1
+    return (du, ddelta, dA_part.sum(0), dB_part.sum(1), dC_part.sum(1), dD_part.sum(0), dz,
+            ddb_part.sum(0))
 
 
 def selective_scan_fwd(u, delta, A, B, C, D, z, delta_bias) -> torch.Tensor:
-    """Fused forward: softplus(delta + delta_bias), the fp32 scan, the D skip
-    and the silu(z) gate. Shapes as in :func:`selective_scan_ref`; each of u,
-    delta, B, C, z needs unit stride only along its last axis. On a CUDA
-    tensor this launches the kernel (float32, d_state 16) or raises;
-    on the CPU it is :func:`selective_scan_ref`.
-    ``selective_scan_fwd.launches`` counts kernel launches."""
+    """Fused inference forward (K2): softplus(delta + delta_bias), the fp32
+    scan, the D skip and the silu(z) gate. Shapes as in
+    :func:`selective_scan_ref`; each of u, delta, B, C, z needs unit stride
+    only along its last axis. On a CUDA tensor this launches the kernel
+    (float32, d_state 16) or raises; on the CPU it is
+    :func:`selective_scan_ref`. ``selective_scan_fwd.launches`` counts kernel
+    launches."""
     if u.is_cuda:
-        return _launch(u, delta, A, B, C, D, z, delta_bias)
+        return _launch_fwd(u, delta, A, B, C, D, z, delta_bias, residuals=False)[0]
     return selective_scan_ref(u, delta, A, B, C, D=D, z=z, delta_bias=delta_bias)
 
 
+def selective_scan_fwd_residuals(u, delta, A, B, C, D, z, delta_bias):
+    """Training forward (K3): (y, h_entries), h_entries (b, ceil(l / CHUNK),
+    n, d) fp32 the state before each tile. The kernel on a CUDA tensor,
+    :func:`selective_scan_fwd_residuals_ref` on the CPU.
+    ``selective_scan_fwd_residuals.launches`` counts kernel launches."""
+    if u.is_cuda:
+        return _launch_fwd(u, delta, A, B, C, D, z, delta_bias, residuals=True)
+    return selective_scan_fwd_residuals_ref(u, delta, A, B, C, D, z, delta_bias)
+
+
+def selective_scan_bwd(u, delta, A, B, C, D, z, delta_bias, g, h_entries):
+    """Backward (K4): (du, ddelta, dA, dB, dC, dD, dz, ddelta_bias) for the
+    output gradient g and the forward's h_entries. The kernel on a CUDA
+    tensor (g and the inputs need unit stride only along their last axis),
+    :func:`selective_scan_bwd_ref` on the CPU.
+    ``selective_scan_bwd.launches`` counts kernel launches."""
+    if u.is_cuda:
+        return _launch_bwd(u, delta, A, B, C, D, z, delta_bias, g, h_entries)
+    return selective_scan_bwd_ref(u, delta, A, B, C, D, z, delta_bias, g, h_entries)
+
+
+class SelectiveScanFn(torch.autograd.Function):
+    """The fused scan with its backward: K3 forward (keeping the tile entry
+    states) and K4 backward on a CUDA tensor, the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D, z, delta_bias):
+        y, h_entries = selective_scan_fwd_residuals(u, delta, A, B, C, D, z, delta_bias)
+        ctx.save_for_backward(u, delta, A, B, C, D, z, delta_bias, h_entries)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.stride(-1) != 1:
+            g = g.contiguous()
+        *inputs, h_entries = ctx.saved_tensors
+        return selective_scan_bwd(*inputs, g, h_entries)
+
+
+def selective_scan_fused(u, delta, A, B, C, D, z, delta_bias) -> torch.Tensor:
+    """The full fused scan, differentiable: :class:`SelectiveScanFn` when grad
+    mode is on and an input requires grad, else the lean forward (K2 on a
+    CUDA tensor)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (u, delta, A, B, C, D, z, delta_bias)):
+        return SelectiveScanFn.apply(u, delta, A, B, C, D, z, delta_bias)
+    return selective_scan_fwd(u, delta, A, B, C, D, z, delta_bias)
+
+
 selective_scan_fwd.launches = 0
+selective_scan_fwd_residuals.launches = 0
+selective_scan_bwd.launches = 0

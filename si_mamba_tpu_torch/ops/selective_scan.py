@@ -12,8 +12,12 @@ Implementations of the scan:
   version, :func:`~si_mamba_tpu_torch.ops.kernels.selective_scan.selective_scan_ref`);
 - ``selective_scan_chunked``: a log-depth scan inside chunks of time with the
   state carried across chunks, the default on the CPU;
-- the CUDA kernel (``ops/kernels/selective_scan.py``), which ``impl='auto'``
-  launches for a CUDA tensor (or raises).
+- ``impl='pallas'``, the port's counterpart of the JAX package's Pallas
+  kernels (``ops/kernels/selective_scan.py``): on a CUDA tensor the CUDA
+  kernels (the lean forward without a gradient; the training forward and the
+  backward through ``SelectiveScanFn`` with one), on a CPU tensor their plain
+  forward and backward, as ``interpret=True`` runs the Pallas kernels off the
+  TPU. ``impl='auto'`` is 'pallas' on a CUDA tensor and 'chunked' on the CPU.
 
 Layout is batch-major, time second: u (B, L, D).
 """
@@ -24,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_ref, causal_conv1d_silu
-from si_mamba_tpu_torch.ops.kernels.selective_scan import selective_scan_fwd, selective_scan_ref
+from si_mamba_tpu_torch.ops.kernels.selective_scan import selective_scan_fused, selective_scan_ref
 
 causal_conv1d = causal_conv1d_ref
 selective_scan_seq = selective_scan_ref
@@ -32,8 +36,6 @@ selective_scan_seq = selective_scan_ref
 # Scan implementations of the JAX package that the port does not have yet,
 # with the ROADMAP item that will bring each.
 _NOT_PORTED = {
-    "pallas": "ROADMAP queue 2, K3/K4 (training scan kernels); 'auto' already "
-              "runs the forward kernel on a CUDA tensor",
     "assoc": "ROADMAP queue 1, M6b (whole-sequence associative scan)",
     "fused": "ROADMAP queue 2, K10/K11 (whole-mixer kernel)",
     "fused_interpret": "ROADMAP queue 2, K10/K11 (whole-mixer kernel)",
@@ -89,25 +91,33 @@ def selective_scan_chunked(u, delta, A, B, C, D=None, z=None, delta_bias=None,
     return y.to(u.dtype)
 
 
+def _resolve(impl: str, x: torch.Tensor) -> str:
+    """'auto' is 'pallas' on a CUDA tensor and 'chunked' on the CPU."""
+    if impl == "auto":
+        return "pallas" if x.is_cuda else "chunked"
+    return impl
+
+
 def selective_scan(u, delta, A, B, C, D=None, z=None, delta_bias=None,
                    delta_softplus: bool = True, impl: str = "auto") -> torch.Tensor:
-    """Dispatch: 'auto' | 'seq' | 'chunked'.
+    """Dispatch: 'auto' | 'pallas' | 'seq' | 'chunked'.
 
-    'auto' launches the CUDA kernel for a CUDA tensor, which takes only the
-    full fused signature (softplus, D, z, delta_bias) and raises without it;
-    for a CPU tensor it is the chunked scan. 'seq' and 'chunked' are the
-    plain versions, chosen explicitly, on any device."""
-    if impl == "auto":
-        if u.is_cuda:
-            missing = [name for name, given in (
-                ("delta_softplus=True", delta_softplus), ("D", D is not None),
-                ("z", z is not None), ("delta_bias", delta_bias is not None)) if not given]
-            if missing:
-                raise NotImplementedError(
-                    f"the scan kernel needs {', '.join(missing)}; pass impl='seq' or "
-                    f"'chunked' for the plain scan")
-            return selective_scan_fwd(u, delta, A, B, C, D, z, delta_bias)
-        impl = "chunked"
+    'pallas' is the fused scan of ``ops/kernels/selective_scan.py``: the CUDA
+    kernels on a CUDA tensor, their plain forward and backward on the CPU. It
+    takes only the full fused signature (softplus, D, z, delta_bias) and
+    raises without it. 'auto' is 'pallas' on a CUDA tensor and 'chunked' on
+    the CPU. 'seq' and 'chunked' are the plain scans, chosen explicitly, on
+    any device."""
+    impl = _resolve(impl, u)
+    if impl == "pallas":
+        missing = [name for name, given in (
+            ("delta_softplus=True", delta_softplus), ("D", D is not None),
+            ("z", z is not None), ("delta_bias", delta_bias is not None)) if not given]
+        if missing:
+            raise NotImplementedError(
+                f"the fused scan needs {', '.join(missing)}; pass impl='seq' or "
+                f"'chunked' for the plain scan")
+        return selective_scan_fused(u, delta, A, B, C, D, z, delta_bias)
     if impl == "seq":
         return selective_scan_seq(u, delta, A, B, C, D, z, delta_bias, delta_softplus)
     if impl == "chunked":
@@ -131,18 +141,21 @@ def mamba_mixer_apply(params: dict, x: torch.Tensor, *, d_state: int, dt_rank: i
       D           (d_inner,)
       out_proj_w  (d_inner, d_model)
 
-    x: (B, L, d_model) -> (B, L, d_model). ``impl='auto'`` runs the conv and
-    the scan through their CUDA kernels on a CUDA tensor, for any d_inner;
-    'seq' and 'chunked' compose the plain conv with that plain scan."""
+    x: (B, L, d_model) -> (B, L, d_model). Under 'pallas' (which 'auto' is
+    on a CUDA tensor) the conv and the scan are the differentiable fused ops
+    of ``ops/kernels``: their CUDA kernels on a CUDA tensor, their plain
+    forward and backward on the CPU. 'seq' and 'chunked' (which 'auto' is on
+    the CPU) compose the plain conv with that plain scan, under autograd."""
     if impl in _NOT_PORTED:
         _raise_not_ported(impl)
+    impl = _resolve(impl, x)
     if x.dtype != torch.float32:
         raise NotImplementedError(
             "the mixer runs in float32; bf16 waits for ROADMAP queue 1, M20 (perf mode)")
     xz = x @ params["in_proj_w"]  # (B, L, 2*d_inner)
     d_inner = xz.shape[-1] // 2
     xi, z = xz[..., :d_inner], xz[..., d_inner:]  # column views, no copy
-    if impl == "auto":
+    if impl == "pallas":
         xi = causal_conv1d_silu(xi, params["conv_w"], params["conv_b"])
     else:
         xi = causal_conv1d(xi, params["conv_w"], params["conv_b"], activation="silu")

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here needs a CUDA device and the CUDA toolkit (the kernels have no
-CPU mode) and skips without one. The file imports only the port, so on a
-machine with a GPU and no JAX it runs with the suite's conftest left out:
+The tests marked ``cuda`` need a CUDA device and the CUDA toolkit (the
+kernels have no CPU mode) and skip without one; the gradient checks of the
+autograd Functions run their plain path in float64 on any host. The file
+imports only the port, so on a machine with a GPU and no JAX it runs with
+the suite's conftest left out:
 
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 """
@@ -29,6 +31,13 @@ def _randn(rng, *shape, scale=1.0, device="cpu"):
     return torch.tensor(rng.standard_normal(shape).astype(np.float32) * scale, device=device)
 
 
+def _close_to_max(got, want, tol):
+    """max |got - want| within tol * max |want| (sums taken in other orders)."""
+    err = (got - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), (err, want.abs().max().item())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("l,d", [(37, 24), (512, 200), (64, 130), (65, 768)])
 def test_conv_kernel_matches_plain(cuda, l, d):
     rng = np.random.default_rng(0)
@@ -43,6 +52,7 @@ def test_conv_kernel_matches_plain(cuda, l, d):
                                rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("l,d", [(64, 32), (50, 200), (33, 96), (512, 768)])
 def test_scan_kernel_matches_plain(cuda, l, d):
     rng = np.random.default_rng(1)
@@ -60,6 +70,7 @@ def test_scan_kernel_matches_plain(cuda, l, d):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * want.abs().max().item())
 
 
+@pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take(cuda):
     rng = np.random.default_rng(2)
     x = _randn(rng, 1, 8, 16, device=cuda)
@@ -79,6 +90,7 @@ def test_kernels_reject_what_they_do_not_take(cuda):
                                  _randn(rng, 16, device=cuda), u, _randn(rng, 16, device=cuda))
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("drop", ["D", "z", "delta_bias", "delta_softplus"])
 def test_auto_scan_on_cuda_raises_without_the_full_signature(cuda, drop):
     """'auto' on a CUDA tensor is the kernel or an error, never the plain scan."""
@@ -95,6 +107,7 @@ def test_auto_scan_on_cuda_raises_without_the_full_signature(cuda, drop):
     assert kscan.selective_scan_fwd.launches == before
 
 
+@pytest.mark.cuda
 def test_mixer_kernel_path_matches_plain(cuda):
     from si_mamba_tpu_torch.models.layers import MambaMixer
 
@@ -110,6 +123,7 @@ def test_mixer_kernel_path_matches_plain(cuda):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * want.abs().max().item())
 
 
+@pytest.mark.cuda
 def test_small_model_kernel_path_matches_plain(cuda):
     cfg = dict(trans_dim=64, encoder_dims=64, depth=2, cls_dim=5, num_group=32,
                group_size=16, drop_path=0.0)
@@ -123,3 +137,131 @@ def test_small_model_kernel_path_matches_plain(cuda):
     torch.testing.assert_close(got, want, rtol=2e-3, atol=1e-3 * want.abs().max().item())
     torch.testing.assert_close(feat, feat_ref, rtol=2e-3,
                                atol=1e-3 * feat_ref.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# the training kernels (K3, K4, K5) and the autograd Functions
+# ---------------------------------------------------------------------------
+
+def _scan_case(rng, b, l, d, device, n=16):
+    """The scan's inputs as the mixer makes them: u and z column halves of
+    one (b, l, 2d) buffer, B and C column slices of x_dbl, g a column view."""
+    xz = _randn(rng, b, l, 2 * d, device=device)
+    x_dbl = _randn(rng, b, l, 3 + 2 * n, device=device)
+    gbuf = _randn(rng, b, l, d + 5, device=device)
+    return dict(u=xz[..., :d], delta=_randn(rng, b, l, d, scale=0.5, device=device),
+                A=-torch.exp(_randn(rng, d, n, device=device)),
+                B=x_dbl[..., 3:3 + n], C=x_dbl[..., 3 + n:],
+                D=_randn(rng, d, device=device), z=xz[..., d:],
+                delta_bias=_randn(rng, d, scale=0.1, device=device), g=gbuf[..., 5:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,d", [(50, 96), (512, 768)])
+def test_conv_bwd_kernel_matches_plain(cuda, l, d):
+    rng = np.random.default_rng(7)
+    xz = _randn(rng, 3, l, 2 * d, device=cuda)
+    x = xz[..., d:]  # a column slice, as in the mixer
+    g = _randn(rng, 3, l, d + 3, device=cuda)[..., 3:]
+    weight, bias = _randn(rng, d, 4, scale=0.5, device=cuda), _randn(rng, d, scale=0.1, device=cuda)
+    before = kconv.causal_conv1d_silu_bwd.launches
+    got = kconv.causal_conv1d_silu_bwd(x, weight, bias, g)
+    torch.cuda.synchronize()
+    assert kconv.causal_conv1d_silu_bwd.launches == before + 1
+    for a, b in zip(got, kconv.causal_conv1d_silu_bwd_ref(x, weight, bias, g)):
+        assert a.shape == b.shape
+        _close_to_max(a, b, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,d", [(50, 96), (130, 200)])
+def test_scan_residual_fwd_kernel_matches_plain(cuda, l, d):
+    rng = np.random.default_rng(8)
+    case = _scan_case(rng, 2, l, d, cuda)
+    args = [case[k] for k in kscan._NAMES]
+    k2, k3 = kscan.selective_scan_fwd.launches, kscan.selective_scan_fwd_residuals.launches
+    y, h_entries = kscan.selective_scan_fwd_residuals(*args)
+    y_lean = kscan.selective_scan_fwd(*args)
+    torch.cuda.synchronize()
+    assert kscan.selective_scan_fwd_residuals.launches == k3 + 1
+    assert kscan.selective_scan_fwd.launches == k2 + 1
+    torch.testing.assert_close(y, y_lean, rtol=0, atol=0)  # the same arithmetic
+    y_ref, h_ref = kscan.selective_scan_fwd_residuals_ref(*args)
+    assert h_entries.shape == h_ref.shape == (2, -(-l // kscan.CHUNK), 16, d)
+    _close_to_max(y, y_ref, 1e-5)
+    _close_to_max(h_entries, h_ref, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l,d", [(50, 96), (512, 200)])
+def test_scan_bwd_kernel_matches_plain(cuda, l, d):
+    rng = np.random.default_rng(9)
+    case = _scan_case(rng, 2, l, d, cuda)
+    args = [case[k] for k in kscan._NAMES]
+    _, h_entries = kscan.selective_scan_fwd_residuals_ref(*args)
+    before = kscan.selective_scan_bwd.launches
+    got = kscan.selective_scan_bwd(*args, case["g"], h_entries)
+    torch.cuda.synchronize()
+    assert kscan.selective_scan_bwd.launches == before + 1
+    want = kscan.selective_scan_bwd_ref(*args, case["g"], h_entries)
+    for name, a, b in zip(("du", "ddelta", "dA", "dB", "dC", "dD", "dz", "ddelta_bias"),
+                          got, want):
+        assert a.shape == b.shape, name
+        _close_to_max(a, b, 1e-4)
+
+
+@pytest.mark.cuda
+def test_fused_scan_takes_the_lean_kernel_without_a_gradient(cuda):
+    rng = np.random.default_rng(10)
+    case = _scan_case(rng, 2, 40, 64, cuda)
+    args = [case[k] for k in kscan._NAMES]
+    counts = lambda: (kscan.selective_scan_fwd.launches,  # noqa: E731
+                      kscan.selective_scan_fwd_residuals.launches,
+                      kscan.selective_scan_bwd.launches)
+    k2, k3, k4 = counts()
+    kscan.selective_scan_fused(*args)
+    assert counts() == (k2 + 1, k3, k4)
+    u = args[0].detach().clone().requires_grad_()
+    with torch.no_grad():
+        kscan.selective_scan_fused(u, *args[1:])
+    assert counts() == (k2 + 2, k3, k4)
+    y = kscan.selective_scan_fused(u, *args[1:])
+    assert isinstance(y.grad_fn, kscan.SelectiveScanFn._backward_cls)
+    y.backward(case["g"])
+    assert counts() == (k2 + 2, k3 + 1, k4 + 1)
+    assert u.grad is not None and torch.isfinite(u.grad).all()
+
+
+def test_functions_gradcheck_in_float64_through_the_plain_path():
+    """The plain forward/backward pairs of both Functions, in float64 on the
+    CPU (the kernels take float32 and are held against these instead)."""
+    rng = np.random.default_rng(11)
+    case = _scan_case(rng, 2, 21, 6, "cpu", n=3)
+    args = [case[k].double().requires_grad_() for k in kscan._NAMES]
+    assert torch.autograd.gradcheck(kscan.SelectiveScanFn.apply, args)
+    x = _randn(rng, 2, 13, 10)[..., 2:].double().requires_grad_()
+    w = (_randn(rng, 8, 4) * 0.5).double().requires_grad_()
+    b = _randn(rng, 8).double().requires_grad_()
+    assert torch.autograd.gradcheck(kconv.CausalConv1dSiluFn.apply, (x, w, b))
+
+
+@pytest.mark.cuda
+def test_mixer_grads_on_the_kernel_path_match_seq(cuda):
+    from si_mamba_tpu_torch.models.layers import MambaMixer
+
+    mixer = MambaMixer(64, out_proj_div=2.0)
+    mixer.reset_parameters(torch.Generator().manual_seed(12))
+    plain = MambaMixer(64, out_proj_div=2.0, scan_impl="seq")
+    plain.load_state_dict(mixer.state_dict())
+    mixer, plain = mixer.to(cuda), plain.to(cuda)
+    rng = np.random.default_rng(13)
+    x = _randn(rng, 3, 80, 64, device=cuda)
+    g = _randn(rng, 3, 80, 64, device=cuda)
+    before = (kconv.causal_conv1d_silu_bwd.launches, kscan.selective_scan_bwd.launches)
+    mixer(x).backward(g)
+    assert (kconv.causal_conv1d_silu_bwd.launches, kscan.selective_scan_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    plain(x).backward(g)
+    for (name, p), q in zip(mixer.named_parameters(), plain.parameters()):
+        assert p.grad is not None, name
+        _close_to_max(p.grad, q.grad, 1e-4)

@@ -1,18 +1,20 @@
-"""The port's two kernels (causal conv + SiLU, selective-scan forward): their
-plain versions against the JAX package's XLA oracles and its Pallas kernels
-in interpret mode, on the same numpy inputs; the dispatch and the mixer. The
-CUDA kernels themselves are held against these plain versions on the card in
-tests/test_torch_port_cuda.py."""
+"""The port's kernels (causal conv + SiLU forward and backward, selective-scan
+forward, training forward and backward): their plain versions against the
+JAX package's XLA oracles and its Pallas kernels in interpret mode (values
+and ``jax.vjp``), on the same numpy inputs; the autograd Functions, the
+dispatch and the mixer. The CUDA kernels themselves are held against these
+plain versions on the card in tests/test_torch_port_cuda.py."""
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from si_mamba_tpu.ops.pallas.causal_conv_kernel import causal_conv1d_silu_pallas
-from si_mamba_tpu.ops.pallas.selective_scan_kernel import selective_scan_pallas
+from si_mamba_tpu.ops.pallas.selective_scan_kernel import _vjp_fwd, selective_scan_pallas
 from si_mamba_tpu_torch.ops import selective_scan as tss
 from si_mamba_tpu_torch.ops.kernels import causal_conv as kconv
 from si_mamba_tpu_torch.ops.kernels import selective_scan as kscan
@@ -140,9 +142,13 @@ def test_scan_dispatch():
     args, pkw = _port_args(kw), _port_kw(kw)
     np.testing.assert_array_equal(tss.selective_scan(*args, **pkw, impl="auto").numpy(),
                                   tss.selective_scan_chunked(*args, **pkw).numpy())
-    for impl in ("pallas", "assoc", "fused"):
+    np.testing.assert_array_equal(tss.selective_scan(*args, **pkw, impl="pallas").numpy(),
+                                  tss.selective_scan_seq(*args, **pkw).numpy())
+    for impl in ("assoc", "fused"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tss.selective_scan(*args, **pkw, impl=impl)
+    with pytest.raises(NotImplementedError, match="delta_bias"):
+        tss.selective_scan(*args, **{**pkw, "delta_bias": None}, impl="pallas")
     with pytest.raises(ValueError, match="unknown impl"):
         tss.selective_scan(*args, **pkw, impl="nope")
 
@@ -175,7 +181,7 @@ def _mixer_params(d_model=16, d_state=4, dt_rank=2, d_conv=4, seed=3):
     }
 
 
-@pytest.mark.parametrize("impl", ["auto", "seq", "chunked"])
+@pytest.mark.parametrize("impl", ["auto", "pallas", "seq", "chunked"])
 def test_mixer_matches_jax(impl):
     p = _mixer_params()
     x = np.random.default_rng(4).standard_normal((2, 40, 16)).astype(np.float32)
@@ -193,3 +199,127 @@ def test_mixer_rejects_unported_impls_and_dtypes():
         tss.mamba_mixer_apply(p, x, d_state=4, dt_rank=2, impl="fused")
     with pytest.raises(NotImplementedError, match="bf16"):
         tss.mamba_mixer_apply(p, x.bfloat16(), d_state=4, dt_rank=2)
+
+
+# ---------------------------------------------------------------------------
+# K5: causal conv backward; K3, K4: the scan's training forward and backward
+# ---------------------------------------------------------------------------
+
+def _grads(fn, args, g):
+    """Torch autograd of fn at args (leaves made here) for output gradient g."""
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    return torch.autograd.grad(fn(*leaves), leaves, g)
+
+
+@pytest.mark.parametrize("l,d", [(37, 24), (50, 32)])
+def test_conv_plain_backward_matches_jax_vjp_and_autograd(l, d):
+    xz, w, b = _conv_inputs(l=l, d=d, seed=3)
+    g = np.random.default_rng(4).standard_normal((2, l, d)).astype(np.float32)
+    x = _t(xz)[..., :d]  # a column slice, as in the mixer
+    got = kconv.causal_conv1d_silu_bwd_ref(x, _t(w), _t(b), _t(g))
+    _, vjp = jax.vjp(lambda x, w, b: causal_conv1d_silu_pallas(x, w, b, interpret=True),
+                     jnp.asarray(xz[..., :d]), jnp.asarray(w), jnp.asarray(b))
+    auto = _grads(lambda *a: kconv.causal_conv1d_ref(*a), (x, _t(w), _t(b)), _t(g))
+    for a, jw, tw in zip(got, vjp(jnp.asarray(g)), auto):
+        np.testing.assert_allclose(a.numpy(), np.asarray(jw), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(a.numpy(), tw.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def _jax_vjp_pallas(kw, g, **pallas_kw):
+    jargs = _jax_args(kw) + [jnp.asarray(kw[k]) for k in ("D", "z", "delta_bias")]
+    _, vjp = jax.vjp(lambda u, dl, A, B, C, D, z, db: selective_scan_pallas(
+        u, dl, A, B, C, D=D, z=z, delta_bias=db, interpret=True, **pallas_kw), *jargs)
+    return vjp(jnp.asarray(g))
+
+
+def _fn_grads(kw, g):
+    """Gradients through SelectiveScanFn on the CPU (the plain backward), in
+    (u, delta, A, B, C, D, z, delta_bias) order; B and C are column views of
+    one x_dbl leaf, so their gradients are read back from its gradient."""
+    n = kw["A"].shape[1]
+    leaves = {k: _t(kw[k]).requires_grad_() for k in ("u", "delta", "A", "x_dbl", "D", "z",
+                                                      "delta_bias")}
+    x_dbl = leaves["x_dbl"]
+    y = kscan.SelectiveScanFn.apply(leaves["u"], leaves["delta"], leaves["A"],
+                                    x_dbl[..., 2:2 + n], x_dbl[..., 2 + n:], leaves["D"],
+                                    leaves["z"], leaves["delta_bias"])
+    assert isinstance(y.grad_fn, kscan.SelectiveScanFn._backward_cls)
+    y.backward(_t(g))
+    gx = leaves["x_dbl"].grad
+    np.testing.assert_array_equal(gx[..., :2].numpy(), 0.0)
+    return [leaves["u"].grad, leaves["delta"].grad, leaves["A"].grad, gx[..., 2:2 + n],
+            gx[..., 2 + n:], leaves["D"].grad, leaves["z"].grad, leaves["delta_bias"].grad]
+
+
+@pytest.mark.parametrize("l", [64, 50])
+def test_scan_plain_backward_matches_jax_pallas_vjp(l):
+    kw = _scan_inputs(b=2, l=l, d=32, n=4, seed=5)
+    g = np.random.default_rng(6).standard_normal((2, l, 32)).astype(np.float32)
+    got = _fn_grads(kw, g)
+    want = _jax_vjp_pallas(kw, g, block_d=16, chunk=16)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-3, atol=1e-4)
+
+
+def test_scan_plain_backward_matches_autograd_of_the_sequential_scan():
+    kw = _scan_inputs(b=2, l=45, d=24, n=4, seed=7)
+    g = np.random.default_rng(8).standard_normal((2, 45, 24)).astype(np.float32)
+    got = _fn_grads(kw, g)
+    args = _port_args(kw) + [_t(kw[k]) for k in ("D", "z", "delta_bias")]
+    want = _grads(lambda u, dl, A, B, C, D, z, db: kscan.selective_scan_ref(
+        u, dl, A, B, C, D=D, z=z, delta_bias=db), args, _t(g))
+    for a, b in zip(got, want):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("l", [256, 200])
+def test_scan_plain_residuals_match_lean_forward_and_jax_entries(l):
+    """The training forward's y equals the lean forward's, and its entry
+    states, one per 16 steps, equal JAX's ``_vjp_fwd`` entries (one per 128
+    steps) where the two grids share a boundary."""
+    kw = _scan_inputs(b=2, l=l, d=32, n=4, seed=9)
+    args, pkw = _port_args(kw), _port_kw(kw)
+    y, h_entries = kscan.selective_scan_fwd_residuals_ref(*args, pkw["D"], pkw["z"],
+                                                          pkw["delta_bias"])
+    np.testing.assert_array_equal(y.numpy(), kscan.selective_scan_ref(*args, **pkw).numpy())
+    assert h_entries.shape == (2, -(-l // kscan.CHUNK), 4, 32)
+    np.testing.assert_array_equal(h_entries[:, 0].numpy(), 0.0)
+    jargs = _jax_args(kw) + [jnp.asarray(kw[k]) for k in ("D", "z", "delta_bias")]
+    _, res = _vjp_fwd(*jargs, 32, 128, True)
+    jh = np.asarray(res[8])  # (b, ceil(l/128), n, d)
+    step = 128 // kscan.CHUNK
+    np.testing.assert_allclose(h_entries[:, ::step].numpy(), jh, rtol=1e-4, atol=1e-5)
+
+
+def test_functions_keep_the_graph_on_a_tensor_that_requires_grad():
+    """The conv and the fused scan return outputs whose grad_fn is their
+    autograd Function, so every upstream parameter gets its gradient."""
+    xz, w, b = _conv_inputs()
+    x = _t(xz).requires_grad_()
+    y = kconv.causal_conv1d_silu(x[..., :24], _t(w), _t(b))
+    assert isinstance(y.grad_fn, kconv.CausalConv1dSiluFn._backward_cls)
+    kw = _scan_inputs(l=20, seed=10)
+    args, pkw = _port_args(kw), _port_kw(kw)
+    u = args[0].requires_grad_()
+    out = tss.selective_scan(u, *args[1:], **pkw, impl="pallas")
+    assert isinstance(out.grad_fn, kscan.SelectiveScanFn._backward_cls)
+    with torch.no_grad():
+        assert tss.selective_scan(u, *args[1:], **pkw, impl="pallas").grad_fn is None
+    (y.sum() + out.sum()).backward()
+    assert x.grad is not None and u.grad is not None
+
+
+def test_mixer_pallas_grads_on_the_cpu_match_seq():
+    """Every mixer parameter's gradient through the Functions' plain backward
+    equals autograd through the plain sequential scan and conv."""
+    p = _mixer_params(d_model=16, d_state=4, dt_rank=2)
+    x = _t(np.random.default_rng(11).standard_normal((2, 40, 16)).astype(np.float32))
+    grads = {}
+    for impl in ("pallas", "seq"):
+        leaves = {k: _t(v).requires_grad_() for k, v in p.items()}
+        tss.mamba_mixer_apply(leaves, x, d_state=4, dt_rank=2, impl=impl).square().sum().backward()
+        grads[impl] = {k: v.grad for k, v in leaves.items()}
+    for k in p:
+        scale = float(grads["seq"][k].abs().max())
+        assert float((grads["pallas"][k] - grads["seq"][k]).abs().max()) <= 1e-4 * scale, k

@@ -159,10 +159,51 @@ def test_unported_options_raise(override):
         PointMamba(PointMambaConfig(**SMALL, **override))
 
 
-def test_training_forward_is_not_ported():
-    model = PointMamba(PointMambaConfig(**SMALL))
-    with pytest.raises(NotImplementedError, match="eval"):
-        model(torch.zeros(1, 256, 3))
+@pytest.mark.parametrize("bn_momentum", [None, 0.7])
+def test_training_forward_matches_jax_train_mode(bn_momentum):
+    """Train mode with drop rates 0: BatchNorm on batch statistics (biased
+    variance to normalise, unbiased into the running statistics) and the
+    momentum override give the JAX model's logits and updated statistics."""
+    from si_mamba_tpu_torch.models.embed import set_bn_momentum
+
+    cfg = dict(SMALL, method="MAMBA", cls_head_dropout=0.0)
+    jmodel = JPointMamba(JConfig(**cfg))
+    variables = jmodel.init(jax.random.key(2), jnp.zeros((2, 256, 3)), train=False)
+    pts = _clouds(4, 256, seed=8)
+    kw = {} if bn_momentum is None else {"bn_momentum": bn_momentum}
+    want, upd = jmodel.apply(variables, jnp.asarray(pts), train=True, mutable=["batch_stats"],
+                             rngs={"dropout": jax.random.key(0)}, **kw)
+    model = PointMamba(PointMambaConfig(**cfg)).train()
+    model.load_state_dict(state_dict_from_jax(variables["params"], variables["batch_stats"]),
+                          strict=True)
+    if bn_momentum is not None:
+        set_bn_momentum(model, bn_momentum)
+    with torch.no_grad():
+        got = model(torch.from_numpy(pts)).numpy()
+    _assert_logits_close(got, np.asarray(want))
+    stats = state_dict_from_jax(variables["params"], upd["batch_stats"])
+    for k, v in model.state_dict().items():
+        if "running_" in k:
+            np.testing.assert_allclose(v.numpy(), stats[k].numpy(), rtol=1e-4, atol=1e-5,
+                                       err_msg=k)
+
+
+def test_training_forward_draws_from_the_callers_generator():
+    """With drop rates above 0 a train-mode forward needs a generator; the
+    same generator state gives the same logits, and eval mode draws nothing."""
+    model = PointMamba(PointMambaConfig(**{**SMALL, "drop_path": 0.3, "drop_out": 0.1,
+                                           "drop_out_in_block": 0.1,
+                                           "cls_head_dropout": 0.5})).train()
+    pts = torch.from_numpy(_clouds(2, 256, seed=9))
+    with pytest.raises(ValueError, match="Generator"):
+        model(pts)
+    with torch.no_grad():
+        a = model(pts, generator=torch.Generator().manual_seed(4))
+        b = model(pts, generator=torch.Generator().manual_seed(4))
+        c = model(pts, generator=torch.Generator().manual_seed(5))
+        e1, e2 = model.eval()(pts), model(pts)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert torch.equal(e1, e2) and torch.isfinite(a).all()
 
 
 def test_drop_path_is_identity_in_eval_and_per_sample_in_training():
