@@ -41,8 +41,9 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    lean scan forward never, give a finite loss, and move every mixer
    parameter and the BatchNorm statistics; then an eval forward must take
    the lean scan again. p50 step time, clouds/s and peak memory are printed,
-   then one more step timed in its pieces (resample + augment, forward,
-   backward, optimizer) and one under ``torch.profiler``;
+   then one more step timed as the two halves that the step composes (the
+   input pipeline; forward, backward and optimizer) and one under
+   ``torch.profiler``;
 7. gradients: one train-mode step's loss and every parameter gradient of the
    kernel path against the plain path (``scan_impl='seq'``), same weights and
    clouds, drop rates 0, at B=4, within 1e-3 of the largest gradient.
@@ -492,9 +493,12 @@ def train_phase(device, card: str) -> tuple[dict, dict]:
     settings; returns (record, launches over the steps)."""
     from si_mamba_tpu_torch.data import transforms
     from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
-    from si_mamba_tpu_torch.models.point_mamba import cross_entropy_loss_acc
     from si_mamba_tpu_torch.train.optim import build_optimizer
-    from si_mamba_tpu_torch.train.runner_finetune import make_train_step
+    from si_mamba_tpu_torch.train.runner_finetune import (
+        finetune_update,
+        make_input_pipeline,
+        make_train_step,
+    )
     from si_mamba_tpu_torch.train.train_state import TrainState
 
     cfg = PointMambaConfig.from_dict(MODELNET40)
@@ -544,8 +548,9 @@ def train_phase(device, card: str) -> tuple[dict, dict]:
     if stats_stuck:
         raise AssertionError(f"BatchNorm statistics did not move: {stats_stuck}")
 
-    # one more step in its pieces, each ended by a synchronise, then one
-    # under the profiler
+    # one more step as the two halves that the step composes (input pipeline,
+    # then forward + backward + optimizer), each ended by a synchronise; then
+    # one step under the profiler
     pieces, t = {}, time.perf_counter()
 
     def mark(name):
@@ -555,16 +560,10 @@ def train_phase(device, card: str) -> tuple[dict, dict]:
         pieces[name] = (now - t) * 1e3
         t = now
 
-    pts = transforms.scale_and_translate(
-        transforms.fps_resample(points, generator, NPOINTS, point_all=1200), generator)
-    mark("resample_augment")
-    per, _ = cross_entropy_loss_acc(model.train()(pts, generator=generator), labels)
-    loss = per.mean()
-    mark("forward")
-    loss.backward()
-    mark("backward")
-    optimizer.step()
-    mark("optimizer")
+    pts = make_input_pipeline(NPOINTS, rotation=False)(points, generator)
+    mark("input")
+    state, _ = finetune_update(state, pts, labels, generator)
+    mark("update")
     prof = device_profile(lambda: step(state, points, labels, generator))
     log("train step pieces: " + ", ".join(f"{k} {v:.3f} ms" for k, v in pieces.items()) +
         f"; profiled step: device {prof['device_ms']:.3f} of {prof['wall_ms']:.3f} ms wall "

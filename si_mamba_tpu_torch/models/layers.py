@@ -105,18 +105,16 @@ class MambaMixer(nn.Module):
 
 class DropPath(nn.Module):
     """Per-sample stochastic depth (timm semantics); identity in eval. The
-    mask draws from the generator passed to ``forward``, else from the one
-    given at construction; training at a rate above 0 needs one of them."""
+    mask draws from the generator passed to ``forward``; training at a rate
+    above 0 needs one."""
 
-    def __init__(self, rate: float, generator: torch.Generator | None = None):
+    def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
-        self.generator = generator
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
-        generator = generator if generator is not None else self.generator
         if generator is None:
             raise ValueError("DropPath in training mode needs a torch.Generator")
         keep = 1.0 - self.rate

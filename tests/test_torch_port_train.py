@@ -27,7 +27,12 @@ from si_mamba_tpu_torch.models import point_mamba as port_pm
 from si_mamba_tpu_torch.models.embed import Dropout
 from si_mamba_tpu_torch.models.layers import DropPath
 from si_mamba_tpu_torch.train import optim
-from si_mamba_tpu_torch.train.runner_finetune import _point_all, make_train_step
+from si_mamba_tpu_torch.train.runner_finetune import (
+    _point_all,
+    finetune_update,
+    make_input_pipeline,
+    make_train_step,
+)
 from si_mamba_tpu_torch.train.train_state import (
     TrainState,
     make_classifier_eval_step,
@@ -382,3 +387,27 @@ def test_finetune_step_runs_pipeline_and_sets_bn_momentum():
     assert any("running_mean" in k for k in moved) and any("mixer.A_log" in k for k in moved)
     with pytest.raises(ValueError, match="Generator"):
         step(state, pts, labels, None)
+
+
+def test_finetune_step_is_its_input_pipeline_then_its_update():
+    """The step's two halves, run one after the other from the same generator
+    state, do what the step does: same loss, parameters and statistics."""
+    pts = torch.from_numpy(_clouds(4, 1280, seed=8))
+    labels = torch.tensor([0, 1, 2, 3])
+    cfg = dict(SMALL, drop_path=0.2, cls_head_dropout=0.5)
+    runs = []
+    for halves in (False, True):
+        model = PointMamba(PointMambaConfig(**cfg), generator=torch.Generator().manual_seed(2))
+        opt, _ = optim.build_optimizer(model, steps_per_epoch=2)
+        state, gen = TrainState.create(model, opt), torch.Generator().manual_seed(5)
+        if halves:
+            prepared = make_input_pipeline(1024, rotation=False)(pts, gen)
+            state, metrics = finetune_update(state, prepared, labels, gen, bn_momentum=0.8)
+        else:
+            step = make_train_step(model, 1024, rotation=False)
+            state, metrics = step(state, pts, labels, gen, bn_momentum=0.8)
+        assert state.step == 1
+        runs.append((metrics["loss"], model.state_dict()))
+    (loss_a, sd_a), (loss_b, sd_b) = runs
+    assert torch.equal(loss_a, loss_b)
+    assert all(torch.equal(sd_a[k], sd_b[k]) for k in sd_a)
