@@ -10,47 +10,62 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
 
 1. device: requires CUDA, prints ``nvidia-smi``'s name and power limit, turns
    TF32 off for matmuls and convolutions;
-2. build: the three CUDA sources, one ``nvcc`` each, in parallel;
+2. build: the five CUDA sources, one ``nvcc`` each, in parallel;
 3. kernels: at the serving path's full-width shapes (B=32, L=512, d_inner=768,
-   d_state=16, fp32, strided views as the mixer makes them) each forward
-   kernel is held against its plain PyTorch version on the card and timed
-   beside it (and, for the conv, beside ``F.conv1d(groups=D)`` + ``F.silu``);
-   then, with a seeded output gradient, the training kernels: the scan
-   forward that keeps its tile entry states (its y equal to the lean
-   kernel's, its states to the plain version's), the scan backward and the
-   conv backward (every gradient against the plain backward; the conv's also
-   timed beside autograd of ``F.conv1d`` + ``F.silu``);
-4. serving: a ``Predictor`` over the ModelNet40 ``PointMamba`` (12 x 384,
+   d_state=16, fp32, strided views as the mixer makes them) each kernel is
+   held against its plain PyTorch version on the card and timed beside it:
+   the conv forward and, for a seeded output gradient, its backward (both
+   also beside ``F.conv1d(groups=D)`` + ``F.silu`` and its autograd
+   backward), the lean scan forward, the scan forward that keeps its tile
+   entry states (its y equal to the lean kernel's, its states to the plain
+   version's) and the scan backward (every gradient against the plain
+   backward);
+4. SSD kernels: at the SSD mixer's shapes (B=32, L=512, chunk 256, 6 heads,
+   n = p = 128, fp32): the conv forward and backward at width 1024 on the
+   column view of the (32, 512, 1798) ``in_proj`` output (row stride 1798),
+   then the SSD core's lean forward and its forward with states (y equal,
+   states against the plain version) and its backward for a seeded output
+   gradient, each against its plain version and timed beside it;
+5. serving: a ``Predictor`` over the ModelNet40 ``PointMamba`` (12 x 384,
    L=512, seeded random weights) answers requests of 1, 20 and 64 clouds of
-   1024 points; every forward must launch each kernel 12 times, and its
-   logits must match a second model with the plain scan (``scan_impl='seq'``)
-   on the same card;
-5. profile: for each request size, the median over 10 forwards of the
+   1024 points; every forward must launch the conv and lean scan kernels 12
+   times each and no other kernel, and its logits must match a second model
+   with the plain scan (``scan_impl='seq'``) on the same card;
+6. profile: for each request size, the median over 10 forwards of the
    model's three pieces (``embed``: FPS, kNN, patch encoder, pos-embed;
    ``sequence``: graph, ``eigh``, SAST ordering; ``classify``: the Mamba stack
    and the head), each ended by ``torch.cuda.synchronize()`` and so including
    its launch cost; then one forward under ``torch.profiler``: device time by
    kernel name (top 8), the summed kernel and copy time, and its share of the
    forward's wall time (the device's busy share);
-6. train: ``make_train_step`` over the same model at its training settings
+7. train: ``make_train_step`` over the same model at its training settings
    (drop_path 0.3, head dropout 0.5), AdamW at the timm stepped cosine
    (lr 3e-4, wd 0.05, 300 epochs with 10 of warm-up, clip 10, 2 steps an
    epoch), TRAIN_STEPS steps at batch 32 on 8192-point clouds (FPS to 1200,
    1024 kept, scale + translate). Every step must launch the conv forward and
-   backward and the training scan forward and backward 12 times each and the
-   lean scan forward never, give a finite loss, and move every mixer
-   parameter and the BatchNorm statistics; then an eval forward must take
-   the lean scan again. p50 step time, clouds/s and peak memory are printed,
-   then one more step timed as the two halves that the step composes (the
-   input pipeline; forward, backward and optimizer) and one under
-   ``torch.profiler``;
-7. gradients: one train-mode step's loss and every parameter gradient of the
+   backward and the training scan forward and backward 12 times each and no
+   other kernel, give a finite loss, and move every mixer parameter and the
+   BatchNorm statistics; then an eval forward must take the lean scan again.
+   p50 step time, clouds/s and peak memory are printed, then one more step
+   timed as the two halves that the step composes (the input pipeline;
+   forward, backward and optimizer) and one under ``torch.profiler``;
+8. gradients: one train-mode step's loss and every parameter gradient of the
    kernel path against the plain path (``scan_impl='seq'``), same weights and
-   clouds, drop rates 0, at B=4, within 1e-3 of the largest gradient.
+   clouds, drop rates 0, at B=4, within 1e-3 of the largest gradient;
+9. the SSD classifier (``mixer='ssd'``, ``scan_impl='ssd_fused'``, chunk 256:
+   the ModelNet40 model with the SSD lines of
+   cfgs/finetune_modelnet_ssd_fused.yaml, fp32, exact ``eigh``) through
+   phases 5-8: each serving forward must launch the conv and the lean SSD
+   forward 12 times each and nothing else, its logits match
+   ``scan_impl='xla'``; each train step launch the conv forward and backward,
+   the SSD forward with states and the SSD backward 12 times each and nothing
+   else; the B=4 gradients match ``scan_impl='xla'``.
 
-The last four lines of standard output are the serving, profile, train and
-gradient record, the kernels' record (each one JSON object), the card's name
-and power limit, and ``{"ok": true, "device": {...}}``.
+Each path (serving, train, SSD serving, SSD train) is driven with every launch
+count set to 0 just before it and read just after. The last four lines of
+standard output are the serving, profile, train and gradient record of both
+models, the kernels' record (each one JSON object), the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -75,6 +90,10 @@ MODELNET40 = dict(trans_dim=384, depth=12, cls_dim=40, group_size=32, num_group=
                   method="SAST", reverse=True, knn_graph=20, k_top_eigenvectors=4,
                   alpha=100.0, smallest=True, symmetric=True, self_loop=False,
                   binary=True, matrix="laplacian", add_after_layer=False)
+# The SSD classifier: the same model with the SSD lines of
+# cfgs/finetune_modelnet_ssd.yaml:12 and cfgs/finetune_modelnet_ssd_fused.yaml:11,15,
+# at fp32 with exact eigh (the preset's bf16 and subspace switches are perf mode).
+MODELNET40_SSD = dict(MODELNET40, mixer="ssd", ssd_chunk=256, scan_impl="ssd_fused")
 NPOINTS = 1024
 REQUEST_SIZES = (1, 20, 64)
 REPEATS = 5
@@ -135,8 +154,70 @@ def mixer_inputs(device):
     return mixer, p, xz
 
 
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max |got - want|, that over max |want|)."""
+    err = (got - want).abs().max().item()
+    return err, err / max(want.abs().max().item(), 1e-30)
+
+
+def conv_records(x, w, b, g) -> tuple[dict, dict]:
+    """K1 and K5 on x (B, L, C), a column view as a mixer makes it, and a
+    seeded output gradient g: each against its plain version, then timed
+    beside it and beside ``F.conv1d(groups=C)`` + ``F.silu`` (for K5, the
+    autograd backward of that). Returns the two records' measured fields."""
+    from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
+
+    B, L, C = x.shape
+    W = w.shape[1]
+    where = f"width {C}, row stride {x.stride(1)}"
+    y, y_ref = kc.causal_conv1d_silu_fwd(x, w, b), kc.causal_conv1d_ref(x, w, b)
+    torch.cuda.synchronize()
+    err1 = (y - y_ref).abs().max().item()
+    if not torch.allclose(y, y_ref, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"causal-conv kernel at {where} disagrees with its plain "
+                             f"version: max |diff| {err1}")
+    xt, w3 = x.transpose(1, 2), w[:, None, :]
+    bound_ms, bound_by = bound(2 * B * L * C * 4 + C * (W + 1) * 4, B * L * C * (2 * W + 5))
+    fwd = dict(shape=[B, L, C], row_stride=x.stride(1), max_abs_err=err1,
+               ms=time_ms(lambda: kc.causal_conv1d_silu_fwd(x, w, b), 50),
+               plain_ms=time_ms(lambda: kc.causal_conv1d_ref(x, w, b), 20),
+               library_ms=time_ms(lambda: F.silu(F.conv1d(xt, w3, b, padding=W - 1,
+                                                          groups=C)[..., :L]), 20),
+               bound_ms=bound_ms, bound_by=bound_by)
+
+    # K5. Tolerance rel-to-max 1e-4: dw and db are sums over B*L terms, taken
+    # per time tile and then by torch.sum, in another order than the plain
+    # version's.
+    args = (x, w, b, g)
+    got, want = kc.causal_conv1d_silu_bwd(*args), kc.causal_conv1d_silu_bwd_ref(*args)
+    torch.cuda.synchronize()
+    err5 = 0.0
+    for name, a, r in zip(("dx", "dw", "db"), got, want):
+        err, rel = _rel_err(a, r)
+        err5 = max(err5, err)
+        if rel > 1e-4:
+            raise AssertionError(f"conv backward kernel at {where}: {name} disagrees with the "
+                                 f"plain backward: max |diff| {err} ({rel:.3e} of max)")
+    x_lib = xt.detach().requires_grad_()
+    w_lib, b_lib = (t.detach().clone().requires_grad_() for t in (w3, b))
+    y_lib = F.silu(F.conv1d(x_lib, w_lib, b_lib, padding=W - 1, groups=C)[..., :L])
+    # bytes: x and g read, dx written (plus w, b, dw, db); operations per
+    # element: s 2W+1, sigmoid 4, ds 4, dx 2W, dw and db 2W+2
+    bound_ms, bound_by = bound((3 * B * L * C + 2 * C * (W + 1)) * 4, B * L * C * (6 * W + 11))
+    bwd = dict(shape=[B, L, C], row_stride=x.stride(1), max_abs_err=err5,
+               ms=time_ms(lambda: kc.causal_conv1d_silu_bwd(*args), 50),
+               plain_ms=time_ms(lambda: kc.causal_conv1d_silu_bwd_ref(*args), 10),
+               library_ms=time_ms(lambda: torch.autograd.grad(
+                   y_lib, (x_lib, w_lib, b_lib), g.transpose(1, 2), retain_graph=True), 20),
+               bound_ms=bound_ms, bound_by=bound_by)
+    log(f"conv at {where}: forward max |diff| {err1:.3e}, backward {err5:.3e}")
+    return fwd, bwd
+
+
 def kernel_phase(device) -> list[dict]:
-    from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_ref, causal_conv1d_silu
+    """The serving path's kernels at its shapes: K1 and K5 (with a seeded
+    output gradient) on the column view of xz, K2 on K1's output."""
+    from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_silu
     from si_mamba_tpu_torch.ops.kernels.selective_scan import (
         selective_scan_fwd,
         selective_scan_ref,
@@ -146,32 +227,18 @@ def kernel_phase(device) -> list[dict]:
     d_inner, n, dt_rank = mixer.d_inner, mixer.d_state, mixer.dt_rank
     xi, z = xz[..., :d_inner], xz[..., d_inner:]
     B, L, D = xi.shape
-    W = p["conv_w"].shape[1]
-    records = []
-
-    # K1: causal conv + SiLU
-    y1 = causal_conv1d_silu(xi, p["conv_w"], p["conv_b"])
-    y1_ref = causal_conv1d_ref(xi, p["conv_w"], p["conv_b"])
-    torch.cuda.synchronize()
-    err1 = (y1 - y1_ref).abs().max().item()
-    if not torch.allclose(y1, y1_ref, rtol=1e-5, atol=1e-6):
-        raise AssertionError(f"causal-conv kernel disagrees with its plain version: "
-                             f"max |diff| {err1}")
-    conv_w3 = p["conv_w"][:, None, :]
-    xi_t = xi.transpose(1, 2)
-    lib = lambda: F.silu(F.conv1d(xi_t, conv_w3, p["conv_b"], padding=W - 1, groups=D)[..., :L])
-    bound_ms, bound_by = bound(2 * B * L * D * 4 + D * (W + 1) * 4, B * L * D * (2 * W + 5))
-    records.append(dict(
-        name="causal_conv1d_silu", route="cuda",
-        source="si_mamba_tpu_torch/csrc/causal_conv.cu",
-        replaces="si_mamba_tpu/ops/pallas/causal_conv_kernel.py:52",
-        max_abs_err=err1,
-        ms=time_ms(lambda: causal_conv1d_silu(xi, p["conv_w"], p["conv_b"]), 50),
-        plain_ms=time_ms(lambda: causal_conv1d_ref(xi, p["conv_w"], p["conv_b"]), 20),
-        library_ms=time_ms(lib, 20), bound_ms=bound_ms, bound_by=bound_by))
-    log(f"causal conv ok: max |diff| {err1:.3e}")
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal((B, L, D), dtype=np.float32))
+    fwd, bwd = conv_records(xi, p["conv_w"], p["conv_b"], g.to(device))
+    records = [
+        dict(name="causal_conv1d_silu", route="cuda",
+             source="si_mamba_tpu_torch/csrc/causal_conv.cu",
+             replaces="si_mamba_tpu/ops/pallas/causal_conv_kernel.py:52", **fwd),
+        dict(name="causal_conv1d_silu_bwd", route="cuda",
+             source="si_mamba_tpu_torch/csrc/causal_conv.cu",
+             replaces="si_mamba_tpu/ops/pallas/causal_conv_kernel.py:58", **bwd)]
 
     # K2: selective scan forward, on the conv's output as on the path
+    y1 = causal_conv1d_silu(xi, p["conv_w"], p["conv_b"])
     x_dbl = y1 @ p["x_proj_w"]
     dt = x_dbl[..., :dt_rank] @ p["dt_proj_w"]
     Bc, Cc = x_dbl[..., dt_rank:dt_rank + n], x_dbl[..., dt_rank + n:]
@@ -200,21 +267,13 @@ def kernel_phase(device) -> list[dict]:
                                                     delta_bias=p["dt_proj_b"]), 2, warmup=1),
         library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
     log(f"selective scan ok: max |diff| {err2:.3e} (max |y| {scale:.3e})")
-    for r in records:
-        r["kernel_ms"] = r["ms"]
     return records
 
 
-def _rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
-    """(max |got - want|, that over max |want|)."""
-    err = (got - want).abs().max().item()
-    return err, err / max(want.abs().max().item(), 1e-30)
-
-
 def backward_kernel_phase(device) -> list[dict]:
-    """The training kernels at the serving path's shapes, with a seeded
-    output gradient: K3 (scan forward with residuals), K4 (scan backward),
-    K5 (conv backward), each against its plain version, then timed."""
+    """The scan's training kernels at the serving path's shapes, with a
+    seeded output gradient: K3 (scan forward with residuals) and K4 (scan
+    backward), each against its plain version, then timed."""
     from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
     from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
 
@@ -222,43 +281,9 @@ def backward_kernel_phase(device) -> list[dict]:
     d_inner, n, dt_rank = mixer.d_inner, mixer.d_state, mixer.dt_rank
     xi, z = xz[..., :d_inner], xz[..., d_inner:]
     B, L, D = xi.shape
-    W = p["conv_w"].shape[1]
     rng = np.random.default_rng(3)
     g = torch.from_numpy(rng.standard_normal((B, L, D), dtype=np.float32)).to(device)
     records = []
-
-    # K5: conv backward. Tolerance rel-to-max 1e-4: dw and db are sums over
-    # B*L terms, taken per time tile and then by torch.sum, in another order
-    # than the plain version's.
-    conv_args = (xi, p["conv_w"], p["conv_b"], g)
-    got = kc.causal_conv1d_silu_bwd(*conv_args)
-    want = kc.causal_conv1d_silu_bwd_ref(*conv_args)
-    torch.cuda.synchronize()
-    err5 = 0.0
-    for name, a, b in zip(("dx", "dw", "db"), got, want):
-        err, rel = _rel_err(a, b)
-        err5 = max(err5, err)
-        if rel > 1e-4:
-            raise AssertionError(f"conv backward kernel: {name} disagrees with the plain "
-                                 f"backward: max |diff| {err} ({rel:.3e} of max)")
-    x_lib = xi.detach().transpose(1, 2).requires_grad_()
-    w_lib = p["conv_w"][:, None, :].detach().clone().requires_grad_()
-    b_lib = p["conv_b"].detach().clone().requires_grad_()
-    y_lib = F.silu(F.conv1d(x_lib, w_lib, b_lib, padding=W - 1, groups=D)[..., :L])
-    g_lib = g.transpose(1, 2)
-    lib = lambda: torch.autograd.grad(y_lib, (x_lib, w_lib, b_lib), g_lib, retain_graph=True)
-    # bytes: x and g read, dx written (plus w, b, dw, db); operations per
-    # element: s 2W+1, sigmoid 4, ds 4, dx 2W, dw and db 2W+2
-    bound_ms, bound_by = bound((3 * B * L * D + 2 * D * (W + 1)) * 4, B * L * D * (6 * W + 11))
-    records.append(dict(
-        name="causal_conv1d_silu_bwd", route="cuda",
-        source="si_mamba_tpu_torch/csrc/causal_conv.cu",
-        replaces="si_mamba_tpu/ops/pallas/causal_conv_kernel.py:58",
-        max_abs_err=err5,
-        ms=time_ms(lambda: kc.causal_conv1d_silu_bwd(*conv_args), 50),
-        plain_ms=time_ms(lambda: kc.causal_conv1d_silu_bwd_ref(*conv_args), 10),
-        library_ms=time_ms(lib, 20), bound_ms=bound_ms, bound_by=bound_by))
-    log(f"conv backward ok: max |diff| {err5:.3e}")
 
     # K3: the scan forward that keeps its tile entry states, on the conv's output
     y1 = kc.causal_conv1d_silu_fwd(xi, p["conv_w"], p["conv_b"])
@@ -322,9 +347,115 @@ def backward_kernel_phase(device) -> list[dict]:
         plain_ms=time_ms(lambda: ks.selective_scan_bwd_ref(*bwd_args), 1, warmup=1),
         library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
     log(f"scan backward ok: max |diff| {err4:.3e}")
-    for r in records:
-        r["kernel_ms"] = r["ms"]
     return records
+
+
+def ssd_kernel_phase(device) -> tuple[list[dict], dict]:
+    """The SSD path's kernels at its shapes, as layer 0's SSD mixer makes its
+    inputs at B=32, L=512: K1 and K5 at width 1024 on the column view of the
+    (32, 512, 1798) in_proj output, then K8 (both variants) and K9 on K1's
+    output. Returns the K8/K9 records and the K1/K5 figures at this shape."""
+    from si_mamba_tpu_torch.models.layers import SSDMixer
+    from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    depth = MODELNET40["depth"]
+    mixer = SSDMixer(MODELNET40["trans_dim"], out_proj_div=depth ** 0.5,
+                     chunk=MODELNET40_SSD["ssd_chunk"])
+    mixer.reset_parameters(torch.Generator().manual_seed(1))
+    p = {k: v.detach().to(device) for k, v in mixer.params().items()}
+    d, n, h, chunk = mixer.d_inner, mixer.d_state, mixer.n_heads, mixer.chunk
+    rng = np.random.default_rng(4)
+    u = torch.from_numpy(rng.standard_normal((32, 512, MODELNET40["trans_dim"]),
+                                             dtype=np.float32)).to(device)
+    zxbcdt = u @ p["in_proj_w"]  # (32, 512, 1798)
+    xbc_in = zxbcdt[..., d:2 * d + 2 * n]  # width 1024, row stride 1798
+    B, L, C = xbc_in.shape
+    g = torch.from_numpy(rng.standard_normal((B, L, C), dtype=np.float32)).to(device)
+    conv_shape = dict(zip(("causal_conv1d_silu", "causal_conv1d_silu_bwd"),
+                          conv_records(xbc_in, p["conv_w"], p["conv_b"], g)))
+
+    # K8, both variants, on K1's output
+    xbc = kc.causal_conv1d_silu_fwd(xbc_in, p["conv_w"], p["conv_b"])
+    dt = F.softplus(zxbcdt[..., 2 * d + 2 * n:] + p["dt_bias"])  # (B, L, h)
+    A = -torch.exp(p["A_log"])
+    nc = L // chunk
+    dth = dt.transpose(1, 2).reshape(B, h, nc, chunk).contiguous()
+    S = torch.cumsum(dth * A[None, :, None, None], dim=-1)
+    args = (xbc, dth, S, p["D"], d, chunk)
+    y_lean = kssd.ssd_xbc_fwd(*args)
+    y, h_in = kssd.ssd_xbc_fwd_states(*args)
+    y_ref, h_ref = kssd.ssd_xbc_fwd_ref(*args, emit_states=True)
+    torch.cuda.synchronize()
+    if not torch.equal(y, y_lean):
+        raise AssertionError(f"the SSD forward with states differs from the lean one: "
+                             f"max |diff| {(y - y_lean).abs().max().item()}")
+    err_y, rel_y = _rel_err(y, y_ref)
+    err_h, rel_h = _rel_err(h_in, h_ref)
+    if rel_y > 1e-4 or rel_h > 1e-4:
+        raise AssertionError(f"SSD forward kernel disagrees with its plain version: y {err_y} "
+                             f"({rel_y:.3e} of max), h_in {err_h} ({rel_h:.3e} of max)")
+    # operations, the products the function needs: in every chunk the lower
+    # triangle (s <= t, the rest is masked to 0) of G = C B^T, once for the
+    # heads, and per head of (G (.) M)(dt x), each q(q+1)/2 * 2k; per head
+    # C h_in (2qnp) in every chunk but the first, whose h_in is 0, and the
+    # carry B^T (dt x T_end) (2qnp) in every chunk but the last, whose state
+    # nothing reads. Bytes: xbc, dt, S, D read once, y (and h_in) written once
+    q, hp = chunk, d // h
+    tri = q * (q + 1)  # 2 * q(q+1)/2: the multiply-adds of a triangle, per unit of k
+    fwd_ops = B * (nc * (tri * n + h * tri * hp) + (nc - 1) * h * 4 * q * n * hp)
+    fwd_bytes = (B * L * (d + 2 * n) + 2 * B * h * L + h + B * L * d) * 4
+    hin_bytes = B * nc * h * n * hp * 4
+    records = []
+    for name, fn, extra, err in (
+            ("ssd_xbc_fwd", lambda: kssd.ssd_xbc_fwd(*args), 0, err_y),
+            ("ssd_xbc_fwd_states", lambda: kssd.ssd_xbc_fwd_states(*args), hin_bytes,
+             max(err_y, err_h))):
+        bound_ms, bound_by = bound(fwd_bytes + extra, fwd_ops)
+        records.append(dict(
+            name=name, route="cuda", source="si_mamba_tpu_torch/csrc/ssd_xbc_fwd.cu",
+            replaces="si_mamba_tpu/ops/pallas/ssd_kernel.py:540", max_abs_err=err,
+            ms=time_ms(fn, 20),
+            plain_ms=time_ms(lambda: kssd.ssd_xbc_fwd_ref(*args, emit_states=bool(extra)), 3),
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+    log(f"SSD forward ok: states y == lean y; vs plain y {err_y:.3e} ({rel_y:.3e} of max), "
+        f"h_in {err_h:.3e} ({rel_h:.3e} of max)")
+
+    # K9 for a seeded output gradient, from the kernel's own h_in
+    dy = torch.from_numpy(rng.standard_normal((B, L, d), dtype=np.float32)).to(device)
+    bwd_args = (xbc, dth, S, p["D"], h_in, dy, d, chunk)
+    got = kssd.ssd_xbc_bwd(*bwd_args)
+    want = kssd.ssd_xbc_bwd_ref(*bwd_args)
+    torch.cuda.synchronize()
+    err9, rels = 0.0, {}
+    for name, a, b in zip(("dxbc", "ddt", "dS", "dD"), got, want):
+        err, rels[name] = _rel_err(a, b)
+        err9 = max(err9, err)
+        if rels[name] > 1e-3:
+            raise AssertionError(f"SSD backward kernel: {name} max |diff| {err} "
+                                 f"({rels[name]:.3e} of max)")
+    # operations, the products the function needs, lower triangles only: in
+    # every chunk G once, per head GM^T dy and dy (dt x)^T (tri * p each), and
+    # dG B and dG^T C once on dG summed over the heads (B and C are shared);
+    # per head dy h_in^T (which also gives dE) and the carry (C E)^T dy
+    # (2qnp each) in every chunk but the first, whose h_in is 0 and whose dh
+    # nothing reads, and B dh and (dt x T_end) dh^T in every chunk but the
+    # last, whose dh is 0. Bytes: xbc, dy, h_in, dt, S, D read, dxbc, ddt,
+    # dS, dD written
+    bwd_ops = B * (nc * (3 * tri * n + h * 2 * tri * hp) + (nc - 1) * h * 8 * q * n * hp)
+    bwd_bytes = (2 * B * L * (d + 2 * n) + B * L * d + 4 * B * h * L + 2 * h) * 4 + hin_bytes
+    bound_ms, bound_by = bound(bwd_bytes, bwd_ops)
+    records.append(dict(
+        name="ssd_xbc_bwd", route="cuda", source="si_mamba_tpu_torch/csrc/ssd_xbc_bwd.cu",
+        replaces="si_mamba_tpu/ops/pallas/ssd_kernel.py:623", max_abs_err=err9,
+        rel_err_of_max=rels, ms=time_ms(lambda: kssd.ssd_xbc_bwd(*bwd_args), 10),
+        plain_ms=time_ms(lambda: kssd.ssd_xbc_bwd_ref(*bwd_args), 2, warmup=1),
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+    log("SSD backward ok: " + ", ".join(f"{k} {v:.3e} of max" for k, v in rels.items()))
+    for r in records:
+        log(f"{r['name']}: {r['ms']:.6f} ms (plain {r['plain_ms']:.6f}, bound "
+            f"{r['bound_ms']:.6f} by {r['bound_by']})")
+    return records, conv_shape
 
 
 def clouds(n: int, seed: int) -> np.ndarray:
@@ -333,20 +464,54 @@ def clouds(n: int, seed: int) -> np.ndarray:
     return pts / np.abs(pts).max(axis=(1, 2), keepdims=True)
 
 
-def serving_phase(device) -> tuple[dict, dict]:
+def _launch_counts() -> dict[str, int]:
+    from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
+    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    return {"causal_conv1d_silu": kc.causal_conv1d_silu.launches,
+            "selective_scan_fwd": ks.selective_scan_fwd.launches,
+            "selective_scan_fwd_residuals": ks.selective_scan_fwd_residuals.launches,
+            "selective_scan_bwd": ks.selective_scan_bwd.launches,
+            "causal_conv1d_silu_bwd": kc.causal_conv1d_silu_bwd.launches,
+            "ssd_xbc_fwd": kssd.ssd_xbc_fwd.launches,
+            "ssd_xbc_fwd_states": kssd.ssd_xbc_fwd_states.launches,
+            "ssd_xbc_bwd": kssd.ssd_xbc_bwd.launches}
+
+
+def _reset_launch_counts() -> None:
+    from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
+    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    kc.causal_conv1d_silu.launches = kc.causal_conv1d_silu_bwd.launches = 0
+    ks.selective_scan_fwd.launches = ks.selective_scan_fwd_residuals.launches = 0
+    ks.selective_scan_bwd.launches = 0
+    kssd.ssd_xbc_fwd.launches = kssd.ssd_xbc_fwd_states.launches = 0
+    kssd.ssd_xbc_bwd.launches = 0
+
+
+def _expect(depth: int, names) -> dict[str, int]:
+    """``depth`` launches of each kernel in ``names``, none of the others."""
+    return {k: (depth if k in names else 0) for k in _launch_counts()}
+
+
+def serving_phase(device, base: dict = MODELNET40, plain_impl: str = "seq",
+                  kernels=("causal_conv1d_silu", "selective_scan_fwd")):
+    """Requests of REQUEST_SIZES clouds through a ``Predictor`` over the model
+    of ``base``; every forward must launch each of ``kernels`` once a block and
+    nothing else, and the logits match the model with ``plain_impl``.
+    Returns (launches, latency record, model, requests)."""
     from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
-    from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_silu
-    from si_mamba_tpu_torch.ops.kernels.selective_scan import selective_scan_fwd
     from si_mamba_tpu_torch.serving import Predictor
 
-    cfg = PointMambaConfig.from_dict(MODELNET40)
+    cfg = PointMambaConfig.from_dict(base)
     model = PointMamba(cfg, generator=torch.Generator().manual_seed(0))
     predictor = Predictor(model, npoints=NPOINTS, max_batch=64, device=device)
     predictor.warmup()
     requests = {n: clouds(n, seed=n) for n in REQUEST_SIZES}
 
-    # the main path: counts from 0, then only the requests
-    causal_conv1d_silu.launches = selective_scan_fwd.launches = 0
+    _reset_launch_counts()  # the main path: counts from 0, then only the requests
     latency, logits, forwards = {}, {}, 0
     for n, batch in requests.items():
         times = []
@@ -358,39 +523,39 @@ def serving_phase(device) -> tuple[dict, dict]:
         if out.shape != (n, cfg.cls_dim) or not np.isfinite(out).all():
             raise AssertionError(f"bad logits for a request of {n}: {out.shape}")
         latency[n], logits[n] = times, out
-    launches = {"causal_conv1d_silu": causal_conv1d_silu.launches,
-                "selective_scan_fwd": selective_scan_fwd.launches}
-    for name, count in launches.items():
-        if count != cfg.depth * forwards:
-            raise AssertionError(f"{name} launched {count} times in {forwards} forwards; "
-                                 f"expected {cfg.depth} per forward")
-    log(f"served {forwards} forwards; launches {launches}")
+    launches = _launch_counts()
+    want = _expect(cfg.depth * forwards, kernels)
+    if launches != want:
+        raise AssertionError(f"{forwards} forwards launched {launches}; expected {want} "
+                             f"({cfg.depth} per forward of {kernels}, nothing else)")
+    log(f"served {forwards} forwards ({cfg.mixer} mixer); launches {launches}")
 
-    # the same weights with the plain scan and conv, on the same card
-    seq_model = PointMamba(PointMambaConfig.from_dict({**MODELNET40, "scan_impl": "seq"}))
-    seq_model.load_state_dict(model.state_dict(), strict=True)
-    seq = Predictor(seq_model, npoints=NPOINTS, max_batch=64, device=device)
+    # the same weights through the plain path, on the same card
+    plain_model = PointMamba(PointMambaConfig.from_dict({**base, "scan_impl": plain_impl}))
+    plain_model.load_state_dict(model.state_dict(), strict=True)
+    plain = Predictor(plain_model, npoints=NPOINTS, max_batch=64, device=device)
     n_cmp = 20
-    ref = seq.logits(requests[n_cmp])
+    ref = plain.logits(requests[n_cmp])
     scale = float(np.abs(ref).max())
     err = float(np.abs(logits[n_cmp] - ref).max())
     if not np.allclose(logits[n_cmp], ref, atol=1e-3 * scale, rtol=2e-3):
-        raise AssertionError(f"kernel logits disagree with the plain scan: max |diff| "
-                             f"{err}, max |logit| {scale}")
+        raise AssertionError(f"kernel logits disagree with scan_impl={plain_impl!r}: max "
+                             f"|diff| {err}, max |logit| {scale}")
     with torch.inference_mode():
         pts = torch.from_numpy(requests[n_cmp]).to(device)
         _, feat = predictor.model(pts, return_features=True)
-        _, feat_ref = seq_model(pts, return_features=True)
+        _, feat_ref = plain_model(pts, return_features=True)
     feat_err = (feat - feat_ref).abs().max().item()
     feat_scale = feat_ref.abs().max().item()
     if not torch.allclose(feat, feat_ref, atol=1e-3 * feat_scale, rtol=2e-3):
-        raise AssertionError(f"pooled features disagree with the plain scan: max |diff| "
-                             f"{feat_err}, max |feature| {feat_scale}")
-    log(f"kernel path == plain path on {n_cmp} clouds: logits max |diff| {err:.3e} "
-        f"(max |logit| {scale:.3e}), features max |diff| {feat_err:.3e} "
+        raise AssertionError(f"pooled features disagree with scan_impl={plain_impl!r}: max "
+                             f"|diff| {feat_err}, max |feature| {feat_scale}")
+    log(f"kernel path == scan_impl={plain_impl!r} on {n_cmp} clouds: logits max |diff| "
+        f"{err:.3e} (max |logit| {scale:.3e}), features max |diff| {feat_err:.3e} "
         f"(max |feature| {feat_scale:.3e})")
+    del plain, plain_model
 
-    serving = {}
+    serving = {"logits_max_abs_diff": err, "logits_max_abs": scale}
     for n, times in latency.items():
         p50 = statistics.median(times)
         serving[str(n)] = {"p50_ms": p50 * 1e3, "clouds_per_s": n / p50,
@@ -468,29 +633,14 @@ def _train_clouds(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
     return pts, rng.integers(0, MODELNET40["cls_dim"], n)
 
 
-def _launch_counts() -> dict[str, int]:
-    from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
-    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
-
-    return {"causal_conv1d_silu": kc.causal_conv1d_silu.launches,
-            "selective_scan_fwd": ks.selective_scan_fwd.launches,
-            "selective_scan_fwd_residuals": ks.selective_scan_fwd_residuals.launches,
-            "selective_scan_bwd": ks.selective_scan_bwd.launches,
-            "causal_conv1d_silu_bwd": kc.causal_conv1d_silu_bwd.launches}
-
-
-def _reset_launch_counts() -> None:
-    from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
-    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
-
-    kc.causal_conv1d_silu.launches = kc.causal_conv1d_silu_bwd.launches = 0
-    ks.selective_scan_fwd.launches = ks.selective_scan_fwd_residuals.launches = 0
-    ks.selective_scan_bwd.launches = 0
-
-
-def train_phase(device, card: str) -> tuple[dict, dict]:
+def train_phase(device, card: str, base: dict = MODELNET40,
+                kernels=("causal_conv1d_silu", "selective_scan_fwd_residuals",
+                         "selective_scan_bwd", "causal_conv1d_silu_bwd"),
+                eval_kernels=("causal_conv1d_silu", "selective_scan_fwd")) -> tuple[dict, dict]:
     """TRAIN_STEPS steps of the port's finetune step at the ModelNet40
-    settings; returns (record, launches over the steps)."""
+    settings over the model of ``base``; every step must launch each of
+    ``kernels`` once a block and nothing else, an eval forward after them
+    each of ``eval_kernels``. Returns (record, launches over the steps)."""
     from si_mamba_tpu_torch.data import transforms
     from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
     from si_mamba_tpu_torch.train.optim import build_optimizer
@@ -501,7 +651,7 @@ def train_phase(device, card: str) -> tuple[dict, dict]:
     )
     from si_mamba_tpu_torch.train.train_state import TrainState
 
-    cfg = PointMambaConfig.from_dict(MODELNET40)
+    cfg = PointMambaConfig.from_dict(base)
     model = PointMamba(cfg, generator=torch.Generator().manual_seed(0)).to(device)
     optimizer, schedule = build_optimizer(model, opt_type="AdamW", lr=3e-4, weight_decay=0.05,
                                           epochs=300, warmup_epochs=10, steps_per_epoch=2,
@@ -515,9 +665,7 @@ def train_phase(device, card: str) -> tuple[dict, dict]:
     params0 = {k: v.detach().clone() for k, v in model.named_parameters()}
     stats0 = {k: v.clone() for k, v in model.named_buffers() if "running" in k}
 
-    expect = {"causal_conv1d_silu": cfg.depth, "selective_scan_fwd": 0,
-              "selective_scan_fwd_residuals": cfg.depth, "selective_scan_bwd": cfg.depth,
-              "causal_conv1d_silu_bwd": cfg.depth}
+    expect = _expect(cfg.depth, kernels)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     _reset_launch_counts()  # the main path: counts from 0, then only the steps
@@ -571,12 +719,12 @@ def train_phase(device, card: str) -> tuple[dict, dict]:
     for row in prof["top"]:
         log(f"    {row['device_ms']:9.3f} ms  x{row['count']:<5d} {row['name']}")
 
-    # an eval forward after training takes the lean scan again
+    # an eval forward after training takes the lean forward kernel again
     _reset_launch_counts()
     with torch.inference_mode():
         logits = model.eval()(points[:, :NPOINTS])
     counts = _launch_counts()
-    if counts["selective_scan_fwd"] != cfg.depth or counts["selective_scan_fwd_residuals"] != 0:
+    if counts != _expect(cfg.depth, eval_kernels):
         raise AssertionError(f"an eval forward after training launched {counts}")
     if logits.shape != (TRAIN_BATCH, cfg.cls_dim) or not torch.isfinite(logits).all():
         raise AssertionError("bad eval logits after training")
@@ -597,7 +745,7 @@ def train_phase(device, card: str) -> tuple[dict, dict]:
               "piece_ms": pieces, "profile": prof,
               "params_moved": len(moved), "params": len(params0),
               "launches_per_step": expect, "card": card}
-    log(f"train: {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, p50 {p50 * 1e3:.3f} ms "
+    log(f"train ({cfg.mixer} mixer): {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, p50 {p50 * 1e3:.3f} ms "
         f"(steps 2 onward), {TRAIN_BATCH / p50:.2f} clouds/s, peak memory "
         f"{peak / 2**30:.3f} GiB, losses {['%.4f' % v for v in losses]}; "
         f"fps_resample alone {fps_ms:.3f} ms; {card}")
@@ -605,9 +753,9 @@ def train_phase(device, card: str) -> tuple[dict, dict]:
     return record, launches
 
 
-def gradient_phase(device) -> dict:
+def gradient_phase(device, base: dict = MODELNET40, plain_impl: str = "seq") -> dict:
     """One train-mode forward + backward of the kernel path and of the plain
-    path (scan_impl='seq'), same weights and clouds, drop rates 0: the loss
+    path (``plain_impl``), same weights and clouds, drop rates 0: the loss
     and every parameter gradient. The tolerance has the form of
     tests/test_full_parity.py:541-545 (there 1.5e-2 across frameworks),
     tightened for one framework on one card: each leaf within GRAD_TOL of
@@ -618,10 +766,10 @@ def gradient_phase(device) -> dict:
     from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
     from si_mamba_tpu_torch.models.point_mamba import cross_entropy_loss_acc
 
-    no_drop = {**MODELNET40, "drop_path": 0.0, "cls_head_dropout": 0.0}
+    no_drop = {**base, "drop_path": 0.0, "cls_head_dropout": 0.0}
     model = PointMamba(PointMambaConfig.from_dict(no_drop),
                        generator=torch.Generator().manual_seed(5)).to(device)
-    plain = PointMamba(PointMambaConfig.from_dict({**no_drop, "scan_impl": "seq"})).to(device)
+    plain = PointMamba(PointMambaConfig.from_dict({**no_drop, "scan_impl": plain_impl})).to(device)
     plain.load_state_dict(model.state_dict(), strict=True)
     pts_np, labels_np = _train_clouds(PARITY_BATCH, seed=11)
     pts = torch.from_numpy(pts_np[:, :NPOINTS]).to(device)
@@ -648,10 +796,11 @@ def gradient_phase(device) -> dict:
             worst_dominant = max(worst_dominant, diff / bmax)
             if diff / bmax >= GRAD_TOL:
                 raise AssertionError(f"{k}: gradient differs by {diff / bmax:.3e} relative")
-    log(f"gradients at B={PARITY_BATCH}: loss kernel {losses['kernel']:.7f}, plain "
+    log(f"gradients at B={PARITY_BATCH} ({base.get('mixer', 'mamba')} mixer, against "
+        f"scan_impl={plain_impl!r}): loss kernel {losses['kernel']:.7f}, plain "
         f"{losses['plain']:.7f}; worst leaf |diff| {worst_leaf:.3e} of max gradient "
         f"{gmax:.3e}, worst dominant leaf {worst_dominant:.3e} relative")
-    return {"batch": PARITY_BATCH, "losses": losses, "max_grad": gmax,
+    return {"batch": PARITY_BATCH, "plain_impl": plain_impl, "losses": losses, "max_grad": gmax,
             "worst_leaf_diff_over_max_grad": worst_leaf,
             "worst_dominant_leaf_rel_diff": worst_dominant, "leaves": len(grads)}
 
@@ -681,21 +830,45 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
     records = kernel_phase(device) + backward_kernel_phase(device)
-    launches, serving, model, requests = serving_phase(device)
+    ssd_records, conv_at_ssd_shape = ssd_kernel_phase(device)
+    for r in records:
+        if r["name"] in conv_at_ssd_shape:
+            r["at_ssd_shape"] = conv_at_ssd_shape[r["name"]]
+    records += ssd_records
+
+    # the four paths, each with every launch count from 0 (set inside each phase)
+    paths = {}
+    paths["serving"], serving, model, requests = serving_phase(device)
     profile = profile_phase(model, requests)
     del model
-    train, train_launches = train_phase(device, card)
+    train, paths["train"] = train_phase(device, card)
     grads = gradient_phase(device)
-    # each kernel's launches on the path it serves: the forward kernels on the
-    # serving path, the training kernels on the train path (K1 runs on both)
+    paths["ssd_serving"], ssd_serving, model, requests = serving_phase(
+        device, MODELNET40_SSD, plain_impl="xla", kernels=("causal_conv1d_silu", "ssd_xbc_fwd"))
+    ssd_profile = profile_phase(model, requests)
+    del model
+    ssd_train, paths["ssd_train"] = train_phase(
+        device, card, MODELNET40_SSD,
+        kernels=("causal_conv1d_silu", "ssd_xbc_fwd_states", "ssd_xbc_bwd",
+                 "causal_conv1d_silu_bwd"),
+        eval_kernels=("causal_conv1d_silu", "ssd_xbc_fwd"))
+    ssd_grads = gradient_phase(device, MODELNET40_SSD, plain_impl="xla")
+
+    # each kernel's launches on every path, and on the path it serves
+    main_path = {"causal_conv1d_silu": "serving", "selective_scan_fwd": "serving",
+                 "selective_scan_fwd_residuals": "train", "selective_scan_bwd": "train",
+                 "causal_conv1d_silu_bwd": "train", "ssd_xbc_fwd": "ssd_serving",
+                 "ssd_xbc_fwd_states": "ssd_train", "ssd_xbc_bwd": "ssd_train"}
     for r in records:
-        by_path = {"serving": launches.get(r["name"], 0), "train": train_launches[r["name"]]}
-        r["launches_by_path"] = by_path
-        r["launches"] = by_path["serving"] if r["name"] in launches else by_path["train"]
+        r["kernel_ms"] = r["ms"]  # the same time under the field's older name
+        r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
+        r["launches"] = r["launches_by_path"][main_path[r["name"]]]
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} was not launched on its path")
     print(json.dumps({"serving": serving, "profile": profile, "train": train,
-                      "gradients": grads, "card": card}), flush=True)
+                      "gradients": grads, "ssd": {"serving": ssd_serving, "profile": ssd_profile,
+                                                  "train": ssd_train, "gradients": ssd_grads},
+                      "card": card}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,15 +1,19 @@
-"""Mamba mixer, block and stack as ``nn.Module``s.
+"""Mamba mixers, block and stack as ``nn.Module``s.
 
-PyTorch counterparts of ``MambaMixer``, ``DropPath``, ``Block`` and
-``MixerModel`` in ``si_mamba_tpu/models/layers.py``, with the reference's
-parameter names (``in_proj``, ``conv1d``, ``x_proj``, ``dt_proj``, ``A_log``,
-``D``, ``out_proj``). The initialisers take the JAX package's forms, so a
-freshly built model has realistic scan dynamics:
+PyTorch counterparts of ``MambaMixer``, ``SSDMixer``, ``DropPath``, ``Block``
+and ``MixerModel`` in ``si_mamba_tpu/models/layers.py``. The Mamba-1 mixer
+has the reference's parameter names (``in_proj``, ``conv1d``, ``x_proj``,
+``dt_proj``, ``A_log``, ``D``, ``out_proj``), the SSD mixer mamba-ssm's
+Mamba2 names (``in_proj``, ``conv1d``, ``dt_bias``, ``A_log``, ``D``,
+``norm.weight``, ``out_proj``). The initialisers take the JAX package's
+forms, so a freshly built model has realistic scan dynamics:
 
 - Linear and conv weights U(-1/sqrt(fan_in), 1/sqrt(fan_in));
-- dt_proj weight U(+-dt_rank^-1/2), bias the inverse softplus of a
-  log-uniform dt in [1e-3, 0.1];
-- A_log = log(1..d_state) per channel, D = 1;
+- dt_proj weight U(+-dt_rank^-1/2); the dt bias (dt_proj's, or the SSD
+  mixer's per-head dt_bias) the inverse softplus of a log-uniform dt in
+  [1e-3, 0.1];
+- Mamba-1: A_log = log(1..d_state) per channel, D = 1; SSD: A_log = log of
+  U(1, 16) per head, D = 1 per head, the gated-RMSNorm scale 1;
 - out_proj further divided by sqrt(n_layer).
 """
 
@@ -22,6 +26,7 @@ import torch.nn as nn
 
 from si_mamba_tpu_torch.models.embed import Dropout
 from si_mamba_tpu_torch.ops.selective_scan import mamba_mixer_apply
+from si_mamba_tpu_torch.ops.ssd import ssd_mixer_apply
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> torch.Tensor:
@@ -103,6 +108,78 @@ class MambaMixer(nn.Module):
                                  dt_rank=self.dt_rank, impl=self.scan_impl)
 
 
+class GatedRMSNormWeight(nn.Module):
+    """The scale of the SSD mixer's gated RMSNorm, ``norm.weight`` (d,). The
+    norm itself is in ``ssd_mixer_apply``."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(dim))
+
+
+class SSDMixer(nn.Module):
+    """Scalar-decay SSD token mixer (``ops/ssd.py``), the JAX package's opt-in
+    alternative to the Mamba-1 mixer (``PointMambaConfig.mixer='ssd'``):
+    d_inner = expand * d_model in heads of head_dim, one B/C group, A one
+    scalar per head. ``scan_impl='ssd_fused'`` runs the boundary-fused core
+    (K8/K9, with the conv's K1/K5); any other value, the default ``'auto'``
+    included, the plain conv and the plain chunked core, as the JAX mixer
+    maps it. So on CUDA only ``'ssd_fused'`` launches a kernel; the JAX
+    package's ``'xla'`` route on the TPU still runs its Pallas conv."""
+
+    def __init__(self, d_model: int, d_state: int = 128, d_conv: int = 4, expand: int = 2,
+                 head_dim: int = 128, chunk: int = 128, out_proj_div: float = 1.0,
+                 scan_impl: str = "auto"):
+        super().__init__()
+        d_inner = expand * d_model
+        # head_dim must divide d_inner; otherwise the largest divisor below it
+        if d_inner % head_dim:
+            head_dim = next(d for d in range(min(head_dim, d_inner), 0, -1) if d_inner % d == 0)
+        self.d_state, self.d_inner, self.head_dim = d_state, d_inner, head_dim
+        self.n_heads = d_inner // head_dim
+        self.chunk, self.out_proj_div = chunk, out_proj_div
+        self.impl = "ssd_fused" if scan_impl == "ssd_fused" else "xla"
+        conv_dim = d_inner + 2 * d_state
+        self.in_proj = nn.Linear(d_model, 2 * d_inner + 2 * d_state + self.n_heads, bias=False)
+        self.conv1d = DepthwiseConvWeights(conv_dim, d_conv)
+        self.dt_bias = nn.Parameter(torch.empty(self.n_heads))
+        self.A_log = nn.Parameter(torch.empty(self.n_heads))
+        self.D = nn.Parameter(torch.empty(self.n_heads))
+        self.norm = GatedRMSNormWeight(d_inner)
+        self.out_proj = nn.Linear(d_inner, d_model, bias=False)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        d_model = self.in_proj.in_features
+        d_conv = self.conv1d.weight.shape[-1]
+        _uniform_(self.in_proj.weight, 1 / math.sqrt(d_model), generator)
+        _uniform_(self.conv1d.weight, 1 / math.sqrt(d_conv), generator)
+        _uniform_(self.conv1d.bias, 1 / math.sqrt(d_conv), generator)
+        self.dt_bias.copy_(_dt_bias(self.n_heads, generator))
+        self.A_log.copy_(torch.log(torch.rand(self.n_heads, generator=generator) * 15.0 + 1.0))
+        self.D.fill_(1.0)
+        self.norm.weight.fill_(1.0)
+        _uniform_(self.out_proj.weight, 1 / math.sqrt(self.d_inner), generator)
+        self.out_proj.weight.div_(self.out_proj_div)
+
+    def params(self) -> dict:
+        """The parameters in ``ssd_mixer_apply``'s layout (views, no copies)."""
+        return {
+            "in_proj_w": self.in_proj.weight.t(),
+            "conv_w": self.conv1d.weight[:, 0, :],
+            "conv_b": self.conv1d.bias,
+            "dt_bias": self.dt_bias,
+            "A_log": self.A_log,
+            "D": self.D,
+            "norm_scale": self.norm.weight,
+            "out_proj_w": self.out_proj.weight.t(),
+        }
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return ssd_mixer_apply(self.params(), x, n_heads=self.n_heads, d_state=self.d_state,
+                               chunk=self.chunk, impl=self.impl)
+
+
 class DropPath(nn.Module):
     """Per-sample stochastic depth (timm semantics); identity in eval. The
     mask draws from the generator passed to ``forward``; training at a rate
@@ -128,10 +205,17 @@ class Block(nn.Module):
     residual is the pre-norm sum; the first block takes residual None."""
 
     def __init__(self, d_model: int, norm_eps: float = 1e-5, drop_path: float = 0.0,
-                 out_proj_div: float = 1.0, scan_impl: str = "auto"):
+                 out_proj_div: float = 1.0, scan_impl: str = "auto", mixer: str = "mamba",
+                 ssd_chunk: int = 128):
         super().__init__()
         self.norm = nn.LayerNorm(d_model, eps=norm_eps)
-        self.mixer = MambaMixer(d_model, out_proj_div=out_proj_div, scan_impl=scan_impl)
+        if mixer == "ssd":
+            self.mixer = SSDMixer(d_model, out_proj_div=out_proj_div, scan_impl=scan_impl,
+                                  chunk=ssd_chunk)
+        elif mixer == "mamba":
+            self.mixer = MambaMixer(d_model, out_proj_div=out_proj_div, scan_impl=scan_impl)
+        else:
+            raise ValueError(f"unknown mixer {mixer!r}")
         self.drop_path = DropPath(drop_path)
 
     def forward(self, hidden: torch.Tensor, residual: torch.Tensor | None = None,
@@ -141,17 +225,17 @@ class Block(nn.Module):
 
 
 class MixerModel(nn.Module):
-    """Stack of Mamba blocks + final LayerNorm; in training, dropout at
-    ``drop_out_in_block`` after every block's mixer output."""
+    """Stack of Mamba (or SSD) blocks + final LayerNorm; in training, dropout
+    at ``drop_out_in_block`` after every block's mixer output."""
 
     def __init__(self, d_model: int, n_layer: int, norm_eps: float = 1e-5,
                  drop_path: float = 0.0, drop_out_in_block: float = 0.0,
-                 scan_impl: str = "auto"):
+                 scan_impl: str = "auto", mixer: str = "mamba", ssd_chunk: int = 128):
         super().__init__()
         div = math.sqrt(n_layer)  # one residual per layer
         self.layers = nn.ModuleList(
             Block(d_model, norm_eps=norm_eps, drop_path=drop_path, out_proj_div=div,
-                  scan_impl=scan_impl)
+                  scan_impl=scan_impl, mixer=mixer, ssd_chunk=ssd_chunk)
             for _ in range(n_layer))
         self.block_dropout = Dropout(drop_out_in_block)
         self.norm_f = nn.LayerNorm(d_model, eps=norm_eps)

@@ -78,11 +78,13 @@ class PointMambaConfig:
 
 
 def _check_supported(cfg: PointMambaConfig) -> None:
-    """Raise for the options whose port is still queued in ROADMAP.md."""
+    """Raise for the options whose port is still queued in ROADMAP.md, and
+    for the combination the JAX model refuses too."""
+    if cfg.add_after_layer and cfg.mixer != "mamba":
+        raise NotImplementedError("mixer='ssd' with add_after_layer")
     later = {
         "method='HLT'": cfg.method == "HLT",
         "add_after_layer": cfg.add_after_layer,
-        "mixer='ssd'": cfg.mixer == "ssd",
         "tp_axis": cfg.tp_axis is not None,
         "rms_norm": cfg.rms_norm,
         "spectral_method='subspace'": cfg.spectral_method == "subspace",
@@ -91,6 +93,8 @@ def _check_supported(cfg: PointMambaConfig) -> None:
     for name, on in later.items():
         if on:
             raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md, queue 1)")
+    if cfg.mixer not in ("mamba", "ssd"):
+        raise ValueError(f"unknown mixer {cfg.mixer!r}")
     if cfg.method not in ("SAST", "MAMBA"):
         raise ValueError(f"unknown method {cfg.method!r}")
     if cfg.reverse_3:
@@ -127,7 +131,8 @@ class PointMamba(nn.Module):
         self.drop_out = Dropout(cfg.drop_out)
         self.blocks = MixerModel(cfg.trans_dim, cfg.depth, drop_path=cfg.drop_path,
                                  drop_out_in_block=cfg.drop_out_in_block,
-                                 scan_impl=cfg.scan_impl)
+                                 scan_impl=cfg.scan_impl, mixer=cfg.mixer,
+                                 ssd_chunk=cfg.ssd_chunk)
         self.norm = nn.LayerNorm(cfg.trans_dim, eps=1e-5)
         self.cls_head_finetune = ClsHead(cfg.trans_dim, cfg.cls_dim, drop=cfg.cls_head_dropout)
         self.reset_parameters(generator or torch.Generator().manual_seed(0))

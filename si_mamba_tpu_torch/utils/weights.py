@@ -58,11 +58,22 @@ def _mixer(out, key, m) -> None:
     out[f"{key}.out_proj.weight"] = _t(np.asarray(m["out_proj"]).T)
 
 
+def _ssd_mixer(out, key, m) -> None:
+    out[f"{key}.in_proj.weight"] = _t(np.asarray(m["in_proj"]).T)
+    out[f"{key}.conv1d.weight"] = _t(np.asarray(m["conv1d_weight"])[:, None, :])
+    out[f"{key}.conv1d.bias"] = _t(m["conv1d_bias"])
+    for name in ("dt_bias", "A_log", "D"):
+        out[f"{key}.{name}"] = _t(m[name])
+    out[f"{key}.norm.weight"] = _t(m["norm_scale"])
+    out[f"{key}.out_proj.weight"] = _t(np.asarray(m["out_proj"]).T)
+
+
 def state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
                         ) -> Dict[str, torch.Tensor]:
     """The JAX ``PointMamba``'s variables (``params``, ``batch_stats``, as
     nested dicts of arrays) -> a state dict that ``PointMamba`` loads with
-    ``strict=True``. The depth is read from the block tree."""
+    ``strict=True``. The depth is read from the block tree, and each mixer's
+    kind from its keys (the SSD mixer has ``norm_scale``, Mamba-1 ``x_proj``)."""
     out: Dict[str, torch.Tensor] = {}
     enc, enc_s = params["encoder"], batch_stats["encoder"]
     _conv1x1(out, "encoder.first_conv.0", enc["conv1"])
@@ -77,7 +88,8 @@ def state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any
     depth = sum(1 for k in blocks if k.startswith("layers_"))
     for i in range(depth):
         _ln(out, f"blocks.layers.{i}.norm", blocks[f"layers_{i}"]["norm"])
-        _mixer(out, f"blocks.layers.{i}.mixer", blocks[f"layers_{i}"]["mixer"])
+        mixer = blocks[f"layers_{i}"]["mixer"]
+        (_ssd_mixer if "norm_scale" in mixer else _mixer)(out, f"blocks.layers.{i}.mixer", mixer)
     _ln(out, "blocks.norm_f", blocks["norm_f"])
     _ln(out, "norm", params["norm"])
     head, head_s = params["cls_head_finetune"], batch_stats["cls_head_finetune"]

@@ -265,3 +265,144 @@ def test_mixer_grads_on_the_kernel_path_match_seq(cuda):
     for (name, p), q in zip(mixer.named_parameters(), plain.parameters()):
         assert p.grad is not None, name
         _close_to_max(p.grad, q.grad, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the SSD kernels (K8, K9) and their autograd Function
+# ---------------------------------------------------------------------------
+
+def _ssd_case(rng, b, l, h, chunk, device, n=128, p=128):
+    """xbc as a column slice of a wider buffer (unit stride along channels
+    only), dt and S in the kernels' (b, h, nc, q) layout, D (h,)."""
+    d = h * p
+    xbc = _randn(rng, b, l, d + 2 * n + 6, scale=0.5, device=device)[..., 6:]
+    dt = torch.nn.functional.softplus(_randn(rng, b, l, h, device=device) - 1.0)
+    A = -torch.exp(_randn(rng, h, device=device))
+    dth = dt.transpose(1, 2).reshape(b, h, l // chunk, chunk).contiguous()
+    S = torch.cumsum(dth * A[None, :, None, None], dim=-1)
+    return xbc, dth, S, _randn(rng, h, device=device), d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,chunk", [(2, 512, 2, 256), (1, 192, 1, 64), (2, 384, 3, 128)])
+def test_ssd_fwd_kernels_match_plain(cuda, b, l, h, chunk):
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    xbc, dth, S, D, d = _ssd_case(np.random.default_rng(20), b, l, h, chunk, cuda)
+    k_lean, k_states = kssd.ssd_xbc_fwd.launches, kssd.ssd_xbc_fwd_states.launches
+    y_lean = kssd.ssd_xbc_fwd(xbc, dth, S, D, d, chunk)
+    y, h_in = kssd.ssd_xbc_fwd_states(xbc, dth, S, D, d, chunk)
+    torch.cuda.synchronize()
+    assert (kssd.ssd_xbc_fwd.launches, kssd.ssd_xbc_fwd_states.launches) == (k_lean + 1,
+                                                                             k_states + 1)
+    torch.testing.assert_close(y, y_lean, rtol=0, atol=0)  # the same arithmetic
+    y_ref, h_ref = kssd.ssd_xbc_fwd_ref(xbc, dth, S, D, d, chunk, emit_states=True)
+    assert h_in.shape == h_ref.shape == (b, l // chunk, h, 128, 128)
+    _close_to_max(y, y_ref, 1e-5)
+    _close_to_max(h_in, h_ref, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,chunk", [(2, 512, 2, 256), (1, 192, 3, 64)])
+def test_ssd_bwd_kernel_matches_plain(cuda, b, l, h, chunk):
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    rng = np.random.default_rng(21)
+    xbc, dth, S, D, d = _ssd_case(rng, b, l, h, chunk, cuda)
+    dy = _randn(rng, b, l, d + 3, device=cuda)[..., 3:]
+    _, h_in = kssd.ssd_xbc_fwd_ref(xbc, dth, S, D, d, chunk, emit_states=True)
+    before = kssd.ssd_xbc_bwd.launches
+    got = kssd.ssd_xbc_bwd(xbc, dth, S, D, h_in, dy, d, chunk)
+    torch.cuda.synchronize()
+    assert kssd.ssd_xbc_bwd.launches == before + 1
+    want = kssd.ssd_xbc_bwd_ref(xbc, dth, S, D, h_in, dy, d, chunk)
+    for name, a, w in zip(("dxbc", "ddt", "dS", "dD"), got, want):
+        assert a.shape == w.shape, name
+        _close_to_max(a, w, 1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_kernels_reject_what_they_do_not_take(cuda):
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    rng = np.random.default_rng(22)
+    xbc, dth, S, D, d = _ssd_case(rng, 1, 128, 1, 64, cuda)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        kssd.ssd_xbc_fwd(xbc, dth.reshape(1, 1, 4, 32).contiguous(),
+                         S.reshape(1, 1, 4, 32).contiguous(), D, d, 32)
+    small, dth2, S2, D2, d2 = _ssd_case(rng, 1, 128, 1, 64, cuda, n=64)
+    with pytest.raises(ValueError, match="d_state 128"):
+        kssd.ssd_xbc_fwd(small, dth2, S2, D2, d2, 64)
+    with pytest.raises(TypeError):
+        kssd.ssd_xbc_fwd(xbc.double(), dth, S, D, d, 64)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kssd.ssd_xbc_fwd(xbc, dth, S, D.cpu(), d, 64)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        kssd.ssd_chunked_xbc(xbc[:, :100], torch.ones(1, 100, 1, device=cuda),
+                             -torch.ones(1, device=cuda), D, d_inner=d, chunk=64)
+
+
+@pytest.mark.cuda
+def test_ssd_mixer_kernel_path_matches_xla(cuda):
+    """The mixer at d_model 128 (two heads of 128), L = 100 padded to 128,
+    forward and every parameter gradient: 'ssd_fused' (K1, K8, K9, K5)
+    against 'xla' on the card."""
+    from si_mamba_tpu_torch.models.layers import SSDMixer
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    mixer = SSDMixer(128, chunk=64, out_proj_div=2.0, scan_impl="ssd_fused")
+    mixer.reset_parameters(torch.Generator().manual_seed(23))
+    plain = SSDMixer(128, chunk=64, out_proj_div=2.0, scan_impl="xla")
+    plain.load_state_dict(mixer.state_dict())
+    mixer, plain = mixer.to(cuda), plain.to(cuda)
+    rng = np.random.default_rng(24)
+    x, g = _randn(rng, 3, 100, 128, device=cuda), _randn(rng, 3, 100, 128, device=cuda)
+    counts = lambda: (kconv.causal_conv1d_silu.launches,  # noqa: E731
+                      kssd.ssd_xbc_fwd_states.launches, kssd.ssd_xbc_bwd.launches,
+                      kconv.causal_conv1d_silu_bwd.launches)
+    before = counts()
+    y = mixer(x)
+    y.backward(g)
+    assert counts() == tuple(c + 1 for c in before)
+    y_ref = plain(x)
+    y_ref.backward(g)
+    _close_to_max(y, y_ref, 1e-5)
+    for (name, p), q in zip(mixer.named_parameters(), plain.parameters()):
+        assert p.grad is not None, name
+        _close_to_max(p.grad, q.grad, 1e-4)
+
+
+@pytest.mark.cuda
+def test_small_ssd_model_kernel_path_matches_xla(cuda):
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    cfg = dict(trans_dim=128, encoder_dims=128, depth=2, cls_dim=5, num_group=32,
+               group_size=16, drop_path=0.0, mixer="ssd", ssd_chunk=64)
+    model = PointMamba(PointMambaConfig(**cfg, scan_impl="ssd_fused")).to(cuda).eval()
+    plain = PointMamba(PointMambaConfig(**cfg, scan_impl="xla")).to(cuda).eval()
+    plain.load_state_dict(model.state_dict(), strict=True)
+    pts = _randn(np.random.default_rng(25), 3, 256, 3, device=cuda)
+    k8, k2 = kssd.ssd_xbc_fwd.launches, kscan.selective_scan_fwd.launches
+    with torch.inference_mode():
+        got = model(pts)
+        assert (kssd.ssd_xbc_fwd.launches, kscan.selective_scan_fwd.launches) == (k8 + 2, k2)
+        want = plain(pts)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=1e-3 * want.abs().max().item())
+
+
+def test_ssd_function_gradcheck_in_float64_through_the_plain_path():
+    """The plain K8/K9 pair of ``SSDChunkedXbcFn`` in float64 on the CPU, with
+    dt and S independent inputs (the kernels take float32 and are held
+    against these instead)."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    rng = np.random.default_rng(26)
+    b, l, h, p, n, chunk = 2, 12, 2, 3, 2, 4
+    xbc = torch.tensor(rng.standard_normal((b, l, h * p + 2 * n)), dtype=torch.float64)
+    dt = torch.tensor(rng.uniform(0.1, 1.0, (b, h, l // chunk, chunk)), dtype=torch.float64)
+    S = torch.cumsum(-dt * torch.tensor([0.5, 1.5], dtype=torch.float64)[None, :, None, None],
+                     dim=-1)
+    D = torch.tensor(rng.standard_normal(h), dtype=torch.float64)
+    leaves = [t.clone().requires_grad_() for t in (xbc, dt, S, D)]
+    assert torch.autograd.gradcheck(
+        lambda *a: kssd.SSDChunkedXbcFn.apply(*a, h * p, chunk), leaves)

@@ -34,12 +34,14 @@ def test_port_file_imports_nothing_of_jax(path):
 def test_port_package_has_its_kernel_sources():
     csrc = ROOT / "si_mamba_tpu_torch" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} >= {"causal_conv.cu", "selective_scan_fwd.cu",
-                                                    "selective_scan_bwd.cu"}
+                                                    "selective_scan_bwd.cu", "ssd_xbc_fwd.cu",
+                                                    "ssd_xbc_bwd.cu"}
 
 
 def test_importing_the_port_loads_no_jax_module():
     code = ("import sys; before = set(sys.modules); "
             "import si_mamba_tpu_torch.serving, si_mamba_tpu_torch.ops.selective_scan, "
+            "si_mamba_tpu_torch.ops.ssd, "
             "si_mamba_tpu_torch.train.runner_finetune; "
             "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in %r); "
             "assert not bad, bad" % (FORBIDDEN,))

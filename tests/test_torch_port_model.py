@@ -151,7 +151,8 @@ def test_fresh_model_is_seeded_and_finite():
 
 
 @pytest.mark.parametrize("override", [dict(method="HLT"), dict(add_after_layer=True),
-                                      dict(mixer="ssd"), dict(tp_axis="model"),
+                                      dict(mixer="ssd", add_after_layer=True),
+                                      dict(tp_axis="model"),
                                       dict(dtype="bfloat16"), dict(spectral_method="subspace"),
                                       dict(reverse_3=True)])
 def test_unported_options_raise(override):
