@@ -10,7 +10,7 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
 
 1. device: requires CUDA, prints ``nvidia-smi``'s name and power limit, turns
    TF32 off for matmuls and convolutions;
-2. build: the five CUDA sources, one ``nvcc`` each, in parallel;
+2. build: the seven CUDA sources, one ``nvcc`` each, in parallel;
 3. kernels: at the serving path's full-width shapes (B=32, L=512, d_inner=768,
    d_state=16, fp32, strided views as the mixer makes them) each kernel is
    held against its plain PyTorch version on the card and timed beside it:
@@ -26,6 +26,15 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    then the SSD core's lean forward and its forward with states (y equal,
    states against the plain version) and its backward for a seeded output
    gradient, each against its plain version and timed beside it;
+4b. fused-mixer kernels: at the serving path's shapes, with xz as layer 0's
+   ``in_proj`` makes it, the whole-mixer forward lean and with its chunk
+   entry states (y equal, states against the plain version) and its
+   backward for a seeded output gradient (every gradient against the plain
+   backward, two runs bitwise equal), each timed beside its plain version;
+   then the same interior through the per-op route (K1, the x_proj and
+   dt_proj GEMMs, K2; with a gradient K1/K3 forward and K4/K5 + the GEMMs'
+   autograd backward) and through ``fused_mamba_mixer``, each timed without
+   a gradient, as a training forward and as the backward alone;
 5. serving: a ``Predictor`` over the ModelNet40 ``PointMamba`` (12 x 384,
    L=512, seeded random weights) answers requests of 1, 20 and 64 clouds of
    1024 points; every forward must launch the conv and lean scan kernels 12
@@ -59,13 +68,20 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    forward 12 times each and nothing else, its logits match
    ``scan_impl='xla'``; each train step launch the conv forward and backward,
    the SSD forward with states and the SSD backward 12 times each and nothing
-   else; the B=4 gradients match ``scan_impl='xla'``.
+   else; the B=4 gradients match ``scan_impl='xla'``;
+10. the whole-mixer route (the Mamba-1 model with ``scan_impl='fused'``)
+   through phases 5-8: each serving forward must launch the lean fused
+   forward 12 times and nothing else (neither the conv nor the scan), its
+   logits match ``scan_impl='seq'``; each train step launch the fused forward
+   with states and the fused backward 12 times each and nothing else, and an
+   eval forward after them the lean one; the B=4 gradients match 'seq'.
 
-Each path (serving, train, SSD serving, SSD train) is driven with every launch
-count set to 0 just before it and read just after. The last four lines of
-standard output are the serving, profile, train and gradient record of both
-models, the kernels' record (each one JSON object), the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+Each path (serving, train, SSD serving, SSD train, fused serving, fused
+train) is driven with every launch count set to 0 just before it and read
+just after. The last four lines of standard output are the serving, profile,
+train and gradient record of the three models, the kernels' record (each one
+JSON object; every kernel names its ``main_path`` and its launches on every
+path), the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -94,6 +110,9 @@ MODELNET40 = dict(trans_dim=384, depth=12, cls_dim=40, group_size=32, num_group=
 # cfgs/finetune_modelnet_ssd.yaml:12 and cfgs/finetune_modelnet_ssd_fused.yaml:11,15,
 # at fp32 with exact eigh (the preset's bf16 and subspace switches are perf mode).
 MODELNET40_SSD = dict(MODELNET40, mixer="ssd", ssd_chunk=256, scan_impl="ssd_fused")
+# The whole-mixer route: the ModelNet40 model with scan_impl 'fused' (the JAX
+# package's opt-in `mamba_mixer_apply(impl='fused')`).
+MODELNET40_FUSED = dict(MODELNET40, scan_impl="fused")
 NPOINTS = 1024
 REQUEST_SIZES = (1, 20, 64)
 REPEATS = 5
@@ -458,37 +477,178 @@ def ssd_kernel_phase(device) -> tuple[list[dict], dict]:
     return records, conv_shape
 
 
+def per_op_interior(xz, p, dt_rank: int, n: int):
+    """The mixer interior through the per-op route, as ``mamba_mixer_apply``
+    runs it under 'pallas': K1 (K5 backward), the x_proj and dt_proj GEMMs,
+    K2 (K3/K4 with a gradient)."""
+    from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_silu
+    from si_mamba_tpu_torch.ops.kernels.selective_scan import selective_scan_fused
+
+    d_inner = xz.shape[-1] // 2
+    xi = causal_conv1d_silu(xz[..., :d_inner], p["conv_w"], p["conv_b"])
+    x_dbl = xi @ p["x_proj_w"]
+    dt = x_dbl[..., :dt_rank] @ p["dt_proj_w"]
+    return selective_scan_fused(xi, dt, -torch.exp(p["A_log"]), x_dbl[..., dt_rank:dt_rank + n],
+                                x_dbl[..., dt_rank + n:], p["D"], xz[..., d_inner:],
+                                p["dt_proj_b"])
+
+
+def fused_mixer_phase(device) -> tuple[list[dict], dict]:
+    """K10 (lean and with states) and K11 at the serving path's shapes (B=32,
+    L=512, d_inner 768, d_state 16, xz as layer 0's in_proj makes it), each
+    against its plain version and timed beside it; then the same interior
+    through the per-op route and through ``fused_mamba_mixer``, forward
+    (no gradient), training forward and backward. Returns the three records
+    and the route timings."""
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    mixer, p, xz = mixer_inputs(device)
+    d_inner, n, dt_rank = mixer.d_inner, mixer.d_state, mixer.dt_rank
+    weights = [p["conv_w"], p["conv_b"], p["x_proj_w"], p["dt_proj_w"], p["dt_proj_b"],
+               -torch.exp(p["A_log"]), p["D"]]
+    args = kfm.kernel_inputs(xz, *weights, dt_rank=dt_rank, d_state=n)
+    B, L, _ = xz.shape
+    W, nc = args[1].shape[0], -(-L // kfm.CHUNK)
+    y_lean = kfm.fused_mixer_fwd(*args)
+    y, h_entries = kfm.fused_mixer_fwd_states(*args)
+    y_ref, h_ref = kfm.fused_mixer_fwd_ref(*args, chunk=kfm.CHUNK, emit_states=True)
+    torch.cuda.synchronize()
+    if not torch.equal(y, y_lean):
+        raise AssertionError(f"the fused forward with states differs from the lean one: "
+                             f"max |diff| {(y - y_lean).abs().max().item()}")
+    err_y, rel_y = _rel_err(y, y_ref)
+    err_h, rel_h = _rel_err(h_entries, h_ref)
+    if rel_y > 1e-4 or rel_h > 1e-4:
+        raise AssertionError(f"fused forward kernel disagrees with its plain version: y {err_y} "
+                             f"({rel_y:.3e} of max), h_entries {err_h} ({rel_h:.3e} of max)")
+    # operations the function needs, per (b, t): the products xi @ W_dt
+    # (2 d^2) and xi @ W_bc (4 d n); per channel the conv (2W + 1), SiLU 4,
+    # softplus 4, skip and gate 6, and 7 per state (as K2's bound). Bytes: xz
+    # read and y written once, the weights read once (h_entries written once)
+    per_channel = 2 * W + 1 + 4 + 10 + 7 * n
+    fwd_ops = B * L * (2 * d_inner ** 2 + 4 * d_inner * n + d_inner * per_channel)
+    weight_bytes = sum(t.numel() for t in args[1:]) * 4
+    fwd_bytes = B * L * 3 * d_inner * 4 + weight_bytes
+    hent_bytes = B * nc * n * d_inner * 4
+    records = []
+    for name, fn, extra, err in (
+            ("fused_mixer_fwd", lambda: kfm.fused_mixer_fwd(*args), 0, err_y),
+            ("fused_mixer_fwd_states", lambda: kfm.fused_mixer_fwd_states(*args), hent_bytes,
+             max(err_y, err_h))):
+        bound_ms, bound_by = bound(fwd_bytes + extra, fwd_ops)
+        records.append(dict(
+            name=name, route="cuda", source="si_mamba_tpu_torch/csrc/fused_mixer_fwd.cu",
+            replaces="si_mamba_tpu/ops/pallas/fused_mixer_kernel.py:243", max_abs_err=err,
+            ms=time_ms(fn, 20),
+            plain_ms=time_ms(lambda: kfm.fused_mixer_fwd_ref(*args, chunk=kfm.CHUNK,
+                                                             emit_states=bool(extra)), 2, warmup=1),
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+    log(f"fused forward ok: states y == lean y; vs plain y {err_y:.3e} ({rel_y:.3e} of max), "
+        f"h_entries {err_h:.3e} ({rel_h:.3e} of max)")
+
+    # K11 for a seeded output gradient, from the kernel's own h_entries.
+    # Tolerance rel-to-max 1e-4: the weight gradients are sums over B*L terms,
+    # per chunk and block and then over the batch, in another order than the
+    # plain version's.
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (B, L, d_inner), dtype=np.float32)).to(device)
+    bwd_args = (*args, h_entries, g)
+    got = kfm.fused_mixer_bwd(*bwd_args)
+    want = kfm.fused_mixer_bwd_ref(*bwd_args, chunk=kfm.CHUNK)
+    again = kfm.fused_mixer_bwd(*bwd_args)
+    torch.cuda.synchronize()
+    err11, rels = 0.0, {}
+    for name, a, w, a2 in zip(("dxz", "dconv_wt", "dconv_b", "dwdt", "ddtb", "dwbc", "dat", "dd"),
+                              got, want, again):
+        err, rels[name] = _rel_err(a, w)
+        err11 = max(err11, err)
+        if rels[name] > 1e-4:
+            raise AssertionError(f"fused backward kernel: {name} max |diff| {err} "
+                                 f"({rels[name]:.3e} of max)")
+        if not torch.equal(a, a2):
+            raise AssertionError(f"fused backward kernel: {name} differs between two runs")
+    # operations the function needs: the forward's recompute, ddt_raw @ W_dt^T
+    # and xi^T @ ddt_raw (2 d^2 each per (b, t)), (dB|dC) @ W_bc^T and
+    # xi^T @ (dB|dC) (4 d n each), the scan backward (20 per state and 20 per
+    # channel, as K4's bound) and the conv backward (6W + 11, as K5's).
+    # Bytes: xz, g and h_entries read, dxz written, the weights read and their
+    # gradients written once
+    bwd_ops = fwd_ops + B * L * (4 * d_inner ** 2 + 8 * d_inner * n +
+                                 d_inner * (20 * n + 20 + 6 * W + 11))
+    bwd_bytes = B * L * 5 * d_inner * 4 + hent_bytes + 2 * weight_bytes
+    bound_ms, bound_by = bound(bwd_bytes, bwd_ops)
+    records.append(dict(
+        name="fused_mixer_bwd", route="cuda", source="si_mamba_tpu_torch/csrc/fused_mixer_bwd.cu",
+        replaces="si_mamba_tpu/ops/pallas/fused_mixer_kernel.py:292", max_abs_err=err11,
+        rel_err_of_max=rels, ms=time_ms(lambda: kfm.fused_mixer_bwd(*bwd_args), 10),
+        plain_ms=time_ms(lambda: kfm.fused_mixer_bwd_ref(*bwd_args, chunk=kfm.CHUNK), 1,
+                         warmup=1),
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+    log("fused backward ok, two runs bitwise equal: " +
+        ", ".join(f"{k} {v:.3e} of max" for k, v in rels.items()))
+
+    # the same interior through the two routes: forward without a gradient,
+    # the training forward, and the backward alone (autograd.grad over the
+    # graph the training forward kept), xz and every weight a leaf
+    leaves = [t.detach().clone().requires_grad_() for t in (xz, *weights)]
+    lp = dict(zip(("conv_w", "conv_b", "x_proj_w", "dt_proj_w", "dt_proj_b"), leaves[1:6]))
+    lp["A_log"], lp["D"] = torch.log(-leaves[6]), leaves[7]
+    routes = {
+        "per_op": lambda: per_op_interior(leaves[0], lp, dt_rank, n),
+        "fused": lambda: kfm.fused_mamba_mixer(*leaves, dt_rank=dt_rank, d_state=n)}
+    timings = {}
+    for route, fn in routes.items():
+        with torch.no_grad():
+            fwd_ms = time_ms(fn, 10)
+        train_fwd_ms = time_ms(fn, 10)
+        out = fn()
+        bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 10)
+        timings[route] = {"fwd_ms": fwd_ms, "train_fwd_ms": train_fwd_ms, "bwd_ms": bwd_ms}
+        del out
+    records[0]["per_op_route_ms"] = timings["per_op"]["fwd_ms"]
+    records[1]["per_op_route_ms"] = timings["per_op"]["train_fwd_ms"]
+    records[2]["per_op_route_ms"] = timings["per_op"]["bwd_ms"]
+    for r in records:
+        log(f"{r['name']}: {r['ms']:.6f} ms (plain {r['plain_ms']:.6f}, per-op route "
+            f"{r['per_op_route_ms']:.6f}, bound {r['bound_ms']:.6f} by {r['bound_by']})")
+    log(f"mixer interior, per-op route {timings['per_op']}; fused route {timings['fused']}")
+    return records, timings
+
+
 def clouds(n: int, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     pts = rng.standard_normal((n, NPOINTS, 3)).astype(np.float32)
     return pts / np.abs(pts).max(axis=(1, 2), keepdims=True)
 
 
-def _launch_counts() -> dict[str, int]:
+def _wrappers() -> dict:
+    """Every kernel wrapper of the port by its record name; each counts its
+    launches in ``.launches``."""
     from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
     from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
     from si_mamba_tpu_torch.ops.kernels import ssd as kssd
 
-    return {"causal_conv1d_silu": kc.causal_conv1d_silu.launches,
-            "selective_scan_fwd": ks.selective_scan_fwd.launches,
-            "selective_scan_fwd_residuals": ks.selective_scan_fwd_residuals.launches,
-            "selective_scan_bwd": ks.selective_scan_bwd.launches,
-            "causal_conv1d_silu_bwd": kc.causal_conv1d_silu_bwd.launches,
-            "ssd_xbc_fwd": kssd.ssd_xbc_fwd.launches,
-            "ssd_xbc_fwd_states": kssd.ssd_xbc_fwd_states.launches,
-            "ssd_xbc_bwd": kssd.ssd_xbc_bwd.launches}
+    return {"causal_conv1d_silu": kc.causal_conv1d_silu,
+            "selective_scan_fwd": ks.selective_scan_fwd,
+            "selective_scan_fwd_residuals": ks.selective_scan_fwd_residuals,
+            "selective_scan_bwd": ks.selective_scan_bwd,
+            "causal_conv1d_silu_bwd": kc.causal_conv1d_silu_bwd,
+            "ssd_xbc_fwd": kssd.ssd_xbc_fwd,
+            "ssd_xbc_fwd_states": kssd.ssd_xbc_fwd_states,
+            "ssd_xbc_bwd": kssd.ssd_xbc_bwd,
+            "fused_mixer_fwd": kfm.fused_mixer_fwd,
+            "fused_mixer_fwd_states": kfm.fused_mixer_fwd_states,
+            "fused_mixer_bwd": kfm.fused_mixer_bwd}
+
+
+def _launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def _reset_launch_counts() -> None:
-    from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
-    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
-    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
-
-    kc.causal_conv1d_silu.launches = kc.causal_conv1d_silu_bwd.launches = 0
-    ks.selective_scan_fwd.launches = ks.selective_scan_fwd_residuals.launches = 0
-    ks.selective_scan_bwd.launches = 0
-    kssd.ssd_xbc_fwd.launches = kssd.ssd_xbc_fwd_states.launches = 0
-    kssd.ssd_xbc_bwd.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def _expect(depth: int, names) -> dict[str, int]:
@@ -528,7 +688,8 @@ def serving_phase(device, base: dict = MODELNET40, plain_impl: str = "seq",
     if launches != want:
         raise AssertionError(f"{forwards} forwards launched {launches}; expected {want} "
                              f"({cfg.depth} per forward of {kernels}, nothing else)")
-    log(f"served {forwards} forwards ({cfg.mixer} mixer); launches {launches}")
+    log(f"served {forwards} forwards ({cfg.mixer} mixer, scan_impl={cfg.scan_impl!r}); "
+        f"launches {launches}")
 
     # the same weights through the plain path, on the same card
     plain_model = PointMamba(PointMambaConfig.from_dict({**base, "scan_impl": plain_impl}))
@@ -745,8 +906,8 @@ def train_phase(device, card: str, base: dict = MODELNET40,
               "piece_ms": pieces, "profile": prof,
               "params_moved": len(moved), "params": len(params0),
               "launches_per_step": expect, "card": card}
-    log(f"train ({cfg.mixer} mixer): {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, p50 {p50 * 1e3:.3f} ms "
-        f"(steps 2 onward), {TRAIN_BATCH / p50:.2f} clouds/s, peak memory "
+    log(f"train ({cfg.mixer} mixer, scan_impl={cfg.scan_impl!r}): {TRAIN_STEPS} steps at "
+        f"batch {TRAIN_BATCH}, p50 {p50 * 1e3:.3f} ms (steps 2 onward), {TRAIN_BATCH / p50:.2f} clouds/s, peak memory "
         f"{peak / 2**30:.3f} GiB, losses {['%.4f' % v for v in losses]}; "
         f"fps_resample alone {fps_ms:.3f} ms; {card}")
     log(f"train launches {launches}; {len(moved)} of {len(params0)} parameters moved")
@@ -796,7 +957,8 @@ def gradient_phase(device, base: dict = MODELNET40, plain_impl: str = "seq") -> 
             worst_dominant = max(worst_dominant, diff / bmax)
             if diff / bmax >= GRAD_TOL:
                 raise AssertionError(f"{k}: gradient differs by {diff / bmax:.3e} relative")
-    log(f"gradients at B={PARITY_BATCH} ({base.get('mixer', 'mamba')} mixer, against "
+    log(f"gradients at B={PARITY_BATCH} ({base.get('mixer', 'mamba')} mixer, scan_impl="
+        f"{base.get('scan_impl', 'auto')!r}, against "
         f"scan_impl={plain_impl!r}): loss kernel {losses['kernel']:.7f}, plain "
         f"{losses['plain']:.7f}; worst leaf |diff| {worst_leaf:.3e} of max gradient "
         f"{gmax:.3e}, worst dominant leaf {worst_dominant:.3e} relative")
@@ -835,8 +997,10 @@ def main() -> int:
         if r["name"] in conv_at_ssd_shape:
             r["at_ssd_shape"] = conv_at_ssd_shape[r["name"]]
     records += ssd_records
+    fused_records, fused_routes = fused_mixer_phase(device)
+    records += fused_records
 
-    # the four paths, each with every launch count from 0 (set inside each phase)
+    # the six paths, each with every launch count from 0 (set inside each phase)
     paths = {}
     paths["serving"], serving, model, requests = serving_phase(device)
     profile = profile_phase(model, requests)
@@ -853,21 +1017,35 @@ def main() -> int:
                  "causal_conv1d_silu_bwd"),
         eval_kernels=("causal_conv1d_silu", "ssd_xbc_fwd"))
     ssd_grads = gradient_phase(device, MODELNET40_SSD, plain_impl="xla")
+    paths["fused_serving"], fused_serving, model, requests = serving_phase(
+        device, MODELNET40_FUSED, plain_impl="seq", kernels=("fused_mixer_fwd",))
+    fused_profile = profile_phase(model, requests)
+    del model
+    fused_train, paths["fused_train"] = train_phase(
+        device, card, MODELNET40_FUSED, kernels=("fused_mixer_fwd_states", "fused_mixer_bwd"),
+        eval_kernels=("fused_mixer_fwd",))
+    fused_grads = gradient_phase(device, MODELNET40_FUSED, plain_impl="seq")
 
     # each kernel's launches on every path, and on the path it serves
     main_path = {"causal_conv1d_silu": "serving", "selective_scan_fwd": "serving",
                  "selective_scan_fwd_residuals": "train", "selective_scan_bwd": "train",
                  "causal_conv1d_silu_bwd": "train", "ssd_xbc_fwd": "ssd_serving",
-                 "ssd_xbc_fwd_states": "ssd_train", "ssd_xbc_bwd": "ssd_train"}
+                 "ssd_xbc_fwd_states": "ssd_train", "ssd_xbc_bwd": "ssd_train",
+                 "fused_mixer_fwd": "fused_serving", "fused_mixer_fwd_states": "fused_train",
+                 "fused_mixer_bwd": "fused_train"}
     for r in records:
         r["kernel_ms"] = r["ms"]  # the same time under the field's older name
+        r["main_path"] = main_path[r["name"]]
         r["launches_by_path"] = {path: counts[r["name"]] for path, counts in paths.items()}
-        r["launches"] = r["launches_by_path"][main_path[r["name"]]]
+        r["launches"] = r["launches_by_path"][r["main_path"]]
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} was not launched on its path")
     print(json.dumps({"serving": serving, "profile": profile, "train": train,
                       "gradients": grads, "ssd": {"serving": ssd_serving, "profile": ssd_profile,
                                                   "train": ssd_train, "gradients": ssd_grads},
+                      "fused": {"serving": fused_serving, "profile": fused_profile,
+                                "train": fused_train, "gradients": fused_grads,
+                                "mixer_interior_ms": fused_routes},
                       "card": card}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)

@@ -53,7 +53,13 @@ class DepthwiseConvWeights(nn.Module):
 
 
 class MambaMixer(nn.Module):
-    """Mamba-1 selective-SSM token mixer."""
+    """Mamba-1 selective-SSM token mixer. ``scan_impl`` picks the route of
+    ``mamba_mixer_apply``: 'auto' (the conv and scan kernels K1/K2, K3/K4/K5
+    in training, on a CUDA tensor; the plain chunked scan on the CPU),
+    'pallas', 'seq' or 'chunked', or 'fused', which runs the whole interior
+    between in_proj and out_proj as one kernel (K10; K10 with states and K11
+    in training; their plain versions on the CPU), or 'fused_interpret', the
+    plain versions of that on any device."""
 
     def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 4, expand: int = 2,
                  dt_rank: int | None = None, out_proj_div: float = 1.0,

@@ -19,6 +19,10 @@ Implementations of the scan:
   forward and backward, as ``interpret=True`` runs the Pallas kernels off the
   TPU. ``impl='auto'`` is 'pallas' on a CUDA tensor and 'chunked' on the CPU.
 
+:func:`mamba_mixer_apply` also takes ``impl='fused'``, the whole mixer
+interior as one kernel pair (``ops/kernels/fused_mixer.py``, K10/K11), and
+``'fused_interpret'``, their plain versions.
+
 Layout is batch-major, time second: u (B, L, D).
 """
 
@@ -28,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_ref, causal_conv1d_silu
+from si_mamba_tpu_torch.ops.kernels.fused_mixer import fused_mamba_mixer, fused_mixer_supported
 from si_mamba_tpu_torch.ops.kernels.selective_scan import selective_scan_fused, selective_scan_ref
 
 causal_conv1d = causal_conv1d_ref
@@ -37,8 +42,6 @@ selective_scan_seq = selective_scan_ref
 # with the ROADMAP item that will bring each.
 _NOT_PORTED = {
     "assoc": "ROADMAP queue 1, M6b (whole-sequence associative scan)",
-    "fused": "ROADMAP queue 2, K10/K11 (whole-mixer kernel)",
-    "fused_interpret": "ROADMAP queue 2, K10/K11 (whole-mixer kernel)",
 }
 
 
@@ -145,7 +148,17 @@ def mamba_mixer_apply(params: dict, x: torch.Tensor, *, d_state: int, dt_rank: i
     on a CUDA tensor) the conv and the scan are the differentiable fused ops
     of ``ops/kernels``: their CUDA kernels on a CUDA tensor, their plain
     forward and backward on the CPU. 'seq' and 'chunked' (which 'auto' is on
-    the CPU) compose the plain conv with that plain scan, under autograd."""
+    the CPU) compose the plain conv with that plain scan, under autograd.
+
+    'fused' runs the whole interior between in_proj and out_proj (conv,
+    x_proj/dt_proj, scan, gate) as one kernel, ``fused_mamba_mixer`` of
+    ``ops/kernels/fused_mixer.py``: K10 without a gradient, K10 with states
+    and K11 with one, on a CUDA tensor; their plain versions on the CPU. It
+    raises ``ValueError`` for d_inner % 128 != 0 or d_state > 32 on any
+    device, as the JAX package does, and on CUDA ``NotImplementedError`` for
+    a shape the kernels are not built for (d_state 16, d_conv 4, d_inner up
+    to 1024). 'fused_interpret' runs the plain versions of the same
+    interior on any device and at any shape, JAX's interpret mode."""
     if impl in _NOT_PORTED:
         _raise_not_ported(impl)
     impl = _resolve(impl, x)
@@ -154,6 +167,18 @@ def mamba_mixer_apply(params: dict, x: torch.Tensor, *, d_state: int, dt_rank: i
             "the mixer runs in float32; bf16 waits for ROADMAP queue 1, M20 (perf mode)")
     xz = x @ params["in_proj_w"]  # (B, L, 2*d_inner)
     d_inner = xz.shape[-1] // 2
+    if impl in ("fused", "fused_interpret"):
+        if impl == "fused" and not fused_mixer_supported(d_inner, d_state, x.shape[1]):
+            raise ValueError(
+                f"impl='fused' needs d_inner % 128 == 0 and d_state <= 32 (got d_inner="
+                f"{d_inner}, d_state={d_state}); use impl='pallas' (per-op kernels) for this "
+                f"shape")
+        y = fused_mamba_mixer(xz, params["conv_w"], params["conv_b"], params["x_proj_w"],
+                              params["dt_proj_w"], params["dt_proj_b"],
+                              -torch.exp(params["A_log"].float()), params["D"],
+                              dt_rank=dt_rank, d_state=d_state,
+                              plain=impl == "fused_interpret")
+        return y @ params["out_proj_w"]
     xi, z = xz[..., :d_inner], xz[..., d_inner:]  # column views, no copy
     if impl == "pallas":
         xi = causal_conv1d_silu(xi, params["conv_w"], params["conv_b"])

@@ -406,3 +406,151 @@ def test_ssd_function_gradcheck_in_float64_through_the_plain_path():
     leaves = [t.clone().requires_grad_() for t in (xbc, dt, S, D)]
     assert torch.autograd.gradcheck(
         lambda *a: kssd.SSDChunkedXbcFn.apply(*a, h * p, chunk), leaves)
+
+
+# ---------------------------------------------------------------------------
+# the fused-mixer kernels (K10, K11) and their autograd Function
+# ---------------------------------------------------------------------------
+
+def _fused_case(b, l, d_model, seed, device, d_state=16):
+    """The kernels' inputs as a freshly initialised mixer makes them from a
+    seeded x: xz = x @ in_proj, W_dt folded, the weights transposed."""
+    from si_mamba_tpu_torch.models.layers import MambaMixer
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    mixer = MambaMixer(d_model, d_state=d_state, out_proj_div=2.0)
+    mixer.reset_parameters(torch.Generator().manual_seed(seed))
+    p = {k: v.detach().to(device) for k, v in mixer.params().items()}
+    x = _randn(np.random.default_rng(seed), b, l, d_model, device=device)
+    return kfm.kernel_inputs(x @ p["in_proj_w"], p["conv_w"], p["conv_b"], p["x_proj_w"],
+                             p["dt_proj_w"], p["dt_proj_b"], -torch.exp(p["A_log"]), p["D"],
+                             dt_rank=mixer.dt_rank, d_state=d_state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d_model", [(4, 512, 384), (2, 100, 64), (3, 77, 384)])
+def test_fused_mixer_fwd_kernels_match_plain(cuda, b, l, d_model):
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    args = _fused_case(b, l, d_model, 30, cuda)
+    k_lean, k_states = kfm.fused_mixer_fwd.launches, kfm.fused_mixer_fwd_states.launches
+    y_lean = kfm.fused_mixer_fwd(*args)
+    y, h_entries = kfm.fused_mixer_fwd_states(*args)
+    torch.cuda.synchronize()
+    assert (kfm.fused_mixer_fwd.launches, kfm.fused_mixer_fwd_states.launches) == (
+        k_lean + 1, k_states + 1)
+    torch.testing.assert_close(y, y_lean, rtol=0, atol=0)  # the same arithmetic
+    y_ref, h_ref = kfm.fused_mixer_fwd_ref(*args, chunk=kfm.CHUNK, emit_states=True)
+    assert h_entries.shape == h_ref.shape == (b, -(-l // kfm.CHUNK), 16, 2 * d_model)
+    _close_to_max(y, y_ref, 1e-5)
+    _close_to_max(h_entries, h_ref, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d_model", [(4, 512, 384), (2, 100, 64), (2, 77, 384)])
+def test_fused_mixer_bwd_kernel_matches_plain(cuda, b, l, d_model):
+    """Every output of K11 against the plain backward for a seeded output
+    gradient, each within 1e-4 of its max: the weight gradients are sums over
+    b*l terms taken per chunk and block, then over the batch."""
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    args = _fused_case(b, l, d_model, 31, cuda)
+    g = _randn(np.random.default_rng(32), b, l, 2 * d_model, device=cuda)
+    _, h_entries = kfm.fused_mixer_fwd_ref(*args, chunk=kfm.CHUNK, emit_states=True)
+    before = kfm.fused_mixer_bwd.launches
+    got = kfm.fused_mixer_bwd(*args, h_entries, g)
+    torch.cuda.synchronize()
+    assert kfm.fused_mixer_bwd.launches == before + 1
+    want = kfm.fused_mixer_bwd_ref(*args, h_entries, g, chunk=kfm.CHUNK)
+    names = ("dxz", "dconv_wt", "dconv_b", "dwdt", "ddtb", "dwbc", "dat", "dd")
+    for name, a, w in zip(names, got, want):
+        assert a.shape == w.shape, name
+        _close_to_max(a, w, 1e-4)
+    again = kfm.fused_mixer_bwd(*args, h_entries, g)  # no atomics: bitwise the same
+    for name, a, w in zip(names, got, again):
+        assert torch.equal(a, w), name
+
+
+@pytest.mark.cuda
+def test_fused_mixer_grads_match_seq(cuda):
+    """The mixer with scan_impl='fused' (K10 with states, K11 through
+    ``FusedMixerFn``, the W_dt fold under autograd) against 'seq': output and
+    every parameter gradient; without a gradient it takes the lean K10."""
+    from si_mamba_tpu_torch.models.layers import MambaMixer
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    mixer = MambaMixer(128, out_proj_div=2.0, scan_impl="fused")
+    mixer.reset_parameters(torch.Generator().manual_seed(33))
+    plain = MambaMixer(128, out_proj_div=2.0, scan_impl="seq")
+    plain.load_state_dict(mixer.state_dict())
+    mixer, plain = mixer.to(cuda), plain.to(cuda)
+    rng = np.random.default_rng(34)
+    x, g = _randn(rng, 3, 90, 128, device=cuda), _randn(rng, 3, 90, 128, device=cuda)
+    counts = lambda: (kfm.fused_mixer_fwd.launches,  # noqa: E731
+                      kfm.fused_mixer_fwd_states.launches, kfm.fused_mixer_bwd.launches)
+    k10, k10s, k11 = counts()
+    y = mixer(x)
+    y.backward(g)
+    assert counts() == (k10, k10s + 1, k11 + 1)
+    y_ref = plain(x)
+    y_ref.backward(g)
+    _close_to_max(y, y_ref, 1e-5)
+    for (name, p), q in zip(mixer.named_parameters(), plain.parameters()):
+        assert p.grad is not None, name
+        _close_to_max(p.grad, q.grad, 1e-4)
+    with torch.no_grad():
+        _close_to_max(mixer(x), y_ref, 1e-5)
+    assert counts() == (k10 + 1, k10s + 1, k11 + 1)
+
+
+@pytest.mark.cuda
+def test_fused_mixer_kernels_reject_what_they_do_not_take(cuda):
+    """d_state 8 is a shape 'fused' takes (d_inner % 128 == 0, d_state <=
+    32) that the kernels are not built for: on CUDA it raises, never the
+    plain path; so does float64 at the kernel wrapper."""
+    from si_mamba_tpu_torch.models.layers import MambaMixer
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    mixer = MambaMixer(64, d_state=8, scan_impl="fused").to(cuda)
+    x = _randn(np.random.default_rng(35), 1, 16, 64, device=cuda)
+    before = kfm.fused_mixer_fwd.launches
+    with pytest.raises(NotImplementedError, match="K10/K11"):
+        with torch.no_grad():
+            mixer(x)
+    assert kfm.fused_mixer_fwd.launches == before
+    args = _fused_case(1, 16, 64, 36, cuda)
+    with pytest.raises(TypeError):
+        kfm.fused_mixer_fwd(args[0].double(), *args[1:])
+
+
+@pytest.mark.cuda
+def test_small_fused_model_kernel_path_matches_seq(cuda):
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    cfg = dict(trans_dim=64, encoder_dims=64, depth=2, cls_dim=5, num_group=32,
+               group_size=16, drop_path=0.0)
+    model = PointMamba(PointMambaConfig(**cfg, scan_impl="fused")).to(cuda).eval()
+    plain = PointMamba(PointMambaConfig(**cfg, scan_impl="seq")).to(cuda).eval()
+    plain.load_state_dict(model.state_dict(), strict=True)
+    pts = _randn(np.random.default_rng(37), 3, 256, 3, device=cuda)
+    k10, k2 = kfm.fused_mixer_fwd.launches, kscan.selective_scan_fwd.launches
+    with torch.inference_mode():
+        got = model(pts)
+        assert (kfm.fused_mixer_fwd.launches, kscan.selective_scan_fwd.launches) == (k10 + 2, k2)
+        want = plain(pts)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=1e-3 * want.abs().max().item())
+
+
+def test_fused_mixer_function_gradcheck_in_float64_through_the_plain_path():
+    """The plain K10/K11 pair of ``FusedMixerFn`` in float64 on the CPU (the
+    kernels take float32 and are held against these instead)."""
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    rng = np.random.default_rng(38)
+    b, l, di, n = 2, 9, 3, 2
+    mk = lambda *s, scale=1.0: torch.tensor(rng.standard_normal(s) * scale,  # noqa: E731
+                                            dtype=torch.float64)
+    leaves = [mk(b, l, 2 * di), mk(4, di, scale=0.5), mk(di, scale=0.1), mk(di, di, scale=0.5),
+              mk(di, scale=0.5), mk(di, 2 * n, scale=0.5), -torch.exp(mk(n, di)), mk(di)]
+    leaves = [t.requires_grad_() for t in leaves]
+    assert torch.autograd.gradcheck(lambda *a: kfm.FusedMixerFn.apply(*a, True), leaves)

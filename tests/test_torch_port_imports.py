@@ -35,7 +35,11 @@ def test_port_package_has_its_kernel_sources():
     csrc = ROOT / "si_mamba_tpu_torch" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} >= {"causal_conv.cu", "selective_scan_fwd.cu",
                                                     "selective_scan_bwd.cu", "ssd_xbc_fwd.cu",
-                                                    "ssd_xbc_bwd.cu"}
+                                                    "ssd_xbc_bwd.cu", "fused_mixer_fwd.cu",
+                                                    "fused_mixer_bwd.cu"}
+    from si_mamba_tpu_torch.ops.kernels.build import SOURCES
+
+    assert {f"{name}.cu" for name in SOURCES} == {p.name for p in csrc.glob("*.cu")}
 
 
 def test_importing_the_port_loads_no_jax_module():

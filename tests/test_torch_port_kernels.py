@@ -144,9 +144,11 @@ def test_scan_dispatch():
                                   tss.selective_scan_chunked(*args, **pkw).numpy())
     np.testing.assert_array_equal(tss.selective_scan(*args, **pkw, impl="pallas").numpy(),
                                   tss.selective_scan_seq(*args, **pkw).numpy())
-    for impl in ("assoc", "fused"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tss.selective_scan(*args, **pkw, impl=impl)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tss.selective_scan(*args, **pkw, impl="assoc")
+    # 'fused' is a route of mamba_mixer_apply, not a scan: unknown here, as in JAX
+    with pytest.raises(ValueError, match="unknown impl"):
+        tss.selective_scan(*args, **pkw, impl="fused")
     with pytest.raises(NotImplementedError, match="delta_bias"):
         tss.selective_scan(*args, **{**pkw, "delta_bias": None}, impl="pallas")
     with pytest.raises(ValueError, match="unknown impl"):
@@ -195,8 +197,8 @@ def test_mixer_matches_jax(impl):
 def test_mixer_rejects_unported_impls_and_dtypes():
     p = {k: _t(v) for k, v in _mixer_params().items()}
     x = torch.zeros(1, 4, 16)
-    with pytest.raises(NotImplementedError, match="K10"):
-        tss.mamba_mixer_apply(p, x, d_state=4, dt_rank=2, impl="fused")
+    with pytest.raises(NotImplementedError, match="M6b"):
+        tss.mamba_mixer_apply(p, x, d_state=4, dt_rank=2, impl="assoc")
     with pytest.raises(NotImplementedError, match="bf16"):
         tss.mamba_mixer_apply(p, x.bfloat16(), d_state=4, dt_rank=2)
 
