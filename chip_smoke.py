@@ -10,7 +10,8 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
 
 1. device: requires CUDA, prints ``nvidia-smi``'s name and power limit, turns
    TF32 off for matmuls and convolutions;
-2. build: the seven CUDA sources, one ``nvcc`` each, in parallel;
+2. build: the seven CUDA sources, one ``nvcc`` each, in parallel, before
+   any rank of phases 11-14 starts;
 3. kernels: at the serving path's full-width shapes (B=32, L=512, d_inner=768,
    d_state=16, fp32, strided views as the mixer makes them) each kernel is
    held against its plain PyTorch version on the card and timed beside it:
@@ -35,6 +36,14 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    dt_proj GEMMs, K2; with a gradient K1/K3 forward and K4/K5 + the GEMMs'
    autograd backward) and through ``fused_mamba_mixer``, each timed without
    a gradient, as a training forward and as the backward alone;
+4c. split SSD kernels: at the tensor-parallel shard's shapes (B=32, L=512,
+   chunk 256, 3 heads of 128, d_state 128; x the x conv's output, B and C the
+   halves of the B|C conv's output, row stride 256, as ``ssd_mixer_tp``
+   makes them) the split forward lean, with states, with the final state and
+   with both (the same y from each) and the backward from 0 and seeded with a
+   final-state cotangent (two runs bitwise equal), each against its plain
+   version and timed beside it; then the lean forward and the backward at 6
+   heads on the full mixer's column groups, beside K8/K9 on the same block;
 5. serving: a ``Predictor`` over the ModelNet40 ``PointMamba`` (12 x 384,
    L=512, seeded random weights) answers requests of 1, 20 and 64 clouds of
    1024 points; every forward must launch the conv and lean scan kernels 12
@@ -75,18 +84,42 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    logits match ``scan_impl='seq'``; each train step launch the fused forward
    with states and the fused backward 12 times each and nothing else, and an
    eval forward after them the lean one; the B=4 gradients match 'seq'.
+11-14. the parallel paths, on 2 ranks: processes spawned on the one card with
+   a ``gloo`` group (NCCL refuses two ranks on one device) over a file
+   rendezvous in ``build/``. 11: the SSD classifier with its mixers over a
+   2-rank model axis (3 heads a rank, weights cut from the single-process
+   model's by ``shard_state_dict``) serves requests of 1, 20 and 64 clouds;
+   each forward must launch the conv 24 times and the lean split forward 12
+   times, nothing else (no K8), its logits match the single-process 'xla'
+   model. 12: TRAIN_STEPS TP train steps at batch 32 from 8192-point clouds,
+   each launching the conv forward and backward 24 times and the split
+   forward with states and the split backward 12 times, nothing else, the
+   same finite losses on both ranks, every parameter and statistic moved;
+   then at B=4, drop rates 0, a global-norm clip at half the norm: the
+   gradients gathered over the ranks match the single-process 'xla' model's.
+   13: ``ssd_seq_parallel(impl='ssd_fused')`` over a 2-rank seq axis (B=32,
+   L=512, 6 heads, chunk 128): the split forward with the final state once a
+   rank without a gradient, with one the forward with states and final state
+   and the seeded backward; y and every gradient against the single-process
+   plain ``ssd_chunked``. 14: one forward of the Mamba-1 model with its
+   mixers over the model axis (``scan_impl='pallas'``): the conv and the lean
+   scan 12 times a rank, logits matching 'seq'. A rank that fails fails the
+   script.
 
 Each path (serving, train, SSD serving, SSD train, fused serving, fused
-train) is driven with every launch count set to 0 just before it and read
-just after. The last four lines of standard output are the serving, profile,
+train, and on each rank TP SSD serving, TP SSD train, SP, SP train, TP
+Mamba-1 serving) is driven with every launch count set to 0 just before it
+and read just after. The last four lines of standard output are the serving, profile,
 train and gradient record of the three models, the kernels' record (each one
 JSON object; every kernel names its ``main_path`` and its launches on every
-path), the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+path, rank 0's for the parallel paths), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -477,6 +510,180 @@ def ssd_kernel_phase(device) -> tuple[list[dict], dict]:
     return records, conv_shape
 
 
+def _split_bounds(B, L, h, chunk, n=128, hp=128):
+    """(forward ops by variant, forward bytes by variant, backward ops by
+    seed, backward bytes by seed) of the split core at these shapes: the
+    products the function needs, lower triangles only, nothing whose operand
+    is zero (as K8/K9's bounds), with no D terms."""
+    nc, q, d = L // chunk, chunk, h * hp
+    tri = q * (q + 1)  # 2 * q(q+1)/2: the multiply-adds of a triangle, per unit of k
+    state = 2 * q * n * hp  # one (q, n, p) product
+    # C h_in in every chunk but the first (its h_in is 0); the carry
+    # B^T (dt x T_end) in every chunk but the last, unless h_fin is read
+    fwd_ops = {hfin: B * (nc * (tri * n + h * tri * hp)
+                          + h * state * ((nc - 1) + (nc if hfin else nc - 1)))
+               for hfin in (False, True)}
+    base = (B * L * d + 2 * B * L * n + 2 * B * h * L + B * L * d) * 4  # x, B, C, dt, S in; y out
+    hin_bytes, hfin_bytes = B * nc * h * n * hp * 4, B * h * n * hp * 4
+    fwd_bytes = {(st, hf): base + (hin_bytes if st else 0) + (hfin_bytes if hf else 0)
+                 for st in (False, True) for hf in (False, True)}
+    # per head GM^T dy and dy (dt x)^T, once dG B and dG^T C and G; dy h_in^T
+    # and the carry (C E)^T dy in every chunk but the first; B dh and
+    # (dt x T_end) dh^T in every chunk but the last, unless seeded
+    bwd_ops = {seed: B * (nc * (3 * tri * n + h * 2 * tri * hp)
+                          + h * 2 * state * (nc - 1) + h * 2 * state * (nc if seed else nc - 1))
+               for seed in (False, True)}
+    bwd_base = (3 * B * L * d + 4 * B * L * n + 4 * B * h * L) * 4 + hin_bytes
+    bwd_bytes = {seed: bwd_base + (hfin_bytes if seed else 0) for seed in (False, True)}
+    return fwd_ops, fwd_bytes, bwd_ops, bwd_bytes
+
+
+def _split_operands(device, heads: int):
+    """The split core's operands at B=32, L=512 as the mixers make them. For
+    3 heads (the tensor-parallel shard at TP = 2): x the x conv's output and
+    B, C the two halves of the B|C conv's output (row stride 256), from rank
+    0's shard of layer 0's SSD mixer; for 6 heads: x, B and C the column
+    groups of the full mixer's (x|B|C) conv output (row stride 1024), with
+    that xbc for K8/K9. Returns (x, dt, S, B, C, xbc or None, D, chunk)."""
+    from si_mamba_tpu_torch.models.layers import SSDMixer
+    from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
+    from si_mamba_tpu_torch.parallel.tensor_parallel import shard_ssd_mixer_params
+
+    depth, chunk = MODELNET40["depth"], MODELNET40_SSD["ssd_chunk"]
+    mixer = SSDMixer(MODELNET40["trans_dim"], out_proj_div=depth ** 0.5, chunk=chunk)
+    mixer.reset_parameters(torch.Generator().manual_seed(1))
+    full = {k: v.detach().to(device) for k, v in mixer.params().items()}
+    d, n = mixer.d_inner, mixer.d_state
+    u = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (32, 512, MODELNET40["trans_dim"]), dtype=np.float32)).to(device)
+    if heads == mixer.n_heads:
+        zxbcdt = u @ full["in_proj_w"]
+        xbc = kc.causal_conv1d_silu_fwd(zxbcdt[..., d:2 * d + 2 * n], full["conv_w"],
+                                        full["conv_b"])
+        x, Bm, Cm = xbc[..., :d], xbc[..., d:d + n], xbc[..., d + n:]
+        dt = F.softplus(zxbcdt[..., 2 * d + 2 * n:] + full["dt_bias"])
+        A, D = -torch.exp(full["A_log"]), full["D"]
+    else:
+        p = shard_ssd_mixer_params(full, 0, mixer.n_heads // heads, n_heads=mixer.n_heads,
+                                   d_state=n)
+        x = kc.causal_conv1d_silu_fwd(u @ p["in_proj_x"], p["conv_x_w"], p["conv_x_b"])
+        bc = kc.causal_conv1d_silu_fwd(u @ p["in_proj_bc"], p["conv_bc_w"], p["conv_bc_b"])
+        Bm, Cm, xbc = bc[..., :n], bc[..., n:], None
+        dt = F.softplus(u @ p["in_proj_dt"] + p["dt_bias"])
+        A, D = -torch.exp(p["A_log"]), p["D"]
+    B, L, h = dt.shape
+    dth = dt.transpose(1, 2).reshape(B, h, L // chunk, chunk).contiguous()
+    S = torch.cumsum(dth * A[None, :, None, None], dim=-1)
+    return x, dth, S, Bm, Cm, xbc, D, chunk
+
+
+def split_kernel_phase(device) -> list[dict]:
+    """K6 (lean, with states, with h_fin, with both) and K7 (from 0 and
+    seeded with a dh_fin) at the tensor-parallel shard's shapes (B=32, L=512,
+    chunk 256, 3 heads of 128, d_state 128; x, B and C strided as
+    ``ssd_mixer_tp`` makes them), each against its plain version and timed
+    beside it; then K6 lean and K7 at 6 heads on the full mixer's column
+    groups, beside K8 and K9 on the same xbc."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    x, dth, S, Bm, Cm, _, _, chunk = _split_operands(device, heads=3)
+    B, L, d = x.shape
+    h = dth.shape[1]
+    args = (x, dth, S, Bm, Cm, chunk)
+    fwd_ops, fwd_bytes, bwd_ops, bwd_bytes = _split_bounds(B, L, h, chunk)
+    y_ref, h_ref, hf_ref = kssd.ssd_split_fwd_ref(*args, emit_states=True, emit_hfin=True)
+    y_lean = kssd.ssd_split_fwd(*args)
+    variants = {(False, False): ("ssd_split_fwd", kssd.ssd_split_fwd),
+                (True, False): ("ssd_split_fwd_states", kssd.ssd_split_fwd_states),
+                (False, True): ("ssd_split_fwd_hfin", kssd.ssd_split_fwd_hfin),
+                (True, True): ("ssd_split_fwd_states_hfin", kssd.ssd_split_fwd_states_hfin)}
+    records, h_in = [], None
+    for (states, hfin), (name, fn) in variants.items():
+        out = fn(*args)
+        out = out if isinstance(out, tuple) else (out,)
+        torch.cuda.synchronize()
+        if not torch.equal(out[0], y_lean):
+            raise AssertionError(f"{name}'s y differs from the lean forward's: max |diff| "
+                                 f"{(out[0] - y_lean).abs().max().item()}")
+        errs = {"y": _rel_err(out[0], y_ref)}
+        if states:
+            errs["h_in"] = _rel_err(out[1], h_ref)
+            h_in = out[1]
+        if hfin:
+            errs["h_fin"] = _rel_err(out[-1], hf_ref)
+        for key, (err, rel) in errs.items():
+            if rel > 1e-4:
+                raise AssertionError(f"{name}: {key} disagrees with the plain version: "
+                                     f"max |diff| {err} ({rel:.3e} of max)")
+        bound_ms, bound_by = bound(fwd_bytes[(states, hfin)], fwd_ops[hfin])
+        records.append(dict(
+            name=name, route="cuda", source="si_mamba_tpu_torch/csrc/ssd_xbc_fwd.cu",
+            replaces="si_mamba_tpu/ops/pallas/ssd_kernel.py:119",
+            shape=dict(B=B, L=L, heads=h, chunk=chunk, x_row_stride=x.stride(1),
+                       bc_row_stride=Bm.stride(1)),
+            max_abs_err=max(e for e, _ in errs.values()),
+            rel_err_of_max={k: r for k, (_, r) in errs.items()},
+            ms=time_ms(lambda: fn(*args), 20),
+            plain_ms=time_ms(lambda: kssd.ssd_split_fwd_ref(*args, emit_states=states,
+                                                            emit_hfin=hfin), 3),
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+    log(f"split SSD forward ok at {h} heads: four variants give the same y; " +
+        ", ".join(f"{r['name']} {r['rel_err_of_max']}" for r in records))
+
+    rng = np.random.default_rng(5)
+    dy = torch.from_numpy(rng.standard_normal((B, L, d), dtype=np.float32)).to(device)
+    dh_fin = torch.from_numpy(0.1 * rng.standard_normal((B, h, 128, 128),
+                                                        dtype=np.float32)).to(device)
+    for seeded, name, fn in ((False, "ssd_split_bwd", kssd.ssd_split_bwd),
+                             (True, "ssd_split_bwd_seeded", kssd.ssd_split_bwd_seeded)):
+        bwd_args = (x, dth, S, Bm, Cm, h_in, dy) + ((dh_fin,) if seeded else ()) + (chunk,)
+        got, again = fn(*bwd_args), fn(*bwd_args)
+        want = kssd.ssd_split_bwd_ref(x, dth, S, Bm, Cm, h_in, dy, chunk,
+                                      dh_fin=dh_fin if seeded else None)
+        torch.cuda.synchronize()
+        err7, rels = 0.0, {}
+        for key, a, a2, w in zip(("dx", "ddt", "dS", "dB", "dC"), got, again, want):
+            err, rels[key] = _rel_err(a, w)
+            err7 = max(err7, err)
+            if rels[key] > 1e-3:
+                raise AssertionError(f"{name}: {key} max |diff| {err} ({rels[key]:.3e} of max)")
+            if not torch.equal(a, a2):
+                raise AssertionError(f"{name}: {key} differs between two runs")
+        bound_ms, bound_by = bound(bwd_bytes[seeded], bwd_ops[seeded])
+        records.append(dict(
+            name=name, route="cuda", source="si_mamba_tpu_torch/csrc/ssd_xbc_bwd.cu",
+            replaces="si_mamba_tpu/ops/pallas/ssd_kernel.py:216",
+            shape=dict(B=B, L=L, heads=h, chunk=chunk), max_abs_err=err7, rel_err_of_max=rels,
+            ms=time_ms(lambda: fn(*bwd_args), 10),
+            plain_ms=time_ms(lambda: kssd.ssd_split_bwd_ref(
+                x, dth, S, Bm, Cm, h_in, dy, chunk, dh_fin=dh_fin if seeded else None),
+                2, warmup=1),
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+        log(f"{name} ok, two runs bitwise equal: " +
+            ", ".join(f"{k} {v:.3e} of max" for k, v in rels.items()))
+
+    # K6 lean and K7 at 6 heads, beside K8 and K9 on the same (x|B|C) block
+    x6, dth6, S6, B6, C6, xbc, D, _ = _split_operands(device, heads=6)
+    dy6 = torch.from_numpy(rng.standard_normal((B, L, x6.shape[-1]), dtype=np.float32)).to(device)
+    _, h_in6 = kssd.ssd_split_fwd_states(x6, dth6, S6, B6, C6, chunk)
+    _, h_in8 = kssd.ssd_xbc_fwd_states(xbc, dth6, S6, D, x6.shape[-1], chunk)
+    six = {"ssd_split_fwd_ms": time_ms(lambda: kssd.ssd_split_fwd(x6, dth6, S6, B6, C6, chunk),
+                                       20),
+           "ssd_xbc_fwd_ms": time_ms(lambda: kssd.ssd_xbc_fwd(xbc, dth6, S6, D, x6.shape[-1],
+                                                              chunk), 20),
+           "ssd_split_bwd_ms": time_ms(lambda: kssd.ssd_split_bwd(x6, dth6, S6, B6, C6, h_in6,
+                                                                  dy6, chunk), 10),
+           "ssd_xbc_bwd_ms": time_ms(lambda: kssd.ssd_xbc_bwd(xbc, dth6, S6, D, h_in8, dy6,
+                                                              x6.shape[-1], chunk), 10)}
+    for r in records:
+        r["at_6_heads"] = six
+        log(f"{r['name']}: {r['ms']:.6f} ms (plain {r['plain_ms']:.6f}, bound "
+            f"{r['bound_ms']:.6f} by {r['bound_by']})")
+    log("at 6 heads (the full mixer's x|B|C block): " +
+        ", ".join(f"{k} {v:.6f}" for k, v in six.items()))
+    return records
+
+
 def per_op_interior(xz, p, dt_rank: int, n: int):
     """The mixer interior through the per-op route, as ``mamba_mixer_apply``
     runs it under 'pallas': K1 (K5 backward), the x_proj and dt_proj GEMMs,
@@ -639,7 +846,13 @@ def _wrappers() -> dict:
             "ssd_xbc_bwd": kssd.ssd_xbc_bwd,
             "fused_mixer_fwd": kfm.fused_mixer_fwd,
             "fused_mixer_fwd_states": kfm.fused_mixer_fwd_states,
-            "fused_mixer_bwd": kfm.fused_mixer_bwd}
+            "fused_mixer_bwd": kfm.fused_mixer_bwd,
+            "ssd_split_fwd": kssd.ssd_split_fwd,
+            "ssd_split_fwd_states": kssd.ssd_split_fwd_states,
+            "ssd_split_fwd_hfin": kssd.ssd_split_fwd_hfin,
+            "ssd_split_fwd_states_hfin": kssd.ssd_split_fwd_states_hfin,
+            "ssd_split_bwd": kssd.ssd_split_bwd,
+            "ssd_split_bwd_seeded": kssd.ssd_split_bwd_seeded}
 
 
 def _launch_counts() -> dict[str, int]:
@@ -967,6 +1180,397 @@ def gradient_phase(device, base: dict = MODELNET40, plain_impl: str = "seq") -> 
             "worst_dominant_leaf_rel_diff": worst_dominant, "leaves": len(grads)}
 
 
+# ---------------------------------------------------------------------------
+# the parallel paths: two ranks on the one card
+# ---------------------------------------------------------------------------
+# Two processes share cuda:0, so their group runs on gloo (NCCL refuses two
+# ranks on one device); every collective of the port is an all_reduce, which
+# gloo takes on CUDA tensors. The parent builds the kernels before the ranks
+# start, and each rank saves its record under build/ for the parent.
+
+TP = 2
+# phase 13: the full SSD mixer's core (6 heads of 128, d_state 128) at B=32,
+# L=512 over the 2 ranks, two chunks of 128 a rank
+SP_SHAPE = dict(B=32, L=512, h=6, p=128, n=128, chunk=128)
+
+
+def _counts_expect(per_forward: dict, times: int) -> dict[str, int]:
+    """``times`` x the launches in ``per_forward`` of each kernel, none of the others."""
+    return {k: per_forward.get(k, 0) * times for k in _launch_counts()}
+
+
+def _full_state(base: dict, seed: int) -> dict:
+    """The single-process model's state dict, weights from ``seed``."""
+    from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
+
+    return PointMamba(PointMambaConfig.from_dict(base),
+                      generator=torch.Generator().manual_seed(seed)).state_dict()
+
+
+def _tp_model(base: dict, mesh, sd: dict, rank: int):
+    from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
+    from si_mamba_tpu_torch.utils.weights import shard_state_dict
+
+    cfg = PointMambaConfig.from_dict({**base, "tp_axis": "model"})
+    model = PointMamba(cfg, mesh=mesh)
+    model.load_state_dict(shard_state_dict(sd, cfg, rank, TP), strict=True)
+    return model
+
+
+def tp_serving_rank(device, mesh, rank: int) -> tuple[dict, dict]:
+    """Phase 11: the SSD classifier with its mixers over the 2-rank model axis
+    serves requests of REQUEST_SIZES clouds; every forward must launch the
+    conv 24 times (x and B|C, 12 blocks) and the lean K6 12 times, nothing
+    else, and the logits match the single-process 'xla' model."""
+    from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
+    from si_mamba_tpu_torch.serving import Predictor
+
+    sd = _full_state(MODELNET40_SSD, seed=0)
+    predictor = Predictor(_tp_model(MODELNET40_SSD, mesh, sd, rank), npoints=NPOINTS,
+                          max_batch=64, device=device)
+    predictor.warmup()
+    requests = {n: clouds(n, seed=n) for n in REQUEST_SIZES}
+    _reset_launch_counts()  # the main path: counts from 0, then only the requests
+    latency, logits, forwards = {}, {}, 0
+    for n, batch in requests.items():
+        times = []
+        for _ in range(REPEATS):
+            t0 = time.perf_counter()
+            out = predictor.logits(batch)
+            times.append(time.perf_counter() - t0)
+            forwards += -(-n // predictor.max_batch)
+        if out.shape != (n, MODELNET40["cls_dim"]) or not np.isfinite(out).all():
+            raise AssertionError(f"bad TP logits for a request of {n}: {out.shape}")
+        latency[n], logits[n] = times, out
+    launches = _launch_counts()
+    want = _counts_expect({"causal_conv1d_silu": 24, "ssd_split_fwd": 12}, forwards)
+    if launches != want:
+        raise AssertionError(f"rank {rank}: {forwards} TP forwards launched {launches}; "
+                             f"expected {want}")
+    plain_model = PointMamba(PointMambaConfig.from_dict({**MODELNET40_SSD, "scan_impl": "xla"}))
+    plain_model.load_state_dict(sd, strict=True)
+    ref = Predictor(plain_model, npoints=NPOINTS, max_batch=64, device=device).logits(
+        requests[20])
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(logits[20] - ref).max())
+    if not np.allclose(logits[20], ref, atol=1e-3 * scale, rtol=2e-3):
+        raise AssertionError(f"rank {rank}: TP logits disagree with the single-process 'xla' "
+                             f"model: max |diff| {err}, max |logit| {scale}")
+    record = {"logits_max_abs_diff": err, "logits_max_abs": scale, "forwards": forwards}
+    for n, times in latency.items():
+        p50 = statistics.median(times)
+        record[str(n)] = {"p50_ms": p50 * 1e3, "clouds_per_s": n / p50,
+                          "latencies_ms": [t * 1e3 for t in times]}
+    if rank == 0:
+        log(f"rank 0: TP SSD serving ok, {forwards} forwards launched {launches}; " +
+            ", ".join(f"{n} clouds p50 {record[str(n)]['p50_ms']:.3f} ms" for n in latency))
+    return launches, record
+
+
+def tp_train_rank(device, mesh, rank: int) -> tuple[dict, dict]:
+    """Phase 12: TRAIN_STEPS steps of the finetune step on the TP SSD
+    classifier at batch 32 from 8192-point clouds (the settings of phase 7),
+    one generator seed on both ranks; every step must launch the conv
+    forward and backward 24 times each and K6 with states and K7 12 times
+    each, nothing else; the loss finite; every parameter and BatchNorm
+    statistic moved. Then at B = 4, drop rates 0, one forward and backward
+    and a global-norm clip at half the norm; the rank-local gradients go back
+    for the parent to gather, rank 0's beside the single-process 'xla'
+    model's."""
+    from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
+    from si_mamba_tpu_torch.models.point_mamba import cross_entropy_loss_acc
+    from si_mamba_tpu_torch.train.optim import build_optimizer, clip_grad_norm_
+    from si_mamba_tpu_torch.train.runner_finetune import make_train_step
+    from si_mamba_tpu_torch.train.train_state import TrainState
+
+    model = _tp_model(MODELNET40_SSD, mesh, _full_state(MODELNET40_SSD, seed=0), rank).to(device)
+    optimizer, _ = build_optimizer(model, opt_type="AdamW", lr=3e-4, weight_decay=0.05,
+                                   epochs=300, warmup_epochs=10, steps_per_epoch=2,
+                                   grad_clip=10.0, tp=model.tp_sharding())
+    state = TrainState.create(model, optimizer)
+    step = make_train_step(model, NPOINTS, rotation=False)
+    pts_np, labels_np = _train_clouds(TRAIN_BATCH, seed=7)
+    points, labels = torch.from_numpy(pts_np).to(device), torch.from_numpy(labels_np).to(device)
+    generator = torch.Generator(device=device).manual_seed(0)
+    params0 = {k: v.detach().clone() for k, v in model.named_parameters()}
+    stats0 = {k: v.clone() for k, v in model.named_buffers() if "running" in k}
+    expect = _counts_expect({"causal_conv1d_silu": 24, "causal_conv1d_silu_bwd": 24,
+                             "ssd_split_fwd_states": 12, "ssd_split_bwd": 12}, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_launch_counts()  # the main path: counts from 0, then only the steps
+    times, losses = [], []
+    for i in range(TRAIN_STEPS):
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, points, labels, generator)
+        losses.append(metrics["loss"].item())
+        times.append(time.perf_counter() - t0)
+        now = _launch_counts()
+        got = {k: now[k] - before[k] for k in now}
+        if got != expect:
+            raise AssertionError(f"rank {rank}: TP train step {i + 1} launched {got}, "
+                                 f"expected {expect}")
+        if not np.isfinite(losses[-1]):
+            raise AssertionError(f"rank {rank}: TP train step {i + 1} gave loss {losses[-1]}")
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    stuck = [k for k, v in model.named_parameters() if torch.equal(v.detach(), params0[k])]
+    stats_stuck = [k for k, v in model.named_buffers() if k in stats0 and torch.equal(v, stats0[k])]
+    if stuck or stats_stuck:
+        raise AssertionError(f"rank {rank}: did not move: {stuck + stats_stuck}")
+    p50 = statistics.median(times[1:])
+    record = {"batch": TRAIN_BATCH, "points": TRAIN_POINTS, "steps": TRAIN_STEPS,
+              "p50_step_ms": p50 * 1e3, "clouds_per_s": TRAIN_BATCH / p50,
+              "step_ms": [t * 1e3 for t in times], "losses": losses,
+              "max_memory_allocated_bytes": peak, "launches_per_step": expect}
+    if rank == 0:
+        log(f"rank 0: TP SSD train ok, p50 {p50 * 1e3:.3f} ms, losses {losses}")
+    del state, optimizer, model
+
+    # the gradients at B = 4 with a clip below the norm
+    no_drop = {**MODELNET40_SSD, "drop_path": 0.0, "cls_head_dropout": 0.0}
+    sd = _full_state(no_drop, seed=5)
+    model = _tp_model(no_drop, mesh, sd, rank).to(device)
+    pts_np, labels_np = _train_clouds(PARITY_BATCH, seed=11)
+    pts = torch.from_numpy(pts_np[:, :NPOINTS]).to(device)
+    lab = torch.from_numpy(labels_np).to(device)
+    per, _ = cross_entropy_loss_acc(model.train()(pts), lab)
+    per.mean().backward()
+    axis, segments = model.tp_sharding()
+    named = dict(model.named_parameters())
+    sharded = {id(named[k]): v for k, v in segments.items()}
+    norm = float(clip_grad_norm_(named.values(), float("inf"), sharded, axis))
+    clip = 0.5 * norm
+    clip_grad_norm_(named.values(), clip, sharded, axis)
+    grads = {k: p.grad.detach().cpu() for k, p in named.items()}
+    record["gradients"] = {"batch": PARITY_BATCH, "loss": per.mean().item(), "norm": norm,
+                           "clip": clip}
+    ref = None
+    if rank == 0:
+        plain = PointMamba(PointMambaConfig.from_dict({**no_drop, "scan_impl": "xla"})).to(device)
+        plain.load_state_dict(sd, strict=True)
+        per_ref, _ = cross_entropy_loss_acc(plain.train()(pts), lab)
+        per_ref.mean().backward()
+        ref_norm = float(torch.nn.utils.clip_grad_norm_(plain.parameters(), clip))
+        ref = {"loss": per_ref.mean().item(), "norm": ref_norm,
+               "grads": {k: p.grad.detach().cpu() for k, p in plain.named_parameters()}}
+    return launches, dict(record, grads=grads, reference=ref)
+
+
+def sp_rank(device, rank: int) -> tuple[dict, dict, dict]:
+    """Phase 13: ``ssd_seq_parallel(impl='ssd_fused')`` on 2 ranks at B=32,
+    L=512 (256 a rank), 6 heads, n = p = 128, chunk 128 (two chunks a rank:
+    the carry inside the kernel and the one across ranks). Without a
+    gradient it must launch K6 with h_fin once a rank, with one K6 with
+    states and h_fin and the seeded K7 once each; y and the gradients of x,
+    dt, A, B, C and D match the single-process plain ``ssd_chunked`` on the
+    card. Returns (launches without, with a gradient, record)."""
+    from si_mamba_tpu_torch.ops.ssd import ssd_chunked
+    from si_mamba_tpu_torch.parallel import make_mesh
+    from si_mamba_tpu_torch.parallel.seq_scan import ssd_seq_parallel
+
+    mesh = make_mesh(("seq",), (TP,))
+    B, L, h, p, n, chunk = (SP_SHAPE[k] for k in ("B", "L", "h", "p", "n", "chunk"))
+    rng = np.random.default_rng(13)
+    host = {"x": rng.standard_normal((B, L, h, p), dtype=np.float32),
+            "dt": np.log1p(np.exp(rng.standard_normal((B, L, h), dtype=np.float32) - 3.0)),
+            "A": -np.exp(rng.standard_normal(h, dtype=np.float32)),
+            "Bm": 0.3 * rng.standard_normal((B, L, n), dtype=np.float32),
+            "Cm": 0.3 * rng.standard_normal((B, L, n), dtype=np.float32),
+            "D": rng.standard_normal(h, dtype=np.float32)}
+    w = torch.from_numpy(rng.standard_normal((B, L, h, p), dtype=np.float32)).to(device)
+    full = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(device)
+            for k, v in host.items()}
+    part = slice(rank * (L // TP), (rank + 1) * (L // TP))
+    names = ("x", "dt", "A", "Bm", "Cm", "D")
+    local = {k: (v[:, part].contiguous() if v.dim() > 1 else v) for k, v in full.items()}
+
+    def run():
+        return ssd_seq_parallel(*(local[k] for k in names), mesh=mesh, chunk=chunk,
+                                impl="ssd_fused")
+
+    with torch.no_grad():
+        run()  # warm-up
+        torch.cuda.synchronize()
+        _reset_launch_counts()  # the no-gradient path
+        y = run()
+        torch.cuda.synchronize()
+        fwd_launches = _launch_counts()
+        fwd_ms = time_ms(run, 5)
+    want = _counts_expect({"ssd_split_fwd_hfin": 1}, 1)
+    if fwd_launches != want:
+        raise AssertionError(f"rank {rank}: SP forward launched {fwd_launches}, expected {want}")
+
+    leaves = {k: v.clone().requires_grad_() for k, v in local.items()}
+
+    def train():
+        for v in leaves.values():
+            v.grad = None
+        out = ssd_seq_parallel(*(leaves[k] for k in names), mesh=mesh, chunk=chunk,
+                               impl="ssd_fused")
+        torch.sum(out * w[:, part]).backward()
+        return out
+
+    _reset_launch_counts()  # the gradient path
+    y_g = train()
+    torch.cuda.synchronize()
+    train_launches = _launch_counts()
+    want = _counts_expect({"ssd_split_fwd_states_hfin": 1, "ssd_split_bwd_seeded": 1}, 1)
+    if train_launches != want:
+        raise AssertionError(f"rank {rank}: SP train launched {train_launches}, expected {want}")
+    got = {k: v.grad.clone() for k, v in leaves.items()}
+    train_ms = time_ms(train, 3)
+
+    ref_leaves = {k: v.clone().requires_grad_() for k, v in full.items()}
+    y_ref = ssd_chunked(*(ref_leaves[k] for k in names), chunk=chunk)
+    torch.sum(y_ref * w).backward()
+    errs = {"y": _rel_err(y, y_ref[:, part].detach()), "y_grad_path": _rel_err(
+        y_g.detach(), y_ref[:, part].detach())}
+    for k in names:
+        want_g = ref_leaves[k].grad if k in ("A", "D") else ref_leaves[k].grad[:, part]
+        errs[f"d{k}"] = _rel_err(got[k], want_g)
+    bad = {k: v for k, v in errs.items() if v[1] > (1e-4 if k.startswith("y") else GRAD_TOL)}
+    if bad:
+        raise AssertionError(f"rank {rank}: SP disagrees with the plain chunked core: {bad}")
+    if rank == 0:
+        log(f"rank 0: SP ok, forward {fwd_ms:.3f} ms, forward + backward {train_ms:.3f} ms")
+    return fwd_launches, train_launches, {
+        "shape": dict(B=B, L=L, heads=h, chunk=chunk, ranks=TP), "fwd_ms": fwd_ms,
+        "fwd_bwd_ms": train_ms, "rel_err_of_max": {k: v[1] for k, v in errs.items()}}
+
+
+def tp_mamba_rank(device, mesh, rank: int) -> tuple[dict, dict]:
+    """Phase 14: one forward of the full-width Mamba-1 model with its mixers
+    over the model axis, ``scan_impl='pallas'``: K1 and K2 12 times a rank,
+    nothing else; the logits match the single-process 'seq' model."""
+    from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
+
+    base = {**MODELNET40, "scan_impl": "pallas"}
+    sd = _full_state(base, seed=0)
+    model = _tp_model(base, mesh, sd, rank).to(device).eval()
+    pts = torch.from_numpy(clouds(20, seed=20)).to(device)
+    with torch.inference_mode():
+        model(pts)  # warm-up
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = model(pts)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _launch_counts()
+    want = _counts_expect({"causal_conv1d_silu": 12, "selective_scan_fwd": 12}, 1)
+    if launches != want:
+        raise AssertionError(f"rank {rank}: Mamba-1 TP forward launched {launches}, "
+                             f"expected {want}")
+    plain = PointMamba(PointMambaConfig.from_dict({**MODELNET40, "scan_impl": "seq"}))
+    plain.load_state_dict(sd, strict=True)
+    with torch.inference_mode():
+        ref = plain.to(device).eval()(pts)
+    scale = ref.abs().max().item()
+    err = (logits - ref).abs().max().item()
+    if not torch.allclose(logits, ref, atol=1e-3 * scale, rtol=2e-3):
+        raise AssertionError(f"rank {rank}: Mamba-1 TP logits disagree with 'seq': max |diff| "
+                             f"{err}, max |logit| {scale}")
+    return launches, {"clouds": 20, "forward_ms": ms, "logits_max_abs_diff": err,
+                      "logits_max_abs": scale}
+
+
+def parallel_rank(rank: int, rdzv: str, out_dir: str) -> None:
+    """One rank of phases 11-14 (a spawned process on cuda:0, gloo over the
+    loopback interface; a collective that waits 10 minutes fails)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from si_mamba_tpu_torch.parallel import make_mesh
+
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dist.init_process_group("gloo", init_method=f"file://{rdzv}", rank=rank, world_size=TP,
+                            timeout=datetime.timedelta(minutes=10))
+    try:
+        mesh = make_mesh(("model",), (TP,))
+        paths, out = {}, {}
+        paths["tp_ssd_serving"], out["tp_ssd_serving"] = tp_serving_rank(device, mesh, rank)
+        paths["tp_ssd_train"], out["tp_ssd_train"] = tp_train_rank(device, mesh, rank)
+        paths["sp"], paths["sp_train"], out["sp"] = sp_rank(device, rank)
+        paths["tp_mamba_serving"], out["tp_mamba_serving"] = tp_mamba_rank(device, mesh, rank)
+        torch.save({"paths": paths, "records": out}, f"{out_dir}/parallel_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_phases(card: str) -> tuple[dict, dict]:
+    """Phases 11-14 on TP = 2 ranks, spawned on the one card. Returns (each
+    path's launches on rank 0, the record); fails unless both ranks ran
+    every phase with the same launches and the same losses, and the
+    gathered B = 4 gradients match the single-process model's."""
+    import torch.multiprocessing as mp
+
+    from si_mamba_tpu_torch.models import PointMambaConfig
+    from si_mamba_tpu_torch.utils.weights import gather_state_dict
+
+    out_dir = ROOT / "build"
+    rdzv = out_dir / "parallel_rdzv"
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # the ranks share this host
+    rdzv.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    mp.start_processes(parallel_rank, args=(str(rdzv), str(out_dir)), nprocs=TP,
+                       start_method="spawn", join=True)
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"parallel_rank{r}.pt", weights_only=False) for r in range(TP)]
+    if ranks[0]["paths"] != ranks[1]["paths"]:
+        raise AssertionError(f"the ranks launched differently: {[r['paths'] for r in ranks]}")
+    train = [r["records"]["tp_ssd_train"] for r in ranks]
+    if train[0]["losses"] != train[1]["losses"]:  # bitwise: the ranks hold one model
+        raise AssertionError(f"the ranks' losses differ: {[t['losses'] for t in train]}")
+
+    cfg = PointMambaConfig.from_dict({**MODELNET40_SSD, "tp_axis": "model"})
+    grads = gather_state_dict([t.pop("grads") for t in train], cfg)
+    ref = train[0].pop("reference")
+    train[1].pop("reference")
+    g0 = train[0]["gradients"]
+    if not np.isclose(g0["loss"], ref["loss"], rtol=2e-4, atol=0) or not np.isclose(
+            g0["norm"], ref["norm"], rtol=1e-4):
+        raise AssertionError(f"TP loss {g0['loss']} / norm {g0['norm']} against single-process "
+                             f"{ref['loss']} / {ref['norm']}")
+    gmax = max(g.abs().max().item() for g in ref["grads"].values())
+    worst_leaf, worst_dominant = 0.0, 0.0
+    for k, want in ref["grads"].items():
+        diff = (grads[k] - want).abs().max().item()
+        worst_leaf = max(worst_leaf, diff / gmax)
+        if diff >= GRAD_TOL * gmax:
+            raise AssertionError(f"TP gradient {k} differs by {diff} (max gradient {gmax})")
+        bmax = want.abs().max().item()
+        if bmax > 0.1 * gmax:
+            worst_dominant = max(worst_dominant, diff / bmax)
+    g0.update(reference_loss=ref["loss"], reference_norm=ref["norm"], max_grad=gmax,
+              worst_leaf_diff_over_max_grad=worst_leaf,
+              worst_dominant_leaf_rel_diff=worst_dominant)
+    rec = ranks[0]["records"]
+    log(f"TP SSD serving (2 ranks, gloo, one card): " + ", ".join(
+        f"{n} clouds p50 {rec['tp_ssd_serving'][str(n)]['p50_ms']:.3f} ms" for n in REQUEST_SIZES)
+        + f"; logits vs 'xla' max |diff| {rec['tp_ssd_serving']['logits_max_abs_diff']:.3e}")
+    for r, t in enumerate(train):
+        log(f"TP SSD train rank {r}: p50 {t['p50_step_ms']:.3f} ms, {t['clouds_per_s']:.2f} "
+            f"clouds/s, peak {t['max_memory_allocated_bytes'] / 2**30:.3f} GiB, losses "
+            f"{['%.4f' % v for v in t['losses']]}")
+    log(f"TP gradients at B={PARITY_BATCH}, clipped at {g0['clip']:.4f} (norm {g0['norm']:.4f}, "
+        f"single-process {ref['norm']:.4f}): worst leaf {worst_leaf:.3e} of max gradient "
+        f"{gmax:.3e}, worst dominant leaf {worst_dominant:.3e} relative")
+    log(f"SP: {rec['sp']}")
+    log(f"Mamba-1 TP: {rec['tp_mamba_serving']}; ranks' wall {wall:.1f} s")
+    record = {"ranks": TP, "backend": "gloo", "wall_s": wall, "card": card,
+              "tp_ssd_serving": rec["tp_ssd_serving"],
+              "tp_ssd_train": {f"rank{r}": t for r, t in enumerate(train)},
+              "sp": rec["sp"], "tp_mamba_serving": rec["tp_mamba_serving"]}
+    return ranks[0]["paths"], record
+
+
 def main() -> int:
     if not (ROOT / "si_mamba_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run it from a checkout of the repository "
@@ -997,6 +1601,7 @@ def main() -> int:
         if r["name"] in conv_at_ssd_shape:
             r["at_ssd_shape"] = conv_at_ssd_shape[r["name"]]
     records += ssd_records
+    records += split_kernel_phase(device)
     fused_records, fused_routes = fused_mixer_phase(device)
     records += fused_records
 
@@ -1025,6 +1630,9 @@ def main() -> int:
         device, card, MODELNET40_FUSED, kernels=("fused_mixer_fwd_states", "fused_mixer_bwd"),
         eval_kernels=("fused_mixer_fwd",))
     fused_grads = gradient_phase(device, MODELNET40_FUSED, plain_impl="seq")
+    torch.cuda.empty_cache()  # the ranks share the card
+    parallel_paths, parallel = parallel_phases(card)
+    paths.update(parallel_paths)
 
     # each kernel's launches on every path, and on the path it serves
     main_path = {"causal_conv1d_silu": "serving", "selective_scan_fwd": "serving",
@@ -1032,7 +1640,10 @@ def main() -> int:
                  "causal_conv1d_silu_bwd": "train", "ssd_xbc_fwd": "ssd_serving",
                  "ssd_xbc_fwd_states": "ssd_train", "ssd_xbc_bwd": "ssd_train",
                  "fused_mixer_fwd": "fused_serving", "fused_mixer_fwd_states": "fused_train",
-                 "fused_mixer_bwd": "fused_train"}
+                 "fused_mixer_bwd": "fused_train", "ssd_split_fwd": "tp_ssd_serving",
+                 "ssd_split_fwd_states": "tp_ssd_train", "ssd_split_bwd": "tp_ssd_train",
+                 "ssd_split_fwd_hfin": "sp", "ssd_split_fwd_states_hfin": "sp_train",
+                 "ssd_split_bwd_seeded": "sp_train"}
     for r in records:
         r["kernel_ms"] = r["ms"]  # the same time under the field's older name
         r["main_path"] = main_path[r["name"]]
@@ -1046,7 +1657,7 @@ def main() -> int:
                       "fused": {"serving": fused_serving, "profile": fused_profile,
                                 "train": fused_train, "gradients": fused_grads,
                                 "mixer_interior_ms": fused_routes},
-                      "card": card}), flush=True)
+                      "parallel": parallel, "card": card}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

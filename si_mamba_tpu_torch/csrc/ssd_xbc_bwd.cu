@@ -1,24 +1,33 @@
-// Boundary-fused chunked SSD backward (K9), fp32. For the forward of
-// csrc/ssd_xbc_fwd.cu (K8) and the output gradient dy (b, l, d), per batch row
-// b and head h, with GM = (C B^T) (.) M, M[t,s] = e^{S[t]-S[s]} (s <= t),
-// E = e^S, T_end = e^{S_end - S} and dh the cotangent of the state leaving the
-// chunk:
+// Chunked SSD backward, fp32: the boundary-fused K9 and the split K7 from one
+// kernel body. For the forward of csrc/ssd_xbc_fwd.cu (K8, K6) and the output
+// gradient dy (b, l, d), per batch row b and head h, with GM = (C B^T) (.) M,
+// M[t,s] = e^{S[t]-S[s]} (s <= t), E = e^S, T_end = e^{S_end - S} and dh the
+// cotangent of the state leaving the chunk:
 //
-//   dxdt  = GM^T dy + (B dh) T_end,          dx = dxdt dt + D dy
+//   dxdt  = GM^T dy + (B dh) T_end,          dx = dxdt dt [+ D dy]
 //   dGM   = dy (dt x)^T,  dG = dGM (.) M,    dlogM = dGM (.) GM
 //   dC    = dG B + (dy h_in^T) E             (summed over heads)
 //   dB    = dG^T C + (dt x T_end) dh^T       (summed over heads)
 //   dS    = rowsum(dlogM) + dE E - dT T_end - colsum(dlogM) + [t = end] dSend
 //           dE = rowsum(dy (.) C h_in), dT = rowsum((B dh) (.) dt x),
 //           dSend = sum(dT T_end) + e^{S_end} sum(dh (.) h_in)
-//   ddt   = rowsum(dxdt (.) x),  dD = sum(dy (.) x)
+//   ddt   = rowsum(dxdt (.) x),  [dD = sum(dy (.) x)]
 //   dh   <- e^{S_end} dh + (C E)^T dy        (the carry to the chunk before)
 //
-// Replaces the TPU kernel `_make_bwd_kernel_xbc` behind `_bwd_call_xbc`
-// (per-head maths `_bwd_head`, si_mamba_tpu/ops/pallas/ssd_kernel.py). The
-// TPU kernel walks a reversed chunk grid axis with dh in VMEM scratch and
-// holds q x q products whole; here a loop inside the block walks the chunks
-// in reverse, and the q x q products are taken in 64 x 64 tiles.
+// The dh of the last chunk is 0, or with kSeed the given dh_fin, the
+// cotangent of the forward's h_fin (sequence parallelism's carry); seeded,
+// the last chunk's dS_end term e^{S_end} sum(dh (.) h_in) is not 0. kDSkip
+// adds the D terms. x, B, C and dy come with their own batch and row strides,
+// dx with its own.
+//
+// K9 (`ssd_xbc_bwd`, kDSkip, unseeded) replaces the TPU kernel
+// `_make_bwd_kernel_xbc` behind `_bwd_call_xbc`: x, B and C are the column
+// groups of xbc, and dx the x columns of dxbc. K7 (`ssd_split_bwd`, no D
+// terms, seeded or not) replaces `_make_bwd_kernel` behind `_bwd_call` (both
+// with the per-head maths `_bwd_head`, si_mamba_tpu/ops/pallas/ssd_kernel.py).
+// The TPU kernels walk a reversed chunk grid axis with dh in VMEM scratch and
+// hold q x q products whole; here a loop inside the block walks the chunks in
+// reverse, and the q x q products are taken in 64 x 64 tiles.
 //
 // Bound on the H100: fp32 operations. At b=32, l=512, q=256, h=6, n=p=128 the
 // function needs, per batch row, nc (3 q(q+1) n + 2h q(q+1) p) for the lower
@@ -46,15 +55,17 @@
 //     dlogM; then h_in is staged in the space of the B and dt x tiles,
 //     dy h_in^T gives this head's dC rows and dE; then (C E)^T dy of the strip
 //     is added to dh in place (each thread owns 64 entries).
-//  4. dS and ddt of the chunk are written, and the chunk's dD partial.
+//  4. dS and ddt of the chunk are written, and (kDSkip) the chunk's dD
+//     partial.
 // G and dGM are computed twice (in steps 1 and 3) rather than stored: a
 // chunk's q x q tiles do not fit beside dh. dB and dC are per-head partials
 // (b, h, l, 2n) that the wrapper's torch.sum over heads finishes, dD a
 // per-(b, h, chunk) partial; every reduction inside the block runs in a fixed
 // order (shuffles over the 16 threads of a row, then shared memory), so the
-// sums are deterministic without atomics. Thread layout, padding and the
-// absence of tensor cores and fast math are as in K8. Shared memory: 228,096
-// bytes (dynamic, opted in past 48 KB).
+// sums are deterministic without atomics. K7 at the tensor-parallel shard
+// (3 heads a rank at TP = 2) runs 96 blocks on the 132 SMs. Thread layout,
+// padding and the absence of tensor cores and fast math are as in K8. Shared
+// memory: 228,096 bytes (dynamic, opted in past 48 KB).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
@@ -127,14 +138,22 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return total;
 }
 
+// One strided operand: base pointer (at its first column) and the batch and
+// row strides in floats.
+struct Operand {
+  const float* p;
+  long long sb, sr;
+};
+
+template <bool kDSkip, bool kSeed>
 __global__ void __launch_bounds__(kThreads, 1)
-ssd_xbc_bwd_kernel(const float* __restrict__ xbc, const float* __restrict__ dt,
-                   const float* __restrict__ S, const float* __restrict__ Dp,
-                   const float* __restrict__ h_in, const float* __restrict__ dy,
-                   float* __restrict__ dxbc, float* __restrict__ dbc_part,
-                   float* __restrict__ ddt_out, float* __restrict__ dS_out,
-                   float* __restrict__ dD_part, int L, int H, int d_inner, int Q,
-                   long long x_sb, long long x_sr, long long dy_sb, long long dy_sr) {
+ssd_bwd_kernel(Operand x, Operand Bm, Operand Cm, Operand dy, const float* __restrict__ dt,
+               const float* __restrict__ S, const float* __restrict__ Dp,
+               const float* __restrict__ h_in, const float* __restrict__ dh_fin,
+               float* __restrict__ dx, long long dx_sb, long long dx_sr,
+               float* __restrict__ dbc_part, float* __restrict__ ddt_out,
+               float* __restrict__ dS_out, float* __restrict__ dD_part, int L, int H,
+               int Q) {
   extern __shared__ float smem[];
   float* dh = smem;                      // [kN][kLd]
   float* sB = dh + kN * kLd;             // [kStrip][kLd]
@@ -161,20 +180,23 @@ ssd_xbc_bwd_kernel(const float* __restrict__ xbc, const float* __restrict__ dt,
   const int tx = tid & 15;
   const int nc = L / Q;
   const int n_strips = Q / kStrip;
-  const float skip = Dp[head];
-  const int total = d_inner + 2 * kN;
-  const float* xb = xbc + static_cast<long long>(b) * x_sb;
-  const float* dyb = dy + static_cast<long long>(b) * dy_sb;
-  const int xcol = head * kP;
-  const int bcol = d_inner;
-  const int ccol = d_inner + kN;
+  const float skip = kDSkip ? Dp[head] : 0.f;
+  const float* xb = x.p + static_cast<long long>(b) * x.sb + head * kP;
+  const float* Bb = Bm.p + static_cast<long long>(b) * Bm.sb;
+  const float* Cb = Cm.p + static_cast<long long>(b) * Cm.sb;
+  const float* dyb = dy.p + static_cast<long long>(b) * dy.sb + head * kP;
   const long long bh = static_cast<long long>(b) * H + head;
   const float* dtb = dt + bh * L;
   const float* Sb = S + bh * L;
-  float* dxb = dxbc + static_cast<long long>(b) * L * total + xcol;
+  float* dxb = dx + static_cast<long long>(b) * dx_sb + head * kP;
   float* partb = dbc_part + bh * L * (2 * kN);
 
-  for (int i = tid; i < kN * kLd; i += kThreads) dh[i] = 0.f;
+  if (kSeed) {
+    const float* seed = dh_fin + bh * kN * kP;
+    for (int i = tid; i < kN * kP; i += kThreads) dh[(i / kP) * kLd + i % kP] = seed[i];
+  } else {
+    for (int i = tid; i < kN * kLd; i += kThreads) dh[i] = 0.f;
+  }
 
   for (int c = nc - 1; c >= 0; --c) {
     const int r0 = c * Q;
@@ -197,9 +219,9 @@ ssd_xbc_bwd_kernel(const float* __restrict__ xbc, const float* __restrict__ dt,
       __syncthreads();
       for (int i = tid; i < kStrip * kN; i += kThreads) {
         const int r = i / kN, k = i % kN;
-        const long long row = (r0 + s0 + r) * x_sr;
-        sB[r * kLd + k] = xb[row + bcol + k];
-        sX[r * kLd + k] = xb[row + xcol + k] * sdt[s0 + r];
+        const long long row = r0 + s0 + r;
+        sB[r * kLd + k] = Bb[row * Bm.sr + k];
+        sX[r * kLd + k] = xb[row * x.sr + k] * sdt[s0 + r];
       }
       float t1[4][8], dBa[4][8], cs[4] = {0.f, 0.f, 0.f, 0.f};
       zero(t1);
@@ -209,8 +231,8 @@ ssd_xbc_bwd_kernel(const float* __restrict__ xbc, const float* __restrict__ dt,
         __syncthreads();
         for (int i = tid; i < kStrip * kN; i += kThreads) {
           const int r = i / kN, k = i % kN;
-          sC[r * kLd + k] = xb[(r0 + t0 + r) * x_sr + ccol + k];
-          sDy[r * kLd + k] = dyb[(r0 + t0 + r) * dy_sr + xcol + k];
+          sC[r * kLd + k] = Cb[(r0 + t0 + r) * Cm.sr + k];
+          sDy[r * kLd + k] = dyb[(r0 + t0 + r) * dy.sr + k];
         }
         __syncthreads();
         float g[4][4], dg[4][4];
@@ -276,12 +298,16 @@ ssd_xbc_bwd_kernel(const float* __restrict__ xbc, const float* __restrict__ dt,
         for (int j = 0; j < 8; ++j) {
           const int p = tx + 16 * j;
           const float dxdt = t1[i][j] + bdh[i][j] * te;
-          const float dyv = dyb[row * dy_sr + xcol + p];
-          const float xv = xb[row * x_sr + xcol + p];
-          dxb[row * total + p] = dxdt * dtv + skip * dyv;
+          const float xv = xb[row * x.sr + p];
+          if (kDSkip) {
+            const float dyv = dyb[row * dy.sr + p];
+            dxb[row * dx_sr + p] = dxdt * dtv + skip * dyv;
+            dD_acc += dyv * xv;
+          } else {
+            dxb[row * dx_sr + p] = dxdt * dtv;
+          }
           pddt += dxdt * xv;
           pdT += bdh[i][j] * sX[(ty * 4 + i) * kLd + p];
-          dD_acc += dyv * xv;
         }
         pddt = row_sum16(pddt);
         pdT = row_sum16(pdT);
@@ -312,8 +338,8 @@ ssd_xbc_bwd_kernel(const float* __restrict__ xbc, const float* __restrict__ dt,
       __syncthreads();
       for (int i = tid; i < kStrip * kN; i += kThreads) {
         const int r = i / kN, k = i % kN;
-        sC[r * kLd + k] = xb[(r0 + t0 + r) * x_sr + ccol + k];
-        sDy[r * kLd + k] = dyb[(r0 + t0 + r) * dy_sr + xcol + k];
+        sC[r * kLd + k] = Cb[(r0 + t0 + r) * Cm.sr + k];
+        sDy[r * kLd + k] = dyb[(r0 + t0 + r) * dy.sr + k];
       }
       float dCa[4][8], rs[4] = {0.f, 0.f, 0.f, 0.f};
       zero(dCa);
@@ -322,9 +348,9 @@ ssd_xbc_bwd_kernel(const float* __restrict__ xbc, const float* __restrict__ dt,
         __syncthreads();
         for (int i = tid; i < kStrip * kN; i += kThreads) {
           const int r = i / kN, k = i % kN;
-          const long long row = (r0 + s0 + r) * x_sr;
-          sB[r * kLd + k] = xb[row + bcol + k];
-          sX[r * kLd + k] = xb[row + xcol + k] * sdt[s0 + r];
+          const long long row = r0 + s0 + r;
+          sB[r * kLd + k] = Bb[row * Bm.sr + k];
+          sX[r * kLd + k] = xb[row * x.sr + k] * sdt[s0 + r];
         }
         __syncthreads();
         float g[4][4], dg[4][4];
@@ -408,29 +434,39 @@ ssd_xbc_bwd_kernel(const float* __restrict__ xbc, const float* __restrict__ dt,
       dS_out[bh * L + r0 + s] = v;
       ddt_out[bh * L + r0 + s] = sddt[s];
     }
-    const float dD = block_sum(dD_acc, red);
-    if (tid == 0) dD_part[bh * nc + c] = dD;
+    if (kDSkip) {
+      const float dD = block_sum(dD_acc, red);
+      if (tid == 0) dD_part[bh * nc + c] = dD;
+    }
   }
 }
 
-cudaError_t launch(const float* const* in, float* const* out, int B, int L, int H,
-                   int d_inner, int Q, const long long* s, cudaStream_t stream) {
+template <bool kDSkip, bool kSeed>
+cudaError_t launch(Operand x, Operand Bm, Operand Cm, Operand dy, const float* dt,
+                   const float* S, const float* Dp, const float* h_in, const float* dh_fin,
+                   float* dx, long long dx_sb, long long dx_sr, float* dbc_part, float* ddt,
+                   float* dS, float* dD_part, int B, int L, int H, int Q,
+                   cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(float)) * kSmemFloats;
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_xbc_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto* kernel = ssd_bwd_kernel<kDSkip, kSeed>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(H, B);
-  ssd_xbc_bwd_kernel<<<grid, kThreads, smem, stream>>>(
-      in[0], in[1], in[2], in[3], in[4], in[5], out[0], out[1], out[2], out[3],
-      out[4], L, H, d_inner, Q, s[0], s[1], s[2], s[3]);
+  kernel<<<grid, kThreads, smem, stream>>>(x, Bm, Cm, dy, dt, S, Dp, h_in, dh_fin, dx, dx_sb,
+                                           dx_sr, dbc_part, ddt, dS, dD_part, L, H, Q);
   return cudaGetLastError();
+}
+
+bool geometry_ok(int L, int N, int P, int Q) {
+  return N == kN && P == kP && Q % kStrip == 0 && Q > 0 && Q <= kMaxChunk && L % Q == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Inputs: xbc (B, L, d_inner + 2N) with strides (x_sb, x_sr, 1); dt, S
+// K9. Inputs: xbc (B, L, d_inner + 2N) with strides (x_sb, x_sr, 1); dt, S
 // (B, H, L / Q, Q) contiguous; Dp (H,); h_in (B, L / Q, H, N, P) contiguous;
 // dy (B, L, d_inner) with strides (dy_sb, dy_sr, 1).
 // Outputs, contiguous: dxbc (B, L, d_inner + 2N), of which the kernel writes
@@ -442,17 +478,51 @@ int ssd_xbc_bwd(const void* xbc, const void* dt, const void* S, const void* Dp,
                 void* ddt, void* dS, void* dD_part, int B, int L, int H,
                 int d_inner, int N, int P, int Q, long long x_sb, long long x_sr,
                 long long dy_sb, long long dy_sr, void* stream) {
-  if (N != kN || P != kP || Q % kStrip != 0 || Q <= 0 || Q > kMaxChunk ||
-      L % Q != 0 || d_inner != H * P)
-    return cudaErrorInvalidValue;
-  const float* in[6] = {static_cast<const float*>(xbc), static_cast<const float*>(dt),
-                        static_cast<const float*>(S),   static_cast<const float*>(Dp),
-                        static_cast<const float*>(h_in), static_cast<const float*>(dy)};
-  float* out[5] = {static_cast<float*>(dxbc), static_cast<float*>(dbc_part),
-                   static_cast<float*>(ddt), static_cast<float*>(dS),
-                   static_cast<float*>(dD_part)};
-  const long long strides[4] = {x_sb, x_sr, dy_sb, dy_sr};
-  return launch(in, out, B, L, H, d_inner, Q, strides, static_cast<cudaStream_t>(stream));
+  if (!geometry_ok(L, N, P, Q) || d_inner != H * P) return cudaErrorInvalidValue;
+  const auto* xf = static_cast<const float*>(xbc);
+  const long long total = d_inner + 2 * N;
+  return launch<true, false>(
+      Operand{xf, x_sb, x_sr}, Operand{xf + d_inner, x_sb, x_sr},
+      Operand{xf + d_inner + N, x_sb, x_sr},
+      Operand{static_cast<const float*>(dy), dy_sb, dy_sr}, static_cast<const float*>(dt),
+      static_cast<const float*>(S), static_cast<const float*>(Dp),
+      static_cast<const float*>(h_in), nullptr, static_cast<float*>(dxbc), L * total, total,
+      static_cast<float*>(dbc_part), static_cast<float*>(ddt), static_cast<float*>(dS),
+      static_cast<float*>(dD_part), B, L, H, Q, static_cast<cudaStream_t>(stream));
+}
+
+// K7. Inputs: x (B, L, H * P), Bm, Cm (B, L, N) and dy (B, L, H * P), each with
+// its strides (_sb, _sr, 1); dt, S (B, H, L / Q, Q) contiguous; h_in
+// (B, L / Q, H, N, P) contiguous; dh_fin (B, H, N, P) contiguous, or null for
+// the unseeded variant. Outputs, contiguous: dx (B, L, H * P); dbc_part
+// (B, H, L, 2N), this head's dB | dC; ddt, dS (B, H, L / Q, Q). No D terms.
+// Returns a cudaError_t code, as ssd_xbc_bwd.
+int ssd_split_bwd(const void* x, const void* Bm, const void* Cm, const void* dt,
+                  const void* S, const void* h_in, const void* dy, const void* dh_fin,
+                  void* dx, void* dbc_part, void* ddt, void* dS, int B, int L, int H,
+                  int N, int P, int Q, long long x_sb, long long x_sr, long long b_sb,
+                  long long b_sr, long long c_sb, long long c_sr, long long dy_sb,
+                  long long dy_sr, void* stream) {
+  if (!geometry_ok(L, N, P, Q)) return cudaErrorInvalidValue;
+  const Operand xo{static_cast<const float*>(x), x_sb, x_sr},
+      bo{static_cast<const float*>(Bm), b_sb, b_sr},
+      co{static_cast<const float*>(Cm), c_sb, c_sr},
+      dyo{static_cast<const float*>(dy), dy_sb, dy_sr};
+  const long long d = static_cast<long long>(H) * P;
+  const auto* dtf = static_cast<const float*>(dt);
+  const auto* sf = static_cast<const float*>(S);
+  const auto* hi = static_cast<const float*>(h_in);
+  const auto* seed = static_cast<const float*>(dh_fin);
+  auto* dxf = static_cast<float*>(dx);
+  auto* part = static_cast<float*>(dbc_part);
+  auto* ddtf = static_cast<float*>(ddt);
+  auto* dsf = static_cast<float*>(dS);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (seed != nullptr)
+    return launch<false, true>(xo, bo, co, dyo, dtf, sf, nullptr, hi, seed, dxf, L * d, d, part,
+                               ddtf, dsf, nullptr, B, L, H, Q, s);
+  return launch<false, false>(xo, bo, co, dyo, dtf, sf, nullptr, hi, nullptr, dxf, L * d, d,
+                              part, ddtf, dsf, nullptr, B, L, H, Q, s);
 }
 
 const char* ssd_xbc_bwd_error_string(int code) {

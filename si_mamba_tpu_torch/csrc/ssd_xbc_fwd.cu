@@ -1,21 +1,29 @@
-// Boundary-fused chunked SSD forward (K8), fp32. Per batch row b and head h,
-// with the chunk's inclusive log-decay cumsum S (non-increasing) and the
-// state h_in entering the chunk:
+// Chunked SSD forward, fp32: the boundary-fused K8 and the split K6 from one
+// kernel body. Per batch row b and head h, with the chunk's inclusive
+// log-decay cumsum S (non-increasing) and the state h_in entering the chunk:
 //
 //   y[t]  = sum_{s<=t} (C[t].B[s]) e^{S[t]-S[s]} dt[s] x[s]
-//           + e^{S[t]} C[t] . h_in + D x[t]
+//           + e^{S[t]} C[t] . h_in [+ D x[t]]
 //   h_out = e^{S_end} h_in + sum_s B[s] (x) (dt[s] x[s] e^{S_end-S[s]})
 //
-// x, B and C are the column groups [x | B | C] of the mixer's un-split conv
-// output xbc (b, l, d + 2n); y is (b, l, d). One variant (kStates) also writes
-// h_in (b, nc, h, n, p) for the backward, the other (serving) does not.
+// x (b, l, h p), B and C (b, l, n) each come with their own batch and row
+// strides (unit stride along channels); y is (b, l, h p) contiguous.
+// Template flags: kStates also writes h_in (b, nc, h, n, p) for the backward;
+// kHfin writes the state after the last chunk, h_fin (b, h, n, p), the carry
+// of sequence parallelism; kXbc (K8) adds the D x term and takes B and C as
+// columns of x's buffer, with x's strides, so one row offset serves all three.
 //
-// Replaces the TPU kernel `_make_fwd_kernel_xbc` behind `_fwd_call_xbc`
-// (si_mamba_tpu/ops/pallas/ssd_kernel.py). The TPU kernel's grid is (b, nc)
-// with the chunk axis sequential and the (h, n, p) state in VMEM scratch; it
-// holds the head-shared q x q G = C B^T whole. Here a loop inside the block
-// takes the place of the sequential chunk axis, and G cannot be held whole:
-// at q = 256 it is 256 KB, more than a block's 227 KB of shared memory.
+// K8 (`ssd_xbc_fwd`, kXbc) replaces the TPU kernel `_make_fwd_kernel_xbc`
+// behind `_fwd_call_xbc`: x, B and C are the column groups [x | B | C] of the
+// mixer's un-split conv output xbc (b, l, d + 2n). K6 (`ssd_split_fwd`, no D
+// term) replaces `_make_fwd_kernel` behind `_fwd_call` (both in
+// si_mamba_tpu/ops/pallas/ssd_kernel.py), whose operands arrive split, as the
+// tensor- and sequence-parallel mixers make them. The TPU kernels' grid is
+// (b, nc) with the chunk axis sequential and the (h, n, p) state in VMEM
+// scratch; they hold the head-shared q x q G = C B^T whole. Here a loop
+// inside the block takes the place of the sequential chunk axis, and G cannot
+// be held whole: at q = 256 it is 256 KB, more than a block's 227 KB of
+// shared memory.
 //
 // Bound on the H100: fp32 operations. At b=32, l=512, q=256, h=6, n=p=128 the
 // function needs, per batch row, nc (q(q+1) n + h q(q+1) p) for the lower
@@ -26,6 +34,10 @@
 // design executes 14.5 GFLOP: G per head, whole diagonal tiles, and both
 // (q, n, p) products in every chunk.
 //
+// K6 at the tensor-parallel shard (h = 3 heads a rank at TP = 2) runs the
+// same work per head; its grid of 3 x 32 = 96 blocks leaves 36 of the 132 SMs
+// idle.
+//
 // Design: grid (h, b), 256 threads a block; each block owns one (b, h) and
 // walks its chunks in order with the 128 x 128 state in shared memory. For
 // each chunk:
@@ -35,13 +47,13 @@
 //     G (.) e^{S[t]-S[s]} is computed (tiles with s > t are skipped, and in
 //     the diagonal tile entries with s > t are set to 0, never exponentiated;
 //     every exponent used is <= 0), and its product with dt x is added to
-//     registers. Then C h_in e^{S[t]} and D x[t] are added and y is written.
+//     registers. Then C h_in e^{S[t]} (and D x[t]) are added and y is written.
 //     G is recomputed per head, which adds about 38 % to the operations
 //     (6 heads x 2q^2 n against one), so no 256 KB G is held; the strips keep
 //     every operand of a product in shared memory.
 //  2. the state: B^T (dt x e^{S_end-S}) over 64-row tiles into 64 registers
 //     a thread, then h <- e^{S_end} h + that, in place (each thread owns its
-//     64 entries of the state).
+//     64 entries of the state). After the last chunk kHfin copies it out.
 // Each thread owns a 4 x 8 (strip) or 8 x 8 (state) block of the output with
 // the columns 16 apart, so a warp's reads of a staged row are contiguous;
 // rows that 16 threads read along their length are padded to 129 floats, so
@@ -70,12 +82,19 @@ constexpr int kSmemFloats = kN * kP                // state
                             + kStrip * kLdW        // (t, s) tile
                             + 2 * kMaxChunk;       // S, dt of the chunk
 
-template <bool kStates>
+// One operand of the kernel: base pointer (at its first column) and the
+// batch and row strides in floats.
+struct Operand {
+  const float* p;
+  long long sb, sr;
+};
+
+template <bool kStates, bool kHfin, bool kXbc>
 __global__ void __launch_bounds__(kThreads, 1)
-ssd_xbc_fwd_kernel(const float* __restrict__ xbc, const float* __restrict__ dt,
-                   const float* __restrict__ S, const float* __restrict__ Dp,
-                   float* __restrict__ y, float* __restrict__ h_in, int L,
-                   int H, int d_inner, int Q, long long x_sb, long long x_sr) {
+ssd_fwd_kernel(Operand x, Operand Bm, Operand Cm, const float* __restrict__ dt,
+               const float* __restrict__ S, const float* __restrict__ Dp,
+               float* __restrict__ y, float* __restrict__ h_in,
+               float* __restrict__ h_fin, int L, int H, int Q) {
   extern __shared__ float smem[];
   float* hc = smem;                   // [kN][kP]
   float* sC = hc + kN * kP;           // [kStrip][kLd]
@@ -92,15 +111,16 @@ ssd_xbc_fwd_kernel(const float* __restrict__ xbc, const float* __restrict__ dt,
   const int tx = tid & 15;  // 0..15: column, 16 apart
   const int nc = L / Q;
   const int n_strips = Q / kStrip;
-  const float skip = Dp[head];
-  const float* xb = xbc + static_cast<long long>(b) * x_sb;
-  const int xcol = head * kP;
-  const int bcol = d_inner;
-  const int ccol = d_inner + kN;
+  const int d = H * kP;
+  const float skip = kXbc ? Dp[head] : 0.f;
+  const float* xb = x.p + static_cast<long long>(b) * x.sb + head * kP;
+  const long long b_sr = kXbc ? x.sr : Bm.sr, c_sr = kXbc ? x.sr : Cm.sr;
+  const float* Bb = Bm.p + static_cast<long long>(b) * (kXbc ? x.sb : Bm.sb);
+  const float* Cb = Cm.p + static_cast<long long>(b) * (kXbc ? x.sb : Cm.sb);
   const long long bh = static_cast<long long>(b) * H + head;
   const float* dtb = dt + bh * L;  // (b, h, nc, q) is (b, h, L)
   const float* Sb = S + bh * L;
-  float* yb = y + static_cast<long long>(b) * L * d_inner + xcol;
+  float* yb = y + static_cast<long long>(b) * L * d + head * kP;
 
   for (int i = tid; i < kN * kP; i += kThreads) hc[i] = 0.f;
 
@@ -122,7 +142,7 @@ ssd_xbc_fwd_kernel(const float* __restrict__ xbc, const float* __restrict__ dt,
       const int t0 = ts * kStrip;
       for (int i = tid; i < kStrip * kN; i += kThreads) {
         const int r = i / kN, k = i % kN;
-        sC[r * kLd + k] = xb[(r0 + t0 + r) * x_sr + ccol + k];
+        sC[r * kLd + k] = Cb[(r0 + t0 + r) * c_sr + k];
       }
       float acc[4][8];
 #pragma unroll
@@ -135,9 +155,9 @@ ssd_xbc_fwd_kernel(const float* __restrict__ xbc, const float* __restrict__ dt,
         __syncthreads();  // sB, sX, sW free; sC staged
         for (int i = tid; i < kStrip * kN; i += kThreads) {
           const int r = i / kN, k = i % kN;
-          const long long row = (r0 + s0 + r) * x_sr;
-          sB[r * kLd + k] = xb[row + bcol + k];
-          sX[r * kP + k] = xb[row + xcol + k] * sdt[s0 + r];
+          const long long row = r0 + s0 + r;
+          sB[r * kLd + k] = Bb[row * b_sr + k];
+          sX[r * kP + k] = xb[row * x.sr + k] * sdt[s0 + r];
         }
         __syncthreads();
         // (t, s) tile of G, rows t = ty*4 + i, columns s = tx + 16 j
@@ -184,7 +204,7 @@ ssd_xbc_fwd_kernel(const float* __restrict__ xbc, const float* __restrict__ dt,
         }
       }
 
-      // y_inter = C . h_in, then y = y_intra + y_inter e^{S[t]} + D x[t]
+      // y_inter = C . h_in, then y = y_intra + y_inter e^{S[t]} (+ D x[t])
       float inter[4][8];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -210,8 +230,9 @@ ssd_xbc_fwd_kernel(const float* __restrict__ xbc, const float* __restrict__ dt,
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int p = tx + 16 * j;
-          const float xv = xb[row * x_sr + xcol + p];
-          yb[row * d_inner + p] = acc[i][j] + inter[i][j] * e + skip * xv;
+          float v = acc[i][j] + inter[i][j] * e;
+          if (kXbc) v += skip * xb[row * x.sr + p];
+          yb[row * d + p] = v;
         }
       }
       __syncthreads();  // the next strip overwrites sC
@@ -229,9 +250,9 @@ ssd_xbc_fwd_kernel(const float* __restrict__ xbc, const float* __restrict__ dt,
       __syncthreads();
       for (int i = tid; i < kStrip * kN; i += kThreads) {
         const int r = i / kN, k = i % kN;
-        const long long row = (r0 + s0 + r) * x_sr;
-        sB[r * kLd + k] = xb[row + bcol + k];
-        sX[r * kP + k] = (xb[row + xcol + k] * sdt[s0 + r]) * expf(send - sS[s0 + r]);
+        const long long row = r0 + s0 + r;
+        sB[r * kLd + k] = Bb[row * b_sr + k];
+        sX[r * kP + k] = (xb[row * x.sr + k] * sdt[s0 + r]) * expf(send - sS[s0 + r]);
       }
       __syncthreads();
       // rows n = ty*8 + i, columns p = tx + 16 j
@@ -257,28 +278,36 @@ ssd_xbc_fwd_kernel(const float* __restrict__ xbc, const float* __restrict__ dt,
         hv = decay * hv + st[i][j];
       }
   }
+  if (kHfin) {
+    __syncthreads();
+    float* hf = h_fin + bh * kN * kP;
+    for (int i = tid; i < kN * kP; i += kThreads) hf[i] = hc[i];
+  }
 }
 
-template <bool kStates>
-cudaError_t launch(const float* xbc, const float* dt, const float* S,
-                   const float* Dp, float* y, float* h_in, int B, int L, int H,
-                   int d_inner, int Q, long long x_sb, long long x_sr,
-                   cudaStream_t stream) {
+template <bool kStates, bool kHfin, bool kXbc>
+cudaError_t launch(Operand x, Operand Bm, Operand Cm, const float* dt, const float* S,
+                   const float* Dp, float* y, float* h_in, float* h_fin, int B,
+                   int L, int H, int Q, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(float)) * kSmemFloats;
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_xbc_fwd_kernel<kStates>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto* kernel = ssd_fwd_kernel<kStates, kHfin, kXbc>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(H, B);
-  ssd_xbc_fwd_kernel<kStates><<<grid, kThreads, smem, stream>>>(
-      xbc, dt, S, Dp, y, h_in, L, H, d_inner, Q, x_sb, x_sr);
+  kernel<<<grid, kThreads, smem, stream>>>(x, Bm, Cm, dt, S, Dp, y, h_in, h_fin, L, H, Q);
   return cudaGetLastError();
+}
+
+bool geometry_ok(int L, int N, int P, int Q) {
+  return N == kN && P == kP && Q % kStrip == 0 && Q > 0 && Q <= kMaxChunk && L % Q == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// xbc: (B, L, d_inner + 2N) fp32 with strides (x_sb, x_sr, 1); dt, S:
+// K8. xbc: (B, L, d_inner + 2N) fp32 with strides (x_sb, x_sr, 1); dt, S:
 // (B, H, L / Q, Q) contiguous; Dp: (H,); y: (B, L, d_inner) contiguous;
 // h_in: (B, L / Q, H, N, P) contiguous, or null for the lean variant.
 // Returns a cudaError_t code (cudaErrorInvalidValue for a geometry the kernel
@@ -287,20 +316,51 @@ extern "C" {
 int ssd_xbc_fwd(const void* xbc, const void* dt, const void* S, const void* Dp,
                 void* y, void* h_in, int B, int L, int H, int d_inner, int N,
                 int P, int Q, long long x_sb, long long x_sr, void* stream) {
-  if (N != kN || P != kP || Q % kStrip != 0 || Q <= 0 || Q > kMaxChunk ||
-      L % Q != 0 || d_inner != H * P)
-    return cudaErrorInvalidValue;
+  if (!geometry_ok(L, N, P, Q) || d_inner != H * P) return cudaErrorInvalidValue;
   const auto* xf = static_cast<const float*>(xbc);
+  const Operand x{xf, x_sb, x_sr}, Bm{xf + d_inner, x_sb, x_sr},
+      Cm{xf + d_inner + N, x_sb, x_sr};
   const auto* dtf = static_cast<const float*>(dt);
   const auto* sf = static_cast<const float*>(S);
   const auto* df = static_cast<const float*>(Dp);
   auto* yf = static_cast<float*>(y);
   auto s = static_cast<cudaStream_t>(stream);
   if (h_in != nullptr)
-    return launch<true>(xf, dtf, sf, df, yf, static_cast<float*>(h_in), B, L, H,
-                        d_inner, Q, x_sb, x_sr, s);
-  return launch<false>(xf, dtf, sf, df, yf, nullptr, B, L, H, d_inner, Q, x_sb,
-                       x_sr, s);
+    return launch<true, false, true>(x, Bm, Cm, dtf, sf, df, yf, static_cast<float*>(h_in),
+                                     nullptr, B, L, H, Q, s);
+  return launch<false, false, true>(x, Bm, Cm, dtf, sf, df, yf, nullptr, nullptr, B, L, H,
+                                    Q, s);
+}
+
+// K6. x: (B, L, H * P) with strides (x_sb, x_sr, 1); Bm, Cm: (B, L, N) with
+// strides (b_sb, b_sr, 1) and (c_sb, c_sr, 1); dt, S: (B, H, L / Q, Q)
+// contiguous; y: (B, L, H * P) contiguous; h_in: (B, L / Q, H, N, P)
+// contiguous or null; h_fin: (B, H, N, P) contiguous or null. No D term.
+// Returns a cudaError_t code, as ssd_xbc_fwd.
+int ssd_split_fwd(const void* x, const void* Bm, const void* Cm, const void* dt,
+                  const void* S, void* y, void* h_in, void* h_fin, int B, int L, int H,
+                  int N, int P, int Q, long long x_sb, long long x_sr, long long b_sb,
+                  long long b_sr, long long c_sb, long long c_sr, void* stream) {
+  if (!geometry_ok(L, N, P, Q)) return cudaErrorInvalidValue;
+  const Operand xo{static_cast<const float*>(x), x_sb, x_sr},
+      bo{static_cast<const float*>(Bm), b_sb, b_sr},
+      co{static_cast<const float*>(Cm), c_sb, c_sr};
+  const auto* dtf = static_cast<const float*>(dt);
+  const auto* sf = static_cast<const float*>(S);
+  auto* yf = static_cast<float*>(y);
+  auto* hi = static_cast<float*>(h_in);
+  auto* hf = static_cast<float*>(h_fin);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (hi != nullptr && hf != nullptr)
+    return launch<true, true, false>(xo, bo, co, dtf, sf, nullptr, yf, hi, hf, B, L, H, Q, s);
+  if (hi != nullptr)
+    return launch<true, false, false>(xo, bo, co, dtf, sf, nullptr, yf, hi, nullptr, B, L, H,
+                                      Q, s);
+  if (hf != nullptr)
+    return launch<false, true, false>(xo, bo, co, dtf, sf, nullptr, yf, nullptr, hf, B, L, H,
+                                      Q, s);
+  return launch<false, false, false>(xo, bo, co, dtf, sf, nullptr, yf, nullptr, nullptr, B, L,
+                                     H, Q, s);
 }
 
 const char* ssd_xbc_fwd_error_string(int code) {

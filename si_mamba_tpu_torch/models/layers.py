@@ -15,6 +15,13 @@ forms, so a freshly built model has realistic scan dynamics:
 - Mamba-1: A_log = log(1..d_state) per channel, D = 1; SSD: A_log = log of
   U(1, 16) per head, D = 1 per head, the gated-RMSNorm scale 1;
 - out_proj further divided by sqrt(n_layer).
+
+With a ``mesh`` and a ``tp_axis`` the mixers are tensor-parallel
+(``parallel/tensor_parallel.py``): each rank holds its shard of the mixer's
+parameters under the same names (``utils/weights.shard_state_dict``'s
+layout), drawn as the single-process mixer's from the same generator and then
+cut, so a tensor-parallel model and a single-process one built from one seed
+hold the same weights.
 """
 
 from __future__ import annotations
@@ -27,6 +34,9 @@ import torch.nn as nn
 from si_mamba_tpu_torch.models.embed import Dropout
 from si_mamba_tpu_torch.ops.selective_scan import mamba_mixer_apply
 from si_mamba_tpu_torch.ops.ssd import ssd_mixer_apply
+from si_mamba_tpu_torch.parallel.mesh import Mesh
+from si_mamba_tpu_torch.parallel.tensor_parallel import mamba_mixer_tp, ssd_mixer_tp
+from si_mamba_tpu_torch.utils.weights import shard_mixer_state
 
 
 def _uniform_(t: torch.Tensor, bound: float, generator: torch.Generator) -> torch.Tensor:
@@ -40,6 +50,24 @@ def _dt_bias(d_inner: int, generator: torch.Generator, dt_min: float = 1e-3,
     dt = torch.exp(u * (math.log(dt_max) - math.log(dt_min)) + math.log(dt_min))
     dt = torch.clamp_min(dt, floor)
     return dt + torch.log(-torch.expm1(-dt))
+
+
+def _tp_size(mesh: Mesh | None, tp_axis: str | None) -> int:
+    """The size of the tensor-parallel axis (1 without one); a ``tp_axis``
+    needs a mesh that has it."""
+    if tp_axis is None:
+        return 1
+    if mesh is None or tp_axis not in mesh:
+        raise ValueError(f"tp_axis={tp_axis!r} needs a mesh with that axis")
+    return mesh[tp_axis].size
+
+
+def _load_shard(module: nn.Module, full: nn.Module, kind: str, generator) -> None:
+    """Draw ``full``'s (single-process) parameters from ``generator`` and load
+    this rank's shard of them into the tensor-parallel ``module``."""
+    full.reset_parameters(generator)
+    ax = module.mesh[module.tp_axis]
+    module.load_state_dict(shard_mixer_state(full.state_dict(), kind, ax.index, ax.size))
 
 
 class DepthwiseConvWeights(nn.Module):
@@ -59,18 +87,25 @@ class MambaMixer(nn.Module):
     'pallas', 'seq' or 'chunked', or 'fused', which runs the whole interior
     between in_proj and out_proj as one kernel (K10; K10 with states and K11
     in training; their plain versions on the CPU), or 'fused_interpret', the
-    plain versions of that on any device."""
+    plain versions of that on any device. With ``mesh`` and ``tp_axis`` it
+    is ``mamba_mixer_tp`` on this rank's d_inner / M channels."""
 
     def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 4, expand: int = 2,
                  dt_rank: int | None = None, out_proj_div: float = 1.0,
-                 scan_impl: str = "auto"):
+                 scan_impl: str = "auto", mesh: Mesh | None = None, tp_axis: str | None = None):
         super().__init__()
         self.d_state = d_state
         self.d_inner = expand * d_model
         self.dt_rank = dt_rank if dt_rank is not None else math.ceil(d_model / 16)
         self.out_proj_div = out_proj_div
         self.scan_impl = scan_impl
-        d_inner = self.d_inner
+        self.mesh, self.tp_axis = mesh, tp_axis
+        size = _tp_size(mesh, tp_axis)
+        if self.d_inner % size:
+            raise ValueError(f"d_inner={self.d_inner} does not split over {size} ranks")
+        self._full = dict(d_model=d_model, d_state=d_state, d_conv=d_conv, expand=expand,
+                          dt_rank=dt_rank, out_proj_div=out_proj_div)
+        d_inner = self.d_inner // size  # this rank's channels
         self.in_proj = nn.Linear(d_model, 2 * d_inner, bias=False)
         self.conv1d = DepthwiseConvWeights(d_inner, d_conv)
         self.x_proj = nn.Linear(d_inner, self.dt_rank + 2 * d_state, bias=False)
@@ -81,6 +116,8 @@ class MambaMixer(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
+        if self.tp_axis is not None:
+            return _load_shard(self, MambaMixer(**self._full), "mamba", generator)
         d_model, d_inner = self.in_proj.in_features, self.d_inner
         d_conv = self.conv1d.weight.shape[-1]
         _uniform_(self.in_proj.weight, 1 / math.sqrt(d_model), generator)
@@ -96,7 +133,9 @@ class MambaMixer(nn.Module):
         self.out_proj.weight.div_(self.out_proj_div)
 
     def params(self) -> dict:
-        """The parameters in ``mamba_mixer_apply``'s layout (views, no copies)."""
+        """The parameters in ``mamba_mixer_apply``'s layout (views, no copies);
+        under tensor parallelism this rank's shard, the layout of
+        ``shard_mixer_params``."""
         return {
             "in_proj_w": self.in_proj.weight.t(),
             "conv_w": self.conv1d.weight[:, 0, :],
@@ -110,6 +149,10 @@ class MambaMixer(nn.Module):
         }
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_axis is not None:
+            return mamba_mixer_tp(self.params(), x, mesh=self.mesh, d_state=self.d_state,
+                                  dt_rank=self.dt_rank, axis=self.tp_axis,
+                                  scan_impl=self.scan_impl)
         return mamba_mixer_apply(self.params(), x, d_state=self.d_state,
                                  dt_rank=self.dt_rank, impl=self.scan_impl)
 
@@ -131,13 +174,18 @@ class SSDMixer(nn.Module):
     (K8/K9, with the conv's K1/K5); any other value, the default ``'auto'``
     included, the plain conv and the plain chunked core, as the JAX mixer
     maps it. So on CUDA only ``'ssd_fused'`` launches a kernel; the JAX
-    package's ``'xla'`` route on the TPU still runs its Pallas conv."""
+    package's ``'xla'`` route on the TPU still runs its Pallas conv. With
+    ``mesh`` and ``tp_axis`` it is ``ssd_mixer_tp`` on this rank's block of
+    n_heads / M heads ('ssd_fused': K1/K5 and the split core K6/K7)."""
 
     def __init__(self, d_model: int, d_state: int = 128, d_conv: int = 4, expand: int = 2,
                  head_dim: int = 128, chunk: int = 128, out_proj_div: float = 1.0,
-                 scan_impl: str = "auto"):
+                 scan_impl: str = "auto", mesh: Mesh | None = None, tp_axis: str | None = None):
         super().__init__()
         d_inner = expand * d_model
+        self._full = dict(d_model=d_model, d_state=d_state, d_conv=d_conv, expand=expand,
+                          head_dim=head_dim, chunk=chunk, out_proj_div=out_proj_div,
+                          scan_impl=scan_impl)
         # head_dim must divide d_inner; otherwise the largest divisor below it
         if d_inner % head_dim:
             head_dim = next(d for d in range(min(head_dim, d_inner), 0, -1) if d_inner % d == 0)
@@ -145,17 +193,25 @@ class SSDMixer(nn.Module):
         self.n_heads = d_inner // head_dim
         self.chunk, self.out_proj_div = chunk, out_proj_div
         self.impl = "ssd_fused" if scan_impl == "ssd_fused" else "xla"
-        conv_dim = d_inner + 2 * d_state
-        self.in_proj = nn.Linear(d_model, 2 * d_inner + 2 * d_state + self.n_heads, bias=False)
-        self.conv1d = DepthwiseConvWeights(conv_dim, d_conv)
-        self.dt_bias = nn.Parameter(torch.empty(self.n_heads))
-        self.A_log = nn.Parameter(torch.empty(self.n_heads))
-        self.D = nn.Parameter(torch.empty(self.n_heads))
-        self.norm = GatedRMSNormWeight(d_inner)
-        self.out_proj = nn.Linear(d_inner, d_model, bias=False)
+        self.mesh, self.tp_axis = mesh, tp_axis
+        size = _tp_size(mesh, tp_axis)
+        if self.n_heads % size:
+            raise ValueError(f"the tensor-parallel SSD mixer shards whole heads: n_heads="
+                             f"{self.n_heads} must be divisible by the '{tp_axis}' axis size "
+                             f"{size}")
+        h, d_loc = self.n_heads // size, d_inner // size  # this rank's heads and channels
+        self.in_proj = nn.Linear(d_model, 2 * d_loc + 2 * d_state + h, bias=False)
+        self.conv1d = DepthwiseConvWeights(d_loc + 2 * d_state, d_conv)
+        self.dt_bias = nn.Parameter(torch.empty(h))
+        self.A_log = nn.Parameter(torch.empty(h))
+        self.D = nn.Parameter(torch.empty(h))
+        self.norm = GatedRMSNormWeight(d_loc)
+        self.out_proj = nn.Linear(d_loc, d_model, bias=False)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
+        if self.tp_axis is not None:
+            return _load_shard(self, SSDMixer(**self._full), "ssd", generator)
         d_model = self.in_proj.in_features
         d_conv = self.conv1d.weight.shape[-1]
         _uniform_(self.in_proj.weight, 1 / math.sqrt(d_model), generator)
@@ -169,7 +225,19 @@ class SSDMixer(nn.Module):
         self.out_proj.weight.div_(self.out_proj_div)
 
     def params(self) -> dict:
-        """The parameters in ``ssd_mixer_apply``'s layout (views, no copies)."""
+        """The parameters in ``ssd_mixer_apply``'s layout (views, no copies);
+        under tensor parallelism this rank's shard in ``ssd_mixer_tp``'s
+        layout (``shard_ssd_mixer_params``)."""
+        if self.tp_axis is not None:
+            d, n = self.norm.weight.shape[0], self.d_state
+            w, cw, cb = self.in_proj.weight, self.conv1d.weight[:, 0, :], self.conv1d.bias
+            return {
+                "in_proj_z": w[:d].t(), "in_proj_x": w[d:2 * d].t(),
+                "in_proj_bc": w[2 * d:2 * d + 2 * n].t(), "in_proj_dt": w[2 * d + 2 * n:].t(),
+                "conv_x_w": cw[:d], "conv_x_b": cb[:d], "conv_bc_w": cw[d:], "conv_bc_b": cb[d:],
+                "dt_bias": self.dt_bias, "A_log": self.A_log, "D": self.D,
+                "norm_scale": self.norm.weight, "out_proj_w": self.out_proj.weight.t(),
+            }
         return {
             "in_proj_w": self.in_proj.weight.t(),
             "conv_w": self.conv1d.weight[:, 0, :],
@@ -182,6 +250,10 @@ class SSDMixer(nn.Module):
         }
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_axis is not None:
+            return ssd_mixer_tp(self.params(), x, mesh=self.mesh, n_heads=self.n_heads,
+                                d_state=self.d_state, chunk=self.chunk, axis=self.tp_axis,
+                                impl=self.impl)
         return ssd_mixer_apply(self.params(), x, n_heads=self.n_heads, d_state=self.d_state,
                                chunk=self.chunk, impl=self.impl)
 
@@ -212,14 +284,15 @@ class Block(nn.Module):
 
     def __init__(self, d_model: int, norm_eps: float = 1e-5, drop_path: float = 0.0,
                  out_proj_div: float = 1.0, scan_impl: str = "auto", mixer: str = "mamba",
-                 ssd_chunk: int = 128):
+                 ssd_chunk: int = 128, mesh: Mesh | None = None, tp_axis: str | None = None):
         super().__init__()
         self.norm = nn.LayerNorm(d_model, eps=norm_eps)
+        tp = dict(mesh=mesh, tp_axis=tp_axis)
         if mixer == "ssd":
             self.mixer = SSDMixer(d_model, out_proj_div=out_proj_div, scan_impl=scan_impl,
-                                  chunk=ssd_chunk)
+                                  chunk=ssd_chunk, **tp)
         elif mixer == "mamba":
-            self.mixer = MambaMixer(d_model, out_proj_div=out_proj_div, scan_impl=scan_impl)
+            self.mixer = MambaMixer(d_model, out_proj_div=out_proj_div, scan_impl=scan_impl, **tp)
         else:
             raise ValueError(f"unknown mixer {mixer!r}")
         self.drop_path = DropPath(drop_path)
@@ -232,16 +305,19 @@ class Block(nn.Module):
 
 class MixerModel(nn.Module):
     """Stack of Mamba (or SSD) blocks + final LayerNorm; in training, dropout
-    at ``drop_out_in_block`` after every block's mixer output."""
+    at ``drop_out_in_block`` after every block's mixer output. With ``mesh``
+    and ``tp_axis`` every mixer is tensor-parallel; the rest is replicated."""
 
     def __init__(self, d_model: int, n_layer: int, norm_eps: float = 1e-5,
                  drop_path: float = 0.0, drop_out_in_block: float = 0.0,
-                 scan_impl: str = "auto", mixer: str = "mamba", ssd_chunk: int = 128):
+                 scan_impl: str = "auto", mixer: str = "mamba", ssd_chunk: int = 128,
+                 mesh: Mesh | None = None, tp_axis: str | None = None):
         super().__init__()
         div = math.sqrt(n_layer)  # one residual per layer
         self.layers = nn.ModuleList(
             Block(d_model, norm_eps=norm_eps, drop_path=drop_path, out_proj_div=div,
-                  scan_impl=scan_impl, mixer=mixer, ssd_chunk=ssd_chunk)
+                  scan_impl=scan_impl, mixer=mixer, ssd_chunk=ssd_chunk, mesh=mesh,
+                  tp_axis=tp_axis)
             for _ in range(n_layer))
         self.block_dropout = Dropout(drop_out_in_block)
         self.norm_f = nn.LayerNorm(d_model, eps=norm_eps)

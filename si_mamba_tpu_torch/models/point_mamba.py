@@ -5,7 +5,9 @@ PatchEncoder -> pos-embed -> ordering (SAST or xyz 'MAMBA') -> MixerModel ->
 LayerNorm -> mean-pool -> classification head. Module names follow the
 reference's state-dict keys. ``.train()`` is the JAX model's ``train=True``:
 BatchNorm on batch statistics, DropPath and dropout drawing from the
-``generator`` passed to ``forward``.
+``generator`` passed to ``forward``. With ``config.tp_axis`` and a ``mesh``
+that has that axis every mixer is tensor-parallel over it; the rest of the
+model is replicated on every rank of the axis.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from si_mamba_tpu_torch.models.layers import MixerModel
 from si_mamba_tpu_torch.models.ordering import sast_sequence, xyz_sequence
 from si_mamba_tpu_torch.ops.graph import knn_adjacency, rw_laplacian, sym_laplacian
 from si_mamba_tpu_torch.ops.spectral import topk_eigh
+from si_mamba_tpu_torch.parallel.mesh import Mesh, MeshAxis
+from si_mamba_tpu_torch.utils.weights import mixer_segments
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,15 +81,27 @@ class PointMambaConfig:
         return cls(**{k: v for k, v in dict(d).items() if k in cls.__dataclass_fields__})
 
 
-def _check_supported(cfg: PointMambaConfig) -> None:
-    """Raise for the options whose port is still queued in ROADMAP.md, and
-    for the combination the JAX model refuses too."""
+def _check_supported(cfg: PointMambaConfig, mesh: Mesh | None = None) -> None:
+    """Raise for the options whose port is still queued in ROADMAP.md, for
+    the combinations the JAX model refuses too, and for a one-sided tensor
+    parallelism: ``tp_axis`` without a mesh that has that axis, or a mesh
+    with a model axis larger than 1 and no ``tp_axis`` (the check of the JAX
+    finetune runner)."""
     if cfg.add_after_layer and cfg.mixer != "mamba":
         raise NotImplementedError("mixer='ssd' with add_after_layer")
+    if cfg.add_after_layer and cfg.tp_axis is not None:
+        raise NotImplementedError("tp_axis with add_after_layer")
+    if cfg.tp_axis is not None and (mesh is None or cfg.tp_axis not in mesh):
+        raise ValueError(f"tensor parallelism needs a mesh with the axis tp_axis="
+                         f"{cfg.tp_axis!r}; pass mesh=parallel.make_mesh(...)")
+    if cfg.tp_axis is None and mesh is not None:
+        wide = [n for n in mesh.axis_names if n != "data" and mesh.size(n) > 1]
+        if wide:
+            raise ValueError(f"the mesh has the axes {wide} of size > 1 but the config no "
+                             f"tp_axis: set tp_axis to shard the mixers over one of them")
     later = {
         "method='HLT'": cfg.method == "HLT",
         "add_after_layer": cfg.add_after_layer,
-        "tp_axis": cfg.tp_axis is not None,
         "rms_norm": cfg.rms_norm,
         "spectral_method='subspace'": cfg.spectral_method == "subspace",
         f"dtype={cfg.dtype!r}": cfg.dtype != "float32",
@@ -120,19 +136,28 @@ class PointMamba(nn.Module):
     """The classifier. Built on the CPU from a seeded ``torch.Generator``
     (seed 0 when none is given); move it with ``.to(device)``. In training
     mode a forward with a drop rate above 0 needs a ``generator`` on the
-    input's device for its random draws."""
+    input's device for its random draws.
 
-    def __init__(self, config: PointMambaConfig, generator: torch.Generator | None = None):
+    ``mesh`` (``parallel.make_mesh``) with ``config.tp_axis``: the mixers are
+    tensor-parallel over that axis and each rank holds its shard of their
+    parameters, the same weights as the single-process model built from the
+    same generator (``utils/weights.shard_state_dict`` cuts a full state dict
+    to this rank's). Every rank of the axis must run the same forwards on the
+    same inputs, with generators of the same seed."""
+
+    def __init__(self, config: PointMambaConfig, generator: torch.Generator | None = None,
+                 mesh: Mesh | None = None):
         super().__init__()
-        _check_supported(config)
+        _check_supported(config, mesh)
         self.config = cfg = config
+        self.mesh = mesh
         self.encoder = PatchEncoder(cfg.encoder_dims)
         self.pos_embed = PosEmbedMLP(cfg.trans_dim)
         self.drop_out = Dropout(cfg.drop_out)
         self.blocks = MixerModel(cfg.trans_dim, cfg.depth, drop_path=cfg.drop_path,
                                  drop_out_in_block=cfg.drop_out_in_block,
                                  scan_impl=cfg.scan_impl, mixer=cfg.mixer,
-                                 ssd_chunk=cfg.ssd_chunk)
+                                 ssd_chunk=cfg.ssd_chunk, mesh=mesh, tp_axis=cfg.tp_axis)
         self.norm = nn.LayerNorm(cfg.trans_dim, eps=1e-5)
         self.cls_head_finetune = ClsHead(cfg.trans_dim, cfg.cls_dim, drop=cfg.cls_head_dropout)
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
@@ -144,6 +169,22 @@ class PointMamba(nn.Module):
             if isinstance(m, nn.BatchNorm1d):
                 m.reset_parameters()
         self.norm.reset_parameters()
+
+    def tp_sharding(self) -> tuple[MeshAxis, dict] | None:
+        """(the tensor-parallel axis, {parameter name: (dim, [(local length,
+        sharded), ...])} for every parameter a rank holds a shard of), or
+        None without tensor parallelism: what a global-norm clip over the
+        logical parameters needs (``train/optim.py``). A segment that is not
+        sharded (the SSD mixer's B|C rows of in_proj and conv1d) is whole on
+        every rank and counts once."""
+        if self.config.tp_axis is None:
+            return None
+        ax = self.mesh[self.config.tp_axis]
+        segments = {}
+        for i, layer in enumerate(self.blocks.layers):
+            local = mixer_segments(layer.mixer.state_dict(), self.config.mixer, ax.size)
+            segments |= {f"blocks.layers.{i}.mixer.{k}": v for k, v in local.items()}
+        return ax, segments
 
     # -- the pieces of the forward, public so that tests can compose them --
     def embed(self, pts: torch.Tensor, fps_start_idx=0):

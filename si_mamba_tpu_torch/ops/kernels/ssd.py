@@ -1,12 +1,16 @@
-"""Boundary-fused chunked SSD core, forward and backward: the CUDA kernels,
-their plain versions and the autograd Function over them.
+"""Chunked SSD core, forward and backward: the CUDA kernels, their plain
+versions and the autograd Functions over them, in two forms.
 
-The core takes the SSD mixer's un-split conv output xbc (b, l, d + 2n),
-columns [x | B | C], the per-chunk step sizes dt and log-decay cumsums S,
-both (b, h, nc, q), and the per-head skip D (h,), and returns
-y (b, l, d) = the SSD recurrence of ``ops/ssd.py`` plus the D skip.
+The boundary-fused core takes the SSD mixer's un-split conv output xbc
+(b, l, d + 2n), columns [x | B | C], the per-chunk step sizes dt and log-decay
+cumsums S, both (b, h, nc, q), and the per-head skip D (h,), and returns
+y (b, l, d) = the SSD recurrence of ``ops/ssd.py`` plus the D skip. The split
+core takes x (b, l, h p), B and C (b, l, n) as separate (strided) operands, as
+the tensor- and sequence-parallel mixers make them, and has no D term; it can
+also return the state after the last chunk, h_fin (b, h, n, p), and take its
+cotangent back as the seed of the backward's carry.
 
-Kernels:
+Kernels of the boundary-fused core:
 - ``csrc/ssd_xbc_fwd.cu`` (K8), which replaces the TPU kernel
   ``_make_fwd_kernel_xbc`` behind ``_fwd_call_xbc``
   (si_mamba_tpu/ops/pallas/ssd_kernel.py), in two variants: the lean forward
@@ -17,13 +21,23 @@ Kernels:
   and writes dx into the x columns of dxbc, per-head partials of dB and dC
   (the wrapper's ``torch.sum`` over heads fills the B and C columns), ddt,
   dS and per-chunk partials of dD.
-Both are bound by fp32 operations on the H100; the sources describe the
+Kernels of the split core, the same two sources' other entry points:
+- K6 (``ssd_split_fwd`` in ``csrc/ssd_xbc_fwd.cu``), which replaces the TPU
+  kernel ``_make_fwd_kernel`` behind ``_fwd_call``: lean, with states, with
+  h_fin, or with both;
+- K7 (``ssd_split_bwd`` in ``csrc/ssd_xbc_bwd.cu``), which replaces
+  ``_make_bwd_kernel`` behind ``_bwd_call``: dx, ddt, dS and the head sums of
+  dB and dC, its dh carry starting at 0 or at a given dh_fin.
+All are bound by fp32 operations on the H100; the sources describe the
 designs. They are built for d_state = head_dim = 128 and chunks that are a
 multiple of :data:`STRIP` up to :data:`MAX_CHUNK`, in float32.
 
 :func:`ssd_chunked_xbc` runs the lean K8 when no gradient is wanted and
-:class:`SSDChunkedXbcFn` (K8 with states, K9) when one is; on a CPU tensor
-each is its plain version. Nothing falls back from one to the other.
+:class:`SSDChunkedXbcFn` (K8 with states, K9) when one is;
+:func:`ssd_chunked_split` likewise runs K6 and K7 through
+:class:`SSDChunkedSplitFn`, or with ``return_carry`` through
+:class:`SSDChunkedSplitCarryFn`. On a CPU tensor each is its plain version.
+Nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -102,31 +116,25 @@ def ssd_xbc_fwd_ref(xbc, dt, S, D, d_inner: int, chunk: int, emit_states: bool =
     return y, (h_in.transpose(1, 2).contiguous() if emit_states else None)
 
 
-def ssd_xbc_bwd_ref(xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int):
-    """Plain version of K9: (dxbc (b, l, d + 2n), ddt, dS (b, h, nc, q), dD (h,)).
+def _bwd_chunks(x, dt, S, Bc, Cc, hin_all, dyh, dh, D=None):
+    """The reverse chunk loop of the backward, heads next to the batch: x, dyh
+    (b, h, nc, q, p), dt, S (b, h, nc, q), Bc, Cc (b, nc, q, n), hin_all
+    (b, h, nc, n, p), dh (b, h, n, p) the cotangent of the state leaving the
+    last chunk, D (h,) or None for the core without the D skip. Returns
+    (dx, ddt, dS, dB, dC, dD partials (b, nc, h) or None).
 
     Written out as ``_bwd_head`` computes it (not taken from autograd): the
-    chunks in reverse with the state cotangent dh carried from each chunk to
-    the one before,
+    chunks in reverse with dh carried from each chunk to the one before,
 
         dh_in = e^{S_end} dh_out + (C e^S)^T dy,
 
-    dx = (GM^T dy + (B dh_out) e^{S_end - S}) dt + D dy in the x columns, the
-    head-summed dB and dC in theirs, dS from the mask's rows and columns, the
-    e^S and e^{S_end - S} factors and the chunk's end (dSend), ddt, and dD as
-    a sum of per-chunk partials."""
-    b, l, total = xbc.shape
-    h = dt.shape[1]
-    x, Bc, Cc = _split_xbc(xbc, d_inner, h, chunk)
-    acc = x.dtype
-    dt, S, D = dt.to(acc), S.to(acc), D.to(acc)
-    nc, q, n, p = l // chunk, chunk, Bc.shape[-1], x.shape[-1]
-    hin_all = h_in.to(acc).transpose(1, 2)  # (b, h, nc, n, p)
-    dyh = dy.to(acc).reshape(b, nc, q, h, p).permute(0, 3, 1, 2, 4)
+    dx = (GM^T dy + (B dh_out) e^{S_end - S}) dt (+ D dy), the head-summed dB
+    and dC, dS from the mask's rows and columns, the e^S and e^{S_end - S}
+    factors and the chunk's end (dSend), ddt, and dD as per-chunk partials."""
+    b, h, nc = dt.shape[:3]
     dx, ddt, dS = torch.empty_like(x), torch.empty_like(dt), torch.empty_like(S)
     dB, dC = torch.empty_like(Bc), torch.empty_like(Cc)
-    dD_part = x.new_empty((b, nc, h))
-    dh = x.new_zeros((b, h, n, p))  # the cotangent of the state leaving the chunk
+    dD_part = x.new_empty((b, nc, h)) if D is not None else None
     for c in reversed(range(nc)):
         Sc, dtc = S[:, :, c], dt[:, :, c]  # (b, h, q)
         xc, dyc, hin = x[:, :, c], dyh[:, :, c], hin_all[:, :, c]
@@ -141,8 +149,10 @@ def ssd_xbc_bwd_ref(xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int):
         t1 = torch.einsum("bhts,bhtp->bhsp", GM, dyc)
         Bdh = torch.einsum("bsn,bhnp->bhsp", B, dh)
         dxdt = t1 + Bdh * T_end[..., None]
-        dx[:, :, c] = dxdt * dtc[..., None] + D[None, :, None, None] * dyc
-        dD_part[:, c] = torch.sum(dyc * xc, dim=(-2, -1))
+        dx[:, :, c] = dxdt * dtc[..., None]
+        if D is not None:
+            dx[:, :, c] += D[None, :, None, None] * dyc
+            dD_part[:, c] = torch.sum(dyc * xc, dim=(-2, -1))
         ddt[:, :, c] = torch.sum(dxdt * xc, dim=-1)
 
         dGM = torch.einsum("bhtp,bhsp->bhts", dyc, xdt)
@@ -163,9 +173,66 @@ def ssd_xbc_bwd_ref(xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int):
 
         dh = (torch.exp(send)[..., None, None] * dh
               + torch.einsum("bhtn,bhtp->bhnp", C[:, None] * E[..., None], dyc))
+    return dx, ddt, dS, dB, dC, dD_part
+
+
+def ssd_xbc_bwd_ref(xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int):
+    """Plain version of K9: (dxbc (b, l, d + 2n), ddt, dS (b, h, nc, q), dD (h,)),
+    by :func:`_bwd_chunks` with the D skip and a zero dh for the last chunk."""
+    b, l, total = xbc.shape
+    h = dt.shape[1]
+    x, Bc, Cc = _split_xbc(xbc, d_inner, h, chunk)
+    acc = x.dtype
+    nc, q, n, p = l // chunk, chunk, Bc.shape[-1], x.shape[-1]
+    dyh = dy.to(acc).reshape(b, nc, q, h, p).permute(0, 3, 1, 2, 4)
+    dx, ddt, dS, dB, dC, dD_part = _bwd_chunks(
+        x, dt.to(acc), S.to(acc), Bc, Cc, h_in.to(acc).transpose(1, 2), dyh,
+        x.new_zeros((b, h, n, p)), D.to(acc))
     dxbc = torch.cat([dx.permute(0, 2, 3, 1, 4).reshape(b, l, d_inner),
                       dB.reshape(b, l, n), dC.reshape(b, l, n)], dim=-1)
     return dxbc.to(xbc.dtype), ddt, dS, dD_part.sum(dim=(0, 1))
+
+
+def _split_operands(x, Bc, Cc, h: int, chunk: int):
+    """x (b, h, nc, q, p), B and C (b, nc, q, n) from x (b, l, h p) and the
+    (b, l, n) B and C, in the plain versions' dtype."""
+    b, l, d = x.shape
+    n, nc = Bc.shape[-1], l // chunk
+    acc = _acc_dtype(x)
+    xh = x.to(acc).reshape(b, nc, chunk, h, d // h).permute(0, 3, 1, 2, 4)
+    return xh, Bc.to(acc).reshape(b, nc, chunk, n), Cc.to(acc).reshape(b, nc, chunk, n)
+
+
+def ssd_split_fwd_ref(x, dt, S, Bc, Cc, chunk: int, emit_states: bool = False,
+                      emit_hfin: bool = False):
+    """Plain version of K6: (y (b, l, h p), h_in (b, nc, h, n, p) or None,
+    h_fin (b, h, n, p) or None) for x (b, l, h p), dt, S (b, h, nc, q) and the
+    (b, l, n) B and C: :func:`ssd_chunks_ref` with no D skip, what
+    ``_make_fwd_kernel`` computes."""
+    b, l, d = x.shape
+    xh, Bh, Ch = _split_operands(x, Bc, Cc, dt.shape[1], chunk)
+    dt, S = dt.to(xh.dtype), S.to(xh.dtype)
+    y, h_in, h_fin = ssd_chunks_ref(xh * dt[..., None], S, Bh, Ch)
+    y = y.permute(0, 2, 3, 1, 4).reshape(b, l, d).to(x.dtype)
+    return (y, h_in.transpose(1, 2).contiguous() if emit_states else None,
+            h_fin if emit_hfin else None)
+
+
+def ssd_split_bwd_ref(x, dt, S, Bc, Cc, h_in, dy, chunk: int, dh_fin=None):
+    """Plain version of K7: (dx (b, l, h p), ddt, dS (b, h, nc, q), dB, dC
+    (b, l, n)), by :func:`_bwd_chunks` without the D skip; the dh carry starts
+    at ``dh_fin`` (b, h, n, p), the cotangent of the forward's h_fin, or at 0."""
+    b, l, d = x.shape
+    h = dt.shape[1]
+    xh, Bh, Ch = _split_operands(x, Bc, Cc, h, chunk)
+    acc = xh.dtype
+    nc, n, p = l // chunk, Bh.shape[-1], d // h
+    dyh = dy.to(acc).reshape(b, nc, chunk, h, p).permute(0, 3, 1, 2, 4)
+    dh = xh.new_zeros((b, h, n, p)) if dh_fin is None else dh_fin.to(acc)
+    dx, ddt, dS, dB, dC, _ = _bwd_chunks(xh, dt.to(acc), S.to(acc), Bh, Ch,
+                                         h_in.to(acc).transpose(1, 2), dyh, dh)
+    dx = dx.permute(0, 2, 3, 1, 4).reshape(b, l, d).to(x.dtype)
+    return dx, ddt, dS, dB.reshape(b, l, n), dC.reshape(b, l, n)
 
 
 @functools.cache
@@ -174,6 +241,9 @@ def _fwd_library() -> ctypes.CDLL:
     lib.ssd_xbc_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + \
         [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
     lib.ssd_xbc_fwd.restype = ctypes.c_int
+    lib.ssd_split_fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
+        [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
+    lib.ssd_split_fwd.restype = ctypes.c_int
     lib.ssd_xbc_fwd_error_string.argtypes = [ctypes.c_int]
     lib.ssd_xbc_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -185,25 +255,15 @@ def _bwd_library() -> ctypes.CDLL:
     lib.ssd_xbc_bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + \
         [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
     lib.ssd_xbc_bwd.restype = ctypes.c_int
+    lib.ssd_split_bwd.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + \
+        [ctypes.c_longlong] * 8 + [ctypes.c_void_p]
+    lib.ssd_split_bwd.restype = ctypes.c_int
     lib.ssd_xbc_bwd_error_string.argtypes = [ctypes.c_int]
     lib.ssd_xbc_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_inputs(xbc, dt, S, D, d_inner: int, chunk: int, extra: dict | None = None):
-    """Raise for anything the kernels do not take; returns (b, l, h, n, p)."""
-    b, l, total = xbc.shape
-    h = dt.shape[1] if dt.dim() == 4 else -1
-    named = dict(xbc=xbc, dt=dt, S=S, D=D) | (extra or {})
-    for name, t in named.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"the SSD kernels take float32 inputs; {name} is {t.dtype}")
-        if not t.is_cuda or t.device != xbc.device:
-            raise ValueError(f"{name} must lie on xbc's CUDA device")
-    n, p = (total - d_inner) // 2, d_inner // max(h, 1)
-    if h < 1 or d_inner % h or 2 * n + d_inner != total:
-        raise ValueError(f"xbc {tuple(xbc.shape)} does not split into d_inner={d_inner} "
-                         f"and two equal B/C blocks over dt's heads {tuple(dt.shape)}")
+def _check_geometry(n: int, p: int, l: int, chunk: int) -> None:
     if n != STATE or p != HEAD_DIM:
         raise ValueError(f"the SSD kernels are built for d_state {STATE} and head_dim "
                          f"{HEAD_DIM}, got {n} and {p}")
@@ -212,17 +272,60 @@ def _check_inputs(xbc, dt, S, D, d_inner: int, chunk: int, extra: dict | None = 
                          f"{MAX_CHUNK}, got {chunk}")
     if l % chunk:
         raise ValueError(f"L={l} is not a multiple of chunk={chunk}; pad first")
-    nc = l // chunk
-    shapes = dict(dt=(b, h, nc, chunk), S=(b, h, nc, chunk), D=(h,),
-                  h_in=(b, nc, h, n, p), dy=(b, l, d_inner))
+
+
+def _check_dtype_device(named: dict, device) -> None:
     for name, t in named.items():
-        if name != "xbc" and tuple(t.shape) != shapes[name]:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the SSD kernels take float32 inputs; {name} is {t.dtype}")
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"{name} must lie on the first input's CUDA device")
+
+
+def _check_layout(named: dict, shapes: dict, strided: tuple) -> None:
+    """The expected shapes; the names in ``strided`` need unit stride along
+    their last axis only, the others contiguity."""
+    for name, t in named.items():
+        if name in shapes and tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shapes[name]}")
-        if name in ("xbc", "dy"):
+        if name in strided:
             if t.stride(-1) != 1:
                 raise ValueError(f"the SSD kernels need unit stride along {name}'s last axis")
         elif not t.is_contiguous():
             raise ValueError(f"the SSD kernels need {name} contiguous")
+
+
+def _check_inputs(xbc, dt, S, D, d_inner: int, chunk: int, extra: dict | None = None):
+    """Raise for anything K8/K9 do not take; returns (b, l, h, n, p)."""
+    b, l, total = xbc.shape
+    h = dt.shape[1] if dt.dim() == 4 else -1
+    named = dict(xbc=xbc, dt=dt, S=S, D=D) | (extra or {})
+    _check_dtype_device(named, xbc.device)
+    n, p = (total - d_inner) // 2, d_inner // max(h, 1)
+    if h < 1 or d_inner % h or 2 * n + d_inner != total:
+        raise ValueError(f"xbc {tuple(xbc.shape)} does not split into d_inner={d_inner} "
+                         f"and two equal B/C blocks over dt's heads {tuple(dt.shape)}")
+    _check_geometry(n, p, l, chunk)
+    nc = l // chunk
+    _check_layout(named, dict(dt=(b, h, nc, chunk), S=(b, h, nc, chunk), D=(h,),
+                              h_in=(b, nc, h, n, p), dy=(b, l, d_inner)), ("xbc", "dy"))
+    return b, l, h, n, p
+
+
+def _check_split(x, dt, S, Bm, Cm, chunk: int, extra: dict | None = None):
+    """Raise for anything K6/K7 do not take; returns (b, l, h, n, p)."""
+    b, l, d = x.shape
+    h = dt.shape[1] if dt.dim() == 4 else -1
+    named = dict(x=x, dt=dt, S=S, B=Bm, C=Cm) | (extra or {})
+    _check_dtype_device(named, x.device)
+    if h < 1 or d % h:
+        raise ValueError(f"x {tuple(x.shape)} does not split over dt's heads {tuple(dt.shape)}")
+    n, p = Bm.shape[-1], d // h
+    _check_geometry(n, p, l, chunk)
+    nc = l // chunk
+    _check_layout(named, dict(dt=(b, h, nc, chunk), S=(b, h, nc, chunk), B=(b, l, n),
+                              C=(b, l, n), h_in=(b, nc, h, n, p), dy=(b, l, d),
+                              dh_fin=(b, h, n, p)), ("x", "B", "C", "dy"))
     return b, l, h, n, p
 
 
@@ -348,6 +451,193 @@ def ssd_chunked_xbc(xbc, dt, A, D, *, d_inner: int, chunk: int = 128) -> torch.T
     return ssd_xbc_fwd(xbc, dth.contiguous(), S, D, d_inner, chunk)
 
 
+def _launch_split_fwd(x, dt, S, Bm, Cm, chunk: int, states: bool, hfin: bool):
+    b, l, h, n, p = _check_split(x, dt, S, Bm, Cm, chunk)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty((b, l, h * p), **f32)
+    h_in = torch.empty((b, l // chunk, h, n, p), **f32) if states else None
+    h_fin = torch.empty((b, h, n, p), **f32) if hfin else None
+    if y.numel() == 0:
+        return y, h_in, (h_fin.zero_() if hfin else None)
+    lib = _fwd_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.ssd_split_fwd(x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
+                                S.data_ptr(), y.data_ptr(), h_in.data_ptr() if states else None,
+                                h_fin.data_ptr() if hfin else None, b, l, h, n, p, chunk,
+                                x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
+                                Cm.stride(0), Cm.stride(1), stream)
+    if err != 0:
+        msg = lib.ssd_xbc_fwd_error_string(err).decode()
+        raise RuntimeError(f"split SSD forward kernel launch failed: {msg} ({err})")
+    _SPLIT_FWD[(states, hfin)].launches += 1
+    return y, h_in, h_fin
+
+
+def _launch_split_bwd(x, dt, S, Bm, Cm, h_in, dy, chunk: int, dh_fin=None):
+    extra = dict(h_in=h_in, dy=dy) | ({} if dh_fin is None else dict(dh_fin=dh_fin))
+    b, l, h, n, p = _check_split(x, dt, S, Bm, Cm, chunk, extra)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((b, l, h * p), **f32)
+    dbc_part = torch.empty((b, h, l, 2 * n), **f32)
+    ddt, dS = torch.empty_like(dt), torch.empty_like(S)
+    if dx.numel() == 0:
+        return dx, ddt, dS, torch.zeros_like(Bm), torch.zeros_like(Cm)
+    lib = _bwd_library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.ssd_split_bwd(x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
+                                S.data_ptr(), h_in.data_ptr(), dy.data_ptr(),
+                                None if dh_fin is None else dh_fin.data_ptr(), dx.data_ptr(),
+                                dbc_part.data_ptr(), ddt.data_ptr(), dS.data_ptr(), b, l, h, n,
+                                p, chunk, x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
+                                Cm.stride(0), Cm.stride(1), dy.stride(0), dy.stride(1), stream)
+    if err != 0:
+        msg = lib.ssd_xbc_bwd_error_string(err).decode()
+        raise RuntimeError(f"split SSD backward kernel launch failed: {msg} ({err})")
+    (ssd_split_bwd if dh_fin is None else ssd_split_bwd_seeded).launches += 1
+    dbc = dbc_part.sum(dim=1)  # the head sums of dB | dC
+    return dx, ddt, dS, dbc[..., :n], dbc[..., n:]
+
+
+def ssd_split_fwd(x, dt, S, Bm, Cm, chunk: int) -> torch.Tensor:
+    """Lean split forward (K6 without states): y (b, l, h p), no D term. x
+    (b, l, h p), B and C (b, l, n) need unit stride only along their last
+    axis; dt, S (b, h, nc, q) contiguous. The kernel on a CUDA tensor (or an
+    error), :func:`ssd_split_fwd_ref` on the CPU. Each ``ssd_split_fwd*``
+    wrapper counts its kernel launches in ``.launches``."""
+    if x.is_cuda:
+        return _launch_split_fwd(x, dt, S, Bm, Cm, chunk, states=False, hfin=False)[0]
+    return ssd_split_fwd_ref(x, dt, S, Bm, Cm, chunk)[0]
+
+
+def ssd_split_fwd_states(x, dt, S, Bm, Cm, chunk: int):
+    """Training split forward (K6 with states): (y, h_in (b, nc, h, n, p))."""
+    if x.is_cuda:
+        return _launch_split_fwd(x, dt, S, Bm, Cm, chunk, states=True, hfin=False)[:2]
+    return ssd_split_fwd_ref(x, dt, S, Bm, Cm, chunk, emit_states=True)[:2]
+
+
+def ssd_split_fwd_hfin(x, dt, S, Bm, Cm, chunk: int):
+    """Lean split forward with the carry (K6 with h_fin): (y, h_fin (b, h, n, p)),
+    the state after the last chunk from a zero start."""
+    if x.is_cuda:
+        y, _, h_fin = _launch_split_fwd(x, dt, S, Bm, Cm, chunk, states=False, hfin=True)
+        return y, h_fin
+    y, _, h_fin = ssd_split_fwd_ref(x, dt, S, Bm, Cm, chunk, emit_hfin=True)
+    return y, h_fin
+
+
+def ssd_split_fwd_states_hfin(x, dt, S, Bm, Cm, chunk: int):
+    """Training split forward with the carry (K6 with states and h_fin):
+    (y, h_in, h_fin)."""
+    if x.is_cuda:
+        return _launch_split_fwd(x, dt, S, Bm, Cm, chunk, states=True, hfin=True)
+    return ssd_split_fwd_ref(x, dt, S, Bm, Cm, chunk, emit_states=True, emit_hfin=True)
+
+
+def ssd_split_bwd(x, dt, S, Bm, Cm, h_in, dy, chunk: int):
+    """Split backward (K7, its carry from 0): (dx (b, l, h p), ddt, dS
+    (b, h, nc, q), dB, dC (b, l, n)) for the output gradient dy (b, l, h p) and
+    the forward's h_in. The kernel on a CUDA tensor (dy needs unit stride only
+    along its last axis), :func:`ssd_split_bwd_ref` on the CPU."""
+    if x.is_cuda:
+        return _launch_split_bwd(x, dt, S, Bm, Cm, h_in, dy, chunk)
+    return ssd_split_bwd_ref(x, dt, S, Bm, Cm, h_in, dy, chunk)
+
+
+def ssd_split_bwd_seeded(x, dt, S, Bm, Cm, h_in, dy, dh_fin, chunk: int):
+    """Seeded split backward (K7 with dh_fin): as :func:`ssd_split_bwd`, the
+    carry starting at ``dh_fin`` (b, h, n, p) contiguous, the cotangent of the
+    forward's h_fin."""
+    if x.is_cuda:
+        return _launch_split_bwd(x, dt, S, Bm, Cm, h_in, dy, chunk, dh_fin=dh_fin)
+    return ssd_split_bwd_ref(x, dt, S, Bm, Cm, h_in, dy, chunk, dh_fin=dh_fin)
+
+
+_SPLIT_FWD = {(False, False): ssd_split_fwd, (True, False): ssd_split_fwd_states,
+              (False, True): ssd_split_fwd_hfin, (True, True): ssd_split_fwd_states_hfin}
+
+
+class SSDChunkedSplitFn(torch.autograd.Function):
+    """The split core with its backward: K6 with states forward and K7
+    backward on a CUDA tensor, the plain versions on the CPU. Inputs
+    (x, dt, S, Bm, Cm, chunk) as :func:`ssd_split_fwd`; returns y."""
+
+    @staticmethod
+    def forward(ctx, x, dt, S, Bm, Cm, chunk):
+        y, h_in = ssd_split_fwd_states(x, dt, S, Bm, Cm, chunk)
+        ctx.save_for_backward(x, dt, S, Bm, Cm, h_in)
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        if dy.stride(-1) != 1:
+            dy = dy.contiguous()
+        dx, ddt, dS, dB, dC = ssd_split_bwd(*ctx.saved_tensors, dy, ctx.chunk)
+        return dx, ddt, dS, dB, dC, None
+
+
+class SSDChunkedSplitCarryFn(torch.autograd.Function):
+    """The split core that also returns the state after the last chunk:
+    (y, h_fin) by K6 with states and h_fin; the backward hands h_fin's
+    cotangent to K7 as the seed of its carry. The plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, dt, S, Bm, Cm, chunk):
+        y, h_in, h_fin = ssd_split_fwd_states_hfin(x, dt, S, Bm, Cm, chunk)
+        ctx.save_for_backward(x, dt, S, Bm, Cm, h_in)
+        ctx.chunk = chunk
+        return y, h_fin
+
+    @staticmethod
+    def backward(ctx, dy, dh_fin):
+        if dy.stride(-1) != 1:
+            dy = dy.contiguous()
+        dx, ddt, dS, dB, dC = ssd_split_bwd_seeded(*ctx.saved_tensors, dy, dh_fin.contiguous(),
+                                                   ctx.chunk)
+        return dx, ddt, dS, dB, dC, None
+
+
+def ssd_chunked_split(x, dt, A, Bm, Cm, D, *, chunk: int = 128, return_carry: bool = False):
+    """The counterpart of ``ssd_chunked_pallas``: the SSD core on split
+    operands, the same shapes and result as ``ops/ssd.py:ssd_chunked``. x
+    (b, l, h, p) (a view with unit stride along p will do); dt (b, l, h)
+    post-softplus; A (h,) negative; Bm, Cm (b, l, n), strided views allowed;
+    D (h,). L must be a multiple of ``chunk`` (the callers pad).
+
+    S = cumsum(dt A) per chunk, the D skip and, with ``return_carry``, the
+    slice's total decay exp(sum of each chunk's last S) (b, h) are computed
+    here, outside the autograd Functions, so autograd chains dS into ddt and
+    dA. Without a gradient wanted the lean K6 runs (with h_fin when
+    ``return_carry``), with one :class:`SSDChunkedSplitFn` or
+    :class:`SSDChunkedSplitCarryFn`. Returns y (b, l, h, p), or (y,
+    total_decay, h_fin (b, h, n, p)) with ``return_carry``."""
+    b, l, h, p = x.shape
+    if l % chunk:
+        raise ValueError(f"L={l} is not a multiple of chunk={chunk}; pad first")
+    acc = _acc_dtype(x)
+    xf = x.reshape(b, l, h * p)
+    dth = dt.to(acc).transpose(1, 2).reshape(b, h, l // chunk, chunk).contiguous()
+    S = torch.cumsum(dth * A.to(acc)[None, :, None, None], dim=-1)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, A, Bm, Cm))
+    h_fin = None
+    if return_carry:
+        y, h_fin = (SSDChunkedSplitCarryFn.apply(xf, dth, S, Bm, Cm, chunk) if grad
+                    else ssd_split_fwd_hfin(xf, dth, S, Bm, Cm, chunk))
+    else:
+        y = (SSDChunkedSplitFn.apply(xf, dth, S, Bm, Cm, chunk) if grad
+             else ssd_split_fwd(xf, dth, S, Bm, Cm, chunk))
+    y = y.reshape(b, l, h, p) + D.to(y.dtype)[None, None, :, None] * x
+    if return_carry:
+        return y, torch.exp(S[..., -1].sum(-1)), h_fin
+    return y
+
+
 ssd_xbc_fwd.launches = 0
 ssd_xbc_fwd_states.launches = 0
 ssd_xbc_bwd.launches = 0
+for _fn in (ssd_split_fwd, ssd_split_fwd_states, ssd_split_fwd_hfin, ssd_split_fwd_states_hfin,
+            ssd_split_bwd, ssd_split_bwd_seeded):
+    _fn.launches = 0

@@ -16,7 +16,10 @@ Implementations of the core:
 - ``impl='ssd_fused'`` in :func:`ssd_mixer_apply`: the boundary-fused core of
   ``ops/kernels/ssd.py`` on the un-split (x|B|C) conv output, its CUDA kernels
   (K8 forward, K9 backward) on a CUDA tensor and their plain versions on the
-  CPU, with the conv's kernels (K1, K5) before it.
+  CPU, with the conv's kernels (K1, K5) before it. The tensor- and
+  sequence-parallel mixers (``parallel/``) run the split core
+  ``ssd_chunked_split`` (K6, K7) under the same impl name;
+  :func:`ssd_fused_route` is the one predicate of every such call site.
 
 Layout is batch-major, time second.
 """
@@ -27,7 +30,14 @@ import torch
 import torch.nn.functional as F
 
 from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_ref, causal_conv1d_silu
-from si_mamba_tpu_torch.ops.kernels.ssd import ssd_chunked_xbc, ssd_chunks_ref
+from si_mamba_tpu_torch.ops.kernels.ssd import (
+    HEAD_DIM,
+    MAX_CHUNK,
+    STATE,
+    STRIP,
+    ssd_chunked_xbc,
+    ssd_chunks_ref,
+)
 
 IMPLS = ("xla", "ssd_fused")
 
@@ -85,6 +95,47 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 64, return_carry: bool = Fa
     return y
 
 
+def ssd_fused_supported(l: int, chunk: int, d_state: int, head_dim: int) -> bool:
+    """The geometry the SSD kernels are built for: d_state = head_dim = 128
+    and a chunk that is a multiple of 64 up to 256 and divides L."""
+    return (d_state == STATE and head_dim == HEAD_DIM and chunk % STRIP == 0
+            and 0 < chunk <= MAX_CHUNK and l % chunk == 0)
+
+
+def ssd_fused_route(impl: str, l_padded: int, chunk: int, d_state: int, head_dim: int,
+                    device) -> bool:
+    """The fused-kernel routing predicate of every 'ssd_fused' call site
+    (``ssd_mixer_apply``, ``parallel/tensor_parallel.ssd_mixer_tp``,
+    ``parallel/seq_scan.ssd_seq_parallel``): True iff ``impl`` is
+    'ssd_fused'. On a CUDA ``device`` that route launches the kernels, and a
+    geometry they are not built for raises ``ValueError`` here; on the CPU it
+    runs their plain versions at any geometry. Unlike the JAX predicate it
+    never turns 'ssd_fused' into the einsum route. ``l_padded`` is the
+    chunk-multiple length the core will see."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown SSD impl {impl!r}; expected one of {IMPLS}")
+    if impl != "ssd_fused":
+        return False
+    if torch.device(device).type == "cuda" and not ssd_fused_supported(l_padded, chunk,
+                                                                       d_state, head_dim):
+        raise ValueError(
+            f"impl='ssd_fused' on CUDA runs kernels built for d_state = head_dim = {STATE} and "
+            f"a chunk that is a multiple of {STRIP} up to {MAX_CHUNK} dividing L; got d_state "
+            f"{d_state}, head_dim {head_dim}, chunk {chunk}, L {l_padded}")
+    return True
+
+
+def ssd_fused_engaged(l: int, *, chunk: int = 128, d_state: int = 128, head_dim: int = 128,
+                      device="cuda") -> bool:
+    """True iff ``impl='ssd_fused'`` launches the CUDA kernels for this
+    geometry on ``device`` (after padding L to a chunk multiple): a CUDA
+    device and a geometry they are built for. A measurement guard: on the CPU
+    the route runs the plain versions, and on CUDA another geometry raises."""
+    pad = (-l) % chunk
+    return (torch.device(device).type == "cuda"
+            and ssd_fused_supported(l + pad, chunk, d_state, head_dim))
+
+
 def ssd_mixer_apply(params: dict, u: torch.Tensor, *, n_heads: int, d_state: int,
                     chunk: int = 64, impl: str = "xla") -> torch.Tensor:
     """The SSD mixer, the JAX package's parameter layout:
@@ -104,8 +155,6 @@ def ssd_mixer_apply(params: dict, u: torch.Tensor, *, n_heads: int, d_state: int
     tensor they launch their kernels or raise for a shape the kernels are not
     built for, on the CPU they are their plain versions. ``impl='xla'``: the
     plain conv and :func:`ssd_chunked` under autograd, on any device."""
-    if impl not in IMPLS:
-        raise ValueError(f"unknown SSD impl {impl!r}; expected one of {IMPLS}")
     if u.dtype != torch.float32:
         raise NotImplementedError(
             "the SSD mixer runs in float32; bf16 waits for ROADMAP queue 1, M20 (perf mode)")
@@ -113,19 +162,20 @@ def ssd_mixer_apply(params: dict, u: torch.Tensor, *, n_heads: int, d_state: int
     zxbcdt = u @ params["in_proj_w"]
     d_inner = (zxbcdt.shape[-1] - 2 * d_state - n_heads) // 2
     head_p = d_inner // n_heads
+    pad = (-l) % chunk
+    fused = ssd_fused_route(impl, l + pad, chunk, d_state, head_p, u.device)
     # column views of zxbcdt, no copies
     z = zxbcdt[..., :d_inner]
     xbc = zxbcdt[..., d_inner:2 * d_inner + 2 * d_state]
     dt_raw = zxbcdt[..., 2 * d_inner + 2 * d_state:]
-    if impl == "ssd_fused":
+    if fused:
         xbc = causal_conv1d_silu(xbc, params["conv_w"], params["conv_b"])
     else:
         xbc = causal_conv1d_ref(xbc, params["conv_w"], params["conv_b"], activation="silu")
     dt = F.softplus(dt_raw + params["dt_bias"])  # (b, l, h)
     A = -torch.exp(params["A_log"])
 
-    pad = (-l) % chunk
-    if impl == "ssd_fused":
+    if fused:
         if pad:
             xbc = F.pad(xbc, (0, 0, 0, pad))
             dt = F.pad(dt, (0, 0, 0, pad))

@@ -7,7 +7,10 @@ tools/builder.py:55-109):
 - timm 0.4.5 CosineLRScheduler semantics stepped per epoch, with the
   reference loop's one-epoch lag (``scheduler.step(epoch)`` at the end of
   epoch e, so epoch e trains at the epoch-(e-1) value);
-- global-norm gradient clipping and gradient accumulation.
+- global-norm gradient clipping and gradient accumulation; under tensor
+  parallelism the norm is that of the logical parameters, the squared norms
+  of the shards summed over the model axis and replicated values counted
+  once (``clip_grad_norm_``).
 
 PyTorch's optimizers are plain tensor code here, as optax is in the JAX
 package. Schedules are functions of the update count (learning rate) or the
@@ -20,6 +23,7 @@ import math
 from collections.abc import Callable, Mapping
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 
@@ -101,19 +105,90 @@ def bn_momentum_schedule(*, bn_momentum: float = 0.1, bn_decay: float = 0.5,
     return schedule
 
 
+def global_grad_norm(params, sharded: Mapping | None = None, axis=None) -> torch.Tensor:
+    """The L2 norm of the gradients of the logical parameters. ``sharded``
+    maps ``id(param)`` to ``(dim, [(local length, sharded), ...])`` for every
+    parameter that holds a shard over the mesh axis ``axis``
+    (``PointMamba.tp_sharding``): the squares of its sharded segments are
+    summed over the axis, those of its replicated segments (whole on every
+    rank) and of every other parameter counted once."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return torch.zeros(())
+    local = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    shards = torch.zeros_like(local)
+    for p in params:
+        if p.grad is None:
+            continue
+        g = p.grad.float()
+        if sharded is None or id(p) not in sharded:
+            local = local + torch.sum(g * g)
+            continue
+        dim, segments = sharded[id(p)]
+        for part, (_, is_sharded) in zip(torch.split(g, [n for n, _ in segments], dim=dim),
+                                         segments):
+            if is_sharded:
+                shards = shards + torch.sum(part * part)
+            else:
+                local = local + torch.sum(part * part)
+    if axis is not None and axis.size > 1:
+        dist.all_reduce(shards, group=axis.group)
+    return torch.sqrt(local + shards)
+
+
+def average_replicated_grads(params, sharded: Mapping, axis) -> None:
+    """Average over the mesh axis ``axis``, in place, the gradients of the
+    parameters that every rank holds whole (all but those in ``sharded``).
+    They agree across the ranks up to the order of the atomic adds in some
+    of PyTorch's CUDA backward kernels (index and gather backward); averaging
+    makes them bitwise equal, so the ranks' replicated copies take the same
+    update and cannot drift apart. One all-reduce of their concatenation."""
+    grads = [p.grad for p in params if p.grad is not None and id(p) not in sharded]
+    if axis is None or axis.size == 1 or not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=axis.group)
+    flat.div_(axis.size)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def clip_grad_norm_(params, max_norm: float, sharded: Mapping | None = None,
+                    axis=None) -> torch.Tensor:
+    """Scale the gradients in place to a global norm of at most ``max_norm``,
+    as ``torch.nn.utils.clip_grad_norm_`` (coefficient max_norm / (norm +
+    1e-6), capped at 1); without ``sharded`` it is that function. Returns the
+    norm before clipping."""
+    params = [p for p in params if p.grad is not None]
+    if sharded is None:
+        return torch.nn.utils.clip_grad_norm_(params, max_norm)
+    norm = global_grad_norm(params, sharded, axis)
+    coef = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    for p in params:
+        p.grad.mul_(coef.to(p.grad.dtype))
+    return norm
+
+
 class Optimizer:
     """A torch optimizer driven as the JAX package's optax chain: gradients
     accumulate over ``step_per_update`` backward passes and are averaged
     (``optax.MultiSteps``), then clipped to a global norm of ``grad_clip``,
     and the update runs at ``schedule(count)``, ``count`` being the number of
-    updates made so far. :meth:`step` follows each backward pass."""
+    updates made so far. :meth:`step` follows each backward pass. Under
+    tensor parallelism ``sharded`` and ``axis`` (as :func:`global_grad_norm`)
+    make the clip's norm that of the logical parameters, and the replicated
+    parameters' gradients are first averaged over the axis
+    (:func:`average_replicated_grads`)."""
 
     def __init__(self, torch_optimizer: torch.optim.Optimizer,
                  schedule: Callable[[int], float], grad_clip: float | None = None,
-                 step_per_update: int = 1):
+                 step_per_update: int = 1, sharded: Mapping | None = None, axis=None):
         self.torch_optimizer = torch_optimizer
         self.schedule = schedule
         self.grad_clip = grad_clip
+        self.sharded, self.axis = sharded, axis
         self.step_per_update = int(step_per_update)
         self.count = 0  # updates made
         self.micro = 0  # backward passes since the last update
@@ -133,8 +208,11 @@ class Optimizer:
         if self.step_per_update > 1:
             for p in params:
                 p.grad.div_(self.step_per_update)
+        if self.axis is not None:
+            average_replicated_grads(params, self.sharded, self.axis)
         if self.grad_clip is not None and self.grad_clip > 0:
-            self.last_grad_norm = torch.nn.utils.clip_grad_norm_(params, self.grad_clip)
+            self.last_grad_norm = clip_grad_norm_(params, self.grad_clip, self.sharded,
+                                                  self.axis)
         lr = self.schedule(self.count)
         for group in self.torch_optimizer.param_groups:
             group["lr"] = lr
@@ -149,11 +227,13 @@ def build_optimizer(params, *, opt_type: str = "AdamW", lr: float = 3e-4,
                     weight_decay: float = 0.05, epochs: int = 300,
                     warmup_epochs: int = 10, steps_per_epoch: int = 1,
                     grad_clip: float | None = 10.0, sched_type: str = "CosLR",
-                    step_per_update: int = 1,
-                    sched_kwargs: dict | None = None) -> tuple[Optimizer, Callable]:
+                    step_per_update: int = 1, sched_kwargs: dict | None = None,
+                    tp: tuple | None = None) -> tuple[Optimizer, Callable]:
     """Returns (optimizer, schedule), the JAX ``build_optimizer``'s (tx,
     schedule). ``params``: a module, a name -> tensor mapping or (name, tensor)
-    pairs; the names decide the weight-decay groups (:func:`wd_mask`)."""
+    pairs; the names decide the weight-decay groups (:func:`wd_mask`).
+    ``tp``: a tensor-parallel model's ``tp_sharding()``, (axis, {name:
+    segments}), for the clip's global norm over the logical parameters."""
     if sched_type == "CosLR":
         schedule = cosine_warmup_epoch_schedule(lr, epochs, warmup_epochs, steps_per_epoch)
     elif sched_type == "LambdaLR":
@@ -183,4 +263,8 @@ def build_optimizer(params, *, opt_type: str = "AdamW", lr: float = 3e-4,
         opt = torch.optim.SGD([p for _, p in named], lr=lr0, momentum=0.9, nesterov=True)
     else:
         raise NotImplementedError(opt_type)
-    return Optimizer(opt, schedule, grad_clip, step_per_update), schedule
+    sharded, axis = None, None
+    if tp is not None:
+        axis, segments = tp
+        sharded = {id(p): segments[n] for n, p in named if n in segments}
+    return Optimizer(opt, schedule, grad_clip, step_per_update, sharded, axis), schedule

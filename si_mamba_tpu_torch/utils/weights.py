@@ -9,10 +9,14 @@
 - :func:`load_state_dict_file`: a reference-format ``.pth``
   (``{'base_model': state_dict, ...}``), with the ``module.`` /
   ``MAE_encoder.`` / ``base_model.`` prefixes stripped.
+- :func:`shard_state_dict` / :func:`gather_state_dict`: a full state dict to
+  one rank's state dict of the tensor-parallel model, and every rank's back
+  to the full one.
 """
 
 from __future__ import annotations
 
+from collections.abc import Sequence
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -124,3 +128,119 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
     """Load a reference-format ``.pth`` (tensors only) as a flat state dict."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     return as_state_dict(ckpt.get("base_model", ckpt.get("model", ckpt)))
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel shards of the reference-keyed state dict
+# ---------------------------------------------------------------------------
+# Each mixer tensor is a concatenation of segments along one dimension; a
+# sharded segment splits into contiguous blocks, one a rank (channels of
+# d_inner, or whole heads), a replicated one (the SSD mixer's B|C rows) is
+# whole on every rank. The layouts are those of
+# ``parallel/tensor_parallel.shard_mixer_params`` and
+# ``shard_ssd_mixer_params`` in the reference's (out, in) orientation.
+
+def _mixer_segments(mixer: str, d_inner: int, d_state: int, n_heads: int) -> dict:
+    """name -> (dim, [(full length, sharded), ...]) of one mixer's tensors."""
+    ch = [(d_inner, True)]
+    if mixer == "mamba":
+        return {"in_proj.weight": (0, ch + ch), "conv1d.weight": (0, ch), "conv1d.bias": (0, ch),
+                "x_proj.weight": (1, ch), "dt_proj.weight": (0, ch), "dt_proj.bias": (0, ch),
+                "A_log": (0, ch), "D": (0, ch), "out_proj.weight": (1, ch)}
+    if mixer == "ssd":
+        bc, heads = [(2 * d_state, False)], [(n_heads, True)]
+        return {"in_proj.weight": (0, ch + ch + bc + heads), "conv1d.weight": (0, ch + bc),
+                "conv1d.bias": (0, ch + bc), "dt_bias": (0, heads), "A_log": (0, heads),
+                "D": (0, heads), "norm.weight": (0, ch), "out_proj.weight": (1, ch)}
+    raise ValueError(f"unknown mixer {mixer!r}")
+
+
+def _mixer_dims(sd: Mapping[str, torch.Tensor], mixer: str, scale: int = 1):
+    """(d_inner, d_state, n_heads) of a mixer's tensors, each local extent
+    times ``scale`` for a shard (B|C is whole on every rank)."""
+    if mixer == "mamba":
+        return sd["conv1d.bias"].shape[0] * scale, 0, 0
+    d_inner = sd["norm.weight"].shape[0] * scale
+    n_heads = sd["dt_bias"].shape[0] * scale
+    d_state = (sd["conv1d.bias"].shape[0] - sd["norm.weight"].shape[0]) // 2
+    if n_heads % scale or d_inner % scale:
+        raise ValueError("the mixer's heads or channels do not split evenly")
+    return d_inner, d_state, n_heads
+
+
+def mixer_segments(local: Mapping[str, torch.Tensor], mixer: str,
+                   size: int) -> Dict[str, tuple]:
+    """One rank's shard of a mixer (keys relative to the mixer) -> {name:
+    (dim, [(local length, sharded), ...])}, the segments each tensor is made
+    of along its split dimension."""
+    d_inner, d_state, n_heads = _mixer_dims(local, mixer, scale=size)
+    return {name: (dim, [(n // size if sharded else n, sharded) for n, sharded in segments])
+            for name, (dim, segments) in _mixer_segments(mixer, d_inner, d_state,
+                                                         n_heads).items()}
+
+
+def shard_mixer_state(sd: Mapping[str, torch.Tensor], mixer: str, rank: int,
+                      size: int) -> Dict[str, torch.Tensor]:
+    """One mixer's full state dict (keys relative to the mixer) -> rank
+    ``rank``'s shard of ``size``."""
+    d_inner, d_state, n_heads = _mixer_dims(sd, mixer)
+    if mixer == "ssd" and n_heads % size:
+        raise ValueError(f"the tensor-parallel SSD mixer shards whole heads: n_heads={n_heads} "
+                         f"must be divisible by {size}")
+    out = {}
+    for name, (dim, segments) in _mixer_segments(mixer, d_inner, d_state, n_heads).items():
+        parts = torch.split(sd[name], [n for n, _ in segments], dim=dim)
+        out[name] = torch.cat([
+            p.narrow(dim, rank * (n // size), n // size) if sharded else p
+            for p, (n, sharded) in zip(parts, segments)], dim=dim).clone()
+    return out
+
+
+def gather_mixer_state(parts: Sequence[Mapping[str, torch.Tensor]],
+                       mixer: str) -> Dict[str, torch.Tensor]:
+    """The reverse of :func:`shard_mixer_state`: the shards of every rank, in
+    rank order -> the full mixer state dict (a replicated segment from rank
+    0's shard)."""
+    size = len(parts)
+    d_inner, d_state, n_heads = _mixer_dims(parts[0], mixer, scale=size)
+    out = {}
+    for name, (dim, segments) in _mixer_segments(mixer, d_inner, d_state, n_heads).items():
+        local = [n // size if sharded else n for n, sharded in segments]
+        pieces = [torch.split(p[name], local, dim=dim) for p in parts]
+        out[name] = torch.cat([
+            torch.cat([pc[i] for pc in pieces], dim=dim) if sharded else pieces[0][i]
+            for i, (_, sharded) in enumerate(segments)], dim=dim)
+    return out
+
+
+def _mixer_prefixes(sd: Mapping[str, Any]) -> list[str]:
+    return sorted({k[:k.index(".mixer.") + len(".mixer.")] for k in sd if ".mixer." in k})
+
+
+def shard_state_dict(full: Mapping[str, torch.Tensor], cfg, rank: int,
+                     size: int) -> Dict[str, torch.Tensor]:
+    """The reference-keyed full state dict (from :func:`state_dict_from_jax`,
+    a ``.pth`` or a single-process ``PointMamba``) -> rank ``rank``'s state
+    dict of the tensor-parallel model of ``cfg`` over ``size`` ranks, which
+    its ``load_state_dict(strict=True)`` takes. Every mixer tensor is cut as
+    ``parallel/tensor_parallel`` shards it; everything else is replicated."""
+    out = dict(full)
+    for prefix in _mixer_prefixes(full):
+        mixer = {k[len(prefix):]: v for k, v in full.items() if k.startswith(prefix)}
+        for k, v in shard_mixer_state(mixer, cfg.mixer, rank, size).items():
+            out[prefix + k] = v
+    return out
+
+
+def gather_state_dict(parts: Sequence[Mapping[str, torch.Tensor]],
+                      cfg) -> Dict[str, torch.Tensor]:
+    """The reverse of :func:`shard_state_dict`: every rank's state dict (or
+    gradients in its layout), in rank order -> the full state dict of the
+    single-process model. Replicated entries come from rank 0."""
+    out = dict(parts[0])
+    for prefix in _mixer_prefixes(parts[0]):
+        shards = [{k[len(prefix):]: v for k, v in p.items() if k.startswith(prefix)}
+                  for p in parts]
+        for k, v in gather_mixer_state(shards, cfg.mixer).items():
+            out[prefix + k] = v
+    return out

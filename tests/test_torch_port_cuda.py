@@ -409,6 +409,119 @@ def test_ssd_function_gradcheck_in_float64_through_the_plain_path():
 
 
 # ---------------------------------------------------------------------------
+# the split SSD kernels (K6, K7) of the tensor- and sequence-parallel paths
+# ---------------------------------------------------------------------------
+
+def _split_case(rng, b, l, h, chunk, device, n=128, p=128):
+    """x as a column view of a wider buffer, B and C as the two halves of one
+    (b, l, 2n) buffer (row stride 2n, as ``ssd_mixer_tp`` makes them), dt
+    and S in the kernels' (b, h, nc, q) layout."""
+    x = _randn(rng, b, l, h * p + 5, scale=0.5, device=device)[..., 5:]
+    bc = _randn(rng, b, l, 2 * n, scale=0.5, device=device)
+    dt = torch.nn.functional.softplus(_randn(rng, b, l, h, device=device) - 1.0)
+    A = -torch.exp(_randn(rng, h, device=device))
+    dth = dt.transpose(1, 2).reshape(b, h, l // chunk, chunk).contiguous()
+    S = torch.cumsum(dth * A[None, :, None, None], dim=-1)
+    return x, dth, S, bc[..., :n], bc[..., n:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,chunk", [(2, 512, 3, 256), (2, 256, 2, 256), (1, 384, 3, 128)],
+                         ids=["tp_shard", "single_chunk", "nc3"])
+def test_split_fwd_kernels_match_plain(cuda, b, l, h, chunk):
+    """The four K6 variants on strided x, B and C: the same y from each
+    (the same arithmetic), h_in and h_fin against the plain version."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    args = (*_split_case(np.random.default_rng(40), b, l, h, chunk, cuda), chunk)
+    fns = (kssd.ssd_split_fwd, kssd.ssd_split_fwd_states, kssd.ssd_split_fwd_hfin,
+           kssd.ssd_split_fwd_states_hfin)
+    before = [f.launches for f in fns]
+    y_lean = kssd.ssd_split_fwd(*args)
+    y_s, h_in = kssd.ssd_split_fwd_states(*args)
+    y_f, h_fin = kssd.ssd_split_fwd_hfin(*args)
+    y_sf, h_in2, h_fin2 = kssd.ssd_split_fwd_states_hfin(*args)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [n + 1 for n in before]
+    for y in (y_s, y_f, y_sf):
+        torch.testing.assert_close(y, y_lean, rtol=0, atol=0)
+    assert torch.equal(h_in, h_in2) and torch.equal(h_fin, h_fin2)
+    y_ref, h_ref, hf_ref = kssd.ssd_split_fwd_ref(*args, emit_states=True, emit_hfin=True)
+    assert h_fin.shape == hf_ref.shape == (b, h, 128, 128)
+    _close_to_max(y_lean, y_ref, 1e-5)
+    _close_to_max(h_in, h_ref, 1e-5)
+    _close_to_max(h_fin, hf_ref, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seeded", [False, True], ids=["unseeded", "seeded"])
+@pytest.mark.parametrize("b,l,h,chunk", [(2, 512, 3, 256), (2, 256, 2, 256), (1, 384, 3, 128)],
+                         ids=["tp_shard", "single_chunk", "nc3"])
+def test_split_bwd_kernel_matches_plain(cuda, b, l, h, chunk, seeded):
+    """K7 for a strided output gradient, from 0 or seeded with a dh_fin:
+    every gradient against the plain version, two runs bitwise equal (the
+    head sums are partials finished by torch.sum, no atomics)."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    rng = np.random.default_rng(41)
+    x, dth, S, Bm, Cm = _split_case(rng, b, l, h, chunk, cuda)
+    dy = _randn(rng, b, l, h * 128 + 3, device=cuda)[..., 3:]
+    _, h_in, _ = kssd.ssd_split_fwd_ref(x, dth, S, Bm, Cm, chunk, emit_states=True)
+    dh_fin = _randn(rng, b, h, 128, 128, scale=0.1, device=cuda) if seeded else None
+    fn = kssd.ssd_split_bwd_seeded if seeded else kssd.ssd_split_bwd
+    args = (x, dth, S, Bm, Cm, h_in, dy) + ((dh_fin,) if seeded else ()) + (chunk,)
+    before = fn.launches
+    got, again = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 2
+    want = kssd.ssd_split_bwd_ref(x, dth, S, Bm, Cm, h_in, dy, chunk, dh_fin=dh_fin)
+    for name, a, a2, w in zip(("dx", "ddt", "dS", "dB", "dC"), got, again, want):
+        assert a.shape == w.shape, name
+        assert torch.equal(a, a2), name
+        _close_to_max(a, w, 1e-4)
+
+
+@pytest.mark.cuda
+def test_split_kernels_reject_what_they_do_not_take(cuda):
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    rng = np.random.default_rng(42)
+    x, dth, S, Bm, Cm = _split_case(rng, 1, 128, 1, 64, cuda)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        kssd.ssd_split_fwd(x, dth.reshape(1, 1, 4, 32).contiguous(),
+                           S.reshape(1, 1, 4, 32).contiguous(), Bm, Cm, 32)
+    xs, dth2, S2, Bs, Cs = _split_case(rng, 1, 128, 1, 64, cuda, n=64)
+    with pytest.raises(ValueError, match="d_state 128"):
+        kssd.ssd_split_fwd(xs, dth2, S2, Bs, Cs, 64)
+    with pytest.raises(TypeError):
+        kssd.ssd_split_fwd(x.double(), dth, S, Bm, Cm, 64)
+    with pytest.raises(ValueError, match="CUDA device"):
+        kssd.ssd_split_fwd(x, dth, S, Bm.cpu(), Cm, 64)
+    with pytest.raises(ValueError, match="unit stride"):
+        kssd.ssd_split_fwd(x, dth, S, Bm.transpose(1, 2).contiguous().transpose(1, 2), Cm, 64)
+
+
+def test_split_functions_gradcheck_in_float64_through_the_plain_path():
+    """The plain K6/K7 pairs of ``SSDChunkedSplitFn`` and
+    ``SSDChunkedSplitCarryFn`` (the seeded backward) in float64 on the CPU,
+    with dt and S independent inputs."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    rng = np.random.default_rng(43)
+    b, l, h, p, n, chunk = 2, 12, 2, 3, 2, 4
+    x = torch.tensor(rng.standard_normal((b, l, h * p)), dtype=torch.float64)
+    dt = torch.tensor(rng.uniform(0.1, 1.0, (b, h, l // chunk, chunk)), dtype=torch.float64)
+    S = torch.cumsum(-dt * torch.tensor([0.5, 1.5], dtype=torch.float64)[None, :, None, None],
+                     dim=-1)
+    Bm, Cm = (torch.tensor(rng.standard_normal((b, l, n)), dtype=torch.float64)
+              for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (x, dt, S, Bm, Cm)]
+    assert torch.autograd.gradcheck(lambda *a: kssd.SSDChunkedSplitFn.apply(*a, chunk), leaves)
+    assert torch.autograd.gradcheck(
+        lambda *a: kssd.SSDChunkedSplitCarryFn.apply(*a, chunk), leaves)
+
+
+# ---------------------------------------------------------------------------
 # the fused-mixer kernels (K10, K11) and their autograd Function
 # ---------------------------------------------------------------------------
 

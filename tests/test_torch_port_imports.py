@@ -45,7 +45,8 @@ def test_port_package_has_its_kernel_sources():
 def test_importing_the_port_loads_no_jax_module():
     code = ("import sys; before = set(sys.modules); "
             "import si_mamba_tpu_torch.serving, si_mamba_tpu_torch.ops.selective_scan, "
-            "si_mamba_tpu_torch.ops.ssd, "
+            "si_mamba_tpu_torch.ops.ssd, si_mamba_tpu_torch.parallel, "
+            "si_mamba_tpu_torch.parallel.tensor_parallel, si_mamba_tpu_torch.parallel.seq_scan, "
             "si_mamba_tpu_torch.train.runner_finetune; "
             "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in %r); "
             "assert not bad, bad" % (FORBIDDEN,))

@@ -152,7 +152,7 @@ def test_fresh_model_is_seeded_and_finite():
 
 @pytest.mark.parametrize("override", [dict(method="HLT"), dict(add_after_layer=True),
                                       dict(mixer="ssd", add_after_layer=True),
-                                      dict(tp_axis="model"),
+                                      dict(tp_axis="model", add_after_layer=True),
                                       dict(dtype="bfloat16"), dict(spectral_method="subspace"),
                                       dict(reverse_3=True)])
 def test_unported_options_raise(override):
