@@ -17,10 +17,12 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    held against its plain PyTorch version on the card and timed beside it:
    the conv forward and, for a seeded output gradient, its backward (both
    also beside ``F.conv1d(groups=D)`` + ``F.silu`` and its autograd
-   backward), the lean scan forward, the scan forward that keeps its tile
-   entry states (its y equal to the lean kernel's, its states to the plain
-   version's) and the scan backward (every gradient against the plain
-   backward);
+   backward), the lean scan forward (also at B = 1, 20 and 64, the serving
+   request sizes; each timed as back-to-back calls and as CUDA-graph device
+   time), the scan forward that keeps its tile entry states (its y equal to
+   the lean kernel's, its states to the plain version's) and the scan
+   backward (every gradient against the plain backward, two runs bitwise
+   equal);
 4. SSD kernels: at the SSD mixer's shapes (B=32, L=512, chunk 256, 6 heads,
    n = p = 128, fp32): the conv forward and backward at width 1024 on the
    column view of the (32, 512, 1798) ``in_proj`` output (row stride 1798),
@@ -186,24 +188,59 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls captured in one CUDA
+    graph and replayed (CUDA events): the kernels' own time, without the
+    host's cost of each call, which exceeds a small launch's device time."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mixer_inputs(device):
+def mixer_inputs(device, batch: int = 32):
     """The conv's and the scan's inputs as layer 0's mixer makes them, at
-    B=32, L=512 (views into xz and x_dbl, as on the serving path)."""
+    B=batch, L=512 (views into xz and x_dbl, as on the serving path)."""
     from si_mamba_tpu_torch.models.layers import MambaMixer
 
     mixer = MambaMixer(MODELNET40["trans_dim"], out_proj_div=MODELNET40["depth"] ** 0.5)
     mixer.reset_parameters(torch.Generator().manual_seed(1))
     p = {k: v.detach().to(device) for k, v in mixer.params().items()}
     rng = np.random.default_rng(2)
-    x = torch.from_numpy(rng.standard_normal((32, 512, MODELNET40["trans_dim"]),
+    x = torch.from_numpy(rng.standard_normal((batch, 512, MODELNET40["trans_dim"]),
                                              dtype=np.float32)).to(device)
     xz = x @ p["in_proj_w"]
     return mixer, p, xz
+
+
+def scan_operands(device, batch: int = 32) -> tuple:
+    """The scan's inputs (u, dt, A, B, C, D, z, dt_bias) as layer 0's mixer
+    makes them at B=batch, L=512: u the conv kernel's output, B and C column
+    views of x_dbl, z the column view of xz."""
+    from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_silu_fwd
+
+    mixer, p, xz = mixer_inputs(device, batch)
+    d_inner, n, dt_rank = mixer.d_inner, mixer.d_state, mixer.dt_rank
+    u = causal_conv1d_silu_fwd(xz[..., :d_inner], p["conv_w"], p["conv_b"])
+    x_dbl = u @ p["x_proj_w"]
+    dt = x_dbl[..., :dt_rank] @ p["dt_proj_w"]
+    return (u, dt, -torch.exp(p["A_log"]), x_dbl[..., dt_rank:dt_rank + n],
+            x_dbl[..., dt_rank + n:], p["D"], xz[..., d_inner:], p["dt_proj_b"])
 
 
 def _rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -269,15 +306,10 @@ def conv_records(x, w, b, g) -> tuple[dict, dict]:
 def kernel_phase(device) -> list[dict]:
     """The serving path's kernels at its shapes: K1 and K5 (with a seeded
     output gradient) on the column view of xz, K2 on K1's output."""
-    from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_silu
-    from si_mamba_tpu_torch.ops.kernels.selective_scan import (
-        selective_scan_fwd,
-        selective_scan_ref,
-    )
+    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
 
     mixer, p, xz = mixer_inputs(device)
-    d_inner, n, dt_rank = mixer.d_inner, mixer.d_state, mixer.dt_rank
-    xi, z = xz[..., :d_inner], xz[..., d_inner:]
+    xi = xz[..., :mixer.d_inner]
     B, L, D = xi.shape
     g = torch.from_numpy(np.random.default_rng(3).standard_normal((B, L, D), dtype=np.float32))
     fwd, bwd = conv_records(xi, p["conv_w"], p["conv_b"], g.to(device))
@@ -289,61 +321,67 @@ def kernel_phase(device) -> list[dict]:
              source="si_mamba_tpu_torch/csrc/causal_conv.cu",
              replaces="si_mamba_tpu/ops/pallas/causal_conv_kernel.py:58", **bwd)]
 
-    # K2: selective scan forward, on the conv's output as on the path
-    y1 = causal_conv1d_silu(xi, p["conv_w"], p["conv_b"])
-    x_dbl = y1 @ p["x_proj_w"]
-    dt = x_dbl[..., :dt_rank] @ p["dt_proj_w"]
-    Bc, Cc = x_dbl[..., dt_rank:dt_rank + n], x_dbl[..., dt_rank + n:]
-    A = -torch.exp(p["A_log"])
-    args = (y1, dt, A, Bc, Cc, p["D"], z, p["dt_proj_b"])
-    y2 = selective_scan_fwd(*args)
-    y2_ref = selective_scan_ref(*args[:5], D=p["D"], z=z, delta_bias=p["dt_proj_b"])
+    # K2: selective scan forward, on the conv's output as on the path, at the
+    # train batch and at each serving request size
+    args = scan_operands(device)
+    fig = scan_fwd_figures(args)
+    sizes = {str(b): scan_fwd_figures(scan_operands(device, b)) for b in REQUEST_SIZES}
+    records.append(dict(
+        name="selective_scan_fwd", route="cuda",
+        source="si_mamba_tpu_torch/csrc/selective_scan_fwd.cu",
+        replaces="si_mamba_tpu/ops/pallas/selective_scan_kernel.py:115", **fig,
+        plain_ms=time_ms(lambda: ks.selective_scan_ref(*args[:5], D=args[5], z=args[6],
+                                                       delta_bias=args[7]), 2, warmup=1),
+        library_ms=None, at_request_sizes=sizes))
+    log("selective scan ok: " + "; ".join(
+        f"B={f['shape'][0]}: {f['ms']:.6f} ms, device {f['device_ms']:.6f} ms "
+        f"({f['segments']} segments), max |diff| {f['max_abs_err']:.3e}"
+        for f in (fig, *sizes.values())))
+    return records
+
+
+def scan_fwd_figures(args) -> dict:
+    """K2 on ``args`` against its plain version (rtol 1e-4, atol 1e-5 of
+    max|y|), then timed as back-to-back wrapper calls (``ms``, the host's
+    cost of a call included) and as device time (``device_ms``, CUDA-graph
+    replays)."""
+    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
+
+    B, L, D = args[0].shape
+    n = args[2].shape[1]
+    y = ks.selective_scan_fwd(*args)
+    y_ref = ks.selective_scan_ref(*args[:5], D=args[5], z=args[6], delta_bias=args[7])
     torch.cuda.synchronize()
-    err2 = (y2 - y2_ref).abs().max().item()
-    scale = y2_ref.abs().max().item()
-    if not torch.allclose(y2, y2_ref, rtol=1e-4, atol=1e-5 * scale):
-        raise AssertionError(f"selective-scan kernel disagrees with its plain version: "
-                             f"max |diff| {err2}, max |y| {scale}")
+    err = (y - y_ref).abs().max().item()
+    scale = y_ref.abs().max().item()
+    if not torch.allclose(y, y_ref, rtol=1e-4, atol=1e-5 * scale):
+        raise AssertionError(f"selective-scan kernel at B={B} disagrees with its plain "
+                             f"version: max |diff| {err}, max |y| {scale}")
     # bytes: u, dt, z, B, C read once, y written once, plus A, D, dt_bias;
     # operations per (b, l, d): softplus 4, skip + gate 6, and per state 7
     # (exp, 2 mul, 2 fma) with each exp counted as one operation
     scan_bytes = (4 * B * L * D + 2 * B * L * n + D * n + 2 * D) * 4
     bound_ms, bound_by = bound(scan_bytes, B * L * D * (10 + 7 * n))
-    records.append(dict(
-        name="selective_scan_fwd", route="cuda",
-        source="si_mamba_tpu_torch/csrc/selective_scan_fwd.cu",
-        replaces="si_mamba_tpu/ops/pallas/selective_scan_kernel.py:115",
-        max_abs_err=err2,
-        ms=time_ms(lambda: selective_scan_fwd(*args), 20),
-        plain_ms=time_ms(lambda: selective_scan_ref(*args[:5], D=p["D"], z=z,
-                                                    delta_bias=p["dt_proj_b"]), 2, warmup=1),
-        library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
-    log(f"selective scan ok: max |diff| {err2:.3e} (max |y| {scale:.3e})")
-    return records
+    return dict(shape=[B, L, D], max_abs_err=err,
+                ms=time_ms(lambda: ks.selective_scan_fwd(*args), 20),
+                device_ms=graph_ms(lambda: ks.selective_scan_fwd(*args), 20),
+                segments=ks._fwd_library().selective_scan_fwd_segments(B, L, D),
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def backward_kernel_phase(device) -> list[dict]:
     """The scan's training kernels at the serving path's shapes, with a
     seeded output gradient: K3 (scan forward with residuals) and K4 (scan
     backward), each against its plain version, then timed."""
-    from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
     from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
 
-    mixer, p, xz = mixer_inputs(device)
-    d_inner, n, dt_rank = mixer.d_inner, mixer.d_state, mixer.dt_rank
-    xi, z = xz[..., :d_inner], xz[..., d_inner:]
-    B, L, D = xi.shape
+    # K3: the scan forward that keeps its tile entry states, on the conv's output
+    args = scan_operands(device)
+    B, L, D = args[0].shape
+    n = args[2].shape[1]
     rng = np.random.default_rng(3)
     g = torch.from_numpy(rng.standard_normal((B, L, D), dtype=np.float32)).to(device)
     records = []
-
-    # K3: the scan forward that keeps its tile entry states, on the conv's output
-    y1 = kc.causal_conv1d_silu_fwd(xi, p["conv_w"], p["conv_b"])
-    x_dbl = y1 @ p["x_proj_w"]
-    dt = x_dbl[..., :dt_rank] @ p["dt_proj_w"]
-    Bc, Cc = x_dbl[..., dt_rank:dt_rank + n], x_dbl[..., dt_rank + n:]
-    A = -torch.exp(p["A_log"])
-    args = (y1, dt, A, Bc, Cc, p["D"], z, p["dt_proj_b"])
     y3, h3 = ks.selective_scan_fwd_residuals(*args)
     y2 = ks.selective_scan_fwd(*args)
     y_ref, h_ref = ks.selective_scan_fwd_residuals_ref(*args)
@@ -375,8 +413,11 @@ def backward_kernel_phase(device) -> list[dict]:
     # or over B*L, taken in another order than the plain version's.
     bwd_args = (*args, g, h3)
     got = ks.selective_scan_bwd(*bwd_args)
+    again = ks.selective_scan_bwd(*bwd_args)
     want = ks.selective_scan_bwd_ref(*bwd_args)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("two scan backward runs on the same inputs differ")
     err4 = 0.0
     for name, a, b in zip(("du", "ddelta", "dA", "dB", "dC", "dD", "dz", "ddelta_bias"),
                           got, want):
@@ -398,7 +439,7 @@ def backward_kernel_phase(device) -> list[dict]:
         ms=time_ms(lambda: ks.selective_scan_bwd(*bwd_args), 20),
         plain_ms=time_ms(lambda: ks.selective_scan_bwd_ref(*bwd_args), 1, warmup=1),
         library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
-    log(f"scan backward ok: max |diff| {err4:.3e}")
+    log(f"scan backward ok: max |diff| {err4:.3e}, two runs bitwise equal")
     return records
 
 

@@ -6,16 +6,19 @@ Kernels:
   ``_fwd_kernel`` (si_mamba_tpu/ops/pallas/selective_scan_kernel.py):
   the lean inference forward (K2, ``emit_residuals=False``), and the training
   forward (K3, ``emit_residuals=True`` through ``_vjp_fwd``), which also writes
-  the fp32 state at the entry of every :data:`CHUNK`-step tile. Both are bound
-  by bytes on the H100 with their exponentials close behind; one thread per
-  channel keeps the state in registers, so the (B, L, d, n) discretised
-  tensors never reach device memory.
+  the fp32 state at the entry of every :data:`CHUNK`-step tile. Bound by bytes
+  on the H100. Each channel's 16 states are split over 4 lanes, so the
+  (B, L, d, n) discretised tensors never reach device memory and the grid
+  fills the card at the train batch; at small batch L is cut into segments,
+  scanned twice (end states from zero, then from the composed entry states),
+  with the segment count the kernel picks for the shape (K3 the same as K2).
 - ``csrc/selective_scan_bwd.cu`` (K4), which replaces ``_bwd_kernel``
-  (``_pallas_scan_bwd``) and the partial sums of ``_vjp_bwd``. Bound by bytes
-  and exponentials alike; it walks the tiles in reverse inside each block,
-  rebuilds a tile's states from its entry state in shared memory and carries
-  dh in registers, and writes the channel and batch sums as partials that
-  ``torch.sum`` finishes.
+  (``_pallas_scan_bwd``) and the partial sums of ``_vjp_bwd``. Held by
+  instruction throughput and latency more than bytes; with the same lane
+  split it walks the tiles in reverse inside each block, rebuilds a tile's
+  states from its entry state into shared memory, carries dh in registers,
+  and writes the channel and batch sums as partials that ``torch.sum``
+  finishes (no atomics: bitwise deterministic).
 The sources describe the designs.
 
 :func:`selective_scan_fused` runs K2 when no gradient is wanted and
@@ -157,13 +160,12 @@ def _set_argtypes(fn, argtypes):
     fn.restype = ctypes.c_int
 
 
-@functools.cache
-def _fwd_library() -> ctypes.CDLL:
-    lib = load_library("selective_scan_fwd")
-    strides = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
-    _set_argtypes(lib.selective_scan_fwd, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + strides)
-    _set_argtypes(lib.selective_scan_fwd_residuals,
-                  [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + strides)
+def fwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``csrc/selective_scan_fwd.cu``."""
+    tail = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+    _set_argtypes(lib.selective_scan_fwd, [ctypes.c_void_p] * 11 + tail)
+    _set_argtypes(lib.selective_scan_fwd_residuals, [ctypes.c_void_p] * 12 + tail)
+    _set_argtypes(lib.selective_scan_fwd_segments, [ctypes.c_int] * 3)
     lib.selective_scan_chunk_len.restype = ctypes.c_int
     if lib.selective_scan_chunk_len() != CHUNK:
         raise RuntimeError("csrc/selective_scan_fwd.cu's kChunk differs from CHUNK")
@@ -172,9 +174,8 @@ def _fwd_library() -> ctypes.CDLL:
     return lib
 
 
-@functools.cache
-def _bwd_library() -> ctypes.CDLL:
-    lib = load_library("selective_scan_bwd")
+def bwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``csrc/selective_scan_bwd.cu``."""
     _set_argtypes(lib.selective_scan_bwd,
                   [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 +
                   [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
@@ -185,6 +186,16 @@ def _bwd_library() -> ctypes.CDLL:
     lib.selective_scan_bwd_error_string.argtypes = [ctypes.c_int]
     lib.selective_scan_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _fwd_library() -> ctypes.CDLL:
+    return fwd_interface(load_library("selective_scan_fwd"))
+
+
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    return bwd_interface(load_library("selective_scan_bwd"))
 
 
 def _check_inputs(tensors: dict, extra: dict | None = None) -> tuple[int, int, int, int]:
@@ -208,6 +219,11 @@ def _check_inputs(tensors: dict, extra: dict | None = None) -> tuple[int, int, i
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shapes[name]}")
     if n != 16:
         raise ValueError(f"the selective-scan kernels are built for d_state 16, got {n}")
+    widest = max([d] + [t.stride(1) for name, t in (tensors | (extra or {})).items()
+                        if name in ("u", "delta", "z", "B", "C", "g")])
+    if (L + CHUNK) * widest >= 2 ** 31:
+        raise ValueError("the selective-scan kernels address a batch row with 32-bit offsets; "
+                         f"L={L} rows of stride {widest} do not fit")
     return bsz, L, d, n
 
 
@@ -217,25 +233,34 @@ def _rows(*ts):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def _launch_fwd(u, delta, A, B, C, D, z, delta_bias, residuals: bool):
+def _launch_fwd(u, delta, A, B, C, D, z, delta_bias, residuals: bool,
+                segments: int | None = None):
+    """K2 (K3 with ``residuals``). ``segments`` forces the number of
+    segments of L (1: the one-pass scan); by default the kernel's own choice
+    for the shape (``selective_scan_fwd_segments``)."""
     args = dict(zip(_NAMES, (u, delta, A, B, C, D, z, delta_bias)))
     bsz, L, d, n = _check_inputs(args)
     A, D, delta_bias = A.contiguous(), D.contiguous(), delta_bias.contiguous()
-    y = torch.empty((bsz, L, d), dtype=torch.float32, device=u.device)
-    h_entries = (torch.empty((bsz, -(-L // CHUNK), n, d), dtype=torch.float32,
-                             device=u.device) if residuals else None)
+    f32 = dict(dtype=torch.float32, device=u.device)
+    y = torch.empty((bsz, L, d), **f32)
+    h_entries = torch.empty((bsz, -(-L // CHUNK), n, d), **f32) if residuals else None
     if y.numel() == 0:
         return y, h_entries
     lib = _fwd_library()
+    if segments is None:
+        segments = lib.selective_scan_fwd_segments(bsz, L, d)
+    # scratch of the segmented scan: each segment's end state and delta sum
+    h_end = torch.empty((bsz, segments - 1, n, d), **f32)
+    dsum = torch.empty((bsz, segments - 1, d), **f32)
     ptrs = [t.data_ptr() for t in (u, delta, A, B, C, D, z, delta_bias, y)]
+    if residuals:
+        ptrs.append(h_entries.data_ptr())
+    ptrs += [h_end.data_ptr(), dsum.data_ptr()]
     strides = _rows(u, delta, B, C, z)
     stream = torch.cuda.current_stream(u.device).cuda_stream
+    entry = lib.selective_scan_fwd_residuals if residuals else lib.selective_scan_fwd
     with torch.cuda.device(u.device):
-        if residuals:
-            err = lib.selective_scan_fwd_residuals(*ptrs, h_entries.data_ptr(), bsz, L, d, n,
-                                                   strides, stream)
-        else:
-            err = lib.selective_scan_fwd(*ptrs, bsz, L, d, n, strides, stream)
+        err = entry(*ptrs, bsz, L, d, n, segments, strides, stream)
     if err != 0:
         msg = lib.selective_scan_error_string(err).decode()
         raise RuntimeError(f"selective-scan forward kernel launch failed: {msg} ({err})")

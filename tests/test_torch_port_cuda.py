@@ -232,6 +232,71 @@ def test_fused_scan_takes_the_lean_kernel_without_a_gradient(cuda):
     assert u.grad is not None and torch.isfinite(u.grad).all()
 
 
+def _scan_kernels_against_plain(case, segments=None):
+    """K2, K3 and K4 on one case against their plain versions at the
+    tolerances of chip_smoke.py: K2 rtol 1e-4, atol 1e-5 max|y|; K3 1e-4 of
+    each output's max, its y equal to K2's bit for bit; K4 1e-3 of each
+    gradient's max (sums over channels and steps in another order), two runs
+    bitwise equal."""
+    args = [case[k] for k in kscan._NAMES]
+    y2 = kscan._launch_fwd(*args, residuals=False, segments=segments)[0]
+    y3, h3 = kscan._launch_fwd(*args, residuals=True, segments=segments)
+    got = kscan.selective_scan_bwd(*args, case["g"], h3)
+    again = kscan.selective_scan_bwd(*args, case["g"], h3)
+    torch.cuda.synchronize()
+    y_ref, h_ref = kscan.selective_scan_fwd_residuals_ref(*args)
+    torch.testing.assert_close(y2, y_ref, rtol=1e-4, atol=1e-5 * y_ref.abs().max().item())
+    assert torch.equal(y3, y2)
+    _close_to_max(h3, h_ref, 1e-4)
+    want = kscan.selective_scan_bwd_ref(*args, case["g"], h3)
+    for name, a, a2, b in zip(("du", "ddelta", "dA", "dB", "dC", "dD", "dz", "ddelta_bias"),
+                              got, again, want):
+        assert a.shape == b.shape, name
+        assert torch.equal(a, a2), name
+        _close_to_max(a, b, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d", [(2, 37, 24), (3, 100, 200), (1, 65, 130), (1, 512, 768),
+                                   (32, 512, 768)])
+def test_scan_kernels_at_ragged_and_path_shapes(cuda, b, l, d):
+    """L not a multiple of the 16-step tile, d not a multiple of the blocks'
+    channels (32 forward, 64 backward) nor of a warp's 8, and the path's
+    width at one cloud and at the train batch."""
+    _scan_kernels_against_plain(_scan_case(np.random.default_rng(40), b, l, d, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [1, 2, 3, 16])
+def test_scan_fwd_kernels_with_each_segment_count(cuda, segments):
+    """The segmented forward (end states from zero, then the rescan from the
+    composed entry states) at a forced segment count, 1 being the one-pass
+    scan; 16 at L=200 leaves 13 one-tile segments."""
+    case = _scan_case(np.random.default_rng(41), 2, 200, 96, cuda)
+    _scan_kernels_against_plain(case, segments=segments)
+
+
+@pytest.mark.cuda
+def test_scan_kernels_under_strong_decay(cuda):
+    """delta |A| of 10 to 100: a state forgets within a step or two, and
+    exp(A * sum delta) of a segment underflows to 0."""
+    rng = np.random.default_rng(42)
+    case = _scan_case(rng, 2, 130, 72, cuda)
+    case["delta"] = _randn(rng, 2, 130, 72, scale=2.0, device=cuda) + 3.0
+    case["A"] = -torch.exp(_randn(rng, 72, 16, scale=0.5, device=cuda) + 2.5)
+    for segments in (None, 1, 4):
+        _scan_kernels_against_plain(case, segments=segments)
+
+
+@pytest.mark.cuda
+def test_scan_fwd_segment_choice_follows_the_batch(cuda):
+    """The kernel cuts L into segments only while the one-pass grid leaves
+    the card idle: at one cloud, not at the train batch."""
+    lib = kscan._fwd_library()
+    assert lib.selective_scan_fwd_segments(1, 512, 768) > 1
+    assert lib.selective_scan_fwd_segments(32, 512, 768) == 1
+
+
 def test_functions_gradcheck_in_float64_through_the_plain_path():
     """The plain forward/backward pairs of both Functions, in float64 on the
     CPU (the kernels take float32 and are held against these instead)."""
