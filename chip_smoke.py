@@ -31,7 +31,9 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    gradient, each against its plain version and timed beside it;
 4b. fused-mixer kernels: at the serving path's shapes, with xz as layer 0's
    ``in_proj`` makes it, the whole-mixer forward lean and with its chunk
-   entry states (y equal, states against the plain version) and its
+   entry states (y equal, states against the plain version; the lean one
+   also at B = 1, 20 and 64, as back-to-back calls and as CUDA-graph device
+   time) and its
    backward for a seeded output gradient (every gradient against the plain
    backward, two runs bitwise equal), each timed beside its plain version;
    then the same interior through the per-op route (K1, the x_proj and
@@ -741,6 +743,34 @@ def per_op_interior(xz, p, dt_rank: int, n: int):
                                 p["dt_proj_b"])
 
 
+def fused_fwd_at_clouds(device) -> dict:
+    """Lean K10 at each serving request size against its plain version
+    (rel-to-max 1e-4), timed as back-to-back wrapper calls (``ms``, the
+    host's cost of a call included) and as device time (``device_ms``,
+    CUDA-graph replays), with the segment count the kernel took."""
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    out = {}
+    for batch in REQUEST_SIZES:
+        mixer, p, xz = mixer_inputs(device, batch)
+        args = kfm.kernel_inputs(xz, p["conv_w"], p["conv_b"], p["x_proj_w"], p["dt_proj_w"],
+                                 p["dt_proj_b"], -torch.exp(p["A_log"]), p["D"],
+                                 dt_rank=mixer.dt_rank, d_state=mixer.d_state)
+        y = kfm.fused_mixer_fwd(*args)
+        y_ref = kfm.fused_mixer_fwd_ref(*args, chunk=kfm.CHUNK)[0]
+        torch.cuda.synchronize()
+        err, rel = _rel_err(y, y_ref)
+        if rel > 1e-4:
+            raise AssertionError(f"fused forward kernel at B={batch} disagrees with its plain "
+                                 f"version: max |diff| {err} ({rel:.3e} of max)")
+        out[batch] = dict(max_abs_err=err, ms=time_ms(lambda: kfm.fused_mixer_fwd(*args), 20),
+                          device_ms=graph_ms(lambda: kfm.fused_mixer_fwd(*args), 20),
+                          segments=kfm._fwd_library().fused_mixer_fwd_segments(
+                              batch, xz.shape[1], mixer.d_inner))
+        log(f"fused_mixer_fwd at {batch} clouds: {out[batch]}")
+    return out
+
+
 def fused_mixer_phase(device) -> tuple[list[dict], dict]:
     """K10 (lean and with states) and K11 at the serving path's shapes (B=32,
     L=512, d_inner 768, d_state 16, xz as layer 0's in_proj makes it), each
@@ -769,12 +799,14 @@ def fused_mixer_phase(device) -> tuple[list[dict], dict]:
     if rel_y > 1e-4 or rel_h > 1e-4:
         raise AssertionError(f"fused forward kernel disagrees with its plain version: y {err_y} "
                              f"({rel_y:.3e} of max), h_entries {err_h} ({rel_h:.3e} of max)")
-    # operations the function needs, per (b, t): the products xi @ W_dt
-    # (2 d^2) and xi @ W_bc (4 d n); per channel the conv (2W + 1), SiLU 4,
-    # softplus 4, skip and gate 6, and 7 per state (as K2's bound). Bytes: xz
-    # read and y written once, the weights read once (h_entries written once)
+    # operations the function needs, per (b, t): the rank-R pair, xi @ x_proj
+    # (2 d (R + 2n)) and dt_low @ dt_proj (2 R d); per channel the conv
+    # (2W + 1), SiLU 4, softplus 4, skip and gate 6, and 7 per state (as K2's
+    # bound). Bytes: xz read and y written once, the weights read once
+    # (h_entries written once).
     per_channel = 2 * W + 1 + 4 + 10 + 7 * n
-    fwd_ops = B * L * (2 * d_inner ** 2 + 4 * d_inner * n + d_inner * per_channel)
+    pair_ops = 2 * d_inner * (dt_rank + 2 * n) + 2 * dt_rank * d_inner
+    fwd_ops = B * L * (pair_ops + d_inner * per_channel)
     weight_bytes = sum(t.numel() for t in args[1:]) * 4
     fwd_bytes = B * L * 3 * d_inner * 4 + weight_bytes
     hent_bytes = B * nc * n * d_inner * 4
@@ -790,9 +822,11 @@ def fused_mixer_phase(device) -> tuple[list[dict], dict]:
             ms=time_ms(fn, 20),
             plain_ms=time_ms(lambda: kfm.fused_mixer_fwd_ref(*args, chunk=kfm.CHUNK,
                                                              emit_states=bool(extra)), 2, warmup=1),
-            library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+            segments=kfm._fwd_library().fused_mixer_fwd_segments(B, L, d_inner)))
     log(f"fused forward ok: states y == lean y; vs plain y {err_y:.3e} ({rel_y:.3e} of max), "
         f"h_entries {err_h:.3e} ({rel_h:.3e} of max)")
+    records[0]["at_clouds"] = fused_fwd_at_clouds(device)
 
     # K11 for a seeded output gradient, from the kernel's own h_entries.
     # Tolerance rel-to-max 1e-4: the weight gradients are sums over B*L terms,
@@ -806,8 +840,8 @@ def fused_mixer_phase(device) -> tuple[list[dict], dict]:
     again = kfm.fused_mixer_bwd(*bwd_args)
     torch.cuda.synchronize()
     err11, rels = 0.0, {}
-    for name, a, w, a2 in zip(("dxz", "dconv_wt", "dconv_b", "dwdt", "ddtb", "dwbc", "dat", "dd"),
-                              got, want, again):
+    for name, a, w, a2 in zip(("dxz", "dconv_wt", "dconv_b", "dx_proj", "ddt_proj", "ddtb",
+                               "dat", "dd"), got, want, again):
         err, rels[name] = _rel_err(a, w)
         err11 = max(err11, err)
         if rels[name] > 1e-4:
@@ -815,14 +849,15 @@ def fused_mixer_phase(device) -> tuple[list[dict], dict]:
                                  f"({rels[name]:.3e} of max)")
         if not torch.equal(a, a2):
             raise AssertionError(f"fused backward kernel: {name} differs between two runs")
-    # operations the function needs: the forward's recompute, ddt_raw @ W_dt^T
-    # and xi^T @ ddt_raw (2 d^2 each per (b, t)), (dB|dC) @ W_bc^T and
-    # xi^T @ (dB|dC) (4 d n each), the scan backward (20 per state and 20 per
-    # channel, as K4's bound) and the conv backward (6W + 11, as K5's).
-    # Bytes: xz, g and h_entries read, dxz written, the weights read and their
-    # gradients written once
-    bwd_ops = fwd_ops + B * L * (4 * d_inner ** 2 + 8 * d_inner * n +
-                                 d_inner * (20 * n + 20 + 6 * W + 11))
+    # operations the function needs: the forward's recompute, the pair's four
+    # products of the backward (d_dtlow = ddt_raw dt_proj^T, dxi's
+    # [d_dtlow | dB | dC] x_proj^T, d x_proj and d dt_proj: twice the
+    # forward's pair), the scan backward (20 per state and 20 per channel, as
+    # K4's bound) and the conv backward (6W + 11, as K5's). Bytes: xz, g and
+    # h_entries read, dxz written, the weights read and their gradients
+    # written once.
+    scan_conv_bwd = d_inner * (20 * n + 20 + 6 * W + 11)
+    bwd_ops = fwd_ops + B * L * (2 * pair_ops + scan_conv_bwd)
     bwd_bytes = B * L * 5 * d_inner * 4 + hent_bytes + 2 * weight_bytes
     bound_ms, bound_by = bound(bwd_bytes, bwd_ops)
     records.append(dict(

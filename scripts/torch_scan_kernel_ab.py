@@ -7,7 +7,7 @@ trees, in one process on one card.
 
 ``--other`` is typically the ``si_mamba_tpu_torch/csrc`` of another commit
 unpacked with ``git archive``. Both trees are built with the port's nvcc
-flags into ``build/ab/``. A tree whose forward has no
+flags into ``build/ab/`` (``torch_ab_common.build``). A tree whose forward has no
 ``selective_scan_fwd_segments`` (the earlier one-pass forward) is called through
 its own C argument lists. The kernels run on the scan's inputs as layer 0's
 mixer makes them (``chip_smoke.scan_operands``: L=512, d_inner 768, d_state
@@ -27,34 +27,17 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+from torch_ab_common import ROOT, build, means, other_over_this, round_robin
+
 ROUNDS = 5
 BATCHES = (1, 20, 32, 64)
 NAMES = ("selective_scan_fwd", "selective_scan_bwd")
-
-
-def _build(src_dir: Path, tag: str) -> dict[str, ctypes.CDLL]:
-    from si_mamba_tpu_torch.ops.kernels.build import NVCC_FLAGS, _nvcc
-
-    out_dir = ROOT / "build" / "ab" / tag
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {name: subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"),
-                                     str(src_dir / f"{name}.cu")])
-             for name in NAMES}
-    libs = {}
-    for name, proc in procs.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed for {src_dir / name}.cu")
-        libs[name] = ctypes.CDLL(str(out_dir / f"{name}.so"))
-    return libs
 
 
 def _one_pass_forward(lib: ctypes.CDLL):
@@ -141,8 +124,8 @@ def main() -> int:
 
     card = cs.card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
-    trees = {"this": _tree(_build(ROOT / "si_mamba_tpu_torch" / "csrc", "this")),
-             "other": _tree(_build(args.other, "other"))}
+    trees = {"this": _tree(build(ROOT / "si_mamba_tpu_torch" / "csrc", NAMES, "this")[0]),
+             "other": _tree(build(args.other, NAMES, "other")[0])}
     if not trees["this"]["segmented"]:
         raise SystemExit("torch_scan_kernel_ab: this tree's forward has no segments")
     device = torch.device("cuda", 0)
@@ -157,35 +140,23 @@ def main() -> int:
 
     kernels = {}
     for b in BATCHES:
-        kernels[f"K2 B={b}"] = lambda t, a=ops[b]: t["forward"](a, False)
-    kernels["K3 B=32"] = lambda t: t["forward"](full, True)
-    kernels["K4 B=32"] = lambda t: t["backward"](full, g, h32)
+        kernels[f"K2 B={b}"] = lambda tree, a=ops[b]: trees[tree]["forward"](a, False)
+    kernels["K3 B=32"] = lambda tree: trees[tree]["forward"](full, True)
+    kernels["K4 B=32"] = lambda tree: trees[tree]["backward"](full, g, h32)
     one_pass = {f"K2 B={b} one segment": (lambda a=ops[b]: trees["this"]["forward"](
         a, False, segments=1)) for b in BATCHES}
     # device: CUDA-graph replays, the kernels' own time; eager: back-to-back
     # wrapper calls, which at small batch the host's cost per call can exceed
-    timers = {"device": cs.graph_ms, "eager": cs.time_ms}
-    times = {how: {tree: {k: [] for k in kernels} for tree in trees} for how in timers}
-    for how in timers:
-        times[how]["this"].update({k: [] for k in one_pass})
-    for _ in range(ROUNDS):
-        for tree in ("this", "other", "other", "this"):
-            trees[tree]["bind"]()
-            for how, timer in timers.items():
-                for name, fn in kernels.items():
-                    times[how][tree][name].append(timer(lambda: fn(trees[tree]), 20))
-                if tree == "this":
-                    for name, fn in one_pass.items():
-                        times[how][tree][name].append(timer(fn, 20))
-    mean = {how: {tree: {k: sum(v) / len(v) for k, v in t.items()} for tree, t in by.items()}
-            for how, by in times.items()}
+    times = round_robin({name: tree["bind"] for name, tree in trees.items()}, kernels,
+                        {"device": cs.graph_ms, "eager": cs.time_ms}, ROUNDS,
+                        this_only=one_pass)
+    mean = means(times)
     from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
 
     trees["this"]["bind"]()
     segments = {b: ks._fwd_library().selective_scan_fwd_segments(b, 512, 768) for b in BATCHES}
     print(json.dumps({"card": card, "rounds": ROUNDS, "segments": segments, "mean_ms": mean,
-                      "other_over_this": {how: {k: m["other"][k] / m["this"][k] for k in kernels}
-                                          for how, m in mean.items()},
+                      "other_over_this": other_over_this(mean, kernels),
                       "ms": times}), flush=True)
     return 0
 

@@ -6,11 +6,11 @@ PyTorch port built from two source trees, in one process on one card.
 
 ``--other`` is typically the ``si_mamba_tpu_torch/csrc`` of another commit
 unpacked with ``git archive``. Both trees are built with the port's nvcc
-flags into ``build/ab/``; the kernels run at the SSD classifier's shapes
-(B=32, L=512, chunk 256, 6 heads of 128, d_state 128, the conv output of
-layer 0's mixer as in ``chip_smoke.py``) in turns this, other, other, this
-(ROUNDS times), and the script prints each kernel's mean time per tree as one
-JSON line, with the card's name and power limit.
+flags into ``build/ab/`` (``torch_ab_common.build``); the kernels run at the
+SSD classifier's shapes (B=32, L=512, chunk 256, 6 heads of 128, d_state
+128, the conv output of layer 0's mixer as in ``chip_smoke.py``) in turns
+this, other, other, this (ROUNDS times), and the script prints each kernel's
+mean time per tree as one JSON line, with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -18,30 +18,20 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
+from torch_ab_common import ROOT, build, means, round_robin
+
 ROUNDS = 5
+NAMES = ("ssd_xbc_fwd", "ssd_xbc_bwd")
 
 
-def _build(src_dir: Path, tag: str) -> dict[str, ctypes.CDLL]:
-    from si_mamba_tpu_torch.ops.kernels.build import NVCC_FLAGS, _nvcc
-
-    out_dir = ROOT / "build" / "ab" / tag
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {name: subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"),
-                                     str(src_dir / f"{name}.cu")])
-             for name in ("ssd_xbc_fwd", "ssd_xbc_bwd")}
-    libs = {}
-    for name, proc in procs.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed for {src_dir / name}.cu")
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+def _declare(libs: dict[str, ctypes.CDLL]) -> dict[str, ctypes.CDLL]:
+    """Declare the C interfaces of a tree's K8/K9 libraries."""
+    for name, lib in libs.items():
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
                        + [ctypes.c_void_p]) if name == "ssd_xbc_fwd" else \
@@ -49,7 +39,6 @@ def _build(src_dir: Path, tag: str) -> dict[str, ctypes.CDLL]:
         fn.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-        libs[name] = lib
     return libs
 
 
@@ -64,8 +53,8 @@ def main() -> int:
 
     card = cs.card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
-    trees = {"this": _build(ROOT / "si_mamba_tpu_torch" / "csrc", "this"),
-             "other": _build(args.other, "other")}
+    trees = {"this": _declare(build(ROOT / "si_mamba_tpu_torch" / "csrc", NAMES, "this")[0]),
+             "other": _declare(build(args.other, NAMES, "other")[0])}
     device = torch.device("cuda", 0)
     x6, dth, S, _, _, xbc, D, chunk = cs._split_operands(device, heads=6)
     d = x6.shape[-1]
@@ -74,14 +63,16 @@ def main() -> int:
     kernels = {"ssd_xbc_fwd": lambda: kssd.ssd_xbc_fwd(xbc, dth, S, D, d, chunk),
                "ssd_xbc_fwd_states": lambda: kssd.ssd_xbc_fwd_states(xbc, dth, S, D, d, chunk),
                "ssd_xbc_bwd": lambda: kssd.ssd_xbc_bwd(xbc, dth, S, D, h_in, dy, d, chunk)}
-    times = {tree: {k: [] for k in kernels} for tree in trees}
-    for _ in range(ROUNDS):
-        for tree in ("this", "other", "other", "this"):
-            kssd._fwd_library = lambda tree=tree: trees[tree]["ssd_xbc_fwd"]
-            kssd._bwd_library = lambda tree=tree: trees[tree]["ssd_xbc_bwd"]
-            for name, fn in kernels.items():
-                times[tree][name].append(cs.time_ms(fn, 10 if name == "ssd_xbc_bwd" else 20))
-    mean = {tree: {k: sum(v) / len(v) for k, v in t.items()} for tree, t in times.items()}
+
+    def bind(tree):
+        kssd._fwd_library = lambda: trees[tree]["ssd_xbc_fwd"]
+        kssd._bwd_library = lambda: trees[tree]["ssd_xbc_bwd"]
+
+    times = round_robin({tree: (lambda tree=tree: bind(tree)) for tree in trees},
+                        {k: (lambda tree, fn=fn: fn()) for k, fn in kernels.items()},
+                        {"eager": cs.time_ms}, ROUNDS,
+                        calls=lambda name: 10 if name == "ssd_xbc_bwd" else 20)["eager"]
+    mean = means({"eager": times})["eager"]
     print(json.dumps({"card": card, "rounds": ROUNDS, "mean_ms": mean, "ms": times,
                       "this_over_other": {k: mean["this"][k] / mean["other"][k]
                                           for k in kernels}}), flush=True)

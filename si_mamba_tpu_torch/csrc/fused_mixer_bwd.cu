@@ -1,532 +1,692 @@
 // Fused Mamba-1 mixer interior, backward (K11), fp32. For the forward of
 // fused_mixer_fwd.cu and an output gradient g (B, L, DI), it writes
 // dxz = [dx | dz] (B, L, 2 DI) and per-batch-row partials of the seven
-// weight gradients: dW_dt (DI, DI), dW_bc (DI, 2N), dconv_wt (W, DI),
-// dconv_b, dA^T (N, DI), dD and ddt_b. The wrapper's torch.sum over the batch
-// finishes them, in a fixed order, so the gradients are the same from run to
-// run (no floating-point atomics).
+// weight gradients: d x_proj (DI, R + 2N), d dt_proj (R, DI), dconv_wt
+// (W, DI), dconv_b, dA^T (N, DI), dD and ddt_b. The wrapper's torch.sum over
+// the batch finishes them, in a fixed order, so the gradients are the same
+// from run to run (no floating-point atomics).
 //
 // Replaces the TPU kernel `_bwd_kernel` behind `_fused_bwd_call`
 // (si_mamba_tpu/ops/pallas/fused_mixer_kernel.py). That kernel walks the
-// chunks of a row in reverse on a sequential grid and accumulates the weight
-// gradients in VMEM blocks that stay resident across the whole grid; here the
-// chunk loop runs inside the block and the partials are per batch row.
+// chunks of a row in reverse on a sequential grid, takes the folded
+// W_dt = x_proj[:, :R] @ dt_proj (DI x DI) and accumulates the weight
+// gradients in VMEM blocks resident across the grid. Here the chunk loop
+// runs inside the block, the two rank-R products stay apart, and every
+// weight-gradient partial of a block stays on chip for the whole row.
 //
-// Bound on the H100: fp32 operations. At B=32, L=512, DI=768, N=16 the
-// function needs the recompute of the forward (21.8 G), ddt_raw @ W_dt^T and
-// xi^T @ ddt_raw (19.3 G each), the two W_bc products (1.6 G) and the scan
-// and conv backward: 66.8 GFLOP, 1.0 ms at 67 TFLOP/s. Its bytes are xz, g
-// and h_entries read, dxz written, the weights read and their gradients
-// written: 307 MB, 0.09 ms (chip_smoke.py computes both). The design adds
-// traffic: the dW_dt partial of a row (DI x DI, 2.36 MB) does not fit on
-// chip, so each block adds its chunk's part to its 128 columns in device
-// memory once per chunk: 2 x 393 KB a chunk and block, 4.8 GB per launch at
-// that shape (mostly in the 50 MB L2), and the (B, DI, DI) partials are
-// 75.5 MB.
+// Bound on the H100. At B=32, L=512, DI=768, N=16, R=24 the function needs
+// the forward's recompute (3.71 GFLOP), the four products of the backward
+// through the pair, 2 (2 DI (R + 2N) + 2 R DI) a token, and the scan and
+// conv backward, DI (20 N + 20 + 6 W + 11) a token: 12.46 GFLOP, 0.186 ms at
+// 67 TFLOP/s. Its bytes (xz, g, h_entries read, dxz written, the weights and
+// their gradients) take 0.107 ms. Operations, then, and in practice the
+// instructions around them and the latency of the chunk loop.
 //
-// Design: the couplings across channels. dxi of a channel needs ddt_raw of
-// all DI channels (through W_dt) and the dB | dC sums over all channels
-// (through W_bc). So a thread-block cluster of DI / 128 blocks (6 at
-// DI = 768, within the portable 8) owns one batch row, block r its channels
-// r*128 .. r*128+127; grid (DI / 128, B). Each block walks the chunks of
-// kT = 16 tokens right to left and, per chunk:
-//   1. recomputes xi of every channel (conv + SiLU from x and the kW - 1 rows
-//      to its left, read again from xz), keeping its own channels' conv
-//      output and x in shared memory;
-//   2. recomputes its 128 columns of dt_raw = xi @ W_dt + dt_b and B | C;
-//   3. re-runs the scan of its channels from the state the forward saved at
-//      the chunk's entry, two threads a channel with N/2 states each: a
-//      forward pass that writes dz and keeps the state at every kSub-step
-//      sub-block entry in registers, then, sub-block by sub-block from the
-//      end, a rebuild of the sub-block's states and the reverse recurrence
-//      dh_t = gy_t C_t + a_{t+1} dh_{t+1} (dh carried in registers across
-//      chunks). It writes ddt_raw and du of its channels to shared memory,
-//      accumulates dA, dD and ddt_b in registers, and sums dB and dC over
-//      its warps' channels with a butterfly of shuffles;
-//   4. sums dB | dC over its warps in a fixed order;
-//   5. cluster barrier; each block copies every peer's ddt_raw tile into a
-//      (kT x DI) buffer and sums the peers' dB | dC in rank order through
-//      distributed shared memory; cluster barrier;
-//   6. dxi = du + ddt_raw @ W_dt^T + (dB | dC) @ W_bc^T for its channels,
-//      times silu' of the conv output;
-//   7. the conv backward: dx needs the kW - 1 rows of dxi_lin to its right,
-//      carried from the chunk processed before; dconv_wt and dconv_b in
-//      registers; dW_dt's partial updated in device memory; dW_bc in
-//      registers.
-// xi, dt, B, C and the cotangents between them never reach device memory.
-// CUDA cores, fp32, the accurate expf/log1pf. A ragged L is masked: rows
-// t >= L read x = z = g = 0, so every cotangent there is exactly 0.
+// Design. The couplings across channels go through x_dbl = [dt_low | B | C]
+// (R + 2N <= 64 columns), so a thread-block cluster of P = DI / 128 blocks
+// (6 at DI = 768) owns one batch row, block r its channels r*128 ..
+// r*128+127, 512 threads, one block an SM (204 KB of shared memory). The
+// block's rows of x_proj and columns of dt_proj are loaded once. Chunks of
+// kT = 16 tokens run right to left; per chunk:
+//  1. x of the own channels for the chunk and the kW - 1 rows to its left,
+//     the conv + SiLU, the block's partial of x_dbl; a cluster barrier; the
+//     P partials summed in rank order through distributed shared memory (as
+//     K10, so the recompute matches its arithmetic);
+//  2. the owner lane of each step computes dt_raw from dt_low and its column
+//     of dt_proj, softplus, delta*xi, the gate terms of z and g (K4's
+//     layout: four lanes a channel, four states a lane, steps q, q+4, ...);
+//  3. the scan backward of K4 (selective_scan_bwd.cu) over two halves of
+//     8 steps, last first: the half's states rebuilt from the chunk's entry
+//     state (h_entries) into a [8][128][16] shared array, each lane its own
+//     slot, then the reverse recurrence dh_t = gy_t C_t + a_{t+1} dh_{t+1}
+//     with dh carried in registers across chunks; the per-step channel sums
+//     by shuffle reduce-scatters, dB_t and dC_t over the warp's channels
+//     parked in the slots just read and summed over the 16 warps;
+//  4. the block's partial of [d_dtlow | dB | dC] (16 x 64), d_dtlow =
+//     ddt_raw dt_proj^T over its channels; a cluster barrier, whose latency
+//     the d dt_proj update hides; the P partials summed in rank order: one
+//     16 x 64 exchange a chunk;
+//  5. dxi of the own channels = du + [d_dtlow | dB | dC] x_proj[rows]^T, times
+//     silu' of the recomputed conv output; the conv backward, with the
+//     kW - 1 rows of dxi_lin to the right carried from the chunk before.
+// d x_proj[rows] (128 x 64) accumulates in shared memory, d dt_proj[:, cols],
+// dconv, dA, dD and ddt_b in registers; each is written once per block at
+// the end. CUDA cores, fp32: after the rank-R cut the products are about a
+// third of the operations, below the scan, so tensor cores are not used.
+// softplus and the sigmoids take the accurate expf and log1pf; the decay is
+// ex2.approx.ftz(delta * A log2 e), as in K2/K4. A ragged L is masked: rows
+// t >= L read x = z = g = 0, their steps are skipped and every cotangent
+// there is exactly 0.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;      // 8 warps
+constexpr int kThreads = 512;             // 16 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kT = 16;             // tokens a chunk: the forward's h_entries stride
-constexpr int kTile = 128;         // channels a block
-constexpr int kN = 16;             // d_state
-constexpr int kW = 4;              // conv width
-constexpr int kKT = 32;            // rows of a weight tile staged in shared memory
-constexpr int kRows = kT / 8;      // output rows a thread holds in the block products
-constexpr int kHalf = kN / 2;      // states a scan thread holds
-constexpr int kSub = 4;            // steps of a sub-block of the reverse sweep
-constexpr int kMaxCluster = 8;     // the portable cluster size: DI <= 1024
+constexpr int kT = 16;                    // tokens a chunk: the forward's h_entries stride
+constexpr int kHalfT = kT / 2;            // steps whose states are rebuilt at once
+constexpr int kTile = 128;                // channels a block
+constexpr int kN = 16;                    // d_state
+constexpr int kW = 4;                     // conv width
+constexpr int kXW = 64;                   // x_dbl columns held (R + 2N at most)
+constexpr int kMaxR = kXW - 2 * kN;       // 32
+constexpr int kLanes = 4;                 // lanes a channel in the scan
+constexpr int kPerLane = kN / kLanes;     // 4 states a lane
+constexpr int kGroups = 32 / kLanes;      // channels a warp
+constexpr int kOwned = kT / kLanes;       // steps whose scalars a lane computes
+constexpr int kRows = kT + kW - 1;        // a chunk's rows with the conv's context
+constexpr int kXiStride = kT + 4;         // xi of a channel: 16 tokens, padded (banks)
+constexpr int kXpStride = kXW + 1;
+constexpr int kDtpStride = kMaxR + 1;
+constexpr int kDxpStride = kXW + 4;
+constexpr int kMaxCluster = 8;            // the portable cluster size: DI <= 1024
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+static_assert(kThreads == 4 * kTile, "four threads a channel");
+static_assert(kPerLane == 4, "a lane's states, B and C values move as one float4");
+static_assert(2 * kPerLane == kGroups, "the dB/dC reduce-scatter leaves one sum a lane");
+static_assert(kThreads * 2 == kT * kXW, "one float2 of an exchange a thread");
 
-__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
-__device__ __forceinline__ float silu(float v) { return v / (1.f + expf(-v)); }
-__device__ __forceinline__ float softplus(float v) { return v > 20.f ? v : log1pf(expf(v)); }
-
-// acc[r][j] += sum_{k < K} sA[(ty + 8 r) * lda + k] * Bm[k][tx + 32 j], where
-// Bm (K x 32 NJ) is read from device memory at gB with row stride ldb and
-// staged through sB in kKT-row tiles. The next tile's loads are issued into
-// registers before the current tile is multiplied, so their latency hides
-// behind the FMAs. K is a multiple of kKT. Every thread of the block calls
-// it; it starts with a barrier, so sA may be written just before the call.
-template <int NJ>
-__device__ __forceinline__ void block_product(const float* sA, int lda,
-                                              const float* __restrict__ gB,
-                                              long long ldb, int K, float* sB,
-                                              float (&acc)[kRows][NJ]) {
-  constexpr int N = 32 * NJ;
-  constexpr int kPer = kKT * N / kThreads;  // tile elements a thread stages
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  // element e of the thread's share: row kk0 + e * kThreads / N, column col
-  const int kk0 = threadIdx.x / N, col = threadIdx.x % N;
-  float pre[kPer];
-#pragma unroll
-  for (int e = 0; e < kPer; ++e) pre[e] = gB[(kk0 + e * (kThreads / N)) * ldb + col];
-  for (int k0 = 0; k0 < K; k0 += kKT) {
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < kPer; ++e) sB[threadIdx.x + e * kThreads] = pre[e];
-    __syncthreads();
-    if (k0 + kKT < K) {
-#pragma unroll
-      for (int e = 0; e < kPer; ++e)
-        pre[e] = gB[(k0 + kKT + kk0 + e * (kThreads / N)) * ldb + col];
-    }
-#pragma unroll 8
-    for (int kk = 0; kk < kKT; ++kk) {
-      float bv[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) bv[j] = sB[kk * N + tx + 32 * j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float a = sA[(ty + 8 * r) * lda + k0 + kk];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[r][j] = fmaf(a, bv[j], acc[r][j]);
-      }
-    }
-  }
-}
-
-// Sum v[0..kHalf) over the 16 lanes of the warp whose lane bit 0 equals this
-// lane's (the 16 channels of the warp, one half of the states each), as a
-// reduce-scatter: after it, the lane holds the sum for state k = 4 b4 + 2 b3
-// + b2 of its half, where b4 b3 b2 are bits 4..2 of its lane (lanes that
-// differ in bit 1 hold the same sum). 8 shuffles instead of 32.
-__device__ __forceinline__ float warp_channel_sum(float (&v)[kHalf], int lane) {
-  const bool u4 = lane & 16, u3 = lane & 8, u2 = lane & 4;
-  float v4[4], v2[2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float send = u4 ? v[i] : v[i + 4];
-    v4[i] = (u4 ? v[i + 4] : v[i]) + __shfl_xor_sync(0xffffffffu, send, 16);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float send = u3 ? v4[i] : v4[i + 2];
-    v2[i] = (u3 ? v4[i + 2] : v4[i]) + __shfl_xor_sync(0xffffffffu, send, 8);
-  }
-  const float send = u2 ? v2[0] : v2[1];
-  float s = (u2 ? v2[1] : v2[0]) + __shfl_xor_sync(0xffffffffu, send, 4);
-  return s + __shfl_xor_sync(0xffffffffu, s, 2);
-}
+// shared memory, in floats
+constexpr int kPartFloats = kT * kXW;
+constexpr int kStateFloats = kHalfT * kTile * kN;
+constexpr int kSmemFloats = kRows * kTile + kTile * kXiStride + 2 * kPartFloats + kMaxR * kT +
+                            2 * kT * kN + kStateFloats + kT * kTile + kRows * kTile +
+                            2 * kT * kXW + kTile * kXpStride + kTile * kDtpStride +
+                            kTile * kDxpStride;
+constexpr int kSmemBytes = kSmemFloats * 4;
 
 struct BwdArgs {
-  const float* xz;       // (B, L, 2 DI)
-  const float* g;        // (B, L, DI)
-  const float* conv_wt;  // (W, DI)
-  const float* conv_b;   // (DI,)
-  const float* wdt;      // (DI, DI)
-  const float* wdt_t;    // (DI, DI), W_dt^T
-  const float* dtb;      // (DI,)
-  const float* wbc;      // (DI, 2N)
-  const float* wbc_t;    // (2N, DI), W_bc^T
-  const float* at;       // (N, DI)
-  const float* d;        // (DI,)
+  const float* xz;         // (B, L, 2 DI)
+  const float* conv_wt;    // (W, DI)
+  const float* conv_b;     // (DI,)
+  const float* x_proj;     // (DI, R + 2N)
+  const float* dt_proj;    // (R, DI)
+  const float* dtb;        // (DI,)
+  const float* at;         // (N, DI)
+  const float* d;          // (DI,)
   const float* h_entries;  // (B, nc, N, DI)
-  float* dxz;            // (B, L, 2 DI)
-  float* dwdt;           // (B, DI, DI) partials
-  float* dwbc;           // (B, DI, 2N)
-  float* dconv_wt;       // (B, W, DI)
-  float* dconv_b;        // (B, DI)
-  float* dat;            // (B, N, DI)
-  float* dd;             // (B, DI)
-  float* ddtb;           // (B, DI)
-  int L, DI;
+  const float* g;          // (B, L, DI)
+  float* dxz;              // (B, L, 2 DI)
+  float* dxp;              // (B, DI, R + 2N) partials
+  float* ddtp;             // (B, R, DI)
+  float* dconv_wt;         // (B, W, DI)
+  float* dconv_b;          // (B, DI)
+  float* dat;              // (B, N, DI)
+  float* dd;               // (B, DI)
+  float* ddtb;             // (B, DI)
+  int L, DI, R;
 };
+
+__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
+__device__ __forceinline__ float softplus(float v) { return v > 20.f ? v : log1pf(expf(v)); }
+
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// K4's reduce-scatters. On entry every lane holds v[0..7], its channel's
+// terms; on exit v[0] on lane l is the sum over the warp's 8 channels of
+// v[l / kLanes] of the lanes with the same l % kLanes.
+__device__ __forceinline__ float warp_reduce_scatter(float (&v)[2 * kPerLane], int lane) {
+#pragma unroll
+  for (int m = kPerLane, off = 16; m >= 1; m >>= 1, off >>= 1) {
+    const bool upper = lane & off;
+#pragma unroll
+    for (int i = 0; i < m; ++i) {
+      const float send = upper ? v[i] : v[i + m];
+      const float keep = upper ? v[i + m] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+  }
+  return v[0];
+}
+
+// On entry every lane of a group holds v[3 j + k] for j < kLanes, k < 3; on
+// exit v[0..2] on lane q of the group are the group's sums of v[3 q + k].
+__device__ __forceinline__ void group_reduce_scatter(float (&v)[kLanes * 3], int q) {
+#pragma unroll
+  for (int m = 2 * 3, off = kLanes / 2; off >= 1; m /= 2, off >>= 1) {
+    const bool upper = q & off;
+#pragma unroll
+    for (int i = 0; i < m; ++i) {
+      const float send = upper ? v[i] : v[i + m];
+      const float keep = upper ? v[i + m] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+  }
+}
+
+__device__ __forceinline__ float group_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Column of sDtl (dt_low, [k][16]) that holds step r: lane q's steps q, q+4,
+// q+8, q+12 sit together as one float4.
+__device__ __forceinline__ int step_slot(int r) { return (r % kLanes) * kOwned + r / kLanes; }
 
 __global__ void __launch_bounds__(kThreads, 1) fused_mixer_bwd_kernel(const BwdArgs p) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int R = static_cast<int>(cluster.num_blocks());
-  const int L = p.L, DI = p.DI;
+  const int P = static_cast<int>(cluster.num_blocks());
+  const int L = p.L, DI = p.DI, R = p.R, XW = R + 2 * kN;
 
-  extern __shared__ float smem[];
-  float* sXi = smem;                          // kT x DI: xi of every channel
-  float* sDdtAll = sXi + kT * DI;             // kT x DI: ddt_raw of the cluster
-  float* sB = sDdtAll + kT * DI;              // kKT x kTile: a staged weight tile
-  float* sDt = sB + kKT * kTile;              // kT x kTile: dt_raw (own channels)
-  float* sXl = sDt + kT * kTile;              // kT x kTile: conv output before SiLU
-  float* sX = sXl + kT * kTile;               // (kT + kW - 1) x kTile: x from row t0 - 3
-  float* sDdt = sX + (kT + kW - 1) * kTile;   // kT x kTile: ddt_raw, read by the peers
-  float* sDu = sDdt + kT * kTile;             // kT x kTile: du (scan + D skip)
-  float* sDxl = sDu + kT * kTile;             // (kT + kW - 1) x kTile: dxi_lin from row t0
-  float* sBC = sDxl + (kT + kW - 1) * kTile;  // kT x 2N: B | C
-  float* sRed = sBC + kT * 2 * kN;            // kWarps x kT x 2N: dB | dC by warp
-  float* sDbc = sRed + kWarps * kT * 2 * kN;  // kT x 2N: dB | dC of the block, read by peers
-  float* sDbcAll = sDbc + kT * 2 * kN;        // kT x 2N: dB | dC of the row
+  extern __shared__ __align__(16) float smem[];
+  float* sXin = smem;                          // [kRows][kTile]: x from row t0 - 3
+  float* sXi = sXin + kRows * kTile;           // [kTile][kXiStride]: xi, channel-major
+  float* sPart = sXi + kTile * kXiStride;      // [2][kT][kXW]: the two exchanges' partials
+  float* sDtl = sPart + 2 * kPartFloats;       // [kMaxR][kT]: dt_low, steps by step_slot
+  float* sBv = sDtl + kMaxR * kT;              // [kT][kN]: B
+  float* sCv = sBv + kT * kN;                  // [kT][kN]: C
+  float* st = sCv + kT * kN;                   // [kHalfT][kTile][kN]: rebuilt states
+  float* sDdt = st + kStateFloats;             // [kT][kTile]: ddt_raw
+  float* sDxl = sDdt + kT * kTile;             // [kRows][kTile]: du, then dxi_lin; 3 carried
+  float* sDxdR = sDxl + kRows * kTile;         // [kT][kXW]: [d_dtlow | dB | dC]
+  float* sDxdJ = sDxdR + kT * kXW;             // [kXW][kT]: the same, transposed
+  float* sXp = sDxdJ + kT * kXW;               // [kTile][kXpStride]: own rows of x_proj
+  float* sDtp = sXp + kTile * kXpStride;       // [kTile][kDtpStride]: own columns of dt_proj
+  float* sDxp = sDtp + kTile * kDtpStride;     // [kTile][kDxpStride]: d x_proj of own rows
 
   const int b = blockIdx.y, c0 = rank * kTile;
-  const int tid = threadIdx.x, lane = tid & 31, tx = lane, ty = tid >> 5;
-  const int ch = tid >> 1, half = tid & 1;  // scan: channel c0 + ch, states half * kHalf + k
-  const int c = c0 + ch;
-  const int cc_own = tid & (kTile - 1), rh = tid >> 7;  // conv backward: channel, row half
-  const long long row = 2LL * DI;
-  const float* xzb = p.xz + static_cast<long long>(b) * L * row;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q = lane & (kLanes - 1), group = lane & ~(kLanes - 1);
+  const int ch = tid / kLanes, c = c0 + ch;           // scan: channel, states q * 4 ...
+  const int cc = tid & (kTile - 1), rq = tid / kTile;  // row-wise phases: channel, quarter
+  const long long row2 = 2LL * DI;
+  const float* xzb = p.xz + static_cast<long long>(b) * L * row2;
   const float* gb = p.g + static_cast<long long>(b) * L * DI;
-  float* dxzb = p.dxz + static_cast<long long>(b) * L * row;
+  float* dxzb = p.dxz + static_cast<long long>(b) * L * row2;
   const int nc = (L + kT - 1) / kT;
 
-  float a[kHalf], dh[kHalf], dat[kHalf];
-#pragma unroll
-  for (int k = 0; k < kHalf; ++k) {
-    a[k] = p.at[(half * kHalf + k) * DI + c];
-    dh[k] = 0.f;
-    dat[k] = 0.f;
+  for (int i = tid; i < kTile * kXW; i += kThreads) {
+    const int k = i / kXW, j = i % kXW;
+    sXp[k * kXpStride + j] = j < XW ? p.x_proj[static_cast<long long>(c0 + k) * XW + j] : 0.f;
+    sDxp[k * kDxpStride + j] = 0.f;
   }
-  const float dsk = p.d[c];
-  float dd_acc = 0.f, ddtb_acc = 0.f;
-  float dwbc_acc[kTile / 8] = {};  // rows ty + 8 i, column tx
-  float wc[kW], dcw[kW] = {}, dcb = 0.f;
-#pragma unroll
-  for (int i = 0; i < kW; ++i) wc[i] = p.conv_wt[i * DI + c0 + cc_own];
-
+  for (int i = tid; i < kMaxR * kTile; i += kThreads) {
+    const int k = i / kTile, j = i % kTile;
+    sDtp[j * kDtpStride + k] = k < R ? p.dt_proj[static_cast<long long>(k) * DI + c0 + j] : 0.f;
+  }
   for (int i = tid; i < (kW - 1) * kTile; i += kThreads) sDxl[kT * kTile + i] = 0.f;
 
+  float a2[kPerLane], dh[kPerLane], dA[kPerLane];
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) {
+    a2[i] = p.at[(q * kPerLane + i) * DI + c] * kLog2e;
+    dh[i] = 0.f;  // a_{t+1} dh_{t+1}, carried backwards
+    dA[i] = 0.f;
+  }
+  const float skip = p.d[c], bias = p.dtb[c];
+  float dD = 0.f, ddtb = 0.f;
+  float wc[kW], dcw[kW] = {}, dcb = 0.f;
+#pragma unroll
+  for (int i = 0; i < kW; ++i) wc[i] = p.conv_wt[i * DI + c0 + cc];
+  const float cb = p.conv_b[c0 + cc];
+  float ddtp[kMaxR / 4] = {};  // d dt_proj[rq + 4 m][cc]
+
+  const float4* sB4 = reinterpret_cast<const float4*>(sBv);
+  const float4* sC4 = reinterpret_cast<const float4*>(sCv);
+  float4* st4 = reinterpret_cast<float4*>(st);
+
+  // the conv output of rows 4 rq .. 4 rq + 3 of channel cc, from sXin
+  auto conv_rows = [&](float (&xl)[4]) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float acc = cb;
+#pragma unroll
+      for (int i = 0; i < kW; ++i) acc = fmaf(sXin[(rq * 4 + r + i) * kTile + cc], wc[i], acc);
+      xl[r] = acc;
+    }
+  };
+  // the cluster's partials in sPart[buf], summed in rank order: this
+  // thread's two elements e and e + 1 of the 16 x 64 block
+  auto exchange = [&](int buf) {
+    float2 v = make_float2(0.f, 0.f);
+    for (int r = 0; r < P; ++r) {
+      const float2 pv = reinterpret_cast<const float2*>(
+          cluster.map_shared_rank(sPart + buf * kPartFloats, r))[tid];
+      v.x += pv.x;
+      v.y += pv.y;
+    }
+    return v;
+  };
+
+  __syncthreads();
   for (int ci = nc - 1; ci >= 0; --ci) {
     const int t0 = ci * kT;
 
-    // 1. xi of every channel; the own channels' conv output and x
-    for (int cc = tid; cc < DI; cc += kThreads) {
-      const bool own = cc >= c0 && cc < c0 + kTile;
-      float w[kW], win[kW - 1];
-#pragma unroll
-      for (int i = 0; i < kW; ++i) w[i] = p.conv_wt[i * DI + cc];
-      const float bias = p.conv_b[cc];
-#pragma unroll
-      for (int i = 0; i < kW - 1; ++i) {
-        const int t = t0 - (kW - 1) + i;
-        win[i] = (t >= 0 && t < L) ? xzb[t * row + cc] : 0.f;
-        if (own) sX[i * kTile + cc - c0] = win[i];
-      }
-#pragma unroll
-      for (int r = 0; r < kT; ++r) {  // all kT loads in flight
-        const int t = t0 + r;
-        const float xv = t < L ? xzb[t * row + cc] : 0.f;
-        float acc = bias + xv * w[kW - 1];
-#pragma unroll
-        for (int i = 0; i < kW - 1; ++i) acc += win[i] * w[i];
-        sXi[r * DI + cc] = silu(acc);
-        if (own) {
-          sXl[r * kTile + cc - c0] = acc;
-          sX[(r + kW - 1) * kTile + cc - c0] = xv;
-        }
-#pragma unroll
-        for (int i = 0; i < kW - 2; ++i) win[i] = win[i + 1];
-        win[kW - 2] = xv;
-      }
+    // 1. x, the conv + SiLU and the block's partial of x_dbl
+    for (int i = tid; i < kRows * kTile; i += kThreads) {
+      const int t = t0 - (kW - 1) + i / kTile;
+      sXin[i] = (t >= 0 && t < L) ? xzb[t * row2 + c0 + (i % kTile)] : 0.f;
     }
-
-    // 2. dt_raw of the own channels and B | C
+    // this lane's owned steps' z and g, and its states of the chunk's entry state
+    float own_z[kOwned], own_g[kOwned], h0[kPerLane];
+#pragma unroll
+    for (int j = 0; j < kOwned; ++j) {
+      const int t = t0 + j * kLanes + q;
+      own_z[j] = t < L ? xzb[t * row2 + DI + c] : 0.f;
+      own_g[j] = t < L ? gb[static_cast<long long>(t) * DI + c] : 0.f;
+    }
     {
-      float acc[kRows][4] = {};
-      block_product<4>(sXi, DI, p.wdt + c0, DI, DI, sB, acc);
+      const float* he = p.h_entries + ((static_cast<long long>(b) * nc + ci) * kN +
+                                       q * kPerLane) * DI + c;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
+      for (int i = 0; i < kPerLane; ++i) h0[i] = he[i * DI];
+    }
+    __syncthreads();
+    {
+      float xl[4];
+      conv_rows(xl);
+      *reinterpret_cast<float4*>(sXi + cc * kXiStride + rq * 4) =
+          make_float4(xl[0] / (1.f + expf(-xl[0])), xl[1] / (1.f + expf(-xl[1])),
+                      xl[2] / (1.f + expf(-xl[2])), xl[3] / (1.f + expf(-xl[3])));
+    }
+    __syncthreads();
+    {  // thread (column j, rows 2 rp, 2 rp + 1)
+      const int j = tid % kXW, rp = tid / kXW;
+      float acc0 = 0.f, acc1 = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < kTile; ++k) {
+        const float w = sXp[k * kXpStride + j];
+        const float2 xv = *reinterpret_cast<const float2*>(sXi + k * kXiStride + rp * 2);
+        acc0 = fmaf(xv.x, w, acc0);
+        acc1 = fmaf(xv.y, w, acc1);
+      }
+      sPart[(rp * 2) * kXW + j] = acc0;
+      sPart[(rp * 2 + 1) * kXW + j] = acc1;
+    }
+    cluster_arrive();
+    cluster_wait();
+    {
+      const float2 v = exchange(0);
+      const float vs[2] = {v.x, v.y};
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          sDt[(ty + 8 * r) * kTile + tx + 32 * j] = acc[r][j] + p.dtb[c0 + tx + 32 * j];
-      float bc[kRows][1] = {};
-      block_product<1>(sXi, DI, p.wbc, 2 * kN, DI, sB, bc);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) sBC[(ty + 8 * r) * 2 * kN + tx] = bc[r][0];
+      for (int i = 0; i < 2; ++i) {
+        const int e = tid * 2 + i, r = e / kXW, j = e % kXW;
+        if (j < R) sDtl[j * kT + step_slot(r)] = vs[i];
+        else if (j < R + kN) sBv[r * kN + j - R] = vs[i];
+        else if (j < XW) sCv[r * kN + j - R - kN] = vs[i];
+      }
     }
     __syncthreads();
 
-    // 3. the scan backward of the own channels
+    // 2. the owned steps' scalars
+    float own_raw[kOwned], own_delta[kOwned], own_du[kOwned], own_u[kOwned], own_gy[kOwned],
+        own_gz[kOwned];
     {
-      float hsub[kT / kSub][kHalf], gy[kT], h[kHalf];
-      const float* he = p.h_entries +
-                        (static_cast<long long>(b * nc + ci) * kN + half * kHalf) * DI + c;
 #pragma unroll
-      for (int k = 0; k < kHalf; ++k) h[k] = he[static_cast<long long>(k) * DI];
-      // forward pass: y0 for dz, the states at the sub-block entries
+      for (int j = 0; j < kOwned; ++j) own_raw[j] = bias;
+      for (int k = 0; k < R; ++k) {
+        const float w = sDtp[ch * kDtpStride + k];
+        const float4 dv = *reinterpret_cast<const float4*>(sDtl + k * kT + q * kOwned);
+        own_raw[0] = fmaf(dv.x, w, own_raw[0]);
+        own_raw[1] = fmaf(dv.y, w, own_raw[1]);
+        own_raw[2] = fmaf(dv.z, w, own_raw[2]);
+        own_raw[3] = fmaf(dv.w, w, own_raw[3]);
+      }
 #pragma unroll
-      for (int r = 0; r < kT; ++r) {
-        const int t = t0 + r;
-        if (r % kSub == 0) {
+      for (int j = 0; j < kOwned; ++j) {
+        const float zz = own_z[j], sz = sigmoid(zz);
+        own_u[j] = sXi[ch * kXiStride + j * kLanes + q];
+        own_delta[j] = softplus(own_raw[j]);
+        own_du[j] = own_delta[j] * own_u[j];
+        own_gy[j] = own_g[j] * (zz * sz);
+        own_gz[j] = own_g[j] * (sz * (1.f + zz * (1.f - sz)));
+      }
+    }
+
+    // 3. the scan backward, the later half of the chunk first
+    float s_y[kOwned], s_dhb[kOwned], s_dda[kOwned];
+    // one half of the chunk: steps r0 .. r0 + 7, r0 a compile-time constant
+    auto run_half = [&](auto half) {
+      constexpr int r0 = decltype(half)::value * kHalfT;
+      auto sweep = [&](auto full) {
+        constexpr bool kFull = decltype(full)::value;
+        float h[kPerLane] = {h0[0], h0[1], h0[2], h0[3]};
+        // rebuild: the states before each step of the half (the forward's
+        // arithmetic), into the lane's own slots
 #pragma unroll
-          for (int k = 0; k < kHalf; ++k) hsub[r / kSub][k] = h[k];
+        for (int r = 0; r < r0 + kHalfT; ++r) {
+          if (r >= r0)
+            st4[((r - r0) * kTile + ch) * kLanes + q] = make_float4(h[0], h[1], h[2], h[3]);
+          if (kFull || t0 + r < L) {
+            const int src = group | (r % kLanes);
+            const float delta = __shfl_sync(0xffffffffu, own_delta[r / kLanes], src);
+            const float du = __shfl_sync(0xffffffffu, own_du[r / kLanes], src);
+            const float4 Bv = sB4[r * kLanes + q];
+            const float Bs[kPerLane] = {Bv.x, Bv.y, Bv.z, Bv.w};
+#pragma unroll
+            for (int i = 0; i < kPerLane; ++i)
+              h[i] = fmaf(exp2_sfu(delta * a2[i]), h[i], du * Bs[i]);
+          }
         }
-        const float delta = softplus(sDt[r * kTile + ch]);
-        const float xi = sXi[r * DI + c];
-        const float du = delta * xi;
-        const float* Bt = sBC + r * 2 * kN + half * kHalf;
+        // step back through the half
+        float sums[kLanes * 3];
+#pragma unroll
+        for (int rr = kHalfT - 1; rr >= 0; --rr) {
+          const int r = r0 + rr, j = r % kLanes;
+          if (kFull || t0 + r < L) {  // the same for every thread of the block
+            const int src = group | j;
+            const float delta = __shfl_sync(0xffffffffu, own_delta[r / kLanes], src);
+            const float du = __shfl_sync(0xffffffffu, own_du[r / kLanes], src);
+            const float gy = __shfl_sync(0xffffffffu, own_gy[r / kLanes], src);
+            const float4 hv = st4[(rr * kTile + ch) * kLanes + q];
+            const float4 Bv = sB4[r * kLanes + q];
+            const float4 Cv = sC4[r * kLanes + q];
+            const float hp[kPerLane] = {hv.x, hv.y, hv.z, hv.w};
+            const float Bs[kPerLane] = {Bv.x, Bv.y, Bv.z, Bv.w};
+            const float Cs[kPerLane] = {Cv.x, Cv.y, Cv.z, Cv.w};
+            float vals[2 * kPerLane];
+            float y_pre = 0.f, dhb = 0.f, dda = 0.f;
+#pragma unroll
+            for (int i = 0; i < kPerLane; ++i) {
+              const float an = exp2_sfu(delta * a2[i]);
+              const float ht = fmaf(an, hp[i], du * Bs[i]);
+              y_pre = fmaf(Cs[i], ht, y_pre);
+              const float dhn = fmaf(gy, Cs[i], dh[i]);
+              dh[i] = an * dhn;
+              const float daa = dh[i] * hp[i];
+              dA[i] = fmaf(daa, delta, dA[i]);
+              dda = fmaf(daa, a2[i], dda);
+              dhb = fmaf(dhn, Bs[i], dhb);
+              vals[i] = dhn * du;             // dB_t, this channel's term
+              vals[kPerLane + i] = ht * gy;  // dC_t, this channel's term
+            }
+            sums[j * 3] = y_pre;
+            sums[j * 3 + 1] = dhb;
+            sums[j * 3 + 2] = dda;
+            const float part = warp_reduce_scatter(vals, lane);
+            __syncwarp();  // every lane of the warp has read its states of step r
+            st[(rr * kTile + warp * kGroups) * kN + lane] = part;
+          } else {
+            sums[j * 3] = sums[j * 3 + 1] = sums[j * 3 + 2] = 0.f;
+          }
+          if (j == 0) {
+            group_reduce_scatter(sums, q);
+            s_y[r / kLanes] = sums[0];
+            s_dhb[r / kLanes] = sums[1];
+            s_dda[r / kLanes] = sums[2];
+          }
+        }
+      };
+      if (t0 + kT <= L) {
+        sweep(std::true_type{});
+      } else {
+        sweep(std::false_type{});
+      }
+      __syncthreads();  // every warp's dB/dC sums of the half are parked in st
+      // the 16 warps' sums: lane l of warp w holds, for state group l % 4,
+      // the dB (l < 16) or dC sum of state 4 (l % 4) + (l / 4) % 4
+      if (tid < kHalfT * 32) {
+        const int rr = tid / 32, l = tid % 32, r = r0 + rr;
+        float s = 0.f;
+        if (t0 + r < L) {
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w) s += st[(rr * kTile + w * kGroups) * kN + l];
+        }
+        const int n = (l % kLanes) * kPerLane + (l / kLanes) % kPerLane;
+        sPart[kPartFloats + r * kXW + R + (l / (kLanes * kPerLane)) * kN + n] = s;
+      }
+      __syncthreads();  // st is free again
+    };
+    run_half(std::integral_constant<int, 1>{});
+    run_half(std::integral_constant<int, 0>{});
+
+    // du, ddt, dz of the owned steps
+#pragma unroll
+    for (int j = 0; j < kOwned; ++j) {
+      const int r = j * kLanes + q, t = t0 + r;
+      float ddt = 0.f, du = 0.f;
+      if (t < L) {
+        ddt = fmaf(s_dda[j], kLn2, s_dhb[j] * own_u[j]) * sigmoid(own_raw[j]);
+        du = fmaf(own_delta[j], s_dhb[j], own_gy[j] * skip);
+        dD = fmaf(own_gy[j], own_u[j], dD);
+        ddtb += ddt;
+        dxzb[t * row2 + DI + c] = own_gz[j] * fmaf(skip, own_u[j], s_y[j]);
+      }
+      sDdt[r * kTile + ch] = ddt;
+      sDxl[r * kTile + ch] = du;
+    }
+    __syncthreads();
+
+    // 4. d_dtlow = ddt_raw dt_proj^T over the own channels: thread (row
+    // tid / 32, column tid % 32)
+    {
+      const int r = tid / 32, k = tid % 32;
+      if (k < R) {
         float acc = 0.f;
-#pragma unroll
-        for (int k = 0; k < kHalf; ++k) {
-          h[k] = expf(delta * a[k]) * h[k] + du * Bt[k];
-          acc += Bt[kN + k] * h[k];
-        }
-        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-        const float y0 = acc + dsk * xi;
-        const float z = t < L ? xzb[t * row + DI + c] : 0.f;
-        const float gg = t < L ? gb[static_cast<long long>(t) * DI + c] : 0.f;
-        const float sz = sigmoid(z);
-        gy[r] = gg * (z * sz);
-        if (half == 0 && t < L) dxzb[t * row + DI + c] = gg * y0 * (sz * (1.f + z * (1.f - sz)));
+#pragma unroll 8
+        for (int j = 0; j < kTile; ++j) acc = fmaf(sDdt[r * kTile + j], sDtp[j * kDtpStride + k], acc);
+        sPart[kPartFloats + r * kXW + k] = acc;
       }
-      // reverse sweep, sub-block by sub-block from the end
+    }
+    cluster_arrive();
+    {  // d dt_proj[k][cc] += sum_r dt_low[r][k] ddt_raw[r][cc], k = rq + 4 m
+      float dv[kT];
 #pragma unroll
-      for (int sb = kT / kSub - 1; sb >= 0; --sb) {
-        float hh[kSub][kHalf];  // the state after each step of the sub-block
+      for (int r = 0; r < kT; ++r) dv[r] = sDdt[r * kTile + cc];
 #pragma unroll
-        for (int j = 0; j < kSub; ++j) {
-          const int r = sb * kSub + j;
-          const float delta = softplus(sDt[r * kTile + ch]);
-          const float du = delta * sXi[r * DI + c];
-          const float* Bt = sBC + r * 2 * kN + half * kHalf;
+      for (int m = 0; m < kMaxR / 4; ++m) {
+        const int k = rq + 4 * m;
+        if (k < R) {
+          float acc = 0.f;
 #pragma unroll
-          for (int k = 0; k < kHalf; ++k)
-            hh[j][k] = expf(delta * a[k]) * (j > 0 ? hh[j - 1][k] : hsub[sb][k]) + du * Bt[k];
-        }
-#pragma unroll
-        for (int j = kSub - 1; j >= 0; --j) {
-          const int r = sb * kSub + j;
-          const float raw = sDt[r * kTile + ch];
-          const float delta = softplus(raw);
-          const float xi = sXi[r * DI + c];
-          const float* Bt = sBC + r * 2 * kN + half * kHalf;
-          float dhb = 0.f, dda = 0.f, pb[kHalf], pc[kHalf];
-#pragma unroll
-          for (int k = 0; k < kHalf; ++k) {
-            dh[k] += gy[r] * Bt[kN + k];
-            const float ea = expf(delta * a[k]);
-            const float daa = dh[k] * (j > 0 ? hh[j - 1][k] : hsub[sb][k]) * ea;
-            dat[k] += daa * delta;
-            dhb += dh[k] * Bt[k];
-            dda += daa * a[k];
-            pb[k] = dh[k] * (delta * xi);
-            pc[k] = hh[j][k] * gy[r];
-            dh[k] *= ea;
-          }
-          dhb += __shfl_xor_sync(0xffffffffu, dhb, 1);
-          dda += __shfl_xor_sync(0xffffffffu, dda, 1);
-          const float ddt = (dda + dhb * xi) * sigmoid(raw);
-          if (half == 0) {
-            sDdt[r * kTile + ch] = ddt;
-            sDu[r * kTile + ch] = delta * dhb + gy[r] * dsk;
-            dd_acc += gy[r] * xi;
-            ddtb_acc += ddt;
-          }
-          const float sb_b = warp_channel_sum(pb, lane);
-          const float sb_c = warp_channel_sum(pc, lane);
-          if ((lane & 2) == 0) {
-            const int s = half * kHalf + ((lane >> 2) & 7);
-            sRed[(ty * kT + r) * 2 * kN + s] = sb_b;
-            sRed[(ty * kT + r) * 2 * kN + kN + s] = sb_c;
-          }
+          for (int r = 0; r < kT; ++r) acc = fmaf(sDtl[k * kT + step_slot(r)], dv[r], acc);
+          ddtp[m] += acc;
         }
       }
     }
-    __syncthreads();
-
-    // 4. dB | dC of the block: the warps' sums in a fixed order
-    for (int i = tid; i < kT * 2 * kN; i += kThreads) {
-      float s = 0.f;
-      for (int w = 0; w < kWarps; ++w) s += sRed[w * kT * 2 * kN + i];
-      sDbc[i] = s;
-    }
-
-    // 5. exchange across the cluster
-    cluster.sync();
-    for (int q = 0; q < R; ++q) {
-      const float* peer = cluster.map_shared_rank(sDdt, q);
-      float v[kT * kTile / kThreads];  // all of a peer's loads in flight at once
-#pragma unroll
-      for (int e = 0; e < kT * kTile / kThreads; ++e) v[e] = peer[tid + e * kThreads];
-#pragma unroll
-      for (int e = 0; e < kT * kTile / kThreads; ++e) {
-        const int i = tid + e * kThreads;
-        sDdtAll[(i / kTile) * DI + q * kTile + (i % kTile)] = v[e];
-      }
-    }
-    for (int i = tid; i < kT * 2 * kN; i += kThreads) {
-      float s = 0.f;
-      for (int q = 0; q < R; ++q) s += cluster.map_shared_rank(sDbc, q)[i];
-      sDbcAll[i] = s;
-    }
-    cluster.sync();
-
-    // 6. dxi_lin of the own channels
+    cluster_wait();
     {
-      float acc[kRows][4];
+      const float2 v = exchange(1);
+      const float vs[2] = {v.x, v.y};
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[r][j] = sDu[(ty + 8 * r) * kTile + tx + 32 * j];
-      block_product<4>(sDdtAll, DI, p.wdt_t + c0, DI, DI, sB, acc);
-      block_product<4>(sDbcAll, 2 * kN, p.wbc_t + c0, DI, 2 * kN, sB, acc);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int idx = (ty + 8 * r) * kTile + tx + 32 * j;
-          const float xl = sXl[idx], sg = sigmoid(xl);
-          sDxl[idx] = acc[r][j] * (sg * (1.f + xl * (1.f - sg)));
-        }
+      for (int i = 0; i < 2; ++i) {
+        const int e = tid * 2 + i, r = e / kXW, j = e % kXW;
+        const float val = j < XW ? vs[i] : 0.f;
+        sDxdR[r * kXW + j] = val;
+        sDxdJ[j * kT + r] = val;
+      }
     }
     __syncthreads();
 
-    // 7. conv backward, dW_dt's partial, dW_bc
+    // 5. dxi_lin of rows 4 rq .. 4 rq + 3 of channel cc, then d x_proj
+    {
+      float acc[4];
 #pragma unroll
-    for (int rr = 0; rr < kT / 2; ++rr) {
-      const int r = rh * (kT / 2) + rr, t = t0 + r;
-      const float dxl = sDxl[r * kTile + cc_own];
-      float dx = dxl * wc[kW - 1];
+      for (int r = 0; r < 4; ++r) acc[r] = sDxl[(rq * 4 + r) * kTile + cc];
+      for (int j = 0; j < XW; ++j) {
+        const float w = sXp[cc * kXpStride + j];
+        const float4 dv = *reinterpret_cast<const float4*>(sDxdJ + j * kT + rq * 4);
+        acc[0] = fmaf(dv.x, w, acc[0]);
+        acc[1] = fmaf(dv.y, w, acc[1]);
+        acc[2] = fmaf(dv.z, w, acc[2]);
+        acc[3] = fmaf(dv.w, w, acc[3]);
+      }
+      float xl[4];
+      conv_rows(xl);
 #pragma unroll
-      for (int i = 0; i < kW - 1; ++i) dx += sDxl[(r + kW - 1 - i) * kTile + cc_own] * wc[i];
-      if (t < L) dxzb[t * row + c0 + cc_own] = dx;
-#pragma unroll
-      for (int i = 0; i < kW; ++i) dcw[i] += sX[(r + i) * kTile + cc_own] * dxl;
-      dcb += dxl;
+      for (int r = 0; r < 4; ++r) {
+        const float sg = sigmoid(xl[r]);
+        sDxl[(rq * 4 + r) * kTile + cc] = acc[r] * (sg * (1.f + xl[r] * (1.f - sg)));
+      }
     }
-    {  // rows rb + ty + 8 i, columns tx + 32 j: 16 partial sums, their loads issued first
-      const bool first = ci == nc - 1;
-      for (int rb = 0; rb < DI; rb += 32) {
-        float* out = p.dwdt + (static_cast<long long>(b) * DI + rb + ty) * DI + c0 + tx;
-        float prev[4][4], part[4][4] = {};
+    {  // d x_proj[cc][16 rq .. 16 rq + 15] += sum_r xi[r][cc] dxd[r][.]
+      float xv[kT];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) prev[i][j] = first ? 0.f : out[8 * i * DI + 32 * j];
+      for (int r4 = 0; r4 < kT / 4; ++r4) {
+        const float4 v = *reinterpret_cast<const float4*>(sXi + cc * kXiStride + r4 * 4);
+        xv[r4 * 4] = v.x;
+        xv[r4 * 4 + 1] = v.y;
+        xv[r4 * 4 + 2] = v.z;
+        xv[r4 * 4 + 3] = v.w;
+      }
+      if (rq * 16 < XW) {
+        float acc[16] = {};
 #pragma unroll
         for (int r = 0; r < kT; ++r) {
-          float dv[4];
+          const float4* d4 = reinterpret_cast<const float4*>(sDxdR + r * kXW + rq * 16);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) dv[j] = sDdt[r * kTile + tx + 32 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float xv = sXi[r * DI + rb + ty + 8 * i];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) part[i][j] = fmaf(xv, dv[j], part[i][j]);
+          for (int v = 0; v < 4; ++v) {
+            const float4 dv = d4[v];
+            acc[v * 4] = fmaf(xv[r], dv.x, acc[v * 4]);
+            acc[v * 4 + 1] = fmaf(xv[r], dv.y, acc[v * 4 + 1]);
+            acc[v * 4 + 2] = fmaf(xv[r], dv.z, acc[v * 4 + 2]);
+            acc[v * 4 + 3] = fmaf(xv[r], dv.w, acc[v * 4 + 3]);
           }
         }
+        float4* out = reinterpret_cast<float4*>(sDxp + cc * kDxpStride + rq * 16);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) out[8 * i * DI + 32 * j] = prev[i][j] + part[i][j];
+        for (int v = 0; v < 4; ++v) {
+          float4 o = out[v];
+          o.x += acc[v * 4];
+          o.y += acc[v * 4 + 1];
+          o.z += acc[v * 4 + 2];
+          o.w += acc[v * 4 + 3];
+          out[v] = o;
+        }
       }
     }
+    __syncthreads();
+
+    // the conv backward of rows 4 rq .. 4 rq + 3: dx[t] = sum_i w[i] dxl[t + 3 - i]
 #pragma unroll
-    for (int i = 0; i < kTile / 8; ++i) {
-      float part = 0.f;
+    for (int rr = 0; rr < 4; ++rr) {
+      const int r = rq * 4 + rr, t = t0 + r;
+      const float dxl = sDxl[r * kTile + cc];
+      float dx = dxl * wc[kW - 1];
 #pragma unroll
-      for (int r = 0; r < kT; ++r) part += sXi[r * DI + c0 + ty + 8 * i] * sDbcAll[r * 2 * kN + tx];
-      dwbc_acc[i] += part;
+      for (int i = 0; i < kW - 1; ++i) dx = fmaf(sDxl[(r + kW - 1 - i) * kTile + cc], wc[i], dx);
+      if (t < L) dxzb[t * row2 + c0 + cc] = dx;
+#pragma unroll
+      for (int i = 0; i < kW; ++i) dcw[i] = fmaf(sXin[(r + i) * kTile + cc], dxl, dcw[i]);
+      dcb += dxl;
     }
     __syncthreads();
     // the first kW - 1 rows of dxi_lin are the right context of the next chunk
     for (int i = tid; i < (kW - 1) * kTile; i += kThreads) sDxl[kT * kTile + i] = sDxl[i];
     __syncthreads();
   }
+  cluster_arrive();  // no block leaves while a peer may still read its partials
+  cluster_wait();
 
   // the block's partials of the weight gradients
+  const long long bo = static_cast<long long>(b) * DI;
 #pragma unroll
-  for (int k = 0; k < kHalf; ++k)
-    p.dat[(static_cast<long long>(b) * kN + half * kHalf + k) * DI + c] = dat[k];
-  if (half == 0) {
-    p.dd[static_cast<long long>(b) * DI + c] = dd_acc;
-    p.ddtb[static_cast<long long>(b) * DI + c] = ddtb_acc;
+  for (int i = 0; i < kPerLane; ++i) p.dat[(static_cast<long long>(b) * kN + q * kPerLane + i) * DI + c] = dA[i];
+  dD = group_sum(dD);
+  ddtb = group_sum(ddtb);
+  if (q == 0) {
+    p.dd[bo + c] = dD;
+    p.ddtb[bo + c] = ddtb;
   }
 #pragma unroll
-  for (int i = 0; i < kTile / 8; ++i)
-    p.dwbc[(static_cast<long long>(b) * DI + c0 + ty + 8 * i) * 2 * kN + tx] = dwbc_acc[i];
-  // the conv's: the two row halves summed through shared memory
-  if (rh == 1) {
-#pragma unroll
-    for (int i = 0; i < kW; ++i) sB[i * kTile + cc_own] = dcw[i];
-    sB[kW * kTile + cc_own] = dcb;
+  for (int m = 0; m < kMaxR / 4; ++m) {
+    const int k = rq + 4 * m;
+    if (k < R) p.ddtp[(static_cast<long long>(b) * R + k) * DI + c0 + cc] = ddtp[m];
   }
+  for (int i = tid; i < kTile * XW; i += kThreads) {
+    const int k = i / XW, j = i % XW;
+    p.dxp[(bo + c0 + k) * XW + j] = sDxp[k * kDxpStride + j];
+  }
+  // the conv's: the four row quarters summed in order through shared memory
+#pragma unroll
+  for (int i = 0; i < kW; ++i) st[(rq * (kW + 1) + i) * kTile + cc] = dcw[i];
+  st[(rq * (kW + 1) + kW) * kTile + cc] = dcb;
   __syncthreads();
-  if (rh == 0) {
+  if (rq == 0) {
 #pragma unroll
-    for (int i = 0; i < kW; ++i)
-      p.dconv_wt[(static_cast<long long>(b) * kW + i) * DI + c0 + cc_own] =
-          dcw[i] + sB[i * kTile + cc_own];
-    p.dconv_b[static_cast<long long>(b) * DI + c0 + cc_own] = dcb + sB[kW * kTile + cc_own];
+    for (int i = 0; i <= kW; ++i) {
+      float s = 0.f;
+#pragma unroll
+      for (int qq = 0; qq < kThreads / kTile; ++qq) s += st[(qq * (kW + 1) + i) * kTile + cc];
+      if (i < kW) p.dconv_wt[(static_cast<long long>(b) * kW + i) * DI + c0 + cc] = s;
+      else p.dconv_b[bo + c0 + cc] = s;
+    }
   }
 }
 
-size_t smem_bytes(int DI) {
-  return sizeof(float) * (2 * static_cast<size_t>(kT) * DI + kKT * kTile + 4 * kT * kTile +
-                          2 * (kT + kW - 1) * kTile + kT * 2 * kN * (kWarps + 3));
+// The launch of a grid of Bsz clusters of DI / 128 blocks; attr is the
+// cluster-dimension attribute the configuration points to.
+cudaLaunchConfig_t launch_config(int Bsz, int DI, cudaStream_t stream,
+                                 cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(DI / kTile, Bsz, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = DI / kTile;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
+
+bool shape_ok(int DI) { return DI % kTile == 0 && DI >= kTile && DI <= kMaxCluster * kTile; }
 
 }  // namespace
 
 extern "C" {
 
-// ins: xz, g, conv_wt, conv_b, wdt, wdt_t, dtb, wbc, wbc_t, at, d, h_entries
-// (12 pointers); outs: dxz, dwdt, dwbc, dconv_wt, dconv_b, dat, dd, ddtb
+// ins: xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d, h_entries, g (10
+// pointers); outs: dxz, dx_proj, ddt_proj, dconv_wt, dconv_b, dat, dd, ddtb
 // (8 pointers, the weight gradients as (B, ...) partials). Shapes as in
 // BwdArgs; all float32 and contiguous. Returns a cudaError_t code
-// (cudaErrorInvalidValue for N other than 16, W other than 4, or DI not a
-// multiple of 128 up to 1024).
+// (cudaErrorInvalidValue for N other than 16, W other than 4, DI not a
+// multiple of 128 up to 1024, or R + 2N above 64).
 int fused_mixer_bwd(const void* const* ins, void* const* outs, int Bsz, int L, int DI, int N,
-                    int W, void* stream) {
-  if (N != kN || W != kW || DI % kTile != 0 || DI > kMaxCluster * kTile)
-    return cudaErrorInvalidValue;
+                    int R, int W, void* stream) {
+  if (N != kN || W != kW || !shape_ok(DI) || R < 1 || R > kMaxR) return cudaErrorInvalidValue;
   const auto f = [&](int i) { return static_cast<const float*>(ins[i]); };
   const auto o = [&](int i) { return static_cast<float*>(outs[i]); };
-  const BwdArgs args{f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(7), f(8), f(9), f(10), f(11),
-                     o(0), o(1), o(2), o(3), o(4), o(5), o(6), o(7), L, DI};
-  const size_t smem = smem_bytes(DI);
+  const BwdArgs args{f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(7), f(8), f(9),
+                     o(0), o(1), o(2), o(3), o(4), o(5), o(6), o(7), L, DI, R};
   cudaError_t err = cudaFuncSetAttribute(fused_mixer_bwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+                                         kSmemBytes);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(DI / kTile, Bsz, 1);
-  cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = DI / kTile;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config(Bsz, DI, static_cast<cudaStream_t>(stream), &attr);
   err = cudaLaunchKernelEx(&cfg, fused_mixer_bwd_kernel, args);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// How many clusters (batch rows) at width DI the current card holds at once,
+// by the occupancy calculator; a batch of Bsz rows runs in
+// ceil(Bsz / count) waves. A negative cudaError_t code on failure.
+int fused_mixer_bwd_max_active_clusters(int DI) {
+  if (!shape_ok(DI)) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(fused_mixer_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kSmemBytes);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(1, DI, nullptr, &attr);
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, fused_mixer_bwd_kernel, &cfg);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return clusters;
 }
 
 int fused_mixer_bwd_chunk_len() { return kT; }

@@ -3,13 +3,15 @@ their plain versions and the autograd Function over them.
 
 From xz = x @ in_proj (b, l, 2 d_inner), columns [x | z], the interior is
 
-    xi     = silu(causal_conv(x) + conv_b)
-    dt_raw = xi @ W_dt + dt_b,   W_dt = x_proj[:, :R] @ dt_proj
-    B | C  = xi @ W_bc,          W_bc = x_proj[:, R:R + 2n]
-    y      = (selective_scan(xi, softplus(dt_raw), A, B, C) + D xi) * silu(z)
+    xi             = silu(causal_conv(x) + conv_b)
+    dt_low | B | C = xi @ x_proj                      (R + 2n columns)
+    dt_raw         = dt_low @ dt_proj + dt_b          (the rank-R pair)
+    y              = (selective_scan(xi, softplus(dt_raw), A, B, C) + D xi) * silu(z)
 
 in the kernels' layouts: conv_wt (W, d) and at (n, d) transposed, conv_b,
-dtb and d (d,), wdt (d, d), wbc (d, 2n).
+dtb and d (d,), x_proj (d, R + 2n) and dt_proj (R, d) as
+``mamba_mixer_apply`` keeps them. No (d, d) product of the two projections
+is formed anywhere on this route.
 
 Kernels:
 - ``csrc/fused_mixer_fwd.cu`` (K10), which replaces the TPU kernel
@@ -17,21 +19,25 @@ Kernels:
   (si_mamba_tpu/ops/pallas/fused_mixer_kernel.py), in two variants: the lean
   forward (serving) and the training forward, which also writes the state
   entering every :data:`CHUNK`-token chunk, h_entries (b, ceil(l / CHUNK),
-  n, d) fp32;
+  n, d) fp32. At small batch it cuts L into segments (two passes); the
+  variant with states takes the lean one's segment count, so both give the
+  same y bit for bit;
 - ``csrc/fused_mixer_bwd.cu`` (K11), which replaces ``_bwd_kernel`` behind
   ``_fused_bwd_call``: it recomputes the interior chunk by chunk from
   h_entries, runs the reverse dh scan and writes dxz and per-batch-row
   partials of the seven weight gradients, which ``torch.sum`` finishes.
-Both are bound by fp32 operations on the H100; the sources describe the
-designs. They are built for d_state 16, d_conv 4 and a d_inner that is a
-multiple of 128 up to :data:`MAX_D_INNER`, in float32; on CUDA anything else
-raises.
+Both run the d / TILE blocks of a batch row as one thread-block cluster; the
+sources describe the designs and what bounds them. They are built for
+d_state 16, d_conv 4, dt_rank + 2 d_state up to :data:`MAX_XDBL` and a
+d_inner that is a multiple of 128 up to :data:`MAX_D_INNER`, in float32; on
+CUDA anything else raises.
 
-:func:`fused_mamba_mixer` folds W_dt and transposes the weights outside the
-Function, as the JAX function does, so autograd returns exact d(x_proj) and
-d(dt_proj). It runs the lean K10 when no gradient is wanted and
-:class:`FusedMixerFn` (K10 with states, K11) when one is; on a CPU tensor
-each is its plain version. Nothing falls back from one to the other.
+:func:`fused_mamba_mixer` transposes conv_w and A outside the Function, as
+the JAX function does, so autograd returns their exact gradients; x_proj and
+dt_proj go in as they are and K11 returns their gradients. It runs the lean
+K10 when no gradient is wanted and :class:`FusedMixerFn` (K10 with states,
+K11) when one is; on a CPU tensor each is its plain version. Nothing falls
+back from one to the other.
 """
 
 from __future__ import annotations
@@ -48,7 +54,8 @@ CHUNK = 16  # tokens a chunk of both kernels, the h_entries stride (kT; checked 
 STATE = 16  # d_state the kernels are built for (kN)
 CONV = 4  # conv width the kernels are built for (kW)
 TILE = 128  # channels a block (kTile); d_inner must be a multiple
-MAX_D_INNER = 8 * TILE  # K11 runs d_inner / TILE blocks as one cluster, at most 8
+MAX_D_INNER = 8 * TILE  # d_inner / TILE blocks form one cluster, at most the portable 8
+MAX_XDBL = 64  # columns of x_proj, dt_rank + 2 d_state, the kernels take (kXW)
 
 _NOT_BUILT = "ROADMAP queue 2, K10/K11: other sizes are built when a configuration needs them"
 
@@ -74,28 +81,31 @@ def _conv_lin(x, conv_wt, conv_b):
     return out
 
 
-def _interior(xz, conv_wt, conv_b, wdt, dtb, wbc, n: int):
-    """x, z, xi_lin, xi, dt_raw, B, C of the forward, in the accumulation dtype."""
-    di = xz.shape[-1] // 2
+def _interior(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, n: int):
+    """x, z, xi_lin, xi, dt_low, dt_raw, B, C of the forward, in the
+    accumulation dtype."""
+    di, r = xz.shape[-1] // 2, dt_proj.shape[0]
     x, z = xz[..., :di], xz[..., di:]
     xi_lin = _conv_lin(x, conv_wt, conv_b)
     xi = F.silu(xi_lin)
-    raw = xi @ wdt + dtb
-    bct = xi @ wbc
-    return x, z, xi_lin, xi, raw, bct[..., :n], bct[..., n:]
+    x_dbl = xi @ x_proj
+    dt_low = x_dbl[..., :r]
+    raw = dt_low @ dt_proj + dtb
+    return x, z, xi_lin, xi, dt_low, raw, x_dbl[..., r:r + n], x_dbl[..., r + n:r + 2 * n]
 
 
-def fused_mixer_fwd_ref(xz, conv_wt, conv_b, wdt, dtb, wbc, at, d, chunk: int = 64,
+def fused_mixer_fwd_ref(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d, chunk: int = 64,
                         emit_states: bool = False):
     """Plain version of K10: (y (b, l, d), h_entries (b, ceil(l / chunk), n, d)
     or None), the state entering every chunk. What ``_fwd_kernel`` computes,
-    in plain fp32 (or fp64 for fp64 input), the scan one step at a time."""
+    with the rank-R pair in place of the folded product, in plain fp32 (or
+    fp64 for fp64 input), the scan one step at a time."""
     acc = _acc_dtype(xz)
-    xz, conv_wt, conv_b, wdt, dtb, wbc, at, d = (
-        t.to(acc) for t in (xz, conv_wt, conv_b, wdt, dtb, wbc, at, d))
+    xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d = (
+        t.to(acc) for t in (xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d))
     b, l, _ = xz.shape
     n = at.shape[0]
-    _, z, _, xi, raw, Bm, Cm = _interior(xz, conv_wt, conv_b, wdt, dtb, wbc, n)
+    _, z, _, xi, _, raw, Bm, Cm = _interior(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, n)
     delta, A = F.softplus(raw), at.t()
     h = xz.new_zeros((b, A.shape[0], n))
     ys, entries = [], []
@@ -114,7 +124,7 @@ def fused_mixer_fwd_ref(xz, conv_wt, conv_b, wdt, dtb, wbc, at, d, chunk: int = 
     return y, h_entries
 
 
-def fused_mixer_bwd_ref(xz, conv_wt, conv_b, wdt, dtb, wbc, at, d, h_entries, g,
+def fused_mixer_bwd_ref(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d, h_entries, g,
                         chunk: int = 64):
     """Plain version of K11, written out as ``_bwd_kernel`` computes it: per
     chunk, last first, the states rebuilt from the chunk's entry state, then
@@ -122,16 +132,19 @@ def fused_mixer_bwd_ref(xz, conv_wt, conv_b, wdt, dtb, wbc, at, d, h_entries, g,
 
         dh_t = gy_t C_t + a_{t+1} dh_{t+1},   gy_t = g_t silu(z_t),
 
-    with dh carried across chunks; then dxi = du + ddt_raw W_dt^T + (dB|dC)
-    W_bc^T, the conv backward and the weight gradients. Returns (dxz,
-    dconv_wt, dconv_b, dwdt, ddtb, dwbc, dat, dd), the gradients of the
-    inputs in their order."""
+    with dh carried across chunks; then, through the rank-R pair,
+    d_dtlow = ddt_raw dt_proj^T, dxi = du + [d_dtlow | dB | dC] x_proj^T, the
+    conv backward and the weight gradients d x_proj = xi^T [d_dtlow | dB |
+    dC] and d dt_proj = dt_low^T ddt_raw. Returns (dxz, dconv_wt, dconv_b,
+    dx_proj, ddt_proj, ddtb, dat, dd), the gradients of the inputs in their
+    order."""
     acc = _acc_dtype(xz)
-    xz, conv_wt, conv_b, wdt, dtb, wbc, at, d, g = (
-        t.to(acc) for t in (xz, conv_wt, conv_b, wdt, dtb, wbc, at, d, g))
+    xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d, g = (
+        t.to(acc) for t in (xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d, g))
     b, l, _ = xz.shape
     n, W = at.shape[0], conv_wt.shape[0]
-    x, z, xi_lin, xi, raw, Bm, Cm = _interior(xz, conv_wt, conv_b, wdt, dtb, wbc, n)
+    x, z, xi_lin, xi, dt_low, raw, Bm, Cm = _interior(xz, conv_wt, conv_b, x_proj, dt_proj,
+                                                      dtb, n)
     delta, sig_raw, A = F.softplus(raw), torch.sigmoid(raw), at.t()
     sz = torch.sigmoid(z)
     gy = g * (z * sz)
@@ -162,8 +175,8 @@ def fused_mixer_bwd_ref(xz, conv_wt, conv_b, wdt, dtb, wbc, at, d, h_entries, g,
             dct[:, t] = torch.einsum("bdn,bd->bn", hs[t - t0], gy[:, t])
             dh = a * dh
     dz = g * y0 * (sz * (1.0 + z * (1.0 - sz)))
-    dbct = torch.cat([dbt, dct], dim=-1)
-    dxi = du + ddt @ wdt.t() + dbct @ wbc.t()
+    dxd = torch.cat([ddt @ dt_proj.t(), dbt, dct], dim=-1)  # [d_dtlow | dB | dC]
+    dxi = du + dxd @ x_proj.t()
     sx = torch.sigmoid(xi_lin)
     dxl = dxi * (sx * (1.0 + xi_lin * (1.0 - sx)))
     # the conv backward: dx[t] = sum_i w[i] dxl[t + W - 1 - i]
@@ -174,18 +187,19 @@ def fused_mixer_bwd_ref(xz, conv_wt, conv_b, wdt, dtb, wbc, at, d, h_entries, g,
         dx = dx + dxl_p[:, k:k + l] * conv_wt[i]
     xp = F.pad(x, (0, 0, W - 1, 0))
     dconv_wt = torch.stack([torch.sum(xp[:, i:i + l] * dxl, dim=(0, 1)) for i in range(W)])
-    dwdt = torch.einsum("bti,btj->ij", xi, ddt)
-    dwbc = torch.einsum("bti,btj->ij", xi, dbct)
-    return (torch.cat([dx, dz], dim=-1), dconv_wt, dxl.sum(dim=(0, 1)), dwdt,
-            ddt.sum(dim=(0, 1)), dwbc, dA.t(), torch.sum(gy * xi, dim=(0, 1)))
+    dx_proj = torch.einsum("bti,btj->ij", xi, dxd)
+    ddt_proj = torch.einsum("btk,btj->kj", dt_low, ddt)
+    return (torch.cat([dx, dz], dim=-1), dconv_wt, dxl.sum(dim=(0, 1)), dx_proj, ddt_proj,
+            ddt.sum(dim=(0, 1)), dA.t(), torch.sum(gy * xi, dim=(0, 1)))
 
 
-@functools.cache
-def _fwd_library() -> ctypes.CDLL:
-    lib = load_library("fused_mixer_fwd")
-    lib.fused_mixer_fwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p]
+def fwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a ``fused_mixer_fwd`` library."""
+    lib.fused_mixer_fwd.argtypes = [ctypes.POINTER(ctypes.c_void_p)] + \
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     lib.fused_mixer_fwd.restype = ctypes.c_int
+    lib.fused_mixer_fwd_segments.argtypes = [ctypes.c_int] * 3
+    lib.fused_mixer_fwd_segments.restype = ctypes.c_int
     lib.fused_mixer_chunk_len.restype = ctypes.c_int
     if lib.fused_mixer_chunk_len() != CHUNK:
         raise RuntimeError("csrc/fused_mixer_fwd.cu's kT differs from CHUNK")
@@ -194,12 +208,13 @@ def _fwd_library() -> ctypes.CDLL:
     return lib
 
 
-@functools.cache
-def _bwd_library() -> ctypes.CDLL:
-    lib = load_library("fused_mixer_bwd")
+def bwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a ``fused_mixer_bwd`` library."""
     lib.fused_mixer_bwd.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 2 + \
-        [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.fused_mixer_bwd.restype = ctypes.c_int
+    lib.fused_mixer_bwd_max_active_clusters.argtypes = [ctypes.c_int]
+    lib.fused_mixer_bwd_max_active_clusters.restype = ctypes.c_int
     lib.fused_mixer_bwd_chunk_len.restype = ctypes.c_int
     if lib.fused_mixer_bwd_chunk_len() != CHUNK:
         raise RuntimeError("csrc/fused_mixer_bwd.cu's kT differs from CHUNK")
@@ -208,15 +223,26 @@ def _bwd_library() -> ctypes.CDLL:
     return lib
 
 
-_NAMES = ("xz", "conv_wt", "conv_b", "wdt", "dtb", "wbc", "at", "d")
+@functools.cache
+def _fwd_library() -> ctypes.CDLL:
+    return fwd_interface(load_library("fused_mixer_fwd"))
 
 
-def _check_inputs(args, extra: dict | None = None) -> tuple[int, int, int]:
-    """Raise for anything the kernels do not take; returns (b, l, d_inner)."""
+@functools.cache
+def _bwd_library() -> ctypes.CDLL:
+    return bwd_interface(load_library("fused_mixer_bwd"))
+
+
+_NAMES = ("xz", "conv_wt", "conv_b", "x_proj", "dt_proj", "dtb", "at", "d")
+
+
+def _check_inputs(args, extra: dict | None = None) -> tuple[int, int, int, int]:
+    """Raise for anything the kernels do not take; returns (b, l, d_inner,
+    dt_rank)."""
     named = dict(zip(_NAMES, args)) | (extra or {})
-    xz, conv_wt, at = named["xz"], named["conv_wt"], named["at"]
+    xz, conv_wt, dt_proj, at = named["xz"], named["conv_wt"], named["dt_proj"], named["at"]
     b, l, two_d = xz.shape
-    di, n, W = two_d // 2, at.shape[0], conv_wt.shape[0]
+    di, n, W, r = two_d // 2, at.shape[0], conv_wt.shape[0], dt_proj.shape[0]
     for name, t in named.items():
         if t.dtype != torch.float32:
             raise TypeError(f"the fused-mixer kernels take float32 inputs; {name} is {t.dtype}")
@@ -227,33 +253,48 @@ def _check_inputs(args, extra: dict | None = None) -> tuple[int, int, int]:
     if two_d % 2 or not fused_mixer_supported(di, n, l):
         raise ValueError(f"the fused mixer needs an even xz width, d_inner % 128 == 0 and "
                          f"d_state <= 32; got xz width {two_d} and d_state {n}")
-    if n != STATE or W != CONV or di > MAX_D_INNER:
+    if n != STATE or W != CONV or di > MAX_D_INNER or r + 2 * n > MAX_XDBL:
         raise NotImplementedError(
-            f"the fused-mixer kernels are built for d_state {STATE}, d_conv {CONV} and "
-            f"d_inner up to {MAX_D_INNER}, got {n}, {W} and {di} ({_NOT_BUILT})")
-    shapes = dict(xz=(b, l, 2 * di), conv_wt=(W, di), conv_b=(di,), wdt=(di, di), dtb=(di,),
-                  wbc=(di, 2 * n), at=(n, di), d=(di,), g=(b, l, di),
+            f"the fused-mixer kernels are built for d_state {STATE}, d_conv {CONV}, d_inner "
+            f"up to {MAX_D_INNER} and dt_rank + 2 d_state up to {MAX_XDBL}, got {n}, {W}, "
+            f"{di} and {r + 2 * n} ({_NOT_BUILT})")
+    shapes = dict(xz=(b, l, 2 * di), conv_wt=(W, di), conv_b=(di,), x_proj=(di, r + 2 * n),
+                  dt_proj=(r, di), dtb=(di,), at=(n, di), d=(di,), g=(b, l, di),
                   h_entries=(b, -(-l // CHUNK), n, di))
     for name, t in named.items():
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shapes[name]}")
-    return b, l, di
+    return b, l, di, r
 
 
-def _launch_fwd(args, states: bool):
-    b, l, di = _check_inputs(args)
+def _pointers(tensors) -> ctypes.Array:
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _launch_fwd(args, states: bool, segments: int | None = None):
+    """K10 (with ``states``, the variant that writes h_entries). ``segments``
+    forces the number of segments of L (1: one pass); by default the
+    kernel's own choice for the shape (``fused_mixer_fwd_segments``)."""
+    if segments is not None and segments < 1:
+        raise ValueError(f"segments must be at least 1, got {segments}")
+    b, l, di, r = _check_inputs(args)
     xz, n = args[0], args[6].shape[0]
-    y = torch.empty((b, l, di), dtype=torch.float32, device=xz.device)
-    h_entries = (torch.empty((b, -(-l // CHUNK), n, di), dtype=torch.float32, device=xz.device)
-                 if states else None)
+    f32 = dict(dtype=torch.float32, device=xz.device)
+    y = torch.empty((b, l, di), **f32)
+    h_entries = torch.empty((b, -(-l // CHUNK), n, di), **f32) if states else None
     if y.numel() == 0:
         return y, h_entries
     lib = _fwd_library()
+    if segments is None:
+        segments = lib.fused_mixer_fwd_segments(b, l, di)
+    h_end = torch.empty((b, segments - 1, n, di), **f32)
+    dsum = torch.empty((b, segments - 1, di), **f32)
     stream = torch.cuda.current_stream(xz.device).cuda_stream
     with torch.cuda.device(xz.device):
-        err = lib.fused_mixer_fwd(*(t.data_ptr() for t in args), y.data_ptr(),
+        err = lib.fused_mixer_fwd(_pointers(args), y.data_ptr(),
                                   h_entries.data_ptr() if states else None,
-                                  b, l, di, n, CONV, stream)
+                                  h_end.data_ptr(), dsum.data_ptr(), b, l, di, n, r, CONV,
+                                  segments, stream)
     if err != 0:
         msg = lib.fused_mixer_fwd_error_string(err).decode()
         raise RuntimeError(f"fused-mixer forward kernel launch failed: {msg} ({err})")
@@ -265,59 +306,56 @@ def _launch_fwd(args, states: bool):
 
 
 def _launch_bwd(args, h_entries, g):
-    b, l, di = _check_inputs(args, dict(h_entries=h_entries, g=g))
-    xz, conv_wt, conv_b, wdt, dtb, wbc, at, d = args
-    n = at.shape[0]
+    b, l, di, r = _check_inputs(args, dict(h_entries=h_entries, g=g))
+    xz, n = args[0], args[6].shape[0]
     f32 = dict(dtype=torch.float32, device=xz.device)
     dxz = torch.empty((b, l, 2 * di), **f32)
+    # per-batch-row partials: dx_proj, ddt_proj, dconv_wt, dconv_b, dat, dd, ddtb
     parts = [torch.empty(shape, **f32) for shape in (
-        (b, di, di), (b, di, 2 * n), (b, CONV, di), (b, di), (b, n, di), (b, di), (b, di))]
+        (b, di, r + 2 * n), (b, r, di), (b, CONV, di), (b, di), (b, n, di), (b, di), (b, di))]
     if dxz.numel() == 0:
         return (dxz, *(torch.zeros(t.shape[1:], **f32) for t in parts))
-    wdt_t, wbc_t = wdt.t().contiguous(), wbc.t().contiguous()
-    ins = (ctypes.c_void_p * 12)(*(t.data_ptr() for t in (
-        xz, g, conv_wt, conv_b, wdt, wdt_t, dtb, wbc, wbc_t, at, d, h_entries)))
-    outs = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in (dxz, *parts)))
     lib = _bwd_library()
     stream = torch.cuda.current_stream(xz.device).cuda_stream
     with torch.cuda.device(xz.device):
-        err = lib.fused_mixer_bwd(ins, outs, b, l, di, n, CONV, stream)
+        err = lib.fused_mixer_bwd(_pointers((*args, h_entries, g)), _pointers((dxz, *parts)),
+                                  b, l, di, n, r, CONV, stream)
     if err != 0:
         msg = lib.fused_mixer_bwd_error_string(err).decode()
         raise RuntimeError(f"fused-mixer backward kernel launch failed: {msg} ({err})")
     fused_mixer_bwd.launches += 1
-    dwdt, dwbc, dconv_wt, dconv_b, dat, dd, ddtb = (t.sum(dim=0) for t in parts)
-    return dxz, dconv_wt, dconv_b, dwdt, ddtb, dwbc, dat, dd
+    dx_proj, ddt_proj, dconv_wt, dconv_b, dat, dd, ddtb = (t.sum(dim=0) for t in parts)
+    return dxz, dconv_wt, dconv_b, dx_proj, ddt_proj, ddtb, dat, dd
 
 
-def fused_mixer_fwd(xz, conv_wt, conv_b, wdt, dtb, wbc, at, d) -> torch.Tensor:
+def fused_mixer_fwd(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d) -> torch.Tensor:
     """Lean forward (K10 without states): y (b, l, d). Inputs contiguous, in
     the layouts of the module docstring. The kernel on a CUDA tensor (or an
     error), the y of :func:`fused_mixer_fwd_ref` on the CPU.
     ``fused_mixer_fwd.launches`` counts kernel launches."""
-    args = (xz, conv_wt, conv_b, wdt, dtb, wbc, at, d)
+    args = (xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d)
     if xz.is_cuda:
         return _launch_fwd(args, states=False)[0]
     return fused_mixer_fwd_ref(*args, chunk=CHUNK)[0]
 
 
-def fused_mixer_fwd_states(xz, conv_wt, conv_b, wdt, dtb, wbc, at, d):
+def fused_mixer_fwd_states(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d):
     """Training forward (K10 with states): (y, h_entries (b, ceil(l / CHUNK),
     n, d) fp32). The kernel on a CUDA tensor, :func:`fused_mixer_fwd_ref` on
     the CPU. ``fused_mixer_fwd_states.launches`` counts kernel launches."""
-    args = (xz, conv_wt, conv_b, wdt, dtb, wbc, at, d)
+    args = (xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d)
     if xz.is_cuda:
         return _launch_fwd(args, states=True)
     return fused_mixer_fwd_ref(*args, chunk=CHUNK, emit_states=True)
 
 
-def fused_mixer_bwd(xz, conv_wt, conv_b, wdt, dtb, wbc, at, d, h_entries, g):
-    """Backward (K11): (dxz, dconv_wt, dconv_b, dwdt, ddtb, dwbc, dat, dd) for
-    the output gradient g (b, l, d) and the forward's h_entries. The kernel
-    on a CUDA tensor (the weight gradients are per-batch-row partials summed
-    by ``torch.sum``), :func:`fused_mixer_bwd_ref` on the CPU.
+def fused_mixer_bwd(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d, h_entries, g):
+    """Backward (K11): (dxz, dconv_wt, dconv_b, dx_proj, ddt_proj, ddtb, dat,
+    dd) for the output gradient g (b, l, d) and the forward's h_entries. The
+    kernel on a CUDA tensor (the weight gradients are per-batch-row partials
+    summed by ``torch.sum``), :func:`fused_mixer_bwd_ref` on the CPU.
     ``fused_mixer_bwd.launches`` counts kernel launches."""
-    args = (xz, conv_wt, conv_b, wdt, dtb, wbc, at, d)
+    args = (xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d)
     if xz.is_cuda:
         return _launch_bwd(args, h_entries, g)
     return fused_mixer_bwd_ref(*args, h_entries, g, chunk=CHUNK)
@@ -330,8 +368,8 @@ class FusedMixerFn(torch.autograd.Function):
     :func:`fused_mixer_fwd`, then ``plain``."""
 
     @staticmethod
-    def forward(ctx, xz, conv_wt, conv_b, wdt, dtb, wbc, at, d, plain):
-        args = (xz, conv_wt, conv_b, wdt, dtb, wbc, at, d)
+    def forward(ctx, xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d, plain):
+        args = (xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d)
         if plain:
             y, h_entries = fused_mixer_fwd_ref(*args, chunk=CHUNK, emit_states=True)
         else:
@@ -353,17 +391,20 @@ class FusedMixerFn(torch.autograd.Function):
 
 def kernel_inputs(xz, conv_w, conv_b, x_proj_w, dt_proj_w, dt_proj_b, A, D, *,
                   dt_rank: int, d_state: int) -> tuple:
-    """(xz, conv_wt, conv_b, wdt, dtb, wbc, at, d), the kernels' inputs, from
-    the ``mamba_mixer_apply`` layouts (conv_w (d_inner, W), x_proj_w
-    (d_inner, dt_rank + 2n), dt_proj_w (dt_rank, d_inner), A (d_inner, n)):
-    W_dt = x_proj_w[:, :dt_rank] @ dt_proj_w folded, the rest transposed or
-    sliced, all contiguous. Differentiable PyTorch operations."""
+    """(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d), the kernels'
+    inputs, from the ``mamba_mixer_apply`` layouts (conv_w (d_inner, W),
+    x_proj_w (d_inner, dt_rank + 2n), dt_proj_w (dt_rank, d_inner), A
+    (d_inner, n)): conv_w and A transposed, x_proj_w and dt_proj_w as they
+    are (no copy when they are contiguous float32), all contiguous.
+    Differentiable PyTorch operations."""
     acc = _acc_dtype(xz)
-    wdt = x_proj_w[:, :dt_rank].to(acc) @ dt_proj_w.to(acc)
+    if x_proj_w.shape[-1] != dt_rank + 2 * d_state or dt_proj_w.shape[0] != dt_rank:
+        raise ValueError(f"x_proj_w {tuple(x_proj_w.shape)} and dt_proj_w "
+                         f"{tuple(dt_proj_w.shape)} do not match dt_rank {dt_rank} and "
+                         f"d_state {d_state}")
     return (xz.contiguous(), conv_w.to(acc).t().contiguous(), conv_b.to(acc).contiguous(),
-            wdt, dt_proj_b.to(acc).contiguous(),
-            x_proj_w[:, dt_rank:dt_rank + 2 * d_state].to(acc).contiguous(),
-            A.to(acc).t().contiguous(), D.to(acc).contiguous())
+            x_proj_w.to(acc).contiguous(), dt_proj_w.to(acc).contiguous(),
+            dt_proj_b.to(acc).contiguous(), A.to(acc).t().contiguous(), D.to(acc).contiguous())
 
 
 def fused_mamba_mixer(xz, conv_w, conv_b, x_proj_w, dt_proj_w, dt_proj_b, A, D, *,
@@ -372,11 +413,10 @@ def fused_mamba_mixer(xz, conv_w, conv_b, x_proj_w, dt_proj_w, dt_proj_b, A, D, 
     interior, xz (b, l, 2 d_inner) -> y (b, l, d_inner), parameters in the
     layouts of :func:`kernel_inputs`.
 
-    The W_dt fold and the transposes are PyTorch operations outside the
-    autograd Function, so their gradients come from autograd. With a
-    gradient wanted this is :class:`FusedMixerFn`, else the lean forward (K10
-    without states on a CUDA tensor). ``plain=True`` takes the plain
-    versions on any device."""
+    The transposes are PyTorch operations outside the autograd Function, so
+    their gradients come from autograd. With a gradient wanted this is
+    :class:`FusedMixerFn`, else the lean forward (K10 without states on a
+    CUDA tensor). ``plain=True`` takes the plain versions on any device."""
     args = kernel_inputs(xz, conv_w, conv_b, x_proj_w, dt_proj_w, dt_proj_b, A, D,
                          dt_rank=dt_rank, d_state=d_state)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (

@@ -590,19 +590,52 @@ def test_split_functions_gradcheck_in_float64_through_the_plain_path():
 # the fused-mixer kernels (K10, K11) and their autograd Function
 # ---------------------------------------------------------------------------
 
-def _fused_case(b, l, d_model, seed, device, d_state=16):
+def _fused_case(b, l, d_model, seed, device, d_state=16, dt_rank=None):
     """The kernels' inputs as a freshly initialised mixer makes them from a
-    seeded x: xz = x @ in_proj, W_dt folded, the weights transposed."""
+    seeded x: xz = x @ in_proj, x_proj and dt_proj as they are, conv_w and A
+    transposed."""
     from si_mamba_tpu_torch.models.layers import MambaMixer
     from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
 
-    mixer = MambaMixer(d_model, d_state=d_state, out_proj_div=2.0)
+    mixer = MambaMixer(d_model, d_state=d_state, dt_rank=dt_rank, out_proj_div=2.0)
     mixer.reset_parameters(torch.Generator().manual_seed(seed))
     p = {k: v.detach().to(device) for k, v in mixer.params().items()}
     x = _randn(np.random.default_rng(seed), b, l, d_model, device=device)
     return kfm.kernel_inputs(x @ p["in_proj_w"], p["conv_w"], p["conv_b"], p["x_proj_w"],
                              p["dt_proj_w"], p["dt_proj_b"], -torch.exp(p["A_log"]), p["D"],
                              dt_rank=mixer.dt_rank, d_state=d_state)
+
+
+def _fused_kernels_against_plain(args, segments_list=(None,), seed=32):
+    """K10 lean and with states at each segment count (``None``: the
+    kernel's own choice), and K11, against their plain versions: y and
+    h_entries within 1e-5 of their max, the states' y equal to the lean y bit
+    for bit at the same count, every K11 output within 1e-4 of its max (sums
+    over b*l terms in another order), two K11 runs bitwise equal."""
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    b, l, two_d = args[0].shape
+    y_ref, h_ref = kfm.fused_mixer_fwd_ref(*args, chunk=kfm.CHUNK, emit_states=True)
+    for segments in segments_list:
+        y_lean = kfm._launch_fwd(args, states=False, segments=segments)[0]
+        y, h_entries = kfm._launch_fwd(args, states=True, segments=segments)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y_lean), segments  # the same arithmetic
+        assert h_entries.shape == h_ref.shape == (b, -(-l // kfm.CHUNK), 16, two_d // 2)
+        _close_to_max(y, y_ref, 1e-5)
+        _close_to_max(h_entries, h_ref, 1e-5)
+    g = _randn(np.random.default_rng(seed), b, l, two_d // 2, device=args[0].device)
+    before = kfm.fused_mixer_bwd.launches
+    got = kfm.fused_mixer_bwd(*args, h_entries, g)
+    torch.cuda.synchronize()
+    assert kfm.fused_mixer_bwd.launches == before + 1
+    want = kfm.fused_mixer_bwd_ref(*args, h_entries, g, chunk=kfm.CHUNK)
+    again = kfm.fused_mixer_bwd(*args, h_entries, g)  # no atomics: bitwise the same
+    names = ("dxz", "dconv_wt", "dconv_b", "dx_proj", "ddt_proj", "ddtb", "dat", "dd")
+    for name, a, w, a2 in zip(names, got, want, again):
+        assert a.shape == w.shape, name
+        _close_to_max(a, w, 1e-4)
+        assert torch.equal(a, a2), name
 
 
 @pytest.mark.cuda
@@ -640,7 +673,7 @@ def test_fused_mixer_bwd_kernel_matches_plain(cuda, b, l, d_model):
     torch.cuda.synchronize()
     assert kfm.fused_mixer_bwd.launches == before + 1
     want = kfm.fused_mixer_bwd_ref(*args, h_entries, g, chunk=kfm.CHUNK)
-    names = ("dxz", "dconv_wt", "dconv_b", "dwdt", "ddtb", "dwbc", "dat", "dd")
+    names = ("dxz", "dconv_wt", "dconv_b", "dx_proj", "ddt_proj", "ddtb", "dat", "dd")
     for name, a, w in zip(names, got, want):
         assert a.shape == w.shape, name
         _close_to_max(a, w, 1e-4)
@@ -650,9 +683,94 @@ def test_fused_mixer_bwd_kernel_matches_plain(cuda, b, l, d_model):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("l", [37, 65, 100])
+def test_fused_mixer_kernels_at_ragged_l(cuda, l):
+    """L not a multiple of the 16-token chunk, at d_inner 256 and B=2."""
+    _fused_kernels_against_plain(_fused_case(2, l, 128, 50, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_model", [64, 192, 384])
+def test_fused_mixer_kernels_at_each_width(cuda, d_model):
+    """d_inner 128, 384 and 768: clusters of 1, 3 and 6 blocks."""
+    _fused_kernels_against_plain(_fused_case(2, 96, d_model, 51, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt_rank", [2, 24, 32])
+def test_fused_mixer_kernels_at_each_dt_rank(cuda, dt_rank):
+    """dt_rank 2, 24 (the ModelNet40 model's) and 32 (R + 2N = 64, the most
+    the kernels take) at d_inner 768."""
+    _fused_kernels_against_plain(_fused_case(2, 80, 384, 52, cuda, dt_rank=dt_rank))
+
+
+@pytest.mark.cuda
+def test_fused_mixer_fwd_kernels_with_each_segment_count(cuda):
+    """One cloud, each forced segment count (1 the one-pass scan; 16 at
+    L = 200 leaves 13 one-chunk segments) and the kernel's own choice: both
+    variants against the plain forward and against each other bit for bit."""
+    _fused_kernels_against_plain(_fused_case(1, 200, 384, 53, cuda), (1, 2, 3, 16, None))
+
+
+@pytest.mark.cuda
+def test_fused_mixer_kernels_under_strong_decay(cuda):
+    """delta |A| of 10 to 100: a state forgets within a step or two, and
+    exp(A * sum delta) of a segment underflows to 0."""
+    args = list(_fused_case(1, 130, 192, 54, cuda))
+    args[5] = args[5] + 3.0  # dt bias: delta about 3
+    args[6] = args[6] * 20.0  # A 20x more negative
+    _fused_kernels_against_plain(tuple(args), (None, 1, 4))
+
+
+@pytest.mark.cuda
+def test_fused_mixer_segment_choice_follows_the_batch(cuda):
+    """K10 cuts L into segments only while the grid leaves the card idle: at
+    one cloud, not at the train batch."""
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    lib = kfm._fwd_library()
+    assert lib.fused_mixer_fwd_segments(1, 512, 768) > 1
+    assert lib.fused_mixer_fwd_segments(32, 512, 768) == 1
+
+
+@pytest.mark.cuda
+def test_fused_mixer_bwd_reports_its_co_resident_clusters(cuda):
+    """K11's occupancy query: at least one cluster of d_inner / 128 blocks
+    fits the card, no more than its SMs hold one block each, and a width the
+    kernel does not take is an error."""
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    lib = kfm._bwd_library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for d_inner in (128, 768, 1024):
+        assert 1 <= lib.fused_mixer_bwd_max_active_clusters(d_inner) <= sms // (d_inner // 128)
+    assert lib.fused_mixer_bwd_max_active_clusters(100) < 0
+    assert lib.fused_mixer_bwd_max_active_clusters(2048) < 0
+
+
+@pytest.mark.cuda
+def test_fused_mixer_kernels_refuse_a_wide_x_proj_before_launching(cuda):
+    """dt_rank 34 at d_state 16 (R + 2N = 66 > 64): every wrapper raises and
+    nothing is launched."""
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    args = _fused_case(1, 32, 64, 55, cuda, dt_rank=34)
+    counts = lambda: (kfm.fused_mixer_fwd.launches,  # noqa: E731
+                      kfm.fused_mixer_fwd_states.launches, kfm.fused_mixer_bwd.launches)
+    before = counts()
+    h = torch.zeros(1, 2, 16, 128, device=cuda)
+    g = torch.zeros(1, 32, 128, device=cuda)
+    for call in (lambda: kfm.fused_mixer_fwd(*args), lambda: kfm.fused_mixer_fwd_states(*args),
+                 lambda: kfm.fused_mixer_bwd(*args, h, g)):
+        with pytest.raises(NotImplementedError, match="dt_rank \\+ 2 d_state up to 64"):
+            call()
+    assert counts() == before
+
+
+@pytest.mark.cuda
 def test_fused_mixer_grads_match_seq(cuda):
     """The mixer with scan_impl='fused' (K10 with states, K11 through
-    ``FusedMixerFn``, the W_dt fold under autograd) against 'seq': output and
+    ``FusedMixerFn``, x_proj and dt_proj gradients from K11) against 'seq': output and
     every parameter gradient; without a gradient it takes the lean K10."""
     from si_mamba_tpu_torch.models.layers import MambaMixer
     from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
@@ -725,10 +843,11 @@ def test_fused_mixer_function_gradcheck_in_float64_through_the_plain_path():
     from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
 
     rng = np.random.default_rng(38)
-    b, l, di, n = 2, 9, 3, 2
+    b, l, di, n, r = 2, 9, 3, 2, 2
     mk = lambda *s, scale=1.0: torch.tensor(rng.standard_normal(s) * scale,  # noqa: E731
                                             dtype=torch.float64)
-    leaves = [mk(b, l, 2 * di), mk(4, di, scale=0.5), mk(di, scale=0.1), mk(di, di, scale=0.5),
-              mk(di, scale=0.5), mk(di, 2 * n, scale=0.5), -torch.exp(mk(n, di)), mk(di)]
+    leaves = [mk(b, l, 2 * di), mk(4, di, scale=0.5), mk(di, scale=0.1),
+              mk(di, r + 2 * n, scale=0.5), mk(r, di, scale=0.5), mk(di, scale=0.5),
+              -torch.exp(mk(n, di)), mk(di)]
     leaves = [t.requires_grad_() for t in leaves]
     assert torch.autograd.gradcheck(lambda *a: kfm.FusedMixerFn.apply(*a, True), leaves)

@@ -57,15 +57,24 @@ def _params(d_model=32, d_state=4, dt_rank=2, d_conv=4, seed=0):
 
 
 def _core_inputs(p, b, l, dt_rank=2, d_state=4, seed=1):
-    """The kernels' inputs (xz, conv_wt, conv_b, wdt, dtb, wbc, at, d) as
-    numpy arrays, W_dt folded in float64 and rounded once."""
+    """The port's kernel inputs (xz, conv_wt, conv_b, x_proj, dt_proj, dtb,
+    at, d) as numpy arrays: x_proj and dt_proj as ``mamba_mixer_apply``
+    keeps them."""
     x = np.random.default_rng(seed).standard_normal((b, l, p["in_proj_w"].shape[0]))
     xz = (x.astype(np.float32) @ p["in_proj_w"]).astype(np.float32)
-    wdt = (p["x_proj_w"][:, :dt_rank].astype(np.float64) @ p["dt_proj_w"]).astype(np.float32)
-    wbc = np.ascontiguousarray(p["x_proj_w"][:, dt_rank:dt_rank + 2 * d_state])
     at = np.ascontiguousarray((-np.exp(p["A_log"])).T).astype(np.float32)
-    return (xz, np.ascontiguousarray(p["conv_w"].T), p["conv_b"], wdt, p["dt_proj_b"], wbc, at,
-            p["D"])
+    return (xz, np.ascontiguousarray(p["conv_w"].T), p["conv_b"], p["x_proj_w"],
+            p["dt_proj_w"], p["dt_proj_b"], at, p["D"])
+
+
+def _folded(args, dt_rank=2, d_state=4):
+    """The Pallas kernel's inputs (xz, conv_wt, conv_b, wdt, dtb, wbc, at, d)
+    from the port's: W_dt = x_proj[:, :R] @ dt_proj folded in float64 and
+    rounded once, W_bc the B | C columns of x_proj."""
+    xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d = args
+    wdt = (x_proj[:, :dt_rank].astype(np.float64) @ dt_proj).astype(np.float32)
+    wbc = np.ascontiguousarray(x_proj[:, dt_rank:dt_rank + 2 * d_state])
+    return xz, conv_wt, conv_b, wdt, dtb, wbc, at, d
 
 
 def _t(*arrays):
@@ -81,14 +90,10 @@ def _close_to_max(got, want, name, rtol=GRAD_TOL["rtol"], atol=GRAD_TOL["atol"])
 # the plain versions of K10 and K11
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("L", [7, 64, 80, 192])  # sub-chunk, aligned, ragged, three chunks
-def test_plain_k10_matches_pallas_interpret(L):
-    """y and the chunk-entry states of ``fused_mixer_fwd_ref`` at chunk 64
-    against ``_fused_fwd_call`` in interpret mode (xz zero-padded to a
-    multiple of 64, as ``_pad_L`` does)."""
-    args = _core_inputs(_params(), 2, L)
+def _check_plain_k10(L, dt_rank):
+    args = _core_inputs(_params(dt_rank=dt_rank), 2, L, dt_rank=dt_rank)
     xz_p, _ = jfk._pad_L(jnp.asarray(args[0]), 64)
-    xz, conv_wt, conv_b, wdt, dtb, wbc, at, d = (jnp.asarray(a) for a in args)
+    _, conv_wt, conv_b, wdt, dtb, wbc, at, d = (jnp.asarray(a) for a in _folded(args, dt_rank))
     y_j, hent_j = jfk._fused_fwd_call(xz_p, conv_wt, conv_b[None], wdt, dtb[None], wbc, at,
                                       d[None], chunk=64, sub_block=8, interpret=True)
     y, hent = kfm.fused_mixer_fwd_ref(*_t(*args), chunk=64, emit_states=True)
@@ -98,27 +103,81 @@ def test_plain_k10_matches_pallas_interpret(L):
     np.testing.assert_allclose(lean.numpy(), y.numpy(), rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("L", [7, 64, 80, 192])  # sub-chunk, aligned, ragged, three chunks
+def test_plain_k10_matches_pallas_interpret(L):
+    """y and the chunk-entry states of ``fused_mixer_fwd_ref`` at chunk 64
+    (the rank-R pair: x_proj, then dt_proj) against ``_fused_fwd_call`` in
+    interpret mode, which takes W_dt folded (xz zero-padded to a multiple of
+    64, as ``_pad_L`` does)."""
+    _check_plain_k10(L, dt_rank=2)
+
+
+@pytest.mark.parametrize("dt_rank", [1, 8])
+def test_plain_k10_matches_pallas_interpret_at_dt_rank(dt_rank):
+    """The same at dt_rank 1 and 8 (ragged L = 80)."""
+    _check_plain_k10(80, dt_rank=dt_rank)
+
+
+def _check_plain_k11(L, dt_rank):
+    args = _core_inputs(_params(seed=3, dt_rank=dt_rank), 2, L, dt_rank=dt_rank, seed=4)
+    g = np.random.default_rng(5).standard_normal((2, L, 64)).astype(np.float32)
+    core = lambda *a: jfk._fused_core(*a, 64, 8, True)  # noqa: E731
+    _, vjp = jax.vjp(core, *(jnp.asarray(a) for a in _folded(args, dt_rank)))
+    dxz, dconv_wt, dconv_b, dwdt, ddtb, dwbc, dat, dd = (
+        np.asarray(w, dtype=np.float64) for w in vjp(jnp.asarray(g)))
+    # the chain rule through W_dt = x_proj[:, :R] @ dt_proj, in float64
+    x_proj, dt_proj = args[3].astype(np.float64), args[4].astype(np.float64)
+    want = (dxz, dconv_wt, dconv_b, np.concatenate([dwdt @ dt_proj.T, dwbc], axis=1),
+            x_proj[:, :dt_rank].T @ dwdt, ddtb, dat, dd)
+    _, hent = kfm.fused_mixer_fwd_ref(*_t(*args), chunk=kfm.CHUNK, emit_states=True)
+    got = kfm.fused_mixer_bwd_ref(*_t(*args), hent, *_t(g), chunk=kfm.CHUNK)
+    names = ("dxz", "dconv_wt", "dconv_b", "dx_proj", "ddt_proj", "ddtb", "dat", "dd")
+    for name, a, w in zip(names, got, want):
+        assert a.shape == w.shape, name
+        _close_to_max(a.numpy(), w, name)
+
+
 @pytest.mark.parametrize("L", [80, 192])
 def test_plain_k11_matches_jax_vjp_of_the_pallas_core(L):
     """dxz and the seven weight gradients of ``fused_mixer_bwd_ref`` against
     ``jax.vjp`` of the Pallas core (its custom VJP: the backward kernel,
-    interpret mode), each relative to its max."""
-    args = _core_inputs(_params(seed=3), 2, L, seed=4)
-    g = np.random.default_rng(5).standard_normal((2, L, 64)).astype(np.float32)
-    core = lambda *a: jfk._fused_core(*a, 64, 8, True)  # noqa: E731
-    _, vjp = jax.vjp(core, *(jnp.asarray(a) for a in args))
-    want = vjp(jnp.asarray(g))
-    _, hent = kfm.fused_mixer_fwd_ref(*_t(*args), chunk=kfm.CHUNK, emit_states=True)
-    got = kfm.fused_mixer_bwd_ref(*_t(*args), hent, *_t(g), chunk=kfm.CHUNK)
-    names = ("dxz", "dconv_wt", "dconv_b", "dwdt", "ddtb", "dwbc", "dat", "dd")
-    for name, a, w in zip(names, got, want):
-        assert a.shape == w.shape, name
-        _close_to_max(a.numpy(), np.asarray(w), name)
+    interpret mode), each relative to its max. The core takes W_dt folded,
+    so its dW_dt and dW_bc reach x_proj and dt_proj through the chain rule."""
+    _check_plain_k11(L, dt_rank=2)
+
+
+@pytest.mark.parametrize("dt_rank", [1, 8])
+def test_plain_k11_matches_jax_vjp_at_dt_rank(dt_rank):
+    """The same at dt_rank 1 and 8 (L = 80)."""
+    _check_plain_k11(80, dt_rank=dt_rank)
+
+
+def test_kernel_inputs_pass_the_projections_unfolded():
+    """``kernel_inputs`` hands x_proj and dt_proj on as they are (the same
+    storage for contiguous float32 weights): no (d_inner, d_inner) tensor is
+    built on the fused route."""
+    p = {k: torch.from_numpy(v) for k, v in _params(d_model=64, dt_rank=4).items()}
+    xz = torch.zeros(1, 8, 256)
+    args = kfm.kernel_inputs(xz, p["conv_w"], p["conv_b"], p["x_proj_w"], p["dt_proj_w"],
+                             p["dt_proj_b"], -torch.exp(p["A_log"]), p["D"], dt_rank=4,
+                             d_state=4)
+    assert args[3].data_ptr() == p["x_proj_w"].data_ptr() and args[3].shape == (128, 12)
+    assert args[4].data_ptr() == p["dt_proj_w"].data_ptr() and args[4].shape == (4, 128)
+    assert all(t.shape[-2:] != (128, 128) for t in args)
+
+
+@pytest.mark.parametrize("segments", [0, -1])
+def test_launch_fwd_rejects_a_segment_count_below_one(segments):
+    """K10's launch sizes its segment scratch for the count it is given, so a
+    count below 1 is refused before any input is read or launch made."""
+    args = _t(*_core_inputs(_params(), 1, 8))
+    with pytest.raises(ValueError, match="segments must be at least 1"):
+        kfm._launch_fwd(args, states=False, segments=segments)
 
 
 def test_fused_mamba_mixer_grads_match_jax_vjp():
-    """Autograd through the port's ``fused_mamba_mixer`` (the W_dt fold and
-    the transposes outside ``FusedMixerFn``, its plain backward inside)
+    """Autograd through the port's ``fused_mamba_mixer`` (the transposes
+    outside ``FusedMixerFn``, its plain backward inside)
     against ``jax.vjp`` of JAX's ``fused_mamba_mixer`` in interpret mode: xz
     and all seven mixer parameters."""
     p = _params(seed=6)
