@@ -26,9 +26,14 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
 4. SSD kernels: at the SSD mixer's shapes (B=32, L=512, chunk 256, 6 heads,
    n = p = 128, fp32): the conv forward and backward at width 1024 on the
    column view of the (32, 512, 1798) ``in_proj`` output (row stride 1798),
-   then the SSD core's lean forward and its forward with states (y equal,
-   states against the plain version) and its backward for a seeded output
-   gradient, each against its plain version and timed beside it;
+   then the SSD core's lean forward (also at B = 1, 20 and 64, the serving
+   request sizes), its forward with states (y equal, states against the
+   plain version) and its backward for a seeded output gradient (two runs
+   bitwise equal), each against its plain version and timed beside it as
+   back-to-back calls and as CUDA-graph device time; their ``bound_ms`` at
+   the rate their 3xTF32 tensor-core products can use (three TF32 products
+   for each against the dense TF32 peak), and in the log beside it the bound
+   at the fp32 rate of the CUDA cores;
 4b. fused-mixer kernels: at the serving path's shapes, with xz as layer 0's
    ``in_proj`` makes it, the whole-mixer forward lean and with its chunk
    entry states (y equal, states against the plain version; the lean one
@@ -160,9 +165,11 @@ TRAIN_STEPS = 8
 PARITY_BATCH = 4
 GRAD_TOL = 1e-3
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) op/s.
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) op/s and
+# dense TF32 tensor-core op/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 
 
 def log(msg: str) -> None:
@@ -210,8 +217,8 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -445,10 +452,43 @@ def backward_kernel_phase(device) -> list[dict]:
     return records
 
 
+def tc_bound(bytes_moved: float, ops: float) -> dict:
+    """``bound_ms`` and ``bound_by`` of a kernel whose products run as 3xTF32
+    on the tensor cores: three TF32 products for each, against the dense TF32
+    peak."""
+    bound_ms, bound_by = bound(bytes_moved, 3 * ops, TF32_OPS_PER_S)
+    return dict(bound_ms=bound_ms, bound_by=bound_by)
+
+
+def ssd_fwd_at_clouds(device) -> dict:
+    """Lean K8 at each serving request size, on the conv output of layer 0's
+    SSD mixer, against its plain version (rel-to-max 1e-4), timed as
+    back-to-back wrapper calls (``ms``, the host's cost of a call included)
+    and as device time (``device_ms``, CUDA-graph replays)."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    out = {}
+    for batch in REQUEST_SIZES:
+        _, dth, S, _, _, xbc, D, chunk = _split_operands(device, heads=6, batch=batch)
+        args = (xbc, dth, S, D, dth.shape[1] * kssd.HEAD_DIM, chunk)
+        y = kssd.ssd_xbc_fwd(*args)
+        y_ref = kssd.ssd_xbc_fwd_ref(*args)[0]
+        torch.cuda.synchronize()
+        err, rel = _rel_err(y, y_ref)
+        if rel > 1e-4:
+            raise AssertionError(f"SSD forward kernel at B={batch} disagrees with its plain "
+                                 f"version: max |diff| {err} ({rel:.3e} of max)")
+        out[batch] = dict(max_abs_err=err, ms=time_ms(lambda: kssd.ssd_xbc_fwd(*args), 20),
+                          device_ms=graph_ms(lambda: kssd.ssd_xbc_fwd(*args), 20))
+        log(f"ssd_xbc_fwd at {batch} clouds: {out[batch]}")
+    return out
+
+
 def ssd_kernel_phase(device) -> tuple[list[dict], dict]:
     """The SSD path's kernels at its shapes, as layer 0's SSD mixer makes its
     inputs at B=32, L=512: K1 and K5 at width 1024 on the column view of the
-    (32, 512, 1798) in_proj output, then K8 (both variants) and K9 on K1's
+    (32, 512, 1798) in_proj output, then K8 (both variants; lean K8 also at
+    the serving request sizes) and K9 (run twice, bitwise equal) on K1's
     output. Returns the K8/K9 records and the K1/K5 figures at this shape."""
     from si_mamba_tpu_torch.models.layers import SSDMixer
     from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
@@ -506,22 +546,26 @@ def ssd_kernel_phase(device) -> tuple[list[dict], dict]:
             ("ssd_xbc_fwd", lambda: kssd.ssd_xbc_fwd(*args), 0, err_y),
             ("ssd_xbc_fwd_states", lambda: kssd.ssd_xbc_fwd_states(*args), hin_bytes,
              max(err_y, err_h))):
-        bound_ms, bound_by = bound(fwd_bytes + extra, fwd_ops)
         records.append(dict(
             name=name, route="cuda", source="si_mamba_tpu_torch/csrc/ssd_xbc_fwd.cu",
             replaces="si_mamba_tpu/ops/pallas/ssd_kernel.py:540", max_abs_err=err,
-            ms=time_ms(fn, 20),
+            ms=time_ms(fn, 20), device_ms=graph_ms(fn, 20),
             plain_ms=time_ms(lambda: kssd.ssd_xbc_fwd_ref(*args, emit_states=bool(extra)), 3),
-            library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+            library_ms=None, **tc_bound(fwd_bytes + extra, fwd_ops)))
+    records[0]["at_clouds"] = ssd_fwd_at_clouds(device)
     log(f"SSD forward ok: states y == lean y; vs plain y {err_y:.3e} ({rel_y:.3e} of max), "
         f"h_in {err_h:.3e} ({rel_h:.3e} of max)")
 
-    # K9 for a seeded output gradient, from the kernel's own h_in
+    # K9 for a seeded output gradient, from the kernel's own h_in; two runs
+    # on the same inputs must be bitwise equal (no atomics)
     dy = torch.from_numpy(rng.standard_normal((B, L, d), dtype=np.float32)).to(device)
     bwd_args = (xbc, dth, S, p["D"], h_in, dy, d, chunk)
     got = kssd.ssd_xbc_bwd(*bwd_args)
+    again = kssd.ssd_xbc_bwd(*bwd_args)
     want = kssd.ssd_xbc_bwd_ref(*bwd_args)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("two SSD backward runs on the same inputs differ")
     err9, rels = 0.0, {}
     for name, a, b in zip(("dxbc", "ddt", "dS", "dD"), got, want):
         err, rels[name] = _rel_err(a, b)
@@ -539,17 +583,21 @@ def ssd_kernel_phase(device) -> tuple[list[dict], dict]:
     # dS, dD written
     bwd_ops = B * (nc * (3 * tri * n + h * 2 * tri * hp) + (nc - 1) * h * 8 * q * n * hp)
     bwd_bytes = (2 * B * L * (d + 2 * n) + B * L * d + 4 * B * h * L + 2 * h) * 4 + hin_bytes
-    bound_ms, bound_by = bound(bwd_bytes, bwd_ops)
+    bwd = lambda: kssd.ssd_xbc_bwd(*bwd_args)  # noqa: E731
     records.append(dict(
         name="ssd_xbc_bwd", route="cuda", source="si_mamba_tpu_torch/csrc/ssd_xbc_bwd.cu",
         replaces="si_mamba_tpu/ops/pallas/ssd_kernel.py:623", max_abs_err=err9,
-        rel_err_of_max=rels, ms=time_ms(lambda: kssd.ssd_xbc_bwd(*bwd_args), 10),
+        rel_err_of_max=rels, ms=time_ms(bwd, 10), device_ms=graph_ms(bwd, 10),
         plain_ms=time_ms(lambda: kssd.ssd_xbc_bwd_ref(*bwd_args), 2, warmup=1),
-        library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
-    log("SSD backward ok: " + ", ".join(f"{k} {v:.3e} of max" for k, v in rels.items()))
-    for r in records:
-        log(f"{r['name']}: {r['ms']:.6f} ms (plain {r['plain_ms']:.6f}, bound "
-            f"{r['bound_ms']:.6f} by {r['bound_by']})")
+        library_ms=None, **tc_bound(bwd_bytes, bwd_ops)))
+    log("SSD backward ok: two runs bitwise equal; " +
+        ", ".join(f"{k} {v:.3e} of max" for k, v in rels.items()))
+    fp32_bounds = (bound(fwd_bytes, fwd_ops), bound(fwd_bytes + hin_bytes, fwd_ops),
+                   bound(bwd_bytes, bwd_ops))
+    for r, (fp32_ms, fp32_by) in zip(records, fp32_bounds):
+        log(f"{r['name']}: {r['ms']:.6f} ms, device {r['device_ms']:.6f} ms (plain "
+            f"{r['plain_ms']:.6f}, bound {r['bound_ms']:.6f} by {r['bound_by']} at the TF32 "
+            f"rate, {fp32_ms:.6f} by {fp32_by} at the fp32 rate)")
     return records, conv_shape
 
 
@@ -581,8 +629,8 @@ def _split_bounds(B, L, h, chunk, n=128, hp=128):
     return fwd_ops, fwd_bytes, bwd_ops, bwd_bytes
 
 
-def _split_operands(device, heads: int):
-    """The split core's operands at B=32, L=512 as the mixers make them. For
+def _split_operands(device, heads: int, batch: int = 32):
+    """The split core's operands at B=batch, L=512 as the mixers make them. For
     3 heads (the tensor-parallel shard at TP = 2): x the x conv's output and
     B, C the two halves of the B|C conv's output (row stride 256), from rank
     0's shard of layer 0's SSD mixer; for 6 heads: x, B and C the column
@@ -598,7 +646,7 @@ def _split_operands(device, heads: int):
     full = {k: v.detach().to(device) for k, v in mixer.params().items()}
     d, n = mixer.d_inner, mixer.d_state
     u = torch.from_numpy(np.random.default_rng(4).standard_normal(
-        (32, 512, MODELNET40["trans_dim"]), dtype=np.float32)).to(device)
+        (batch, 512, MODELNET40["trans_dim"]), dtype=np.float32)).to(device)
     if heads == mixer.n_heads:
         zxbcdt = u @ full["in_proj_w"]
         xbc = kc.causal_conv1d_silu_fwd(zxbcdt[..., d:2 * d + 2 * n], full["conv_w"],

@@ -19,7 +19,7 @@ ORDER = ("this", "other", "other", "this")
 def build(src_dir: Path, names: tuple[str, ...], tag: str) -> tuple[dict[str, ctypes.CDLL], str]:
     """Build ``<src_dir>/<name>.cu`` for each name into ``build/ab/<tag>``,
     one nvcc each, all started together. Returns the loaded libraries and
-    ptxas' register and spill lines."""
+    ptxas' register and spill lines, each after the name of its kernel."""
     from si_mamba_tpu_torch.ops.kernels.build import NVCC_FLAGS, _nvcc
 
     out_dir = ROOT / "build" / "ab" / tag
@@ -34,7 +34,7 @@ def build(src_dir: Path, names: tuple[str, ...], tag: str) -> tuple[dict[str, ct
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src_dir / name}.cu:\n{out}")
         report += [f"{name}: {line.strip()}" for line in out.splitlines()
-                   if "registers" in line or "spill" in line]
+                   if "registers" in line or "spill" in line or "entry function" in line]
         libs[name] = ctypes.CDLL(str(out_dir / f"{name}.so"))
     return libs, "\n".join(report)
 

@@ -6,11 +6,25 @@ PyTorch port built from two source trees, in one process on one card.
 
 ``--other`` is typically the ``si_mamba_tpu_torch/csrc`` of another commit
 unpacked with ``git archive``. Both trees are built with the port's nvcc
-flags into ``build/ab/`` (``torch_ab_common.build``); the kernels run at the
-SSD classifier's shapes (B=32, L=512, chunk 256, 6 heads of 128, d_state
-128, the conv output of layer 0's mixer as in ``chip_smoke.py``) in turns
-this, other, other, this (ROUNDS times), and the script prints each kernel's
-mean time per tree as one JSON line, with the card's name and power limit.
+flags into ``build/ab/`` (``torch_ab_common.build``). A tree with the
+chunk-parallel kernels (it has ``ssd_tc.cuh``) is called through this
+tree's ``run_fwd`` / ``run_bwd``; a tree without them (the earlier one-
+block-a-(batch, head) kernels) through its own C argument lists, its
+per-head dB | dC partials summed as its wrapper did. The kernels run on the
+SSD classifier's inputs as layer 0's mixer makes them (L=512, chunk 256, 6
+heads of 128, d_state 128, the conv output as in ``chip_smoke.py``): lean K8
+at B = 1, 20, 32 and 64 clouds, K8 with states and K9 at B=32, in turns this,
+other, other, this (ROUNDS times), each as device time (calls captured in a
+CUDA graph and replayed) and as eager time (back-to-back wrapper calls, the
+host's cost included). Before timing, each tree's outputs are held against
+the plain versions at B=32 (K8 within 1e-4 of the max, K9 within 1e-3, as in
+``chip_smoke.py``), and each tree's lean K8 call is measured for the memory
+it allocates at its peak (its output and scratch) at every B. The script
+prints one JSON line: each kernel's mean time per tree and timer, the
+ratios, the times of every round, the lean calls' peak allocations, ptxas'
+register and spill lines, the card's name and power limit, and this tree's
+device time by kernel name (``torch.profiler``) for lean K8 at one cloud and
+K8 with states and K9 at B=32.
 """
 
 from __future__ import annotations
@@ -21,25 +35,127 @@ import json
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
-from torch_ab_common import ROOT, build, means, round_robin
+from torch_ab_common import ROOT, build, means, other_over_this, round_robin
 
 ROUNDS = 5
+BATCHES = (1, 20, 32, 64)
 NAMES = ("ssd_xbc_fwd", "ssd_xbc_bwd")
 
 
-def _declare(libs: dict[str, ctypes.CDLL]) -> dict[str, ctypes.CDLL]:
-    """Declare the C interfaces of a tree's K8/K9 libraries."""
-    for name, lib in libs.items():
-        fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
-                       + [ctypes.c_void_p]) if name == "ssd_xbc_fwd" else \
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        err = getattr(lib, f"{name}_error_string")
-        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-    return libs
+def _one_block_tree(libs: dict[str, ctypes.CDLL]) -> tuple:
+    """(forward, backward) of a tree with the earlier C interface: grid
+    (h, b), per-head dB | dC partials (b, h, l, 2n) and dD partials (b, h, nc)
+    that the wrapper sums."""
+    fwd, bwd = libs["ssd_xbc_fwd"], libs["ssd_xbc_bwd"]
+    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    fwd.ssd_xbc_fwd.argtypes = [p] * 6 + [i] * 7 + [ll] * 2 + [p]
+    bwd.ssd_xbc_bwd.argtypes = [p] * 11 + [i] * 7 + [ll] * 4 + [p]
+    fwd.ssd_xbc_fwd.restype = bwd.ssd_xbc_bwd.restype = i
+
+    def forward(xbc, dt, S, D, d, chunk, states):
+        b, l, total = xbc.shape
+        h, n = dt.shape[1], (total - d) // 2
+        y = torch.empty((b, l, d), device=xbc.device)
+        h_in = torch.empty((b, l // chunk, h, n, d // h), device=xbc.device) if states else None
+        err = fwd.ssd_xbc_fwd(xbc.data_ptr(), dt.data_ptr(), S.data_ptr(), D.data_ptr(),
+                              y.data_ptr(), h_in.data_ptr() if states else None, b, l, h, d, n,
+                              d // h, chunk, xbc.stride(0), xbc.stride(1),
+                              torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the other tree's SSD forward failed ({err})")
+        return y, h_in
+
+    def backward(xbc, dt, S, D, h_in, dy, d, chunk):
+        b, l, total = xbc.shape
+        h, n, nc = dt.shape[1], (total - d) // 2, l // chunk
+        f32 = dict(dtype=torch.float32, device=xbc.device)
+        dxbc = torch.empty((b, l, total), **f32)
+        part = torch.empty((b, h, l, 2 * n), **f32)
+        ddt, dS = torch.empty((b, h, nc, chunk), **f32), torch.empty((b, h, nc, chunk), **f32)
+        dD = torch.empty((b, h, nc), **f32)
+        err = bwd.ssd_xbc_bwd(xbc.data_ptr(), dt.data_ptr(), S.data_ptr(), D.data_ptr(),
+                              h_in.data_ptr(), dy.data_ptr(), dxbc.data_ptr(), part.data_ptr(),
+                              ddt.data_ptr(), dS.data_ptr(), dD.data_ptr(), b, l, h, d, n,
+                              d // h, chunk, xbc.stride(0), xbc.stride(1), dy.stride(0),
+                              dy.stride(1), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the other tree's SSD backward failed ({err})")
+        dxbc[..., d:] = part.sum(dim=1)
+        return dxbc, ddt, dS, dD.sum(dim=(0, 2))
+    return forward, backward
+
+
+def _tree(src: Path, tag: str) -> dict:
+    """The forward and backward of the tree at ``src``, and ptxas' report."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    libs, report = build(src, NAMES, tag)
+    if (src / "ssd_tc.cuh").exists():
+        fwd, bwd = kssd.fwd_interface(libs["ssd_xbc_fwd"]), kssd.bwd_interface(libs["ssd_xbc_bwd"])
+
+        def forward(xbc, dt, S, D, d, chunk, states):
+            return kssd.run_fwd(fwd, xbc, dt, S, D, d, chunk, states,
+                                torch.cuda.current_stream().cuda_stream)
+
+        def backward(xbc, dt, S, D, h_in, dy, d, chunk):
+            return kssd.run_bwd(bwd, xbc, dt, S, D, h_in, dy, d, chunk,
+                                torch.cuda.current_stream().cuda_stream)
+    else:
+        forward, backward = _one_block_tree(libs)
+    return dict(forward=forward, backward=backward, ptxas=report)
+
+
+def _check(tree: dict, args, h_in, dy) -> None:
+    """The tree's K8 (both variants) and K9 against the plain versions."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    xbc, dth, S, D, d, chunk = args
+    y, h = tree["forward"](*args, True)
+    y_ref, h_ref = kssd.ssd_xbc_fwd_ref(*args, emit_states=True)
+    got = tree["backward"](xbc, dth, S, D, h_in, dy, d, chunk)
+    want = kssd.ssd_xbc_bwd_ref(xbc, dth, S, D, h_in, dy, d, chunk)
+    torch.cuda.synchronize()
+    for name, a, b, tol in [("y", y, y_ref, 1e-4), ("h_in", h, h_ref, 1e-4),
+                            *((f"K9 {k}", x, w, 1e-3) for k, x, w in
+                              zip(("dxbc", "ddt", "dS", "dD"), got, want))]:
+        err = (a - b).abs().max().item()
+        if err > tol * b.abs().max().item():
+            raise AssertionError(f"{name}: max |diff| {err}, max {b.abs().max().item()}")
+
+
+def _peak_mb(fn) -> float:
+    """MB that one call of ``fn`` allocates at its peak, above what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak / 1e6
+
+
+def _by_kernel(fn, calls: int = 10) -> dict[str, float]:
+    """Device ms a call of ``fn`` by kernel name, over ``calls`` calls
+    under ``torch.profiler``, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+        if us:
+            out[e.key] = us / 1e3 / calls
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def main() -> int:
@@ -53,29 +169,35 @@ def main() -> int:
 
     card = cs.card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
-    trees = {"this": _declare(build(ROOT / "si_mamba_tpu_torch" / "csrc", NAMES, "this")[0]),
-             "other": _declare(build(args.other, NAMES, "other")[0])}
+    trees = {"this": _tree(ROOT / "si_mamba_tpu_torch" / "csrc", "this"),
+             "other": _tree(args.other, "other")}
     device = torch.device("cuda", 0)
-    x6, dth, S, _, _, xbc, D, chunk = cs._split_operands(device, heads=6)
-    d = x6.shape[-1]
-    dy = torch.randn(x6.shape, device=device, generator=torch.Generator(device).manual_seed(0))
-    _, h_in = kssd.ssd_xbc_fwd_ref(xbc, dth, S, D, d, chunk, emit_states=True)
-    kernels = {"ssd_xbc_fwd": lambda: kssd.ssd_xbc_fwd(xbc, dth, S, D, d, chunk),
-               "ssd_xbc_fwd_states": lambda: kssd.ssd_xbc_fwd_states(xbc, dth, S, D, d, chunk),
-               "ssd_xbc_bwd": lambda: kssd.ssd_xbc_bwd(xbc, dth, S, D, h_in, dy, d, chunk)}
+    ops = {}
+    for b in BATCHES:
+        _, dth, S, _, _, xbc, D, chunk = cs._split_operands(device, heads=6, batch=b)
+        ops[b] = (xbc, dth, S, D, 768, chunk)
+    full = ops[32]
+    dy = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (32, 512, 768), dtype=np.float32)).to(device)
+    _, h_in = kssd.ssd_xbc_fwd_ref(*full, emit_states=True)
+    for tree in trees.values():
+        _check(tree, full, h_in, dy)
 
-    def bind(tree):
-        kssd._fwd_library = lambda: trees[tree]["ssd_xbc_fwd"]
-        kssd._bwd_library = lambda: trees[tree]["ssd_xbc_bwd"]
-
-    times = round_robin({tree: (lambda tree=tree: bind(tree)) for tree in trees},
-                        {k: (lambda tree, fn=fn: fn()) for k, fn in kernels.items()},
-                        {"eager": cs.time_ms}, ROUNDS,
-                        calls=lambda name: 10 if name == "ssd_xbc_bwd" else 20)["eager"]
-    mean = means({"eager": times})["eager"]
-    print(json.dumps({"card": card, "rounds": ROUNDS, "mean_ms": mean, "ms": times,
-                      "this_over_other": {k: mean["this"][k] / mean["other"][k]
-                                          for k in kernels}}), flush=True)
+    kernels = {f"K8 lean B={b}": (lambda tree, a=ops[b]: trees[tree]["forward"](*a, False))
+               for b in BATCHES}
+    kernels["K8 states B=32"] = lambda tree: trees[tree]["forward"](*full, True)
+    kernels["K9 B=32"] = lambda tree: trees[tree]["backward"](*full[:4], h_in, dy, *full[4:])
+    times = round_robin({tree: (lambda: None) for tree in trees}, kernels,
+                        {"device": cs.graph_ms, "eager": cs.time_ms}, ROUNDS,
+                        calls=lambda name: 10 if name.startswith("K9") else 20)
+    mean = means(times)
+    peak_mb = {tree: {f"K8 lean B={b}": _peak_mb(lambda t=tree, b=b: kernels[f"K8 lean B={b}"](t))
+                      for b in BATCHES} for tree in trees}
+    by_kernel = {k: _by_kernel(lambda k=k: kernels[k]("this"))
+                 for k in ("K8 lean B=1", "K8 states B=32", "K9 B=32")}
+    print(json.dumps({"card": card, "rounds": ROUNDS, "mean_ms": mean, "by_kernel": by_kernel,
+                      "other_over_this": other_over_this(mean, kernels), "peak_mb": peak_mb,
+                      "ptxas": {t: trees[t]["ptxas"] for t in trees}, "ms": times}), flush=True)
     return 0
 
 

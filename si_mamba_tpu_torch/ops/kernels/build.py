@@ -2,8 +2,8 @@
 
 Each source compiles on its own into a shared library with a plain C
 interface, ``build/<name>-<hash>.so`` beside the package, where the hash
-covers the source and the flags, so an edited source is never served by a
-stale library. :func:`build` starts one ``nvcc`` per missing library, all at
+covers the source, the headers under ``csrc/`` and the flags, so an edited
+source is never served by a stale library. :func:`build` starts one ``nvcc`` per missing library, all at
 once, and waits for them; :func:`load_library` builds on first use. Nothing
 here runs at import time.
 """
@@ -37,7 +37,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

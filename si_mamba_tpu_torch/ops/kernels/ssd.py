@@ -10,27 +10,31 @@ the tensor- and sequence-parallel mixers make them, and has no D term; it can
 also return the state after the last chunk, h_fin (b, h, n, p), and take its
 cotangent back as the seed of the backward's carry.
 
-Kernels of the boundary-fused core:
+Kernels of the boundary-fused core, split over chunks, their products as
+3xTF32 on the tensor cores (``csrc/ssd_tc.cuh``):
 - ``csrc/ssd_xbc_fwd.cu`` (K8), which replaces the TPU kernel
   ``_make_fwd_kernel_xbc`` behind ``_fwd_call_xbc``
   (si_mamba_tpu/ops/pallas/ssd_kernel.py), in two variants: the lean forward
   (``emit_states=False``, serving) and the training forward, which also
-  writes the state entering every chunk, h_in (b, nc, h, n, p) fp32;
+  writes the state entering every chunk, h_in (b, nc, h, n, p) fp32. Its
+  scratch: G = C B^T (b, nc, q, q), and for the lean forward an h_in;
 - ``csrc/ssd_xbc_bwd.cu`` (K9), which replaces ``_make_bwd_kernel_xbc``
-  behind ``_bwd_call_xbc``: it walks the chunks in reverse with the dh carry
-  and writes dx into the x columns of dxbc, per-head partials of dB and dC
-  (the wrapper's ``torch.sum`` over heads fills the B and C columns), ddt,
-  dS and per-chunk partials of dD.
-Kernels of the split core, the same two sources' other entry points:
+  behind ``_bwd_call_xbc``: it writes every column of dxbc, ddt, dS and
+  per-(chunk, strip) partials of dD that the wrapper's ``torch.sum``
+  finishes; its scratch is laid out by :func:`bwd_scratch_floats`.
+:func:`run_fwd` and :func:`run_bwd` allocate outputs and scratch and launch
+through a given library; the C side refuses scratch of another size.
+Kernels of the split core, the same two sources' other entry points (the
+earlier one-block-a-(batch, head) body, on CUDA cores):
 - K6 (``ssd_split_fwd`` in ``csrc/ssd_xbc_fwd.cu``), which replaces the TPU
   kernel ``_make_fwd_kernel`` behind ``_fwd_call``: lean, with states, with
   h_fin, or with both;
 - K7 (``ssd_split_bwd`` in ``csrc/ssd_xbc_bwd.cu``), which replaces
   ``_make_bwd_kernel`` behind ``_bwd_call``: dx, ddt, dS and the head sums of
   dB and dC, its dh carry starting at 0 or at a given dh_fin.
-All are bound by fp32 operations on the H100; the sources describe the
-designs. They are built for d_state = head_dim = 128 and chunks that are a
-multiple of :data:`STRIP` up to :data:`MAX_CHUNK`, in float32.
+The sources describe the designs and bounds. They are built for d_state =
+head_dim = 128 and chunks that are a multiple of :data:`STRIP` up to
+:data:`MAX_CHUNK`, in float32.
 
 :func:`ssd_chunked_xbc` runs the lean K8 when no gradient is wanted and
 :class:`SSDChunkedXbcFn` (K8 with states, K9) when one is;
@@ -53,6 +57,7 @@ STATE = 128  # d_state the kernels are built for (kN in both sources)
 HEAD_DIM = 128  # head_dim the kernels are built for (kP)
 STRIP = 64  # rows of a time strip; the chunk must be a multiple (kStrip)
 MAX_CHUNK = 256  # the longest chunk the kernels' shared memory holds (kMaxChunk)
+CARRY_PARTS = 16  # blocks a (batch row, head) in K9's carry pass (kCarryParts)
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -237,30 +242,57 @@ def ssd_split_bwd_ref(x, dt, S, Bc, Cc, h_in, dy, chunk: int, dh_fin=None):
 
 @functools.cache
 def _fwd_library() -> ctypes.CDLL:
-    lib = load_library("ssd_xbc_fwd")
-    lib.ssd_xbc_fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + \
-        [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
-    lib.ssd_xbc_fwd.restype = ctypes.c_int
+    lib = fwd_interface(load_library("ssd_xbc_fwd"))
     lib.ssd_split_fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
         [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
     lib.ssd_split_fwd.restype = ctypes.c_int
-    lib.ssd_xbc_fwd_error_string.argtypes = [ctypes.c_int]
-    lib.ssd_xbc_fwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
-    lib = load_library("ssd_xbc_bwd")
-    lib.ssd_xbc_bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + \
-        [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
-    lib.ssd_xbc_bwd.restype = ctypes.c_int
+    lib = bwd_interface(load_library("ssd_xbc_bwd"))
     lib.ssd_split_bwd.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + \
         [ctypes.c_longlong] * 8 + [ctypes.c_void_p]
     lib.ssd_split_bwd.restype = ctypes.c_int
-    lib.ssd_xbc_bwd_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def fwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of K8 in a built ``ssd_xbc_fwd`` library: the
+    pointers, h_in (or the lean forward's scratch for the states entering
+    chunks 1 .. nc - 1) and G's scratch each with its float count, the states
+    flag, the geometry and xbc's strides, the stream."""
+    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    lib.ssd_xbc_fwd.argtypes = [p] * 6 + [ll, i, p, ll] + [i] * 7 + [ll] * 2 + [p]
+    lib.ssd_xbc_fwd.restype = i
+    lib.ssd_xbc_fwd_error_string.argtypes = [i]
+    lib.ssd_xbc_fwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def bwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of K9 in a built ``ssd_xbc_bwd`` library: the
+    pointers, dD's partials and the scratch each with its float count, the
+    geometry, xbc's and dy's strides, the stream."""
+    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    lib.ssd_xbc_bwd.argtypes = [p] * 10 + [ll, p, ll] + [i] * 7 + [ll] * 4 + [p]
+    lib.ssd_xbc_bwd.restype = i
+    lib.ssd_xbc_bwd_error_string.argtypes = [i]
     lib.ssd_xbc_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def bwd_scratch_floats(b: int, l: int, h: int, chunk: int) -> int:
+    """The floats of K9's scratch, in the order the C side carves it: G and
+    the head sum of dG (b, nc, q, q) each, the dh carry (b, nc, h, n, p), the
+    row and column sums of dlogM (b, h, nc, tile pairs, STRIP) each, dT and dE
+    (b, h, l) each, and the partials of sum(dh (.) h_in) (b, h, nc,
+    CARRY_PARTS)."""
+    nc, t = l // chunk, chunk // STRIP
+    pairs = t * (t + 1) // 2
+    return (2 * b * nc * chunk * chunk + b * nc * h * STATE * HEAD_DIM
+            + 2 * b * h * nc * pairs * STRIP + 2 * b * h * l + b * h * nc * CARRY_PARTS)
 
 
 def _check_geometry(n: int, p: int, l: int, chunk: int) -> None:
@@ -329,52 +361,75 @@ def _check_split(x, dt, S, Bm, Cm, chunk: int, extra: dict | None = None):
     return b, l, h, n, p
 
 
-def _launch_fwd(xbc, dt, S, D, d_inner: int, chunk: int, states: bool):
-    b, l, h, n, p = _check_inputs(xbc, dt, S, D, d_inner, chunk)
-    y = torch.empty((b, l, d_inner), dtype=torch.float32, device=xbc.device)
-    h_in = (torch.empty((b, l // chunk, h, n, p), dtype=torch.float32, device=xbc.device)
-            if states else None)
+def run_fwd(lib, xbc, dt, S, D, d_inner: int, chunk: int, states: bool, stream):
+    """Allocate K8's outputs and scratch beside xbc and launch it through
+    ``lib`` (a library with :func:`fwd_interface`) on ``stream``: (y,
+    h_in or None). Checks nothing; :func:`_launch_fwd` checks first."""
+    b, l, total = xbc.shape
+    h, nc, n = dt.shape[1], l // chunk, (total - d_inner) // 2
+    f32 = dict(dtype=torch.float32, device=xbc.device)
+    y = torch.empty((b, l, d_inner), **f32)
+    # h_in, or the lean forward's scratch for the states entering chunks 1 .. nc - 1
+    hin = torch.empty((b, nc if states else nc - 1, h, n, d_inner // h), **f32)
     if y.numel() == 0:
-        return y, h_in
-    lib = _fwd_library()
-    stream = torch.cuda.current_stream(xbc.device).cuda_stream
-    with torch.cuda.device(xbc.device):
-        err = lib.ssd_xbc_fwd(xbc.data_ptr(), dt.data_ptr(), S.data_ptr(), D.data_ptr(),
-                              y.data_ptr(), h_in.data_ptr() if states else None,
-                              b, l, h, d_inner, n, p, chunk, xbc.stride(0), xbc.stride(1), stream)
+        return y, (hin if states else None)
+    G = torch.empty((b, nc, chunk, chunk), **f32)
+    err = lib.ssd_xbc_fwd(xbc.data_ptr(), dt.data_ptr(), S.data_ptr(), D.data_ptr(),
+                          y.data_ptr(), hin.data_ptr(), hin.numel(), int(states), G.data_ptr(),
+                          G.numel(), b, l, h, d_inner, n, d_inner // h, chunk, xbc.stride(0),
+                          xbc.stride(1), stream)
     if err != 0:
         msg = lib.ssd_xbc_fwd_error_string(err).decode()
         raise RuntimeError(f"SSD forward kernel launch failed: {msg} ({err})")
-    if states:
-        ssd_xbc_fwd_states.launches += 1
-    else:
-        ssd_xbc_fwd.launches += 1
-    return y, h_in
+    return y, (hin if states else None)
 
 
-def _launch_bwd(xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int):
-    b, l, h, n, p = _check_inputs(xbc, dt, S, D, d_inner, chunk, dict(h_in=h_in, dy=dy))
+def run_bwd(lib, xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int, stream):
+    """Allocate K9's outputs and scratch beside xbc and launch it through
+    ``lib`` (a library with :func:`bwd_interface`) on ``stream``: (dxbc, ddt,
+    dS, dD). Checks nothing; :func:`_launch_bwd` checks first."""
+    b, l, total = xbc.shape
+    h, nc = dt.shape[1], l // chunk
+    n = (total - d_inner) // 2
     f32 = dict(dtype=torch.float32, device=xbc.device)
-    dxbc = torch.empty((b, l, d_inner + 2 * n), **f32)
-    dbc_part = torch.empty((b, h, l, 2 * n), **f32)
-    ddt, dS = torch.empty((b, h, l // chunk, chunk), **f32), torch.empty((b, h, l // chunk, chunk), **f32)
-    dD_part = torch.empty((b, h, l // chunk), **f32)
+    dxbc = torch.empty((b, l, total), **f32)
+    ddt, dS = torch.empty((b, h, nc, chunk), **f32), torch.empty((b, h, nc, chunk), **f32)
     if dxbc.numel() == 0:
         return dxbc.zero_(), ddt, dS, torch.zeros_like(D)
-    lib = _bwd_library()
-    stream = torch.cuda.current_stream(xbc.device).cuda_stream
-    with torch.cuda.device(xbc.device):
-        err = lib.ssd_xbc_bwd(xbc.data_ptr(), dt.data_ptr(), S.data_ptr(), D.data_ptr(),
-                              h_in.data_ptr(), dy.data_ptr(), dxbc.data_ptr(),
-                              dbc_part.data_ptr(), ddt.data_ptr(), dS.data_ptr(),
-                              dD_part.data_ptr(), b, l, h, d_inner, n, p, chunk,
-                              xbc.stride(0), xbc.stride(1), dy.stride(0), dy.stride(1), stream)
+    dD_part = torch.empty((b, h, nc, chunk // STRIP), **f32)
+    scratch = torch.empty(bwd_scratch_floats(b, l, h, chunk), **f32)
+    err = lib.ssd_xbc_bwd(xbc.data_ptr(), dt.data_ptr(), S.data_ptr(), D.data_ptr(),
+                          h_in.data_ptr(), dy.data_ptr(), dxbc.data_ptr(), ddt.data_ptr(),
+                          dS.data_ptr(), dD_part.data_ptr(), dD_part.numel(), scratch.data_ptr(),
+                          scratch.numel(), b, l, h, d_inner, n, d_inner // h, chunk,
+                          xbc.stride(0), xbc.stride(1), dy.stride(0), dy.stride(1), stream)
     if err != 0:
         msg = lib.ssd_xbc_bwd_error_string(err).decode()
         raise RuntimeError(f"SSD backward kernel launch failed: {msg} ({err})")
-    ssd_xbc_bwd.launches += 1
-    dxbc[..., d_inner:] = dbc_part.sum(dim=1)  # the head sums of dB | dC
-    return dxbc, ddt, dS, dD_part.sum(dim=(0, 2))
+    return dxbc, ddt, dS, dD_part.sum(dim=(0, 2, 3))
+
+
+def _launch_fwd(xbc, dt, S, D, d_inner: int, chunk: int, states: bool):
+    _check_inputs(xbc, dt, S, D, d_inner, chunk)
+    with torch.cuda.device(xbc.device):
+        out = run_fwd(_fwd_library(), xbc, dt, S, D, d_inner, chunk, states,
+                      torch.cuda.current_stream(xbc.device).cuda_stream)
+    if out[0].numel():
+        if states:
+            ssd_xbc_fwd_states.launches += 1
+        else:
+            ssd_xbc_fwd.launches += 1
+    return out
+
+
+def _launch_bwd(xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int):
+    _check_inputs(xbc, dt, S, D, d_inner, chunk, dict(h_in=h_in, dy=dy))
+    with torch.cuda.device(xbc.device):
+        out = run_bwd(_bwd_library(), xbc, dt, S, D, h_in, dy, d_inner, chunk,
+                      torch.cuda.current_stream(xbc.device).cuda_stream)
+    if out[0].numel():
+        ssd_xbc_bwd.launches += 1
+    return out
 
 
 def ssd_xbc_fwd(xbc, dt, S, D, d_inner: int, chunk: int) -> torch.Tensor:

@@ -407,6 +407,91 @@ def test_ssd_kernels_reject_what_they_do_not_take(cuda):
                              -torch.ones(1, device=cuda), D, d_inner=d, chunk=64)
 
 
+def _ssd_mixer_xbc(rng, b, l, h, layout, device, n=128, p=128):
+    """xbc (b, l, h p + 2n) as the SSD mixer makes it ("conv": K1's output
+    on the column view of a wider in_proj buffer, contiguous), or a column
+    view of a wider buffer whose rows are not 16-byte aligned ("view")."""
+    width = h * p + 2 * n
+    if layout == "view":
+        return _randn(rng, b, l, width + 6, scale=0.5, device=device)[..., 6:]
+    zxbcdt = _randn(rng, b, l, 2 * width + h, scale=0.5, device=device)
+    w, bias = _randn(rng, width, 4, scale=0.5, device=device), _randn(rng, width, device=device)
+    return kconv.causal_conv1d_silu_fwd(zxbcdt[..., h * p:h * p + width], w, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,chunk,layout,decay", [
+    (1, 64, 1, 64, "conv", 1.0),      # nc 1
+    (3, 256, 3, 128, "view", 1.0),    # nc 2
+    (3, 512, 6, 256, "conv", 1.0),    # nc 2, the classifier's chunk and heads
+    (1, 1024, 6, 256, "conv", 1.0),   # nc 4, the hardest geometry's L
+    (1, 256, 6, 64, "view", 30.0),    # nc 4, strong decay
+    (3, 1024, 1, 64, "view", 1.0),    # nc 16
+    (1, 2048, 3, 128, "conv", 1.0),   # nc 16
+])
+def test_ssd_kernels_match_plain_across_geometries(cuda, b, l, h, chunk, layout, decay):
+    """K8 (lean and with states) and K9 against their plain versions over
+    chunk counts 1 to 16, chunks 64 to 256, 1 to 6 heads and both layouts of
+    xbc: the lean y bitwise equal to the states variant's, two K9 runs
+    bitwise equal."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    rng = np.random.default_rng(27)
+    xbc = _ssd_mixer_xbc(rng, b, l, h, layout, cuda)
+    d = h * 128
+    dt = torch.nn.functional.softplus(_randn(rng, b, l, h, device=cuda) - 1.0)
+    A = -decay * torch.exp(_randn(rng, h, device=cuda))
+    dth = dt.transpose(1, 2).reshape(b, h, l // chunk, chunk).contiguous()
+    S = torch.cumsum(dth * A[None, :, None, None], dim=-1)
+    D = _randn(rng, h, device=cuda)
+    counts = lambda: (kssd.ssd_xbc_fwd.launches, kssd.ssd_xbc_fwd_states.launches,  # noqa: E731
+                      kssd.ssd_xbc_bwd.launches)
+    before = counts()
+    y_lean = kssd.ssd_xbc_fwd(xbc, dth, S, D, d, chunk)
+    y, h_in = kssd.ssd_xbc_fwd_states(xbc, dth, S, D, d, chunk)
+    dy = _randn(rng, b, l, d + 3, device=cuda)[..., 3:]
+    got = kssd.ssd_xbc_bwd(xbc, dth, S, D, h_in, dy, d, chunk)
+    again = kssd.ssd_xbc_bwd(xbc, dth, S, D, h_in, dy, d, chunk)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1, before[2] + 2)
+    torch.testing.assert_close(y, y_lean, rtol=0, atol=0)
+    for a, w in zip(got, again):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    y_ref, h_ref = kssd.ssd_xbc_fwd_ref(xbc, dth, S, D, d, chunk, emit_states=True)
+    _close_to_max(y, y_ref, 1e-5)
+    _close_to_max(h_in, h_ref, 1e-5)
+    want = kssd.ssd_xbc_bwd_ref(xbc, dth, S, D, h_in, dy, d, chunk)
+    for name, a, w in zip(("dxbc", "ddt", "dS", "dD"), got, want):
+        assert a.shape == w.shape, name
+        assert torch.isfinite(a).all(), name
+        _close_to_max(a, w, 1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_kernels_refuse_scratch_of_another_size(cuda):
+    """The C entry points check the scratch sizes the wrapper hands them."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    rng = np.random.default_rng(28)
+    xbc, dth, S, D, d = _ssd_case(rng, 1, 128, 1, 64, cuda)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    y, hin, G = (torch.empty((1, 128, d), **f32), torch.empty((1, 2, 1, 128, 128), **f32),
+                 torch.empty((1, 2, 64, 64), **f32))
+    lib = kssd._fwd_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (xbc.data_ptr(), dth.data_ptr(), S.data_ptr(), D.data_ptr(), y.data_ptr(),
+            hin.data_ptr())
+    tail = (1, 128, 1, d, 128, 128, 64, xbc.stride(0), xbc.stride(1), stream)
+    assert lib.ssd_xbc_fwd(*args, hin.numel(), 1, G.data_ptr(), G.numel(), *tail) == 0
+    assert lib.ssd_xbc_fwd(*args, hin.numel(), 1, G.data_ptr(), G.numel() - 1, *tail) != 0
+    assert lib.ssd_xbc_fwd(*args, hin.numel() - 1, 1, G.data_ptr(), G.numel(), *tail) != 0
+    # the lean forward's scratch holds the states entering chunks 1 .. nc - 1
+    lean = hin.numel() // 2
+    assert lib.ssd_xbc_fwd(*args, lean, 0, G.data_ptr(), G.numel(), *tail) == 0
+    assert lib.ssd_xbc_fwd(*args, hin.numel(), 0, G.data_ptr(), G.numel(), *tail) != 0
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_ssd_mixer_kernel_path_matches_xla(cuda):
     """The mixer at d_model 128 (two heads of 128), L = 100 padded to 128,
