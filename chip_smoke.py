@@ -29,11 +29,11 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    then the SSD core's lean forward (also at B = 1, 20 and 64, the serving
    request sizes), its forward with states (y equal, states against the
    plain version) and its backward for a seeded output gradient (two runs
-   bitwise equal), each against its plain version and timed beside it as
-   back-to-back calls and as CUDA-graph device time; their ``bound_ms`` at
-   the rate their 3xTF32 tensor-core products can use (three TF32 products
-   for each against the dense TF32 peak), and in the log beside it the bound
-   at the fp32 rate of the CUDA cores;
+   bitwise equal), each within 1e-4 of its plain version's max and timed
+   beside it as back-to-back calls and as CUDA-graph device time; their
+   ``bound_ms`` at the rate their 3xTF32 tensor-core products can use (three
+   TF32 products for each against the dense TF32 peak), and in the log
+   beside it the bound at the fp32 rate of the CUDA cores;
 4b. fused-mixer kernels: at the serving path's shapes, with xz as layer 0's
    ``in_proj`` makes it, the whole-mixer forward lean and with its chunk
    entry states (y equal, states against the plain version; the lean one
@@ -50,9 +50,12 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    halves of the B|C conv's output, row stride 256, as ``ssd_mixer_tp``
    makes them) the split forward lean, with states, with the final state and
    with both (the same y from each) and the backward from 0 and seeded with a
-   final-state cotangent (two runs bitwise equal), each against its plain
-   version and timed beside it; then the lean forward and the backward at 6
-   heads on the full mixer's column groups, beside K8/K9 on the same block;
+   final-state cotangent (two runs bitwise equal), each within 1e-4 of its
+   plain version's max and timed beside it as back-to-back calls and as
+   CUDA-graph device time, with ``bound_ms`` at the 3xTF32 rate as in phase
+   4; every variant held again at chunk 128 (4 chunks); then the lean
+   forward and the backward at 6 heads on the full mixer's column groups,
+   beside K8/K9 on the same block;
 5. serving: a ``Predictor`` over the ModelNet40 ``PointMamba`` (12 x 384,
    L=512, seeded random weights) answers requests of 1, 20 and 64 clouds of
    1024 points; every forward must launch the conv and lean scan kernels 12
@@ -570,7 +573,7 @@ def ssd_kernel_phase(device) -> tuple[list[dict], dict]:
     for name, a, b in zip(("dxbc", "ddt", "dS", "dD"), got, want):
         err, rels[name] = _rel_err(a, b)
         err9 = max(err9, err)
-        if rels[name] > 1e-3:
+        if rels[name] > 1e-4:
             raise AssertionError(f"SSD backward kernel: {name} max |diff| {err} "
                                  f"({rels[name]:.3e} of max)")
     # operations, the products the function needs, lower triangles only: in
@@ -629,8 +632,10 @@ def _split_bounds(B, L, h, chunk, n=128, hp=128):
     return fwd_ops, fwd_bytes, bwd_ops, bwd_bytes
 
 
-def _split_operands(device, heads: int, batch: int = 32):
-    """The split core's operands at B=batch, L=512 as the mixers make them. For
+def _split_operands(device, heads: int, batch: int = 32, chunk: int = MODELNET40_SSD["ssd_chunk"]):
+    """The split core's operands at B=batch, L=512 as the mixers make them
+    (dt and S cut into chunks of ``chunk``, the SSD classifier's 256 unless
+    given). For
     3 heads (the tensor-parallel shard at TP = 2): x the x conv's output and
     B, C the two halves of the B|C conv's output (row stride 256), from rank
     0's shard of layer 0's SSD mixer; for 6 heads: x, B and C the column
@@ -640,8 +645,9 @@ def _split_operands(device, heads: int, batch: int = 32):
     from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
     from si_mamba_tpu_torch.parallel.tensor_parallel import shard_ssd_mixer_params
 
-    depth, chunk = MODELNET40["depth"], MODELNET40_SSD["ssd_chunk"]
-    mixer = SSDMixer(MODELNET40["trans_dim"], out_proj_div=depth ** 0.5, chunk=chunk)
+    depth = MODELNET40["depth"]
+    mixer = SSDMixer(MODELNET40["trans_dim"], out_proj_div=depth ** 0.5,
+                     chunk=MODELNET40_SSD["ssd_chunk"])
     mixer.reset_parameters(torch.Generator().manual_seed(1))
     full = {k: v.detach().to(device) for k, v in mixer.params().items()}
     d, n = mixer.d_inner, mixer.d_state
@@ -668,90 +674,113 @@ def _split_operands(device, heads: int, batch: int = 32):
     return x, dth, S, Bm, Cm, xbc, D, chunk
 
 
-def split_kernel_phase(device) -> list[dict]:
-    """K6 (lean, with states, with h_fin, with both) and K7 (from 0 and
-    seeded with a dh_fin) at the tensor-parallel shard's shapes (B=32, L=512,
-    chunk 256, 3 heads of 128, d_state 128; x, B and C strided as
-    ``ssd_mixer_tp`` makes them), each against its plain version and timed
-    beside it; then K6 lean and K7 at 6 heads on the full mixer's column
-    groups, beside K8 and K9 on the same xbc."""
+SPLIT_FWD = (("ssd_split_fwd", False, False), ("ssd_split_fwd_states", True, False),
+             ("ssd_split_fwd_hfin", False, True), ("ssd_split_fwd_states_hfin", True, True))
+SPLIT_BWD = (("ssd_split_bwd", False), ("ssd_split_bwd_seeded", True))
+
+
+def _hold_split_kernels(args, dy, dh_fin) -> tuple[dict, torch.Tensor]:
+    """Every K6 and K7 variant once on ``args`` (x, dt, S, B, C, chunk), each
+    against its plain version: the four forwards give the same y, and y, h_in
+    and h_fin lie within 1e-4 of the plain version's max; both backwards (from
+    0, and seeded with ``dh_fin``) for the output gradient ``dy`` run twice,
+    bitwise equal, each gradient within 1e-4 of its max. Returns
+    {name: (max |diff|, {output: its max |diff| over its max})} and K6's h_in."""
     from si_mamba_tpu_torch.ops.kernels import ssd as kssd
 
-    x, dth, S, Bm, Cm, _, _, chunk = _split_operands(device, heads=3)
-    B, L, d = x.shape
-    h = dth.shape[1]
-    args = (x, dth, S, Bm, Cm, chunk)
-    fwd_ops, fwd_bytes, bwd_ops, bwd_bytes = _split_bounds(B, L, h, chunk)
+    chunk = args[-1]
     y_ref, h_ref, hf_ref = kssd.ssd_split_fwd_ref(*args, emit_states=True, emit_hfin=True)
     y_lean = kssd.ssd_split_fwd(*args)
-    variants = {(False, False): ("ssd_split_fwd", kssd.ssd_split_fwd),
-                (True, False): ("ssd_split_fwd_states", kssd.ssd_split_fwd_states),
-                (False, True): ("ssd_split_fwd_hfin", kssd.ssd_split_fwd_hfin),
-                (True, True): ("ssd_split_fwd_states_hfin", kssd.ssd_split_fwd_states_hfin)}
-    records, h_in = [], None
-    for (states, hfin), (name, fn) in variants.items():
-        out = fn(*args)
+    errors, h_in = {}, None
+    for name, states, hfin in SPLIT_FWD:
+        out = getattr(kssd, name)(*args)
         out = out if isinstance(out, tuple) else (out,)
         torch.cuda.synchronize()
         if not torch.equal(out[0], y_lean):
-            raise AssertionError(f"{name}'s y differs from the lean forward's: max |diff| "
-                                 f"{(out[0] - y_lean).abs().max().item()}")
+            raise AssertionError(f"{name}'s y differs from the lean forward's at chunk {chunk}: "
+                                 f"max |diff| {(out[0] - y_lean).abs().max().item()}")
         errs = {"y": _rel_err(out[0], y_ref)}
         if states:
             errs["h_in"] = _rel_err(out[1], h_ref)
             h_in = out[1]
         if hfin:
             errs["h_fin"] = _rel_err(out[-1], hf_ref)
+        errors[name] = errs
+    for name, seeded in SPLIT_BWD:
+        seed = dh_fin if seeded else None
+        bwd_args = (*args[:5], h_in, dy) + ((seed,) if seeded else ()) + (chunk,)
+        fn = getattr(kssd, name)
+        got, again = fn(*bwd_args), fn(*bwd_args)
+        want = kssd.ssd_split_bwd_ref(*args[:5], h_in, dy, chunk, dh_fin=seed)
+        torch.cuda.synchronize()
+        errors[name] = {}
+        for key, a, a2, w in zip(("dx", "ddt", "dS", "dB", "dC"), got, again, want):
+            if not torch.equal(a, a2):
+                raise AssertionError(f"{name}: {key} differs between two runs at chunk {chunk}")
+            errors[name][key] = _rel_err(a, w)
+    for name, errs in errors.items():
         for key, (err, rel) in errs.items():
             if rel > 1e-4:
-                raise AssertionError(f"{name}: {key} disagrees with the plain version: "
-                                     f"max |diff| {err} ({rel:.3e} of max)")
-        bound_ms, bound_by = bound(fwd_bytes[(states, hfin)], fwd_ops[hfin])
-        records.append(dict(
-            name=name, route="cuda", source="si_mamba_tpu_torch/csrc/ssd_xbc_fwd.cu",
-            replaces="si_mamba_tpu/ops/pallas/ssd_kernel.py:119",
-            shape=dict(B=B, L=L, heads=h, chunk=chunk, x_row_stride=x.stride(1),
-                       bc_row_stride=Bm.stride(1)),
-            max_abs_err=max(e for e, _ in errs.values()),
-            rel_err_of_max={k: r for k, (_, r) in errs.items()},
-            ms=time_ms(lambda: fn(*args), 20),
-            plain_ms=time_ms(lambda: kssd.ssd_split_fwd_ref(*args, emit_states=states,
-                                                            emit_hfin=hfin), 3),
-            library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
-    log(f"split SSD forward ok at {h} heads: four variants give the same y; " +
-        ", ".join(f"{r['name']} {r['rel_err_of_max']}" for r in records))
+                raise AssertionError(f"{name} at chunk {chunk}: {key} disagrees with the plain "
+                                     f"version: max |diff| {err} ({rel:.3e} of max)")
+    return {name: (max(e for e, _ in errs.values()), {k: r for k, (_, r) in errs.items()})
+            for name, errs in errors.items()}, h_in
 
+
+def split_kernel_phase(device) -> list[dict]:
+    """K6 (lean, with states, with h_fin, with both) and K7 (from 0 and
+    seeded with a dh_fin) at the tensor-parallel shard's shapes (B=32, L=512,
+    chunk 256, 3 heads of 128, d_state 128; x, B and C strided as
+    ``ssd_mixer_tp`` makes them), each against its plain version and timed
+    beside it as back-to-back calls and as CUDA-graph device time; every
+    variant held again at chunk 128 (4 chunks, so the carry launches run);
+    then K6 lean and K7 at 6 heads on the full mixer's column groups, beside
+    K8 and K9 on the same xbc."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    x, dth, S, Bm, Cm, _, _, chunk = _split_operands(device, heads=3)
+    B, L, d = x.shape
+    h = dth.shape[1]
+    args = (x, dth, S, Bm, Cm, chunk)
     rng = np.random.default_rng(5)
     dy = torch.from_numpy(rng.standard_normal((B, L, d), dtype=np.float32)).to(device)
     dh_fin = torch.from_numpy(0.1 * rng.standard_normal((B, h, 128, 128),
                                                         dtype=np.float32)).to(device)
-    for seeded, name, fn in ((False, "ssd_split_bwd", kssd.ssd_split_bwd),
-                             (True, "ssd_split_bwd_seeded", kssd.ssd_split_bwd_seeded)):
-        bwd_args = (x, dth, S, Bm, Cm, h_in, dy) + ((dh_fin,) if seeded else ()) + (chunk,)
-        got, again = fn(*bwd_args), fn(*bwd_args)
-        want = kssd.ssd_split_bwd_ref(x, dth, S, Bm, Cm, h_in, dy, chunk,
-                                      dh_fin=dh_fin if seeded else None)
-        torch.cuda.synchronize()
-        err7, rels = 0.0, {}
-        for key, a, a2, w in zip(("dx", "ddt", "dS", "dB", "dC"), got, again, want):
-            err, rels[key] = _rel_err(a, w)
-            err7 = max(err7, err)
-            if rels[key] > 1e-3:
-                raise AssertionError(f"{name}: {key} max |diff| {err} ({rels[key]:.3e} of max)")
-            if not torch.equal(a, a2):
-                raise AssertionError(f"{name}: {key} differs between two runs")
-        bound_ms, bound_by = bound(bwd_bytes[seeded], bwd_ops[seeded])
+    held, h_in = _hold_split_kernels(args, dy, dh_fin)
+    x4, dth4, S4, B4, C4, *_ = _split_operands(device, heads=3, chunk=128)
+    held4, _ = _hold_split_kernels((x4, dth4, S4, B4, C4, 128), dy, dh_fin)
+    log(f"split SSD kernels ok at {h} heads, chunk {chunk} and 128: the four forwards give the "
+        f"same y, two runs of each backward bitwise equal; of the max at chunk {chunk}: " +
+        "; ".join(f"{k} {v[1]}" for k, v in held.items()) + "; at chunk 128: " +
+        "; ".join(f"{k} {v[1]}" for k, v in held4.items()))
+
+    fwd_ops, fwd_bytes, bwd_ops, bwd_bytes = _split_bounds(B, L, h, chunk)
+    calls = {name: (lambda fn=getattr(kssd, name): fn(*args)) for name, *_ in SPLIT_FWD}
+    plains = {name: (lambda st=st, hf=hf: kssd.ssd_split_fwd_ref(*args, emit_states=st,
+                                                                 emit_hfin=hf))
+              for name, st, hf in SPLIT_FWD}
+    work = {name: (fwd_bytes[(st, hf)], fwd_ops[hf]) for name, st, hf in SPLIT_FWD}
+    for name, seeded in SPLIT_BWD:
+        extra = (dh_fin,) if seeded else ()
+        calls[name] = lambda fn=getattr(kssd, name), extra=extra: fn(
+            x, dth, S, Bm, Cm, h_in, dy, *extra, chunk)
+        plains[name] = lambda seed=dh_fin if seeded else None: kssd.ssd_split_bwd_ref(
+            x, dth, S, Bm, Cm, h_in, dy, chunk, dh_fin=seed)
+        work[name] = (bwd_bytes[seeded], bwd_ops[seeded])
+    records = []
+    for name, call in calls.items():
+        fwd = "fwd" in name
         records.append(dict(
-            name=name, route="cuda", source="si_mamba_tpu_torch/csrc/ssd_xbc_bwd.cu",
-            replaces="si_mamba_tpu/ops/pallas/ssd_kernel.py:216",
-            shape=dict(B=B, L=L, heads=h, chunk=chunk), max_abs_err=err7, rel_err_of_max=rels,
-            ms=time_ms(lambda: fn(*bwd_args), 10),
-            plain_ms=time_ms(lambda: kssd.ssd_split_bwd_ref(
-                x, dth, S, Bm, Cm, h_in, dy, chunk, dh_fin=dh_fin if seeded else None),
-                2, warmup=1),
-            library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
-        log(f"{name} ok, two runs bitwise equal: " +
-            ", ".join(f"{k} {v:.3e} of max" for k, v in rels.items()))
+            name=name, route="cuda",
+            source="si_mamba_tpu_torch/csrc/ssd_xbc_" + ("fwd.cu" if fwd else "bwd.cu"),
+            replaces="si_mamba_tpu/ops/pallas/ssd_kernel.py:" + ("119" if fwd else "216"),
+            shape=dict(B=B, L=L, heads=h, chunk=chunk, x_row_stride=x.stride(1),
+                       bc_row_stride=Bm.stride(1)),
+            max_abs_err=held[name][0], rel_err_of_max=held[name][1],
+            rel_err_of_max_at_chunk_128=held4[name][1],
+            ms=time_ms(call, 20 if fwd else 10), device_ms=graph_ms(call, 20 if fwd else 10),
+            plain_ms=time_ms(plains[name], 3 if fwd else 2, warmup=1),
+            library_ms=None, **tc_bound(*work[name])))
 
     # K6 lean and K7 at 6 heads, beside K8 and K9 on the same (x|B|C) block
     x6, dth6, S6, B6, C6, xbc, D, _ = _split_operands(device, heads=6)
@@ -768,8 +797,10 @@ def split_kernel_phase(device) -> list[dict]:
                                                               x6.shape[-1], chunk), 10)}
     for r in records:
         r["at_6_heads"] = six
-        log(f"{r['name']}: {r['ms']:.6f} ms (plain {r['plain_ms']:.6f}, bound "
-            f"{r['bound_ms']:.6f} by {r['bound_by']})")
+        fp32_ms, fp32_by = bound(*work[r["name"]])
+        log(f"{r['name']}: {r['ms']:.6f} ms, device {r['device_ms']:.6f} ms (plain "
+            f"{r['plain_ms']:.6f}, bound {r['bound_ms']:.6f} by {r['bound_by']} at the TF32 "
+            f"rate, {fp32_ms:.6f} by {fp32_by} at the fp32 rate)")
     log("at 6 heads (the full mixer's x|B|C block): " +
         ", ".join(f"{k} {v:.6f}" for k, v in six.items()))
     return records

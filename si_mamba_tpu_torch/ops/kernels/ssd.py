@@ -10,28 +10,27 @@ the tensor- and sequence-parallel mixers make them, and has no D term; it can
 also return the state after the last chunk, h_fin (b, h, n, p), and take its
 cotangent back as the seed of the backward's carry.
 
-Kernels of the boundary-fused core, split over chunks, their products as
-3xTF32 on the tensor cores (``csrc/ssd_tc.cuh``):
-- ``csrc/ssd_xbc_fwd.cu`` (K8), which replaces the TPU kernel
-  ``_make_fwd_kernel_xbc`` behind ``_fwd_call_xbc``
+Kernels, one chunk-parallel body in each source, its products as 3xTF32 on
+the tensor cores (``csrc/ssd_tc.cuh``), with two entry points each:
+- ``csrc/ssd_xbc_fwd.cu``: K8 (``ssd_xbc_fwd``), which replaces the TPU
+  kernel ``_make_fwd_kernel_xbc`` behind ``_fwd_call_xbc``
   (si_mamba_tpu/ops/pallas/ssd_kernel.py), in two variants: the lean forward
   (``emit_states=False``, serving) and the training forward, which also
-  writes the state entering every chunk, h_in (b, nc, h, n, p) fp32. Its
-  scratch: G = C B^T (b, nc, q, q), and for the lean forward an h_in;
-- ``csrc/ssd_xbc_bwd.cu`` (K9), which replaces ``_make_bwd_kernel_xbc``
-  behind ``_bwd_call_xbc``: it writes every column of dxbc, ddt, dS and
-  per-(chunk, strip) partials of dD that the wrapper's ``torch.sum``
-  finishes; its scratch is laid out by :func:`bwd_scratch_floats`.
-:func:`run_fwd` and :func:`run_bwd` allocate outputs and scratch and launch
-through a given library; the C side refuses scratch of another size.
-Kernels of the split core, the same two sources' other entry points (the
-earlier one-block-a-(batch, head) body, on CUDA cores):
-- K6 (``ssd_split_fwd`` in ``csrc/ssd_xbc_fwd.cu``), which replaces the TPU
-  kernel ``_make_fwd_kernel`` behind ``_fwd_call``: lean, with states, with
-  h_fin, or with both;
-- K7 (``ssd_split_bwd`` in ``csrc/ssd_xbc_bwd.cu``), which replaces
+  writes the state entering every chunk, h_in (b, nc, h, n, p) fp32; and K6
+  (``ssd_split_fwd``), which replaces ``_make_fwd_kernel`` behind
+  ``_fwd_call``: lean, with states, with h_fin, or with both. Their
+  scratch: G = C B^T (b, nc, q, q), and for the lean forward an h_in of the
+  slots 1 .. nc - 1;
+- ``csrc/ssd_xbc_bwd.cu``: K9 (``ssd_xbc_bwd``), which replaces
+  ``_make_bwd_kernel_xbc`` behind ``_bwd_call_xbc``: it writes every column
+  of dxbc, ddt, dS and per-(chunk, strip) partials of dD that the wrapper's
+  ``torch.sum`` finishes; and K7 (``ssd_split_bwd``), which replaces
   ``_make_bwd_kernel`` behind ``_bwd_call``: dx, ddt, dS and the head sums of
-  dB and dC, its dh carry starting at 0 or at a given dh_fin.
+  dB and dC into one (b, l, 2n) buffer, its dh carry starting at 0 or at a
+  given dh_fin. Their scratch is laid out by :func:`bwd_scratch_floats`.
+:func:`run_fwd`, :func:`run_bwd`, :func:`run_split_fwd` and
+:func:`run_split_bwd` allocate outputs and scratch and launch through a given
+library; the C side refuses scratch of another size.
 The sources describe the designs and bounds. They are built for d_state =
 head_dim = 128 and chunks that are a multiple of :data:`STRIP` up to
 :data:`MAX_CHUNK`, in float32.
@@ -242,53 +241,50 @@ def ssd_split_bwd_ref(x, dt, S, Bc, Cc, h_in, dy, chunk: int, dh_fin=None):
 
 @functools.cache
 def _fwd_library() -> ctypes.CDLL:
-    lib = fwd_interface(load_library("ssd_xbc_fwd"))
-    lib.ssd_split_fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
-        [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
-    lib.ssd_split_fwd.restype = ctypes.c_int
-    return lib
+    return fwd_interface(load_library("ssd_xbc_fwd"))
 
 
 @functools.cache
 def _bwd_library() -> ctypes.CDLL:
-    lib = bwd_interface(load_library("ssd_xbc_bwd"))
-    lib.ssd_split_bwd.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + \
-        [ctypes.c_longlong] * 8 + [ctypes.c_void_p]
-    lib.ssd_split_bwd.restype = ctypes.c_int
-    return lib
+    return bwd_interface(load_library("ssd_xbc_bwd"))
 
 
 def fwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of K8 in a built ``ssd_xbc_fwd`` library: the
-    pointers, h_in (or the lean forward's scratch for the states entering
-    chunks 1 .. nc - 1) and G's scratch each with its float count, the states
-    flag, the geometry and xbc's strides, the stream."""
+    """Declare the C interface of K8 and K6 in a built ``ssd_xbc_fwd``
+    library: the pointers, h_in (or the lean forward's scratch for the states
+    entering chunks 1 .. nc - 1) and G's scratch each with its float count,
+    the states flag (and for K6 h_fin, or null), the geometry, the operands'
+    strides, the stream."""
     i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     lib.ssd_xbc_fwd.argtypes = [p] * 6 + [ll, i, p, ll] + [i] * 7 + [ll] * 2 + [p]
     lib.ssd_xbc_fwd.restype = i
+    lib.ssd_split_fwd.argtypes = [p] * 7 + [ll, i, p, p, ll] + [i] * 6 + [ll] * 6 + [p]
+    lib.ssd_split_fwd.restype = i
     lib.ssd_xbc_fwd_error_string.argtypes = [i]
     lib.ssd_xbc_fwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def bwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of K9 in a built ``ssd_xbc_bwd`` library: the
-    pointers, dD's partials and the scratch each with its float count, the
-    geometry, xbc's and dy's strides, the stream."""
+    """Declare the C interface of K9 and K7 in a built ``ssd_xbc_bwd``
+    library: the pointers, (K9) dD's partials and the scratch each with its
+    float count, the geometry, the operands' strides, the stream."""
     i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     lib.ssd_xbc_bwd.argtypes = [p] * 10 + [ll, p, ll] + [i] * 7 + [ll] * 4 + [p]
     lib.ssd_xbc_bwd.restype = i
+    lib.ssd_split_bwd.argtypes = [p] * 13 + [ll] + [i] * 6 + [ll] * 8 + [p]
+    lib.ssd_split_bwd.restype = i
     lib.ssd_xbc_bwd_error_string.argtypes = [i]
     lib.ssd_xbc_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def bwd_scratch_floats(b: int, l: int, h: int, chunk: int) -> int:
-    """The floats of K9's scratch, in the order the C side carves it: G and
-    the head sum of dG (b, nc, q, q) each, the dh carry (b, nc, h, n, p), the
-    row and column sums of dlogM (b, h, nc, tile pairs, STRIP) each, dT and dE
-    (b, h, l) each, and the partials of sum(dh (.) h_in) (b, h, nc,
-    CARRY_PARTS)."""
+    """The floats of K9's and K7's scratch, in the order the C side carves
+    it: G and the head sum of dG (b, nc, q, q) each, the dh carry
+    (b, nc, h, n, p), the row and column sums of dlogM (b, h, nc, tile pairs,
+    STRIP) each, dT and dE (b, h, l) each, and the partials of
+    sum(dh (.) h_in) (b, h, nc, CARRY_PARTS)."""
     nc, t = l // chunk, chunk // STRIP
     pairs = t * (t + 1) // 2
     return (2 * b * nc * chunk * chunk + b * nc * h * STATE * HEAD_DIM
@@ -361,27 +357,58 @@ def _check_split(x, dt, S, Bm, Cm, chunk: int, extra: dict | None = None):
     return b, l, h, n, p
 
 
+def _fwd_buffers(b: int, l: int, h: int, n: int, p: int, chunk: int, states: bool, device):
+    """y (b, l, h p); h_in (b, nc, h, n, p) with ``states``, else the lean
+    forward's scratch for the states entering chunks 1 .. nc - 1; G's scratch
+    (b, nc, q, q)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    nc = l // chunk
+    return (torch.empty((b, l, h * p), **f32),
+            torch.empty((b, nc if states else nc - 1, h, n, p), **f32),
+            torch.empty((b, nc, chunk, chunk), **f32))
+
+
+def _raise_on(error_string, err: int, what: str) -> None:
+    """Raise for a non-zero cudaError_t code, named by the library's
+    ``error_string``."""
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: {error_string(err).decode()} ({err})")
+
+
 def run_fwd(lib, xbc, dt, S, D, d_inner: int, chunk: int, states: bool, stream):
     """Allocate K8's outputs and scratch beside xbc and launch it through
     ``lib`` (a library with :func:`fwd_interface`) on ``stream``: (y,
     h_in or None). Checks nothing; :func:`_launch_fwd` checks first."""
     b, l, total = xbc.shape
-    h, nc, n = dt.shape[1], l // chunk, (total - d_inner) // 2
-    f32 = dict(dtype=torch.float32, device=xbc.device)
-    y = torch.empty((b, l, d_inner), **f32)
-    # h_in, or the lean forward's scratch for the states entering chunks 1 .. nc - 1
-    hin = torch.empty((b, nc if states else nc - 1, h, n, d_inner // h), **f32)
-    if y.numel() == 0:
-        return y, (hin if states else None)
-    G = torch.empty((b, nc, chunk, chunk), **f32)
-    err = lib.ssd_xbc_fwd(xbc.data_ptr(), dt.data_ptr(), S.data_ptr(), D.data_ptr(),
-                          y.data_ptr(), hin.data_ptr(), hin.numel(), int(states), G.data_ptr(),
-                          G.numel(), b, l, h, d_inner, n, d_inner // h, chunk, xbc.stride(0),
-                          xbc.stride(1), stream)
-    if err != 0:
-        msg = lib.ssd_xbc_fwd_error_string(err).decode()
-        raise RuntimeError(f"SSD forward kernel launch failed: {msg} ({err})")
+    h, n = dt.shape[1], (total - d_inner) // 2
+    y, hin, G = _fwd_buffers(b, l, h, n, d_inner // h, chunk, states, xbc.device)
+    if y.numel():
+        _raise_on(lib.ssd_xbc_fwd_error_string, lib.ssd_xbc_fwd(
+            xbc.data_ptr(), dt.data_ptr(), S.data_ptr(), D.data_ptr(), y.data_ptr(),
+            hin.data_ptr(), hin.numel(), int(states), G.data_ptr(), G.numel(), b, l, h,
+            d_inner, n, d_inner // h, chunk, xbc.stride(0), xbc.stride(1), stream),
+            "SSD forward")
     return y, (hin if states else None)
+
+
+def run_split_fwd(lib, x, dt, S, Bm, Cm, chunk: int, states: bool, hfin: bool, stream):
+    """Allocate K6's outputs and scratch beside x and launch it through
+    ``lib`` (a library with :func:`fwd_interface`) on ``stream``: (y, h_in or
+    None, h_fin or None). Checks nothing; :func:`_launch_split_fwd` checks
+    first."""
+    b, l, d = x.shape
+    h, n = dt.shape[1], Bm.shape[-1]
+    y, hin, G = _fwd_buffers(b, l, h, n, d // h, chunk, states, x.device)
+    h_fin = torch.empty((b, h, n, d // h), dtype=torch.float32, device=x.device) if hfin \
+        else None
+    if y.numel() == 0:
+        return y, (hin if states else None), (h_fin.zero_() if hfin else None)
+    _raise_on(lib.ssd_xbc_fwd_error_string, lib.ssd_split_fwd(
+        x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(), S.data_ptr(), y.data_ptr(),
+        hin.data_ptr(), hin.numel(), int(states), h_fin.data_ptr() if hfin else None,
+        G.data_ptr(), G.numel(), b, l, h, n, d // h, chunk, x.stride(0), x.stride(1),
+        Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1), stream), "split SSD forward")
+    return y, (hin if states else None), h_fin
 
 
 def run_bwd(lib, xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int, stream):
@@ -398,15 +425,38 @@ def run_bwd(lib, xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int, stream):
         return dxbc.zero_(), ddt, dS, torch.zeros_like(D)
     dD_part = torch.empty((b, h, nc, chunk // STRIP), **f32)
     scratch = torch.empty(bwd_scratch_floats(b, l, h, chunk), **f32)
-    err = lib.ssd_xbc_bwd(xbc.data_ptr(), dt.data_ptr(), S.data_ptr(), D.data_ptr(),
-                          h_in.data_ptr(), dy.data_ptr(), dxbc.data_ptr(), ddt.data_ptr(),
-                          dS.data_ptr(), dD_part.data_ptr(), dD_part.numel(), scratch.data_ptr(),
-                          scratch.numel(), b, l, h, d_inner, n, d_inner // h, chunk,
-                          xbc.stride(0), xbc.stride(1), dy.stride(0), dy.stride(1), stream)
-    if err != 0:
-        msg = lib.ssd_xbc_bwd_error_string(err).decode()
-        raise RuntimeError(f"SSD backward kernel launch failed: {msg} ({err})")
+    _raise_on(lib.ssd_xbc_bwd_error_string, lib.ssd_xbc_bwd(
+        xbc.data_ptr(), dt.data_ptr(), S.data_ptr(), D.data_ptr(), h_in.data_ptr(),
+        dy.data_ptr(), dxbc.data_ptr(), ddt.data_ptr(), dS.data_ptr(), dD_part.data_ptr(),
+        dD_part.numel(), scratch.data_ptr(), scratch.numel(), b, l, h, d_inner, n,
+        d_inner // h, chunk, xbc.stride(0), xbc.stride(1), dy.stride(0), dy.stride(1), stream),
+        "SSD backward")
     return dxbc, ddt, dS, dD_part.sum(dim=(0, 2, 3))
+
+
+def run_split_bwd(lib, x, dt, S, Bm, Cm, h_in, dy, chunk: int, dh_fin, stream):
+    """Allocate K7's outputs and scratch beside x and launch it through
+    ``lib`` (a library with :func:`bwd_interface`) on ``stream``, its carry
+    seeded with ``dh_fin`` unless that is None: (dx, ddt, dS, dB, dC), dB and
+    dC the two halves of one (b, l, 2n) buffer. Checks nothing;
+    :func:`_launch_split_bwd` checks first."""
+    b, l, d = x.shape
+    h, n = dt.shape[1], Bm.shape[-1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx, dbc = torch.empty((b, l, d), **f32), torch.empty((b, l, 2 * n), **f32)
+    ddt, dS = torch.empty_like(dt), torch.empty_like(S)
+    if dx.numel():
+        scratch = torch.empty(bwd_scratch_floats(b, l, h, chunk), **f32)
+        _raise_on(lib.ssd_xbc_bwd_error_string, lib.ssd_split_bwd(
+            x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(), S.data_ptr(),
+            h_in.data_ptr(), dy.data_ptr(), None if dh_fin is None else dh_fin.data_ptr(),
+            dx.data_ptr(), dbc.data_ptr(), ddt.data_ptr(), dS.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), b, l, h, n, d // h, chunk, x.stride(0), x.stride(1),
+            Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1), dy.stride(0),
+            dy.stride(1), stream), "split SSD backward")
+    else:
+        dbc.zero_()
+    return dx, ddt, dS, dbc[..., :n], dbc[..., n:]
 
 
 def _launch_fwd(xbc, dt, S, D, d_inner: int, chunk: int, states: bool):
@@ -507,52 +557,24 @@ def ssd_chunked_xbc(xbc, dt, A, D, *, d_inner: int, chunk: int = 128) -> torch.T
 
 
 def _launch_split_fwd(x, dt, S, Bm, Cm, chunk: int, states: bool, hfin: bool):
-    b, l, h, n, p = _check_split(x, dt, S, Bm, Cm, chunk)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    y = torch.empty((b, l, h * p), **f32)
-    h_in = torch.empty((b, l // chunk, h, n, p), **f32) if states else None
-    h_fin = torch.empty((b, h, n, p), **f32) if hfin else None
-    if y.numel() == 0:
-        return y, h_in, (h_fin.zero_() if hfin else None)
-    lib = _fwd_library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _check_split(x, dt, S, Bm, Cm, chunk)
     with torch.cuda.device(x.device):
-        err = lib.ssd_split_fwd(x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
-                                S.data_ptr(), y.data_ptr(), h_in.data_ptr() if states else None,
-                                h_fin.data_ptr() if hfin else None, b, l, h, n, p, chunk,
-                                x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
-                                Cm.stride(0), Cm.stride(1), stream)
-    if err != 0:
-        msg = lib.ssd_xbc_fwd_error_string(err).decode()
-        raise RuntimeError(f"split SSD forward kernel launch failed: {msg} ({err})")
-    _SPLIT_FWD[(states, hfin)].launches += 1
-    return y, h_in, h_fin
+        out = run_split_fwd(_fwd_library(), x, dt, S, Bm, Cm, chunk, states, hfin,
+                            torch.cuda.current_stream(x.device).cuda_stream)
+    if out[0].numel():
+        _SPLIT_FWD[(states, hfin)].launches += 1
+    return out
 
 
 def _launch_split_bwd(x, dt, S, Bm, Cm, h_in, dy, chunk: int, dh_fin=None):
     extra = dict(h_in=h_in, dy=dy) | ({} if dh_fin is None else dict(dh_fin=dh_fin))
-    b, l, h, n, p = _check_split(x, dt, S, Bm, Cm, chunk, extra)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.empty((b, l, h * p), **f32)
-    dbc_part = torch.empty((b, h, l, 2 * n), **f32)
-    ddt, dS = torch.empty_like(dt), torch.empty_like(S)
-    if dx.numel() == 0:
-        return dx, ddt, dS, torch.zeros_like(Bm), torch.zeros_like(Cm)
-    lib = _bwd_library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _check_split(x, dt, S, Bm, Cm, chunk, extra)
     with torch.cuda.device(x.device):
-        err = lib.ssd_split_bwd(x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
-                                S.data_ptr(), h_in.data_ptr(), dy.data_ptr(),
-                                None if dh_fin is None else dh_fin.data_ptr(), dx.data_ptr(),
-                                dbc_part.data_ptr(), ddt.data_ptr(), dS.data_ptr(), b, l, h, n,
-                                p, chunk, x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1),
-                                Cm.stride(0), Cm.stride(1), dy.stride(0), dy.stride(1), stream)
-    if err != 0:
-        msg = lib.ssd_xbc_bwd_error_string(err).decode()
-        raise RuntimeError(f"split SSD backward kernel launch failed: {msg} ({err})")
-    (ssd_split_bwd if dh_fin is None else ssd_split_bwd_seeded).launches += 1
-    dbc = dbc_part.sum(dim=1)  # the head sums of dB | dC
-    return dx, ddt, dS, dbc[..., :n], dbc[..., n:]
+        out = run_split_bwd(_bwd_library(), x, dt, S, Bm, Cm, h_in, dy, chunk, dh_fin,
+                            torch.cuda.current_stream(x.device).cuda_stream)
+    if out[0].numel():
+        (ssd_split_bwd if dh_fin is None else ssd_split_bwd_seeded).launches += 1
+    return out
 
 
 def ssd_split_fwd(x, dt, S, Bm, Cm, chunk: int) -> torch.Tensor:

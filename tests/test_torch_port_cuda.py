@@ -562,11 +562,15 @@ def test_ssd_function_gradcheck_in_float64_through_the_plain_path():
 # the split SSD kernels (K6, K7) of the tensor- and sequence-parallel paths
 # ---------------------------------------------------------------------------
 
-def _split_case(rng, b, l, h, chunk, device, n=128, p=128):
-    """x as a column view of a wider buffer, B and C as the two halves of one
-    (b, l, 2n) buffer (row stride 2n, as ``ssd_mixer_tp`` makes them), dt
-    and S in the kernels' (b, h, nc, q) layout."""
-    x = _randn(rng, b, l, h * p + 5, scale=0.5, device=device)[..., 5:]
+def _split_case(rng, b, l, h, chunk, device, n=128, p=128, layout="offset"):
+    """x as a column view of a wider buffer (``layout='offset'``: 5 columns
+    in, so its rows are not 16-byte aligned) or whole (``'tp'``: row stride
+    h p, 384 at the tensor-parallel shard's 3 heads, as the x conv makes it),
+    B and C as the two halves of one (b, l, 2n) buffer (row stride 2n, as
+    ``ssd_mixer_tp`` makes them), dt and S in the kernels' (b, h, nc, q)
+    layout."""
+    pad = 5 if layout == "offset" else 0
+    x = _randn(rng, b, l, h * p + pad, scale=0.5, device=device)[..., pad:]
     bc = _randn(rng, b, l, 2 * n, scale=0.5, device=device)
     dt = torch.nn.functional.softplus(_randn(rng, b, l, h, device=device) - 1.0)
     A = -torch.exp(_randn(rng, h, device=device))
@@ -575,15 +579,19 @@ def _split_case(rng, b, l, h, chunk, device, n=128, p=128):
     return x, dth, S, bc[..., :n], bc[..., n:]
 
 
+_SPLIT_CASES = [(2, 512, 3, 256, "offset"), (2, 256, 2, 256, "offset"),
+                (1, 384, 3, 128, "offset"), (2, 512, 3, 64, "offset"), (2, 512, 3, 256, "tp")]
+_SPLIT_IDS = ["tp_shard", "single_chunk", "nc3", "nc8", "tp_layout"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l,h,chunk", [(2, 512, 3, 256), (2, 256, 2, 256), (1, 384, 3, 128)],
-                         ids=["tp_shard", "single_chunk", "nc3"])
-def test_split_fwd_kernels_match_plain(cuda, b, l, h, chunk):
+@pytest.mark.parametrize("b,l,h,chunk,layout", _SPLIT_CASES, ids=_SPLIT_IDS)
+def test_split_fwd_kernels_match_plain(cuda, b, l, h, chunk, layout):
     """The four K6 variants on strided x, B and C: the same y from each
     (the same arithmetic), h_in and h_fin against the plain version."""
     from si_mamba_tpu_torch.ops.kernels import ssd as kssd
 
-    args = (*_split_case(np.random.default_rng(40), b, l, h, chunk, cuda), chunk)
+    args = (*_split_case(np.random.default_rng(40), b, l, h, chunk, cuda, layout=layout), chunk)
     fns = (kssd.ssd_split_fwd, kssd.ssd_split_fwd_states, kssd.ssd_split_fwd_hfin,
            kssd.ssd_split_fwd_states_hfin)
     before = [f.launches for f in fns]
@@ -605,16 +613,15 @@ def test_split_fwd_kernels_match_plain(cuda, b, l, h, chunk):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("seeded", [False, True], ids=["unseeded", "seeded"])
-@pytest.mark.parametrize("b,l,h,chunk", [(2, 512, 3, 256), (2, 256, 2, 256), (1, 384, 3, 128)],
-                         ids=["tp_shard", "single_chunk", "nc3"])
-def test_split_bwd_kernel_matches_plain(cuda, b, l, h, chunk, seeded):
+@pytest.mark.parametrize("b,l,h,chunk,layout", _SPLIT_CASES, ids=_SPLIT_IDS)
+def test_split_bwd_kernel_matches_plain(cuda, b, l, h, chunk, layout, seeded):
     """K7 for a strided output gradient, from 0 or seeded with a dh_fin:
     every gradient against the plain version, two runs bitwise equal (the
-    head sums are partials finished by torch.sum, no atomics)."""
+    head sums of dB and dC run over the heads in order, no atomics)."""
     from si_mamba_tpu_torch.ops.kernels import ssd as kssd
 
     rng = np.random.default_rng(41)
-    x, dth, S, Bm, Cm = _split_case(rng, b, l, h, chunk, cuda)
+    x, dth, S, Bm, Cm = _split_case(rng, b, l, h, chunk, cuda, layout=layout)
     dy = _randn(rng, b, l, h * 128 + 3, device=cuda)[..., 3:]
     _, h_in, _ = kssd.ssd_split_fwd_ref(x, dth, S, Bm, Cm, chunk, emit_states=True)
     dh_fin = _randn(rng, b, h, 128, 128, scale=0.1, device=cuda) if seeded else None
@@ -629,6 +636,56 @@ def test_split_bwd_kernel_matches_plain(cuda, b, l, h, chunk, seeded):
         assert a.shape == w.shape, name
         assert torch.equal(a, a2), name
         _close_to_max(a, w, 1e-4)
+
+
+@pytest.mark.cuda
+def test_split_kernels_refuse_scratch_of_another_size(cuda):
+    """The C entry points of K6 and K7 check the scratch sizes the wrappers
+    hand them, with and without h_fin and the seed."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    rng = np.random.default_rng(45)
+    x, dth, S, Bm, Cm = _split_case(rng, 1, 128, 1, 64, cuda, layout="tp")
+    f32 = dict(dtype=torch.float32, device=cuda)
+    y, hin, h_fin, G = (torch.empty((1, 128, 128), **f32), torch.empty((1, 2, 1, 128, 128), **f32),
+                        torch.empty((1, 1, 128, 128), **f32), torch.empty((1, 2, 64, 64), **f32))
+    lib = kssd._fwd_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    strides = (x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1))
+    geometry = (1, 128, 1, 128, 128, 64)
+
+    def fwd(hin_n, states, hfin_ptr, g_n):
+        return lib.ssd_split_fwd(x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dth.data_ptr(),
+                                 S.data_ptr(), y.data_ptr(), hin.data_ptr(), hin_n, states,
+                                 hfin_ptr, G.data_ptr(), g_n, *geometry, *strides, stream)
+
+    assert fwd(hin.numel(), 1, h_fin.data_ptr(), G.numel()) == 0
+    assert fwd(hin.numel(), 1, h_fin.data_ptr(), G.numel() - 1) != 0
+    assert fwd(hin.numel() - 1, 1, None, G.numel()) != 0
+    # the lean forward's scratch holds the states entering chunks 1 .. nc - 1
+    assert fwd(hin.numel() // 2, 0, None, G.numel()) == 0
+    assert fwd(hin.numel() // 2, 0, h_fin.data_ptr(), G.numel()) == 0
+    assert fwd(hin.numel(), 0, h_fin.data_ptr(), G.numel()) != 0
+
+    blib = kssd._bwd_library()
+    dy = _randn(rng, 1, 128, 128, device=cuda)
+    dx, dbc = torch.empty((1, 128, 128), **f32), torch.empty((1, 128, 256), **f32)
+    ddt, dS = torch.empty_like(dth), torch.empty_like(S)
+    n_scratch = kssd.bwd_scratch_floats(1, 128, 1, 64)
+    scratch = torch.empty(n_scratch + 1, **f32)
+
+    def bwd(scratch_n, seed):
+        return blib.ssd_split_bwd(x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dth.data_ptr(),
+                                  S.data_ptr(), hin.data_ptr(), dy.data_ptr(), seed,
+                                  dx.data_ptr(), dbc.data_ptr(), ddt.data_ptr(), dS.data_ptr(),
+                                  scratch.data_ptr(), scratch_n, *geometry, *strides,
+                                  dy.stride(0), dy.stride(1), stream)
+
+    assert bwd(n_scratch, None) == 0
+    assert bwd(n_scratch, h_fin.data_ptr()) == 0
+    assert bwd(n_scratch + 1, None) != 0
+    assert bwd(n_scratch - 1, h_fin.data_ptr()) != 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

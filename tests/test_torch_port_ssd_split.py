@@ -2,11 +2,13 @@
 plain versions of K6 and K7 (``ops/kernels/ssd.py``) against the Pallas split
 kernel in interpret mode and ``jax.vjp`` of it, the seeded backward of the
 sequence-parallel carry included, and ``ssd_chunked_split`` against
-``ssd_chunked_pallas``. Inputs are made with numpy from a seed and handed to
-both frameworks.
+``ssd_chunked_pallas``; then the kernels' own split of the work with their
+3xTF32 products, emulated, against the plain versions in float64. Inputs are
+made with numpy from a seed and handed to both frameworks.
 
 Tolerances as tests/test_ssd_pallas.py: values rtol/atol 2e-5, gradients
-rtol 5e-4, atol 5e-5."""
+rtol 5e-4, atol 5e-5; the emulation within chip_smoke.py's 1e-4 of the
+max."""
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +19,8 @@ import torch
 from si_mamba_tpu.ops.pallas import ssd_kernel as jk
 from si_mamba_tpu_torch.ops import ssd as tssd
 from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+from tests import ssd_emulation as emu
 
 FWD_TOL = dict(rtol=2e-5, atol=2e-5)
 GRAD_TOL = dict(rtol=5e-4, atol=5e-5)
@@ -234,3 +238,70 @@ def test_fused_route_predicate():
     assert tssd.ssd_fused_engaged(500, chunk=128, device="cuda")
     assert not tssd.ssd_fused_engaged(512, chunk=128, device="cpu")
     assert not tssd.ssd_fused_engaged(512, chunk=96, device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the 3xTF32 arithmetic of the K6/K7 kernels, emulated
+# ---------------------------------------------------------------------------
+
+def _split_tf32_errors(chunk: int, seeded: bool, mm):
+    """The error of the max of each K6/K7 output at the tensor-parallel
+    shard's width (3 heads of 128, d_state 128, L 512, B=1), the kernels'
+    split emulated through ``mm`` with no D terms, h_fin out and the dh
+    carry seeded with a dh_fin or from 0, against ``ssd_split_fwd_ref`` /
+    ``ssd_split_bwd_ref`` in float64."""
+    rng = np.random.default_rng(44)
+    b, l, h, p, n = 1, 512, 3, 128, 128
+    x = torch.tensor(rng.standard_normal((b, l, h * p)).astype(np.float32) * 0.5)
+    Bm, Cm = (torch.tensor(rng.standard_normal((b, l, n)).astype(np.float32) * 0.5)
+              for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.tensor(rng.standard_normal((b, l, h)),
+                                                   dtype=torch.float32) - 1.0)
+    A = -torch.exp(torch.tensor(rng.standard_normal(h), dtype=torch.float32))
+    dth = dt.transpose(1, 2).reshape(b, h, l // chunk, chunk).contiguous()
+    S = torch.cumsum(dth * A[None, :, None, None], dim=-1)
+    dy = torch.tensor(rng.standard_normal((b, l, h * p)), dtype=torch.float32)
+    dh_fin = torch.tensor(0.1 * rng.standard_normal((b, h, n, p)), dtype=torch.float32) \
+        if seeded else None
+
+    xh, Bh, Ch = kssd._split_operands(x, Bm, Cm, h, chunk)
+    dyh = kssd._split_operands(dy, Bm, Cm, h, chunk)[0]
+    y, h_in, h_fin, (dx, ddt, dS, dB, dC, _) = emu.chunked_3xtf32(
+        xh, Bh, Ch, dth, S, dyh, dh_fin=dh_fin, mm=mm)
+    as_rows = lambda a: a.permute(0, 2, 3, 1, 4).reshape(b, l, -1)  # noqa: E731
+    y64, h64, hf64 = kssd.ssd_split_fwd_ref(*(t.double() for t in (x, dth, S, Bm, Cm)), chunk,
+                                            emit_states=True, emit_hfin=True)
+    want = kssd.ssd_split_bwd_ref(*(t.double() for t in (x, dth, S, Bm, Cm, h64, dy)), chunk,
+                                  dh_fin=None if dh_fin is None else dh_fin.double())
+    got = [("y", as_rows(y), y64), ("h_in", h_in.transpose(1, 2), h64), ("h_fin", h_fin, hf64),
+           *zip(("dx", "ddt", "dS", "dB", "dC"),
+                (as_rows(dx), ddt, dS, dB.reshape(b, l, n), dC.reshape(b, l, n)), want)]
+    errors = {}
+    for name, g, w in got:
+        assert g.shape == w.shape, name
+        errors[name] = emu.rel_err_of_max(g, w)
+    return errors
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["unseeded", "seeded"])
+@pytest.mark.parametrize("chunk", [256, 64], ids=["nc2", "nc8"])
+def test_3xtf32_k6_k7_arithmetic_meets_the_card_tolerances(chunk, seeded):
+    """K6 with states and h_fin and K7 (from 0, or seeded: the last chunk's
+    dh terms and its dS_end term then not 0) as the chunk-parallel body splits
+    them, every product as 3xTF32, within chip_smoke.py's 1e-4 of the max of
+    each output against the plain versions in float64."""
+    errors = _split_tf32_errors(chunk, seeded, emu.mm3)
+    print("3xTF32 error of the max:", {k: f"{v:.1e}" for k, v in errors.items()})
+    for name, err in errors.items():
+        assert err <= 1e-4, (name, err)
+
+
+@pytest.mark.parametrize("chunk", [256, 64], ids=["nc2", "nc8"])
+def test_one_tf32_product_misses_the_k6_k7_tolerance(chunk):
+    """The same split, seeded, with every product as one TF32 product: the
+    forward's and the backward's outputs lie above chip_smoke.py's 1e-4 of the
+    max, so its checks tell 3xTF32 from a single TF32 product."""
+    errors = _split_tf32_errors(chunk, True, emu.mm1)
+    print("one TF32 product, error of the max:", {k: f"{v:.1e}" for k, v in errors.items()})
+    assert max(errors[k] for k in ("y", "h_in", "h_fin")) > 1e-4
+    assert max(errors[k] for k in ("dx", "ddt", "dS", "dB", "dC")) > 1e-4
