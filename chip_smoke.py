@@ -17,9 +17,10 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    held against its plain PyTorch version on the card and timed beside it:
    the conv forward and, for a seeded output gradient, its backward (both
    also beside ``F.conv1d(groups=D)`` + ``F.silu`` and its autograd
-   backward), the lean scan forward (also at B = 1, 20 and 64, the serving
-   request sizes; each timed as back-to-back calls and as CUDA-graph device
-   time), the scan forward that keeps its tile entry states (its y equal to
+   backward; the backward run twice, bitwise equal, and also timed as
+   CUDA-graph device time), the lean scan forward (also at B = 1, 20 and 64,
+   the serving request sizes; each timed as back-to-back calls and as
+   CUDA-graph device time), the scan forward that keeps its tile entry states (its y equal to
    the lean kernel's, its states to the plain version's) and the scan
    backward (every gradient against the plain backward, two runs bitwise
    equal);
@@ -33,7 +34,10 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    beside it as back-to-back calls and as CUDA-graph device time; their
    ``bound_ms`` at the rate their 3xTF32 tensor-core products can use (three
    TF32 products for each against the dense TF32 peak), and in the log
-   beside it the bound at the fp32 rate of the CUDA cores;
+   beside it the bound at the fp32 rate of the CUDA cores; then the conv
+   forward and backward, held and timed the same way, at the tensor-parallel
+   SSD step's two contiguous conv operands on each rank (the 384-wide x shard
+   and the 256-wide B|C at B=32, L=512), whose backward runs other time tiles;
 4b. fused-mixer kernels: at the serving path's shapes, with xz as layer 0's
    ``in_proj`` makes it, the whole-mixer forward lean and with its chunk
    entry states (y equal, states against the plain version; the lean one
@@ -78,7 +82,10 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    BatchNorm statistics; then an eval forward must take the lean scan again.
    p50 step time, clouds/s and peak memory are printed, then one more step
    timed as the two halves that the step composes (the input pipeline;
-   forward, backward and optimizer) and one under ``torch.profiler``;
+   forward, backward and optimizer) and one under ``torch.profiler``, which
+   also gives the device time of building the in_proj output's gradient from
+   its column views' gradients (autograd's slice backward and the adds)
+   beside the conv backward's own;
 8. gradients: one train-mode step's loss and every parameter gradient of the
    kernel path against the plain path (``scan_impl='seq'``), same weights and
    clouds, drop rates 0, at B=4, within 1e-3 of the largest gradient;
@@ -261,6 +268,12 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return err, err / max(want.abs().max().item(), 1e-30)
 
 
+def conv_bwd_bound(B: int, L: int, C: int, W: int) -> tuple[float, str]:
+    """K5's bound: x and g read, dx written (plus w, b, dw, db); operations
+    per element: s 2W+1, sigmoid 4, ds 4, dx 2W, dw and db 2W+2."""
+    return bound((3 * B * L * C + 2 * C * (W + 1)) * 4, B * L * C * (6 * W + 11))
+
+
 def conv_records(x, w, b, g) -> tuple[dict, dict]:
     """K1 and K5 on x (B, L, C), a column view as a mixer makes it, and a
     seeded output gradient g: each against its plain version, then timed
@@ -287,11 +300,14 @@ def conv_records(x, w, b, g) -> tuple[dict, dict]:
                bound_ms=bound_ms, bound_by=bound_by)
 
     # K5. Tolerance rel-to-max 1e-4: dw and db are sums over B*L terms, taken
-    # per time tile and then by torch.sum, in another order than the plain
-    # version's.
+    # per time tile, per block and then over the blocks, in another order than
+    # the plain version's; that order is fixed, so two runs are bitwise equal.
     args = (x, w, b, g)
     got, want = kc.causal_conv1d_silu_bwd(*args), kc.causal_conv1d_silu_bwd_ref(*args)
+    again = kc.causal_conv1d_silu_bwd(*args)
     torch.cuda.synchronize()
+    if not all(torch.equal(p, q) for p, q in zip(got, again)):
+        raise AssertionError(f"two conv backward runs at {where} on the same inputs differ")
     err5 = 0.0
     for name, a, r in zip(("dx", "dw", "db"), got, want):
         err, rel = _rel_err(a, r)
@@ -302,17 +318,42 @@ def conv_records(x, w, b, g) -> tuple[dict, dict]:
     x_lib = xt.detach().requires_grad_()
     w_lib, b_lib = (t.detach().clone().requires_grad_() for t in (w3, b))
     y_lib = F.silu(F.conv1d(x_lib, w_lib, b_lib, padding=W - 1, groups=C)[..., :L])
-    # bytes: x and g read, dx written (plus w, b, dw, db); operations per
-    # element: s 2W+1, sigmoid 4, ds 4, dx 2W, dw and db 2W+2
-    bound_ms, bound_by = bound((3 * B * L * C + 2 * C * (W + 1)) * 4, B * L * C * (6 * W + 11))
+    bound_ms, bound_by = conv_bwd_bound(B, L, C, W)
+    plan = kc.bwd_plan(x, g, W, torch.cuda.get_device_properties(x.device).multi_processor_count)
     bwd = dict(shape=[B, L, C], row_stride=x.stride(1), max_abs_err=err5,
+               plan=dict(vx=plan.vx, vg=plan.vg, tile=plan.tile),
                ms=time_ms(lambda: kc.causal_conv1d_silu_bwd(*args), 50),
+               device_ms=graph_ms(lambda: kc.causal_conv1d_silu_bwd(*args), 20),
                plain_ms=time_ms(lambda: kc.causal_conv1d_silu_bwd_ref(*args), 10),
                library_ms=time_ms(lambda: torch.autograd.grad(
                    y_lib, (x_lib, w_lib, b_lib), g.transpose(1, 2), retain_graph=True), 20),
                bound_ms=bound_ms, bound_by=bound_by)
-    log(f"conv at {where}: forward max |diff| {err1:.3e}, backward {err5:.3e}")
+    log(f"conv at {where}: forward max |diff| {err1:.3e}, backward {err5:.3e} (two runs "
+        f"bitwise equal; {bwd['ms']:.6f} ms, device {bwd['device_ms']:.6f} ms, plan "
+        f"{bwd['plan']})")
     return fwd, bwd
+
+
+def tp_conv_phase(device) -> dict:
+    """K1 and K5 at the two conv shapes of the tensor-parallel SSD train step
+    on each of its TP ranks, B=32, L=512: the rank's x shard (d_inner / TP
+    channels) and B|C (2 d_state), both contiguous as that mixer's products
+    make them, with seeded weights and output gradient. Returns, by kernel
+    name, the K1 and K5 figures at each width."""
+    from si_mamba_tpu_torch.models.layers import SSDMixer
+
+    mixer = SSDMixer(MODELNET40["trans_dim"])
+    rng = np.random.default_rng(5)
+    out = {"causal_conv1d_silu": {}, "causal_conv1d_silu_bwd": {}}
+    for what, C in (("x_shard", mixer.d_inner // TP), ("bc", 2 * mixer.d_state)):
+        x, g = (torch.from_numpy(rng.standard_normal((TRAIN_BATCH, 512, C), dtype=np.float32))
+                .to(device) for _ in range(2))
+        w = torch.from_numpy((rng.standard_normal((C, 4)) * 0.5).astype(np.float32)).to(device)
+        b = torch.from_numpy((rng.standard_normal(C) * 0.1).astype(np.float32)).to(device)
+        fwd, bwd = conv_records(x, w, b, g)
+        out["causal_conv1d_silu"][what] = fwd
+        out["causal_conv1d_silu_bwd"][what] = bwd
+    return out
 
 
 def kernel_phase(device) -> list[dict]:
@@ -1135,6 +1176,58 @@ def device_profile(fn) -> dict:
             "top": [{"name": k[:90], "count": c, "device_ms": ms} for k, c, ms in rows[:8]]}
 
 
+def view_grad_profile(fn, batch: int, length: int, full: int, widths) -> dict:
+    """One call of ``fn`` (a train step) under torch.profiler with shapes: the
+    device time of building the in_proj output's gradient (batch, length,
+    full) from the gradients of its column views, which autograd's slice
+    backward does as a zero fill of the full buffer and a copy a view
+    (``aten::slice_backward`` on a (batch, length, w) gradient, w in
+    ``widths``), then the adds of the full-width gradients; beside it the
+    conv backward's own device time (its tile and finishing kernels). Fails
+    when the step shows no such slice backward or no conv backward."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    views = [[batch, length, w] for w in widths]
+    out = {"slice_backward": [0, 0.0], "add": [0, 0.0], "conv_bwd": [0, 0.0]}
+    for e in prof.key_averages(group_by_input_shape=True):
+        shapes = [list(x) for x in (e.input_shapes or [])]
+        if e.key == "aten::slice_backward" and shapes and shapes[0] in views:
+            row = out["slice_backward"]
+        elif e.key in ("aten::add", "aten::add_") and shapes[:2] == [[batch, length, full]] * 2:
+            row = out["add"]
+        elif e.device_type == DeviceType.CUDA and "causal_conv1d_silu_bwd" in e.key:
+            row = out["conv_bwd"]
+        else:
+            continue
+        row[0] += e.count
+        row[1] += (e.device_time_total if e.device_type != DeviceType.CUDA
+                   else e.self_device_time_total) / 1e3
+    if not out["slice_backward"][0] or not out["conv_bwd"][0]:
+        raise AssertionError(f"the profiled step shows no slice backward of a {views} view "
+                             f"or no conv backward: {out}")
+    return {k: {"count": n, "device_ms": ms} for k, (n, ms) in out.items()}
+
+
+def in_proj_views(model) -> tuple[int, tuple[int, ...]]:
+    """The width of the first mixer's in_proj output and the widths of the
+    column views that the mixer takes of it: x and z (d_inner each) for the
+    Mamba-1 mixer; z, x|B|C and dt for the SSD mixer."""
+    from si_mamba_tpu_torch.models.layers import MambaMixer, SSDMixer
+
+    mixer = next(m for m in model.modules() if isinstance(m, (MambaMixer, SSDMixer)))
+    if isinstance(mixer, SSDMixer):
+        widths = (mixer.d_inner, mixer.d_inner + 2 * mixer.d_state, mixer.n_heads)
+    else:
+        widths = (mixer.d_inner,)
+    return mixer.in_proj.out_features, widths
+
+
 def profile_phase(model, requests) -> dict:
     device = next(model.parameters()).device
     result = {}
@@ -1165,11 +1258,14 @@ def _train_clouds(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
 def train_phase(device, card: str, base: dict = MODELNET40,
                 kernels=("causal_conv1d_silu", "selective_scan_fwd_residuals",
                          "selective_scan_bwd", "causal_conv1d_silu_bwd"),
-                eval_kernels=("causal_conv1d_silu", "selective_scan_fwd")) -> tuple[dict, dict]:
+                eval_kernels=("causal_conv1d_silu", "selective_scan_fwd"),
+                view_grads: bool = True) -> tuple[dict, dict]:
     """TRAIN_STEPS steps of the port's finetune step at the ModelNet40
     settings over the model of ``base``; every step must launch each of
     ``kernels`` once a block and nothing else, an eval forward after them
-    each of ``eval_kernels``. Returns (record, launches over the steps)."""
+    each of ``eval_kernels``. With ``view_grads``, a profiled step measures
+    how the in_proj output's gradient is assembled from its column views'
+    (``view_grad_profile``). Returns (record, launches over the steps)."""
     from si_mamba_tpu_torch.data import transforms
     from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
     from si_mamba_tpu_torch.train.optim import build_optimizer
@@ -1247,6 +1343,13 @@ def train_phase(device, card: str, base: dict = MODELNET40,
         f"(busy {prof['busy_share']:.3f})")
     for row in prof["top"]:
         log(f"    {row['device_ms']:9.3f} ms  x{row['count']:<5d} {row['name']}")
+    views = None
+    if view_grads:
+        full, widths = in_proj_views(model)
+        views = view_grad_profile(lambda: step(state, points, labels, generator), TRAIN_BATCH,
+                                  cfg.seq_len, full, widths)
+        log(f"in_proj gradient ({full} wide) from its views {widths} (device ms, count): " +
+            ", ".join(f"{k} {v['device_ms']:.3f} x{v['count']}" for k, v in views.items()))
 
     # an eval forward after training takes the lean forward kernel again
     _reset_launch_counts()
@@ -1271,7 +1374,7 @@ def train_phase(device, card: str, base: dict = MODELNET40,
               "step_ms": [t * 1e3 for t in times], "losses": losses,
               "lr": [schedule(i) for i in range(TRAIN_STEPS)],
               "max_memory_allocated_bytes": peak, "fps_resample_ms": fps_ms,
-              "piece_ms": pieces, "profile": prof,
+              "piece_ms": pieces, "profile": prof, "view_grad": views,
               "params_moved": len(moved), "params": len(params0),
               "launches_per_step": expect, "card": card}
     log(f"train ({cfg.mixer} mixer, scan_impl={cfg.scan_impl!r}): {TRAIN_STEPS} steps at "
@@ -1752,9 +1855,11 @@ def main() -> int:
 
     records = kernel_phase(device) + backward_kernel_phase(device)
     ssd_records, conv_at_ssd_shape = ssd_kernel_phase(device)
+    conv_at_tp_shapes = tp_conv_phase(device)
     for r in records:
         if r["name"] in conv_at_ssd_shape:
             r["at_ssd_shape"] = conv_at_ssd_shape[r["name"]]
+            r["at_tp_shapes"] = conv_at_tp_shapes[r["name"]]
     records += ssd_records
     records += split_kernel_phase(device)
     fused_records, fused_routes = fused_mixer_phase(device)
@@ -1783,7 +1888,7 @@ def main() -> int:
     del model
     fused_train, paths["fused_train"] = train_phase(
         device, card, MODELNET40_FUSED, kernels=("fused_mixer_fwd_states", "fused_mixer_bwd"),
-        eval_kernels=("fused_mixer_fwd",))
+        eval_kernels=("fused_mixer_fwd",), view_grads=False)
     fused_grads = gradient_phase(device, MODELNET40_FUSED, plain_impl="seq")
     torch.cuda.empty_cache()  # the ranks share the card
     parallel_paths, parallel = parallel_phases(card)

@@ -1,6 +1,7 @@
 """What the port's same-call kernel A/B scripts (``scripts/torch_*_ab.py``)
-share: building the kernel sources of a tree with the port's nvcc flags, and
-timing the kernels of two trees in turns this, other, other, this."""
+share: building the kernel sources of a tree with the port's nvcc flags,
+timing the kernels of two trees in turns this, other, other, this, a call's
+peak allocation and its device time by kernel name."""
 
 from __future__ import annotations
 
@@ -9,6 +10,8 @@ import subprocess
 import sys
 from pathlib import Path
 from typing import Callable
+
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
@@ -68,10 +71,42 @@ def round_robin(binds: dict[str, Callable[[], None]],
 
 def means(times: dict) -> dict:
     """The mean of each list of round_robin's times."""
-    return {how: {tree: {k: sum(v) / len(v) for k, v in by_kernel.items()}
-                  for tree, by_kernel in by_tree.items()} for how, by_tree in times.items()}
+    return {how: {tree: {k: sum(v) / len(v) for k, v in per_kernel.items()}
+                  for tree, per_kernel in by_tree.items()} for how, by_tree in times.items()}
 
 
 def other_over_this(mean: dict, kernels) -> dict:
     """The other tree's mean time over this tree's, per timer and kernel."""
     return {how: {k: m["other"][k] / m["this"][k] for k in kernels} for how, m in mean.items()}
+
+
+def peak_mb(fn) -> float:
+    """MB that one call of ``fn`` allocates at its peak, above what was
+    allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak / 1e6
+
+
+def by_kernel(fn, calls: int = 10) -> dict[str, float]:
+    """Device ms a call of ``fn`` by kernel name, over ``calls`` calls
+    under ``torch.profiler``, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+        if us:
+            out[e.key] = us / 1e3 / calls
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))

@@ -44,7 +44,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from torch_ab_common import ROOT, build, means, other_over_this, round_robin
+from torch_ab_common import ROOT, build, by_kernel, means, other_over_this, peak_mb, round_robin
 
 ROUNDS = 5
 BATCHES = (1, 20, 32, 64)
@@ -217,38 +217,6 @@ def _check_split(tree: dict, args, h_in, dy, dh_fin) -> None:
     _hold(pairs)
 
 
-def _peak_mb(fn) -> float:
-    """MB that one call of ``fn`` allocates at its peak, above what was
-    allocated before it."""
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    out = fn()
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - base
-    del out
-    return peak / 1e6
-
-
-def _by_kernel(fn, calls: int = 10) -> dict[str, float]:
-    """Device ms a call of ``fn`` by kernel name, over ``calls`` calls
-    under ``torch.profiler``, largest first."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-        if us:
-            out[e.key] = us / 1e3 / calls
-    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, type=Path)
@@ -301,13 +269,13 @@ def main() -> int:
     mean = means(times)
     peaked = [f"K8 lean B={b}" for b in BATCHES] + [k for k in kernels if k.startswith("K6")] + \
         ["K7 B=32", "K7 seeded B=32"]
-    peak_mb = {tree: {k: _peak_mb(lambda t=tree, k=k: kernels[k](t)) for k in peaked}
-               for tree in trees}
-    by_kernel = {k: _by_kernel(lambda k=k: kernels[k]("this"))
+    peaks = {tree: {k: peak_mb(lambda t=tree, k=k: kernels[k](t)) for k in peaked}
+             for tree in trees}
+    kernel_ms = {k: by_kernel(lambda k=k: kernels[k]("this"))
                  for k in ("K8 lean B=1", "K8 states B=32", "K9 B=32", "K6 states B=32",
                            "K7 B=32")}
-    print(json.dumps({"card": card, "rounds": ROUNDS, "mean_ms": mean, "by_kernel": by_kernel,
-                      "other_over_this": other_over_this(mean, kernels), "peak_mb": peak_mb,
+    print(json.dumps({"card": card, "rounds": ROUNDS, "mean_ms": mean, "by_kernel": kernel_ms,
+                      "other_over_this": other_over_this(mean, kernels), "peak_mb": peaks,
                       "ptxas": {t: trees[t]["ptxas"] for t in trees}, "ms": times}), flush=True)
     return 0
 

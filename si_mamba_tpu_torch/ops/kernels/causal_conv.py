@@ -6,9 +6,12 @@ Kernels, both in ``csrc/causal_conv.cu``:
   ``causal_conv1d_silu_pallas`` (si_mamba_tpu/ops/pallas/causal_conv_kernel.py).
   Bound by bytes on the H100 (one read of x, one write of y);
 - backward (K5), which replaces ``_bwd_kernel`` behind ``_cc_bwd``. Bound by
-  bytes (one read of x and g, one write of dx); it recomputes the conv, keeps
-  a window of inputs and a look-ahead of ds in registers, and writes dw and
-  db as per-(batch, time tile) partials that ``torch.sum`` finishes.
+  bytes (one read of x and g, one write of dx). A thread owns four channels
+  and one time tile, moves each operand 16, 8 or 4 bytes at a time as its
+  alignment allows, in one of three built variants (:func:`bwd_plan`
+  chooses, the C entry point checks),
+  keeps four rows of x and g in flight, and writes dw and db as per-block
+  partials that a second small kernel of the same call sums in a fixed order.
 The source describes both designs.
 
 :func:`causal_conv1d_silu` is :class:`CausalConv1dSiluFn`: on a CUDA tensor
@@ -20,11 +23,26 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from si_mamba_tpu_torch.ops.kernels.build import load_library
+
+# K5's geometry (csrc/causal_conv.cu: kWarps, kBwdChannels, kU): a block is
+# BWD_WARPS warps on consecutive time tiles of the same BWD_BLOCK_CHANNELS
+# channels (four a thread); a tile is a multiple of BWD_RING steps, at least
+# two of them.
+BWD_WARPS = 4
+BWD_BLOCK_CHANNELS = 128
+BWD_RING = 4
+BWD_TILES = (64, 32, 16)  # the time tiles the plan picks from, longest first
+# the (x, g and dx) vector widths K5 is built for, widest first: the Mamba-1
+# view and the contiguous tensor-parallel operands, the SSD view, the rest
+BWD_VARIANTS = ((4, 4), (2, 4), (1, 1))
+BWD_WARPS_PER_SM = 8  # the least warps an SM the plan's tile aims for
+H100_SMS = 132
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -80,19 +98,86 @@ def causal_conv1d_silu_bwd_ref(x: torch.Tensor, weight: torch.Tensor, bias: torc
     return dx.to(x.dtype), dw.to(weight.dtype), db.to(bias.dtype)
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = load_library("causal_conv")
+def interface(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C argument lists of a built ``causal_conv.cu``."""
     lib.causal_conv1d_silu_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
         [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
     lib.causal_conv1d_silu_fwd.restype = ctypes.c_int
-    lib.causal_conv1d_silu_bwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + \
-        [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
+    lib.causal_conv1d_silu_bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + \
+        [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.causal_conv1d_silu_bwd.restype = ctypes.c_int
-    lib.causal_conv1d_time_tile.restype = ctypes.c_int
     lib.causal_conv1d_error_string.argtypes = [ctypes.c_int]
     lib.causal_conv1d_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    return interface(load_library("causal_conv"))
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def vector_width(ptr: int, batch: int, rows: int, batch_stride: int, row_stride: int) -> int:
+    """Floats a K5 thread may move at once from or to a (batch, rows, D) fp32
+    operand at address ``ptr`` with unit stride along channels: the widest of
+    4, 2 and 1 for which the address is 4·width-byte aligned and the batch
+    and row strides (those in use: more than one batch, more than one row)
+    are multiples of the width. The C entry point refuses any wider."""
+    for width in (4, 2):
+        if ptr % (4 * width) == 0 and (batch == 1 or batch_stride % width == 0) and \
+                (rows == 1 or row_stride % width == 0):
+            return width
+    return 1
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """How K5 runs at one shape: the vector width of x, that of g and dx (one
+    of BWD_VARIANTS), the time tile, and the shape of the dw/db partials (see
+    :func:`bwd_partials`)."""
+
+    vx: int
+    vg: int
+    tile: int
+    partial_shape: tuple[int, int, int]
+
+
+def bwd_tile(B: int, L: int, D: int, sms: int = H100_SMS) -> int:
+    """K5's time tile: the longest of BWD_TILES whose grid gives every SM at
+    least BWD_WARPS_PER_SM warps (one tile a warp), else the shortest. Each
+    tile re-reads W - 1 rows of x before it and W - 1 rows of x and g after it,
+    3 / tile of its traffic, so longer tiles move fewer bytes, and shorter
+    ones keep more loads in flight at narrow widths."""
+    groups = -(-D // BWD_BLOCK_CHANNELS) * B
+    for tile in BWD_TILES:
+        if groups * -(-L // tile) >= BWD_WARPS_PER_SM * sms:
+            return tile
+    return BWD_TILES[-1]
+
+
+def bwd_partials(B: int, L: int, D: int, W: int, tile: int) -> tuple[int, int, int]:
+    """The shape of K5's dw/db partials, one (W + 1, D) row a block of
+    BWD_WARPS tiles: (B * ceil(ceil(L / tile) / BWD_WARPS), W + 1, D)."""
+    tiles = -(-L // tile)
+    return (B * -(-tiles // BWD_WARPS), W + 1, D)
+
+
+def bwd_plan(x: torch.Tensor, g: torch.Tensor, W: int = 4, sms: int = H100_SMS) -> BwdPlan:
+    """K5's plan for x and g (B, L, D), each with unit stride along channels:
+    the widest variant whose widths x's alignment and g's allow (dx is
+    allocated contiguous, so its width follows from D), and the time tile of
+    :func:`bwd_tile`."""
+    B, L, D = x.shape
+    wx = vector_width(x.data_ptr(), B, L, x.stride(0), x.stride(1))
+    wg = min(vector_width(g.data_ptr(), B, L, g.stride(0), g.stride(1)),
+             vector_width(0, B, L, L * D, D))
+    vx, vg = next(v for v in BWD_VARIANTS if v[0] <= wx and v[1] <= wg)
+    tile = bwd_tile(B, L, D, sms)
+    return BwdPlan(vx=vx, vg=vg, tile=tile, partial_shape=bwd_partials(B, L, D, W, tile))
 
 
 def _check(lib, err: int, what: str) -> None:
@@ -141,25 +226,31 @@ def _launch_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> to
 
 def _launch_bwd(x, weight, bias, g):
     _check_inputs(x, weight, bias, g)
+    return _run_bwd(x, weight.contiguous(), bias.contiguous(), g,
+                    bwd_plan(x, g, weight.shape[1], _sm_count(x.device)))
+
+
+def _run_bwd(x, weight, bias, g, plan: BwdPlan):
+    """K5 on checked inputs with ``plan``: one C call, two launches (the
+    tiles, then the fixed-order finish of dw and db)."""
     B, L, D = x.shape
     W = weight.shape[1]
-    weight, bias = weight.contiguous(), bias.contiguous()
     dx = torch.empty((B, L, D), dtype=torch.float32, device=x.device)
+    dw, db = torch.empty_like(weight), torch.empty_like(bias)
     if dx.numel() == 0:
-        return dx, torch.zeros_like(weight), torch.zeros_like(bias)
+        return dx, dw.zero_(), db.zero_()
+    part = torch.empty(plan.partial_shape, dtype=torch.float32, device=x.device)
     lib = _library()
-    n_tiles = -(-L // lib.causal_conv1d_time_tile())
-    dw_part = torch.empty((B, n_tiles, W, D), dtype=torch.float32, device=x.device)
-    db_part = torch.empty((B, n_tiles, D), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.causal_conv1d_silu_bwd(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(), g.data_ptr(), dx.data_ptr(),
-            dw_part.data_ptr(), db_part.data_ptr(), B, L, D, W,
-            x.stride(0), x.stride(1), g.stride(0), g.stride(1), stream)
+            dw.data_ptr(), db.data_ptr(), part.data_ptr(), part.numel(), B, L, D, W,
+            x.stride(0), x.stride(1), g.stride(0), g.stride(1), plan.vx, plan.vg, plan.tile,
+            stream)
     _check(lib, err, "causal-conv backward")
     causal_conv1d_silu_bwd.launches += 1
-    return dx, dw_part.sum(dim=(0, 1)).t(), db_part.sum(dim=(0, 1))
+    return dx, dw, db
 
 
 def causal_conv1d_silu_fwd(x: torch.Tensor, weight: torch.Tensor,

@@ -156,21 +156,99 @@ def _scan_case(rng, b, l, d, device, n=16):
                 delta_bias=_randn(rng, d, scale=0.1, device=device), g=gbuf[..., 5:])
 
 
+def _conv_bwd_case(rng, b, l, d, row, off, g_off, device):
+    """x: columns off:off+d of a (b, l, row) buffer, as the mixers slice it;
+    g: columns g_off: of a (b, l, d + g_off) buffer."""
+    x = _randn(rng, b, l, row, device=device)[..., off:off + d]
+    g = _randn(rng, b, l, d + g_off, device=device)[..., g_off:]
+    weight, bias = _randn(rng, d, 4, scale=0.5, device=device), _randn(rng, d, scale=0.1,
+                                                                        device=device)
+    return x, weight, bias, g
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("l,d", [(50, 96), (512, 768)])
-def test_conv_bwd_kernel_matches_plain(cuda, l, d):
+@pytest.mark.parametrize("b,l,d,row,off,g_off", [
+    pytest.param(3, 50, 96, 192, 96, 3, id="50-96"),
+    pytest.param(3, 512, 768, 1536, 768, 3, id="512-768"),
+    pytest.param(2, 512, 1024, 1798, 768, 0, id="ssd-view-1024-row1798"),
+    pytest.param(3, 512, 200, 400, 200, 0, id="ragged-width-200"),
+    pytest.param(3, 50, 768, 1536, 0, 0, id="length-50"),
+    pytest.param(3, 130, 768, 1536, 0, 0, id="length-130"),
+    pytest.param(1, 512, 768, 1536, 0, 0, id="batch-1"),
+    pytest.param(2, 512, 256, 256, 0, 0, id="width-256"),
+    pytest.param(2, 512, 384, 384, 0, 0, id="width-384"),
+    pytest.param(2, 130, 130, 261, 1, 1, id="odd-stride-width-130"),
+])
+def test_conv_bwd_kernel_matches_plain(cuda, b, l, d, row, off, g_off):
     rng = np.random.default_rng(7)
-    xz = _randn(rng, 3, l, 2 * d, device=cuda)
-    x = xz[..., d:]  # a column slice, as in the mixer
-    g = _randn(rng, 3, l, d + 3, device=cuda)[..., 3:]
-    weight, bias = _randn(rng, d, 4, scale=0.5, device=cuda), _randn(rng, d, scale=0.1, device=cuda)
+    x, weight, bias, g = _conv_bwd_case(rng, b, l, d, row, off, g_off, cuda)
     before = kconv.causal_conv1d_silu_bwd.launches
     got = kconv.causal_conv1d_silu_bwd(x, weight, bias, g)
     torch.cuda.synchronize()
     assert kconv.causal_conv1d_silu_bwd.launches == before + 1
-    for a, b in zip(got, kconv.causal_conv1d_silu_bwd_ref(x, weight, bias, g)):
-        assert a.shape == b.shape
-        _close_to_max(a, b, 1e-5)
+    for a, want in zip(got, kconv.causal_conv1d_silu_bwd_ref(x, weight, bias, g)):
+        assert a.shape == want.shape
+        _close_to_max(a, want, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,tile", [(32, 64), (16, 32), (2, 16)])
+def test_conv_bwd_kernel_with_each_time_tile(cuda, b, tile):
+    """Each tile the plan picks, through the batch that makes it pick it, at
+    a length that is a multiple of none of them (the last tile ragged) and at
+    the SSD view's 8-byte rows."""
+    rng = np.random.default_rng(8)
+    x, weight, bias, g = _conv_bwd_case(rng, b, 300, 1024, 1798, 768, 0, cuda)
+    assert kconv.bwd_plan(x, g, 4, torch.cuda.get_device_properties(cuda)
+                          .multi_processor_count).tile == tile
+    got = kconv.causal_conv1d_silu_bwd(x, weight, bias, g)
+    for a, want in zip(got, kconv.causal_conv1d_silu_bwd_ref(x, weight, bias, g)):
+        _close_to_max(a, want, 1e-5)
+
+
+@pytest.mark.cuda
+def test_conv_bwd_kernel_runs_are_bitwise_equal(cuda):
+    """dw and db are summed in a fixed order (no atomics): two runs on the
+    same inputs give the same bits."""
+    rng = np.random.default_rng(9)
+    args = _conv_bwd_case(rng, 32, 512, 768, 1536, 0, 0, cuda)
+    first, again = kconv.causal_conv1d_silu_bwd(*args), kconv.causal_conv1d_silu_bwd(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_conv_bwd_entry_point_refuses_what_the_alignment_does_not_allow(cuda):
+    """The C entry point checks each vector width against the operand's
+    address and strides, that the pair of widths is a built variant, the
+    tile and the partials' size."""
+    rng = np.random.default_rng(10)
+    x, weight, bias, g = _conv_bwd_case(rng, 2, 64, 1024, 1798, 768, 0, cuda)
+    B, L, D = x.shape
+    plan = kconv.bwd_plan(x, g)
+    assert (plan.vx, plan.vg) == (2, 4)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    dx, dw, db = torch.empty((B, L, D), **f32), torch.empty((D, 4), **f32), torch.empty(D, **f32)
+    part = torch.empty(plan.partial_shape, **f32)
+    lib = kconv._library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(vx=plan.vx, vg=plan.vg, tile=plan.tile, numel=part.numel(), xv=x):
+        return lib.causal_conv1d_silu_bwd(
+            xv.data_ptr(), weight.data_ptr(), bias.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), part.data_ptr(), numel, B, L, D, 4, xv.stride(0),
+            xv.stride(1), g.stride(0), g.stride(1), vx, vg, tile, stream)
+
+    assert call() == 0
+    assert call(vx=4) != 0  # rows 7192 bytes apart: 8-byte aligned only
+    assert call(vx=3) != 0
+    assert call(vx=2, xv=x[..., 1:]) != 0  # a base 4 bytes past an aligned one
+    assert call(vx=1, vg=1) == 0  # narrower than allowed is allowed
+    assert call(vx=1, vg=4) != 0  # a pair that is not built
+    assert call(tile=14) != 0 and call(tile=4) != 0
+    assert call(numel=part.numel() - 1) != 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -213,18 +213,94 @@ def _grads(fn, args, g):
     return torch.autograd.grad(fn(*leaves), leaves, g)
 
 
-@pytest.mark.parametrize("l,d", [(37, 24), (50, 32)])
-def test_conv_plain_backward_matches_jax_vjp_and_autograd(l, d):
+@pytest.mark.parametrize("l,d,row,off", [
+    pytest.param(37, 24, None, 0, id="37-24"),
+    pytest.param(50, 32, None, 0, id="50-32"),
+    # as the SSD mixer's view, columns 768:1792 of the 1798-wide in_proj output:
+    # a row stride of 2 (mod 4), here columns 16:48 of a 70-wide buffer
+    pytest.param(64, 32, 70, 16, id="ssd-view-64-32"),
+])
+def test_conv_plain_backward_matches_jax_vjp_and_autograd(l, d, row, off):
     xz, w, b = _conv_inputs(l=l, d=d, seed=3)
+    if row is not None:
+        xz = np.random.default_rng(5).standard_normal((2, l, row)).astype(np.float32)
     g = np.random.default_rng(4).standard_normal((2, l, d)).astype(np.float32)
-    x = _t(xz)[..., :d]  # a column slice, as in the mixer
+    x = _t(xz)[..., off:off + d]  # a column slice, as in the mixer
+    assert row is None or x.stride(1) % 4 == 2
     got = kconv.causal_conv1d_silu_bwd_ref(x, _t(w), _t(b), _t(g))
     _, vjp = jax.vjp(lambda x, w, b: causal_conv1d_silu_pallas(x, w, b, interpret=True),
-                     jnp.asarray(xz[..., :d]), jnp.asarray(w), jnp.asarray(b))
+                     jnp.asarray(xz[..., off:off + d]), jnp.asarray(w), jnp.asarray(b))
     auto = _grads(lambda *a: kconv.causal_conv1d_ref(*a), (x, _t(w), _t(b)), _t(g))
     for a, jw, tw in zip(got, vjp(jnp.asarray(g)), auto):
         np.testing.assert_allclose(a.numpy(), np.asarray(jw), rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(a.numpy(), tw.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def _meta_view(shape, row, off):
+    """A (B, L, D) column view at columns off:off+D of a (B, L, row) buffer,
+    on the meta device: strides and an address (0 plus the offset), no memory."""
+    B, L, D = shape
+    return torch.empty((B, L, row), device="meta")[..., off:off + D]
+
+
+@pytest.mark.parametrize("what,shape,row,off,width,variant", [
+    ("Mamba-1 x, columns :768 of xz", (32, 512, 768), 1536, 0, 4, (4, 4)),
+    ("SSD x|B|C, columns 768:1792 of zxbcdt", (32, 512, 1024), 1798, 768, 2, (2, 4)),
+    ("tensor-parallel x shard, contiguous", (32, 512, 384), 384, 0, 4, (4, 4)),
+    ("tensor-parallel B|C, contiguous", (32, 512, 256), 256, 0, 4, (4, 4)),
+    ("odd row stride", (32, 512, 768), 1537, 0, 1, (1, 1)),
+    ("base offset by one float", (32, 512, 768), 1536, 1, 1, (1, 1)),
+    ("base offset by two floats", (32, 512, 768), 1536, 2, 2, (2, 4)),
+])
+def test_conv_bwd_plan_vector_widths(what, shape, row, off, width, variant):
+    """K5 moves x 16, 8 or 4 bytes a thread at a time and g and dx 16 or 4,
+    in the widest of its three built variants that the operands' bases and
+    strides allow; dx is allocated contiguous."""
+    x = _meta_view(shape, row, off)
+    g = torch.empty(shape, device="meta")
+    plan = kconv.bwd_plan(x, g)
+    assert (plan.vx, plan.vg) == variant, what
+    assert kconv.vector_width(x.data_ptr(), *shape[:2], x.stride(0), x.stride(1)) == width
+    # g and dx share a width: a g narrower than 16 bytes takes the scalar variant
+    swapped = kconv.bwd_plan(g, x)
+    assert (swapped.vx, swapped.vg) == ((4, 4) if width == 4 else (1, 1))
+    # a width of D that is not a multiple of 4 makes dx's rows narrower
+    odd = kconv.bwd_plan(*(torch.empty((*shape[:2], 130), device="meta"),) * 2)
+    assert (odd.vx, odd.vg) == (1, 1)
+    assert {(plan.vx, plan.vg), (odd.vx, odd.vg)} <= set(kconv.BWD_VARIANTS)
+
+
+@pytest.mark.parametrize("shape,tile,partials", [
+    ((32, 512, 768), 64, (64, 5, 768)),     # Mamba-1: 6 x 32 x 8 = 1536 warps
+    ((32, 512, 1024), 64, (64, 5, 1024)),   # SSD: 2048 warps
+    ((32, 512, 384), 32, (128, 5, 384)),    # tensor-parallel x shard: 1536 warps at 32
+    ((32, 512, 256), 16, (256, 5, 256)),    # tensor-parallel B|C: 2048 warps at 16
+    ((1, 512, 768), 16, (8, 5, 768)),       # one cloud: the shortest tile
+    ((3, 130, 200), 16, (9, 5, 200)),       # ragged L and D: 9 tiles, 3 blocks a row
+])
+def test_conv_bwd_plan_tile_and_partials(shape, tile, partials):
+    """The time tile is the longest of 64, 32 and 16 that gives every one of
+    the H100's 132 SMs at least 8 warps; the partials hold one (W+1, D) row
+    per block, BWD_WARPS tiles a block."""
+    x = torch.empty(shape, device="meta")
+    plan = kconv.bwd_plan(x, x)
+    assert plan.tile == tile
+    assert plan.partial_shape == partials
+    time_blocks = partials[0] // shape[0]  # blocks along a batch row, 4 tiles each
+    assert time_blocks * 4 * tile >= shape[1] > (time_blocks - 1) * 4 * tile
+    assert kconv.bwd_partials(*shape, 4, tile) == partials
+
+
+def test_conv_bwd_wrapper_on_cpu_is_the_plain_version():
+    xz, w, b = _conv_inputs(l=40, d=32, seed=6)
+    g = _t(np.random.default_rng(7).standard_normal((2, 40, 32)).astype(np.float32))
+    x = _t(xz)[..., 32:]
+    before = kconv.causal_conv1d_silu_bwd.launches
+    got = kconv.causal_conv1d_silu_bwd(x, _t(w), _t(b), g)
+    want = kconv.causal_conv1d_silu_bwd_ref(x, _t(w), _t(b), g)
+    for a, r in zip(got, want):
+        assert torch.equal(a, r)
+    assert kconv.causal_conv1d_silu_bwd.launches == before  # counts kernel launches only
 
 
 def _jax_vjp_pallas(kw, g, **pallas_kw):
