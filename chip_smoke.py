@@ -124,11 +124,26 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    mixers over the model axis (``scan_impl='pallas'``): the conv and the lean
    scan 12 times a rank, logits matching 'seq'. A rank that fails fails the
    script.
+15. the finetune harness (before phases 11-14, in this process): the port's
+   CLI (``si_mamba_tpu_torch.train.cli.main``) on a ModelNet40-format tree
+   written under build/harness/ from a seed (64 train clouds, 40 test
+   clouds, 8192 points with normals) with cfgs/finetune_modelnet.yaml at
+   max_epoch 1: the FPS caches built on the card, then the finetune (epochs 0
+   and 1 of two steps at batch 32, a validation after each; every step must
+   launch the conv forward and backward and the training scan forward and
+   backward 12 times each and nothing else, every eval forward the conv and
+   the lean scan 12 times each; losses finite; ckpt-best.pth, ckpt-last.pth,
+   config.yaml and scalars.jsonl written, the snapshot reading back to the
+   config), ``--test`` of ckpt-last.pth (the last validation's accuracy and
+   logits), ``--resume`` of the finished run (epoch 1 restored, no kernel
+   launched) and one ``validate_vote`` of 10 passes (the eval kernels 12 x 10
+   times a batch).
 
 Each path (serving, train, SSD serving, SSD train, fused serving, fused
-train, and on each rank TP SSD serving, TP SSD train, SP, SP train, TP
-Mamba-1 serving) is driven with every launch count set to 0 just before it
-and read just after. The last four lines of standard output are the serving, profile,
+train, the harness's finetune, test and vote runs, and on each rank TP SSD
+serving, TP SSD train, SP, SP train, TP Mamba-1 serving) is driven with every
+launch count set to 0 just before it and read just after. The last five
+lines of standard output are the harness's record, the serving, profile,
 train and gradient record of the three models, the kernels' record (each one
 JSON object; every kernel names its ``main_path`` and its launches on every
 path, rank 0's for the parallel paths), the card's name and power limit, and
@@ -139,6 +154,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -174,6 +190,10 @@ TRAIN_POINTS = 8192
 TRAIN_STEPS = 8
 PARITY_BATCH = 4
 GRAD_TOL = 1e-3
+# the kernels of the Mamba-1 main path: a train step's, an eval forward's
+TRAIN_KERNELS = ("causal_conv1d_silu", "selective_scan_fwd_residuals", "selective_scan_bwd",
+                 "causal_conv1d_silu_bwd")
+EVAL_KERNELS = ("causal_conv1d_silu", "selective_scan_fwd")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) op/s and
 # dense TF32 tensor-core op/s.
@@ -1066,7 +1086,7 @@ def _expect(depth: int, names) -> dict[str, int]:
 
 
 def serving_phase(device, base: dict = MODELNET40, plain_impl: str = "seq",
-                  kernels=("causal_conv1d_silu", "selective_scan_fwd")):
+                  kernels=EVAL_KERNELS):
     """Requests of REQUEST_SIZES clouds through a ``Predictor`` over the model
     of ``base``; every forward must launch each of ``kernels`` once a block and
     nothing else, and the logits match the model with ``plain_impl``.
@@ -1255,11 +1275,8 @@ def _train_clouds(n: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
     return pts, rng.integers(0, MODELNET40["cls_dim"], n)
 
 
-def train_phase(device, card: str, base: dict = MODELNET40,
-                kernels=("causal_conv1d_silu", "selective_scan_fwd_residuals",
-                         "selective_scan_bwd", "causal_conv1d_silu_bwd"),
-                eval_kernels=("causal_conv1d_silu", "selective_scan_fwd"),
-                view_grads: bool = True) -> tuple[dict, dict]:
+def train_phase(device, card: str, base: dict = MODELNET40, kernels=TRAIN_KERNELS,
+                eval_kernels=EVAL_KERNELS, view_grads: bool = True) -> tuple[dict, dict]:
     """TRAIN_STEPS steps of the port's finetune step at the ModelNet40
     settings over the model of ``base``; every step must launch each of
     ``kernels`` once a block and nothing else, an eval forward after them
@@ -1829,6 +1846,316 @@ def parallel_phases(card: str) -> tuple[dict, dict]:
     return ranks[0]["paths"], record
 
 
+# phase 15: the finetune harness through its CLI, at the preset's full model
+HARNESS_CLASSES = 40
+HARNESS_TRAIN = 64  # two steps an epoch at the preset's total_bs 32, drop_last
+HARNESS_TEST = 80  # 40 copies of one cloud, then 40 distinct clouds, each set labelled 0..39
+HARNESS_FPS_CHECK = 4  # train clouds whose cached FPS is held against the CPU's
+HARNESS_VOTES = 10
+
+
+def write_modelnet_tree(root: Path, splits: dict, n_classes: int = HARNESS_CLASSES) -> Path:
+    """A ModelNet40-format tree: ``modelnet40_shape_names.txt``, one list a
+    split, and each cloud (N, 6: x y z and a normal) as comma-separated text
+    under its class. ``splits``: split -> [(label, cloud), ...]."""
+    names = [f"class{c:02d}" for c in range(n_classes)]
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "modelnet40_shape_names.txt").write_text("\n".join(names) + "\n")
+    for split, clouds in splits.items():
+        ids = []
+        for k, (label, cloud) in enumerate(clouds):
+            (root / names[label]).mkdir(exist_ok=True)
+            ids.append(f"{names[label]}_{split}{k:04d}")
+            np.savetxt(root / names[label] / f"{ids[-1]}.txt", cloud, fmt="%.6f", delimiter=",")
+        (root / f"modelnet40_{split}.txt").write_text("\n".join(ids) + "\n")
+    return root
+
+
+class _LogCapture:
+    """The messages of the port's logger while it is entered."""
+
+    def __enter__(self):
+        import logging
+
+        class Handler(logging.Handler):
+            def emit(inner, record):
+                self.messages.append(record.getMessage())
+
+        self.messages, self.handler = [], Handler()
+        self.logger = logging.getLogger("si_mamba_tpu_torch")
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def harness_phase(device, card: str) -> tuple[dict, dict]:
+    """The finetune harness through ``si_mamba_tpu_torch.train.cli.main``,
+    in-process, on a ModelNet40-format tree written under build/harness/ from
+    a seed: 64 train clouds (labels 0..39 in turn) and 80 test clouds: 40
+    copies of one cloud labelled 0..39, so that every validation gets at
+    least one right and the run saves ckpt-best, then 40 distinct clouds
+    labelled 0..39, so that a fault that swaps or mixes rows shows in the
+    logits; 8192 points each. The FPS cache built on the card is held against
+    ``fps_indices`` on the CPU for a few train clouds. The
+    experiment config is cfgs/finetune_modelnet.yaml (the published model at
+    full width and depth) with max_epoch 1 and its dataset entries on the
+    tree. Runs: the finetune (epochs 0 and 1, two steps each, a validation
+    after each), ``--test`` of its ckpt-last.pth, ``--resume`` of the
+    finished run, and one ``validate_vote`` of 10 passes. Returns (each
+    run's launches, the record)."""
+    import shutil
+    import types
+
+    from si_mamba_tpu_torch.data.datasets import ModelNet, fps_indices
+    from si_mamba_tpu_torch.train import checkpoint as ckpt
+    from si_mamba_tpu_torch.train import cli
+    from si_mamba_tpu_torch.train import runner_finetune as rf
+    from si_mamba_tpu_torch.train.config import get_config
+    from si_mamba_tpu_torch.train.registry import build_model_from_cfg
+    from si_mamba_tpu_torch.train.yaml_subset import load as yaml_load
+    from si_mamba_tpu_torch.utils.weights import load_state_dict_file
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "harness"
+    shutil.rmtree(work, ignore_errors=True)
+    rng = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    def cloud():
+        return rng.standard_normal((TRAIN_POINTS, 6)).astype(np.float32)
+
+    copied = cloud()
+    train_clouds = [(i % HARNESS_CLASSES, cloud()) for i in range(HARNESS_TRAIN)]
+    data = write_modelnet_tree(work / "modelnet40", {
+        "train": train_clouds,
+        "test": [(c % HARNESS_CLASSES, copied if c < HARNESS_CLASSES else cloud())
+                 for c in range(HARNESS_TEST)]})
+    write_s = time.perf_counter() - t0
+    (work / "modelnet40.yaml").write_text(
+        f"NAME: ModelNet\nDATA_PATH: {data}\nN_POINTS: {TRAIN_POINTS}\n"
+        f"NUM_CATEGORY: {HARNESS_CLASSES}\nUSE_NORMALS: FALSE\n")
+    exp_cfg = work / "harness_modelnet.yaml"
+    exp_cfg.write_text(f"_base_: {ROOT}/cfgs/finetune_modelnet.yaml\nmax_epoch: 1\ndataset:\n" + "".join(
+        f"  {name}: {{_base_: {work}/modelnet40.yaml, others: {{subset: '{subset}'}}}}\n"
+        for name, subset in (("train", "train"), ("val", "test"), ("test", "test"))))
+    config = get_config(str(exp_cfg))
+    if (config.model.trans_dim, config.model.depth, config.total_bs) != (384, 12, TRAIN_BATCH):
+        raise AssertionError(f"the harness config is not the preset's: {config.model}")
+    depth = int(config.model.depth)
+
+    # the FPS caches (8192 of 8192 points, the preset's N_POINTS) on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for subset in ("train", "test"):
+        ModelNet(str(data), subset=subset, npoints=TRAIN_POINTS, device=device)
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    # the cache's points are those the CPU's FPS picks from the written text
+    with open(data / f"modelnet40_train_{TRAIN_POINTS}pts_fps.dat", "rb") as f:
+        cached, _ = pickle.load(f)
+    t0 = time.perf_counter()
+    for k in range(HARNESS_FPS_CHECK):
+        written = np.loadtxt(data / f"class{k:02d}" / f"class{k:02d}_train{k:04d}.txt",
+                             delimiter=",").astype(np.float32)
+        rows = fps_indices(torch.from_numpy(written[None, :, :3]), TRAIN_POINTS)[0].numpy()
+        if not np.array_equal(cached[k], written[rows]):
+            raise AssertionError(f"train cloud {k}: the FPS cache built on the card differs from "
+                                 f"fps_indices on the CPU")
+    fps_check_s = time.perf_counter() - t0
+
+    steps, validations, saves = [], [], []
+    real = (rf.make_train_step, rf.validate, ckpt.save_checkpoint)
+
+    def delta(before):
+        now = _launch_counts()
+        return {k: now[k] - before[k] for k in now}
+
+    def timed_train_step(*a, **k):
+        step = real[0](*a, **k)
+
+        def run(*sa, **sk):
+            torch.cuda.synchronize()
+            before, t = _launch_counts(), time.perf_counter()
+            state, metrics = step(*sa, **sk)
+            loss = metrics["loss"].item()
+            steps.append({"ms": (time.perf_counter() - t) * 1e3, "loss": loss,
+                          "launches": delta(before)})
+            return state, metrics
+
+        return run
+
+    def timed_validate(eval_step, state, loader, epoch=0):
+        logits = []
+
+        def recording(st, pts):
+            logits.append(eval_step(st, pts))
+            return logits[-1]
+
+        torch.cuda.synchronize()
+        before, t = _launch_counts(), time.perf_counter()
+        acc = real[1](recording, state, loader, epoch)
+        validations.append({"ms": (time.perf_counter() - t) * 1e3, "acc": acc,
+                            "forwards": len(logits), "launches": delta(before),
+                            "logits": torch.cat(logits).float().cpu()})
+        return acc
+
+    def timed_save(exp_dir, prefix, *a, **k):
+        t = time.perf_counter()
+        real[2](exp_dir, prefix, *a, **k)
+        saves.append({"prefix": prefix, "ms": (time.perf_counter() - t) * 1e3})
+
+    cwd = os.getcwd()
+    os.chdir(work)  # the CLI's experiments/ tree
+    rf.make_train_step, rf.validate, ckpt.save_checkpoint = timed_train_step, timed_validate, timed_save
+    paths = {}
+    try:
+        base = ["--config", str(exp_cfg), "--device", "cuda"]
+        with _LogCapture() as train_log:
+            _reset_launch_counts()  # the harness's main path: the finetune run
+            t0 = time.perf_counter()
+            state, best = cli.main(base + ["--exp_name", "run"])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            paths["harness_train"] = _launch_counts()
+        exp = work / "experiments" / "harness_modelnet" / "run"
+        train_val = list(validations)
+
+        _reset_launch_counts()
+        validations.clear()
+        test_acc = cli.main(base + ["--exp_name", "test", "--test", "--ckpts",
+                                    str(exp / "ckpt-last.pth")])
+        paths["harness_eval"] = _launch_counts()
+        test_val = validations[0]
+
+        with _LogCapture() as resume_log:
+            _reset_launch_counts()
+            resumed, _ = cli.main(base + ["--exp_name", "run", "--resume"])
+            resume_counts = _launch_counts()
+    finally:
+        rf.make_train_step, rf.validate, ckpt.save_checkpoint = real
+        os.chdir(cwd)
+
+    # the finetune run: 2 epochs of 2 steps, each step the train kernels once a
+    # block and no other kernel; each validation forward the eval kernels
+    n_steps = 2 * (HARNESS_TRAIN // TRAIN_BATCH)
+    if len(steps) != n_steps or state.step != n_steps:
+        raise AssertionError(f"the finetune run took {len(steps)} steps, expected {n_steps}")
+    for i, s in enumerate(steps):
+        if s["launches"] != _expect(depth, TRAIN_KERNELS):
+            raise AssertionError(f"harness train step {i} launched {s['launches']}")
+        if not np.isfinite(s["loss"]):
+            raise AssertionError(f"harness train step {i} gave loss {s['loss']}")
+    for v in train_val + [test_val]:
+        if v["launches"] != _expect(depth * v["forwards"], EVAL_KERNELS):
+            raise AssertionError(f"a harness validation of {v['forwards']} forwards launched "
+                                 f"{v['launches']}")
+    if len(train_val) != 2 or any(v["acc"] < 100.0 / HARNESS_TEST for v in train_val):
+        raise AssertionError(f"validation accuracies {[v['acc'] for v in train_val]}: the "
+                             f"{HARNESS_CLASSES} copies of one cloud give at least one right")
+    for v in train_val:
+        copies = v["logits"][:HARNESS_CLASSES]
+        spread = (copies - copies[:1]).abs().max().item()
+        if spread > 1e-4 * copies.abs().max().item():
+            raise AssertionError(f"one batch's copies of one cloud got logits {spread} apart")
+    expect_total = {k: sum(s["launches"][k] for s in steps) +
+                    sum(v["launches"][k] for v in train_val) for k in _launch_counts()}
+    if paths["harness_train"] != expect_total:
+        raise AssertionError(f"the finetune run launched {paths['harness_train']} in all, its "
+                             f"steps and validations {expect_total}")
+    files = {p.name for p in exp.iterdir()}
+    missing = {"ckpt-best.pth", "ckpt-last.pth", "config.yaml", "scalars.jsonl"} - files
+    if missing:
+        raise AssertionError(f"the finetune run did not write {missing}")
+    # best (when the accuracy rose), then last, each epoch
+    order, best_acc = [], 0.0
+    for v in train_val:
+        if v["acc"] > best_acc:
+            order.append("ckpt-best")
+            best_acc = v["acc"]
+        order.append("ckpt-last")
+    if [s["prefix"] for s in saves] != order:
+        raise AssertionError(f"checkpoints saved in the order {saves}, the accuracies "
+                             f"{[v['acc'] for v in train_val]} give {order}")
+    best_epoch = torch.load(exp / "ckpt-best.pth", map_location="cpu", weights_only=True)["epoch"]
+    if train_val[best_epoch]["acc"] != best_acc:
+        raise AssertionError(f"ckpt-best.pth holds epoch {best_epoch}, the best is {best_acc}")
+    with open(exp / "config.yaml") as f:
+        if yaml_load(f.read()) != config:
+            raise AssertionError("the config snapshot does not read back to the config")
+    scalars = [json.loads(line) for line in (exp / "scalars.jsonl").read_text().splitlines()]
+    tags = [(r["tag"], r["step"]) for r in scalars]
+    if tags != [(t, e) for e in (0, 1) for t in ("Loss/Epoch/Loss", "LR", "Metric/ACC")]:
+        raise AssertionError(f"scalars.jsonl holds {tags}")
+    if not all(np.isfinite(r["value"]) for r in scalars):
+        raise AssertionError(f"non-finite scalars: {scalars}")
+    last_acc = [r["value"] for r in scalars if r["tag"] == "Metric/ACC"][-1]
+
+    # --test of ckpt-last: the last validation's accuracy, and its logits
+    if test_acc != last_acc:
+        raise AssertionError(f"--test gave {test_acc}, the last validation {last_acc}")
+    if paths["harness_eval"] != _expect(depth * test_val["forwards"], EVAL_KERNELS):
+        raise AssertionError(f"--test launched {paths['harness_eval']}")
+    want = train_val[-1]["logits"]
+    test_diff = (test_val["logits"] - want).abs().max().item()
+    if test_diff > 1e-4 * want.abs().max().item():
+        raise AssertionError(f"--test logits differ from the last validation's by {test_diff}")
+    if not torch.equal(test_val["logits"].argmax(-1), want.argmax(-1)):
+        raise AssertionError("--test predicts other classes than the last validation")
+
+    # --resume of the finished run restores epoch 1 and trains nothing
+    payload = torch.load(exp / "ckpt-last.pth", map_location="cpu", weights_only=True)
+    if payload["epoch"] != 1 or resumed.step != n_steps:
+        raise AssertionError(f"--resume restored epoch {payload['epoch']}, step {resumed.step}")
+    if any(resume_counts.values()) or not any("training already complete" in m
+                                             for m in resume_log.messages):
+        raise AssertionError(f"--resume of a finished run launched {resume_counts}: "
+                             f"{resume_log.messages}")
+
+    # one validate_vote of HARNESS_VOTES passes over the test loader
+    model, _ = build_model_from_cfg(config.model, device)
+    model.load_state_dict(load_state_dict_file(str(exp / "ckpt-last.pth")), strict=True)
+    args = types.SimpleNamespace(device="cuda", seed=0, num_workers=4, way=-1, shot=-1, fold=-1)
+    loader = cli.build_loader(config.dataset.test, args, "test", TRAIN_BATCH, False, False)
+    vote_step = rf.make_vote_step(model, NPOINTS, rotation=False, times=HARNESS_VOTES)
+    _reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vote_acc = rf.validate_vote(vote_step, rf.TrainState(0, model, None), loader, seed=0)
+    torch.cuda.synchronize()
+    vote_ms = (time.perf_counter() - t0) * 1e3
+    paths["harness_vote"] = _launch_counts()
+    if paths["harness_vote"] != _expect(depth * HARNESS_VOTES * len(loader), EVAL_KERNELS):
+        raise AssertionError(f"validate_vote launched {paths['harness_vote']}")
+
+    epoch_s = [float(m.split("EpochTime = ")[1].split()[0]) for m in train_log.messages
+               if "EpochTime = " in m]
+    step_ms = [s["ms"] for s in steps]
+    p50 = statistics.median(step_ms[1:])
+    last_save = [s["ms"] for s in saves if s["prefix"] == "ckpt-last"]
+    record = {"config": "cfgs/finetune_modelnet.yaml, max_epoch 1", "train_clouds": HARNESS_TRAIN,
+              "test_clouds": HARNESS_TEST, "points": TRAIN_POINTS, "batch": TRAIN_BATCH,
+              "data_write_s": write_s, "cache_build_s": cache_s,
+              "cache_cpu_fps_check_s": fps_check_s, "finetune_run_s": run_s,
+              "epoch_s": epoch_s, "step_ms": step_ms, "p50_step_ms": p50,
+              "clouds_per_s": TRAIN_BATCH / (p50 / 1e3), "losses": [s["loss"] for s in steps],
+              "validation_ms": [v["ms"] for v in train_val], "val_acc": [v["acc"] for v in train_val],
+              "test_acc": test_acc, "test_ms": test_val["ms"], "test_logits_max_abs_diff": test_diff,
+              "vote_acc": vote_acc, "vote_ms": vote_ms, "vote_passes": HARNESS_VOTES,
+              "ckpt_last_bytes": (exp / "ckpt-last.pth").stat().st_size,
+              "ckpt_save_ms": [(s["prefix"], s["ms"]) for s in saves],
+              "ckpt_last_save_ms": last_save, "phase_s": time.perf_counter() - t_phase,
+              "launches": paths, "card": card}
+    log(f"harness: data written in {write_s:.1f} s, FPS caches built in {cache_s:.1f} s; "
+        f"finetune {run_s:.1f} s, epochs {epoch_s} s, step p50 {p50:.3f} ms "
+        f"({TRAIN_BATCH / (p50 / 1e3):.2f} clouds/s), validation "
+        f"{[round(v['ms'], 3) for v in train_val]} ms; ckpt-last.pth "
+        f"{record['ckpt_last_bytes']} bytes, saved in {[round(v, 3) for v in last_save]} ms; "
+        f"test acc {test_acc} (= last validation), vote acc {vote_acc} in {vote_ms:.1f} ms; "
+        f"phase {record['phase_s']:.1f} s; {card}")
+    return paths, record
+
+
 def main() -> int:
     if not (ROOT / "si_mamba_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run it from a checkout of the repository "
@@ -1890,6 +2217,8 @@ def main() -> int:
         device, card, MODELNET40_FUSED, kernels=("fused_mixer_fwd_states", "fused_mixer_bwd"),
         eval_kernels=("fused_mixer_fwd",), view_grads=False)
     fused_grads = gradient_phase(device, MODELNET40_FUSED, plain_impl="seq")
+    harness_paths, harness = harness_phase(device, card)
+    paths.update(harness_paths)
     torch.cuda.empty_cache()  # the ranks share the card
     parallel_paths, parallel = parallel_phases(card)
     paths.update(parallel_paths)
@@ -1911,6 +2240,7 @@ def main() -> int:
         r["launches"] = r["launches_by_path"][r["main_path"]]
         if r["launches"] <= 0:
             raise AssertionError(f"{r['name']} was not launched on its path")
+    print(json.dumps({"harness": harness}), flush=True)
     print(json.dumps({"serving": serving, "profile": profile, "train": train,
                       "gradients": grads, "ssd": {"serving": ssd_serving, "profile": ssd_profile,
                                                   "train": ssd_train, "gradients": ssd_grads},

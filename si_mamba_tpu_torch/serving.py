@@ -23,7 +23,8 @@ import torch
 
 from si_mamba_tpu_torch.models.point_mamba import PointMamba, PointMambaConfig
 from si_mamba_tpu_torch.ops.pointops import fps, gather_points
-from si_mamba_tpu_torch.utils.weights import as_state_dict, load_state_dict_file
+from si_mamba_tpu_torch.utils.device import resolve_device
+from si_mamba_tpu_torch.utils.weights import ORBAX_NOT_READ, as_state_dict, load_state_dict_file
 
 
 def _fps_to_npoints(points: torch.Tensor, npoints: int) -> torch.Tensor:
@@ -45,10 +46,7 @@ class Predictor:
 
     def __init__(self, model: PointMamba, npoints: int = 1024, max_batch: int = 64,
                  input_points=None, allow_recompile: bool = False, device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device 'cuda' requested but no GPU is available; "
-                               "pass device='cpu' to run on the CPU")
+        self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.npoints = int(npoints)
         self.max_batch = int(max_batch)
@@ -69,8 +67,10 @@ class Predictor:
                         max_batch: int = 64, perf: bool = False,
                         input_points: Optional[int] = None,
                         allow_recompile: bool = False, device="cuda") -> "Predictor":
-        """``path``: a reference-format ``.pth`` or a state dict (numpy arrays
-        or tensors) in the reference's keys. ``model_cfg``: PointMambaConfig
+        """``path``: a reference-format ``.pth`` (this package's ``ckpt-*.pth``
+        among them) or a state dict (numpy arrays or tensors) in the
+        reference's keys; anything else is taken for an orbax checkpoint and
+        raises. ``model_cfg``: PointMambaConfig
         overrides. The weights load with ``strict=True``."""
         if perf:
             raise NotImplementedError(
@@ -80,9 +80,7 @@ class Predictor:
         elif str(path).endswith(".pth"):
             sd = load_state_dict_file(str(path))
         else:
-            raise NotImplementedError(
-                f"{path!r}: orbax checkpoint directories are ROADMAP.md queue 1, M11; "
-                f"pass a .pth or a state dict")
+            raise NotImplementedError(f"{path!r}: {ORBAX_NOT_READ}")
         model = PointMamba(PointMambaConfig.from_dict(model_cfg or {}))
         model.load_state_dict(sd, strict=True)
         return cls(model, npoints=npoints, max_batch=max_batch, input_points=input_points,

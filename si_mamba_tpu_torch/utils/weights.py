@@ -8,7 +8,8 @@
   become weight/bias/running_mean/running_var (+ ``num_batches_tracked``).
 - :func:`load_state_dict_file`: a reference-format ``.pth``
   (``{'base_model': state_dict, ...}``), with the ``module.`` /
-  ``MAE_encoder.`` / ``base_model.`` prefixes stripped.
+  ``MAE_encoder.`` / ``base_model.`` prefixes stripped. An orbax directory
+  in its place is refused with ``ORBAX_NOT_READ``.
 - :func:`shard_state_dict` / :func:`gather_state_dict`: a full state dict to
   one rank's state dict of the tensor-parallel model, and every rank's back
   to the full one.
@@ -122,6 +123,11 @@ def as_state_dict(sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """A flat mapping of arrays or tensors -> CPU tensors, prefixes stripped."""
     return {k: v.detach().cpu() if isinstance(v, torch.Tensor) else _t(v)
             for k, v in _strip_prefixes(sd).items()}
+
+
+ORBAX_NOT_READ = ("orbax checkpoint directories are not read by the PyTorch port: convert "
+                  "one with `python scripts/export_torch.py --exp_dir <experiment dir> "
+                  "--prefix <ckpt-best|ckpt-last|...>` and pass the .pth it writes")
 
 
 def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:

@@ -9,6 +9,8 @@ the suite's conftest left out:
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1071,3 +1073,57 @@ def test_fused_mixer_function_gradcheck_in_float64_through_the_plain_path():
               -torch.exp(mk(n, di)), mk(di)]
     leaves = [t.requires_grad_() for t in leaves]
     assert torch.autograd.gradcheck(lambda *a: kfm.FusedMixerFn.apply(*a, True), leaves)
+
+
+@pytest.mark.cuda
+def test_cli_finetunes_and_tests_on_the_card(cuda, tmp_path, monkeypatch):
+    """The harness CLI at a small size on the card: a finetune (2 epochs of 2
+    steps, a validation after each) and --test of its ckpt-last.pth. Each
+    step launches the conv forward and backward and the training scan
+    forward and backward once a block, each eval forward the conv and the
+    lean scan once a block, and no run any other kernel."""
+    from chip_smoke import write_modelnet_tree
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+    from si_mamba_tpu_torch.train import cli
+
+    wrappers = {"k1": kconv.causal_conv1d_silu, "k2": kscan.selective_scan_fwd,
+                "k3": kscan.selective_scan_fwd_residuals, "k4": kscan.selective_scan_bwd,
+                "k5": kconv.causal_conv1d_silu_bwd, "k8": kssd.ssd_xbc_fwd}
+
+    def counts():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    rng = np.random.default_rng(41)
+    data = write_modelnet_tree(tmp_path / "mn", {
+        "train": [(i % 4, rng.standard_normal((1300, 6)).astype(np.float32)) for i in range(16)],
+        "test": [(i % 4, rng.standard_normal((1300, 6)).astype(np.float32)) for i in range(6)]},
+        n_classes=4)
+    (tmp_path / "mn.yaml").write_text(f"NAME: ModelNet\nDATA_PATH: {data}\nN_POINTS: 1300\n"
+                                      f"NUM_CATEGORY: 40\nUSE_NORMALS: FALSE\n")
+    cfg = tmp_path / "small.yaml"
+    cfg.write_text(
+        "optimizer: {type: AdamW, kwargs: {lr: 0.001, weight_decay: 0.05}}\n"
+        "scheduler: {type: CosLR, kwargs: {epochs: 3, initial_epochs: 1}}\n"
+        "dataset:\n" + "".join(f"  {s}: {{_base_: {tmp_path}/mn.yaml, others: {{subset: {sub}}}}}\n"
+                               for s, sub in (("train", "train"), ("val", "test"),
+                                              ("test", "test"))) +
+        "model: {NAME: PointMamba, trans_dim: 64, encoder_dims: 64, depth: 2, cls_dim: 4,\n"
+        "        num_group: 32, group_size: 16, knn_graph: 8}\n"
+        "npoints: 1024\ntotal_bs: 8\nmax_epoch: 1\ngrad_norm_clip: 10\n")
+    monkeypatch.chdir(tmp_path)
+    before = counts()
+    state, _ = cli.main(["--config", str(cfg), "--num_workers", "2"])  # the device: cuda
+    train = {k: v - before[k] for k, v in counts().items()}
+    assert state.step == 4 and next(state.model.parameters()).is_cuda
+    # 4 steps; 2 validations of one forward (6 clouds at the batch of 16)
+    assert train == {"k1": 2 * (4 + 2), "k2": 2 * 2, "k3": 2 * 4, "k4": 2 * 4, "k5": 2 * 4,
+                     "k8": 0}
+    last = tmp_path / "experiments" / "small" / "default" / "ckpt-last.pth"
+    before = counts()
+    acc = cli.main(["--config", str(cfg), "--test", "--ckpts", str(last), "--exp_name", "t"])
+    assert {k: v - before[k] for k, v in counts().items()} == {
+        "k1": 2, "k2": 2, "k3": 0, "k4": 0, "k5": 0, "k8": 0}
+    scalars = (tmp_path / "experiments" / "small" / "default" / "scalars.jsonl").read_text()
+    val = [json.loads(line)["value"] for line in scalars.splitlines()
+           if json.loads(line)["tag"] == "Metric/ACC"]
+    assert acc == val[-1]

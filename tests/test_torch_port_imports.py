@@ -47,7 +47,9 @@ def test_importing_the_port_loads_no_jax_module():
             "import si_mamba_tpu_torch.serving, si_mamba_tpu_torch.ops.selective_scan, "
             "si_mamba_tpu_torch.ops.ssd, si_mamba_tpu_torch.parallel, "
             "si_mamba_tpu_torch.parallel.tensor_parallel, si_mamba_tpu_torch.parallel.seq_scan, "
-            "si_mamba_tpu_torch.train.runner_finetune; "
+            "si_mamba_tpu_torch.train.runner_finetune, si_mamba_tpu_torch.train.cli, "
+            "si_mamba_tpu_torch.train.config, si_mamba_tpu_torch.train.checkpoint, "
+            "si_mamba_tpu_torch.data.datasets; "
             "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in %r); "
             "assert not bad, bad" % (FORBIDDEN,))
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
