@@ -10,7 +10,8 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
 
 1. device: requires CUDA, prints ``nvidia-smi``'s name and power limit, turns
    TF32 off for matmuls and convolutions;
-2. build: the seven CUDA sources, one ``nvcc`` each, in parallel, before
+2. build: the seven CUDA sources (K1-K5 each with its fp32 and bf16
+   variants), one ``nvcc`` each, in parallel, before
    any rank of phases 11-14 starts;
 3. kernels: at the serving path's full-width shapes (B=32, L=512, d_inner=768,
    d_state=16, fp32, strided views as the mixer makes them) each kernel is
@@ -138,13 +139,34 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    logits), ``--resume`` of the finished run (epoch 1 restored, no kernel
    launched) and one ``validate_vote`` of 10 passes (the eval kernels 12 x 10
    times a batch).
+16. perf mode's kernels (before phase 5): the bf16 variants of K1-K5 at the
+   serving path's shapes (B=32, L=512, d_inner 768; bf16 views of a bf16
+   ``in_proj`` output, row stride 1536), each held against its plain version
+   on the card (a bf16 output within one bf16 ulp of it, two for the scan
+   backward's; fp32 outputs within 1e-4 of their max, 1e-3 for the scan
+   backward's sums) and timed beside it, the conv ones also beside bf16
+   ``F.conv1d(groups=D)`` + ``F.silu`` and its autograd, the lean scan also at
+   B = 1, 20 and 64; each record carries the fp32 kernel's time of this run;
+17. perf serving and train (after phase 8): ``Predictor.from_checkpoint(
+   state dict, perf=True)`` (bf16, subspace) over the ModelNet40 model serves
+   1, 20 and 64 clouds; every forward launches the bf16 conv and lean scan 12
+   times each and nothing else, its logits and features match 'seq' at bf16
+   within PERF_LOGITS_TOL of their max; its pieces profiled as in phase 6
+   (the ``sequence`` piece is the subspace solver's, phase 6's eigh's); then
+   phase 7 at bf16 + subspace: every step launches the bf16 conv forward and
+   backward and the bf16 training scan forward and backward 12 times each;
+18. the perf preset through the CLI (after phase 15, on its tree):
+   cfgs/finetune_modelnet_perf.yaml at max_epoch 0, two steps and a
+   validation, launches counted, the epoch's loss finite.
 
-Each path (serving, train, SSD serving, SSD train, fused serving, fused
-train, the harness's finetune, test and vote runs, and on each rank TP SSD
+Each path (serving, train, perf serving, perf train, SSD serving, SSD train,
+fused serving, fused train, the harness's finetune, test and vote runs, the
+perf preset's CLI run, and on each rank TP SSD
 serving, TP SSD train, SP, SP train, TP Mamba-1 serving) is driven with every
 launch count set to 0 just before it and read just after. The last five
 lines of standard output are the harness's record, the serving, profile,
-train and gradient record of the three models, the kernels' record (each one
+train and gradient record of the three models (and perf mode's serving,
+profile, train and CLI record), the kernels' record (each one
 JSON object; every kernel names its ``main_path`` and its launches on every
 path, rank 0's for the parallel paths), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -181,6 +203,10 @@ MODELNET40_SSD = dict(MODELNET40, mixer="ssd", ssd_chunk=256, scan_impl="ssd_fus
 # The whole-mixer route: the ModelNet40 model with scan_impl 'fused' (the JAX
 # package's opt-in `mamba_mixer_apply(impl='fused')`).
 MODELNET40_FUSED = dict(MODELNET40, scan_impl="fused")
+# Perf mode: the ModelNet40 model with cfgs/finetune_modelnet_perf.yaml's two
+# switches (bf16 activations, the subspace eigensolver), which
+# Predictor.from_checkpoint(perf=True) sets.
+MODELNET40_PERF = dict(MODELNET40, dtype="bfloat16", spectral_method="subspace")
 NPOINTS = 1024
 REQUEST_SIZES = (1, 20, 64)
 REPEATS = 5
@@ -194,6 +220,16 @@ GRAD_TOL = 1e-3
 TRAIN_KERNELS = ("causal_conv1d_silu", "selective_scan_fwd_residuals", "selective_scan_bwd",
                  "causal_conv1d_silu_bwd")
 EVAL_KERNELS = ("causal_conv1d_silu", "selective_scan_fwd")
+# the bf16 variants of the same kernels, perf mode's
+PERF_TRAIN_KERNELS = ("causal_conv1d_silu_bf16", "selective_scan_fwd_residuals_bf16",
+                      "selective_scan_bwd_bf16", "causal_conv1d_silu_bwd_bf16")
+PERF_EVAL_KERNELS = ("causal_conv1d_silu_bf16", "selective_scan_fwd_bf16")
+# Perf mode's logits and pooled features, kernel route against the plain one
+# ('seq') on the card, within this share of their max: bf16 keeps 8
+# significant bits (a rounding moves a value up to 2^-9 = 0.2 %), and the two
+# routes round in other places over 12 blocks (the conv kernel reads the
+# fp32 conv weights, the plain conv bf16 ones; the scans sum in other orders).
+PERF_LOGITS_TOL = 5e-2
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) op/s and
 # dense TF32 tensor-core op/s.
@@ -513,6 +549,193 @@ def backward_kernel_phase(device) -> list[dict]:
         plain_ms=time_ms(lambda: ks.selective_scan_bwd_ref(*bwd_args), 1, warmup=1),
         library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
     log(f"scan backward ok: max |diff| {err4:.3e}, two runs bitwise equal")
+    return records
+
+
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor, floor: float) -> float:
+    """The largest |got - want| in bf16 ulps of want (8 significant bits),
+    each ulp taken at least at ``floor`` of max|want|."""
+    got, want = got.float(), want.float()
+    mag = torch.clamp_min(want.abs(), floor * want.abs().max().item())
+    return ((got - want).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max().item()
+
+
+def perf_operands(device, batch: int = 32):
+    """Perf mode's kernel operands as layer 0's bf16 mixer makes them at
+    B=batch, L=512: xz = x @ in_proj (bf16, row stride 1536), the conv's x and
+    the scan's z its column views, u the bf16 conv kernel's output, B and C
+    column views of x_dbl = u @ x_proj, dt = x_dbl[..., :24] @ dt_proj, all
+    bf16; the conv weight and bias, A, D and dt_bias fp32. Returns (xz, conv
+    weight, conv bias, scan args)."""
+    from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_silu_fwd
+
+    mixer, p, xz = mixer_inputs(device, batch)
+    bf = torch.bfloat16
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (batch, 512, MODELNET40["trans_dim"]), dtype=np.float32)).to(device, bf)
+    xz = x @ p["in_proj_w"].to(bf)
+    d_inner, n, dt_rank = mixer.d_inner, mixer.d_state, mixer.dt_rank
+    u = causal_conv1d_silu_fwd(xz[..., :d_inner], p["conv_w"], p["conv_b"])
+    x_dbl = u @ p["x_proj_w"].to(bf)
+    dt = x_dbl[..., :dt_rank] @ p["dt_proj_w"].to(bf)
+    args = (u, dt, -torch.exp(p["A_log"]), x_dbl[..., dt_rank:dt_rank + n],
+            x_dbl[..., dt_rank + n:], p["D"], xz[..., d_inner:], p["dt_proj_b"])
+    return xz, p["conv_w"], p["conv_b"], args
+
+
+def bf16_kernel_phase(device) -> list[dict]:
+    """Perf mode's kernels, the bf16 variants of K1-K5, at its shapes (B=32,
+    L=512, d_inner 768, d_state 16; strided bf16 views as the bf16 mixer makes
+    them), each against its plain version on the same inputs and timed beside
+    it: K1 and K5 also beside bf16 ``F.conv1d(groups=D)`` + ``F.silu`` and its
+    autograd; K2 also at B = 1, 20 and 64. Tolerances: a bf16 output within
+    one bf16 ulp of the plain version's (both round one fp32 value; the ulp
+    taken at least at 1e-2 of the output's max, 2e-2 for K4's, whose sums over
+    channels and states run in other orders), two for K4's; an fp32 output
+    within 1e-4 of its max (1e-3 for K4's sums over channels). Bounds count
+    bf16 bytes for the bf16 operands and fp32 operations."""
+    from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
+    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
+
+    xz, w, b, args = perf_operands(device)
+    x = xz[..., :w.shape[0]]
+    B, L, D = x.shape
+    W, n = w.shape[1], args[2].shape[1]
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (B, L, D), dtype=np.float32)).to(device, torch.bfloat16)
+    records = []
+
+    def check(name, got, want, ulps=1, floor=1e-2, rel=1e-4):
+        if got.dtype == torch.bfloat16:
+            err = _bf16_ulps(got, want, floor)
+            if err > ulps:
+                raise AssertionError(f"{name}: {err:.2f} bf16 ulps from the plain version")
+        elif _rel_err(got, want)[1] > rel:
+            raise AssertionError(f"{name}: {_rel_err(got, want)} from the plain version")
+        return (got.float() - want.float()).abs().max().item()
+
+    # K1, bf16
+    y = kc.causal_conv1d_silu_bf16(x, w, b)
+    err1 = check("bf16 conv forward", y, kc.causal_conv1d_ref(x, w, b))
+    xt, w3, b16 = x.transpose(1, 2), w.to(torch.bfloat16)[:, None, :], b.to(torch.bfloat16)
+    bound_ms, bound_by = bound(2 * B * L * D * 2 + D * (W + 1) * 4, B * L * D * (2 * W + 5))
+    records.append(dict(
+        name="causal_conv1d_silu_bf16", route="cuda",
+        source="si_mamba_tpu_torch/csrc/causal_conv.cu",
+        replaces="si_mamba_tpu/ops/pallas/causal_conv_kernel.py:52", dtype="bfloat16",
+        shape=[B, L, D], row_stride=x.stride(1), vector=kc.fwd_bf16_vector(x), max_abs_err=err1,
+        ms=time_ms(lambda: kc.causal_conv1d_silu_bf16(x, w, b), 50),
+        device_ms=graph_ms(lambda: kc.causal_conv1d_silu_bf16(x, w, b), 20),
+        plain_ms=time_ms(lambda: kc.causal_conv1d_ref(x, w, b), 20),
+        library_ms=time_ms(lambda: F.silu(F.conv1d(xt, w3, b16, padding=W - 1,
+                                                   groups=D)[..., :L]), 20),
+        bound_ms=bound_ms, bound_by=bound_by))
+
+    # K5, bf16: two runs bitwise equal
+    bargs = (x, w, b, g)
+    got = kc.causal_conv1d_silu_bwd_bf16(*bargs)
+    again = kc.causal_conv1d_silu_bwd_bf16(*bargs)
+    want = kc.causal_conv1d_silu_bwd_ref(*bargs)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError("two bf16 conv backward runs on the same inputs differ")
+    err5 = max(check(f"bf16 conv backward {k}", a, r) for k, a, r in zip(("dx", "dw", "db"),
+                                                                         got, want))
+    x_lib = xt.detach().requires_grad_()
+    w_lib, b_lib = (t.detach().clone().requires_grad_() for t in (w3, b16))
+    y_lib = F.silu(F.conv1d(x_lib, w_lib, b_lib, padding=W - 1, groups=D)[..., :L])
+    plan = kc.bwd_plan(x, g, W, torch.cuda.get_device_properties(device).multi_processor_count)
+    bound_ms, bound_by = bound(3 * B * L * D * 2 + 2 * D * (W + 1) * 4, B * L * D * (6 * W + 11))
+    records.append(dict(
+        name="causal_conv1d_silu_bwd_bf16", route="cuda",
+        source="si_mamba_tpu_torch/csrc/causal_conv.cu",
+        replaces="si_mamba_tpu/ops/pallas/causal_conv_kernel.py:58", dtype="bfloat16",
+        shape=[B, L, D], row_stride=x.stride(1),
+        plan=dict(vx=plan.vx, vg=plan.vg, tile=plan.tile), max_abs_err=err5,
+        ms=time_ms(lambda: kc.causal_conv1d_silu_bwd_bf16(*bargs), 50),
+        device_ms=graph_ms(lambda: kc.causal_conv1d_silu_bwd_bf16(*bargs), 20),
+        plain_ms=time_ms(lambda: kc.causal_conv1d_silu_bwd_ref(*bargs), 10),
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            y_lib, (x_lib, w_lib, b_lib), g.transpose(1, 2), retain_graph=True), 20),
+        bound_ms=bound_ms, bound_by=bound_by))
+    log(f"bf16 conv: forward max |diff| {err1:.3e} ({kc.fwd_bf16_vector(x)} channels a "
+        f"thread), backward {err5:.3e}, two runs bitwise equal, plan {records[-1]['plan']}")
+
+    # K2, bf16, at the train batch and each serving request size
+    def scan_fwd_bf16(a) -> dict:
+        Bq = a[0].shape[0]
+        yq = ks.selective_scan_fwd_bf16(*a)
+        err = check(f"bf16 scan forward at B={Bq}", yq,
+                    ks.selective_scan_ref(*a[:5], D=a[5], z=a[6], delta_bias=a[7]))
+        scan_bytes = (4 * Bq * L * D + 2 * Bq * L * n) * 2 + (D * n + 2 * D) * 4
+        bms, bby = bound(scan_bytes, Bq * L * D * (10 + 7 * n))
+        return dict(shape=[Bq, L, D], max_abs_err=err,
+                    ms=time_ms(lambda: ks.selective_scan_fwd_bf16(*a), 20),
+                    device_ms=graph_ms(lambda: ks.selective_scan_fwd_bf16(*a), 20),
+                    segments=ks._fwd_library().selective_scan_fwd_segments(Bq, L, D),
+                    bound_ms=bms, bound_by=bby)
+
+    fig = scan_fwd_bf16(args)
+    sizes = {str(bq): scan_fwd_bf16(perf_operands(device, bq)[3]) for bq in REQUEST_SIZES}
+    records.append(dict(
+        name="selective_scan_fwd_bf16", route="cuda",
+        source="si_mamba_tpu_torch/csrc/selective_scan_fwd.cu",
+        replaces="si_mamba_tpu/ops/pallas/selective_scan_kernel.py:115", dtype="bfloat16", **fig,
+        plain_ms=time_ms(lambda: ks.selective_scan_ref(*args[:5], D=args[5], z=args[6],
+                                                       delta_bias=args[7]), 2, warmup=1),
+        library_ms=None, at_request_sizes=sizes))
+
+    # K3, bf16: y equal to K2's, the fp32 entry states against the plain ones
+    y3, h3 = ks.selective_scan_fwd_residuals_bf16(*args)
+    y2 = ks.selective_scan_fwd_bf16(*args)
+    y_ref, h_ref = ks.selective_scan_fwd_residuals_ref(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(y3, y2):
+        raise AssertionError("the bf16 training scan forward's y differs from the lean one's")
+    err3 = max(check("bf16 scan forward with states: y", y3, y_ref),
+               check("bf16 scan forward with states: h_entries", h3, h_ref))
+    nc = h3.shape[1]
+    scan_bytes = (4 * B * L * D + 2 * B * L * n) * 2 + (D * n + 2 * D) * 4
+    bound_ms, bound_by = bound(scan_bytes + B * nc * n * D * 4, B * L * D * (10 + 7 * n))
+    records.append(dict(
+        name="selective_scan_fwd_residuals_bf16", route="cuda",
+        source="si_mamba_tpu_torch/csrc/selective_scan_fwd.cu",
+        replaces="si_mamba_tpu/ops/pallas/selective_scan_kernel.py:407", dtype="bfloat16",
+        shape=[B, L, D], max_abs_err=err3,
+        ms=time_ms(lambda: ks.selective_scan_fwd_residuals_bf16(*args), 20),
+        device_ms=graph_ms(lambda: ks.selective_scan_fwd_residuals_bf16(*args), 20),
+        plain_ms=time_ms(lambda: ks.selective_scan_fwd_residuals_ref(*args), 2, warmup=1),
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+
+    # K4, bf16: two runs bitwise equal
+    bwd_args = (*args, g, h3)
+    got = ks.selective_scan_bwd_bf16(*bwd_args)
+    again = ks.selective_scan_bwd_bf16(*bwd_args)
+    want = ks.selective_scan_bwd_ref(*bwd_args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError("two bf16 scan backward runs on the same inputs differ")
+    names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dz", "ddelta_bias")
+    err4 = max(check(f"bf16 scan backward {k}", a, r, ulps=2, floor=2e-2, rel=1e-3)
+               for k, a, r in zip(names, got, want))
+    # bytes: u, dt, z, g, B, C (bf16) and h_entries (fp32) read; du, ddelta,
+    # dz, dB, dC (bf16) written; A, D, dt_bias, dA, dD, ddelta_bias (fp32)
+    bwd_bytes = (7 * B * L * D + 4 * B * L * n) * 2 + (B * nc * n * D + 2 * D * n + 4 * D) * 4
+    bound_ms, bound_by = bound(bwd_bytes, B * L * D * (20 * n + 20))
+    records.append(dict(
+        name="selective_scan_bwd_bf16", route="cuda",
+        source="si_mamba_tpu_torch/csrc/selective_scan_bwd.cu",
+        replaces="si_mamba_tpu/ops/pallas/selective_scan_kernel.py:211", dtype="bfloat16",
+        shape=[B, L, D], max_abs_err=err4,
+        ms=time_ms(lambda: ks.selective_scan_bwd_bf16(*bwd_args), 20),
+        device_ms=graph_ms(lambda: ks.selective_scan_bwd_bf16(*bwd_args), 20),
+        plain_ms=time_ms(lambda: ks.selective_scan_bwd_ref(*bwd_args), 1, warmup=1),
+        library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
+    log("bf16 scan: " + "; ".join(
+        f"B={f['shape'][0]}: {f['ms']:.6f} ms, device {f['device_ms']:.6f} ms "
+        f"({f['segments']} segments), max |diff| {f['max_abs_err']:.3e}"
+        for f in (fig, *sizes.values())) +
+        f"; with states max |diff| {err3:.3e}; backward {err4:.3e}, two runs bitwise equal")
     return records
 
 
@@ -1053,6 +1276,11 @@ def _wrappers() -> dict:
     from si_mamba_tpu_torch.ops.kernels import ssd as kssd
 
     return {"causal_conv1d_silu": kc.causal_conv1d_silu,
+            "causal_conv1d_silu_bf16": kc.causal_conv1d_silu_bf16,
+            "causal_conv1d_silu_bwd_bf16": kc.causal_conv1d_silu_bwd_bf16,
+            "selective_scan_fwd_bf16": ks.selective_scan_fwd_bf16,
+            "selective_scan_fwd_residuals_bf16": ks.selective_scan_fwd_residuals_bf16,
+            "selective_scan_bwd_bf16": ks.selective_scan_bwd_bf16,
             "selective_scan_fwd": ks.selective_scan_fwd,
             "selective_scan_fwd_residuals": ks.selective_scan_fwd_residuals,
             "selective_scan_bwd": ks.selective_scan_bwd,
@@ -1086,17 +1314,25 @@ def _expect(depth: int, names) -> dict[str, int]:
 
 
 def serving_phase(device, base: dict = MODELNET40, plain_impl: str = "seq",
-                  kernels=EVAL_KERNELS):
+                  kernels=EVAL_KERNELS, perf: bool = False, tol: float = 1e-3):
     """Requests of REQUEST_SIZES clouds through a ``Predictor`` over the model
     of ``base``; every forward must launch each of ``kernels`` once a block and
-    nothing else, and the logits match the model with ``plain_impl``.
+    nothing else, and the logits and pooled features match the model with
+    ``plain_impl`` within ``tol`` of their max (and 2e-3 relative; for perf
+    mode ``tol`` relative too). With ``perf`` the predictor comes from
+    ``Predictor.from_checkpoint(state dict, perf=True)`` (bf16, subspace).
     Returns (launches, latency record, model, requests)."""
     from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
     from si_mamba_tpu_torch.serving import Predictor
 
-    cfg = PointMambaConfig.from_dict(base)
-    model = PointMamba(cfg, generator=torch.Generator().manual_seed(0))
-    predictor = Predictor(model, npoints=NPOINTS, max_batch=64, device=device)
+    model = PointMamba(PointMambaConfig.from_dict(base), generator=torch.Generator().manual_seed(0))
+    if perf:
+        predictor = Predictor.from_checkpoint(model.state_dict(), model_cfg=base, perf=True,
+                                              npoints=NPOINTS, max_batch=64, device=device)
+    else:
+        predictor = Predictor(model, npoints=NPOINTS, max_batch=64, device=device)
+    cfg = predictor.model.config
+    rtol = tol if perf else 2e-3
     predictor.warmup()
     requests = {n: clouds(n, seed=n) for n in REQUEST_SIZES}
 
@@ -1117,27 +1353,27 @@ def serving_phase(device, base: dict = MODELNET40, plain_impl: str = "seq",
     if launches != want:
         raise AssertionError(f"{forwards} forwards launched {launches}; expected {want} "
                              f"({cfg.depth} per forward of {kernels}, nothing else)")
-    log(f"served {forwards} forwards ({cfg.mixer} mixer, scan_impl={cfg.scan_impl!r}); "
-        f"launches {launches}")
+    log(f"served {forwards} forwards ({cfg.mixer} mixer, scan_impl={cfg.scan_impl!r}, "
+        f"{cfg.dtype}, {cfg.spectral_method}); launches {launches}")
 
     # the same weights through the plain path, on the same card
-    plain_model = PointMamba(PointMambaConfig.from_dict({**base, "scan_impl": plain_impl}))
-    plain_model.load_state_dict(model.state_dict(), strict=True)
+    plain_model = PointMamba(PointMambaConfig.from_dict({**cfg.__dict__, "scan_impl": plain_impl}))
+    plain_model.load_state_dict(predictor.model.state_dict(), strict=True)
     plain = Predictor(plain_model, npoints=NPOINTS, max_batch=64, device=device)
     n_cmp = 20
     ref = plain.logits(requests[n_cmp])
     scale = float(np.abs(ref).max())
     err = float(np.abs(logits[n_cmp] - ref).max())
-    if not np.allclose(logits[n_cmp], ref, atol=1e-3 * scale, rtol=2e-3):
+    if not np.allclose(logits[n_cmp], ref, atol=tol * scale, rtol=rtol):
         raise AssertionError(f"kernel logits disagree with scan_impl={plain_impl!r}: max "
                              f"|diff| {err}, max |logit| {scale}")
     with torch.inference_mode():
         pts = torch.from_numpy(requests[n_cmp]).to(device)
-        _, feat = predictor.model(pts, return_features=True)
-        _, feat_ref = plain_model(pts, return_features=True)
+        feat = predictor.model(pts, return_features=True)[1].float()
+        feat_ref = plain_model(pts, return_features=True)[1].float()
     feat_err = (feat - feat_ref).abs().max().item()
     feat_scale = feat_ref.abs().max().item()
-    if not torch.allclose(feat, feat_ref, atol=1e-3 * feat_scale, rtol=2e-3):
+    if not torch.allclose(feat, feat_ref, atol=tol * feat_scale, rtol=rtol):
         raise AssertionError(f"pooled features disagree with scan_impl={plain_impl!r}: max "
                              f"|diff| {feat_err}, max |feature| {feat_scale}")
     log(f"kernel path == scan_impl={plain_impl!r} on {n_cmp} clouds: logits max |diff| "
@@ -1394,7 +1630,8 @@ def train_phase(device, card: str, base: dict = MODELNET40, kernels=TRAIN_KERNEL
               "piece_ms": pieces, "profile": prof, "view_grad": views,
               "params_moved": len(moved), "params": len(params0),
               "launches_per_step": expect, "card": card}
-    log(f"train ({cfg.mixer} mixer, scan_impl={cfg.scan_impl!r}): {TRAIN_STEPS} steps at "
+    log(f"train ({cfg.mixer} mixer, scan_impl={cfg.scan_impl!r}, {cfg.dtype}, "
+        f"{cfg.spectral_method}): {TRAIN_STEPS} steps at "
         f"batch {TRAIN_BATCH}, p50 {p50 * 1e3:.3f} ms (steps 2 onward), {TRAIN_BATCH / p50:.2f} clouds/s, peak memory "
         f"{peak / 2**30:.3f} GiB, losses {['%.4f' % v for v in losses]}; "
         f"fps_resample alone {fps_ms:.3f} ms; {card}")
@@ -2156,6 +2393,75 @@ def harness_phase(device, card: str) -> tuple[dict, dict]:
     return paths, record
 
 
+def perf_harness_phase(device, card: str) -> tuple[dict, dict]:
+    """The perf preset through the CLI on the tree that ``harness_phase``
+    wrote (its FPS caches already built): cfgs/finetune_modelnet_perf.yaml
+    (the published model, bf16, subspace) at max_epoch 0, one epoch of
+    HARNESS_TRAIN // TRAIN_BATCH steps and one validation. Every step must
+    launch the bf16 train kernels once a block, every validation forward the
+    bf16 eval kernels, and nothing else; the epoch's loss finite;
+    ckpt-last.pth written. Returns ({"perf_cli": launches}, the record)."""
+    from si_mamba_tpu_torch.train import cli
+    from si_mamba_tpu_torch.train import runner_finetune as rf
+    from si_mamba_tpu_torch.train.config import get_config
+
+    work = ROOT / "build" / "harness"
+    exp_cfg = work / "harness_modelnet_perf.yaml"
+    exp_cfg.write_text(
+        f"_base_: {ROOT}/cfgs/finetune_modelnet_perf.yaml\nmax_epoch: 0\ndataset:\n" + "".join(
+            f"  {name}: {{_base_: {work}/modelnet40.yaml, others: {{subset: '{subset}'}}}}\n"
+            for name, subset in (("train", "train"), ("val", "test"), ("test", "test"))))
+    config = get_config(str(exp_cfg))
+    model_cfg = config.model
+    if (model_cfg.trans_dim, model_cfg.depth, model_cfg.dtype, model_cfg.spectral_method,
+            config.total_bs) != (384, 12, "bfloat16", "subspace", TRAIN_BATCH):
+        raise AssertionError(f"the perf harness config is not the preset's: {model_cfg}")
+    depth = int(model_cfg.depth)
+    forwards, real = [], rf.validate
+
+    def counting_validate(eval_step, state, loader, epoch=0):
+        def recording(st, pts):
+            forwards.append(pts.shape[0])
+            return eval_step(st, pts)
+
+        return real(recording, state, loader, epoch)
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    rf.validate = counting_validate
+    try:
+        _reset_launch_counts()  # the perf preset's path: counts from 0, then the run
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = cli.main(["--config", str(exp_cfg), "--device", "cuda", "--exp_name", "perf"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _launch_counts()
+    finally:
+        rf.validate = real
+        os.chdir(cwd)
+    steps = HARNESS_TRAIN // TRAIN_BATCH
+    if state.step != steps or state.model.config.dtype != "bfloat16":
+        raise AssertionError(f"the perf preset took {state.step} steps at "
+                             f"{state.model.config.dtype}, expected {steps} at bfloat16")
+    want = {k: depth * (steps * (k in PERF_TRAIN_KERNELS) + len(forwards) * (k in PERF_EVAL_KERNELS))
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"the perf preset's run launched {launches}; expected {want}")
+    exp = work / "experiments" / "harness_modelnet_perf" / "perf"
+    scalars = [json.loads(line) for line in (exp / "scalars.jsonl").read_text().splitlines()]
+    losses = [r["value"] for r in scalars if r["tag"] == "Loss/Epoch/Loss"]
+    if len(losses) != 1 or not np.isfinite(losses).all() or not (exp / "ckpt-last.pth").exists():
+        raise AssertionError(f"the perf preset's run logged {scalars}")
+    record = {"config": "cfgs/finetune_modelnet_perf.yaml, max_epoch 0", "steps": steps,
+              "validation_forwards": len(forwards), "run_s": run_s, "epoch_loss": losses[0],
+              "val_acc": [r["value"] for r in scalars if r["tag"] == "Metric/ACC"],
+              "launches": launches, "card": card}
+    log(f"perf preset through the CLI: {steps} steps and a validation of {len(forwards)} "
+        f"forwards in {run_s:.1f} s, epoch loss {losses[0]:.4f}; launches {launches}")
+    return {"perf_cli": launches}, record
+
+
 def main() -> int:
     if not (ROOT / "si_mamba_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run it from a checkout of the repository "
@@ -2181,6 +2487,7 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
     records = kernel_phase(device) + backward_kernel_phase(device)
+    bf16_records = bf16_kernel_phase(device)
     ssd_records, conv_at_ssd_shape = ssd_kernel_phase(device)
     conv_at_tp_shapes = tp_conv_phase(device)
     for r in records:
@@ -2191,14 +2498,27 @@ def main() -> int:
     records += split_kernel_phase(device)
     fused_records, fused_routes = fused_mixer_phase(device)
     records += fused_records
+    fp32_of = {r["name"]: r for r in records}
+    for r in bf16_records:  # the fp32 kernel's times from this run, beside
+        fp32 = fp32_of[r["name"].removesuffix("_bf16")]
+        r["fp32_ms"], r["fp32_device_ms"] = fp32["ms"], fp32.get("device_ms")
+    records += bf16_records
 
-    # the six paths, each with every launch count from 0 (set inside each phase)
+    # the paths, each with every launch count from 0 (set inside each phase)
     paths = {}
     paths["serving"], serving, model, requests = serving_phase(device)
     profile = profile_phase(model, requests)
     del model
     train, paths["train"] = train_phase(device, card)
     grads = gradient_phase(device)
+    paths["perf_serving"], perf_serving, model, requests = serving_phase(
+        device, MODELNET40, plain_impl="seq", kernels=PERF_EVAL_KERNELS, perf=True,
+        tol=PERF_LOGITS_TOL)
+    perf_profile = profile_phase(model, requests)
+    del model
+    perf_train, paths["perf_train"] = train_phase(
+        device, card, MODELNET40_PERF, kernels=PERF_TRAIN_KERNELS, eval_kernels=PERF_EVAL_KERNELS,
+        view_grads=False)
     paths["ssd_serving"], ssd_serving, model, requests = serving_phase(
         device, MODELNET40_SSD, plain_impl="xla", kernels=("causal_conv1d_silu", "ssd_xbc_fwd"))
     ssd_profile = profile_phase(model, requests)
@@ -2219,6 +2539,8 @@ def main() -> int:
     fused_grads = gradient_phase(device, MODELNET40_FUSED, plain_impl="seq")
     harness_paths, harness = harness_phase(device, card)
     paths.update(harness_paths)
+    perf_cli_paths, perf_cli = perf_harness_phase(device, card)
+    paths.update(perf_cli_paths)
     torch.cuda.empty_cache()  # the ranks share the card
     parallel_paths, parallel = parallel_phases(card)
     paths.update(parallel_paths)
@@ -2232,7 +2554,11 @@ def main() -> int:
                  "fused_mixer_bwd": "fused_train", "ssd_split_fwd": "tp_ssd_serving",
                  "ssd_split_fwd_states": "tp_ssd_train", "ssd_split_bwd": "tp_ssd_train",
                  "ssd_split_fwd_hfin": "sp", "ssd_split_fwd_states_hfin": "sp_train",
-                 "ssd_split_bwd_seeded": "sp_train"}
+                 "ssd_split_bwd_seeded": "sp_train", "causal_conv1d_silu_bf16": "perf_serving",
+                 "selective_scan_fwd_bf16": "perf_serving",
+                 "selective_scan_fwd_residuals_bf16": "perf_train",
+                 "selective_scan_bwd_bf16": "perf_train",
+                 "causal_conv1d_silu_bwd_bf16": "perf_train"}
     for r in records:
         r["kernel_ms"] = r["ms"]  # the same time under the field's older name
         r["main_path"] = main_path[r["name"]]
@@ -2247,6 +2573,8 @@ def main() -> int:
                       "fused": {"serving": fused_serving, "profile": fused_profile,
                                 "train": fused_train, "gradients": fused_grads,
                                 "mixer_interior_ms": fused_routes},
+                      "perf": {"serving": perf_serving, "profile": perf_profile,
+                               "train": perf_train, "cli": perf_cli},
                       "parallel": parallel, "card": card}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)

@@ -1,5 +1,6 @@
 // Depthwise causal width-W convolution + bias + SiLU, forward and backward,
-// fp32.
+// fp32 and bf16 activations (x, y, g, dx); the weight, the bias, every sum
+// and dw/db are fp32 in both.
 //
 // Forward (K1): replaces the TPU kernel `_fwd_kernel` behind
 // `causal_conv1d_silu_pallas` (si_mamba_tpu/ops/pallas/causal_conv_kernel.py),
@@ -21,6 +22,16 @@
 // needs unit stride only along channels. No padding of L or D: the ragged
 // edges are masked.
 //
+// bf16 forward (the TPU kernel at a bf16 activation dtype: x and y bf16, w
+// and b read as fp32, the sum in fp32, y rounded once): bound by bytes, half
+// of fp32's (2 x 25.2 MB per layer at B=32, L=512, D=768, about 15 us). A
+// thread owns kV16 = 8 neighbouring channels and moves them as one 16-byte
+// vector when x's address and strides allow (the Mamba-1 view: row stride
+// 1536), else one channel; a warp's access to one row is then 512
+// contiguous bytes. A block is kFwdWarps warps on consecutive time tiles of
+// kFwdTile16 steps of the same 256 channels, so the grid fills the card at
+// D = 768 (3 x 32 x 16 blocks at B=32, L=512).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (no fast math: expf keeps parity with the
 //        reference implementations).
@@ -29,6 +40,9 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -74,6 +88,94 @@ causal_conv1d_silu_fwd_kernel(const float* __restrict__ x,
     yb[static_cast<long long>(t) * D] = s / (1.f + expf(-s));
 #pragma unroll
     for (int k = 0; k < W - 1; ++k) win[k] = win[k + 1];
+  }
+}
+
+constexpr int kV16 = 8;          // bf16 channels a thread moves as one 16-byte vector
+constexpr int kFwdWarps = 4;     // warps (time tiles) a block of the bf16 forward
+constexpr int kFwdTile16 = 32;   // steps of a warp's time tile, bf16 forward
+
+// One row of V bf16 channels at p to fp32: one 16-byte load for V = 8.
+template <int V>
+__device__ __forceinline__ void load_bf16(const bf16* p, float (&v)[V]) {
+  if constexpr (V == 8) {
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
+    const unsigned int w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = bf16_lo(w[i]);
+      v[2 * i + 1] = bf16_hi(w[i]);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < V; ++c) v[c] = to_f(p[c]);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_bf16(bf16* p, const float (&v)[V]) {
+  if constexpr (V == 8) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                                              pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  } else {
+#pragma unroll
+    for (int c = 0; c < V; ++c) p[c] = from_f<bf16>(v[c]);
+  }
+}
+
+// bf16 forward: lane l of warp w owns channels d0 = (32 blockIdx.x + l) V ..
+// d0 + V - 1 over the time tile blockIdx.z * kFwdWarps + w. V = 8 needs D a
+// multiple of 8 and x 16-byte aligned with strides that are multiples of 8
+// (the C entry point checks); V = 1 serves any other x.
+template <int V>
+__global__ void __launch_bounds__(32 * kFwdWarps)
+causal_conv1d_silu_fwd_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
+                                   const float* __restrict__ bias, bf16* __restrict__ y,
+                                   int L, int D, long long x_sb, long long x_sr) {
+  constexpr int W = 4;
+  const int lane = threadIdx.x & 31;
+  const int d0 = (blockIdx.x * 32 + lane) * V;
+  const int t0 = (blockIdx.z * kFwdWarps + (threadIdx.x >> 5)) * kFwdTile16;
+  if (d0 >= D || t0 >= L) return;
+  const int t_end = min(t0 + kFwdTile16, L);
+  const bf16* xb = x + static_cast<long long>(blockIdx.y) * x_sb + d0;
+  bf16* yb = y + static_cast<long long>(blockIdx.y) * L * D + d0;
+
+  float wk[W][V], bd[V];
+#pragma unroll
+  for (int c = 0; c < V; ++c) {
+#pragma unroll
+    for (int k = 0; k < W; ++k) wk[k][c] = w[(d0 + c) * W + k];
+    bd[c] = bias[d0 + c];
+  }
+  float win[W - 1][V];  // x[t-3], x[t-2], x[t-1]
+#pragma unroll
+  for (int k = 0; k < W - 1; ++k) {
+    const int t = t0 - (W - 1) + k;
+    if (t >= 0) {
+      load_bf16<V>(xb + t * x_sr, win[k]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < V; ++c) win[k][c] = 0.f;
+    }
+  }
+#pragma unroll 4
+  for (int t = t0; t < t_end; ++t) {
+    float xt[V], out[V];
+    load_bf16<V>(xb + t * x_sr, xt);
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      // the fp32 kernel's summation order: bias, then taps oldest first
+      float s = bd[c];
+#pragma unroll
+      for (int k = 0; k < W - 1; ++k) s += wk[k][c] * win[k][c];
+      s += wk[W - 1][c] * xt[c];
+      out[c] = s / (1.f + expf(-s));
+#pragma unroll
+      for (int k = 0; k < W - 2; ++k) win[k][c] = win[k + 1][c];
+      win[W - 2][c] = xt[c];
+    }
+    store_bf16<V>(yb + static_cast<long long>(t) * D, out);
   }
 }
 
@@ -123,6 +225,11 @@ causal_conv1d_silu_fwd_kernel(const float* __restrict__ x,
 // - A thread whose four channels pass D (D % 4 != 0), or whose tile passes L
 //   (L % T != 0, the last tile only), takes a plain per-channel path with
 //   per-step guards (tile_masked), out of line.
+// - bf16 (template type T): x, g and dx are bf16, the widths count elements,
+//   so the (4, 4) variant moves 8 bytes a thread (a warp's row access 256
+//   contiguous bytes); each value is widened to fp32 as it is loaded and dx
+//   rounded once as it is stored. Everything else, the dw/db partials and
+//   their fixed-order finish included, is the fp32 body's.
 constexpr int kW = 4;                      // the conv width this body serves
 constexpr int kV = 4;                      // channels a thread
 constexpr int kU = 4;                      // rows of x and g in flight a thread
@@ -131,9 +238,21 @@ constexpr int kBwdThreads = 32 * kWarps;
 constexpr int kBwdChannels = 32 * kV;      // channels a block
 constexpr int kFinishRows = 8;             // partial rows summed in parallel
 
-template <int V>
-__device__ __forceinline__ void load_row(const float* p, float (&v)[kV]) {
-  if constexpr (V == 4) {
+template <typename T, int V>
+__device__ __forceinline__ void load_row(const T* p, float (&v)[kV]) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    if constexpr (V == 4) {
+      const uint2 a = __ldg(reinterpret_cast<const uint2*>(p));
+      v[0] = bf16_lo(a.x); v[1] = bf16_hi(a.x); v[2] = bf16_lo(a.y); v[3] = bf16_hi(a.y);
+    } else if constexpr (V == 2) {
+      const unsigned int a = __ldg(reinterpret_cast<const unsigned int*>(p));
+      const unsigned int b = __ldg(reinterpret_cast<const unsigned int*>(p + 2));
+      v[0] = bf16_lo(a); v[1] = bf16_hi(a); v[2] = bf16_lo(b); v[3] = bf16_hi(b);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kV; ++c) v[c] = to_f(p[c]);
+    }
+  } else if constexpr (V == 4) {
     const float4 a = __ldg(reinterpret_cast<const float4*>(p));
     v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   } else if constexpr (V == 2) {
@@ -146,9 +265,19 @@ __device__ __forceinline__ void load_row(const float* p, float (&v)[kV]) {
   }
 }
 
-template <int V>
-__device__ __forceinline__ void store_row(float* p, const float (&v)[kV]) {
-  if constexpr (V == 4) {
+template <typename T, int V>
+__device__ __forceinline__ void store_row(T* p, const float (&v)[kV]) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    if constexpr (V == 4) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+    } else if constexpr (V == 2) {
+      reinterpret_cast<unsigned int*>(p)[0] = pack_bf16(v[0], v[1]);
+      reinterpret_cast<unsigned int*>(p)[1] = pack_bf16(v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kV; ++c) p[c] = from_f<bf16>(v[c]);
+    }
+  } else if constexpr (V == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   } else if constexpr (V == 2) {
     reinterpret_cast<float2*>(p)[0] = make_float2(v[0], v[1]);
@@ -206,17 +335,17 @@ struct BwdState {
 
 // A full tile [t0, t0 + T) of four in-range channels. xp, gp, op point at
 // (b, t = 0, d0) of x, g and dx.
-template <int VX, int VG>
-__device__ __forceinline__ void tile_full(BwdState& st, const float* __restrict__ xp,
-                                          const float* __restrict__ gp, float* __restrict__ op,
+template <typename T, int VX, int VG>
+__device__ __forceinline__ void tile_full(BwdState& st, const T* __restrict__ xp,
+                                          const T* __restrict__ gp, T* __restrict__ op,
                                           int x_sr, int g_sr, int o_sr,
-                                          int t0, int T, int L) {
-  const int ahead = L - t0 - T;  // rows past the tile within L
+                                          int t0, int tile, int L) {
+  const int ahead = L - t0 - tile;  // rows past the tile within L
 #pragma unroll
   for (int k = 0; k < kW - 1; ++k) {
     const int t = t0 - (kW - 1) + k;
     if (t >= 0) {
-      load_row<VX>(xp + static_cast<long long>(t) * x_sr, st.win[k]);
+      load_row<T, VX>(xp + static_cast<long long>(t) * x_sr, st.win[k]);
     } else {
 #pragma unroll
       for (int c = 0; c < kV; ++c) st.win[k][c] = 0.f;
@@ -229,13 +358,13 @@ __device__ __forceinline__ void tile_full(BwdState& st, const float* __restrict_
 
   // the ring: xr[u], gr[u] hold the row of the step that is u mod kU
   float xr[kU][kV], gr[kU][kV], dxo[kV];
-  const float* xq = xp + static_cast<long long>(t0) * x_sr;  // next row to load
-  const float* gq = gp + static_cast<long long>(t0) * g_sr;
-  float* oq = op + static_cast<long long>(t0) * o_sr;        // next dx row
+  const T* xq = xp + static_cast<long long>(t0) * x_sr;  // next row to load
+  const T* gq = gp + static_cast<long long>(t0) * g_sr;
+  T* oq = op + static_cast<long long>(t0) * o_sr;        // next dx row
 #pragma unroll
   for (int u = 0; u < kU; ++u) {
-    load_row<VX>(xq, xr[u]);
-    load_row<VG>(gq, gr[u]);
+    load_row<T, VX>(xq, xr[u]);
+    load_row<T, VG>(gq, gr[u]);
     xq += x_sr;
     gq += g_sr;
   }
@@ -244,26 +373,26 @@ __device__ __forceinline__ void tile_full(BwdState& st, const float* __restrict_
 #pragma unroll
   for (int u = 0; u < kU; ++u) {
     st.step<true>(xr[u], gr[u], true, dxo);
-    load_row<VX>(xq, xr[u]);
-    load_row<VG>(gq, gr[u]);
+    load_row<T, VX>(xq, xr[u]);
+    load_row<T, VG>(gq, gr[u]);
     xq += x_sr;
     gq += g_sr;
     if (u >= kW - 1) {
-      store_row<VG>(oq, dxo);
+      store_row<T, VG>(oq, dxo);
       oq += o_sr;
     }
   }
   // the steady chunks: no branch
-  const int chunks = T / kU;
+  const int chunks = tile / kU;
   for (int ch = 1; ch < chunks - 1; ++ch) {
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       st.step<true>(xr[u], gr[u], true, dxo);
-      load_row<VX>(xq, xr[u]);
-      load_row<VG>(gq, gr[u]);
+      load_row<T, VX>(xq, xr[u]);
+      load_row<T, VG>(gq, gr[u]);
       xq += x_sr;
       gq += g_sr;
-      store_row<VG>(oq, dxo);
+      store_row<T, VG>(oq, dxo);
       oq += o_sr;
     }
   }
@@ -272,19 +401,19 @@ __device__ __forceinline__ void tile_full(BwdState& st, const float* __restrict_
   for (int u = 0; u < kU; ++u) {
     st.step<true>(xr[u], gr[u], true, dxo);
     if (u < kW - 1 && u < ahead) {
-      load_row<VX>(xq, xr[u]);
-      load_row<VG>(gq, gr[u]);
+      load_row<T, VX>(xq, xr[u]);
+      load_row<T, VG>(gq, gr[u]);
     }
     xq += x_sr;
     gq += g_sr;
-    store_row<VG>(oq, dxo);
+    store_row<T, VG>(oq, dxo);
     oq += o_sr;
   }
   // the look-ahead steps: ds past L is 0; no sums
 #pragma unroll
   for (int u = 0; u < kW - 1; ++u) {
     st.step<false>(xr[u], gr[u], u < ahead, dxo);
-    store_row<VG>(oq, dxo);
+    store_row<T, VG>(oq, dxo);
     oq += o_sr;
   }
 }
@@ -292,9 +421,10 @@ __device__ __forceinline__ void tile_full(BwdState& st, const float* __restrict_
 // The edge: channels d0 .. d0 + nvalid - 1 (nvalid <= kV) over steps
 // [t0, t1), scalar, with per-step guards; the dw/db sums go to red[k *
 // kBwdChannels + c] (zeros for the channels past D).
-__device__ __noinline__ void tile_masked(const float* __restrict__ x, const float* __restrict__ w,
+template <typename T>
+__device__ __noinline__ void tile_masked(const T* __restrict__ x, const float* __restrict__ w,
                                          const float* __restrict__ bias,
-                                         const float* __restrict__ g, float* __restrict__ dx,
+                                         const T* __restrict__ g, T* __restrict__ dx,
                                          float* red, int b, int d0, int nvalid, int t0, int t1,
                                          int L, int D, long long x_sb, long long x_sr,
                                          long long g_sb, long long g_sr) {
@@ -304,26 +434,26 @@ __device__ __noinline__ void tile_masked(const float* __restrict__ x, const floa
     float dbv = 0.f;
     if (c < nvalid) {
       const int d = d0 + c;
-      const float* xb = x + static_cast<long long>(b) * x_sb + d;
-      const float* gb = g + static_cast<long long>(b) * g_sb + d;
-      float* dxb = dx + static_cast<long long>(b) * L * D + d;
+      const T* xb = x + static_cast<long long>(b) * x_sb + d;
+      const T* gb = g + static_cast<long long>(b) * g_sb + d;
+      T* dxb = dx + static_cast<long long>(b) * L * D + d;
       float wk[kW];
       for (int k = 0; k < kW; ++k) wk[k] = w[d * kW + k];
       const float bd = bias[d];
       float win[kW];  // win[k] = x[t - (W-1) + k]
       for (int k = 0; k < kW - 1; ++k) {
         const int t = t0 - (kW - 1) + k;
-        win[k] = t >= 0 ? xb[static_cast<long long>(t) * x_sr] : 0.f;
+        win[k] = t >= 0 ? to_f(xb[static_cast<long long>(t) * x_sr]) : 0.f;
       }
       float dsw[kW] = {0.f, 0.f, 0.f, 0.f};  // dsw[j] = ds[t - (W-1) + j]
       for (int t = t0; t < t1 + kW - 1; ++t) {
         float ds = 0.f;  // ds[t] = 0 past the end of the sequence
         if (t < t_last) {
-          win[kW - 1] = xb[static_cast<long long>(t) * x_sr];
+          win[kW - 1] = to_f(xb[static_cast<long long>(t) * x_sr]);
           float s = bd;
           for (int k = 0; k < kW; ++k) s += wk[k] * win[k];
           const float sig = 1.f / (1.f + expf(-s));
-          ds = gb[static_cast<long long>(t) * g_sr] * sig * (1.f + s * (1.f - sig));
+          ds = to_f(gb[static_cast<long long>(t) * g_sr]) * sig * (1.f + s * (1.f - sig));
           if (t < t1) {
             for (int k = 0; k < kW; ++k) dwk[k] += ds * win[k];
             dbv += ds;
@@ -336,7 +466,7 @@ __device__ __noinline__ void tile_masked(const float* __restrict__ x, const floa
         if (te >= t0) {
           float acc = 0.f;
           for (int k = 0; k < kW; ++k) acc += wk[k] * dsw[kW - 1 - k];
-          dxb[static_cast<long long>(te) * D] = acc;
+          dxb[static_cast<long long>(te) * D] = from_f<T>(acc);
         }
       }
     }
@@ -345,22 +475,22 @@ __device__ __noinline__ void tile_masked(const float* __restrict__ x, const floa
   }
 }
 
-template <int VX, int VG>
+template <typename T, int VX, int VG>
 __global__ void __launch_bounds__(kBwdThreads, 4)
-causal_conv1d_silu_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                              const float* __restrict__ bias, const float* __restrict__ g,
-                              float* __restrict__ dx, float* __restrict__ part, int L, int D,
-                              int T, long long x_sb, long long x_sr, long long g_sb,
+causal_conv1d_silu_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                              const float* __restrict__ bias, const T* __restrict__ g,
+                              T* __restrict__ dx, float* __restrict__ part, int L, int D,
+                              int tile, long long x_sb, long long x_sr, long long g_sb,
                               long long g_sr) {
   __shared__ __align__(16) float red[kWarps][kW + 1][kBwdChannels];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.y;
   const int d0 = blockIdx.x * kBwdChannels + lane * kV;
-  const int t0 = (blockIdx.z * kWarps + warp) * T;
+  const int t0 = (blockIdx.z * kWarps + warp) * tile;
   float* slot = &red[warp][0][lane * kV];
 
-  if (d0 + kV <= D && t0 + T <= L) {
+  if (d0 + kV <= D && t0 + tile <= L) {
     BwdState st;
 #pragma unroll
     for (int c = 0; c < kV; ++c) {
@@ -372,9 +502,9 @@ causal_conv1d_silu_bwd_kernel(const float* __restrict__ x, const float* __restri
       st.bias[c] = bias[d0 + c];
       st.db[c] = 0.f;
     }
-    tile_full<VX, VG>(st, x + b * x_sb + d0, g + b * g_sb + d0,
+    tile_full<T, VX, VG>(st, x + b * x_sb + d0, g + b * g_sb + d0,
                           dx + static_cast<long long>(b) * L * D + d0, static_cast<int>(x_sr),
-                          static_cast<int>(g_sr), D, t0, T, L);
+                          static_cast<int>(g_sr), D, t0, tile, L);
 #pragma unroll
     for (int k = 0; k < kW; ++k)
       *reinterpret_cast<float4*>(slot + k * kBwdChannels) =
@@ -382,7 +512,7 @@ causal_conv1d_silu_bwd_kernel(const float* __restrict__ x, const float* __restri
     *reinterpret_cast<float4*>(slot + kW * kBwdChannels) =
         make_float4(st.db[0], st.db[1], st.db[2], st.db[3]);
   } else if (d0 < D && t0 < L) {
-    tile_masked(x, w, bias, g, dx, slot, b, d0, min(kV, D - d0), t0, min(t0 + T, L), L, D,
+    tile_masked(x, w, bias, g, dx, slot, b, d0, min(kV, D - d0), t0, min(t0 + tile, L), L, D,
                 x_sb, x_sr, g_sb, g_sr);
   } else {
 #pragma unroll
@@ -445,22 +575,28 @@ cudaError_t launch(const float* x, const float* w, const float* bias, float* y,
   return cudaGetLastError();
 }
 
+template <typename T>
 struct BwdArgs {
-  const float *x, *w, *bias, *g;
-  float *dx, *dw, *db, *part;
-  int B, L, D, T;
+  const T* x;
+  const float *w, *bias;
+  const T* g;
+  T* dx;
+  float *dw, *db, *part;
+  int B, L, D, tile;
   long long x_sb, x_sr, g_sb, g_sr;
   cudaStream_t stream;
 };
 
-inline int time_blocks(int L, int T) { return ((L + T - 1) / T + kWarps - 1) / kWarps; }
+inline int time_blocks(int L, int tile) {
+  return ((L + tile - 1) / tile + kWarps - 1) / kWarps;
+}
 
-template <int VX, int VG>
-cudaError_t launch_bwd(const BwdArgs& a) {
-  const int nbt = time_blocks(a.L, a.T);
+template <typename T, int VX, int VG>
+cudaError_t launch_bwd(const BwdArgs<T>& a) {
+  const int nbt = time_blocks(a.L, a.tile);
   const dim3 grid((a.D + kBwdChannels - 1) / kBwdChannels, a.B, nbt);
-  causal_conv1d_silu_bwd_kernel<VX, VG><<<grid, kBwdThreads, 0, a.stream>>>(
-      a.x, a.w, a.bias, a.g, a.dx, a.part, a.L, a.D, a.T, a.x_sb, a.x_sr, a.g_sb, a.g_sr);
+  causal_conv1d_silu_bwd_kernel<T, VX, VG><<<grid, kBwdThreads, 0, a.stream>>>(
+      a.x, a.w, a.bias, a.g, a.dx, a.part, a.L, a.D, a.tile, a.x_sb, a.x_sr, a.g_sb, a.g_sr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int cols = (kW + 1) * a.D;
@@ -469,16 +605,45 @@ cudaError_t launch_bwd(const BwdArgs& a) {
   return cudaGetLastError();
 }
 
-// Whether kV-float rows of an operand at p with strides (sb, sr) over n_b
-// batches and n_r rows can be moved v floats at a time: v is 1, 2 or 4, the
-// base address is 4v-byte aligned and the strides that are used are
-// multiples of v.
-bool width_allowed(const void* p, int v, int n_b, long long sb, int n_r, long long sr) {
-  if (v != 1 && v != 2 && v != 4) return false;
-  if (reinterpret_cast<std::uintptr_t>(p) % (4u * v) != 0) return false;
+// Whether rows of an operand at p with strides (sb, sr) over n_b batches and
+// n_r rows can be moved v elements of `size` bytes at a time: v is 1, 2, 4
+// or 8, the base address is (size v)-byte aligned and the strides that are
+// used are multiples of v.
+bool width_allowed(const void* p, int v, int n_b, long long sb, int n_r, long long sr,
+                   unsigned size) {
+  if (v != 1 && v != 2 && v != 4 && v != 8) return false;
+  if (reinterpret_cast<std::uintptr_t>(p) % (size * v) != 0) return false;
   if (n_b > 1 && sb % v != 0) return false;
   if (n_r > 1 && sr % v != 0) return false;
   return true;
+}
+
+template <typename T>
+int bwd_entry(const void* x, const void* w, const void* bias, const void* g, void* dx, void* dw,
+              void* db, void* part, long long part_numel, int B, int L, int D, int W,
+              long long x_sb, long long x_sr, long long g_sb, long long g_sr, int vx, int vg,
+              int tile, void* stream) {
+  constexpr unsigned size = sizeof(T);
+  if (W != kW || B < 1 || L < 1 || D < 1) return cudaErrorInvalidValue;
+  if (tile < 2 * kU || tile % kU != 0) return cudaErrorInvalidValue;
+  // the tile loop steps by row strides held in 32 bits
+  if (x_sr > INT_MAX || g_sr > INT_MAX || x_sr < 0 || g_sr < 0) return cudaErrorInvalidValue;
+  if (!width_allowed(x, vx, B, x_sb, L, x_sr, size) ||
+      !width_allowed(g, vg, B, g_sb, L, g_sr, size) ||
+      !width_allowed(dx, vg, B, static_cast<long long>(L) * D, L, D, size))
+    return cudaErrorInvalidValue;
+  if (part_numel != static_cast<long long>(B) * time_blocks(L, tile) * (kW + 1) * D)
+    return cudaErrorInvalidValue;
+  const BwdArgs<T> a{static_cast<const T*>(x), static_cast<const float*>(w),
+                     static_cast<const float*>(bias), static_cast<const T*>(g),
+                     static_cast<T*>(dx), static_cast<float*>(dw),
+                     static_cast<float*>(db), static_cast<float*>(part),
+                     B, L, D, tile, x_sb, x_sr, g_sb, g_sr,
+                     static_cast<cudaStream_t>(stream)};
+  if (vx == 4 && vg == 4) return launch_bwd<T, 4, 4>(a);
+  if (vx == 2 && vg == 4) return launch_bwd<T, 2, 4>(a);
+  if (vx == 1 && vg == 1) return launch_bwd<T, 1, 1>(a);
+  return cudaErrorInvalidValue;  // a pair that is not built
 }
 
 }  // namespace
@@ -516,25 +681,51 @@ int causal_conv1d_silu_bwd(const void* x, const void* w, const void* bias,
                            long long part_numel, int B, int L, int D, int W,
                            long long x_sb, long long x_sr, long long g_sb,
                            long long g_sr, int vx, int vg, int tile, void* stream) {
-  if (W != kW || B < 1 || L < 1 || D < 1) return cudaErrorInvalidValue;
-  if (tile < 2 * kU || tile % kU != 0) return cudaErrorInvalidValue;
-  // the tile loop steps by row strides held in 32 bits
-  if (x_sr > INT_MAX || g_sr > INT_MAX || x_sr < 0 || g_sr < 0) return cudaErrorInvalidValue;
-  if (!width_allowed(x, vx, B, x_sb, L, x_sr) || !width_allowed(g, vg, B, g_sb, L, g_sr) ||
-      !width_allowed(dx, vg, B, static_cast<long long>(L) * D, L, D))
+  return bwd_entry<float>(x, w, bias, g, dx, dw, db, part, part_numel, B, L, D, W, x_sb, x_sr,
+                          g_sb, g_sr, vx, vg, tile, stream);
+}
+
+// bf16 forward: x (B, L, D) bf16 with strides (x_sb, x_sr, 1), w (D, W) and
+// bias (D,) fp32, y (B, L, D) bf16 contiguous. vec: 8 (channels moved as one
+// 16-byte vector; needs D % 8 == 0, x 16-byte aligned and x_sb, x_sr
+// multiples of 8) or 1. Returns a cudaError_t code (cudaErrorInvalidValue
+// for a W other than 4 or a vec that x does not allow).
+int causal_conv1d_silu_fwd_bf16(const void* x, const void* w, const void* bias, void* y,
+                                int B, int L, int D, int W, long long x_sb, long long x_sr,
+                                int vec, void* stream) {
+  if (W != 4 || B < 1 || L < 1 || D < 1) return cudaErrorInvalidValue;
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* wf = static_cast<const float*>(w);
+  const auto* bf = static_cast<const float*>(bias);
+  auto* yb = static_cast<bf16*>(y);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int time_blocks = ((L + kFwdTile16 - 1) / kFwdTile16 + kFwdWarps - 1) / kFwdWarps;
+  if (vec == kV16) {
+    if (D % kV16 != 0 || !width_allowed(x, kV16, B, x_sb, L, x_sr, 2))
+      return cudaErrorInvalidValue;
+    const dim3 grid((D / kV16 + 31) / 32, B, time_blocks);
+    causal_conv1d_silu_fwd_bf16_kernel<kV16>
+        <<<grid, 32 * kFwdWarps, 0, s>>>(xb, wf, bf, yb, L, D, x_sb, x_sr);
+  } else if (vec == 1) {
+    const dim3 grid((D + 31) / 32, B, time_blocks);
+    causal_conv1d_silu_fwd_bf16_kernel<1>
+        <<<grid, 32 * kFwdWarps, 0, s>>>(xb, wf, bf, yb, L, D, x_sb, x_sr);
+  } else {
     return cudaErrorInvalidValue;
-  if (part_numel != static_cast<long long>(B) * time_blocks(L, tile) * (kW + 1) * D)
-    return cudaErrorInvalidValue;
-  const BwdArgs a{static_cast<const float*>(x), static_cast<const float*>(w),
-                  static_cast<const float*>(bias), static_cast<const float*>(g),
-                  static_cast<float*>(dx), static_cast<float*>(dw),
-                  static_cast<float*>(db), static_cast<float*>(part),
-                  B, L, D, tile, x_sb, x_sr, g_sb, g_sr,
-                  static_cast<cudaStream_t>(stream)};
-  if (vx == 4 && vg == 4) return launch_bwd<4, 4>(a);
-  if (vx == 2 && vg == 4) return launch_bwd<2, 4>(a);
-  if (vx == 1 && vg == 1) return launch_bwd<1, 1>(a);
-  return cudaErrorInvalidValue;  // a pair that is not built
+  }
+  return cudaGetLastError();
+}
+
+// bf16 backward: causal_conv1d_silu_bwd's arguments with x, g and dx bf16
+// (w, bias, dw, db and part fp32); vx and vg count bf16 elements, so (4, 4)
+// moves 8 bytes a thread.
+int causal_conv1d_silu_bwd_bf16(const void* x, const void* w, const void* bias,
+                                const void* g, void* dx, void* dw, void* db, void* part,
+                                long long part_numel, int B, int L, int D, int W,
+                                long long x_sb, long long x_sr, long long g_sb,
+                                long long g_sr, int vx, int vg, int tile, void* stream) {
+  return bwd_entry<bf16>(x, w, bias, g, dx, dw, db, part, part_numel, B, L, D, W, x_sb, x_sr,
+                         g_sb, g_sr, vx, vg, tile, stream);
 }
 
 const char* causal_conv1d_error_string(int code) {

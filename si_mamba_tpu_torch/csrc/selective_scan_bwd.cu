@@ -1,4 +1,4 @@
-// Mamba-1 selective scan, backward, fp32. For the forward
+// Mamba-1 selective scan, backward, fp32 or bf16 activations. For the forward
 //
 //   delta_t = softplus(dt_t + dt_bias)
 //   h_t     = a_t * h_{t-1} + (delta_t * u_t) * B_t,   a_t = exp(delta_t * A)
@@ -80,10 +80,21 @@
 // The tile's operands are loaded at its start: holding the next tile's in
 // registers while this one computes, as the forward does, needs more than the
 // 80 registers that three blocks an SM leave a thread.
+//
+// bf16 (template type T, the TPU kernel at a bf16 activation dtype): u, dt,
+// z, B, C and g are read as bf16 and du, ddt and dz written as bf16 (each
+// value widened as it is loaded, each result rounded once as it is stored);
+// A, D, dt_bias, h_entries, every partial and all arithmetic stay fp32. The
+// TPU kernel takes the forward's y_pre = C.h + D u stored in the activation
+// dtype; this kernel recomputes y_pre in fp32 as it steps back and rounds it
+// to T before dz = g dsilu(z) y_pre, so dz rounds as the TPU kernel's does
+// without a (B, L, d) y_pre written by the forward and read back here.
 
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -107,20 +118,21 @@ static_assert(2 * kPerLane == kGroups, "the dB/dC reduce-scatter leaves one sum 
 static_assert(kThreads == kChunk * kState, "each thread stages one B and one C value of a tile");
 static_assert(kLanes == 4, "the owned steps' channel sums are reduce-scattered in two levels");
 
+template <typename T>
 struct BwdArgs {
-  const float* u;
-  const float* dt;
+  const T* u;
+  const T* dt;
   const float* A;
-  const float* Bm;
-  const float* Cm;
+  const T* Bm;
+  const T* Cm;
   const float* Dp;
-  const float* z;
+  const T* z;
   const float* dt_bias;
-  const float* g;
+  const T* g;
   const float* h_entries;
-  float* du;
-  float* ddt;
-  float* dz;
+  T* du;
+  T* ddt;
+  T* dz;
   float* dB_part;
   float* dC_part;
   float* dA_part;
@@ -181,8 +193,9 @@ __device__ __forceinline__ float group_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-selective_scan_bwd_kernel(const BwdArgs p) {
+selective_scan_bwd_kernel(const BwdArgs<T> p) {
   extern __shared__ float4 smem4[];
   float* st = reinterpret_cast<float*>(smem4);  // [kChunk][kChannels][kState]
   float* sBC = st + kStateFloats;               // [B | C][kChunk][kState]
@@ -217,12 +230,12 @@ selective_scan_bwd_kernel(const BwdArgs p) {
   // sn), and move back a tile at a time.
   const int sr = tid / kState, sn = tid % kState;
   const int last = (nc - 1) * kChunk;
-  const float* up = p.u + b * p.u_sb + (last + q) * p.u_sr + dd;
-  const float* dtp = p.dt + b * p.dt_sb + (last + q) * p.dt_sr + dd;
-  const float* zp = p.z + b * p.z_sb + (last + q) * p.z_sr + dd;
-  const float* gp = p.g + b * p.g_sb + (last + q) * p.g_sr + dd;
-  const float* Bp = p.Bm + b * p.B_sb + (last + sr) * p.B_sr + sn;
-  const float* Cp = p.Cm + b * p.C_sb + (last + sr) * p.C_sr + sn;
+  const T* up = p.u + b * p.u_sb + (last + q) * p.u_sr + dd;
+  const T* dtp = p.dt + b * p.dt_sb + (last + q) * p.dt_sr + dd;
+  const T* zp = p.z + b * p.z_sb + (last + q) * p.z_sr + dd;
+  const T* gp = p.g + b * p.g_sb + (last + q) * p.g_sr + dd;
+  const T* Bp = p.Bm + b * p.B_sb + (last + sr) * p.B_sr + sn;
+  const T* Cp = p.Cm + b * p.C_sb + (last + sr) * p.C_sr + sn;
   const float* hp_in = p.h_entries + (static_cast<long long>(b) * nc + nc - 1) * kState * D +
                        q * kPerLane * D + dd;
   const long long row_b = static_cast<long long>(b) * L * D;
@@ -239,16 +252,16 @@ selective_scan_bwd_kernel(const BwdArgs p) {
 #pragma unroll
     for (int j = 0; j < kOwned; ++j) {
       const bool ok = active && t0 + j * kLanes + q < L;
-      own_u[j] = ok ? up[j * kLanes * p.u_sr] : 0.f;
-      own_v[j] = (ok ? dtp[j * kLanes * p.dt_sr] : 0.f) + bias;
-      nz[j] = ok ? zp[j * kLanes * p.z_sr] : 0.f;
-      ng[j] = ok ? gp[j * kLanes * p.g_sr] : 0.f;
+      own_u[j] = ok ? to_f(up[j * kLanes * p.u_sr]) : 0.f;
+      own_v[j] = (ok ? to_f(dtp[j * kLanes * p.dt_sr]) : 0.f) + bias;
+      nz[j] = ok ? to_f(zp[j * kLanes * p.z_sr]) : 0.f;
+      ng[j] = ok ? to_f(gp[j * kLanes * p.g_sr]) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < kPerLane; ++i) h[i] = active ? hp_in[i * D] : 0.f;
     const bool bc_ok = t0 + sr < L;
-    sBC[tid] = bc_ok ? *Bp : 0.f;
-    sBC[kThreads + tid] = bc_ok ? *Cp : 0.f;
+    sBC[tid] = bc_ok ? to_f(*Bp) : 0.f;
+    sBC[kThreads + tid] = bc_ok ? to_f(*Cp) : 0.f;
     up -= kChunk * p.u_sr;
     dtp -= kChunk * p.dt_sr;
     zp -= kChunk * p.z_sr;
@@ -358,9 +371,10 @@ selective_scan_bwd_kernel(const BwdArgs p) {
         ddtb += ddt;
         if (active) {
           const long long o = row_b + t * D + dd;
-          p.du[o] = fmaf(own_delta[j], s_dhb[j], own_gy[j] * skip);
-          p.ddt[o] = ddt;
-          p.dz[o] = own_gz[j] * fmaf(skip, own_u[j], s_y[j]);
+          p.du[o] = from_f<T>(fmaf(own_delta[j], s_dhb[j], own_gy[j] * skip));
+          p.ddt[o] = from_f<T>(ddt);
+          // y_pre as the forward stores it, in T (identity for fp32)
+          p.dz[o] = from_f<T>(own_gz[j] * round_to<T>(fmaf(skip, own_u[j], s_y[j])));
         }
       }
     }
@@ -393,6 +407,34 @@ selective_scan_bwd_kernel(const BwdArgs p) {
   }
 }
 
+template <typename T>
+int bwd_entry(const void* const* inputs, void* const* outputs, int Bsz, int L, int D, int N,
+              const long long* strides, void* stream) {
+  if (N != kState) return cudaErrorInvalidValue;
+  const void* const* in = inputs;
+  void* const* out = outputs;
+  const long long* s = strides;
+  const BwdArgs<T> p{static_cast<const T*>(in[0]), static_cast<const T*>(in[1]),
+                     static_cast<const float*>(in[2]), static_cast<const T*>(in[3]),
+                     static_cast<const T*>(in[4]), static_cast<const float*>(in[5]),
+                     static_cast<const T*>(in[6]), static_cast<const float*>(in[7]),
+                     static_cast<const T*>(in[8]), static_cast<const float*>(in[9]),
+                     static_cast<T*>(out[0]), static_cast<T*>(out[1]), static_cast<T*>(out[2]),
+                     static_cast<float*>(out[3]), static_cast<float*>(out[4]),
+                     static_cast<float*>(out[5]), static_cast<float*>(out[6]),
+                     static_cast<float*>(out[7]), L, D,
+                     s[0], s[2], s[4], s[6], s[8], s[10],
+                     static_cast<int>(s[1]), static_cast<int>(s[3]), static_cast<int>(s[5]),
+                     static_cast<int>(s[7]), static_cast<int>(s[9]), static_cast<int>(s[11])};
+  cudaError_t err = cudaFuncSetAttribute(
+      selective_scan_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Bsz, (D + kChannels - 1) / kChannels);
+  selective_scan_bwd_kernel<T>
+      <<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -408,21 +450,14 @@ extern "C" {
 // than 16).
 int selective_scan_bwd(const void* const* inputs, void* const* outputs, int Bsz, int L, int D,
                        int N, const long long* strides, void* stream) {
-  if (N != kState) return cudaErrorInvalidValue;
-  const auto* in = reinterpret_cast<const float* const*>(inputs);
-  auto* const* out = reinterpret_cast<float* const*>(outputs);
-  const long long* s = strides;
-  const BwdArgs p{in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
-                  out[0], out[1], out[2], out[3], out[4], out[5], out[6], out[7], L, D,
-                  s[0], s[2], s[4], s[6], s[8], s[10],
-                  static_cast<int>(s[1]), static_cast<int>(s[3]), static_cast<int>(s[5]),
-                  static_cast<int>(s[7]), static_cast<int>(s[9]), static_cast<int>(s[11])};
-  cudaError_t err = cudaFuncSetAttribute(
-      selective_scan_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(Bsz, (D + kChannels - 1) / kChannels);
-  selective_scan_bwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
-  return cudaGetLastError();
+  return bwd_entry<float>(inputs, outputs, Bsz, L, D, N, strides, stream);
+}
+
+// The bf16 variant: the same arguments with u, dt, Bm, Cm, z, g and du, ddt,
+// dz bf16 (A, Dp, dt_bias, h_entries and the partials fp32).
+int selective_scan_bwd_bf16(const void* const* inputs, void* const* outputs, int Bsz, int L,
+                            int D, int N, const long long* strides, void* stream) {
+  return bwd_entry<bf16>(inputs, outputs, Bsz, L, D, N, strides, stream);
 }
 
 int selective_scan_bwd_chunk_len() { return kChunk; }

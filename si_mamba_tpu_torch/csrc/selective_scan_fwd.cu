@@ -1,4 +1,4 @@
-// Mamba-1 selective scan, forward, fp32:
+// Mamba-1 selective scan, forward, fp32 or bf16 activations:
 //
 //   delta_t = softplus(dt_t + dt_bias)
 //   h_t     = exp(delta_t * A) * h_{t-1} + (delta_t * u_t) * B_t   (fp32 state)
@@ -75,10 +75,20 @@
 // shuffle-shared per-step scalars, the register prefetch of the next tile, the
 // double-buffered B/C tile, the special-function-unit decay, the full-tile
 // step loop and the segmented two-kernel scan at small batch.
+//
+// bf16 (template type T, the TPU kernel at a bf16 activation dtype): u, dt,
+// z, B, C and y are bf16 in device memory; A, D, dt_bias, the state,
+// h_entries and the segment scratch stay fp32, and so does all arithmetic:
+// each value is widened as it is loaded and y rounded once as it is stored.
+// The lane split is the fp32 body's, so a lane loads one 2-byte value a step
+// (a warp's row access: 8 channels, 16 bytes) and the least traffic halves
+// to about 102 MB at B=32 (K3 adds its 50.3 MB of fp32 h_entries).
 
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "elem.cuh"
 
 namespace {
 
@@ -99,16 +109,17 @@ constexpr float kLog2e = 1.4426950408889634f;
 static_assert(kPerLane == 4, "a lane's B and C values are read as one float4");
 static_assert(kThreads == kChunk * kState, "each thread stages one B and one C value of a tile");
 
+template <typename T>
 struct FwdArgs {
-  const float* u;
-  const float* dt;
+  const T* u;
+  const T* dt;
   const float* A;
-  const float* Bm;
-  const float* Cm;
+  const T* Bm;
+  const T* Cm;
   const float* Dp;
-  const float* z;
+  const T* z;
   const float* dt_bias;
-  float* y;
+  T* y;
   float* h_entries;  // (Bsz, ceil(L/kChunk), kState, D), or null
   float* h_end;      // (Bsz, segments - 1, kState, D): each segment's end state from 0
   float* dsum;       // (Bsz, segments - 1, D): each segment's sum of delta
@@ -131,9 +142,9 @@ __device__ __forceinline__ float exp2_sfu(float x) {
 
 // kEnds: the first of the two segmented kernels (segment end states and delta
 // sums, no y). Otherwise the scan that writes y, and h_entries if kResiduals.
-template <bool kResiduals, bool kEnds>
+template <typename T, bool kResiduals, bool kEnds>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-selective_scan_fwd_kernel(const FwdArgs p) {
+selective_scan_fwd_kernel(const FwdArgs<T> p) {
   __shared__ __align__(16) float sBC[2][kTileFloats];  // [buffer][B | C][step][state]
 
   const int tid = threadIdx.x;
@@ -176,12 +187,12 @@ selective_scan_fwd_kernel(const FwdArgs p) {
   // thread's B and C pointers at its element of the tile (row sr, state sn),
   // and move a tile at a time.
   const int sr = tid / kState, sn = tid % kState;
-  const float* up = p.u + b * p.u_sb + (t_begin + q) * p.u_sr + dd;
-  const float* dtp = p.dt + b * p.dt_sb + (t_begin + q) * p.dt_sr + dd;
-  const float* zp = p.z + b * p.z_sb + (t_begin + q) * p.z_sr + dd;
-  const float* Bp = p.Bm + b * p.B_sb + (t_begin + sr) * p.B_sr + sn;
-  const float* Cp = p.Cm + b * p.C_sb + (t_begin + sr) * p.C_sr + sn;
-  float* yp = p.y + static_cast<long long>(b) * p.L * p.D + (t_begin + q) * p.D + dd;
+  const T* up = p.u + b * p.u_sb + (t_begin + q) * p.u_sr + dd;
+  const T* dtp = p.dt + b * p.dt_sb + (t_begin + q) * p.dt_sr + dd;
+  const T* zp = p.z + b * p.z_sb + (t_begin + q) * p.z_sr + dd;
+  const T* Bp = p.Bm + b * p.B_sb + (t_begin + sr) * p.B_sr + sn;
+  const T* Cp = p.Cm + b * p.C_sb + (t_begin + sr) * p.C_sr + sn;
+  T* yp = p.y + static_cast<long long>(b) * p.L * p.D + (t_begin + q) * p.D + dd;
   float* hres = kResiduals ? p.h_entries + ((static_cast<long long>(b) * nc + t_begin / kChunk) *
                                                 kState + q * kPerLane) * p.D + dd
                            : nullptr;
@@ -192,13 +203,13 @@ selective_scan_fwd_kernel(const FwdArgs p) {
 #pragma unroll
     for (int j = 0; j < kOwned; ++j) {
       const bool ok = active && t0 + j * kLanes + q < t_end;
-      nu[j] = ok ? up[j * kLanes * p.u_sr] : 0.f;
-      nv[j] = ok ? dtp[j * kLanes * p.dt_sr] : 0.f;
-      nz[j] = !kEnds && ok ? zp[j * kLanes * p.z_sr] : 0.f;
+      nu[j] = ok ? to_f(up[j * kLanes * p.u_sr]) : 0.f;
+      nv[j] = ok ? to_f(dtp[j * kLanes * p.dt_sr]) : 0.f;
+      nz[j] = !kEnds && ok ? to_f(zp[j * kLanes * p.z_sr]) : 0.f;
     }
     const bool ok = t0 + sr < t_end;
-    nB = ok ? *Bp : 0.f;
-    nC = ok ? *Cp : 0.f;
+    nB = ok ? to_f(*Bp) : 0.f;
+    nC = ok ? to_f(*Cp) : 0.f;
     up += kChunk * p.u_sr;
     dtp += kChunk * p.dt_sr;
     zp += kChunk * p.z_sr;
@@ -282,7 +293,7 @@ selective_scan_fwd_kernel(const FwdArgs p) {
         for (int j = 0; j < kOwned; ++j) {
           if (t0 + j * kLanes + q < t_end) {
             const float gate = own_z[j] / (1.f + expf(-own_z[j]));
-            yp[j * kLanes * p.D] = (ysel[j] + skip * own_u[j]) * gate;
+            yp[j * kLanes * p.D] = from_f<T>((ysel[j] + skip * own_u[j]) * gate);
           }
         }
       }
@@ -319,8 +330,8 @@ int choose_segments(int Bsz, int L, int D) {
   return s;
 }
 
-template <bool kResiduals>
-cudaError_t launch(FwdArgs p, int Bsz, int requested, cudaStream_t stream) {
+template <typename T, bool kResiduals>
+cudaError_t launch(FwdArgs<T> p, int Bsz, int requested, cudaStream_t stream) {
   const int tiles = (p.L + kChunk - 1) / kChunk;
   const int s = requested > 0 ? requested : choose_segments(Bsz, p.L, p.D);
   if (s > kMaxSegments) return cudaErrorInvalidValue;
@@ -329,22 +340,24 @@ cudaError_t launch(FwdArgs p, int Bsz, int requested, cudaStream_t stream) {
   const int nblk = (p.D + kChannels - 1) / kChannels;
   if (p.segments > 1) {
     if (p.h_end == nullptr || p.dsum == nullptr) return cudaErrorInvalidValue;
-    selective_scan_fwd_kernel<false, true>
+    selective_scan_fwd_kernel<T, false, true>
         <<<dim3(Bsz, nblk, p.segments - 1), kThreads, 0, stream>>>(p);
   }
-  selective_scan_fwd_kernel<kResiduals, false>
+  selective_scan_fwd_kernel<T, kResiduals, false>
       <<<dim3(Bsz, nblk, p.segments), kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-FwdArgs make_args(const void* u, const void* dt, const void* A, const void* Bm, const void* Cm,
-                  const void* Dp, const void* z, const void* dt_bias, void* y, void* h_entries,
-                  void* h_end, void* dsum, int L, int D, const long long* s) {
-  return FwdArgs{static_cast<const float*>(u), static_cast<const float*>(dt),
-                 static_cast<const float*>(A), static_cast<const float*>(Bm),
-                 static_cast<const float*>(Cm), static_cast<const float*>(Dp),
-                 static_cast<const float*>(z), static_cast<const float*>(dt_bias),
-                 static_cast<float*>(y), static_cast<float*>(h_entries),
+template <typename T>
+FwdArgs<T> make_args(const void* u, const void* dt, const void* A, const void* Bm,
+                     const void* Cm, const void* Dp, const void* z, const void* dt_bias, void* y,
+                     void* h_entries, void* h_end, void* dsum, int L, int D,
+                     const long long* s) {
+  return FwdArgs<T>{static_cast<const T*>(u), static_cast<const T*>(dt),
+                 static_cast<const float*>(A), static_cast<const T*>(Bm),
+                 static_cast<const T*>(Cm), static_cast<const float*>(Dp),
+                 static_cast<const T*>(z), static_cast<const float*>(dt_bias),
+                 static_cast<T*>(y), static_cast<float*>(h_entries),
                  static_cast<float*>(h_end), static_cast<float*>(dsum), L, D, 0, 1,
                  s[0], s[2], s[4], s[6], s[8],
                  static_cast<int>(s[1]), static_cast<int>(s[3]), static_cast<int>(s[5]),
@@ -368,9 +381,9 @@ int selective_scan_fwd(const void* u, const void* dt, const void* A, const void*
                        void* y, void* h_end, void* dsum, int Bsz, int L, int D, int N,
                        int segments, const long long* strides, void* stream) {
   if (N != kState) return cudaErrorInvalidValue;
-  return launch<false>(make_args(u, dt, A, Bm, Cm, Dp, z, dt_bias, y, nullptr, h_end, dsum, L,
-                                 D, strides),
-                       Bsz, segments, static_cast<cudaStream_t>(stream));
+  return launch<float, false>(make_args<float>(u, dt, A, Bm, Cm, Dp, z, dt_bias, y, nullptr,
+                                               h_end, dsum, L, D, strides),
+                              Bsz, segments, static_cast<cudaStream_t>(stream));
 }
 
 // Training variant: as selective_scan_fwd, and also writes h_entries
@@ -381,9 +394,33 @@ int selective_scan_fwd_residuals(const void* u, const void* dt, const void* A, c
                                  void* dsum, int Bsz, int L, int D, int N, int segments,
                                  const long long* strides, void* stream) {
   if (N != kState) return cudaErrorInvalidValue;
-  return launch<true>(make_args(u, dt, A, Bm, Cm, Dp, z, dt_bias, y, h_entries, h_end, dsum,
-                                L, D, strides),
-                      Bsz, segments, static_cast<cudaStream_t>(stream));
+  return launch<float, true>(make_args<float>(u, dt, A, Bm, Cm, Dp, z, dt_bias, y, h_entries,
+                                              h_end, dsum, L, D, strides),
+                             Bsz, segments, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 variants of the two: the same arguments with u, dt, Bm, Cm, z
+// and y bf16 (A, Dp, dt_bias, h_entries, h_end and dsum fp32).
+int selective_scan_fwd_bf16(const void* u, const void* dt, const void* A, const void* Bm,
+                            const void* Cm, const void* Dp, const void* z, const void* dt_bias,
+                            void* y, void* h_end, void* dsum, int Bsz, int L, int D, int N,
+                            int segments, const long long* strides, void* stream) {
+  if (N != kState) return cudaErrorInvalidValue;
+  return launch<bf16, false>(make_args<bf16>(u, dt, A, Bm, Cm, Dp, z, dt_bias, y, nullptr,
+                                             h_end, dsum, L, D, strides),
+                             Bsz, segments, static_cast<cudaStream_t>(stream));
+}
+
+int selective_scan_fwd_residuals_bf16(const void* u, const void* dt, const void* A,
+                                      const void* Bm, const void* Cm, const void* Dp,
+                                      const void* z, const void* dt_bias, void* y,
+                                      void* h_entries, void* h_end, void* dsum, int Bsz, int L,
+                                      int D, int N, int segments, const long long* strides,
+                                      void* stream) {
+  if (N != kState) return cudaErrorInvalidValue;
+  return launch<bf16, true>(make_args<bf16>(u, dt, A, Bm, Cm, Dp, z, dt_bias, y, h_entries,
+                                            h_end, dsum, L, D, strides),
+                            Bsz, segments, static_cast<cudaStream_t>(stream));
 }
 
 // The segment count both entry points take for segments = 0.

@@ -13,6 +13,12 @@ the running statistics, the semantics of the JAX package's
 ``TorchBatchNorm``; torch's momentum is 1 - the flax retention factor
 (:func:`set_bn_momentum`). Dropout draws from a generator that the caller
 passes (:class:`Dropout`).
+
+Every layer runs in its input's dtype (float32, or bfloat16 in perf mode),
+with the JAX modules' rounding points at ``dtype=bfloat16``: a linear layer
+casts its fp32 weight and bias to the input's dtype (flax ``Dense``); a
+BatchNorm takes its statistics, normalises and applies its affine in fp32
+and rounds once (``TorchBatchNorm``), its running statistics fp32.
 """
 
 from __future__ import annotations
@@ -43,7 +49,16 @@ class PointwiseConv(nn.Module):
         self.bias.data.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight[..., 0], self.bias)
+        return F.linear(x, self.weight[..., 0].to(x.dtype), self.bias.to(x.dtype))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in its input's dtype: weight and bias are cast to it, as
+    flax's ``Dense(dtype=...)`` casts its fp32 parameters."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
 
 
 class Dropout(nn.Module):
@@ -76,10 +91,12 @@ def set_bn_momentum(module: nn.Module, momentum: float) -> None:
 
 
 class ChannelLastBatchNorm(nn.BatchNorm1d):
-    """``BatchNorm1d`` over the last axis of (..., C) input."""
+    """``BatchNorm1d`` over the last axis of (..., C) input, computed in fp32
+    (statistics, normalisation, affine) and returned in the input's dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+        y = super().forward(x.reshape(-1, x.shape[-1]).float())
+        return y.reshape(x.shape).to(x.dtype)
 
 
 def _init_linear(m: nn.Linear, generator: torch.Generator) -> None:
@@ -116,7 +133,7 @@ class PosEmbedMLP(nn.Sequential):
     """3 -> 128 -> GELU (exact erf) -> d MLP over centres."""
 
     def __init__(self, out_dim: int, hidden: int = 128):
-        super().__init__(nn.Linear(3, hidden), nn.GELU(), nn.Linear(hidden, out_dim))
+        super().__init__(Linear(3, hidden), nn.GELU(), Linear(hidden, out_dim))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         _init_linear(self[0], generator)
@@ -128,9 +145,9 @@ class ClsHead(nn.Sequential):
 
     def __init__(self, in_dim: int, cls_dim: int, hidden: int = 256, drop: float = 0.5):
         super().__init__(
-            nn.Linear(in_dim, hidden), nn.BatchNorm1d(hidden), nn.ReLU(), Dropout(drop),
-            nn.Linear(hidden, hidden), nn.BatchNorm1d(hidden), nn.ReLU(), Dropout(drop),
-            nn.Linear(hidden, cls_dim))
+            Linear(in_dim, hidden), ChannelLastBatchNorm(hidden), nn.ReLU(), Dropout(drop),
+            Linear(hidden, hidden), ChannelLastBatchNorm(hidden), nn.ReLU(), Dropout(drop),
+            Linear(hidden, cls_dim))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for i in (0, 4, 8):

@@ -16,6 +16,11 @@ forms, so a freshly built model has realistic scan dynamics:
   U(1, 16) per head, D = 1 per head, the gated-RMSNorm scale 1;
 - out_proj further divided by sqrt(n_layer).
 
+The stack runs in its input's dtype (float32, or bfloat16 in perf mode):
+the residual stream stays in it (``residual_in_fp32`` is False in the JAX
+package), and every LayerNorm computes in fp32 and rounds once to it, as
+flax's ``LayerNorm(dtype=...)`` does.
+
 With a ``mesh`` and a ``tp_axis`` the mixers are tensor-parallel
 (``parallel/tensor_parallel.py``): each rank holds its shard of the mixer's
 parameters under the same names (``utils/weights.shard_state_dict``'s
@@ -30,6 +35,7 @@ import math
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from si_mamba_tpu_torch.models.embed import Dropout
 from si_mamba_tpu_torch.ops.selective_scan import mamba_mixer_apply
@@ -60,6 +66,14 @@ def _tp_size(mesh: Mesh | None, tp_axis: str | None) -> int:
     if mesh is None or tp_axis not in mesh:
         raise ValueError(f"tp_axis={tp_axis!r} needs a mesh with that axis")
     return mesh[tp_axis].size
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` computed in fp32 and returned in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(x.dtype)
 
 
 def _load_shard(module: nn.Module, full: nn.Module, kind: str, generator) -> None:
@@ -286,7 +300,7 @@ class Block(nn.Module):
                  out_proj_div: float = 1.0, scan_impl: str = "auto", mixer: str = "mamba",
                  ssd_chunk: int = 128, mesh: Mesh | None = None, tp_axis: str | None = None):
         super().__init__()
-        self.norm = nn.LayerNorm(d_model, eps=norm_eps)
+        self.norm = LayerNorm(d_model, eps=norm_eps)
         tp = dict(mesh=mesh, tp_axis=tp_axis)
         if mixer == "ssd":
             self.mixer = SSDMixer(d_model, out_proj_div=out_proj_div, scan_impl=scan_impl,
@@ -320,7 +334,7 @@ class MixerModel(nn.Module):
                   tp_axis=tp_axis)
             for _ in range(n_layer))
         self.block_dropout = Dropout(drop_out_in_block)
-        self.norm_f = nn.LayerNorm(d_model, eps=norm_eps)
+        self.norm_f = LayerNorm(d_model, eps=norm_eps)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for layer in self.layers:

@@ -8,6 +8,13 @@ BatchNorm on batch statistics, DropPath and dropout drawing from the
 ``generator`` passed to ``forward``. With ``config.tp_axis`` and a ``mesh``
 that has that axis every mixer is tensor-parallel over it; the rest of the
 model is replicated on every rank of the axis.
+
+``config.dtype`` is the activation dtype: 'float32', or 'bfloat16' (perf
+mode, with ``spectral_method='subspace'`` in ``cfgs/finetune_modelnet_perf.yaml``)
+on the Mamba-1 per-op route. Parameters, BatchNorm statistics and the scan
+state stay fp32; grouping and the graph run on fp32 points and centres; the
+eigenvectors are rounded to the activation dtype before the SAST sort, as
+the JAX model casts them; the logits come back in the activation dtype.
 """
 
 from __future__ import annotations
@@ -21,12 +28,16 @@ import torch.nn.functional as F
 
 from si_mamba_tpu_torch.models.embed import ClsHead, Dropout, PatchEncoder, PosEmbedMLP
 from si_mamba_tpu_torch.models.grouping import group_divider
-from si_mamba_tpu_torch.models.layers import MixerModel
+from si_mamba_tpu_torch.models.layers import LayerNorm, MixerModel
 from si_mamba_tpu_torch.models.ordering import sast_sequence, xyz_sequence
 from si_mamba_tpu_torch.ops.graph import knn_adjacency, rw_laplacian, sym_laplacian
-from si_mamba_tpu_torch.ops.spectral import topk_eigh
+from si_mamba_tpu_torch.ops.spectral import topk_eigh, topk_smallest_subspace
 from si_mamba_tpu_torch.parallel.mesh import Mesh, MeshAxis
 from si_mamba_tpu_torch.utils.weights import mixer_segments
+
+
+# the activation dtypes the port runs, by the config's name
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +98,18 @@ def _check_supported(cfg: PointMambaConfig, mesh: Mesh | None = None) -> None:
     parallelism: ``tp_axis`` without a mesh that has that axis, or a mesh
     with a model axis larger than 1 and no ``tp_axis`` (the check of the JAX
     finetune runner)."""
+    if cfg.dtype not in DTYPES:
+        raise NotImplementedError(f"dtype={cfg.dtype!r}: the port runs {sorted(DTYPES)}")
+    if cfg.dtype != "float32":
+        # the kernels of these routes have no bf16 variants yet
+        waiting = {"mixer='ssd'": cfg.mixer == "ssd",
+                   f"scan_impl={cfg.scan_impl!r}": cfg.scan_impl in ("fused", "fused_interpret"),
+                   "tp_axis": cfg.tp_axis is not None}
+        for name, on in waiting.items():
+            if on:
+                raise NotImplementedError(
+                    f"{name} at dtype={cfg.dtype!r}: its kernels' bf16 variants are queued "
+                    f"(ROADMAP.md, queue 2)")
     if cfg.add_after_layer and cfg.mixer != "mamba":
         raise NotImplementedError("mixer='ssd' with add_after_layer")
     if cfg.add_after_layer and cfg.tp_axis is not None:
@@ -103,12 +126,12 @@ def _check_supported(cfg: PointMambaConfig, mesh: Mesh | None = None) -> None:
         "method='HLT'": cfg.method == "HLT",
         "add_after_layer": cfg.add_after_layer,
         "rms_norm": cfg.rms_norm,
-        "spectral_method='subspace'": cfg.spectral_method == "subspace",
-        f"dtype={cfg.dtype!r}": cfg.dtype != "float32",
     }
     for name, on in later.items():
         if on:
             raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md, queue 1)")
+    if cfg.spectral_method not in ("eigh", "subspace"):
+        raise ValueError(f"unknown spectral_method {cfg.spectral_method!r}")
     if cfg.mixer not in ("mamba", "ssd"):
         raise ValueError(f"unknown mixer {cfg.mixer!r}")
     if cfg.method not in ("SAST", "MAMBA"):
@@ -119,12 +142,16 @@ def _check_supported(cfg: PointMambaConfig, mesh: Mesh | None = None) -> None:
 
 
 def spectral_eigvecs(center: torch.Tensor, cfg: PointMambaConfig):
-    """Graph -> Laplacian -> top-k eigenpairs: (eigvals (B, k), eigvecs (B, G, k))."""
+    """Graph -> Laplacian -> top-k eigenpairs: (eigvals (B, k), eigvecs (B, G, k)).
+    The k smallest of the random-walk Laplacian come from the subspace
+    eigensolver when ``spectral_method`` is 'subspace', else from ``eigh``."""
     A = knn_adjacency(center, k=cfg.knn_graph, alpha=cfg.alpha, symmetric=cfg.symmetric,
                       self_loop=cfg.self_loop, binary=cfg.binary)
     if cfg.matrix == "laplacian":
-        vals, vecs, _, _ = topk_eigh(rw_laplacian(A, eps=1e-6, eps_mode="add"),
-                                     cfg.k_top_eigenvectors, smallest=cfg.smallest)
+        L = rw_laplacian(A, eps=1e-6, eps_mode="add")
+        if cfg.spectral_method == "subspace" and cfg.smallest:
+            return topk_smallest_subspace(L, cfg.k_top_eigenvectors)
+        vals, vecs, _, _ = topk_eigh(L, cfg.k_top_eigenvectors, smallest=cfg.smallest)
         return vals, vecs
     # the symmetric variant computes k+1 pairs and drops the first
     vals, vecs, _, _ = topk_eigh(sym_laplacian(A), cfg.k_top_eigenvectors + 1,
@@ -150,6 +177,7 @@ class PointMamba(nn.Module):
         super().__init__()
         _check_supported(config, mesh)
         self.config = cfg = config
+        self.dtype = DTYPES[cfg.dtype]
         self.mesh = mesh
         self.encoder = PatchEncoder(cfg.encoder_dims)
         self.pos_embed = PosEmbedMLP(cfg.trans_dim)
@@ -158,7 +186,7 @@ class PointMamba(nn.Module):
                                  drop_out_in_block=cfg.drop_out_in_block,
                                  scan_impl=cfg.scan_impl, mixer=cfg.mixer,
                                  ssd_chunk=cfg.ssd_chunk, mesh=mesh, tp_axis=cfg.tp_axis)
-        self.norm = nn.LayerNorm(cfg.trans_dim, eps=1e-5)
+        self.norm = LayerNorm(cfg.trans_dim, eps=1e-5)
         self.cls_head_finetune = ClsHead(cfg.trans_dim, cfg.cls_dim, drop=cfg.cls_head_dropout)
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
 
@@ -188,19 +216,24 @@ class PointMamba(nn.Module):
 
     # -- the pieces of the forward, public so that tests can compose them --
     def embed(self, pts: torch.Tensor, fps_start_idx=0):
-        """pts (B, N, 3) -> (tokens (B, G, C), pos (B, G, C), centres (B, G, 3))."""
+        """pts (B, N, 3) -> (tokens (B, G, C), pos (B, G, C) in the activation
+        dtype, centres (B, G, 3) in the points' dtype)."""
         cfg = self.config
         grouped = group_divider(pts, cfg.num_group, cfg.group_size, start_idx=fps_start_idx)
-        return self.encoder(grouped.neighborhood), self.pos_embed(grouped.center), grouped.center
+        return (self.encoder(grouped.neighborhood.to(self.dtype)),
+                self.pos_embed(grouped.center.to(self.dtype)), grouped.center)
 
     def sequence(self, tokens, pos, center, eigvecs=None):
         """Order the tokens: (x, pos_seq), each (B, seq_len, C). For SAST the
-        eigenvectors are computed from ``center`` unless given."""
+        eigenvectors are computed from ``center`` unless given, then sorted as
+        rounded to the activation dtype (the stable sort breaks the ties that
+        the rounding makes by index, as the JAX model's does)."""
         cfg = self.config
         if cfg.method == "MAMBA":
             return xyz_sequence(tokens, pos, center)
         if eigvecs is None:
             _, eigvecs = spectral_eigvecs(center, cfg)
+        eigvecs = eigvecs.to(self.dtype).to(eigvecs.dtype)
         return sast_sequence(tokens, pos, eigvecs, reverse=cfg.reverse, reverse_2=cfg.reverse_2)
 
     def classify(self, x, pos_seq, return_features: bool = False,

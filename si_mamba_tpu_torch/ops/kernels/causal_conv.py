@@ -14,6 +14,15 @@ Kernels, both in ``csrc/causal_conv.cu``:
   partials that a second small kernel of the same call sums in a fixed order.
 The source describes both designs.
 
+Both kernels take fp32 or bf16 activations (x, g; y and dx come back in x's
+dtype) with fp32 weight and bias, and compute in fp32, as the TPU kernels
+do at either activation dtype; each dtype is its own variant with its own
+launch count (``causal_conv1d_silu`` / ``causal_conv1d_silu_bf16`` for K1,
+``causal_conv1d_silu_bwd`` / ``causal_conv1d_silu_bwd_bf16`` for K5). The
+bf16 K1 moves eight channels a thread as one 16-byte vector where x's
+alignment allows (:func:`fwd_bf16_vector`); K5's plan counts its vector
+widths in elements of x's dtype (:func:`bwd_plan`).
+
 :func:`causal_conv1d_silu` is :class:`CausalConv1dSiluFn`: on a CUDA tensor
 its forward and backward launch the kernels (or raise); on a CPU tensor they
 are the plain versions. Nothing falls back from one to the other.
@@ -43,6 +52,9 @@ BWD_TILES = (64, 32, 16)  # the time tiles the plan picks from, longest first
 BWD_VARIANTS = ((4, 4), (2, 4), (1, 1))
 BWD_WARPS_PER_SM = 8  # the least warps an SM the plan's tile aims for
 H100_SMS = 132
+FWD_BF16_VECTOR = 8  # bf16 channels the bf16 K1 moves at once (kV16: 16 bytes)
+# the activation dtypes the kernels are built for; weight and bias are fp32
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -106,6 +118,11 @@ def interface(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.causal_conv1d_silu_bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + \
         [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.causal_conv1d_silu_bwd.restype = ctypes.c_int
+    lib.causal_conv1d_silu_fwd_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
+        [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    lib.causal_conv1d_silu_fwd_bf16.restype = ctypes.c_int
+    lib.causal_conv1d_silu_bwd_bf16.argtypes = lib.causal_conv1d_silu_bwd.argtypes
+    lib.causal_conv1d_silu_bwd_bf16.restype = ctypes.c_int
     lib.causal_conv1d_error_string.argtypes = [ctypes.c_int]
     lib.causal_conv1d_error_string.restype = ctypes.c_char_p
     return lib
@@ -121,24 +138,36 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def vector_width(ptr: int, batch: int, rows: int, batch_stride: int, row_stride: int) -> int:
-    """Floats a K5 thread may move at once from or to a (batch, rows, D) fp32
-    operand at address ``ptr`` with unit stride along channels: the widest of
-    4, 2 and 1 for which the address is 4·width-byte aligned and the batch
-    and row strides (those in use: more than one batch, more than one row)
-    are multiples of the width. The C entry point refuses any wider."""
-    for width in (4, 2):
-        if ptr % (4 * width) == 0 and (batch == 1 or batch_stride % width == 0) and \
+def vector_width(ptr: int, batch: int, rows: int, batch_stride: int, row_stride: int,
+                 size: int = 4, widths=(4, 2)) -> int:
+    """Elements of ``size`` bytes a thread may move at once from or to a
+    (batch, rows, D) operand at address ``ptr`` with unit stride along
+    channels: the widest of ``widths`` for which the address is
+    size·width-byte aligned and the batch and row strides (those in use: more
+    than one batch, more than one row) are multiples of the width, else 1.
+    The C entry points refuse any wider."""
+    for width in widths:
+        if ptr % (size * width) == 0 and (batch == 1 or batch_stride % width == 0) and \
                 (rows == 1 or row_stride % width == 0):
             return width
     return 1
 
 
+def fwd_bf16_vector(x: torch.Tensor) -> int:
+    """The bf16 K1's channels a thread for bf16 x (B, L, D): FWD_BF16_VECTOR
+    (one 16-byte vector) when D is a multiple of it and x's address and
+    strides allow, else 1."""
+    B, L, D = x.shape
+    if D % FWD_BF16_VECTOR:
+        return 1
+    return vector_width(x.data_ptr(), B, L, x.stride(0), x.stride(1), 2, (FWD_BF16_VECTOR,))
+
+
 @dataclass(frozen=True)
 class BwdPlan:
     """How K5 runs at one shape: the vector width of x, that of g and dx (one
-    of BWD_VARIANTS), the time tile, and the shape of the dw/db partials (see
-    :func:`bwd_partials`)."""
+    of BWD_VARIANTS, in elements of x's dtype), the time tile, and the shape
+    of the dw/db partials (see :func:`bwd_partials`)."""
 
     vx: int
     vg: int
@@ -167,14 +196,16 @@ def bwd_partials(B: int, L: int, D: int, W: int, tile: int) -> tuple[int, int, i
 
 
 def bwd_plan(x: torch.Tensor, g: torch.Tensor, W: int = 4, sms: int = H100_SMS) -> BwdPlan:
-    """K5's plan for x and g (B, L, D), each with unit stride along channels:
-    the widest variant whose widths x's alignment and g's allow (dx is
-    allocated contiguous, so its width follows from D), and the time tile of
-    :func:`bwd_tile`."""
+    """K5's plan for x and g (B, L, D) of one dtype, each with unit stride
+    along channels: the widest variant whose widths (in elements: 16, 8 or 4
+    bytes a thread for fp32, 8, 4 or 2 for bf16) x's alignment and g's allow
+    (dx is allocated contiguous, so its width follows from D), and the time
+    tile of :func:`bwd_tile`."""
     B, L, D = x.shape
-    wx = vector_width(x.data_ptr(), B, L, x.stride(0), x.stride(1))
-    wg = min(vector_width(g.data_ptr(), B, L, g.stride(0), g.stride(1)),
-             vector_width(0, B, L, L * D, D))
+    size = x.element_size()
+    wx = vector_width(x.data_ptr(), B, L, x.stride(0), x.stride(1), size)
+    wg = min(vector_width(g.data_ptr(), B, L, g.stride(0), g.stride(1), size),
+             vector_width(0, B, L, L * D, D, size))
     vx, vg = next(v for v in BWD_VARIANTS if v[0] <= wx and v[1] <= wg)
     tile = bwd_tile(B, L, D, sms)
     return BwdPlan(vx=vx, vg=vg, tile=tile, partial_shape=bwd_partials(B, L, D, W, tile))
@@ -190,9 +221,13 @@ def _check_inputs(x, weight, bias, g=None) -> None:
     B, L, D = x.shape
     W = weight.shape[1]
     named = dict(x=x, weight=weight, bias=bias) | ({} if g is None else dict(g=g))
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the causal-conv kernels take float32 or bfloat16 x; x is {x.dtype}")
     for name, t in named.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"the causal-conv kernels take float32 inputs; {name} is {t.dtype}")
+        want = x.dtype if name in ("x", "g") else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"the causal-conv kernels take {name} in {want} for x in {x.dtype}; "
+                            f"{name} is {t.dtype}")
         if not t.is_cuda or t.device != x.device:
             raise ValueError("x, weight, bias (and g) must lie on one CUDA device")
     if x.stride(2) != 1 or (g is not None and g.stride(2) != 1):
@@ -210,17 +245,20 @@ def _launch_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> to
     _check_inputs(x, weight, bias)
     B, L, D = x.shape
     weight, bias = weight.contiguous(), bias.contiguous()
-    y = torch.empty((B, L, D), dtype=torch.float32, device=x.device)
+    y = torch.empty((B, L, D), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = (x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            B, L, D, weight.shape[1], x.stride(0), x.stride(1))
     with torch.cuda.device(x.device):
-        err = lib.causal_conv1d_silu_fwd(
-            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            B, L, D, weight.shape[1], x.stride(0), x.stride(1), stream)
+        if x.dtype == torch.bfloat16:
+            err = lib.causal_conv1d_silu_fwd_bf16(*ptrs, fwd_bf16_vector(x), stream)
+        else:
+            err = lib.causal_conv1d_silu_fwd(*ptrs, stream)
     _check(lib, err, "causal-conv forward")
-    causal_conv1d_silu.launches += 1
+    (causal_conv1d_silu_bf16 if x.dtype == torch.bfloat16 else causal_conv1d_silu).launches += 1
     return y
 
 
@@ -232,24 +270,27 @@ def _launch_bwd(x, weight, bias, g):
 
 def _run_bwd(x, weight, bias, g, plan: BwdPlan):
     """K5 on checked inputs with ``plan``: one C call, two launches (the
-    tiles, then the fixed-order finish of dw and db)."""
+    tiles, then the fixed-order finish of dw and db). dx comes back in x's
+    dtype, dw and db in fp32."""
     B, L, D = x.shape
     W = weight.shape[1]
-    dx = torch.empty((B, L, D), dtype=torch.float32, device=x.device)
+    dx = torch.empty((B, L, D), dtype=x.dtype, device=x.device)
     dw, db = torch.empty_like(weight), torch.empty_like(bias)
     if dx.numel() == 0:
         return dx, dw.zero_(), db.zero_()
     part = torch.empty(plan.partial_shape, dtype=torch.float32, device=x.device)
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    bf16 = x.dtype == torch.bfloat16
+    entry = lib.causal_conv1d_silu_bwd_bf16 if bf16 else lib.causal_conv1d_silu_bwd
     with torch.cuda.device(x.device):
-        err = lib.causal_conv1d_silu_bwd(
+        err = entry(
             x.data_ptr(), weight.data_ptr(), bias.data_ptr(), g.data_ptr(), dx.data_ptr(),
             dw.data_ptr(), db.data_ptr(), part.data_ptr(), part.numel(), B, L, D, W,
             x.stride(0), x.stride(1), g.stride(0), g.stride(1), plan.vx, plan.vg, plan.tile,
             stream)
     _check(lib, err, "causal-conv backward")
-    causal_conv1d_silu_bwd.launches += 1
+    (causal_conv1d_silu_bwd_bf16 if bf16 else causal_conv1d_silu_bwd).launches += 1
     return dx, dw, db
 
 
@@ -265,9 +306,10 @@ def causal_conv1d_silu_fwd(x: torch.Tensor, weight: torch.Tensor,
 def causal_conv1d_silu_bwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                            g: torch.Tensor):
     """(dx, dw, db) for the output gradient g: the kernel (K5) on a CUDA
-    tensor (float32, W = 4; x and g need unit stride only along channels),
-    :func:`causal_conv1d_silu_bwd_ref` on the CPU.
-    ``causal_conv1d_silu_bwd.launches`` counts kernel launches."""
+    tensor (x and g float32 or bfloat16, W = 4; x and g need unit stride only
+    along channels), :func:`causal_conv1d_silu_bwd_ref` on the CPU.
+    ``causal_conv1d_silu_bwd.launches`` counts the fp32 kernel's launches,
+    ``causal_conv1d_silu_bwd_bf16.launches`` the bf16 one's."""
     if x.is_cuda:
         return _launch_bwd(x, weight, bias, g)
     return causal_conv1d_silu_bwd_ref(x, weight, bias, g)
@@ -294,11 +336,34 @@ def causal_conv1d_silu(x: torch.Tensor, weight: torch.Tensor,
                        bias: torch.Tensor) -> torch.Tensor:
     """Fused causal depthwise conv + bias + SiLU, differentiable. x: (B, L, D),
     unit stride along D (any batch and row stride, e.g. a column slice of the
-    mixer's xz); weight (D, W); bias (D,). On a CUDA tensor this launches the
-    kernels (float32, W = 4) or raises; on the CPU it is the plain versions.
-    ``causal_conv1d_silu.launches`` counts forward-kernel launches."""
+    mixer's xz); weight (D, W) and bias (D,) fp32. On a CUDA tensor this
+    launches the kernels (x float32 or bfloat16, W = 4) or raises; on the CPU
+    it is the plain versions. ``causal_conv1d_silu.launches`` counts the fp32
+    forward kernel's launches."""
     return CausalConv1dSiluFn.apply(x, weight, bias)
+
+
+def causal_conv1d_silu_bf16(x: torch.Tensor, weight: torch.Tensor,
+                            bias: torch.Tensor) -> torch.Tensor:
+    """:func:`causal_conv1d_silu` for bf16 x, which it requires.
+    ``causal_conv1d_silu_bf16.launches`` counts the bf16 forward kernel's
+    launches, whichever entry point reached it."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"causal_conv1d_silu_bf16 takes bfloat16 x, got {x.dtype}")
+    return causal_conv1d_silu(x, weight, bias)
+
+
+def causal_conv1d_silu_bwd_bf16(x, weight, bias, g):
+    """:func:`causal_conv1d_silu_bwd` for bf16 x and g, which it requires.
+    ``causal_conv1d_silu_bwd_bf16.launches`` counts the bf16 backward
+    kernel's launches, whichever entry point reached it."""
+    if x.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
+        raise TypeError(f"causal_conv1d_silu_bwd_bf16 takes bfloat16 x and g, got {x.dtype}, "
+                        f"{g.dtype}")
+    return causal_conv1d_silu_bwd(x, weight, bias, g)
 
 
 causal_conv1d_silu.launches = 0
 causal_conv1d_silu_bwd.launches = 0
+causal_conv1d_silu_bf16.launches = 0
+causal_conv1d_silu_bwd_bf16.launches = 0

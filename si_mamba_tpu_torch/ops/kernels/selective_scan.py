@@ -21,6 +21,14 @@ Kernels:
   finishes (no atomics: bitwise deterministic).
 The sources describe the designs.
 
+Each kernel takes fp32 or bf16 activations (u, delta, B, C, z and g, one
+dtype) with fp32 A, D, delta_bias and state, as the TPU kernels do at either
+activation dtype: y, du, ddelta and dz come back in the activation dtype,
+dB and dC summed in fp32 and then cast to it, dA, dD and ddelta_bias in
+fp32. The bf16 backward rounds its recomputed y_pre to bf16 before dz, as
+the TPU kernel reads the y_pre its forward stored in the activation dtype.
+Each dtype is its own variant with its own launch count (``..._bf16``).
+
 :func:`selective_scan_fused` runs K2 when no gradient is wanted and
 :class:`SelectiveScanFn` (K3 forward, K4 backward) when one is; on a CPU
 tensor each is its plain version. Nothing falls back from one to the other.
@@ -41,6 +49,9 @@ from si_mamba_tpu_torch.ops.kernels.build import load_library
 CHUNK = 16
 
 _NAMES = ("u", "delta", "A", "B", "C", "D", "z", "delta_bias")
+# the activation dtypes the kernels are built for; the operands below are fp32
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+_FP32_OPERANDS = ("A", "D", "delta_bias", "h_entries")
 
 
 def _acc_dtype(u: torch.Tensor) -> torch.dtype:
@@ -80,7 +91,7 @@ def selective_scan_ref(u, delta, A, B, C, D=None, z=None, delta_bias=None,
 def selective_scan_fwd_residuals_ref(u, delta, A, B, C, D, z, delta_bias):
     """Plain version of the training forward: (y, h_entries), where
     h_entries (b, ceil(l / CHUNK), n, d) holds the state before steps 0,
-    CHUNK, 2 CHUNK, ... (fp32, or fp64 for fp64 input)."""
+    CHUNK, 2 CHUNK, ... (fp32, or fp64 for fp64 input); y in u's dtype."""
     acc = _acc_dtype(u)
     dl = F.softplus(delta.to(acc) + delta_bias.to(acc))
     u32, A32, B32, C32 = u.to(acc), A.to(acc), B.to(acc), C.to(acc)
@@ -107,8 +118,10 @@ def selective_scan_bwd_ref(u, delta, A, B, C, D, z, delta_bias, g, h_entries):
 
         dh_t = gy_t C_t + a_{t+1} dh_{t+1},   gy_t = g_t silu(z_t),
 
-    with dh carried across tiles. Returns (du, ddelta, dA, dB, dC, dD, dz,
-    ddelta_bias) in the dtypes of the corresponding inputs."""
+    with dh carried across tiles. y_pre = C.h + D u is rounded to u's dtype
+    before dz, as the TPU kernel's forward stores it. Returns (du, ddelta,
+    dA, dB, dC, dD, dz, ddelta_bias) in the dtypes of the corresponding
+    inputs."""
     acc = _acc_dtype(u)
     raw = delta.to(acc) + delta_bias.to(acc)
     dl, sig_raw = F.softplus(raw), torch.sigmoid(raw)
@@ -136,7 +149,8 @@ def selective_scan_bwd_ref(u, delta, A, B, C, D, z, delta_bias, g, h_entries):
             a = torch.exp(dt_t * A32)
             dbu = dt_t * u32[:, t, :, None]  # (b, d, 1)
             ht = a * hp + dbu * B32[:, t, None, :]
-            y_pre = torch.einsum("bdn,bn->bd", ht, C32[:, t]) + D32 * u32[:, t]
+            y_pre = (torch.einsum("bdn,bn->bd", ht, C32[:, t]) + D32 * u32[:, t]
+                     ).to(u.dtype).to(acc)
             dz[:, t] = dz_gate[:, t] * y_pre
             dh = gy[:, t, :, None] * C32[:, t, None, :] + dh
             daa = dh * hp * a
@@ -165,6 +179,8 @@ def fwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
     tail = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
     _set_argtypes(lib.selective_scan_fwd, [ctypes.c_void_p] * 11 + tail)
     _set_argtypes(lib.selective_scan_fwd_residuals, [ctypes.c_void_p] * 12 + tail)
+    _set_argtypes(lib.selective_scan_fwd_bf16, [ctypes.c_void_p] * 11 + tail)
+    _set_argtypes(lib.selective_scan_fwd_residuals_bf16, [ctypes.c_void_p] * 12 + tail)
     _set_argtypes(lib.selective_scan_fwd_segments, [ctypes.c_int] * 3)
     lib.selective_scan_chunk_len.restype = ctypes.c_int
     if lib.selective_scan_chunk_len() != CHUNK:
@@ -176,9 +192,9 @@ def fwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def bwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a built ``csrc/selective_scan_bwd.cu``."""
-    _set_argtypes(lib.selective_scan_bwd,
-                  [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 +
-                  [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    for fn in (lib.selective_scan_bwd, lib.selective_scan_bwd_bf16):
+        _set_argtypes(fn, [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 +
+                      [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
     lib.selective_scan_bwd_chunk_len.restype = ctypes.c_int
     lib.selective_scan_bwd_block_channels.restype = ctypes.c_int
     if lib.selective_scan_bwd_chunk_len() != CHUNK:
@@ -203,9 +219,13 @@ def _check_inputs(tensors: dict, extra: dict | None = None) -> tuple[int, int, i
     u, A = tensors["u"], tensors["A"]
     bsz, L, d = u.shape
     n = A.shape[1]
+    if u.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the selective-scan kernels take float32 or bfloat16 u; u is {u.dtype}")
     for name, t in (tensors | (extra or {})).items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"the selective-scan kernels take float32 inputs; {name} is {t.dtype}")
+        want = torch.float32 if name in _FP32_OPERANDS else u.dtype
+        if t.dtype != want:
+            raise TypeError(f"the selective-scan kernels take {name} in {want} for u in "
+                            f"{u.dtype}; {name} is {t.dtype}")
         if not t.is_cuda or t.device != u.device:
             raise ValueError(f"{name} must lie on u's CUDA device")
         if t.stride(-1) != 1:
@@ -242,7 +262,7 @@ def _launch_fwd(u, delta, A, B, C, D, z, delta_bias, residuals: bool,
     bsz, L, d, n = _check_inputs(args)
     A, D, delta_bias = A.contiguous(), D.contiguous(), delta_bias.contiguous()
     f32 = dict(dtype=torch.float32, device=u.device)
-    y = torch.empty((bsz, L, d), **f32)
+    y = torch.empty((bsz, L, d), dtype=u.dtype, device=u.device)
     h_entries = torch.empty((bsz, -(-L // CHUNK), n, d), **f32) if residuals else None
     if y.numel() == 0:
         return y, h_entries
@@ -258,16 +278,21 @@ def _launch_fwd(u, delta, A, B, C, D, z, delta_bias, residuals: bool,
     ptrs += [h_end.data_ptr(), dsum.data_ptr()]
     strides = _rows(u, delta, B, C, z)
     stream = torch.cuda.current_stream(u.device).cuda_stream
-    entry = lib.selective_scan_fwd_residuals if residuals else lib.selective_scan_fwd
+    bf16 = u.dtype == torch.bfloat16
+    if residuals:
+        entry = lib.selective_scan_fwd_residuals_bf16 if bf16 else lib.selective_scan_fwd_residuals
+    else:
+        entry = lib.selective_scan_fwd_bf16 if bf16 else lib.selective_scan_fwd
     with torch.cuda.device(u.device):
         err = entry(*ptrs, bsz, L, d, n, segments, strides, stream)
     if err != 0:
         msg = lib.selective_scan_error_string(err).decode()
         raise RuntimeError(f"selective-scan forward kernel launch failed: {msg} ({err})")
     if residuals:
-        selective_scan_fwd_residuals.launches += 1
+        counter = selective_scan_fwd_residuals_bf16 if bf16 else selective_scan_fwd_residuals
     else:
-        selective_scan_fwd.launches += 1
+        counter = selective_scan_fwd_bf16 if bf16 else selective_scan_fwd
+    counter.launches += 1
     return y, h_entries
 
 
@@ -279,7 +304,8 @@ def _launch_bwd(u, delta, A, B, C, D, z, delta_bias, g, h_entries):
     lib = _bwd_library()
     n_blk = -(-d // lib.selective_scan_bwd_block_channels())
     f32 = dict(dtype=torch.float32, device=u.device)
-    du, ddelta, dz = (torch.empty((bsz, L, d), **f32) for _ in range(3))
+    du, ddelta, dz = (torch.empty((bsz, L, d), dtype=u.dtype, device=u.device)
+                      for _ in range(3))
     dB_part, dC_part = (torch.empty((bsz, n_blk, L, n), **f32) for _ in range(2))
     dA_part = torch.empty((bsz, d, n), **f32)
     dD_part, ddb_part = (torch.empty((bsz, d), **f32) for _ in range(2))
@@ -291,14 +317,17 @@ def _launch_bwd(u, delta, A, B, C, D, z, delta_bias, g, h_entries):
     outs = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in (
         du, ddelta, dz, dB_part, dC_part, dA_part, dD_part, ddb_part)))
     stream = torch.cuda.current_stream(u.device).cuda_stream
+    bf16 = u.dtype == torch.bfloat16
+    entry = lib.selective_scan_bwd_bf16 if bf16 else lib.selective_scan_bwd
     with torch.cuda.device(u.device):
-        err = lib.selective_scan_bwd(ins, outs, bsz, L, d, n, _rows(u, delta, B, C, z, g), stream)
+        err = entry(ins, outs, bsz, L, d, n, _rows(u, delta, B, C, z, g), stream)
     if err != 0:
         msg = lib.selective_scan_bwd_error_string(err).decode()
         raise RuntimeError(f"selective-scan backward kernel launch failed: {msg} ({err})")
-    selective_scan_bwd.launches += 1
-    return (du, ddelta, dA_part.sum(0), dB_part.sum(1), dC_part.sum(1), dD_part.sum(0), dz,
-            ddb_part.sum(0))
+    (selective_scan_bwd_bf16 if bf16 else selective_scan_bwd).launches += 1
+    # dB and dC are summed in fp32, then cast to their inputs' dtype
+    return (du, ddelta, dA_part.sum(0), dB_part.sum(1).to(B.dtype), dC_part.sum(1).to(C.dtype),
+            dD_part.sum(0), dz, ddb_part.sum(0))
 
 
 def selective_scan_fwd(u, delta, A, B, C, D, z, delta_bias) -> torch.Tensor:
@@ -306,9 +335,9 @@ def selective_scan_fwd(u, delta, A, B, C, D, z, delta_bias) -> torch.Tensor:
     scan, the D skip and the silu(z) gate. Shapes as in
     :func:`selective_scan_ref`; each of u, delta, B, C, z needs unit stride
     only along its last axis. On a CUDA tensor this launches the kernel
-    (float32, d_state 16) or raises; on the CPU it is
-    :func:`selective_scan_ref`. ``selective_scan_fwd.launches`` counts kernel
-    launches."""
+    (activations float32 or bfloat16, A, D and delta_bias float32, d_state
+    16) or raises; on the CPU it is :func:`selective_scan_ref`.
+    ``selective_scan_fwd.launches`` counts the fp32 kernel's launches."""
     if u.is_cuda:
         return _launch_fwd(u, delta, A, B, C, D, z, delta_bias, residuals=False)[0]
     return selective_scan_ref(u, delta, A, B, C, D=D, z=z, delta_bias=delta_bias)
@@ -363,6 +392,36 @@ def selective_scan_fused(u, delta, A, B, C, D, z, delta_bias) -> torch.Tensor:
     return selective_scan_fwd(u, delta, A, B, C, D, z, delta_bias)
 
 
+def selective_scan_fwd_bf16(u, delta, A, B, C, D, z, delta_bias) -> torch.Tensor:
+    """:func:`selective_scan_fwd` for bf16 activations, which it requires.
+    ``selective_scan_fwd_bf16.launches`` counts the bf16 lean kernel's
+    launches, whichever entry point reached it."""
+    _require_bf16(u)
+    return selective_scan_fwd(u, delta, A, B, C, D, z, delta_bias)
+
+
+def selective_scan_fwd_residuals_bf16(u, delta, A, B, C, D, z, delta_bias):
+    """:func:`selective_scan_fwd_residuals` for bf16 activations, which it
+    requires; ``.launches`` counts the bf16 training forward's launches."""
+    _require_bf16(u)
+    return selective_scan_fwd_residuals(u, delta, A, B, C, D, z, delta_bias)
+
+
+def selective_scan_bwd_bf16(u, delta, A, B, C, D, z, delta_bias, g, h_entries):
+    """:func:`selective_scan_bwd` for bf16 activations, which it requires;
+    ``.launches`` counts the bf16 backward kernel's launches."""
+    _require_bf16(u)
+    return selective_scan_bwd(u, delta, A, B, C, D, z, delta_bias, g, h_entries)
+
+
+def _require_bf16(u: torch.Tensor) -> None:
+    if u.dtype != torch.bfloat16:
+        raise TypeError(f"the _bf16 entry points take bfloat16 activations, got {u.dtype}")
+
+
 selective_scan_fwd.launches = 0
 selective_scan_fwd_residuals.launches = 0
 selective_scan_bwd.launches = 0
+selective_scan_fwd_bf16.launches = 0
+selective_scan_fwd_residuals_bf16.launches = 0
+selective_scan_bwd_bf16.launches = 0

@@ -158,14 +158,30 @@ def mamba_mixer_apply(params: dict, x: torch.Tensor, *, d_state: int, dt_rank: i
     device, as the JAX package does, and on CUDA ``NotImplementedError`` for
     a shape the kernels are not built for (d_state 16, d_conv 4, d_inner up
     to 1024). 'fused_interpret' runs the plain versions of the same
-    interior on any device and at any shape, JAX's interpret mode."""
+    interior on any device and at any shape, JAX's interpret mode.
+
+    Mixed precision, as the JAX mixer: the matmul weights are cast to x's
+    dtype (float32, or bfloat16 on the per-op routes), A, D and dt_bias stay
+    fp32 and every scan keeps an fp32 state. The conv kernel route
+    ('pallas') takes the fp32 conv weight and bias, as the TPU conv kernel
+    reads them; the plain routes take them cast to x's dtype, as the JAX
+    package's XLA conv does. bf16 on the 'fused' routes raises until their
+    kernels have bf16 variants (ROADMAP queue 2)."""
     if impl in _NOT_PORTED:
         _raise_not_ported(impl)
     impl = _resolve(impl, x)
-    if x.dtype != torch.float32:
+    cdt = x.dtype
+    if cdt not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"the mixer runs in float32 or bfloat16, not {cdt}")
+    if cdt != torch.float32 and impl in ("fused", "fused_interpret"):
         raise NotImplementedError(
-            "the mixer runs in float32; bf16 waits for ROADMAP queue 1, M20 (perf mode)")
-    xz = x @ params["in_proj_w"]  # (B, L, 2*d_inner)
+            f"impl={impl!r} runs in float32 only: the whole-mixer kernels' bf16 variants "
+            f"(K10/K11) are queued in ROADMAP.md queue 2")
+
+    def wcast(w):
+        return w if w.dtype == cdt else w.to(cdt)
+
+    xz = x @ wcast(params["in_proj_w"])  # (B, L, 2*d_inner)
     d_inner = xz.shape[-1] // 2
     if impl in ("fused", "fused_interpret"):
         if impl == "fused" and not fused_mixer_supported(d_inner, d_state, x.shape[1]):
@@ -183,12 +199,13 @@ def mamba_mixer_apply(params: dict, x: torch.Tensor, *, d_state: int, dt_rank: i
     if impl == "pallas":
         xi = causal_conv1d_silu(xi, params["conv_w"], params["conv_b"])
     else:
-        xi = causal_conv1d(xi, params["conv_w"], params["conv_b"], activation="silu")
-    x_dbl = xi @ params["x_proj_w"]  # (B, L, dt_rank + 2n)
-    dt = x_dbl[..., :dt_rank] @ params["dt_proj_w"]  # (B, L, d_inner)
+        xi = causal_conv1d(xi, wcast(params["conv_w"]), wcast(params["conv_b"]),
+                           activation="silu")
+    x_dbl = xi @ wcast(params["x_proj_w"])  # (B, L, dt_rank + 2n)
+    dt = x_dbl[..., :dt_rank] @ wcast(params["dt_proj_w"])  # (B, L, d_inner)
     Bc = x_dbl[..., dt_rank:dt_rank + d_state]
     Cc = x_dbl[..., dt_rank + d_state:]
     A = -torch.exp(params["A_log"].float())
     y = selective_scan(xi, dt, A, Bc, Cc, D=params["D"], z=z,
                        delta_bias=params["dt_proj_b"], delta_softplus=True, impl=impl)
-    return y @ params["out_proj_w"]
+    return y.to(cdt) @ wcast(params["out_proj_w"])

@@ -1,4 +1,5 @@
-"""Batched spectral ops: lower-triangle eigh, top-k eigenpairs, SAST orders.
+"""Batched spectral ops: lower-triangle eigh, top-k eigenpairs, the subspace
+eigensolver, SAST orders.
 
 PyTorch counterparts of ``si_mamba_tpu/ops/spectral.py``. The random-walk
 Laplacian is not symmetric; like the reference, the eigensolver sees the
@@ -7,6 +8,7 @@ matrix reflected from its lower triangle (not ``(M + M^T) / 2``).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -40,3 +42,69 @@ def canonicalize_eigenvector_signs(vecs: torch.Tensor) -> torch.Tensor:
 def sort_orders_by_eigenvectors(eigvecs: torch.Tensor) -> torch.Tensor:
     """Stable ascending argsort of each eigenvector: (B, N, k) -> (B, k, N)."""
     return torch.argsort(eigvecs.transpose(-1, -2), dim=-1, stable=True)
+
+
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k0: int, k1: int, x0: np.ndarray, x1: np.ndarray):
+    """Threefry-2x32 with 20 rounds (Salmon et al., 2011) over uint32 counter
+    pairs (x0, x1) under the key (k0, k1): JAX's ``threefry2x32``."""
+    def rotl(v, r):
+        return (v << np.uint32(r)) | (v >> np.uint32(32 - r))
+
+    ks = (np.uint32(k0), np.uint32(k1), np.uint32(k0 ^ k1 ^ 0x1BD11BDA))
+    x0, x1 = x0 + ks[0], x1 + ks[1]
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x0 = x0 + x1
+            x1 = rotl(x1, r) ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x0, x1
+
+
+def rademacher(seed: int, shape) -> np.ndarray:
+    """+-1 float32 of ``shape``, bit for bit ``jax.random.rademacher(
+    jax.random.key(seed), shape, jnp.float32)`` (threefry, partitionable bit
+    generation) for a seed in [0, 2**31): the 32 random bits of element i are
+    x0 ^ x1 of threefry over the 64-bit flat index i split into (hi, lo) under
+    the key (0, seed); their top 23 bits as the mantissa of a float in [1, 2)
+    minus 1 give a uniform u, and the value is +1 where u < 0.5. Drawn on the
+    host with numpy."""
+    if not 0 <= seed < 2 ** 31:
+        raise ValueError(f"seed {seed} is outside [0, 2**31)")
+    n = int(np.prod(shape, dtype=np.int64))
+    idx = np.arange(n, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        x0, x1 = _threefry2x32(0, seed,
+                               (idx >> np.uint64(32)).astype(np.uint32),
+                               (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    bits = x0 ^ x1
+    u = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
+    return np.where(u < np.float32(0.5), np.float32(1.0), np.float32(-1.0)).reshape(shape)
+
+
+def topk_smallest_subspace(L: torch.Tensor, k: int, iters: int = 40, oversample: int = 4,
+                           qr_every: int = 5, seed: int = 0):
+    """Approximate k smallest eigenpairs of the lower-triangle-symmetric
+    (B, N, N) ``L``: orthogonal (subspace) iteration on M = 2I - L (the
+    random-walk Laplacian's eigenvalues lie in [0, 2]) from the seeded
+    Rademacher start of the JAX package, a QR every ``qr_every`` products and
+    after the last, then Rayleigh-Ritz through ``eigh`` of the (B, m, m)
+    projection, m = k + oversample. The same start and steps as
+    ``si_mamba_tpu.ops.spectral.topk_smallest_subspace``, so both converge to
+    the same vectors. Returns (vals (B, k), vecs (B, N, k)) ascending, fp32."""
+    Ls = tril_symmetrize(L).float()
+    B, N, _ = Ls.shape
+    m = k + oversample
+    M = 2.0 * torch.eye(N, dtype=torch.float32, device=Ls.device) - Ls
+    Q = torch.from_numpy(rademacher(seed, (B, N, m))).to(Ls.device)
+    Q, _ = torch.linalg.qr(Q)
+    for i in range(iters):
+        Q = torch.bmm(M, Q)
+        if (i + 1) % qr_every == 0 or i == iters - 1:
+            Q, _ = torch.linalg.qr(Q)
+    S = torch.bmm(Q.transpose(-1, -2), torch.bmm(Ls, Q))
+    svals, svecs = torch.linalg.eigh(S)  # ascending
+    return svals[..., :k], torch.bmm(Q, svecs[..., :k])

@@ -71,17 +71,21 @@ class Predictor:
         among them) or a state dict (numpy arrays or tensors) in the
         reference's keys; anything else is taken for an orbax checkpoint and
         raises. ``model_cfg``: PointMambaConfig
-        overrides. The weights load with ``strict=True``."""
+        overrides. ``perf=True`` is perf mode, as in the JAX package: bf16
+        activations and the subspace eigensolver, unless ``model_cfg`` sets
+        ``dtype`` or ``spectral_method`` itself. The weights load with
+        ``strict=True``."""
+        over = dict(model_cfg or {})
         if perf:
-            raise NotImplementedError(
-                "perf=True (bf16 + subspace eigensolver) is ROADMAP.md queue 1, M20")
+            over.setdefault("dtype", "bfloat16")
+            over.setdefault("spectral_method", "subspace")
         if isinstance(path, Mapping):
             sd = as_state_dict(path)
         elif str(path).endswith(".pth"):
             sd = load_state_dict_file(str(path))
         else:
             raise NotImplementedError(f"{path!r}: {ORBAX_NOT_READ}")
-        model = PointMamba(PointMambaConfig.from_dict(model_cfg or {}))
+        model = PointMamba(PointMambaConfig.from_dict(over))
         model.load_state_dict(sd, strict=True)
         return cls(model, npoints=npoints, max_batch=max_batch, input_points=input_points,
                    allow_recompile=allow_recompile, device=device)

@@ -1127,3 +1127,132 @@ def test_cli_finetunes_and_tests_on_the_card(cuda, tmp_path, monkeypatch):
     val = [json.loads(line)["value"] for line in scalars.splitlines()
            if json.loads(line)["tag"] == "Metric/ACC"]
     assert acc == val[-1]
+
+
+# ---------------------------------------------------------------------------
+# perf mode: the bf16 variants of K1-K5
+# ---------------------------------------------------------------------------
+
+def _bf16_ulps(got, want, floor=1e-2):
+    """The largest |got - want| in bf16 ulps of want (8 significant bits),
+    each ulp taken at least at ``floor`` of max|want|."""
+    got, want = got.float(), want.float()
+    mag = torch.clamp_min(want.abs(), floor * want.abs().max().item())
+    return ((got - want).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max().item()
+
+
+def _bf16_counts():
+    return (kconv.causal_conv1d_silu_bf16.launches, kconv.causal_conv1d_silu_bwd_bf16.launches,
+            kscan.selective_scan_fwd_bf16.launches,
+            kscan.selective_scan_fwd_residuals_bf16.launches, kscan.selective_scan_bwd_bf16.launches)
+
+
+def _fp32_counts():
+    return (kconv.causal_conv1d_silu.launches, kconv.causal_conv1d_silu_bwd.launches,
+            kscan.selective_scan_fwd.launches, kscan.selective_scan_fwd_residuals.launches,
+            kscan.selective_scan_bwd.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d,row,off,vec", [
+    (2, 512, 768, 1536, 0, 8),   # the Mamba-1 view: 16-byte vectors, K5 (4, 4)
+    (2, 65, 200, 400, 0, 8),     # ragged L, 25 vectors a row
+    (3, 37, 24, 50, 1, 1),       # an odd address: one channel a thread, K5 (1, 1)
+    (1, 130, 130, 262, 2, 1),    # D % 4 != 0: K5's masked edge
+])
+def test_bf16_conv_kernels_match_plain(cuda, b, l, d, row, off, vec):
+    """The bf16 K1 and K5 on a column view of a bf16 buffer: y and dx within
+    one bf16 ulp of the plain versions (each rounds one fp32 sum, in another
+    order), dw and db fp32 within 1e-4 of their max; two backward runs
+    bitwise equal; only the bf16 counts move."""
+    rng = np.random.default_rng(b * l + off)
+    buf = _randn(rng, b, l, row, device=cuda).to(torch.bfloat16)
+    x = buf[..., off:off + d]
+    w, bias = _randn(rng, d, 4, scale=0.5, device=cuda), _randn(rng, d, scale=0.1, device=cuda)
+    g = _randn(rng, b, l, d, device=cuda).to(torch.bfloat16)
+    assert kconv.fwd_bf16_vector(x) == vec
+    before, fp32 = _bf16_counts(), _fp32_counts()
+    y = kconv.causal_conv1d_silu_bf16(x, w, bias)
+    got = kconv.causal_conv1d_silu_bwd_bf16(x, w, bias, g)
+    again = kconv.causal_conv1d_silu_bwd(x, w, bias, g)
+    torch.cuda.synchronize()
+    assert [a - c for a, c in zip(_bf16_counts(), before)] == [1, 2, 0, 0, 0]
+    assert _fp32_counts() == fp32
+    assert y.dtype == got[0].dtype == torch.bfloat16
+    assert _bf16_ulps(y, kconv.causal_conv1d_ref(x, w, bias)) <= 1
+    want = kconv.causal_conv1d_silu_bwd_ref(x, w, bias, g)
+    assert _bf16_ulps(got[0], want[0]) <= 1
+    for a, r in zip(got[1:], want[1:]):
+        assert a.dtype == torch.float32
+        _close_to_max(a, r, 1e-4)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d", [(2, 512, 768), (1, 100, 200), (3, 37, 96)])
+def test_bf16_scan_kernels_match_plain(cuda, b, l, d):
+    """The bf16 K2, K3 and K4 (B and C column views of a bf16 x_dbl): y within
+    one bf16 ulp of the plain version (floor 1e-2 of max|y|), K3's y equal to
+    K2's and its fp32 entry states within 1e-4 of the plain ones; K4's bf16
+    gradients (du, ddelta, dz, dB, dC) within 2 ulps at a floor of 2e-2 of
+    their max, its fp32 ones (dA, dD, ddelta_bias) within 1e-3 of their max,
+    two runs bitwise equal."""
+    rng = np.random.default_rng(l + d)
+    n = 16
+    bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
+    x_dbl = bf(_randn(rng, b, l, 3 + 2 * n, device=cuda))
+    u, delta, z, g = (bf(_randn(rng, b, l, d, device=cuda)) for _ in range(4))
+    A = -torch.exp(_randn(rng, d, n, device=cuda))
+    D, dt_bias = _randn(rng, d, device=cuda), _randn(rng, d, scale=0.1, device=cuda)
+    args = (u, delta, A, x_dbl[..., 3:3 + n], x_dbl[..., 3 + n:], D, z, dt_bias)
+    before, fp32 = _bf16_counts(), _fp32_counts()
+    y = kscan.selective_scan_fwd_bf16(*args)
+    y3, h3 = kscan.selective_scan_fwd_residuals_bf16(*args)
+    got = kscan.selective_scan_bwd_bf16(*args, g, h3)
+    again = kscan.selective_scan_bwd(*args, g, h3)
+    torch.cuda.synchronize()
+    assert [a - c for a, c in zip(_bf16_counts(), before)] == [0, 0, 1, 1, 2]
+    assert _fp32_counts() == fp32
+    assert y.dtype == torch.bfloat16 and h3.dtype == torch.float32 and torch.equal(y3, y)
+    assert _bf16_ulps(y, kscan.selective_scan_ref(*args[:5], D=D, z=z, delta_bias=dt_bias)) <= 1
+    _close_to_max(h3, kscan.selective_scan_fwd_residuals_ref(*args)[1], 1e-4)
+    want = kscan.selective_scan_bwd_ref(*args, g, h3)
+    for a, r, inp in zip(got, want, args):
+        assert a.dtype == inp.dtype
+        if a.dtype == torch.bfloat16:
+            assert _bf16_ulps(a, r, floor=2e-2) <= 2
+        else:
+            _close_to_max(a, r, 1e-3)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_bf16_model_kernel_path_matches_plain(cuda):
+    """A small perf-mode model (bf16, subspace) on the card: an eval forward
+    launches only the bf16 K1 and K2, a train step only the bf16 K1, K3, K4
+    and K5, and the eval logits are within 3e-2 of the max of the plain route
+    ('seq': the plain conv with bf16 weights, the sequential scan)."""
+    cfg = dict(trans_dim=64, encoder_dims=64, depth=2, cls_dim=8, num_group=32,
+               group_size=16, drop_path=0.0, cls_head_dropout=0.0, dtype="bfloat16",
+               spectral_method="subspace")
+    model = PointMamba(PointMambaConfig(**cfg), generator=torch.Generator().manual_seed(3))
+    model = model.to(cuda)
+    plain = PointMamba(PointMambaConfig(**cfg, scan_impl="seq")).to(cuda)
+    plain.load_state_dict(model.state_dict())
+    pts = _randn(np.random.default_rng(4), 4, 512, 3, device=cuda)
+    before, fp32 = _bf16_counts(), _fp32_counts()
+    with torch.no_grad():
+        logits = model.eval()(pts)
+        want = plain.eval()(pts)
+    torch.cuda.synchronize()
+    assert [a - c for a, c in zip(_bf16_counts(), before)] == [2, 0, 2, 0, 0]
+    assert logits.dtype == torch.bfloat16
+    _close_to_max(logits.float(), want.float(), 3e-2)
+    before = _bf16_counts()
+    loss = model.train()(pts).float().square().mean()
+    loss.backward()
+    torch.cuda.synchronize()
+    assert [a - c for a, c in zip(_bf16_counts(), before)] == [2, 2, 0, 2, 2]
+    assert _fp32_counts() == fp32
+    assert all(p.grad is not None and p.grad.dtype == torch.float32 and
+               torch.isfinite(p.grad).all() for p in model.parameters())

@@ -199,8 +199,11 @@ def test_mixer_rejects_unported_impls_and_dtypes():
     x = torch.zeros(1, 4, 16)
     with pytest.raises(NotImplementedError, match="M6b"):
         tss.mamba_mixer_apply(p, x, d_state=4, dt_rank=2, impl="assoc")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        tss.mamba_mixer_apply(p, x.bfloat16(), d_state=4, dt_rank=2)
+    with pytest.raises(NotImplementedError, match="float16"):
+        tss.mamba_mixer_apply(p, x.half(), d_state=4, dt_rank=2)
+    for impl in ("fused", "fused_interpret"):  # no bf16 K10/K11 yet
+        with pytest.raises(NotImplementedError, match="queue 2"):
+            tss.mamba_mixer_apply(p, x.bfloat16(), d_state=4, dt_rank=2, impl=impl)
 
 
 # ---------------------------------------------------------------------------

@@ -153,11 +153,27 @@ def test_fresh_model_is_seeded_and_finite():
 @pytest.mark.parametrize("override", [dict(method="HLT"), dict(add_after_layer=True),
                                       dict(mixer="ssd", add_after_layer=True),
                                       dict(tp_axis="model", add_after_layer=True),
-                                      dict(dtype="bfloat16"), dict(spectral_method="subspace"),
+                                      dict(dtype="float16"),
+                                      dict(dtype="bfloat16", scan_impl="fused"),
+                                      dict(dtype="bfloat16", mixer="ssd"),
+                                      dict(dtype="bfloat16", tp_axis="model"),
                                       dict(reverse_3=True)])
 def test_unported_options_raise(override):
     with pytest.raises(NotImplementedError):
         PointMamba(PointMambaConfig(**SMALL, **override))
+
+
+@pytest.mark.parametrize("override", [dict(dtype="bfloat16"), dict(spectral_method="subspace"),
+                                      dict(dtype="bfloat16", spectral_method="subspace")])
+def test_perf_mode_options_build_and_run(override):
+    """bf16 and the subspace eigensolver (perf mode) build and give finite
+    logits in the activation dtype; tests/test_torch_port_perf.py holds them
+    against the JAX package."""
+    model = PointMamba(PointMambaConfig(**SMALL, **override)).eval()
+    with torch.no_grad():
+        logits = model(torch.from_numpy(_clouds(2, 256, seed=6)))
+    assert logits.dtype == getattr(torch, override.get("dtype", "float32"))
+    assert logits.shape == (2, 10) and torch.isfinite(logits.float()).all()
 
 
 @pytest.mark.parametrize("bn_momentum", [None, 0.7])

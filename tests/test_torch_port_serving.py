@@ -85,8 +85,16 @@ def test_predictor_from_checkpoint(tmp_path, source):
 def test_predictor_from_checkpoint_unported_sources(tmp_path):
     with pytest.raises(NotImplementedError, match="orbax"):
         Predictor.from_checkpoint(str(tmp_path / "ckpt-best"), model_cfg=CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="perf"):
-        Predictor.from_checkpoint("x.pth", model_cfg=CFG, perf=True, device="cpu")
+    # perf mode serves: bf16 activations and the subspace eigensolver
+    # (tests/test_torch_port_perf.py holds its logits against the JAX package)
+    sd = {k: v.numpy() for k, v in PointMamba(PointMambaConfig(**CFG)).state_dict().items()}
+    p = Predictor.from_checkpoint(sd, model_cfg=CFG, npoints=128, max_batch=4, perf=True,
+                                  device="cpu")
+    assert (p.model.config.dtype, p.model.config.spectral_method) == ("bfloat16", "subspace")
+    clouds = np.random.default_rng(2).standard_normal((3, 128, 3)).astype(np.float32)
+    logits = p.logits(clouds)
+    assert logits.dtype == np.float32 and logits.shape == (3, CFG["cls_dim"])
+    assert np.isfinite(logits).all()
 
 
 # ---------------------------------------------------------------------------
