@@ -10,7 +10,7 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
 
 1. device: requires CUDA, prints ``nvidia-smi``'s name and power limit, turns
    TF32 off for matmuls and convolutions;
-2. build: the seven CUDA sources (K1-K5 each with its fp32 and bf16
+2. build: the seven CUDA sources (K1-K9 each with its fp32 and bf16
    variants), one ``nvcc`` each, in parallel, before
    any rank of phases 11-14 starts;
 3. kernels: at the serving path's full-width shapes (B=32, L=512, d_inner=768,
@@ -158,15 +158,50 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
 18. the perf preset through the CLI (after phase 15, on its tree):
    cfgs/finetune_modelnet_perf.yaml at max_epoch 0, two steps and a
    validation, launches counted, the epoch's loss finite.
+19. the SSD presets' kernels (after phase 16): the bf16 K1 and K5 at the SSD
+   view (row stride 1798: rows not 16-byte aligned, one channel a thread for
+   K1) and at the tensor-parallel operands (384 and 256 wide), then the bf16
+   K8 (lean, also at B = 1, 20 and 64, and with states), K9, and at the
+   tensor-parallel shard and at phase 22's shapes (a rank's 256 rows, 6
+   heads, chunk 128) the bf16 K6 (lean, with states, with h_fin, with
+   both; the same y from each) and K7 (from 0, seeded), each backward twice,
+   bitwise equal; each against its plain version at bf16 (a bf16 output
+   within 2 bf16 ulps at a floor of 2e-2 of its max, an fp32 output within
+   1e-3 of its max), timed beside it with the fp32 kernel's time of this
+   run, ``bound_ms`` from its bf16 bytes and its bf16 products at the dense
+   bf16 peak plus its 3xTF32 ones;
+20. SSD perf serving and train (after phase 9): the SSD classifier at the
+   presets' settings (bf16, subspace; ``Predictor.from_checkpoint(perf=True)``)
+   through phases 5-7: every forward launches the bf16 conv and lean bf16 K8
+   12 times each and nothing else, logits and features within
+   PERF_LOGITS_TOL of 'xla' at bf16; every step the bf16 conv forward and
+   backward, K8 with states and K9 12 times each; then (after phase 18)
+   cfgs/finetune_modelnet_ssd_fused.yaml as the file stands through the CLI
+   (one epoch of two steps and a validation) and ``--test`` of its
+   ckpt-last.pth, launches counted, its accuracy the last validation's;
+21. (on the two ranks, after phase 14) the SSD presets' classifier with its
+   mixers over the model axis: one forward of 20 clouds (the bf16 conv 24
+   and the lean bf16 K6 12 times a rank, logits against the single-process
+   bf16 'xla' model), then two train steps at batch 32 (the bf16 conv forward
+   and backward 24, the bf16 K6 with states and K7 12 times a rank), losses
+   equal on both ranks;
+22. (on the two ranks) ``ssd_seq_parallel`` at bf16 at phase 13's shapes: the
+   bf16 K6 with h_fin once a rank without a gradient, with one the bf16 K6
+   with states and h_fin and the seeded bf16 K7; y and every gradient
+   against the same program on CPU copies of the inputs (the kernels' plain
+   versions), then, for the carry across ranks, against the single-process
+   bf16 split core on the card.
 
 Each path (serving, train, perf serving, perf train, SSD serving, SSD train,
-fused serving, fused train, the harness's finetune, test and vote runs, the
-perf preset's CLI run, and on each rank TP SSD
-serving, TP SSD train, SP, SP train, TP Mamba-1 serving) is driven with every
-launch count set to 0 just before it and read just after. The last five
+SSD perf serving, SSD perf train, fused serving, fused train, the harness's
+finetune, test and vote runs, the perf and SSD presets' CLI runs and the
+latter's test run, and on each rank TP SSD serving, TP SSD train, SP, SP
+train, TP Mamba-1 serving, bf16 TP SSD serving and train, bf16 SP and SP
+train) is driven with every launch count set to 0 just before it and read
+just after. The last five
 lines of standard output are the harness's record, the serving, profile,
-train and gradient record of the three models (and perf mode's serving,
-profile, train and CLI record), the kernels' record (each one
+train and gradient record of the three models (and perf mode's and the SSD
+presets' serving, profile, train and CLI records), the kernels' record (each one
 JSON object; every kernel names its ``main_path`` and its launches on every
 path, rank 0's for the parallel paths), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -198,7 +233,7 @@ MODELNET40 = dict(trans_dim=384, depth=12, cls_dim=40, group_size=32, num_group=
                   binary=True, matrix="laplacian", add_after_layer=False)
 # The SSD classifier: the same model with the SSD lines of
 # cfgs/finetune_modelnet_ssd.yaml:12 and cfgs/finetune_modelnet_ssd_fused.yaml:11,15,
-# at fp32 with exact eigh (the preset's bf16 and subspace switches are perf mode).
+# at fp32 with exact eigh (the presets' bf16 and subspace switches are perf mode).
 MODELNET40_SSD = dict(MODELNET40, mixer="ssd", ssd_chunk=256, scan_impl="ssd_fused")
 # The whole-mixer route: the ModelNet40 model with scan_impl 'fused' (the JAX
 # package's opt-in `mamba_mixer_apply(impl='fused')`).
@@ -207,6 +242,9 @@ MODELNET40_FUSED = dict(MODELNET40, scan_impl="fused")
 # switches (bf16 activations, the subspace eigensolver), which
 # Predictor.from_checkpoint(perf=True) sets.
 MODELNET40_PERF = dict(MODELNET40, dtype="bfloat16", spectral_method="subspace")
+# The SSD presets as shipped: the SSD classifier with perf mode's two switches,
+# which cfgs/finetune_modelnet_ssd.yaml inherits from finetune_modelnet_perf.yaml.
+MODELNET40_SSD_PERF = dict(MODELNET40_SSD, dtype="bfloat16", spectral_method="subspace")
 NPOINTS = 1024
 REQUEST_SIZES = (1, 20, 64)
 REPEATS = 5
@@ -224,6 +262,10 @@ EVAL_KERNELS = ("causal_conv1d_silu", "selective_scan_fwd")
 PERF_TRAIN_KERNELS = ("causal_conv1d_silu_bf16", "selective_scan_fwd_residuals_bf16",
                       "selective_scan_bwd_bf16", "causal_conv1d_silu_bwd_bf16")
 PERF_EVAL_KERNELS = ("causal_conv1d_silu_bf16", "selective_scan_fwd_bf16")
+# the SSD presets' kernels: a train step's, an eval forward's
+SSD_PERF_TRAIN_KERNELS = ("causal_conv1d_silu_bf16", "ssd_xbc_fwd_states_bf16", "ssd_xbc_bwd_bf16",
+                          "causal_conv1d_silu_bwd_bf16")
+SSD_PERF_EVAL_KERNELS = ("causal_conv1d_silu_bf16", "ssd_xbc_fwd_bf16")
 # Perf mode's logits and pooled features, kernel route against the plain one
 # ('seq') on the card, within this share of their max: bf16 keeps 8
 # significant bits (a rounding moves a value up to 2^-9 = 0.2 %), and the two
@@ -232,10 +274,11 @@ PERF_EVAL_KERNELS = ("causal_conv1d_silu_bf16", "selective_scan_fwd_bf16")
 PERF_LOGITS_TOL = 5e-2
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 (non-tensor) op/s and
-# dense TF32 tensor-core op/s.
+# dense TF32 and bf16 tensor-core op/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
+BF16_OPS_PER_S = 989e12
 
 
 def log(msg: str) -> None:
@@ -600,7 +643,7 @@ def bf16_kernel_phase(device) -> list[dict]:
     xz, w, b, args = perf_operands(device)
     x = xz[..., :w.shape[0]]
     B, L, D = x.shape
-    W, n = w.shape[1], args[2].shape[1]
+    n = args[2].shape[1]
     g = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (B, L, D), dtype=np.float32)).to(device, torch.bfloat16)
     records = []
@@ -614,52 +657,14 @@ def bf16_kernel_phase(device) -> list[dict]:
             raise AssertionError(f"{name}: {_rel_err(got, want)} from the plain version")
         return (got.float() - want.float()).abs().max().item()
 
-    # K1, bf16
-    y = kc.causal_conv1d_silu_bf16(x, w, b)
-    err1 = check("bf16 conv forward", y, kc.causal_conv1d_ref(x, w, b))
-    xt, w3, b16 = x.transpose(1, 2), w.to(torch.bfloat16)[:, None, :], b.to(torch.bfloat16)
-    bound_ms, bound_by = bound(2 * B * L * D * 2 + D * (W + 1) * 4, B * L * D * (2 * W + 5))
-    records.append(dict(
-        name="causal_conv1d_silu_bf16", route="cuda",
-        source="si_mamba_tpu_torch/csrc/causal_conv.cu",
-        replaces="si_mamba_tpu/ops/pallas/causal_conv_kernel.py:52", dtype="bfloat16",
-        shape=[B, L, D], row_stride=x.stride(1), vector=kc.fwd_bf16_vector(x), max_abs_err=err1,
-        ms=time_ms(lambda: kc.causal_conv1d_silu_bf16(x, w, b), 50),
-        device_ms=graph_ms(lambda: kc.causal_conv1d_silu_bf16(x, w, b), 20),
-        plain_ms=time_ms(lambda: kc.causal_conv1d_ref(x, w, b), 20),
-        library_ms=time_ms(lambda: F.silu(F.conv1d(xt, w3, b16, padding=W - 1,
-                                                   groups=D)[..., :L]), 20),
-        bound_ms=bound_ms, bound_by=bound_by))
-
-    # K5, bf16: two runs bitwise equal
-    bargs = (x, w, b, g)
-    got = kc.causal_conv1d_silu_bwd_bf16(*bargs)
-    again = kc.causal_conv1d_silu_bwd_bf16(*bargs)
-    want = kc.causal_conv1d_silu_bwd_ref(*bargs)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, c) for a, c in zip(got, again)):
-        raise AssertionError("two bf16 conv backward runs on the same inputs differ")
-    err5 = max(check(f"bf16 conv backward {k}", a, r) for k, a, r in zip(("dx", "dw", "db"),
-                                                                         got, want))
-    x_lib = xt.detach().requires_grad_()
-    w_lib, b_lib = (t.detach().clone().requires_grad_() for t in (w3, b16))
-    y_lib = F.silu(F.conv1d(x_lib, w_lib, b_lib, padding=W - 1, groups=D)[..., :L])
-    plan = kc.bwd_plan(x, g, W, torch.cuda.get_device_properties(device).multi_processor_count)
-    bound_ms, bound_by = bound(3 * B * L * D * 2 + 2 * D * (W + 1) * 4, B * L * D * (6 * W + 11))
-    records.append(dict(
-        name="causal_conv1d_silu_bwd_bf16", route="cuda",
-        source="si_mamba_tpu_torch/csrc/causal_conv.cu",
-        replaces="si_mamba_tpu/ops/pallas/causal_conv_kernel.py:58", dtype="bfloat16",
-        shape=[B, L, D], row_stride=x.stride(1),
-        plan=dict(vx=plan.vx, vg=plan.vg, tile=plan.tile), max_abs_err=err5,
-        ms=time_ms(lambda: kc.causal_conv1d_silu_bwd_bf16(*bargs), 50),
-        device_ms=graph_ms(lambda: kc.causal_conv1d_silu_bwd_bf16(*bargs), 20),
-        plain_ms=time_ms(lambda: kc.causal_conv1d_silu_bwd_ref(*bargs), 10),
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            y_lib, (x_lib, w_lib, b_lib), g.transpose(1, 2), retain_graph=True), 20),
-        bound_ms=bound_ms, bound_by=bound_by))
-    log(f"bf16 conv: forward max |diff| {err1:.3e} ({kc.fwd_bf16_vector(x)} channels a "
-        f"thread), backward {err5:.3e}, two runs bitwise equal, plan {records[-1]['plan']}")
+    # K1 and K5, bf16 (K5 run twice, bitwise equal)
+    fwd, bwd = bf16_conv_figures(x, w, b, g)
+    source, replaces = ("si_mamba_tpu_torch/csrc/causal_conv.cu",
+                        "si_mamba_tpu/ops/pallas/causal_conv_kernel.py:")
+    records.append(dict(name="causal_conv1d_silu_bf16", route="cuda", source=source,
+                        replaces=replaces + "52", dtype="bfloat16", **fwd))
+    records.append(dict(name="causal_conv1d_silu_bwd_bf16", route="cuda", source=source,
+                        replaces=replaces + "58", dtype="bfloat16", **bwd))
 
     # K2, bf16, at the train batch and each serving request size
     def scan_fwd_bf16(a) -> dict:
@@ -916,10 +921,14 @@ def _split_bounds(B, L, h, chunk, n=128, hp=128):
     return fwd_ops, fwd_bytes, bwd_ops, bwd_bytes
 
 
-def _split_operands(device, heads: int, batch: int = 32, chunk: int = MODELNET40_SSD["ssd_chunk"]):
+def _split_operands(device, heads: int, batch: int = 32, chunk: int = MODELNET40_SSD["ssd_chunk"],
+                    dtype=torch.float32):
     """The split core's operands at B=batch, L=512 as the mixers make them
     (dt and S cut into chunks of ``chunk``, the SSD classifier's 256 unless
-    given). For
+    given), at the activation ``dtype`` (bf16: as the bf16 mixers make them,
+    matmul weights cast to bf16, the conv kernels on the fp32 conv weights of
+    the full mixer and on the bf16-rounded ones of the tensor-parallel one,
+    dt fp32 from the fp32 dt_raw). For
     3 heads (the tensor-parallel shard at TP = 2): x the x conv's output and
     B, C the two halves of the B|C conv's output (row stride 256), from rank
     0's shard of layer 0's SSD mixer; for 6 heads: x, B and C the column
@@ -936,21 +945,27 @@ def _split_operands(device, heads: int, batch: int = 32, chunk: int = MODELNET40
     full = {k: v.detach().to(device) for k, v in mixer.params().items()}
     d, n = mixer.d_inner, mixer.d_state
     u = torch.from_numpy(np.random.default_rng(4).standard_normal(
-        (batch, 512, MODELNET40["trans_dim"]), dtype=np.float32)).to(device)
+        (batch, 512, MODELNET40["trans_dim"]), dtype=np.float32)).to(device, dtype)
+
+    def wc(w):  # a matmul weight at the activation dtype
+        return w.to(dtype)
+
     if heads == mixer.n_heads:
-        zxbcdt = u @ full["in_proj_w"]
+        zxbcdt = u @ wc(full["in_proj_w"])
         xbc = kc.causal_conv1d_silu_fwd(zxbcdt[..., d:2 * d + 2 * n], full["conv_w"],
                                         full["conv_b"])
         x, Bm, Cm = xbc[..., :d], xbc[..., d:d + n], xbc[..., d + n:]
-        dt = F.softplus(zxbcdt[..., 2 * d + 2 * n:] + full["dt_bias"])
+        dt = F.softplus(zxbcdt[..., 2 * d + 2 * n:].float() + full["dt_bias"])
         A, D = -torch.exp(full["A_log"]), full["D"]
     else:
         p = shard_ssd_mixer_params(full, 0, mixer.n_heads // heads, n_heads=mixer.n_heads,
                                    d_state=n)
-        x = kc.causal_conv1d_silu_fwd(u @ p["in_proj_x"], p["conv_x_w"], p["conv_x_b"])
-        bc = kc.causal_conv1d_silu_fwd(u @ p["in_proj_bc"], p["conv_bc_w"], p["conv_bc_b"])
+        x = kc.causal_conv1d_silu_fwd(u @ wc(p["in_proj_x"]), wc(p["conv_x_w"]).float(),
+                                      wc(p["conv_x_b"]).float())
+        bc = kc.causal_conv1d_silu_fwd(u @ wc(p["in_proj_bc"]), wc(p["conv_bc_w"]).float(),
+                                       wc(p["conv_bc_b"]).float())
         Bm, Cm, xbc = bc[..., :n], bc[..., n:], None
-        dt = F.softplus(u @ p["in_proj_dt"] + p["dt_bias"])
+        dt = F.softplus((u @ wc(p["in_proj_dt"])).float() + p["dt_bias"])
         A, D = -torch.exp(p["A_log"]), p["D"]
     B, L, h = dt.shape
     dth = dt.transpose(1, 2).reshape(B, h, L // chunk, chunk).contiguous()
@@ -1088,6 +1103,318 @@ def split_kernel_phase(device) -> list[dict]:
     log("at 6 heads (the full mixer's x|B|C block): " +
         ", ".join(f"{k} {v:.6f}" for k, v in six.items()))
     return records
+
+
+def bf16_tc_bound(bytes_moved: float, bf16_ops: float, tf32x3_ops: float) -> dict:
+    """``bound_ms`` and ``bound_by`` of a bf16 SSD kernel: the bytes over the
+    HBM rate, or its bf16 products at the dense bf16 tensor-core peak plus the
+    fp32 products it keeps as 3xTF32 (three TF32 products each) at the dense
+    TF32 peak, whichever is longer."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = (bf16_ops / BF16_OPS_PER_S + 3 * tf32x3_ops / TF32_OPS_PER_S) * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops
+                else "operations")
+
+
+def _ssd_bf16_work(B, L, h, chunk, n=128, hp=128, d_skip=False):
+    """The bf16 SSD kernels' work at these shapes, products the function needs
+    (lower triangles only, nothing whose operand is 0; as ``_split_bounds``):
+    {variant: (bytes, bf16 products' ops, 3xTF32 products' ops)} for the
+    forward by (states, h_fin) and the backward by seed, bf16 activations at
+    2 bytes, everything else fp32. At bf16 every forward product takes bf16
+    operands; the backward keeps fp32 (3xTF32) for dG B and dG^T C, the carry
+    (C E)^T dy, B dh and (dt x) dh^T, and takes bf16 operands for G, GM^T dy,
+    dy (dt x)^T and dy h_in^T. ``d_skip``: K8/K9's D terms (D read, dD
+    written)."""
+    nc, q, d = L // chunk, chunk, h * hp
+    tri = q * (q + 1)
+    state = 2 * q * n * hp
+    hin, hfin = B * nc * h * n * hp * 4, B * h * n * hp * 4
+    act = (2 * B * L * d + 2 * B * L * n) * 2  # x, B, C in, y out
+    small = 2 * B * h * L * 4 + (h * 4 if d_skip else 0)  # dt, S (and D)
+    fwd = {}
+    for st in (False, True):
+        for hf in (False, True):
+            ops = B * (nc * (tri * n + h * tri * hp)
+                       + h * state * ((nc - 1) + (nc if hf else nc - 1)))
+            fwd[(st, hf)] = (act + small + (hin if st else 0) + (hfin if hf else 0), ops, 0)
+    bwd = {}
+    for seed in (False, True):
+        bf16 = B * (nc * (tri * n + 2 * h * tri * hp) + (nc - 1) * h * state)
+        tf32 = B * (nc * 2 * tri * n + (nc - 1) * h * state
+                    + (nc if seed else nc - 1) * h * 2 * state)
+        moved = ((3 * B * L * d + 4 * B * L * n) * 2 + 4 * B * h * L * 4 + hin
+                 + (hfin if seed else 0) + (2 * h * 4 if d_skip else 0))
+        bwd[seed] = (moved, bf16, tf32)
+    return fwd, bwd
+
+
+def bf16_conv_figures(x, w, b, g) -> tuple[dict, dict]:
+    """The bf16 K1 and K5 on the bf16 view x (B, L, C) and output gradient g,
+    each held against its plain version (a bf16 output within one bf16 ulp at
+    a floor of 1e-2 of its max, dw and db within 1e-4 of their max; K5 run
+    twice, bitwise equal) and timed beside it and beside bf16
+    ``F.conv1d(groups=C)`` + ``F.silu`` (K5: its autograd backward), with its
+    vector width or plan and its bound (bf16 bytes, fp32 operations)."""
+    from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
+
+    B, L, C = x.shape
+    W = w.shape[1]
+    where = f"bf16 width {C}, row stride {x.stride(1)}"
+    y = kc.causal_conv1d_silu_bf16(x, w, b)
+    ulps = _bf16_ulps(y, kc.causal_conv1d_ref(x, w, b), 1e-2)
+    if ulps > 1:
+        raise AssertionError(f"bf16 conv forward at {where}: {ulps:.2f} ulps from its plain "
+                             f"version")
+    xt, w3, b16 = x.transpose(1, 2), w.to(torch.bfloat16)[:, None, :], b.to(torch.bfloat16)
+    bound_ms, bound_by = bound(2 * B * L * C * 2 + C * (W + 1) * 4, B * L * C * (2 * W + 5))
+    fwd = dict(shape=[B, L, C], row_stride=x.stride(1), vector=kc.fwd_bf16_vector(x),
+               max_abs_err=(y.float() - kc.causal_conv1d_ref(x, w, b).float()).abs().max().item(),
+               ms=time_ms(lambda: kc.causal_conv1d_silu_bf16(x, w, b), 50),
+               device_ms=graph_ms(lambda: kc.causal_conv1d_silu_bf16(x, w, b), 20),
+               plain_ms=time_ms(lambda: kc.causal_conv1d_ref(x, w, b), 20),
+               library_ms=time_ms(lambda: F.silu(F.conv1d(xt, w3, b16, padding=W - 1,
+                                                          groups=C)[..., :L]), 20),
+               bound_ms=bound_ms, bound_by=bound_by)
+    args = (x, w, b, g)
+    got, again = kc.causal_conv1d_silu_bwd_bf16(*args), kc.causal_conv1d_silu_bwd_bf16(*args)
+    want = kc.causal_conv1d_silu_bwd_ref(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(p, q) for p, q in zip(got, again)):
+        raise AssertionError(f"two bf16 conv backward runs at {where} differ")
+    if _bf16_ulps(got[0], want[0], 1e-2) > 1 or max(_rel_err(a, r)[1] for a, r in
+                                                    zip(got[1:], want[1:])) > 1e-4:
+        raise AssertionError(f"bf16 conv backward at {where} disagrees with its plain version")
+    plan = kc.bwd_plan(x, g, W, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    x_lib = xt.detach().requires_grad_()
+    w_lib, b_lib = (t.detach().clone().requires_grad_() for t in (w3, b16))
+    y_lib = F.silu(F.conv1d(x_lib, w_lib, b_lib, padding=W - 1, groups=C)[..., :L])
+    bound_ms, bound_by = bound(3 * B * L * C * 2 + 2 * C * (W + 1) * 4, B * L * C * (6 * W + 11))
+    bwd = dict(shape=[B, L, C], row_stride=x.stride(1),
+               plan=dict(vx=plan.vx, vg=plan.vg, tile=plan.tile),
+               max_abs_err=max((a.float() - r.float()).abs().max().item()
+                               for a, r in zip(got, want)),
+               ms=time_ms(lambda: kc.causal_conv1d_silu_bwd_bf16(*args), 50),
+               device_ms=graph_ms(lambda: kc.causal_conv1d_silu_bwd_bf16(*args), 20),
+               plain_ms=time_ms(lambda: kc.causal_conv1d_silu_bwd_ref(*args), 10),
+               library_ms=time_ms(lambda: torch.autograd.grad(
+                   y_lib, (x_lib, w_lib, b_lib), g.transpose(1, 2), retain_graph=True), 20),
+               bound_ms=bound_ms, bound_by=bound_by)
+    log(f"bf16 conv at {where}: forward {fwd['ms']:.6f} ms, device {fwd['device_ms']:.6f} ms "
+        f"({fwd['vector']} channels a thread, bound {fwd['bound_ms']:.6f}); backward "
+        f"{bwd['ms']:.6f} ms, device {bwd['device_ms']:.6f} ms (plan {bwd['plan']}, bound "
+        f"{bwd['bound_ms']:.6f}), two runs bitwise equal")
+    return fwd, bwd
+
+
+def _hold_bf16(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """The bf16 SSD kernels' tolerances against their plain versions: a bf16
+    output within 2 bf16 ulps at a floor of 2e-2 of its max, an fp32 output
+    (states, h_fin, ddt, dS, dD) within 1e-3 of its max. Returns max |diff|."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} against the plain "
+                             f"version's {want.dtype} {tuple(want.shape)}")
+    if got.dtype == torch.bfloat16:
+        err = _bf16_ulps(got, want, 2e-2)
+        if err > 2:
+            raise AssertionError(f"{name}: {err:.2f} bf16 ulps from the plain version")
+    elif _rel_err(got, want)[1] > 1e-3:
+        raise AssertionError(f"{name}: {_rel_err(got, want)} from the plain version")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def _hold_split_bf16(sargs, dy, dh_fin) -> tuple[dict, dict, dict]:
+    """Every bf16 K6 and K7 variant on ``sargs`` (x, dt, S, B, C, chunk),
+    each held against its plain version at bf16 (``_hold_bf16``): the four
+    forwards give the same y; both backwards (from 0, and seeded with
+    ``dh_fin``) for the output gradient ``dy`` on the forward's h_in run
+    twice, bitwise equal. Returns ({name: max |diff|}, {name: the kernel's
+    call}, {name: its plain version's call}), by the fp32 kernel's name."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    x, dth, S, Bm, Cm, chunk = sargs
+    y_ref, h_ref, hf_ref = kssd.ssd_split_fwd_ref(*sargs, emit_states=True, emit_hfin=True)
+    y_lean = kssd.ssd_split_fwd_bf16(*sargs)
+    errs, calls, plains, h_in = {}, {}, {}, None
+    where = f"{dth.shape[1]} heads, L {x.shape[1]}, chunk {chunk}"
+    for name, states, hfin in SPLIT_FWD:
+        fn = getattr(kssd, name + "_bf16")
+        out = fn(*sargs)
+        out = out if isinstance(out, tuple) else (out,)
+        torch.cuda.synchronize()
+        if not torch.equal(out[0], y_lean):
+            raise AssertionError(f"{name}_bf16's y differs from the lean forward's at {where}")
+        err = _hold_bf16(f"{name}_bf16 y at {where}", out[0], y_ref)
+        if states:
+            h_in = out[1]
+            err = max(err, _hold_bf16(f"{name}_bf16 h_in at {where}", out[1], h_ref))
+        if hfin:
+            err = max(err, _hold_bf16(f"{name}_bf16 h_fin at {where}", out[-1], hf_ref))
+        errs[name] = err
+        calls[name] = lambda fn=fn: fn(*sargs)
+        plains[name] = lambda st=states, hf=hfin: kssd.ssd_split_fwd_ref(
+            *sargs, emit_states=st, emit_hfin=hf)
+    for name, seeded in SPLIT_BWD:
+        fn = getattr(kssd, name + "_bf16")
+        call = (lambda fn=fn, extra=(dh_fin,) if seeded else (): fn(
+            x, dth, S, Bm, Cm, h_in, dy, *extra, chunk))
+        got, again = call(), call()
+        want = kssd.ssd_split_bwd_ref(x, dth, S, Bm, Cm, h_in, dy, chunk,
+                                      dh_fin=dh_fin if seeded else None)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"two {name}_bf16 runs on the same inputs differ at {where}")
+        errs[name] = max(_hold_bf16(f"{name}_bf16 {k} at {where}", a, w) for k, a, w in
+                         zip(("dx", "ddt", "dS", "dB", "dC"), got, want))
+        calls[name] = call
+        plains[name] = lambda seed=dh_fin if seeded else None: kssd.ssd_split_bwd_ref(
+            x, dth, S, Bm, Cm, h_in, dy, chunk, dh_fin=seed)
+    return errs, calls, plains
+
+
+def ssd_bf16_kernel_phase(device) -> tuple[list[dict], dict]:
+    """The SSD presets' kernels at bf16, as layer 0's bf16 SSD mixer makes
+    their inputs at B=32, L=512 (x @ in_proj in bf16): the bf16 K1 and K5 at
+    width 1024 on the column view of the (32, 512, 1798) in_proj output (row
+    stride 1798: 3596-byte rows, not 16-byte aligned) and at the tensor-
+    parallel step's two contiguous operands (the 384-wide x shard, the
+    256-wide B|C); then the bf16 K8 (lean, also at B = 1, 20 and 64, and with
+    states) and K9 (twice, bitwise equal) on K1's output, and the bf16 K6
+    (lean, with states, with h_fin, with both; the same y from each) and K7
+    (from 0 and seeded, each twice, bitwise equal) at the tensor-parallel
+    shard (3 heads) and at the sequence-parallel path's shapes (SP_SHAPE:
+    a rank's 256 rows, 6 heads, chunk 128; ``at_sp_shape``), each held
+    against its plain version at bf16 (``_hold_bf16``) and timed beside it,
+    with ``bound_ms`` from ``bf16_tc_bound``. Returns (the K6-K9 records, the
+    bf16 K1/K5 figures by kernel name and operand)."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    bf = torch.bfloat16
+    B, L = TRAIN_BATCH, 512
+    # K1 and K5 at the SSD view and at the tensor-parallel operands
+    from si_mamba_tpu_torch.models.layers import SSDMixer
+
+    mixer = SSDMixer(MODELNET40["trans_dim"], out_proj_div=MODELNET40["depth"] ** 0.5,
+                     chunk=MODELNET40_SSD["ssd_chunk"])
+    mixer.reset_parameters(torch.Generator().manual_seed(1))
+    p = {k: v.detach().to(device) for k, v in mixer.params().items()}
+    d, n = mixer.d_inner, mixer.d_state
+    rng = np.random.default_rng(14)
+    u = torch.from_numpy(rng.standard_normal((B, L, MODELNET40["trans_dim"]),
+                                             dtype=np.float32)).to(device, bf)
+    zxbcdt = u @ p["in_proj_w"].to(bf)
+    conv = {"causal_conv1d_silu_bf16": {}, "causal_conv1d_silu_bwd_bf16": {}}
+    views = {"ssd_view": (zxbcdt[..., d:2 * d + 2 * n], p["conv_w"], p["conv_b"])}
+    for what, C in (("x_shard", d // TP), ("bc", 2 * n)):
+        views[what] = (torch.from_numpy(rng.standard_normal((B, L, C), dtype=np.float32))
+                       .to(device, bf),
+                       torch.from_numpy((rng.standard_normal((C, 4)) * 0.5).astype(np.float32))
+                       .to(device, bf).float(),
+                       torch.from_numpy((rng.standard_normal(C) * 0.1).astype(np.float32))
+                       .to(device, bf).float())
+    for what, (x, w, b) in views.items():
+        g = torch.from_numpy(rng.standard_normal(x.shape, dtype=np.float32)).to(device, bf)
+        fwd, bwd = bf16_conv_figures(x, w, b, g)
+        conv["causal_conv1d_silu_bf16"][what] = fwd
+        conv["causal_conv1d_silu_bwd_bf16"][what] = bwd
+
+    records = []
+
+    def record(name, fn, plain, err, work, **extra):
+        fwd = "fwd" in name
+        records.append(dict(
+            name=name, route="cuda", dtype="bfloat16",
+            source="si_mamba_tpu_torch/csrc/ssd_xbc_" + ("fwd.cu" if fwd else "bwd.cu"),
+            replaces="si_mamba_tpu/ops/pallas/ssd_kernel.py:" + (
+                ("540" if fwd else "623") if name.startswith("ssd_xbc") else
+                ("119" if fwd else "216")),
+            max_abs_err=err, ms=time_ms(fn, 20 if fwd else 10),
+            device_ms=graph_ms(fn, 20 if fwd else 10),
+            plain_ms=time_ms(plain, 3 if fwd else 2, warmup=1), library_ms=None,
+            **bf16_tc_bound(*work), **extra))
+
+    # K8 and K9 on the bf16 K1's output at the SSD view
+    x6, dth, S, _, _, xbc, D, chunk = _split_operands(device, heads=6, batch=B, dtype=bf)
+    h = dth.shape[1]
+    args = (xbc, dth, S, D, d, chunk)
+    y_lean = kssd.ssd_xbc_fwd_bf16(*args)
+    y, h_in = kssd.ssd_xbc_fwd_states_bf16(*args)
+    y_ref, h_ref = kssd.ssd_xbc_fwd_ref(*args, emit_states=True)
+    torch.cuda.synchronize()
+    if not torch.equal(y, y_lean):
+        raise AssertionError("the bf16 SSD forward with states differs from the lean one")
+    err_y, err_h = _hold_bf16("bf16 K8 y", y, y_ref), _hold_bf16("bf16 K8 h_in", h_in, h_ref)
+    fwd_work, bwd_work = _ssd_bf16_work(B, L, h, chunk, d_skip=True)
+    at_clouds = {}
+    for batch in REQUEST_SIZES:
+        a = _split_operands(device, heads=6, batch=batch, dtype=bf)
+        a_args = (a[5], a[1], a[2], a[6], d, chunk)
+        err = _hold_bf16(f"bf16 K8 at B={batch}", kssd.ssd_xbc_fwd_bf16(*a_args),
+                         kssd.ssd_xbc_fwd_ref(*a_args)[0])
+        at_clouds[batch] = dict(max_abs_err=err,
+                                ms=time_ms(lambda: kssd.ssd_xbc_fwd_bf16(*a_args), 20),
+                                device_ms=graph_ms(lambda: kssd.ssd_xbc_fwd_bf16(*a_args), 20))
+    record("ssd_xbc_fwd_bf16", lambda: kssd.ssd_xbc_fwd_bf16(*args),
+           lambda: kssd.ssd_xbc_fwd_ref(*args), err_y, fwd_work[(False, False)],
+           at_clouds=at_clouds)
+    record("ssd_xbc_fwd_states_bf16", lambda: kssd.ssd_xbc_fwd_states_bf16(*args),
+           lambda: kssd.ssd_xbc_fwd_ref(*args, emit_states=True), max(err_y, err_h),
+           fwd_work[(True, False)])
+    dy = torch.from_numpy(rng.standard_normal((B, L, d), dtype=np.float32)).to(device, bf)
+    bwd_args = (xbc, dth, S, D, h_in, dy, d, chunk)
+    got, again = kssd.ssd_xbc_bwd_bf16(*bwd_args), kssd.ssd_xbc_bwd_bf16(*bwd_args)
+    want = kssd.ssd_xbc_bwd_ref(*bwd_args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError("two bf16 SSD backward runs on the same inputs differ")
+    err9 = max(_hold_bf16(f"bf16 K9 {k}", a, w) for k, a, w in
+               zip(("dxbc", "ddt", "dS", "dD"), got, want))
+    record("ssd_xbc_bwd_bf16", lambda: kssd.ssd_xbc_bwd_bf16(*bwd_args),
+           lambda: kssd.ssd_xbc_bwd_ref(*bwd_args), err9, bwd_work[False])
+
+    # K6 and K7 at the tensor-parallel shard, and at the sequence-parallel
+    # path's shapes: rank 0's 256 rows of the full mixer's 6 heads, chunk 128
+    x, dth, S, Bm, Cm, _, _, chunk = _split_operands(device, heads=3, batch=B, dtype=bf)
+    h = dth.shape[1]
+    sargs = (x, dth, S, Bm, Cm, chunk)
+    dy = torch.from_numpy(rng.standard_normal((B, L, x.shape[-1]), dtype=np.float32)).to(device, bf)
+    dh_fin = torch.from_numpy(0.1 * rng.standard_normal((B, h, n, 128),
+                                                        dtype=np.float32)).to(device)
+    errs, calls, plains = _hold_split_bf16(sargs, dy, dh_fin)
+    sp_l, sp_chunk, sp_h = SP_SHAPE["L"] // TP, SP_SHAPE["chunk"], SP_SHAPE["h"]
+    x6, dth6, S6, B6, C6, *_ = _split_operands(device, heads=sp_h, batch=B, chunk=sp_chunk,
+                                               dtype=bf)
+    cut = sp_l // sp_chunk
+    sp_args = (x6[:, :sp_l].contiguous(), dth6[:, :, :cut].contiguous(),
+               S6[:, :, :cut].contiguous(), B6[:, :sp_l].contiguous(),
+               C6[:, :sp_l].contiguous(), sp_chunk)
+    sp_dy = torch.from_numpy(rng.standard_normal((B, sp_l, x6.shape[-1]), dtype=np.float32)
+                             ).to(device, bf)
+    sp_seed = torch.from_numpy(0.1 * rng.standard_normal((B, sp_h, n, 128),
+                                                         dtype=np.float32)).to(device)
+    sp_errs, sp_calls, _ = _hold_split_bf16(sp_args, sp_dy, sp_seed)
+    sp_shape = dict(B=B, L=sp_l, heads=sp_h, chunk=sp_chunk)
+    fwd_work, bwd_work = _ssd_bf16_work(B, L, h, chunk)
+    sp_fwd_work, sp_bwd_work = _ssd_bf16_work(B, sp_l, sp_h, sp_chunk)
+    for name, states, hfin in SPLIT_FWD:
+        at_sp = dict(shape=sp_shape, max_abs_err=sp_errs[name],
+                     ms=time_ms(sp_calls[name], 20), device_ms=graph_ms(sp_calls[name], 20),
+                     **bf16_tc_bound(*sp_fwd_work[(states, hfin)]))
+        record(name + "_bf16", calls[name], plains[name], errs[name],
+               fwd_work[(states, hfin)], shape=dict(B=B, L=L, heads=h, chunk=chunk),
+               at_sp_shape=at_sp)
+    for name, seeded in SPLIT_BWD:
+        at_sp = dict(shape=sp_shape, max_abs_err=sp_errs[name],
+                     ms=time_ms(sp_calls[name], 10), device_ms=graph_ms(sp_calls[name], 10),
+                     **bf16_tc_bound(*sp_bwd_work[seeded]))
+        record(name + "_bf16", calls[name], plains[name], errs[name], bwd_work[seeded],
+               shape=dict(B=B, L=L, heads=h, chunk=chunk), at_sp_shape=at_sp)
+    for r in records:
+        log(f"{r['name']}: {r['ms']:.6f} ms, device {r['device_ms']:.6f} ms (plain "
+            f"{r['plain_ms']:.6f}, bound {r['bound_ms']:.6f} by {r['bound_by']}), max |diff| "
+            f"{r['max_abs_err']:.3e}" + ("" if "at_sp_shape" not in r else
+                                         f"; at the SP shape {r['at_sp_shape']}"))
+    return records, conv
 
 
 def per_op_interior(xz, p, dt_rank: int, n: int):
@@ -1296,7 +1623,14 @@ def _wrappers() -> dict:
             "ssd_split_fwd_hfin": kssd.ssd_split_fwd_hfin,
             "ssd_split_fwd_states_hfin": kssd.ssd_split_fwd_states_hfin,
             "ssd_split_bwd": kssd.ssd_split_bwd,
-            "ssd_split_bwd_seeded": kssd.ssd_split_bwd_seeded}
+            "ssd_split_bwd_seeded": kssd.ssd_split_bwd_seeded,
+            **{name + "_bf16": getattr(kssd, name + "_bf16") for name in SSD_NAMES}}
+
+
+# the SSD kernels' wrappers by name, each with a ``_bf16`` twin
+SSD_NAMES = ("ssd_xbc_fwd", "ssd_xbc_fwd_states", "ssd_xbc_bwd", "ssd_split_fwd",
+             "ssd_split_fwd_states", "ssd_split_fwd_hfin", "ssd_split_fwd_states_hfin",
+             "ssd_split_bwd", "ssd_split_bwd_seeded")
 
 
 def _launch_counts() -> dict[str, int]:
@@ -1952,6 +2286,176 @@ def sp_rank(device, rank: int) -> tuple[dict, dict, dict]:
         "fwd_bwd_ms": train_ms, "rel_err_of_max": {k: v[1] for k, v in errs.items()}}
 
 
+TP_PERF_STEPS = 2  # phase 21's bf16 tensor-parallel train steps
+
+
+def tp_ssd_perf_rank(device, mesh, rank: int) -> tuple[dict, dict, dict]:
+    """Phase 21: the SSD presets' classifier (bf16, subspace) with its mixers
+    over the 2-rank model axis. One forward of 20 clouds must launch the bf16
+    conv 24 times and the lean bf16 K6 12 times, nothing else, its logits
+    within PERF_LOGITS_TOL of the single-process bf16 'xla' model's; then
+    TP_PERF_STEPS finetune steps at batch 32 from 8192-point clouds, each
+    launching the bf16 conv forward and backward 24 times and the bf16 K6
+    with states and K7 12 times, nothing else, every loss finite. Returns
+    (the forward's launches, the steps' launches, record)."""
+    from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
+    from si_mamba_tpu_torch.train.optim import build_optimizer
+    from si_mamba_tpu_torch.train.runner_finetune import make_train_step
+    from si_mamba_tpu_torch.train.train_state import TrainState
+
+    base = MODELNET40_SSD_PERF
+    sd = _full_state(base, seed=0)
+    model = _tp_model(base, mesh, sd, rank).to(device)
+    pts = torch.from_numpy(clouds(20, seed=20)).to(device)
+    with torch.inference_mode():
+        model.eval()(pts)  # warm-up
+        torch.cuda.synchronize()
+        _reset_launch_counts()  # the bf16 TP serving path
+        t0 = time.perf_counter()
+        logits = model(pts)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        fwd_launches = _launch_counts()
+    want = _counts_expect({"causal_conv1d_silu_bf16": 24, "ssd_split_fwd_bf16": 12}, 1)
+    if fwd_launches != want:
+        raise AssertionError(f"rank {rank}: bf16 TP forward launched {fwd_launches}, "
+                             f"expected {want}")
+    plain = PointMamba(PointMambaConfig.from_dict({**base, "scan_impl": "xla"}))
+    plain.load_state_dict(sd, strict=True)
+    with torch.inference_mode():
+        ref = plain.to(device).eval()(pts).float()
+    logits = logits.float()
+    scale, err = ref.abs().max().item(), (logits - ref).abs().max().item()
+    if not torch.allclose(logits, ref, atol=PERF_LOGITS_TOL * scale, rtol=PERF_LOGITS_TOL):
+        raise AssertionError(f"rank {rank}: bf16 TP logits disagree with the single-process "
+                             f"'xla' model: max |diff| {err}, max |logit| {scale}")
+    del plain
+
+    model.train()
+    optimizer, _ = build_optimizer(model, opt_type="AdamW", lr=3e-4, weight_decay=0.05,
+                                   epochs=300, warmup_epochs=10, steps_per_epoch=2,
+                                   grad_clip=10.0, tp=model.tp_sharding())
+    state = TrainState.create(model, optimizer)
+    step = make_train_step(model, NPOINTS, rotation=False)
+    pts_np, labels_np = _train_clouds(TRAIN_BATCH, seed=7)
+    points, labels = torch.from_numpy(pts_np).to(device), torch.from_numpy(labels_np).to(device)
+    generator = torch.Generator(device=device).manual_seed(0)
+    expect = _counts_expect({"causal_conv1d_silu_bf16": 24, "causal_conv1d_silu_bwd_bf16": 24,
+                             "ssd_split_fwd_states_bf16": 12, "ssd_split_bwd_bf16": 12}, 1)
+    torch.cuda.synchronize()
+    _reset_launch_counts()  # the bf16 TP train path
+    times, losses = [], []
+    for i in range(TP_PERF_STEPS):
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, points, labels, generator)
+        losses.append(metrics["loss"].item())
+        times.append(time.perf_counter() - t0)
+        now = _launch_counts()
+        got = {k: now[k] - before[k] for k in now}
+        if got != expect or not np.isfinite(losses[-1]):
+            raise AssertionError(f"rank {rank}: bf16 TP train step {i + 1} launched {got} "
+                                 f"(expected {expect}), loss {losses[-1]}")
+    train_launches = _launch_counts()
+    record = {"forward_clouds": 20, "forward_ms": fwd_ms, "logits_max_abs_diff": err,
+              "logits_max_abs": scale, "train_batch": TRAIN_BATCH, "train_steps": TP_PERF_STEPS,
+              "step_ms": [t * 1e3 for t in times], "losses": losses}
+    if rank == 0:
+        log(f"rank 0: bf16 TP SSD ok: forward of 20 clouds {fwd_ms:.3f} ms, logits vs 'xla' "
+            f"max |diff| {err:.3e} (max {scale:.3e}); steps {record['step_ms']} ms, losses "
+            f"{losses}")
+    return fwd_launches, train_launches, record
+
+
+def sp_bf16_rank(device, rank: int) -> tuple[dict, dict, dict]:
+    """Phase 22: ``ssd_seq_parallel(impl='ssd_fused')`` at bf16 (x, B, C bf16;
+    dt, A, D fp32) on 2 ranks at the shapes of phase 13. Without a gradient
+    it must launch the bf16 K6 with h_fin once a rank, with one the bf16 K6
+    with states and h_fin and the seeded bf16 K7 once each. Held against the
+    same program on CPU copies of the same inputs, where each wrapper takes
+    its kernel's plain version (the rank-0 carry and the dh_fin seed the
+    plain run's own): y within 1e-2 of its max, every gradient within 3e-2
+    (the per-head A and D, sums over every token, within 6e-2). Then the
+    carry across ranks: the same within the same tolerances of the
+    single-process bf16 split core on the card over the whole sequence
+    (``ssd_chunked_split``, no carry across ranks)."""
+    from si_mamba_tpu_torch.ops.kernels.ssd import ssd_chunked_split
+    from si_mamba_tpu_torch.parallel import make_mesh
+    from si_mamba_tpu_torch.parallel.seq_scan import ssd_seq_parallel
+
+    mesh = make_mesh(("seq",), (TP,))
+    B, L, h, p, n, chunk = (SP_SHAPE[k] for k in ("B", "L", "h", "p", "n", "chunk"))
+    rng = np.random.default_rng(23)
+    host = {"x": rng.standard_normal((B, L, h, p), dtype=np.float32),
+            "dt": np.log1p(np.exp(rng.standard_normal((B, L, h), dtype=np.float32) - 3.0)),
+            "A": -np.exp(rng.standard_normal(h, dtype=np.float32)),
+            "Bm": 0.3 * rng.standard_normal((B, L, n), dtype=np.float32),
+            "Cm": 0.3 * rng.standard_normal((B, L, n), dtype=np.float32),
+            "D": rng.standard_normal(h, dtype=np.float32)}
+    w = torch.from_numpy(rng.standard_normal((B, L, h, p), dtype=np.float32)).to(device)
+    names = ("x", "dt", "A", "Bm", "Cm", "D")
+    full = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(
+        device, torch.bfloat16 if k in ("x", "Bm", "Cm") else torch.float32)
+        for k, v in host.items()}
+    part = slice(rank * (L // TP), (rank + 1) * (L // TP))
+    local = {k: (v[:, part].contiguous() if v.dim() > 1 else v) for k, v in full.items()}
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _reset_launch_counts()  # the bf16 no-gradient path
+        y = ssd_seq_parallel(*(local[k] for k in names), mesh=mesh, chunk=chunk,
+                             impl="ssd_fused")
+        torch.cuda.synchronize()
+        fwd_launches = _launch_counts()
+    want = _counts_expect({"ssd_split_fwd_hfin_bf16": 1}, 1)
+    if fwd_launches != want:
+        raise AssertionError(f"rank {rank}: bf16 SP forward launched {fwd_launches}, "
+                             f"expected {want}")
+
+    def train(inputs, weight):
+        leaves = {k: v.clone().requires_grad_() for k, v in inputs.items()}
+        out = ssd_seq_parallel(*(leaves[k] for k in names), mesh=mesh, chunk=chunk,
+                               impl="ssd_fused")
+        torch.sum(out.float() * weight).backward()
+        return out.detach(), {k: v.grad for k, v in leaves.items()}
+
+    _reset_launch_counts()  # the bf16 gradient path
+    _, grads = train(local, w[:, part])
+    torch.cuda.synchronize()
+    train_launches = _launch_counts()
+    want = _counts_expect({"ssd_split_fwd_states_hfin_bf16": 1,
+                           "ssd_split_bwd_seeded_bf16": 1}, 1)
+    if train_launches != want:
+        raise AssertionError(f"rank {rank}: bf16 SP train launched {train_launches}, "
+                             f"expected {want}")
+    tol = {"y": 1e-2, "dA": 6e-2, "dD": 6e-2}
+
+    def held(what, y_ref, ref_grads, sliced):
+        errs = {"y": _rel_err(y.float(), y_ref.to(device).float())}
+        for k in names:
+            g = ref_grads[k].to(device)
+            errs[f"d{k}"] = _rel_err(grads[k].float(), (g[:, part] if sliced and k not in (
+                "A", "D") else g).float())
+        bad = {k: v for k, v in errs.items() if v[1] > tol.get(k, 3e-2)}
+        if bad:
+            raise AssertionError(f"rank {rank}: bf16 SP disagrees with {what}: {bad}")
+        return {k: v[1] for k, v in errs.items()}
+
+    cpu = {k: v.cpu() for k, v in local.items()}  # the wrappers' plain versions
+    y_plain, plain_grads = train(cpu, w[:, part].cpu())
+    plain = held("its plain version", y_plain, plain_grads, sliced=False)
+    whole = {k: v.clone().requires_grad_() for k, v in full.items()}
+    y_whole = ssd_chunked_split(*(whole[k] for k in names), chunk=chunk)
+    torch.sum(y_whole.float() * w).backward()
+    carry = held("the single-process split core", y_whole[:, part].detach(),
+                 {k: v.grad for k, v in whole.items()}, sliced=True)
+    if rank == 0:
+        log(f"rank 0: bf16 SP ok, of the max against its plain version: " +
+            ", ".join(f"{k} {v:.3e}" for k, v in plain.items()) + "; against the "
+            "single-process split core: " + ", ".join(f"{k} {v:.3e}" for k, v in carry.items()))
+    return fwd_launches, train_launches, {"rel_err_of_max_to_plain": plain,
+                                          "rel_err_of_max_to_single_process": carry}
+
+
 def tp_mamba_rank(device, mesh, rank: int) -> tuple[dict, dict]:
     """Phase 14: one forward of the full-width Mamba-1 model with its mixers
     over the model axis, ``scan_impl='pallas'``: K1 and K2 12 times a rank,
@@ -2011,6 +2515,9 @@ def parallel_rank(rank: int, rdzv: str, out_dir: str) -> None:
         paths["tp_ssd_train"], out["tp_ssd_train"] = tp_train_rank(device, mesh, rank)
         paths["sp"], paths["sp_train"], out["sp"] = sp_rank(device, rank)
         paths["tp_mamba_serving"], out["tp_mamba_serving"] = tp_mamba_rank(device, mesh, rank)
+        paths["tp_ssd_perf_serving"], paths["tp_ssd_perf_train"], out["tp_ssd_perf"] = \
+            tp_ssd_perf_rank(device, mesh, rank)
+        paths["sp_bf16"], paths["sp_bf16_train"], out["sp_bf16"] = sp_bf16_rank(device, rank)
         torch.save({"paths": paths, "records": out}, f"{out_dir}/parallel_rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -2040,6 +2547,9 @@ def parallel_phases(card: str) -> tuple[dict, dict]:
     train = [r["records"]["tp_ssd_train"] for r in ranks]
     if train[0]["losses"] != train[1]["losses"]:  # bitwise: the ranks hold one model
         raise AssertionError(f"the ranks' losses differ: {[t['losses'] for t in train]}")
+    perf = [r["records"]["tp_ssd_perf"] for r in ranks]
+    if perf[0]["losses"] != perf[1]["losses"]:
+        raise AssertionError(f"the ranks' bf16 losses differ: {[t['losses'] for t in perf]}")
 
     cfg = PointMambaConfig.from_dict({**MODELNET40_SSD, "tp_axis": "model"})
     grads = gather_state_dict([t.pop("grads") for t in train], cfg)
@@ -2076,10 +2586,12 @@ def parallel_phases(card: str) -> tuple[dict, dict]:
         f"{gmax:.3e}, worst dominant leaf {worst_dominant:.3e} relative")
     log(f"SP: {rec['sp']}")
     log(f"Mamba-1 TP: {rec['tp_mamba_serving']}; ranks' wall {wall:.1f} s")
+    log(f"bf16 TP SSD: {rec['tp_ssd_perf']}; bf16 SP: {rec['sp_bf16']}")
     record = {"ranks": TP, "backend": "gloo", "wall_s": wall, "card": card,
               "tp_ssd_serving": rec["tp_ssd_serving"],
               "tp_ssd_train": {f"rank{r}": t for r, t in enumerate(train)},
-              "sp": rec["sp"], "tp_mamba_serving": rec["tp_mamba_serving"]}
+              "sp": rec["sp"], "tp_mamba_serving": rec["tp_mamba_serving"],
+              "tp_ssd_perf": rec["tp_ssd_perf"], "sp_bf16": rec["sp_bf16"]}
     return ranks[0]["paths"], record
 
 
@@ -2393,29 +2905,35 @@ def harness_phase(device, card: str) -> tuple[dict, dict]:
     return paths, record
 
 
-def perf_harness_phase(device, card: str) -> tuple[dict, dict]:
-    """The perf preset through the CLI on the tree that ``harness_phase``
-    wrote (its FPS caches already built): cfgs/finetune_modelnet_perf.yaml
-    (the published model, bf16, subspace) at max_epoch 0, one epoch of
-    HARNESS_TRAIN // TRAIN_BATCH steps and one validation. Every step must
-    launch the bf16 train kernels once a block, every validation forward the
-    bf16 eval kernels, and nothing else; the epoch's loss finite;
-    ckpt-last.pth written. Returns ({"perf_cli": launches}, the record)."""
+def preset_cli_phase(device, card: str, preset: str, name: str, train_kernels, eval_kernels,
+                     model: dict, test: bool = False) -> tuple[dict, dict]:
+    """A shipped preset through the CLI on the tree that ``harness_phase``
+    wrote (its FPS caches already built): cfgs/``preset`` at max_epoch 0, one
+    epoch of HARNESS_TRAIN // TRAIN_BATCH steps and one validation. The
+    config's model must match ``model`` (and the published 12 x 384 width).
+    Every step must launch each of ``train_kernels`` once a block, every
+    validation forward each of ``eval_kernels``, and nothing else; the
+    epoch's loss finite; ckpt-last.pth written. With ``test``, ``--test`` of
+    that checkpoint, launches counted the same way, must give the last
+    validation's accuracy. Returns ({name: launches[, name + '_test':
+    launches]}, the record)."""
     from si_mamba_tpu_torch.train import cli
     from si_mamba_tpu_torch.train import runner_finetune as rf
     from si_mamba_tpu_torch.train.config import get_config
 
     work = ROOT / "build" / "harness"
-    exp_cfg = work / "harness_modelnet_perf.yaml"
+    stem = "harness_" + preset.removesuffix(".yaml")
+    exp_cfg = work / f"{stem}.yaml"
     exp_cfg.write_text(
-        f"_base_: {ROOT}/cfgs/finetune_modelnet_perf.yaml\nmax_epoch: 0\ndataset:\n" + "".join(
-            f"  {name}: {{_base_: {work}/modelnet40.yaml, others: {{subset: '{subset}'}}}}\n"
-            for name, subset in (("train", "train"), ("val", "test"), ("test", "test"))))
+        f"_base_: {ROOT}/cfgs/{preset}\nmax_epoch: 0\ndataset:\n" + "".join(
+            f"  {split}: {{_base_: {work}/modelnet40.yaml, others: {{subset: '{subset}'}}}}\n"
+            for split, subset in (("train", "train"), ("val", "test"), ("test", "test"))))
     config = get_config(str(exp_cfg))
     model_cfg = config.model
-    if (model_cfg.trans_dim, model_cfg.depth, model_cfg.dtype, model_cfg.spectral_method,
-            config.total_bs) != (384, 12, "bfloat16", "subspace", TRAIN_BATCH):
-        raise AssertionError(f"the perf harness config is not the preset's: {model_cfg}")
+    got = {k: model_cfg.get(k) for k in model}
+    if (model_cfg.trans_dim, model_cfg.depth, config.total_bs) != (384, 12, TRAIN_BATCH) or \
+            got != model:
+        raise AssertionError(f"the {preset} harness config is not the preset's: {model_cfg}")
     depth = int(model_cfg.depth)
     forwards, real = [], rf.validate
 
@@ -2426,40 +2944,79 @@ def perf_harness_phase(device, card: str) -> tuple[dict, dict]:
 
         return real(recording, state, loader, epoch)
 
+    exp = work / "experiments" / stem / name
     cwd = os.getcwd()
     os.chdir(work)
     rf.validate = counting_validate
+    paths = {}
     try:
-        _reset_launch_counts()  # the perf preset's path: counts from 0, then the run
+        _reset_launch_counts()  # the preset's path: counts from 0, then the run
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, _ = cli.main(["--config", str(exp_cfg), "--device", "cuda", "--exp_name", "perf"])
+        state, _ = cli.main(["--config", str(exp_cfg), "--device", "cuda", "--exp_name", name])
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches = _launch_counts()
+        paths[name] = _launch_counts()
+        n_forwards = len(forwards)
+        if test:
+            forwards.clear()
+            _reset_launch_counts()  # the test run's path
+            test_acc = cli.main(["--config", str(exp_cfg), "--device", "cuda", "--exp_name",
+                                 name + "_test", "--test", "--ckpts", str(exp / "ckpt-last.pth")])
+            paths[name + "_test"] = _launch_counts()
     finally:
         rf.validate = real
         os.chdir(cwd)
     steps = HARNESS_TRAIN // TRAIN_BATCH
-    if state.step != steps or state.model.config.dtype != "bfloat16":
-        raise AssertionError(f"the perf preset took {state.step} steps at "
-                             f"{state.model.config.dtype}, expected {steps} at bfloat16")
-    want = {k: depth * (steps * (k in PERF_TRAIN_KERNELS) + len(forwards) * (k in PERF_EVAL_KERNELS))
-            for k in launches}
-    if launches != want:
-        raise AssertionError(f"the perf preset's run launched {launches}; expected {want}")
-    exp = work / "experiments" / "harness_modelnet_perf" / "perf"
+    if state.step != steps or state.model.config.dtype != model_cfg.dtype:
+        raise AssertionError(f"the {preset} run took {state.step} steps at "
+                             f"{state.model.config.dtype}, expected {steps} at {model_cfg.dtype}")
+    want = {k: depth * (steps * (k in train_kernels) + n_forwards * (k in eval_kernels))
+            for k in paths[name]}
+    if paths[name] != want:
+        raise AssertionError(f"the {preset} run launched {paths[name]}; expected {want}")
     scalars = [json.loads(line) for line in (exp / "scalars.jsonl").read_text().splitlines()]
     losses = [r["value"] for r in scalars if r["tag"] == "Loss/Epoch/Loss"]
     if len(losses) != 1 or not np.isfinite(losses).all() or not (exp / "ckpt-last.pth").exists():
-        raise AssertionError(f"the perf preset's run logged {scalars}")
-    record = {"config": "cfgs/finetune_modelnet_perf.yaml, max_epoch 0", "steps": steps,
-              "validation_forwards": len(forwards), "run_s": run_s, "epoch_loss": losses[0],
-              "val_acc": [r["value"] for r in scalars if r["tag"] == "Metric/ACC"],
-              "launches": launches, "card": card}
-    log(f"perf preset through the CLI: {steps} steps and a validation of {len(forwards)} "
-        f"forwards in {run_s:.1f} s, epoch loss {losses[0]:.4f}; launches {launches}")
-    return {"perf_cli": launches}, record
+        raise AssertionError(f"the {preset} run logged {scalars}")
+    val_acc = [r["value"] for r in scalars if r["tag"] == "Metric/ACC"]
+    record = {"config": f"cfgs/{preset}, max_epoch 0", "steps": steps,
+              "validation_forwards": n_forwards, "run_s": run_s, "epoch_loss": losses[0],
+              "val_acc": val_acc, "launches": paths[name], "card": card}
+    if test:
+        want = {k: depth * len(forwards) * (k in eval_kernels) for k in paths[name + "_test"]}
+        if paths[name + "_test"] != want or test_acc != val_acc[-1]:
+            raise AssertionError(f"--test of the {preset} run launched {paths[name + '_test']} "
+                                 f"(expected {want}) and gave {test_acc}, the last validation "
+                                 f"{val_acc[-1]}")
+        record.update(test_acc=test_acc, test_forwards=len(forwards),
+                      test_launches=paths[name + "_test"])
+    log(f"{preset} through the CLI: {steps} steps and a validation of {n_forwards} forwards in "
+        f"{run_s:.1f} s, epoch loss {losses[0]:.4f}; launches {paths[name]}"
+        + (f"; --test accuracy {test_acc} over {len(forwards)} forwards" if test else ""))
+    return paths, record
+
+
+def perf_harness_phase(device, card: str) -> tuple[dict, dict]:
+    """The perf preset through the CLI: cfgs/finetune_modelnet_perf.yaml (the
+    published model, bf16, subspace) by ``preset_cli_phase``, the bf16
+    Mamba-1 kernels on its path. Returns ({"perf_cli": launches}, the
+    record)."""
+    return preset_cli_phase(device, card, "finetune_modelnet_perf.yaml", "perf_cli",
+                            PERF_TRAIN_KERNELS, PERF_EVAL_KERNELS,
+                            {"dtype": "bfloat16", "spectral_method": "subspace"})
+
+
+def ssd_preset_cli_phase(device, card: str) -> tuple[dict, dict]:
+    """The SSD fused preset through the CLI: cfgs/finetune_modelnet_ssd_fused.yaml
+    (the SSD classifier, bf16, subspace, 'ssd_fused', chunk 256) as the file
+    stands by ``preset_cli_phase``, then ``--test`` of its ckpt-last.pth, the
+    bf16 SSD kernels on both paths. Returns ({"ssd_cli": launches,
+    "ssd_cli_test": launches}, the record)."""
+    return preset_cli_phase(device, card, "finetune_modelnet_ssd_fused.yaml", "ssd_cli",
+                            SSD_PERF_TRAIN_KERNELS, SSD_PERF_EVAL_KERNELS,
+                            {"dtype": "bfloat16", "spectral_method": "subspace", "mixer": "ssd",
+                             "scan_impl": "ssd_fused", "ssd_chunk": 256}, test=True)
 
 
 def main() -> int:
@@ -2488,6 +3045,13 @@ def main() -> int:
 
     records = kernel_phase(device) + backward_kernel_phase(device)
     bf16_records = bf16_kernel_phase(device)
+    ssd_bf16_records, bf16_conv_at = ssd_bf16_kernel_phase(device)
+    for r in bf16_records:
+        if r["name"] in bf16_conv_at:
+            at = bf16_conv_at[r["name"]]
+            r["at_ssd_shape"] = at["ssd_view"]
+            r["at_tp_shapes"] = {k: at[k] for k in ("x_shard", "bc")}
+    bf16_records += ssd_bf16_records
     ssd_records, conv_at_ssd_shape = ssd_kernel_phase(device)
     conv_at_tp_shapes = tp_conv_phase(device)
     for r in records:
@@ -2529,6 +3093,14 @@ def main() -> int:
                  "causal_conv1d_silu_bwd"),
         eval_kernels=("causal_conv1d_silu", "ssd_xbc_fwd"))
     ssd_grads = gradient_phase(device, MODELNET40_SSD, plain_impl="xla")
+    paths["ssd_perf_serving"], ssd_perf_serving, model, requests = serving_phase(
+        device, MODELNET40_SSD, plain_impl="xla", kernels=SSD_PERF_EVAL_KERNELS, perf=True,
+        tol=PERF_LOGITS_TOL)
+    ssd_perf_profile = profile_phase(model, requests)
+    del model
+    ssd_perf_train, paths["ssd_perf_train"] = train_phase(
+        device, card, MODELNET40_SSD_PERF, kernels=SSD_PERF_TRAIN_KERNELS,
+        eval_kernels=SSD_PERF_EVAL_KERNELS, view_grads=False)
     paths["fused_serving"], fused_serving, model, requests = serving_phase(
         device, MODELNET40_FUSED, plain_impl="seq", kernels=("fused_mixer_fwd",))
     fused_profile = profile_phase(model, requests)
@@ -2541,6 +3113,8 @@ def main() -> int:
     paths.update(harness_paths)
     perf_cli_paths, perf_cli = perf_harness_phase(device, card)
     paths.update(perf_cli_paths)
+    ssd_cli_paths, ssd_cli = ssd_preset_cli_phase(device, card)
+    paths.update(ssd_cli_paths)
     torch.cuda.empty_cache()  # the ranks share the card
     parallel_paths, parallel = parallel_phases(card)
     paths.update(parallel_paths)
@@ -2558,7 +3132,14 @@ def main() -> int:
                  "selective_scan_fwd_bf16": "perf_serving",
                  "selective_scan_fwd_residuals_bf16": "perf_train",
                  "selective_scan_bwd_bf16": "perf_train",
-                 "causal_conv1d_silu_bwd_bf16": "perf_train"}
+                 "causal_conv1d_silu_bwd_bf16": "perf_train",
+                 "ssd_xbc_fwd_bf16": "ssd_perf_serving",
+                 "ssd_xbc_fwd_states_bf16": "ssd_perf_train",
+                 "ssd_xbc_bwd_bf16": "ssd_perf_train", "ssd_split_fwd_bf16": "tp_ssd_perf_serving",
+                 "ssd_split_fwd_states_bf16": "tp_ssd_perf_train",
+                 "ssd_split_bwd_bf16": "tp_ssd_perf_train", "ssd_split_fwd_hfin_bf16": "sp_bf16",
+                 "ssd_split_fwd_states_hfin_bf16": "sp_bf16_train",
+                 "ssd_split_bwd_seeded_bf16": "sp_bf16_train"}
     for r in records:
         r["kernel_ms"] = r["ms"]  # the same time under the field's older name
         r["main_path"] = main_path[r["name"]]
@@ -2575,6 +3156,8 @@ def main() -> int:
                                 "mixer_interior_ms": fused_routes},
                       "perf": {"serving": perf_serving, "profile": perf_profile,
                                "train": perf_train, "cli": perf_cli},
+                      "ssd_perf": {"serving": ssd_perf_serving, "profile": ssd_perf_profile,
+                                   "train": ssd_perf_train, "cli": ssd_cli},
                       "parallel": parallel, "card": card}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)

@@ -141,6 +141,23 @@ def _one_block_split(libs: dict[str, ctypes.CDLL]) -> tuple:
     return forward, backward
 
 
+def _interfaces(fwd: ctypes.CDLL, bwd: ctypes.CDLL) -> tuple[ctypes.CDLL, ctypes.CDLL]:
+    """Both libraries of a tree with the chunk-parallel kernels, declared as
+    this tree declares them; a tree from before the bf16 entry points (no
+    ``ssd_xbc_fwd_bf16``) gets the same declarations of its fp32 ones."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    if hasattr(fwd, "ssd_xbc_fwd_bf16"):
+        return kssd.fwd_interface(fwd), kssd.bwd_interface(bwd)
+    for lib, entries, error_string in ((fwd, kssd.FWD_ENTRIES, "ssd_xbc_fwd_error_string"),
+                                       (bwd, kssd.BWD_ENTRIES, "ssd_xbc_bwd_error_string")):
+        for name, argtypes in entries.items():
+            getattr(lib, name).argtypes, getattr(lib, name).restype = argtypes, ctypes.c_int
+        getattr(lib, error_string).argtypes = [ctypes.c_int]
+        getattr(lib, error_string).restype = ctypes.c_char_p
+    return fwd, bwd
+
+
 def _tree(src: Path, tag: str) -> dict:
     """The forward and backward of the tree at ``src``, the split ones, and
     ptxas' report."""
@@ -148,7 +165,7 @@ def _tree(src: Path, tag: str) -> dict:
 
     libs, report = build(src, NAMES, tag)
     if (src / "ssd_tc.cuh").exists():
-        fwd, bwd = kssd.fwd_interface(libs["ssd_xbc_fwd"]), kssd.bwd_interface(libs["ssd_xbc_bwd"])
+        fwd, bwd = _interfaces(libs["ssd_xbc_fwd"], libs["ssd_xbc_bwd"])
 
         def forward(xbc, dt, S, D, d, chunk, states):
             return kssd.run_fwd(fwd, xbc, dt, S, D, d, chunk, states,
@@ -162,8 +179,7 @@ def _tree(src: Path, tag: str) -> dict:
     if "dbc_part" in (src / "ssd_xbc_bwd.cu").read_text():
         split_forward, split_backward = _one_block_split(libs)
     else:
-        sfwd = kssd.fwd_interface(libs["ssd_xbc_fwd"])
-        sbwd = kssd.bwd_interface(libs["ssd_xbc_bwd"])
+        sfwd, sbwd = _interfaces(libs["ssd_xbc_fwd"], libs["ssd_xbc_bwd"])
 
         def split_forward(x, dt, S, Bm, Cm, chunk, states, hfin):
             return kssd.run_split_fwd(sfwd, x, dt, S, Bm, Cm, chunk, states, hfin,

@@ -1,29 +1,43 @@
-// The block-level 3xTF32 tensor-core product that the chunk-parallel SSD
-// kernels (csrc/ssd_xbc_fwd.cu, K8; csrc/ssd_xbc_bwd.cu, K9) are built from.
+// The block-level tensor-core products that the chunk-parallel SSD kernels
+// (csrc/ssd_xbc_fwd.cu: K8, K6; csrc/ssd_xbc_bwd.cu: K9, K7) are built from.
 //
 // One block of 256 threads (8 warps as 2 x 4) accumulates a 64 x BN tile
-// (BN = 64 or 128) of C += A B over k-tiles of 32, with mma.sync m16n8k8 TF32.
-// Each fp32 operand is split as hi = rna_tf32(v), lo = rna_tf32(v - hi), and
-// a b is taken as a_lo b_hi + a_hi b_lo + a_hi b_hi into the fp32 accumulator
-// (the a_lo b_lo term, below 2^-22 of the product, is dropped): about 21 bits
-// of each product where one TF32 product keeps 11, at three tensor-core
-// products per product.
+// (BN = 64 or 128) of C += A B into fp32 over k-tiles of 32, in one of two
+// product kinds (kBf16):
+//  - 3xTF32, mma.sync m16n8k8 TF32: each fp32 operand is split as
+//    hi = rna_tf32(v), lo = rna_tf32(v - hi), and a b is taken as
+//    a_lo b_hi + a_hi b_lo + a_hi b_hi (the a_lo b_lo term, below 2^-22 of the
+//    product, is dropped): about 21 bits of each product where one TF32
+//    product keeps 11, at three tensor-core products per product. A bf16
+//    operand is exact in TF32 (its lo is 0), so its lo term is skipped;
+//  - bf16, mma.sync m16n8k16 bf16 with fp32 accumulators: each operand
+//    rounded to bf16 (to nearest even) where its tile is fp32, one product
+//    per product; what the TPU kernels' `mm` (the activation dtype) products
+//    are at bf16 input.
 //
 // Tiles land in shared memory through cp.async (16-byte copies where the
 // operand's rows are 16-byte aligned, 4-byte copies otherwise) in a ring of
 // kStages buffers, so the next tiles are in flight while the current one's
-// products run. A tile is either [m][k] or [k][m] (A) and [k][n] or [n][k]
-// (B), whichever the operand's rows in device memory give; each layout's row
-// pitch is padded so that a warp's fragment reads fall in 32 distinct banks.
-// An optional transform rewrites the landed A tile in place before its
-// products (the decay mask, row or column factors), and a warp skips a k-tile
-// whose A rows are all masked. Every sum runs in a fixed order: no atomics.
+// products run. An operand's tile holds its own element type (fp32 or bf16,
+// half the bytes), or fp32 widened from bf16 in device memory (then loaded
+// element by element, not through cp.async: the one fp32 product with a bf16
+// operand and a factor along k). A tile is either [m][k] or [k][m] (A) and
+// [k][n] or [n][k] (B), whichever the operand's rows in device memory give;
+// each layout's row pitch is padded so that a warp's fragment reads spread
+// over the banks and (bf16) every row starts 16-byte aligned. An optional
+// transform rewrites the landed A or B tile in place before its products
+// (the decay mask, row or column factors, a rounding to bf16), and a warp
+// skips a k-tile whose A rows are all masked. Every sum runs in a fixed
+// order: no atomics.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+
+#include "elem.cuh"
 
 namespace ssd_tc {
 
@@ -31,46 +45,81 @@ constexpr int kThreads = 256;
 constexpr int kBM = 64;                 // rows of the output tile
 constexpr int kBK = 32;                 // depth of a k-tile
 constexpr int kStages = 3;              // cp.async ring
-constexpr int kLdMK = kBK + 4;          // [m][k] or [n][k] pitch: k-contiguous reads
-constexpr int kLdKM = kBM + 8;          // [k][m] pitch: m-contiguous reads
-constexpr int kTileA = kBM * kLdMK;     // floats of an A tile in either layout
-static_assert(kBM * kLdMK == kBK * kLdKM, "both A layouts take one tile size");
+
+// Row pitches, in elements of the tile's type: [m][k] or [n][k] (k-contiguous
+// reads), [k][m] (m-contiguous) and [k][n].
+template <class T>
+struct Pitch;
+template <>
+struct Pitch<float> {
+  static constexpr int kMK = kBK + 4, kKM = kBM + 8;
+  template <int BN>
+  static constexpr int kKN = BN + 8;
+};
+template <>
+struct Pitch<bf16> {
+  static constexpr int kMK = kBK + 8, kKM = kBM + 8;  // 80- and 144-byte rows
+  template <int BN>
+  static constexpr int kKN = BN + 8;
+};
+
+constexpr int kTileA = kBM * Pitch<float>::kMK;  // floats of an A slot, either layout
+static_assert(kBM * Pitch<float>::kMK == kBK * Pitch<float>::kKM,
+              "both fp32 A layouts take one slot size");
 
 template <int BN>
 struct Cfg {
   static constexpr int kWN = BN / 4;    // columns of a warp's tile
   static constexpr int kNT = kWN / 8;   // its n8 fragments
-  static constexpr int kLdKN = BN + 8;  // [k][n] pitch
-  static constexpr int kTileB = kBK * kLdKN > BN * kLdMK ? kBK * kLdKN : BN * kLdMK;
+  static constexpr int kLdKN = Pitch<float>::kKN<BN>;
+  static constexpr int kTileB = kBK * kLdKN > BN * Pitch<float>::kMK ? kBK * kLdKN
+                                                                     : BN * Pitch<float>::kMK;
   static constexpr int kStage = kTileA + kTileB;
 };
 constexpr int kRingFloats = kStages * Cfg<128>::kStage;  // the ring for BN <= 128
+// a bf16 tile fits the slot of the fp32 one
+static_assert(2 * kBM * Pitch<bf16>::kMK <= 4 * kTileA, "bf16 A tile");
+static_assert(2 * 128 * Pitch<bf16>::kMK <= 4 * Cfg<128>::kTileB, "bf16 B tile");
 
 template <int BN>
 using Acc = float[2][Cfg<BN>::kNT][4];
 
 // A row-strided operand in device memory: p at the tile's first element,
-// rows ld floats apart, al when every row start is 16-byte aligned.
+// rows ld elements apart, al when every row start is 16-byte aligned (else
+// every row start is 4-byte aligned).
+template <class T>
 struct Src {
-  const float* p;
+  const T* p;
   long long ld;
   bool al;
 };
 
-// Whether every row of an operand at p with batch stride sb and row stride sr
-// (floats) starts 16-byte aligned, so its tiles can land by 16-byte copies.
+// Whether every row of an operand of T at p with batch stride sb and row
+// stride sr (elements) starts 16-byte aligned, so its tiles can land by
+// 16-byte copies.
+template <class T = float>
 inline bool aligned16(const void* p, long long sb, long long sr) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 4 == 0 && sr % 4 == 0;
+  constexpr long long e = 16 / sizeof(T);
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % e == 0 && sr % e == 0;
 }
 
-__device__ __forceinline__ void cp_async(float* dst, const float* src, bool al) {
+// Whether every row starts 4-byte aligned: what the 4-byte copies need.
+template <class T>
+inline bool aligned4(const void* p, long long sb, long long sr) {
+  constexpr long long e = 4 / sizeof(T) > 0 ? 4 / sizeof(T) : 1;
+  return reinterpret_cast<uintptr_t>(p) % 4 == 0 && sb % e == 0 && sr % e == 0;
+}
+
+// 16 bytes from src to dst (shared memory), as one copy or four.
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool al) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   if (al) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
   } else {
+    const char* c = static_cast<const char*>(src);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s + 4 * i), "l"(src + i));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s + 4 * i), "l"(c + 4 * i));
   }
 }
 
@@ -81,35 +130,49 @@ __device__ __forceinline__ void wait_pending() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Copy an R x W block (W a multiple of 4) of rows of s into dst with pitch ld.
-template <int R, int W>
-__device__ __forceinline__ void load_tile(float* dst, int ld, Src s) {
-  constexpr int kPerRow = W / 4;
+// Copy an R x W block of rows of s into dst with pitch ld (elements). A tile
+// of the operand's own type lands by cp.async, 16 bytes at a time (W a
+// multiple of 16 bytes); an fp32 tile of a bf16 operand is widened element by
+// element.
+template <int R, int W, class TS, class TG>
+__device__ __forceinline__ void load_tile(TS* dst, int ld, Src<TG> s) {
+  if constexpr (std::is_same<TS, TG>::value) {
+    constexpr int kE = 16 / sizeof(TS), kPerRow = W / kE;
+    static_assert(W % kE == 0, "rows of whole 16-byte pieces");
 #pragma unroll
-  for (int i = threadIdx.x; i < R * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * 4;
-    cp_async(dst + r * ld + c, s.p + r * s.ld + c, s.al);
+    for (int i = threadIdx.x; i < R * kPerRow; i += kThreads) {
+      const int r = i / kPerRow, c = (i % kPerRow) * kE;
+      cp_async(dst + r * ld + c, s.p + r * s.ld + c, s.al);
+    }
+  } else {
+    static_assert(std::is_same<TS, float>::value && std::is_same<TG, bf16>::value,
+                  "only bf16 widens");
+#pragma unroll
+    for (int i = threadIdx.x; i < R * W; i += kThreads) {
+      const int r = i / W, c = i % W;
+      dst[r * ld + c] = to_f(s.p[r * s.ld + c]);
+    }
   }
 }
 
 // The A tile of a k-tile: rows m of s (kAKM false: 64 rows of 32) or rows k
 // (kAKM true: 32 rows of 64).
-template <bool kAKM>
-__device__ __forceinline__ void load_a(float* dst, Src s) {
+template <bool kAKM, class TS, class TG>
+__device__ __forceinline__ void load_a(TS* dst, Src<TG> s) {
   if (kAKM)
-    load_tile<kBK, kBM>(dst, kLdKM, s);
+    load_tile<kBK, kBM>(dst, Pitch<TS>::kKM, s);
   else
-    load_tile<kBM, kBK>(dst, kLdMK, s);
+    load_tile<kBM, kBK>(dst, Pitch<TS>::kMK, s);
 }
 
 // The B tile: rows k of s (kBNK false: 32 rows of BN) or rows n (kBNK true:
 // BN rows of 32).
-template <int BN, bool kBNK>
-__device__ __forceinline__ void load_b(float* dst, Src s) {
+template <int BN, bool kBNK, class TS, class TG>
+__device__ __forceinline__ void load_b(TS* dst, Src<TG> s) {
   if (kBNK)
-    load_tile<BN, kBK>(dst, kLdMK, s);
+    load_tile<BN, kBK>(dst, Pitch<TS>::kMK, s);
   else
-    load_tile<kBK, BN>(dst, Cfg<BN>::kLdKN, s);
+    load_tile<kBK, BN>(dst, Pitch<TS>::template kKN<BN>, s);
 }
 
 __device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
@@ -129,58 +192,107 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// acc += (the warp's 32 rows of sA) (the warp's kWN columns of sB) over one k-tile.
-// Fragment layouts of m16n8k8 TF32: with g = lane / 4, t = lane % 4, A holds
-// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B holds (k t, n g), (k t + 4,
-// n g); the accumulator (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
-template <int BN, bool kAKM, bool kBNK>
-__device__ __forceinline__ void mma_ktile(Acc<BN>& acc, const float* sA, const float* sB,
-                                          int wm, int wn, int lane) {
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Element (m, k) of a landed A tile and (k, n) of a landed B tile, as fp32.
+template <bool kAKM, class T>
+__device__ __forceinline__ float a_at(const T* sA, int m, int k) {
+  return to_f(kAKM ? sA[k * Pitch<T>::kKM + m] : sA[m * Pitch<T>::kMK + k]);
+}
+template <int BN, bool kBNK, class T>
+__device__ __forceinline__ float b_at(const T* sB, int k, int n) {
+  return to_f(kBNK ? sB[n * Pitch<T>::kMK + k] : sB[k * Pitch<T>::template kKN<BN> + n]);
+}
+
+// Elements k and k + 1 of row m of A (or of column n of B) as a bf16 pair,
+// the lower k in the low half: one 32-bit read where the tile is bf16 and k
+// runs along its rows, else two elements rounded to bf16.
+template <bool kAKM, class T>
+__device__ __forceinline__ uint32_t a_pair(const T* sA, int m, int k) {
+  if constexpr (std::is_same<T, bf16>::value && !kAKM)
+    return *reinterpret_cast<const uint32_t*>(sA + m * Pitch<T>::kMK + k);
+  else
+    return pack_bf16(a_at<kAKM>(sA, m, k), a_at<kAKM>(sA, m, k + 1));
+}
+template <int BN, bool kBNK, class T>
+__device__ __forceinline__ uint32_t b_pair(const T* sB, int k, int n) {
+  if constexpr (std::is_same<T, bf16>::value && kBNK)
+    return *reinterpret_cast<const uint32_t*>(sB + n * Pitch<T>::kMK + k);
+  else
+    return pack_bf16(b_at<BN, kBNK>(sB, k, n), b_at<BN, kBNK>(sB, k + 1, n));
+}
+
+// acc += (the warp's 32 rows of sA) (the warp's kWN columns of sB) over one
+// k-tile. Fragment layouts, with g = lane / 4, t = lane % 4: m16n8k8 TF32: A
+// holds (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B holds (k t, n g),
+// (k t + 4, n g). m16n8k16 bf16: A holds the pairs (g, 2t..2t+1),
+// (g + 8, 2t..), (g, 2t+8..), (g + 8, 2t+8..); B the pairs (k 2t..2t+1, n g),
+// (k 2t+8..2t+9, n g). The accumulator, both kinds: (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1).
+template <int BN, bool kAKM, bool kBNK, bool kBf16, class TA, class TB>
+__device__ __forceinline__ void mma_ktile(Acc<BN>& acc, const TA* sA, const TB* sB, int wm,
+                                          int wn, int lane) {
   using C = Cfg<BN>;
   const int g = lane >> 2, t = lane & 3;
+  if constexpr (kBf16) {
 #pragma unroll
-  for (int kk = 0; kk < kBK; kk += 8) {
-    uint32_t ah[2][4], al[2][4], bh[C::kNT][2], bl[C::kNT][2];
+    for (int kk = 0; kk < kBK; kk += 16) {
+      uint32_t a[2][4], b[C::kNT][2];
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int r = wm * 32 + mi * 16 + g;
-      float v[4];
-      if (kAKM) {
-        v[0] = sA[(kk + t) * kLdKM + r];
-        v[1] = sA[(kk + t) * kLdKM + r + 8];
-        v[2] = sA[(kk + t + 4) * kLdKM + r];
-        v[3] = sA[(kk + t + 4) * kLdKM + r + 8];
-      } else {
-        v[0] = sA[r * kLdMK + kk + t];
-        v[1] = sA[(r + 8) * kLdMK + kk + t];
-        v[2] = sA[r * kLdMK + kk + t + 4];
-        v[3] = sA[(r + 8) * kLdMK + kk + t + 4];
+      for (int mi = 0; mi < 2; ++mi) {
+        const int r = wm * 32 + mi * 16 + g;
+        a[mi][0] = a_pair<kAKM>(sA, r, kk + 2 * t);
+        a[mi][1] = a_pair<kAKM>(sA, r + 8, kk + 2 * t);
+        a[mi][2] = a_pair<kAKM>(sA, r, kk + 2 * t + 8);
+        a[mi][3] = a_pair<kAKM>(sA, r + 8, kk + 2 * t + 8);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split(v[i], ah[mi][i], al[mi][i]);
-    }
-#pragma unroll
-    for (int ni = 0; ni < C::kNT; ++ni) {
-      const int c = wn * C::kWN + ni * 8 + g;
-      float w0, w1;
-      if (kBNK) {
-        w0 = sB[c * kLdMK + kk + t];
-        w1 = sB[c * kLdMK + kk + t + 4];
-      } else {
-        w0 = sB[(kk + t) * C::kLdKN + c];
-        w1 = sB[(kk + t + 4) * C::kLdKN + c];
-      }
-      split(w0, bh[ni][0], bl[ni][0]);
-      split(w1, bh[ni][1], bl[ni][1]);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int ni = 0; ni < C::kNT; ++ni) {
-        mma_tf32(acc[mi][ni], al[mi], bh[ni][0], bh[ni][1]);
-        mma_tf32(acc[mi][ni], ah[mi], bl[ni][0], bl[ni][1]);
-        mma_tf32(acc[mi][ni], ah[mi], bh[ni][0], bh[ni][1]);
+        const int c = wn * C::kWN + ni * 8 + g;
+        b[ni][0] = b_pair<BN, kBNK>(sB, kk + 2 * t, c);
+        b[ni][1] = b_pair<BN, kBNK>(sB, kk + 2 * t + 8, c);
       }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < C::kNT; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
+    }
+  } else {
+    constexpr bool kAExact = std::is_same<TA, bf16>::value;  // lo parts 0
+    constexpr bool kBExact = std::is_same<TB, bf16>::value;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 8) {
+      uint32_t ah[2][4], al[2][4], bh[C::kNT][2], bl[C::kNT][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int r = wm * 32 + mi * 16 + g;
+        const float v[4] = {a_at<kAKM>(sA, r, kk + t), a_at<kAKM>(sA, r + 8, kk + t),
+                            a_at<kAKM>(sA, r, kk + t + 4), a_at<kAKM>(sA, r + 8, kk + t + 4)};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split(v[i], ah[mi][i], al[mi][i]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < C::kNT; ++ni) {
+        const int c = wn * C::kWN + ni * 8 + g;
+        split(b_at<BN, kBNK>(sB, kk + t, c), bh[ni][0], bl[ni][0]);
+        split(b_at<BN, kBNK>(sB, kk + t + 4, c), bh[ni][1], bl[ni][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < C::kNT; ++ni) {
+          if (!kAExact) mma_tf32(acc[mi][ni], al[mi], bh[ni][0], bh[ni][1]);
+          if (!kBExact) mma_tf32(acc[mi][ni], ah[mi], bl[ni][0], bl[ni][1]);
+          mma_tf32(acc[mi][ni], ah[mi], bh[ni][0], bh[ni][1]);
+        }
+    }
   }
 }
 
@@ -194,7 +306,7 @@ __device__ __forceinline__ void zero(Acc<BN>& acc) {
       for (int r = 0; r < 4; ++r) acc[mi][ni][r] = 0.f;
 }
 
-// A transform that leaves the A tile as it landed.
+// A transform that leaves a tile as it landed.
 struct NoXform {
   __device__ float operator()(int, int, int, float v) const { return v; }
 };
@@ -204,55 +316,68 @@ struct AllActive {
   __device__ bool operator()(int, int) const { return true; }
 };
 
-// acc += A B over kts k-tiles. src_a(kt) / src_b(kt) give the operands' rows
-// for k-tile kt; xf(kt, m, k, v) rewrites each element (tile-local m, k) of
-// a landed A tile (kXform); active(kt, wm) says whether warp row wm has any
-// unmasked product in k-tile kt. ring: kRingFloats of shared memory that
-// nothing else uses while this runs.
-template <int BN, bool kAKM, bool kBNK, bool kXform, class SA, class SB, class XF, class ACT>
+// The operands' tile types of a product: T for a bf16 product (the
+// activations' element type), fp32 for 3xTF32.
+template <class T>
+constexpr bool is_bf16 = std::is_same<T, bf16>::value;
+
+// acc += A B over kts k-tiles, as bf16 products (kBf16) or 3xTF32. TA / TB:
+// the element types of the A and B tiles in shared memory. src_a(kt) /
+// src_b(kt) give the operands' rows for k-tile kt (Src of TA, or Src of bf16
+// for an fp32 tile that widens it); xa(kt, m, k, v) and xb(kt, k, n, v)
+// rewrite each element (tile-local) of a landed A or B tile, rounded back to
+// the tile's type (NoXform: none); active(kt, wm) says whether warp row wm
+// has any unmasked product in k-tile kt. ring: kRingFloats of shared memory
+// that nothing else uses while this runs.
+template <int BN, bool kAKM, bool kBNK, bool kBf16, class TA, class TB, class SA, class SB,
+          class XA, class XB, class ACT>
 __device__ __forceinline__ void gemm(Acc<BN>& acc, float* ring, int kts, SA src_a, SB src_b,
-                                     XF xf, ACT active) {
+                                     XA xa, XB xb, ACT active) {
   using C = Cfg<BN>;
+  constexpr bool kXA = !std::is_same<XA, NoXform>::value;
+  constexpr bool kXB = !std::is_same<XB, NoXform>::value;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp >> 2, wn = warp & 3;
+  auto slot_a = [&](int kt) { return reinterpret_cast<TA*>(ring + (kt % kStages) * C::kStage); };
+  auto slot_b = [&](int kt) {
+    return reinterpret_cast<TB*>(ring + (kt % kStages) * C::kStage + kTileA);
+  };
   __syncthreads();  // the ring is free: an earlier product may still be reading it
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < kts) {
-      load_a<kAKM>(ring + s * C::kStage, src_a(s));
-      load_b<BN, kBNK>(ring + s * C::kStage + kTileA, src_b(s));
+      load_a<kAKM>(slot_a(s), src_a(s));
+      load_b<BN, kBNK>(slot_b(s), src_b(s));
     }
     commit();
   }
   for (int kt = 0; kt < kts; ++kt) {
     wait_pending<kStages - 2>();
     __syncthreads();  // k-tile kt landed for every thread; k-tile kt - 1 is consumed
-    float* sA = ring + (kt % kStages) * C::kStage;
-    if (kXform) {
+    TA* sA = slot_a(kt);
+    TB* sB = slot_b(kt);
+    if constexpr (kXA) {
       for (int i = threadIdx.x; i < kBM * kBK; i += kThreads) {
-        int m, k;
-        float* e;
-        if (kAKM) {
-          k = i / kBM;
-          m = i % kBM;
-          e = sA + k * kLdKM + m;
-        } else {
-          m = i / kBK;
-          k = i % kBK;
-          e = sA + m * kLdMK + k;
-        }
-        *e = xf(kt, m, k, *e);
+        const int m = kAKM ? i % kBM : i / kBK, k = kAKM ? i / kBM : i % kBK;
+        TA* e = kAKM ? sA + k * Pitch<TA>::kKM + m : sA + m * Pitch<TA>::kMK + k;
+        *e = from_f<TA>(xa(kt, m, k, to_f(*e)));
       }
-      __syncthreads();
     }
+    if constexpr (kXB) {
+      for (int i = threadIdx.x; i < kBK * BN; i += kThreads) {
+        const int k = kBNK ? i % kBK : i / BN, n = kBNK ? i / kBK : i % BN;
+        TB* e = kBNK ? sB + n * Pitch<TB>::kMK + k : sB + k * Pitch<TB>::template kKN<BN> + n;
+        *e = from_f<TB>(xb(kt, k, n, to_f(*e)));
+      }
+    }
+    if constexpr (kXA || kXB) __syncthreads();
     const int nk = kt + kStages - 1;
     if (nk < kts) {
-      float* d = ring + (nk % kStages) * C::kStage;
-      load_a<kAKM>(d, src_a(nk));
-      load_b<BN, kBNK>(d + kTileA, src_b(nk));
+      load_a<kAKM>(slot_a(nk), src_a(nk));
+      load_b<BN, kBNK>(slot_b(nk), src_b(nk));
     }
     commit();
-    if (active(kt, wm)) mma_ktile<BN, kAKM, kBNK>(acc, sA, sA + kTileA, wm, wn, lane);
+    if (active(kt, wm)) mma_ktile<BN, kAKM, kBNK, kBf16>(acc, sA, sB, wm, wn, lane);
   }
   wait_pending<0>();
 }
@@ -380,17 +505,20 @@ __device__ __forceinline__ void pair_tiles(int pi, int& ti, int& si) {
 }
 
 // G = C B^T of one 64 x 64 tile pair (ti, si) of a chunk, K = 128 state
-// channels: Cs and Bs at the chunk's first C and B rows; written row-major to
-// the chunk's (q, q) block Gc. Diagonal tiles are computed whole.
-__device__ __forceinline__ void g_tile(float* ring, Src Cs, Src Bs, int ti, int si, float* Gc,
-                                       int Q) {
+// channels: Cs and Bs at the chunk's first C and B rows (T: fp32, 3xTF32
+// products; bf16, bf16 products); G is written in fp32, row-major, to the
+// chunk's (q, q) block Gc. Diagonal tiles are computed whole.
+template <class T>
+__device__ __forceinline__ void g_tile(float* ring, Src<T> Cs, Src<T> Bs, int ti, int si,
+                                       float* Gc, int Q) {
   Acc<64> acc;
   zero<64>(acc);
   const int t0 = ti * kBM, s0 = si * kBM;
-  gemm<64, false, true, false>(
-      acc, ring, 128 / kBK, [=](int kt) { return Src{Cs.p + t0 * Cs.ld + kt * kBK, Cs.ld, Cs.al}; },
-      [=](int kt) { return Src{Bs.p + s0 * Bs.ld + kt * kBK, Bs.ld, Bs.al}; }, NoXform{},
-      AllActive{});
+  gemm<64, false, true, is_bf16<T>, T, T>(
+      acc, ring, 128 / kBK,
+      [=](int kt) { return Src<T>{Cs.p + t0 * Cs.ld + kt * kBK, Cs.ld, Cs.al}; },
+      [=](int kt) { return Src<T>{Bs.p + s0 * Bs.ld + kt * kBK, Bs.ld, Bs.al}; }, NoXform{},
+      NoXform{}, AllActive{});
   for_each<64>(acc, [=](int m, int n, float v) {
     Gc[(t0 + m) * static_cast<long long>(Q) + s0 + n] = v;
   });

@@ -1,5 +1,5 @@
-// Chunked SSD backward, fp32: K9, the backward of the boundary-fused K8, and
-// K7, the backward of the split K6, one body serving both. For the forward of
+// Chunked SSD backward, fp32 or bf16: K9, the backward of the boundary-fused
+// K8, and K7, the backward of the split K6, one body serving both. For the forward of
 // csrc/ssd_xbc_fwd.cu and the output gradient dy (b, l, d), per batch row b
 // and head h, with GM = (C B^T) (.) M, M[t,s] = e^{S[t]-S[s]} (s <= t),
 // E = e^S, T_end = e^{S_end - S} and dh the cotangent of the state leaving
@@ -77,6 +77,19 @@
 // it are skipped. Rows that are not 16-byte aligned land by 4-byte cp.async
 // copies, chosen per operand.
 //
+// bf16 (the `_bf16` entry points), following `_bwd_head` (ssd_kernel.py:241)
+// at bf16 activations: x, B, C and dy arrive and dx, dB and dC leave in bf16.
+// The products whose operands `_bwd_head` rounds to bf16 are bf16 tensor-core
+// products: G = C B^T, bf16(GM)^T dy, dy bf16(x dt)^T and dy bf16(h_in)^T. The
+// products with the fp32 dh stay 3xTF32 (B dh, bf16(x dt) dh^T, then scaled by
+// T_end, and the carry (C E)^T dy, whose tile of C is widened to fp32 for the
+// factor E), as does dG B and dG^T C on the head sum of bf16(dG): the TPU
+// kernel takes per head bf16(dG) B, whose sum over the heads is this product
+// on the sum, which is not a bf16 value (B and C are exact in TF32). dB and dC
+// are summed over the heads in fp32 and rounded once; ddt, dS and dD stay
+// fp32. The fp32 body's products and launches are unchanged: each element
+// type is its own instantiation.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 
@@ -94,6 +107,7 @@ using ssd_tc::for_each;
 using ssd_tc::frag_pos;
 using ssd_tc::g_tile;
 using ssd_tc::gemm;
+using ssd_tc::is_bf16;
 using ssd_tc::kBK;
 using ssd_tc::kBM;
 using ssd_tc::kRingFloats;
@@ -113,10 +127,11 @@ constexpr int kCarryParts = kNP / (kThreads * 4);  // blocks a (b, h) in bwd_car
 constexpr int kRed = 4 * kBM;                      // row_sums' and col_sums' scratch
 constexpr int kSmemFloats = kRingFloats + 3 * kMaxChunk + kRed + kBM;
 
-// One strided operand: base pointer (at its first column) and the batch and
-// row strides in floats.
+// One strided operand of element type T: base pointer (at its first column)
+// and the batch and row strides in elements.
+template <class T>
 struct Operand {
-  const float* p;
+  const T* p;
   long long sb, sr;
 };
 
@@ -125,26 +140,28 @@ bool geometry_ok(int L, int N, int P, int Q) {
 }
 
 // An output with its batch and row strides (unit stride along channels).
+template <class T>
 struct Out {
-  float* p;
+  T* p;
   long long sb, sr;
 };
 
-// The operands, outputs and scratch of one backward. x, B, C and dy with
+// The operands, outputs and scratch of one backward. x, B, C and dy (T) with
 // their strides (x and dy at head 0's first column), al_* when their rows are
 // 16-byte aligned; dt, S (b, h, L); Dp (h); hin (b, nc, h, n, p); dh_fin
-// (b, h, n, p) for kSeed. Outputs dx, dB, dC; ddt, dS (b, h, L); dD_part
-// (b, h, nc, q / 64). Scratch: G and dG (b, nc, q, q); dh (b, nc, h, n, p);
-// rs, cs (b, h, nc, tile pairs, 64); dT, dE (b, h, L); hsum (b, h, nc,
-// kCarryParts).
+// (b, h, n, p) for kSeed, all fp32. Outputs dx, dB, dC (T); ddt, dS (b, h, L);
+// dD_part (b, h, nc, q / 64). Scratch, fp32: G and dG (b, nc, q, q); dh
+// (b, nc, h, n, p); rs, cs (b, h, nc, tile pairs, 64); dT, dE (b, h, L); hsum
+// (b, h, nc, kCarryParts).
+template <class T>
 struct Args {
-  Operand x, Bm, Cm, dy;
+  Operand<T> x, Bm, Cm, dy;
   const float* dt;
   const float* S;
   const float* Dp;
   const float* hin;
   const float* dh_fin;
-  Out dx, dB, dC;
+  Out<T> dx, dB, dC;
   float* ddt;
   float* dS;
   float* dD_part;
@@ -153,27 +170,30 @@ struct Args {
   bool al_x, al_b, al_c, al_dy, al_hin;
 };
 
-__device__ __forceinline__ long long state_at(const Args& a, int b, int c, int h) {
+template <class T>
+__device__ __forceinline__ long long state_at(const Args<T>& a, int b, int c, int h) {
   return ((static_cast<long long>(b) * (a.L / a.Q) + c) * a.H + h) * kNP;
 }
 
 // Blocks [0, B nc pairs): one G tile pair each. The rest: one (b, h, chunk
 // c >= 1, half of n) each, the chunk's carry term (C E)^T dy into dh's slot
-// c - 1 (bwd_carry adds the decayed carry from the chunks after it).
-__global__ void __launch_bounds__(kThreads, 2) bwd_prep(Args a) {
+// c - 1 (bwd_carry adds the decayed carry from the chunks after it), 3xTF32
+// at either element type (a bf16 C lands widened to fp32 for the factor E).
+template <class T>
+__global__ void __launch_bounds__(kThreads, 2) bwd_prep(Args<T> a) {
   extern __shared__ float smem[];
   float* ring = smem;
   float* sF = smem + kRingFloats;
-  const int nc = a.L / a.Q, T = a.Q / kBM, pairs = T * (T + 1) / 2;
+  const int nc = a.L / a.Q, T_ = a.Q / kBM, pairs = T_ * (T_ + 1) / 2;
   int bid = blockIdx.x;
   if (bid < a.B * nc * pairs) {
     const int pi = bid % pairs, c = bid / pairs % nc, b = bid / pairs / nc;
     int ti, si;
     pair_tiles(pi, ti, si);
     const long long r0 = static_cast<long long>(c) * a.Q;
-    g_tile(ring, Src{a.Cm.p + b * a.Cm.sb + r0 * a.Cm.sr, a.Cm.sr, a.al_c},
-           Src{a.Bm.p + b * a.Bm.sb + r0 * a.Bm.sr, a.Bm.sr, a.al_b}, ti, si,
-           a.G + (static_cast<long long>(b) * nc + c) * a.Q * a.Q, a.Q);
+    g_tile<T>(ring, Src<T>{a.Cm.p + b * a.Cm.sb + r0 * a.Cm.sr, a.Cm.sr, a.al_c},
+              Src<T>{a.Bm.p + b * a.Bm.sb + r0 * a.Bm.sr, a.Bm.sr, a.al_b}, ti, si,
+              a.G + (static_cast<long long>(b) * nc + c) * a.Q * a.Q, a.Q);
     return;
   }
   bid -= a.B * nc * pairs;
@@ -183,14 +203,14 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_prep(Args a) {
   for (int i = threadIdx.x; i < a.Q; i += kThreads) sF[i] = expf(a.S[bh * a.L + r0 + i]);
   Acc<128> acc;
   zero<128>(acc);
-  const float* Cc = a.Cm.p + b * a.Cm.sb + r0 * a.Cm.sr + half * kBM;
-  const float* dyc = a.dy.p + b * a.dy.sb + r0 * a.dy.sr + h * kP;
+  const T* Cc = a.Cm.p + b * a.Cm.sb + r0 * a.Cm.sr + half * kBM;
+  const T* dyc = a.dy.p + b * a.dy.sb + r0 * a.dy.sr + h * kP;
   const long long csr = a.Cm.sr, dysr = a.dy.sr;
   const bool alc = a.al_c, aldy = a.al_dy;
-  gemm<128, true, false, true>(
-      acc, ring, a.Q / kBK, [=](int kt) { return Src{Cc + kt * kBK * csr, csr, alc}; },
-      [=](int kt) { return Src{dyc + kt * kBK * dysr, dysr, aldy}; },
-      [=](int kt, int, int k, float v) { return v * sF[kt * kBK + k]; }, AllActive{});
+  gemm<128, true, false, false, float, T>(
+      acc, ring, a.Q / kBK, [=](int kt) { return Src<T>{Cc + kt * kBK * csr, csr, alc}; },
+      [=](int kt) { return Src<T>{dyc + kt * kBK * dysr, dysr, aldy}; },
+      [=](int kt, int, int k, float v) { return v * sF[kt * kBK + k]; }, NoXform{}, AllActive{});
   float* dst = a.dh + state_at(a, b, c - 1, h) + half * kBM * kP;
   for_each<128>(acc, [=](int m, int n, float v) { dst[m * kP + n] = v; });
 }
@@ -199,8 +219,8 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_prep(Args a) {
 // the last chunk whose dh is read (nc - 2, or nc - 1 = dh_fin with kSeed) down
 // to 0, in place; each chunk's sum(dh_out (.) h_in) over this block's 1024
 // elements goes to hsum. Grid (B h, kCarryParts), 4 elements a thread.
-template <bool kSeed>
-__global__ void __launch_bounds__(kThreads) bwd_carry(Args a) {
+template <class T, bool kSeed>
+__global__ void __launch_bounds__(kThreads) bwd_carry(Args<T> a) {
   __shared__ float red[kThreads / 32];
   const int nc = a.L / a.Q, top = kSeed ? nc - 1 : nc - 2;
   const long long bh = blockIdx.x;
@@ -238,8 +258,10 @@ __global__ void __launch_bounds__(kThreads) bwd_carry(Args a) {
 // turn dGM = dy (dt x)^T over the tile, dG = dGM (.) M summed over the heads
 // in registers (written to the dG scratch at the end, exact 0 above the
 // diagonal), and the row and column sums of dlogM = dGM (.) G (.) M into
-// rs / cs.
-__global__ void __launch_bounds__(kThreads, 2) bwd_dgm(Args a) {
+// rs / cs. fp32: dy x^T as 3xTF32, then the factor dt; bf16: dy bf16(x dt)^T
+// as bf16 products, each head's dG rounded to bf16 before the head sum.
+template <class T>
+__global__ void __launch_bounds__(kThreads, 2) bwd_dgm(Args<T> a) {
   extern __shared__ float smem[];
   float* ring = smem;
   float* sSt = smem + kRingFloats;  // S of the tile's t rows, its s rows, dt of its s rows
@@ -247,7 +269,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dgm(Args a) {
   float* sdts = sSs + kBM;
   float* red = sSt + 3 * kMaxChunk;
   float* sums = red + kRed;
-  const int nc = a.L / a.Q, T = a.Q / kBM, pairs = T * (T + 1) / 2;
+  const int nc = a.L / a.Q, T_ = a.Q / kBM, pairs = T_ * (T_ + 1) / 2;
   const int pi = blockIdx.x % pairs, c = blockIdx.x / pairs % nc, b = blockIdx.x / pairs / nc;
   int ti, si;
   pair_tiles(pi, ti, si);
@@ -269,11 +291,18 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dgm(Args a) {
     }
     Acc<64> acc;
     zero<64>(acc);
-    const float* dyt = a.dy.p + b * a.dy.sb + (r0 + t0) * dysr + h * kP;
-    const float* xs = a.x.p + b * a.x.sb + (r0 + s0) * xsr + h * kP;
-    gemm<64, false, true, false>(
-        acc, ring, kP / kBK, [=](int kt) { return Src{dyt + kt * kBK, dysr, aldy}; },
-        [=](int kt) { return Src{xs + kt * kBK, xsr, alx}; }, NoXform{}, AllActive{});
+    const T* dyt = a.dy.p + b * a.dy.sb + (r0 + t0) * dysr + h * kP;
+    const T* xs = a.x.p + b * a.x.sb + (r0 + s0) * xsr + h * kP;
+    auto src_dy = [=](int kt) { return Src<T>{dyt + kt * kBK, dysr, aldy}; };
+    auto src_x = [=](int kt) { return Src<T>{xs + kt * kBK, xsr, alx}; };
+    if constexpr (is_bf16<T>) {
+      gemm<64, false, true, true, T, T>(
+          acc, ring, kP / kBK, src_dy, src_x, NoXform{},
+          [=](int, int, int n, float v) { return v * sdts[n]; }, AllActive{});
+    } else {
+      gemm<64, false, true, false, T, T>(acc, ring, kP / kBK, src_dy, src_x, NoXform{},
+                                         NoXform{}, AllActive{});
+    }
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -282,11 +311,11 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dgm(Args a) {
         for (int r = 0; r < 4; ++r) {
           int m, n;
           frag_pos<64>(mi, ni, r, m, n);
-          const float dgm = acc[mi][ni][r] * sdts[n];
+          const float dgm = is_bf16<T> ? acc[mi][ni][r] : acc[mi][ni][r] * sdts[n];
           float dl = 0.f;
           if (s0 + n <= t0 + m) {
             const float mm = expf(sSt[m] - sSs[n]);
-            dgs[mi][ni][r] += dgm * mm;
+            dgs[mi][ni][r] += round_to<T>(dgm * mm);
             dl = dgm * (gv[mi][ni][r] * mm);
           }
           acc[mi][ni][r] = dl;
@@ -302,9 +331,10 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dgm(Args a) {
 }
 
 // One (b, chunk, 64-row strip, head) a block: B dh (for dT, then scaled by
-// T_end; not in a chunk whose dh is 0) plus GM^T dy, then dx, ddt and dD.
-template <bool kD, bool kSeed>
-__global__ void __launch_bounds__(kThreads, 2) bwd_dx(Args a) {
+// T_end; not in a chunk whose dh is 0; 3xTF32) plus GM^T dy (bf16: bf16(GM)^T
+// dy as bf16 products), then dx, ddt and dD.
+template <class T, bool kD, bool kSeed>
+__global__ void __launch_bounds__(kThreads, 2) bwd_dx(Args<T> a) {
   extern __shared__ float smem[];
   float* ring = smem;
   float* sS = smem + kRingFloats;
@@ -312,12 +342,12 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dx(Args a) {
   float* sTe = sdt + kMaxChunk;
   float* red = sTe + kMaxChunk;
   float* sums = red + kRed;
-  const int nc = a.L / a.Q, T = a.Q / kBM;
+  const int nc = a.L / a.Q, T_ = a.Q / kBM;
   int bid = blockIdx.x;
   const int h = bid % a.H;
   bid /= a.H;
-  const int ss = bid % T;
-  bid /= T;
+  const int ss = bid % T_;
+  bid /= T_;
   const int c = bid % nc, b = bid / nc;
   const long long bh = static_cast<long long>(b) * a.H + h, r0 = static_cast<long long>(c) * a.Q;
   const long long Q = a.Q;
@@ -331,49 +361,52 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dx(Args a) {
   const int s0 = ss * kBM;
   const long long xsr = a.x.sr, dysr = a.dy.sr, bsr = a.Bm.sr;
   const bool aldy = a.al_dy, alb = a.al_b;
-  const float* xs = a.x.p + b * a.x.sb + (r0 + s0) * xsr + h * kP;
-  const float* dys = a.dy.p + b * a.dy.sb + (r0 + s0) * dysr + h * kP;
+  const T* xs = a.x.p + b * a.x.sb + (r0 + s0) * xsr + h * kP;
+  const T* dys = a.dy.p + b * a.dy.sb + (r0 + s0) * dysr + h * kP;
   Acc<128> acc;
   zero<128>(acc);
   const bool has_dh = kSeed || c < nc - 1;
   if (has_dh) {
-    const float* Bs = a.Bm.p + b * a.Bm.sb + (r0 + s0) * bsr;
+    const T* Bs = a.Bm.p + b * a.Bm.sb + (r0 + s0) * bsr;
     const float* dhc = a.dh + state_at(a, b, c, h);
-    gemm<128, false, false, false>(
-        acc, ring, kN / kBK, [=](int kt) { return Src{Bs + kt * kBK, bsr, alb}; },
-        [=](int kt) { return Src{dhc + kt * kBK * kP, kP, true}; }, NoXform{}, AllActive{});
-    row_sums<128>(acc, [=](int m, int n, float v) { return v * xs[m * xsr + n] * sdt[s0 + m]; },
-                  red, sums);
+    gemm<128, false, false, false, T, float>(
+        acc, ring, kN / kBK, [=](int kt) { return Src<T>{Bs + kt * kBK, bsr, alb}; },
+        [=](int kt) { return Src<float>{dhc + kt * kBK * kP, kP, true}; }, NoXform{}, NoXform{},
+        AllActive{});
+    row_sums<128>(
+        acc, [=](int m, int n, float v) { return v * to_f(xs[m * xsr + n]) * sdt[s0 + m]; }, red,
+        sums);
     for_each<128>(acc, [=](int m, int, float& v) { v *= sTe[s0 + m]; });
   }
   if (threadIdx.x < kBM) a.dT[bh * a.L + r0 + s0 + threadIdx.x] = has_dh ? sums[threadIdx.x] : 0.f;
   const float* Gs = a.G + (static_cast<long long>(b) * nc + c) * Q * Q + s0;
-  gemm<128, true, false, true>(
-      acc, ring, (a.Q - s0) / kBK, [=](int kt) { return Src{Gs + (s0 + kt * kBK) * Q, Q, true}; },
-      [=](int kt) { return Src{dys + kt * kBK * dysr, dysr, aldy}; },
+  gemm<128, true, false, is_bf16<T>, float, T>(
+      acc, ring, (a.Q - s0) / kBK,
+      [=](int kt) { return Src<float>{Gs + (s0 + kt * kBK) * Q, Q, true}; },
+      [=](int kt) { return Src<T>{dys + kt * kBK * dysr, dysr, aldy}; },
       [=](int kt, int m, int k, float v) {
         const int t = s0 + kt * kBK + k, s = s0 + m;
         return t >= s ? v * expf(sS[t] - sS[s]) : 0.f;
       },
-      [=](int kt, int wm) { return kt * kBK + 31 >= wm * 32; });
-  row_sums<128>(acc, [=](int m, int n, float v) { return v * xs[m * xsr + n]; }, red, sums);
+      NoXform{}, [=](int kt, int wm) { return kt * kBK + 31 >= wm * 32; });
+  row_sums<128>(acc, [=](int m, int n, float v) { return v * to_f(xs[m * xsr + n]); }, red, sums);
   if (threadIdx.x < kBM) a.ddt[bh * a.L + r0 + s0 + threadIdx.x] = sums[threadIdx.x];
   const float skip = kD ? a.Dp[h] : 0.f;
-  float* dxs = a.dx.p + b * a.dx.sb + (r0 + s0) * a.dx.sr + h * kP;
+  T* dxs = a.dx.p + b * a.dx.sb + (r0 + s0) * a.dx.sr + h * kP;
   const long long dxsr = a.dx.sr;
   float part = 0.f;
   for_each<128>(acc, [&](int m, int n, float v) {
     if (kD) {
-      const float dyv = dys[m * dysr + n];
-      dxs[m * dxsr + n] = v * sdt[s0 + m] + skip * dyv;
-      part += dyv * xs[m * xsr + n];
+      const float dyv = to_f(dys[m * dysr + n]);
+      dxs[m * dxsr + n] = from_f<T>(v * sdt[s0 + m] + skip * dyv);
+      part += dyv * to_f(xs[m * xsr + n]);
     } else {
-      dxs[m * dxsr + n] = v * sdt[s0 + m];
+      dxs[m * dxsr + n] = from_f<T>(v * sdt[s0 + m]);
     }
   });
   if (kD) {
     const float total = block_sum(part, red);
-    if (threadIdx.x == 0) a.dD_part[(bh * nc + c) * T + ss] = total;
+    if (threadIdx.x == 0) a.dD_part[(bh * nc + c) * T_ + ss] = total;
   }
 }
 
@@ -381,16 +414,20 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dx(Args a) {
 //   dC = dG B + sum_h E (dy h_in^T), writing each head's dE on the way;
 //   dB = dG^T C + sum_h (dt x T_end) dh^T;
 // the heads in order, the per-head products skipped where h_in or dh is 0.
-template <bool kSeed>
-__global__ void __launch_bounds__(kThreads, 2) bwd_dbc(Args a) {
+// bf16: dy bf16(h_in)^T as bf16 products; (bf16(x dt) dh^T) T_end with the
+// factor T_end after the product (3xTF32); dG B and dG^T C 3xTF32 on the head
+// sum of bf16(dG); the fp32 sums rounded to bf16 once.
+template <class T, bool kSeed>
+__global__ void __launch_bounds__(kThreads, 2) bwd_dbc(Args<T> a) {
   extern __shared__ float smem[];
   float* ring = smem;
   float* sF = smem + kRingFloats;
+  float* sTe = sF + kBM;
   float* red = sF + 3 * kMaxChunk;
   float* sums = red + kRed;
-  const int nc = a.L / a.Q, T = a.Q / kBM;
-  const int is_db = blockIdx.x & 1, strip = (blockIdx.x >> 1) % T,
-            c = (blockIdx.x >> 1) / T % nc, b = (blockIdx.x >> 1) / T / nc;
+  const int nc = a.L / a.Q, T_ = a.Q / kBM;
+  const int is_db = blockIdx.x & 1, strip = (blockIdx.x >> 1) % T_,
+            c = (blockIdx.x >> 1) / T_ % nc, b = (blockIdx.x >> 1) / T_ / nc;
   const long long Q = a.Q, r0 = static_cast<long long>(c) * a.Q;
   const int r = strip * kBM;  // the strip's first row: t0 for dC, s0 for dB
   const float* dGc = a.dG + (static_cast<long long>(b) * nc + c) * Q * Q;
@@ -399,7 +436,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dbc(Args a) {
   Acc<128> acc;
   zero<128>(acc);
   if (!is_db) {
-    const float* Ct = a.Cm.p + b * a.Cm.sb + (r0 + r) * csr;
+    const T* Ct = a.Cm.p + b * a.Cm.sb + (r0 + r) * csr;
     for (int h = 0; h < a.H; ++h) {
       const long long bh = static_cast<long long>(b) * a.H + h;
       float* dEt = a.dE + bh * a.L + r0 + r;
@@ -411,12 +448,14 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dbc(Args a) {
       if (threadIdx.x < kBM) sF[threadIdx.x] = expf(a.S[bh * a.L + r0 + r + threadIdx.x]);
       Acc<128> yh;
       zero<128>(yh);
-      const float* dyt = a.dy.p + b * a.dy.sb + (r0 + r) * dysr + h * kP;
+      const T* dyt = a.dy.p + b * a.dy.sb + (r0 + r) * dysr + h * kP;
       const float* hc = a.hin + state_at(a, b, c, h);
-      gemm<128, false, true, false>(
-          yh, ring, kP / kBK, [=](int kt) { return Src{dyt + kt * kBK, dysr, aldy}; },
-          [=](int kt) { return Src{hc + kt * kBK, kP, alhin}; }, NoXform{}, AllActive{});
-      row_sums<128>(yh, [=](int m, int n, float v) { return v * Ct[m * csr + n]; }, red, sums);
+      gemm<128, false, true, is_bf16<T>, T, float>(
+          yh, ring, kP / kBK, [=](int kt) { return Src<T>{dyt + kt * kBK, dysr, aldy}; },
+          [=](int kt) { return Src<float>{hc + kt * kBK, kP, alhin}; }, NoXform{}, NoXform{},
+          AllActive{});
+      row_sums<128>(yh, [=](int m, int n, float v) { return v * to_f(Ct[m * csr + n]); }, red,
+                    sums);
       if (threadIdx.x < kBM) dEt[threadIdx.x] = sums[threadIdx.x];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
@@ -429,15 +468,15 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dbc(Args a) {
             acc[mi][ni][e] += sF[m] * yh[mi][ni][e];
           }
     }
-    const float* Bc = a.Bm.p + b * a.Bm.sb + r0 * bsr;
+    const T* Bc = a.Bm.p + b * a.Bm.sb + r0 * bsr;
     const float* dGt = dGc + r * Q;
-    gemm<128, false, false, false>(
-        acc, ring, (r + kBM) / kBK, [=](int kt) { return Src{dGt + kt * kBK, Q, true}; },
-        [=](int kt) { return Src{Bc + kt * kBK * bsr, bsr, alb}; }, NoXform{},
+    gemm<128, false, false, false, float, T>(
+        acc, ring, (r + kBM) / kBK, [=](int kt) { return Src<float>{dGt + kt * kBK, Q, true}; },
+        [=](int kt) { return Src<T>{Bc + kt * kBK * bsr, bsr, alb}; }, NoXform{}, NoXform{},
         [=](int kt, int wm) { return kt * kBK <= r + wm * 32 + 31; });
-    float* out = a.dC.p + b * a.dC.sb + (r0 + r) * a.dC.sr;
+    T* out = a.dC.p + b * a.dC.sb + (r0 + r) * a.dC.sr;
     const long long osr = a.dC.sr;
-    for_each<128>(acc, [=](int m, int n, float v) { out[m * osr + n] = v; });
+    for_each<128>(acc, [=](int m, int n, float v) { out[m * osr + n] = from_f<T>(v); });
     return;
   }
   if (kSeed || c < nc - 1) {  // the last chunk's dh is 0
@@ -446,35 +485,61 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dbc(Args a) {
       __syncthreads();  // the previous head is done with sF
       if (threadIdx.x < kBM) {
         const float* Sc = a.S + bh * a.L + r0;
-        sF[threadIdx.x] = a.dt[bh * a.L + r0 + r + threadIdx.x] *
-                          expf(Sc[a.Q - 1] - Sc[r + threadIdx.x]);
+        const float dtv = a.dt[bh * a.L + r0 + r + threadIdx.x];
+        const float te = expf(Sc[a.Q - 1] - Sc[r + threadIdx.x]);
+        if (is_bf16<T>) {
+          sF[threadIdx.x] = dtv;
+          sTe[threadIdx.x] = te;
+        } else {
+          sF[threadIdx.x] = dtv * te;
+        }
       }
-      const float* xs = a.x.p + b * a.x.sb + (r0 + r) * xsr + h * kP;
+      const T* xs = a.x.p + b * a.x.sb + (r0 + r) * xsr + h * kP;
       const float* dhc = a.dh + state_at(a, b, c, h);
-      gemm<128, false, true, true>(
-          acc, ring, kP / kBK, [=](int kt) { return Src{xs + kt * kBK, xsr, alx}; },
-          [=](int kt) { return Src{dhc + kt * kBK, kP, true}; },
-          [=](int, int m, int, float v) { return v * sF[m]; }, AllActive{});
+      auto src_x = [=](int kt) { return Src<T>{xs + kt * kBK, xsr, alx}; };
+      auto src_dh = [=](int kt) { return Src<float>{dhc + kt * kBK, kP, true}; };
+      if constexpr (is_bf16<T>) {
+        Acc<128> xh;
+        zero<128>(xh);
+        gemm<128, false, true, false, T, float>(
+            xh, ring, kP / kBK, src_x, src_dh,
+            [=](int, int m, int, float v) { return v * sF[m]; }, NoXform{}, AllActive{});
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < ssd_tc::Cfg<128>::kNT; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              int m, n;
+              frag_pos<128>(mi, ni, e, m, n);
+              acc[mi][ni][e] += sTe[m] * xh[mi][ni][e];
+            }
+      } else {
+        gemm<128, false, true, false, T, float>(
+            acc, ring, kP / kBK, src_x, src_dh,
+            [=](int, int m, int, float v) { return v * sF[m]; }, NoXform{}, AllActive{});
+      }
     }
   }
-  const float* Cc = a.Cm.p + b * a.Cm.sb + r0 * csr;
+  const T* Cc = a.Cm.p + b * a.Cm.sb + r0 * csr;
   const float* dGs = dGc + r;
-  gemm<128, true, false, false>(
-      acc, ring, (a.Q - r) / kBK, [=](int kt) { return Src{dGs + (r + kt * kBK) * Q, Q, true}; },
-      [=](int kt) { return Src{Cc + (r + kt * kBK) * csr, csr, alc}; }, NoXform{},
+  gemm<128, true, false, false, float, T>(
+      acc, ring, (a.Q - r) / kBK,
+      [=](int kt) { return Src<float>{dGs + (r + kt * kBK) * Q, Q, true}; },
+      [=](int kt) { return Src<T>{Cc + (r + kt * kBK) * csr, csr, alc}; }, NoXform{}, NoXform{},
       [=](int kt, int wm) { return kt * kBK + 31 >= wm * 32; });
-  float* out = a.dB.p + b * a.dB.sb + (r0 + r) * a.dB.sr;
+  T* out = a.dB.p + b * a.dB.sb + (r0 + r) * a.dB.sr;
   const long long osr = a.dB.sr;
-  for_each<128>(acc, [=](int m, int n, float v) { out[m * osr + n] = v; });
+  for_each<128>(acc, [=](int m, int n, float v) { out[m * osr + n] = from_f<T>(v); });
 }
 
 // One (b, h, chunk) a block, a thread a row: dS = rowsum(dlogM) + dE E -
 // dT T_end - colsum(dlogM), and at the chunk's last row dSend = sum(dT T_end)
 // + e^{S_end} sum(dh (.) h_in), every sum in a fixed order.
-template <bool kSeed>
-__global__ void __launch_bounds__(kThreads) bwd_ds(Args a) {
+template <class T, bool kSeed>
+__global__ void __launch_bounds__(kThreads) bwd_ds(Args<T> a) {
   __shared__ float red[kThreads / 32];
-  const int nc = a.L / a.Q, T = a.Q / kBM, pairs = T * (T + 1) / 2;
+  const int nc = a.L / a.Q, T_ = a.Q / kBM, pairs = T_ * (T_ + 1) / 2;
   const int c = blockIdx.x % nc;
   const long long bh = blockIdx.x / nc, r0 = static_cast<long long>(c) * a.Q;
   const int i = threadIdx.x;
@@ -486,7 +551,7 @@ __global__ void __launch_bounds__(kThreads) bwd_ds(Args a) {
     float rowsum = 0.f, colsum = 0.f;
     const int tile = i / kBM, row = i % kBM;
     for (int si = 0; si <= tile; ++si) rowsum += a.rs[(base + pair_index(tile, si)) * kBM + row];
-    for (int ti = tile; ti < T; ++ti) colsum += a.cs[(base + pair_index(ti, tile)) * kBM + row];
+    for (int ti = tile; ti < T_; ++ti) colsum += a.cs[(base + pair_index(ti, tile)) * kBM + row];
     const float s = a.S[at + i];
     dtte = a.dT[at + i] * expf(send - s);
     v = rowsum + a.dE[at + i] * expf(s) - dtte - colsum;
@@ -507,15 +572,15 @@ cudaError_t allow_smem(K* kernel) {
 // The floats of the scratch that one backward needs, in the order Args
 // lists it.
 long long scratch_floats(int B, int L, int H, int Q) {
-  const long long nc = L / Q, T = Q / kBM, pairs = T * (T + 1) / 2;
+  const long long nc = L / Q, T_ = Q / kBM, pairs = T_ * (T_ + 1) / 2;
   return 2 * B * nc * Q * Q + B * nc * H * kNP + 2 * B * H * nc * pairs * kBM +
          2 * static_cast<long long>(B) * H * L + B * H * nc * kCarryParts;
 }
 
-template <bool kD, bool kSeed>
-cudaError_t launch(Args a, float* scratch, cudaStream_t stream) {
+template <class T, bool kD, bool kSeed>
+cudaError_t launch(Args<T> a, float* scratch, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(float)) * kSmemFloats;
-  const int nc = a.L / a.Q, T = a.Q / kBM, pairs = T * (T + 1) / 2;
+  const int nc = a.L / a.Q, T_ = a.Q / kBM, pairs = T_ * (T_ + 1) / 2;
   const long long qq = static_cast<long long>(a.B) * nc * a.Q * a.Q;
   const long long rows = static_cast<long long>(a.B) * a.H * a.L;
   const long long tiles = static_cast<long long>(a.B) * a.H * nc * pairs * kBM;
@@ -527,30 +592,114 @@ cudaError_t launch(Args a, float* scratch, cudaStream_t stream) {
   a.dT = a.cs + tiles;
   a.dE = a.dT + rows;
   a.hsum = a.dE + rows;
-  cudaError_t err = allow_smem(bwd_prep);
-  if (err == cudaSuccess) err = allow_smem(bwd_dgm);
-  if (err == cudaSuccess) err = allow_smem(bwd_dx<kD, kSeed>);
-  if (err == cudaSuccess) err = allow_smem(bwd_dbc<kSeed>);
+  cudaError_t err = allow_smem(bwd_prep<T>);
+  if (err == cudaSuccess) err = allow_smem(bwd_dgm<T>);
+  if (err == cudaSuccess) err = allow_smem(bwd_dx<T, kD, kSeed>);
+  if (err == cudaSuccess) err = allow_smem(bwd_dbc<T, kSeed>);
   if (err != cudaSuccess) return err;
-  bwd_prep<<<a.B * nc * pairs + a.B * a.H * (nc - 1) * 2, kThreads, smem, stream>>>(a);
+  bwd_prep<T><<<a.B * nc * pairs + a.B * a.H * (nc - 1) * 2, kThreads, smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (kSeed || nc > 1) {
-    bwd_carry<kSeed><<<dim3(a.B * a.H, kCarryParts), kThreads, 0, stream>>>(a);
+    bwd_carry<T, kSeed><<<dim3(a.B * a.H, kCarryParts), kThreads, 0, stream>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  bwd_dgm<<<a.B * nc * pairs, kThreads, smem, stream>>>(a);
+  bwd_dgm<T><<<a.B * nc * pairs, kThreads, smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_dx<kD, kSeed><<<a.B * nc * T * a.H, kThreads, smem, stream>>>(a);
+  bwd_dx<T, kD, kSeed><<<a.B * nc * T_ * a.H, kThreads, smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_dbc<kSeed><<<a.B * nc * T * 2, kThreads, smem, stream>>>(a);
+  bwd_dbc<T, kSeed><<<a.B * nc * T_ * 2, kThreads, smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_ds<kSeed><<<a.B * a.H * nc, kThreads, 0, stream>>>(a);
+  bwd_ds<T, kSeed><<<a.B * a.H * nc, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 // Whether the scratch is the geometry's size and 16-byte aligned.
-bool scratch_ok(const Args& a, const void* scratch, long long scratch_n) {
+template <class T>
+bool scratch_ok(const Args<T>& a, const void* scratch, long long scratch_n) {
   return scratch_n == scratch_floats(a.B, a.L, a.H, a.Q) && ssd_tc::aligned16(scratch, 0, 0);
+}
+
+template <class T>
+int xbc_bwd(const void* xbc, const void* dt, const void* S, const void* Dp, const void* h_in,
+            const void* dy, void* dxbc, void* ddt, void* dS, void* dD_part, long long dD_n,
+            void* scratch, long long scratch_n, int B, int L, int H, int d_inner, int N, int P,
+            int Q, long long x_sb, long long x_sr, long long dy_sb, long long dy_sr,
+            void* stream) {
+  if (!geometry_ok(L, N, P, Q) || d_inner != H * P || !ssd_tc::aligned4<T>(xbc, x_sb, x_sr) ||
+      !ssd_tc::aligned4<T>(dy, dy_sb, dy_sr))
+    return cudaErrorInvalidValue;
+  if (dD_n != static_cast<long long>(B) * H * (L / Q) * (Q / kBM)) return cudaErrorInvalidValue;
+  const auto* xf = static_cast<const T*>(xbc);
+  auto* dxf = static_cast<T*>(dxbc);
+  const long long total = d_inner + 2 * N;
+  const bool al = ssd_tc::aligned16<T>(xf, x_sb, x_sr);
+  Args<T> a{};
+  a.x = Operand<T>{xf, x_sb, x_sr};
+  a.Bm = Operand<T>{xf + d_inner, x_sb, x_sr};
+  a.Cm = Operand<T>{xf + d_inner + N, x_sb, x_sr};
+  a.dy = Operand<T>{static_cast<const T*>(dy), dy_sb, dy_sr};
+  a.dt = static_cast<const float*>(dt);
+  a.S = static_cast<const float*>(S);
+  a.Dp = static_cast<const float*>(Dp);
+  a.hin = static_cast<const float*>(h_in);
+  a.dx = Out<T>{dxf, L * total, total};
+  a.dB = Out<T>{dxf + d_inner, L * total, total};
+  a.dC = Out<T>{dxf + d_inner + N, L * total, total};
+  a.ddt = static_cast<float*>(ddt);
+  a.dS = static_cast<float*>(dS);
+  a.dD_part = static_cast<float*>(dD_part);
+  a.B = B;
+  a.L = L;
+  a.H = H;
+  a.Q = Q;
+  a.al_x = a.al_b = a.al_c = al;
+  a.al_dy = ssd_tc::aligned16<T>(dy, dy_sb, dy_sr);
+  a.al_hin = ssd_tc::aligned16(h_in, 0, 0);
+  if (!scratch_ok(a, scratch, scratch_n)) return cudaErrorInvalidValue;
+  return launch<T, true, false>(a, static_cast<float*>(scratch),
+                                static_cast<cudaStream_t>(stream));
+}
+
+template <class T>
+int split_bwd(const void* x, const void* Bm, const void* Cm, const void* dt, const void* S,
+              const void* h_in, const void* dy, const void* dh_fin, void* dx, void* dbc,
+              void* ddt, void* dS, void* scratch, long long scratch_n, int B, int L, int H,
+              int N, int P, int Q, long long x_sb, long long x_sr, long long b_sb,
+              long long b_sr, long long c_sb, long long c_sr, long long dy_sb, long long dy_sr,
+              void* stream) {
+  if (!geometry_ok(L, N, P, Q) || !ssd_tc::aligned4<T>(x, x_sb, x_sr) ||
+      !ssd_tc::aligned4<T>(Bm, b_sb, b_sr) || !ssd_tc::aligned4<T>(Cm, c_sb, c_sr) ||
+      !ssd_tc::aligned4<T>(dy, dy_sb, dy_sr))
+    return cudaErrorInvalidValue;
+  const long long d = static_cast<long long>(H) * P;
+  auto* dbcf = static_cast<T*>(dbc);
+  Args<T> a{};
+  a.x = Operand<T>{static_cast<const T*>(x), x_sb, x_sr};
+  a.Bm = Operand<T>{static_cast<const T*>(Bm), b_sb, b_sr};
+  a.Cm = Operand<T>{static_cast<const T*>(Cm), c_sb, c_sr};
+  a.dy = Operand<T>{static_cast<const T*>(dy), dy_sb, dy_sr};
+  a.dt = static_cast<const float*>(dt);
+  a.S = static_cast<const float*>(S);
+  a.hin = static_cast<const float*>(h_in);
+  a.dh_fin = static_cast<const float*>(dh_fin);
+  a.dx = Out<T>{static_cast<T*>(dx), L * d, d};
+  a.dB = Out<T>{dbcf, 2LL * L * N, 2LL * N};
+  a.dC = Out<T>{dbcf + N, 2LL * L * N, 2LL * N};
+  a.ddt = static_cast<float*>(ddt);
+  a.dS = static_cast<float*>(dS);
+  a.B = B;
+  a.L = L;
+  a.H = H;
+  a.Q = Q;
+  a.al_x = ssd_tc::aligned16<T>(x, x_sb, x_sr);
+  a.al_b = ssd_tc::aligned16<T>(Bm, b_sb, b_sr);
+  a.al_c = ssd_tc::aligned16<T>(Cm, c_sb, c_sr);
+  a.al_dy = ssd_tc::aligned16<T>(dy, dy_sb, dy_sr);
+  a.al_hin = ssd_tc::aligned16(h_in, 0, 0);
+  if (!scratch_ok(a, scratch, scratch_n)) return cudaErrorInvalidValue;
+  auto* f = static_cast<float*>(scratch);
+  auto s = static_cast<cudaStream_t>(stream);
+  return dh_fin != nullptr ? launch<T, false, true>(a, f, s) : launch<T, false, false>(a, f, s);
 }
 
 }  // namespace
@@ -573,36 +722,19 @@ int ssd_xbc_bwd(const void* xbc, const void* dt, const void* S, const void* Dp,
                 void* dD_part, long long dD_n, void* scratch, long long scratch_n, int B, int L,
                 int H, int d_inner, int N, int P, int Q, long long x_sb, long long x_sr,
                 long long dy_sb, long long dy_sr, void* stream) {
-  if (!geometry_ok(L, N, P, Q) || d_inner != H * P) return cudaErrorInvalidValue;
-  if (dD_n != static_cast<long long>(B) * H * (L / Q) * (Q / kBM)) return cudaErrorInvalidValue;
-  const auto* xf = static_cast<const float*>(xbc);
-  auto* dxf = static_cast<float*>(dxbc);
-  const long long total = d_inner + 2 * N;
-  const bool al = ssd_tc::aligned16(xf, x_sb, x_sr);
-  Args a{};
-  a.x = Operand{xf, x_sb, x_sr};
-  a.Bm = Operand{xf + d_inner, x_sb, x_sr};
-  a.Cm = Operand{xf + d_inner + N, x_sb, x_sr};
-  a.dy = Operand{static_cast<const float*>(dy), dy_sb, dy_sr};
-  a.dt = static_cast<const float*>(dt);
-  a.S = static_cast<const float*>(S);
-  a.Dp = static_cast<const float*>(Dp);
-  a.hin = static_cast<const float*>(h_in);
-  a.dx = Out{dxf, L * total, total};
-  a.dB = Out{dxf + d_inner, L * total, total};
-  a.dC = Out{dxf + d_inner + N, L * total, total};
-  a.ddt = static_cast<float*>(ddt);
-  a.dS = static_cast<float*>(dS);
-  a.dD_part = static_cast<float*>(dD_part);
-  a.B = B;
-  a.L = L;
-  a.H = H;
-  a.Q = Q;
-  a.al_x = a.al_b = a.al_c = al;
-  a.al_dy = ssd_tc::aligned16(dy, dy_sb, dy_sr);
-  a.al_hin = ssd_tc::aligned16(h_in, 0, 0);
-  if (!scratch_ok(a, scratch, scratch_n)) return cudaErrorInvalidValue;
-  return launch<true, false>(a, static_cast<float*>(scratch), static_cast<cudaStream_t>(stream));
+  return xbc_bwd<float>(xbc, dt, S, Dp, h_in, dy, dxbc, ddt, dS, dD_part, dD_n, scratch,
+                        scratch_n, B, L, H, d_inner, N, P, Q, x_sb, x_sr, dy_sb, dy_sr, stream);
+}
+
+// K9 at bf16: xbc, dy and dxbc bf16 (rows 4-byte aligned), the rest as
+// ssd_xbc_bwd's (h_in, dt, S, Dp, ddt, dS, dD_part and the scratch fp32).
+int ssd_xbc_bwd_bf16(const void* xbc, const void* dt, const void* S, const void* Dp,
+                     const void* h_in, const void* dy, void* dxbc, void* ddt, void* dS,
+                     void* dD_part, long long dD_n, void* scratch, long long scratch_n, int B,
+                     int L, int H, int d_inner, int N, int P, int Q, long long x_sb,
+                     long long x_sr, long long dy_sb, long long dy_sr, void* stream) {
+  return xbc_bwd<bf16>(xbc, dt, S, Dp, h_in, dy, dxbc, ddt, dS, dD_part, dD_n, scratch,
+                       scratch_n, B, L, H, d_inner, N, P, Q, x_sb, x_sr, dy_sb, dy_sr, stream);
 }
 
 // K7. Inputs: x (B, L, H * P), Bm, Cm (B, L, N) and dy (B, L, H * P), each
@@ -618,36 +750,23 @@ int ssd_split_bwd(const void* x, const void* Bm, const void* Cm, const void* dt,
                   int B, int L, int H, int N, int P, int Q, long long x_sb, long long x_sr,
                   long long b_sb, long long b_sr, long long c_sb, long long c_sr,
                   long long dy_sb, long long dy_sr, void* stream) {
-  if (!geometry_ok(L, N, P, Q)) return cudaErrorInvalidValue;
-  const long long d = static_cast<long long>(H) * P;
-  auto* dbcf = static_cast<float*>(dbc);
-  Args a{};
-  a.x = Operand{static_cast<const float*>(x), x_sb, x_sr};
-  a.Bm = Operand{static_cast<const float*>(Bm), b_sb, b_sr};
-  a.Cm = Operand{static_cast<const float*>(Cm), c_sb, c_sr};
-  a.dy = Operand{static_cast<const float*>(dy), dy_sb, dy_sr};
-  a.dt = static_cast<const float*>(dt);
-  a.S = static_cast<const float*>(S);
-  a.hin = static_cast<const float*>(h_in);
-  a.dh_fin = static_cast<const float*>(dh_fin);
-  a.dx = Out{static_cast<float*>(dx), L * d, d};
-  a.dB = Out{dbcf, 2LL * L * N, 2LL * N};
-  a.dC = Out{dbcf + N, 2LL * L * N, 2LL * N};
-  a.ddt = static_cast<float*>(ddt);
-  a.dS = static_cast<float*>(dS);
-  a.B = B;
-  a.L = L;
-  a.H = H;
-  a.Q = Q;
-  a.al_x = ssd_tc::aligned16(x, x_sb, x_sr);
-  a.al_b = ssd_tc::aligned16(Bm, b_sb, b_sr);
-  a.al_c = ssd_tc::aligned16(Cm, c_sb, c_sr);
-  a.al_dy = ssd_tc::aligned16(dy, dy_sb, dy_sr);
-  a.al_hin = ssd_tc::aligned16(h_in, 0, 0);
-  if (!scratch_ok(a, scratch, scratch_n)) return cudaErrorInvalidValue;
-  auto* f = static_cast<float*>(scratch);
-  auto s = static_cast<cudaStream_t>(stream);
-  return dh_fin != nullptr ? launch<false, true>(a, f, s) : launch<false, false>(a, f, s);
+  return split_bwd<float>(x, Bm, Cm, dt, S, h_in, dy, dh_fin, dx, dbc, ddt, dS, scratch,
+                          scratch_n, B, L, H, N, P, Q, x_sb, x_sr, b_sb, b_sr, c_sb, c_sr,
+                          dy_sb, dy_sr, stream);
+}
+
+// K7 at bf16: x, Bm, Cm, dy, dx and dbc bf16 (rows 4-byte aligned), the rest
+// as ssd_split_bwd's.
+int ssd_split_bwd_bf16(const void* x, const void* Bm, const void* Cm, const void* dt,
+                       const void* S, const void* h_in, const void* dy, const void* dh_fin,
+                       void* dx, void* dbc, void* ddt, void* dS, void* scratch,
+                       long long scratch_n, int B, int L, int H, int N, int P, int Q,
+                       long long x_sb, long long x_sr, long long b_sb, long long b_sr,
+                       long long c_sb, long long c_sr, long long dy_sb, long long dy_sr,
+                       void* stream) {
+  return split_bwd<bf16>(x, Bm, Cm, dt, S, h_in, dy, dh_fin, dx, dbc, ddt, dS, scratch,
+                         scratch_n, B, L, H, N, P, Q, x_sb, x_sr, b_sb, b_sr, c_sb, c_sr,
+                         dy_sb, dy_sr, stream);
 }
 
 const char* ssd_xbc_bwd_error_string(int code) {

@@ -1,5 +1,5 @@
-// Chunked SSD forward, fp32: K8, the boundary-fused forward of the SSD mixer,
-// and K6, the split forward of the tensor- and sequence-parallel mixers, one
+// Chunked SSD forward, fp32 or bf16: K8, the boundary-fused forward of the SSD
+// mixer, and K6, the split forward of the tensor- and sequence-parallel mixers, one
 // body serving both. Per batch row b and head h, with the chunk's inclusive
 // log-decay cumsum S (non-increasing) and the state h_in entering the chunk:
 //
@@ -66,6 +66,17 @@
 // bitwise equal. No atomics, no fast math. Rows that are not 16-byte aligned
 // land by 4-byte cp.async copies, chosen per operand.
 //
+// bf16 (the `_bf16` entry points): x, B and C arrive and y leaves in bf16,
+// as the TPU kernels take them at bf16 activations (`mm`, ssd_kernel.py:
+// 493-494, 802-803), and every product whose operands they round to bf16 is a
+// bf16 tensor-core product with fp32 accumulators (csrc/ssd_tc.cuh): G = C B^T
+// (kept in fp32), (G (.) M) rounded to bf16 times xdt = bf16(x dt), C times
+// bf16(h_in) (then scaled by e^S, not before), and B^T times
+// xdt_dec = bf16(xdt e^{S_end - S}), a second rounding of the rounded xdt,
+// where `_make_fwd_kernel(_xbc)` round. The decay factors, the chunk carry,
+// the states written out and h_fin stay fp32. The fp32 body's products and
+// launches are unchanged: each element type is its own instantiation.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 
@@ -80,10 +91,12 @@ using ssd_tc::AllActive;
 using ssd_tc::for_each;
 using ssd_tc::g_tile;
 using ssd_tc::gemm;
+using ssd_tc::is_bf16;
 using ssd_tc::kBK;
 using ssd_tc::kBM;
 using ssd_tc::kRingFloats;
 using ssd_tc::kThreads;
+using ssd_tc::NoXform;
 using ssd_tc::pair_tiles;
 using ssd_tc::Src;
 using ssd_tc::zero;
@@ -95,10 +108,11 @@ constexpr int kNP = kN * kP;
 constexpr int kCarryParts = kNP / (kThreads * 4);  // blocks a (b, h) in fwd_carry
 constexpr int kSmemFloats = kRingFloats + 3 * kMaxChunk;
 
-// One operand: base pointer (at its first column) and the batch and row
-// strides in floats.
+// One operand of element type T: base pointer (at its first column) and the
+// batch and row strides in elements.
+template <class T>
 struct Operand {
-  const float* p;
+  const T* p;
   long long sb, sr;
 };
 
@@ -106,19 +120,20 @@ bool geometry_ok(int L, int N, int P, int Q) {
   return N == kN && P == kP && Q % kBM == 0 && Q > 0 && Q <= kMaxChunk && L % Q == 0;
 }
 
-// The operands and outputs of one forward: x, B and C with their batch and
+// The operands and outputs of one forward: x, B and C (T) with their batch and
 // row strides (x at head 0's first column), al_* when their rows are 16-byte
-// aligned; dt, S (b, h, L); Dp (h) for kD; y (b, L, h p) contiguous; hin
-// (b, nc - slot0, h, n, p), the slots slot0 .. nc - 1 of h_in: h_in itself
-// (slot0 0) or the lean forward's scratch (slot0 1: the first chunk's state
-// is 0 and read by nothing); G (b, nc, q, q) scratch; h_fin (b, h, n, p) for
-// kHfin.
+// aligned; dt, S (b, h, L) fp32; Dp (h) for kD; y (b, L, h p) T contiguous;
+// hin (b, nc - slot0, h, n, p) fp32, the slots slot0 .. nc - 1 of h_in: h_in
+// itself (slot0 0) or the lean forward's scratch (slot0 1: the first chunk's
+// state is 0 and read by nothing); G (b, nc, q, q) fp32 scratch; h_fin
+// (b, h, n, p) fp32 for kHfin.
+template <class T>
 struct Args {
-  Operand x, Bm, Cm;
+  Operand<T> x, Bm, Cm;
   const float* dt;
   const float* S;
   const float* Dp;
-  float* y;
+  T* y;
   float* hin;
   float* G;
   float* h_fin;
@@ -126,7 +141,8 @@ struct Args {
   bool al_x, al_b, al_c;
 };
 
-__device__ __forceinline__ float* slot(const Args& a, int b, int c, int h) {
+template <class T>
+__device__ __forceinline__ float* slot(const Args<T>& a, int b, int c, int h) {
   const int held = a.L / a.Q - a.slot0;
   return a.hin + ((static_cast<long long>(b) * held + c - a.slot0) * a.H + h) * kNP;
 }
@@ -134,22 +150,25 @@ __device__ __forceinline__ float* slot(const Args& a, int b, int c, int h) {
 // Blocks [0, B nc pairs): one G tile pair each. The rest: one (b, h, chunk,
 // half of n) each, the chunk's local end state B^T (dt x e^{S_end - S}), for
 // every chunk whose state is read (all but the last; all with kHfin), into
-// h_in's slot c + 1 (h_fin for the last chunk).
-template <bool kHfin>
-__global__ void __launch_bounds__(kThreads, 2) fwd_prep(Args a) {
+// h_in's slot c + 1 (h_fin for the last chunk). fp32: 3xTF32, the factor on B's
+// tile; bf16: B^T bf16(bf16(x dt) e^{S_end - S}), the factors and roundings on
+// x's tile.
+template <class T, bool kHfin>
+__global__ void __launch_bounds__(kThreads, 2) fwd_prep(Args<T> a) {
   extern __shared__ float smem[];
   float* ring = smem;
   float* sF = smem + kRingFloats;
-  const int nc = a.L / a.Q, T = a.Q / kBM, pairs = T * (T + 1) / 2;
+  float* sTe = sF + kMaxChunk;
+  const int nc = a.L / a.Q, T_ = a.Q / kBM, pairs = T_ * (T_ + 1) / 2;
   int bid = blockIdx.x;
   if (bid < a.B * nc * pairs) {
     const int pi = bid % pairs, c = bid / pairs % nc, b = bid / pairs / nc;
     int ti, si;
     pair_tiles(pi, ti, si);
     const long long r0 = static_cast<long long>(c) * a.Q;
-    g_tile(ring, Src{a.Cm.p + b * a.Cm.sb + r0 * a.Cm.sr, a.Cm.sr, a.al_c},
-           Src{a.Bm.p + b * a.Bm.sb + r0 * a.Bm.sr, a.Bm.sr, a.al_b}, ti, si,
-           a.G + (static_cast<long long>(b) * nc + c) * a.Q * a.Q, a.Q);
+    g_tile<T>(ring, Src<T>{a.Cm.p + b * a.Cm.sb + r0 * a.Cm.sr, a.Cm.sr, a.al_c},
+              Src<T>{a.Bm.p + b * a.Bm.sb + r0 * a.Bm.sr, a.Bm.sr, a.al_b}, ti, si,
+              a.G + (static_cast<long long>(b) * nc + c) * a.Q * a.Q, a.Q);
     return;
   }
   bid -= a.B * nc * pairs;
@@ -160,17 +179,36 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_prep(Args a) {
   const float* Sc = a.S + bh * a.L + r0;
   const float* dtc = a.dt + bh * a.L + r0;
   const float send = Sc[a.Q - 1];
-  for (int i = threadIdx.x; i < a.Q; i += kThreads) sF[i] = dtc[i] * expf(send - Sc[i]);
+  for (int i = threadIdx.x; i < a.Q; i += kThreads) {
+    if (is_bf16<T>) {
+      sF[i] = dtc[i];
+      sTe[i] = expf(send - Sc[i]);
+    } else {
+      sF[i] = dtc[i] * expf(send - Sc[i]);
+    }
+  }
   Acc<128> acc;
   zero<128>(acc);
-  const float* Bc = a.Bm.p + b * a.Bm.sb + r0 * a.Bm.sr + half * kBM;
-  const float* xc = a.x.p + b * a.x.sb + r0 * a.x.sr + h * kP;
+  const T* Bc = a.Bm.p + b * a.Bm.sb + r0 * a.Bm.sr + half * kBM;
+  const T* xc = a.x.p + b * a.x.sb + r0 * a.x.sr + h * kP;
   const long long bsr = a.Bm.sr, xsr = a.x.sr;
   const bool alb = a.al_b, alx = a.al_x;
-  gemm<128, true, false, true>(
-      acc, ring, a.Q / kBK, [=](int kt) { return Src{Bc + kt * kBK * bsr, bsr, alb}; },
-      [=](int kt) { return Src{xc + kt * kBK * xsr, xsr, alx}; },
-      [=](int kt, int, int k, float v) { return v * sF[kt * kBK + k]; }, AllActive{});
+  auto src_b = [=](int kt) { return Src<T>{Bc + kt * kBK * bsr, bsr, alb}; };
+  auto src_x = [=](int kt) { return Src<T>{xc + kt * kBK * xsr, xsr, alx}; };
+  if constexpr (is_bf16<T>) {
+    gemm<128, true, false, true, T, T>(
+        acc, ring, a.Q / kBK, src_b, src_x, NoXform{},
+        [=](int kt, int k, int, float v) {
+          const int s = kt * kBK + k;
+          return round_to<bf16>(round_to<bf16>(v * sF[s]) * sTe[s]);
+        },
+        AllActive{});
+  } else {
+    gemm<128, true, false, false, T, T>(
+        acc, ring, a.Q / kBK, src_b, src_x,
+        [=](int kt, int, int k, float v) { return v * sF[kt * kBK + k]; }, NoXform{},
+        AllActive{});
+  }
   float* dst = (c + 1 < nc ? slot(a, b, c + 1, h) : a.h_fin + bh * kNP) + half * kBM * kP;
   for_each<128>(acc, [=](int m, int n, float v) { dst[m * kP + n] = v; });
 }
@@ -178,9 +216,9 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_prep(Args a) {
 // h_in[c] = e^{S_end[c-1]} h_in[c-1] + (the local state in slot c) for
 // c = 2 .. nc - 1 (slot 1 already holds h_in[1]); with kHfin then
 // h_fin += e^{S_end[nc-1]} h_in[nc-1]. Grid (B h, kCarryParts), 4 elements a
-// thread.
-template <bool kHfin>
-__global__ void __launch_bounds__(kThreads) fwd_carry(Args a) {
+// thread, fp32 at either element type.
+template <class T, bool kHfin>
+__global__ void __launch_bounds__(kThreads) fwd_carry(Args<T> a) {
   const int nc = a.L / a.Q;
   const long long bh = blockIdx.x;
   const int b = static_cast<int>(bh / a.H), h = static_cast<int>(bh % a.H);
@@ -210,20 +248,22 @@ __global__ void __launch_bounds__(kThreads) fwd_carry(Args a) {
 
 // One (b, chunk, 64-row strip, head) a block, the longest strips first:
 // y = (G (.) M) (dt x) + e^S C h_in [+ D x]. With kStates the first chunk's
-// blocks also write h_in[0] = 0.
-template <bool kStates, bool kD>
-__global__ void __launch_bounds__(kThreads, 2) fwd_y(Args a) {
+// blocks also write h_in[0] = 0. fp32: [(G (.) M) dt | e^S C] [x ; h_in] as
+// 3xTF32, the factors on the A tiles; bf16: e^S (C bf16(h_in)), then
+// bf16(G (.) M) bf16(x dt) into the same accumulator, bf16 products.
+template <class T, bool kStates, bool kD>
+__global__ void __launch_bounds__(kThreads, 2) fwd_y(Args<T> a) {
   extern __shared__ float smem[];
   float* ring = smem;
   float* sS = smem + kRingFloats;
   float* sdt = sS + kMaxChunk;
   float* sE = sdt + kMaxChunk;
-  const int nc = a.L / a.Q, T = a.Q / kBM;
+  const int nc = a.L / a.Q, T_ = a.Q / kBM;
   int bid = blockIdx.x;
   const int h = bid % a.H;
   bid /= a.H;
-  const int ts = T - 1 - bid % T;
-  bid /= T;
+  const int ts = T_ - 1 - bid % T_;
+  bid /= T_;
   const int c = bid % nc, b = bid / nc;
   const long long bh = static_cast<long long>(b) * a.H + h, r0 = static_cast<long long>(c) * a.Q;
   for (int i = threadIdx.x; i < a.Q; i += kThreads) {
@@ -236,38 +276,57 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_y(Args a) {
   Acc<128> acc;
   zero<128>(acc);
   if (c > 0) {  // e^S C h_in; h_in of the first chunk is 0
-    const float* Ct = a.Cm.p + b * a.Cm.sb + (r0 + t0) * a.Cm.sr;
+    const T* Ct = a.Cm.p + b * a.Cm.sb + (r0 + t0) * a.Cm.sr;
     const float* hc = slot(a, b, c, h);
     const long long csr = a.Cm.sr;
     const bool alc = a.al_c;
-    gemm<128, false, false, true>(
-        acc, ring, kN / kBK, [=](int kt) { return Src{Ct + kt * kBK, csr, alc}; },
-        [=](int kt) { return Src{hc + kt * kBK * kP, kP, true}; },
-        [=](int, int m, int, float v) { return v * sE[t0 + m]; }, AllActive{});
+    auto src_c = [=](int kt) { return Src<T>{Ct + kt * kBK, csr, alc}; };
+    auto src_h = [=](int kt) { return Src<float>{hc + kt * kBK * kP, kP, true}; };
+    if constexpr (is_bf16<T>) {
+      gemm<128, false, false, true, T, float>(acc, ring, kN / kBK, src_c, src_h, NoXform{},
+                                              NoXform{}, AllActive{});
+      for_each<128>(acc, [=](int m, int, float& v) { v *= sE[t0 + m]; });
+    } else {
+      gemm<128, false, false, false, T, float>(
+          acc, ring, kN / kBK, src_c, src_h,
+          [=](int, int m, int, float v) { return v * sE[t0 + m]; }, NoXform{}, AllActive{});
+    }
   }
   const long long Q = a.Q;
   const float* Gt = a.G + (static_cast<long long>(b) * nc + c) * Q * Q + t0 * Q;
-  const float* xc = a.x.p + b * a.x.sb + r0 * a.x.sr + h * kP;
+  const T* xc = a.x.p + b * a.x.sb + r0 * a.x.sr + h * kP;
   const long long xsr = a.x.sr;
   const bool alx = a.al_x;
-  gemm<128, false, false, true>(
-      acc, ring, (t0 + kBM) / kBK, [=](int kt) { return Src{Gt + kt * kBK, Q, true}; },
-      [=](int kt) { return Src{xc + kt * kBK * xsr, xsr, alx}; },
-      [=](int kt, int m, int k, float v) {
-        const int t = t0 + m, s = kt * kBK + k;
-        return s <= t ? v * expf(sS[t] - sS[s]) * sdt[s] : 0.f;
-      },
-      [=](int kt, int wm) { return kt * kBK <= t0 + wm * 32 + 31; });
+  auto src_g = [=](int kt) { return Src<float>{Gt + kt * kBK, Q, true}; };
+  auto src_x = [=](int kt) { return Src<T>{xc + kt * kBK * xsr, xsr, alx}; };
+  auto active = [=](int kt, int wm) { return kt * kBK <= t0 + wm * 32 + 31; };
+  if constexpr (is_bf16<T>) {
+    gemm<128, false, false, true, float, T>(
+        acc, ring, (t0 + kBM) / kBK, src_g, src_x,
+        [=](int kt, int m, int k, float v) {
+          const int t = t0 + m, s = kt * kBK + k;
+          return s <= t ? v * expf(sS[t] - sS[s]) : 0.f;
+        },
+        [=](int kt, int k, int, float v) { return v * sdt[kt * kBK + k]; }, active);
+  } else {
+    gemm<128, false, false, false, float, T>(
+        acc, ring, (t0 + kBM) / kBK, src_g, src_x,
+        [=](int kt, int m, int k, float v) {
+          const int t = t0 + m, s = kt * kBK + k;
+          return s <= t ? v * expf(sS[t] - sS[s]) * sdt[s] : 0.f;
+        },
+        NoXform{}, active);
+  }
   const float skip = kD ? a.Dp[h] : 0.f;
   const long long d = static_cast<long long>(a.H) * kP;
-  float* yt = a.y + (b * static_cast<long long>(a.L) + r0 + t0) * d + h * kP;
-  const float* xt = xc + t0 * xsr;
+  T* yt = a.y + (b * static_cast<long long>(a.L) + r0 + t0) * d + h * kP;
+  const T* xt = xc + t0 * xsr;
   for_each<128>(acc, [=](int m, int n, float v) {
-    yt[m * d + n] = kD ? v + skip * xt[m * xsr + n] : v;
+    yt[m * d + n] = from_f<T>(kD ? v + skip * to_f(xt[m * xsr + n]) : v);
   });
   if (kStates && c == 0) {
-    float* z = slot(a, b, 0, h) + ts * (kNP / T);
-    for (int i = threadIdx.x; i < kNP / T; i += kThreads) z[i] = 0.f;
+    float* z = slot(a, b, 0, h) + ts * (kNP / T_);
+    for (int i = threadIdx.x; i < kNP / T_; i += kThreads) z[i] = 0.f;
   }
 }
 
@@ -277,39 +336,94 @@ cudaError_t allow_smem(K* kernel) {
                               static_cast<int>(sizeof(float)) * kSmemFloats);
 }
 
-template <bool kStates, bool kHfin, bool kD>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+template <class T, bool kStates, bool kHfin, bool kD>
+cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(float)) * kSmemFloats;
-  const int nc = a.L / a.Q, T = a.Q / kBM;
-  cudaError_t err = allow_smem(fwd_prep<kHfin>);
-  if (err == cudaSuccess) err = allow_smem(fwd_y<kStates, kD>);
+  const int nc = a.L / a.Q, T_ = a.Q / kBM;
+  cudaError_t err = allow_smem(fwd_prep<T, kHfin>);
+  if (err == cudaSuccess) err = allow_smem(fwd_y<T, kStates, kD>);
   if (err != cudaSuccess) return err;
-  const int n_prep = a.B * nc * T * (T + 1) / 2 + a.B * a.H * (kHfin ? nc : nc - 1) * 2;
+  const int n_prep = a.B * nc * T_ * (T_ + 1) / 2 + a.B * a.H * (kHfin ? nc : nc - 1) * 2;
   if (n_prep > 0) {
-    fwd_prep<kHfin><<<n_prep, kThreads, smem, stream>>>(a);
+    fwd_prep<T, kHfin><<<n_prep, kThreads, smem, stream>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (nc > 2 || (kHfin && nc > 1)) {
-    fwd_carry<kHfin><<<dim3(a.B * a.H, kCarryParts), kThreads, 0, stream>>>(a);
+    fwd_carry<T, kHfin><<<dim3(a.B * a.H, kCarryParts), kThreads, 0, stream>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  fwd_y<kStates, kD><<<a.B * nc * T * a.H, kThreads, smem, stream>>>(a);
+  fwd_y<T, kStates, kD><<<a.B * nc * T_ * a.H, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // Checks the scratch against the geometry, then launches the variant that
 // states (h_in itself in a.hin, else the lean scratch of slots 1 .. nc - 1)
 // and a.h_fin (written unless null) name.
-template <bool kD>
-int checked_launch(Args a, long long hin_n, bool states, long long g_n, cudaStream_t s) {
+template <class T, bool kD>
+int checked_launch(Args<T> a, long long hin_n, bool states, long long g_n, cudaStream_t s) {
   const long long nc = a.L / a.Q;
   a.slot0 = states ? 0 : 1;
   if (hin_n != a.B * (nc - a.slot0) * a.H * kNP || g_n != a.B * nc * a.Q * a.Q ||
       !ssd_tc::aligned16(a.hin, 0, 0) || !ssd_tc::aligned16(a.G, 0, 0))
     return cudaErrorInvalidValue;
   const bool hfin = a.h_fin != nullptr;
-  if (states) return hfin ? launch<true, true, kD>(a, s) : launch<true, false, kD>(a, s);
-  return hfin ? launch<false, true, kD>(a, s) : launch<false, false, kD>(a, s);
+  if (states) return hfin ? launch<T, true, true, kD>(a, s) : launch<T, true, false, kD>(a, s);
+  return hfin ? launch<T, false, true, kD>(a, s) : launch<T, false, false, kD>(a, s);
+}
+
+template <class T>
+int xbc_fwd(const void* xbc, const void* dt, const void* S, const void* Dp, void* y, void* hin,
+            long long hin_n, int states, void* G, long long g_n, int B, int L, int H,
+            int d_inner, int N, int P, int Q, long long x_sb, long long x_sr, void* stream) {
+  if (!geometry_ok(L, N, P, Q) || d_inner != H * P || !ssd_tc::aligned4<T>(xbc, x_sb, x_sr))
+    return cudaErrorInvalidValue;
+  const auto* xf = static_cast<const T*>(xbc);
+  const bool al = ssd_tc::aligned16<T>(xf, x_sb, x_sr);
+  Args<T> a{};
+  a.x = Operand<T>{xf, x_sb, x_sr};
+  a.Bm = Operand<T>{xf + d_inner, x_sb, x_sr};
+  a.Cm = Operand<T>{xf + d_inner + N, x_sb, x_sr};
+  a.dt = static_cast<const float*>(dt);
+  a.S = static_cast<const float*>(S);
+  a.Dp = static_cast<const float*>(Dp);
+  a.y = static_cast<T*>(y);
+  a.hin = static_cast<float*>(hin);
+  a.G = static_cast<float*>(G);
+  a.B = B;
+  a.L = L;
+  a.H = H;
+  a.Q = Q;
+  a.al_x = a.al_b = a.al_c = al;
+  return checked_launch<T, true>(a, hin_n, states != 0, g_n, static_cast<cudaStream_t>(stream));
+}
+
+template <class T>
+int split_fwd(const void* x, const void* Bm, const void* Cm, const void* dt, const void* S,
+              void* y, void* hin, long long hin_n, int states, void* h_fin, void* G,
+              long long g_n, int B, int L, int H, int N, int P, int Q, long long x_sb,
+              long long x_sr, long long b_sb, long long b_sr, long long c_sb, long long c_sr,
+              void* stream) {
+  if (!geometry_ok(L, N, P, Q) || !ssd_tc::aligned4<T>(x, x_sb, x_sr) ||
+      !ssd_tc::aligned4<T>(Bm, b_sb, b_sr) || !ssd_tc::aligned4<T>(Cm, c_sb, c_sr))
+    return cudaErrorInvalidValue;
+  Args<T> a{};
+  a.x = Operand<T>{static_cast<const T*>(x), x_sb, x_sr};
+  a.Bm = Operand<T>{static_cast<const T*>(Bm), b_sb, b_sr};
+  a.Cm = Operand<T>{static_cast<const T*>(Cm), c_sb, c_sr};
+  a.dt = static_cast<const float*>(dt);
+  a.S = static_cast<const float*>(S);
+  a.y = static_cast<T*>(y);
+  a.hin = static_cast<float*>(hin);
+  a.G = static_cast<float*>(G);
+  a.h_fin = static_cast<float*>(h_fin);
+  a.B = B;
+  a.L = L;
+  a.H = H;
+  a.Q = Q;
+  a.al_x = ssd_tc::aligned16<T>(x, x_sb, x_sr);
+  a.al_b = ssd_tc::aligned16<T>(Bm, b_sb, b_sr);
+  a.al_c = ssd_tc::aligned16<T>(Cm, c_sb, c_sr);
+  return checked_launch<T, false>(a, hin_n, states != 0, g_n, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -329,25 +443,18 @@ int ssd_xbc_fwd(const void* xbc, const void* dt, const void* S, const void* Dp, 
                 void* hin, long long hin_n, int states, void* G, long long g_n, int B, int L,
                 int H, int d_inner, int N, int P, int Q, long long x_sb, long long x_sr,
                 void* stream) {
-  if (!geometry_ok(L, N, P, Q) || d_inner != H * P) return cudaErrorInvalidValue;
-  const auto* xf = static_cast<const float*>(xbc);
-  const bool al = ssd_tc::aligned16(xf, x_sb, x_sr);
-  Args a{};
-  a.x = Operand{xf, x_sb, x_sr};
-  a.Bm = Operand{xf + d_inner, x_sb, x_sr};
-  a.Cm = Operand{xf + d_inner + N, x_sb, x_sr};
-  a.dt = static_cast<const float*>(dt);
-  a.S = static_cast<const float*>(S);
-  a.Dp = static_cast<const float*>(Dp);
-  a.y = static_cast<float*>(y);
-  a.hin = static_cast<float*>(hin);
-  a.G = static_cast<float*>(G);
-  a.B = B;
-  a.L = L;
-  a.H = H;
-  a.Q = Q;
-  a.al_x = a.al_b = a.al_c = al;
-  return checked_launch<true>(a, hin_n, states != 0, g_n, static_cast<cudaStream_t>(stream));
+  return xbc_fwd<float>(xbc, dt, S, Dp, y, hin, hin_n, states, G, g_n, B, L, H, d_inner, N, P,
+                        Q, x_sb, x_sr, stream);
+}
+
+// K8 at bf16: xbc and y bf16, every other argument as ssd_xbc_fwd's (dt, S, Dp
+// and the states fp32); xbc's rows must start 4-byte aligned.
+int ssd_xbc_fwd_bf16(const void* xbc, const void* dt, const void* S, const void* Dp, void* y,
+                     void* hin, long long hin_n, int states, void* G, long long g_n, int B,
+                     int L, int H, int d_inner, int N, int P, int Q, long long x_sb,
+                     long long x_sr, void* stream) {
+  return xbc_fwd<bf16>(xbc, dt, S, Dp, y, hin, hin_n, states, G, g_n, B, L, H, d_inner, N, P,
+                       Q, x_sb, x_sr, stream);
 }
 
 // K6. x: (B, L, H * P) with strides (x_sb, x_sr, 1); Bm, Cm: (B, L, N) with
@@ -361,25 +468,19 @@ int ssd_split_fwd(const void* x, const void* Bm, const void* Cm, const void* dt,
                   void* G, long long g_n, int B, int L, int H, int N, int P, int Q,
                   long long x_sb, long long x_sr, long long b_sb, long long b_sr,
                   long long c_sb, long long c_sr, void* stream) {
-  if (!geometry_ok(L, N, P, Q)) return cudaErrorInvalidValue;
-  Args a{};
-  a.x = Operand{static_cast<const float*>(x), x_sb, x_sr};
-  a.Bm = Operand{static_cast<const float*>(Bm), b_sb, b_sr};
-  a.Cm = Operand{static_cast<const float*>(Cm), c_sb, c_sr};
-  a.dt = static_cast<const float*>(dt);
-  a.S = static_cast<const float*>(S);
-  a.y = static_cast<float*>(y);
-  a.hin = static_cast<float*>(hin);
-  a.G = static_cast<float*>(G);
-  a.h_fin = static_cast<float*>(h_fin);
-  a.B = B;
-  a.L = L;
-  a.H = H;
-  a.Q = Q;
-  a.al_x = ssd_tc::aligned16(x, x_sb, x_sr);
-  a.al_b = ssd_tc::aligned16(Bm, b_sb, b_sr);
-  a.al_c = ssd_tc::aligned16(Cm, c_sb, c_sr);
-  return checked_launch<false>(a, hin_n, states != 0, g_n, static_cast<cudaStream_t>(stream));
+  return split_fwd<float>(x, Bm, Cm, dt, S, y, hin, hin_n, states, h_fin, G, g_n, B, L, H, N,
+                          P, Q, x_sb, x_sr, b_sb, b_sr, c_sb, c_sr, stream);
+}
+
+// K6 at bf16: x, Bm, Cm and y bf16 (rows 4-byte aligned), the rest as
+// ssd_split_fwd's.
+int ssd_split_fwd_bf16(const void* x, const void* Bm, const void* Cm, const void* dt,
+                       const void* S, void* y, void* hin, long long hin_n, int states,
+                       void* h_fin, void* G, long long g_n, int B, int L, int H, int N, int P,
+                       int Q, long long x_sb, long long x_sr, long long b_sb, long long b_sr,
+                       long long c_sb, long long c_sr, void* stream) {
+  return split_fwd<bf16>(x, Bm, Cm, dt, S, y, hin, hin_n, states, h_fin, G, g_n, B, L, H, N, P,
+                         Q, x_sb, x_sr, b_sb, b_sr, c_sb, c_sr, stream);
 }
 
 const char* ssd_xbc_fwd_error_string(int code) {

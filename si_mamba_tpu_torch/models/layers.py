@@ -190,7 +190,9 @@ class SSDMixer(nn.Module):
     maps it. So on CUDA only ``'ssd_fused'`` launches a kernel; the JAX
     package's ``'xla'`` route on the TPU still runs its Pallas conv. With
     ``mesh`` and ``tp_axis`` it is ``ssd_mixer_tp`` on this rank's block of
-    n_heads / M heads ('ssd_fused': K1/K5 and the split core K6/K7)."""
+    n_heads / M heads ('ssd_fused': K1/K5 and the split core K6/K7). bf16
+    activations (the SSD presets) run with its fp32 parameters, cast at each
+    matmul as the JAX mixer does, through the kernels' bf16 variants."""
 
     def __init__(self, d_model: int, d_state: int = 128, d_conv: int = 4, expand: int = 2,
                  head_dim: int = 128, chunk: int = 128, out_proj_div: float = 1.0,

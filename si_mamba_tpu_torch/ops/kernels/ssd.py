@@ -10,8 +10,9 @@ the tensor- and sequence-parallel mixers make them, and has no D term; it can
 also return the state after the last chunk, h_fin (b, h, n, p), and take its
 cotangent back as the seed of the backward's carry.
 
-Kernels, one chunk-parallel body in each source, its products as 3xTF32 on
-the tensor cores (``csrc/ssd_tc.cuh``), with two entry points each:
+Kernels, one chunk-parallel body in each source, its products on the tensor
+cores (``csrc/ssd_tc.cuh``: 3xTF32, and at bf16 also bf16 products), with two
+entry points each and a ``_bf16`` twin of each:
 - ``csrc/ssd_xbc_fwd.cu``: K8 (``ssd_xbc_fwd``), which replaces the TPU
   kernel ``_make_fwd_kernel_xbc`` behind ``_fwd_call_xbc``
   (si_mamba_tpu/ops/pallas/ssd_kernel.py), in two variants: the lean forward
@@ -33,7 +34,17 @@ the tensor cores (``csrc/ssd_tc.cuh``), with two entry points each:
 library; the C side refuses scratch of another size.
 The sources describe the designs and bounds. They are built for d_state =
 head_dim = 128 and chunks that are a multiple of :data:`STRIP` up to
-:data:`MAX_CHUNK`, in float32.
+:data:`MAX_CHUNK`.
+
+Every kernel takes fp32 or bf16 activations (xbc, or x, B and C, and dy; y,
+dx, dB and dC come back in their dtype), with dt, S, D, h_in and dh_fin fp32,
+as the TPU kernels take them at either activation dtype. At bf16 the products
+whose operands the TPU kernels round to bf16 (their ``mm``) are bf16
+tensor-core products, the ones with the fp32 state carry stay 3xTF32, and
+the plain versions round where ``_make_fwd_kernel(_xbc)`` and ``_bwd_head``
+round (:func:`ssd_chunks_ref`, :func:`_bwd_chunks`). Each dtype is its own
+variant with its own launch count: ``ssd_xbc_fwd`` / ``ssd_xbc_fwd_bf16``,
+``ssd_split_bwd_seeded`` / ``ssd_split_bwd_seeded_bf16``, and so on.
 
 :func:`ssd_chunked_xbc` runs the lean K8 when no gradient is wanted and
 :class:`SSDChunkedXbcFn` (K8 with states, K9) when one is;
@@ -57,11 +68,21 @@ HEAD_DIM = 128  # head_dim the kernels are built for (kP)
 STRIP = 64  # rows of a time strip; the chunk must be a multiple (kStrip)
 MAX_CHUNK = 256  # the longest chunk the kernels' shared memory holds (kMaxChunk)
 CARRY_PARTS = 16  # blocks a (batch row, head) in K9's carry pass (kCarryParts)
+# the activation dtypes the kernels are built for; dt, S, D and the states are fp32
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
     """The plain versions compute in fp32, or in fp64 for fp64 input."""
     return torch.promote_types(x.dtype, torch.float32)
+
+
+def _rounder(mm):
+    """t rounded to ``mm`` and back (bf16: what a bf16 operand of a product
+    with fp32 accumulation holds), or t itself for mm None, fp32 or fp64."""
+    if mm is None or mm in (torch.float32, torch.float64):
+        return lambda t: t
+    return lambda t: t.to(mm).to(t.dtype)
 
 
 def decay_mask(S: torch.Tensor) -> torch.Tensor:
@@ -73,25 +94,34 @@ def decay_mask(S: torch.Tensor) -> torch.Tensor:
     return torch.exp(torch.where(tri, S[..., :, None] - S[..., None, :], float("-inf")))
 
 
-def ssd_chunks_ref(xdt, S, Bc, Cc):
+def ssd_chunks_ref(xdt, S, Bc, Cc, mm=None, round_decay: bool = False):
     """The chunked SSD without the D skip, heads next to the batch: xdt
     (b, h, nc, q, p) = dt x, S (b, h, nc, q) the per-chunk log-decay cumsums,
     Bc, Cc (b, nc, q, n). Returns y (b, h, nc, q, p), the state entering each
     chunk h_in (b, h, nc, n, p) and the state leaving the last (b, h, n, p):
     the intra-chunk (C B^T (.) decay mask) (dt x), the inter-chunk
-    C h_in e^S, and the carry h <- e^{S_end} h + B^T (dt x (.) e^{S_end - S})."""
+    C h_in e^S, and the carry h <- e^{S_end} h + B^T (dt x (.) e^{S_end - S}).
+
+    ``mm`` bf16: the products' operands rounded to bf16 where the JAX package
+    rounds them at bf16 activations (xdt is the caller's, already rounded):
+    G (.) M, the decayed xdt of the carry (its factor e^{S_end - S} rounded
+    first with ``round_decay``, as ``ops/ssd.ssd_chunked``'s bf16 product does;
+    not, as the Pallas kernels do) and h_in as the operand of C h_in. Products
+    accumulate in xdt's dtype, the carry and y stay in it."""
     b, h, nc, _, p = xdt.shape
     n = Bc.shape[-1]
+    rnd = _rounder(mm)
     G = torch.einsum("bcqn,bckn->bcqk", Cc, Bc)
-    y_intra = torch.einsum("bhcqk,bhckp->bhcqp", G[:, None] * decay_mask(S), xdt)
+    y_intra = torch.einsum("bhcqk,bhckp->bhcqp", rnd(G[:, None] * decay_mask(S)), xdt)
     T_end = torch.exp(S[..., -1:] - S)
-    states = torch.einsum("bcqn,bhcqp->bhcnp", Bc, xdt * T_end[..., None])
+    decay = rnd(T_end) if round_decay else T_end
+    states = torch.einsum("bcqn,bhcqp->bhcnp", Bc, rnd(xdt * decay[..., None]))
     state, entries = xdt.new_zeros((b, h, n, p)), []
     for c in range(nc):
         entries.append(state)
         state = torch.exp(S[:, :, c, -1])[..., None, None] * state + states[:, :, c]
     h_in = torch.stack(entries, dim=2) if entries else xdt.new_zeros((b, h, 0, n, p))
-    y_inter = torch.einsum("bcqn,bhcnp->bhcqp", Cc, h_in) * torch.exp(S)[..., None]
+    y_inter = torch.einsum("bcqn,bhcnp->bhcqp", Cc, rnd(h_in)) * torch.exp(S)[..., None]
     return y_intra + y_inter, h_in, state
 
 
@@ -107,25 +137,29 @@ def _split_xbc(xbc, d_inner: int, h: int, chunk: int):
 
 
 def ssd_xbc_fwd_ref(xbc, dt, S, D, d_inner: int, chunk: int, emit_states: bool = False):
-    """Plain version of K8: (y (b, l, d), h_in (b, nc, h, n, p) or None).
+    """Plain version of K8: (y (b, l, d) in xbc's dtype, h_in (b, nc, h, n, p)
+    fp32 or None).
 
     What ``_make_fwd_kernel_xbc`` computes: :func:`ssd_chunks_ref` with the
-    head-shared G = C B^T, plus the D skip."""
+    head-shared G = C B^T, plus the D skip; at bf16 with its roundings
+    (xdt = bf16(x dt), then those of :func:`ssd_chunks_ref`)."""
     b, l, _ = xbc.shape
     x, Bc, Cc = _split_xbc(xbc, d_inner, dt.shape[1], chunk)
     dt, S, D = dt.to(x.dtype), S.to(x.dtype), D.to(x.dtype)
-    y, h_in, _ = ssd_chunks_ref(x * dt[..., None], S, Bc, Cc)
+    rnd = _rounder(xbc.dtype)
+    y, h_in, _ = ssd_chunks_ref(rnd(x * dt[..., None]), S, Bc, Cc, mm=xbc.dtype)
     y = y + D[None, :, None, None, None] * x
     y = y.permute(0, 2, 3, 1, 4).reshape(b, l, d_inner).to(xbc.dtype)
     return y, (h_in.transpose(1, 2).contiguous() if emit_states else None)
 
 
-def _bwd_chunks(x, dt, S, Bc, Cc, hin_all, dyh, dh, D=None):
+def _bwd_chunks(x, dt, S, Bc, Cc, hin_all, dyh, dh, D=None, mm=None):
     """The reverse chunk loop of the backward, heads next to the batch: x, dyh
     (b, h, nc, q, p), dt, S (b, h, nc, q), Bc, Cc (b, nc, q, n), hin_all
     (b, h, nc, n, p), dh (b, h, n, p) the cotangent of the state leaving the
-    last chunk, D (h,) or None for the core without the D skip. Returns
-    (dx, ddt, dS, dB, dC, dD partials (b, nc, h) or None).
+    last chunk, D (h,) or None for the core without the D skip; every operand
+    in the accumulation dtype, the activations' values bf16 ones for ``mm``
+    bf16. Returns (dx, ddt, dS, dB, dC, dD partials (b, nc, h) or None).
 
     Written out as ``_bwd_head`` computes it (not taken from autograd): the
     chunks in reverse with dh carried from each chunk to the one before,
@@ -134,7 +168,14 @@ def _bwd_chunks(x, dt, S, Bc, Cc, hin_all, dyh, dh, D=None):
 
     dx = (GM^T dy + (B dh_out) e^{S_end - S}) dt (+ D dy), the head-summed dB
     and dC, dS from the mask's rows and columns, the e^S and e^{S_end - S}
-    factors and the chunk's end (dSend), ddt, and dD as per-chunk partials."""
+    factors and the chunk's end (dSend), ddt, and dD as per-chunk partials.
+
+    ``mm`` bf16 rounds where ``_bwd_head`` rounds at bf16: xdt = bf16(x dt)
+    in dy xdt^T and (unrounded again) in the carry term of dB, GM and dG as
+    operands of GM^T dy, dG B and dG^T C, and h_in as the operand of
+    dy h_in^T and C h_in; the dh carry and every product it enters stay in
+    the accumulation dtype."""
+    rnd = _rounder(mm)
     b, h, nc = dt.shape[:3]
     dx, ddt, dS = torch.empty_like(x), torch.empty_like(dt), torch.empty_like(S)
     dB, dC = torch.empty_like(Bc), torch.empty_like(Cc)
@@ -146,11 +187,13 @@ def _bwd_chunks(x, dt, S, Bc, Cc, hin_all, dyh, dh, D=None):
         E = torch.exp(Sc)
         send = Sc[..., -1]
         T_end = torch.exp(send[..., None] - Sc)
-        xdt = xc * dtc[..., None]
+        xdt32 = xc * dtc[..., None]
+        xdt = rnd(xdt32)
         M = decay_mask(Sc)  # (b, h, q_t, q_s)
         GM = torch.einsum("btn,bsn->bts", C, B)[:, None] * M
+        hin_mm = rnd(hin)
 
-        t1 = torch.einsum("bhts,bhtp->bhsp", GM, dyc)
+        t1 = torch.einsum("bhts,bhtp->bhsp", rnd(GM), dyc)
         Bdh = torch.einsum("bsn,bhnp->bhsp", B, dh)
         dxdt = t1 + Bdh * T_end[..., None]
         dx[:, :, c] = dxdt * dtc[..., None]
@@ -162,14 +205,14 @@ def _bwd_chunks(x, dt, S, Bc, Cc, hin_all, dyh, dh, D=None):
         dGM = torch.einsum("bhtp,bhsp->bhts", dyc, xdt)
         dG = dGM * M
         dlogM = dGM * GM
-        dC[:, c] = (torch.einsum("bhts,bsn->bhtn", dG, B)
-                    + torch.einsum("bhtp,bhnp->bhtn", dyc, hin) * E[..., None]).sum(1)
-        dB[:, c] = (torch.einsum("bhts,btn->bhsn", dG, C)
+        dC[:, c] = (torch.einsum("bhts,bsn->bhtn", rnd(dG), B)
+                    + torch.einsum("bhtp,bhnp->bhtn", dyc, hin_mm) * E[..., None]).sum(1)
+        dB[:, c] = (torch.einsum("bhts,btn->bhsn", rnd(dG), C)
                     + torch.einsum("bhsp,bhnp->bhsn", xdt * T_end[..., None], dh)).sum(1)
 
-        Chin = torch.einsum("btn,bhnp->bhtp", C, hin)
+        Chin = torch.einsum("btn,bhnp->bhtp", C, hin_mm)
         dE = torch.sum(dyc * Chin, dim=-1)
-        dT = torch.sum(Bdh * xdt, dim=-1)
+        dT = torch.sum(Bdh * xdt32, dim=-1)
         dSend = torch.sum(dT * T_end, dim=-1) + torch.exp(send) * torch.sum(dh * hin, dim=(-2, -1))
         dSc = torch.sum(dlogM, dim=-1) + dE * E - dT * T_end - torch.sum(dlogM, dim=-2)
         dSc[..., -1] += dSend
@@ -181,8 +224,9 @@ def _bwd_chunks(x, dt, S, Bc, Cc, hin_all, dyh, dh, D=None):
 
 
 def ssd_xbc_bwd_ref(xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int):
-    """Plain version of K9: (dxbc (b, l, d + 2n), ddt, dS (b, h, nc, q), dD (h,)),
-    by :func:`_bwd_chunks` with the D skip and a zero dh for the last chunk."""
+    """Plain version of K9: (dxbc (b, l, d + 2n) in xbc's dtype, ddt, dS
+    (b, h, nc, q), dD (h,)), by :func:`_bwd_chunks` with the D skip and a zero
+    dh for the last chunk, rounding as ``_bwd_head`` at xbc's dtype."""
     b, l, total = xbc.shape
     h = dt.shape[1]
     x, Bc, Cc = _split_xbc(xbc, d_inner, h, chunk)
@@ -191,7 +235,7 @@ def ssd_xbc_bwd_ref(xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int):
     dyh = dy.to(acc).reshape(b, nc, q, h, p).permute(0, 3, 1, 2, 4)
     dx, ddt, dS, dB, dC, dD_part = _bwd_chunks(
         x, dt.to(acc), S.to(acc), Bc, Cc, h_in.to(acc).transpose(1, 2), dyh,
-        x.new_zeros((b, h, n, p)), D.to(acc))
+        x.new_zeros((b, h, n, p)), D.to(acc), mm=xbc.dtype)
     dxbc = torch.cat([dx.permute(0, 2, 3, 1, 4).reshape(b, l, d_inner),
                       dB.reshape(b, l, n), dC.reshape(b, l, n)], dim=-1)
     return dxbc.to(xbc.dtype), ddt, dS, dD_part.sum(dim=(0, 1))
@@ -209,14 +253,15 @@ def _split_operands(x, Bc, Cc, h: int, chunk: int):
 
 def ssd_split_fwd_ref(x, dt, S, Bc, Cc, chunk: int, emit_states: bool = False,
                       emit_hfin: bool = False):
-    """Plain version of K6: (y (b, l, h p), h_in (b, nc, h, n, p) or None,
-    h_fin (b, h, n, p) or None) for x (b, l, h p), dt, S (b, h, nc, q) and the
-    (b, l, n) B and C: :func:`ssd_chunks_ref` with no D skip, what
-    ``_make_fwd_kernel`` computes."""
+    """Plain version of K6: (y (b, l, h p) in x's dtype, h_in (b, nc, h, n, p)
+    or None, h_fin (b, h, n, p) or None, both fp32) for x (b, l, h p), dt, S
+    (b, h, nc, q) and the (b, l, n) B and C: :func:`ssd_chunks_ref` with no D
+    skip, what ``_make_fwd_kernel`` computes, at bf16 with its roundings."""
     b, l, d = x.shape
     xh, Bh, Ch = _split_operands(x, Bc, Cc, dt.shape[1], chunk)
     dt, S = dt.to(xh.dtype), S.to(xh.dtype)
-    y, h_in, h_fin = ssd_chunks_ref(xh * dt[..., None], S, Bh, Ch)
+    rnd = _rounder(x.dtype)
+    y, h_in, h_fin = ssd_chunks_ref(rnd(xh * dt[..., None]), S, Bh, Ch, mm=x.dtype)
     y = y.permute(0, 2, 3, 1, 4).reshape(b, l, d).to(x.dtype)
     return (y, h_in.transpose(1, 2).contiguous() if emit_states else None,
             h_fin if emit_hfin else None)
@@ -224,8 +269,9 @@ def ssd_split_fwd_ref(x, dt, S, Bc, Cc, chunk: int, emit_states: bool = False,
 
 def ssd_split_bwd_ref(x, dt, S, Bc, Cc, h_in, dy, chunk: int, dh_fin=None):
     """Plain version of K7: (dx (b, l, h p), ddt, dS (b, h, nc, q), dB, dC
-    (b, l, n)), by :func:`_bwd_chunks` without the D skip; the dh carry starts
-    at ``dh_fin`` (b, h, n, p), the cotangent of the forward's h_fin, or at 0."""
+    (b, l, n)), dx, dB and dC in x's dtype, by :func:`_bwd_chunks` without the
+    D skip, rounding as ``_bwd_head`` at x's dtype; the dh carry starts at
+    ``dh_fin`` (b, h, n, p), the cotangent of the forward's h_fin, or at 0."""
     b, l, d = x.shape
     h = dt.shape[1]
     xh, Bh, Ch = _split_operands(x, Bc, Cc, h, chunk)
@@ -234,9 +280,9 @@ def ssd_split_bwd_ref(x, dt, S, Bc, Cc, h_in, dy, chunk: int, dh_fin=None):
     dyh = dy.to(acc).reshape(b, nc, chunk, h, p).permute(0, 3, 1, 2, 4)
     dh = xh.new_zeros((b, h, n, p)) if dh_fin is None else dh_fin.to(acc)
     dx, ddt, dS, dB, dC, _ = _bwd_chunks(xh, dt.to(acc), S.to(acc), Bh, Ch,
-                                         h_in.to(acc).transpose(1, 2), dyh, dh)
+                                         h_in.to(acc).transpose(1, 2), dyh, dh, mm=x.dtype)
     dx = dx.permute(0, 2, 3, 1, 4).reshape(b, l, d).to(x.dtype)
-    return dx, ddt, dS, dB.reshape(b, l, n), dC.reshape(b, l, n)
+    return dx, ddt, dS, dB.reshape(b, l, n).to(x.dtype), dC.reshape(b, l, n).to(x.dtype)
 
 
 @functools.cache
@@ -249,34 +295,40 @@ def _bwd_library() -> ctypes.CDLL:
     return bwd_interface(load_library("ssd_xbc_bwd"))
 
 
+_I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+# The C entry points of the ``ssd_xbc_fwd`` library by name, each with its
+# argument list, which its ``_bf16`` twin shares: the pointers, h_in (or the
+# lean forward's scratch for the states entering chunks 1 .. nc - 1) and G's
+# scratch each with its float count, the states flag (and for K6 h_fin, or
+# null), the geometry, the operands' strides, the stream.
+FWD_ENTRIES = {"ssd_xbc_fwd": [_P] * 6 + [_LL, _I, _P, _LL] + [_I] * 7 + [_LL] * 2 + [_P],
+               "ssd_split_fwd": [_P] * 7 + [_LL, _I, _P, _P, _LL] + [_I] * 6 + [_LL] * 6 + [_P]}
+# those of the ``ssd_xbc_bwd`` library: the pointers, (K9) dD's partials and
+# the scratch each with its float count, the geometry, the operands' strides,
+# the stream.
+BWD_ENTRIES = {"ssd_xbc_bwd": [_P] * 10 + [_LL, _P, _LL] + [_I] * 7 + [_LL] * 4 + [_P],
+               "ssd_split_bwd": [_P] * 13 + [_LL] + [_I] * 6 + [_LL] * 8 + [_P]}
+
+
+def _declare(lib: ctypes.CDLL, entries: dict, error_string: str) -> ctypes.CDLL:
+    for name, argtypes in entries.items():
+        for fn in (getattr(lib, name), getattr(lib, name + "_bf16")):
+            fn.argtypes, fn.restype = argtypes, _I
+    getattr(lib, error_string).argtypes = [_I]
+    getattr(lib, error_string).restype = ctypes.c_char_p
+    return lib
+
+
 def fwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of K8 and K6 in a built ``ssd_xbc_fwd``
-    library: the pointers, h_in (or the lean forward's scratch for the states
-    entering chunks 1 .. nc - 1) and G's scratch each with its float count,
-    the states flag (and for K6 h_fin, or null), the geometry, the operands'
-    strides, the stream."""
-    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-    lib.ssd_xbc_fwd.argtypes = [p] * 6 + [ll, i, p, ll] + [i] * 7 + [ll] * 2 + [p]
-    lib.ssd_xbc_fwd.restype = i
-    lib.ssd_split_fwd.argtypes = [p] * 7 + [ll, i, p, p, ll] + [i] * 6 + [ll] * 6 + [p]
-    lib.ssd_split_fwd.restype = i
-    lib.ssd_xbc_fwd_error_string.argtypes = [i]
-    lib.ssd_xbc_fwd_error_string.restype = ctypes.c_char_p
-    return lib
+    library, each entry point with its ``_bf16`` twin (``FWD_ENTRIES``)."""
+    return _declare(lib, FWD_ENTRIES, "ssd_xbc_fwd_error_string")
 
 
 def bwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of K9 and K7 in a built ``ssd_xbc_bwd``
-    library: the pointers, (K9) dD's partials and the scratch each with its
-    float count, the geometry, the operands' strides, the stream."""
-    i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-    lib.ssd_xbc_bwd.argtypes = [p] * 10 + [ll, p, ll] + [i] * 7 + [ll] * 4 + [p]
-    lib.ssd_xbc_bwd.restype = i
-    lib.ssd_split_bwd.argtypes = [p] * 13 + [ll] + [i] * 6 + [ll] * 8 + [p]
-    lib.ssd_split_bwd.restype = i
-    lib.ssd_xbc_bwd_error_string.argtypes = [i]
-    lib.ssd_xbc_bwd_error_string.restype = ctypes.c_char_p
-    return lib
+    library, each entry point with its ``_bf16`` twin (``BWD_ENTRIES``)."""
+    return _declare(lib, BWD_ENTRIES, "ssd_xbc_bwd_error_string")
 
 
 def bwd_scratch_floats(b: int, l: int, h: int, chunk: int) -> int:
@@ -302,12 +354,24 @@ def _check_geometry(n: int, p: int, l: int, chunk: int) -> None:
         raise ValueError(f"L={l} is not a multiple of chunk={chunk}; pad first")
 
 
+# the activation operands, which are fp32 or bf16 (one dtype a call); every
+# other operand is fp32
+ACTIVATIONS = ("xbc", "x", "B", "C", "dy")
+
+
 def _check_dtype_device(named: dict, device) -> None:
+    act = next(t.dtype for name, t in named.items() if name in ACTIVATIONS)
+    if act not in KERNEL_DTYPES:
+        raise TypeError(f"the SSD kernels take float32 or bfloat16 activations, got {act}")
     for name, t in named.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"the SSD kernels take float32 inputs; {name} is {t.dtype}")
+        want = act if name in ACTIVATIONS else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"the SSD kernels take {name} in {want}; it is {t.dtype}")
         if not t.is_cuda or t.device != device:
             raise ValueError(f"{name} must lie on the first input's CUDA device")
+        if name in ACTIVATIONS and act == torch.bfloat16 and (
+                t.data_ptr() % 4 or any(st % 2 for st in t.stride()[:-1])):
+            raise ValueError(f"the bf16 SSD kernels need {name}'s rows 4-byte aligned")
 
 
 def _check_layout(named: dict, shapes: dict, strided: tuple) -> None:
@@ -357,13 +421,14 @@ def _check_split(x, dt, S, Bm, Cm, chunk: int, extra: dict | None = None):
     return b, l, h, n, p
 
 
-def _fwd_buffers(b: int, l: int, h: int, n: int, p: int, chunk: int, states: bool, device):
-    """y (b, l, h p); h_in (b, nc, h, n, p) with ``states``, else the lean
-    forward's scratch for the states entering chunks 1 .. nc - 1; G's scratch
-    (b, nc, q, q)."""
+def _fwd_buffers(b: int, l: int, h: int, n: int, p: int, chunk: int, states: bool, dtype,
+                 device):
+    """y (b, l, h p) in ``dtype``; h_in (b, nc, h, n, p) with ``states``, else
+    the lean forward's scratch for the states entering chunks 1 .. nc - 1; G's
+    scratch (b, nc, q, q)."""
     f32 = dict(dtype=torch.float32, device=device)
     nc = l // chunk
-    return (torch.empty((b, l, h * p), **f32),
+    return (torch.empty((b, l, h * p), dtype=dtype, device=device),
             torch.empty((b, nc if states else nc - 1, h, n, p), **f32),
             torch.empty((b, nc, chunk, chunk), **f32))
 
@@ -381,9 +446,10 @@ def run_fwd(lib, xbc, dt, S, D, d_inner: int, chunk: int, states: bool, stream):
     h_in or None). Checks nothing; :func:`_launch_fwd` checks first."""
     b, l, total = xbc.shape
     h, n = dt.shape[1], (total - d_inner) // 2
-    y, hin, G = _fwd_buffers(b, l, h, n, d_inner // h, chunk, states, xbc.device)
+    y, hin, G = _fwd_buffers(b, l, h, n, d_inner // h, chunk, states, xbc.dtype, xbc.device)
+    entry = lib.ssd_xbc_fwd_bf16 if xbc.dtype == torch.bfloat16 else lib.ssd_xbc_fwd
     if y.numel():
-        _raise_on(lib.ssd_xbc_fwd_error_string, lib.ssd_xbc_fwd(
+        _raise_on(lib.ssd_xbc_fwd_error_string, entry(
             xbc.data_ptr(), dt.data_ptr(), S.data_ptr(), D.data_ptr(), y.data_ptr(),
             hin.data_ptr(), hin.numel(), int(states), G.data_ptr(), G.numel(), b, l, h,
             d_inner, n, d_inner // h, chunk, xbc.stride(0), xbc.stride(1), stream),
@@ -398,12 +464,13 @@ def run_split_fwd(lib, x, dt, S, Bm, Cm, chunk: int, states: bool, hfin: bool, s
     first."""
     b, l, d = x.shape
     h, n = dt.shape[1], Bm.shape[-1]
-    y, hin, G = _fwd_buffers(b, l, h, n, d // h, chunk, states, x.device)
+    y, hin, G = _fwd_buffers(b, l, h, n, d // h, chunk, states, x.dtype, x.device)
+    entry = lib.ssd_split_fwd_bf16 if x.dtype == torch.bfloat16 else lib.ssd_split_fwd
     h_fin = torch.empty((b, h, n, d // h), dtype=torch.float32, device=x.device) if hfin \
         else None
     if y.numel() == 0:
         return y, (hin if states else None), (h_fin.zero_() if hfin else None)
-    _raise_on(lib.ssd_xbc_fwd_error_string, lib.ssd_split_fwd(
+    _raise_on(lib.ssd_xbc_fwd_error_string, entry(
         x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(), S.data_ptr(), y.data_ptr(),
         hin.data_ptr(), hin.numel(), int(states), h_fin.data_ptr() if hfin else None,
         G.data_ptr(), G.numel(), b, l, h, n, d // h, chunk, x.stride(0), x.stride(1),
@@ -419,13 +486,14 @@ def run_bwd(lib, xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int, stream):
     h, nc = dt.shape[1], l // chunk
     n = (total - d_inner) // 2
     f32 = dict(dtype=torch.float32, device=xbc.device)
-    dxbc = torch.empty((b, l, total), **f32)
+    dxbc = torch.empty((b, l, total), dtype=xbc.dtype, device=xbc.device)
+    entry = lib.ssd_xbc_bwd_bf16 if xbc.dtype == torch.bfloat16 else lib.ssd_xbc_bwd
     ddt, dS = torch.empty((b, h, nc, chunk), **f32), torch.empty((b, h, nc, chunk), **f32)
     if dxbc.numel() == 0:
         return dxbc.zero_(), ddt, dS, torch.zeros_like(D)
     dD_part = torch.empty((b, h, nc, chunk // STRIP), **f32)
     scratch = torch.empty(bwd_scratch_floats(b, l, h, chunk), **f32)
-    _raise_on(lib.ssd_xbc_bwd_error_string, lib.ssd_xbc_bwd(
+    _raise_on(lib.ssd_xbc_bwd_error_string, entry(
         xbc.data_ptr(), dt.data_ptr(), S.data_ptr(), D.data_ptr(), h_in.data_ptr(),
         dy.data_ptr(), dxbc.data_ptr(), ddt.data_ptr(), dS.data_ptr(), dD_part.data_ptr(),
         dD_part.numel(), scratch.data_ptr(), scratch.numel(), b, l, h, d_inner, n,
@@ -443,11 +511,13 @@ def run_split_bwd(lib, x, dt, S, Bm, Cm, h_in, dy, chunk: int, dh_fin, stream):
     b, l, d = x.shape
     h, n = dt.shape[1], Bm.shape[-1]
     f32 = dict(dtype=torch.float32, device=x.device)
-    dx, dbc = torch.empty((b, l, d), **f32), torch.empty((b, l, 2 * n), **f32)
+    act = dict(dtype=x.dtype, device=x.device)
+    dx, dbc = torch.empty((b, l, d), **act), torch.empty((b, l, 2 * n), **act)
     ddt, dS = torch.empty_like(dt), torch.empty_like(S)
+    entry = lib.ssd_split_bwd_bf16 if x.dtype == torch.bfloat16 else lib.ssd_split_bwd
     if dx.numel():
         scratch = torch.empty(bwd_scratch_floats(b, l, h, chunk), **f32)
-        _raise_on(lib.ssd_xbc_bwd_error_string, lib.ssd_split_bwd(
+        _raise_on(lib.ssd_xbc_bwd_error_string, entry(
             x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(), S.data_ptr(),
             h_in.data_ptr(), dy.data_ptr(), None if dh_fin is None else dh_fin.data_ptr(),
             dx.data_ptr(), dbc.data_ptr(), ddt.data_ptr(), dS.data_ptr(), scratch.data_ptr(),
@@ -465,10 +535,11 @@ def _launch_fwd(xbc, dt, S, D, d_inner: int, chunk: int, states: bool):
         out = run_fwd(_fwd_library(), xbc, dt, S, D, d_inner, chunk, states,
                       torch.cuda.current_stream(xbc.device).cuda_stream)
     if out[0].numel():
+        bf16 = xbc.dtype == torch.bfloat16
         if states:
-            ssd_xbc_fwd_states.launches += 1
+            (ssd_xbc_fwd_states_bf16 if bf16 else ssd_xbc_fwd_states).launches += 1
         else:
-            ssd_xbc_fwd.launches += 1
+            (ssd_xbc_fwd_bf16 if bf16 else ssd_xbc_fwd).launches += 1
     return out
 
 
@@ -478,7 +549,7 @@ def _launch_bwd(xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int):
         out = run_bwd(_bwd_library(), xbc, dt, S, D, h_in, dy, d_inner, chunk,
                       torch.cuda.current_stream(xbc.device).cuda_stream)
     if out[0].numel():
-        ssd_xbc_bwd.launches += 1
+        (ssd_xbc_bwd_bf16 if xbc.dtype == torch.bfloat16 else ssd_xbc_bwd).launches += 1
     return out
 
 
@@ -562,7 +633,7 @@ def _launch_split_fwd(x, dt, S, Bm, Cm, chunk: int, states: bool, hfin: bool):
         out = run_split_fwd(_fwd_library(), x, dt, S, Bm, Cm, chunk, states, hfin,
                             torch.cuda.current_stream(x.device).cuda_stream)
     if out[0].numel():
-        _SPLIT_FWD[(states, hfin)].launches += 1
+        _SPLIT_FWD[(states, hfin, x.dtype == torch.bfloat16)].launches += 1
     return out
 
 
@@ -573,7 +644,11 @@ def _launch_split_bwd(x, dt, S, Bm, Cm, h_in, dy, chunk: int, dh_fin=None):
         out = run_split_bwd(_bwd_library(), x, dt, S, Bm, Cm, h_in, dy, chunk, dh_fin,
                             torch.cuda.current_stream(x.device).cuda_stream)
     if out[0].numel():
-        (ssd_split_bwd if dh_fin is None else ssd_split_bwd_seeded).launches += 1
+        bf16 = x.dtype == torch.bfloat16
+        if dh_fin is None:
+            (ssd_split_bwd_bf16 if bf16 else ssd_split_bwd).launches += 1
+        else:
+            (ssd_split_bwd_seeded_bf16 if bf16 else ssd_split_bwd_seeded).launches += 1
     return out
 
 
@@ -632,8 +707,76 @@ def ssd_split_bwd_seeded(x, dt, S, Bm, Cm, h_in, dy, dh_fin, chunk: int):
     return ssd_split_bwd_ref(x, dt, S, Bm, Cm, h_in, dy, chunk, dh_fin=dh_fin)
 
 
-_SPLIT_FWD = {(False, False): ssd_split_fwd, (True, False): ssd_split_fwd_states,
-              (False, True): ssd_split_fwd_hfin, (True, True): ssd_split_fwd_states_hfin}
+def _require_bf16(t: torch.Tensor) -> None:
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"the _bf16 entry points take bfloat16 activations, got {t.dtype}")
+
+
+def ssd_xbc_fwd_bf16(xbc, dt, S, D, d_inner: int, chunk: int) -> torch.Tensor:
+    """:func:`ssd_xbc_fwd` for bf16 xbc, which it requires.
+    ``ssd_xbc_fwd_bf16.launches`` counts the bf16 lean K8's launches, whichever
+    entry point reached it; so does each ``_bf16`` wrapper below for its
+    variant."""
+    _require_bf16(xbc)
+    return ssd_xbc_fwd(xbc, dt, S, D, d_inner, chunk)
+
+
+def ssd_xbc_fwd_states_bf16(xbc, dt, S, D, d_inner: int, chunk: int):
+    """:func:`ssd_xbc_fwd_states` for bf16 xbc."""
+    _require_bf16(xbc)
+    return ssd_xbc_fwd_states(xbc, dt, S, D, d_inner, chunk)
+
+
+def ssd_xbc_bwd_bf16(xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int):
+    """:func:`ssd_xbc_bwd` for bf16 xbc and dy."""
+    _require_bf16(xbc)
+    return ssd_xbc_bwd(xbc, dt, S, D, h_in, dy, d_inner, chunk)
+
+
+def ssd_split_fwd_bf16(x, dt, S, Bm, Cm, chunk: int) -> torch.Tensor:
+    """:func:`ssd_split_fwd` for bf16 x, B and C."""
+    _require_bf16(x)
+    return ssd_split_fwd(x, dt, S, Bm, Cm, chunk)
+
+
+def ssd_split_fwd_states_bf16(x, dt, S, Bm, Cm, chunk: int):
+    """:func:`ssd_split_fwd_states` for bf16 x, B and C."""
+    _require_bf16(x)
+    return ssd_split_fwd_states(x, dt, S, Bm, Cm, chunk)
+
+
+def ssd_split_fwd_hfin_bf16(x, dt, S, Bm, Cm, chunk: int):
+    """:func:`ssd_split_fwd_hfin` for bf16 x, B and C."""
+    _require_bf16(x)
+    return ssd_split_fwd_hfin(x, dt, S, Bm, Cm, chunk)
+
+
+def ssd_split_fwd_states_hfin_bf16(x, dt, S, Bm, Cm, chunk: int):
+    """:func:`ssd_split_fwd_states_hfin` for bf16 x, B and C."""
+    _require_bf16(x)
+    return ssd_split_fwd_states_hfin(x, dt, S, Bm, Cm, chunk)
+
+
+def ssd_split_bwd_bf16(x, dt, S, Bm, Cm, h_in, dy, chunk: int):
+    """:func:`ssd_split_bwd` for bf16 x, B, C and dy."""
+    _require_bf16(x)
+    return ssd_split_bwd(x, dt, S, Bm, Cm, h_in, dy, chunk)
+
+
+def ssd_split_bwd_seeded_bf16(x, dt, S, Bm, Cm, h_in, dy, dh_fin, chunk: int):
+    """:func:`ssd_split_bwd_seeded` for bf16 x, B, C and dy."""
+    _require_bf16(x)
+    return ssd_split_bwd_seeded(x, dt, S, Bm, Cm, h_in, dy, dh_fin, chunk)
+
+
+# the K6 wrapper that counts a launch, by (states, h_fin, bf16)
+_SPLIT_FWD = {(False, False, False): ssd_split_fwd, (True, False, False): ssd_split_fwd_states,
+              (False, True, False): ssd_split_fwd_hfin,
+              (True, True, False): ssd_split_fwd_states_hfin,
+              (False, False, True): ssd_split_fwd_bf16,
+              (True, False, True): ssd_split_fwd_states_bf16,
+              (False, True, True): ssd_split_fwd_hfin_bf16,
+              (True, True, True): ssd_split_fwd_states_hfin_bf16}
 
 
 class SSDChunkedSplitFn(torch.autograd.Function):
@@ -712,9 +855,9 @@ def ssd_chunked_split(x, dt, A, Bm, Cm, D, *, chunk: int = 128, return_carry: bo
     return y
 
 
-ssd_xbc_fwd.launches = 0
-ssd_xbc_fwd_states.launches = 0
-ssd_xbc_bwd.launches = 0
-for _fn in (ssd_split_fwd, ssd_split_fwd_states, ssd_split_fwd_hfin, ssd_split_fwd_states_hfin,
-            ssd_split_bwd, ssd_split_bwd_seeded):
+for _fn in (ssd_xbc_fwd, ssd_xbc_fwd_states, ssd_xbc_bwd, ssd_split_fwd, ssd_split_fwd_states,
+            ssd_split_fwd_hfin, ssd_split_fwd_states_hfin, ssd_split_bwd, ssd_split_bwd_seeded,
+            ssd_xbc_fwd_bf16, ssd_xbc_fwd_states_bf16, ssd_xbc_bwd_bf16, ssd_split_fwd_bf16,
+            ssd_split_fwd_states_bf16, ssd_split_fwd_hfin_bf16, ssd_split_fwd_states_hfin_bf16,
+            ssd_split_bwd_bf16, ssd_split_bwd_seeded_bf16):
     _fn.launches = 0

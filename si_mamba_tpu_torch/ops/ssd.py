@@ -21,6 +21,10 @@ Implementations of the core:
   ``ssd_chunked_split`` (K6, K7) under the same impl name;
   :func:`ssd_fused_route` is the one predicate of every such call site.
 
+Both take fp32 or bf16 activations with the JAX package's dtype rules: at
+bf16 the matmul operands are rounded to bf16 and every product accumulates in
+fp32, the decay math and the state carry stay fp32, and y comes back in bf16.
+
 Layout is batch-major, time second.
 """
 
@@ -35,6 +39,7 @@ from si_mamba_tpu_torch.ops.kernels.ssd import (
     MAX_CHUNK,
     STATE,
     STRIP,
+    _rounder,
     ssd_chunked_xbc,
     ssd_chunks_ref,
 )
@@ -73,6 +78,12 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 64, return_carry: bool = Fa
     to the batch once, so every contraction is a batched product
     (:func:`ssd_chunks_ref`, the decay mask taken in log space).
 
+    bf16 x (B and C bf16 too) follows ``si_mamba_tpu/ops/ssd.ssd_chunked``:
+    xdt = x bf16(dt) and its decayed copy x dt bf16(e^{S_end - S}) are bf16
+    products, G (.) M and h_in are rounded to bf16 as product operands, the
+    decay and the carry stay fp32, y is rounded to bf16 before the D skip,
+    which runs in bf16; otherwise everything is in fp32 (fp64 for fp64 x).
+
     ``return_carry`` adds the slice's total decay exp(sum_l dt A) (b, h) and
     the final state from a zero start (b, h, n, p), the affine map of the
     slice that sequence parallelism carries."""
@@ -82,12 +93,15 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 64, return_carry: bool = Fa
     if l % chunk:
         raise ValueError(f"L={l} is not a multiple of chunk={chunk}; pad first")
     nc, q = l // chunk, chunk
-    xh = x.to(acc).permute(0, 2, 1, 3).reshape(b, h, nc, q, p)
     dth = dt.to(acc).permute(0, 2, 1).reshape(b, h, nc, q)
     S = torch.cumsum(dth * A.to(acc)[None, :, None, None], dim=-1)  # (b, h, nc, q) <= 0
-    y, _, state = ssd_chunks_ref(xh * dth[..., None], S, Bm.to(acc).reshape(b, nc, q, n),
-                                 Cm.to(acc).reshape(b, nc, q, n))
-    y = y.reshape(b, h, l, p).permute(0, 2, 1, 3) + D.to(acc)[None, None, :, None] * x.to(acc)
+    rnd = _rounder(x.dtype)
+    Bc, Cc = (rnd(t.to(acc)).reshape(b, nc, q, n) for t in (Bm, Cm))
+    xh = x.permute(0, 2, 1, 3).reshape(b, h, nc, q, p)
+    xdt = (xh * dth[..., None].to(x.dtype)).to(acc)  # a product in x's dtype
+    y, _, state = ssd_chunks_ref(xdt, S, Bc, Cc, mm=x.dtype, round_decay=True)
+    y = y.to(x.dtype).reshape(b, h, l, p).permute(0, 2, 1, 3)
+    y = y + D.to(x.dtype)[None, None, :, None] * x
     if return_carry:
         # S is a per-chunk cumsum: the slice's total is the sum of every
         # chunk's last entry
@@ -154,12 +168,23 @@ def ssd_mixer_apply(params: dict, u: torch.Tensor, *, n_heads: int, d_state: int
     core ``ssd_chunked_xbc`` (K8/K9) on the un-split (x|B|C) block; on a CUDA
     tensor they launch their kernels or raise for a shape the kernels are not
     built for, on the CPU they are their plain versions. ``impl='xla'``: the
-    plain conv and :func:`ssd_chunked` under autograd, on any device."""
-    if u.dtype != torch.float32:
-        raise NotImplementedError(
-            "the SSD mixer runs in float32; bf16 waits for ROADMAP queue 1, M20 (perf mode)")
+    plain conv and :func:`ssd_chunked` under autograd, on any device.
+
+    Mixed precision, as the JAX mixer: u float32 or bfloat16; at bf16 the
+    matmul weights are cast to bf16, softplus runs on fp32 dt_raw, A, D and
+    the gated RMSNorm are fp32, and the normalised y is cast back to bf16
+    before out_proj. The conv kernel route ('ssd_fused') takes the fp32 conv
+    weight and bias, as the TPU's Pallas conv reads them; 'xla' the plain conv
+    with them cast to bf16, as the JAX package's XLA conv."""
+    cdt = u.dtype
+    if cdt not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"the SSD mixer runs in float32 or bfloat16, not {cdt}")
+
+    def wcast(w):
+        return w if w.dtype == cdt else w.to(cdt)
+
     b, l, _ = u.shape
-    zxbcdt = u @ params["in_proj_w"]
+    zxbcdt = u @ wcast(params["in_proj_w"])
     d_inner = (zxbcdt.shape[-1] - 2 * d_state - n_heads) // 2
     head_p = d_inner // n_heads
     pad = (-l) % chunk
@@ -171,27 +196,28 @@ def ssd_mixer_apply(params: dict, u: torch.Tensor, *, n_heads: int, d_state: int
     if fused:
         xbc = causal_conv1d_silu(xbc, params["conv_w"], params["conv_b"])
     else:
-        xbc = causal_conv1d_ref(xbc, params["conv_w"], params["conv_b"], activation="silu")
-    dt = F.softplus(dt_raw + params["dt_bias"])  # (b, l, h)
-    A = -torch.exp(params["A_log"])
+        xbc = causal_conv1d_ref(xbc, wcast(params["conv_w"]), wcast(params["conv_b"]),
+                                activation="silu")
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])  # (b, l, h) fp32
+    A = -torch.exp(params["A_log"].float())
+    D = params["D"].float()
 
     if fused:
         if pad:
             xbc = F.pad(xbc, (0, 0, 0, pad))
             dt = F.pad(dt, (0, 0, 0, pad))
-        y = ssd_chunked_xbc(xbc, dt, A, params["D"], d_inner=d_inner, chunk=chunk)[:, :l]
+        y = ssd_chunked_xbc(xbc, dt, A, D, d_inner=d_inner, chunk=chunk)[:, :l]
     else:
         xm = xbc[..., :d_inner]
         Bm = xbc[..., d_inner:d_inner + d_state]
         Cm = xbc[..., d_inner + d_state:]
         if pad:
             xm, Bm, Cm, dt = (F.pad(t, (0, 0, 0, pad)) for t in (xm, Bm, Cm, dt))
-        y = ssd_chunked(xm.reshape(b, l + pad, n_heads, head_p), dt, A, Bm, Cm, params["D"],
-                        chunk=chunk)
+        y = ssd_chunked(xm.reshape(b, l + pad, n_heads, head_p), dt, A, Bm, Cm, D, chunk=chunk)
         y = y.reshape(b, l + pad, d_inner)[:, :l]
 
-    # gated RMSNorm (Mamba-2 normalises y * silu(z) before out_proj)
-    y = y * F.silu(z)
+    # gated RMSNorm in fp32 (Mamba-2 normalises y * silu(z) before out_proj)
+    y = y.float() * F.silu(z.float())
     y = y * torch.rsqrt(torch.mean(torch.square(y), dim=-1, keepdim=True) + 1e-5)
-    y = y * params["norm_scale"]
-    return y @ params["out_proj_w"]
+    y = y * params["norm_scale"].float()
+    return y.to(cdt) @ wcast(params["out_proj_w"])

@@ -128,40 +128,57 @@ def ssd_mixer_tp(params: dict, u: torch.Tensor, *, mesh: Mesh, n_heads: int, d_s
     (K1, K5) and the core ``ssd_chunked_split`` (K6, K7) on the rank's heads,
     the kernels on a CUDA tensor (or an error for a geometry they are not
     built for) and their plain versions on the CPU; ``'xla'``: the plain conv
-    and ``ssd_chunked`` under autograd."""
+    and ``ssd_chunked`` under autograd.
+
+    u float32 or bfloat16, as ``si_mamba_tpu/parallel/tensor_parallel.
+    _ssd_mixer_local``: at bf16 every weight is cast to bf16 at its use, the
+    conv weights included on both routes (the JAX package's tensor-parallel
+    mixer always runs the XLA conv on bf16-cast weights, so 'ssd_fused' hands
+    K1/K5 the weights rounded to bf16, held in fp32), softplus, A, D and the
+    gated RMSNorm run in fp32, and the normalised y is cast to bf16 before the
+    row-sharded out_proj."""
     ax = mesh[axis]
     if n_heads % ax.size:
         raise ValueError(f"ssd_mixer_tp shards whole heads: n_heads={n_heads} must be "
                          f"divisible by the '{axis}' axis size {ax.size}")
-    if u.dtype != torch.float32:
-        raise NotImplementedError(
-            "the SSD mixer runs in float32; bf16 waits for ROADMAP queue 1, M20 (perf mode)")
+    cdt = u.dtype
+    if cdt not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"the SSD mixer runs in float32 or bfloat16, not {cdt}")
+
+    def wc(w):
+        return w if w.dtype == cdt else w.to(cdt)
+
     b, l, _ = u.shape
     h_loc = params["A_log"].shape[0]
     di_loc = params["in_proj_x"].shape[1]
     pad = (-l) % chunk
     fused = ssd_fused_route(impl, l + pad, chunk, d_state, di_loc // h_loc, u.device)
-    conv = causal_conv1d_silu if fused else (
-        lambda x, w, bias: causal_conv1d_ref(x, w, bias, activation="silu"))
+    if fused:
+        def conv(x, w, bias):  # the kernels read fp32 weights: JAX's bf16 ones, widened
+            return causal_conv1d_silu(x, wc(w).float(), wc(bias).float())
+    else:
+        def conv(x, w, bias):
+            return causal_conv1d_ref(x, wc(w), wc(bias), activation="silu")
 
     u = enter(u, ax)
-    z = u @ params["in_proj_z"]  # (b, l, di/M)
-    xi = u @ params["in_proj_x"]
-    bc = u @ enter(params["in_proj_bc"], ax)  # (b, l, 2n), the same on every rank
-    dt_raw = u @ params["in_proj_dt"]  # (b, l, h/M)
+    z = u @ wc(params["in_proj_z"])  # (b, l, di/M)
+    xi = u @ wc(params["in_proj_x"])
+    bc = u @ wc(enter(params["in_proj_bc"], ax))  # (b, l, 2n), the same on every rank
+    dt_raw = u @ wc(params["in_proj_dt"])  # (b, l, h/M)
     xi = conv(xi, params["conv_x_w"], params["conv_x_b"])
     bc = conv(bc, enter(params["conv_bc_w"], ax), enter(params["conv_bc_b"], ax))
     Bm, Cm = bc[..., :d_state], bc[..., d_state:]
-    dt = F.softplus(dt_raw + params["dt_bias"])
-    A = -torch.exp(params["A_log"])
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"].float())
     if pad:
         xi, Bm, Cm, dt = (F.pad(t, (0, 0, 0, pad)) for t in (xi, Bm, Cm, dt))
     xh = xi.reshape(b, l + pad, h_loc, di_loc // h_loc)
     core = ssd_chunked_split if fused else ssd_chunked
-    y = core(xh, dt, A, Bm, Cm, params["D"], chunk=chunk).reshape(b, l + pad, di_loc)[:, :l]
+    y = core(xh, dt, A, Bm, Cm, params["D"].float(), chunk=chunk)
+    y = y.reshape(b, l + pad, di_loc)[:, :l]
 
-    # gated RMSNorm over the full d_inner: one (b, l, 1) sum over the shards
-    g = y * F.silu(z)
+    # gated RMSNorm over the full d_inner in fp32: one (b, l, 1) sum over the shards
+    g = y.float() * F.silu(z.float())
     ssq = psum(torch.sum(torch.square(g), dim=-1, keepdim=True), ax)
-    g = g * torch.rsqrt(ssq / (di_loc * ax.size) + 1e-5) * params["norm_scale"]
-    return psum_replicated(g @ params["out_proj_w"], ax)
+    g = g * torch.rsqrt(ssq / (di_loc * ax.size) + 1e-5) * params["norm_scale"].float()
+    return psum_replicated(g.to(cdt) @ wc(params["out_proj_w"]), ax)

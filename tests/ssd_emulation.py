@@ -4,7 +4,10 @@ with every product taken as the kernels take it, for the tests that hold it
 against the plain versions in float64 within chip_smoke.py's tolerances.
 
 Test-only code: the CUDA kernels have no CPU mode, so this is what a CPU run
-can check of their split of the work and of their 3xTF32 products."""
+can check of their split of the work and of their 3xTF32 products, and
+(:func:`chunked_bf16`) of their bf16 variants: which operands they round to
+bf16, which products stay 3xTF32, and where a factor moves across a
+product."""
 
 from __future__ import annotations
 
@@ -32,6 +35,17 @@ def mm1(a, b):
     """a @ b as one TF32 product: both operands rounded to TF32, summed in
     fp32."""
     return tf32(a) @ tf32(b)
+
+
+def bf16(x):
+    """x rounded to bf16 (to nearest even) and held in fp32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def mmb(a, b):
+    """a @ b as a bf16 tensor-core product: both operands rounded to bf16,
+    their products exact in fp32 (8 x 8 significant bits), summed in fp32."""
+    return bf16(a) @ bf16(b)
 
 
 def chunked_3xtf32(x, Bc, Cc, dth, S, dyh, D=None, dh_fin=None, mm=mm3):
@@ -87,6 +101,59 @@ def chunked_3xtf32(x, Bc, Cc, dth, S, dyh, D=None, dh_fin=None, mm=mm3):
     dS = dlogM.sum(-1) + dE * E - dT * T_end - dlogM.sum(-2)
     dS[..., -1] += (dT * T_end).sum(-1) + torch.exp(S[..., -1]) * (dh * h_in).sum((-2, -1))
     return y, h_in, h_fin, (dx, (dxdt * x).sum(-1), dS, dB, dC, dD)
+
+
+def chunked_bf16(x, Bc, Cc, dth, S, dyh, D=None, dh_fin=None):
+    """The bf16 variants of the same split (csrc/ssd_xbc_fwd.cu and
+    csrc/ssd_xbc_bwd.cu at bf16), in fp32, arguments and returns as
+    :func:`chunked_3xtf32` (x, Bc, Cc, dyh holding bf16 values; y, dx, dB, dC
+    rounded to bf16 as the kernels write them). The bf16 products (:func:`mmb`):
+    G = C B^T, the local end states B^T bf16(bf16(x dt) T_end), bf16(G (.) M)
+    bf16(x dt), C bf16(h_in) (scaled by E after it), dy bf16(x dt)^T,
+    bf16(GM)^T dy, dy bf16(h_in)^T. The 3xTF32 ones (:func:`mm3`): the carry
+    (C E)^T dy, B dh, (bf16(x dt) dh^T) (scaled by T_end after it), and dG B,
+    dG^T C on the head sum of each head's bf16(dG)."""
+    b, h, nc, q, p = x.shape
+    E, T_end = torch.exp(S), torch.exp(S[..., -1:] - S)
+    M = kssd.decay_mask(S)
+    xdt = bf16(x * dth[..., None])
+    G = mmb(Cc, Bc.transpose(-1, -2))
+    local = mmb(Bc[:, None].transpose(-1, -2), bf16(xdt * T_end[..., None]))
+    h_in = torch.zeros_like(local)
+    for c in range(1, nc):
+        h_in[:, :, c] = torch.exp(S[:, :, c - 1, -1])[..., None, None] * h_in[:, :, c - 1] \
+            + local[:, :, c - 1]
+    h_fin = local[:, :, -1] + torch.exp(S[:, :, -1, -1])[..., None, None] * h_in[:, :, -1]
+    GM = G[:, None] * M
+    y = E[..., None] * mmb(Cc[:, None], h_in) + mmb(GM, xdt)
+    if D is not None:
+        y = y + D[None, :, None, None, None] * x
+
+    carry = mm3((Cc[:, None] * E[..., None]).transpose(-1, -2), dyh)
+    dh = torch.zeros_like(h_in)
+    if dh_fin is not None:
+        dh[:, :, -1] = dh_fin
+    for c in range(nc - 2, -1, -1):
+        dh[:, :, c] = torch.exp(S[:, :, c + 1, -1])[..., None, None] * dh[:, :, c + 1] \
+            + carry[:, :, c + 1]
+    dGM = mmb(dyh, xdt.transpose(-1, -2))
+    dlogM = dGM * GM
+    dG = bf16(dGM * M).sum(1)
+    Bdh = mm3(Bc[:, None], dh)
+    dT = (Bdh * x * dth[..., None]).sum(-1)
+    dxdt = Bdh * T_end[..., None] + mmb(GM.transpose(-1, -2), dyh)
+    dx = dxdt * dth[..., None]
+    dD = None
+    if D is not None:
+        dx = dx + D[None, :, None, None, None] * dyh
+        dD = (dyh * x).sum((0, 2, 3, 4))
+    yh = mmb(dyh, h_in.transpose(-1, -2))
+    dE = (yh * Cc[:, None]).sum(-1)
+    dC = (E[..., None] * yh).sum(1) + mm3(dG, Bc)
+    dB = (T_end[..., None] * mm3(xdt, dh.transpose(-1, -2))).sum(1) + mm3(dG.transpose(-1, -2), Cc)
+    dS = dlogM.sum(-1) + dE * E - dT * T_end - dlogM.sum(-2)
+    dS[..., -1] += (dT * T_end).sum(-1) + torch.exp(S[..., -1]) * (dh * h_in).sum((-2, -1))
+    return bf16(y), h_in, h_fin, (bf16(dx), (dxdt * x).sum(-1), dS, bf16(dB), bf16(dC), dD)
 
 
 def rel_err_of_max(got, ref) -> float:

@@ -1256,3 +1256,184 @@ def test_bf16_model_kernel_path_matches_plain(cuda):
     assert _fp32_counts() == fp32
     assert all(p.grad is not None and p.grad.dtype == torch.float32 and
                torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# the SSD presets: the bf16 variants of K8/K9 and K6/K7
+# ---------------------------------------------------------------------------
+
+def _ssd_bf16_counts():
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    names = ("ssd_xbc_fwd", "ssd_xbc_fwd_states", "ssd_xbc_bwd", "ssd_split_fwd",
+             "ssd_split_fwd_states", "ssd_split_fwd_hfin", "ssd_split_fwd_states_hfin",
+             "ssd_split_bwd", "ssd_split_bwd_seeded")
+    return ({n: getattr(kssd, n + "_bf16").launches for n in names},
+            {n: getattr(kssd, n).launches for n in names})
+
+
+def _hold_bf16(name, got, want):
+    """chip_smoke.py's bf16 tolerances: a bf16 output within 2 bf16 ulps of
+    the plain version's at a floor of 2e-2 of its max; an fp32 output (states,
+    ddt, dS, dD) within 1e-3 of its max."""
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    assert torch.isfinite(got.float()).all(), name
+    if got.dtype == torch.bfloat16:
+        assert _bf16_ulps(got, want, floor=2e-2) <= 2, (name, _bf16_ulps(got, want, 2e-2))
+    else:
+        _close_to_max(got, want, 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,chunk,layout,decay", [
+    (1, 64, 1, 64, "conv", 1.0),      # nc 1
+    (3, 256, 3, 128, "view", 1.0),    # nc 2, rows 4-byte aligned only
+    (3, 512, 6, 256, "conv", 1.0),    # the SSD classifier's chunk and heads
+    (1, 256, 6, 64, "view", 30.0),    # nc 4, strong decay
+    (1, 2048, 3, 128, "conv", 1.0),   # nc 16
+])
+def test_ssd_bf16_kernels_match_plain(cuda, b, l, h, chunk, layout, decay):
+    """The bf16 K8 (lean and with states) and K9 against their plain versions
+    at bf16: the lean y bitwise equal to the states variant's, two K9 runs
+    bitwise equal (dB and dC summed over the heads in a fixed order in fp32,
+    rounded once), each launch counted on its bf16 wrapper and none on the
+    fp32 ones."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    rng = np.random.default_rng(61)
+    d = h * 128
+    if layout == "view":  # 6 columns in: rows 12 bytes off a 16-byte boundary
+        xbc = _randn(rng, b, l, d + 262, scale=0.5, device=cuda).to(torch.bfloat16)[..., 6:]
+    else:
+        xbc = _ssd_mixer_xbc(rng, b, l, h, layout, cuda).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(_randn(rng, b, l, h, device=cuda) - 1.0)
+    A = -decay * torch.exp(_randn(rng, h, device=cuda))
+    dth = dt.transpose(1, 2).reshape(b, h, l // chunk, chunk).contiguous()
+    S = torch.cumsum(dth * A[None, :, None, None], dim=-1)
+    D = _randn(rng, h, device=cuda)
+    dy = _randn(rng, b, l, d + 2, device=cuda).to(torch.bfloat16)[..., 2:]
+    before, fp32 = _ssd_bf16_counts()
+    y_lean = kssd.ssd_xbc_fwd(xbc, dth, S, D, d, chunk)
+    y, h_in = kssd.ssd_xbc_fwd_states_bf16(xbc, dth, S, D, d, chunk)
+    got = kssd.ssd_xbc_bwd_bf16(xbc, dth, S, D, h_in, dy, d, chunk)
+    again = kssd.ssd_xbc_bwd(xbc, dth, S, D, h_in, dy, d, chunk)
+    torch.cuda.synchronize()
+    after, fp32_after = _ssd_bf16_counts()
+    assert fp32_after == fp32
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "ssd_xbc_fwd": 1, "ssd_xbc_fwd_states": 1, "ssd_xbc_bwd": 2}
+    torch.testing.assert_close(y, y_lean, rtol=0, atol=0)
+    for a, w in zip(got, again):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    y_ref, h_ref = kssd.ssd_xbc_fwd_ref(xbc, dth, S, D, d, chunk, emit_states=True)
+    _hold_bf16("y", y, y_ref)
+    _hold_bf16("h_in", h_in, h_ref)
+    want = kssd.ssd_xbc_bwd_ref(xbc, dth, S, D, h_in, dy, d, chunk)
+    for name, a, w in zip(("dxbc", "ddt", "dS", "dD"), got, want):
+        _hold_bf16(name, a, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,chunk", [(2, 512, 3, 256), (2, 512, 3, 128), (1, 256, 2, 256)])
+def test_split_bf16_kernels_match_plain(cuda, b, l, h, chunk):
+    """The four bf16 K6 variants (the same y from each) and the bf16 K7 from 0
+    and seeded (two runs bitwise equal) on x a column view of a wider bf16
+    buffer (rows 4-byte aligned only) and B, C the halves of one bf16
+    (b, l, 256) buffer, against their plain versions at bf16."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    rng = np.random.default_rng(62)
+    x, dth, S, Bm, Cm = _split_case(rng, b, l, h, chunk, cuda, layout="tp")
+    bf = torch.bfloat16
+    x = torch.cat([torch.zeros_like(x[..., :2]), x], dim=-1).to(bf)[..., 2:]
+    bc = torch.cat([Bm, Cm], dim=-1).to(bf)
+    Bm, Cm = bc[..., :128], bc[..., 128:]
+    args = (x, dth, S, Bm, Cm, chunk)
+    before, fp32 = _ssd_bf16_counts()
+    y_lean = kssd.ssd_split_fwd_bf16(*args)
+    y_s, h_in = kssd.ssd_split_fwd_states_bf16(*args)
+    y_f, h_fin = kssd.ssd_split_fwd_hfin_bf16(*args)
+    y_sf, h_in2, h_fin2 = kssd.ssd_split_fwd_states_hfin_bf16(*args)
+    dy = _randn(rng, b, l, x.shape[-1], device=cuda).to(bf)
+    dh_fin = _randn(rng, b, h, 128, 128, scale=0.1, device=cuda)
+    runs = {seeded: [fn(*args[:5], h_in, dy, *((dh_fin,) if seeded else ()), chunk)
+                     for _ in range(2)]
+            for seeded, fn in ((False, kssd.ssd_split_bwd_bf16),
+                               (True, kssd.ssd_split_bwd_seeded_bf16))}
+    torch.cuda.synchronize()
+    after, fp32_after = _ssd_bf16_counts()
+    assert fp32_after == fp32
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "ssd_split_fwd": 1, "ssd_split_fwd_states": 1, "ssd_split_fwd_hfin": 1,
+        "ssd_split_fwd_states_hfin": 1, "ssd_split_bwd": 2, "ssd_split_bwd_seeded": 2}
+    for y in (y_s, y_f, y_sf):
+        torch.testing.assert_close(y, y_lean, rtol=0, atol=0)
+    assert torch.equal(h_in, h_in2) and torch.equal(h_fin, h_fin2)
+    y_ref, h_ref, hf_ref = kssd.ssd_split_fwd_ref(*args, emit_states=True, emit_hfin=True)
+    for name, a, w in (("y", y_lean, y_ref), ("h_in", h_in, h_ref), ("h_fin", h_fin, hf_ref)):
+        _hold_bf16(name, a, w)
+    for seeded, (got, again) in runs.items():
+        want = kssd.ssd_split_bwd_ref(*args[:5], h_in, dy, chunk,
+                                      dh_fin=dh_fin if seeded else None)
+        for name, a, a2, w in zip(("dx", "ddt", "dS", "dB", "dC"), got, again, want):
+            torch.testing.assert_close(a, a2, rtol=0, atol=0)
+            _hold_bf16(f"{name} (seeded {seeded})", a, w)
+
+
+@pytest.mark.cuda
+def test_ssd_bf16_kernels_refuse_rows_off_4_bytes(cuda):
+    """A bf16 operand whose rows start 2 bytes off a 4-byte boundary has no
+    copy the kernels can make (cp.async moves 4 or 16 bytes): the wrapper
+    raises before launching; a mix of dtypes raises too."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    rng = np.random.default_rng(63)
+    xbc, dth, S, D, d = _ssd_case(rng, 1, 128, 1, 64, cuda)
+    odd = torch.cat([xbc[..., :1], xbc], dim=-1).to(torch.bfloat16)[..., 1:]
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        kssd.ssd_xbc_fwd(odd, dth, S, D, d, 64)
+    good = xbc.to(torch.bfloat16).contiguous()
+    _, h_in = kssd.ssd_xbc_fwd_states(good, dth, S, D, d, 64)
+    with pytest.raises(TypeError, match="dy"):
+        kssd.ssd_xbc_bwd(good, dth, S, D, h_in, torch.zeros(1, 128, d, device=cuda), d, 64)
+    with pytest.raises(TypeError, match="D in torch.float32"):
+        kssd.ssd_xbc_fwd(good, dth, S, D.to(torch.bfloat16), d, 64)
+
+
+@pytest.mark.cuda
+def test_bf16_ssd_model_kernel_path_matches_plain(cuda):
+    """A small SSD classifier at the presets' settings (bf16, subspace,
+    'ssd_fused', one head of 128, chunk 64, L 128) on the card: an eval
+    forward launches only the bf16 K1 and the lean bf16 K8, a train step only
+    the bf16 K1, K8 with states, K9 and K5, and the eval logits are within
+    3e-2 of the max of the plain route ('xla')."""
+    cfg = dict(trans_dim=64, encoder_dims=64, depth=2, cls_dim=8, num_group=16,
+               group_size=16, drop_path=0.0, cls_head_dropout=0.0, dtype="bfloat16",
+               spectral_method="subspace", mixer="ssd", ssd_chunk=64, knn_graph=8)
+    model = PointMamba(PointMambaConfig(**cfg, scan_impl="ssd_fused"),
+                       generator=torch.Generator().manual_seed(3)).to(cuda)
+    plain = PointMamba(PointMambaConfig(**cfg, scan_impl="xla")).to(cuda)
+    plain.load_state_dict(model.state_dict())
+    pts = _randn(np.random.default_rng(4), 4, 512, 3, device=cuda)
+    before, fp32 = _bf16_counts(), _fp32_counts()
+    ssd_before, ssd_fp32 = _ssd_bf16_counts()
+    with torch.no_grad():
+        logits = model.eval()(pts)
+        want = plain.eval()(pts)
+    torch.cuda.synchronize()
+    assert [a - c for a, c in zip(_bf16_counts(), before)] == [2, 0, 0, 0, 0]
+    ssd_after, _ = _ssd_bf16_counts()
+    assert {k: ssd_after[k] - ssd_before[k] for k in ssd_after
+            if ssd_after[k] != ssd_before[k]} == {"ssd_xbc_fwd": 2}
+    assert logits.dtype == torch.bfloat16
+    _close_to_max(logits.float(), want.float(), 3e-2)
+    before, ssd_before = _bf16_counts(), _ssd_bf16_counts()[0]
+    model.train()(pts).float().square().mean().backward()
+    torch.cuda.synchronize()
+    assert [a - c for a, c in zip(_bf16_counts(), before)] == [2, 2, 0, 0, 0]
+    ssd_after, ssd_fp32_after = _ssd_bf16_counts()
+    assert {k: ssd_after[k] - ssd_before[k] for k in ssd_after
+            if ssd_after[k] != ssd_before[k]} == {"ssd_xbc_fwd_states": 2, "ssd_xbc_bwd": 2}
+    assert _fp32_counts() == fp32 and ssd_fp32_after == ssd_fp32
+    assert all(p.grad is not None and p.grad.dtype == torch.float32 and
+               torch.isfinite(p.grad).all() for p in model.parameters())

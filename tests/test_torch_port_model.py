@@ -155,7 +155,7 @@ def test_fresh_model_is_seeded_and_finite():
                                       dict(tp_axis="model", add_after_layer=True),
                                       dict(dtype="float16"),
                                       dict(dtype="bfloat16", scan_impl="fused"),
-                                      dict(dtype="bfloat16", mixer="ssd"),
+                                      dict(dtype="bfloat16", mixer="ssd", scan_impl="fused"),
                                       dict(dtype="bfloat16", tp_axis="model"),
                                       dict(reverse_3=True)])
 def test_unported_options_raise(override):
