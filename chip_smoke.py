@@ -10,7 +10,7 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
 
 1. device: requires CUDA, prints ``nvidia-smi``'s name and power limit, turns
    TF32 off for matmuls and convolutions;
-2. build: the seven CUDA sources (K1-K9 each with its fp32 and bf16
+2. build: the seven CUDA sources (K1-K11 each with its fp32 and bf16
    variants), one ``nvcc`` each, in parallel, before
    any rank of phases 11-14 starts;
 3. kernels: at the serving path's full-width shapes (B=32, L=512, d_inner=768,
@@ -65,7 +65,8 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    L=512, seeded random weights) answers requests of 1, 20 and 64 clouds of
    1024 points; every forward must launch the conv and lean scan kernels 12
    times each and no other kernel, and its logits must match a second model
-   with the plain scan (``scan_impl='seq'``) on the same card;
+   with the plain scan (``scan_impl='seq'``) on the same card; the requests'
+   peak memory is recorded;
 6. profile: for each request size, the median over 10 forwards of the
    model's three pieces (``embed``: FPS, kNN, patch encoder, pos-embed;
    ``sequence``: graph, ``eigh``, SAST ordering; ``classify``: the Mamba stack
@@ -191,17 +192,52 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    against the same program on CPU copies of the inputs (the kernels' plain
    versions), then, for the carry across ranks, against the single-process
    bf16 split core on the card.
+23. the bf16 whole-mixer kernels (after phase 4b): the bf16 K10 (lean, with
+   states) and K11 at the fused perf path's shapes (B=32, L=512, d_inner
+   768, dt_rank 24; xz as layer 0's bf16 in_proj makes it, the weights fp32),
+   each against its plain version at bf16 (y and dxz within one bf16 ulp at
+   a floor of 2e-2 of the max; h_entries and the fp32 weight gradients
+   within 1e-4 of their max; K11 twice, bitwise equal) and timed beside it,
+   also as CUDA-graph device time, the lean one also at 1, 20 and 64
+   clouds; each record carries the fp32 kernel's times of this run;
+24. K8/K9's carry entry points (after phase 23): K8 with h_fin (lean, with
+   states) and the seeded K9 at the SSD shape (width 1024, 6 heads of 128,
+   chunk 256, B=32, L=512), fp32 and bf16, each against its plain version
+   (fp32: y, h_in, h_fin within 1e-5 of their max, gradients within 4.5e-6;
+   bf16: 2 ulps at a floor of 2e-2, fp32 outputs within 1e-3) and timed
+   beside it; then the path that reaches them,
+   ``ssd_chunked_xbc(return_carry=True)``, at each dtype without and with a
+   gradient: each carry kernel launched once, nothing else, y and h_fin the
+   kernels', the total decay exp(sum of each chunk's last S);
+25. fused perf serving and train (after phase 10): the whole-mixer model in
+   perf mode (``Predictor.from_checkpoint(state dict, perf=True)``: bf16,
+   subspace) through phases 5-7: every forward launches the lean bf16 K10 12
+   times and nothing else, logits and features within PERF_LOGITS_TOL of
+   'seq' at bf16; every step the bf16 K10 with states and K11 12 times each;
+26. (on the two ranks, after phase 22) perf mode's Mamba-1 classifier with
+   its mixers over the model axis: the tensor-parallel mixer promotes its
+   bf16 input to fp32 at the fp32 weights, as the JAX package's does, so one
+   forward of 20 clouds launches the fp32 conv and lean scan 12 times a
+   rank (logits within PERF_LOGITS_TOL of the single-process bf16 'seq'
+   model), and two train steps the fp32 conv and scan forward and backward
+   12 times a rank, losses equal on both ranks;
+27. the fused perf configuration through the CLI (after phase 20):
+   cfgs/finetune_modelnet_perf.yaml with ``model.scan_impl: fused``, written
+   on the harness tree, one epoch of two steps and a validation, then
+   ``--test`` of its ckpt-last.pth, launches counted.
 
 Each path (serving, train, perf serving, perf train, SSD serving, SSD train,
-SSD perf serving, SSD perf train, fused serving, fused train, the harness's
-finetune, test and vote runs, the perf and SSD presets' CLI runs and the
-latter's test run, and on each rank TP SSD serving, TP SSD train, SP, SP
-train, TP Mamba-1 serving, bf16 TP SSD serving and train, bf16 SP and SP
-train) is driven with every launch count set to 0 just before it and read
+SSD perf serving, SSD perf train, fused serving, fused train, fused perf
+serving, fused perf train, the carry path at fp32 and at bf16, the harness's
+finetune, test and vote runs, the perf, SSD and fused perf configurations'
+CLI runs and the latter two's test runs, and on each rank TP SSD serving,
+TP SSD train, SP, SP train, TP Mamba-1 serving, bf16 TP SSD serving and
+train, bf16 SP and SP train, bf16 TP Mamba-1 serving and train) is driven with every launch count set to 0 just before it and read
 just after. The last five
 lines of standard output are the harness's record, the serving, profile,
-train and gradient record of the three models (and perf mode's and the SSD
-presets' serving, profile, train and CLI records), the kernels' record (each one
+train and gradient record of the three models (and perf mode's, the SSD
+presets' and fused perf mode's serving, profile, train and CLI records), the
+kernels' record (each one
 JSON object; every kernel names its ``main_path`` and its launches on every
 path, rank 0's for the parallel paths), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -245,6 +281,9 @@ MODELNET40_PERF = dict(MODELNET40, dtype="bfloat16", spectral_method="subspace")
 # The SSD presets as shipped: the SSD classifier with perf mode's two switches,
 # which cfgs/finetune_modelnet_ssd.yaml inherits from finetune_modelnet_perf.yaml.
 MODELNET40_SSD_PERF = dict(MODELNET40_SSD, dtype="bfloat16", spectral_method="subspace")
+# Perf mode on the whole-mixer route: the fused model with perf mode's two
+# switches (cfgs/finetune_modelnet_perf.yaml with model.scan_impl 'fused').
+MODELNET40_FUSED_PERF = dict(MODELNET40_FUSED, dtype="bfloat16", spectral_method="subspace")
 NPOINTS = 1024
 REQUEST_SIZES = (1, 20, 64)
 REPEATS = 5
@@ -266,6 +305,10 @@ PERF_EVAL_KERNELS = ("causal_conv1d_silu_bf16", "selective_scan_fwd_bf16")
 SSD_PERF_TRAIN_KERNELS = ("causal_conv1d_silu_bf16", "ssd_xbc_fwd_states_bf16", "ssd_xbc_bwd_bf16",
                           "causal_conv1d_silu_bwd_bf16")
 SSD_PERF_EVAL_KERNELS = ("causal_conv1d_silu_bf16", "ssd_xbc_fwd_bf16")
+# the fused perf route's kernels (perf mode on scan_impl 'fused'): a train
+# step's, an eval forward's
+FUSED_PERF_TRAIN_KERNELS = ("fused_mixer_fwd_states_bf16", "fused_mixer_bwd_bf16")
+FUSED_PERF_EVAL_KERNELS = ("fused_mixer_fwd_bf16",)
 # Perf mode's logits and pooled features, kernel route against the plain one
 # ('seq') on the card, within this share of their max: bf16 keeps 8
 # significant bits (a rounding moves a value up to 2^-9 = 0.2 %), and the two
@@ -1116,21 +1159,21 @@ def bf16_tc_bound(bytes_moved: float, bf16_ops: float, tf32x3_ops: float) -> dic
                 else "operations")
 
 
-def _ssd_bf16_work(B, L, h, chunk, n=128, hp=128, d_skip=False):
+def _ssd_bf16_work(B, L, h, chunk, n=128, hp=128, d_skip=False, elem=2):
     """The bf16 SSD kernels' work at these shapes, products the function needs
     (lower triangles only, nothing whose operand is 0; as ``_split_bounds``):
     {variant: (bytes, bf16 products' ops, 3xTF32 products' ops)} for the
     forward by (states, h_fin) and the backward by seed, bf16 activations at
-    2 bytes, everything else fp32. At bf16 every forward product takes bf16
-    operands; the backward keeps fp32 (3xTF32) for dG B and dG^T C, the carry
-    (C E)^T dy, B dh and (dt x) dh^T, and takes bf16 operands for G, GM^T dy,
-    dy (dt x)^T and dy h_in^T. ``d_skip``: K8/K9's D terms (D read, dD
-    written)."""
+    2 bytes (``elem``: 4 for the fp32 kernels' bytes), everything else fp32.
+    At bf16 every forward product takes bf16 operands; the backward keeps
+    fp32 (3xTF32) for dG B and dG^T C, the carry (C E)^T dy, B dh and
+    (dt x) dh^T, and takes bf16 operands for G, GM^T dy, dy (dt x)^T and
+    dy h_in^T. ``d_skip``: K8/K9's D terms (D read, dD written)."""
     nc, q, d = L // chunk, chunk, h * hp
     tri = q * (q + 1)
     state = 2 * q * n * hp
     hin, hfin = B * nc * h * n * hp * 4, B * h * n * hp * 4
-    act = (2 * B * L * d + 2 * B * L * n) * 2  # x, B, C in, y out
+    act = (2 * B * L * d + 2 * B * L * n) * elem  # x, B, C in, y out
     small = 2 * B * h * L * 4 + (h * 4 if d_skip else 0)  # dt, S (and D)
     fwd = {}
     for st in (False, True):
@@ -1143,7 +1186,7 @@ def _ssd_bf16_work(B, L, h, chunk, n=128, hp=128, d_skip=False):
         bf16 = B * (nc * (tri * n + 2 * h * tri * hp) + (nc - 1) * h * state)
         tf32 = B * (nc * 2 * tri * n + (nc - 1) * h * state
                     + (nc if seed else nc - 1) * h * 2 * state)
-        moved = ((3 * B * L * d + 4 * B * L * n) * 2 + 4 * B * h * L * 4 + hin
+        moved = ((3 * B * L * d + 4 * B * L * n) * elem + 4 * B * h * L * 4 + hin
                  + (hfin if seed else 0) + (2 * h * 4 if d_skip else 0))
         bwd[seed] = (moved, bf16, tf32)
     return fwd, bwd
@@ -1417,6 +1460,149 @@ def ssd_bf16_kernel_phase(device) -> tuple[list[dict], dict]:
     return records, conv
 
 
+def ssd_carry_inputs(device, dtype) -> tuple:
+    """The inputs of ``ssd_chunked_xbc`` at the SSD shape (B=32, L=512, width
+    1024: 6 heads of 128, d_state 128, chunk 256) as layer 0's SSD mixer
+    makes them at ``dtype`` (bf16: its matmul weight cast to bf16, the conv
+    kernel on the fp32 conv weights): xbc the conv's output, dt (B, L, h)
+    post-softplus fp32, A and D (h,) fp32. Returns (xbc, dt, A, D, d_inner,
+    chunk)."""
+    from si_mamba_tpu_torch.models.layers import SSDMixer
+    from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
+
+    mixer = SSDMixer(MODELNET40["trans_dim"], out_proj_div=MODELNET40["depth"] ** 0.5,
+                     chunk=MODELNET40_SSD["ssd_chunk"])
+    mixer.reset_parameters(torch.Generator().manual_seed(1))
+    p = {k: v.detach().to(device) for k, v in mixer.params().items()}
+    d, n = mixer.d_inner, mixer.d_state
+    u = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (TRAIN_BATCH, 512, MODELNET40["trans_dim"]), dtype=np.float32)).to(device, dtype)
+    zxbcdt = u @ p["in_proj_w"].to(dtype)
+    xbc = kc.causal_conv1d_silu_fwd(zxbcdt[..., d:2 * d + 2 * n], p["conv_w"], p["conv_b"])
+    dt = F.softplus(zxbcdt[..., 2 * d + 2 * n:].float() + p["dt_bias"])
+    return xbc, dt, -torch.exp(p["A_log"]), p["D"], d, mixer.chunk
+
+
+CARRY = ("ssd_xbc_fwd_hfin", "ssd_xbc_fwd_states_hfin", "ssd_xbc_bwd_seeded")
+
+
+def ssd_carry_phase(device) -> tuple[list[dict], dict]:
+    """K8/K9's carry entry points, fp32 and bf16, at the SSD shape
+    (``ssd_carry_inputs``). First each kernel against its plain version and
+    timed beside it: K8 with h_fin lean and with states (y bitwise K8's
+    without the carry, the two h_fin bitwise equal) and the seeded K9 for a
+    seeded output gradient and dh_fin (two runs bitwise equal); fp32: y, h_in
+    and h_fin within 1e-5 of their max, every gradient within 4.5e-6 of its
+    max (the K8/K9 rows' errors); bf16: a bf16 output within 2 ulps at a
+    floor of 2e-2 of its max, every fp32 output within 1e-3 (h_fin too).
+    ``bound_ms`` as K8/K9's: 3xTF32 products at fp32 (``tc_bound``), bf16 and
+    3xTF32 ones at bf16 (``bf16_tc_bound``). Then the path that reaches them,
+    ``ssd_chunked_xbc(return_carry=True)``, at each dtype with every launch
+    count from 0: once without a gradient (the lean K8 with h_fin), once with
+    one through a loss of y and h_fin (K8 with states and h_fin, the seeded
+    K9); its y and h_fin bitwise the kernels' above, its total decay
+    exp(sum of each chunk's last S), its gradients finite. Returns (the six
+    records, {"ssd_carry": launches, "ssd_carry_bf16": launches})."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    records, paths = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        sfx = "_bf16" if bf16 else ""
+        xbc, dt, A, D, d, chunk = ssd_carry_inputs(device, dtype)
+        B, L, h = dt.shape
+        dth = dt.transpose(1, 2).reshape(B, h, L // chunk, chunk).contiguous()
+        S = torch.cumsum(dth * A[None, :, None, None], dim=-1)
+        args = (xbc, dth, S, D, d, chunk)
+        rng = np.random.default_rng(15)
+        dy = torch.from_numpy(rng.standard_normal((B, L, d), dtype=np.float32)).to(device, dtype)
+        dh_fin = torch.from_numpy(0.1 * rng.standard_normal((B, h, 128, 128),
+                                                            dtype=np.float32)).to(device)
+        fwd_hfin, fwd_states_hfin, bwd_seeded = (getattr(kssd, n + sfx) for n in CARRY)
+        y_plain = kssd.ssd_xbc_fwd(*args)
+        y_lean, hf_lean = fwd_hfin(*args)
+        y, h_in, h_fin = fwd_states_hfin(*args)
+        bwd_args = (xbc, dth, S, D, h_in, dy, dh_fin, d, chunk)
+        got, again = bwd_seeded(*bwd_args), bwd_seeded(*bwd_args)
+        y_ref, h_ref, hf_ref = kssd.ssd_xbc_fwd_ref(*args, emit_states=True, emit_hfin=True)
+        want = kssd.ssd_xbc_bwd_ref(xbc, dth, S, D, h_in, dy, d, chunk, dh_fin=dh_fin)
+        torch.cuda.synchronize()
+        where = f"at {dtype}"
+        for what, a, c in (("y", y_lean, y_plain), ("y", y, y_plain), ("h_fin", hf_lean, h_fin),
+                           *(("backward", g1, g2) for g1, g2 in zip(got, again))):
+            if not torch.equal(a, c):
+                raise AssertionError(f"K8/K9 carry variants {where}: {what} not bitwise equal")
+
+        def hold(name, a, w, rel):
+            if bf16:
+                return _hold_bf16(f"{name} {where}", a, w)
+            err, r = _rel_err(a, w)
+            if r > rel:
+                raise AssertionError(f"{name} {where}: max |diff| {err} ({r:.3e} of max)")
+            return err
+
+        err_y = hold("K8 y", y, y_ref, 1e-5)
+        err_hin, err_hf = hold("K8 h_in", h_in, h_ref, 1e-5), hold("K8 h_fin", h_fin, hf_ref, 1e-5)
+        err9 = max(hold(f"seeded K9 {k}", a, w, 4.5e-6)
+                   for k, a, w in zip(("dxbc", "ddt", "dS", "dD"), got, want))
+        fwd_work, bwd_work = _ssd_bf16_work(B, L, h, chunk, d_skip=True, elem=xbc.element_size())
+
+        def bound_of(work):
+            moved, bf16_ops, tf32_ops = work
+            return (bf16_tc_bound(moved, bf16_ops, tf32_ops) if bf16
+                    else tc_bound(moved, bf16_ops + tf32_ops))
+
+        calls = ((CARRY[0], lambda: fwd_hfin(*args),
+                  lambda: kssd.ssd_xbc_fwd_ref(*args, emit_hfin=True), max(err_y, err_hf),
+                  fwd_work[(False, True)]),
+                 (CARRY[1], lambda: fwd_states_hfin(*args),
+                  lambda: kssd.ssd_xbc_fwd_ref(*args, emit_states=True, emit_hfin=True),
+                  max(err_y, err_hin, err_hf), fwd_work[(True, True)]),
+                 (CARRY[2], lambda: bwd_seeded(*bwd_args),
+                  lambda: kssd.ssd_xbc_bwd_ref(xbc, dth, S, D, h_in, dy, d, chunk,
+                                               dh_fin=dh_fin), err9, bwd_work[True]))
+        for name, fn, plain, err, work in calls:
+            fwd = "fwd" in name
+            records.append(dict(
+                name=name + sfx, route="cuda", dtype=str(dtype).removeprefix("torch."),
+                source="si_mamba_tpu_torch/csrc/ssd_xbc_" + ("fwd.cu" if fwd else "bwd.cu"),
+                replaces="si_mamba_tpu/ops/pallas/ssd_kernel.py:" + ("602" if fwd else "698"),
+                shape=dict(B=B, L=L, heads=h, chunk=chunk), max_abs_err=err,
+                ms=time_ms(fn, 20 if fwd else 10), device_ms=graph_ms(fn, 20 if fwd else 10),
+                plain_ms=time_ms(plain, 3 if fwd else 2, warmup=1), library_ms=None,
+                **bound_of(work)))
+
+        # the path: ssd_chunked_xbc(return_carry=True), as a caller would use it
+        kw = dict(d_inner=d, chunk=chunk, return_carry=True)
+        leaves = [t.detach().clone().requires_grad_() for t in (xbc, dt, A, D)]
+        torch.cuda.synchronize()
+        _reset_launch_counts()  # the carry path at this dtype
+        with torch.no_grad():
+            y0, dec0, hf0 = kssd.ssd_chunked_xbc(xbc, dt, A, D, **kw)
+        y1, dec1, hf1 = kssd.ssd_chunked_xbc(*leaves, **kw)
+        (y1.float().square().mean() + hf1.square().mean()).backward()
+        torch.cuda.synchronize()
+        path = "ssd_carry" + sfx
+        paths[path] = _launch_counts()
+        expect = _counts_expect({n + sfx: 1 for n in CARRY}, 1)
+        if paths[path] != expect:
+            raise AssertionError(f"{path} launched {paths[path]}, expected {expect}")
+        dec_want = torch.exp(S[..., -1].sum(-1))
+        if not (torch.equal(y0, y_lean) and torch.equal(hf0, hf_lean) and torch.equal(y1, y)
+                and torch.equal(hf1, h_fin) and torch.equal(dec0, dec1)
+                and _rel_err(dec0, dec_want)[1] <= 1e-6):
+            raise AssertionError(f"{path}: y / total_decay / h_fin differ from the kernels'")
+        if not all(t.grad is not None and torch.isfinite(t.grad.float()).all() for t in leaves):
+            raise AssertionError(f"{path}: a gradient is missing or not finite")
+        log(f"{path}: launches {({k: v for k, v in paths[path].items() if v})}; y, h_fin "
+            f"(shape {tuple(hf0.shape)}) and total decay as the kernels'; gradients finite")
+    for r in records:
+        log(f"{r['name']}: {r['ms']:.6f} ms, device {r['device_ms']:.6f} ms (plain "
+            f"{r['plain_ms']:.6f}, bound {r['bound_ms']:.6f} by {r['bound_by']}), max |diff| "
+            f"{r['max_abs_err']:.3e}")
+    return records, paths
+
+
 def per_op_interior(xz, p, dt_rank: int, n: int):
     """The mixer interior through the per-op route, as ``mamba_mixer_apply``
     runs it under 'pallas': K1 (K5 backward), the x_proj and dt_proj GEMMs,
@@ -1431,6 +1617,33 @@ def per_op_interior(xz, p, dt_rank: int, n: int):
     return selective_scan_fused(xi, dt, -torch.exp(p["A_log"]), x_dbl[..., dt_rank:dt_rank + n],
                                 x_dbl[..., dt_rank + n:], p["D"], xz[..., d_inner:],
                                 p["dt_proj_b"])
+
+
+def fused_work(args) -> dict:
+    """The work K10/K11 need on ``args`` (the kernels' inputs; xz in the
+    activation dtype, the weights fp32): operations per (b, t), the rank-R
+    pair, xi @ x_proj (2 d (R + 2n)) and dt_low @ dt_proj (2 R d), and per
+    channel the conv (2W + 1), SiLU 4, softplus 4, skip and gate 6 and 7 per
+    state (as K2's bound); the backward the forward's recompute, the pair's
+    four products (twice the forward's pair), the scan backward (20 per state
+    and 20 per channel, as K4's bound) and the conv backward (6W + 11, as
+    K5's). Bytes: xz read and y written once (with states h_entries written
+    once, fp32), the weights read once; the backward xz, g and h_entries read,
+    dxz written, the weights read and their gradients written once."""
+    from si_mamba_tpu_torch.ops.kernels.fused_mixer import CHUNK
+
+    xz, conv_wt, x_proj, dt_proj, at = args[0], args[1], args[3], args[4], args[6]
+    B, L, two_d = xz.shape
+    d, W, n, r = two_d // 2, conv_wt.shape[0], at.shape[0], dt_proj.shape[0]
+    act = xz.element_size()
+    pair_ops = 2 * d * x_proj.shape[1] + 2 * r * d
+    fwd_ops = B * L * (pair_ops + d * (2 * W + 1 + 4 + 10 + 7 * n))
+    weight_bytes = sum(t.numel() for t in args[1:]) * 4
+    hent_bytes = B * -(-L // CHUNK) * n * d * 4
+    return dict(fwd_ops=fwd_ops, fwd_bytes=B * L * 3 * d * act + weight_bytes,
+                hent_bytes=hent_bytes,
+                bwd_ops=fwd_ops + B * L * (2 * pair_ops + d * (20 * n + 20 + 6 * W + 11)),
+                bwd_bytes=B * L * 5 * d * act + hent_bytes + 2 * weight_bytes)
 
 
 def fused_fwd_at_clouds(device) -> dict:
@@ -1476,7 +1689,6 @@ def fused_mixer_phase(device) -> tuple[list[dict], dict]:
                -torch.exp(p["A_log"]), p["D"]]
     args = kfm.kernel_inputs(xz, *weights, dt_rank=dt_rank, d_state=n)
     B, L, _ = xz.shape
-    W, nc = args[1].shape[0], -(-L // kfm.CHUNK)
     y_lean = kfm.fused_mixer_fwd(*args)
     y, h_entries = kfm.fused_mixer_fwd_states(*args)
     y_ref, h_ref = kfm.fused_mixer_fwd_ref(*args, chunk=kfm.CHUNK, emit_states=True)
@@ -1489,17 +1701,8 @@ def fused_mixer_phase(device) -> tuple[list[dict], dict]:
     if rel_y > 1e-4 or rel_h > 1e-4:
         raise AssertionError(f"fused forward kernel disagrees with its plain version: y {err_y} "
                              f"({rel_y:.3e} of max), h_entries {err_h} ({rel_h:.3e} of max)")
-    # operations the function needs, per (b, t): the rank-R pair, xi @ x_proj
-    # (2 d (R + 2n)) and dt_low @ dt_proj (2 R d); per channel the conv
-    # (2W + 1), SiLU 4, softplus 4, skip and gate 6, and 7 per state (as K2's
-    # bound). Bytes: xz read and y written once, the weights read once
-    # (h_entries written once).
-    per_channel = 2 * W + 1 + 4 + 10 + 7 * n
-    pair_ops = 2 * d_inner * (dt_rank + 2 * n) + 2 * dt_rank * d_inner
-    fwd_ops = B * L * (pair_ops + d_inner * per_channel)
-    weight_bytes = sum(t.numel() for t in args[1:]) * 4
-    fwd_bytes = B * L * 3 * d_inner * 4 + weight_bytes
-    hent_bytes = B * nc * n * d_inner * 4
+    work = fused_work(args)
+    fwd_ops, fwd_bytes, hent_bytes = work["fwd_ops"], work["fwd_bytes"], work["hent_bytes"]
     records = []
     for name, fn, extra, err in (
             ("fused_mixer_fwd", lambda: kfm.fused_mixer_fwd(*args), 0, err_y),
@@ -1509,7 +1712,7 @@ def fused_mixer_phase(device) -> tuple[list[dict], dict]:
         records.append(dict(
             name=name, route="cuda", source="si_mamba_tpu_torch/csrc/fused_mixer_fwd.cu",
             replaces="si_mamba_tpu/ops/pallas/fused_mixer_kernel.py:243", max_abs_err=err,
-            ms=time_ms(fn, 20),
+            ms=time_ms(fn, 20), device_ms=graph_ms(fn, 20),
             plain_ms=time_ms(lambda: kfm.fused_mixer_fwd_ref(*args, chunk=kfm.CHUNK,
                                                              emit_states=bool(extra)), 2, warmup=1),
             library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
@@ -1539,21 +1742,12 @@ def fused_mixer_phase(device) -> tuple[list[dict], dict]:
                                  f"({rels[name]:.3e} of max)")
         if not torch.equal(a, a2):
             raise AssertionError(f"fused backward kernel: {name} differs between two runs")
-    # operations the function needs: the forward's recompute, the pair's four
-    # products of the backward (d_dtlow = ddt_raw dt_proj^T, dxi's
-    # [d_dtlow | dB | dC] x_proj^T, d x_proj and d dt_proj: twice the
-    # forward's pair), the scan backward (20 per state and 20 per channel, as
-    # K4's bound) and the conv backward (6W + 11, as K5's). Bytes: xz, g and
-    # h_entries read, dxz written, the weights read and their gradients
-    # written once.
-    scan_conv_bwd = d_inner * (20 * n + 20 + 6 * W + 11)
-    bwd_ops = fwd_ops + B * L * (2 * pair_ops + scan_conv_bwd)
-    bwd_bytes = B * L * 5 * d_inner * 4 + hent_bytes + 2 * weight_bytes
-    bound_ms, bound_by = bound(bwd_bytes, bwd_ops)
+    bound_ms, bound_by = bound(work["bwd_bytes"], work["bwd_ops"])
     records.append(dict(
         name="fused_mixer_bwd", route="cuda", source="si_mamba_tpu_torch/csrc/fused_mixer_bwd.cu",
         replaces="si_mamba_tpu/ops/pallas/fused_mixer_kernel.py:292", max_abs_err=err11,
         rel_err_of_max=rels, ms=time_ms(lambda: kfm.fused_mixer_bwd(*bwd_args), 10),
+        device_ms=graph_ms(lambda: kfm.fused_mixer_bwd(*bwd_args), 10),
         plain_ms=time_ms(lambda: kfm.fused_mixer_bwd_ref(*bwd_args, chunk=kfm.CHUNK), 1,
                          warmup=1),
         library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
@@ -1588,6 +1782,112 @@ def fused_mixer_phase(device) -> tuple[list[dict], dict]:
     return records, timings
 
 
+def fused_bf16_args(device, batch: int = 32) -> tuple:
+    """K10/K11's inputs as layer 0's bf16 mixer makes them at B=batch, L=512:
+    xz = x @ in_proj in bf16 (x bf16, the weight cast to bf16), every interior
+    weight fp32, as ``mamba_mixer_apply(impl='fused')`` hands them over.
+    Returns (the mixer, the kernels' inputs)."""
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    mixer, p, _ = mixer_inputs(device, batch)
+    bf = torch.bfloat16
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (batch, 512, MODELNET40["trans_dim"]), dtype=np.float32)).to(device, bf)
+    return mixer, kfm.kernel_inputs(x @ p["in_proj_w"].to(bf), p["conv_w"], p["conv_b"],
+                                    p["x_proj_w"], p["dt_proj_w"], p["dt_proj_b"],
+                                    -torch.exp(p["A_log"]), p["D"], dt_rank=mixer.dt_rank,
+                                    d_state=mixer.d_state)
+
+
+def fused_bf16_kernel_phase(device) -> list[dict]:
+    """The bf16 K10 (lean and with states) and K11 at the fused perf path's
+    shapes (B=32, L=512, d_inner 768, d_state 16, dt_rank 24; xz as layer 0's
+    bf16 in_proj makes it, the weights fp32), each against its plain version
+    at bf16 and timed beside it (back-to-back calls and CUDA-graph device
+    time): y and dxz within one bf16 ulp at a floor of 2e-2 of the max (both
+    round one fp32 value once); h_entries and the fp32 weight gradients
+    within 1e-4 of their max; the lean y equal to the states variant's; two
+    K11 runs bitwise equal; the lean K10 also at 1, 20 and 64 clouds. Bounds
+    count bf16 bytes for xz, g, y and dxz and fp32 operations."""
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    _, args = fused_bf16_args(device)
+    B, L, two_d = args[0].shape
+
+    def hold(name, got, want):
+        if got.dtype != want.dtype or got.shape != want.shape:
+            raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} against the plain "
+                                 f"version's {want.dtype} {tuple(want.shape)}")
+        if got.dtype == torch.bfloat16:
+            ulps = _bf16_ulps(got, want, 2e-2)
+            if ulps > 1:
+                raise AssertionError(f"{name}: {ulps:.2f} bf16 ulps from the plain version")
+        elif _rel_err(got, want)[1] > 1e-4:
+            raise AssertionError(f"{name}: {_rel_err(got, want)} from the plain version")
+        return (got.float() - want.float()).abs().max().item()
+
+    y_lean = kfm.fused_mixer_fwd_bf16(*args)
+    y, h_entries = kfm.fused_mixer_fwd_states_bf16(*args)
+    y_ref, h_ref = kfm.fused_mixer_fwd_ref(*args, chunk=kfm.CHUNK, emit_states=True)
+    torch.cuda.synchronize()
+    if not torch.equal(y, y_lean):
+        raise AssertionError("the bf16 fused forward with states differs from the lean one")
+    err_y = hold("bf16 K10 y", y, y_ref)
+    err_h = hold("bf16 K10 h_entries", h_entries, h_ref)
+    g = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (B, L, two_d // 2), dtype=np.float32)).to(device, torch.bfloat16)
+    bwd_args = (*args, h_entries, g)
+    got, again = kfm.fused_mixer_bwd_bf16(*bwd_args), kfm.fused_mixer_bwd_bf16(*bwd_args)
+    want = kfm.fused_mixer_bwd_ref(*bwd_args, chunk=kfm.CHUNK)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError("two bf16 fused backward runs on the same inputs differ")
+    names = ("dxz", "dconv_wt", "dconv_b", "dx_proj", "ddt_proj", "ddtb", "dat", "dd")
+    err11 = max(hold(f"bf16 K11 {k}", a, w) for k, a, w in zip(names, got, want))
+
+    at_clouds = {}
+    for batch in REQUEST_SIZES:
+        _, a = fused_bf16_args(device, batch)
+        err = hold(f"bf16 K10 at B={batch}", kfm.fused_mixer_fwd_bf16(*a),
+                   kfm.fused_mixer_fwd_ref(*a, chunk=kfm.CHUNK)[0])
+        at_clouds[batch] = dict(
+            max_abs_err=err, ms=time_ms(lambda: kfm.fused_mixer_fwd_bf16(*a), 20),
+            device_ms=graph_ms(lambda: kfm.fused_mixer_fwd_bf16(*a), 20),
+            segments=kfm._fwd_library().fused_mixer_fwd_segments(batch, L, two_d // 2))
+
+    work = fused_work(args)
+    records = []
+    for name, fn, plain, err, moved, ops in (
+            ("fused_mixer_fwd_bf16", lambda: kfm.fused_mixer_fwd_bf16(*args),
+             lambda: kfm.fused_mixer_fwd_ref(*args, chunk=kfm.CHUNK), err_y,
+             work["fwd_bytes"], work["fwd_ops"]),
+            ("fused_mixer_fwd_states_bf16", lambda: kfm.fused_mixer_fwd_states_bf16(*args),
+             lambda: kfm.fused_mixer_fwd_ref(*args, chunk=kfm.CHUNK, emit_states=True),
+             max(err_y, err_h), work["fwd_bytes"] + work["hent_bytes"], work["fwd_ops"]),
+            ("fused_mixer_bwd_bf16", lambda: kfm.fused_mixer_bwd_bf16(*bwd_args),
+             lambda: kfm.fused_mixer_bwd_ref(*bwd_args, chunk=kfm.CHUNK), err11,
+             work["bwd_bytes"], work["bwd_ops"])):
+        fwd = "fwd" in name
+        bound_ms, bound_by = bound(moved, ops)
+        records.append(dict(
+            name=name, route="cuda", dtype="bfloat16",
+            source="si_mamba_tpu_torch/csrc/fused_mixer_" + ("fwd.cu" if fwd else "bwd.cu"),
+            replaces="si_mamba_tpu/ops/pallas/fused_mixer_kernel.py:" + ("243" if fwd else "292"),
+            shape=[B, L, two_d // 2], max_abs_err=err, ms=time_ms(fn, 20 if fwd else 10),
+            device_ms=graph_ms(fn, 20 if fwd else 10),
+            plain_ms=time_ms(plain, 2 if fwd else 1, warmup=1), library_ms=None,
+            bound_ms=bound_ms, bound_by=bound_by))
+    records[0]["at_clouds"] = at_clouds
+    for r in records:
+        log(f"{r['name']}: {r['ms']:.6f} ms, device {r['device_ms']:.6f} ms (plain "
+            f"{r['plain_ms']:.6f}, bound {r['bound_ms']:.6f} by {r['bound_by']}), max |diff| "
+            f"{r['max_abs_err']:.3e}")
+    log("bf16 K10 at " + "; ".join(f"{b} clouds: device {f['device_ms']:.6f} ms "
+                                   f"({f['segments']} segments)" for b, f in at_clouds.items())
+        + "; K11 two runs bitwise equal")
+    return records
+
+
 def clouds(n: int, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     pts = rng.standard_normal((n, NPOINTS, 3)).astype(np.float32)
@@ -1618,6 +1918,12 @@ def _wrappers() -> dict:
             "fused_mixer_fwd": kfm.fused_mixer_fwd,
             "fused_mixer_fwd_states": kfm.fused_mixer_fwd_states,
             "fused_mixer_bwd": kfm.fused_mixer_bwd,
+            "fused_mixer_fwd_bf16": kfm.fused_mixer_fwd_bf16,
+            "fused_mixer_fwd_states_bf16": kfm.fused_mixer_fwd_states_bf16,
+            "fused_mixer_bwd_bf16": kfm.fused_mixer_bwd_bf16,
+            "ssd_xbc_fwd_hfin": kssd.ssd_xbc_fwd_hfin,
+            "ssd_xbc_fwd_states_hfin": kssd.ssd_xbc_fwd_states_hfin,
+            "ssd_xbc_bwd_seeded": kssd.ssd_xbc_bwd_seeded,
             "ssd_split_fwd": kssd.ssd_split_fwd,
             "ssd_split_fwd_states": kssd.ssd_split_fwd_states,
             "ssd_split_fwd_hfin": kssd.ssd_split_fwd_hfin,
@@ -1630,7 +1936,7 @@ def _wrappers() -> dict:
 # the SSD kernels' wrappers by name, each with a ``_bf16`` twin
 SSD_NAMES = ("ssd_xbc_fwd", "ssd_xbc_fwd_states", "ssd_xbc_bwd", "ssd_split_fwd",
              "ssd_split_fwd_states", "ssd_split_fwd_hfin", "ssd_split_fwd_states_hfin",
-             "ssd_split_bwd", "ssd_split_bwd_seeded")
+             "ssd_split_bwd", "ssd_split_bwd_seeded", *CARRY)
 
 
 def _launch_counts() -> dict[str, int]:
@@ -1670,6 +1976,8 @@ def serving_phase(device, base: dict = MODELNET40, plain_impl: str = "seq",
     predictor.warmup()
     requests = {n: clouds(n, seed=n) for n in REQUEST_SIZES}
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
     _reset_launch_counts()  # the main path: counts from 0, then only the requests
     latency, logits, forwards = {}, {}, 0
     for n, batch in requests.items():
@@ -1683,12 +1991,14 @@ def serving_phase(device, base: dict = MODELNET40, plain_impl: str = "seq",
             raise AssertionError(f"bad logits for a request of {n}: {out.shape}")
         latency[n], logits[n] = times, out
     launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
     want = _expect(cfg.depth * forwards, kernels)
     if launches != want:
         raise AssertionError(f"{forwards} forwards launched {launches}; expected {want} "
                              f"({cfg.depth} per forward of {kernels}, nothing else)")
     log(f"served {forwards} forwards ({cfg.mixer} mixer, scan_impl={cfg.scan_impl!r}, "
-        f"{cfg.dtype}, {cfg.spectral_method}); launches {launches}")
+        f"{cfg.dtype}, {cfg.spectral_method}), peak memory {peak / 2**30:.3f} GiB; launches "
+        f"{launches}")
 
     # the same weights through the plain path, on the same card
     plain_model = PointMamba(PointMambaConfig.from_dict({**cfg.__dict__, "scan_impl": plain_impl}))
@@ -1715,7 +2025,8 @@ def serving_phase(device, base: dict = MODELNET40, plain_impl: str = "seq",
         f"(max |feature| {feat_scale:.3e})")
     del plain, plain_model
 
-    serving = {"logits_max_abs_diff": err, "logits_max_abs": scale}
+    serving = {"logits_max_abs_diff": err, "logits_max_abs": scale,
+               "max_memory_allocated_bytes": peak}
     for n, times in latency.items():
         p50 = statistics.median(times)
         serving[str(n)] = {"p50_ms": p50 * 1e3, "clouds_per_s": n / p50,
@@ -2286,7 +2597,7 @@ def sp_rank(device, rank: int) -> tuple[dict, dict, dict]:
         "fwd_bwd_ms": train_ms, "rel_err_of_max": {k: v[1] for k, v in errs.items()}}
 
 
-TP_PERF_STEPS = 2  # phase 21's bf16 tensor-parallel train steps
+TP_PERF_STEPS = 2  # phase 21's and phase 26's bf16 tensor-parallel train steps
 
 
 def tp_ssd_perf_rank(device, mesh, rank: int) -> tuple[dict, dict, dict]:
@@ -2298,12 +2609,42 @@ def tp_ssd_perf_rank(device, mesh, rank: int) -> tuple[dict, dict, dict]:
     launching the bf16 conv forward and backward 24 times and the bf16 K6
     with states and K7 12 times, nothing else, every loss finite. Returns
     (the forward's launches, the steps' launches, record)."""
+    return tp_perf_rank(
+        device, mesh, rank, MODELNET40_SSD_PERF, "xla", "bf16 TP SSD",
+        {"causal_conv1d_silu_bf16": 24, "ssd_split_fwd_bf16": 12},
+        {"causal_conv1d_silu_bf16": 24, "causal_conv1d_silu_bwd_bf16": 24,
+         "ssd_split_fwd_states_bf16": 12, "ssd_split_bwd_bf16": 12})
+
+
+def tp_mamba_perf_rank(device, mesh, rank: int) -> tuple[dict, dict, dict]:
+    """Phase 26: perf mode's Mamba-1 classifier (bf16, subspace) with its
+    mixers over the 2-rank model axis. Its tensor-parallel mixer promotes the
+    bf16 input to fp32 at the fp32 weights, as the JAX package's does, so the
+    fp32 kernels run: one forward of 20 clouds must launch the conv and the
+    lean scan 12 times each, nothing else, its logits within PERF_LOGITS_TOL
+    of the single-process bf16 'seq' model's; then TP_PERF_STEPS finetune
+    steps, each launching the conv forward and backward and the training
+    scan forward and backward 12 times each, nothing else, every loss
+    finite. Returns (the forward's launches, the steps' launches, record)."""
+    return tp_perf_rank(
+        device, mesh, rank, MODELNET40_PERF, "seq", "bf16 TP Mamba-1",
+        {k: 12 for k in EVAL_KERNELS}, {k: 12 for k in TRAIN_KERNELS})
+
+
+def tp_perf_rank(device, mesh, rank: int, base: dict, plain_impl: str, what: str,
+                 fwd_kernels: dict, step_kernels: dict) -> tuple[dict, dict, dict]:
+    """The classifier of ``base`` (perf mode) with its mixers over the 2-rank
+    model axis: one forward of 20 clouds must launch ``fwd_kernels`` (by
+    name, the count a forward) and nothing else, its logits within
+    PERF_LOGITS_TOL of the single-process model on ``plain_impl``; then
+    TP_PERF_STEPS finetune steps at batch 32 from 8192-point clouds, each
+    launching ``step_kernels`` and nothing else, every loss finite. Returns
+    (the forward's launches, the steps' launches, record)."""
     from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
     from si_mamba_tpu_torch.train.optim import build_optimizer
     from si_mamba_tpu_torch.train.runner_finetune import make_train_step
     from si_mamba_tpu_torch.train.train_state import TrainState
 
-    base = MODELNET40_SSD_PERF
     sd = _full_state(base, seed=0)
     model = _tp_model(base, mesh, sd, rank).to(device)
     pts = torch.from_numpy(clouds(20, seed=20)).to(device)
@@ -2316,19 +2657,19 @@ def tp_ssd_perf_rank(device, mesh, rank: int) -> tuple[dict, dict, dict]:
         torch.cuda.synchronize()
         fwd_ms = (time.perf_counter() - t0) * 1e3
         fwd_launches = _launch_counts()
-    want = _counts_expect({"causal_conv1d_silu_bf16": 24, "ssd_split_fwd_bf16": 12}, 1)
+    want = _counts_expect(fwd_kernels, 1)
     if fwd_launches != want:
-        raise AssertionError(f"rank {rank}: bf16 TP forward launched {fwd_launches}, "
+        raise AssertionError(f"rank {rank}: {what} forward launched {fwd_launches}, "
                              f"expected {want}")
-    plain = PointMamba(PointMambaConfig.from_dict({**base, "scan_impl": "xla"}))
+    plain = PointMamba(PointMambaConfig.from_dict({**base, "scan_impl": plain_impl}))
     plain.load_state_dict(sd, strict=True)
     with torch.inference_mode():
         ref = plain.to(device).eval()(pts).float()
     logits = logits.float()
     scale, err = ref.abs().max().item(), (logits - ref).abs().max().item()
     if not torch.allclose(logits, ref, atol=PERF_LOGITS_TOL * scale, rtol=PERF_LOGITS_TOL):
-        raise AssertionError(f"rank {rank}: bf16 TP logits disagree with the single-process "
-                             f"'xla' model: max |diff| {err}, max |logit| {scale}")
+        raise AssertionError(f"rank {rank}: {what} logits disagree with the single-process "
+                             f"{plain_impl!r} model: max |diff| {err}, max |logit| {scale}")
     del plain
 
     model.train()
@@ -2340,8 +2681,7 @@ def tp_ssd_perf_rank(device, mesh, rank: int) -> tuple[dict, dict, dict]:
     pts_np, labels_np = _train_clouds(TRAIN_BATCH, seed=7)
     points, labels = torch.from_numpy(pts_np).to(device), torch.from_numpy(labels_np).to(device)
     generator = torch.Generator(device=device).manual_seed(0)
-    expect = _counts_expect({"causal_conv1d_silu_bf16": 24, "causal_conv1d_silu_bwd_bf16": 24,
-                             "ssd_split_fwd_states_bf16": 12, "ssd_split_bwd_bf16": 12}, 1)
+    expect = _counts_expect(step_kernels, 1)
     torch.cuda.synchronize()
     _reset_launch_counts()  # the bf16 TP train path
     times, losses = [], []
@@ -2354,16 +2694,16 @@ def tp_ssd_perf_rank(device, mesh, rank: int) -> tuple[dict, dict, dict]:
         now = _launch_counts()
         got = {k: now[k] - before[k] for k in now}
         if got != expect or not np.isfinite(losses[-1]):
-            raise AssertionError(f"rank {rank}: bf16 TP train step {i + 1} launched {got} "
+            raise AssertionError(f"rank {rank}: {what} train step {i + 1} launched {got} "
                                  f"(expected {expect}), loss {losses[-1]}")
     train_launches = _launch_counts()
     record = {"forward_clouds": 20, "forward_ms": fwd_ms, "logits_max_abs_diff": err,
               "logits_max_abs": scale, "train_batch": TRAIN_BATCH, "train_steps": TP_PERF_STEPS,
               "step_ms": [t * 1e3 for t in times], "losses": losses}
     if rank == 0:
-        log(f"rank 0: bf16 TP SSD ok: forward of 20 clouds {fwd_ms:.3f} ms, logits vs 'xla' "
-            f"max |diff| {err:.3e} (max {scale:.3e}); steps {record['step_ms']} ms, losses "
-            f"{losses}")
+        log(f"rank 0: {what} ok: forward of 20 clouds {fwd_ms:.3f} ms, logits vs "
+            f"{plain_impl!r} max |diff| {err:.3e} (max {scale:.3e}); steps "
+            f"{record['step_ms']} ms, losses {losses}")
     return fwd_launches, train_launches, record
 
 
@@ -2518,6 +2858,8 @@ def parallel_rank(rank: int, rdzv: str, out_dir: str) -> None:
         paths["tp_ssd_perf_serving"], paths["tp_ssd_perf_train"], out["tp_ssd_perf"] = \
             tp_ssd_perf_rank(device, mesh, rank)
         paths["sp_bf16"], paths["sp_bf16_train"], out["sp_bf16"] = sp_bf16_rank(device, rank)
+        paths["tp_mamba_perf_serving"], paths["tp_mamba_perf_train"], out["tp_mamba_perf"] = \
+            tp_mamba_perf_rank(device, mesh, rank)
         torch.save({"paths": paths, "records": out}, f"{out_dir}/parallel_rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -2547,9 +2889,11 @@ def parallel_phases(card: str) -> tuple[dict, dict]:
     train = [r["records"]["tp_ssd_train"] for r in ranks]
     if train[0]["losses"] != train[1]["losses"]:  # bitwise: the ranks hold one model
         raise AssertionError(f"the ranks' losses differ: {[t['losses'] for t in train]}")
-    perf = [r["records"]["tp_ssd_perf"] for r in ranks]
-    if perf[0]["losses"] != perf[1]["losses"]:
-        raise AssertionError(f"the ranks' bf16 losses differ: {[t['losses'] for t in perf]}")
+    for key in ("tp_ssd_perf", "tp_mamba_perf"):
+        perf = [r["records"][key] for r in ranks]
+        if perf[0]["losses"] != perf[1]["losses"]:
+            raise AssertionError(f"the ranks' {key} losses differ: "
+                                 f"{[t['losses'] for t in perf]}")
 
     cfg = PointMambaConfig.from_dict({**MODELNET40_SSD, "tp_axis": "model"})
     grads = gather_state_dict([t.pop("grads") for t in train], cfg)
@@ -2587,11 +2931,13 @@ def parallel_phases(card: str) -> tuple[dict, dict]:
     log(f"SP: {rec['sp']}")
     log(f"Mamba-1 TP: {rec['tp_mamba_serving']}; ranks' wall {wall:.1f} s")
     log(f"bf16 TP SSD: {rec['tp_ssd_perf']}; bf16 SP: {rec['sp_bf16']}")
+    log(f"bf16 TP Mamba-1: {rec['tp_mamba_perf']}")
     record = {"ranks": TP, "backend": "gloo", "wall_s": wall, "card": card,
               "tp_ssd_serving": rec["tp_ssd_serving"],
               "tp_ssd_train": {f"rank{r}": t for r, t in enumerate(train)},
               "sp": rec["sp"], "tp_mamba_serving": rec["tp_mamba_serving"],
-              "tp_ssd_perf": rec["tp_ssd_perf"], "sp_bf16": rec["sp_bf16"]}
+              "tp_ssd_perf": rec["tp_ssd_perf"], "sp_bf16": rec["sp_bf16"],
+              "tp_mamba_perf": rec["tp_mamba_perf"]}
     return ranks[0]["paths"], record
 
 
@@ -2906,10 +3252,12 @@ def harness_phase(device, card: str) -> tuple[dict, dict]:
 
 
 def preset_cli_phase(device, card: str, preset: str, name: str, train_kernels, eval_kernels,
-                     model: dict, test: bool = False) -> tuple[dict, dict]:
+                     model: dict, test: bool = False,
+                     override: dict | None = None) -> tuple[dict, dict]:
     """A shipped preset through the CLI on the tree that ``harness_phase``
-    wrote (its FPS caches already built): cfgs/``preset`` at max_epoch 0, one
-    epoch of HARNESS_TRAIN // TRAIN_BATCH steps and one validation. The
+    wrote (its FPS caches already built): cfgs/``preset`` at max_epoch 0
+    (with the model keys of ``override`` set over it, a config of its own),
+    one epoch of HARNESS_TRAIN // TRAIN_BATCH steps and one validation. The
     config's model must match ``model`` (and the published 12 x 384 width).
     Every step must launch each of ``train_kernels`` once a block, every
     validation forward each of ``eval_kernels``, and nothing else; the
@@ -2922,12 +3270,14 @@ def preset_cli_phase(device, card: str, preset: str, name: str, train_kernels, e
     from si_mamba_tpu_torch.train.config import get_config
 
     work = ROOT / "build" / "harness"
-    stem = "harness_" + preset.removesuffix(".yaml")
+    stem = "harness_" + (name if override else preset.removesuffix(".yaml"))
     exp_cfg = work / f"{stem}.yaml"
     exp_cfg.write_text(
         f"_base_: {ROOT}/cfgs/{preset}\nmax_epoch: 0\ndataset:\n" + "".join(
             f"  {split}: {{_base_: {work}/modelnet40.yaml, others: {{subset: '{subset}'}}}}\n"
-            for split, subset in (("train", "train"), ("val", "test"), ("test", "test"))))
+            for split, subset in (("train", "train"), ("val", "test"), ("test", "test"))) +
+        ("model: {" + ", ".join(f"{k}: {v}" for k, v in override.items()) + "}\n"
+         if override else ""))
     config = get_config(str(exp_cfg))
     model_cfg = config.model
     got = {k: model_cfg.get(k) for k in model}
@@ -2980,7 +3330,8 @@ def preset_cli_phase(device, card: str, preset: str, name: str, train_kernels, e
     if len(losses) != 1 or not np.isfinite(losses).all() or not (exp / "ckpt-last.pth").exists():
         raise AssertionError(f"the {preset} run logged {scalars}")
     val_acc = [r["value"] for r in scalars if r["tag"] == "Metric/ACC"]
-    record = {"config": f"cfgs/{preset}, max_epoch 0", "steps": steps,
+    record = {"config": f"cfgs/{preset}, max_epoch 0" + (f", model {override}" if override else ""),
+              "steps": steps,
               "validation_forwards": n_forwards, "run_s": run_s, "epoch_loss": losses[0],
               "val_acc": val_acc, "launches": paths[name], "card": card}
     if test:
@@ -2991,8 +3342,8 @@ def preset_cli_phase(device, card: str, preset: str, name: str, train_kernels, e
                                  f"{val_acc[-1]}")
         record.update(test_acc=test_acc, test_forwards=len(forwards),
                       test_launches=paths[name + "_test"])
-    log(f"{preset} through the CLI: {steps} steps and a validation of {n_forwards} forwards in "
-        f"{run_s:.1f} s, epoch loss {losses[0]:.4f}; launches {paths[name]}"
+    log(f"{record['config']} through the CLI: {steps} steps and a validation of {n_forwards} "
+        f"forwards in {run_s:.1f} s, epoch loss {losses[0]:.4f}; launches {paths[name]}"
         + (f"; --test accuracy {test_acc} over {len(forwards)} forwards" if test else ""))
     return paths, record
 
@@ -3005,6 +3356,20 @@ def perf_harness_phase(device, card: str) -> tuple[dict, dict]:
     return preset_cli_phase(device, card, "finetune_modelnet_perf.yaml", "perf_cli",
                             PERF_TRAIN_KERNELS, PERF_EVAL_KERNELS,
                             {"dtype": "bfloat16", "spectral_method": "subspace"})
+
+
+def fused_perf_cli_phase(device, card: str) -> tuple[dict, dict]:
+    """The fused perf configuration through the CLI: cfgs/finetune_modelnet_perf.yaml
+    (the published model, bf16, subspace) with ``model.scan_impl: fused``,
+    written here (the JAX package ships no such preset), by
+    ``preset_cli_phase``, then ``--test`` of its ckpt-last.pth: the bf16 K10
+    with states and K11 on the training path, the lean bf16 K10 on the
+    validation and test paths. Returns ({"fused_perf_cli": launches,
+    "fused_perf_cli_test": launches}, the record)."""
+    return preset_cli_phase(device, card, "finetune_modelnet_perf.yaml", "fused_perf_cli",
+                            FUSED_PERF_TRAIN_KERNELS, FUSED_PERF_EVAL_KERNELS,
+                            {"dtype": "bfloat16", "spectral_method": "subspace",
+                             "scan_impl": "fused"}, test=True, override={"scan_impl": "fused"})
 
 
 def ssd_preset_cli_phase(device, card: str) -> tuple[dict, dict]:
@@ -3062,6 +3427,10 @@ def main() -> int:
     records += split_kernel_phase(device)
     fused_records, fused_routes = fused_mixer_phase(device)
     records += fused_records
+    bf16_records += fused_bf16_kernel_phase(device)
+    carry_records, carry_paths = ssd_carry_phase(device)
+    records += [r for r in carry_records if r["dtype"] == "float32"]
+    bf16_records += [r for r in carry_records if r["dtype"] == "bfloat16"]
     fp32_of = {r["name"]: r for r in records}
     for r in bf16_records:  # the fp32 kernel's times from this run, beside
         fp32 = fp32_of[r["name"].removesuffix("_bf16")]
@@ -3109,12 +3478,23 @@ def main() -> int:
         device, card, MODELNET40_FUSED, kernels=("fused_mixer_fwd_states", "fused_mixer_bwd"),
         eval_kernels=("fused_mixer_fwd",), view_grads=False)
     fused_grads = gradient_phase(device, MODELNET40_FUSED, plain_impl="seq")
+    paths["fused_perf_serving"], fused_perf_serving, model, requests = serving_phase(
+        device, MODELNET40_FUSED, plain_impl="seq", kernels=FUSED_PERF_EVAL_KERNELS, perf=True,
+        tol=PERF_LOGITS_TOL)
+    fused_perf_profile = profile_phase(model, requests)
+    del model
+    fused_perf_train, paths["fused_perf_train"] = train_phase(
+        device, card, MODELNET40_FUSED_PERF, kernels=FUSED_PERF_TRAIN_KERNELS,
+        eval_kernels=FUSED_PERF_EVAL_KERNELS, view_grads=False)
+    paths.update(carry_paths)
     harness_paths, harness = harness_phase(device, card)
     paths.update(harness_paths)
     perf_cli_paths, perf_cli = perf_harness_phase(device, card)
     paths.update(perf_cli_paths)
     ssd_cli_paths, ssd_cli = ssd_preset_cli_phase(device, card)
     paths.update(ssd_cli_paths)
+    fused_cli_paths, fused_cli = fused_perf_cli_phase(device, card)
+    paths.update(fused_cli_paths)
     torch.cuda.empty_cache()  # the ranks share the card
     parallel_paths, parallel = parallel_phases(card)
     paths.update(parallel_paths)
@@ -3139,7 +3519,12 @@ def main() -> int:
                  "ssd_split_fwd_states_bf16": "tp_ssd_perf_train",
                  "ssd_split_bwd_bf16": "tp_ssd_perf_train", "ssd_split_fwd_hfin_bf16": "sp_bf16",
                  "ssd_split_fwd_states_hfin_bf16": "sp_bf16_train",
-                 "ssd_split_bwd_seeded_bf16": "sp_bf16_train"}
+                 "ssd_split_bwd_seeded_bf16": "sp_bf16_train",
+                 "fused_mixer_fwd_bf16": "fused_perf_serving",
+                 "fused_mixer_fwd_states_bf16": "fused_perf_train",
+                 "fused_mixer_bwd_bf16": "fused_perf_train",
+                 **{n: "ssd_carry" for n in CARRY},
+                 **{n + "_bf16": "ssd_carry_bf16" for n in CARRY}}
     for r in records:
         r["kernel_ms"] = r["ms"]  # the same time under the field's older name
         r["main_path"] = main_path[r["name"]]
@@ -3158,6 +3543,9 @@ def main() -> int:
                                "train": perf_train, "cli": perf_cli},
                       "ssd_perf": {"serving": ssd_perf_serving, "profile": ssd_perf_profile,
                                    "train": ssd_perf_train, "cli": ssd_cli},
+                      "fused_perf": {"serving": fused_perf_serving,
+                                     "profile": fused_perf_profile, "train": fused_perf_train,
+                                     "cli": fused_cli},
                       "parallel": parallel, "card": card}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)

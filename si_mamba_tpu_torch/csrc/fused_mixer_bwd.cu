@@ -1,4 +1,4 @@
-// Fused Mamba-1 mixer interior, backward (K11), fp32. For the forward of
+// Fused Mamba-1 mixer interior, backward (K11), fp32 or bf16. For the forward of
 // fused_mixer_fwd.cu and an output gradient g (B, L, DI), it writes
 // dxz = [dx | dz] (B, L, 2 DI) and per-batch-row partials of the seven
 // weight gradients: d x_proj (DI, R + 2N), d dt_proj (R, DI), dconv_wt
@@ -57,11 +57,22 @@
 // ex2.approx.ftz(delta * A log2 e), as in K2/K4. A ragged L is masked: rows
 // t >= L read x = z = g = 0, their steps are skipped and every cotangent
 // there is exactly 0.
+//
+// bf16 (the `_bf16` entry point): xz (the chunk and its left context) and g
+// arrive in bf16 and dxz leaves in bf16, as the TPU kernel reads them at bf16
+// activations and its fp32 dxz is cast to xz's dtype. Every load widens to
+// fp32 (csrc/elem.cuh), the recompute, the scan backward and every sum run
+// in fp32 as at fp32, and each dxz value is rounded once to the nearest even
+// as it is stored. The weights, h_entries and the weight-gradient partials
+// stay fp32 and deterministic. Each element type is its own instantiation;
+// the fp32 one is unchanged.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "elem.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -102,8 +113,9 @@ constexpr int kSmemFloats = kRows * kTile + kTile * kXiStride + 2 * kPartFloats 
                             kTile * kDxpStride;
 constexpr int kSmemBytes = kSmemFloats * 4;
 
+template <typename T>
 struct BwdArgs {
-  const float* xz;         // (B, L, 2 DI)
+  const T* xz;             // (B, L, 2 DI)
   const float* conv_wt;    // (W, DI)
   const float* conv_b;     // (DI,)
   const float* x_proj;     // (DI, R + 2N)
@@ -112,8 +124,8 @@ struct BwdArgs {
   const float* at;         // (N, DI)
   const float* d;          // (DI,)
   const float* h_entries;  // (B, nc, N, DI)
-  const float* g;          // (B, L, DI)
-  float* dxz;              // (B, L, 2 DI)
+  const T* g;              // (B, L, DI)
+  T* dxz;                  // (B, L, 2 DI)
   float* dxp;              // (B, DI, R + 2N) partials
   float* ddtp;             // (B, R, DI)
   float* dconv_wt;         // (B, W, DI)
@@ -181,7 +193,8 @@ __device__ __forceinline__ float group_sum(float v) {
 // q+8, q+12 sit together as one float4.
 __device__ __forceinline__ int step_slot(int r) { return (r % kLanes) * kOwned + r / kLanes; }
 
-__global__ void __launch_bounds__(kThreads, 1) fused_mixer_bwd_kernel(const BwdArgs p) {
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) fused_mixer_bwd_kernel(const BwdArgs<T> p) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int P = static_cast<int>(cluster.num_blocks());
@@ -209,9 +222,9 @@ __global__ void __launch_bounds__(kThreads, 1) fused_mixer_bwd_kernel(const BwdA
   const int ch = tid / kLanes, c = c0 + ch;           // scan: channel, states q * 4 ...
   const int cc = tid & (kTile - 1), rq = tid / kTile;  // row-wise phases: channel, quarter
   const long long row2 = 2LL * DI;
-  const float* xzb = p.xz + static_cast<long long>(b) * L * row2;
-  const float* gb = p.g + static_cast<long long>(b) * L * DI;
-  float* dxzb = p.dxz + static_cast<long long>(b) * L * row2;
+  const T* xzb = p.xz + static_cast<long long>(b) * L * row2;
+  const T* gb = p.g + static_cast<long long>(b) * L * DI;
+  T* dxzb = p.dxz + static_cast<long long>(b) * L * row2;
   const int nc = (L + kT - 1) / kT;
 
   for (int i = tid; i < kTile * kXW; i += kThreads) {
@@ -274,15 +287,15 @@ __global__ void __launch_bounds__(kThreads, 1) fused_mixer_bwd_kernel(const BwdA
     // 1. x, the conv + SiLU and the block's partial of x_dbl
     for (int i = tid; i < kRows * kTile; i += kThreads) {
       const int t = t0 - (kW - 1) + i / kTile;
-      sXin[i] = (t >= 0 && t < L) ? xzb[t * row2 + c0 + (i % kTile)] : 0.f;
+      sXin[i] = (t >= 0 && t < L) ? to_f(xzb[t * row2 + c0 + (i % kTile)]) : 0.f;
     }
     // this lane's owned steps' z and g, and its states of the chunk's entry state
     float own_z[kOwned], own_g[kOwned], h0[kPerLane];
 #pragma unroll
     for (int j = 0; j < kOwned; ++j) {
       const int t = t0 + j * kLanes + q;
-      own_z[j] = t < L ? xzb[t * row2 + DI + c] : 0.f;
-      own_g[j] = t < L ? gb[static_cast<long long>(t) * DI + c] : 0.f;
+      own_z[j] = t < L ? to_f(xzb[t * row2 + DI + c]) : 0.f;
+      own_g[j] = t < L ? to_f(gb[static_cast<long long>(t) * DI + c]) : 0.f;
     }
     {
       const float* he = p.h_entries + ((static_cast<long long>(b) * nc + ci) * kN +
@@ -459,7 +472,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_mixer_bwd_kernel(const BwdA
         du = fmaf(own_delta[j], s_dhb[j], own_gy[j] * skip);
         dD = fmaf(own_gy[j], own_u[j], dD);
         ddtb += ddt;
-        dxzb[t * row2 + DI + c] = own_gz[j] * fmaf(skip, own_u[j], s_y[j]);
+        dxzb[t * row2 + DI + c] = from_f<T>(own_gz[j] * fmaf(skip, own_u[j], s_y[j]));
       }
       sDdt[r * kTile + ch] = ddt;
       sDxl[r * kTile + ch] = du;
@@ -574,7 +587,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_mixer_bwd_kernel(const BwdA
       float dx = dxl * wc[kW - 1];
 #pragma unroll
       for (int i = 0; i < kW - 1; ++i) dx = fmaf(sDxl[(r + kW - 1 - i) * kTile + cc], wc[i], dx);
-      if (t < L) dxzb[t * row2 + c0 + cc] = dx;
+      if (t < L) dxzb[t * row2 + c0 + cc] = from_f<T>(dx);
 #pragma unroll
       for (int i = 0; i < kW; ++i) dcw[i] = fmaf(sXin[(r + i) * kTile + cc], dxl, dcw[i]);
       dcb += dxl;
@@ -643,6 +656,31 @@ cudaLaunchConfig_t launch_config(int Bsz, int DI, cudaStream_t stream,
 
 bool shape_ok(int DI) { return DI % kTile == 0 && DI >= kTile && DI <= kMaxCluster * kTile; }
 
+template <typename T>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(fused_mixer_bwd_kernel<T>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+}
+
+template <typename T>
+int bwd(const void* const* ins, void* const* outs, int Bsz, int L, int DI, int N, int R, int W,
+        void* stream) {
+  if (N != kN || W != kW || !shape_ok(DI) || R < 1 || R > kMaxR) return cudaErrorInvalidValue;
+  const auto f = [&](int i) { return static_cast<const float*>(ins[i]); };
+  const auto o = [&](int i) { return static_cast<float*>(outs[i]); };
+  const BwdArgs<T> args{static_cast<const T*>(ins[0]), f(1), f(2), f(3), f(4), f(5), f(6),
+                        f(7), f(8), static_cast<const T*>(ins[9]), static_cast<T*>(outs[0]),
+                        o(1), o(2), o(3), o(4), o(5), o(6), o(7), L, DI, R};
+  cudaError_t err = allow_smem<T>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config(Bsz, DI, static_cast<cudaStream_t>(stream), &attr);
+  err = cudaLaunchKernelEx(&cfg, fused_mixer_bwd_kernel<T>, args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -655,21 +693,14 @@ extern "C" {
 // multiple of 128 up to 1024, or R + 2N above 64).
 int fused_mixer_bwd(const void* const* ins, void* const* outs, int Bsz, int L, int DI, int N,
                     int R, int W, void* stream) {
-  if (N != kN || W != kW || !shape_ok(DI) || R < 1 || R > kMaxR) return cudaErrorInvalidValue;
-  const auto f = [&](int i) { return static_cast<const float*>(ins[i]); };
-  const auto o = [&](int i) { return static_cast<float*>(outs[i]); };
-  const BwdArgs args{f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(7), f(8), f(9),
-                     o(0), o(1), o(2), o(3), o(4), o(5), o(6), o(7), L, DI, R};
-  cudaError_t err = cudaFuncSetAttribute(fused_mixer_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kSmemBytes);
-  if (err != cudaSuccess) return err;
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      launch_config(Bsz, DI, static_cast<cudaStream_t>(stream), &attr);
-  err = cudaLaunchKernelEx(&cfg, fused_mixer_bwd_kernel, args);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return bwd<float>(ins, outs, Bsz, L, DI, N, R, W, stream);
+}
+
+// K11 at bf16: xz, g and dxz bf16, every other argument as fused_mixer_bwd's
+// (the weights, h_entries and the weight-gradient partials fp32).
+int fused_mixer_bwd_bf16(const void* const* ins, void* const* outs, int Bsz, int L, int DI,
+                         int N, int R, int W, void* stream) {
+  return bwd<bf16>(ins, outs, Bsz, L, DI, N, R, W, stream);
 }
 
 // How many clusters (batch rows) at width DI the current card holds at once,
@@ -677,14 +708,12 @@ int fused_mixer_bwd(const void* const* ins, void* const* outs, int Bsz, int L, i
 // ceil(Bsz / count) waves. A negative cudaError_t code on failure.
 int fused_mixer_bwd_max_active_clusters(int DI) {
   if (!shape_ok(DI)) return -static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(fused_mixer_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kSmemBytes);
+  cudaError_t err = allow_smem<float>();
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = launch_config(1, DI, nullptr, &attr);
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, fused_mixer_bwd_kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&clusters, fused_mixer_bwd_kernel<float>, &cfg);
   if (err != cudaSuccess) return -static_cast<int>(err);
   return clusters;
 }

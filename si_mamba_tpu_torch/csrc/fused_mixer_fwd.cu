@@ -1,4 +1,4 @@
-// Fused Mamba-1 mixer interior, forward (K10), fp32. From xz = x @ in_proj
+// Fused Mamba-1 mixer interior, forward (K10), fp32 or bf16. From xz = x @ in_proj
 // (B, L, 2 DI), columns [x | z]:
 //
 //   xi             = silu(causal_conv(x) + conv_b)          (width kW)
@@ -64,11 +64,21 @@
 // softplus is v > 20 ? v : log1pf(expf(v)) and silu v / (1 + expf(-v)),
 // with the accurate expf/log1pf. A ragged L is masked: rows t >= L read
 // x = z = 0 and write nothing.
+//
+// bf16 (the `_bf16` entry point): xz arrives and y leaves in bf16, as the TPU
+// kernel takes them at bf16 activations (`xz_ref[...].astype(f32)`, y stored
+// in xz's dtype). Every load widens to fp32 (csrc/elem.cuh), all arithmetic
+// and the state run in fp32 as at fp32, and each y is rounded once to the
+// nearest even as it is stored. The weights, h_entries and the segment
+// scratch stay fp32. Each element type is its own instantiation; the fp32
+// one is unchanged.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "elem.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -102,8 +112,9 @@ constexpr int kSmemFloats = 2 * kXiFloats + 2 * kPartFloats + kMaxR * kT + 2 * k
                             kTile * kXpStride + kTile * kDtpStride;
 constexpr int kSmemBytes = kSmemFloats * 4;
 
+template <typename T>
 struct FwdArgs {
-  const float* xz;       // (B, L, 2 DI)
+  const T* xz;           // (B, L, 2 DI)
   const float* conv_wt;  // (W, DI)
   const float* conv_b;   // (DI,)
   const float* x_proj;   // (DI, R + 2N)
@@ -111,7 +122,7 @@ struct FwdArgs {
   const float* dtb;      // (DI,)
   const float* at;       // (N, DI)
   const float* d;        // (DI,)
-  float* y;              // (B, L, DI)
+  T* y;                  // (B, L, DI)
   float* h_entries;      // (B, ceil(L / kT), N, DI), or null
   float* h_end;          // (B, segments - 1, N, DI)
   float* dsum;           // (B, segments - 1, DI)
@@ -140,8 +151,8 @@ __device__ __forceinline__ void cluster_wait() {
 
 // kEnds: the first pass of the segmented scan (end states and delta sums,
 // no y). Otherwise the scan that writes y, and h_entries if kStates.
-template <bool kStates, bool kEnds>
-__global__ void __launch_bounds__(kThreads, 2) fused_mixer_fwd_kernel(const FwdArgs p) {
+template <typename T, bool kStates, bool kEnds>
+__global__ void __launch_bounds__(kThreads, 2) fused_mixer_fwd_kernel(const FwdArgs<T> p) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int P = static_cast<int>(cluster.num_blocks());
@@ -165,7 +176,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_mixer_fwd_kernel(const FwdA
   const int t_end = min(t_begin + p.seg_len, L);
   const int nchunks = (t_end - t_begin + kT - 1) / kT;
   const int nc = (L + kT - 1) / kT;
-  const float* xzb = p.xz + static_cast<long long>(b) * L * 2 * DI;
+  const T* xzb = p.xz + static_cast<long long>(b) * L * 2 * DI;
 
   // the resident weights
   for (int i = tid; i < kTile * kXW; i += kThreads) {
@@ -206,7 +217,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_mixer_fwd_kernel(const FwdA
 #pragma unroll
     for (int i = 0; i < kW - 1 + kOwned; ++i) {
       const int t = tr - (kW - 1) + i;
-      win[i] = (t >= 0 && t < L) ? xzb[static_cast<long long>(t) * 2 * DI + c0 + cc] : 0.f;
+      win[i] = (t >= 0 && t < L) ? to_f(xzb[static_cast<long long>(t) * 2 * DI + c0 + cc]) : 0.f;
     }
     float xi[kOwned];
 #pragma unroll
@@ -256,7 +267,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_mixer_fwd_kernel(const FwdA
 #pragma unroll
     for (int j = 0; j < kOwned; ++j) {
       const int t = t0 + q * kOwned + j;
-      own_z[j] = !kEnds && t < t_end ? xzb[static_cast<long long>(t) * 2 * DI + DI + c] : 0.f;
+      own_z[j] = !kEnds && t < t_end ? to_f(xzb[static_cast<long long>(t) * 2 * DI + DI + c]) : 0.f;
     }
     cluster_wait();
     {  // 3. x_dbl of the chunk: the cluster's partials summed in rank order
@@ -357,11 +368,12 @@ __global__ void __launch_bounds__(kThreads, 2) fused_mixer_fwd_kernel(const FwdA
       scan_chunk(std::false_type{});
     }
     if (!kEnds) {
-      float* yp = p.y + (static_cast<long long>(b) * L + t0 + q * kOwned) * DI + c;
+      T* yp = p.y + (static_cast<long long>(b) * L + t0 + q * kOwned) * DI + c;
 #pragma unroll
       for (int j = 0; j < kOwned; ++j) {
         if (t0 + q * kOwned + j < t_end)
-          yp[static_cast<long long>(j) * DI] = fmaf(skip, own_u[j], ysel[j]) * silu(own_z[j]);
+          yp[static_cast<long long>(j) * DI] =
+              from_f<T>(fmaf(skip, own_u[j], ysel[j]) * silu(own_z[j]));
       }
     }
     __syncthreads();  // the next chunk overwrites sDtl, sBv, sCv and, after it, sXi[cur]
@@ -392,9 +404,9 @@ int choose_segments(int Bsz, int L, int DI) {
   return s;
 }
 
-template <bool kStates, bool kEnds>
-cudaError_t launch_pass(const FwdArgs& p, int Bsz, int grid_z, cudaStream_t stream) {
-  const auto kernel = fused_mixer_fwd_kernel<kStates, kEnds>;
+template <typename T, bool kStates, bool kEnds>
+cudaError_t launch_pass(const FwdArgs<T>& p, int Bsz, int grid_z, cudaStream_t stream) {
+  const auto kernel = fused_mixer_fwd_kernel<T, kStates, kEnds>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kSmemBytes);
   if (err != cudaSuccess) return err;
@@ -415,18 +427,33 @@ cudaError_t launch_pass(const FwdArgs& p, int Bsz, int grid_z, cudaStream_t stre
   return cudaGetLastError();
 }
 
-template <bool kStates>
-cudaError_t launch(FwdArgs p, int Bsz, int requested, cudaStream_t stream) {
+template <typename T, bool kStates>
+cudaError_t launch(FwdArgs<T> p, int Bsz, int requested, cudaStream_t stream) {
   const int chunks = (p.L + kT - 1) / kT;
   const int s = requested;
   if (s < 1 || s > kMaxSegments) return cudaErrorInvalidValue;
   p.seg_len = ((chunks + s - 1) / s) * kT;
   p.segments = (p.L + p.seg_len - 1) / p.seg_len;  // at most s
   if (p.segments > 1) {
-    cudaError_t err = launch_pass<false, true>(p, Bsz, p.segments - 1, stream);
+    cudaError_t err = launch_pass<T, false, true>(p, Bsz, p.segments - 1, stream);
     if (err != cudaSuccess) return err;
   }
-  return launch_pass<kStates, false>(p, Bsz, p.segments, stream);
+  return launch_pass<T, kStates, false>(p, Bsz, p.segments, stream);
+}
+
+template <typename T>
+int fwd(const void* const* ins, void* y, void* h_entries, void* h_end, void* dsum, int Bsz,
+        int L, int DI, int N, int R, int W, int segments, void* stream) {
+  if (N != kN || W != kW || DI % kTile != 0 || DI > kMaxCluster * kTile || R < 1 ||
+      R > kMaxR)
+    return cudaErrorInvalidValue;
+  const auto f = [&](int i) { return static_cast<const float*>(ins[i]); };
+  const FwdArgs<T> p{static_cast<const T*>(ins[0]), f(1), f(2), f(3), f(4), f(5), f(6), f(7),
+                     static_cast<T*>(y), static_cast<float*>(h_entries),
+                     static_cast<float*>(h_end), static_cast<float*>(dsum), L, DI, R, 0, 1};
+  auto s = static_cast<cudaStream_t>(stream);
+  if (h_entries == nullptr) return launch<T, false>(p, Bsz, segments, s);
+  return launch<T, true>(p, Bsz, segments, s);
 }
 
 }  // namespace
@@ -445,16 +472,15 @@ extern "C" {
 // or a segment count outside 1..16).
 int fused_mixer_fwd(const void* const* ins, void* y, void* h_entries, void* h_end, void* dsum,
                     int Bsz, int L, int DI, int N, int R, int W, int segments, void* stream) {
-  if (N != kN || W != kW || DI % kTile != 0 || DI > kMaxCluster * kTile || R < 1 ||
-      R > kMaxR)
-    return cudaErrorInvalidValue;
-  const auto f = [&](int i) { return static_cast<const float*>(ins[i]); };
-  const FwdArgs p{f(0), f(1), f(2), f(3), f(4), f(5), f(6), f(7),
-                  static_cast<float*>(y), static_cast<float*>(h_entries),
-                  static_cast<float*>(h_end), static_cast<float*>(dsum), L, DI, R, 0, 1};
-  auto s = static_cast<cudaStream_t>(stream);
-  if (h_entries == nullptr) return launch<false>(p, Bsz, segments, s);
-  return launch<true>(p, Bsz, segments, s);
+  return fwd<float>(ins, y, h_entries, h_end, dsum, Bsz, L, DI, N, R, W, segments, stream);
+}
+
+// K10 at bf16: xz and y bf16, every other argument as fused_mixer_fwd's (the
+// weights, h_entries and the scratch fp32), the same segment count.
+int fused_mixer_fwd_bf16(const void* const* ins, void* y, void* h_entries, void* h_end,
+                         void* dsum, int Bsz, int L, int DI, int N, int R, int W, int segments,
+                         void* stream) {
+  return fwd<bf16>(ins, y, h_entries, h_end, dsum, Bsz, L, DI, N, R, W, segments, stream);
 }
 
 // The segment count the kernel chooses for the shape.

@@ -19,7 +19,10 @@
 // (si_mamba_tpu/ops/pallas/ssd_kernel.py:623) behind `_bwd_call_xbc`
 // (`pallas_call` at :698), with the per-head maths of `_bwd_head` (:241): x,
 // B and C are the column groups of xbc, and dx, dB, dC the column groups of
-// dxbc, with the D terms (kD). The dh of the last chunk is 0.
+// dxbc, with the D terms (kD). The dh of the last chunk is 0, or, for
+// `ssd_xbc_bwd_seeded` (behind `_bwd_call_xbc(dh_fin=...)`, :678, the
+// backward of `ssd_chunked_pallas_xbc(return_carry=True)`), the cotangent of
+// h_fin (kSeed, as K7's seeded variant).
 //
 // K7 (`ssd_split_bwd`) replaces `_make_bwd_kernel` (ssd_kernel.py:216) behind
 // `_bwd_call` (`pallas_call` at :388): x, B, C and dy arrive as separate
@@ -621,10 +624,10 @@ bool scratch_ok(const Args<T>& a, const void* scratch, long long scratch_n) {
 
 template <class T>
 int xbc_bwd(const void* xbc, const void* dt, const void* S, const void* Dp, const void* h_in,
-            const void* dy, void* dxbc, void* ddt, void* dS, void* dD_part, long long dD_n,
-            void* scratch, long long scratch_n, int B, int L, int H, int d_inner, int N, int P,
-            int Q, long long x_sb, long long x_sr, long long dy_sb, long long dy_sr,
-            void* stream) {
+            const void* dy, const void* dh_fin, void* dxbc, void* ddt, void* dS, void* dD_part,
+            long long dD_n, void* scratch, long long scratch_n, int B, int L, int H,
+            int d_inner, int N, int P, int Q, long long x_sb, long long x_sr, long long dy_sb,
+            long long dy_sr, void* stream) {
   if (!geometry_ok(L, N, P, Q) || d_inner != H * P || !ssd_tc::aligned4<T>(xbc, x_sb, x_sr) ||
       !ssd_tc::aligned4<T>(dy, dy_sb, dy_sr))
     return cudaErrorInvalidValue;
@@ -642,6 +645,7 @@ int xbc_bwd(const void* xbc, const void* dt, const void* S, const void* Dp, cons
   a.S = static_cast<const float*>(S);
   a.Dp = static_cast<const float*>(Dp);
   a.hin = static_cast<const float*>(h_in);
+  a.dh_fin = static_cast<const float*>(dh_fin);
   a.dx = Out<T>{dxf, L * total, total};
   a.dB = Out<T>{dxf + d_inner, L * total, total};
   a.dC = Out<T>{dxf + d_inner + N, L * total, total};
@@ -656,8 +660,9 @@ int xbc_bwd(const void* xbc, const void* dt, const void* S, const void* Dp, cons
   a.al_dy = ssd_tc::aligned16<T>(dy, dy_sb, dy_sr);
   a.al_hin = ssd_tc::aligned16(h_in, 0, 0);
   if (!scratch_ok(a, scratch, scratch_n)) return cudaErrorInvalidValue;
-  return launch<T, true, false>(a, static_cast<float*>(scratch),
-                                static_cast<cudaStream_t>(stream));
+  auto* f = static_cast<float*>(scratch);
+  auto s = static_cast<cudaStream_t>(stream);
+  return dh_fin != nullptr ? launch<T, true, true>(a, f, s) : launch<T, true, false>(a, f, s);
 }
 
 template <class T>
@@ -722,8 +727,9 @@ int ssd_xbc_bwd(const void* xbc, const void* dt, const void* S, const void* Dp,
                 void* dD_part, long long dD_n, void* scratch, long long scratch_n, int B, int L,
                 int H, int d_inner, int N, int P, int Q, long long x_sb, long long x_sr,
                 long long dy_sb, long long dy_sr, void* stream) {
-  return xbc_bwd<float>(xbc, dt, S, Dp, h_in, dy, dxbc, ddt, dS, dD_part, dD_n, scratch,
-                        scratch_n, B, L, H, d_inner, N, P, Q, x_sb, x_sr, dy_sb, dy_sr, stream);
+  return xbc_bwd<float>(xbc, dt, S, Dp, h_in, dy, nullptr, dxbc, ddt, dS, dD_part, dD_n,
+                        scratch, scratch_n, B, L, H, d_inner, N, P, Q, x_sb, x_sr, dy_sb, dy_sr,
+                        stream);
 }
 
 // K9 at bf16: xbc, dy and dxbc bf16 (rows 4-byte aligned), the rest as
@@ -733,8 +739,37 @@ int ssd_xbc_bwd_bf16(const void* xbc, const void* dt, const void* S, const void*
                      void* dD_part, long long dD_n, void* scratch, long long scratch_n, int B,
                      int L, int H, int d_inner, int N, int P, int Q, long long x_sb,
                      long long x_sr, long long dy_sb, long long dy_sr, void* stream) {
-  return xbc_bwd<bf16>(xbc, dt, S, Dp, h_in, dy, dxbc, ddt, dS, dD_part, dD_n, scratch,
-                       scratch_n, B, L, H, d_inner, N, P, Q, x_sb, x_sr, dy_sb, dy_sr, stream);
+  return xbc_bwd<bf16>(xbc, dt, S, Dp, h_in, dy, nullptr, dxbc, ddt, dS, dD_part, dD_n,
+                       scratch, scratch_n, B, L, H, d_inner, N, P, Q, x_sb, x_sr, dy_sb, dy_sr,
+                       stream);
+}
+
+// K9 seeded: as ssd_xbc_bwd, its dh carry starting at dh_fin (B, H, N, P) fp32
+// contiguous, the cotangent of ssd_xbc_fwd_hfin's h_fin.
+int ssd_xbc_bwd_seeded(const void* xbc, const void* dt, const void* S, const void* Dp,
+                       const void* h_in, const void* dy, const void* dh_fin, void* dxbc,
+                       void* ddt, void* dS, void* dD_part, long long dD_n, void* scratch,
+                       long long scratch_n, int B, int L, int H, int d_inner, int N, int P,
+                       int Q, long long x_sb, long long x_sr, long long dy_sb, long long dy_sr,
+                       void* stream) {
+  if (dh_fin == nullptr) return cudaErrorInvalidValue;
+  return xbc_bwd<float>(xbc, dt, S, Dp, h_in, dy, dh_fin, dxbc, ddt, dS, dD_part, dD_n,
+                        scratch, scratch_n, B, L, H, d_inner, N, P, Q, x_sb, x_sr, dy_sb, dy_sr,
+                        stream);
+}
+
+// ssd_xbc_bwd_seeded at bf16: xbc, dy and dxbc bf16, dh_fin and the rest as
+// ssd_xbc_bwd_bf16's.
+int ssd_xbc_bwd_seeded_bf16(const void* xbc, const void* dt, const void* S, const void* Dp,
+                            const void* h_in, const void* dy, const void* dh_fin, void* dxbc,
+                            void* ddt, void* dS, void* dD_part, long long dD_n, void* scratch,
+                            long long scratch_n, int B, int L, int H, int d_inner, int N, int P,
+                            int Q, long long x_sb, long long x_sr, long long dy_sb,
+                            long long dy_sr, void* stream) {
+  if (dh_fin == nullptr) return cudaErrorInvalidValue;
+  return xbc_bwd<bf16>(xbc, dt, S, Dp, h_in, dy, dh_fin, dxbc, ddt, dS, dD_part, dD_n,
+                       scratch, scratch_n, B, L, H, d_inner, N, P, Q, x_sb, x_sr, dy_sb, dy_sr,
+                       stream);
 }
 
 // K7. Inputs: x (B, L, H * P), Bm, Cm (B, L, N) and dy (B, L, H * P), each

@@ -13,6 +13,10 @@
 // mixer's un-split conv output xbc (b, l, d + 2n), heads of 128, n = 128,
 // with the D x term (kD). The lean variant serves; the training variant also
 // writes the state entering every chunk, h_in (b, nc, h, n, p) fp32, for K9.
+// `ssd_xbc_fwd_hfin` is K8 behind `_fwd_call_xbc(emit_hfin=True)` (:583, the
+// carry of `ssd_chunked_pallas_xbc(return_carry=True)`): either variant that
+// also writes the state after the last chunk, h_fin (b, h, n, p) fp32, by
+// the kHfin launches K6 runs.
 //
 // K6 (`ssd_split_fwd`) replaces `_make_fwd_kernel` (ssd_kernel.py:119) behind
 // `_fwd_call` (`pallas_call` at :189): x (b, l, h p), B and C (b, l, n) arrive
@@ -373,8 +377,9 @@ int checked_launch(Args<T> a, long long hin_n, bool states, long long g_n, cudaS
 
 template <class T>
 int xbc_fwd(const void* xbc, const void* dt, const void* S, const void* Dp, void* y, void* hin,
-            long long hin_n, int states, void* G, long long g_n, int B, int L, int H,
-            int d_inner, int N, int P, int Q, long long x_sb, long long x_sr, void* stream) {
+            long long hin_n, int states, void* h_fin, void* G, long long g_n, int B, int L,
+            int H, int d_inner, int N, int P, int Q, long long x_sb, long long x_sr,
+            void* stream) {
   if (!geometry_ok(L, N, P, Q) || d_inner != H * P || !ssd_tc::aligned4<T>(xbc, x_sb, x_sr))
     return cudaErrorInvalidValue;
   const auto* xf = static_cast<const T*>(xbc);
@@ -389,6 +394,7 @@ int xbc_fwd(const void* xbc, const void* dt, const void* S, const void* Dp, void
   a.y = static_cast<T*>(y);
   a.hin = static_cast<float*>(hin);
   a.G = static_cast<float*>(G);
+  a.h_fin = static_cast<float*>(h_fin);
   a.B = B;
   a.L = L;
   a.H = H;
@@ -443,8 +449,8 @@ int ssd_xbc_fwd(const void* xbc, const void* dt, const void* S, const void* Dp, 
                 void* hin, long long hin_n, int states, void* G, long long g_n, int B, int L,
                 int H, int d_inner, int N, int P, int Q, long long x_sb, long long x_sr,
                 void* stream) {
-  return xbc_fwd<float>(xbc, dt, S, Dp, y, hin, hin_n, states, G, g_n, B, L, H, d_inner, N, P,
-                        Q, x_sb, x_sr, stream);
+  return xbc_fwd<float>(xbc, dt, S, Dp, y, hin, hin_n, states, nullptr, G, g_n, B, L, H,
+                        d_inner, N, P, Q, x_sb, x_sr, stream);
 }
 
 // K8 at bf16: xbc and y bf16, every other argument as ssd_xbc_fwd's (dt, S, Dp
@@ -453,8 +459,31 @@ int ssd_xbc_fwd_bf16(const void* xbc, const void* dt, const void* S, const void*
                      void* hin, long long hin_n, int states, void* G, long long g_n, int B,
                      int L, int H, int d_inner, int N, int P, int Q, long long x_sb,
                      long long x_sr, void* stream) {
-  return xbc_fwd<bf16>(xbc, dt, S, Dp, y, hin, hin_n, states, G, g_n, B, L, H, d_inner, N, P,
-                       Q, x_sb, x_sr, stream);
+  return xbc_fwd<bf16>(xbc, dt, S, Dp, y, hin, hin_n, states, nullptr, G, g_n, B, L, H,
+                       d_inner, N, P, Q, x_sb, x_sr, stream);
+}
+
+// K8 with the carry: as ssd_xbc_fwd (lean, or with states), and h_fin
+// (B, H, N, P) fp32 contiguous, the state after the last chunk from a zero
+// start, written.
+int ssd_xbc_fwd_hfin(const void* xbc, const void* dt, const void* S, const void* Dp, void* y,
+                     void* hin, long long hin_n, int states, void* h_fin, void* G,
+                     long long g_n, int B, int L, int H, int d_inner, int N, int P, int Q,
+                     long long x_sb, long long x_sr, void* stream) {
+  if (h_fin == nullptr) return cudaErrorInvalidValue;
+  return xbc_fwd<float>(xbc, dt, S, Dp, y, hin, hin_n, states, h_fin, G, g_n, B, L, H,
+                        d_inner, N, P, Q, x_sb, x_sr, stream);
+}
+
+// ssd_xbc_fwd_hfin at bf16: xbc and y bf16, h_fin and the rest as
+// ssd_xbc_fwd_bf16's.
+int ssd_xbc_fwd_hfin_bf16(const void* xbc, const void* dt, const void* S, const void* Dp,
+                          void* y, void* hin, long long hin_n, int states, void* h_fin, void* G,
+                          long long g_n, int B, int L, int H, int d_inner, int N, int P, int Q,
+                          long long x_sb, long long x_sr, void* stream) {
+  if (h_fin == nullptr) return cudaErrorInvalidValue;
+  return xbc_fwd<bf16>(xbc, dt, S, Dp, y, hin, hin_n, states, h_fin, G, g_n, B, L, H,
+                       d_inner, N, P, Q, x_sb, x_sr, stream);
 }
 
 // K6. x: (B, L, H * P) with strides (x_sb, x_sr, 1); Bm, Cm: (B, L, N) with

@@ -16,10 +16,14 @@ forms, so a freshly built model has realistic scan dynamics:
   U(1, 16) per head, D = 1 per head, the gated-RMSNorm scale 1;
 - out_proj further divided by sqrt(n_layer).
 
-The stack runs in its input's dtype (float32, or bfloat16 in perf mode):
-the residual stream stays in it (``residual_in_fp32`` is False in the JAX
-package), and every LayerNorm computes in fp32 and rounds once to it, as
-flax's ``LayerNorm(dtype=...)`` does.
+The stack runs in its input's dtype, the activation dtype (float32, or
+bfloat16 in perf mode): every LayerNorm computes in fp32 and hands on that
+dtype, rounded once, as flax's ``LayerNorm(dtype=...)`` does, and the residual
+stream stays in the dtype of what is added to it (``residual_in_fp32`` is
+False in the JAX package). The two part only under tensor parallelism at
+bf16: the JAX package's tensor-parallel Mamba-1 mixer returns fp32, so from
+the first block on the residual stream is fp32 while every norm still hands
+on bf16.
 
 With a ``mesh`` and a ``tp_axis`` the mixers are tensor-parallel
 (``parallel/tensor_parallel.py``): each rank holds its shard of the mixer's
@@ -314,9 +318,10 @@ class Block(nn.Module):
         self.drop_path = DropPath(drop_path)
 
     def forward(self, hidden: torch.Tensor, residual: torch.Tensor | None = None,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, *, dtype: torch.dtype):
+        """``dtype``: the activation dtype, which the norm hands the mixer."""
         residual = hidden if residual is None else self.drop_path(hidden, generator) + residual
-        return self.mixer(self.norm(residual)), residual
+        return self.mixer(self.norm(residual).to(dtype)), residual
 
 
 class MixerModel(nn.Module):
@@ -347,8 +352,9 @@ class MixerModel(nn.Module):
     def forward(self, x: torch.Tensor, pos: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         hidden, residual = x + pos, None
+        act = hidden.dtype  # the activation dtype; the residual may turn fp32 (see above)
         for layer in self.layers:
-            hidden, residual = layer(hidden, residual, generator)
+            hidden, residual = layer(hidden, residual, generator, dtype=act)
             hidden = self.block_dropout(hidden, generator)
         residual = hidden + residual if residual is not None else hidden
-        return self.norm_f(residual)
+        return self.norm_f(residual).to(act)

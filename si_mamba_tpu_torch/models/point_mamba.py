@@ -11,11 +11,13 @@ model is replicated on every rank of the axis.
 
 ``config.dtype`` is the activation dtype: 'float32', or 'bfloat16' (perf
 mode, with ``spectral_method='subspace'`` in ``cfgs/finetune_modelnet_perf.yaml``,
-and the SSD presets that inherit it) on the Mamba-1 per-op route and the SSD
-mixer, the latter also under ``tp_axis``. Parameters, BatchNorm statistics and the scan
-state stay fp32; grouping and the graph run on fp32 points and centres; the
-eigenvectors are rounded to the activation dtype before the SAST sort, as
-the JAX model casts them; the logits come back in the activation dtype.
+and the SSD presets that inherit it) on every mixer route, under ``tp_axis``
+too. Parameters, BatchNorm statistics and the scan state stay fp32; grouping
+and the graph run on fp32 points and centres; the eigenvectors are rounded to
+the activation dtype before the SAST sort, as the JAX model casts them; every
+norm hands on the activation dtype and the logits come back in it. The
+tensor-parallel Mamba-1 mixer promotes its bf16 input to fp32 at its fp32
+weights, as the JAX package's does, so there the residual stream is fp32.
 """
 
 from __future__ import annotations
@@ -101,21 +103,6 @@ def _check_supported(cfg: PointMambaConfig, mesh: Mesh | None = None) -> None:
     finetune runner)."""
     if cfg.dtype not in DTYPES:
         raise NotImplementedError(f"dtype={cfg.dtype!r}: the port runs {sorted(DTYPES)}")
-    if cfg.dtype != "float32":
-        if cfg.scan_impl in ("fused", "fused_interpret"):
-            # the whole-mixer kernels have no bf16 variants yet
-            raise NotImplementedError(
-                f"scan_impl={cfg.scan_impl!r} at dtype={cfg.dtype!r}: the bf16 variants of its "
-                f"kernels (K10/K11) are queued (ROADMAP.md, queue 2)")
-        if cfg.tp_axis is not None and cfg.mixer == "mamba":
-            # si_mamba_tpu/parallel/tensor_parallel.py:_mixer_local casts no weight to the
-            # activation dtype (its SSD counterpart does), so there a bf16 activation meets
-            # fp32 weights and promotes to fp32: what that path computes at bf16 is a
-            # question of its own
-            raise NotImplementedError(
-                f"tp_axis with mixer='mamba' at dtype={cfg.dtype!r}: the JAX package's "
-                f"tensor-parallel Mamba-1 mixer promotes bf16 activations to fp32 at its "
-                f"uncast weights; its bf16 port waits (ROADMAP.md, queue 1, M20)")
     if cfg.add_after_layer and cfg.mixer != "mamba":
         raise NotImplementedError("mixer='ssd' with add_after_layer")
     if cfg.add_after_layer and cfg.tp_axis is not None:

@@ -29,8 +29,16 @@ Kernels:
 Both run the d / TILE blocks of a batch row as one thread-block cluster; the
 sources describe the designs and what bounds them. They are built for
 d_state 16, d_conv 4, dt_rank + 2 d_state up to :data:`MAX_XDBL` and a
-d_inner that is a multiple of 128 up to :data:`MAX_D_INNER`, in float32; on
-CUDA anything else raises.
+d_inner that is a multiple of 128 up to :data:`MAX_D_INNER`; on CUDA anything
+else raises.
+
+Each kernel takes xz (and K11 g) in float32 or bfloat16 with every weight in
+float32, as the TPU kernels take them at either activation dtype: y and dxz
+come back in xz's dtype, h_entries and the weight gradients in fp32. At bf16
+the kernels compute in fp32 from the widened loads and round y (K10) and dxz
+(K11) once as they store them; the plain versions round at the same two
+places. Each dtype is its own variant with its own launch count
+(``fused_mixer_fwd_bf16``, ...).
 
 :func:`fused_mamba_mixer` transposes conv_w and A outside the Function, as
 the JAX function does, so autograd returns their exact gradients; x_proj and
@@ -57,7 +65,9 @@ TILE = 128  # channels a block (kTile); d_inner must be a multiple
 MAX_D_INNER = 8 * TILE  # d_inner / TILE blocks form one cluster, at most the portable 8
 MAX_XDBL = 64  # columns of x_proj, dt_rank + 2 d_state, the kernels take (kXW)
 
-_NOT_BUILT = "ROADMAP queue 2, K10/K11: other sizes are built when a configuration needs them"
+_NOT_BUILT = "K10/K11: other sizes are built when a configuration needs them"
+# the activation dtypes the kernels are built for (xz, g); the weights are fp32
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -96,11 +106,12 @@ def _interior(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, n: int):
 
 def fused_mixer_fwd_ref(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d, chunk: int = 64,
                         emit_states: bool = False):
-    """Plain version of K10: (y (b, l, d), h_entries (b, ceil(l / chunk), n, d)
-    or None), the state entering every chunk. What ``_fwd_kernel`` computes,
-    with the rank-R pair in place of the folded product, in plain fp32 (or
-    fp64 for fp64 input), the scan one step at a time."""
-    acc = _acc_dtype(xz)
+    """Plain version of K10: (y (b, l, d) in xz's dtype, h_entries
+    (b, ceil(l / chunk), n, d) or None), the state entering every chunk. What
+    ``_fwd_kernel`` computes, with the rank-R pair in place of the folded
+    product, in plain fp32 (or fp64 for fp64 input), the scan one step at a
+    time; y is rounded to xz's dtype once, at the end."""
+    acc, out_dtype = _acc_dtype(xz), xz.dtype
     xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d = (
         t.to(acc) for t in (xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d))
     b, l, _ = xz.shape
@@ -116,7 +127,7 @@ def fused_mixer_fwd_ref(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d, chunk:
         h = torch.exp(dt_t * A) * h + (dt_t * xi[:, t, :, None]) * Bm[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, Cm[:, t]))
     y = torch.stack(ys, dim=1) if ys else xi.new_zeros(xi.shape)
-    y = (y + d * xi) * F.silu(z)
+    y = ((y + d * xi) * F.silu(z)).to(out_dtype)
     if not emit_states:
         return y, None
     h_entries = (torch.stack(entries, dim=1) if entries
@@ -137,8 +148,10 @@ def fused_mixer_bwd_ref(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d, h_entr
     conv backward and the weight gradients d x_proj = xi^T [d_dtlow | dB |
     dC] and d dt_proj = dt_low^T ddt_raw. Returns (dxz, dconv_wt, dconv_b,
     dx_proj, ddt_proj, ddtb, dat, dd), the gradients of the inputs in their
-    order."""
-    acc = _acc_dtype(xz)
+    order: dxz in xz's dtype (computed in fp32 and rounded once, as the JAX
+    package casts the kernel's fp32 dxz), the others in the accumulation
+    dtype."""
+    acc, out_dtype = _acc_dtype(xz), xz.dtype
     xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d, g = (
         t.to(acc) for t in (xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d, g))
     b, l, _ = xz.shape
@@ -189,15 +202,18 @@ def fused_mixer_bwd_ref(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d, h_entr
     dconv_wt = torch.stack([torch.sum(xp[:, i:i + l] * dxl, dim=(0, 1)) for i in range(W)])
     dx_proj = torch.einsum("bti,btj->ij", xi, dxd)
     ddt_proj = torch.einsum("btk,btj->kj", dt_low, ddt)
-    return (torch.cat([dx, dz], dim=-1), dconv_wt, dxl.sum(dim=(0, 1)), dx_proj, ddt_proj,
+    return (torch.cat([dx, dz], dim=-1).to(out_dtype), dconv_wt, dxl.sum(dim=(0, 1)), dx_proj,
+            ddt_proj,
             ddt.sum(dim=(0, 1)), dA.t(), torch.sum(gy * xi, dim=(0, 1)))
 
 
 def fwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a ``fused_mixer_fwd`` library."""
-    lib.fused_mixer_fwd.argtypes = [ctypes.POINTER(ctypes.c_void_p)] + \
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    lib.fused_mixer_fwd.restype = ctypes.c_int
+    """Declare the C interface of a ``fused_mixer_fwd`` library, the entry
+    point and its ``_bf16`` twin."""
+    for fn in (lib.fused_mixer_fwd, lib.fused_mixer_fwd_bf16):
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] + [ctypes.c_void_p] * 4 + \
+            [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.fused_mixer_fwd_segments.argtypes = [ctypes.c_int] * 3
     lib.fused_mixer_fwd_segments.restype = ctypes.c_int
     lib.fused_mixer_chunk_len.restype = ctypes.c_int
@@ -209,10 +225,12 @@ def fwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def bwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C interface of a ``fused_mixer_bwd`` library."""
-    lib.fused_mixer_bwd.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 2 + \
-        [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    lib.fused_mixer_bwd.restype = ctypes.c_int
+    """Declare the C interface of a ``fused_mixer_bwd`` library, the entry
+    point and its ``_bf16`` twin."""
+    for fn in (lib.fused_mixer_bwd, lib.fused_mixer_bwd_bf16):
+        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p)] * 2 + [ctypes.c_int] * 6 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.fused_mixer_bwd_max_active_clusters.argtypes = [ctypes.c_int]
     lib.fused_mixer_bwd_max_active_clusters.restype = ctypes.c_int
     lib.fused_mixer_bwd_chunk_len.restype = ctypes.c_int
@@ -234,6 +252,7 @@ def _bwd_library() -> ctypes.CDLL:
 
 
 _NAMES = ("xz", "conv_wt", "conv_b", "x_proj", "dt_proj", "dtb", "at", "d")
+_ACTIVATIONS = ("xz", "g")  # in xz's dtype; every other input is fp32
 
 
 def _check_inputs(args, extra: dict | None = None) -> tuple[int, int, int, int]:
@@ -243,9 +262,13 @@ def _check_inputs(args, extra: dict | None = None) -> tuple[int, int, int, int]:
     xz, conv_wt, dt_proj, at = named["xz"], named["conv_wt"], named["dt_proj"], named["at"]
     b, l, two_d = xz.shape
     di, n, W, r = two_d // 2, at.shape[0], conv_wt.shape[0], dt_proj.shape[0]
+    if xz.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the fused-mixer kernels take float32 or bfloat16 xz; xz is {xz.dtype}")
     for name, t in named.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"the fused-mixer kernels take float32 inputs; {name} is {t.dtype}")
+        want = xz.dtype if name in _ACTIVATIONS else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"the fused-mixer kernels take {name} in {want} with {xz.dtype} "
+                            f"xz; {name} is {t.dtype}")
         if not t.is_cuda or t.device != xz.device:
             raise ValueError(f"{name} must lie on xz's CUDA device")
         if not t.is_contiguous():
@@ -280,7 +303,7 @@ def _launch_fwd(args, states: bool, segments: int | None = None):
     b, l, di, r = _check_inputs(args)
     xz, n = args[0], args[6].shape[0]
     f32 = dict(dtype=torch.float32, device=xz.device)
-    y = torch.empty((b, l, di), **f32)
+    y = torch.empty((b, l, di), dtype=xz.dtype, device=xz.device)
     h_entries = torch.empty((b, -(-l // CHUNK), n, di), **f32) if states else None
     if y.numel() == 0:
         return y, h_entries
@@ -290,18 +313,18 @@ def _launch_fwd(args, states: bool, segments: int | None = None):
     h_end = torch.empty((b, segments - 1, n, di), **f32)
     dsum = torch.empty((b, segments - 1, di), **f32)
     stream = torch.cuda.current_stream(xz.device).cuda_stream
+    bf16 = xz.dtype == torch.bfloat16
+    entry = lib.fused_mixer_fwd_bf16 if bf16 else lib.fused_mixer_fwd
     with torch.cuda.device(xz.device):
-        err = lib.fused_mixer_fwd(_pointers(args), y.data_ptr(),
-                                  h_entries.data_ptr() if states else None,
-                                  h_end.data_ptr(), dsum.data_ptr(), b, l, di, n, r, CONV,
-                                  segments, stream)
+        err = entry(_pointers(args), y.data_ptr(), h_entries.data_ptr() if states else None,
+                    h_end.data_ptr(), dsum.data_ptr(), b, l, di, n, r, CONV, segments, stream)
     if err != 0:
         msg = lib.fused_mixer_fwd_error_string(err).decode()
         raise RuntimeError(f"fused-mixer forward kernel launch failed: {msg} ({err})")
     if states:
-        fused_mixer_fwd_states.launches += 1
+        (fused_mixer_fwd_states_bf16 if bf16 else fused_mixer_fwd_states).launches += 1
     else:
-        fused_mixer_fwd.launches += 1
+        (fused_mixer_fwd_bf16 if bf16 else fused_mixer_fwd).launches += 1
     return y, h_entries
 
 
@@ -309,7 +332,7 @@ def _launch_bwd(args, h_entries, g):
     b, l, di, r = _check_inputs(args, dict(h_entries=h_entries, g=g))
     xz, n = args[0], args[6].shape[0]
     f32 = dict(dtype=torch.float32, device=xz.device)
-    dxz = torch.empty((b, l, 2 * di), **f32)
+    dxz = torch.empty((b, l, 2 * di), dtype=xz.dtype, device=xz.device)
     # per-batch-row partials: dx_proj, ddt_proj, dconv_wt, dconv_b, dat, dd, ddtb
     parts = [torch.empty(shape, **f32) for shape in (
         (b, di, r + 2 * n), (b, r, di), (b, CONV, di), (b, di), (b, n, di), (b, di), (b, di))]
@@ -317,22 +340,24 @@ def _launch_bwd(args, h_entries, g):
         return (dxz, *(torch.zeros(t.shape[1:], **f32) for t in parts))
     lib = _bwd_library()
     stream = torch.cuda.current_stream(xz.device).cuda_stream
+    bf16 = xz.dtype == torch.bfloat16
+    entry = lib.fused_mixer_bwd_bf16 if bf16 else lib.fused_mixer_bwd
     with torch.cuda.device(xz.device):
-        err = lib.fused_mixer_bwd(_pointers((*args, h_entries, g)), _pointers((dxz, *parts)),
-                                  b, l, di, n, r, CONV, stream)
+        err = entry(_pointers((*args, h_entries, g)), _pointers((dxz, *parts)), b, l, di, n, r,
+                    CONV, stream)
     if err != 0:
         msg = lib.fused_mixer_bwd_error_string(err).decode()
         raise RuntimeError(f"fused-mixer backward kernel launch failed: {msg} ({err})")
-    fused_mixer_bwd.launches += 1
+    (fused_mixer_bwd_bf16 if bf16 else fused_mixer_bwd).launches += 1
     dx_proj, ddt_proj, dconv_wt, dconv_b, dat, dd, ddtb = (t.sum(dim=0) for t in parts)
     return dxz, dconv_wt, dconv_b, dx_proj, ddt_proj, ddtb, dat, dd
 
 
 def fused_mixer_fwd(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d) -> torch.Tensor:
-    """Lean forward (K10 without states): y (b, l, d). Inputs contiguous, in
-    the layouts of the module docstring. The kernel on a CUDA tensor (or an
-    error), the y of :func:`fused_mixer_fwd_ref` on the CPU.
-    ``fused_mixer_fwd.launches`` counts kernel launches."""
+    """Lean forward (K10 without states): y (b, l, d) in xz's dtype. Inputs
+    contiguous, in the layouts of the module docstring. The kernel on a CUDA
+    tensor (or an error), the y of :func:`fused_mixer_fwd_ref` on the CPU.
+    ``fused_mixer_fwd.launches`` counts the fp32 kernel's launches."""
     args = (xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d)
     if xz.is_cuda:
         return _launch_fwd(args, states=False)[0]
@@ -359,6 +384,32 @@ def fused_mixer_bwd(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d, h_entries,
     if xz.is_cuda:
         return _launch_bwd(args, h_entries, g)
     return fused_mixer_bwd_ref(*args, h_entries, g, chunk=CHUNK)
+
+
+def fused_mixer_fwd_bf16(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d) -> torch.Tensor:
+    """:func:`fused_mixer_fwd` for bf16 xz, which it requires.
+    ``fused_mixer_fwd_bf16.launches`` counts the bf16 lean K10's launches,
+    whichever entry point reached it; so does each ``_bf16`` wrapper below
+    for its variant."""
+    _require_bf16(xz)
+    return fused_mixer_fwd(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d)
+
+
+def fused_mixer_fwd_states_bf16(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d):
+    """:func:`fused_mixer_fwd_states` for bf16 xz."""
+    _require_bf16(xz)
+    return fused_mixer_fwd_states(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d)
+
+
+def fused_mixer_bwd_bf16(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d, h_entries, g):
+    """:func:`fused_mixer_bwd` for bf16 xz and g."""
+    _require_bf16(xz)
+    return fused_mixer_bwd(xz, conv_wt, conv_b, x_proj, dt_proj, dtb, at, d, h_entries, g)
+
+
+def _require_bf16(xz: torch.Tensor) -> None:
+    if xz.dtype != torch.bfloat16:
+        raise TypeError(f"the _bf16 entry points take bfloat16 xz, got {xz.dtype}")
 
 
 class FusedMixerFn(torch.autograd.Function):
@@ -410,8 +461,9 @@ def kernel_inputs(xz, conv_w, conv_b, x_proj_w, dt_proj_w, dt_proj_b, A, D, *,
 def fused_mamba_mixer(xz, conv_w, conv_b, x_proj_w, dt_proj_w, dt_proj_b, A, D, *,
                       dt_rank: int, d_state: int, plain: bool = False) -> torch.Tensor:
     """The counterpart of the JAX package's ``fused_mamba_mixer``: the mixer
-    interior, xz (b, l, 2 d_inner) -> y (b, l, d_inner), parameters in the
-    layouts of :func:`kernel_inputs`.
+    interior, xz (b, l, 2 d_inner) -> y (b, l, d_inner) in xz's dtype,
+    parameters in the layouts of :func:`kernel_inputs` (fp32 into the
+    kernels whatever xz's dtype, as the JAX function casts them).
 
     The transposes are PyTorch operations outside the autograd Function, so
     their gradients come from autograd. With a gradient wanted this is
@@ -427,6 +479,6 @@ def fused_mamba_mixer(xz, conv_w, conv_b, x_proj_w, dt_proj_w, dt_proj_b, A, D, 
     return fused_mixer_fwd(*args)
 
 
-fused_mixer_fwd.launches = 0
-fused_mixer_fwd_states.launches = 0
-fused_mixer_bwd.launches = 0
+for _fn in (fused_mixer_fwd, fused_mixer_fwd_states, fused_mixer_bwd, fused_mixer_fwd_bf16,
+            fused_mixer_fwd_states_bf16, fused_mixer_bwd_bf16):
+    _fn.launches = 0

@@ -17,7 +17,9 @@ entry points each and a ``_bf16`` twin of each:
   kernel ``_make_fwd_kernel_xbc`` behind ``_fwd_call_xbc``
   (si_mamba_tpu/ops/pallas/ssd_kernel.py), in two variants: the lean forward
   (``emit_states=False``, serving) and the training forward, which also
-  writes the state entering every chunk, h_in (b, nc, h, n, p) fp32; and K6
+  writes the state entering every chunk, h_in (b, nc, h, n, p) fp32, each
+  also with the state after the last chunk, h_fin (b, h, n, p) fp32
+  (``ssd_xbc_fwd_hfin``, ``_fwd_call_xbc(emit_hfin=True)``); and K6
   (``ssd_split_fwd``), which replaces ``_make_fwd_kernel`` behind
   ``_fwd_call``: lean, with states, with h_fin, or with both. Their
   scratch: G = C B^T (b, nc, q, q), and for the lean forward an h_in of the
@@ -25,7 +27,9 @@ entry points each and a ``_bf16`` twin of each:
 - ``csrc/ssd_xbc_bwd.cu``: K9 (``ssd_xbc_bwd``), which replaces
   ``_make_bwd_kernel_xbc`` behind ``_bwd_call_xbc``: it writes every column
   of dxbc, ddt, dS and per-(chunk, strip) partials of dD that the wrapper's
-  ``torch.sum`` finishes; and K7 (``ssd_split_bwd``), which replaces
+  ``torch.sum`` finishes, its dh carry starting at 0 or at a given dh_fin
+  (``ssd_xbc_bwd_seeded``, ``_bwd_call_xbc(dh_fin=...)``); and K7
+  (``ssd_split_bwd``), which replaces
   ``_make_bwd_kernel`` behind ``_bwd_call``: dx, ddt, dS and the head sums of
   dB and dC into one (b, l, 2n) buffer, its dh carry starting at 0 or at a
   given dh_fin. Their scratch is laid out by :func:`bwd_scratch_floats`.
@@ -47,7 +51,8 @@ variant with its own launch count: ``ssd_xbc_fwd`` / ``ssd_xbc_fwd_bf16``,
 ``ssd_split_bwd_seeded`` / ``ssd_split_bwd_seeded_bf16``, and so on.
 
 :func:`ssd_chunked_xbc` runs the lean K8 when no gradient is wanted and
-:class:`SSDChunkedXbcFn` (K8 with states, K9) when one is;
+:class:`SSDChunkedXbcFn` (K8 with states, K9) when one is, or with
+``return_carry`` K8 with h_fin and :class:`SSDChunkedXbcCarryFn`;
 :func:`ssd_chunked_split` likewise runs K6 and K7 through
 :class:`SSDChunkedSplitFn`, or with ``return_carry`` through
 :class:`SSDChunkedSplitCarryFn`. On a CPU tensor each is its plain version.
@@ -136,9 +141,11 @@ def _split_xbc(xbc, d_inner: int, h: int, chunk: int):
     return x, Bc, Cc
 
 
-def ssd_xbc_fwd_ref(xbc, dt, S, D, d_inner: int, chunk: int, emit_states: bool = False):
+def ssd_xbc_fwd_ref(xbc, dt, S, D, d_inner: int, chunk: int, emit_states: bool = False,
+                    emit_hfin: bool = False):
     """Plain version of K8: (y (b, l, d) in xbc's dtype, h_in (b, nc, h, n, p)
-    fp32 or None).
+    fp32 or None), and with ``emit_hfin`` also h_fin (b, h, n, p) fp32, the
+    state after the last chunk.
 
     What ``_make_fwd_kernel_xbc`` computes: :func:`ssd_chunks_ref` with the
     head-shared G = C B^T, plus the D skip; at bf16 with its roundings
@@ -147,10 +154,11 @@ def ssd_xbc_fwd_ref(xbc, dt, S, D, d_inner: int, chunk: int, emit_states: bool =
     x, Bc, Cc = _split_xbc(xbc, d_inner, dt.shape[1], chunk)
     dt, S, D = dt.to(x.dtype), S.to(x.dtype), D.to(x.dtype)
     rnd = _rounder(xbc.dtype)
-    y, h_in, _ = ssd_chunks_ref(rnd(x * dt[..., None]), S, Bc, Cc, mm=xbc.dtype)
+    y, h_in, h_fin = ssd_chunks_ref(rnd(x * dt[..., None]), S, Bc, Cc, mm=xbc.dtype)
     y = y + D[None, :, None, None, None] * x
     y = y.permute(0, 2, 3, 1, 4).reshape(b, l, d_inner).to(xbc.dtype)
-    return y, (h_in.transpose(1, 2).contiguous() if emit_states else None)
+    out = (y, h_in.transpose(1, 2).contiguous() if emit_states else None)
+    return (*out, h_fin) if emit_hfin else out
 
 
 def _bwd_chunks(x, dt, S, Bc, Cc, hin_all, dyh, dh, D=None, mm=None):
@@ -223,19 +231,21 @@ def _bwd_chunks(x, dt, S, Bc, Cc, hin_all, dyh, dh, D=None, mm=None):
     return dx, ddt, dS, dB, dC, dD_part
 
 
-def ssd_xbc_bwd_ref(xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int):
+def ssd_xbc_bwd_ref(xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int, dh_fin=None):
     """Plain version of K9: (dxbc (b, l, d + 2n) in xbc's dtype, ddt, dS
-    (b, h, nc, q), dD (h,)), by :func:`_bwd_chunks` with the D skip and a zero
-    dh for the last chunk, rounding as ``_bwd_head`` at xbc's dtype."""
+    (b, h, nc, q), dD (h,)), by :func:`_bwd_chunks` with the D skip, rounding
+    as ``_bwd_head`` at xbc's dtype; the dh of the last chunk is ``dh_fin``
+    (b, h, n, p), the cotangent of the forward's h_fin, or 0."""
     b, l, total = xbc.shape
     h = dt.shape[1]
     x, Bc, Cc = _split_xbc(xbc, d_inner, h, chunk)
     acc = x.dtype
     nc, q, n, p = l // chunk, chunk, Bc.shape[-1], x.shape[-1]
     dyh = dy.to(acc).reshape(b, nc, q, h, p).permute(0, 3, 1, 2, 4)
+    dh = x.new_zeros((b, h, n, p)) if dh_fin is None else dh_fin.to(acc)
     dx, ddt, dS, dB, dC, dD_part = _bwd_chunks(
-        x, dt.to(acc), S.to(acc), Bc, Cc, h_in.to(acc).transpose(1, 2), dyh,
-        x.new_zeros((b, h, n, p)), D.to(acc), mm=xbc.dtype)
+        x, dt.to(acc), S.to(acc), Bc, Cc, h_in.to(acc).transpose(1, 2), dyh, dh, D.to(acc),
+        mm=xbc.dtype)
     dxbc = torch.cat([dx.permute(0, 2, 3, 1, 4).reshape(b, l, d_inner),
                       dB.reshape(b, l, n), dC.reshape(b, l, n)], dim=-1)
     return dxbc.to(xbc.dtype), ddt, dS, dD_part.sum(dim=(0, 1))
@@ -299,14 +309,19 @@ _I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 # The C entry points of the ``ssd_xbc_fwd`` library by name, each with its
 # argument list, which its ``_bf16`` twin shares: the pointers, h_in (or the
 # lean forward's scratch for the states entering chunks 1 .. nc - 1) and G's
-# scratch each with its float count, the states flag (and for K6 h_fin, or
-# null), the geometry, the operands' strides, the stream.
+# scratch each with its float count, the states flag (and for K6 and K8 with
+# the carry h_fin; K6 takes null for none), the geometry, the operands'
+# strides, the stream.
 FWD_ENTRIES = {"ssd_xbc_fwd": [_P] * 6 + [_LL, _I, _P, _LL] + [_I] * 7 + [_LL] * 2 + [_P],
+               "ssd_xbc_fwd_hfin": [_P] * 6 + [_LL, _I, _P, _P, _LL] + [_I] * 7 + [_LL] * 2
+               + [_P],
                "ssd_split_fwd": [_P] * 7 + [_LL, _I, _P, _P, _LL] + [_I] * 6 + [_LL] * 6 + [_P]}
-# those of the ``ssd_xbc_bwd`` library: the pointers, (K9) dD's partials and
-# the scratch each with its float count, the geometry, the operands' strides,
-# the stream.
+# those of the ``ssd_xbc_bwd`` library: the pointers (the seeded K9's with
+# dh_fin after dy; K7 takes null for none), (K9) dD's partials and the
+# scratch each with its float count, the geometry, the operands' strides, the
+# stream.
 BWD_ENTRIES = {"ssd_xbc_bwd": [_P] * 10 + [_LL, _P, _LL] + [_I] * 7 + [_LL] * 4 + [_P],
+               "ssd_xbc_bwd_seeded": [_P] * 11 + [_LL, _P, _LL] + [_I] * 7 + [_LL] * 4 + [_P],
                "ssd_split_bwd": [_P] * 13 + [_LL] + [_I] * 6 + [_LL] * 8 + [_P]}
 
 
@@ -400,7 +415,8 @@ def _check_inputs(xbc, dt, S, D, d_inner: int, chunk: int, extra: dict | None = 
     _check_geometry(n, p, l, chunk)
     nc = l // chunk
     _check_layout(named, dict(dt=(b, h, nc, chunk), S=(b, h, nc, chunk), D=(h,),
-                              h_in=(b, nc, h, n, p), dy=(b, l, d_inner)), ("xbc", "dy"))
+                              h_in=(b, nc, h, n, p), dy=(b, l, d_inner),
+                              dh_fin=(b, h, n, p)), ("xbc", "dy"))
     return b, l, h, n, p
 
 
@@ -440,21 +456,31 @@ def _raise_on(error_string, err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {error_string(err).decode()} ({err})")
 
 
-def run_fwd(lib, xbc, dt, S, D, d_inner: int, chunk: int, states: bool, stream):
+def run_fwd(lib, xbc, dt, S, D, d_inner: int, chunk: int, states: bool, stream,
+            hfin: bool = False):
     """Allocate K8's outputs and scratch beside xbc and launch it through
     ``lib`` (a library with :func:`fwd_interface`) on ``stream``: (y,
-    h_in or None). Checks nothing; :func:`_launch_fwd` checks first."""
+    h_in or None), and with ``hfin`` (the ``ssd_xbc_fwd_hfin`` entry point)
+    also h_fin (b, h, n, p). Checks nothing; :func:`_launch_fwd` checks
+    first."""
     b, l, total = xbc.shape
     h, n = dt.shape[1], (total - d_inner) // 2
-    y, hin, G = _fwd_buffers(b, l, h, n, d_inner // h, chunk, states, xbc.dtype, xbc.device)
-    entry = lib.ssd_xbc_fwd_bf16 if xbc.dtype == torch.bfloat16 else lib.ssd_xbc_fwd
+    p = d_inner // h
+    y, hin, G = _fwd_buffers(b, l, h, n, p, chunk, states, xbc.dtype, xbc.device)
+    name = "ssd_xbc_fwd_hfin" if hfin else "ssd_xbc_fwd"
+    entry = getattr(lib, name + ("_bf16" if xbc.dtype == torch.bfloat16 else ""))
+    h_fin = torch.empty((b, h, n, p), dtype=torch.float32, device=xbc.device) if hfin \
+        else None
     if y.numel():
         _raise_on(lib.ssd_xbc_fwd_error_string, entry(
             xbc.data_ptr(), dt.data_ptr(), S.data_ptr(), D.data_ptr(), y.data_ptr(),
-            hin.data_ptr(), hin.numel(), int(states), G.data_ptr(), G.numel(), b, l, h,
-            d_inner, n, d_inner // h, chunk, xbc.stride(0), xbc.stride(1), stream),
-            "SSD forward")
-    return y, (hin if states else None)
+            hin.data_ptr(), hin.numel(), int(states),
+            *((h_fin.data_ptr(),) if hfin else ()), G.data_ptr(), G.numel(), b, l, h,
+            d_inner, n, p, chunk, xbc.stride(0), xbc.stride(1), stream), "SSD forward")
+    elif hfin:
+        h_fin.zero_()
+    out = (y, hin if states else None)
+    return (*out, h_fin) if hfin else out
 
 
 def run_split_fwd(lib, x, dt, S, Bm, Cm, chunk: int, states: bool, hfin: bool, stream):
@@ -478,16 +504,19 @@ def run_split_fwd(lib, x, dt, S, Bm, Cm, chunk: int, states: bool, hfin: bool, s
     return y, (hin if states else None), h_fin
 
 
-def run_bwd(lib, xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int, stream):
+def run_bwd(lib, xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int, stream, dh_fin=None):
     """Allocate K9's outputs and scratch beside xbc and launch it through
-    ``lib`` (a library with :func:`bwd_interface`) on ``stream``: (dxbc, ddt,
-    dS, dD). Checks nothing; :func:`_launch_bwd` checks first."""
+    ``lib`` (a library with :func:`bwd_interface`) on ``stream``, its carry
+    seeded with ``dh_fin`` (the ``ssd_xbc_bwd_seeded`` entry point) unless
+    that is None: (dxbc, ddt, dS, dD). Checks nothing; :func:`_launch_bwd`
+    checks first."""
     b, l, total = xbc.shape
     h, nc = dt.shape[1], l // chunk
     n = (total - d_inner) // 2
     f32 = dict(dtype=torch.float32, device=xbc.device)
     dxbc = torch.empty((b, l, total), dtype=xbc.dtype, device=xbc.device)
-    entry = lib.ssd_xbc_bwd_bf16 if xbc.dtype == torch.bfloat16 else lib.ssd_xbc_bwd
+    name = "ssd_xbc_bwd" if dh_fin is None else "ssd_xbc_bwd_seeded"
+    entry = getattr(lib, name + ("_bf16" if xbc.dtype == torch.bfloat16 else ""))
     ddt, dS = torch.empty((b, h, nc, chunk), **f32), torch.empty((b, h, nc, chunk), **f32)
     if dxbc.numel() == 0:
         return dxbc.zero_(), ddt, dS, torch.zeros_like(D)
@@ -495,7 +524,8 @@ def run_bwd(lib, xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int, stream):
     scratch = torch.empty(bwd_scratch_floats(b, l, h, chunk), **f32)
     _raise_on(lib.ssd_xbc_bwd_error_string, entry(
         xbc.data_ptr(), dt.data_ptr(), S.data_ptr(), D.data_ptr(), h_in.data_ptr(),
-        dy.data_ptr(), dxbc.data_ptr(), ddt.data_ptr(), dS.data_ptr(), dD_part.data_ptr(),
+        dy.data_ptr(), *(() if dh_fin is None else (dh_fin.data_ptr(),)), dxbc.data_ptr(),
+        ddt.data_ptr(), dS.data_ptr(), dD_part.data_ptr(),
         dD_part.numel(), scratch.data_ptr(), scratch.numel(), b, l, h, d_inner, n,
         d_inner // h, chunk, xbc.stride(0), xbc.stride(1), dy.stride(0), dy.stride(1), stream),
         "SSD backward")
@@ -529,27 +559,28 @@ def run_split_bwd(lib, x, dt, S, Bm, Cm, h_in, dy, chunk: int, dh_fin, stream):
     return dx, ddt, dS, dbc[..., :n], dbc[..., n:]
 
 
-def _launch_fwd(xbc, dt, S, D, d_inner: int, chunk: int, states: bool):
+def _launch_fwd(xbc, dt, S, D, d_inner: int, chunk: int, states: bool, hfin: bool = False):
     _check_inputs(xbc, dt, S, D, d_inner, chunk)
     with torch.cuda.device(xbc.device):
         out = run_fwd(_fwd_library(), xbc, dt, S, D, d_inner, chunk, states,
-                      torch.cuda.current_stream(xbc.device).cuda_stream)
+                      torch.cuda.current_stream(xbc.device).cuda_stream, hfin=hfin)
     if out[0].numel():
-        bf16 = xbc.dtype == torch.bfloat16
-        if states:
-            (ssd_xbc_fwd_states_bf16 if bf16 else ssd_xbc_fwd_states).launches += 1
-        else:
-            (ssd_xbc_fwd_bf16 if bf16 else ssd_xbc_fwd).launches += 1
+        _XBC_FWD[(states, hfin, xbc.dtype == torch.bfloat16)].launches += 1
     return out
 
 
-def _launch_bwd(xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int):
-    _check_inputs(xbc, dt, S, D, d_inner, chunk, dict(h_in=h_in, dy=dy))
+def _launch_bwd(xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int, dh_fin=None):
+    extra = dict(h_in=h_in, dy=dy) | ({} if dh_fin is None else dict(dh_fin=dh_fin))
+    _check_inputs(xbc, dt, S, D, d_inner, chunk, extra)
     with torch.cuda.device(xbc.device):
         out = run_bwd(_bwd_library(), xbc, dt, S, D, h_in, dy, d_inner, chunk,
-                      torch.cuda.current_stream(xbc.device).cuda_stream)
+                      torch.cuda.current_stream(xbc.device).cuda_stream, dh_fin=dh_fin)
     if out[0].numel():
-        (ssd_xbc_bwd_bf16 if xbc.dtype == torch.bfloat16 else ssd_xbc_bwd).launches += 1
+        bf16 = xbc.dtype == torch.bfloat16
+        if dh_fin is None:
+            (ssd_xbc_bwd_bf16 if bf16 else ssd_xbc_bwd).launches += 1
+        else:
+            (ssd_xbc_bwd_seeded_bf16 if bf16 else ssd_xbc_bwd_seeded).launches += 1
     return out
 
 
@@ -584,6 +615,34 @@ def ssd_xbc_bwd(xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int):
     return ssd_xbc_bwd_ref(xbc, dt, S, D, h_in, dy, d_inner, chunk)
 
 
+def ssd_xbc_fwd_hfin(xbc, dt, S, D, d_inner: int, chunk: int):
+    """Lean forward with the carry (K8 with h_fin): (y, h_fin (b, h, n, p)
+    fp32), the state after the last chunk from a zero start. The kernel on a
+    CUDA tensor, :func:`ssd_xbc_fwd_ref` on the CPU."""
+    if xbc.is_cuda:
+        y, _, h_fin = _launch_fwd(xbc, dt, S, D, d_inner, chunk, states=False, hfin=True)
+        return y, h_fin
+    y, _, h_fin = ssd_xbc_fwd_ref(xbc, dt, S, D, d_inner, chunk, emit_hfin=True)
+    return y, h_fin
+
+
+def ssd_xbc_fwd_states_hfin(xbc, dt, S, D, d_inner: int, chunk: int):
+    """Training forward with the carry (K8 with states and h_fin): (y, h_in,
+    h_fin)."""
+    if xbc.is_cuda:
+        return _launch_fwd(xbc, dt, S, D, d_inner, chunk, states=True, hfin=True)
+    return ssd_xbc_fwd_ref(xbc, dt, S, D, d_inner, chunk, emit_states=True, emit_hfin=True)
+
+
+def ssd_xbc_bwd_seeded(xbc, dt, S, D, h_in, dy, dh_fin, d_inner: int, chunk: int):
+    """Seeded backward (K9 with dh_fin): as :func:`ssd_xbc_bwd`, the carry
+    starting at ``dh_fin`` (b, h, n, p) fp32 contiguous, the cotangent of the
+    forward's h_fin."""
+    if xbc.is_cuda:
+        return _launch_bwd(xbc, dt, S, D, h_in, dy, d_inner, chunk, dh_fin=dh_fin)
+    return ssd_xbc_bwd_ref(xbc, dt, S, D, h_in, dy, d_inner, chunk, dh_fin=dh_fin)
+
+
 class SSDChunkedXbcFn(torch.autograd.Function):
     """The boundary-fused core with its backward: K8 with states forward and
     K9 backward on a CUDA tensor, the plain versions on the CPU. Inputs
@@ -605,26 +664,60 @@ class SSDChunkedXbcFn(torch.autograd.Function):
         return dxbc, ddt, dS, dD, None, None
 
 
-def ssd_chunked_xbc(xbc, dt, A, D, *, d_inner: int, chunk: int = 128) -> torch.Tensor:
+class SSDChunkedXbcCarryFn(torch.autograd.Function):
+    """The boundary-fused core that also returns the state after the last
+    chunk: (y, h_fin) by K8 with states and h_fin; the backward hands h_fin's
+    cotangent to K9 as the seed of its carry. The plain versions on the CPU.
+    Inputs as :class:`SSDChunkedXbcFn`."""
+
+    @staticmethod
+    def forward(ctx, xbc, dt, S, D, d_inner, chunk):
+        y, h_in, h_fin = ssd_xbc_fwd_states_hfin(xbc, dt, S, D, d_inner, chunk)
+        ctx.save_for_backward(xbc, dt, S, D, h_in)
+        ctx.d_inner, ctx.chunk = d_inner, chunk
+        return y, h_fin
+
+    @staticmethod
+    def backward(ctx, dy, dh_fin):
+        if dy.stride(-1) != 1:
+            dy = dy.contiguous()
+        xbc, dt, S, D, h_in = ctx.saved_tensors
+        dxbc, ddt, dS, dD = ssd_xbc_bwd_seeded(xbc, dt, S, D, h_in, dy, dh_fin.contiguous(),
+                                               ctx.d_inner, ctx.chunk)
+        return dxbc, ddt, dS, dD, None, None
+
+
+def ssd_chunked_xbc(xbc, dt, A, D, *, d_inner: int, chunk: int = 128,
+                    return_carry: bool = False):
     """The counterpart of ``ssd_chunked_pallas_xbc``: the SSD core with the D
     skip on the conv's un-split output. xbc (b, l, d + 2n) with columns
     [x | B | C]; dt (b, l, h) post-softplus; A (h,) negative; D (h,).
-    Returns y (b, l, d). L must be a multiple of ``chunk`` (the callers pad).
+    Returns y (b, l, d), or with ``return_carry`` (y, total_decay (b, h),
+    h_fin (b, h, n, p) fp32): the slice's total decay exp(sum of each chunk's
+    last S) and the state after the last chunk from a zero start, the
+    contract of ``ssd_chunked_pallas_xbc(return_carry=True)``. L must be a
+    multiple of ``chunk`` (the callers pad).
 
-    S = cumsum(dt A) per chunk is computed here, outside the autograd
-    Function, so autograd chains dS into ddt and dA. With a gradient wanted
-    this is :class:`SSDChunkedXbcFn`, else the lean forward (K8 without
-    states on a CUDA tensor)."""
+    S = cumsum(dt A) per chunk and the total decay are computed here, outside
+    the autograd Functions, so autograd chains dS into ddt and dA. With a
+    gradient wanted this is :class:`SSDChunkedXbcFn` (with ``return_carry``
+    :class:`SSDChunkedXbcCarryFn`), else the lean forward (K8 without states,
+    with h_fin for ``return_carry``, on a CUDA tensor)."""
     b, l, _ = xbc.shape
     h = dt.shape[-1]
     if l % chunk:
         raise ValueError(f"L={l} is not a multiple of chunk={chunk}; pad first")
     acc = _acc_dtype(xbc)
-    dth = dt.to(acc).transpose(1, 2).reshape(b, h, l // chunk, chunk)
+    dth = dt.to(acc).transpose(1, 2).reshape(b, h, l // chunk, chunk).contiguous()
     S = torch.cumsum(dth * A.to(acc)[None, :, None, None], dim=-1)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (xbc, dt, A, D)):
-        return SSDChunkedXbcFn.apply(xbc, dth.contiguous(), S, D, d_inner, chunk)
-    return ssd_xbc_fwd(xbc, dth.contiguous(), S, D, d_inner, chunk)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (xbc, dt, A, D))
+    if return_carry:
+        y, h_fin = (SSDChunkedXbcCarryFn.apply(xbc, dth, S, D, d_inner, chunk) if grad
+                    else ssd_xbc_fwd_hfin(xbc, dth, S, D, d_inner, chunk))
+        return y, torch.exp(S[..., -1].sum(-1)), h_fin
+    if grad:
+        return SSDChunkedXbcFn.apply(xbc, dth, S, D, d_inner, chunk)
+    return ssd_xbc_fwd(xbc, dth, S, D, d_inner, chunk)
 
 
 def _launch_split_fwd(x, dt, S, Bm, Cm, chunk: int, states: bool, hfin: bool):
@@ -733,6 +826,24 @@ def ssd_xbc_bwd_bf16(xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int):
     return ssd_xbc_bwd(xbc, dt, S, D, h_in, dy, d_inner, chunk)
 
 
+def ssd_xbc_fwd_hfin_bf16(xbc, dt, S, D, d_inner: int, chunk: int):
+    """:func:`ssd_xbc_fwd_hfin` for bf16 xbc."""
+    _require_bf16(xbc)
+    return ssd_xbc_fwd_hfin(xbc, dt, S, D, d_inner, chunk)
+
+
+def ssd_xbc_fwd_states_hfin_bf16(xbc, dt, S, D, d_inner: int, chunk: int):
+    """:func:`ssd_xbc_fwd_states_hfin` for bf16 xbc."""
+    _require_bf16(xbc)
+    return ssd_xbc_fwd_states_hfin(xbc, dt, S, D, d_inner, chunk)
+
+
+def ssd_xbc_bwd_seeded_bf16(xbc, dt, S, D, h_in, dy, dh_fin, d_inner: int, chunk: int):
+    """:func:`ssd_xbc_bwd_seeded` for bf16 xbc and dy."""
+    _require_bf16(xbc)
+    return ssd_xbc_bwd_seeded(xbc, dt, S, D, h_in, dy, dh_fin, d_inner, chunk)
+
+
 def ssd_split_fwd_bf16(x, dt, S, Bm, Cm, chunk: int) -> torch.Tensor:
     """:func:`ssd_split_fwd` for bf16 x, B and C."""
     _require_bf16(x)
@@ -769,6 +880,12 @@ def ssd_split_bwd_seeded_bf16(x, dt, S, Bm, Cm, h_in, dy, dh_fin, chunk: int):
     return ssd_split_bwd_seeded(x, dt, S, Bm, Cm, h_in, dy, dh_fin, chunk)
 
 
+# the K8 wrapper that counts a launch, by (states, h_fin, bf16)
+_XBC_FWD = {(False, False, False): ssd_xbc_fwd, (True, False, False): ssd_xbc_fwd_states,
+            (False, True, False): ssd_xbc_fwd_hfin, (True, True, False): ssd_xbc_fwd_states_hfin,
+            (False, False, True): ssd_xbc_fwd_bf16, (True, False, True): ssd_xbc_fwd_states_bf16,
+            (False, True, True): ssd_xbc_fwd_hfin_bf16,
+            (True, True, True): ssd_xbc_fwd_states_hfin_bf16}
 # the K6 wrapper that counts a launch, by (states, h_fin, bf16)
 _SPLIT_FWD = {(False, False, False): ssd_split_fwd, (True, False, False): ssd_split_fwd_states,
               (False, True, False): ssd_split_fwd_hfin,
@@ -855,9 +972,7 @@ def ssd_chunked_split(x, dt, A, Bm, Cm, D, *, chunk: int = 128, return_carry: bo
     return y
 
 
-for _fn in (ssd_xbc_fwd, ssd_xbc_fwd_states, ssd_xbc_bwd, ssd_split_fwd, ssd_split_fwd_states,
-            ssd_split_fwd_hfin, ssd_split_fwd_states_hfin, ssd_split_bwd, ssd_split_bwd_seeded,
-            ssd_xbc_fwd_bf16, ssd_xbc_fwd_states_bf16, ssd_xbc_bwd_bf16, ssd_split_fwd_bf16,
-            ssd_split_fwd_states_bf16, ssd_split_fwd_hfin_bf16, ssd_split_fwd_states_hfin_bf16,
+for _fn in (*_XBC_FWD.values(), ssd_xbc_bwd, ssd_xbc_bwd_seeded, ssd_xbc_bwd_bf16,
+            ssd_xbc_bwd_seeded_bf16, *_SPLIT_FWD.values(), ssd_split_bwd, ssd_split_bwd_seeded,
             ssd_split_bwd_bf16, ssd_split_bwd_seeded_bf16):
     _fn.launches = 0

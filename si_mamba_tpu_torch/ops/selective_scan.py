@@ -161,22 +161,19 @@ def mamba_mixer_apply(params: dict, x: torch.Tensor, *, d_state: int, dt_rank: i
     interior on any device and at any shape, JAX's interpret mode.
 
     Mixed precision, as the JAX mixer: the matmul weights are cast to x's
-    dtype (float32, or bfloat16 on the per-op routes), A, D and dt_bias stay
-    fp32 and every scan keeps an fp32 state. The conv kernel route
-    ('pallas') takes the fp32 conv weight and bias, as the TPU conv kernel
-    reads them; the plain routes take them cast to x's dtype, as the JAX
-    package's XLA conv does. bf16 on the 'fused' routes raises until their
-    kernels have bf16 variants (ROADMAP queue 2)."""
+    dtype (float32 or bfloat16), A, D and dt_bias stay fp32 and every scan
+    keeps an fp32 state. The conv kernel route ('pallas') takes the fp32 conv
+    weight and bias, as the TPU conv kernel reads them; the plain routes take
+    them cast to x's dtype, as the JAX package's XLA conv does. The 'fused'
+    routes hand the interior the bf16 xz with every interior weight in fp32,
+    as the JAX package's ``fused_mamba_mixer`` casts them, and y comes back
+    in xz's dtype for out_proj."""
     if impl in _NOT_PORTED:
         _raise_not_ported(impl)
     impl = _resolve(impl, x)
     cdt = x.dtype
     if cdt not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"the mixer runs in float32 or bfloat16, not {cdt}")
-    if cdt != torch.float32 and impl in ("fused", "fused_interpret"):
-        raise NotImplementedError(
-            f"impl={impl!r} runs in float32 only: the whole-mixer kernels' bf16 variants "
-            f"(K10/K11) are queued in ROADMAP.md queue 2")
 
     def wcast(w):
         return w if w.dtype == cdt else w.to(cdt)
@@ -194,7 +191,7 @@ def mamba_mixer_apply(params: dict, x: torch.Tensor, *, d_state: int, dt_rank: i
                               -torch.exp(params["A_log"].float()), params["D"],
                               dt_rank=dt_rank, d_state=d_state,
                               plain=impl == "fused_interpret")
-        return y @ params["out_proj_w"]
+        return y.to(cdt) @ wcast(params["out_proj_w"])
     xi, z = xz[..., :d_inner], xz[..., d_inner:]  # column views, no copy
     if impl == "pallas":
         xi = causal_conv1d_silu(xi, params["conv_w"], params["conv_b"])

@@ -69,14 +69,19 @@ def mamba_mixer_tp(params: dict, x: torch.Tensor, *, mesh: Mesh, d_state: int, d
     :func:`shard_mixer_params`); ``x`` (B, L, d_model) replicated over
     ``axis``. ``scan_impl`` as ``mamba_mixer_apply``: 'auto' is the kernels
     (K1, K2; K3/K4/K5 with a gradient) on a CUDA tensor and the plain chunked
-    scan on the CPU, the route the JAX package takes in TP."""
+    scan on the CPU, the route the JAX package takes in TP.
+
+    x float32 or bfloat16, as ``si_mamba_tpu/parallel/tensor_parallel.
+    _mixer_local``, which casts no weight: a bf16 x meets the fp32 in_proj and
+    promotes to fp32 (its values exactly), so everything after it runs in fp32
+    on the fp32 kernels and the mixer returns fp32."""
     ax = mesh[axis]
     if scan_impl in ("fused", "fused_interpret"):
         raise NotImplementedError("the fused mixer kernels (K10/K11) take the whole d_inner; "
                                   "the tensor-parallel mixer runs the per-op route")
     impl = ("pallas" if x.is_cuda else "chunked") if scan_impl == "auto" else scan_impl
     x = enter(x, ax)
-    xz = x @ params["in_proj_w"]
+    xz = x.to(torch.promote_types(x.dtype, params["in_proj_w"].dtype)) @ params["in_proj_w"]
     d_loc = xz.shape[-1] // 2
     xi, z = xz[..., :d_loc], xz[..., d_loc:]
     if impl == "pallas":

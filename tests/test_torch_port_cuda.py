@@ -1437,3 +1437,124 @@ def test_bf16_ssd_model_kernel_path_matches_plain(cuda):
     assert _fp32_counts() == fp32 and ssd_fp32_after == ssd_fp32
     assert all(p.grad is not None and p.grad.dtype == torch.float32 and
                torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# the bf16 K10/K11 and K8/K9's carry entry points
+# ---------------------------------------------------------------------------
+
+def _fused_counts():
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    names = ("fused_mixer_fwd", "fused_mixer_fwd_states", "fused_mixer_bwd")
+    return ({n: getattr(kfm, n + "_bf16").launches for n in names},
+            {n: getattr(kfm, n).launches for n in names})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d_model", [(4, 512, 384), (2, 100, 64), (3, 77, 384), (1, 512, 384)])
+def test_bf16_fused_mixer_kernels_match_plain(cuda, b, l, d_model):
+    """The bf16 K10 (lean and with states) and K11 on bf16 xz and g against
+    their plain versions at bf16 (chip_smoke.py's tolerances: y and dxz within
+    one bf16 ulp at a floor of 2e-2 of the max, both sides rounding one fp32
+    value once; h_entries within 1e-5 of its max, the fp32 weight gradients
+    within 1e-4, sums in another order); the lean y bitwise equal to the
+    states variant's (the same segment count); two K11 runs bitwise equal;
+    each launch counted on its bf16 wrapper and none on the fp32 ones."""
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    args = list(_fused_case(b, l, d_model, 40, cuda))
+    args[0] = args[0].to(torch.bfloat16)
+    g = _randn(np.random.default_rng(41), b, l, 2 * d_model, device=cuda).to(torch.bfloat16)
+    before, fp32 = _fused_counts()
+    y_lean = kfm.fused_mixer_fwd_bf16(*args)
+    y, h_entries = kfm.fused_mixer_fwd_states(*args)
+    got = kfm.fused_mixer_bwd_bf16(*args, h_entries, g)
+    again = kfm.fused_mixer_bwd(*args, h_entries, g)
+    torch.cuda.synchronize()
+    after, fp32_after = _fused_counts()
+    assert fp32_after == fp32
+    assert {k: after[k] - before[k] for k in after} == {
+        "fused_mixer_fwd": 1, "fused_mixer_fwd_states": 1, "fused_mixer_bwd": 2}
+    assert y.dtype == torch.bfloat16 and h_entries.dtype == torch.float32
+    torch.testing.assert_close(y, y_lean, rtol=0, atol=0)
+    y_ref, h_ref = kfm.fused_mixer_fwd_ref(*args, chunk=kfm.CHUNK, emit_states=True)
+    assert _bf16_ulps(y, y_ref, floor=2e-2) <= 1, _bf16_ulps(y, y_ref, floor=2e-2)
+    _close_to_max(h_entries, h_ref, 1e-5)
+    want = kfm.fused_mixer_bwd_ref(*args, h_entries, g, chunk=kfm.CHUNK)
+    names = ("dxz", "dconv_wt", "dconv_b", "dx_proj", "ddt_proj", "ddtb", "dat", "dd")
+    for name, a, w, a2 in zip(names, got, want, again):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        assert torch.equal(a, a2), name
+        if name == "dxz":
+            assert a.dtype == torch.bfloat16 and _bf16_ulps(a, w, floor=2e-2) <= 1, name
+        else:
+            _close_to_max(a, w, 1e-4)
+
+
+@pytest.mark.cuda
+def test_bf16_fused_mixer_kernels_take_only_fp32_weights(cuda):
+    """bf16 xz with a weight in any other dtype than fp32, or with an fp32 g,
+    raises before launching: the bf16 kernels read fp32 weights."""
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    args = list(_fused_case(1, 32, 64, 42, cuda))
+    args[0] = args[0].to(torch.bfloat16)
+    before = _fused_counts()
+    for i, name in ((1, "conv_wt"), (3, "x_proj"), (7, "d")):
+        bad = list(args)
+        bad[i] = args[i].to(torch.bfloat16)
+        with pytest.raises(TypeError, match=name):
+            kfm.fused_mixer_fwd(*bad)
+    _, h_entries = kfm.fused_mixer_fwd_ref(*args, chunk=kfm.CHUNK, emit_states=True)
+    with pytest.raises(TypeError, match="g in torch.bfloat16"):
+        kfm.fused_mixer_bwd(*args, h_entries, torch.zeros(1, 32, 128, device=cuda))
+    assert _fused_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,l,h,chunk", [(2, 512, 2, 256), (1, 192, 3, 64), (1, 64, 1, 64)])
+def test_ssd_carry_kernels_match_plain(cuda, b, l, h, chunk, dtype):
+    """K8 with h_fin (lean and with states) and the seeded K9 against their
+    plain versions, at fp32 (y and h_fin within 1e-5 of their max, every
+    gradient within 1e-4, as the K8/K9 tests here) and at bf16 (the bf16
+    kernels' tolerances: a bf16 output within 2 ulps at a floor of 2e-2, the
+    fp32 ones within 1e-3): y bitwise equal to K8's without the carry, the
+    two h_fin variants bitwise equal, two seeded K9 runs bitwise equal, each
+    launch counted on its own wrapper."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    bf16 = dtype == "bfloat16"
+    sfx = "_bf16" if bf16 else ""
+    rng = np.random.default_rng(70)
+    xbc, dth, S, D, d = _ssd_case(rng, b, l, h, chunk, cuda)
+    dy = _randn(rng, b, l, d + 2, device=cuda)[..., 2:]
+    dh_fin = _randn(rng, b, h, 128, 128, scale=0.1, device=cuda)
+    if bf16:
+        xbc, dy = xbc.to(torch.bfloat16), dy.to(torch.bfloat16)
+    names = ("ssd_xbc_fwd_hfin", "ssd_xbc_fwd_states_hfin", "ssd_xbc_bwd_seeded")
+    before = {n: getattr(kssd, n + sfx).launches for n in names}
+    args = (xbc, dth, S, D, d, chunk)
+    y_plain = kssd.ssd_xbc_fwd(*args)
+    y_lean, hf_lean = getattr(kssd, "ssd_xbc_fwd_hfin" + sfx)(*args)
+    y, h_in, h_fin = getattr(kssd, "ssd_xbc_fwd_states_hfin" + sfx)(*args)
+    seeded = getattr(kssd, "ssd_xbc_bwd_seeded" + sfx)
+    got = seeded(xbc, dth, S, D, h_in, dy, dh_fin, d, chunk)
+    again = seeded(xbc, dth, S, D, h_in, dy, dh_fin, d, chunk)
+    torch.cuda.synchronize()
+    assert {n: getattr(kssd, n + sfx).launches - before[n] for n in names} == {
+        "ssd_xbc_fwd_hfin": 1, "ssd_xbc_fwd_states_hfin": 1, "ssd_xbc_bwd_seeded": 2}
+    for a, w in ((y_lean, y_plain), (y, y_plain), (hf_lean, h_fin), *zip(got, again)):
+        torch.testing.assert_close(a, w, rtol=0, atol=0)
+    y_ref, h_ref, hf_ref = kssd.ssd_xbc_fwd_ref(*args, emit_states=True, emit_hfin=True)
+    want = kssd.ssd_xbc_bwd_ref(xbc, dth, S, D, h_in, dy, d, chunk, dh_fin=dh_fin)
+    assert h_fin.shape == (b, h, 128, 128) and h_fin.dtype == torch.float32
+    if bf16:
+        for name, a, w in (("y", y, y_ref), ("h_in", h_in, h_ref), ("h_fin", h_fin, hf_ref),
+                           *zip(("dxbc", "ddt", "dS", "dD"), got, want)):
+            _hold_bf16(name, a, w)
+    else:
+        for a, w, tol in ((y, y_ref, 1e-5), (h_in, h_ref, 1e-5), (h_fin, hf_ref, 1e-5),
+                          *((a, w, 1e-4) for a, w in zip(got, want))):
+            _close_to_max(a, w, tol)

@@ -201,9 +201,12 @@ def test_mixer_rejects_unported_impls_and_dtypes():
         tss.mamba_mixer_apply(p, x, d_state=4, dt_rank=2, impl="assoc")
     with pytest.raises(NotImplementedError, match="float16"):
         tss.mamba_mixer_apply(p, x.half(), d_state=4, dt_rank=2)
-    for impl in ("fused", "fused_interpret"):  # no bf16 K10/K11 yet
-        with pytest.raises(NotImplementedError, match="queue 2"):
-            tss.mamba_mixer_apply(p, x.bfloat16(), d_state=4, dt_rank=2, impl=impl)
+    # bf16 on the 'fused' routes is what JAX does with it: 'fused' refuses
+    # d_inner 32 at either dtype, 'fused_interpret' runs (bf16 in, bf16 out)
+    with pytest.raises(ValueError, match="d_inner % 128 == 0"):
+        tss.mamba_mixer_apply(p, x.bfloat16(), d_state=4, dt_rank=2, impl="fused")
+    y = tss.mamba_mixer_apply(p, x.bfloat16(), d_state=4, dt_rank=2, impl="fused_interpret")
+    assert y.dtype == torch.bfloat16 and y.shape == (1, 4, 16) and torch.isfinite(y).all()
 
 
 # ---------------------------------------------------------------------------

@@ -154,25 +154,46 @@ def test_fresh_model_is_seeded_and_finite():
                                       dict(mixer="ssd", add_after_layer=True),
                                       dict(tp_axis="model", add_after_layer=True),
                                       dict(dtype="float16"),
-                                      dict(dtype="bfloat16", scan_impl="fused"),
-                                      dict(dtype="bfloat16", mixer="ssd", scan_impl="fused"),
-                                      dict(dtype="bfloat16", tp_axis="model"),
                                       dict(reverse_3=True)])
 def test_unported_options_raise(override):
     with pytest.raises(NotImplementedError):
         PointMamba(PointMambaConfig(**SMALL, **override))
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tp_axis_needs_a_mesh_at_either_dtype(dtype):
+    """tp_axis with the Mamba-1 mixer passes the dtype check at bf16 as at
+    fp32 and then asks for a mesh with that axis, as the JAX model needs
+    one; tests/test_torch_port_fused_bf16.py runs it on two ranks."""
+    with pytest.raises(ValueError, match="needs a mesh"):
+        PointMamba(PointMambaConfig(**SMALL, dtype=dtype, tp_axis="model"))
+
+
 @pytest.mark.parametrize("override", [dict(dtype="bfloat16"), dict(spectral_method="subspace"),
-                                      dict(dtype="bfloat16", spectral_method="subspace")])
+                                      dict(dtype="bfloat16", spectral_method="subspace"),
+                                      dict(dtype="bfloat16", scan_impl="fused", trans_dim=64,
+                                           encoder_dims=64),
+                                      dict(dtype="bfloat16", mixer="ssd", scan_impl="fused")])
 def test_perf_mode_options_build_and_run(override):
     """bf16 and the subspace eigensolver (perf mode) build and give finite
-    logits in the activation dtype; tests/test_torch_port_perf.py holds them
-    against the JAX package."""
-    model = PointMamba(PointMambaConfig(**SMALL, **override)).eval()
+    logits in the activation dtype, on the whole-mixer route too (d_inner
+    128, which 'fused' needs); the SSD mixer with scan_impl 'fused' runs its
+    'xla' route, as the JAX model's does (its SSD mixer has no 'fused'
+    route). tests/test_torch_port_perf.py and
+    tests/test_torch_port_fused_bf16.py hold them against the JAX
+    package."""
+    cfg = PointMambaConfig(**{**SMALL, **override})
+    model = PointMamba(cfg).eval()
     with torch.no_grad():
         logits = model(torch.from_numpy(_clouds(2, 256, seed=6)))
     assert logits.dtype == getattr(torch, override.get("dtype", "float32"))
+    assert torch.isfinite(logits.float()).all()
+    if cfg.mixer == "ssd":
+        assert all(layer.mixer.impl == "xla" for layer in model.blocks.layers)
+        xla = PointMamba(PointMambaConfig(**{**SMALL, **override, "scan_impl": "xla"})).eval()
+        xla.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            assert torch.equal(xla(torch.from_numpy(_clouds(2, 256, seed=6))), logits)
     assert logits.shape == (2, 10) and torch.isfinite(logits.float()).all()
 
 

@@ -546,14 +546,29 @@ def test_perf_predictor_on_an_ssd_checkpoint_matches_jax(monkeypatch):
     (dict(scan_impl="fused"), "K10/K11"), (dict(scan_impl="fused_interpret"), "K10/K11"),
     (dict(mixer="mamba", tp_axis="model"), "promotes bf16")])
 def test_refused_at_bf16(override, match):
-    """At bf16 the whole-mixer route (its kernels' bf16 variants are the next
-    slice) and the tensor-parallel Mamba-1 mixer (JAX's casts no weight, so
-    its bf16 activations promote to fp32) still raise; the SSD mixer with
-    tp_axis passes this check (and then asks for a mesh)."""
-    with pytest.raises(NotImplementedError, match=match):
-        PointMamba(PointMambaConfig(**{**SSD_PERF, **override}))
-    with pytest.raises(ValueError, match="needs a mesh"):
-        PointMamba(PointMambaConfig(**{**SSD_PERF, "tp_axis": "model"}))
+    """The options that raised at bf16 until the whole-mixer kernels K10/K11
+    had bf16 variants and the tensor-parallel Mamba-1 mixer (which promotes
+    bf16 to fp32 at its uncast weights, as JAX's) was ported now do what the
+    JAX model does with them (``match`` names what was refused): the SSD
+    mixer with scan_impl 'fused' or 'fused_interpret' builds and runs its
+    'xla' route (JAX's SSD mixer has no 'fused' route), giving the 'xla'
+    model's logits; the Mamba-1 mixer with tp_axis passes the check and then
+    asks for a mesh, as the SSD mixer with tp_axis does."""
+    cfg = PointMambaConfig(**{**SSD_PERF, **override})
+    if cfg.tp_axis is not None:
+        with pytest.raises(ValueError, match="needs a mesh"):
+            PointMamba(cfg)
+        with pytest.raises(ValueError, match="needs a mesh"):
+            PointMamba(PointMambaConfig(**{**SSD_PERF, "tp_axis": "model"}))
+        return
+    model = PointMamba(cfg).eval()
+    assert all(layer.mixer.impl == "xla" for layer in model.blocks.layers), match
+    xla = PointMamba(PointMambaConfig(**{**SSD_PERF, "scan_impl": "xla"})).eval()
+    xla.load_state_dict(model.state_dict())
+    pts = torch.from_numpy(_clouds(2, 128, seed=7))
+    with torch.no_grad():
+        got = model(pts)
+        assert got.dtype == BF and torch.equal(got, xla(pts))
 
 
 # ---------------------------------------------------------------------------
