@@ -18,8 +18,9 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    held against its plain PyTorch version on the card and timed beside it:
    the conv forward and, for a seeded output gradient, its backward (both
    also beside ``F.conv1d(groups=D)`` + ``F.silu`` and its autograd
-   backward; the backward run twice, bitwise equal, and also timed as
-   CUDA-graph device time), the lean scan forward (also at B = 1, 20 and 64,
+   backward and as CUDA-graph device time, with their plans; the backward run
+   twice, bitwise equal; the forward also at B = 1, 20 and 64 at the Mamba-1
+   and SSD views), the lean scan forward (also at B = 1, 20 and 64,
    the serving request sizes; each timed as back-to-back calls and as
    CUDA-graph device time), the scan forward that keeps its tile entry states (its y equal to
    the lean kernel's, its states to the plain version's) and the scan
@@ -146,8 +147,9 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    on the card (a bf16 output within one bf16 ulp of it, two for the scan
    backward's; fp32 outputs within 1e-4 of their max, 1e-3 for the scan
    backward's sums) and timed beside it, the conv ones also beside bf16
-   ``F.conv1d(groups=D)`` + ``F.silu`` and its autograd, the lean scan also at
-   B = 1, 20 and 64; each record carries the fp32 kernel's time of this run;
+   ``F.conv1d(groups=D)`` + ``F.silu`` and its autograd, the conv forward and
+   the lean scan also at B = 1, 20 and 64; each record carries the fp32
+   kernel's time of this run;
 17. perf serving and train (after phase 8): ``Predictor.from_checkpoint(
    state dict, perf=True)`` (bf16, subspace) over the ModelNet40 model serves
    1, 20 and 64 clouds; every forward launches the bf16 conv and lean scan 12
@@ -160,7 +162,7 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    cfgs/finetune_modelnet_perf.yaml at max_epoch 0, two steps and a
    validation, launches counted, the epoch's loss finite.
 19. the SSD presets' kernels (after phase 16): the bf16 K1 and K5 at the SSD
-   view (row stride 1798: rows not 16-byte aligned, one channel a thread for
+   view (row stride 1798: rows 4-byte aligned, two channels a thread for
    K1) and at the tensor-parallel operands (384 and 256 wide), then the bf16
    K8 (lean, also at B = 1, 20 and 64, and with states), K9, and at the
    tensor-parallel shard and at phase 22's shapes (a rank's 256 rows, 6
@@ -252,6 +254,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import asdict
 from pathlib import Path
 
 import numpy as np
@@ -410,6 +413,12 @@ def _rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return err, err / max(want.abs().max().item(), 1e-30)
 
 
+def conv_fwd_bound(B: int, L: int, C: int, W: int, size: int = 4) -> tuple[float, str]:
+    """K1's bound: x read and y written (``size`` bytes an element), w and b
+    (fp32) read; operations per element: the sum 2W+1, SiLU 4."""
+    return bound(2 * B * L * C * size + C * (W + 1) * 4, B * L * C * (2 * W + 5))
+
+
 def conv_bwd_bound(B: int, L: int, C: int, W: int) -> tuple[float, str]:
     """K5's bound: x and g read, dx written (plus w, b, dw, db); operations
     per element: s 2W+1, sigmoid 4, ds 4, dx 2W, dw and db 2W+2."""
@@ -433,9 +442,12 @@ def conv_records(x, w, b, g) -> tuple[dict, dict]:
         raise AssertionError(f"causal-conv kernel at {where} disagrees with its plain "
                              f"version: max |diff| {err1}")
     xt, w3 = x.transpose(1, 2), w[:, None, :]
-    bound_ms, bound_by = bound(2 * B * L * C * 4 + C * (W + 1) * 4, B * L * C * (2 * W + 5))
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    bound_ms, bound_by = conv_fwd_bound(B, L, C, W)
     fwd = dict(shape=[B, L, C], row_stride=x.stride(1), max_abs_err=err1,
+               plan=asdict(kc.fwd_plan(x, sms)),
                ms=time_ms(lambda: kc.causal_conv1d_silu_fwd(x, w, b), 50),
+               device_ms=graph_ms(lambda: kc.causal_conv1d_silu_fwd(x, w, b), 20),
                plain_ms=time_ms(lambda: kc.causal_conv1d_ref(x, w, b), 20),
                library_ms=time_ms(lambda: F.silu(F.conv1d(xt, w3, b, padding=W - 1,
                                                           groups=C)[..., :L]), 20),
@@ -461,7 +473,7 @@ def conv_records(x, w, b, g) -> tuple[dict, dict]:
     w_lib, b_lib = (t.detach().clone().requires_grad_() for t in (w3, b))
     y_lib = F.silu(F.conv1d(x_lib, w_lib, b_lib, padding=W - 1, groups=C)[..., :L])
     bound_ms, bound_by = conv_bwd_bound(B, L, C, W)
-    plan = kc.bwd_plan(x, g, W, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    plan = kc.bwd_plan(x, g, W, sms)
     bwd = dict(shape=[B, L, C], row_stride=x.stride(1), max_abs_err=err5,
                plan=dict(vx=plan.vx, vg=plan.vg, tile=plan.tile),
                ms=time_ms(lambda: kc.causal_conv1d_silu_bwd(*args), 50),
@@ -470,10 +482,71 @@ def conv_records(x, w, b, g) -> tuple[dict, dict]:
                library_ms=time_ms(lambda: torch.autograd.grad(
                    y_lib, (x_lib, w_lib, b_lib), g.transpose(1, 2), retain_graph=True), 20),
                bound_ms=bound_ms, bound_by=bound_by)
-    log(f"conv at {where}: forward max |diff| {err1:.3e}, backward {err5:.3e} (two runs "
+    log(f"conv at {where}: forward max |diff| {err1:.3e} ({fwd['ms']:.6f} ms, device "
+        f"{fwd['device_ms']:.6f} ms, bound {fwd['bound_ms']:.6f}, library "
+        f"{fwd['library_ms']:.6f}, plan {fwd['plan']}), backward {err5:.3e} (two runs "
         f"bitwise equal; {bwd['ms']:.6f} ms, device {bwd['device_ms']:.6f} ms, plan "
         f"{bwd['plan']})")
     return fwd, bwd
+
+
+def conv_views(device, batch: int, dtype: torch.dtype) -> dict:
+    """K1's operands at the two mixer views as layer 0's mixers make them at
+    B=batch, L=512, in ``dtype`` (x @ in_proj in that dtype): the Mamba-1 xi
+    (columns :768 of the 1536-wide xz) and the SSD x|B|C (columns 768:1792 of
+    the 1798-wide in_proj output); the conv weight and bias fp32, as the
+    kernels read them. Returns {view: (x, w, b)}."""
+    from si_mamba_tpu_torch.models.layers import MambaMixer, SSDMixer
+
+    u = torch.from_numpy(np.random.default_rng(20 + batch).standard_normal(
+        (batch, 512, MODELNET40["trans_dim"]), dtype=np.float32)).to(device, dtype)
+    views = {}
+    for view, mixer in (("mamba1", MambaMixer(MODELNET40["trans_dim"])),
+                        ("ssd", SSDMixer(MODELNET40["trans_dim"],
+                                         chunk=MODELNET40_SSD["ssd_chunk"]))):
+        mixer.reset_parameters(torch.Generator().manual_seed(1))
+        p = {k: v.detach().to(device) for k, v in mixer.params().items()}
+        d = mixer.d_inner
+        xz = u @ p["in_proj_w"].to(dtype)
+        cols = slice(0, d) if view == "mamba1" else slice(d, 2 * d + 2 * mixer.d_state)
+        views[view] = (xz[..., cols], p["conv_w"], p["conv_b"])
+    return views
+
+
+def conv_at_clouds(device, dtype: torch.dtype) -> dict:
+    """K1 in ``dtype`` at each serving request size at the two mixer views
+    (``conv_views``), held against its plain version (fp32 within rtol 1e-5 /
+    atol 1e-6; bf16 within one bf16 ulp at a floor of 1e-2 of max|y|) and
+    timed as back-to-back wrapper calls (``ms``) and as device time
+    (``device_ms``, CUDA-graph replays), with its plan and bound. Returns
+    {view: {batch: figures}}."""
+    from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out = {"mamba1": {}, "ssd": {}}
+    for batch in REQUEST_SIZES:
+        for view, (x, w, b) in conv_views(device, batch, dtype).items():
+            y, y_ref = kc.causal_conv1d_silu_fwd(x, w, b), kc.causal_conv1d_ref(x, w, b)
+            torch.cuda.synchronize()
+            where = f"{view} view at {batch} clouds, {dtype}"
+            if dtype == torch.bfloat16:
+                ulps = _bf16_ulps(y, y_ref, 1e-2)
+                if ulps > 1:
+                    raise AssertionError(f"conv forward at the {where}: {ulps:.2f} bf16 ulps "
+                                         f"from its plain version")
+            elif not torch.allclose(y, y_ref, rtol=1e-5, atol=1e-6):
+                raise AssertionError(f"conv forward at the {where} disagrees with its plain "
+                                     f"version: max |diff| {(y - y_ref).abs().max().item()}")
+            out[view][batch] = dict(
+                max_abs_err=(y.float() - y_ref.float()).abs().max().item(),
+                plan=asdict(kc.fwd_plan(x, sms)),
+                ms=time_ms(lambda: kc.causal_conv1d_silu_fwd(x, w, b), 50),
+                device_ms=graph_ms(lambda: kc.causal_conv1d_silu_fwd(x, w, b), 20),
+                bound_ms=conv_fwd_bound(*x.shape, w.shape[1], x.element_size())[0])
+    log(f"conv forward at 1/20/64 clouds, {dtype}: " + "; ".join(
+        f"{view} B={batch}: {f['ms']:.6f} ms, device {f['device_ms']:.6f} ms, plan {f['plan']}"
+        for view, by_batch in out.items() for batch, f in by_batch.items()))
+    return out
 
 
 def tp_conv_phase(device) -> dict:
@@ -511,7 +584,8 @@ def kernel_phase(device) -> list[dict]:
     records = [
         dict(name="causal_conv1d_silu", route="cuda",
              source="si_mamba_tpu_torch/csrc/causal_conv.cu",
-             replaces="si_mamba_tpu/ops/pallas/causal_conv_kernel.py:52", **fwd),
+             replaces="si_mamba_tpu/ops/pallas/causal_conv_kernel.py:52",
+             at_clouds=conv_at_clouds(device, torch.float32), **fwd),
         dict(name="causal_conv1d_silu_bwd", route="cuda",
              source="si_mamba_tpu_torch/csrc/causal_conv.cu",
              replaces="si_mamba_tpu/ops/pallas/causal_conv_kernel.py:58", **bwd)]
@@ -705,7 +779,8 @@ def bf16_kernel_phase(device) -> list[dict]:
     source, replaces = ("si_mamba_tpu_torch/csrc/causal_conv.cu",
                         "si_mamba_tpu/ops/pallas/causal_conv_kernel.py:")
     records.append(dict(name="causal_conv1d_silu_bf16", route="cuda", source=source,
-                        replaces=replaces + "52", dtype="bfloat16", **fwd))
+                        replaces=replaces + "52", dtype="bfloat16",
+                        at_clouds=conv_at_clouds(device, torch.bfloat16), **fwd))
     records.append(dict(name="causal_conv1d_silu_bwd_bf16", route="cuda", source=source,
                         replaces=replaces + "58", dtype="bfloat16", **bwd))
 
@@ -1198,7 +1273,7 @@ def bf16_conv_figures(x, w, b, g) -> tuple[dict, dict]:
     a floor of 1e-2 of its max, dw and db within 1e-4 of their max; K5 run
     twice, bitwise equal) and timed beside it and beside bf16
     ``F.conv1d(groups=C)`` + ``F.silu`` (K5: its autograd backward), with its
-    vector width or plan and its bound (bf16 bytes, fp32 operations)."""
+    plan and its bound (bf16 bytes, fp32 operations)."""
     from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
 
     B, L, C = x.shape
@@ -1210,8 +1285,9 @@ def bf16_conv_figures(x, w, b, g) -> tuple[dict, dict]:
         raise AssertionError(f"bf16 conv forward at {where}: {ulps:.2f} ulps from its plain "
                              f"version")
     xt, w3, b16 = x.transpose(1, 2), w.to(torch.bfloat16)[:, None, :], b.to(torch.bfloat16)
-    bound_ms, bound_by = bound(2 * B * L * C * 2 + C * (W + 1) * 4, B * L * C * (2 * W + 5))
-    fwd = dict(shape=[B, L, C], row_stride=x.stride(1), vector=kc.fwd_bf16_vector(x),
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    bound_ms, bound_by = conv_fwd_bound(B, L, C, W, 2)
+    fwd = dict(shape=[B, L, C], row_stride=x.stride(1), plan=asdict(kc.fwd_plan(x, sms)),
                max_abs_err=(y.float() - kc.causal_conv1d_ref(x, w, b).float()).abs().max().item(),
                ms=time_ms(lambda: kc.causal_conv1d_silu_bf16(x, w, b), 50),
                device_ms=graph_ms(lambda: kc.causal_conv1d_silu_bf16(x, w, b), 20),
@@ -1228,7 +1304,7 @@ def bf16_conv_figures(x, w, b, g) -> tuple[dict, dict]:
     if _bf16_ulps(got[0], want[0], 1e-2) > 1 or max(_rel_err(a, r)[1] for a, r in
                                                     zip(got[1:], want[1:])) > 1e-4:
         raise AssertionError(f"bf16 conv backward at {where} disagrees with its plain version")
-    plan = kc.bwd_plan(x, g, W, torch.cuda.get_device_properties(x.device).multi_processor_count)
+    plan = kc.bwd_plan(x, g, W, sms)
     x_lib = xt.detach().requires_grad_()
     w_lib, b_lib = (t.detach().clone().requires_grad_() for t in (w3, b16))
     y_lib = F.silu(F.conv1d(x_lib, w_lib, b_lib, padding=W - 1, groups=C)[..., :L])
@@ -1244,7 +1320,8 @@ def bf16_conv_figures(x, w, b, g) -> tuple[dict, dict]:
                    y_lib, (x_lib, w_lib, b_lib), g.transpose(1, 2), retain_graph=True), 20),
                bound_ms=bound_ms, bound_by=bound_by)
     log(f"bf16 conv at {where}: forward {fwd['ms']:.6f} ms, device {fwd['device_ms']:.6f} ms "
-        f"({fwd['vector']} channels a thread, bound {fwd['bound_ms']:.6f}); backward "
+        f"(plan {fwd['plan']}, bound {fwd['bound_ms']:.6f}, library "
+        f"{fwd['library_ms']:.6f}); backward "
         f"{bwd['ms']:.6f} ms, device {bwd['device_ms']:.6f} ms (plan {bwd['plan']}, bound "
         f"{bwd['bound_ms']:.6f}), two runs bitwise equal")
     return fwd, bwd

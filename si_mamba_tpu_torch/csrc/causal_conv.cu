@@ -9,32 +9,47 @@
 //
 // Bound on the H100: bytes. Every output reads W inputs that its neighbours
 // in time also read, so the least traffic is one read of x and one write of
-// y (2 x 50.3 MB per layer at B=32, L=512, D=768, about 30 us at 3.35 TB/s);
-// the 2W+5 operations per output are two orders of magnitude below the fp32
-// rate.
+// y: 2 x 50.3 MB per layer at B=32, L=512, D=768 in fp32 (about 30 us at
+// 3.35 TB/s), half that in bf16 (about 15 us). The 2W+5 operations per
+// output take a third of the fp32 byte time in instruction slots and most
+// of the bf16 one, so the loads have to be in flight while others compute.
 //
-// Design: one thread per channel d, 128 channels per block, so that each
-// warp's loads and stores of one time row are 128 contiguous bytes. A block
-// walks a tile of kTimeTile steps; each thread keeps the W-1 previous inputs
-// of its channel in registers, so every input is read from device memory
-// once (plus W-1 halo rows per tile). x may be a column slice of a wider
-// buffer (the mixer's xz): the kernel takes x's batch and row strides and
-// needs unit stride only along channels. No padding of L or D: the ragged
-// edges are masked.
-//
-// bf16 forward (the TPU kernel at a bf16 activation dtype: x and y bf16, w
-// and b read as fp32, the sum in fp32, y rounded once): bound by bytes, half
-// of fp32's (2 x 25.2 MB per layer at B=32, L=512, D=768, about 15 us). A
-// thread owns kV16 = 8 neighbouring channels and moves them as one 16-byte
-// vector when x's address and strides allow (the Mamba-1 view: row stride
-// 1536), else one channel; a warp's access to one row is then 512
-// contiguous bytes. A block is kFwdWarps warps on consecutive time tiles of
-// kFwdTile16 steps of the same 256 channels, so the grid fills the card at
-// D = 768 (3 x 32 x 16 blocks at B=32, L=512).
+// Design (W = 4 only; one template over the element type T of x and y and
+// the vector width V):
+// - A thread owns V neighbouring channels and one time tile of kTile = 8 or
+//   4 steps, from the wrapper's plan. It moves its V elements of x and y as
+//   one access of 8 or 4 bytes (V = 2 or 1 at fp32, 4 or 2 at bf16), or one
+//   bf16 element where x allows nothing wider: the plan takes the widest that
+//   x's address and strides and D allow, and the C entry point refuses a
+//   wider one. So the SSD view (row stride 1798, column 768) moves two bf16
+//   channels a thread, not one. 16-byte accesses were slower at every path
+//   shape (eight bf16 channels a thread held twice the registers and took
+//   1.35x the time of four at the Mamba-1 view; four fp32 channels 2-4 %
+//   more than two), so 8 bytes is the widest built.
+// - Loads in flight: the thread issues the loads of all kTile + W - 1 rows
+//   of its tile (the W - 1 halo rows before it included) into registers
+//   before its first multiply-add, so a tile's whole input is in flight at
+//   once; bf16 rows stay packed until used. Neighbouring tiles read the same
+//   halo rows at about the same time, so those come mostly from L2.
+// - Parallelism from the SM count: the threads of one batch row are the
+//   (channel vector, tile) pairs, channel vector fastest, so a warp's access
+//   to a row is contiguous whatever D is; the grid is (ceil(pairs / block),
+//   B). The plan takes the longest tile that still gives the card enough
+//   warps, and blocks of 1, 2 or 4 warps so that one cloud still spreads
+//   over every SM.
+// - The sum is the TPU kernel's: bias, then the taps oldest first, in fp32;
+//   y is rounded once to T. fp32 keeps expf and the IEEE division (no fast
+//   math, parity with the reference implementations); bf16 takes
+//   __fdividef(s, 1 + __expf(-s)) (a fast exp, an approximate reciprocal and
+//   a multiply: a few fp32 ulps, far below the bf16 rounding of y; 0 where
+//   1 + exp(-s) passes 2^126, where silu is below 1e-36), which took 0.76-0.86x
+//   the time of an IEEE reciprocal at the bf16 path shapes.
+// - x may be a column slice of a wider buffer (the mixers' xz and in_proj
+//   output): the kernel takes x's batch and row strides and needs unit stride
+//   only along channels. No padding of L: the ragged tile is masked.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC (no fast math: expf keeps parity with the
-//        reference implementations).
+//        -Xcompiler -fPIC (no fast math).
 
 #include <cuda_runtime.h>
 
@@ -46,137 +61,148 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTimeTile = 64;
+constexpr int kW = 4;             // the conv width both directions serve
+constexpr int kFwdMaxWarps = 4;   // warps a forward block, at most
 
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-causal_conv1d_silu_fwd_kernel(const float* __restrict__ x,
-                              const float* __restrict__ w,
-                              const float* __restrict__ bias,
-                              float* __restrict__ y, int L, int D,
-                              long long x_sb, long long x_sr) {
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  if (d >= D) return;
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.z * kTimeTile;
-  const int t_end = min(t0 + kTimeTile, L);
+// V elements of T in 32-bit words, as one access of V * sizeof(T) bytes
+// (bf16 V = 1: the low 16 bits of one word), at most 16 bytes. Loaded
+// packed; element c is widened to fp32 when it is read.
+template <typename T, int V>
+struct Vec {
+  static constexpr int kBytes = V * static_cast<int>(sizeof(T));
+  static constexpr int kWords = (kBytes + 3) / 4;
+  unsigned int w[kWords];
 
-  const float* xb = x + static_cast<long long>(b) * x_sb + d;
-  float* yb = y + static_cast<long long>(b) * L * D + d;
-
-  float wk[W];
-#pragma unroll
-  for (int k = 0; k < W; ++k) wk[k] = w[d * W + k];
-  const float bd = bias[d];
-
-  // win[k] holds x[t - (W-1) + k]; win[W-1] is loaded each step.
-  float win[W];
-#pragma unroll
-  for (int k = 0; k < W - 1; ++k) {
-    const int t = t0 - (W - 1) + k;
-    win[k] = t >= 0 ? xb[static_cast<long long>(t) * x_sr] : 0.f;
-  }
-
-#pragma unroll 4
-  for (int t = t0; t < t_end; ++t) {
-    win[W - 1] = xb[static_cast<long long>(t) * x_sr];
-    // same summation order as the TPU kernel: bias, then taps oldest first
-    float s = bd;
-#pragma unroll
-    for (int k = 0; k < W; ++k) s += wk[k] * win[k];
-    yb[static_cast<long long>(t) * D] = s / (1.f + expf(-s));
-#pragma unroll
-    for (int k = 0; k < W - 1; ++k) win[k] = win[k + 1];
-  }
-}
-
-constexpr int kV16 = 8;          // bf16 channels a thread moves as one 16-byte vector
-constexpr int kFwdWarps = 4;     // warps (time tiles) a block of the bf16 forward
-constexpr int kFwdTile16 = 32;   // steps of a warp's time tile, bf16 forward
-
-// One row of V bf16 channels at p to fp32: one 16-byte load for V = 8.
-template <int V>
-__device__ __forceinline__ void load_bf16(const bf16* p, float (&v)[V]) {
-  if constexpr (V == 8) {
-    const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
-    const unsigned int w[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[2 * i] = bf16_lo(w[i]);
-      v[2 * i + 1] = bf16_hi(w[i]);
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (kBytes == 16) {
+      const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
+      w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w;
+    } else if constexpr (kBytes == 8) {
+      const uint2 a = __ldg(reinterpret_cast<const uint2*>(p));
+      w[0] = a.x; w[1] = a.y;
+    } else if constexpr (kBytes == 4) {
+      w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+    } else {
+      w[0] = __ldg(reinterpret_cast<const unsigned short*>(p));
     }
-  } else {
+  }
+
+  __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int c = 0; c < V; ++c) v[c] = to_f(p[c]);
+    for (int i = 0; i < kWords; ++i) w[i] = 0u;
+  }
+
+  __device__ __forceinline__ float get(int c) const {
+    if constexpr (std::is_same_v<T, float>) {
+      return __uint_as_float(w[c]);
+    } else if constexpr (V == 1) {
+      return bf16_lo(w[0]);
+    } else {
+      return (c & 1) ? bf16_hi(w[c >> 1]) : bf16_lo(w[c >> 1]);
+    }
+  }
+};
+
+// V values rounded to T and stored as one access of at most 8 bytes.
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[V]) {
+  if constexpr (std::is_same_v<T, float>) {
+    if constexpr (V == 2) {
+      *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+    } else {
+      *p = v[0];
+    }
+  } else if constexpr (V == 4) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<unsigned int*>(p) = pack_bf16(v[0], v[1]);
+  } else {
+    *p = __float2bfloat16_rn(v[0]);
   }
 }
 
-template <int V>
-__device__ __forceinline__ void store_bf16(bf16* p, const float (&v)[V]) {
-  if constexpr (V == 8) {
-    *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
-                                              pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+template <typename T>
+__device__ __forceinline__ float silu(float s) {
+  if constexpr (std::is_same_v<T, float>) {
+    return s / (1.f + expf(-s));
   } else {
-#pragma unroll
-    for (int c = 0; c < V; ++c) p[c] = from_f<bf16>(v[c]);
+    return __fdividef(s, 1.f + __expf(-s));
   }
 }
 
-// bf16 forward: lane l of warp w owns channels d0 = (32 blockIdx.x + l) V ..
-// d0 + V - 1 over the time tile blockIdx.z * kFwdWarps + w. V = 8 needs D a
-// multiple of 8 and x 16-byte aligned with strides that are multiples of 8
-// (the C entry point checks); V = 1 serves any other x.
-template <int V>
-__global__ void __launch_bounds__(32 * kFwdWarps)
-causal_conv1d_silu_fwd_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ w,
-                                   const float* __restrict__ bias, bf16* __restrict__ y,
-                                   int L, int D, long long x_sb, long long x_sr) {
-  constexpr int W = 4;
-  const int lane = threadIdx.x & 31;
-  const int d0 = (blockIdx.x * 32 + lane) * V;
-  const int t0 = (blockIdx.z * kFwdWarps + (threadIdx.x >> 5)) * kFwdTile16;
-  if (d0 >= D || t0 >= L) return;
-  const int t_end = min(t0 + kFwdTile16, L);
-  const bf16* xb = x + static_cast<long long>(blockIdx.y) * x_sb + d0;
-  bf16* yb = y + static_cast<long long>(blockIdx.y) * L * D + d0;
+// Thread i of batch row blockIdx.y owns channels d0 = (i % nv) V .. d0 + V - 1
+// over the time tile i / nv; nv = D / V, and V divides D and x's used strides
+// (the C entry point checks).
+template <typename T, int V, int kTile>
+__global__ void __launch_bounds__(32 * kFwdMaxWarps)
+causal_conv1d_silu_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                              const float* __restrict__ bias, T* __restrict__ y, int L, int D,
+                              int nv, int pairs, long long x_sb, long long x_sr) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= pairs) return;
+  const int tile = i / nv;
+  const int d0 = (i - tile * nv) * V;
+  const int t0 = tile * kTile;
+  const T* xp = x + blockIdx.y * x_sb + d0;
+  T* yp = y + (static_cast<long long>(blockIdx.y) * L + t0) * D + d0;
 
-  float wk[W][V], bd[V];
+  // rows[j] = x[t0 - (W-1) + j], zero before the sequence and past its end
+  Vec<T, V> rows[kTile + kW - 1];
+#pragma unroll
+  for (int j = 0; j < kTile + kW - 1; ++j) {
+    const int t = t0 - (kW - 1) + j;
+    if (t >= 0 && t < L) {
+      rows[j].load(xp + t * x_sr);
+    } else {
+      rows[j].zero();
+    }
+  }
+  // the taps: one 16-byte load a channel (w is (D, W) with W = 4, 16-byte
+  // aligned); the biases as one access of V floats
+  float wk[kW][V], bd[V];
+  Vec<float, V> bv;
+  bv.load(bias + d0);
 #pragma unroll
   for (int c = 0; c < V; ++c) {
-#pragma unroll
-    for (int k = 0; k < W; ++k) wk[k][c] = w[(d0 + c) * W + k];
-    bd[c] = bias[d0 + c];
+    const float4 t = __ldg(reinterpret_cast<const float4*>(w) + d0 + c);
+    wk[0][c] = t.x;
+    wk[1][c] = t.y;
+    wk[2][c] = t.z;
+    wk[3][c] = t.w;
+    bd[c] = bv.get(c);
   }
-  float win[W - 1][V];  // x[t-3], x[t-2], x[t-1]
 #pragma unroll
-  for (int k = 0; k < W - 1; ++k) {
-    const int t = t0 - (W - 1) + k;
-    if (t >= 0) {
-      load_bf16<V>(xb + t * x_sr, win[k]);
-    } else {
+  for (int j = 0; j < kTile; ++j) {
+    if (t0 + j < L) {
+      float out[V];
 #pragma unroll
-      for (int c = 0; c < V; ++c) win[k][c] = 0.f;
+      for (int c = 0; c < V; ++c) {
+        // the TPU kernel's summation order: bias, then taps oldest first
+        float s = bd[c];
+#pragma unroll
+        for (int k = 0; k < kW; ++k) s += wk[k][c] * rows[j + k].get(c);
+        out[c] = silu<T>(s);
+      }
+      store_vec<T, V>(yp + static_cast<long long>(j) * D, out);
     }
   }
-#pragma unroll 4
-  for (int t = t0; t < t_end; ++t) {
-    float xt[V], out[V];
-    load_bf16<V>(xb + t * x_sr, xt);
-#pragma unroll
-    for (int c = 0; c < V; ++c) {
-      // the fp32 kernel's summation order: bias, then taps oldest first
-      float s = bd[c];
-#pragma unroll
-      for (int k = 0; k < W - 1; ++k) s += wk[k][c] * win[k][c];
-      s += wk[W - 1][c] * xt[c];
-      out[c] = s / (1.f + expf(-s));
-#pragma unroll
-      for (int k = 0; k < W - 2; ++k) win[k][c] = win[k + 1][c];
-      win[W - 2][c] = xt[c];
-    }
-    store_bf16<V>(yb + static_cast<long long>(t) * D, out);
+}
+
+template <typename T, int V>
+cudaError_t launch_fwd(const T* x, const float* w, const float* bias, T* y, int B, int L, int D,
+                       long long x_sb, long long x_sr, int tile, int warps, cudaStream_t s) {
+  const int nv = D / V;
+  const int pairs = nv * ((L + tile - 1) / tile);
+  const int threads = 32 * warps;
+  const dim3 grid((pairs + threads - 1) / threads, B);
+  if (tile == 8) {
+    causal_conv1d_silu_fwd_kernel<T, V, 8>
+        <<<grid, threads, 0, s>>>(x, w, bias, y, L, D, nv, pairs, x_sb, x_sr);
+  } else {
+    causal_conv1d_silu_fwd_kernel<T, V, 4>
+        <<<grid, threads, 0, s>>>(x, w, bias, y, L, D, nv, pairs, x_sb, x_sr);
   }
+  return cudaGetLastError();
 }
 
 // Backward (K5): replaces the TPU kernel `_bwd_kernel` behind `_cc_bwd`
@@ -230,7 +256,6 @@ causal_conv1d_silu_fwd_bf16_kernel(const bf16* __restrict__ x, const float* __re
 //   contiguous bytes); each value is widened to fp32 as it is loaded and dx
 //   rounded once as it is stored. Everything else, the dw/db partials and
 //   their fixed-order finish included, is the fp32 body's.
-constexpr int kW = 4;                      // the conv width this body serves
 constexpr int kV = 4;                      // channels a thread
 constexpr int kU = 4;                      // rows of x and g in flight a thread
 constexpr int kWarps = 4;                  // warps (time tiles) a block
@@ -564,17 +589,6 @@ causal_conv1d_silu_bwd_finish(const float* __restrict__ part, float* __restrict_
   }
 }
 
-template <int W>
-cudaError_t launch(const float* x, const float* w, const float* bias, float* y,
-                   int B, int L, int D, long long x_sb, long long x_sr,
-                   cudaStream_t stream) {
-  const dim3 grid((D + kThreads - 1) / kThreads, B,
-                  (L + kTimeTile - 1) / kTimeTile);
-  causal_conv1d_silu_fwd_kernel<W>
-      <<<grid, kThreads, 0, stream>>>(x, w, bias, y, L, D, x_sb, x_sr);
-  return cudaGetLastError();
-}
-
 template <typename T>
 struct BwdArgs {
   const T* x;
@@ -619,6 +633,35 @@ bool width_allowed(const void* p, int v, int n_b, long long sb, int n_r, long lo
 }
 
 template <typename T>
+int fwd_entry(const void* x, const void* w, const void* bias, void* y, int B, int L, int D, int W,
+              long long x_sb, long long x_sr, int vec, int tile, int warps, void* stream) {
+  constexpr unsigned size = sizeof(T);
+  if (W != kW || B < 1 || B > 65535 || L < 1 || D < 1) return cudaErrorInvalidValue;
+  if (tile != 4 && tile != 8) return cudaErrorInvalidValue;
+  if (warps != 1 && warps != 2 && warps != 4) return cudaErrorInvalidValue;
+  // w and bias are read 16 bytes at a time at most
+  if (reinterpret_cast<std::uintptr_t>(w) % 16 != 0 ||
+      reinterpret_cast<std::uintptr_t>(bias) % 16 != 0)
+    return cudaErrorInvalidValue;
+  // one access is 8 bytes at most; V divides D, and x's and y's used strides
+  if (!width_allowed(x, vec, B, x_sb, L, x_sr, size) || vec * size > 8 || D % vec != 0 ||
+      !width_allowed(y, vec, B, static_cast<long long>(L) * D, L, D, size))
+    return cudaErrorInvalidValue;
+  if (static_cast<long long>(D / vec) * ((L + tile - 1) / tile) > INT_MAX - 32 * kFwdMaxWarps)
+    return cudaErrorInvalidValue;
+  const auto* xt = static_cast<const T*>(x);
+  const auto* wf = static_cast<const float*>(w);
+  const auto* bf = static_cast<const float*>(bias);
+  auto* yt = static_cast<T*>(y);
+  auto s = static_cast<cudaStream_t>(stream);
+  if constexpr (size == 2) {
+    if (vec == 4) return launch_fwd<T, 4>(xt, wf, bf, yt, B, L, D, x_sb, x_sr, tile, warps, s);
+  }
+  if (vec == 2) return launch_fwd<T, 2>(xt, wf, bf, yt, B, L, D, x_sb, x_sr, tile, warps, s);
+  return launch_fwd<T, 1>(xt, wf, bf, yt, B, L, D, x_sb, x_sr, tile, warps, s);
+}
+
+template <typename T>
 int bwd_entry(const void* x, const void* w, const void* bias, const void* g, void* dx, void* dw,
               void* db, void* part, long long part_numel, int B, int L, int D, int W,
               long long x_sb, long long x_sr, long long g_sb, long long g_sr, int vx, int vg,
@@ -650,20 +693,17 @@ int bwd_entry(const void* x, const void* w, const void* bias, const void* g, voi
 
 extern "C" {
 
-// x: (B, L, D) fp32 with strides (x_sb, x_sr, 1); w: (D, W) contiguous;
-// bias: (D,); y: (B, L, D) contiguous. Returns a cudaError_t code
-// (cudaErrorInvalidValue for a W other than 4).
-int causal_conv1d_silu_fwd(const void* x, const void* w, const void* bias,
-                           void* y, int B, int L, int D, int W, long long x_sb,
-                           long long x_sr, void* stream) {
-  const auto* xf = static_cast<const float*>(x);
-  const auto* wf = static_cast<const float*>(w);
-  const auto* bf = static_cast<const float*>(bias);
-  auto* yf = static_cast<float*>(y);
-  auto s = static_cast<cudaStream_t>(stream);
-  // width 4 (d_conv) is the only one a ported model uses
-  if (W != 4) return cudaErrorInvalidValue;
-  return launch<4>(xf, wf, bf, yf, B, L, D, x_sb, x_sr, s);
+// Forward: x (B, L, D) fp32 with strides (x_sb, x_sr, 1); w (D, W) and
+// bias (D,) fp32 contiguous and 16-byte aligned; y (B, L, D) contiguous. The
+// plan: vec channels a thread, moved as one access (2 or 1; x's and y's
+// address and used strides and D multiples of it), a time tile of 8 or 4
+// steps, blocks of 4, 2 or 1 warps. Returns a cudaError_t code: cudaErrorInvalidValue for
+// a W other than 4, B above 65535, or a plan that is not built or that the
+// operands' alignment does not allow.
+int causal_conv1d_silu_fwd(const void* x, const void* w, const void* bias, void* y, int B,
+                           int L, int D, int W, long long x_sb, long long x_sr, int vec,
+                           int tile, int warps, void* stream) {
+  return fwd_entry<float>(x, w, bias, y, B, L, D, W, x_sb, x_sr, vec, tile, warps, stream);
 }
 
 // Backward: two launches, the tiles then the finish of dw and db. x, g:
@@ -685,35 +725,12 @@ int causal_conv1d_silu_bwd(const void* x, const void* w, const void* bias,
                           g_sb, g_sr, vx, vg, tile, stream);
 }
 
-// bf16 forward: x (B, L, D) bf16 with strides (x_sb, x_sr, 1), w (D, W) and
-// bias (D,) fp32, y (B, L, D) bf16 contiguous. vec: 8 (channels moved as one
-// 16-byte vector; needs D % 8 == 0, x 16-byte aligned and x_sb, x_sr
-// multiples of 8) or 1. Returns a cudaError_t code (cudaErrorInvalidValue
-// for a W other than 4 or a vec that x does not allow).
-int causal_conv1d_silu_fwd_bf16(const void* x, const void* w, const void* bias, void* y,
-                                int B, int L, int D, int W, long long x_sb, long long x_sr,
-                                int vec, void* stream) {
-  if (W != 4 || B < 1 || L < 1 || D < 1) return cudaErrorInvalidValue;
-  const auto* xb = static_cast<const bf16*>(x);
-  const auto* wf = static_cast<const float*>(w);
-  const auto* bf = static_cast<const float*>(bias);
-  auto* yb = static_cast<bf16*>(y);
-  auto s = static_cast<cudaStream_t>(stream);
-  const int time_blocks = ((L + kFwdTile16 - 1) / kFwdTile16 + kFwdWarps - 1) / kFwdWarps;
-  if (vec == kV16) {
-    if (D % kV16 != 0 || !width_allowed(x, kV16, B, x_sb, L, x_sr, 2))
-      return cudaErrorInvalidValue;
-    const dim3 grid((D / kV16 + 31) / 32, B, time_blocks);
-    causal_conv1d_silu_fwd_bf16_kernel<kV16>
-        <<<grid, 32 * kFwdWarps, 0, s>>>(xb, wf, bf, yb, L, D, x_sb, x_sr);
-  } else if (vec == 1) {
-    const dim3 grid((D + 31) / 32, B, time_blocks);
-    causal_conv1d_silu_fwd_bf16_kernel<1>
-        <<<grid, 32 * kFwdWarps, 0, s>>>(xb, wf, bf, yb, L, D, x_sb, x_sr);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+// bf16 forward: causal_conv1d_silu_fwd's arguments with x and y bf16 (w and
+// bias fp32); vec counts bf16 elements: 4, 2 or 1.
+int causal_conv1d_silu_fwd_bf16(const void* x, const void* w, const void* bias, void* y, int B,
+                                int L, int D, int W, long long x_sb, long long x_sr, int vec,
+                                int tile, int warps, void* stream) {
+  return fwd_entry<bf16>(x, w, bias, y, B, L, D, W, x_sb, x_sr, vec, tile, warps, stream);
 }
 
 // bf16 backward: causal_conv1d_silu_bwd's arguments with x, g and dx bf16

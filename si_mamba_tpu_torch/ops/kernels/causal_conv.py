@@ -4,7 +4,11 @@ kernels, their plain versions and the autograd Function over them.
 Kernels, both in ``csrc/causal_conv.cu``:
 - forward (K1), which replaces the TPU kernel ``_fwd_kernel`` behind
   ``causal_conv1d_silu_pallas`` (si_mamba_tpu/ops/pallas/causal_conv_kernel.py).
-  Bound by bytes on the H100 (one read of x, one write of y);
+  Bound by bytes on the H100 (one read of x, one write of y). A thread owns
+  one time tile of up to four channels, moves them in one access of x and y
+  of up to 8 bytes as their alignment allows, and loads its whole tile before
+  the first multiply-add; :func:`fwd_plan` chooses the width, the tile and the block
+  from the shape and the SM count, the C entry point checks;
 - backward (K5), which replaces ``_bwd_kernel`` behind ``_cc_bwd``. Bound by
   bytes (one read of x and g, one write of dx). A thread owns four channels
   and one time tile, moves each operand 16, 8 or 4 bytes at a time as its
@@ -18,10 +22,8 @@ Both kernels take fp32 or bf16 activations (x, g; y and dx come back in x's
 dtype) with fp32 weight and bias, and compute in fp32, as the TPU kernels
 do at either activation dtype; each dtype is its own variant with its own
 launch count (``causal_conv1d_silu`` / ``causal_conv1d_silu_bf16`` for K1,
-``causal_conv1d_silu_bwd`` / ``causal_conv1d_silu_bwd_bf16`` for K5). The
-bf16 K1 moves eight channels a thread as one 16-byte vector where x's
-alignment allows (:func:`fwd_bf16_vector`); K5's plan counts its vector
-widths in elements of x's dtype (:func:`bwd_plan`).
+``causal_conv1d_silu_bwd`` / ``causal_conv1d_silu_bwd_bf16`` for K5). Both
+plans count their vector widths in elements of x's dtype.
 
 :func:`causal_conv1d_silu` is :class:`CausalConv1dSiluFn`: on a CUDA tensor
 its forward and backward launch the kernels (or raise); on a CPU tensor they
@@ -52,7 +54,12 @@ BWD_TILES = (64, 32, 16)  # the time tiles the plan picks from, longest first
 BWD_VARIANTS = ((4, 4), (2, 4), (1, 1))
 BWD_WARPS_PER_SM = 8  # the least warps an SM the plan's tile aims for
 H100_SMS = 132
-FWD_BF16_VECTOR = 8  # bf16 channels the bf16 K1 moves at once (kV16: 16 bytes)
+# K1's geometry (csrc/causal_conv.cu): the bytes of its widest access of x
+# and y; the time tiles, longest first; warps a block, most first
+FWD_ACCESS_BYTES = 8
+FWD_TILES = (8, 4)
+FWD_WARPS = (4, 2, 1)
+FWD_WARPS_PER_SM = 8  # the least warps of tiles an SM the plan's tile aims for
 # the activation dtypes the kernels are built for; weight and bias are fp32
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -113,13 +120,12 @@ def causal_conv1d_silu_bwd_ref(x: torch.Tensor, weight: torch.Tensor, bias: torc
 def interface(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C argument lists of a built ``causal_conv.cu``."""
     lib.causal_conv1d_silu_fwd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
-        [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+        [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.causal_conv1d_silu_fwd.restype = ctypes.c_int
     lib.causal_conv1d_silu_bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + \
         [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.causal_conv1d_silu_bwd.restype = ctypes.c_int
-    lib.causal_conv1d_silu_fwd_bf16.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + \
-        [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    lib.causal_conv1d_silu_fwd_bf16.argtypes = lib.causal_conv1d_silu_fwd.argtypes
     lib.causal_conv1d_silu_fwd_bf16.restype = ctypes.c_int
     lib.causal_conv1d_silu_bwd_bf16.argtypes = lib.causal_conv1d_silu_bwd.argtypes
     lib.causal_conv1d_silu_bwd_bf16.restype = ctypes.c_int
@@ -153,14 +159,67 @@ def vector_width(ptr: int, batch: int, rows: int, batch_stride: int, row_stride:
     return 1
 
 
-def fwd_bf16_vector(x: torch.Tensor) -> int:
-    """The bf16 K1's channels a thread for bf16 x (B, L, D): FWD_BF16_VECTOR
-    (one 16-byte vector) when D is a multiple of it and x's address and
-    strides allow, else 1."""
+def fwd_vectors(size: int) -> tuple[int, ...]:
+    """The channels a thread of K1 can move as one access of elements of
+    ``size`` bytes, widest first: (2, 1) at fp32, (4, 2, 1) at bf16."""
+    return tuple(v for v in (4, 2, 1) if v * size <= FWD_ACCESS_BYTES)
+
+
+@dataclass(frozen=True)
+class FwdPlan:
+    """How K1 runs at one shape: the channels a thread moves as one access
+    (``vec``, one of :func:`fwd_vectors`), the time tile, the warps a block
+    and the grid (blocks over the (channel vector, tile) pairs of a batch
+    row, batch rows)."""
+
+    vec: int
+    tile: int
+    warps: int
+    grid: tuple[int, int]
+
+
+def fwd_tile(nv: int, B: int, L: int, sms: int = H100_SMS) -> int:
+    """K1's time tile for ``nv`` channel vectors a row: the longest of
+    FWD_TILES whose threads, one a (channel vector, tile) pair of each of the
+    B rows, give every SM FWD_WARPS_PER_SM warps, else the shortest. Each tile
+    re-reads the W - 1 rows before it (mostly from L2), so longer tiles move
+    fewer bytes; shorter ones spread one cloud over more SMs."""
+    return next((t for t in FWD_TILES if nv * -(-L // t) * B >= 32 * FWD_WARPS_PER_SM * sms),
+                FWD_TILES[-1])
+
+
+def fwd_block(pairs: int, B: int, sms: int = H100_SMS) -> tuple[int, tuple[int, int]]:
+    """K1's warps a block and grid for ``pairs`` (channel vector, tile) pairs a
+    batch row: the most of FWD_WARPS that still gives every SM a block, else
+    one; the grid covers the pairs of each row, (blocks, B)."""
+    warps = next((w for w in FWD_WARPS if -(-pairs // (32 * w)) * B >= sms), FWD_WARPS[-1])
+    return warps, (-(-pairs // (32 * warps)), B)
+
+
+def fwd_plan(x: torch.Tensor, sms: int = H100_SMS) -> FwdPlan:
+    """K1's plan for x (B, L, D) with unit stride along channels: ``vec`` the
+    most of :func:`fwd_vectors` that x's address and strides allow and that
+    divides D (y is contiguous), the tile of :func:`fwd_tile` and the block of
+    :func:`fwd_block`. 8-byte accesses at most: 16-byte ones were slower at
+    every path shape (PERF.md §6)."""
     B, L, D = x.shape
-    if D % FWD_BF16_VECTOR:
-        return 1
-    return vector_width(x.data_ptr(), B, L, x.stride(0), x.stride(1), 2, (FWD_BF16_VECTOR,))
+    return _fwd_plan(B, L, D, x.stride(0), x.stride(1), x.element_size(),
+                     x.data_ptr() % FWD_ACCESS_BYTES, sms)
+
+
+@functools.lru_cache(maxsize=256)
+def _fwd_plan(B: int, L: int, D: int, sb: int, sr: int, size: int, ptr: int,
+              sms: int) -> FwdPlan:
+    """:func:`fwd_plan` from what it reads of x: shape, batch and row strides,
+    element size and address modulo the widest access. Cached: the layers of
+    a model call it with the same few shapes, once a launch."""
+    widths = fwd_vectors(size)
+    wx = vector_width(ptr, B, L, sb, sr, size, widths)
+    vec = next(v for v in widths if v <= wx and D % v == 0)
+    nv = D // vec
+    tile = fwd_tile(nv, B, L, sms)
+    warps, grid = fwd_block(nv * -(-L // tile), B, sms)
+    return FwdPlan(vec=vec, tile=tile, warps=warps, grid=grid)
 
 
 @dataclass(frozen=True)
@@ -241,24 +300,35 @@ def _check_inputs(x, weight, bias, g=None) -> None:
         raise ValueError(f"the causal-conv kernels are built for width 4 (d_conv), got {W}")
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous at a 16-byte aligned address (a copy only for a view
+    that starts elsewhere): K1 reads its weight and bias 16 bytes at a time."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     _check_inputs(x, weight, bias)
+    return _run_fwd(x, _aligned16(weight), _aligned16(bias), fwd_plan(x, _sm_count(x.device)))
+
+
+def _run_fwd(x, weight, bias, plan: FwdPlan) -> torch.Tensor:
+    """K1 on checked inputs with ``plan``: one launch; y comes back
+    contiguous in x's dtype."""
     B, L, D = x.shape
-    weight, bias = weight.contiguous(), bias.contiguous()
     y = torch.empty((B, L, D), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    ptrs = (x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            B, L, D, weight.shape[1], x.stride(0), x.stride(1))
+    bf16 = x.dtype == torch.bfloat16
+    entry = lib.causal_conv1d_silu_fwd_bf16 if bf16 else lib.causal_conv1d_silu_fwd
     with torch.cuda.device(x.device):
-        if x.dtype == torch.bfloat16:
-            err = lib.causal_conv1d_silu_fwd_bf16(*ptrs, fwd_bf16_vector(x), stream)
-        else:
-            err = lib.causal_conv1d_silu_fwd(*ptrs, stream)
+        err = entry(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(), B, L, D,
+                    weight.shape[1], x.stride(0), x.stride(1), plan.vec, plan.tile, plan.warps,
+                    stream)
     _check(lib, err, "causal-conv forward")
-    (causal_conv1d_silu_bf16 if x.dtype == torch.bfloat16 else causal_conv1d_silu).launches += 1
+    (causal_conv1d_silu_bf16 if bf16 else causal_conv1d_silu).launches += 1
     return y
 
 

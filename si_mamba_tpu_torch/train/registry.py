@@ -36,10 +36,11 @@ class Registry:
 MODELS = Registry("models")
 
 
-def build_model_from_cfg(model_cfg: dict, device="cpu", seed: int = 0):
+def build_model_from_cfg(model_cfg: dict, device="cuda", seed: int = 0):
     """NAME-dispatched model construction: (model, config dataclass) for the
-    reference's NAME strings. The model is built on ``device`` from a
-    generator on that device seeded with ``seed``."""
+    reference's NAME strings. The model is built on ``device`` (the card
+    unless the caller asks for the CPU, as the CLI and ``Predictor`` default)
+    from a generator on that device seeded with ``seed``."""
     if model_cfg["NAME"] not in MODELS:
         _register_builtin_models()
     return MODELS.build(dict(model_cfg), device=torch.device(device), seed=seed)

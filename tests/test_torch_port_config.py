@@ -145,7 +145,7 @@ def test_snapshot_rereads_equal_in_both_packages(tmp_path, writer, preset):
 def test_registry_builds_pointmamba_and_names_what_is_not_ported():
     model, cfg = build_model_from_cfg({
         "NAME": "PointMamba", "trans_dim": 32, "depth": 2, "cls_dim": 4, "group_size": 8,
-        "num_group": 16, "encoder_dims": 32, "knn_graph": 4, "not_a_field": 1})
+        "num_group": 16, "encoder_dims": 32, "knn_graph": 4, "not_a_field": 1}, "cpu")
     assert cfg.trans_dim == 32 and cfg.depth == 2 and len(model.blocks.layers) == 2
     with pytest.raises(NotImplementedError, match="M16"):
         build_model_from_cfg({"NAME": "Point_MAE_Mamba", "group_size": 8})
@@ -162,7 +162,7 @@ def test_registry_model_equals_the_seeded_default_build():
 
     d = {"NAME": "PointMamba", "trans_dim": 32, "depth": 1, "group_size": 8, "num_group": 8,
          "encoder_dims": 32, "knn_graph": 4}
-    model, cfg = build_model_from_cfg(d)
+    model, cfg = build_model_from_cfg(d, "cpu")
     ref = PointMamba(PointMambaConfig.from_dict(d))
     for (k, v), (k2, v2) in zip(model.state_dict().items(), ref.state_dict().items()):
         assert k == k2 and torch.equal(v, v2)

@@ -9,6 +9,7 @@ the suite's conftest left out:
     python -m pytest --noconftest -q tests/test_torch_port_cuda.py
 """
 
+import itertools
 import json
 
 import numpy as np
@@ -40,18 +41,89 @@ def _close_to_max(got, want, tol):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("l,d", [(37, 24), (512, 200), (64, 130), (65, 768)])
-def test_conv_kernel_matches_plain(cuda, l, d):
+@pytest.mark.parametrize("b,l,d,row,off", [
+    (2, 37, 24, 48, 0), (2, 512, 200, 400, 0), (2, 64, 130, 260, 0), (2, 65, 768, 1536, 0),
+    (32, 512, 1024, 1798, 768),  # the SSD view: 8-byte accesses
+    (32, 512, 384, 384, 0),      # the tensor-parallel SSD x shard
+    (32, 512, 256, 256, 0),      # the tensor-parallel SSD B|C
+    (32, 512, 384, 768, 0),      # the tensor-parallel Mamba-1 xi
+    (1, 512, 768, 1536, 0),      # one cloud
+    (3, 100, 1024, 1798, 768),   # L not a multiple of any tile
+])
+def test_conv_kernel_matches_plain(cuda, b, l, d, row, off):
     rng = np.random.default_rng(0)
-    xz = _randn(rng, 2, l, 2 * d, device=cuda)
+    xz = _randn(rng, b, l, row, device=cuda)
     weight, bias = _randn(rng, d, 4, scale=0.5, device=cuda), _randn(rng, d, scale=0.1, device=cuda)
-    x = xz[..., :d]  # a column slice, as in the mixer
+    x = xz[..., off:off + d]  # a column slice, as in the mixer
     before = kconv.causal_conv1d_silu.launches
     got = kconv.causal_conv1d_silu(x, weight, bias)
     torch.cuda.synchronize()
     assert kconv.causal_conv1d_silu.launches == before + 1
     torch.testing.assert_close(got, kconv.causal_conv1d_ref(x, weight, bias),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernel_matches_plain_at_every_built_plan(cuda, dtype):
+    """K1 at every vector width, time tile and block the source builds, on
+    views whose alignment allows each width, at a ragged L: fp32 within
+    rtol 1e-5 / atol 1e-6, bf16 within one ulp, one launch each."""
+    rng = np.random.default_rng(9)
+    counter = kconv.causal_conv1d_silu_bf16 if dtype == torch.bfloat16 else kconv.causal_conv1d_silu
+    buf = _randn(rng, 3, 45, 400, device=cuda).to(dtype)
+    d = 128
+    weight, bias = _randn(rng, d, 4, scale=0.5, device=cuda), _randn(rng, d, scale=0.1, device=cuda)
+    for vec in kconv.fwd_vectors(buf.element_size()):
+        x = buf[..., vec:vec + d]  # vec elements in: aligned to vec, not to 2 vec
+        want = kconv.causal_conv1d_ref(x, weight, bias)
+        for tile, warps in itertools.product(kconv.FWD_TILES, kconv.FWD_WARPS):
+            before = counter.launches
+            y = kconv._run_fwd(x, weight, bias, kconv.FwdPlan(vec, tile, warps, (0, 0)))
+            torch.cuda.synchronize()
+            assert counter.launches == before + 1
+            if dtype == torch.bfloat16:
+                assert _bf16_ulps(y, want) <= 1, (vec, tile, warps)
+            else:
+                torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_forward_entry_points_refuse_plans_the_operands_do_not_allow(cuda, dtype):
+    """A vector width that x's address, its row stride or D does not allow,
+    one wider than built, a time tile or a block that is not built: the C
+    entry point refuses it (cudaErrorInvalidValue) and nothing launches."""
+    rng = np.random.default_rng(10)
+    widest = kconv.fwd_vectors(torch.empty((), dtype=dtype).element_size())[0]
+    buf = _randn(rng, 2, 20, 3 * widest + 64, device=cuda).to(dtype)
+    weight, bias = _randn(rng, 64, 4, device=cuda), _randn(rng, 64, device=cuda)
+    counter = kconv.causal_conv1d_silu_bf16 if dtype == torch.bfloat16 else kconv.causal_conv1d_silu
+    plans = [(buf[..., 1:65], kconv.FwdPlan(2, 8, 4, (0, 0))),            # odd address
+             (buf[..., :64], kconv.FwdPlan(2 * widest, 8, 4, (0, 0))),    # wider than built
+             (buf[..., 1:63], kconv.FwdPlan(1, 16, 4, (0, 0))),           # a tile not built
+             (buf[..., :64], kconv.FwdPlan(widest, 8, 3, (0, 0))),        # a block not built
+             (buf[..., :63], kconv.FwdPlan(widest, 8, 4, (0, 0)))]        # D % vec != 0
+    rows = buf.as_strided((2, 20, 64), (buf.stride(0), widest + 1, 1))  # row stride not a multiple
+    plans.append((rows, kconv.FwdPlan(widest, 8, 4, (0, 0))))
+    for x, plan in plans:
+        before = counter.launches
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            kconv._run_fwd(x, weight[:x.shape[2]].contiguous(), bias[:x.shape[2]].contiguous(),
+                           plan)
+        assert counter.launches == before
+    # a weight 4 bytes past a 16-byte boundary: the entry point refuses it, the
+    # wrapper hands the kernel an aligned copy
+    x, shifted = buf[..., :64], torch.cat([weight.new_zeros(1), weight.flatten()])[1:].view(64, 4)
+    assert shifted.data_ptr() % 16 != 0
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        kconv._run_fwd(x, shifted, bias, kconv.fwd_plan(x))
+    y, want = kconv.causal_conv1d_silu_fwd(x, shifted, bias), kconv.causal_conv1d_ref(x, weight, bias)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        assert _bf16_ulps(y, want) <= 1
+    else:
+        torch.testing.assert_close(y, want, rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda
@@ -1155,10 +1227,15 @@ def _fp32_counts():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l,d,row,off,vec", [
-    (2, 512, 768, 1536, 0, 8),   # the Mamba-1 view: 16-byte vectors, K5 (4, 4)
-    (2, 65, 200, 400, 0, 8),     # ragged L, 25 vectors a row
+    (2, 512, 768, 1536, 0, 4),   # the Mamba-1 view: K1 and K5 (4, 4) 8-byte accesses
+    (2, 65, 200, 400, 0, 4),     # ragged L, 50 vectors a row
     (3, 37, 24, 50, 1, 1),       # an odd address: one channel a thread, K5 (1, 1)
-    (1, 130, 130, 262, 2, 1),    # D % 4 != 0: K5's masked edge
+    (1, 130, 130, 262, 2, 2),    # D % 4 != 0: K5's masked edge; K1 4-byte accesses
+    (2, 512, 1024, 1798, 768, 2),  # the SSD view: K1 4-byte accesses, K5 (2, 4)
+    (32, 512, 384, 384, 0, 4),   # the tensor-parallel SSD x shard
+    (32, 512, 256, 256, 0, 4),   # the tensor-parallel SSD B|C
+    (1, 512, 768, 1536, 0, 4),   # one cloud
+    (3, 100, 1024, 1798, 768, 2),  # L not a multiple of any tile
 ])
 def test_bf16_conv_kernels_match_plain(cuda, b, l, d, row, off, vec):
     """The bf16 K1 and K5 on a column view of a bf16 buffer: y and dx within
@@ -1170,7 +1247,7 @@ def test_bf16_conv_kernels_match_plain(cuda, b, l, d, row, off, vec):
     x = buf[..., off:off + d]
     w, bias = _randn(rng, d, 4, scale=0.5, device=cuda), _randn(rng, d, scale=0.1, device=cuda)
     g = _randn(rng, b, l, d, device=cuda).to(torch.bfloat16)
-    assert kconv.fwd_bf16_vector(x) == vec
+    assert kconv.fwd_plan(x).vec == vec
     before, fp32 = _bf16_counts(), _fp32_counts()
     y = kconv.causal_conv1d_silu_bf16(x, w, bias)
     got = kconv.causal_conv1d_silu_bwd_bf16(x, w, bias, g)

@@ -68,6 +68,66 @@ def test_conv_wrapper_on_cpu_is_the_plain_version():
     assert kconv.causal_conv1d_silu.launches == before  # counts kernel launches only
 
 
+F32, BF = torch.float32, torch.bfloat16
+MIXER_VIEWS = ("Mamba-1 xi", "SSD x|B|C")
+
+
+@pytest.mark.parametrize("what,dtype,shape,row,off,plan", [
+    ("Mamba-1 xi, columns :768 of xz", F32, (32, 512, 768), 1536, 0, (2, 8, 4, (192, 32))),
+    ("Mamba-1 xi at one cloud", F32, (1, 512, 768), 1536, 0, (2, 4, 4, (384, 1))),
+    ("Mamba-1 xi at 20 clouds", F32, (20, 512, 768), 1536, 0, (2, 8, 4, (192, 20))),
+    ("Mamba-1 xi at 64 clouds", F32, (64, 512, 768), 1536, 0, (2, 8, 4, (192, 64))),
+    ("SSD x|B|C, columns 768:1792 of zxbcdt", F32, (32, 512, 1024), 1798, 768,
+     (2, 8, 4, (256, 32))),
+    ("SSD x|B|C at one cloud", F32, (1, 512, 1024), 1798, 768, (2, 4, 4, (512, 1))),
+    ("SSD x|B|C at 20 clouds", F32, (20, 512, 1024), 1798, 768, (2, 8, 4, (256, 20))),
+    ("SSD x|B|C at 64 clouds", F32, (64, 512, 1024), 1798, 768, (2, 8, 4, (256, 64))),
+    ("tensor-parallel SSD x shard, contiguous", F32, (32, 512, 384), 384, 0, (2, 8, 4, (96, 32))),
+    ("tensor-parallel SSD B|C, contiguous", F32, (32, 512, 256), 256, 0, (2, 8, 4, (64, 32))),
+    ("tensor-parallel Mamba-1 xi, columns :384 of its xz", F32, (32, 512, 384), 768, 0,
+     (2, 8, 4, (96, 32))),
+    ("odd address", F32, (3, 37, 24), 50, 1, (1, 4, 1, (8, 3))),
+    ("ragged L, D % 4 != 0", F32, (2, 100, 6), 6, 0, (2, 4, 1, (3, 2))),
+    ("base offset by two elements, D % 4 != 0", F32, (1, 130, 130), 262, 2, (2, 4, 1, (68, 1))),
+    ("Mamba-1 xi, columns :768 of xz", BF, (32, 512, 768), 1536, 0, (4, 8, 4, (96, 32))),
+    ("Mamba-1 xi at one cloud", BF, (1, 512, 768), 1536, 0, (4, 4, 4, (192, 1))),
+    ("Mamba-1 xi at 20 clouds", BF, (20, 512, 768), 1536, 0, (4, 8, 4, (96, 20))),
+    ("Mamba-1 xi at 64 clouds", BF, (64, 512, 768), 1536, 0, (4, 8, 4, (96, 64))),
+    ("SSD x|B|C, columns 768:1792 of zxbcdt", BF, (32, 512, 1024), 1798, 768, (2, 8, 4, (256, 32))),
+    ("SSD x|B|C at one cloud", BF, (1, 512, 1024), 1798, 768, (2, 4, 4, (512, 1))),
+    ("SSD x|B|C at 20 clouds", BF, (20, 512, 1024), 1798, 768, (2, 8, 4, (256, 20))),
+    ("SSD x|B|C at 64 clouds", BF, (64, 512, 1024), 1798, 768, (2, 8, 4, (256, 64))),
+    ("tensor-parallel SSD x shard, contiguous", BF, (32, 512, 384), 384, 0, (4, 8, 4, (48, 32))),
+    ("tensor-parallel SSD B|C, contiguous", BF, (32, 512, 256), 256, 0, (4, 8, 4, (32, 32))),
+    ("tensor-parallel Mamba-1 xi, columns :384 of its xz", BF, (32, 512, 384), 768, 0,
+     (4, 8, 4, (48, 32))),
+    ("odd address", BF, (3, 37, 24), 50, 1, (1, 4, 1, (8, 3))),
+    ("ragged L, D % 4 != 0", BF, (2, 100, 6), 6, 0, (2, 4, 1, (3, 2))),
+    ("base offset by two elements, D % 4 != 0", BF, (1, 130, 130), 262, 2, (2, 4, 1, (68, 1))),
+])
+def test_conv_fwd_plan(what, dtype, shape, row, off, plan):
+    """K1's plan on the H100's 132 SMs: the widest access of 8 and 4 bytes
+    that x's address and strides and D allow (the bf16 SSD view moves two
+    channels, 4 bytes, a thread), else one element; the longer time tile (8)
+    where its (channel vector, tile) pairs give every SM 8 warps, else 4;
+    blocks of 4, 2 or 1 warps, at least one an SM where the shape has that
+    many warps; the grid covers every pair of every batch row once, and a
+    mixer view takes at least 132 blocks at one cloud."""
+    B, L, D = shape
+    x = torch.empty((B, L, row), device="meta", dtype=dtype)[..., off:off + D]
+    got = kconv.fwd_plan(x)
+    assert (got.vec, got.tile, got.warps, got.grid) == plan, what
+    assert D % got.vec == 0 and got.vec * x.element_size() <= 8
+    pairs = D // got.vec * -(-L // got.tile)
+    block = 32 * got.warps
+    assert got.grid[1] == B and got.grid[0] * block >= pairs > (got.grid[0] - 1) * block
+    if B == 1 and what.startswith(MIXER_VIEWS):
+        assert got.grid[0] >= 132
+    # a tile is shorter only where the longer one would give under 8 warps an SM
+    longer = [t for t in kconv.FWD_TILES if t > got.tile]
+    assert all(D // got.vec * -(-L // t) * B < 32 * 8 * 132 for t in longer)
+
+
 # ---------------------------------------------------------------------------
 # K2: selective scan forward
 # ---------------------------------------------------------------------------

@@ -171,18 +171,56 @@ def test_conv_bf16_plain_matches_pallas_interpret(l, d, off):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("row,off,vx,vec", [(1536, 0, 4, 8), (1536, 2, 2, 1), (1537, 0, 1, 1),
-                                            (1536, 4, 4, 1), (1536, 8, 4, 8)])
+@pytest.mark.parametrize("row,off,vx,vec", [(1536, 0, 4, 4), (1536, 2, 2, 2), (1537, 0, 1, 1),
+                                            (1536, 4, 4, 4), (1536, 8, 4, 4)])
 def test_conv_bf16_plans_count_elements(row, off, vx, vec):
     """The bf16 K5 plan counts its widths in bf16 elements (the Mamba-1 view,
-    columns :768 of a 1536-wide bf16 xz, moves 4 a thread: 8 bytes), and the
-    bf16 K1 moves 8 channels as one 16-byte vector where x allows."""
+    columns :768 of a 1536-wide bf16 xz, moves 4 a thread: 8 bytes), and so
+    does the bf16 K1's: 4 channels as one 8-byte access where x allows, else
+    2 (4 bytes), else one."""
     x = torch.empty((32, 512, row), device="meta", dtype=BF)[..., off:off + 768]
     g = torch.empty((32, 512, 768), device="meta", dtype=BF)
     plan = kconv.bwd_plan(x, g)
     assert plan.vx == vx and (plan.vx, plan.vg) in kconv.BWD_VARIANTS
-    assert kconv.fwd_bf16_vector(x) == vec
+    assert kconv.fwd_plan(x).vec == vec
     assert (plan.tile, plan.partial_shape) == (64, (64, 5, 768))
+
+
+def _k1_bf16_arithmetic(x, w, b):
+    """The bf16 K1's arithmetic on the CPU: x widened to fp32; s = bias, then
+    one fused multiply-add a tap, oldest first (the product and sum taken in
+    float64 and rounded to fp32 once, as an FMA rounds); y = s / (1 + exp(-s))
+    as __fdividef takes it in fp32: s times the reciprocal, 0 where the
+    denominator reaches 2^126; rounded to bf16 once. (The card's exp and
+    reciprocal are within a few fp32 ulps of these.)"""
+    B, L, D = x.shape
+    xpad = torch.nn.functional.pad(x.float(), (0, 0, 3, 0))
+    s = b.float().expand(B, L, D)
+    for k in range(4):
+        s = (s.double() + w[:, k].double() * xpad[:, k:k + L].double()).float()
+    den = 1.0 + torch.exp(-s)
+    y = torch.where(den.abs() >= 2.0 ** 126, torch.zeros_like(s), s * torch.reciprocal(den))
+    return y.to(BF)
+
+
+@pytest.mark.parametrize("l,d,off,scale", [(50, 32, 0, 1.0), (37, 24, 24, 1.0), (40, 16, 8, 40.0)])
+def test_conv_bf16_kernel_silu_matches_pallas_interpret(l, d, off, scale):
+    """The bf16 K1 computes SiLU as __fdividef(s, 1 + __expf(-s)) (a fast exp,
+    an approximate reciprocal and a multiply), not the fp32 kernel's IEEE
+    division: that arithmetic, emulated in fp32, stays within one bf16 ulp of
+    the Pallas kernel in interpret mode and of the plain version, also where
+    |s| reaches 100 and 1 + exp(-s) passes 2^126 or overflows."""
+    rng = np.random.default_rng(l + d)
+    xz = (rng.standard_normal((2, l, 2 * d)) * scale).astype(np.float32)
+    w = (rng.standard_normal((d, 4)) * 0.5).astype(np.float32)
+    b = (rng.standard_normal(d) * 0.1).astype(np.float32)
+    txz, jxz = _bf16(xz)
+    x, jx = txz[..., off:off + d], jxz[..., off:off + d]
+    y = _k1_bf16_arithmetic(x, torch.from_numpy(w), torch.from_numpy(b))
+    jy = causal_conv1d_silu_pallas(jx, jnp.asarray(w), jnp.asarray(b), interpret=True)
+    assert _ulps(y, jy) <= 1
+    ref = kconv.causal_conv1d_ref(x, torch.from_numpy(w), torch.from_numpy(b))
+    assert _ulps(y, ref) <= 1
 
 
 # ---------------------------------------------------------------------------
