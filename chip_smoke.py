@@ -227,19 +227,46 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    cfgs/finetune_modelnet_perf.yaml with ``model.scan_impl: fused``, written
    on the harness tree, one epoch of two steps and a validation, then
    ``--test`` of its ckpt-last.pth, launches counted.
+28. the kernels at the part-segmentation shapes (after phase 4): K1 and K5 on
+   the Mamba-1 view and the SSD view, K2, K3, K4, K8 (both variants) and K9
+   at B=16, L=256 (the HLT canvas of 128 groups), chunk 128 (two chunks),
+   each held against its plain version at the tolerances above and timed
+   beside it; the figures go into each record's ``at_seg_shape``;
+29. part segmentation (after phase 27): one request of 20 clouds through a
+   ``Predictor`` over the ModelNet40 classifier with the HLT ordering (the
+   conv and the lean scan 12 times each, logits against 'seq'); the
+   full-width seg eval forward of cfgs/part_segmentation.yaml (against
+   'seq') and of cfgs/part_segmentation_ssd_fused.yaml (against 'xla') on 16
+   clouds of 2048 points, both drawing the JAX evaluation's HLT tie-break,
+   log-probs within 1e-3 of their max and 2e-3 relative; the SSD preset's
+   block stack cut to 4 blocks (at 12 its gradient norm is inf from a
+   random start) in training at the same shapes, kernels against 'xla' on
+   the inputs and tap cotangent of one 'xla' train pass of the whole model,
+   every stack gradient within 1e-3 of its leaf's largest, K1, K8 with
+   states, K9 and K5 once a block; then both presets through
+   the CLI at max_epoch 1 on a seeded tree in ShapeNetPart's layout written
+   under build/seg/ (48 trainval, 32 test shapes): three steps at batch 16,
+   each launching K1, K3, K4 and K5 (the SSD preset: K1, K8 with states, K9
+   and K5) 12 times each and nothing else, every evaluation forward K1 and
+   K2 (K1 and the lean K8) 12 times each, finite losses, the BatchNorm
+   statistics and every decayed parameter moved, every parameter finite (the
+   unmoved and the steps' gradient norms recorded), instance and class mIoU
+   and accuracy in [0, 1], ckpt-last.pth and ckpt-best.pth written; the step
+   p50, the evaluation's ms a batch and the peak memory printed.
 
 Each path (serving, train, perf serving, perf train, SSD serving, SSD train,
 SSD perf serving, SSD perf train, fused serving, fused train, fused perf
 serving, fused perf train, the carry path at fp32 and at bf16, the harness's
 finetune, test and vote runs, the perf, SSD and fused perf configurations'
-CLI runs and the latter two's test runs, and on each rank TP SSD serving,
+CLI runs and the latter two's test runs, the HLT classifier's request, the
+two held seg forwards and the two seg CLI runs, and on each rank TP SSD serving,
 TP SSD train, SP, SP train, TP Mamba-1 serving, bf16 TP SSD serving and
 train, bf16 SP and SP train, bf16 TP Mamba-1 serving and train) is driven with every launch count set to 0 just before it and read
 just after. The last five
 lines of standard output are the harness's record, the serving, profile,
 train and gradient record of the three models (and perf mode's, the SSD
-presets' and fused perf mode's serving, profile, train and CLI records), the
-kernels' record (each one
+presets' and fused perf mode's serving, profile, train and CLI records, and
+part segmentation's), the kernels' record (each one
 JSON object; every kernel names its ``main_path`` and its launches on every
 path, rank 0's for the parallel paths), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -377,28 +404,28 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> 
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mixer_inputs(device, batch: int = 32):
+def mixer_inputs(device, batch: int = 32, length: int = 512):
     """The conv's and the scan's inputs as layer 0's mixer makes them, at
-    B=batch, L=512 (views into xz and x_dbl, as on the serving path)."""
+    B=batch, L=length (views into xz and x_dbl, as on the serving path)."""
     from si_mamba_tpu_torch.models.layers import MambaMixer
 
     mixer = MambaMixer(MODELNET40["trans_dim"], out_proj_div=MODELNET40["depth"] ** 0.5)
     mixer.reset_parameters(torch.Generator().manual_seed(1))
     p = {k: v.detach().to(device) for k, v in mixer.params().items()}
     rng = np.random.default_rng(2)
-    x = torch.from_numpy(rng.standard_normal((batch, 512, MODELNET40["trans_dim"]),
+    x = torch.from_numpy(rng.standard_normal((batch, length, MODELNET40["trans_dim"]),
                                              dtype=np.float32)).to(device)
     xz = x @ p["in_proj_w"]
     return mixer, p, xz
 
 
-def scan_operands(device, batch: int = 32) -> tuple:
+def scan_operands(device, batch: int = 32, length: int = 512) -> tuple:
     """The scan's inputs (u, dt, A, B, C, D, z, dt_bias) as layer 0's mixer
-    makes them at B=batch, L=512: u the conv kernel's output, B and C column
-    views of x_dbl, z the column view of xz."""
+    makes them at B=batch, L=length: u the conv kernel's output, B and C
+    column views of x_dbl, z the column view of xz."""
     from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_silu_fwd
 
-    mixer, p, xz = mixer_inputs(device, batch)
+    mixer, p, xz = mixer_inputs(device, batch, length)
     d_inner, n, dt_rank = mixer.d_inner, mixer.d_state, mixer.dt_rank
     u = causal_conv1d_silu_fwd(xz[..., :d_inner], p["conv_w"], p["conv_b"])
     x_dbl = u @ p["x_proj_w"]
@@ -638,14 +665,15 @@ def scan_fwd_figures(args) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def backward_kernel_phase(device) -> list[dict]:
-    """The scan's training kernels at the serving path's shapes, with a
-    seeded output gradient: K3 (scan forward with residuals) and K4 (scan
-    backward), each against its plain version, then timed."""
+def backward_kernel_phase(device, args=None) -> list[dict]:
+    """The scan's training kernels at the serving path's shapes (or on
+    ``args``, ``scan_operands`` at another shape), with a seeded output
+    gradient: K3 (scan forward with residuals) and K4 (scan backward), each
+    against its plain version, then timed."""
     from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
 
     # K3: the scan forward that keeps its tile entry states, on the conv's output
-    args = scan_operands(device)
+    args = scan_operands(device) if args is None else args
     B, L, D = args[0].shape
     n = args[2].shape[1]
     rng = np.random.default_rng(3)
@@ -894,26 +922,28 @@ def ssd_fwd_at_clouds(device) -> dict:
     return out
 
 
-def ssd_kernel_phase(device) -> tuple[list[dict], dict]:
+def ssd_kernel_phase(device, batch: int = 32, length: int = 512,
+                     chunk: int = MODELNET40_SSD["ssd_chunk"],
+                     at_clouds: bool = True) -> tuple[list[dict], dict]:
     """The SSD path's kernels at its shapes, as layer 0's SSD mixer makes its
-    inputs at B=32, L=512: K1 and K5 at width 1024 on the column view of the
-    (32, 512, 1798) in_proj output, then K8 (both variants; lean K8 also at
-    the serving request sizes) and K9 (run twice, bitwise equal) on K1's
+    inputs at B=batch, L=length (32 and 512, the classifier's; the chunk its
+    256): K1 and K5 at width 1024 on the column view of the (B, L, 1798)
+    in_proj output, then K8 (both variants; with ``at_clouds`` lean K8 also
+    at the serving request sizes) and K9 (run twice, bitwise equal) on K1's
     output. Returns the K8/K9 records and the K1/K5 figures at this shape."""
     from si_mamba_tpu_torch.models.layers import SSDMixer
     from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
     from si_mamba_tpu_torch.ops.kernels import ssd as kssd
 
     depth = MODELNET40["depth"]
-    mixer = SSDMixer(MODELNET40["trans_dim"], out_proj_div=depth ** 0.5,
-                     chunk=MODELNET40_SSD["ssd_chunk"])
+    mixer = SSDMixer(MODELNET40["trans_dim"], out_proj_div=depth ** 0.5, chunk=chunk)
     mixer.reset_parameters(torch.Generator().manual_seed(1))
     p = {k: v.detach().to(device) for k, v in mixer.params().items()}
     d, n, h, chunk = mixer.d_inner, mixer.d_state, mixer.n_heads, mixer.chunk
     rng = np.random.default_rng(4)
-    u = torch.from_numpy(rng.standard_normal((32, 512, MODELNET40["trans_dim"]),
+    u = torch.from_numpy(rng.standard_normal((batch, length, MODELNET40["trans_dim"]),
                                              dtype=np.float32)).to(device)
-    zxbcdt = u @ p["in_proj_w"]  # (32, 512, 1798)
+    zxbcdt = u @ p["in_proj_w"]  # (B, L, 1798)
     xbc_in = zxbcdt[..., d:2 * d + 2 * n]  # width 1024, row stride 1798
     B, L, C = xbc_in.shape
     g = torch.from_numpy(rng.standard_normal((B, L, C), dtype=np.float32)).to(device)
@@ -962,7 +992,8 @@ def ssd_kernel_phase(device) -> tuple[list[dict], dict]:
             ms=time_ms(fn, 20), device_ms=graph_ms(fn, 20),
             plain_ms=time_ms(lambda: kssd.ssd_xbc_fwd_ref(*args, emit_states=bool(extra)), 3),
             library_ms=None, **tc_bound(fwd_bytes + extra, fwd_ops)))
-    records[0]["at_clouds"] = ssd_fwd_at_clouds(device)
+    if at_clouds:
+        records[0]["at_clouds"] = ssd_fwd_at_clouds(device)
     log(f"SSD forward ok: states y == lean y; vs plain y {err_y:.3e} ({rel_y:.3e} of max), "
         f"h_in {err_h:.3e} ({rel_h:.3e} of max)")
 
@@ -3461,6 +3492,437 @@ def ssd_preset_cli_phase(device, card: str) -> tuple[dict, dict]:
                              "scan_impl": "ssd_fused", "ssd_chunk": 256}, test=True)
 
 
+# The part-segmentation path (cfgs/part_segmentation*.yaml: total_bs 16, 2048
+# points, 128 groups of 32, the HLT canvas of L = 2 * 128 = 256 tokens; the SSD
+# preset's chunk 128, two chunks)
+SEG_BATCH = 16
+SEG_POINTS = 2048
+SEG_LEN = 256
+SEG_CHUNK = 128
+SEG_TRAINVAL = 48  # three steps at total_bs 16
+SEG_TEST = 32  # two evaluation batches
+SEG_SHAPE_POINTS = 2500  # rows a written shape, resampled to 2048 with replacement
+SEG_PRESETS = {
+    "part_segmentation.yaml": dict(mixer="mamba", scan_impl="auto"),
+    "part_segmentation_ssd_fused.yaml": dict(mixer="ssd", scan_impl="ssd_fused"),
+}
+SEG_SSD_TRAIN_KERNELS = ("causal_conv1d_silu", "ssd_xbc_fwd_states", "ssd_xbc_bwd",
+                         "causal_conv1d_silu_bwd")
+SEG_SSD_EVAL_KERNELS = ("causal_conv1d_silu", "ssd_xbc_fwd")
+
+
+def seg_kernel_phase(device) -> dict:
+    """K1-K5, K8 and K9 at the part-segmentation path's shapes, each held
+    against its plain version at the tolerances of the phases above and timed
+    beside it: K1 and K5 on the Mamba-1 xi view (B=16, L=256, width 768 of a
+    1536 row) and the SSD x|B|C view (width 1024 of a 1798 row), K2, K3 and
+    K4 on K1's output, K8 (both variants) and K9 at 6 heads, chunk 128 (two
+    chunks). Returns {kernel name: {view: figures}}."""
+    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
+
+    mixer, p, xz = mixer_inputs(device, SEG_BATCH, SEG_LEN)
+    xi = xz[..., :mixer.d_inner]
+    g = torch.from_numpy(np.random.default_rng(30).standard_normal(
+        xi.shape, dtype=np.float32)).to(device)
+    fwd, bwd = conv_records(xi, p["conv_w"], p["conv_b"], g)
+    args = scan_operands(device, SEG_BATCH, SEG_LEN)
+    k2 = scan_fwd_figures(args)
+    k2["plain_ms"] = time_ms(lambda: ks.selective_scan_ref(*args[:5], D=args[5], z=args[6],
+                                                            delta_bias=args[7]), 2, warmup=1)
+    k3, k4 = backward_kernel_phase(device, args)
+    ssd_records, ssd_conv = ssd_kernel_phase(device, SEG_BATCH, SEG_LEN, SEG_CHUNK,
+                                             at_clouds=False)
+    keep = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "plan")
+    out = {"causal_conv1d_silu": {"mamba1": fwd, "ssd": ssd_conv["causal_conv1d_silu"]},
+           "causal_conv1d_silu_bwd": {"mamba1": bwd, "ssd": ssd_conv["causal_conv1d_silu_bwd"]},
+           "selective_scan_fwd": {"mamba1": k2}, "selective_scan_fwd_residuals": {"mamba1": k3},
+           "selective_scan_bwd": {"mamba1": k4},
+           **{r["name"]: {"ssd": r} for r in ssd_records}}
+    out = {name: {view: {k: v for k, v in f.items() if k in keep} for view, f in views.items()}
+           for name, views in out.items()}
+    log("kernels at the seg shapes (B=16, L=256): " + "; ".join(
+        f"{name} {view} {f['ms']:.6f} ms (plain {f['plain_ms']:.6f}, bound "
+        f"{f['bound_ms']:.6f})" for name, views in out.items() for view, f in views.items()))
+    return out
+
+
+def write_shapenetpart_tree(root: Path, n_trainval: int, n_test: int,
+                            n_points: int = SEG_SHAPE_POINTS, seed: int = 12) -> Path:
+    """A tree in ShapeNetPart's layout: ``synsetoffset2category.txt`` with the
+    16 categories, ``train_test_split/shuffled_{train,val,test}_file_list.json``
+    and one ``<offset>/<shape>.txt`` a shape of ``x y z nx ny nz part`` rows,
+    the parts drawn from the category's; the categories taken in turn, every
+    fifth trainval shape in the val list."""
+    from si_mamba_tpu_torch.data.shapenetpart import SEG_CLASSES
+
+    rng = np.random.default_rng(seed)
+    names = list(SEG_CLASSES)
+    offsets = {name: f"{2690000 + i:08d}" for i, name in enumerate(names)}
+    (root / "train_test_split").mkdir(parents=True, exist_ok=True)
+    (root / "synsetoffset2category.txt").write_text(
+        "".join(f"{name}\t{off}\n" for name, off in offsets.items()))
+    lists = {"train": [], "val": [], "test": []}
+    for i in range(n_trainval + n_test):
+        name = names[i % len(names)]
+        split = "test" if i >= n_trainval else ("val" if i % 5 == 4 else "train")
+        (root / offsets[name]).mkdir(exist_ok=True)
+        rows = np.concatenate([rng.standard_normal((n_points, 6)),
+                               rng.choice(SEG_CLASSES[name], (n_points, 1))], axis=1)
+        np.savetxt(root / offsets[name] / f"shape{i:04d}.txt", rows, fmt="%.6f")
+        lists[split].append(f"shape_data/{offsets[name]}/shape{i:04d}")
+    for split, ids in lists.items():
+        (root / "train_test_split" / f"shuffled_{split}_file_list.json").write_text(
+            json.dumps(ids))
+    return root
+
+
+def partseg_cli_phase(device, card: str, preset: str, name: str, train_kernels,
+                      eval_kernels) -> tuple[dict, dict]:
+    """A shipped part-segmentation preset through ``cli.main`` on a seeded
+    ShapeNetPart tree (written once under build/seg/: SEG_TRAINVAL trainval
+    shapes, SEG_TEST test shapes): cfgs/``preset`` at max_epoch 1, the full
+    published model (12 x 384, taps at 3, 7, 11, 128 groups of 32 of 2048
+    points, HLT, total_bs 16). Every train step must launch each of
+    ``train_kernels`` 12 times and nothing else, every evaluation forward each
+    of ``eval_kernels`` 12 times; the steps' losses finite; every parameter
+    and BatchNorm statistic moved from the seeded start; instance and class
+    mIoU and accuracy in [0, 1]; ckpt-last.pth and ckpt-best.pth written.
+    Returns ({name: launches}, the record: step p50, evaluation ms a batch,
+    peak memory)."""
+    from si_mamba_tpu_torch.models.segmentation import PartSegConfig
+    from si_mamba_tpu_torch.train import cli, optim
+    from si_mamba_tpu_torch.train import runner_seg as rs
+    from si_mamba_tpu_torch.train.config import get_config
+    from si_mamba_tpu_torch.train.registry import build_model_from_cfg
+
+    work = ROOT / "build" / "seg"
+    tree = work / "shapenetpart"
+    t0 = time.perf_counter()
+    if not (tree / "synsetoffset2category.txt").exists():
+        write_shapenetpart_tree(tree, SEG_TRAINVAL, SEG_TEST)
+    write_s = time.perf_counter() - t0
+    if not (work / "cfgs").exists():  # the seg presets' _base_ refs are CWD-relative
+        os.symlink(ROOT / "cfgs", work / "cfgs")
+    exp_cfg = work / f"seg_{name}.yaml"
+    exp_cfg.write_text(f"_base_: {ROOT}/cfgs/{preset}\nmax_epoch: 1\ndata_root: {tree}\n")
+    config = get_config(str(exp_cfg))
+    cfg = PartSegConfig.from_dict(config.model)
+    want_model = dict(trans_dim=384, depth=12, num_group=128, group_size=32, method="HLT",
+                      fetch_idx=(3, 7, 11), dtype="float32", **SEG_PRESETS[preset])
+    if {k: getattr(cfg, k) for k in want_model} != want_model or \
+            (config.total_bs, config.npoints) != (SEG_BATCH, SEG_POINTS):
+        raise AssertionError(f"the {preset} config is not the preset's: {cfg}")
+    depth = cfg.depth
+    steps, evals = [], []
+    real = (rs.make_seg_train_step, rs.make_seg_eval_step)
+
+    def delta(before):
+        now = _launch_counts()
+        return {k: now[k] - before[k] for k in now}
+
+    def timed_train_step(*a, **k):
+        step = real[0](*a, **k)
+
+        def run(*sa, **sk):
+            torch.cuda.synchronize()
+            before, t = _launch_counts(), time.perf_counter()
+            state, metrics = step(*sa, **sk)
+            loss = metrics["loss"].item()
+            steps.append({"ms": (time.perf_counter() - t) * 1e3, "loss": loss,
+                          "grad_norm": float(state.optimizer.last_grad_norm),
+                          "launches": delta(before)})
+            return state, metrics
+
+        return run
+
+    def timed_eval_step(*a, **k):
+        step = real[1](*a, **k)
+
+        def run(*sa, **sk):
+            torch.cuda.synchronize()
+            before, t = _launch_counts(), time.perf_counter()
+            logp = step(*sa, **sk)
+            torch.cuda.synchronize()
+            evals.append({"ms": (time.perf_counter() - t) * 1e3, "batch": logp.shape[0],
+                          "finite": bool(torch.isfinite(logp).all()),
+                          "launches": delta(before)})
+            return logp
+
+        return run
+
+    exp = work / "experiments" / f"seg_{name}" / name
+    cwd = os.getcwd()
+    os.chdir(work)
+    rs.make_seg_train_step, rs.make_seg_eval_step = timed_train_step, timed_eval_step
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        _reset_launch_counts()  # the preset's path: counts from 0, then the run
+        t0 = time.perf_counter()
+        state, best = cli.main(["--config", str(exp_cfg), "--device", "cuda", "--exp_name", name])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        peak = torch.cuda.max_memory_allocated(device)
+    finally:
+        rs.make_seg_train_step, rs.make_seg_eval_step = real
+        os.chdir(cwd)
+
+    n_steps = SEG_TRAINVAL // SEG_BATCH
+    if len(steps) != n_steps or state.step != n_steps:
+        raise AssertionError(f"the {preset} run took {len(steps)} steps, expected {n_steps}")
+    for i, s in enumerate(steps):
+        if s["launches"] != _expect(depth, train_kernels) or not np.isfinite(s["loss"]):
+            raise AssertionError(f"{preset} train step {i} launched {s['launches']}, loss "
+                                 f"{s['loss']}")
+    if [e["batch"] for e in evals] != [SEG_BATCH] * (SEG_TEST // SEG_BATCH):
+        raise AssertionError(f"the {preset} evaluation ran batches {evals}")
+    for e in evals:
+        if e["launches"] != _expect(depth, eval_kernels) or not e["finite"]:
+            raise AssertionError(f"a {preset} evaluation forward launched {e['launches']} "
+                                 f"(finite log-probs: {e['finite']})")
+    total = {k: sum(x["launches"][k] for x in steps + evals) for k in launches}
+    if launches != total:
+        raise AssertionError(f"the {preset} run launched {launches}, its steps and "
+                             f"evaluation forwards {total}")
+    files = {p.name for p in exp.iterdir()}
+    if not {"ckpt-last.pth", "ckpt-best.pth", "config.yaml", "scalars.jsonl"} <= files:
+        raise AssertionError(f"the {preset} run wrote {sorted(files)}")
+    payload = torch.load(exp / "ckpt-last.pth", map_location="cpu", weights_only=True)
+    metrics = payload["metrics"]
+    if not all(0.0 <= metrics[k] <= 1.0 for k in ("instance_miou", "class_miou", "accuracy")):
+        raise AssertionError(f"the {preset} evaluation gave {metrics}")
+    # every parameter finite, every BatchNorm statistic and every decayed
+    # parameter moved from the run's seeded start. One without decay may stay
+    # put: at the warm-up's lr of 1e-6 Adam moves it by less than half an ulp
+    # where its gradient is far below Adam's eps (1e-8), or is zero, as after
+    # a step whose gradient norm is not finite (clip 10 scales by 10 / inf, as
+    # optax's clip does in the JAX trainer); the record lists them
+    start, _ = build_model_from_cfg(config.model, device, 0)
+    start_sd = start.state_dict()
+    final = payload["base_model"]
+    if not all(torch.isfinite(v).all() for v in final.values()):
+        raise AssertionError(f"the {preset} run left non-finite parameters")
+    decays = optim.wd_mask(start)
+    still = [k for k, v in final.items()
+             if "num_batches_tracked" not in k and torch.equal(v, start_sd[k].cpu())]
+    if [k for k in still if "running_" in k or decays.get(k, False)]:
+        raise AssertionError(f"the {preset} run left {still} at their start (step gradient "
+                             f"norms {[s['grad_norm'] for s in steps]})")
+
+    step_ms = [s["ms"] for s in steps]
+    p50 = statistics.median(step_ms[1:])
+    eval_ms = statistics.median(e["ms"] for e in evals)
+    record = {"config": f"cfgs/{preset}, max_epoch 1", "trainval_shapes": SEG_TRAINVAL,
+              "test_shapes": SEG_TEST, "points": SEG_POINTS, "batch": SEG_BATCH,
+              "data_write_s": write_s, "run_s": run_s, "step_ms": step_ms,
+              "p50_step_ms": p50, "shapes_per_s": SEG_BATCH / (p50 / 1e3),
+              "losses": [s["loss"] for s in steps],
+              "grad_norms": [s["grad_norm"] for s in steps], "eval_ms_per_batch": eval_ms,
+              "eval_ms": [e["ms"] for e in evals], "max_memory_allocated_bytes": peak,
+              "metrics": {k: metrics[k] for k in ("instance_miou", "class_miou", "accuracy")},
+              "best_instance_miou": best["instance_miou"], "unmoved": still,
+              "ckpt_last_bytes": (exp / "ckpt-last.pth").stat().st_size,
+              "launches": {k: v for k, v in launches.items() if v}, "card": card}
+    log(f"{record['config']} through the CLI: {n_steps} steps at batch {SEG_BATCH} (p50 "
+        f"{p50:.3f} ms, {record['shapes_per_s']:.2f} shapes/s), evaluation {eval_ms:.3f} ms a "
+        f"batch, run {run_s:.1f} s, peak memory {peak / 2**30:.3f} GiB; losses "
+        f"{record['losses']}, gradient norms {record['grad_norms']}; unmoved {still}; metrics "
+        f"{record['metrics']}; launches {record['launches']}; {card}")
+    return {name: launches}, record
+
+
+def seg_forward_phase(device, preset: str, name: str, plain_impl: str,
+                      kernels) -> tuple[dict, dict]:
+    """The full-width part-segmentation eval forward (cfgs/``preset``'s model,
+    seeded weights) on SEG_BATCH clouds of SEG_POINTS points, held against the
+    same weights on ``plain_impl`` on the card, both drawing the JAX
+    evaluation's HLT tie-break: the log-probs within 1e-3 of their max and
+    2e-3 relative (the classifier's rule). The kernel forward must launch each of ``kernels`` 12
+    times and nothing else. Returns ({name: launches}, the record)."""
+    from si_mamba_tpu_torch.models.segmentation import PartSegConfig, PartSegModel
+    from si_mamba_tpu_torch.train.config import get_config
+
+    cfg = PartSegConfig.from_dict(get_config(str(ROOT / "cfgs" / preset)).model)
+    model = PartSegModel(cfg, generator=torch.Generator().manual_seed(0)).to(device).eval()
+    plain = PartSegModel(PartSegConfig.from_dict({**cfg.__dict__, "scan_impl": plain_impl}))
+    plain.load_state_dict(model.state_dict(), strict=True)
+    plain = plain.to(device).eval()
+    rng = np.random.default_rng(31)
+    pts = torch.from_numpy(rng.standard_normal((SEG_BATCH, SEG_POINTS, 3), dtype=np.float32))
+    pts = (pts / pts.abs().amax(dim=(1, 2), keepdim=True)).to(device)
+    onehot = torch.eye(cfg.num_categories, device=device)[
+        torch.from_numpy(rng.integers(0, cfg.num_categories, SEG_BATCH))]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        _reset_launch_counts()  # the held forward's path
+        t0 = time.perf_counter()
+        got = model(pts, onehot)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _launch_counts()
+        want = plain(pts, onehot)
+    if launches != _expect(cfg.depth, kernels):
+        raise AssertionError(f"the seg eval forward ({preset}) launched {launches}")
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if got.shape != (SEG_BATCH, SEG_POINTS, cfg.cls_dim) or not torch.allclose(
+            got, want, atol=1e-3 * scale, rtol=2e-3):
+        raise AssertionError(f"the seg eval forward ({preset}) disagrees with scan_impl="
+                             f"{plain_impl!r}: max |diff| {err}, max |logp| {scale}")
+    record = {"config": f"cfgs/{preset}", "plain_impl": plain_impl, "ms": ms,
+              "logp_max_abs_diff": err, "logp_max_abs": scale,
+              "launches": {k: v for k, v in launches.items() if v}}
+    log(f"seg eval forward ({preset}) == scan_impl={plain_impl!r}: max |diff| {err:.3e} (max "
+        f"|logp| {scale:.3e}), {ms:.3f} ms")
+    return {name: launches}, record
+
+
+# the held seg gradient: the SSD preset's model at full width, its blocks cut
+# to 4 with the taps at 1, 2, 3 (the preset's widths): at 12 blocks its
+# gradient norm is inf from the random start, in JAX's model as in the port's
+SEG_GRAD_DEPTH = 4
+SEG_GRAD_TOL = 1e-3  # of each leaf's largest gradient
+
+
+def seg_grad_phase(device) -> tuple[dict, dict]:
+    """The SSD seg preset's block stack in training at the seg shapes, its
+    kernels held against 'xla' on the card. A train pass of the whole model
+    (cfgs/part_segmentation_ssd_fused.yaml, full width, SEG_GRAD_DEPTH blocks,
+    drop_path 0, seeded weights; SEG_BATCH clouds of SEG_POINTS points, one
+    HLT draw and head keep mask) on 'xla' gives the stack's inputs and the
+    cotangent of its taps; the kernel route's stack, same weights, takes the
+    same inputs and cotangent, and its parameter and input gradients must be
+    finite and within SEG_GRAD_TOL of each leaf's largest, launching each of
+    SEG_SSD_TRAIN_KERNELS once a block and nothing else. The whole model's
+    gradients are not compared: from a random start the head's gradients
+    before each BatchNorm are small remainders of sums over B x 2048 rows,
+    and move by 1e-2 of their largest when the stack's outputs move by 1e-6
+    (on the CPU, and between the routes on the card), so they would measure
+    that conditioning, not the kernels. Returns ({"seg_ssd_grad": launches},
+    the record)."""
+    from si_mamba_tpu_torch.models.segmentation import PartSegConfig, PartSegModel, nll_loss
+    from si_mamba_tpu_torch.train.config import get_config
+
+    m = dict(get_config(str(ROOT / "cfgs" / "part_segmentation_ssd_fused.yaml")).model)
+    m.update(depth=SEG_GRAD_DEPTH, fetch_idx=tuple(range(1, SEG_GRAD_DEPTH)), drop_path=0.0)
+    cfg = PartSegConfig.from_dict(m)
+    model = PartSegModel(cfg, generator=torch.Generator().manual_seed(7))
+    plain = PartSegModel(PartSegConfig.from_dict({**cfg.__dict__, "scan_impl": "xla"}))
+    plain.load_state_dict(model.state_dict(), strict=True)
+    model, plain = model.to(device).train(), plain.to(device).train()
+    rng = np.random.default_rng(32)
+    pts = torch.from_numpy(rng.standard_normal((SEG_BATCH, SEG_POINTS, 3), dtype=np.float32))
+    pts = (pts / pts.abs().amax(dim=(1, 2), keepdim=True)).to(device)
+    cls = torch.from_numpy(rng.integers(0, cfg.num_categories, SEG_BATCH)).to(device)
+    onehot = torch.eye(cfg.num_categories, device=device)[cls]
+    seg = torch.from_numpy(rng.integers(0, cfg.cls_dim, (SEG_BATCH, SEG_POINTS))).to(device)
+    draws = dict(order_noise=torch.from_numpy(rng.random((SEG_BATCH, cfg.num_group),
+                                                         dtype=np.float32)).to(device),
+                 head_mask=torch.from_numpy(rng.random((SEG_BATCH, SEG_POINTS, 512)) < 0.5
+                                            ).to(device))
+    stack = {}
+
+    def keep(module, args, taps):
+        for t in (*args[:2], *taps):
+            t.retain_grad()
+        stack["inputs"], stack["taps"] = args[:2], taps
+
+    hook = plain.blocks.register_forward_hook(keep)
+    loss = nll_loss(plain(pts, onehot, **draws), seg)
+    loss.backward()
+    hook.remove()
+    x, pos = (t.detach().requires_grad_() for t in stack["inputs"])
+    torch.cuda.synchronize()
+    _reset_launch_counts()  # the kernel stack's train pass
+    torch.autograd.backward(model.blocks(x, pos), [t.grad for t in stack["taps"]])
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    if launches != _expect(cfg.depth, SEG_SSD_TRAIN_KERNELS):
+        raise AssertionError(f"the seg SSD stack's train pass launched {launches}")
+    grads = {**{k: p.grad for k, p in model.blocks.named_parameters()},
+             "x": x.grad, "pos": pos.grad}
+    ref = {**{k: p.grad for k, p in plain.blocks.named_parameters()},
+           "x": stack["inputs"][0].grad, "pos": stack["inputs"][1].grad}
+    if not all(torch.isfinite(g).all() for g in grads.values()):
+        raise AssertionError("the seg SSD stack's kernel gradients are not finite")
+    worst, worst_key = max(((g - ref[k]).abs().max().item() / ref[k].abs().max().item(), k)
+                           for k, g in grads.items())
+    if not worst < SEG_GRAD_TOL:
+        raise AssertionError(f"seg stack gradient {worst_key} differs from 'xla' by "
+                             f"{worst:.3e} of its largest")
+    norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values())).item()
+    record = {"config": f"cfgs/part_segmentation_ssd_fused.yaml, depth {cfg.depth}, taps "
+                        f"{cfg.fetch_idx}, drop_path 0", "plain_impl": "xla",
+              "batch": SEG_BATCH, "loss": loss.item(), "stack_grad_norm": norm,
+              "worst_leaf_rel_diff": worst, "worst_leaf": worst_key, "leaves": len(grads),
+              "launches": {k: v for k, v in launches.items() if v}}
+    log(f"seg SSD stack gradients ({record['config']}) == 'xla': loss {record['loss']:.7f}; "
+        f"stack gradient norm {norm:.4e}; worst leaf {worst_key} {worst:.3e} of its largest")
+    return {"seg_ssd_grad": launches}, record
+
+
+def hlt_serving_phase(device) -> tuple[dict, dict]:
+    """One request of 20 clouds through a ``Predictor`` over the ModelNet40
+    classifier with the HLT ordering (L = 2 * 64 = 128): the conv and the
+    lean scan 12 times each and nothing else, the logits against the same
+    weights on 'seq' within 1e-3 of their max and 2e-3 relative (each eval
+    forward draws HLT's tie-break as ``jax.random.uniform`` of
+    ``jax.random.key(0)``, so both order alike). Returns ({"hlt_serving": launches}, the record)."""
+    from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
+    from si_mamba_tpu_torch.serving import Predictor
+
+    base = dict(MODELNET40, method="HLT")
+    model = PointMamba(PointMambaConfig.from_dict(base), generator=torch.Generator().manual_seed(0))
+    plain = PointMamba(PointMambaConfig.from_dict({**base, "scan_impl": "seq"}))
+    plain.load_state_dict(model.state_dict(), strict=True)
+    predictor = Predictor(model, npoints=NPOINTS, max_batch=64, device=device)
+    request = clouds(20, seed=20)
+    torch.cuda.synchronize()
+    _reset_launch_counts()  # the HLT classifier's path
+    t0 = time.perf_counter()
+    logits = predictor.logits(request)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _launch_counts()
+    if launches != _expect(MODELNET40["depth"], EVAL_KERNELS):
+        raise AssertionError(f"the HLT classifier's forward launched {launches}")
+    ref = Predictor(plain, npoints=NPOINTS, max_batch=64, device=device).logits(request)
+    scale, err = float(np.abs(ref).max()), float(np.abs(logits - ref).max())
+    if logits.shape != (20, MODELNET40["cls_dim"]) or not np.allclose(
+            logits, ref, atol=1e-3 * scale, rtol=2e-3):
+        raise AssertionError(f"HLT classifier logits disagree with 'seq': max |diff| {err}, "
+                             f"max |logit| {scale}")
+    log(f"HLT classifier on 20 clouds == 'seq': max |diff| {err:.3e} (max |logit| "
+        f"{scale:.3e}), {ms:.3f} ms")
+    return {"hlt_serving": launches}, {"ms": ms, "logits_max_abs_diff": err,
+                                       "logits_max_abs": scale,
+                                       "launches": {k: v for k, v in launches.items() if v}}
+
+
+def seg_phases(device, card: str) -> tuple[dict, dict]:
+    """The part-segmentation paths: the HLT classifier through ``Predictor``,
+    the held full-width seg eval forward of both presets, the held SSD seg
+    stack's train gradients, then both presets through the CLI. Returns (each path's
+    launches, the record)."""
+    paths, record = {}, {}
+    for key, (p, r) in {
+            "hlt_serving": hlt_serving_phase(device),
+            "forward": seg_forward_phase(device, "part_segmentation.yaml", "seg_forward", "seq",
+                                         EVAL_KERNELS),
+            "ssd_forward": seg_forward_phase(device, "part_segmentation_ssd_fused.yaml",
+                                             "seg_ssd_forward", "xla", SEG_SSD_EVAL_KERNELS),
+            "ssd_gradients": seg_grad_phase(device),
+            "cli": partseg_cli_phase(device, card, "part_segmentation.yaml", "seg_cli",
+                                     TRAIN_KERNELS, EVAL_KERNELS),
+            "ssd_cli": partseg_cli_phase(device, card, "part_segmentation_ssd_fused.yaml",
+                                         "seg_ssd_cli", SEG_SSD_TRAIN_KERNELS,
+                                         SEG_SSD_EVAL_KERNELS)}.items():
+        paths.update(p)
+        record[key] = r
+    return paths, record
+
+
 def main() -> int:
     if not (ROOT / "si_mamba_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run it from a checkout of the repository "
@@ -3501,6 +3963,10 @@ def main() -> int:
             r["at_ssd_shape"] = conv_at_ssd_shape[r["name"]]
             r["at_tp_shapes"] = conv_at_tp_shapes[r["name"]]
     records += ssd_records
+    seg_shape = seg_kernel_phase(device)
+    for r in records:
+        if r["name"] in seg_shape:
+            r["at_seg_shape"] = seg_shape[r["name"]]
     records += split_kernel_phase(device)
     fused_records, fused_routes = fused_mixer_phase(device)
     records += fused_records
@@ -3572,6 +4038,8 @@ def main() -> int:
     paths.update(ssd_cli_paths)
     fused_cli_paths, fused_cli = fused_perf_cli_phase(device, card)
     paths.update(fused_cli_paths)
+    seg_paths, seg = seg_phases(device, card)
+    paths.update(seg_paths)
     torch.cuda.empty_cache()  # the ranks share the card
     parallel_paths, parallel = parallel_phases(card)
     paths.update(parallel_paths)
@@ -3623,7 +4091,7 @@ def main() -> int:
                       "fused_perf": {"serving": fused_perf_serving,
                                      "profile": fused_perf_profile, "train": fused_perf_train,
                                      "cli": fused_cli},
-                      "parallel": parallel, "card": card}), flush=True)
+                      "seg": seg, "parallel": parallel, "card": card}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -54,16 +54,18 @@ class Loader:
         n = len(self._epoch_indices(0))
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
-    def epoch(self, epoch: int = 0) -> Iterator[tuple[np.ndarray, np.ndarray]]:
-        """Yields (points (B, N, 3) f32, labels (B,) i32) with prefetching."""
+    def epoch(self, epoch: int = 0) -> Iterator[tuple[np.ndarray, ...]]:
+        """Yields batches with prefetching: every field of the dataset's items
+        stacked, the first (the points, (B, N, C)) as f32 and the rest (the
+        labels: (B,) classes, (B, N) parts) as i32."""
         idx = self._epoch_indices(epoch)
         nb = len(idx) // self.batch_size if self.drop_last else -(-len(idx) // self.batch_size)
 
         def make(bi):
             sel = idx[bi * self.batch_size : (bi + 1) * self.batch_size]
-            pts, labels = zip(*(self.dataset[int(i)] for i in sel))
+            pts, *labels = zip(*(self.dataset[int(i)] for i in sel))
             return (np.stack(pts).astype(np.float32),
-                    np.asarray(labels, np.int32))
+                    *(np.asarray(f, np.int32) for f in labels))
 
         if self.prefetch <= 0:
             for bi in range(nb):

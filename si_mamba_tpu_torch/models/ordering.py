@@ -1,13 +1,17 @@
-"""Token traversal orders: SAST (eigenvector sorts) and MAMBA (xyz sorts).
+"""Token traversal orders: SAST (eigenvector sorts), HLT (multilevel buckets)
+and MAMBA (xyz sorts).
 
-PyTorch counterparts of ``si_mamba_tpu/models/ordering.py``.
+PyTorch counterparts of ``si_mamba_tpu/models/ordering.py``. Each ordering
+takes its key (eigenvectors or centres) and any number of (B, G, C) tensors,
+and lays every one out in the same order: the classifier orders its tokens
+and positions, the segmentation model those and the centres.
 """
 
 from __future__ import annotations
 
 import torch
 
-from si_mamba_tpu_torch.ops.spectral import sort_orders_by_eigenvectors
+from si_mamba_tpu_torch.ops.spectral import multilevel_codes, sort_orders_by_eigenvectors
 
 
 def apply_orders(x: torch.Tensor, orders: torch.Tensor) -> torch.Tensor:
@@ -17,31 +21,56 @@ def apply_orders(x: torch.Tensor, orders: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, flat[..., None].expand(-1, -1, x.shape[-1]))
 
 
-def sast_sequence(tokens: torch.Tensor, pos: torch.Tensor, eigvecs: torch.Tensor,
-                  reverse: bool = True, reverse_2: bool = False):
-    """Sort tokens and positions by each of the k eigenvectors and concatenate;
-    then append the flipped sequence (``reverse``) or each block reversed
-    (``reverse_2``). tokens/pos (B, G, C), eigvecs (B, G, k) -> (B, S, C)
-    pairs, S = 2kG or kG."""
+def sast_sequence(eigvecs: torch.Tensor, *xs: torch.Tensor, reverse: bool = True,
+                  reverse_2: bool = False) -> tuple[torch.Tensor, ...]:
+    """Sort each of ``xs`` (B, G, C) by each of the k eigenvectors (B, G, k)
+    and concatenate; then append the flipped sequence (``reverse``) or each
+    block reversed (``reverse_2``). -> one (B, S, C) a tensor, S = 2kG or kG."""
     orders = sort_orders_by_eigenvectors(eigvecs)  # (B, k, G)
-    tok = apply_orders(tokens, orders)
-    pp = apply_orders(pos, orders)
-    if reverse:
-        tok = torch.cat([tok, tok.flip(1)], dim=1)
-        pp = torch.cat([pp, pp.flip(1)], dim=1)
-    elif reverse_2:
-        B, kG, C = tok.shape
-        k, G = orders.shape[1], orders.shape[2]
-        rev_tok = tok.reshape(B, k, G, C).flip(2).reshape(B, kG, C)
-        rev_pos = pp.reshape(B, k, G, C).flip(2).reshape(B, kG, C)
-        tok = torch.cat([tok, rev_tok], dim=1)
-        pp = torch.cat([pp, rev_pos], dim=1)
-    return tok, pp
+    k, G = orders.shape[1], orders.shape[2]
+    out = []
+    for x in xs:
+        seq = apply_orders(x, orders)
+        if reverse:
+            seq = torch.cat([seq, seq.flip(1)], dim=1)
+        elif reverse_2:
+            B, kG, C = seq.shape
+            seq = torch.cat([seq, seq.reshape(B, k, G, C).flip(2).reshape(B, kG, C)], dim=1)
+        out.append(seq)
+    return tuple(out)
 
 
-def xyz_sequence(tokens: torch.Tensor, pos: torch.Tensor, center: torch.Tensor):
-    """'MAMBA' ordering: concatenated stable sorts by the centres' x, y, z.
-    -> (B, 3G, C) pairs."""
+def xyz_sequence(center: torch.Tensor, *xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """'MAMBA' ordering: each of ``xs`` (B, G, C) in the concatenated stable
+    sorts by the centres' (B, G, 3) x, y and z. -> one (B, 3G, C) a tensor."""
     orders = torch.stack([torch.argsort(center[..., d], dim=-1, stable=True)
                           for d in range(3)], dim=1)  # (B, 3, G)
-    return apply_orders(tokens, orders), apply_orders(pos, orders)
+    return tuple(apply_orders(x, orders) for x in xs)
+
+
+def hlt_sequence(eigvecs: torch.Tensor, k: int, noise: torch.Tensor,
+                 *xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """HLT ordering. The bucket order sorts the tokens (stably) by their
+    multilevel codes of the first ``k`` eigenvectors (B, G, k') plus
+    ``noise`` (B, G), a U(0, 1) draw that orders the tokens within a bucket at
+    random. Each of ``xs`` (B, G, C), gathered in that order, is laid out on a
+    2G-token canvas in chunks of 2^k: [c0, rev(c0), c1, ..., c_{nd-1},
+    rev(c_{nd-1})], the tokens beyond nd * 2^k dropped and the rest of the
+    canvas zeros (the reference's overlapping-write loop). -> one
+    (B, max(2G, (nd + 2) 2^k), C) a tensor."""
+    codes = multilevel_codes(eigvecs, k)
+    order = torch.argsort(codes + noise.to(codes.dtype), dim=1, stable=True)
+    ng = 2 ** k
+    out = []
+    for x in xs:
+        B, G, C = x.shape
+        nd = G // ng
+        x = torch.gather(x, 1, order[..., None].expand(-1, -1, C))
+        chunks = x[:, :nd * ng].reshape(B, nd, ng, C)
+        seq = torch.cat([chunks[:, 0], chunks[:, 0].flip(1), *chunks[:, 1:].unbind(1),
+                         chunks[:, nd - 1].flip(1)], dim=1)
+        pad = 2 * G - seq.shape[1]
+        if pad > 0:
+            seq = torch.cat([seq, seq.new_zeros((B, pad, C))], dim=1)
+        out.append(seq)
+    return tuple(out)

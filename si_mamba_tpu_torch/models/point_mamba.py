@@ -1,8 +1,12 @@
 """PointMamba classifier.
 
 PyTorch counterpart of ``si_mamba_tpu/models/point_mamba.py``: Group ->
-PatchEncoder -> pos-embed -> ordering (SAST or xyz 'MAMBA') -> MixerModel ->
-LayerNorm -> mean-pool -> classification head. Module names follow the
+PatchEncoder -> pos-embed -> ordering (SAST, HLT or xyz 'MAMBA') -> MixerModel
+-> LayerNorm -> mean-pool -> classification head. HLT orders the tokens
+within a bucket by a U(0, 1) draw: in training from the ``generator`` passed
+to ``forward``, in eval the JAX model's own eval draw (``jax.random.uniform``
+of ``jax.random.key(0)``, reproduced bit for bit), so an eval forward repeats
+and equals the JAX model's on every device. Module names follow the
 reference's state-dict keys. ``.train()`` is the JAX model's ``train=True``:
 BatchNorm on batch statistics, DropPath and dropout drawing from the
 ``generator`` passed to ``forward``. With ``config.tp_axis`` and a ``mesh``
@@ -32,9 +36,14 @@ import torch.nn.functional as F
 from si_mamba_tpu_torch.models.embed import ClsHead, Dropout, PatchEncoder, PosEmbedMLP
 from si_mamba_tpu_torch.models.grouping import group_divider
 from si_mamba_tpu_torch.models.layers import LayerNorm, MixerModel
-from si_mamba_tpu_torch.models.ordering import sast_sequence, xyz_sequence
+from si_mamba_tpu_torch.models.ordering import hlt_sequence, sast_sequence, xyz_sequence
 from si_mamba_tpu_torch.ops.graph import knn_adjacency, rw_laplacian, sym_laplacian
-from si_mamba_tpu_torch.ops.spectral import topk_eigh, topk_smallest_subspace
+from si_mamba_tpu_torch.ops.spectral import (
+    prng_key,
+    topk_eigh,
+    topk_smallest_subspace,
+    uniform,
+)
 from si_mamba_tpu_torch.parallel.mesh import Mesh, MeshAxis
 from si_mamba_tpu_torch.utils.weights import mixer_segments
 
@@ -116,7 +125,6 @@ def _check_supported(cfg: PointMambaConfig, mesh: Mesh | None = None) -> None:
             raise ValueError(f"the mesh has the axes {wide} of size > 1 but the config no "
                              f"tp_axis: set tp_axis to shard the mixers over one of them")
     later = {
-        "method='HLT'": cfg.method == "HLT",
         "add_after_layer": cfg.add_after_layer,
         "rms_norm": cfg.rms_norm,
     }
@@ -127,22 +135,37 @@ def _check_supported(cfg: PointMambaConfig, mesh: Mesh | None = None) -> None:
         raise ValueError(f"unknown spectral_method {cfg.spectral_method!r}")
     if cfg.mixer not in ("mamba", "ssd"):
         raise ValueError(f"unknown mixer {cfg.mixer!r}")
-    if cfg.method not in ("SAST", "MAMBA"):
+    if cfg.method not in ("SAST", "HLT", "MAMBA"):
         raise ValueError(f"unknown method {cfg.method!r}")
     if cfg.reverse_3:
         raise NotImplementedError(
             "reverse_3 is a dead config in the reference (hard-coded 32-token blocks)")
 
 
+def order_noise(batch: int, groups: int, device, training: bool,
+                generator: torch.Generator | None = None,
+                eval_key: tuple[int, int] = prng_key(0)) -> torch.Tensor:
+    """HLT's U(0, 1) tie-break draw, (batch, groups) fp32 on ``device``: in
+    training from ``generator`` (required); in eval ``jax.random.uniform`` of
+    the raw threefry ``eval_key`` (by default ``jax.random.key(0)``'s, the JAX
+    classifier's eval draw), the same on every call and device."""
+    if not training:
+        return torch.from_numpy(uniform(eval_key, (batch, groups))).to(device)
+    if generator is None:
+        raise ValueError("the HLT ordering in training mode needs a torch.Generator")
+    return torch.rand((batch, groups), generator=generator, device=device)
+
+
 def spectral_eigvecs(center: torch.Tensor, cfg: PointMambaConfig):
     """Graph -> Laplacian -> top-k eigenpairs: (eigvals (B, k), eigvecs (B, G, k)).
     The k smallest of the random-walk Laplacian come from the subspace
-    eigensolver when ``spectral_method`` is 'subspace', else from ``eigh``."""
+    eigensolver when ``spectral_method`` is 'subspace', else from ``eigh`` (a
+    config without that field, the segmentation model's, takes ``eigh``)."""
     A = knn_adjacency(center, k=cfg.knn_graph, alpha=cfg.alpha, symmetric=cfg.symmetric,
                       self_loop=cfg.self_loop, binary=cfg.binary)
     if cfg.matrix == "laplacian":
         L = rw_laplacian(A, eps=1e-6, eps_mode="add")
-        if cfg.spectral_method == "subspace" and cfg.smallest:
+        if getattr(cfg, "spectral_method", "eigh") == "subspace" and cfg.smallest:
             return topk_smallest_subspace(L, cfg.k_top_eigenvectors)
         vals, vecs, _, _ = topk_eigh(L, cfg.k_top_eigenvectors, smallest=cfg.smallest)
         return vals, vecs
@@ -216,18 +239,27 @@ class PointMamba(nn.Module):
         return (self.encoder(grouped.neighborhood.to(self.dtype)),
                 self.pos_embed(grouped.center.to(self.dtype)), grouped.center)
 
-    def sequence(self, tokens, pos, center, eigvecs=None):
-        """Order the tokens: (x, pos_seq), each (B, seq_len, C). For SAST the
-        eigenvectors are computed from ``center`` unless given, then sorted as
-        rounded to the activation dtype (the stable sort breaks the ties that
-        the rounding makes by index, as the JAX model's does)."""
+    def sequence(self, tokens, pos, center, eigvecs=None, noise=None,
+                 generator: torch.Generator | None = None):
+        """Order the tokens: (x, pos_seq), each (B, seq_len, C). For SAST and
+        HLT the eigenvectors are computed from ``center`` unless given, then
+        used as rounded to the activation dtype (the stable sorts break the
+        ties that the rounding makes by index, as the JAX model's do). HLT's
+        tie-break ``noise`` (B, G) is drawn by :func:`order_noise` unless
+        given."""
         cfg = self.config
         if cfg.method == "MAMBA":
-            return xyz_sequence(tokens, pos, center)
+            return xyz_sequence(center, tokens, pos)
         if eigvecs is None:
             _, eigvecs = spectral_eigvecs(center, cfg)
+        if cfg.method == "HLT":
+            if noise is None:
+                noise = order_noise(center.shape[0], center.shape[1], center.device,
+                                    self.training, generator)
+            return hlt_sequence(eigvecs.to(self.dtype), cfg.k_top_eigenvectors, noise, tokens,
+                                pos)
         eigvecs = eigvecs.to(self.dtype).to(eigvecs.dtype)
-        return sast_sequence(tokens, pos, eigvecs, reverse=cfg.reverse, reverse_2=cfg.reverse_2)
+        return sast_sequence(eigvecs, tokens, pos, reverse=cfg.reverse, reverse_2=cfg.reverse_2)
 
     def classify(self, x, pos_seq, return_features: bool = False,
                  generator: torch.Generator | None = None):
@@ -241,7 +273,7 @@ class PointMamba(nn.Module):
     def forward(self, pts: torch.Tensor, fps_start_idx=0, return_features: bool = False,
                 generator: torch.Generator | None = None):
         tokens, pos, center = self.embed(pts, fps_start_idx)
-        x, pos_seq = self.sequence(tokens, pos, center)
+        x, pos_seq = self.sequence(tokens, pos, center, generator=generator)
         return self.classify(x, pos_seq, return_features, generator)
 
 

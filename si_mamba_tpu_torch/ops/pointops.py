@@ -1,4 +1,5 @@
-"""Point-cloud primitives: pairwise distances, FPS, kNN, grouping.
+"""Point-cloud primitives: pairwise distances, FPS, kNN, grouping, and the
+PointNet++ ball query and set abstractions.
 
 PyTorch counterparts of ``si_mamba_tpu/ops/pointops.py`` with the same
 arithmetic, so that indices agree exactly. Indices are int64 (torch's index
@@ -67,3 +68,50 @@ def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """points: (B, N, C), idx: (B, G, K) -> (B, G, K, C) neighbourhood gather."""
     B, G, K = idx.shape
     return gather_points(points, idx.reshape(B, G * K)).reshape(B, G, K, points.shape[-1])
+
+
+def ball_query(query: torch.Tensor, points: torch.Tensor, radius: float,
+               max_samples: int) -> torch.Tensor:
+    """Indices (B, S, max_samples) of up to ``max_samples`` of ``points``
+    (B, N, D) within ``radius`` of each ``query`` (B, S, D), nearest first,
+    ties to the lower index; the slots left over repeat the nearest (the
+    reference's ``query_ball_point``)."""
+    d = pairwise_sqdist(query, points)
+    d = torch.where(d <= radius ** 2, d, torch.full_like(d, float("inf")))
+    dists, idx = torch.sort(d, dim=-1, stable=True)
+    dists, idx = dists[..., :max_samples], idx[..., :max_samples]
+    return torch.where(torch.isfinite(dists), idx, idx[..., :1])
+
+
+def set_abstraction(points: torch.Tensor, features: torch.Tensor | None, n_centroids: int,
+                    radius: float, max_samples: int, mlp_apply):
+    """PointNet++ single-scale set abstraction: FPS centroids, a ball query
+    around each, the group's points relative to its centroid (then its
+    features), ``mlp_apply`` (B, S, K, 3 + C) -> (B, S, K, C'), max over the
+    group. Returns (new_xyz (B, S, 3), new_features (B, S, C'))."""
+    new_xyz = gather_points(points, fps(points, n_centroids))
+    idx = ball_query(new_xyz, points, radius, max_samples)
+    grouped = group_points(points, idx) - new_xyz[:, :, None, :]
+    if features is not None:
+        grouped = torch.cat([grouped, group_points(features, idx)], dim=-1)
+    return new_xyz, torch.amax(mlp_apply(grouped), dim=2)
+
+
+def set_abstraction_msg(points: torch.Tensor, features: torch.Tensor | None, n_centroids: int,
+                        radius_list, max_samples_list, mlp_applies):
+    """Multi-scale set abstraction: one FPS centroid set; at each scale a
+    ball query of its radius and size, the group's features then its points
+    relative to the centroid, that scale's MLP, max over the group; the
+    scales' features concatenated. Returns (new_xyz (B, S, 3), (B, S, sum of
+    the C'_i))."""
+    if not len(radius_list) == len(max_samples_list) == len(mlp_applies):
+        raise ValueError("one radius, one group size and one MLP a scale")
+    new_xyz = gather_points(points, fps(points, n_centroids))
+    outs = []
+    for radius, k, mlp_apply in zip(radius_list, max_samples_list, mlp_applies):
+        idx = ball_query(new_xyz, points, radius, k)
+        grouped = group_points(points, idx) - new_xyz[:, :, None, :]
+        if features is not None:
+            grouped = torch.cat([group_points(features, idx), grouped], dim=-1)
+        outs.append(torch.amax(mlp_apply(grouped), dim=2))
+    return new_xyz, torch.cat(outs, dim=-1)

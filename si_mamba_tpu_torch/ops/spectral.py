@@ -1,5 +1,5 @@
 """Batched spectral ops: lower-triangle eigh, top-k eigenpairs, the subspace
-eigensolver, SAST orders.
+eigensolver, SAST orders and HLT codes.
 
 PyTorch counterparts of ``si_mamba_tpu/ops/spectral.py``. The random-walk
 Laplacian is not symmetric; like the reference, the eigensolver sees the
@@ -44,6 +44,17 @@ def sort_orders_by_eigenvectors(eigvecs: torch.Tensor) -> torch.Tensor:
     return torch.argsort(eigvecs.transpose(-1, -2), dim=-1, stable=True)
 
 
+def multilevel_codes(eigvecs: torch.Tensor, level: int) -> torch.Tensor:
+    """HLT bucket codes: bit i of a token's code is whether its entry of
+    eigenvector i lies at or above that eigenvector's mean over the tokens,
+    the first ``level`` eigenvectors packed most significant first.
+    (B, N, k) -> (B, N) float codes in the eigenvectors' dtype."""
+    means = torch.mean(eigvecs, dim=1, keepdim=True)
+    bits = (eigvecs >= means).to(eigvecs.dtype)[..., :level]
+    powers = 2.0 ** torch.arange(level - 1, -1, -1, dtype=eigvecs.dtype, device=eigvecs.device)
+    return torch.sum(bits * powers, dim=-1)
+
+
 _THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
@@ -64,25 +75,46 @@ def _threefry2x32(k0: int, k1: int, x0: np.ndarray, x1: np.ndarray):
     return x0, x1
 
 
-def rademacher(seed: int, shape) -> np.ndarray:
-    """+-1 float32 of ``shape``, bit for bit ``jax.random.rademacher(
-    jax.random.key(seed), shape, jnp.float32)`` (threefry, partitionable bit
-    generation) for a seed in [0, 2**31): the 32 random bits of element i are
-    x0 ^ x1 of threefry over the 64-bit flat index i split into (hi, lo) under
-    the key (0, seed); their top 23 bits as the mantissa of a float in [1, 2)
-    minus 1 give a uniform u, and the value is +1 where u < 0.5. Drawn on the
-    host with numpy."""
+def prng_key(seed: int) -> tuple[int, int]:
+    """The raw threefry key (k0, k1) of ``jax.random.key(seed)``, seed in
+    [0, 2**31)."""
     if not 0 <= seed < 2 ** 31:
         raise ValueError(f"seed {seed} is outside [0, 2**31)")
+    return 0, seed
+
+
+def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
+    """``jax.random.fold_in`` of a raw threefry key and a uint32 ``data``:
+    threefry of the counter pair (0, data) under the key."""
+    with np.errstate(over="ignore"):
+        y0, y1 = _threefry2x32(key[0], key[1], np.zeros(1, np.uint32),
+                               np.full(1, data, np.uint32))
+    return int(y0[0]), int(y1[0])
+
+
+def uniform(key: tuple[int, int], shape) -> np.ndarray:
+    """U[0, 1) float32 of ``shape``, bit for bit ``jax.random.uniform`` of the
+    raw threefry ``key`` (partitionable bit generation): the 32 random bits
+    of element i are x0 ^ x1 of threefry over the 64-bit flat index i split
+    into (hi, lo); their top 23 bits as the mantissa of a float in [1, 2),
+    minus 1, are the value. Drawn on the host with numpy."""
     n = int(np.prod(shape, dtype=np.int64))
     idx = np.arange(n, dtype=np.uint64)
     with np.errstate(over="ignore"):
-        x0, x1 = _threefry2x32(0, seed,
+        x0, x1 = _threefry2x32(key[0], key[1],
                                (idx >> np.uint64(32)).astype(np.uint32),
                                (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32))
     bits = x0 ^ x1
     u = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
-    return np.where(u < np.float32(0.5), np.float32(1.0), np.float32(-1.0)).reshape(shape)
+    return u.reshape(shape)
+
+
+def rademacher(seed: int, shape) -> np.ndarray:
+    """+-1 float32 of ``shape``, bit for bit ``jax.random.rademacher(
+    jax.random.key(seed), shape, jnp.float32)`` for a seed in [0, 2**31):
+    +1 where :func:`uniform` of the same key and shape is below 0.5."""
+    return np.where(uniform(prng_key(seed), shape) < np.float32(0.5), np.float32(1.0),
+                    np.float32(-1.0))
 
 
 def topk_smallest_subspace(L: torch.Tensor, k: int, iters: int = 40, oversample: int = 4,

@@ -7,8 +7,9 @@ main.py / utils/parser.py): the same flags (--test, --vote, --resume,
 --auto_resume, --ckpts, --finetune_model, --scratch_model, few-shot
 --way/--shot/--fold), experiment directory and config snapshot, plus
 ``--device`` (default ``cuda``; ``cpu`` runs on the CPU). The finetune and
-test paths of the ``PointMamba`` classifier run; MAE pretraining (M16), part
-segmentation (M15) and --tsne (M21) raise with their ROADMAP.md item.
+test paths of the ``PointMamba`` classifier and the part-segmentation trainer
+(``NAME: PartSegModel``, on a ShapeNetPart tree at ``data_root``) run; MAE
+pretraining (M16) and --tsne (M21) raise with their ROADMAP.md item.
 Checkpoints are reference-format ``.pth`` files (``train/checkpoint.py``).
 """
 
@@ -147,6 +148,38 @@ def _should_auto_resume(args, snapshot: str) -> bool:
             and os.path.exists(snapshot))
 
 
+def _part_seg(config, args, model, seg_cfg, bs: int, device, logger):
+    """The part-segmentation trainer on the ShapeNetPart tree at
+    ``config.data_root``: trainval to train (shuffled, whole batches), test
+    to evaluate. Returns (train state, best metrics)."""
+    from si_mamba_tpu_torch.data.shapenetpart import PartNormalDataset
+    from si_mamba_tpu_torch.train.runner_seg import seg_run
+
+    if args.test:
+        raise NotImplementedError("--test of a part-segmentation checkpoint is not a path of "
+                                  "the JAX CLI either: its trainer evaluates every epoch")
+    npts = int(config.npoints)
+    train_ds = PartNormalDataset(config.data_root, npoints=npts, split="trainval", seed=args.seed)
+    test_ds = PartNormalDataset(config.data_root, npoints=npts, split="test", seed=args.seed)
+
+    def loader(ds, shuffle):
+        # one process (data parallelism is M18b); the batches are assembled
+        # between the steps, as the JAX trainer's are, whatever --num_workers
+        # says: a thread assembling them ahead was no faster
+        # (scripts/torch_seg_loader_ab.py, PERF.md)
+        return Loader(ds, bs, shuffle=shuffle, drop_last=shuffle, seed=args.seed, prefetch=0)
+
+    pretrained = _load_pretrained(args.finetune_model) if args.finetune_model else None
+    return seg_run(seg_cfg, loader(train_ds, True), loader(test_ds, False),
+                   args.experiment_path, epochs=int(config.max_epoch),
+                   lr=float(config.optimizer.kwargs.lr),
+                   weight_decay=float(config.optimizer.kwargs.get("weight_decay", 0.0)),
+                   warmup_epochs=int(config.scheduler.kwargs.initial_epochs),
+                   pretrained=pretrained, logger=logger, seed=args.seed, resume=args.resume,
+                   async_ckpt=bool(config.get("async_ckpt", False)), device=device,
+                   model=model)
+
+
 def main(argv=None):
     """Run the CLI. Returns what the run gives: the test accuracy for
     --test, (train state, best AccMetric) for a finetune run."""
@@ -177,15 +210,18 @@ def main(argv=None):
         rf.tsne_run(config, None, None, os.path.join(args.experiment_path, "tsne.png"), logger)
     if args.way > 0:  # few-shot: the classifier width equals the way count
         config.model.cls_dim = args.way
-    # the NAME dispatch: MAE pretraining (M16), part segmentation (M15) and
-    # tensor parallelism (M18b) raise here, before any data is read
+    # the NAME dispatch: MAE pretraining (M16) and tensor parallelism (M18b)
+    # raise here, before any data is read
     rf.check_tensor_parallel(config)
-    model, _ = build_model_from_cfg(config.model, device, args.seed)
+    model, model_cfg = build_model_from_cfg(config.model, device, args.seed)
     bs = int(config.total_bs)
     if args.scratch_model:  # train from scratch: ignore any pretrained weights
         args.finetune_model = None
     if args.deterministic:
         print_log(f"[ARGS] deterministic run, seed={args.seed}", logger)
+
+    if config.model.NAME == "PartSegModel":
+        return _part_seg(config, args, model, model_cfg, bs, device, logger)
 
     if args.test:
         test_loader = build_loader(config.dataset.test, args, "test", bs,

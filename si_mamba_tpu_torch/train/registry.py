@@ -48,12 +48,18 @@ def build_model_from_cfg(model_cfg: dict, device="cuda", seed: int = 0):
 
 def _register_builtin_models():
     from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
+    from si_mamba_tpu_torch.models.segmentation import PartSegConfig, PartSegModel
 
     def point_mamba(device, seed, **cfg):
         c = PointMambaConfig.from_dict({k: (tuple(v) if isinstance(v, list) else v)
                                         for k, v in cfg.items()})
         with torch.device(device):
             return PointMamba(c, generator=torch.Generator(device).manual_seed(seed)), c
+
+    def part_seg(device, seed, **cfg):
+        c = PartSegConfig.from_dict(cfg)
+        with torch.device(device):
+            return PartSegModel(c, generator=torch.Generator(device).manual_seed(seed)), c
 
     def not_ported(name: str, item: str):
         def build(**cfg):
@@ -63,4 +69,4 @@ def _register_builtin_models():
 
     MODELS.register("PointMamba")(point_mamba)
     MODELS.register("Point_MAE_Mamba")(not_ported("Point_MAE_Mamba (MAE pretraining)", "M16"))
-    MODELS.register("PartSegModel")(not_ported("PartSegModel (part segmentation)", "M15"))
+    MODELS.register("PartSegModel")(part_seg)

@@ -1,11 +1,13 @@
 """Weights in the reference's state-dict layout.
 
-- :func:`state_dict_from_jax`: the JAX package's flax variables (as numpy
-  arrays) -> this package's state dict. The layout rules are the same as the
-  JAX package's ``utils/torch_export.py``: Dense kernels (in, out) transpose
-  to Linear weights (out, in), k=1 conv kernels gain a trailing axis, the
-  mixer conv (d, W) becomes (d, 1, W), BatchNorm scale/bias + batch_stats
-  become weight/bias/running_mean/running_var (+ ``num_batches_tracked``).
+- :func:`state_dict_from_jax` / :func:`partseg_state_dict_from_jax`: the
+  JAX package's flax variables of the classifier / the part-segmentation
+  model (as numpy arrays) -> this package's state dict. The layout rules
+  are the same as the JAX package's ``utils/torch_export.py``: Dense
+  kernels (in, out) transpose to Linear weights (out, in), k=1 conv kernels
+  gain a trailing axis, the mixer conv (d, W) becomes (d, 1, W), BatchNorm
+  scale/bias + batch_stats become weight/bias/running_mean/running_var
+  (+ ``num_batches_tracked``).
 - :func:`load_state_dict_file`: a reference-format ``.pth``
   (``{'base_model': state_dict, ...}``), with the ``module.`` /
   ``MAE_encoder.`` / ``base_model.`` prefixes stripped. An orbax directory
@@ -73,13 +75,11 @@ def _ssd_mixer(out, key, m) -> None:
     out[f"{key}.out_proj.weight"] = _t(np.asarray(m["out_proj"]).T)
 
 
-def state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
-                        ) -> Dict[str, torch.Tensor]:
-    """The JAX ``PointMamba``'s variables (``params``, ``batch_stats``, as
-    nested dicts of arrays) -> a state dict that ``PointMamba`` loads with
-    ``strict=True``. The depth is read from the block tree, and each mixer's
-    kind from its keys (the SSD mixer has ``norm_scale``, Mamba-1 ``x_proj``)."""
-    out: Dict[str, torch.Tensor] = {}
+def _backbone(out, params, batch_stats) -> None:
+    """The encoder, pos-embed, block stack and final norm, which the
+    classifier and the segmentation model share. The depth is read from the
+    block tree, and each mixer's kind from its keys (the SSD mixer has
+    ``norm_scale``, Mamba-1 ``x_proj``)."""
     enc, enc_s = params["encoder"], batch_stats["encoder"]
     _conv1x1(out, "encoder.first_conv.0", enc["conv1"])
     _bn(out, "encoder.first_conv.1", enc["bn1"], enc_s["bn1"])
@@ -97,12 +97,42 @@ def state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any
         (_ssd_mixer if "norm_scale" in mixer else _mixer)(out, f"blocks.layers.{i}.mixer", mixer)
     _ln(out, "blocks.norm_f", blocks["norm_f"])
     _ln(out, "norm", params["norm"])
+
+
+def state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
+                        ) -> Dict[str, torch.Tensor]:
+    """The JAX ``PointMamba``'s variables (``params``, ``batch_stats``, as
+    nested dicts of arrays) -> a state dict that ``PointMamba`` loads with
+    ``strict=True``."""
+    out: Dict[str, torch.Tensor] = {}
+    _backbone(out, params, batch_stats)
     head, head_s = params["cls_head_finetune"], batch_stats["cls_head_finetune"]
     _dense(out, "cls_head_finetune.0", head["fc1"])
     _bn(out, "cls_head_finetune.1", head["bn1"], head_s["bn1"])
     _dense(out, "cls_head_finetune.4", head["fc2"])
     _bn(out, "cls_head_finetune.5", head["bn2"], head_s["bn2"])
     _dense(out, "cls_head_finetune.8", head["out"])
+    return out
+
+
+def partseg_state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """The JAX ``PartSegModel``'s variables -> a state dict that the port's
+    ``PartSegModel`` loads with ``strict=True``: the classifier's backbone
+    keys and ``label_conv``, ``label_bn``, ``prop_fc{1,2}``, ``prop_bn{1,2}``,
+    ``convs{1,2,3}`` and ``bns{1,2}``, the keys of the reference's
+    part-segmentation checkpoints."""
+    out: Dict[str, torch.Tensor] = {}
+    _backbone(out, params, batch_stats)
+    _dense(out, "label_conv", params["label_conv"])
+    _bn(out, "label_bn", params["label_bn"], batch_stats["label_bn"])
+    for i in (1, 2):
+        _dense(out, f"prop_fc{i}", params[f"prop_fc{i}"])
+        _bn(out, f"prop_bn{i}", params[f"prop_bn{i}"], batch_stats[f"prop_bn{i}"])
+    for i in (1, 2, 3):
+        _dense(out, f"convs{i}", params[f"convs{i}"])
+    for i in (1, 2):
+        _bn(out, f"bns{i}", params[f"bns{i}"], batch_stats[f"bns{i}"])
     return out
 
 

@@ -149,8 +149,10 @@ def test_registry_builds_pointmamba_and_names_what_is_not_ported():
     assert cfg.trans_dim == 32 and cfg.depth == 2 and len(model.blocks.layers) == 2
     with pytest.raises(NotImplementedError, match="M16"):
         build_model_from_cfg({"NAME": "Point_MAE_Mamba", "group_size": 8})
-    with pytest.raises(NotImplementedError, match="M15"):
-        build_model_from_cfg({"NAME": "PartSegModel", "fetch_idx": [1, 2, 3]})
+    seg, seg_cfg = build_model_from_cfg({
+        "NAME": "PartSegModel", "trans_dim": 32, "encoder_dims": 32, "depth": 4,
+        "fetch_idx": [1, 2, 3], "num_group": 16, "group_size": 8, "knn_graph": 4}, "cpu")
+    assert seg_cfg.fetch_idx == (1, 2, 3) and len(seg.blocks.layers) == 4
     with pytest.raises(KeyError, match="unknown NAME"):
         build_model_from_cfg({"NAME": "Nope"})
 

@@ -1635,3 +1635,146 @@ def test_ssd_carry_kernels_match_plain(cuda, b, l, h, chunk, dtype):
         for a, w, tol in ((y, y_ref, 1e-5), (h_in, h_ref, 1e-5), (h_fin, hf_ref, 1e-5),
                           *((a, w, 1e-4) for a, w in zip(got, want))):
             _close_to_max(a, w, tol)
+
+
+# ---------------------------------------------------------------------------
+# the part-segmentation path: the kernels at its shapes, and its 3-NN
+# ---------------------------------------------------------------------------
+# cfgs/part_segmentation*.yaml: batch 16, the HLT canvas of L = 2 * 128 = 256
+# tokens, d_inner 768 (Mamba-1, xz 1536 wide) or 1024 with the SSD view (in_proj
+# 1798 wide, 6 heads, chunk 128: two chunks)
+SEG_B, SEG_L = 16, 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,row,off", [(768, 1536, 0), (1024, 1798, 768)],
+                         ids=["mamba-view", "ssd-view"])
+def test_conv_kernels_at_the_seg_shapes(cuda, d, row, off):
+    """K1 and K5 at the seg path's operands, at their plain versions'
+    tolerances (rtol 1e-5, atol 1e-6; 1e-5 of each gradient's max)."""
+    rng = np.random.default_rng(80)
+    x, weight, bias, g = _conv_bwd_case(rng, SEG_B, SEG_L, d, row, off, 0, cuda)
+    before = (kconv.causal_conv1d_silu.launches, kconv.causal_conv1d_silu_bwd.launches)
+    y = kconv.causal_conv1d_silu(x, weight, bias)
+    got = kconv.causal_conv1d_silu_bwd(x, weight, bias, g)
+    torch.cuda.synchronize()
+    assert (kconv.causal_conv1d_silu.launches, kconv.causal_conv1d_silu_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(y, kconv.causal_conv1d_ref(x, weight, bias), rtol=1e-5, atol=1e-6)
+    for a, want in zip(got, kconv.causal_conv1d_silu_bwd_ref(x, weight, bias, g)):
+        _close_to_max(a, want, 1e-5)
+
+
+@pytest.mark.cuda
+def test_scan_kernels_at_the_seg_shape(cuda):
+    """K2, K3 and K4 at batch 16, L = 256, d_inner 768."""
+    _scan_kernels_against_plain(_scan_case(np.random.default_rng(81), SEG_B, SEG_L, 768, cuda))
+
+
+@pytest.mark.cuda
+def test_ssd_kernels_at_the_seg_shape(cuda):
+    """The lean K8, K8 with states and K9 at batch 16, L = 256, 6 heads,
+    chunk 128 (two chunks), within 1e-5 (forward) and 1e-4 (gradients) of
+    their plain versions' max."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    rng = np.random.default_rng(82)
+    xbc, dth, S, D, d = _ssd_case(rng, SEG_B, SEG_L, 6, 128, cuda)
+    dy = _randn(rng, SEG_B, SEG_L, d + 3, device=cuda)[..., 3:]
+    y_lean = kssd.ssd_xbc_fwd(xbc, dth, S, D, d, 128)
+    y, h_in = kssd.ssd_xbc_fwd_states(xbc, dth, S, D, d, 128)
+    got = kssd.ssd_xbc_bwd(xbc, dth, S, D, h_in, dy, d, 128)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y_lean, rtol=0, atol=0)
+    y_ref, h_ref = kssd.ssd_xbc_fwd_ref(xbc, dth, S, D, d, 128, emit_states=True)
+    assert h_in.shape == (SEG_B, 2, 6, 128, 128)
+    _close_to_max(y, y_ref, 1e-5)
+    _close_to_max(h_in, h_ref, 1e-5)
+    for a, w in zip(got, kssd.ssd_xbc_bwd_ref(xbc, dth, S, D, h_in, dy, d, 128)):
+        _close_to_max(a, w, 1e-4)
+
+
+@pytest.mark.cuda
+def test_three_nn_breaks_ties_to_the_lower_index_on_cuda(cuda):
+    """The seg model's 3-NN on the card picks what it picks on the CPU on an
+    HLT-like canvas (chunks twice, zero slots) whose copies tie bitwise: the
+    lower index, as ``jax.lax.top_k``. The interpolation is held within 1e-6
+    against the same weights computed on the CPU from the card's distances:
+    cuBLAS rounds other entries than the CPU's GEMM, and at a point that
+    coincides with a centre (distance about 0) the weight 1 / (d + 1e-8)
+    follows that rounding."""
+    from si_mamba_tpu_torch.models.segmentation import feature_propagation_interp, three_nn
+
+    rng = np.random.default_rng(83)
+    base = _randn(rng, 4, 64, 3)
+    centres = torch.cat([base, base.flip(1), base[:, :16], torch.zeros(4, 96, 3)], dim=1)
+    pts = torch.cat([base, torch.zeros(4, 8, 3), _randn(rng, 4, 512, 3)], dim=1)
+    feats = _randn(rng, 4, centres.shape[1], 32)
+    _, want = three_nn(pts, centres)
+    d_gpu, got = three_nn(pts.to(cuda), centres.to(cuda))
+    assert torch.equal(got.cpu(), want)
+    assert int((d_gpu[..., 0] == d_gpu[..., 1]).sum()) >= 4 * 72  # the ties are there
+    w = 1.0 / (torch.clamp_min(d_gpu.cpu(), 0.0) + 1e-8)
+    w = w / w.sum(-1, keepdim=True)
+    picked = torch.gather(feats, 1, want.reshape(4, -1, 1).expand(-1, -1, 32)).reshape(4, -1, 3, 32)
+    torch.testing.assert_close(
+        feature_propagation_interp(pts.to(cuda), centres.to(cuda), feats.to(cuda)).cpu(),
+        (picked * w[..., None]).sum(2), rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_small_seg_ssd_train_gradients_match_xla(cuda):
+    """A small HLT seg model on the SSD mixer in training, kernels (K1, K8
+    with states, K9, K5, once a block) against 'xla', one tie-break and head
+    keep mask on both: the losses within 2e-4, every gradient but those of
+    the biases whose every effect a BatchNorm removes within 1e-3 of its
+    leaf's largest."""
+    from si_mamba_tpu_torch.models.segmentation import PartSegConfig, PartSegModel, nll_loss
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    cfg = dict(trans_dim=128, encoder_dims=128, depth=2, fetch_idx=(0, 1), num_group=64,
+               group_size=16, k_top_eigenvectors=3, drop_path=0.0, mixer="ssd", ssd_chunk=64)
+    model = PartSegModel(PartSegConfig(**cfg, scan_impl="ssd_fused")).to(cuda)
+    plain = PartSegModel(PartSegConfig(**cfg, scan_impl="xla")).to(cuda)
+    plain.load_state_dict(model.state_dict(), strict=True)
+    rng = np.random.default_rng(85)
+    pts = _randn(rng, 3, 512, 3, device=cuda)
+    onehot = torch.eye(16, device=cuda)[[1, 5, 12]]
+    seg = torch.from_numpy(rng.integers(0, 50, (3, 512))).to(cuda)
+    draws = dict(order_noise=torch.from_numpy(rng.random((3, 64), dtype=np.float32)).to(cuda),
+                 head_mask=torch.from_numpy(rng.random((3, 512, 512)) < 0.5).to(cuda))
+    k9 = kssd.ssd_xbc_bwd.launches
+    losses = [nll_loss(m.train()(pts, onehot, **draws), seg) for m in (model, plain)]
+    for loss in losses:
+        loss.backward()
+    assert kssd.ssd_xbc_bwd.launches == k9 + 2
+    torch.testing.assert_close(losses[0], losses[1], rtol=2e-4, atol=0)
+    bn_fed = {"encoder.first_conv.0.bias", "encoder.first_conv.3.bias",
+              "encoder.second_conv.0.bias", "norm.bias", "prop_fc1.bias", "prop_fc2.bias",
+              "convs1.bias", "convs2.bias"}
+    for (name, p), q in zip(model.named_parameters(), plain.parameters()):
+        if name not in bn_fed:
+            _close_to_max(p.grad, q.grad, 1e-3)
+
+
+@pytest.mark.cuda
+def test_small_seg_model_kernel_path_matches_plain(cuda):
+    """A small HLT seg model's eval log-probs, kernels against 'seq', with one
+    injected tie-break on both: atol 1e-3 max|logp|, rtol 2e-3."""
+    from si_mamba_tpu_torch.models.segmentation import PartSegConfig, PartSegModel
+
+    cfg = dict(trans_dim=64, encoder_dims=64, depth=4, fetch_idx=(1, 2, 3), num_group=32,
+               group_size=16, k_top_eigenvectors=3, drop_path=0.0)
+    model = PartSegModel(PartSegConfig(**cfg)).to(cuda).eval()
+    plain = PartSegModel(PartSegConfig(**cfg, scan_impl="seq")).to(cuda).eval()
+    plain.load_state_dict(model.state_dict(), strict=True)
+    rng = np.random.default_rng(84)
+    pts = _randn(rng, 3, 512, 3, device=cuda)
+    onehot = torch.eye(16, device=cuda)[[1, 5, 12]]
+    noise = torch.rand(3, 32, generator=torch.Generator().manual_seed(0)).to(cuda)
+    before = kconv.causal_conv1d_silu.launches
+    with torch.inference_mode():
+        got = model(pts, onehot, order_noise=noise)
+        want = plain(pts, onehot, order_noise=noise)
+    assert kconv.causal_conv1d_silu.launches == before + 4
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=1e-3 * want.abs().max().item())

@@ -582,7 +582,7 @@ def test_cli_refuses_cuda_without_a_gpu(modelnet_tree, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("pretrain", "M16"), ("partseg", "M15"), ("tsne", "M21"), ("orbax_ckpts", "export_torch"),
+    ("pretrain", "M16"), ("tsne", "M21"), ("orbax_ckpts", "export_torch"),
     ("orbax_finetune", "export_torch"), ("orbax_predictor", "export_torch"),
     ("tensor_parallel", "M18b")])
 def test_unported_paths_raise_with_their_roadmap_item(modelnet_tree, tmp_path, monkeypatch,
@@ -596,8 +596,6 @@ def test_unported_paths_raise_with_their_roadmap_item(modelnet_tree, tmp_path, m
     with pytest.raises(NotImplementedError, match=match):
         if case == "pretrain":
             cli.main(["--config", str(ROOT / "cfgs" / "dev" / "tiny_pretrain_cpu.yaml")] + base)
-        elif case == "partseg":
-            cli.main(["--config", str(ROOT / "cfgs" / "dev" / "tiny_partseg_cpu.yaml")] + base)
         elif case == "tsne":
             cli.main(["--config", cfg, "--tsne"] + base)
         elif case == "orbax_ckpts":

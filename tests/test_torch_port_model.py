@@ -2,7 +2,7 @@
 package's, with the JAX-initialised weights carried over by
 ``state_dict_from_jax`` (SAST with sign-aligned eigenvectors, and the xyz
 'MAMBA' ordering), plus the reference-keyed state dict, the config and the
-options that are not ported yet."""
+options that are not ported yet (the HLT ordering is tests/test_torch_port_hlt.py)."""
 
 import dataclasses
 
@@ -150,7 +150,7 @@ def test_fresh_model_is_seeded_and_finite():
     assert torch.isfinite(logits).all()
 
 
-@pytest.mark.parametrize("override", [dict(method="HLT"), dict(add_after_layer=True),
+@pytest.mark.parametrize("override", [dict(add_after_layer=True),
                                       dict(mixer="ssd", add_after_layer=True),
                                       dict(tp_axis="model", add_after_layer=True),
                                       dict(dtype="float16"),
@@ -173,15 +173,18 @@ def test_tp_axis_needs_a_mesh_at_either_dtype(dtype):
                                       dict(dtype="bfloat16", spectral_method="subspace"),
                                       dict(dtype="bfloat16", scan_impl="fused", trans_dim=64,
                                            encoder_dims=64),
-                                      dict(dtype="bfloat16", mixer="ssd", scan_impl="fused")])
+                                      dict(dtype="bfloat16", mixer="ssd", scan_impl="fused"),
+                                      dict(dtype="bfloat16", spectral_method="subspace",
+                                           method="HLT"),
+                                      dict(method="HLT", mixer="ssd")])
 def test_perf_mode_options_build_and_run(override):
     """bf16 and the subspace eigensolver (perf mode) build and give finite
     logits in the activation dtype, on the whole-mixer route too (d_inner
-    128, which 'fused' needs); the SSD mixer with scan_impl 'fused' runs its
-    'xla' route, as the JAX model's does (its SSD mixer has no 'fused'
-    route). tests/test_torch_port_perf.py and
-    tests/test_torch_port_fused_bf16.py hold them against the JAX
-    package."""
+    128, which 'fused' needs), and with the HLT ordering; the SSD mixer with
+    scan_impl 'fused' runs its 'xla' route, as the JAX model's does (its SSD
+    mixer has no 'fused' route). tests/test_torch_port_perf.py,
+    tests/test_torch_port_fused_bf16.py and tests/test_torch_port_hlt.py hold
+    them against the JAX package."""
     cfg = PointMambaConfig(**{**SMALL, **override})
     model = PointMamba(cfg).eval()
     with torch.no_grad():

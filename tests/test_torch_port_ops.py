@@ -162,7 +162,7 @@ def test_sast_sequence_matches_jax(reverse, reverse_2):
     tok = rng.standard_normal((2, 16, 8)).astype(np.float32)
     pos = rng.standard_normal((2, 16, 8)).astype(np.float32)
     eig = rng.standard_normal((2, 16, 3)).astype(np.float32)
-    got = tordering.sast_sequence(_t(tok), _t(pos), _t(eig), reverse=reverse,
+    got = tordering.sast_sequence(_t(eig), _t(tok), _t(pos), reverse=reverse,
                                   reverse_2=reverse_2)
     want = jordering.sast_sequence(jnp.asarray(tok), jnp.asarray(pos), jnp.asarray(eig),
                                    reverse=reverse, reverse_2=reverse_2)
@@ -174,7 +174,7 @@ def test_xyz_sequence_matches_jax(centers):
     rng = np.random.default_rng(6)
     tok = rng.standard_normal((3, 32, 8)).astype(np.float32)
     pos = rng.standard_normal((3, 32, 8)).astype(np.float32)
-    got = tordering.xyz_sequence(_t(tok), _t(pos), _t(centers))
+    got = tordering.xyz_sequence(_t(centers), _t(tok), _t(pos))
     want = jordering.xyz_sequence(jnp.asarray(tok), jnp.asarray(pos), jnp.asarray(centers))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
