@@ -253,20 +253,55 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    unmoved and the steps' gradient norms recorded), instance and class mIoU
    and accuracy in [0, 1], ckpt-last.pth and ckpt-best.pth written; the step
    p50, the evaluation's ms a batch and the peak memory printed.
+30. the kernels at the pretraining and hardest-scan shapes (after phase 28): the fp32 K1,
+   K5, K3, K4 at B=128 with L=208 (the encoder's 2 K n_vis tokens) and L=512 (the
+   decoder's), K1 and K2 at the probe's B=64, L=512; the bf16 K1, K5, K8 with states and K9
+   at B=128 with L=208 (K8/K9 on it padded to 256, two chunks of 128) and 512, the bf16 K1
+   and lean K8 at B=64, L=512; the fp32 K1-K5 at B=32, L=1024 and K8 (both variants), K9 at
+   chunk 256, nc 4; each held against its plain version (the bf16 K8 y and K9 dxbc against
+   the fp64 truth, no further from it than the plain version) and timed beside it, into
+   each record's ``at_pretrain_and_scan_shapes``;
+31. (after phase 29) the held MAE forward: cfgs/pretrain.yaml's model at full width,
+   seeded weights, 16 clouds: the eval loss with one mask and order override against
+   'seq' (rtol 2e-3), the noaug features (1e-3 of max, 2e-3 relative), K1 and K2 16 and
+   12 times; the orders computed on the card against the CPU's (recorded); then the
+   encoder stack (12 blocks) in training at B=16, L=208 on one cotangent against 'seq',
+   every gradient within 1e-4 of its leaf's largest;
+32. the SVM probe's solver (``train/svm.py``) at the published probe size and class mix
+   (ModelNet40's per-class train and test counts: 9843 x 768 features, 2468 test, 40
+   classes; seeded class blobs), its seconds and peak allocation, and at a small size
+   against the same solver on the CPU (decision values within 1e-6, predictions equal);
+33. both pretraining presets (cfgs/pretrain.yaml; cfgs/pretrain_ssd_fused.yaml, bf16 +
+   Jacobi) through the CLI at max_epoch 1 under build/mae/ (272 seeded ShapeNet-55 shapes
+   of 8192 points, the committed ModelNet40 h5 fixtures for the probe): four steps at
+   batch 128, each launching K1, K3, K4 and K5 (the bf16 K1, K8 with states, K9, K5) 16
+   times and nothing else, every probe feature forward K1 and K2 (bf16 K1, lean K8) 12
+   times; finite losses; the BatchNorm statistics, ``diff_sgwt.*``, ``mask_token`` and
+   every decayed parameter moved; the probe accuracy in [0, 100]; ckpt-last.pth and
+   ckpt-best.pth written; the step p50, clouds/s, peak, the probe's feature and solve
+   seconds, and a step timed by piece (orders: grouping, graph, bases, SGWT, Sinkhorn,
+   rounding; encoder; decoder with the loss; update) printed;
+34. cfgs/finetune_scan_hardest.yaml through the CLI at max_epoch 1 on the committed
+   ScanObjectNN-hardest fixtures, finetuned from phase 33's ckpt-last.pth through
+   --finetune_model (only the head's keys missing): two steps launching K1, K3, K4, K5
+   12 times each at L = 1024, every validation forward K1 and K2; then a held classifier
+   forward at L = 1024 against 'seq'.
 
 Each path (serving, train, perf serving, perf train, SSD serving, SSD train,
 SSD perf serving, SSD perf train, fused serving, fused train, fused perf
 serving, fused perf train, the carry path at fp32 and at bf16, the harness's
 finetune, test and vote runs, the perf, SSD and fused perf configurations'
 CLI runs and the latter two's test runs, the HLT classifier's request, the
-two held seg forwards and the two seg CLI runs, and on each rank TP SSD serving,
+two held seg forwards and the two seg CLI runs, the held MAE loss and feature
+forwards, the MAE stack's train pass, the two pretraining CLI runs, the hardest scan's CLI
+run and held forward, and on each rank TP SSD serving,
 TP SSD train, SP, SP train, TP Mamba-1 serving, bf16 TP SSD serving and
 train, bf16 SP and SP train, bf16 TP Mamba-1 serving and train) is driven with every launch count set to 0 just before it and read
 just after. The last five
 lines of standard output are the harness's record, the serving, profile,
 train and gradient record of the three models (and perf mode's, the SSD
-presets' and fused perf mode's serving, profile, train and CLI records, and
-part segmentation's), the kernels' record (each one
+presets' and fused perf mode's serving, profile, train and CLI records, part
+segmentation's and MAE pretraining's), the kernels' record (each one
 JSON object; every kernel names its ``main_path`` and its launches on every
 path, rank 0's for the parallel paths), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -1423,6 +1458,170 @@ def _hold_split_bf16(sargs, dy, dh_fin) -> tuple[dict, dict, dict]:
     return errs, calls, plains
 
 
+KEEP_FIGURES = ("shape", "row_stride", "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "plan", "kernel_err_of_max", "plain_err_of_max",
+                "ulps_from_plain")  # a kernel's figures at one more shape
+
+
+def _keep(figures: dict) -> dict:
+    return {k: v for k, v in figures.items() if k in KEEP_FIGURES}
+
+
+def _hold_bf16_truth(name: str, got: torch.Tensor, want: torch.Tensor,
+                     truth: torch.Tensor) -> dict:
+    """A bf16 output of a bf16 SSD kernel at the pretraining shapes, held
+    against the fp64 truth (the plain version's arithmetic in float64 on the
+    same bf16 inputs): its largest error must not exceed the plain version's
+    by more than 1 % (plus 1e-6 of max|truth|). At B=128 the two sit on
+    either side of a rounding boundary at single elements (3 bf16 ulps of the
+    2e-2 floor apart at one of 33.5 M elements of K9's dxbc, each 3.0e-3 of
+    max from the truth), which ``_hold_bf16``'s two ulps would call a fault;
+    the distance in ulps is recorded. Returns the figures."""
+    got, want, truth = got.double(), want.double(), truth.double()
+    scale = truth.abs().max().item()
+    err_k, err_p = (got - truth).abs().max().item(), (want - truth).abs().max().item()
+    if not err_k <= 1.01 * err_p + 1e-6 * scale:
+        raise AssertionError(f"{name}: {err_k / scale:.3e} of max from the fp64 truth, the plain "
+                             f"version {err_p / scale:.3e}")
+    return dict(kernel_err_of_max=err_k / scale, plain_err_of_max=err_p / scale,
+                ulps_from_plain=_bf16_ulps(got, want, 2e-2),
+                max_abs_err=(got - want).abs().max().item())  # from the plain version
+
+
+def _f64(args):
+    return tuple(a.double() if torch.is_tensor(a) else a for a in args)
+
+
+def ssd_bf16_inputs(device, batch: int, length: int, chunk: int, seed: int):
+    """Layer 0's bf16 SSD mixer's kernel inputs at B=batch, L=length: its
+    parameters on ``device`` and the bf16 in_proj output x @ in_proj of seeded
+    x. Returns (the mixer, its parameters, zxbcdt (B, L, 1798))."""
+    from si_mamba_tpu_torch.models.layers import SSDMixer
+
+    mixer = SSDMixer(MODELNET40["trans_dim"], out_proj_div=MODELNET40["depth"] ** 0.5,
+                     chunk=chunk)
+    mixer.reset_parameters(torch.Generator().manual_seed(1))
+    p = {k: v.detach().to(device) for k, v in mixer.params().items()}
+    u = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (batch, length, MODELNET40["trans_dim"]), dtype=np.float32)).to(device, torch.bfloat16)
+    return mixer, p, u @ p["in_proj_w"].to(torch.bfloat16)
+
+
+def ssd_xbc_bf16_figures(args, length: int, truth: bool, train: bool = True,
+                         infer: bool = True) -> dict:
+    """The bf16 K8/K9 on ``args`` (xbc, dt, S, D, d_inner, chunk; xbc's rows
+    from ``length`` on the mixer's padding): with ``infer`` the lean K8, with
+    ``train`` K8 with states (its y equal to the lean y) and K9 (twice,
+    bitwise equal, for a seeded cotangent that is 0 on the padding), each
+    timed beside its plain version and held: K8's y and K9's dxbc with
+    ``truth`` against the fp64 truth (``_hold_bf16_truth``), else within 2
+    bf16 ulps of the plain version; the fp32 outputs within 1e-3 of their max
+    (``_hold_bf16``). Returns {kernel name: figures}."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    xbc, dth, S, D, d, chunk = args
+    batch, L = xbc.shape[:2]
+    fwd_work, bwd_work = _ssd_bf16_work(batch, L, dth.shape[1], chunk, d_skip=True)
+    where = f"B={batch}, L={L}"
+    out = {}
+
+    def hold(name, got, want, exact):
+        if truth:
+            return _hold_bf16_truth(f"{name} at {where}", got, want, exact())
+        return dict(max_abs_err=_hold_bf16(f"{name} at {where}", got, want))
+
+    def figures(fn, plain, held, work, iters, err=0.0):
+        return dict(shape=list(xbc.shape), ms=time_ms(fn, iters), device_ms=graph_ms(fn, iters),
+                    plain_ms=time_ms(plain, 2, warmup=1), library_ms=None,
+                    **bf16_tc_bound(*work),
+                    **{**held, "max_abs_err": max(err, held["max_abs_err"])})
+
+    def y_truth():
+        return kssd.ssd_xbc_fwd_ref(*_f64(args))[0]
+
+    if infer:
+        y_lean = kssd.ssd_xbc_fwd_bf16(*args)
+        held = hold("bf16 K8 y", y_lean, kssd.ssd_xbc_fwd_ref(*args)[0], y_truth)
+        out["ssd_xbc_fwd_bf16"] = figures(lambda: kssd.ssd_xbc_fwd_bf16(*args),
+                                          lambda: kssd.ssd_xbc_fwd_ref(*args), held,
+                                          fwd_work[(False, False)], 20)
+    if not train:
+        return out
+    y8, h_in = kssd.ssd_xbc_fwd_states_bf16(*args)
+    y_ref, h_ref = kssd.ssd_xbc_fwd_ref(*args, emit_states=True)
+    torch.cuda.synchronize()
+    if infer and not torch.equal(y8, y_lean):
+        raise AssertionError(f"the bf16 SSD forward with states differs from the lean one at "
+                             f"{where}")
+    held = hold("bf16 K8 y", y8, y_ref, y_truth)
+    err_h = _hold_bf16(f"bf16 K8 h_in at {where}", h_in, h_ref)
+    out["ssd_xbc_fwd_states_bf16"] = figures(
+        lambda: kssd.ssd_xbc_fwd_states_bf16(*args),
+        lambda: kssd.ssd_xbc_fwd_ref(*args, emit_states=True), held, fwd_work[(True, False)],
+        20, err_h)
+    dy = torch.from_numpy(np.random.default_rng(42).standard_normal(
+        (batch, L, d), dtype=np.float32)).to(xbc.device, torch.bfloat16)
+    dy[:, length:] = 0  # the padded rows' cotangent, as the mixer's slice y[:, :l] gives
+    bwd_args = (xbc, dth, S, D, h_in, dy, d, chunk)
+    got, again = kssd.ssd_xbc_bwd_bf16(*bwd_args), kssd.ssd_xbc_bwd_bf16(*bwd_args)
+    want = kssd.ssd_xbc_bwd_ref(*bwd_args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"two bf16 SSD backward runs at {where} differ")
+    held = hold("bf16 K9 dxbc", got[0], want[0],
+                lambda: kssd.ssd_xbc_bwd_ref(*_f64(bwd_args))[0])
+    err9 = max(_hold_bf16(f"bf16 K9 {k} at {where}", a, w)
+               for k, a, w in zip(("ddt", "dS", "dD"), got[1:], want[1:]))
+    out["ssd_xbc_bwd_bf16"] = figures(lambda: kssd.ssd_xbc_bwd_bf16(*bwd_args),
+                                      lambda: kssd.ssd_xbc_bwd_ref(*bwd_args), held,
+                                      bwd_work[False], 10, err9)
+    return out
+
+
+def ssd_bf16_at(device, batch: int, length: int, chunk: int, train: bool = True,
+                infer: bool = True) -> dict:
+    """The bf16 SSD preset's kernels as layer 0's bf16 SSD mixer makes their
+    inputs at B=batch, L=length (``ssd_bf16_inputs``): the bf16 K1 (and with
+    ``train`` K5) on the (x|B|C) column view at L, held as
+    ``bf16_conv_figures`` holds them, then on K1's output padded to a chunk
+    multiple (as the mixer pads) the bf16 K8/K9 of ``ssd_xbc_bf16_figures``
+    (``train``, ``infer``), their bf16 outputs held against the fp64 truth.
+    Returns {kernel name: figures}."""
+    from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
+
+    mixer, p, zxbcdt = ssd_bf16_inputs(device, batch, length, chunk, 40)
+    d, n, h = mixer.d_inner, mixer.d_state, mixer.n_heads
+    xbc_in = zxbcdt[..., d:2 * d + 2 * n]
+    out = {}
+    if train:
+        g = torch.from_numpy(np.random.default_rng(41).standard_normal(
+            xbc_in.shape, dtype=np.float32)).to(device, torch.bfloat16)
+        fwd, bwd = bf16_conv_figures(xbc_in, p["conv_w"], p["conv_b"], g)
+        out["causal_conv1d_silu_bf16"] = _keep(fwd)
+        out["causal_conv1d_silu_bwd_bf16"] = _keep(bwd)
+    else:
+        conv = lambda: kc.causal_conv1d_silu_bf16(xbc_in, p["conv_w"], p["conv_b"])  # noqa: E731
+        plain = lambda: kc.causal_conv1d_ref(xbc_in, p["conv_w"], p["conv_b"])  # noqa: E731
+        y, y_ref = conv(), plain()
+        if _bf16_ulps(y, y_ref, 1e-2) > 1:
+            raise AssertionError(f"bf16 K1 at B={batch}, L={length} is more than one ulp off")
+        bound_ms, bound_by = conv_fwd_bound(batch, length, xbc_in.shape[-1], 4, 2)
+        out["causal_conv1d_silu_bf16"] = dict(
+            shape=[batch, length, xbc_in.shape[-1]], row_stride=xbc_in.stride(1),
+            max_abs_err=(y.float() - y_ref.float()).abs().max().item(), ms=time_ms(conv, 20),
+            device_ms=graph_ms(conv, 20), plain_ms=time_ms(plain, 5), library_ms=None,
+            bound_ms=bound_ms, bound_by=bound_by)
+    y = kc.causal_conv1d_silu_bf16(xbc_in, p["conv_w"], p["conv_b"])
+    pad = (-length) % chunk
+    L = length + pad
+    xbc = F.pad(y, (0, 0, 0, pad))
+    dt = F.pad(F.softplus(zxbcdt[..., 2 * d + 2 * n:].float() + p["dt_bias"]), (0, 0, 0, pad))
+    dth = dt.transpose(1, 2).reshape(batch, h, L // chunk, chunk).contiguous()
+    S = torch.cumsum(dth * -torch.exp(p["A_log"])[None, :, None, None], dim=-1)
+    return out | ssd_xbc_bf16_figures((xbc, dth, S, p["D"], d, chunk), length, truth=True,
+                                      train=train, infer=infer)
+
+
 def ssd_bf16_kernel_phase(device) -> tuple[list[dict], dict]:
     """The SSD presets' kernels at bf16, as layer 0's bf16 SSD mixer makes
     their inputs at B=32, L=512 (x @ in_proj in bf16): the bf16 K1 and K5 at
@@ -1430,30 +1629,23 @@ def ssd_bf16_kernel_phase(device) -> tuple[list[dict], dict]:
     stride 1798: 3596-byte rows, not 16-byte aligned) and at the tensor-
     parallel step's two contiguous operands (the 384-wide x shard, the
     256-wide B|C); then the bf16 K8 (lean, also at B = 1, 20 and 64, and with
-    states) and K9 (twice, bitwise equal) on K1's output, and the bf16 K6
-    (lean, with states, with h_fin, with both; the same y from each) and K7
-    (from 0 and seeded, each twice, bitwise equal) at the tensor-parallel
-    shard (3 heads) and at the sequence-parallel path's shapes (SP_SHAPE:
-    a rank's 256 rows, 6 heads, chunk 128; ``at_sp_shape``), each held
-    against its plain version at bf16 (``_hold_bf16``) and timed beside it,
-    with ``bound_ms`` from ``bf16_tc_bound``. Returns (the K6-K9 records, the
-    bf16 K1/K5 figures by kernel name and operand)."""
+    states) and K9 (``ssd_xbc_bf16_figures``, a bf16 output within 2 bf16
+    ulps of the plain version's), and the bf16 K6 (lean, with states, with
+    h_fin, with both; the same y from each) and K7 (from 0 and seeded, each
+    twice, bitwise equal) at the tensor-parallel shard (3 heads) and at the
+    sequence-parallel path's shapes (SP_SHAPE: a rank's 256 rows, 6 heads,
+    chunk 128; ``at_sp_shape``), each held against its plain version at bf16
+    (``_hold_bf16``) and timed beside it, with ``bound_ms`` from
+    ``bf16_tc_bound``. Returns (the K6-K9 records, the bf16 K1/K5 figures by
+    kernel name and operand)."""
     from si_mamba_tpu_torch.ops.kernels import ssd as kssd
 
     bf = torch.bfloat16
     B, L = TRAIN_BATCH, 512
     # K1 and K5 at the SSD view and at the tensor-parallel operands
-    from si_mamba_tpu_torch.models.layers import SSDMixer
-
-    mixer = SSDMixer(MODELNET40["trans_dim"], out_proj_div=MODELNET40["depth"] ** 0.5,
-                     chunk=MODELNET40_SSD["ssd_chunk"])
-    mixer.reset_parameters(torch.Generator().manual_seed(1))
-    p = {k: v.detach().to(device) for k, v in mixer.params().items()}
+    mixer, p, zxbcdt = ssd_bf16_inputs(device, B, L, MODELNET40_SSD["ssd_chunk"], 14)
     d, n = mixer.d_inner, mixer.d_state
-    rng = np.random.default_rng(14)
-    u = torch.from_numpy(rng.standard_normal((B, L, MODELNET40["trans_dim"]),
-                                             dtype=np.float32)).to(device, bf)
-    zxbcdt = u @ p["in_proj_w"].to(bf)
+    rng = np.random.default_rng(15)
     conv = {"causal_conv1d_silu_bf16": {}, "causal_conv1d_silu_bwd_bf16": {}}
     views = {"ssd_view": (zxbcdt[..., d:2 * d + 2 * n], p["conv_w"], p["conv_b"])}
     for what, C in (("x_shard", d // TP), ("bc", 2 * n)):
@@ -1469,33 +1661,18 @@ def ssd_bf16_kernel_phase(device) -> tuple[list[dict], dict]:
         conv["causal_conv1d_silu_bf16"][what] = fwd
         conv["causal_conv1d_silu_bwd_bf16"][what] = bwd
 
-    records = []
-
-    def record(name, fn, plain, err, work, **extra):
+    def meta(name):
         fwd = "fwd" in name
-        records.append(dict(
-            name=name, route="cuda", dtype="bfloat16",
-            source="si_mamba_tpu_torch/csrc/ssd_xbc_" + ("fwd.cu" if fwd else "bwd.cu"),
-            replaces="si_mamba_tpu/ops/pallas/ssd_kernel.py:" + (
-                ("540" if fwd else "623") if name.startswith("ssd_xbc") else
-                ("119" if fwd else "216")),
-            max_abs_err=err, ms=time_ms(fn, 20 if fwd else 10),
-            device_ms=graph_ms(fn, 20 if fwd else 10),
-            plain_ms=time_ms(plain, 3 if fwd else 2, warmup=1), library_ms=None,
-            **bf16_tc_bound(*work), **extra))
+        return dict(name=name, route="cuda", dtype="bfloat16",
+                    source="si_mamba_tpu_torch/csrc/ssd_xbc_" + ("fwd.cu" if fwd else "bwd.cu"),
+                    replaces="si_mamba_tpu/ops/pallas/ssd_kernel.py:" + (
+                        ("540" if fwd else "623") if name.startswith("ssd_xbc") else
+                        ("119" if fwd else "216")))
 
-    # K8 and K9 on the bf16 K1's output at the SSD view
-    x6, dth, S, _, _, xbc, D, chunk = _split_operands(device, heads=6, batch=B, dtype=bf)
-    h = dth.shape[1]
-    args = (xbc, dth, S, D, d, chunk)
-    y_lean = kssd.ssd_xbc_fwd_bf16(*args)
-    y, h_in = kssd.ssd_xbc_fwd_states_bf16(*args)
-    y_ref, h_ref = kssd.ssd_xbc_fwd_ref(*args, emit_states=True)
-    torch.cuda.synchronize()
-    if not torch.equal(y, y_lean):
-        raise AssertionError("the bf16 SSD forward with states differs from the lean one")
-    err_y, err_h = _hold_bf16("bf16 K8 y", y, y_ref), _hold_bf16("bf16 K8 h_in", h_in, h_ref)
-    fwd_work, bwd_work = _ssd_bf16_work(B, L, h, chunk, d_skip=True)
+    # K8 and K9, then the lean K8 at the serving request sizes
+    _, dth, S, _, _, xbc, D, chunk = _split_operands(device, heads=6, batch=B, dtype=bf)
+    records = [meta(name) | f for name, f in ssd_xbc_bf16_figures(
+        (xbc, dth, S, D, d, chunk), L, truth=False).items()]
     at_clouds = {}
     for batch in REQUEST_SIZES:
         a = _split_operands(device, heads=6, batch=batch, dtype=bf)
@@ -1505,23 +1682,15 @@ def ssd_bf16_kernel_phase(device) -> tuple[list[dict], dict]:
         at_clouds[batch] = dict(max_abs_err=err,
                                 ms=time_ms(lambda: kssd.ssd_xbc_fwd_bf16(*a_args), 20),
                                 device_ms=graph_ms(lambda: kssd.ssd_xbc_fwd_bf16(*a_args), 20))
-    record("ssd_xbc_fwd_bf16", lambda: kssd.ssd_xbc_fwd_bf16(*args),
-           lambda: kssd.ssd_xbc_fwd_ref(*args), err_y, fwd_work[(False, False)],
-           at_clouds=at_clouds)
-    record("ssd_xbc_fwd_states_bf16", lambda: kssd.ssd_xbc_fwd_states_bf16(*args),
-           lambda: kssd.ssd_xbc_fwd_ref(*args, emit_states=True), max(err_y, err_h),
-           fwd_work[(True, False)])
-    dy = torch.from_numpy(rng.standard_normal((B, L, d), dtype=np.float32)).to(device, bf)
-    bwd_args = (xbc, dth, S, D, h_in, dy, d, chunk)
-    got, again = kssd.ssd_xbc_bwd_bf16(*bwd_args), kssd.ssd_xbc_bwd_bf16(*bwd_args)
-    want = kssd.ssd_xbc_bwd_ref(*bwd_args)
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, c) for a, c in zip(got, again)):
-        raise AssertionError("two bf16 SSD backward runs on the same inputs differ")
-    err9 = max(_hold_bf16(f"bf16 K9 {k}", a, w) for k, a, w in
-               zip(("dxbc", "ddt", "dS", "dD"), got, want))
-    record("ssd_xbc_bwd_bf16", lambda: kssd.ssd_xbc_bwd_bf16(*bwd_args),
-           lambda: kssd.ssd_xbc_bwd_ref(*bwd_args), err9, bwd_work[False])
+    records[0]["at_clouds"] = at_clouds
+
+    def record(name, fn, plain, err, work, **extra):
+        fwd = "fwd" in name
+        records.append(meta(name) | dict(
+            max_abs_err=err, ms=time_ms(fn, 20 if fwd else 10),
+            device_ms=graph_ms(fn, 20 if fwd else 10),
+            plain_ms=time_ms(plain, 3 if fwd else 2, warmup=1), library_ms=None,
+            **bf16_tc_bound(*work), **extra))
 
     # K6 and K7 at the tensor-parallel shard, and at the sequence-parallel
     # path's shapes: rank 0's 256 rows of the full mixer's 6 heads, chunk 128
@@ -3511,36 +3680,47 @@ SEG_SSD_TRAIN_KERNELS = ("causal_conv1d_silu", "ssd_xbc_fwd_states", "ssd_xbc_bw
 SEG_SSD_EVAL_KERNELS = ("causal_conv1d_silu", "ssd_xbc_fwd")
 
 
+def mamba_at(device, batch: int, length: int, train: bool = True, infer: bool = True) -> dict:
+    """The fp32 Mamba-1 kernels at B=batch, L=length as layer 0's mixer makes
+    their inputs (K1 on the xi view of the in_proj output, the scan on
+    ``scan_operands``), each held against its plain version at the tolerances
+    of phases 1-2 and timed beside it: K1, with ``infer`` K2, with ``train``
+    K5, K3 and K4. Returns {kernel name: figures}."""
+    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
+
+    mixer, p, xz = mixer_inputs(device, batch, length)
+    xi = xz[..., :mixer.d_inner]
+    g = torch.from_numpy(np.random.default_rng(41).standard_normal(
+        xi.shape, dtype=np.float32)).to(device)
+    fwd, bwd = conv_records(xi, p["conv_w"], p["conv_b"], g)
+    args = scan_operands(device, batch, length)
+    out = {"causal_conv1d_silu": fwd}
+    if infer:
+        k2 = scan_fwd_figures(args)
+        k2["plain_ms"] = time_ms(lambda: ks.selective_scan_ref(
+            *args[:5], D=args[5], z=args[6], delta_bias=args[7]), 2, warmup=1)
+        out["selective_scan_fwd"] = k2
+    if train:
+        k3, k4 = backward_kernel_phase(device, args)
+        out |= {"causal_conv1d_silu_bwd": bwd, "selective_scan_fwd_residuals": k3,
+                "selective_scan_bwd": k4}
+    return {k: _keep(r) for k, r in out.items()}
+
+
 def seg_kernel_phase(device) -> dict:
     """K1-K5, K8 and K9 at the part-segmentation path's shapes, each held
     against its plain version at the tolerances of the phases above and timed
-    beside it: K1 and K5 on the Mamba-1 xi view (B=16, L=256, width 768 of a
-    1536 row) and the SSD x|B|C view (width 1024 of a 1798 row), K2, K3 and
-    K4 on K1's output, K8 (both variants) and K9 at 6 heads, chunk 128 (two
-    chunks). Returns {kernel name: {view: figures}}."""
-    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
-
-    mixer, p, xz = mixer_inputs(device, SEG_BATCH, SEG_LEN)
-    xi = xz[..., :mixer.d_inner]
-    g = torch.from_numpy(np.random.default_rng(30).standard_normal(
-        xi.shape, dtype=np.float32)).to(device)
-    fwd, bwd = conv_records(xi, p["conv_w"], p["conv_b"], g)
-    args = scan_operands(device, SEG_BATCH, SEG_LEN)
-    k2 = scan_fwd_figures(args)
-    k2["plain_ms"] = time_ms(lambda: ks.selective_scan_ref(*args[:5], D=args[5], z=args[6],
-                                                            delta_bias=args[7]), 2, warmup=1)
-    k3, k4 = backward_kernel_phase(device, args)
+    beside it: the Mamba-1 kernels at B=16, L=256 (``mamba_at``: K1 and K5 on
+    the xi view, width 768 of a 1536 row, K2, K3 and K4 on K1's output), and
+    K1, K5 on the SSD x|B|C view (width 1024 of a 1798 row), K8 (both
+    variants) and K9 at 6 heads, chunk 128 (two chunks). Returns {kernel name:
+    {view: figures}}."""
     ssd_records, ssd_conv = ssd_kernel_phase(device, SEG_BATCH, SEG_LEN, SEG_CHUNK,
                                              at_clouds=False)
-    keep = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "plan")
-    out = {"causal_conv1d_silu": {"mamba1": fwd, "ssd": ssd_conv["causal_conv1d_silu"]},
-           "causal_conv1d_silu_bwd": {"mamba1": bwd, "ssd": ssd_conv["causal_conv1d_silu_bwd"]},
-           "selective_scan_fwd": {"mamba1": k2}, "selective_scan_fwd_residuals": {"mamba1": k3},
-           "selective_scan_bwd": {"mamba1": k4},
-           **{r["name"]: {"ssd": r} for r in ssd_records}}
-    out = {name: {view: {k: v for k, v in f.items() if k in keep} for view, f in views.items()}
-           for name, views in out.items()}
+    out = {name: {"mamba1": f} for name, f in mamba_at(device, SEG_BATCH, SEG_LEN).items()}
+    for name, f in ssd_conv.items():
+        out[name]["ssd"] = _keep(f)
+    out |= {r["name"]: {"ssd": _keep(r)} for r in ssd_records}
     log("kernels at the seg shapes (B=16, L=256): " + "; ".join(
         f"{name} {view} {f['ms']:.6f} ms (plain {f['plain_ms']:.6f}, bound "
         f"{f['bound_ms']:.6f})" for name, views in out.items() for view, f in views.items()))
@@ -3923,6 +4103,655 @@ def seg_phases(device, card: str) -> tuple[dict, dict]:
     return paths, record
 
 
+# ---------------------------------------------------------------------------
+# MAE pretraining, the SVM probe and the h5 datasets (phases 30-34)
+# ---------------------------------------------------------------------------
+
+PRETRAIN_BATCH = 128  # cfgs/pretrain.yaml's total_bs
+PRETRAIN_ENC_LEN = 208  # 2 K n_vis = 2 * 4 * 26 visible tokens
+PRETRAIN_DEC_LEN = 512  # 2 K G
+PRETRAIN_CHUNK = 128  # the pretraining SSD presets' chunk (the encoder's 208 pads to 256)
+PROBE_BATCH = 64  # the SVM probe's loaders
+SCAN_BATCH, SCAN_LEN, SCAN_CHUNK = 32, 1024, 256  # the hardest scan presets
+PRETRAIN_SHAPES = 272  # ShapeNet-55 shapes written: two whole steps of 128 (whole: True)
+PRETRAIN_SHAPE_POINTS = 8192
+PRETRAIN_BLOCKS = 16  # 12 encoder + 4 decoder blocks: each kernel's launches a step
+PROBE_BLOCKS = 12  # a noaug feature forward runs the encoder alone
+PRETRAIN_PRESETS = {
+    "pretrain.yaml": dict(mixer="mamba", scan_impl="auto", dtype="float32",
+                          wavelet_solver="eigh"),
+    "pretrain_ssd_fused.yaml": dict(mixer="ssd", scan_impl="ssd_fused", dtype="bfloat16",
+                                    wavelet_solver="jacobi"),
+}
+MAE_GRAD_TOL = 1e-4  # of each leaf's largest gradient
+H5_FIXTURES = ROOT / "tests" / "data" / "h5"  # scripts/torch_make_h5_fixtures.py
+
+
+def mae_kernel_phase(device) -> dict:
+    """Every kernel of the pretraining and hardest-scan paths at the shapes
+    those paths give it, held against its plain version and timed beside it:
+    the fp32 Mamba-1 K1, K5, K3, K4 at B=128 with L=208 (the encoder) and
+    L=512 (the decoder) and K1, K2 at B=64, L=512 (the probe's features); the
+    bf16 SSD preset's K1, K5, K8 with states and K9 at B=128 with L=208 (K8/K9
+    on 256, padded to two chunks of 128) and L=512, the bf16 K1 and lean K8 at
+    B=64, L=512; the fp32 K1-K5 at B=32, L=1024 (cfgs/finetune_scan_hardest.yaml)
+    and K8 (both variants) and K9 at chunk 256, nc 4 (its SSD preset). Returns
+    {kernel name: {view: figures}}."""
+    views = {
+        "pretrain_encoder": mamba_at(device, PRETRAIN_BATCH, PRETRAIN_ENC_LEN, infer=False),
+        "pretrain_decoder": mamba_at(device, PRETRAIN_BATCH, PRETRAIN_DEC_LEN, infer=False),
+        "probe": mamba_at(device, PROBE_BATCH, PRETRAIN_DEC_LEN, train=False),
+        "pretrain_ssd_encoder": ssd_bf16_at(device, PRETRAIN_BATCH, PRETRAIN_ENC_LEN,
+                                            PRETRAIN_CHUNK, infer=False),
+        "pretrain_ssd_decoder": ssd_bf16_at(device, PRETRAIN_BATCH, PRETRAIN_DEC_LEN,
+                                            PRETRAIN_CHUNK, infer=False),
+        "probe_ssd": ssd_bf16_at(device, PROBE_BATCH, PRETRAIN_DEC_LEN, PRETRAIN_CHUNK,
+                                 train=False),
+        "scan_hardest": mamba_at(device, SCAN_BATCH, SCAN_LEN),
+    }
+    ssd_records, _ = ssd_kernel_phase(device, SCAN_BATCH, SCAN_LEN, SCAN_CHUNK, at_clouds=False)
+    views["scan_hardest_ssd"] = {r["name"]: _keep(r) | {"shape": [SCAN_BATCH, SCAN_LEN,
+                                                                   SCAN_CHUNK]}
+                                 for r in ssd_records}
+    out: dict = {}
+    for view, kernels in views.items():
+        for name, f in kernels.items():
+            out.setdefault(name, {})[view] = f
+    log("kernels at the pretraining and hardest-scan shapes: " + "; ".join(
+        f"{name} {view} {f['ms']:.6f} ms (device {f.get('device_ms') or float('nan'):.6f}, "
+        f"plain {f['plain_ms']:.6f}, bound {f['bound_ms']:.6f})"
+        for name, views_ in out.items() for view, f in views_.items()))
+    return out
+
+
+def write_shapenet_tree(root: Path, n_shapes: int, n_points: int = PRETRAIN_SHAPE_POINTS,
+                        n_test: int = 32, seed: int = 50) -> Path:
+    """A ShapeNet-55 tree: ``ShapeNet-55/{train,test}.txt`` and one (n_points,
+    3) float32 ``.npy`` a shape under ``shapenet_pc``, seeded Gaussian blobs."""
+    rng = np.random.default_rng(seed)
+    (root / "shapenet_pc").mkdir(parents=True, exist_ok=True)
+    (root / "ShapeNet-55").mkdir(exist_ok=True)
+    names = [f"{2691156 + i % 55:08d}-{i:05d}.npy" for i in range(n_shapes)]
+    for name in names:
+        axes = 0.3 + rng.random(3)
+        np.save(root / "shapenet_pc" / name,
+                (rng.standard_normal((n_points, 3)) * axes).astype(np.float32))
+    (root / "ShapeNet-55" / "train.txt").write_text("\n".join(names[n_test:]) + "\n")
+    (root / "ShapeNet-55" / "test.txt").write_text("\n".join(names[:n_test]) + "\n")
+    return root
+
+
+def mae_workdir() -> Path:
+    """build/mae: a copy of cfgs/ whose dataset configs point at the seeded
+    ShapeNet-55 tree written there and at the committed h5 fixtures (the
+    presets' ``_base_`` refs are relative to the working directory)."""
+    import shutil
+
+    work = ROOT / "build" / "mae"
+    tree = work / "ShapeNet55-34"
+    if not (tree / "ShapeNet-55" / "train.txt").exists():
+        write_shapenet_tree(tree, PRETRAIN_SHAPES)
+    if (work / "cfgs").exists():
+        shutil.rmtree(work / "cfgs")
+    shutil.copytree(ROOT / "cfgs", work / "cfgs")
+    dc = work / "cfgs" / "dataset_configs"
+    (dc / "ShapeNet-55.yaml").write_text(
+        f"NAME: ShapeNet\nDATA_PATH: {tree / 'ShapeNet-55'}\nN_POINTS: 1024\n"
+        f"PC_PATH: {tree / 'shapenet_pc'}\n")
+    (dc / "ModelNet40SVM.yaml").write_text(f"NAME: ModelNet40SVM\nDATA_PATH: {H5_FIXTURES}\n")
+    (dc / "ScanObjectNN_hardest.yaml").write_text(
+        f"NAME: ScanObjectNN_hardest\nROOT: {H5_FIXTURES / 'ScanObjectNN' / 'main_split'}\n")
+    return work
+
+
+def _timed_steps(module, names, calls: dict):
+    """Wrap ``module``'s step makers ``names``: each step call appends {"ms",
+    "launches", "out"} to ``calls[name]``, its launch counts the difference
+    across the call (synchronised at both ends). Returns the originals."""
+    real = {n: getattr(module, n) for n in names}
+
+    def wrap(name):
+        def make(*a, **k):
+            step = real[name](*a, **k)
+
+            def run(*sa, **sk):
+                torch.cuda.synchronize()
+                before, t = _launch_counts(), time.perf_counter()
+                out = step(*sa, **sk)
+                torch.cuda.synchronize()
+                now = _launch_counts()
+                calls.setdefault(name, []).append(
+                    {"ms": (time.perf_counter() - t) * 1e3, "out": out,
+                     "launches": {k: now[k] - before[k] for k in now}})
+                return out
+
+            return run
+
+        return make
+
+    for n in names:
+        setattr(module, n, wrap(n))
+    return real
+
+
+def pretrain_breakdown(device, cfg, steps: int = 3) -> dict:
+    """The pretraining step of ``cfg`` at B=128 on seeded 1024-point clouds,
+    timed by piece, each piece one of ``PointMAEMamba``'s methods called as
+    its ``forward`` calls them and followed by a ``torch.cuda.synchronize()``:
+    grouping, graph, bases, sgwt, sinkhorn, rounding, encoder, decoder (with
+    the loss), then update (backward, clip, AdamW). Medians over ``steps``
+    steps after one warm-up; the step's peak memory."""
+    from si_mamba_tpu_torch.models.point_mae import PointMAEMamba
+    from si_mamba_tpu_torch.ops.wavelets import wavelet_projections
+    from si_mamba_tpu_torch.train import optim
+
+    with torch.device(device):
+        model = PointMAEMamba(cfg, generator=torch.Generator(device).manual_seed(3))
+    optimizer, _ = optim.build_optimizer(model, lr=1e-3, weight_decay=0.05, epochs=300,
+                                         warmup_epochs=10, steps_per_epoch=2, grad_clip=10.0)
+    generator = torch.Generator(device).manual_seed(4)
+    pts = torch.from_numpy(np.random.default_rng(51).standard_normal(
+        (PRETRAIN_BATCH, 1024, 3), dtype=np.float32)).to(device)
+    rows = []
+    model.train()
+    torch.cuda.reset_peak_memory_stats(device)
+    for i in range(steps + 1):
+        marks = []
+
+        def mark(name):
+            torch.cuda.synchronize()
+            marks.append((name, time.perf_counter()))
+
+        mark("start")
+        grouped = model.group(pts)
+        mark("grouping")
+        L = model.laplacian(grouped.center)
+        mark("graph")
+        PJ = wavelet_projections(L, cfg.wavelet_J, cfg.wavelet_solver)
+        mark("bases")
+        scores = model.scores(grouped.center, PJ, 0.5, generator)
+        mark("sgwt")
+        P_hat = model.soft_perm(scores)
+        mark("sinkhorn")
+        order_idx = model.round_perm(P_hat)
+        mark("rounding")
+        enc = model.encode(grouped, order_idx, P_hat,
+                           model.mask(grouped.center, generator=generator), generator=generator)
+        mark("encoder")
+        loss = model.decode_loss(grouped, enc, generator)
+        mark("decoder")
+        loss.backward()
+        optimizer.step()
+        mark("update")
+        rows.append({b[0]: (b[1] - a[1]) * 1e3 for a, b in zip(marks, marks[1:])})
+        if not torch.isfinite(loss):
+            raise AssertionError(f"the timed pretraining step's loss is {loss.item()}")
+    pieces = {k: statistics.median(r[k] for r in rows[1:]) for k in rows[1]}
+    pieces["step"] = sum(pieces.values())
+    pieces["orders"] = sum(pieces[k] for k in ("graph", "bases", "sgwt", "sinkhorn", "rounding"))
+    pieces["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(device)
+    return pieces
+
+
+def pretrain_cli_phase(device, card: str, preset: str, name: str, train_kernels,
+                       eval_kernels) -> tuple[dict, dict]:
+    """A shipped pretraining preset through ``cli.main`` (build/mae:
+    PRETRAIN_SHAPES seeded ShapeNet-55 shapes of 8192 points, the committed
+    ModelNet40 h5 fixtures for the SVM probe) at max_epoch 1, the published
+    model (12 + 4 blocks x 384, 64 groups of 32 of 1024 points, mask 0.6, K 4,
+    reverse, total_bs 128): epochs 0 and 1 of two steps, the probe after
+    epoch 1. Every train step must launch each of ``train_kernels``
+    PRETRAIN_BLOCKS times and nothing else, every probe feature forward each
+    of ``eval_kernels`` PROBE_BLOCKS times; losses finite; the BatchNorm
+    statistics, ``diff_sgwt.*``, ``mask_token`` and every decayed parameter
+    moved, every parameter finite; the probe's accuracy in [0, 100];
+    ckpt-last.pth and ckpt-best.pth written. Then the step timed by piece
+    (``pretrain_breakdown``). Returns ({name: launches}, the record)."""
+    from si_mamba_tpu_torch.models.point_mae import PointMAEConfig
+    from si_mamba_tpu_torch.train import cli, optim, svm
+    from si_mamba_tpu_torch.train import runner_pretrain as rp
+    from si_mamba_tpu_torch.train.config import get_config
+    from si_mamba_tpu_torch.train.registry import build_model_from_cfg
+
+    t0 = time.perf_counter()
+    work = mae_workdir()
+    write_s = time.perf_counter() - t0
+    exp_cfg = work / f"pre_{name}.yaml"
+    exp_cfg.write_text(f"_base_: cfgs/{preset}\nmax_epoch: 1\n")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        config = get_config(str(exp_cfg))
+    finally:
+        os.chdir(cwd)
+    cfg = PointMAEConfig.from_dict(config.model)
+    want = dict(trans_dim=384, encoder_dims=384, depth=12, decoder_depth=4, num_group=64,
+                group_size=32, mask_ratio=0.6, k_top_eigenvectors=4, reverse=True,
+                drop_path_rate=0.1, loss="cdl2", **PRETRAIN_PRESETS[preset])
+    if {k: getattr(cfg, k) for k in want} != want or \
+            (config.total_bs, config.npoints) != (PRETRAIN_BATCH, 1024):
+        raise AssertionError(f"the {preset} config is not the preset's: {cfg}")
+    calls: dict = {}
+    timings = {"features_s": [], "solve_s": []}
+    real_collect, real_svm = rp.collect_features, svm.svm_accuracy
+
+    def collect(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_collect(*a, **k)
+        torch.cuda.synchronize()
+        timings["features_s"].append(time.perf_counter() - t)
+        return out
+
+    def solve(*a, **k):
+        t = time.perf_counter()
+        out = real_svm(*a, **k)
+        torch.cuda.synchronize()
+        timings["solve_s"].append(time.perf_counter() - t)
+        return out
+
+    exp = work / "experiments" / f"pre_{name}" / name
+    real = _timed_steps(rp, ("make_pretrain_step", "make_feature_step"), calls)
+    rp.collect_features, svm.svm_accuracy = collect, solve
+    os.chdir(work)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        _reset_launch_counts()  # the preset's path: counts from 0, then the run
+        t0 = time.perf_counter()
+        state, best = cli.main(["--config", str(exp_cfg), "--device", "cuda", "--exp_name", name])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        peak = torch.cuda.max_memory_allocated(device)
+    finally:
+        for k, v in real.items():
+            setattr(rp, k, v)
+        rp.collect_features, svm.svm_accuracy = real_collect, real_svm
+        os.chdir(cwd)
+
+    steps, feats = calls.get("make_pretrain_step", []), calls.get("make_feature_step", [])
+    n_steps = 2 * (PRETRAIN_SHAPES // PRETRAIN_BATCH)
+    if len(steps) != n_steps or state.step != n_steps:
+        raise AssertionError(f"the {preset} run took {len(steps)} steps, expected {n_steps}")
+    losses = [float(s["out"][1]["loss"]) for s in steps]
+    for i, s in enumerate(steps):
+        if s["launches"] != _expect(PRETRAIN_BLOCKS, train_kernels) or not np.isfinite(losses[i]):
+            raise AssertionError(f"{preset} train step {i} launched {s['launches']}, loss "
+                                 f"{losses[i]}")
+    if len(feats) != 2 or any(f["launches"] != _expect(PROBE_BLOCKS, eval_kernels) or
+                              not torch.isfinite(f["out"]).all() for f in feats):
+        raise AssertionError(f"the {preset} probe's feature forwards: "
+                             f"{[(f['launches'], f['out'].shape) for f in feats]}")
+    total = {k: sum(x["launches"][k] for x in steps + feats) for k in launches}
+    if launches != total:
+        raise AssertionError(f"the {preset} run launched {launches}, its steps and feature "
+                             f"forwards {total}")
+    files = {p.name for p in exp.iterdir()}
+    if not {"ckpt-last.pth", "ckpt-best.pth", "config.yaml", "scalars.jsonl"} <= files:
+        raise AssertionError(f"the {preset} run wrote {sorted(files)}")
+    acc = torch.load(exp / "ckpt-best.pth", map_location="cpu", weights_only=True)["metrics"]["acc"]
+    if not 0.0 <= acc <= 100.0 or acc != best.acc:
+        raise AssertionError(f"the {preset} probe's accuracy {acc} (best {best.acc})")
+    payload = torch.load(exp / "ckpt-last.pth", map_location="cpu", weights_only=True)
+    start, _ = build_model_from_cfg(config.model, device, 0)
+    start_sd = start.state_dict()
+    final = payload["base_model"]
+    if not all(torch.isfinite(v).all() for v in final.values()):
+        raise AssertionError(f"the {preset} run left non-finite parameters")
+    decays = optim.wd_mask(start)
+    still = [k for k, v in final.items()
+             if "num_batches_tracked" not in k and torch.equal(v, start_sd[k].cpu())]
+    must = [k for k in still if "running_" in k or decays.get(k, False)
+            or k.startswith("diff_sgwt.") or k == "mask_token"]
+    if must:
+        raise AssertionError(f"the {preset} run left {must} at their start")
+    del start, start_sd
+    pieces = pretrain_breakdown(device, cfg)
+    step_ms = [s["ms"] for s in steps]
+    p50 = statistics.median(step_ms[1:])
+    record = {"config": f"cfgs/{preset}, max_epoch 1", "shapes": PRETRAIN_SHAPES,
+              "batch": PRETRAIN_BATCH, "data_write_s": write_s, "run_s": run_s,
+              "step_ms": step_ms, "p50_step_ms": p50,
+              "clouds_per_s": PRETRAIN_BATCH / (p50 / 1e3), "losses": losses,
+              "probe_acc": acc, "probe_features_s": timings["features_s"],
+              "probe_solve_s": timings["solve_s"], "feature_forward_ms": [f["ms"] for f in feats],
+              "max_memory_allocated_bytes": peak, "unmoved": still, "pieces_ms": pieces,
+              "ckpt_last_bytes": (exp / "ckpt-last.pth").stat().st_size,
+              "ckpt_last": str(exp / "ckpt-last.pth"),
+              "launches": {k: v for k, v in launches.items() if v}, "card": card}
+    log(f"{record['config']} through the CLI: {n_steps} steps at batch {PRETRAIN_BATCH} (p50 "
+        f"{p50:.3f} ms, {record['clouds_per_s']:.2f} clouds/s), probe {acc:.2f} % (features "
+        f"{timings['features_s']} s, solve {timings['solve_s']} s), run {run_s:.1f} s, peak "
+        f"{peak / 2**30:.3f} GiB; losses {losses}; unmoved {still}; step pieces (ms) {pieces}; "
+        f"launches {record['launches']}; {card}")
+    return {name: launches}, record
+
+
+def _mae_pair(device, base: dict, plain_impl: str, seed: int = 0):
+    """The full-width pretraining model of ``base`` (drop_path 0) on the
+    kernel route and the same weights on ``plain_impl``, both on ``device``."""
+    from si_mamba_tpu_torch.models.point_mae import PointMAEConfig, PointMAEMamba
+
+    cfg = PointMAEConfig(**{**base, "drop_path_rate": 0.0})
+    model = PointMAEMamba(cfg, generator=torch.Generator().manual_seed(seed))
+    plain = PointMAEMamba(PointMAEConfig(**{**cfg.__dict__, "scan_impl": plain_impl}))
+    plain.load_state_dict(model.state_dict(), strict=True)
+    return cfg, model.to(device), plain.to(device)
+
+
+MAE_FULL = dict(trans_dim=384, encoder_dims=384, depth=12, decoder_depth=4, group_size=32,
+                num_group=64, mask_ratio=0.6, k_top_eigenvectors=4, knn_graph=20, alpha=10.0)
+MAE_HELD_BATCH = 16
+
+
+def mae_forward_phase(device) -> tuple[dict, dict]:
+    """The full-width pretraining model (cfgs/pretrain.yaml's, seeded weights)
+    in eval mode on MAE_HELD_BATCH clouds of 1024 points: the loss of the
+    kernel route with one mask_override and orders_override against the same
+    weights on 'seq' within rtol 2e-3, the noaug features within 1e-3 of their
+    max and 2e-3 relative, each kernel forward launching K1 and K2 once a
+    block and nothing else; then the orders computed on the card against the
+    same model's on the CPU (the fraction of (cloud, traversal) orders equal,
+    recorded, not held: near-ties in P_hat follow rounding). Returns
+    ({name: launches}, the record)."""
+    import copy
+
+    from si_mamba_tpu_torch.models.point_mae import random_mask
+
+    cfg, model, plain = _mae_pair(device, MAE_FULL, "seq")
+    model.eval()
+    plain.eval()
+    rng = np.random.default_rng(52)
+    pts = torch.from_numpy(rng.standard_normal((MAE_HELD_BATCH, 1024, 3),
+                                               dtype=np.float32)).to(device)
+    B, K, G = MAE_HELD_BATCH, cfg.k_top_eigenvectors, cfg.num_group
+    mask = random_mask(B, G, cfg.num_mask, uniform_draw=torch.from_numpy(
+        rng.random((B, G), dtype=np.float32))).to(device)
+    orders = torch.from_numpy(np.stack([np.stack([rng.permutation(G) for _ in range(K)])
+                                        for _ in range(B)])).to(device)
+    paths = {}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        _reset_launch_counts()  # the held loss forward
+        loss = model(pts, mask_override=mask, orders_override=orders)
+        torch.cuda.synchronize()
+        paths["mae_forward"] = _launch_counts()
+        want = plain(pts, mask_override=mask, orders_override=orders)
+        _reset_launch_counts()  # the held feature forward
+        feats = model(pts, noaug=True)
+        torch.cuda.synchronize()
+        paths["mae_features"] = _launch_counts()
+        feats_ref = plain(pts, noaug=True)
+        center = model.group(pts).center
+        card_orders = model.orders(center)[0].cpu()
+        cpu_orders = copy.deepcopy(model).cpu().orders(center.cpu())[0]
+    if paths["mae_forward"] != _expect(PRETRAIN_BLOCKS, EVAL_KERNELS) or \
+            paths["mae_features"] != _expect(PROBE_BLOCKS, EVAL_KERNELS):
+        raise AssertionError(f"the held MAE forwards launched {paths}")
+    rel = abs(loss.item() - want.item()) / abs(want.item())
+    if not np.isfinite(loss.item()) or rel > 2e-3:
+        raise AssertionError(f"the MAE eval loss {loss.item()} against 'seq' {want.item()}")
+    scale = feats_ref.abs().max().item()
+    err = (feats - feats_ref).abs().max().item()
+    if feats.shape != (B, 2 * K * G, cfg.trans_dim) or not torch.allclose(
+            feats, feats_ref, atol=1e-3 * scale, rtol=2e-3):
+        raise AssertionError(f"the MAE noaug features disagree with 'seq': max |diff| {err}, "
+                             f"max {scale}")
+    agree = float((card_orders == cpu_orders).all(dim=-1).float().mean())
+    record = {"batch": B, "loss": loss.item(), "loss_plain": want.item(), "loss_rel_diff": rel,
+              "features_max_abs_diff": err, "features_max_abs": scale,
+              "orders_equal_to_cpu": agree,
+              "launches": {k: {n: c for n, c in v.items() if c} for k, v in paths.items()}}
+    log(f"MAE eval loss {loss.item():.7f} == 'seq' {want.item():.7f} ({rel:.3e}); noaug "
+        f"features max |diff| {err:.3e} (max {scale:.3e}); orders equal to the CPU's for "
+        f"{agree:.4f} of (cloud, traversal)")
+    return paths, record
+
+
+def mae_grad_phase(device) -> tuple[dict, dict]:
+    """The pretraining encoder stack (12 Mamba-1 blocks at width 384,
+    drop_path 0, seeded weights) in training at B=MAE_HELD_BATCH, L=208: one
+    forward and backward on seeded inputs and one seeded cotangent on the
+    kernel route against the same weights on 'seq', every parameter and
+    input gradient finite and within MAE_GRAD_TOL of its leaf's largest, K1,
+    K3, K4 and K5 once a block and nothing else. Returns ({"mae_stack_grad":
+    launches}, the record)."""
+    _, model, plain = _mae_pair(device, MAE_FULL, "seq", seed=5)
+    stack, plain_stack = model.MAE_encoder.blocks.train(), plain.MAE_encoder.blocks.train()
+    rng = np.random.default_rng(53)
+    shape = (MAE_HELD_BATCH, PRETRAIN_ENC_LEN, MAE_FULL["trans_dim"])
+    x0, pos0, cot = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
+                     for _ in range(3))
+    grads = {}
+    for route, s in (("kernel", stack), ("plain", plain_stack)):
+        x, pos = x0.clone().requires_grad_(), pos0.clone().requires_grad_()
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        torch.autograd.backward(s(x, pos), cot)
+        torch.cuda.synchronize()
+        if route == "kernel":
+            launches = _launch_counts()
+        grads[route] = {**{k: p.grad for k, p in s.named_parameters()}, "x": x.grad,
+                        "pos": pos.grad}
+    if launches != _expect(MAE_FULL["depth"], TRAIN_KERNELS):
+        raise AssertionError(f"the MAE encoder stack's train pass launched {launches}")
+    if not all(torch.isfinite(g).all() for g in grads["kernel"].values()):
+        raise AssertionError("the MAE encoder stack's kernel gradients are not finite")
+    worst, worst_key = max(((g - grads["plain"][k]).abs().max().item()
+                            / grads["plain"][k].abs().max().item(), k)
+                           for k, g in grads["kernel"].items())
+    if not worst < MAE_GRAD_TOL:
+        raise AssertionError(f"MAE stack gradient {worst_key} differs from 'seq' by {worst:.3e} "
+                             f"of its largest")
+    record = {"batch": MAE_HELD_BATCH, "length": PRETRAIN_ENC_LEN, "plain_impl": "seq",
+              "worst_leaf_rel_diff": worst, "worst_leaf": worst_key,
+              "leaves": len(grads["kernel"]),
+              "launches": {k: v for k, v in launches.items() if v}}
+    log(f"MAE encoder stack gradients == 'seq': worst leaf {worst_key} {worst:.3e} of its "
+        f"largest")
+    return {"mae_stack_grad": launches}, record
+
+
+# ModelNet40's official split, clouds a class in its class order (airplane ..
+# xbox): 9843 train, 2468 test. The largest pair, chair and sofa, holds 1569
+MODELNET40_TRAIN_COUNTS = (626, 106, 515, 173, 572, 335, 64, 197, 889, 167, 79, 138, 200, 109,
+                           200, 149, 171, 155, 145, 124, 149, 284, 465, 200, 88, 231, 240, 104,
+                           115, 128, 680, 124, 90, 392, 163, 344, 267, 475, 87, 103)
+MODELNET40_TEST_COUNTS = (100, 50, 100, 20, 100, 100, 20, 100, 100, 20, 20, 20, 86, 20, 86, 20,
+                          100, 100, 20, 20, 20, 100, 100, 86, 20, 100, 100, 20, 100, 20, 100, 20,
+                          20, 100, 20, 100, 100, 100, 20, 20)
+
+
+def _svm_features(train_counts, test_counts, dim: int, seed: int):
+    """Seeded class blobs, ``train_counts[c]`` / ``test_counts[c]`` clouds of
+    class c in a shuffled order: (train x, train y, test x, test y) as
+    tensors."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((len(train_counts), dim))
+    ytr = rng.permutation(np.repeat(np.arange(len(train_counts)), train_counts))
+    yte = rng.permutation(np.repeat(np.arange(len(test_counts)), test_counts))
+    xtr = (0.15 * centers[ytr] + rng.standard_normal((len(ytr), dim))).astype(np.float32)
+    xte = (0.15 * centers[yte] + rng.standard_normal((len(yte), dim))).astype(np.float32)
+    return tuple(torch.from_numpy(a) for a in (xtr, ytr, xte, yte))
+
+
+def svm_phase(device) -> dict:
+    """The on-card SVM probe: at the published probe's size and class mix
+    (ModelNet40's per-class train and test counts, 9843 x 768 train features,
+    2468 test; seeded class blobs) fitted and scored on the card, its seconds
+    and the fit's peak allocation above the features; at a small size (12
+    train clouds a class, 40 classes, width 64) its decision values and
+    predictions against the same solver run on the CPU (float64 both: within
+    1e-6, predictions equal)."""
+    from si_mamba_tpu_torch.train import svm
+
+    xtr, ytr, xte, yte = (t.to(device) for t in _svm_features(
+        MODELNET40_TRAIN_COUNTS, MODELNET40_TEST_COUNTS, 768, 60))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    fit = svm.fit_ovo(xtr, ytr)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) - held
+    acc = float((svm.predict(fit, xte) == yte).double().mean()) * 100
+    small = _svm_features([12] * 40, [10] * 40, 64, 61)
+    card = svm.fit_ovo(small[0].to(device), small[1].to(device))
+    host = svm.fit_ovo(small[0], small[1])
+    dec_card = svm.decision_function(card, small[2].to(device)).cpu()
+    dec_host = svm.decision_function(host, small[2])
+    diff = (dec_card - dec_host).abs().max().item()
+    same = bool(torch.equal(svm.predict(card, small[2].to(device)).cpu(),
+                            svm.predict(host, small[2])))
+    if diff > 1e-6 or not same:
+        raise AssertionError(f"the SVM on the card against the CPU: decision values "
+                             f"{diff:.3e} apart, predictions equal: {same}")
+    counts = sorted(MODELNET40_TRAIN_COUNTS)
+    record = {"published_size": {"train": list(xtr.shape), "test": list(xte.shape),
+                                 "classes": 40, "largest_pair": counts[-1] + counts[-2],
+                                 "fit_s": fit_s, "iterations": fit["iterations"],
+                                 "fit_peak_bytes": peak, "accuracy": acc},
+              "small_vs_cpu": {"decision_max_abs_diff": diff, "predictions_equal": same,
+                               "iterations": (card["iterations"], host["iterations"])}}
+    log(f"SVM at the published probe size and class mix: fit {fit_s:.3f} s in "
+        f"{fit['iterations']} iterations, peak {peak / 2**30:.3f} GiB above the features, "
+        f"accuracy {acc:.2f} %; at the small size the card's decision values {diff:.3e} from "
+        f"the CPU's, predictions equal")
+    return record
+
+
+SCAN_HARDEST = dict(MODELNET40, cls_dim=15, num_group=128, alpha=10.0, drop_path=0.1)
+
+
+def scan_cli_phase(device, card: str, pretrained: str) -> tuple[dict, dict]:
+    """cfgs/finetune_scan_hardest.yaml through ``cli.main`` at max_epoch 1 on
+    the committed ScanObjectNN-hardest fixtures (32 train clouds: one step an
+    epoch at total_bs 32; 16 test clouds), finetuning from ``pretrained`` (a
+    pretraining run's ckpt-last.pth) through --finetune_model: every encoder
+    key of the classifier taken from it (only the head missing); every train
+    step K1, K3, K4 and K5 12 times each at L = 1024 and nothing else, every
+    validation forward K1 and K2 12 times each; losses finite; ckpt-last.pth
+    written. Then a held classifier forward at L = 1024 (16 clouds of 2048
+    points, the kernel route against 'seq' on the card, logits within 1e-3 of
+    their max and 2e-3 relative). Returns (paths, the record)."""
+    from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
+    from si_mamba_tpu_torch.train import checkpoint as ckpt
+    from si_mamba_tpu_torch.train import cli
+    from si_mamba_tpu_torch.train import runner_finetune as rf
+
+    work = mae_workdir()
+    exp_cfg = work / "scan_hardest.yaml"
+    exp_cfg.write_text("_base_: cfgs/finetune_scan_hardest.yaml\nmax_epoch: 1\n")
+    calls: dict = {}
+    transfers = []
+    real_transfer = ckpt.transfer_pretrained
+
+    def transfer(*a, **k):
+        transfers.append(real_transfer(*a, **k))
+        return transfers[-1]
+
+    real = _timed_steps(rf, ("make_train_step", "make_eval_step"), calls)
+    ckpt.transfer_pretrained = transfer
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        _reset_launch_counts()  # the hardest scan preset's path
+        t0 = time.perf_counter()
+        state, best = cli.main(["--config", str(exp_cfg), "--device", "cuda", "--exp_name",
+                                "scan", "--finetune_model", pretrained, "--num_workers", "2"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        peak = torch.cuda.max_memory_allocated(device)
+    finally:
+        for k, v in real.items():
+            setattr(rf, k, v)
+        ckpt.transfer_pretrained = real_transfer
+        os.chdir(cwd)
+    if len(transfers) != 1:
+        raise AssertionError(f"the pretrained weights were transferred {len(transfers)} times")
+    missing, unexpected, mismatched = transfers[0]
+    if mismatched or not missing or any(not k.startswith("cls_head_finetune.") for k in missing):
+        raise AssertionError(f"finetuning from the pretraining checkpoint: missing {missing}, "
+                             f"shape-mismatched {mismatched}")
+    steps, evals = calls.get("make_train_step", []), calls.get("make_eval_step", [])
+    if len(steps) != 2 or state.step != 2:
+        raise AssertionError(f"the scan run took {len(steps)} steps, expected 2")
+    losses = [float(s["out"][1]["loss"]) for s in steps]
+    for i, s in enumerate(steps):
+        if s["launches"] != _expect(12, TRAIN_KERNELS) or not np.isfinite(losses[i]):
+            raise AssertionError(f"scan train step {i} launched {s['launches']}, loss "
+                                 f"{losses[i]}")
+    for e in evals:
+        if e["launches"] != _expect(12, EVAL_KERNELS) or not torch.isfinite(e["out"]).all():
+            raise AssertionError(f"a scan validation forward launched {e['launches']}")
+    exp = work / "experiments" / "scan_hardest" / "scan"
+    files = {p.name for p in exp.iterdir()}
+    if not {"ckpt-last.pth", "config.yaml", "scalars.jsonl"} <= files:
+        raise AssertionError(f"the scan run wrote {sorted(files)}")
+
+    model = PointMamba(PointMambaConfig.from_dict(SCAN_HARDEST),
+                       generator=torch.Generator().manual_seed(0))
+    plain = PointMamba(PointMambaConfig.from_dict({**SCAN_HARDEST, "scan_impl": "seq"}))
+    plain.load_state_dict(model.state_dict(), strict=True)
+    model, plain = model.to(device).eval(), plain.to(device).eval()
+    pts = torch.from_numpy(np.random.default_rng(54).standard_normal(
+        (16, 2048, 3), dtype=np.float32)).to(device)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        _reset_launch_counts()  # the held L = 1024 forward
+        logits = model(pts)
+        torch.cuda.synchronize()
+        held = _launch_counts()
+        want = plain(pts)
+    scale, err = want.abs().max().item(), (logits - want).abs().max().item()
+    if held != _expect(12, EVAL_KERNELS) or not torch.allclose(logits, want, atol=1e-3 * scale,
+                                                               rtol=2e-3):
+        raise AssertionError(f"the L = 1024 classifier forward launched {held}, max |diff| "
+                             f"{err} of {scale}")
+    step_ms = [s["ms"] for s in steps]
+    record = {"config": "cfgs/finetune_scan_hardest.yaml, max_epoch 1", "train_clouds": 32,
+              "test_clouds": 16, "step_ms": step_ms, "p50_step_ms": statistics.median(step_ms),
+              "eval_ms": [e["ms"] for e in evals], "losses": losses, "best_acc": best.acc,
+              "run_s": run_s, "max_memory_allocated_bytes": peak,
+              "transfer": {"missing": len(missing), "unexpected": len(unexpected)},
+              "held_forward": {"logits_max_abs_diff": err, "logits_max_abs": scale},
+              "ckpt_best": "ckpt-best.pth" in files,
+              "launches": {k: v for k, v in launches.items() if v}, "card": card}
+    log(f"{record['config']} through the CLI from the pretraining checkpoint ({len(missing)} "
+        f"head keys missing, {len(unexpected)} unexpected): steps {step_ms} ms, losses {losses}, "
+        f"validation {record['eval_ms']} ms, peak {peak / 2**30:.3f} GiB; held L = 1024 "
+        f"forward max |diff| {err:.3e} of {scale:.3e}; {card}")
+    return {"scan_cli": launches, "scan_forward": held}, record
+
+
+def mae_phases(device, card: str) -> tuple[dict, dict]:
+    """The pretraining paths: the held MAE forward and encoder-stack
+    gradients, the SVM, both pretraining presets through the CLI, then the
+    hardest scan preset finetuned from the first one's checkpoint. Returns
+    (each path's launches, the record)."""
+    paths, record = {}, {}
+    p, record["forward"] = mae_forward_phase(device)
+    paths.update(p)
+    p, record["stack_gradients"] = mae_grad_phase(device)
+    paths.update(p)
+    record["svm"] = svm_phase(device)
+    p, record["cli"] = pretrain_cli_phase(device, card, "pretrain.yaml", "pretrain_cli",
+                                          TRAIN_KERNELS, EVAL_KERNELS)
+    paths.update(p)
+    p, record["ssd_cli"] = pretrain_cli_phase(device, card, "pretrain_ssd_fused.yaml",
+                                              "pretrain_ssd_cli", SSD_PERF_TRAIN_KERNELS,
+                                              SSD_PERF_EVAL_KERNELS)
+    paths.update(p)
+    p, record["scan_cli"] = scan_cli_phase(device, card, record["cli"]["ckpt_last"])
+    paths.update(p)
+    return paths, record
+
+
 def main() -> int:
     if not (ROOT / "si_mamba_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run it from a checkout of the repository "
@@ -3964,9 +4793,12 @@ def main() -> int:
             r["at_tp_shapes"] = conv_at_tp_shapes[r["name"]]
     records += ssd_records
     seg_shape = seg_kernel_phase(device)
+    mae_shapes = mae_kernel_phase(device)
     for r in records:
         if r["name"] in seg_shape:
             r["at_seg_shape"] = seg_shape[r["name"]]
+        if r["name"] in mae_shapes:
+            r["at_pretrain_and_scan_shapes"] = mae_shapes[r["name"]]
     records += split_kernel_phase(device)
     fused_records, fused_routes = fused_mixer_phase(device)
     records += fused_records
@@ -3978,6 +4810,9 @@ def main() -> int:
     for r in bf16_records:  # the fp32 kernel's times from this run, beside
         fp32 = fp32_of[r["name"].removesuffix("_bf16")]
         r["fp32_ms"], r["fp32_device_ms"] = fp32["ms"], fp32.get("device_ms")
+    for r in bf16_records:
+        if r["name"] in mae_shapes:
+            r["at_pretrain_and_scan_shapes"] = mae_shapes[r["name"]]
     records += bf16_records
 
     # the paths, each with every launch count from 0 (set inside each phase)
@@ -4040,6 +4875,8 @@ def main() -> int:
     paths.update(fused_cli_paths)
     seg_paths, seg = seg_phases(device, card)
     paths.update(seg_paths)
+    mae_paths, mae = mae_phases(device, card)
+    paths.update(mae_paths)
     torch.cuda.empty_cache()  # the ranks share the card
     parallel_paths, parallel = parallel_phases(card)
     paths.update(parallel_paths)
@@ -4091,7 +4928,7 @@ def main() -> int:
                       "fused_perf": {"serving": fused_perf_serving,
                                      "profile": fused_perf_profile, "train": fused_perf_train,
                                      "cli": fused_cli},
-                      "seg": seg, "parallel": parallel, "card": card}), flush=True)
+                      "seg": seg, "mae": mae, "parallel": parallel, "card": card}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

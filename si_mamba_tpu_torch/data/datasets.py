@@ -9,13 +9,19 @@ that a sample is byte-equal to the JAX package's for the same seed):
   reference's format, interchangeable with the JAX package's cache),
   normalisation, a train-time point shuffle.
 - ModelNetFewShot: the Point-MAE few-shot pickles ``{way}way_{shot}shot/{fold}.pkl``.
-- ModelNet40SVM, ScanObjectNN, ScanObjectNN_hardest: h5 files. They keep
-  their names, and constructing one raises until the port reads h5 without
-  h5py (ROADMAP.md queue 1, M12b).
+- ModelNet40SVM: the ``modelnet40_ply_hdf5_2048/ply_data_{partition}*.h5``
+  shards in sorted order (the pretraining SVM probe), the first
+  ``num_points`` points of a cloud.
+- ScanObjectNN, ScanObjectNN_hardest: one h5 file a split, a train-time
+  point shuffle.
+
+The h5 files are read by the port's own reader (``data/h5.py``), without
+h5py; labels stored as uint8 come out int64, points float32.
 """
 
 from __future__ import annotations
 
+import glob
 import os
 import pickle
 from collections import defaultdict
@@ -24,7 +30,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from si_mamba_tpu_torch.data.io import H5_NOT_PORTED, pc_normalize, read_pointcloud
+from si_mamba_tpu_torch.data.h5 import read_h5
+from si_mamba_tpu_torch.data.io import pc_normalize, read_pointcloud
 
 _FPS_POINTS_PER_CALL = 1 << 24  # clouds x points of one batched FPS call
 
@@ -147,21 +154,56 @@ class ModelNet(PointDataset):
         return pts.astype(np.float32), label
 
 
-class _H5Dataset(PointDataset):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"{type(self).__name__}: {H5_NOT_PORTED}")
+class ModelNet40SVM(PointDataset):
+    """ModelNet40's ``ply_data_*.h5`` shards (the pretraining SVM probe)."""
+
+    def __init__(self, data_path: str, partition: str = "train", num_points: int = 2048):
+        files = sorted(glob.glob(os.path.join(
+            data_path, "modelnet40_ply_hdf5_2048", f"ply_data_{partition}*.h5")))
+        data, labels = [], []
+        for fn in files:
+            shard = read_h5(fn)
+            data.append(shard["data"].astype(np.float32))
+            labels.append(shard["label"].astype(np.int64))
+        self.data = np.concatenate(data, 0)
+        self.labels = np.concatenate(labels, 0).reshape(-1)
+        self.num_points = num_points
+
+    def __len__(self):
+        return self.data.shape[0]
+
+    def __getitem__(self, idx):
+        return self.data[idx][: self.num_points], int(self.labels[idx])
 
 
-class ModelNet40SVM(_H5Dataset):
-    """ModelNet40 ply_data_*.h5 shards (the pretraining SVM probe)."""
+class ScanObjectNN(PointDataset):
+    """ScanObjectNN's h5 splits (the object-only and with-background
+    variants); ``seed`` drives the train split's point shuffle."""
+
+    FILES = {"train": "training_objectdataset.h5", "test": "test_objectdataset.h5"}
+
+    def __init__(self, root: str, subset: str = "train", seed: int | None = None):
+        self.subset = subset
+        split = read_h5(os.path.join(root, self.FILES[subset]))
+        self.points = np.array(split["data"]).astype(np.float32)
+        self.labels = np.array(split["label"]).astype(np.int64)
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return self.points.shape[0]
+
+    def __getitem__(self, idx):
+        pts = self.points[idx]
+        if self.subset == "train":
+            pts = pts[self.rng.permutation(pts.shape[0])]
+        return pts.copy(), int(self.labels[idx])
 
 
-class ScanObjectNN(_H5Dataset):
-    """ScanObjectNN h5 splits."""
+class ScanObjectNNHardest(ScanObjectNN):
+    """ScanObjectNN's PB_T50_RS splits (``*_augmentedrot_scale75.h5``)."""
 
-
-class ScanObjectNNHardest(_H5Dataset):
-    """ScanObjectNN PB_T50_RS h5 splits."""
+    FILES = {"train": "training_objectdataset_augmentedrot_scale75.h5",
+             "test": "test_objectdataset_augmentedrot_scale75.h5"}
 
 
 class ModelNetFewShot(PointDataset):

@@ -1,6 +1,6 @@
 """Point-cloud file IO, the counterpart of ``si_mamba_tpu/data/io.py`` (the
-reference's datasets/io.py:7-43): npy and txt. h5 waits for a reader that
-needs no h5py (ROADMAP.md queue 1, M12b)."""
+reference's datasets/io.py:7-43): npy, txt and h5, the last through the
+port's own reader (``data/h5.py``), which needs no h5py."""
 
 from __future__ import annotations
 
@@ -8,8 +8,7 @@ import os
 
 import numpy as np
 
-H5_NOT_PORTED = ("h5 files need h5py, which the GPU host does not have: an h5 reader "
-                 "without h5py, or a conversion to npz, is ROADMAP.md queue 1, M12b")
+from si_mamba_tpu_torch.data.h5 import read_h5
 
 
 def read_pointcloud(file_path: str) -> np.ndarray:
@@ -17,7 +16,7 @@ def read_pointcloud(file_path: str) -> np.ndarray:
     if ext == ".npy":
         return np.load(file_path)
     if ext == ".h5":
-        raise NotImplementedError(f"{file_path}: {H5_NOT_PORTED}")
+        return read_h5(file_path)["data"]
     if ext == ".txt":
         return np.loadtxt(file_path)
     raise ValueError(f"Unsupported file extension: {ext}")

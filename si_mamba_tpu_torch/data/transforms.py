@@ -31,13 +31,21 @@ def rotate_y(pts: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     return torch.einsum("bnd,bde->bne", pts, R)
 
 
-def scale_and_translate(pts: torch.Tensor, generator: torch.Generator,
+def scale_and_translate(pts: torch.Tensor, generator: torch.Generator | None,
                         scale_low: float = 2.0 / 3.0, scale_high: float = 3.0 / 2.0,
-                        translate_range: float = 0.2) -> torch.Tensor:
-    """Per-sample anisotropic scale + translation."""
+                        translate_range: float = 0.2,
+                        uniforms: tuple[torch.Tensor, torch.Tensor] | None = None
+                        ) -> torch.Tensor:
+    """Per-sample anisotropic scale + translation. ``uniforms``: the (B, 1, 3)
+    U(0, 1) draws of the scale and of the shift in place of the generator's
+    (for tests that replay another framework's)."""
     B = pts.shape[0]
-    s = _uniform((B, 1, 3), scale_low, scale_high, generator, pts)
-    shift = _uniform((B, 1, 3), -translate_range, translate_range, generator, pts)
+    if uniforms is None:
+        s = _uniform((B, 1, 3), scale_low, scale_high, generator, pts)
+        shift = _uniform((B, 1, 3), -translate_range, translate_range, generator, pts)
+    else:
+        s = scale_low + (scale_high - scale_low) * uniforms[0]
+        shift = -translate_range + 2 * translate_range * uniforms[1]
     return pts * s + shift
 
 

@@ -12,19 +12,26 @@ from si_mamba_tpu_torch.ops.pointops import pairwise_dist
 
 def knn_adjacency(points: torch.Tensor, k: int, alpha: float = 1.0,
                   symmetric: bool = False, self_loop: bool = False,
-                  binary: bool = False) -> torch.Tensor:
+                  binary: bool = False, gaussian_sigma: bool = False) -> torch.Tensor:
     """Weighted or binary kNN adjacency over (B, N, D) points -> (B, N, N).
 
     The k+1 nearest by euclidean distance (self included); the nearest
     (self) column is dropped unless ``self_loop``. Weights are
-    ``exp(-alpha d^2)``; ``binary`` writes ones. ``symmetric`` adds the
-    transposed edges, i.e. ``max(A, A^T)``."""
+    ``exp(-alpha d^2)``, or with ``gaussian_sigma`` (the reference's
+    ``alpha == 0`` branch) ``exp(-d^2 / (2 sigma^2))`` with sigma the mean of
+    the whole batched distance tensor; ``binary`` writes ones. ``symmetric``
+    adds the transposed edges, i.e. ``max(A, A^T)``."""
     d = pairwise_dist(points, points)  # (B, N, N)
     idx = torch.topk(d, k + 1, dim=-1, largest=False, sorted=True).indices
     if not self_loop:
         idx = idx[..., 1:]
     mask = torch.zeros_like(d).scatter_(-1, idx, 1.0)
-    A = mask if binary else mask * torch.exp(-alpha * d ** 2)
+    if binary:
+        A = mask
+    elif gaussian_sigma:
+        A = mask * torch.exp(-(d ** 2) / (2.0 * torch.mean(d) ** 2))
+    else:
+        A = mask * torch.exp(-alpha * d ** 2)
     if symmetric:
         A = torch.maximum(A, A.transpose(-1, -2))
     return A

@@ -7,9 +7,11 @@ main.py / utils/parser.py): the same flags (--test, --vote, --resume,
 --auto_resume, --ckpts, --finetune_model, --scratch_model, few-shot
 --way/--shot/--fold), experiment directory and config snapshot, plus
 ``--device`` (default ``cuda``; ``cpu`` runs on the CPU). The finetune and
-test paths of the ``PointMamba`` classifier and the part-segmentation trainer
-(``NAME: PartSegModel``, on a ShapeNetPart tree at ``data_root``) run; MAE
-pretraining (M16) and --tsne (M21) raise with their ROADMAP.md item.
+test paths of the ``PointMamba`` classifier, MAE pretraining (``NAME:
+Point_MAE_Mamba``: ShapeNet-55 to train, the SVM probe on ModelNet40's h5
+shards) and the part-segmentation trainer (``NAME: PartSegModel``, on a
+ShapeNetPart tree at ``data_root``) run; --tsne (M21) raises with its
+ROADMAP.md item.
 Checkpoints are reference-format ``.pth`` files (``train/checkpoint.py``).
 """
 
@@ -69,7 +71,7 @@ def get_args(argv=None):
 def _dataset_kwargs(dcfg: ConfigDict, args, subset: str) -> tuple[str, dict]:
     """The JAX CLI's mapping of a dataset entry to its constructor's
     arguments, and ``--seed`` for the datasets that draw a sample's points
-    (ShapeNet-55, ModelNet's train split): their draws then repeat run to run
+    (ShapeNet-55, ModelNet's and ScanObjectNN's train splits): their draws then repeat run to run
     at ``--num_workers 1``. With more workers the threads take the draws in
     the order they run (ROADMAP.md M12c)."""
     base = dcfg["_base_"]
@@ -92,7 +94,8 @@ def _dataset_kwargs(dcfg: ConfigDict, args, subset: str) -> tuple[str, dict]:
                           partition=others.get("partition", subset),
                           num_points=others.get("num_points", 2048))
     if name in ("ScanObjectNN", "ScanObjectNN_hardest"):
-        return name, dict(root=base["ROOT"], subset=others.get("subset", subset))
+        return name, dict(root=base["ROOT"], subset=others.get("subset", subset),
+                          seed=args.seed)
     if name == "ModelNetFewShot":
         return name, dict(data_path=base["DATA_PATH"],
                           subset=others.get("subset", subset),
@@ -180,9 +183,32 @@ def _part_seg(config, args, model, seg_cfg, bs: int, device, logger):
                    model=model)
 
 
+def _pretrain(config, args, model, bs: int, device, logger):
+    """MAE pretraining: the train split shuffled in whole batches of
+    ``total_bs``, the SVM probe's splits (``dataset.svm``, when the config
+    has them) at batch 64, train shuffled and test in order, neither dropping
+    a ragged batch. Returns (train state, best AccMetric)."""
+    from si_mamba_tpu_torch.train.runner_pretrain import pretrain_run
+
+    if args.test:
+        raise NotImplementedError("--test of a pretraining checkpoint is not a path of the "
+                                  "JAX CLI either: its runner probes every val_freq epochs")
+    train_loader = build_loader(config.dataset.train, args, "train", bs, shuffle=True,
+                                drop_last=True)
+    svm_loaders = None
+    if config.dataset.get("svm") is not None:
+        svm_loaders = (
+            build_loader(config.dataset.svm.train, args, "train", 64, True, False),
+            build_loader(config.dataset.svm.test, args, "test", 64, False, False))
+    return pretrain_run(config, train_loader, svm_loaders, args.experiment_path,
+                        resume=args.resume, logger=logger, seed=args.seed,
+                        val_freq=args.val_freq, device=device, model=model)
+
+
 def main(argv=None):
     """Run the CLI. Returns what the run gives: the test accuracy for
-    --test, (train state, best AccMetric) for a finetune run."""
+    --test, (train state, best AccMetric) for a finetune, pretraining or
+    part-segmentation run."""
     args = get_args(argv)
     device = resolve_device(args.device)
     snapshot = os.path.join(args.experiment_path, "config.yaml")
@@ -210,8 +236,8 @@ def main(argv=None):
         rf.tsne_run(config, None, None, os.path.join(args.experiment_path, "tsne.png"), logger)
     if args.way > 0:  # few-shot: the classifier width equals the way count
         config.model.cls_dim = args.way
-    # the NAME dispatch: MAE pretraining (M16) and tensor parallelism (M18b)
-    # raise here, before any data is read
+    # the NAME dispatch; tensor parallelism (M18b) raises here, before any
+    # data is read
     rf.check_tensor_parallel(config)
     model, model_cfg = build_model_from_cfg(config.model, device, args.seed)
     bs = int(config.total_bs)
@@ -222,6 +248,8 @@ def main(argv=None):
 
     if config.model.NAME == "PartSegModel":
         return _part_seg(config, args, model, model_cfg, bs, device, logger)
+    if config.model.NAME == "Point_MAE_Mamba":
+        return _pretrain(config, args, model, bs, device, logger)
 
     if args.test:
         test_loader = build_loader(config.dataset.test, args, "test", bs,

@@ -48,6 +48,7 @@ def build_model_from_cfg(model_cfg: dict, device="cuda", seed: int = 0):
 
 def _register_builtin_models():
     from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
+    from si_mamba_tpu_torch.models.point_mae import PointMAEConfig, PointMAEMamba
     from si_mamba_tpu_torch.models.segmentation import PartSegConfig, PartSegModel
 
     def point_mamba(device, seed, **cfg):
@@ -61,12 +62,11 @@ def _register_builtin_models():
         with torch.device(device):
             return PartSegModel(c, generator=torch.Generator(device).manual_seed(seed)), c
 
-    def not_ported(name: str, item: str):
-        def build(**cfg):
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md queue 1, {item})")
-
-        return build
+    def point_mae(device, seed, **cfg):
+        c = PointMAEConfig.from_dict(cfg)
+        with torch.device(device):
+            return PointMAEMamba(c, generator=torch.Generator(device).manual_seed(seed)), c
 
     MODELS.register("PointMamba")(point_mamba)
-    MODELS.register("Point_MAE_Mamba")(not_ported("Point_MAE_Mamba (MAE pretraining)", "M16"))
+    MODELS.register("Point_MAE_Mamba")(point_mae)
     MODELS.register("PartSegModel")(part_seg)

@@ -1,8 +1,9 @@
 """Weights in the reference's state-dict layout.
 
-- :func:`state_dict_from_jax` / :func:`partseg_state_dict_from_jax`: the
-  JAX package's flax variables of the classifier / the part-segmentation
-  model (as numpy arrays) -> this package's state dict. The layout rules
+- :func:`state_dict_from_jax` / :func:`partseg_state_dict_from_jax` /
+  :func:`point_mae_state_dict_from_jax`: the JAX package's flax variables of
+  the classifier / the part-segmentation model / the pretraining model (as
+  numpy arrays) -> this package's state dict. The layout rules
   are the same as the JAX package's ``utils/torch_export.py``: Dense
   kernels (in, out) transpose to Linear weights (out, in), k=1 conv kernels
   gain a trailing axis, the mixer conv (d, W) becomes (d, 1, W), BatchNorm
@@ -75,28 +76,33 @@ def _ssd_mixer(out, key, m) -> None:
     out[f"{key}.out_proj.weight"] = _t(np.asarray(m["out_proj"]).T)
 
 
-def _backbone(out, params, batch_stats) -> None:
-    """The encoder, pos-embed, block stack and final norm, which the
-    classifier and the segmentation model share. The depth is read from the
-    block tree, and each mixer's kind from its keys (the SSD mixer has
-    ``norm_scale``, Mamba-1 ``x_proj``)."""
-    enc, enc_s = params["encoder"], batch_stats["encoder"]
-    _conv1x1(out, "encoder.first_conv.0", enc["conv1"])
-    _bn(out, "encoder.first_conv.1", enc["bn1"], enc_s["bn1"])
-    _conv1x1(out, "encoder.first_conv.3", enc["conv2"])
-    _conv1x1(out, "encoder.second_conv.0", enc["conv3"])
-    _bn(out, "encoder.second_conv.1", enc["bn2"], enc_s["bn2"])
-    _conv1x1(out, "encoder.second_conv.3", enc["conv4"])
-    _dense(out, "pos_embed.0", params["pos_embed"]["fc1"])
-    _dense(out, "pos_embed.2", params["pos_embed"]["fc2"])
-    blocks = params["blocks"]
+def _stack(out, blocks, key) -> None:
+    """A MixerModel's blocks and final norm under ``key``. The depth is read
+    from the block tree, and each mixer's kind from its keys (the SSD mixer
+    has ``norm_scale``, Mamba-1 ``x_proj``)."""
     depth = sum(1 for k in blocks if k.startswith("layers_"))
     for i in range(depth):
-        _ln(out, f"blocks.layers.{i}.norm", blocks[f"layers_{i}"]["norm"])
+        _ln(out, f"{key}.layers.{i}.norm", blocks[f"layers_{i}"]["norm"])
         mixer = blocks[f"layers_{i}"]["mixer"]
-        (_ssd_mixer if "norm_scale" in mixer else _mixer)(out, f"blocks.layers.{i}.mixer", mixer)
-    _ln(out, "blocks.norm_f", blocks["norm_f"])
-    _ln(out, "norm", params["norm"])
+        (_ssd_mixer if "norm_scale" in mixer else _mixer)(out, f"{key}.layers.{i}.mixer", mixer)
+    _ln(out, f"{key}.norm_f", blocks["norm_f"])
+
+
+def _backbone(out, params, batch_stats, prefix: str = "") -> None:
+    """The encoder, pos-embed, block stack and final norm, which the
+    classifier, the segmentation model and the pretraining model's encoder
+    (under ``prefix`` 'MAE_encoder.') share."""
+    enc, enc_s = params["encoder"], batch_stats["encoder"]
+    _conv1x1(out, f"{prefix}encoder.first_conv.0", enc["conv1"])
+    _bn(out, f"{prefix}encoder.first_conv.1", enc["bn1"], enc_s["bn1"])
+    _conv1x1(out, f"{prefix}encoder.first_conv.3", enc["conv2"])
+    _conv1x1(out, f"{prefix}encoder.second_conv.0", enc["conv3"])
+    _bn(out, f"{prefix}encoder.second_conv.1", enc["bn2"], enc_s["bn2"])
+    _conv1x1(out, f"{prefix}encoder.second_conv.3", enc["conv4"])
+    _dense(out, f"{prefix}pos_embed.0", params["pos_embed"]["fc1"])
+    _dense(out, f"{prefix}pos_embed.2", params["pos_embed"]["fc2"])
+    _stack(out, params["blocks"], f"{prefix}blocks")
+    _ln(out, f"{prefix}norm", params["norm"])
 
 
 def state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
@@ -133,6 +139,33 @@ def partseg_state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[
         _dense(out, f"convs{i}", params[f"convs{i}"])
     for i in (1, 2):
         _bn(out, f"bns{i}", params[f"bns{i}"], batch_stats[f"bns{i}"])
+    return out
+
+
+def point_mae_state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """The JAX ``PointMAEMamba``'s variables -> a state dict that the port's
+    ``PointMAEMamba`` loads with ``strict=True``, in the keys of the
+    reference's pretraining checkpoints (those the JAX package's
+    ``utils/torch_import.import_point_mae`` reads): ``MAE_encoder.{encoder,
+    pos_embed, blocks, norm}``, ``MAE_decoder.{blocks, norm}``,
+    ``mask_token``, ``increase_dim.0`` (a k=1 conv) and ``diff_sgwt.pos_embed.
+    {0,2}`` / ``diff_sgwt.mixer.{0,1,3,4,6}``. A finetune run takes the
+    encoder's keys from it (``MAE_encoder.`` is one of the prefixes that
+    :func:`_strip_prefixes` drops)."""
+    out: Dict[str, torch.Tensor] = {}
+    _backbone(out, params, batch_stats, prefix="MAE_encoder.")
+    _stack(out, params["MAE_decoder"], "MAE_decoder.blocks")
+    _ln(out, "MAE_decoder.norm", params["decoder_norm"])
+    out["mask_token"] = _t(np.asarray(params["mask_token"]).reshape(1, 1, -1))
+    _conv1x1(out, "increase_dim.0", params["increase_dim"])
+    sg = params["diff_sgwt"]
+    for key, name in (("pos_embed.0", "pos_embed_fc1"), ("pos_embed.2", "pos_embed_fc2"),
+                      ("mixer.0", "mixer_fc1"), ("mixer.3", "mixer_fc2"),
+                      ("mixer.6", "mixer_fc3")):
+        _dense(out, f"diff_sgwt.{key}", sg[name])
+    _ln(out, "diff_sgwt.mixer.1", sg["mixer_ln1"])
+    _ln(out, "diff_sgwt.mixer.4", sg["mixer_ln2"])
     return out
 
 

@@ -147,8 +147,19 @@ def test_registry_builds_pointmamba_and_names_what_is_not_ported():
         "NAME": "PointMamba", "trans_dim": 32, "depth": 2, "cls_dim": 4, "group_size": 8,
         "num_group": 16, "encoder_dims": 32, "knn_graph": 4, "not_a_field": 1}, "cpu")
     assert cfg.trans_dim == 32 and cfg.depth == 2 and len(model.blocks.layers) == 2
-    with pytest.raises(NotImplementedError, match="M16"):
-        build_model_from_cfg({"NAME": "Point_MAE_Mamba", "group_size": 8})
+    # (the test's name is kept from when the pretraining model was not
+    # ported): Point_MAE_Mamba builds from its transformer_config, and its
+    # legacy 'MAMBA' path and the 'emd' loss raise with their ROADMAP item
+    mae, mae_cfg = build_model_from_cfg({
+        "NAME": "Point_MAE_Mamba", "group_size": 8, "num_group": 16, "loss": "cdl2",
+        "transformer_config": {"trans_dim": 32, "encoder_dims": 32, "depth": 2,
+                               "decoder_depth": 1, "knn_graph": 4, "k_top_eigenvectors": 2}},
+        "cpu")
+    assert (mae_cfg.trans_dim, mae_cfg.depth, mae_cfg.num_group) == (32, 2, 16)
+    assert len(mae.MAE_encoder.blocks.layers) == 2 and len(mae.MAE_decoder.blocks.layers) == 1
+    for bad in ({"method": "MAMBA"}, {"loss": "emd"}):
+        with pytest.raises(NotImplementedError, match="M16b"):
+            build_model_from_cfg({"NAME": "Point_MAE_Mamba", "transformer_config": bad}, "cpu")
     seg, seg_cfg = build_model_from_cfg({
         "NAME": "PartSegModel", "trans_dim": 32, "encoder_dims": 32, "depth": 4,
         "fetch_idx": [1, 2, 3], "num_group": 16, "group_size": 8, "knn_graph": 4}, "cpu")

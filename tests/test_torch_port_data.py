@@ -1,7 +1,8 @@
 """The port's data layer against the JAX package on the CPU, on a tree that
 ``scripts/prepare_data.py --synthetic`` writes: the datasets give byte-equal
-samples, the ModelNet FPS caches of the two packages are interchangeable,
-the h5 datasets raise, and the two ``Loader``s give byte-equal batches."""
+samples (the h5 ones read by the port's own h5 reader), the ModelNet FPS
+caches of the two packages are interchangeable, and the two ``Loader``s give
+byte-equal batches."""
 
 import importlib.util
 import pickle
@@ -104,11 +105,25 @@ def test_fewshot_samples_equal_jax(tree, subset):
     ("ModelNet40SVM", dict(data_path=".", partition="train", num_points=2048)),
 ])
 def test_h5_datasets_raise_with_their_roadmap_item(tree, name, kwargs):
+    """(The name is kept from when these datasets raised M12b.) The h5
+    datasets, read without h5py, give the JAX package's items: the same
+    points (float32), labels (int64 in the arrays, int items) and, for the
+    train split, the same point shuffle from the same seed."""
     kwargs = {k: (str(tree / v) if k in ("root", "data_path") else v) for k, v in kwargs.items()}
-    jax_ds = jds.build_dataset(name, **kwargs)  # the JAX package reads the tree
+    seeded = {"seed": 4} if name.startswith("ScanObjectNN") else {}
+    jax_ds = jds.build_dataset(name, **kwargs, **seeded)  # the JAX package reads the tree
+    port_ds = pds.build_dataset(name, **kwargs, **seeded)
     assert len(jax_ds) > 0
-    with pytest.raises(NotImplementedError, match="M12b"):
-        pds.build_dataset(name, **kwargs)
+    if name == "ModelNet40SVM":
+        assert port_ds.labels.dtype == jax_ds.labels.dtype == np.int64
+        np.testing.assert_array_equal(port_ds.data, jax_ds.data)
+    else:
+        assert port_ds.labels.dtype == np.int64
+        np.testing.assert_array_equal(port_ds.points, jax_ds.points)
+    for i in range(len(jax_ds)):
+        (pp, pl), (jp, jl) = port_ds[i], jax_ds[i]
+        assert pp.dtype == jp.dtype == np.float32 and type(pl) is type(jl) is int and pl == jl
+        np.testing.assert_array_equal(pp, jp)
 
 
 def test_io_matches_jax_and_refuses_h5(tree, tmp_path):
@@ -120,8 +135,10 @@ def test_io_matches_jax_and_refuses_h5(tree, tmp_path):
                                       jio.read_pointcloud(str(path)))
     pc = np.random.default_rng(1).standard_normal((50, 3)).astype(np.float32)
     np.testing.assert_array_equal(pio.pc_normalize(pc), jio.pc_normalize(pc))
-    with pytest.raises(NotImplementedError, match="M12b"):
-        pio.read_pointcloud(str(tree / "modelnet40_ply_hdf5_2048" / "ply_data_train0.h5"))
+    h5 = str(tree / "modelnet40_ply_hdf5_2048" / "ply_data_train0.h5")
+    got, want = pio.read_pointcloud(h5), jio.read_pointcloud(h5)  # h5py on the JAX side
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError, match="extension"):
         pio.read_pointcloud("x.ply")
     assert set(pdata.__all__) == {"ShapeNet55", "ModelNet", "ModelNet40SVM", "ScanObjectNN",

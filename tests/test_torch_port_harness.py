@@ -582,7 +582,7 @@ def test_cli_refuses_cuda_without_a_gpu(modelnet_tree, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("pretrain", "M16"), ("tsne", "M21"), ("orbax_ckpts", "export_torch"),
+    ("legacy_mae", "M16b"), ("tsne", "M21"), ("orbax_ckpts", "export_torch"),
     ("orbax_finetune", "export_torch"), ("orbax_predictor", "export_torch"),
     ("tensor_parallel", "M18b")])
 def test_unported_paths_raise_with_their_roadmap_item(modelnet_tree, tmp_path, monkeypatch,
@@ -594,8 +594,11 @@ def test_unported_paths_raise_with_their_roadmap_item(modelnet_tree, tmp_path, m
     base = ["--device", "cpu", "--num_workers", "0"]
     cfg = str(_experiment(tmp_path, modelnet_tree))
     with pytest.raises(NotImplementedError, match=match):
-        if case == "pretrain":
-            cli.main(["--config", str(ROOT / "cfgs" / "dev" / "tiny_pretrain_cpu.yaml")] + base)
+        if case == "legacy_mae":  # MAE pretraining's legacy 'MAMBA' path
+            legacy = tmp_path / "legacy.yaml"
+            legacy.write_text(f"_base_: {ROOT / 'cfgs' / 'dev' / 'tiny_pretrain_cpu.yaml'}\n"
+                              "model: {transformer_config: {method: MAMBA}}\n")
+            cli.main(["--config", str(legacy)] + base)
         elif case == "tsne":
             cli.main(["--config", cfg, "--tsne"] + base)
         elif case == "orbax_ckpts":

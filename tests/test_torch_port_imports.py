@@ -1,6 +1,6 @@
 """The port stands alone: no file of ``si_mamba_tpu_torch/`` or
-``chip_smoke.py`` imports JAX, its libraries, pyyaml or the JAX package, and
-importing the port runs nothing on a device."""
+``chip_smoke.py`` imports JAX, its libraries, pyyaml, h5py, sklearn or the
+JAX package, and importing the port runs nothing on a device."""
 
 import ast
 import subprocess
@@ -11,7 +11,8 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "yaml", "h5py", "si_mamba_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "yaml", "h5py", "sklearn",
+             "si_mamba_tpu"}
 PORT_FILES = sorted((ROOT / "si_mamba_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
