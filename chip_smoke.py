@@ -285,7 +285,46 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    ScanObjectNN-hardest fixtures, finetuned from phase 33's ckpt-last.pth through
    --finetune_model (only the head's keys missing): two steps launching K1, K3, K4, K5
    12 times each at L = 1024, every validation forward K1 and K2; then a held classifier
-   forward at L = 1024 against 'seq'.
+   forward at L = 1024 against 'seq';
+35. data parallelism (after phase 14's ranks): two ranks spawned on the card, the
+   default group initialised from torchrun's variables by the CLI's own
+   ``maybe_initialize_distributed`` (gloo: the ranks share the card), a ('data',) mesh:
+   three steps of the shipped finetune step (drop_path 0.3) of the ModelNet40 model at
+   full width, each rank on its 16 rows of a global batch of 32 from 8192-point clouds,
+   against the one-process step at B=32 on the same card and seed (run first by the
+   parent): each rank's prepared clouds bitwise its rows of the one-process batch, the
+   generator's state bitwise the same after every step, the losses within rtol 2e-4, and
+   after step 3 every parameter within rtol 1e-4 / atol 2.5 x the summed learning rate and
+   every BatchNorm statistic within rtol 1e-3 / atol 1e-4 (tests/test_torch_port_train.py's
+   schedule and tolerances); the ranks' parameters and statistics bitwise equal after
+   every step (``runner_finetune.check_replicas``); K1, K3, K4 and K5 12 times each a rank a
+   step and nothing else; the step p50 and peak a rank and the gradient all-reduce alone
+   (one fp32 buffer of every parameter's size, as the optimizer reduces the gradients)
+   timed;
+36. on each rank its eval forward at B=16 against 'seq' on the same rank (logits within
+   atol 1e-3 max, rtol 2e-3), K1 and K2 12 times each;
+37. the finetune CLI over the two ranks on a seeded ModelNet40 tree under build/dp/
+   (cfgs/finetune_modelnet.yaml at max_epoch 1, global batch 32: two epochs of two steps,
+   each K1, K3, K4, K5 12 times a rank): the ranks' losses, validations, ``--test`` of
+   ckpt-last.pth (equal to the last validation), ``--resume`` with max_epoch raised to 2
+   (one more epoch, from the saved generator) and a 2-pass vote over the ranks' shards, all
+   equal on both ranks; rank 0 alone writes the checkpoints and the log;
+38. DP x TP: four ranks, the same CLI over a (data 2, model 2) mesh with ``tp_size: 2`` and
+   ``model.tp_axis: model`` (the Mamba-1 tensor-parallel mixer), one epoch of two steps: the
+   losses equal on every rank, each step K1, K3, K4, K5 12 times a rank; the gathered
+   ckpt-last.pth loads strict into a one-process model;
+39. cfgs/part_segmentation.yaml (global batch 16: one epoch of three steps) and
+   cfgs/pretrain.yaml (global batch 128: two epochs of two steps, then the SVM probe on
+   every rank's features) through the CLI over the two ranks at full width, on phases 29's
+   and 33's trees: each step the Mamba-1 kernels once a block; the mIoU and the probe's
+   accuracy equal on both ranks;
+40. the pipeline: the ModelNet40 classifier's 12 blocks over 2 stages of 6 on a 'pipe' axis
+   of the two ranks, 4 microbatches of 8 clouds: the logits against the one-process model
+   (atol 1e-3 max, rtol 2e-3), K1 and K2 6 x 5 ticks times a rank; one backward of the
+   pipelined stack on a seeded cotangent, each stage's block gradients within 1e-3 of the
+   largest of the one-process stack's. The ranks' step p50, peak memory, the gradient
+   all-reduce and the ranks' walls are printed with the card; gloo ranks sharing one card
+   say little of speed.
 
 Each path (serving, train, perf serving, perf train, SSD serving, SSD train,
 SSD perf serving, SSD perf train, fused serving, fused train, fused perf
@@ -296,8 +335,10 @@ two held seg forwards and the two seg CLI runs, the held MAE loss and feature
 forwards, the MAE stack's train pass, the two pretraining CLI runs, the hardest scan's CLI
 run and held forward, and on each rank TP SSD serving,
 TP SSD train, SP, SP train, TP Mamba-1 serving, bf16 TP SSD serving and
-train, bf16 SP and SP train, bf16 TP Mamba-1 serving and train) is driven with every launch count set to 0 just before it and read
-just after. The last five
+train, bf16 SP and SP train, bf16 TP Mamba-1 serving and train, and rank 0's DP step, DP
+forward, DP CLI run and vote, DP seg and pretraining CLI runs, pipelined forward and
+backward, and DP x TP step) is driven with every launch count set to 0 just before it and
+read just after. The last five
 lines of standard output are the harness's record, the serving, profile,
 train and gradient record of the three models (and perf mode's, the SSD
 presets' and fused perf mode's serving, profile, train and CLI records, part
@@ -2713,6 +2754,7 @@ def tp_train_rank(device, mesh, rank: int) -> tuple[dict, dict]:
     model's."""
     from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
     from si_mamba_tpu_torch.models.point_mamba import cross_entropy_loss_acc
+    from si_mamba_tpu_torch.parallel import LOCAL_DATA, set_data_axis
     from si_mamba_tpu_torch.train.optim import build_optimizer, clip_grad_norm_
     from si_mamba_tpu_torch.train.runner_finetune import make_train_step
     from si_mamba_tpu_torch.train.train_state import TrainState
@@ -2784,6 +2826,7 @@ def tp_train_rank(device, mesh, rank: int) -> tuple[dict, dict]:
     if rank == 0:
         plain = PointMamba(PointMambaConfig.from_dict({**no_drop, "scan_impl": "xla"})).to(device)
         plain.load_state_dict(sd, strict=True)
+        set_data_axis(plain, LOCAL_DATA)  # the single-process model: rank 0's rows alone
         per_ref, _ = cross_entropy_loss_acc(plain.train()(pts), lab)
         per_ref.mean().backward()
         ref_norm = float(torch.nn.utils.clip_grad_norm_(plain.parameters(), clip))
@@ -4752,6 +4795,688 @@ def mae_phases(device, card: str) -> tuple[dict, dict]:
     return paths, record
 
 
+# ---------------------------------------------------------------------------
+# data parallelism and the pipeline (phases 35-40): gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+DP = 2  # the data axis's ranks (DP x TP: 2 x TP = 4)
+DP_STEPS = 3
+# tests/test_torch_port_train.py's schedule (1e-3 after a warm-up epoch from
+# 1e-6, an epoch a step), under which its tolerances hold: the steps' noise in
+# the gradients of the biases that only feed a BatchNorm (exactly 0) moves the
+# BatchNorm statistics by at most 2e-6 before the third update
+DP_LR, DP_EPOCHS, DP_WARMUP = 1e-3, 4, 1
+DP_VOTES = 2
+PIPE_MICRO = 4
+PIPE_BATCH = 8
+DP_DEVICE = "cuda"  # the ranks' device kind (the CLI's --device)
+
+
+def _dp_optimizer(model, data_axis=None, tp=None):
+    from si_mamba_tpu_torch.train.optim import build_optimizer
+
+    return build_optimizer(model, opt_type="AdamW", lr=DP_LR, weight_decay=0.05,
+                           epochs=DP_EPOCHS, warmup_epochs=DP_WARMUP, steps_per_epoch=1,
+                           grad_clip=10.0, tp=tp, data_axis=data_axis)[0]
+
+
+def _dp_steps(model, optimizer, points, labels, device, data_axis=None, check=None) -> dict:
+    """DP_STEPS steps of the shipped finetune step (FPS 8192 -> 1200, a random
+    1024 of them, scale + translate, drop_path 0.3) from a generator of seed 0
+    on ``device``: each step's prepared clouds (on the CPU), generator state
+    and loss, its ms and launches, and the steps' launches in all (``total``,
+    every count set to 0 before the first); ``check`` after each step."""
+    from si_mamba_tpu_torch.train import runner_finetune as rf
+    from si_mamba_tpu_torch.train.train_state import TrainState
+
+    state = TrainState.create(model, optimizer)
+    step = rf.make_train_step(model, NPOINTS, rotation=False, data_axis=data_axis)
+    generator = torch.Generator(device=device).manual_seed(0)
+    out = {"prepared": [], "generator": [], "losses": [], "ms": [], "launches": []}
+    real = rf.finetune_update
+
+    def recording(state, pts, *a, **k):
+        out["prepared"].append(pts.cpu())
+        return real(state, pts, *a, **k)
+
+    rf.finetune_update = recording
+    _reset_launch_counts()
+    try:
+        for _ in range(DP_STEPS):
+            torch.cuda.synchronize()
+            before, t = _launch_counts(), time.perf_counter()
+            state, m = step(state, points, labels, generator)
+            loss = m["loss"].item()
+            out["ms"].append((time.perf_counter() - t) * 1e3)
+            now = _launch_counts()
+            out["launches"].append({k: now[k] - before[k] for k in now})
+            out["losses"].append(loss)
+            out["generator"].append(generator.get_state().cpu())
+            if check is not None:
+                check()
+    finally:
+        rf.finetune_update = real
+    out["total"] = _launch_counts()
+    return out
+
+
+def dp_reference(device) -> dict:
+    """Phase 35's reference: the one-process step at B=32 on this card and
+    seed, DP_STEPS steps; its prepared clouds, losses and final state."""
+    from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
+
+    model = PointMamba(PointMambaConfig.from_dict(MODELNET40),
+                       generator=torch.Generator().manual_seed(0)).to(device)
+    pts, labels = _train_clouds(TRAIN_BATCH, seed=7)
+    run = _dp_steps(model, _dp_optimizer(model), torch.from_numpy(pts).to(device),
+                    torch.from_numpy(labels).to(device), device)
+    run["state"] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    run.pop("launches"), run.pop("total")
+    return run
+
+
+def _peak_gib(device) -> float:
+    return torch.cuda.max_memory_allocated(device) / 2**30
+
+
+def dp_step_rank(device, mesh, rank: int) -> tuple[dict, dict]:
+    """Phases 35-36 on one rank: the DP step at its 16 rows of the global
+    batch of 32 (the ranks bitwise equal after every step), the gradient
+    all-reduce alone, then the eval forward at B=16 against 'seq'."""
+    import torch.distributed as dist
+
+    from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
+    from si_mamba_tpu_torch.parallel import set_data_axis
+    from si_mamba_tpu_torch.train import runner_finetune as rf
+
+    dp = mesh["data"]
+    b = TRAIN_BATCH // dp.size
+    rows = slice(rank * b, (rank + 1) * b)
+    model = PointMamba(PointMambaConfig.from_dict(MODELNET40),
+                       generator=torch.Generator().manual_seed(0)).to(device)
+    set_data_axis(model, dp)
+    pts, labels = _train_clouds(TRAIN_BATCH, seed=7)
+    optimizer = _dp_optimizer(model, dp)
+    torch.cuda.reset_peak_memory_stats(device)
+    run = _dp_steps(model, optimizer, torch.from_numpy(pts[rows]).to(device),
+                    torch.from_numpy(labels[rows]).to(device), device, dp,
+                    check=lambda: rf.check_replicas(model, mesh))
+    peak = _peak_gib(device)
+    want = _expect(MODELNET40["depth"], TRAIN_KERNELS)
+    for i, launches in enumerate(run["launches"]):
+        if launches != want:
+            raise AssertionError(f"rank {rank}: DP step {i} launched {launches}, expected {want}")
+    launches = run["launches"][0]
+    if run["total"] != _expect(MODELNET40["depth"] * DP_STEPS, TRAIN_KERNELS):
+        raise AssertionError(f"rank {rank}: the DP steps launched {run['total']} in all")
+    # the data axis's gradient all-reduce alone: every gradient, one buffer
+    flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    times = []
+    for _ in range(5):
+        buf = flat.clone()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        dist.all_reduce(buf, group=dp.group)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    record = {"rows": [rows.start, rows.stop], "losses": run["losses"], "step_ms": run["ms"],
+              "p50_step_ms": statistics.median(run["ms"][1:]), "peak_gib": peak,
+              "launches_per_step": {k: v for k, v in launches.items() if v},
+              "grad_allreduce_mb": flat.numel() * 4 / 1e6,
+              "grad_allreduce_ms": statistics.median(times[1:])}
+    record["prepared"], record["generator"] = run["prepared"], run["generator"]
+    if rank == 0:
+        record["state"] = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+    # phase 36: this rank's eval forward at B=16 against the plain route
+    eval_pts = torch.from_numpy(clouds(TRAIN_BATCH, seed=9)[rows]).to(device)
+    plain = PointMamba(PointMambaConfig.from_dict({**MODELNET40, "scan_impl": "seq"})).to(device)
+    plain.load_state_dict(model.state_dict(), strict=True)
+    _reset_launch_counts()
+    with torch.inference_mode():
+        logits = model.eval()(eval_pts)
+        fwd = _launch_counts()
+        ref = plain.eval()(eval_pts)
+    if fwd != _expect(MODELNET40["depth"], EVAL_KERNELS):
+        raise AssertionError(f"rank {rank}: the DP forward launched {fwd}")
+    scale, err = ref.abs().max().item(), (logits - ref).abs().max().item()
+    if not torch.allclose(logits, ref, atol=1e-3 * scale, rtol=2e-3):
+        raise AssertionError(f"rank {rank}: DP forward logits disagree with 'seq': max |diff| "
+                             f"{err}, max |logit| {scale}")
+    record["forward"] = {"batch": b, "logits_max_abs_diff": err, "logits_max_abs": scale}
+    return {"dp_train": run["total"], "dp_forward": fwd}, record
+
+
+def _step_recorder(module, name: str, calls: list):
+    """Wrap ``module.<name>`` (a step maker): each step's loss, ms and
+    launches (the counts' difference across it) appended to ``calls``.
+    Returns the original."""
+    real = getattr(module, name)
+
+    def make(*a, **k):
+        step = real(*a, **k)
+
+        def run(*sa, **sk):
+            torch.cuda.synchronize()
+            before, t = _launch_counts(), time.perf_counter()
+            state, m = step(*sa, **sk)
+            now = _launch_counts()
+            calls.append({"loss": m["loss"].item(), "ms": (time.perf_counter() - t) * 1e3,
+                          "launches": {k: now[k] - before[k] for k in now}})
+            return state, m
+
+        return run
+
+    setattr(module, name, make)
+    return real
+
+
+def _dp_work() -> Path:
+    """build/dp: the ModelNet40 tree (the harness's sizes) and the experiment
+    config of the CLI phases (cfgs/finetune_modelnet.yaml at max_epoch 1)."""
+    work = ROOT / "build" / "dp"
+    tree = work / "modelnet40"
+    if not (tree / "modelnet40_test.txt").exists():
+        rng = np.random.default_rng(21)
+
+        def cloud():
+            return rng.standard_normal((TRAIN_POINTS, 6)).astype(np.float32)
+
+        copied = cloud()
+        write_modelnet_tree(tree, {
+            "train": [(i % HARNESS_CLASSES, cloud()) for i in range(HARNESS_TRAIN)],
+            "test": [(c % HARNESS_CLASSES, copied if c < HARNESS_CLASSES else cloud())
+                     for c in range(HARNESS_TEST)]})
+    (work / "modelnet40.yaml").write_text(
+        f"NAME: ModelNet\nDATA_PATH: {tree}\nN_POINTS: {TRAIN_POINTS}\n"
+        f"NUM_CATEGORY: {HARNESS_CLASSES}\nUSE_NORMALS: FALSE\n")
+    datasets = "dataset:\n" + "".join(
+        f"  {name}: {{_base_: {work}/modelnet40.yaml, others: {{subset: '{subset}'}}}}\n"
+        for name, subset in (("train", "train"), ("val", "test"), ("test", "test")))
+    (work / "dp_modelnet.yaml").write_text(
+        f"_base_: {ROOT}/cfgs/finetune_modelnet.yaml\nmax_epoch: 1\n{datasets}")
+    (work / "dptp_modelnet.yaml").write_text(
+        f"_base_: {ROOT}/cfgs/finetune_modelnet.yaml\nmax_epoch: 0\ntp_size: {TP}\n"
+        f"model: {{tp_axis: model}}\n{datasets}")
+    return work
+
+
+def dp_cli_rank(device, rank: int) -> tuple[dict, dict]:
+    """Phase 37 on one rank: the finetune CLI over the ranks (epochs 0 and 1,
+    two steps each at the global batch 32), --test of its ckpt-last.pth,
+    --resume with max_epoch raised to 2 (one more epoch), and the vote over
+    the ranks' shards of the test split."""
+    import types
+
+    from si_mamba_tpu_torch.parallel.mesh import barrier, data_axis
+    from si_mamba_tpu_torch.train import cli
+    from si_mamba_tpu_torch.train import runner_finetune as rf
+    from si_mamba_tpu_torch.train.config import get_config
+    from si_mamba_tpu_torch.train.registry import build_model_from_cfg
+    from si_mamba_tpu_torch.utils.weights import load_state_dict_file
+
+    work = ROOT / "build" / "dp"
+    base = ["--config", str(work / "dp_modelnet.yaml"), "--device", DP_DEVICE,
+            "--num_workers", "2"]
+    steps, vals = [], []
+    real_step = _step_recorder(rf, "make_train_step", steps)
+    real_validate = rf.validate
+
+    def validate(*a, **k):
+        vals.append(real_validate(*a, **k))
+        return vals[-1]
+
+    rf.validate = validate
+    cwd = os.getcwd()
+    os.chdir(work)
+    paths = {}
+    try:
+        torch.cuda.reset_peak_memory_stats(device)
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        state, best = cli.main(base + ["--exp_name", "run"])
+        run_s = time.perf_counter() - t0
+        paths["dp_cli_train"] = _launch_counts()
+        peak = _peak_gib(device)
+        exp = work / "experiments" / "dp_modelnet" / "run"
+        val_accs = list(vals)
+        test_acc = cli.main(base + ["--exp_name", "test", "--test", "--ckpts",
+                                    str(exp / "ckpt-last.pth")])
+        if rank == 0:  # one more epoch for --resume (it re-reads the snapshot)
+            snap = exp / "config.yaml"
+            snap.write_text(snap.read_text().replace("max_epoch: 1", "max_epoch: 2"))
+        barrier()
+        resumed, _ = cli.main(base + ["--exp_name", "run", "--resume"])
+        config = get_config(str(work / "dp_modelnet.yaml"))
+    finally:
+        rf.make_train_step, rf.validate = real_step, real_validate
+        os.chdir(cwd)
+    mesh = rf.make_run_mesh(config)
+    model, _ = build_model_from_cfg(config.model, device, mesh=mesh)
+    model.load_state_dict(load_state_dict_file(str(exp / "ckpt-last.pth")), strict=True)
+    dp = data_axis(mesh)
+    args = types.SimpleNamespace(device=DP_DEVICE, seed=0, num_workers=2,
+                                 shard=(dp.index, dp.size))
+    loader = cli.build_loader(config.dataset.test, args, "test", TRAIN_BATCH // DP, False, False)
+    vote = rf.make_vote_step(model, NPOINTS, rotation=False, times=DP_VOTES)
+    _reset_launch_counts()
+    vote_acc = rf.validate_vote(vote, rf.TrainState(0, model, None), loader)
+    paths["dp_cli_vote"] = _launch_counts()
+    depth = MODELNET40["depth"]
+    for i, s in enumerate(steps):
+        if s["launches"] != _expect(depth, TRAIN_KERNELS) or not np.isfinite(s["loss"]):
+            raise AssertionError(f"rank {rank}: DP CLI step {i}: {s}")
+    if len(steps) != 6 or state.step != 4 or resumed.step != 6:
+        raise AssertionError(f"rank {rank}: DP CLI took {len(steps)} steps (state {state.step}, "
+                             f"resumed {resumed.step}), expected 4 then 2 more")
+    if test_acc != val_accs[1]:
+        raise AssertionError(f"rank {rank}: --test gave {test_acc}, the last validation "
+                             f"{val_accs[1]}")
+    files = sorted(p.name for p in exp.iterdir())
+    logs = [f for f in files if f.endswith(".log")]
+    if not {"ckpt-best.pth", "ckpt-last.pth", "config.yaml", "scalars.jsonl"} <= set(files) \
+            or any(f.endswith(".tmp") for f in files) or len(logs) != 1:  # rank 0's
+        raise AssertionError(f"rank {rank}: the DP CLI run's files: {files}")
+    last = torch.load(exp / "ckpt-last.pth", map_location="cpu", weights_only=True)
+    if last["epoch"] != 2 or last["step"] != 6:
+        raise AssertionError(f"rank {rank}: ckpt-last.pth holds epoch {last['epoch']}, step "
+                             f"{last['step']}")
+    record = {"losses": [s["loss"] for s in steps], "step_ms": [s["ms"] for s in steps],
+              "p50_step_ms": statistics.median([s["ms"] for s in steps[1:4]]),
+              "peak_gib": peak, "run_s": run_s, "val_acc": val_accs, "test_acc": test_acc,
+              "vote_acc": vote_acc, "best_acc": best.acc, "files": files}
+    return paths, record
+
+
+def dp_seg_pretrain_rank(device, rank: int) -> tuple[dict, dict]:
+    """Phase 39 on one rank: cfgs/part_segmentation.yaml (global batch 16, one
+    epoch of three steps) and cfgs/pretrain.yaml (global batch 128, two epochs
+    of two steps, then the SVM probe) through the CLI over the ranks, at full
+    width and depth, on phases 29's and 33's trees."""
+    from si_mamba_tpu_torch.train import cli
+    from si_mamba_tpu_torch.train import runner_pretrain as rp
+    from si_mamba_tpu_torch.train import runner_seg as rs
+    from si_mamba_tpu_torch.train.config import get_config
+
+    seg_work, mae_work = ROOT / "build" / "seg", ROOT / "build" / "mae"
+    seg_depth = int(get_config(str(seg_work / "dp_seg.yaml")).model.depth)
+    seg_steps, pre_steps, mious, probes = [], [], [], []
+    real = (_step_recorder(rs, "make_seg_train_step", seg_steps),
+            _step_recorder(rp, "make_pretrain_step", pre_steps), rs.evaluate_miou, rp.svm_probe)
+    rs.evaluate_miou = lambda *a, **k: mious.append(real[2](*a, **k)) or mious[-1]
+    rp.svm_probe = lambda *a, **k: probes.append(real[3](*a, **k)) or probes[-1]
+    cwd = os.getcwd()
+    paths = {}
+    try:
+        os.chdir(seg_work)
+        torch.cuda.reset_peak_memory_stats(device)
+        _reset_launch_counts()
+        cli.main(["--config", str(seg_work / "dp_seg.yaml"), "--device", DP_DEVICE,
+                  "--num_workers", "0", "--exp_name", "dp"])
+        paths["dp_seg_cli"] = _launch_counts()
+        seg_peak = _peak_gib(device)
+        os.chdir(mae_work)
+        tcfg = get_config(str(mae_work / "dp_pre.yaml")).model.transformer_config
+        pre_blocks = int(tcfg.depth) + int(tcfg.decoder_depth)
+        torch.cuda.reset_peak_memory_stats(device)
+        _reset_launch_counts()
+        cli.main(["--config", str(mae_work / "dp_pre.yaml"), "--device", DP_DEVICE,
+                  "--num_workers", "2", "--exp_name", "dp"])
+        paths["dp_pretrain_cli"] = _launch_counts()
+        pre_peak = _peak_gib(device)
+    finally:
+        (rs.make_seg_train_step, rp.make_pretrain_step, rs.evaluate_miou,
+         rp.svm_probe) = real
+        os.chdir(cwd)
+    for i, s in enumerate(seg_steps):
+        if s["launches"] != _expect(seg_depth, TRAIN_KERNELS) or not np.isfinite(s["loss"]):
+            raise AssertionError(f"rank {rank}: DP seg step {i}: {s}")
+    for i, s in enumerate(pre_steps):
+        if s["launches"] != _expect(pre_blocks, TRAIN_KERNELS) or not np.isfinite(s["loss"]):
+            raise AssertionError(f"rank {rank}: DP pretrain step {i}: {s}")
+    # whole batches of each rank's shard: the trainval shapes (one epoch), the
+    # ShapeNet-55 shapes, train and test ('whole'; two epochs)
+    want = ((SEG_TRAINVAL // DP) // (SEG_BATCH // DP),
+            2 * ((PRETRAIN_SHAPES // DP) // (PRETRAIN_BATCH // DP)), 1, 1)
+    if (len(seg_steps), len(pre_steps), len(mious), len(probes)) != want:
+        raise AssertionError(f"rank {rank}: DP seg/pretrain ran {len(seg_steps)} / "
+                             f"{len(pre_steps)} steps, {len(mious)} / {len(probes)} evaluations")
+    return paths, {
+        "seg": {"losses": [s["loss"] for s in seg_steps], "step_ms": [s["ms"] for s in seg_steps],
+                "p50_step_ms": statistics.median([s["ms"] for s in seg_steps[1:]]),
+                "peak_gib": seg_peak, "instance_miou": mious[0]["instance_miou"],
+                "class_miou": mious[0]["class_miou"], "accuracy": mious[0]["accuracy"]},
+        "pretrain": {"losses": [s["loss"] for s in pre_steps],
+                     "step_ms": [s["ms"] for s in pre_steps], "peak_gib": pre_peak,
+                     "probe_acc": probes[0]}}
+
+
+def pipeline_rank(device, rank: int) -> tuple[dict, dict]:
+    """Phase 40 on one rank: the ModelNet40 classifier (drops 0) with its 12
+    blocks pipelined over 2 stages of 6, PIPE_MICRO microbatches of
+    PIPE_BATCH clouds: the logits against the one-process model on this
+    rank; then one backward of the pipelined stack on a seeded cotangent,
+    this stage's block gradients against the one-process stack's."""
+    from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
+    from si_mamba_tpu_torch.parallel import make_mesh
+    from si_mamba_tpu_torch.parallel.pipeline import (
+        pipeline_mixer_apply,
+        pipeline_pointmamba_logits,
+        stack_mixer_params,
+        take_stage,
+    )
+
+    mesh = make_mesh(("pipe",), (DP,))
+    cfg = PointMambaConfig.from_dict({**MODELNET40, "drop_path": 0.0})
+    model = PointMamba(cfg, generator=torch.Generator().manual_seed(3)).to(device).eval()
+    pts = torch.from_numpy(clouds(PIPE_BATCH, seed=13)).to(device)
+    _reset_launch_counts()
+    with torch.no_grad():
+        logits = pipeline_pointmamba_logits(model, pts, mesh=mesh, n_micro=PIPE_MICRO)
+        fwd = _launch_counts()
+        ref = model(pts)
+    scale, err = ref.abs().max().item(), (logits - ref).abs().max().item()
+    if not torch.allclose(logits, ref, atol=1e-3 * scale, rtol=2e-3):
+        raise AssertionError(f"rank {rank}: pipelined logits disagree: max |diff| {err}, max "
+                             f"|logit| {scale}")
+    ticks = PIPE_MICRO + DP - 1
+    if fwd != _expect(cfg.depth // DP * ticks, EVAL_KERNELS):
+        raise AssertionError(f"rank {rank}: the pipelined forward launched {fwd}")
+
+    with torch.no_grad():
+        tokens, pos, center = model.embed(pts)
+        x, pos_seq = model.sequence(tokens, pos, center)
+    cot = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        tuple(x.shape)).astype(np.float32)).to(device)
+    stacked, norm_f = stack_mixer_params(model.blocks.state_dict(), cfg.depth, DP)
+    stage = take_stage(stacked, rank)
+    leaves = [stage["norm_scale"], stage["norm_bias"], *stage["mixer"].values()]
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    _reset_launch_counts()
+    y = pipeline_mixer_apply(stage, norm_f, x + pos_seq, mesh=mesh, n_micro=PIPE_MICRO)
+    torch.sum(y * cot).backward()
+    bwd = _launch_counts()
+    model.blocks.zero_grad(set_to_none=True)
+    torch.sum(model.blocks(x, pos_seq) * cot).backward()
+    per = cfg.depth // DP
+    gmax, worst = 0.0, 0.0
+    for j in range(per):
+        layer = model.blocks.layers[rank * per + j]
+        want = [layer.norm.weight.grad, layer.norm.bias.grad] + [
+            _param_grad(layer.mixer, k) for k in stage["mixer"]]
+        got = [stage["norm_scale"].grad[j], stage["norm_bias"].grad[j]] + [
+            stage["mixer"][k].grad[j] for k in stage["mixer"]]
+        for g, w in zip(got, want):
+            gmax = max(gmax, w.abs().max().item())
+            worst = max(worst, (g - w).abs().max().item())
+    if worst > 1e-3 * gmax:
+        raise AssertionError(f"rank {rank}: the pipelined stack's gradients differ by {worst} "
+                             f"(largest {gmax})")
+    return {"pipeline_forward": fwd, "pipeline_train": bwd}, {
+        "stages": DP, "blocks_per_stage": per, "n_micro": PIPE_MICRO, "batch": PIPE_BATCH,
+        "logits_max_abs_diff": err, "logits_max_abs": scale, "grad_max_abs_diff": worst,
+        "grad_max_abs": gmax}
+
+
+def _param_grad(mixer, key: str) -> torch.Tensor:
+    """The gradient of the mixer parameter behind ``params()[key]``, laid out
+    as ``params()`` lays it (transposed weights, the conv's taps)."""
+    name = {"in_proj_w": "in_proj.weight", "conv_w": "conv1d.weight", "conv_b": "conv1d.bias",
+            "x_proj_w": "x_proj.weight", "dt_proj_w": "dt_proj.weight",
+            "dt_proj_b": "dt_proj.bias", "A_log": "A_log", "D": "D",
+            "out_proj_w": "out_proj.weight"}[key]
+    g = mixer.get_parameter(name).grad
+    if key == "conv_w":
+        return g[:, 0, :]
+    return g.t() if key.endswith("_w") else g
+
+
+def _dp_env(rank: int, world: int, port: int) -> None:
+    """torchrun's variables for one rank of a launch of ``world`` on this host."""
+    os.environ.update({"SI_MAMBA_MULTIHOST": "1", "MASTER_ADDR": "localhost",
+                       "MASTER_PORT": str(port), "RANK": str(rank), "WORLD_SIZE": str(world),
+                       "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(world),
+                       "GLOO_SOCKET_IFNAME": "lo"})
+
+
+def _dp_init(rank: int, world: int, port: int) -> torch.device:
+    """torchrun's variables, then the CLI's own initialisation of the default
+    group (its backend rule: gloo, the ranks sharing the card; a collective
+    that waits 10 minutes fails). Returns the rank's device."""
+    import datetime
+
+    from si_mamba_tpu_torch.parallel import maybe_initialize_distributed
+    from si_mamba_tpu_torch.parallel.mesh import rank_device
+
+    _dp_env(rank, world, port)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    if not maybe_initialize_distributed(device=DP_DEVICE,
+                                        timeout=datetime.timedelta(minutes=10)):
+        raise AssertionError("the default group was not initialised")
+    return rank_device(DP_DEVICE)
+
+
+def dp_rank(rank: int, port: int, out_dir: str) -> None:
+    """One rank of phases 35-37 and 39-40 (a spawned process; the default
+    group from torchrun's variables, as the CLI initialises it: gloo, since
+    the ranks share the card; a collective that waits 10 minutes fails)."""
+    import torch.distributed as dist
+
+    from si_mamba_tpu_torch.parallel import make_mesh
+
+    device = _dp_init(rank, DP, port)
+    t0 = time.perf_counter()
+    try:
+        paths, out = {}, {"backend": dist.get_backend(), "device": str(device)}
+        mesh = make_mesh(("data",), (DP,))
+        p, out["step"] = dp_step_rank(device, mesh, rank)
+        paths.update(p)
+        out["step_wall_s"] = time.perf_counter() - t0
+        t = time.perf_counter()
+        p, out["cli"] = dp_cli_rank(device, rank)
+        paths.update(p)
+        out["cli_wall_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        p, out["seg_pretrain"] = dp_seg_pretrain_rank(device, rank)
+        paths.update(p)
+        out["seg_pretrain_wall_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        p, out["pipeline"] = pipeline_rank(device, rank)
+        paths.update(p)
+        out["pipeline_wall_s"] = time.perf_counter() - t
+        torch.save({"paths": paths, "records": out}, f"{out_dir}/dp_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_tp_rank(rank: int, port: int, out_dir: str) -> None:
+    """One rank of phase 38: the finetune CLI over DP x TP = 2 x 2 ranks (mesh
+    (data 2, model 2), the Mamba-1 tensor-parallel mixer; one epoch, two steps
+    at the global batch 32), launched as torchrun launches the CLI."""
+    import torch.distributed as dist
+
+    from si_mamba_tpu_torch.train import cli
+    from si_mamba_tpu_torch.train import runner_finetune as rf
+
+    device = _dp_init(rank, DP * TP, port)
+    work = ROOT / "build" / "dp"
+    steps = []
+    real = _step_recorder(rf, "make_train_step", steps)
+    os.chdir(work)
+    try:
+        torch.cuda.reset_peak_memory_stats(device)
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        state, best = cli.main(["--config", str(work / "dptp_modelnet.yaml"), "--device",
+                                DP_DEVICE,
+                                "--num_workers", "2", "--exp_name", "dptp"])
+        wall = time.perf_counter() - t0
+        mesh = state.model.mesh
+        record = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+                  "mesh": [list(mesh.axis_names), list(mesh.shape)],
+                  "losses": [s["loss"] for s in steps], "step_ms": [s["ms"] for s in steps],
+                  "launches": [s["launches"] for s in steps], "path": _launch_counts(),
+                  "peak_gib": _peak_gib(device),
+                  "wall_s": wall, "val_acc": best.acc}
+        torch.save(record, f"{out_dir}/dptp_rank{rank}.pt")
+    finally:
+        rf.make_train_step = real
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_phases(device, card: str) -> tuple[dict, dict]:
+    """Phases 35-40: data parallelism on gloo ranks sharing the card, and the
+    pipeline. The parent runs phase 35's one-process reference first, writes
+    the CLI phases' trees and configs, then spawns the 2-rank group (phases
+    35-37, 39, 40) and the 4-rank group (phase 38). Returns (each path's
+    launches on rank 0, the record); fails unless every check holds."""
+    import torch.multiprocessing as mp
+
+    from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
+
+    out_dir = ROOT / "build" / "dp"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    ref = dp_reference(device)
+    ref_s = time.perf_counter() - t0
+    _dp_work()
+    # the seg and pretraining trees of phases 29 and 33, and the configs over them
+    seg_work, mae_work = ROOT / "build" / "seg", mae_workdir()
+    tree = seg_work / "shapenetpart"
+    if not (tree / "synsetoffset2category.txt").exists():
+        write_shapenetpart_tree(tree, SEG_TRAINVAL, SEG_TEST)
+    if not (seg_work / "cfgs").exists():
+        os.symlink(ROOT / "cfgs", seg_work / "cfgs")
+    (seg_work / "dp_seg.yaml").write_text(
+        f"_base_: {ROOT}/cfgs/part_segmentation.yaml\nmax_epoch: 1\ndata_root: {tree}\n")
+    (mae_work / "dp_pre.yaml").write_text("_base_: cfgs/pretrain.yaml\nmax_epoch: 1\n")
+    torch.cuda.empty_cache()  # the ranks share the card
+
+    t0 = time.perf_counter()
+    mp.start_processes(dp_rank, args=(_free_port(), str(out_dir)), nprocs=DP,
+                       start_method="spawn", join=True)
+    dp_wall = time.perf_counter() - t0
+    ranks = [torch.load(out_dir / f"dp_rank{r}.pt", weights_only=False) for r in range(DP)]
+    t0 = time.perf_counter()
+    mp.start_processes(dp_tp_rank, args=(_free_port(), str(out_dir)), nprocs=DP * TP,
+                       start_method="spawn", join=True)
+    dptp_wall = time.perf_counter() - t0
+    dptp = [torch.load(out_dir / f"dptp_rank{r}.pt", weights_only=False) for r in range(DP * TP)]
+
+    # phase 35: the ranks against the one-process step
+    steps = [r["records"]["step"] for r in ranks]
+    b = TRAIN_BATCH // DP
+    for r, s in enumerate(steps):
+        for i in range(DP_STEPS):
+            if not torch.equal(s["prepared"][i], ref["prepared"][i][r * b:(r + 1) * b]):
+                raise AssertionError(f"rank {r}: step {i}'s prepared clouds differ from the "
+                                     f"one-process step's rows")
+            if not torch.equal(s["generator"][i], ref["generator"][i]):
+                raise AssertionError(f"rank {r}: the generator left step {i} in another state")
+        if not np.allclose(s["losses"], ref["losses"], rtol=2e-4, atol=0):
+            raise AssertionError(f"rank {r}: DP losses {s['losses']} against one-process "
+                                 f"{ref['losses']}")
+        s.pop("prepared"), s.pop("generator")
+    if steps[0]["losses"] != steps[1]["losses"]:
+        raise AssertionError(f"the ranks' losses differ: {[s['losses'] for s in steps]}")
+    from si_mamba_tpu_torch.train.optim import cosine_warmup_epoch_schedule
+
+    schedule = cosine_warmup_epoch_schedule(DP_LR, DP_EPOCHS, DP_WARMUP, 1)
+    lr_sum = sum(schedule(i) for i in range(DP_STEPS))
+    worst_param, worst_stat = 0.0, 0.0
+    for k, got in steps[0].pop("state").items():
+        want = ref["state"][k]
+        if "num_batches_tracked" in k:
+            if not torch.equal(got, want):
+                raise AssertionError(f"{k}: {got} against {want}")
+            continue
+        diff = (got - want).abs()
+        if "running_" in k:
+            ok = torch.all(diff <= 1e-4 + 1e-3 * want.abs())
+            worst_stat = max(worst_stat, diff.max().item())
+        else:
+            ok = torch.all(diff <= 2.5 * lr_sum + 1e-4 * want.abs())
+            worst_param = max(worst_param, diff.max().item())
+        if not ok:
+            raise AssertionError(f"{k} after {DP_STEPS} DP steps differs from the one-process "
+                                 f"step's by {diff.max().item()}")
+    # phase 37: the CLI ranks agree
+    cli_recs = [r["records"]["cli"] for r in ranks]
+    for key in ("losses", "val_acc", "test_acc", "vote_acc", "best_acc"):
+        if cli_recs[0][key] != cli_recs[1][key]:
+            raise AssertionError(f"the CLI ranks' {key} differ: {[c[key] for c in cli_recs]}")
+    # phase 38: DP x TP
+    for r, d in enumerate(dptp):
+        if d["mesh"] != [["data", "model"], [DP, TP]] or d["backend"] != "gloo":
+            raise AssertionError(f"DP x TP rank {r}: mesh {d['mesh']}, {d['backend']}")
+        if d["losses"] != dptp[0]["losses"] or len(d["losses"]) != 2:
+            raise AssertionError(f"the DP x TP ranks' losses differ: "
+                                 f"{[x['losses'] for x in dptp]}")
+        for i, launches in enumerate(d["launches"]):
+            if launches != _expect(MODELNET40["depth"], TRAIN_KERNELS):
+                raise AssertionError(f"DP x TP rank {r} step {i} launched {launches}")
+    whole = torch.load(out_dir / "experiments" / "dptp_modelnet" / "dptp" / "ckpt-last.pth",
+                       map_location="cpu", weights_only=True)
+    one = PointMamba(PointMambaConfig.from_dict(MODELNET40))
+    one.load_state_dict(whole["base_model"], strict=True)
+    # phase 39: the seg and pretraining ranks agree
+    sp = [r["records"]["seg_pretrain"] for r in ranks]
+    for key in ("instance_miou", "class_miou", "accuracy", "losses"):
+        if sp[0]["seg"][key] != sp[1]["seg"][key]:
+            raise AssertionError(f"the seg ranks' {key} differ: {[s['seg'][key] for s in sp]}")
+    for key in ("probe_acc", "losses"):
+        if sp[0]["pretrain"][key] != sp[1]["pretrain"][key]:
+            raise AssertionError(f"the pretraining ranks' {key} differ: "
+                                 f"{[s['pretrain'][key] for s in sp]}")
+    rec = ranks[0]["records"]
+    for r, s in enumerate(steps):
+        log(f"DP step rank {r} (rows {s['rows']}): p50 {s['p50_step_ms']:.3f} ms, peak "
+            f"{s['peak_gib']:.3f} GiB, launches a step {s['launches_per_step']}, gradient "
+            f"all-reduce of {s['grad_allreduce_mb']:.1f} MB {s['grad_allreduce_ms']:.3f} ms; "
+            f"forward at B={s['forward']['batch']} against 'seq' "
+            f"{s['forward']['logits_max_abs_diff']:.3e}; {card}")
+    log(f"DP step against one process: losses {steps[0]['losses']} / {ref['losses']}, worst "
+        f"parameter {worst_param:.3e}, worst BatchNorm statistic {worst_stat:.3e}")
+    log(f"DP CLI: step p50 {cli_recs[0]['p50_step_ms']:.3f} / {cli_recs[1]['p50_step_ms']:.3f} ms, "
+        f"peak {cli_recs[0]['peak_gib']:.3f} GiB, val {cli_recs[0]['val_acc']}, test "
+        f"{cli_recs[0]['test_acc']}, vote {cli_recs[0]['vote_acc']}; files {cli_recs[0]['files']}")
+    log(f"DP x TP CLI: losses {dptp[0]['losses']}, step ms {dptp[0]['step_ms']}, peak "
+        f"{[round(d['peak_gib'], 3) for d in dptp]} GiB; its checkpoint loads strict into one "
+        f"process")
+    log(f"DP seg: {sp[0]['seg']}; DP pretrain: {sp[0]['pretrain']}")
+    log(f"pipeline: {[r['records']['pipeline'] for r in ranks]}")
+    log(f"DP walls: reference {ref_s:.1f} s, 2 ranks {dp_wall:.1f} s (step "
+        f"{rec['step_wall_s']:.1f}, CLI {rec['cli_wall_s']:.1f}, seg + pretrain "
+        f"{rec['seg_pretrain_wall_s']:.1f}, pipeline {rec['pipeline_wall_s']:.1f}), 4 ranks "
+        f"{dptp_wall:.1f} s; gloo ranks sharing one card: their times say little of speed")
+    record = {"ranks": DP, "backend": rec["backend"], "card": card,
+              "reference": {"losses": ref["losses"], "step_ms": ref["ms"]},
+              "step": {f"rank{r}": s for r, s in enumerate(steps)},
+              "worst_param_diff": worst_param, "worst_bn_stat_diff": worst_stat,
+              "cli": {f"rank{r}": c for r, c in enumerate(cli_recs)},
+              "dp_tp": {f"rank{r}": {k: v for k, v in d.items() if k not in ("launches", "path")}
+                        for r, d in enumerate(dptp)},
+              "seg_pretrain": sp[0], "pipeline": {f"rank{r}": x["records"]["pipeline"]
+                                                  for r, x in enumerate(ranks)},
+              "wall_s": {"reference": ref_s, "dp_ranks": dp_wall, "dp_tp_ranks": dptp_wall,
+                         **{k: rec[k] for k in ("step_wall_s", "cli_wall_s",
+                                                "seg_pretrain_wall_s", "pipeline_wall_s")}}}
+    paths = dict(ranks[0]["paths"])
+    paths["dp_tp_train"] = dptp[0]["path"]
+    return paths, record
+
+
 def main() -> int:
     if not (ROOT / "si_mamba_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke: run it from a checkout of the repository "
@@ -4880,6 +5605,9 @@ def main() -> int:
     torch.cuda.empty_cache()  # the ranks share the card
     parallel_paths, parallel = parallel_phases(card)
     paths.update(parallel_paths)
+    torch.cuda.empty_cache()
+    dp_paths, dp = dp_phases(device, card)
+    paths.update(dp_paths)
 
     # each kernel's launches on every path, and on the path it serves
     main_path = {"causal_conv1d_silu": "serving", "selective_scan_fwd": "serving",
@@ -4928,7 +5656,8 @@ def main() -> int:
                       "fused_perf": {"serving": fused_perf_serving,
                                      "profile": fused_perf_profile, "train": fused_perf_train,
                                      "cli": fused_cli},
-                      "seg": seg, "mae": mae, "parallel": parallel, "card": card}), flush=True)
+                      "seg": seg, "mae": mae, "parallel": parallel, "dp": dp,
+                      "card": card}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -24,6 +24,7 @@ from __future__ import annotations
 import glob
 import os
 import pickle
+import tempfile
 from collections import defaultdict
 from typing import Any
 
@@ -48,7 +49,7 @@ class PointDataset:
 
 class ShapeNet55(PointDataset):
     def __init__(self, data_path: str, pc_path: str, subset: str = "train",
-                 npoints: int = 1024, whole: bool = False, seed: int | None = None):
+                 npoints: int = 1024, whole: bool = False, seed: int | tuple | None = None):
         self.pc_path = pc_path
         self.npoints = npoints
         self.subset = subset
@@ -110,12 +111,32 @@ def fps_clouds(clouds: list[np.ndarray], npoints: int, device="cpu") -> list[np.
     return out
 
 
+def _write_atomic(path: str, obj) -> None:
+    """Pickle ``obj`` to a temporary file beside ``path``, then rename it over
+    ``path``: a reader sees the whole file or none, and of two writers the
+    last rename wins with a whole file."""
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".",
+                               prefix=os.path.basename(path) + ".", suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            pickle.dump(obj, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+
+
 class ModelNet(PointDataset):
-    """``device``: where the FPS of a missing cache runs (the CLI's device)."""
+    """``device``: where the FPS of a missing cache runs (the CLI's device).
+    The cache is written whole or not at all (:func:`_write_atomic`); over
+    several ranks the CLI has rank 0 build it while the others wait."""
 
     def __init__(self, data_path: str, subset: str = "train", npoints: int = 8192,
                  num_category: int = 40, use_normals: bool = False,
-                 seed: int | None = None, device="cpu"):
+                 seed: int | tuple | None = None, device="cpu"):
         self.root = data_path
         self.subset = subset
         self.use_normals = use_normals
@@ -137,8 +158,7 @@ class ModelNet(PointDataset):
             self.points = fps_clouds(clouds, npoints, device)
             self.labels = [np.array([self.classes[name]], dtype=np.int32)
                            for name, _ in self.datapath]
-            with open(cache, "wb") as f:
-                pickle.dump([self.points, self.labels], f)
+            _write_atomic(cache, [self.points, self.labels])
 
     def __len__(self):
         return len(self.datapath)
@@ -182,7 +202,7 @@ class ScanObjectNN(PointDataset):
 
     FILES = {"train": "training_objectdataset.h5", "test": "test_objectdataset.h5"}
 
-    def __init__(self, root: str, subset: str = "train", seed: int | None = None):
+    def __init__(self, root: str, subset: str = "train", seed: int | tuple | None = None):
         self.subset = subset
         split = read_h5(os.path.join(root, self.FILES[subset]))
         self.points = np.array(split["data"]).astype(np.float32)

@@ -38,7 +38,7 @@ class PartNormalDataset:
     generator for the dataset (so the draws follow the order of the calls)."""
 
     def __init__(self, root: str, npoints: int = 2048, split: str = "trainval",
-                 normal_channel: bool = False, seed: int | None = None):
+                 normal_channel: bool = False, seed: int | tuple | None = None):
         self.npoints = npoints
         self.normal_channel = normal_channel
         self.split = split

@@ -3,7 +3,8 @@
 PyTorch counterparts of ``si_mamba_tpu/data/transforms.py`` (the reference's
 per-sample GPU transforms, datasets/data_transforms.py, vectorised over the
 batch). Every random draw takes an explicit ``torch.Generator`` on the
-points' device; the draws differ from JAX's, the distributions are the same.
+points' device, or a ``parallel.draws.RowShard`` of one under data
+parallelism; the draws differ from JAX's, the distributions are the same.
 """
 
 from __future__ import annotations
@@ -13,11 +14,12 @@ import math
 import torch
 
 from si_mamba_tpu_torch.ops.pointops import fps, gather_points
+from si_mamba_tpu_torch.parallel import draws
 
 
 def _uniform(shape, low: float, high: float, generator: torch.Generator,
              like: torch.Tensor) -> torch.Tensor:
-    u = torch.rand(shape, generator=generator, device=like.device, dtype=like.dtype)
+    u = draws.rand(shape, generator, device=like.device, dtype=like.dtype)
     return low + (high - low) * u
 
 
@@ -51,7 +53,7 @@ def scale_and_translate(pts: torch.Tensor, generator: torch.Generator | None,
 
 def jitter(pts: torch.Tensor, generator: torch.Generator, std: float = 0.01,
            clip: float = 0.05) -> torch.Tensor:
-    noise = torch.randn(pts.shape, generator=generator, device=pts.device, dtype=pts.dtype)
+    noise = draws.randn(pts.shape, generator, device=pts.device, dtype=pts.dtype)
     return pts + torch.clamp(std * noise, -clip, clip)
 
 
@@ -88,6 +90,6 @@ def fps_resample(pts: torch.Tensor, generator: torch.Generator, npoints: int,
         pts = gather_points(pts, fps(pts, n_over))
     else:
         n_over = N
-    keys = torch.rand((B, n_over), generator=generator, device=pts.device)
+    keys = draws.rand((B, n_over), generator, device=pts.device)
     sel = torch.argsort(keys, dim=1)[:, :npoints]
     return gather_points(pts, sel)

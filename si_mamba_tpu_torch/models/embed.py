@@ -11,8 +11,11 @@ BatchNorm is torch's own ``BatchNorm1d`` (eps 1e-5): in training mode it
 normalises with the biased batch variance and folds the unbiased one into
 the running statistics, the semantics of the JAX package's
 ``TorchBatchNorm``; torch's momentum is 1 - the flax retention factor
-(:func:`set_bn_momentum`). Dropout draws from a generator that the caller
-passes (:class:`Dropout`).
+(:func:`set_bn_momentum`). Under data parallelism (``data_axis``, set by
+``parallel.set_data_axis``) the training statistics are those of the global
+batch, as the JAX step over a data mesh takes them
+(:class:`ChannelLastBatchNorm`). Dropout draws from a generator that the
+caller passes (:class:`Dropout`).
 
 Every layer runs in its input's dtype (float32, or bfloat16 in perf mode),
 with the JAX modules' rounding points at ``dtype=bfloat16``: a linear layer
@@ -26,6 +29,10 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from si_mamba_tpu_torch.parallel import draws
+from si_mamba_tpu_torch.parallel.collectives import psum
+from si_mamba_tpu_torch.parallel.mesh import batch_axis
 
 
 def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Tensor:
@@ -76,7 +83,7 @@ class Dropout(nn.Module):
         if generator is None:
             raise ValueError("dropout in training mode needs a torch.Generator")
         keep = 1.0 - self.p
-        mask = torch.empty_like(x).bernoulli_(keep, generator=generator)
+        mask = draws.bernoulli(x.shape, keep, generator, device=x.device, dtype=x.dtype)
         return x * mask / keep
 
 
@@ -92,11 +99,39 @@ def set_bn_momentum(module: nn.Module, momentum: float) -> None:
 
 class ChannelLastBatchNorm(nn.BatchNorm1d):
     """``BatchNorm1d`` over the last axis of (..., C) input, computed in fp32
-    (statistics, normalisation, affine) and returned in the input's dtype."""
+    (statistics, normalisation, affine) and returned in the input's dtype.
+
+    ``data_axis``: the mesh axis the batch is sharded over. In training with
+    an axis of more than one rank the mean and the biased variance are those
+    of the rows of every rank, in two passes (the sum of x, then of (x -
+    mean)^2, each summed over the axis by ``collectives.psum``, whose
+    backward sums the cotangents too), and the running variance takes the
+    unbiased estimate over the global row count, as torch's BatchNorm and the
+    JAX ``TorchBatchNorm`` do. Otherwise it is torch's ``BatchNorm1d``. Over
+    a world of several ranks an unset axis raises in training
+    (``parallel.mesh.batch_axis``)."""
+
+    data_axis = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = super().forward(x.reshape(-1, x.shape[-1]).float())
+        x2 = x.reshape(-1, x.shape[-1]).float()
+        axis = batch_axis(self) if self.training else None
+        y = super().forward(x2) if axis is None else self._global(x2, axis)
         return y.reshape(x.shape).to(x.dtype)
+
+    def _global(self, x: torch.Tensor, axis) -> torch.Tensor:
+        count = x.new_full((1,), x.shape[0])
+        sums = psum(torch.cat([x.sum(dim=0), count]), axis)
+        n = sums[-1]
+        mean = sums[:-1] / n
+        var = psum(torch.sum((x - mean) ** 2, dim=0), axis) / n
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean.detach(), alpha=m)
+            unbiased = var.detach() * (n / torch.clamp(n - 1, min=1))
+            self.running_var.mul_(1 - m).add_(unbiased, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
 
 
 def _init_linear(m: nn.Linear, generator: torch.Generator) -> None:

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 from si_mamba_tpu_torch.models.embed import Dropout
 from si_mamba_tpu_torch.ops.selective_scan import mamba_mixer_apply
 from si_mamba_tpu_torch.ops.ssd import ssd_mixer_apply
+from si_mamba_tpu_torch.parallel import draws
 from si_mamba_tpu_torch.parallel.mesh import Mesh
 from si_mamba_tpu_torch.parallel.tensor_parallel import mamba_mixer_tp, ssd_mixer_tp
 from si_mamba_tpu_torch.utils.weights import shard_mixer_state
@@ -294,7 +295,7 @@ class DropPath(nn.Module):
             raise ValueError("DropPath in training mode needs a torch.Generator")
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.empty(shape, device=x.device).bernoulli_(keep, generator=generator)
+        mask = draws.bernoulli(shape, keep, generator, device=x.device)
         return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
 
 

@@ -44,6 +44,7 @@ from si_mamba_tpu_torch.models.grouping import Grouped, group_divider
 from si_mamba_tpu_torch.models.layers import LayerNorm, MixerModel
 from si_mamba_tpu_torch.models.point_mamba import DTYPES
 from si_mamba_tpu_torch.ops.chamfer import chamfer_l1, chamfer_l2
+from si_mamba_tpu_torch.parallel import draws
 from si_mamba_tpu_torch.ops.graph import knn_adjacency, rw_laplacian
 from si_mamba_tpu_torch.ops.sinkhorn import greedy_round, hungarian_round, sinkhorn_soft_perm
 from si_mamba_tpu_torch.ops.spectral import prng_key, uniform
@@ -151,7 +152,7 @@ def random_mask(B: int, G: int, num_mask: int, device=None,
     ``generator``), ties to the first index."""
     scores = uniform_draw
     if scores is None:
-        scores = torch.rand((B, G), generator=generator, device=device)
+        scores = draws.rand((B, G), generator, device=device)
     ranks = torch.argsort(torch.argsort(scores, dim=-1, stable=True), dim=-1, stable=True)
     return (ranks < num_mask).float()
 
@@ -162,7 +163,7 @@ def block_mask(center: torch.Tensor, num_mask: int, generator: torch.Generator |
     (``seed`` (B,) indices, or drawn from ``generator``)."""
     B, G, _ = center.shape
     if seed is None:
-        seed = torch.randint(0, G, (B,), generator=generator, device=center.device)
+        seed = draws.randint(0, G, (B,), generator, device=center.device)
     seed_pt = torch.gather(center, 1, seed.long()[:, None, None].expand(B, 1, 3))
     d = torch.linalg.norm(center - seed_pt, dim=-1)
     ranks = torch.argsort(torch.argsort(d, dim=-1, stable=True), dim=-1, stable=True)

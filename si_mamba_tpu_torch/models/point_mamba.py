@@ -37,6 +37,7 @@ from si_mamba_tpu_torch.models.embed import ClsHead, Dropout, PatchEncoder, PosE
 from si_mamba_tpu_torch.models.grouping import group_divider
 from si_mamba_tpu_torch.models.layers import LayerNorm, MixerModel
 from si_mamba_tpu_torch.models.ordering import hlt_sequence, sast_sequence, xyz_sequence
+from si_mamba_tpu_torch.parallel import draws
 from si_mamba_tpu_torch.ops.graph import knn_adjacency, rw_laplacian, sym_laplacian
 from si_mamba_tpu_torch.ops.spectral import (
     prng_key,
@@ -44,7 +45,7 @@ from si_mamba_tpu_torch.ops.spectral import (
     topk_smallest_subspace,
     uniform,
 )
-from si_mamba_tpu_torch.parallel.mesh import Mesh, MeshAxis
+from si_mamba_tpu_torch.parallel.mesh import Mesh, MeshAxis, data_axis, set_data_axis
 from si_mamba_tpu_torch.utils.weights import mixer_segments
 
 
@@ -130,7 +131,7 @@ def _check_supported(cfg: PointMambaConfig, mesh: Mesh | None = None) -> None:
     }
     for name, on in later.items():
         if on:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md, queue 1)")
+            raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md queue 1, M14)")
     if cfg.spectral_method not in ("eigh", "subspace"):
         raise ValueError(f"unknown spectral_method {cfg.spectral_method!r}")
     if cfg.mixer not in ("mamba", "ssd"):
@@ -153,7 +154,7 @@ def order_noise(batch: int, groups: int, device, training: bool,
         return torch.from_numpy(uniform(eval_key, (batch, groups))).to(device)
     if generator is None:
         raise ValueError("the HLT ordering in training mode needs a torch.Generator")
-    return torch.rand((batch, groups), generator=generator, device=device)
+    return draws.rand((batch, groups), generator, device=device)
 
 
 def spectral_eigvecs(center: torch.Tensor, cfg: PointMambaConfig):
@@ -186,7 +187,9 @@ class PointMamba(nn.Module):
     parameters, the same weights as the single-process model built from the
     same generator (``utils/weights.shard_state_dict`` cuts a full state dict
     to this rank's). Every rank of the axis must run the same forwards on the
-    same inputs, with generators of the same seed."""
+    same inputs, with generators of the same seed. A ``data`` axis of the
+    mesh shards the batch: the BatchNorms take their training statistics over
+    it (``parallel.set_data_axis``; a mesh without one makes them rank-local)."""
 
     def __init__(self, config: PointMambaConfig, generator: torch.Generator | None = None,
                  mesh: Mesh | None = None):
@@ -205,6 +208,8 @@ class PointMamba(nn.Module):
         self.norm = LayerNorm(cfg.trans_dim, eps=1e-5)
         self.cls_head_finetune = ClsHead(cfg.trans_dim, cfg.cls_dim, drop=cfg.cls_head_dropout)
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
+        if mesh is not None:
+            set_data_axis(self, data_axis(mesh))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for m in (self.encoder, self.pos_embed, self.blocks, self.cls_head_finetune):

@@ -21,6 +21,9 @@ import torch
 import torch.nn as nn
 
 from si_mamba_tpu_torch.ops.jacobi import jacobi_eigh
+from si_mamba_tpu_torch.parallel import draws
+from si_mamba_tpu_torch.parallel.collectives import psum
+from si_mamba_tpu_torch.parallel.mesh import batch_axis
 
 SOLVERS = ("eigh", "jacobi", "subspace")
 
@@ -125,7 +128,14 @@ class DiffusionWaveletSGWT(nn.Module):
     given) the scores take tau-scaled Gumbel noise, its uniforms from
     ``generator`` or given as ``gumbel_uniform``. The JAX module takes L and
     computes the projections itself; here the caller does, so that the bases
-    can be timed apart."""
+    can be timed apart.
+
+    The scores are scaled by the RMS of the coefficients over the batch and
+    the nodes; in training under data parallelism (``data_axis`` of more
+    than one rank, as the BatchNorms take it) over the global batch, as the
+    JAX step over a data mesh takes it."""
+
+    data_axis = None
 
     def __init__(self, J: int = 3, in_features: int = 3, hidden: int = 64,
                  dtype: torch.dtype = torch.float32):
@@ -159,7 +169,13 @@ class DiffusionWaveletSGWT(nn.Module):
         h = self.pos_embed(x.to(self.dtype).float())
         coeffs = torch.einsum("bjnm,bmf->bnfj", PJ.to(self.dtype).float(), h)
         eps = torch.finfo(coeffs.dtype).eps
-        rms = torch.sqrt(torch.mean(coeffs ** 2, dim=(0, 1), keepdim=True) + eps)
+        axis = batch_axis(self) if self.training else None
+        if axis is None:
+            rms = torch.sqrt(torch.mean(coeffs ** 2, dim=(0, 1), keepdim=True) + eps)
+        else:
+            total = psum(torch.sum(coeffs ** 2, dim=(0, 1), keepdim=True), axis)
+            rows = psum(coeffs.new_full((), coeffs.shape[0] * coeffs.shape[1]), axis)
+            rms = torch.sqrt(total / rows + eps)
         coeffs = coeffs / torch.clamp_min(rms, 1e-2)
         m = self.mixer(coeffs.reshape(B, N, self.hidden * (self.J + 1)))
         coeffs = coeffs + m.reshape(coeffs.shape)
@@ -169,7 +185,7 @@ class DiffusionWaveletSGWT(nn.Module):
             if u is None:
                 if generator is None:
                     raise ValueError("the Gumbel noise in training needs a torch.Generator")
-                u = torch.rand(coeffs.shape, generator=generator, device=coeffs.device)
+                u = draws.rand(coeffs.shape, generator, device=coeffs.device)
             coeffs = coeffs + tau * -torch.log(-torch.log(u + eps) + eps)
         return coeffs
 

@@ -16,7 +16,10 @@ written out:
 - :func:`all_gather`: each rank's tensor stacked along a new leading axis of
   the axis size. The forward writes this rank's row of a zero-filled buffer
   and all-reduces it (adding zeros is exact); the backward all-reduces the
-  cotangent buffer and takes this rank's row.
+  cotangent buffer and takes this rank's row;
+- :func:`shift`: ``lax.ppermute`` along the axis by a fixed offset, cyclic
+  (rank i's tensor goes to rank i + offset), by the same zero-filled buffer;
+  its backward is the reverse shift of the cotangent.
 
 Only ``all_reduce`` is used, so the same code runs on ``nccl`` and on
 ``gloo``, whose support for CUDA tensors covers all-reduce. On an axis of size
@@ -84,6 +87,24 @@ class _AllGather(torch.autograd.Function):
         return _all_reduce(g, ctx.axis)[ctx.axis.index], None
 
 
+def _shift(x: torch.Tensor, axis: MeshAxis, offset: int) -> torch.Tensor:
+    buf = x.new_zeros((axis.size,) + tuple(x.shape))
+    buf[(axis.index + offset) % axis.size] = x
+    dist.all_reduce(buf, group=axis.group)
+    return buf[axis.index]
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, offset):
+        ctx.axis, ctx.offset = axis, offset
+        return _shift(x, axis, offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.axis, -ctx.offset), None, None
+
+
 def psum_replicated(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     """Sum over ``axis`` into a replicated result; identity backward."""
     return x if axis.size == 1 else _PsumReplicated.apply(x, axis)
@@ -104,3 +125,11 @@ def enter(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
 def all_gather(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
     """(axis.size, *x.shape): every rank's ``x`` in rank order."""
     return x[None] if axis.size == 1 else _AllGather.apply(x, axis)
+
+
+def shift(x: torch.Tensor, axis: MeshAxis, offset: int = 1) -> torch.Tensor:
+    """The tensor of the rank ``offset`` places before this one along
+    ``axis`` (cyclic): rank i's ``x`` lands on rank (i + offset) mod size,
+    as ``lax.ppermute`` with the pairs (i, i + offset). Every rank's ``x``
+    has one shape and dtype. The gradient shifts back."""
+    return x if axis.size == 1 else _Shift.apply(x, axis, int(offset))

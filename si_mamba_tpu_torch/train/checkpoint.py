@@ -11,6 +11,14 @@ keys (this package's module names). ``optimizer`` is the torch optimizer's
 updates, their summed gradients ``accumulated``). Two more keys make a resumed
 run continue bitwise: the train state's ``step`` and the state of the
 generator the steps draw from (``rng``).
+
+Over several ranks rank 0 writes, and every rank reads (a barrier orders a
+read after the write). The replicas are bitwise equal (the runners check it
+every epoch), so rank 0's copy, and its generator's state, are every rank's.
+A tensor-parallel model's mixer tensors, with the optimizer's state and
+gradients of them, are gathered over the model axis first
+(``utils/weights.gather_state_dict``), so the file is the whole model in the
+reference's keys; each rank takes its shard back on resume.
 """
 
 from __future__ import annotations
@@ -22,8 +30,15 @@ from typing import Any, Callable
 import torch
 import torch.nn as nn
 
+from si_mamba_tpu_torch.parallel.collectives import all_gather
+from si_mamba_tpu_torch.parallel.mesh import barrier, rank_and_world
 from si_mamba_tpu_torch.train.logging_utils import print_log
-from si_mamba_tpu_torch.utils.weights import ORBAX_NOT_READ, _strip_prefixes
+from si_mamba_tpu_torch.utils.weights import (
+    ORBAX_NOT_READ,
+    _strip_prefixes,
+    gather_state_dict,
+    shard_state_dict,
+)
 
 
 def checkpoint_path(exp_dir: str, prefix: str) -> str:
@@ -53,6 +68,45 @@ def _optimizer_payload(optimizer) -> dict:
     if optimizer.micro:
         out["accumulated"] = {i: p.grad for i, p in enumerate(optimizer.params)
                               if p.grad is not None}
+    return out
+
+
+def _tp(model):
+    return model.tp_sharding() if hasattr(model, "tp_sharding") else None
+
+
+def _gather(named: dict, axis, cfg) -> dict:
+    """Name-keyed tensors of this rank (a state dict, or the optimizer's
+    per-parameter tensors by parameter name) -> the whole model's, the mixer
+    tensors gathered over ``axis``. Every rank of the axis must call it."""
+    parts = [dict(named) for _ in range(axis.size)]
+    for k, v in named.items():
+        if ".mixer." in k:
+            rows = all_gather(v.detach(), axis)
+            for r in range(axis.size):
+                parts[r][k] = rows[r]
+    return gather_state_dict(parts, cfg)
+
+
+def _per_param(optimizer, model, payload: dict, convert) -> dict:
+    """``payload`` with every per-parameter tensor (the optimizer's state,
+    the accumulated gradients) passed through ``convert``, a function of a
+    name-keyed dict."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    order = [names[id(p)] for p in optimizer.params]
+    out = dict(payload)
+    state = {i: dict(s) for i, s in payload["state"].items()}
+    kinds = sorted({k for s in state.values() for k, v in s.items()
+                    if isinstance(v, torch.Tensor) and v.ndim > 0})
+    for kind in kinds:
+        conv = convert({order[i]: s[kind] for i, s in state.items() if kind in s})
+        for i, s in state.items():
+            if kind in s:
+                s[kind] = conv[order[i]]
+    out["state"] = state
+    if "accumulated" in payload:
+        conv = convert({order[i]: g for i, g in payload["accumulated"].items()})
+        out["accumulated"] = {i: conv[order[i]] for i in payload["accumulated"]}
     return out
 
 
@@ -122,10 +176,19 @@ def save_checkpoint(exp_dir: str, prefix: str, state, epoch: int,
     optimizer) and ``generator``'s state. With ``async_save`` the file is
     written on a background thread from CPU copies taken now, while training
     goes on; a later save, :func:`load_checkpoint` and
-    :func:`wait_for_saves` wait for it."""
+    :func:`wait_for_saves` wait for it. Over several ranks every rank calls
+    it and rank 0 writes (a tensor-parallel model's shards gathered)."""
+    model, tp = state.model, _tp(state.model)
+    base, opt = model.state_dict(), _optimizer_payload(state.optimizer)
+    if tp is not None:
+        axis, cfg = tp[0], model.config
+        base = _gather(base, axis, cfg)
+        opt = _per_param(state.optimizer, model, opt, lambda d: _gather(d, axis, cfg))
+    if rank_and_world()[0] != 0:
+        return
     payload = _to_cpu({
-        "base_model": state.model.state_dict(),
-        "optimizer": _optimizer_payload(state.optimizer),
+        "base_model": base,
+        "optimizer": opt,
         "epoch": int(epoch),
         "metrics": dict(metrics or {}),
         "best_metrics": dict(best_metrics or {}),
@@ -155,12 +218,25 @@ def load_checkpoint(exp_dir: str, prefix: str) -> dict | None:
 def resume_state(exp_dir: str, state, generator: torch.Generator | None = None):
     """Restore ``ckpt-last`` into the train state (model, optimizer, step)
     and ``generator``. Returns (state, the epoch to start from,
-    best_metrics), or (state, 0, {}) without a checkpoint."""
+    best_metrics), or (state, 0, {}) without a checkpoint. Over several
+    ranks every rank reads, after a barrier; a tensor-parallel model takes
+    its shard."""
+    barrier()
     payload = load_checkpoint(exp_dir, "ckpt-last")
     if payload is None:
         return state, 0, {}
-    state.model.load_state_dict(payload["base_model"], strict=True)
-    _load_optimizer(state.optimizer, payload["optimizer"])
+    model, tp = state.model, _tp(state.model)
+    base, opt = payload["base_model"], payload["optimizer"]
+    if tp is not None:
+        axis, cfg = tp[0], model.config
+
+        def shard(d):
+            return shard_state_dict(d, cfg, axis.index, axis.size)
+
+        base = shard(base)
+        opt = _per_param(state.optimizer, model, opt, shard)
+    model.load_state_dict(base, strict=True)
+    _load_optimizer(state.optimizer, opt)
     state.step = int(payload["step"])
     if generator is not None and payload.get("rng") is not None:
         generator.set_state(payload["rng"])

@@ -10,7 +10,10 @@ tools/builder.py:55-109):
 - global-norm gradient clipping and gradient accumulation; under tensor
   parallelism the norm is that of the logical parameters, the squared norms
   of the shards summed over the model axis and replicated values counted
-  once (``clip_grad_norm_``).
+  once (``clip_grad_norm_``);
+- under data parallelism every gradient averaged over the ``data`` axis
+  before the clip (the gradient of the global batch's mean loss), so every
+  rank of the axis clips and updates alike.
 
 PyTorch's optimizers are plain tensor code here, as optax is in the JAX
 package. Schedules are functions of the update count (learning rate) or the
@@ -139,10 +142,12 @@ def global_grad_norm(params, sharded: Mapping | None = None, axis=None) -> torch
 def average_replicated_grads(params, sharded: Mapping, axis) -> None:
     """Average over the mesh axis ``axis``, in place, the gradients of the
     parameters that every rank holds whole (all but those in ``sharded``).
-    They agree across the ranks up to the order of the atomic adds in some
-    of PyTorch's CUDA backward kernels (index and gather backward); averaging
-    makes them bitwise equal, so the ranks' replicated copies take the same
-    update and cannot drift apart. One all-reduce of their concatenation."""
+    Over a model axis they agree across the ranks up to the order of the
+    atomic adds in some of PyTorch's CUDA backward kernels (index and gather
+    backward); averaging makes them bitwise equal, so the ranks' replicated
+    copies take the same update and cannot drift apart. Over the data axis
+    (``sharded`` empty) it is the data-parallel gradient average. One
+    all-reduce of their concatenation."""
     grads = [p.grad for p in params if p.grad is not None and id(p) not in sharded]
     if axis is None or axis.size == 1 or not grads:
         return
@@ -177,18 +182,20 @@ class Optimizer:
     (``optax.MultiSteps``), then clipped to a global norm of ``grad_clip``,
     and the update runs at ``schedule(count)``, ``count`` being the number of
     updates made so far. :meth:`step` follows each backward pass. Under
-    tensor parallelism ``sharded`` and ``axis`` (as :func:`global_grad_norm`)
-    make the clip's norm that of the logical parameters, and the replicated
-    parameters' gradients are first averaged over the axis
-    (:func:`average_replicated_grads`)."""
+    data parallelism every gradient is first averaged over ``data_axis``.
+    Under tensor parallelism ``sharded`` and ``axis`` (as
+    :func:`global_grad_norm`) make the clip's norm that of the logical
+    parameters, and the replicated parameters' gradients are then averaged
+    over the model axis (:func:`average_replicated_grads`)."""
 
     def __init__(self, torch_optimizer: torch.optim.Optimizer,
                  schedule: Callable[[int], float], grad_clip: float | None = None,
-                 step_per_update: int = 1, sharded: Mapping | None = None, axis=None):
+                 step_per_update: int = 1, sharded: Mapping | None = None, axis=None,
+                 data_axis=None):
         self.torch_optimizer = torch_optimizer
         self.schedule = schedule
         self.grad_clip = grad_clip
-        self.sharded, self.axis = sharded, axis
+        self.sharded, self.axis, self.data_axis = sharded, axis, data_axis
         self.step_per_update = int(step_per_update)
         self.count = 0  # updates made
         self.micro = 0  # backward passes since the last update
@@ -208,6 +215,8 @@ class Optimizer:
         if self.step_per_update > 1:
             for p in params:
                 p.grad.div_(self.step_per_update)
+        if self.data_axis is not None:
+            average_replicated_grads(params, {}, self.data_axis)
         if self.axis is not None:
             average_replicated_grads(params, self.sharded, self.axis)
         if self.grad_clip is not None and self.grad_clip > 0:
@@ -228,12 +237,14 @@ def build_optimizer(params, *, opt_type: str = "AdamW", lr: float = 3e-4,
                     warmup_epochs: int = 10, steps_per_epoch: int = 1,
                     grad_clip: float | None = 10.0, sched_type: str = "CosLR",
                     step_per_update: int = 1, sched_kwargs: dict | None = None,
-                    tp: tuple | None = None) -> tuple[Optimizer, Callable]:
+                    tp: tuple | None = None, data_axis=None) -> tuple[Optimizer, Callable]:
     """Returns (optimizer, schedule), the JAX ``build_optimizer``'s (tx,
     schedule). ``params``: a module, a name -> tensor mapping or (name, tensor)
     pairs; the names decide the weight-decay groups (:func:`wd_mask`).
     ``tp``: a tensor-parallel model's ``tp_sharding()``, (axis, {name:
-    segments}), for the clip's global norm over the logical parameters."""
+    segments}), for the clip's global norm over the logical parameters.
+    ``data_axis``: the mesh's ``data`` axis, over which the gradients are
+    averaged (data parallelism)."""
     if sched_type == "CosLR":
         schedule = cosine_warmup_epoch_schedule(lr, epochs, warmup_epochs, steps_per_epoch)
     elif sched_type == "LambdaLR":
@@ -267,4 +278,5 @@ def build_optimizer(params, *, opt_type: str = "AdamW", lr: float = 3e-4,
     if tp is not None:
         axis, segments = tp
         sharded = {id(p): segments[n] for n, p in named if n in segments}
-    return Optimizer(opt, schedule, grad_clip, step_per_update, sharded, axis), schedule
+    return (Optimizer(opt, schedule, grad_clip, step_per_update, sharded, axis, data_axis),
+            schedule)

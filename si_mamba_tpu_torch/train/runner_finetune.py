@@ -9,11 +9,19 @@ forward, loss, backward, update. It is two halves, ``make_input_pipeline``'s
 step runs it. ``finetune_run`` runs the epochs with validation, the vote
 protocol and checkpoints; ``test_run`` the plain or the voted test.
 
-A tensor-parallel model (``PointMamba`` with a mesh and ``tp_axis``) runs
-the same step on every rank of its model axis: the same points and labels,
-and a generator of the same seed for the FPS resampling, the augmentation,
-DropPath and the head's dropout, or the replicated activations would part
-silently. The step checks that the ranks' generators agree before it draws.
+Over several ranks (``make_run_mesh``) the step is the JAX package's step
+over its ``('data',)`` or ``('data', tp_axis)`` mesh, which is the
+one-process step over the global batch: each rank of the ``data`` axis holds
+its rows of the batch, the BatchNorms take the global statistics, the
+optimizer averages the gradients over the axis, and every draw (the FPS
+resampling's keys, the augmentation, DropPath, the head's dropout) is made
+for the global batch from the one generator all ranks hold, each rank keeping
+its rows (``parallel/draws.py``). A tensor-parallel model (``PointMamba``
+with ``tp_axis``) runs the same step on every rank of its model axis: the
+same points and labels and the same draws, or the replicated activations
+would part silently. The step checks that the ranks' generators agree
+before it draws, and every epoch ends with a check that the replicas'
+parameters and BatchNorm statistics are bitwise equal.
 """
 
 from __future__ import annotations
@@ -21,13 +29,27 @@ from __future__ import annotations
 import time
 from collections.abc import Callable
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from si_mamba_tpu_torch.data import transforms
 from si_mamba_tpu_torch.models.embed import set_bn_momentum
 from si_mamba_tpu_torch.models.point_mamba import PointMamba
 from si_mamba_tpu_torch.ops.pointops import fps, gather_points
 from si_mamba_tpu_torch.parallel.collectives import all_gather
+from si_mamba_tpu_torch.parallel.draws import shard_rows
+from si_mamba_tpu_torch.parallel.mesh import (
+    barrier,
+    check_replicas_equal,
+    data_axis,
+    data_mesh,
+    global_host_sum,
+    make_mesh,
+    module_data_axis,
+    rank_and_world,
+    set_data_axis,
+)
 from si_mamba_tpu_torch.serving import _fps_to_npoints
 from si_mamba_tpu_torch.train import checkpoint as ckpt
 from si_mamba_tpu_torch.train.logging_utils import (
@@ -45,6 +67,7 @@ from si_mamba_tpu_torch.train.train_state import (
     make_classifier_eval_step,
 )
 from si_mamba_tpu_torch.utils.device import resolve_device
+from si_mamba_tpu_torch.utils.weights import _strip_prefixes, shard_state_dict
 
 
 def _point_all(npoints: int) -> int:
@@ -88,24 +111,44 @@ def check_same_generator(generator: torch.Generator, axis, device) -> None:
                            f"states: a tensor-parallel step needs one seed on every rank")
 
 
-def make_train_step(model: PointMamba, npoints: int, rotation: bool) -> Callable:
+def axis_mean(metrics: dict, axis) -> dict:
+    """Each scalar metric averaged over the mesh axis ``axis`` (the logged
+    loss and accuracy of the global batch, every rank's rows the same
+    count); the metrics themselves without an axis. One all-reduce."""
+    if axis is None or axis.size == 1:
+        return metrics
+    flat = torch.stack([v.float() for v in metrics.values()])
+    dist.all_reduce(flat, group=axis.group)
+    flat.div_(axis.size)
+    return dict(zip(metrics, flat.unbind()))
+
+
+def make_train_step(model: PointMamba, npoints: int, rotation: bool,
+                    data_axis=None) -> Callable:
     """Returns step(state, points, labels, generator, bn_momentum=0.9) ->
     (state, {"loss", "acc"}). ``points`` (B, N, 3) on the model's device;
     ``generator`` on that device drives the resample, the augmentation and
     the drops. ``bn_momentum`` is the flax-convention BatchNorm momentum of
     this epoch (``optim.bn_momentum_schedule``; 0.9 without a scheduler).
-    For a tensor-parallel model every step first checks that the ranks of
-    its model axis hold the generator in the same state."""
+    ``data_axis``: the mesh's ``data`` axis under data parallelism, ``points``
+    then this rank's rows of the global batch; the draws are the global
+    batch's and the metrics its means. Every step first checks that the ranks
+    of the data axis and of a tensor-parallel model's axis hold the generator
+    in the same state."""
     prepare = make_input_pipeline(npoints, rotation)
     tp = model.tp_sharding()
+    dp = data_axis if data_axis is not None and data_axis.size > 1 else None
 
     def step(state: TrainState, points, labels, generator, bn_momentum: float = 0.9):
         if state.model is not model:
             raise ValueError("the train state holds another model than this step's")
-        if tp is not None:
-            check_same_generator(generator, tp[0], points.device)
-        return finetune_update(state, prepare(points, generator), labels, generator,
-                               bn_momentum)
+        for axis in (dp, None if tp is None else tp[0]):
+            if axis is not None:
+                check_same_generator(generator, axis, points.device)
+        rows = shard_rows(generator, dp)
+        state, metrics = finetune_update(state, prepare(points, rows), labels, rows,
+                                         bn_momentum)
+        return state, axis_mean(metrics, dp)
 
     return step
 
@@ -156,27 +199,33 @@ def make_vote_step(model: PointMamba, npoints: int, rotation: bool,
     return step
 
 
-def _accuracy(loader, device, logits_of) -> float:
+def _accuracy(loader, device, logits_of, axis=None) -> float:
     """Percent of the loader's labels (epoch 0: its unshuffled order) that the
-    argmax of ``logits_of(points on device)`` hits, counted on the host. The
-    sum over processes is the identity until data parallelism (ROADMAP M18b)."""
+    argmax of ``logits_of(points on device)`` hits, counted on the host, the
+    counts summed over the mesh axis ``axis`` (every process's shard of the
+    index space, padded as DistributedSampler pads it, ``data/loader.py``)."""
     correct = total = 0
     for pts, labels in loader.epoch(0):
         logits = logits_of(torch.from_numpy(pts).to(device))
         correct += int((logits.argmax(-1).cpu().numpy() == labels).sum())
         total += len(labels)
-    return 100.0 * correct / max(total, 1)
+    counts = global_host_sum(np.asarray([correct, total], np.int64), axis)
+    return 100.0 * int(counts[0]) / max(int(counts[1]), 1)
 
 
 def validate(eval_step, state, loader, epoch: int = 0) -> float:
-    """Accuracy in percent of ``eval_step``'s logits over the loader."""
-    return _accuracy(loader, _model_device(state.model), lambda pts: eval_step(state, pts))
+    """Accuracy in percent of ``eval_step``'s logits over the loader; under
+    data parallelism over the ranks of the model's data axis
+    (``parallel.set_data_axis``), each evaluating its loader shard."""
+    return _accuracy(loader, _model_device(state.model), lambda pts: eval_step(state, pts),
+                     module_data_axis(state.model))
 
 
 def validate_vote(vote_step, state, loader, seed: int = 0) -> float:
-    """Vote accuracy in percent (``make_vote_step``'s summed logits). As in
-    the JAX package, whose every batch takes the key of ``seed``, every batch
-    draws from a generator on the model's device seeded anew with ``seed``."""
+    """Vote accuracy in percent (``make_vote_step``'s summed logits), over
+    the ranks of the model's data axis as :func:`validate`. As in the JAX
+    package, whose every batch takes the key of ``seed``, every batch draws
+    from a generator on the model's device seeded anew with ``seed``."""
     device = _model_device(state.model)
     generator = torch.Generator(device)
 
@@ -184,28 +233,59 @@ def validate_vote(vote_step, state, loader, seed: int = 0) -> float:
         generator.manual_seed(seed)
         return vote_step(state, pts, generator)
 
-    return _accuracy(loader, device, logits_of)
+    return _accuracy(loader, device, logits_of, module_data_axis(state.model))
 
 
-def check_tensor_parallel(config) -> None:
-    """Raise for a config that asks for tensor parallelism: one-sided (only
-    ``model.tp_axis`` or only ``tp_size`` > 1) as the JAX package does, and
-    two-sided because its ranks cannot be launched yet."""
+def check_tensor_parallel(config) -> tuple[str | None, int]:
+    """(tp_axis, tp_size) of the config; raises for a one-sided request
+    (only ``model.tp_axis`` or only ``tp_size`` > 1), as the JAX package
+    does."""
     tp_axis = config.model.get("tp_axis", None)
     tp_size = int(config.get("tp_size", 1) or 1)
     if (tp_axis is not None) != (tp_size > 1):
         raise ValueError(
             f"tensor parallelism needs BOTH model.tp_axis and top-level "
             f"tp_size > 1 (got tp_axis={tp_axis!r}, tp_size={tp_size})")
-    if tp_size > 1:
-        raise NotImplementedError(
-            "tensor-parallel finetuning needs its ranks launched together, which comes "
-            "with data parallelism (ROADMAP.md queue 1, M18b)")
+    return tp_axis, tp_size
+
+
+def make_run_mesh(config):
+    """The mesh of a run over the ranks of the default group: ``('data',)``
+    over all of them, or with ``model.tp_axis`` and ``tp_size`` > 1
+    ``('data', tp_axis)`` of shape (world // tp_size, tp_size), as the JAX
+    runner lays out its devices; None for a single process. Every rank must
+    call it (its groups are created collectively). Raises for a one-sided
+    tensor parallelism and for a ``tp_size`` that does not divide the world
+    size."""
+    tp_axis, tp_size = check_tensor_parallel(config)
+    _, world_size = rank_and_world()
+    if world_size % tp_size:
+        raise ValueError(f"tp_size={tp_size} must divide the world size {world_size} "
+                         f"(launch tp_size ranks or a multiple of it)")
+    if tp_size > 1 and world_size > 1:
+        return make_mesh(("data", tp_axis), (world_size // tp_size, tp_size))
+    return data_mesh()
+
+
+def check_replicas(model: torch.nn.Module, mesh) -> None:
+    """Raise, naming the tensor, unless the copies of every parameter and
+    BatchNorm buffer that ranks hold alike are bitwise equal: all of them
+    over the ``data`` axis, and over a tensor-parallel model axis those not
+    sharded over it. Nothing without a mesh."""
+    if mesh is None:
+        return
+    named = dict(model.named_parameters()) | dict(model.named_buffers())
+    check_replicas_equal(named, data_axis(mesh))
+    tp = model.tp_sharding() if hasattr(model, "tp_sharding") else None
+    if tp is not None:
+        axis, segments = tp
+        check_replicas_equal({k: v for k, v in named.items() if k not in segments}, axis)
 
 
 def finetune_run(config, train_loader, val_loader, exp_dir: str,
                  pretrained: dict | None = None, resume: bool = False, vote: bool = False,
-                 logger=None, seed: int = 0, device="cuda", model: PointMamba | None = None):
+                 logger=None, seed: int = 0, device="cuda", model: PointMamba | None = None,
+                 mesh=None):
     """The finetune loop: epochs ``start_epoch..max_epoch`` (inclusive) of
     train steps, each epoch's validation, the vote protocol above the
     reference's thresholds (:278-288), and the best, best-vote and last
@@ -214,14 +294,29 @@ def finetune_run(config, train_loader, val_loader, exp_dir: str,
     generator seeded with ``seed``. The steps draw from a second generator of
     that seed, whose state the checkpoints keep. ``pretrained``: a state dict
     to start from (``checkpoint.transfer_pretrained``). Returns (state, best
-    AccMetric)."""
+    AccMetric).
+
+    Over several ranks ``mesh`` (``make_run_mesh(config)`` unless given; the
+    model's own for a tensor-parallel model) and the loaders must be every
+    rank's: each loader this rank's shard (``Loader(process_index=data
+    index, process_count=data size)``). The validations sum their counts
+    over the ranks, rank 0 writes the checkpoints, and every epoch ends with
+    :func:`check_replicas`."""
     device = resolve_device(device)
-    check_tensor_parallel(config)
+    if mesh is None:
+        mesh = make_run_mesh(config)
+    dp = data_axis(mesh)
     npoints = int(config.npoints)
     rotation = bool(config.model.get("rotation", False))
     if model is None:
-        model, _ = build_model_from_cfg(config.model, device, seed)
+        model, _ = build_model_from_cfg(config.model, device, seed, mesh=mesh)
+    if mesh is not None:
+        set_data_axis(model, dp)
     if pretrained is not None:
+        tp = model.tp_sharding()
+        if tp is not None:  # this rank's shard of the whole state dict
+            pretrained = shard_state_dict(_strip_prefixes(pretrained), model.config,
+                                          tp[0].index, tp[0].size)
         ckpt.transfer_pretrained(model, pretrained, logger)
 
     steps_per_epoch = max(len(train_loader), 1)
@@ -237,7 +332,7 @@ def finetune_run(config, train_loader, val_loader, exp_dir: str,
         grad_clip=float(config.get("grad_norm_clip", 0) or 0) or None,
         sched_type=config.scheduler.type,
         step_per_update=int(config.get("step_per_update", 1) or 1),
-        sched_kwargs=dict(config.scheduler.kwargs))
+        sched_kwargs=dict(config.scheduler.kwargs), tp=model.tp_sharding(), data_axis=dp)
     state = TrainState.create(model, optimizer)
 
     # the reference's optional BatchNorm-momentum scheduler (config key
@@ -264,7 +359,7 @@ def finetune_run(config, train_loader, val_loader, exp_dir: str,
     best_metrics = AccMetric(best.get("acc", 0.0))
     best_vote = AccMetric(0.0)
 
-    train_step = make_train_step(model, npoints, rotation)
+    train_step = make_train_step(model, npoints, rotation, dp)
     eval_step = make_eval_step(model, npoints)
     vote_step = make_vote_step(model, npoints, rotation)
     async_ckpt = bool(config.get("async_ckpt", False))
@@ -282,6 +377,7 @@ def finetune_run(config, train_loader, val_loader, exp_dir: str,
                                       torch.from_numpy(labels).to(device), generator, bn_m)
                 lag.push(m)
             lag.flush()
+            check_replicas(model, mesh)
             lr_now = float(sched(int(state.step)))
             print_log(f"[Training] EPOCH: {epoch} EpochTime = {time.time() - t0:.3f} (s) "
                       f"Losses = {['%.4f' % v for v in meters.avg()]} lr = {lr_now:.6f} "
@@ -313,6 +409,7 @@ def finetune_run(config, train_loader, val_loader, exp_dir: str,
             ckpt.wait_for_saves()
         finally:
             writer.close()
+    barrier()  # rank 0's checkpoints are on disk before any rank returns
     return state, best_metrics
 
 
@@ -326,7 +423,8 @@ def tsne_run(config, test_loader, state, out_path: str, logger=None):
 def test_run(config, test_loader, state: TrainState, vote: bool = False, logger=None) -> float:
     """The test (reference test_net, :409-467): the plain eval accuracy, or
     with ``vote`` the best of 300 rounds of ``validate_vote`` (seeds
-    0..299)."""
+    0..299); over several ranks each takes its loader shard and the model's
+    data axis sums the counts."""
     npoints = int(config.npoints)
     acc = validate(make_eval_step(state.model, npoints), state, test_loader)
     print_log(f"[TEST] acc = {acc:.4f}", logger)

@@ -313,3 +313,25 @@ def gather_state_dict(parts: Sequence[Mapping[str, torch.Tensor]],
         for k, v in gather_mixer_state(shards, cfg.mixer).items():
             out[prefix + k] = v
     return out
+
+
+def stage_state_dict(full: Mapping[str, torch.Tensor], stage: int, n_stages: int,
+                     depth: int, prefix: str = "blocks.") -> Dict[str, torch.Tensor]:
+    """One pipeline stage's part of a whole reference-keyed state dict: the
+    blocks [stage depth/n_stages, (stage + 1) depth/n_stages) of the mixer
+    stack under ``prefix``, renumbered from 0, and its final norm, as the
+    state dict of a ``MixerModel`` of depth/n_stages blocks
+    (``parallel/pipeline.stack_mixer_params`` of it with one stage is that
+    stage). Raises unless ``n_stages`` divides ``depth``."""
+    if depth % n_stages:
+        raise ValueError(f"pipeline stages must divide the stack depth evenly: "
+                         f"n_layer={depth}, n_stages={n_stages}")
+    per = depth // n_stages
+    out = {}
+    for j in range(per):
+        head = f"{prefix}layers.{stage * per + j}."
+        out.update({f"layers.{j}.{k[len(head):]}": v for k, v in full.items()
+                    if k.startswith(head)})
+    out.update({k[len(prefix):]: v for k, v in full.items()
+                if k.startswith(prefix + "norm_f.")})
+    return out

@@ -299,12 +299,15 @@ def test_finetune_run_matches_jax(jax_finetune, tmp_path, monkeypatch, jax_varia
 
 
 def test_finetune_run_refuses_tensor_parallel_configs(tmp_path):
+    """A one-sided tensor parallelism raises as JAX's does; a two-sided one
+    over a world of one process raises naming the world size (its ranks are
+    launched with torchrun; tests/test_torch_port_dp.py runs them)."""
     loader = Loader(Clouds(4), 4)
     port_cfg, _ = _configs(tp_size=2)
     with pytest.raises(ValueError, match="BOTH"):
         prf.finetune_run(port_cfg, loader, loader, str(tmp_path), device="cpu")
     port_cfg.model.tp_axis = "model"
-    with pytest.raises(NotImplementedError, match="M18b"):
+    with pytest.raises(ValueError, match="world size 1"):
         prf.finetune_run(port_cfg, loader, loader, str(tmp_path), device="cpu")
 
 
@@ -584,7 +587,7 @@ def test_cli_refuses_cuda_without_a_gpu(modelnet_tree, tmp_path, monkeypatch):
 @pytest.mark.parametrize("case,match", [
     ("legacy_mae", "M16b"), ("tsne", "M21"), ("orbax_ckpts", "export_torch"),
     ("orbax_finetune", "export_torch"), ("orbax_predictor", "export_torch"),
-    ("tensor_parallel", "M18b")])
+    ("add_after_layer", "M14")])
 def test_unported_paths_raise_with_their_roadmap_item(modelnet_tree, tmp_path, monkeypatch,
                                                      case, match):
     monkeypatch.chdir(tmp_path)
@@ -603,10 +606,10 @@ def test_unported_paths_raise_with_their_roadmap_item(modelnet_tree, tmp_path, m
             cli.main(["--config", cfg, "--tsne"] + base)
         elif case == "orbax_ckpts":
             cli.main(["--config", cfg, "--test", "--ckpts", str(orbax_dir)] + base)
-        elif case == "tensor_parallel":
-            tp = tmp_path / "tp.yaml"
-            tp.write_text(f"_base_: {cfg}\nmodel: {{tp_axis: model}}\ntp_size: 2\n")
-            cli.main(["--config", str(tp)] + base)
+        elif case == "add_after_layer":  # MixerModelAdd
+            add = tmp_path / "add.yaml"
+            add.write_text(f"_base_: {cfg}\nmodel: {{add_after_layer: true}}\n")
+            cli.main(["--config", str(add)] + base)
         elif case == "orbax_finetune":
             cli.main(["--config", cfg, "--finetune_model", str(orbax_dir)] + base)
         else:

@@ -207,11 +207,8 @@ def _tp_rank(rank, world, data_path):
                         stats={k: v.clone() for k, v in model.named_buffers() if "running" in k})
 
     # the helpers around the mesh
-    try:
-        make_mesh(("data", "model"), (world, 1))
-        out["data_axis_raises"] = False
-    except NotImplementedError as e:
-        out["data_axis_raises"] = "M18b" in str(e)
+    dm = make_mesh(("data", "model"), (world, 1))
+    out["data_axis"] = (dm.shape, dm["data"].index, dm["data"].size, dm["model"].size)
     shard, whole = torch.zeros(2, requires_grad=True), torch.zeros(3, requires_grad=True)
     shard.grad, whole.grad = torch.full((2,), rank + 1.0), torch.full((3,), rank + 1.0)
     average_replicated_grads([shard, whole], {id(shard): None}, mesh["model"])
@@ -533,13 +530,13 @@ def test_tp_point_mamba_train_step_matches_jax(tp_ranks, jax_model):
 
 
 def test_mesh_helpers_on_two_ranks(tp_ranks):
-    """A data axis larger than 1 raises (M18b); the host sum and the ragged
-    host concat; the train step's generator check passes for one seed and
-    raises for two; the replicated parameters' gradients are averaged over
-    the ranks, the sharded ones left alone."""
+    """A data axis larger than 1 builds (each rank its index on it); the host
+    sum and the ragged host concat; the train step's generator check passes
+    for one seed and raises for two; the replicated parameters' gradients
+    are averaged over the ranks, the sharded ones left alone."""
     _, ranks = tp_ranks
     for rank, r in enumerate(ranks):
-        assert r["data_axis_raises"]
+        assert r["data_axis"] == ((len(ranks), 1), rank, len(ranks), 1)
         shard, whole = r["averaged"]
         assert torch.equal(shard, torch.full((2,), rank + 1.0))
         assert torch.equal(whole, torch.full((3,), 1.5))
