@@ -325,6 +325,32 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    largest of the one-process stack's. The ranks' step p50, peak memory, the gradient
    all-reduce and the ranks' walls are printed with the card; gloo ranks sharing one card
    say little of speed.
+41. the kernels at the legacy MAE shapes (after phase 30): the fp32 and bf16 K1-K5 at B=128,
+   L=26 (the legacy encoder's visible tokens: a partial last tile for every kernel) and
+   L=64 (its decoder, the probe's noaug encoder), each held against its plain version at
+   the tolerances above and timed beside it, into each record's ``at_legacy_mae_shapes``;
+42. (after phase 34) the ModelNet40 classifier with ``rms_norm`` and with
+   ``add_after_layer`` (the stack that re-sorts its tokens after every block) through
+   phases 5 and 7: every forward launches K1 and K2 12 times each, its logits and features
+   against 'seq'; every step K1, K3, K4 and K5 12 times each; the ``add_after_layer``
+   model's B=4 gradients against 'seq' too;
+43. the SSD classifier with ``rms_norm``: one held train-mode forward and backward at B=4
+   against 'xla' (phase 8's tolerances), K1, K8 with states, K9 and K5 12 times each;
+44. the permutation policy (``models/permute_policy.py``; 384 wide, G=64, k=4, its 3 blocks
+   over the 512-token SAST sequence of 32 clouds, tau 1): one forward and the backward of
+   the summed policy, K1, K3, K4 and K5 3 times each and nothing else, a permutation of the
+   512 slots; logits (1e-3 of max, 2e-3 relative), the policy (rtol 1e-5) and every gradient
+   (within GRAD_TOL of the largest) against 'seq';
+45. the legacy 'MAMBA' MAE at cfgs/pretrain.yaml's width: the held eval loss (rtol 2e-3)
+   and noaug features (1e-3 of max) against 'seq' on 16 clouds, K1 and K2 16 and 12 times;
+   then cfgs/pretrain.yaml with ``method: MAMBA`` through the CLI as phase 33 (four steps at
+   batch 128, K1, K3, K4, K5 16 times a step; the probe's feature forwards K1 and K2 12
+   times), the step timed by piece (grouping, forward, update);
+46. cfgs/fewshot.yaml through the CLI with --way 5 --shot 10 --fold 0 at max_epoch 0 on a
+   seeded ModelNetFewshot pickle of 1024-point clouds written under build/fewshot/ (50
+   train, 100 test): one step (K1, K3, K4, K5 12 times), the validation forwards (K1, K2 12
+   times each), the head 5 wide, then ``--test`` of its ckpt-last.pth equal to the
+   validation.
 
 Each path (serving, train, perf serving, perf train, SSD serving, SSD train,
 SSD perf serving, SSD perf train, fused serving, fused train, fused perf
@@ -333,7 +359,10 @@ finetune, test and vote runs, the perf, SSD and fused perf configurations'
 CLI runs and the latter two's test runs, the HLT classifier's request, the
 two held seg forwards and the two seg CLI runs, the held MAE loss and feature
 forwards, the MAE stack's train pass, the two pretraining CLI runs, the hardest scan's CLI
-run and held forward, and on each rank TP SSD serving,
+run and held forward, the rms_norm and add_after_layer classifiers' serving and train, the
+SSD rms_norm classifier's held step, the policy's forward and gradient, the held legacy MAE
+loss and feature forwards and its CLI run, the few-shot CLI run and its test run, and on
+each rank TP SSD serving,
 TP SSD train, SP, SP train, TP Mamba-1 serving, bf16 TP SSD serving and
 train, bf16 SP and SP train, bf16 TP Mamba-1 serving and train, and rank 0's DP step, DP
 forward, DP CLI run and vote, DP seg and pretraining CLI runs, pipelined forward and
@@ -342,7 +371,7 @@ read just after. The last five
 lines of standard output are the harness's record, the serving, profile,
 train and gradient record of the three models (and perf mode's, the SSD
 presets' and fused perf mode's serving, profile, train and CLI records, part
-segmentation's and MAE pretraining's), the kernels' record (each one
+segmentation's, MAE pretraining's and phases 42-46's), the kernels' record (each one
 JSON object; every kernel names its ``main_path`` and its launches on every
 path, rank 0's for the parallel paths), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -745,7 +774,8 @@ def backward_kernel_phase(device, args=None) -> list[dict]:
     """The scan's training kernels at the serving path's shapes (or on
     ``args``, ``scan_operands`` at another shape), with a seeded output
     gradient: K3 (scan forward with residuals) and K4 (scan backward), each
-    against its plain version, then timed."""
+    against its plain version, then timed as wrapper calls and as CUDA-graph
+    device time."""
     from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
 
     # K3: the scan forward that keeps its tile entry states, on the conv's output
@@ -774,8 +804,9 @@ def backward_kernel_phase(device, args=None) -> list[dict]:
         name="selective_scan_fwd_residuals", route="cuda",
         source="si_mamba_tpu_torch/csrc/selective_scan_fwd.cu",
         replaces="si_mamba_tpu/ops/pallas/selective_scan_kernel.py:407",
-        max_abs_err=max(err3, err_h),
+        shape=[B, L, D], max_abs_err=max(err3, err_h),
         ms=time_ms(lambda: ks.selective_scan_fwd_residuals(*args), 20),
+        device_ms=graph_ms(lambda: ks.selective_scan_fwd_residuals(*args), 20),
         plain_ms=time_ms(lambda: ks.selective_scan_fwd_residuals_ref(*args), 2, warmup=1),
         library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
     log(f"training scan forward ok: y == lean y; vs plain y {err3:.3e}, h_entries "
@@ -808,8 +839,9 @@ def backward_kernel_phase(device, args=None) -> list[dict]:
         name="selective_scan_bwd", route="cuda",
         source="si_mamba_tpu_torch/csrc/selective_scan_bwd.cu",
         replaces="si_mamba_tpu/ops/pallas/selective_scan_kernel.py:211",
-        max_abs_err=err4,
+        shape=[B, L, D], max_abs_err=err4,
         ms=time_ms(lambda: ks.selective_scan_bwd(*bwd_args), 20),
+        device_ms=graph_ms(lambda: ks.selective_scan_bwd(*bwd_args), 20),
         plain_ms=time_ms(lambda: ks.selective_scan_bwd_ref(*bwd_args), 1, warmup=1),
         library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
     log(f"scan backward ok: max |diff| {err4:.3e}, two runs bitwise equal")
@@ -824,19 +856,19 @@ def _bf16_ulps(got: torch.Tensor, want: torch.Tensor, floor: float) -> float:
     return ((got - want).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max().item()
 
 
-def perf_operands(device, batch: int = 32):
+def perf_operands(device, batch: int = 32, length: int = 512):
     """Perf mode's kernel operands as layer 0's bf16 mixer makes them at
-    B=batch, L=512: xz = x @ in_proj (bf16, row stride 1536), the conv's x and
+    B=batch, L=length: xz = x @ in_proj (bf16, row stride 1536), the conv's x and
     the scan's z its column views, u the bf16 conv kernel's output, B and C
     column views of x_dbl = u @ x_proj, dt = x_dbl[..., :24] @ dt_proj, all
     bf16; the conv weight and bias, A, D and dt_bias fp32. Returns (xz, conv
     weight, conv bias, scan args)."""
     from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_silu_fwd
 
-    mixer, p, xz = mixer_inputs(device, batch)
+    mixer, p, xz = mixer_inputs(device, batch, length)
     bf = torch.bfloat16
     x = torch.from_numpy(np.random.default_rng(2).standard_normal(
-        (batch, 512, MODELNET40["trans_dim"]), dtype=np.float32)).to(device, bf)
+        (batch, length, MODELNET40["trans_dim"]), dtype=np.float32)).to(device, bf)
     xz = x @ p["in_proj_w"].to(bf)
     d_inner, n, dt_rank = mixer.d_inner, mixer.d_state, mixer.dt_rank
     u = causal_conv1d_silu_fwd(xz[..., :d_inner], p["conv_w"], p["conv_b"])
@@ -863,20 +895,9 @@ def bf16_kernel_phase(device) -> list[dict]:
 
     xz, w, b, args = perf_operands(device)
     x = xz[..., :w.shape[0]]
-    B, L, D = x.shape
-    n = args[2].shape[1]
     g = torch.from_numpy(np.random.default_rng(3).standard_normal(
-        (B, L, D), dtype=np.float32)).to(device, torch.bfloat16)
+        x.shape, dtype=np.float32)).to(device, torch.bfloat16)
     records = []
-
-    def check(name, got, want, ulps=1, floor=1e-2, rel=1e-4):
-        if got.dtype == torch.bfloat16:
-            err = _bf16_ulps(got, want, floor)
-            if err > ulps:
-                raise AssertionError(f"{name}: {err:.2f} bf16 ulps from the plain version")
-        elif _rel_err(got, want)[1] > rel:
-            raise AssertionError(f"{name}: {_rel_err(got, want)} from the plain version")
-        return (got.float() - want.float()).abs().max().item()
 
     # K1 and K5, bf16 (K5 run twice, bitwise equal)
     fwd, bwd = bf16_conv_figures(x, w, b, g)
@@ -888,22 +909,10 @@ def bf16_kernel_phase(device) -> list[dict]:
     records.append(dict(name="causal_conv1d_silu_bwd_bf16", route="cuda", source=source,
                         replaces=replaces + "58", dtype="bfloat16", **bwd))
 
-    # K2, bf16, at the train batch and each serving request size
-    def scan_fwd_bf16(a) -> dict:
-        Bq = a[0].shape[0]
-        yq = ks.selective_scan_fwd_bf16(*a)
-        err = check(f"bf16 scan forward at B={Bq}", yq,
-                    ks.selective_scan_ref(*a[:5], D=a[5], z=a[6], delta_bias=a[7]))
-        scan_bytes = (4 * Bq * L * D + 2 * Bq * L * n) * 2 + (D * n + 2 * D) * 4
-        bms, bby = bound(scan_bytes, Bq * L * D * (10 + 7 * n))
-        return dict(shape=[Bq, L, D], max_abs_err=err,
-                    ms=time_ms(lambda: ks.selective_scan_fwd_bf16(*a), 20),
-                    device_ms=graph_ms(lambda: ks.selective_scan_fwd_bf16(*a), 20),
-                    segments=ks._fwd_library().selective_scan_fwd_segments(Bq, L, D),
-                    bound_ms=bms, bound_by=bby)
-
-    fig = scan_fwd_bf16(args)
-    sizes = {str(bq): scan_fwd_bf16(perf_operands(device, bq)[3]) for bq in REQUEST_SIZES}
+    # K2, bf16, at the train batch and each serving request size; K3 and K4
+    fig = bf16_scan_fwd_figures(args)
+    sizes = {str(bq): bf16_scan_fwd_figures(perf_operands(device, bq)[3])
+             for bq in REQUEST_SIZES}
     records.append(dict(
         name="selective_scan_fwd_bf16", route="cuda",
         source="si_mamba_tpu_torch/csrc/selective_scan_fwd.cu",
@@ -911,30 +920,83 @@ def bf16_kernel_phase(device) -> list[dict]:
         plain_ms=time_ms(lambda: ks.selective_scan_ref(*args[:5], D=args[5], z=args[6],
                                                        delta_bias=args[7]), 2, warmup=1),
         library_ms=None, at_request_sizes=sizes))
+    k3, k4 = bf16_scan_train_figures(args, g)
+    records.append(dict(
+        name="selective_scan_fwd_residuals_bf16", route="cuda",
+        source="si_mamba_tpu_torch/csrc/selective_scan_fwd.cu",
+        replaces="si_mamba_tpu/ops/pallas/selective_scan_kernel.py:407", dtype="bfloat16",
+        library_ms=None, **k3))
+    records.append(dict(
+        name="selective_scan_bwd_bf16", route="cuda",
+        source="si_mamba_tpu_torch/csrc/selective_scan_bwd.cu",
+        replaces="si_mamba_tpu/ops/pallas/selective_scan_kernel.py:211", dtype="bfloat16",
+        library_ms=None, **k4))
+    log("bf16 scan: " + "; ".join(
+        f"B={f['shape'][0]}: {f['ms']:.6f} ms, device {f['device_ms']:.6f} ms "
+        f"({f['segments']} segments), max |diff| {f['max_abs_err']:.3e}"
+        for f in (fig, *sizes.values())) +
+        f"; with states max |diff| {k3['max_abs_err']:.3e}; backward {k4['max_abs_err']:.3e}, "
+        f"two runs bitwise equal")
+    return records
 
-    # K3, bf16: y equal to K2's, the fp32 entry states against the plain ones
+
+def _check_bf16(name, got, want, ulps=1, floor=1e-2, rel=1e-4) -> float:
+    """Perf mode's kernel tolerances against the plain version: a bf16
+    output within ``ulps`` bf16 ulps (each at least ``floor`` of the max), an
+    fp32 output within ``rel`` of its max. Returns max |diff|."""
+    if got.dtype == torch.bfloat16:
+        err = _bf16_ulps(got, want, floor)
+        if err > ulps:
+            raise AssertionError(f"{name}: {err:.2f} bf16 ulps from the plain version")
+    elif _rel_err(got, want)[1] > rel:
+        raise AssertionError(f"{name}: {_rel_err(got, want)} from the plain version")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def bf16_scan_fwd_figures(a) -> dict:
+    """The bf16 K2 on ``a`` (``perf_operands``' scan args) against its plain
+    version, timed as wrapper calls and as CUDA-graph device time."""
+    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
+
+    Bq, L, D = a[0].shape
+    n = a[2].shape[1]
+    yq = ks.selective_scan_fwd_bf16(*a)
+    err = _check_bf16(f"bf16 scan forward at B={Bq}, L={L}", yq,
+                      ks.selective_scan_ref(*a[:5], D=a[5], z=a[6], delta_bias=a[7]))
+    scan_bytes = (4 * Bq * L * D + 2 * Bq * L * n) * 2 + (D * n + 2 * D) * 4
+    bms, bby = bound(scan_bytes, Bq * L * D * (10 + 7 * n))
+    return dict(shape=[Bq, L, D], max_abs_err=err,
+                ms=time_ms(lambda: ks.selective_scan_fwd_bf16(*a), 20),
+                device_ms=graph_ms(lambda: ks.selective_scan_fwd_bf16(*a), 20),
+                segments=ks._fwd_library().selective_scan_fwd_segments(Bq, L, D),
+                bound_ms=bms, bound_by=bby)
+
+
+def bf16_scan_train_figures(args, g) -> tuple[dict, dict]:
+    """The bf16 K3 (its y equal to K2's, the fp32 entry states against the
+    plain ones) and K4 (two runs bitwise equal; a bf16 output within two
+    ulps at a floor of 2e-2, fp32 sums within 1e-3 of their max) on the scan
+    args and output gradient ``g``, each timed beside its plain version."""
+    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
+
+    B, L, D = args[0].shape
+    n = args[2].shape[1]
     y3, h3 = ks.selective_scan_fwd_residuals_bf16(*args)
     y2 = ks.selective_scan_fwd_bf16(*args)
     y_ref, h_ref = ks.selective_scan_fwd_residuals_ref(*args)
     torch.cuda.synchronize()
     if not torch.equal(y3, y2):
         raise AssertionError("the bf16 training scan forward's y differs from the lean one's")
-    err3 = max(check("bf16 scan forward with states: y", y3, y_ref),
-               check("bf16 scan forward with states: h_entries", h3, h_ref))
+    err3 = max(_check_bf16("bf16 scan forward with states: y", y3, y_ref),
+               _check_bf16("bf16 scan forward with states: h_entries", h3, h_ref))
     nc = h3.shape[1]
     scan_bytes = (4 * B * L * D + 2 * B * L * n) * 2 + (D * n + 2 * D) * 4
     bound_ms, bound_by = bound(scan_bytes + B * nc * n * D * 4, B * L * D * (10 + 7 * n))
-    records.append(dict(
-        name="selective_scan_fwd_residuals_bf16", route="cuda",
-        source="si_mamba_tpu_torch/csrc/selective_scan_fwd.cu",
-        replaces="si_mamba_tpu/ops/pallas/selective_scan_kernel.py:407", dtype="bfloat16",
-        shape=[B, L, D], max_abs_err=err3,
-        ms=time_ms(lambda: ks.selective_scan_fwd_residuals_bf16(*args), 20),
-        device_ms=graph_ms(lambda: ks.selective_scan_fwd_residuals_bf16(*args), 20),
-        plain_ms=time_ms(lambda: ks.selective_scan_fwd_residuals_ref(*args), 2, warmup=1),
-        library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
-
-    # K4, bf16: two runs bitwise equal
+    k3 = dict(shape=[B, L, D], max_abs_err=err3,
+              ms=time_ms(lambda: ks.selective_scan_fwd_residuals_bf16(*args), 20),
+              device_ms=graph_ms(lambda: ks.selective_scan_fwd_residuals_bf16(*args), 20),
+              plain_ms=time_ms(lambda: ks.selective_scan_fwd_residuals_ref(*args), 2, warmup=1),
+              bound_ms=bound_ms, bound_by=bound_by)
     bwd_args = (*args, g, h3)
     got = ks.selective_scan_bwd_bf16(*bwd_args)
     again = ks.selective_scan_bwd_bf16(*bwd_args)
@@ -943,27 +1005,18 @@ def bf16_kernel_phase(device) -> list[dict]:
     if not all(torch.equal(a, c) for a, c in zip(got, again)):
         raise AssertionError("two bf16 scan backward runs on the same inputs differ")
     names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dz", "ddelta_bias")
-    err4 = max(check(f"bf16 scan backward {k}", a, r, ulps=2, floor=2e-2, rel=1e-3)
+    err4 = max(_check_bf16(f"bf16 scan backward {k}", a, r, ulps=2, floor=2e-2, rel=1e-3)
                for k, a, r in zip(names, got, want))
     # bytes: u, dt, z, g, B, C (bf16) and h_entries (fp32) read; du, ddelta,
     # dz, dB, dC (bf16) written; A, D, dt_bias, dA, dD, ddelta_bias (fp32)
     bwd_bytes = (7 * B * L * D + 4 * B * L * n) * 2 + (B * nc * n * D + 2 * D * n + 4 * D) * 4
     bound_ms, bound_by = bound(bwd_bytes, B * L * D * (20 * n + 20))
-    records.append(dict(
-        name="selective_scan_bwd_bf16", route="cuda",
-        source="si_mamba_tpu_torch/csrc/selective_scan_bwd.cu",
-        replaces="si_mamba_tpu/ops/pallas/selective_scan_kernel.py:211", dtype="bfloat16",
-        shape=[B, L, D], max_abs_err=err4,
-        ms=time_ms(lambda: ks.selective_scan_bwd_bf16(*bwd_args), 20),
-        device_ms=graph_ms(lambda: ks.selective_scan_bwd_bf16(*bwd_args), 20),
-        plain_ms=time_ms(lambda: ks.selective_scan_bwd_ref(*bwd_args), 1, warmup=1),
-        library_ms=None, bound_ms=bound_ms, bound_by=bound_by))
-    log("bf16 scan: " + "; ".join(
-        f"B={f['shape'][0]}: {f['ms']:.6f} ms, device {f['device_ms']:.6f} ms "
-        f"({f['segments']} segments), max |diff| {f['max_abs_err']:.3e}"
-        for f in (fig, *sizes.values())) +
-        f"; with states max |diff| {err3:.3e}; backward {err4:.3e}, two runs bitwise equal")
-    return records
+    k4 = dict(shape=[B, L, D], max_abs_err=err4,
+              ms=time_ms(lambda: ks.selective_scan_bwd_bf16(*bwd_args), 20),
+              device_ms=graph_ms(lambda: ks.selective_scan_bwd_bf16(*bwd_args), 20),
+              plain_ms=time_ms(lambda: ks.selective_scan_bwd_ref(*bwd_args), 1, warmup=1),
+              bound_ms=bound_ms, bound_by=bound_by)
+    return k3, k4
 
 
 def tc_bound(bytes_moved: float, ops: float) -> dict:
@@ -4282,8 +4335,9 @@ def pretrain_breakdown(device, cfg, steps: int = 3) -> dict:
     timed by piece, each piece one of ``PointMAEMamba``'s methods called as
     its ``forward`` calls them and followed by a ``torch.cuda.synchronize()``:
     grouping, graph, bases, sgwt, sinkhorn, rounding, encoder, decoder (with
-    the loss), then update (backward, clip, AdamW). Medians over ``steps``
-    steps after one warm-up; the step's peak memory."""
+    the loss), then update (backward, clip, AdamW); on the legacy 'MAMBA'
+    path grouping, forward (mask, encoder, decoder, loss) and update. Medians
+    over ``steps`` steps after one warm-up; the step's peak memory."""
     from si_mamba_tpu_torch.models.point_mae import PointMAEMamba
     from si_mamba_tpu_torch.ops.wavelets import wavelet_projections
     from si_mamba_tpu_torch.train import optim
@@ -4308,6 +4362,14 @@ def pretrain_breakdown(device, cfg, steps: int = 3) -> dict:
         mark("start")
         grouped = model.group(pts)
         mark("grouping")
+        if model.legacy:
+            loss = model.legacy_forward(grouped, generator=generator)
+            mark("forward")
+            loss.backward()
+            optimizer.step()
+            mark("update")
+            rows.append({b[0]: (b[1] - a[1]) * 1e3 for a, b in zip(marks, marks[1:])})
+            continue
         L = model.laplacian(grouped.center)
         mark("graph")
         PJ = wavelet_projections(L, cfg.wavelet_J, cfg.wavelet_solver)
@@ -4331,13 +4393,15 @@ def pretrain_breakdown(device, cfg, steps: int = 3) -> dict:
             raise AssertionError(f"the timed pretraining step's loss is {loss.item()}")
     pieces = {k: statistics.median(r[k] for r in rows[1:]) for k in rows[1]}
     pieces["step"] = sum(pieces.values())
-    pieces["orders"] = sum(pieces[k] for k in ("graph", "bases", "sgwt", "sinkhorn", "rounding"))
+    if not model.legacy:
+        pieces["orders"] = sum(pieces[k] for k in ("graph", "bases", "sgwt", "sinkhorn",
+                                                   "rounding"))
     pieces["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(device)
     return pieces
 
 
 def pretrain_cli_phase(device, card: str, preset: str, name: str, train_kernels,
-                       eval_kernels) -> tuple[dict, dict]:
+                       eval_kernels, method: str | None = None) -> tuple[dict, dict]:
     """A shipped pretraining preset through ``cli.main`` (build/mae:
     PRETRAIN_SHAPES seeded ShapeNet-55 shapes of 8192 points, the committed
     ModelNet40 h5 fixtures for the SVM probe) at max_epoch 1, the published
@@ -4349,7 +4413,9 @@ def pretrain_cli_phase(device, card: str, preset: str, name: str, train_kernels,
     statistics, ``diff_sgwt.*``, ``mask_token`` and every decayed parameter
     moved, every parameter finite; the probe's accuracy in [0, 100];
     ckpt-last.pth and ckpt-best.pth written. Then the step timed by piece
-    (``pretrain_breakdown``). Returns ({name: launches}, the record)."""
+    (``pretrain_breakdown``). ``method``: the model's method set over the
+    preset's ('MAMBA': the legacy path, whose model has no ``diff_sgwt``).
+    Returns ({name: launches}, the record)."""
     from si_mamba_tpu_torch.models.point_mae import PointMAEConfig
     from si_mamba_tpu_torch.train import cli, optim, svm
     from si_mamba_tpu_torch.train import runner_pretrain as rp
@@ -4360,7 +4426,8 @@ def pretrain_cli_phase(device, card: str, preset: str, name: str, train_kernels,
     work = mae_workdir()
     write_s = time.perf_counter() - t0
     exp_cfg = work / f"pre_{name}.yaml"
-    exp_cfg.write_text(f"_base_: cfgs/{preset}\nmax_epoch: 1\n")
+    exp_cfg.write_text(f"_base_: cfgs/{preset}\nmax_epoch: 1\n" +
+                       (f"model: {{method: {method}}}\n" if method else ""))
     cwd = os.getcwd()
     os.chdir(work)
     try:
@@ -4370,7 +4437,8 @@ def pretrain_cli_phase(device, card: str, preset: str, name: str, train_kernels,
     cfg = PointMAEConfig.from_dict(config.model)
     want = dict(trans_dim=384, encoder_dims=384, depth=12, decoder_depth=4, num_group=64,
                 group_size=32, mask_ratio=0.6, k_top_eigenvectors=4, reverse=True,
-                drop_path_rate=0.1, loss="cdl2", **PRETRAIN_PRESETS[preset])
+                drop_path_rate=0.1, loss="cdl2", **PRETRAIN_PRESETS[preset],
+                method=method or "smallest_eigenvectors_seperate_learnable_tokens")
     if {k: getattr(cfg, k) for k in want} != want or \
             (config.total_bs, config.npoints) != (PRETRAIN_BATCH, 1024):
         raise AssertionError(f"the {preset} config is not the preset's: {cfg}")
@@ -4453,7 +4521,8 @@ def pretrain_cli_phase(device, card: str, preset: str, name: str, train_kernels,
     pieces = pretrain_breakdown(device, cfg)
     step_ms = [s["ms"] for s in steps]
     p50 = statistics.median(step_ms[1:])
-    record = {"config": f"cfgs/{preset}, max_epoch 1", "shapes": PRETRAIN_SHAPES,
+    record = {"config": f"cfgs/{preset}, max_epoch 1" + (f", method {method}" if method else ""),
+              "shapes": PRETRAIN_SHAPES,
               "batch": PRETRAIN_BATCH, "data_write_s": write_s, "run_s": run_s,
               "step_ms": step_ms, "p50_step_ms": p50,
               "clouds_per_s": PRETRAIN_BATCH / (p50 / 1e3), "losses": losses,
@@ -4791,6 +4860,365 @@ def mae_phases(device, card: str) -> tuple[dict, dict]:
                                               SSD_PERF_EVAL_KERNELS)
     paths.update(p)
     p, record["scan_cli"] = scan_cli_phase(device, card, record["cli"]["ckpt_last"])
+    paths.update(p)
+    return paths, record
+
+
+# ---------------------------------------------------------------------------
+# the classifier's last options, the permutation policy, the legacy MAE and
+# few-shot (phases 41-46)
+# ---------------------------------------------------------------------------
+
+LEGACY_ENC_LEN = 26  # the legacy MAE encoder's tokens: the 64 - int(0.6 * 64) visible groups
+LEGACY_DEC_LEN = 64  # its decoder's [visible, mask tokens] and the probe's noaug encoder
+# the ModelNet40 classifier with each of its last two options, and the SSD
+# classifier with rms_norm
+MODELNET40_RMS = dict(MODELNET40, rms_norm=True)
+MODELNET40_ADD = dict(MODELNET40, add_after_layer=True)
+MODELNET40_SSD_RMS = dict(MODELNET40_SSD, rms_norm=True)
+SSD_TRAIN_KERNELS = ("causal_conv1d_silu", "ssd_xbc_fwd_states", "ssd_xbc_bwd",
+                     "causal_conv1d_silu_bwd")
+POLICY_BATCH, POLICY_BLOCKS, POLICY_TAU = 32, 3, 1.0
+FEWSHOT_WAY, FEWSHOT_SHOT, FEWSHOT_FOLD, FEWSHOT_TEST = 5, 10, 0, 20  # cfgs/fewshot.yaml's run
+
+
+def mamba_bf16_at(device, batch: int, length: int) -> dict:
+    """The bf16 K1-K5 at B=batch, L=length on ``perf_operands``' views, each
+    held against its plain version at phase 16's tolerances and timed beside
+    it (K1 and K5 also beside bf16 ``F.conv1d(groups=D)`` + ``F.silu``).
+    Returns {kernel name: figures}."""
+    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
+
+    xz, w, b, args = perf_operands(device, batch, length)
+    x = xz[..., :w.shape[0]]
+    g = torch.from_numpy(np.random.default_rng(43).standard_normal(
+        x.shape, dtype=np.float32)).to(device, torch.bfloat16)
+    fwd, bwd = bf16_conv_figures(x, w, b, g)
+    k2 = bf16_scan_fwd_figures(args)
+    k2["plain_ms"] = time_ms(lambda: ks.selective_scan_ref(
+        *args[:5], D=args[5], z=args[6], delta_bias=args[7]), 2, warmup=1)
+    k3, k4 = bf16_scan_train_figures(args, g)
+    out = {"causal_conv1d_silu_bf16": fwd, "causal_conv1d_silu_bwd_bf16": bwd,
+           "selective_scan_fwd_bf16": k2, "selective_scan_fwd_residuals_bf16": k3,
+           "selective_scan_bwd_bf16": k4}
+    return {k: _keep(r) for k, r in out.items()}
+
+
+def legacy_kernel_phase(device) -> dict:
+    """K1-K5 at the legacy MAE path's shapes, B=128 (cfgs/pretrain.yaml's
+    total_bs): L=26, the encoder's visible tokens in their original order,
+    and L=64, its decoder and the probe's noaug encoder; neither is a
+    multiple of the scan's 16-token chunk at 26, nor of K1's time tile or
+    the bf16 K5's 64-token tile, so each kernel's last tile is partial. The
+    fp32 kernels (the path's) through ``mamba_at``, the bf16 ones through
+    ``mamba_bf16_at``, each held against its plain version and timed beside
+    it. Returns {kernel name: {view: figures}}."""
+    out: dict = {}
+    for length in (LEGACY_ENC_LEN, LEGACY_DEC_LEN):
+        view = f"legacy_L{length}"
+        for name, f in (mamba_at(device, PRETRAIN_BATCH, length)
+                        | mamba_bf16_at(device, PRETRAIN_BATCH, length)).items():
+            out.setdefault(name, {})[view] = f
+    log("kernels at the legacy MAE shapes (B=128, L=26 and 64): " + "; ".join(
+        f"{name} {view} {f['ms']:.6f} ms (device {f.get('device_ms') or float('nan'):.6f}, "
+        f"plain {f['plain_ms']:.6f}, bound {f['bound_ms']:.6f}, max |diff| "
+        f"{f['max_abs_err']:.3e})" for name, views in out.items() for view, f in views.items()))
+    return out
+
+
+def ssd_rms_norm_phase(device) -> tuple[dict, dict]:
+    """The SSD classifier with ``rms_norm`` (``MODELNET40_SSD_RMS``): one
+    held train-mode forward and backward at B=4 (``gradient_phase`` against
+    'xla', which launches nothing), its launches K1, K8 with states, K9 and
+    K5 once a block and nothing else. Returns ({path: launches}, record)."""
+    torch.cuda.synchronize()
+    _reset_launch_counts()  # the held forward and gradient
+    record = gradient_phase(device, MODELNET40_SSD_RMS, plain_impl="xla")
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    if launches != _expect(MODELNET40["depth"], SSD_TRAIN_KERNELS):
+        raise AssertionError(f"the SSD rms_norm classifier's held step launched {launches}")
+    return {"ssd_rms_norm_grad": launches}, record
+
+
+def policy_inputs(device, batch: int):
+    """The permutation policy's inputs as the classifier would hand them: the
+    ModelNet40 model's (seeded weights) tokens and positions of ``batch``
+    seeded clouds in its SAST sequence (B, 2kG, C), with the eigenpairs of
+    the centres' graph (eigvals (B, k), eigvecs (B, G, k))."""
+    from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
+    from si_mamba_tpu_torch.models.point_mamba import spectral_eigvecs
+
+    model = PointMamba(PointMambaConfig.from_dict(MODELNET40),
+                       generator=torch.Generator().manual_seed(0)).to(device).eval()
+    with torch.inference_mode():
+        tokens, pos, center = model.embed(torch.from_numpy(clouds(batch, seed=61)).to(device))
+        vals, vecs = spectral_eigvecs(center, model.config)
+        x, pos_seq = model.sequence(tokens, pos, center, eigvecs=vecs)
+    return tuple(t.clone() for t in (x, pos_seq, vals, vecs))
+
+
+def policy_phase(device) -> tuple[dict, dict]:
+    """The permutation policy (``models/permute_policy.py``) at the
+    classifier's width: 384 wide, G=64, k=4, its 3-block stack over the
+    2kG = 512-token sequence of POLICY_BATCH clouds (``policy_inputs``), tau
+    1 with seeded Gumbel uniforms. One forward and the backward of the
+    summed policy (its gradient reaches the stack through the logits) on the
+    kernel route must launch K1, K3, K4 and K5 once a block and nothing
+    else, give a permutation of the 2kG slots and a finite policy; against
+    the same weights on 'seq', the logits within 1e-3 of their max (2e-3
+    relative), the policy of the kernel route's permutation within rtol
+    1e-5 and every parameter gradient within GRAD_TOL of the largest.
+    Returns ({"policy": launches}, the record)."""
+    from si_mamba_tpu_torch.models.permute_policy import PermutePolicy
+
+    dim, G, k = MODELNET40["trans_dim"], MODELNET40["num_group"], MODELNET40["k_top_eigenvectors"]
+    args = policy_inputs(device, POLICY_BATCH)
+    B = POLICY_BATCH
+    policy = PermutePolicy(dim, G, k, n_layer=POLICY_BLOCKS,
+                           generator=torch.Generator().manual_seed(7)).to(device).train()
+    plain = PermutePolicy(dim, G, k, n_layer=POLICY_BLOCKS, scan_impl="seq").to(device).train()
+    plain.load_state_dict(policy.state_dict(), strict=True)
+    gen = torch.Generator(device).manual_seed(8)
+    uniforms = (torch.rand(B * k, G, generator=gen, device=device),
+                torch.rand(B, k, generator=gen, device=device))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_launch_counts()  # the policy's path: one forward and its gradient
+    t0 = time.perf_counter()
+    perm, pol = policy(*args, POLICY_TAU, gumbel_uniform=uniforms)
+    pol.sum().backward()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    if launches != _expect(POLICY_BLOCKS, TRAIN_KERNELS):
+        raise AssertionError(f"the policy's forward and gradient launched {launches}")
+    if not torch.equal(torch.sort(perm, dim=1).values,
+                       torch.arange(k * G, device=device).expand(B, -1)) or \
+            not torch.isfinite(pol).all():
+        raise AssertionError("the policy's permutation or log-probability is not valid")
+
+    from si_mamba_tpu_torch.ops.sinkhorn import plackett_luce_log_prob
+
+    inner, outer = plain.logits(*args)
+    with torch.no_grad():
+        k_inner, k_outer = policy.logits(*args)
+    logit_err = max((a - r).abs().max().item() for a, r in ((k_inner, inner), (k_outer, outer)))
+    scale = max(inner.abs().max().item(), outer.abs().max().item())
+    if not (torch.allclose(k_inner, inner, atol=1e-3 * scale, rtol=2e-3)
+            and torch.allclose(k_outer, outer, atol=1e-3 * scale, rtol=2e-3)):
+        raise AssertionError(f"the policy's logits disagree with 'seq': {logit_err} (max {scale})")
+    order = perm.reshape(B, k, G)[..., 0] // G
+    li = torch.gather(inner.reshape(B, k * G), 1, perm).reshape(B, k, G)
+    pol_ref = (plackett_luce_log_prob(li).sum(1)
+               + plackett_luce_log_prob(torch.gather(outer, 1, order)))
+    pol_ref.sum().backward()
+    pol_err = ((pol.detach() - pol_ref.detach()).abs() / pol_ref.detach().abs()).max().item()
+    if pol_err > 1e-5:
+        raise AssertionError(f"the policy differs from 'seq' by {pol_err:.3e} relative")
+    ref = {n: p.grad for n, p in plain.named_parameters() if p.grad is not None}
+    gmax = max(g.abs().max().item() for g in ref.values())
+    worst = max((p.grad - ref[n]).abs().max().item() / gmax
+                for n, p in policy.named_parameters() if n in ref)
+    if worst >= GRAD_TOL or set(ref) != {n for n, p in policy.named_parameters()
+                                         if p.grad is not None}:
+        raise AssertionError(f"the policy's gradients differ from 'seq' by {worst:.3e} of the "
+                             f"largest")
+    record = {"batch": B, "seq_len": 2 * k * G, "blocks": POLICY_BLOCKS, "tau": POLICY_TAU,
+              "forward_backward_ms": step_ms, "max_memory_allocated_bytes": peak,
+              "logits_max_abs_diff": logit_err, "logits_max_abs": scale,
+              "policy_rel_diff": pol_err, "worst_grad_diff_over_max": worst,
+              "launches": {n: c for n, c in launches.items() if c}}
+    log(f"policy (384 wide, G=64, k=4, B={B}): forward and gradient {step_ms:.3f} ms (first "
+        f"call), peak {peak / 2**30:.3f} GiB; logits == 'seq' within {logit_err:.3e} (max "
+        f"{scale:.3e}), policy {pol_err:.3e}, gradients {worst:.3e} of the largest; launches "
+        f"{record['launches']}")
+    return {"policy": launches}, record
+
+
+def legacy_forward_phase(device) -> tuple[dict, dict]:
+    """The legacy 'MAMBA' pretraining model at cfgs/pretrain.yaml's width
+    (seeded weights) in eval mode on MAE_HELD_BATCH clouds of 1024 points:
+    the loss (the mask of ``jax.random.key(0)``'s draw in both) against the
+    same weights on 'seq' within rtol 2e-3, and the noaug features (B, 64,
+    384) within 1e-3 of their max and 2e-3 relative; the loss forward
+    launches K1 and K2 16 times (12 encoder blocks at L=26, 4 decoder blocks
+    at L=64), the feature forward 12 times. Returns ({name: launches}, the
+    record)."""
+    cfg, model, plain = _mae_pair(device, dict(MAE_FULL, method="MAMBA"), "seq", seed=2)
+    model.eval()
+    plain.eval()
+    pts = torch.from_numpy(np.random.default_rng(54).standard_normal(
+        (MAE_HELD_BATCH, 1024, 3), dtype=np.float32)).to(device)
+    paths = {}
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        _reset_launch_counts()  # the held legacy loss forward
+        loss = model(pts)
+        torch.cuda.synchronize()
+        paths["legacy_mae_forward"] = _launch_counts()
+        want = plain(pts)
+        _reset_launch_counts()  # the held legacy feature forward
+        feats = model(pts, noaug=True)
+        torch.cuda.synchronize()
+        paths["legacy_mae_features"] = _launch_counts()
+        feats_ref = plain(pts, noaug=True)
+    if paths["legacy_mae_forward"] != _expect(PRETRAIN_BLOCKS, EVAL_KERNELS) or \
+            paths["legacy_mae_features"] != _expect(PROBE_BLOCKS, EVAL_KERNELS):
+        raise AssertionError(f"the held legacy MAE forwards launched {paths}")
+    rel = abs(loss.item() - want.item()) / abs(want.item())
+    if not np.isfinite(loss.item()) or rel > 2e-3:
+        raise AssertionError(f"the legacy MAE eval loss {loss.item()} against 'seq' "
+                             f"{want.item()}")
+    scale = feats_ref.abs().max().item()
+    err = (feats - feats_ref).abs().max().item()
+    if feats.shape != (MAE_HELD_BATCH, cfg.num_group, cfg.trans_dim) or not torch.allclose(
+            feats, feats_ref, atol=1e-3 * scale, rtol=2e-3):
+        raise AssertionError(f"the legacy MAE noaug features disagree with 'seq': max |diff| "
+                             f"{err}, max {scale}")
+    record = {"batch": MAE_HELD_BATCH, "loss": loss.item(), "loss_plain": want.item(),
+              "loss_rel_diff": rel, "features_max_abs_diff": err, "features_max_abs": scale,
+              "launches": {k: {n: c for n, c in v.items() if c} for k, v in paths.items()}}
+    log(f"legacy MAE eval loss {loss.item():.7f} == 'seq' {want.item():.7f} ({rel:.3e}); noaug "
+        f"features max |diff| {err:.3e} (max {scale:.3e})")
+    return paths, record
+
+
+def write_fewshot_tree(root: Path, way: int, shot: int, fold: int, n_test: int) -> Path:
+    """``ModelNetFewshot/{way}way_{shot}shot/{fold}.pkl`` (the few-shot
+    loader's format): ``shot`` train and ``n_test`` test clouds of 1024
+    points a class, each class a seeded Gaussian blob of its own extent."""
+    rng = np.random.default_rng(60 + fold)
+    axes = 0.3 + rng.random((way, 3))
+
+    def sample(c):
+        return ((rng.standard_normal((1024, 3)) * axes[c]).astype(np.float32),
+                np.array([c], np.int64))
+
+    out = root / "ModelNetFewshot" / f"{way}way_{shot}shot"
+    out.mkdir(parents=True, exist_ok=True)
+    with open(out / f"{fold}.pkl", "wb") as f:
+        pickle.dump({"train": [sample(c) for c in range(way) for _ in range(shot)],
+                     "test": [sample(c) for c in range(way) for _ in range(n_test)]}, f)
+    return root / "ModelNetFewshot"
+
+
+def fewshot_cli_phase(device, card: str) -> tuple[dict, dict]:
+    """cfgs/fewshot.yaml through the CLI with --way 5 --shot 10 --fold 0 at
+    max_epoch 0 (the published 12 x 384 classifier, total_bs 32) on a seeded
+    pickle written under build/fewshot/ (50 train, 100 test clouds of 1024
+    points): one step launching K1, K3, K4 and K5 12 times each and nothing
+    else, every validation forward K1 and K2 12 times; the head 5 wide
+    (--way over the config's cls_dim), the loss finite, the validation
+    accuracy in [0, 100]; then --test of its ckpt-last.pth, launches counted
+    the same way, gives that accuracy. Returns ({name: launches}, the
+    record)."""
+    import shutil
+
+    from si_mamba_tpu_torch.train import cli
+    from si_mamba_tpu_torch.train import runner_finetune as rf
+    from si_mamba_tpu_torch.train.config import get_config
+
+    work = ROOT / "build" / "fewshot"
+    shutil.rmtree(work / "experiments", ignore_errors=True)  # a run's scalars append
+    data = write_fewshot_tree(work, FEWSHOT_WAY, FEWSHOT_SHOT, FEWSHOT_FOLD, FEWSHOT_TEST)
+    (work / "fewshot_ds.yaml").write_text(f"NAME: ModelNetFewShot\nDATA_PATH: {data}\n")
+    exp_cfg = work / "fewshot_run.yaml"
+    exp_cfg.write_text(f"_base_: {ROOT}/cfgs/fewshot.yaml\nmax_epoch: 0\ndataset:\n" + "".join(
+        f"  {split}: {{_base_: {work}/fewshot_ds.yaml, others: {{subset: '{subset}'}}}}\n"
+        for split, subset in (("train", "train"), ("val", "test"), ("test", "test"))))
+    total_bs = int(get_config(str(exp_cfg)).total_bs)
+    flags = ["--way", str(FEWSHOT_WAY), "--shot", str(FEWSHOT_SHOT), "--fold",
+             str(FEWSHOT_FOLD), "--device", "cuda"]
+    forwards, real = [], rf.validate
+
+    def counting_validate(eval_step, state, loader, epoch=0):
+        def recording(st, pts):
+            forwards.append(pts.shape[0])
+            return eval_step(st, pts)
+
+        return real(recording, state, loader, epoch)
+
+    exp = work / "experiments" / "fewshot_run" / "fewshot"
+    cwd = os.getcwd()
+    os.chdir(work)
+    rf.validate = counting_validate
+    paths = {}
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        _reset_launch_counts()  # the few-shot run's path
+        t0 = time.perf_counter()
+        state, _ = cli.main(["--config", str(exp_cfg), "--exp_name", "fewshot"] + flags)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        paths["fewshot_cli"] = _launch_counts()
+        peak = torch.cuda.max_memory_allocated(device)
+        n_forwards, forwards[:] = len(forwards), []
+        _reset_launch_counts()  # the test run's path
+        test_acc = cli.main(["--config", str(exp_cfg), "--exp_name", "fewshot_test", "--test",
+                             "--ckpts", str(exp / "ckpt-last.pth")] + flags)
+        paths["fewshot_cli_test"] = _launch_counts()
+    finally:
+        rf.validate = real
+        os.chdir(cwd)
+    cfg = state.model.config
+    steps = FEWSHOT_WAY * FEWSHOT_SHOT // total_bs  # drop_last
+    head = torch.load(exp / "ckpt-last.pth", map_location="cpu",
+                      weights_only=True)["base_model"]["cls_head_finetune.8.weight"]
+    if (cfg.cls_dim, tuple(head.shape), state.step) != (FEWSHOT_WAY, (FEWSHOT_WAY, 256), steps) \
+            or (cfg.trans_dim, cfg.depth, cfg.num_group) != (384, 12, 64):
+        raise AssertionError(f"the few-shot run: cls_dim {cfg.cls_dim}, head {tuple(head.shape)}, "
+                             f"{state.step} steps, {cfg}")
+    want = {k: cfg.depth * (steps * (k in TRAIN_KERNELS) + n_forwards * (k in EVAL_KERNELS))
+            for k in paths["fewshot_cli"]}
+    if paths["fewshot_cli"] != want:
+        raise AssertionError(f"the few-shot run launched {paths['fewshot_cli']}; expected {want}")
+    if paths["fewshot_cli_test"] != _expect(cfg.depth * len(forwards), EVAL_KERNELS):
+        raise AssertionError(f"--test of the few-shot run launched {paths['fewshot_cli_test']}")
+    scalars = [json.loads(line) for line in (exp / "scalars.jsonl").read_text().splitlines()]
+    losses = [r["value"] for r in scalars if r["tag"] == "Loss/Epoch/Loss"]
+    val_acc = [r["value"] for r in scalars if r["tag"] == "Metric/ACC"]
+    if len(losses) != 1 or not np.isfinite(losses).all() or len(val_acc) != 1 or \
+            not 0.0 <= val_acc[0] <= 100.0 or test_acc != val_acc[0]:
+        raise AssertionError(f"the few-shot run logged {scalars}; --test gave {test_acc}")
+    record = {"config": "cfgs/fewshot.yaml, max_epoch 0, --way 5 --shot 10 --fold 0",
+              "train_clouds": FEWSHOT_WAY * FEWSHOT_SHOT, "test_clouds": FEWSHOT_WAY * FEWSHOT_TEST,
+              "steps": steps, "validation_forwards": n_forwards, "run_s": run_s,
+              "epoch_loss": losses[0], "val_acc": val_acc[0], "test_acc": test_acc,
+              "max_memory_allocated_bytes": peak, "head_shape": list(head.shape), "card": card}
+    log(f"{record['config']} through the CLI: {steps} step and {n_forwards} validation forwards "
+        f"in {run_s:.1f} s, loss {losses[0]:.4f}, acc {val_acc[0]:.2f} (--test {test_acc:.2f}), "
+        f"head {tuple(head.shape)}, peak {peak / 2**30:.3f} GiB; {card}")
+    return paths, record
+
+
+def options_phases(device, card: str) -> tuple[dict, dict]:
+    """Phases 41-46: the ModelNet40 classifier with ``rms_norm`` and with
+    ``add_after_layer`` through serving (against 'seq') and TRAIN_STEPS train
+    steps (the latter's B=4 gradients against 'seq' too), the SSD classifier
+    with ``rms_norm`` held once, the permutation policy, the legacy MAE
+    (held, then through the pretrain CLI with its probe) and few-shot through
+    the CLI. Returns (each path's launches, the record)."""
+    paths, record = {}, {}
+    for name, base in (("rms_norm", MODELNET40_RMS), ("add_after_layer", MODELNET40_ADD)):
+        paths[f"{name}_serving"], serving, model, _ = serving_phase(device, base)
+        del model
+        train, paths[f"{name}_train"] = train_phase(device, card, base, view_grads=False)
+        record[name] = {"serving": serving, "train": train}
+    record["add_after_layer"]["gradients"] = gradient_phase(device, MODELNET40_ADD)
+    p, record["ssd_rms_norm_gradients"] = ssd_rms_norm_phase(device)
+    paths.update(p)
+    p, record["policy"] = policy_phase(device)
+    paths.update(p)
+    p, record["legacy_mae_forward"] = legacy_forward_phase(device)
+    paths.update(p)
+    p, record["legacy_mae_cli"] = pretrain_cli_phase(device, card, "pretrain.yaml",
+                                                     "legacy_mae_cli", TRAIN_KERNELS,
+                                                     EVAL_KERNELS, method="MAMBA")
+    paths.update(p)
+    p, record["fewshot_cli"] = fewshot_cli_phase(device, card)
     paths.update(p)
     return paths, record
 
@@ -5519,6 +5947,7 @@ def main() -> int:
     records += ssd_records
     seg_shape = seg_kernel_phase(device)
     mae_shapes = mae_kernel_phase(device)
+    legacy_shapes = legacy_kernel_phase(device)
     for r in records:
         if r["name"] in seg_shape:
             r["at_seg_shape"] = seg_shape[r["name"]]
@@ -5539,6 +5968,9 @@ def main() -> int:
         if r["name"] in mae_shapes:
             r["at_pretrain_and_scan_shapes"] = mae_shapes[r["name"]]
     records += bf16_records
+    for r in records:
+        if r["name"] in legacy_shapes:
+            r["at_legacy_mae_shapes"] = legacy_shapes[r["name"]]
 
     # the paths, each with every launch count from 0 (set inside each phase)
     paths = {}
@@ -5602,6 +6034,8 @@ def main() -> int:
     paths.update(seg_paths)
     mae_paths, mae = mae_phases(device, card)
     paths.update(mae_paths)
+    options_paths, options = options_phases(device, card)
+    paths.update(options_paths)
     torch.cuda.empty_cache()  # the ranks share the card
     parallel_paths, parallel = parallel_phases(card)
     paths.update(parallel_paths)
@@ -5656,8 +6090,8 @@ def main() -> int:
                       "fused_perf": {"serving": fused_perf_serving,
                                      "profile": fused_perf_profile, "train": fused_perf_train,
                                      "cli": fused_cli},
-                      "seg": seg, "mae": mae, "parallel": parallel, "dp": dp,
-                      "card": card}), flush=True)
+                      "seg": seg, "mae": mae, "options": options, "parallel": parallel,
+                      "dp": dp, "card": card}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -81,6 +81,32 @@ class LayerNorm(nn.LayerNorm):
                             self.eps).to(x.dtype)
 
 
+class RMSNorm(nn.Module):
+    """RMS norm over the last axis, y = x rsqrt(mean(x^2) + eps) weight,
+    computed in fp32 and returned in the input's dtype, as flax's
+    ``nn.RMSNorm(dtype=...)``; its one parameter ``weight`` is flax's
+    ``scale`` (no bias)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def reset_parameters(self) -> None:
+        nn.init.ones_(self.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mul = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + self.eps) * self.weight
+        return (xf * mul).to(x.dtype)
+
+
+def norm_layer(dim: int, eps: float = 1e-5, rms_norm: bool = False) -> nn.Module:
+    """The stack's norm: :class:`RMSNorm` with ``rms_norm``, else
+    :class:`LayerNorm` (the JAX package's ``norm_cls``)."""
+    return RMSNorm(dim, eps) if rms_norm else LayerNorm(dim, eps=eps)
+
+
 def _load_shard(module: nn.Module, full: nn.Module, kind: str, generator) -> None:
     """Draw ``full``'s (single-process) parameters from ``generator`` and load
     this rank's shard of them into the tensor-parallel ``module``."""
@@ -300,14 +326,16 @@ class DropPath(nn.Module):
 
 
 class Block(nn.Module):
-    """Add -> LayerNorm -> mixer. Returns (mixer output, residual), where the
-    residual is the pre-norm sum; the first block takes residual None."""
+    """Add -> norm (LayerNorm, or RMSNorm with ``rms_norm``) -> mixer. Returns
+    (mixer output, residual), where the residual is the pre-norm sum; the
+    first block takes residual None."""
 
     def __init__(self, d_model: int, norm_eps: float = 1e-5, drop_path: float = 0.0,
                  out_proj_div: float = 1.0, scan_impl: str = "auto", mixer: str = "mamba",
-                 ssd_chunk: int = 128, mesh: Mesh | None = None, tp_axis: str | None = None):
+                 ssd_chunk: int = 128, mesh: Mesh | None = None, tp_axis: str | None = None,
+                 rms_norm: bool = False):
         super().__init__()
-        self.norm = LayerNorm(d_model, eps=norm_eps)
+        self.norm = norm_layer(d_model, norm_eps, rms_norm)
         tp = dict(mesh=mesh, tp_axis=tp_axis)
         if mixer == "ssd":
             self.mixer = SSDMixer(d_model, out_proj_div=out_proj_div, scan_impl=scan_impl,
@@ -326,23 +354,25 @@ class Block(nn.Module):
 
 
 class MixerModel(nn.Module):
-    """Stack of Mamba (or SSD) blocks + final LayerNorm; in training, dropout
-    at ``drop_out_in_block`` after every block's mixer output. With ``mesh``
-    and ``tp_axis`` every mixer is tensor-parallel; the rest is replicated."""
+    """Stack of Mamba (or SSD) blocks + final norm (LayerNorm, or RMSNorm
+    with ``rms_norm``, as every block's); in training, dropout at
+    ``drop_out_in_block`` after every block's mixer output. With ``mesh`` and
+    ``tp_axis`` every mixer is tensor-parallel; the rest is replicated."""
 
     def __init__(self, d_model: int, n_layer: int, norm_eps: float = 1e-5,
                  drop_path: float = 0.0, drop_out_in_block: float = 0.0,
                  scan_impl: str = "auto", mixer: str = "mamba", ssd_chunk: int = 128,
-                 mesh: Mesh | None = None, tp_axis: str | None = None):
+                 mesh: Mesh | None = None, tp_axis: str | None = None,
+                 rms_norm: bool = False):
         super().__init__()
         div = math.sqrt(n_layer)  # one residual per layer
         self.layers = nn.ModuleList(
             Block(d_model, norm_eps=norm_eps, drop_path=drop_path, out_proj_div=div,
                   scan_impl=scan_impl, mixer=mixer, ssd_chunk=ssd_chunk, mesh=mesh,
-                  tp_axis=tp_axis)
+                  tp_axis=tp_axis, rms_norm=rms_norm)
             for _ in range(n_layer))
         self.block_dropout = Dropout(drop_out_in_block)
-        self.norm_f = LayerNorm(d_model, eps=norm_eps)
+        self.norm_f = norm_layer(d_model, norm_eps, rms_norm)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for layer in self.layers:
@@ -357,5 +387,39 @@ class MixerModel(nn.Module):
         for layer in self.layers:
             hidden, residual = layer(hidden, residual, generator, dtype=act)
             hidden = self.block_dropout(hidden, generator)
+        residual = hidden + residual if residual is not None else hidden
+        return self.norm_f(residual).to(act)
+
+
+class MixerModelAdd(MixerModel):
+    """The Mamba-1 stack that re-sorts its tokens after every block (the
+    JAX package's ``MixerModelAdd``, the reference's ``MixerModel_add``, the
+    classifier's ``add_after_layer``): the block's 2kG-token output is merged
+    back to token order (``ordering.cross_merge``: each traversal through its
+    inverse order, the k forward and k flipped ones summed), then laid out
+    again in the k eigenvector sorts and their flip (``resort_sequence``).
+    The residual is carried as it is. Module names are ``MixerModel``'s
+    (``layers.{i}``, ``norm_f``), so the same state dict loads."""
+
+    def __init__(self, d_model: int, n_layer: int, norm_eps: float = 1e-5,
+                 drop_path: float = 0.0, drop_out_in_block: float = 0.0,
+                 scan_impl: str = "auto", rms_norm: bool = False):
+        super().__init__(d_model, n_layer, norm_eps=norm_eps, drop_path=drop_path,
+                         drop_out_in_block=drop_out_in_block, scan_impl=scan_impl,
+                         rms_norm=rms_norm)
+
+    def forward(self, x: torch.Tensor, pos: torch.Tensor, eigvecs: torch.Tensor,
+                reverse: bool = True, generator: torch.Generator | None = None) -> torch.Tensor:
+        """x, pos (B, 2kG, C) in the SAST layout of ``eigvecs`` (B, G, k)."""
+        from si_mamba_tpu_torch.models.ordering import cross_merge, resort_sequence
+        from si_mamba_tpu_torch.ops.spectral import sort_orders_by_eigenvectors
+
+        orders = sort_orders_by_eigenvectors(eigvecs)  # the same for every block
+        hidden, residual = x + pos, None
+        act = hidden.dtype
+        for layer in self.layers:
+            hidden, residual = layer(hidden, residual, generator, dtype=act)
+            hidden = self.block_dropout(hidden, generator)
+            hidden = resort_sequence(cross_merge(hidden, orders), orders, reverse=reverse)
         residual = hidden + residual if residual is not None else hidden
         return self.norm_f(residual).to(act)

@@ -74,3 +74,29 @@ def hlt_sequence(eigvecs: torch.Tensor, k: int, noise: torch.Tensor,
             seq = torch.cat([seq, seq.new_zeros((B, pad, C))], dim=1)
         out.append(seq)
     return tuple(out)
+
+
+def cross_merge(ys: torch.Tensor, orders: torch.Tensor) -> torch.Tensor:
+    """A 2kG-token SAST sequence ys (B, 2kG, D), laid out in the k
+    eigenvector sorts ``orders`` (B, k, G) and then flipped, merged back to
+    token order and summed over the 2k traversals: (B, G, D). Each traversal
+    goes through its inverse order (a stable argsort of its order); segment j
+    of the flipped half carries traversal k-1-j reversed, and is paired with
+    that traversal's inverse (the JAX package's pairing; the reference pairs
+    it with traversal j's)."""
+    B, L, D = ys.shape
+    k, G = orders.shape[1], orders.shape[2]
+    assert L == 2 * k * G, (
+        f"cross_merge expects the k forward + k flipped layout (L = 2kG); got L={L}, k={k}, "
+        f"G={G}: add_after_layer requires reverse=True")
+    inv = torch.argsort(orders, dim=-1, stable=True)[..., None].expand(B, k, G, D)
+    fwd = ys[:, :k * G].reshape(B, k, G, D)
+    rev = ys[:, k * G:].reshape(B, k, G, D).flip(1).flip(2)
+    return torch.sum(torch.gather(fwd, 2, inv) + torch.gather(rev, 2, inv), dim=1)
+
+
+def resort_sequence(x: torch.Tensor, orders: torch.Tensor, reverse: bool = True) -> torch.Tensor:
+    """Token features x (B, G, D) laid out in the k sorts ``orders`` (B, k, G)
+    and, with ``reverse``, their flip: (B, 2kG or kG, D)."""
+    seq = apply_orders(x, orders)
+    return torch.cat([seq, seq.flip(1)], dim=1) if reverse else seq

@@ -29,6 +29,16 @@ stream, ``jax.random.uniform`` of ``jax.random.key(0)``, bit for bit.
 model's rounding points: the patch encoder, pos-embed, both stacks and their
 norms at bf16; the orders, the wavelet module's layers, the rebuild layer
 and the loss at fp32.
+
+``method: MAMBA`` is the legacy path (the reference's MaskMamba, MambaDecoder
+and Point_MAE_Mamba's MAMBA branch, the JAX package's ``_legacy_mae``): the
+plain random or block mask, the visible tokens in their original order
+through the encoder stack, the decoder over [visible, mask tokens] with its
+own position embedding (``decoder_pos_embed.{0,2}``), the last n_mask tokens
+rebuilt. That model has no ``diff_sgwt``. ``rms_norm`` makes every norm of
+both stacks an RMSNorm (their final norms ``norm`` stay LayerNorms, as in
+JAX); ``loss: emd`` is the Sinkhorn EMD of ``ops/emd.py`` on the wavelet path
+(the legacy path, as JAX's, takes Chamfer-L1 for any loss but cdl2).
 """
 
 from __future__ import annotations
@@ -44,6 +54,7 @@ from si_mamba_tpu_torch.models.grouping import Grouped, group_divider
 from si_mamba_tpu_torch.models.layers import LayerNorm, MixerModel
 from si_mamba_tpu_torch.models.point_mamba import DTYPES
 from si_mamba_tpu_torch.ops.chamfer import chamfer_l1, chamfer_l2
+from si_mamba_tpu_torch.ops.emd import emd_sinkhorn
 from si_mamba_tpu_torch.parallel import draws
 from si_mamba_tpu_torch.ops.graph import knn_adjacency, rw_laplacian
 from si_mamba_tpu_torch.ops.sinkhorn import greedy_round, hungarian_round, sinkhorn_soft_perm
@@ -55,7 +66,8 @@ from si_mamba_tpu_torch.ops.wavelets import (
     wavelet_projections,
 )
 
-LATER = "ROADMAP.md queue 1, M16b"
+LEGACY = "MAMBA"
+SST = "smallest_eigenvectors_seperate_learnable_tokens"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,16 +134,10 @@ class PointMAEConfig:
 
 
 def _check_supported(cfg: PointMAEConfig) -> None:
-    if cfg.method == "MAMBA":
-        raise NotImplementedError(f"the legacy 'MAMBA' MAE path is not ported yet ({LATER})")
-    if cfg.method != "smallest_eigenvectors_seperate_learnable_tokens":
+    if cfg.method not in (SST, LEGACY):
         raise ValueError(f"unknown method {cfg.method!r}")
-    if cfg.loss == "emd":
-        raise NotImplementedError(f"loss 'emd' (ops/emd.py) is not ported yet ({LATER})")
-    if cfg.loss not in ("cdl2", "cdl1"):
+    if cfg.loss not in ("cdl2", "cdl1", "emd"):
         raise NotImplementedError(cfg.loss)
-    if cfg.rms_norm:
-        raise NotImplementedError("rms_norm is not ported yet (ROADMAP.md, queue 1)")
     if cfg.dtype not in DTYPES:
         raise NotImplementedError(f"dtype={cfg.dtype!r}: the port runs {sorted(DTYPES)}")
     if cfg.mask_type not in ("rand", "block"):
@@ -140,7 +146,7 @@ def _check_supported(cfg: PointMAEConfig) -> None:
         raise ValueError(f"unknown rounding {cfg.sinkhorn_rounding!r}")
     if cfg.wavelet_solver not in SOLVERS:
         raise ValueError(f"wavelet solver {cfg.wavelet_solver!r} not in {SOLVERS}")
-    if cfg.k_top_eigenvectors > cfg.wavelet_J + 1:
+    if cfg.method == SST and cfg.k_top_eigenvectors > cfg.wavelet_J + 1:
         raise ValueError("k_top_eigenvectors traversals need as many of the wavelet_J + 1 scales")
 
 
@@ -214,18 +220,19 @@ class MAEEncoder(nn.Module):
         self.pos_embed = PosEmbedMLP(cfg.trans_dim)
         self.blocks = MixerModel(cfg.trans_dim, cfg.depth, drop_path=cfg.drop_path_rate,
                                  scan_impl=cfg.scan_impl, mixer=cfg.mixer,
-                                 ssd_chunk=cfg.ssd_chunk)
+                                 ssd_chunk=cfg.ssd_chunk, rms_norm=cfg.rms_norm)
         self.norm = LayerNorm(cfg.trans_dim, eps=1e-5)
 
 
 class MAEDecoder(nn.Module):
-    """The decoder stack and its norm (the reference's MambaDecoder_SST)."""
+    """The decoder stack and its norm (the reference's MambaDecoder_SST, or
+    MambaDecoder on the legacy path)."""
 
     def __init__(self, cfg: PointMAEConfig):
         super().__init__()
         self.blocks = MixerModel(cfg.trans_dim, cfg.decoder_depth, drop_path=cfg.drop_path_rate,
                                  scan_impl=cfg.scan_impl, mixer=cfg.mixer,
-                                 ssd_chunk=cfg.ssd_chunk)
+                                 ssd_chunk=cfg.ssd_chunk, rms_norm=cfg.rms_norm)
         self.norm = LayerNorm(cfg.trans_dim, eps=1e-5)
 
 
@@ -257,13 +264,19 @@ class PointMAEMamba(nn.Module):
         self.MAE_decoder = MAEDecoder(cfg)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, cfg.trans_dim))
         self.increase_dim = nn.Sequential(PointwiseConv(cfg.trans_dim, 3 * cfg.group_size))
-        self.diff_sgwt = DiffusionWaveletSGWT(J=cfg.wavelet_J, in_features=3, dtype=self.dtype)
+        self.legacy = cfg.method == LEGACY
+        if self.legacy:
+            self.decoder_pos_embed = PosEmbedMLP(cfg.trans_dim)
+        else:
+            self.diff_sgwt = DiffusionWaveletSGWT(J=cfg.wavelet_J, in_features=3,
+                                                  dtype=self.dtype)
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         enc = self.MAE_encoder
+        last = self.decoder_pos_embed if self.legacy else self.diff_sgwt
         for m in (enc.encoder, enc.pos_embed, enc.blocks, self.MAE_decoder.blocks,
-                  self.increase_dim[0], self.diff_sgwt):
+                  self.increase_dim[0], last):
             m.reset_parameters(generator)
         for m in self.modules():
             if isinstance(m, nn.BatchNorm1d):
@@ -322,9 +335,9 @@ class PointMAEMamba(nn.Module):
              generator: torch.Generator | None = None,
              mask_uniform: torch.Tensor | None = None) -> torch.Tensor:
         """(B, G) 0/1: none with ``noaug`` or a zero ratio; else the
-        config's random or block mask, drawn from ``generator`` (or the
-        uniforms ``mask_uniform``); without either, the rand mask of
-        ``jax.random.uniform(jax.random.key(0))``."""
+        config's random or block mask (the block mask of ``center``), drawn
+        from ``generator`` (or the uniforms ``mask_uniform``); without
+        either, the rand mask of ``jax.random.uniform(jax.random.key(0))``."""
         cfg = self.config
         B, G = center.shape[:2]
         if noaug or cfg.mask_ratio == 0:
@@ -350,6 +363,9 @@ class PointMAEMamba(nn.Module):
         computed orders (the latter in eval only: an injected order has no
         soft gradient)."""
         grouped = self.group(pts)
+        if self.legacy:
+            return self.legacy_forward(grouped, noaug, vis, mask_override, generator,
+                                       mask_uniform)
         if orders_override is not None:
             if self.training:
                 raise ValueError("orders_override is an eval-mode hook")
@@ -433,10 +449,54 @@ class PointMAEMamba(nn.Module):
         gidx = torch.gather(oidx_full, 1, slot)
         gt = _take_rows(grouped.neighborhood.float(), gidx)  # (B, T, M, 3)
         rebuild = self.increase_dim(x_masked.float()).reshape(B, total, cfg.group_size, 3)
-        loss_fn = chamfer_l2 if cfg.loss == "cdl2" else chamfer_l1
+        loss_fn = {"cdl2": chamfer_l2, "cdl1": chamfer_l1, "emd": emd_sinkhorn}[cfg.loss]
         per = loss_fn(rebuild.reshape(B * total, cfg.group_size, 3),
                       gt.reshape(B * total, cfg.group_size, 3), batch_reduction=None)
         loss = torch.mean(per)
         if vis:
             return loss, {"rebuild": rebuild, "gt": gt}
+        return loss
+
+    def legacy_forward(self, grouped: Grouped, noaug: bool = False, vis: bool = False,
+                       mask_override: torch.Tensor | None = None,
+                       generator: torch.Generator | None = None,
+                       mask_uniform: torch.Tensor | None = None):
+        """The legacy 'MAMBA' path on the groups: the mask (``mask_override``,
+        or :meth:`mask` of the centres in the activation dtype), the visible
+        tokens in their original order through the encoder stack and its
+        norm (with ``noaug`` every token, and these features are returned,
+        (B, G, C)); the decoder stack over [visible, mask tokens] with the
+        decoder's position embedding of the visible then the masked centres,
+        its norm on the last n_mask tokens, the rebuilt points against the
+        masked groups: the mean Chamfer loss (with ``vis`` also {"rebuild",
+        "gt"}, each (B, n_mask, M, 3))."""
+        cfg = self.config
+        dtype, C, M = self.dtype, cfg.trans_dim, cfg.group_size
+        center = grouped.center.to(dtype)
+        neighborhood = grouped.neighborhood.to(dtype)
+        B, G = center.shape[:2]
+        mask = (mask_override.float() if mask_override is not None
+                else self.mask(center, noaug, generator, mask_uniform))
+        n_mask = 0 if noaug or cfg.mask_ratio == 0 else cfg.num_mask
+        n_vis = G - n_mask
+        enc = self.MAE_encoder
+        tokens = enc.encoder(neighborhood)
+        center_vis = select_by_rank(center, mask, n_vis, masked=False)
+        x_vis = enc.norm(enc.blocks(select_by_rank(tokens, mask, n_vis, masked=False),
+                                    enc.pos_embed(center_vis), generator))
+        if noaug:
+            return x_vis
+        center_mask = select_by_rank(center, mask, n_mask, masked=True)
+        pos_full = torch.cat([self.decoder_pos_embed(center_vis),
+                              self.decoder_pos_embed(center_mask)], dim=1)
+        x_full = torch.cat([x_vis, self.mask_token.expand(B, n_mask, C).to(dtype)], dim=1)
+        dec = self.MAE_decoder
+        x_rec = dec.norm(dec.blocks(x_full, pos_full, generator)[:, -n_mask:])
+        rebuild = self.increase_dim(x_rec.float()).reshape(B * n_mask, M, 3)
+        gt = select_by_rank(neighborhood.reshape(B, G, -1), mask, n_mask, masked=True)
+        gt = gt.float().reshape(B * n_mask, M, 3)
+        loss = (chamfer_l2 if cfg.loss == "cdl2" else chamfer_l1)(rebuild, gt)
+        if vis:
+            return loss, {"rebuild": rebuild.reshape(B, n_mask, M, 3),
+                          "gt": gt.reshape(B, n_mask, M, 3)}
         return loss

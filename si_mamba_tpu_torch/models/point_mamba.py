@@ -2,8 +2,10 @@
 
 PyTorch counterpart of ``si_mamba_tpu/models/point_mamba.py``: Group ->
 PatchEncoder -> pos-embed -> ordering (SAST, HLT or xyz 'MAMBA') -> MixerModel
--> LayerNorm -> mean-pool -> classification head. HLT orders the tokens
-within a bucket by a U(0, 1) draw: in training from the ``generator`` passed
+-> LayerNorm -> mean-pool -> classification head; with ``rms_norm`` every
+norm of the stack is an RMSNorm, with ``add_after_layer`` the stack re-sorts
+its tokens by the eigenvectors after every block (``MixerModelAdd``). HLT
+orders the tokens within a bucket by a U(0, 1) draw: in training from the ``generator`` passed
 to ``forward``, in eval the JAX model's own eval draw (``jax.random.uniform``
 of ``jax.random.key(0)``, reproduced bit for bit), so an eval forward repeats
 and equals the JAX model's on every device. Module names follow the
@@ -35,7 +37,7 @@ import torch.nn.functional as F
 
 from si_mamba_tpu_torch.models.embed import ClsHead, Dropout, PatchEncoder, PosEmbedMLP
 from si_mamba_tpu_torch.models.grouping import group_divider
-from si_mamba_tpu_torch.models.layers import LayerNorm, MixerModel
+from si_mamba_tpu_torch.models.layers import LayerNorm, MixerModel, MixerModelAdd
 from si_mamba_tpu_torch.models.ordering import hlt_sequence, sast_sequence, xyz_sequence
 from si_mamba_tpu_torch.parallel import draws
 from si_mamba_tpu_torch.ops.graph import knn_adjacency, rw_laplacian, sym_laplacian
@@ -106,8 +108,8 @@ class PointMambaConfig:
 
 
 def _check_supported(cfg: PointMambaConfig, mesh: Mesh | None = None) -> None:
-    """Raise for the options whose port is still queued in ROADMAP.md, for
-    the combinations the JAX model refuses too, and for a one-sided tensor
+    """Raise for the combinations the JAX model refuses too (``add_after_layer``
+    with the SSD mixer or with ``tp_axis``), and for a one-sided tensor
     parallelism: ``tp_axis`` without a mesh that has that axis, or a mesh
     with a model axis larger than 1 and no ``tp_axis`` (the check of the JAX
     finetune runner)."""
@@ -125,13 +127,6 @@ def _check_supported(cfg: PointMambaConfig, mesh: Mesh | None = None) -> None:
         if wide:
             raise ValueError(f"the mesh has the axes {wide} of size > 1 but the config no "
                              f"tp_axis: set tp_axis to shard the mixers over one of them")
-    later = {
-        "add_after_layer": cfg.add_after_layer,
-        "rms_norm": cfg.rms_norm,
-    }
-    for name, on in later.items():
-        if on:
-            raise NotImplementedError(f"{name} is not ported yet (ROADMAP.md queue 1, M14)")
     if cfg.spectral_method not in ("eigh", "subspace"):
         raise ValueError(f"unknown spectral_method {cfg.spectral_method!r}")
     if cfg.mixer not in ("mamba", "ssd"):
@@ -201,11 +196,17 @@ class PointMamba(nn.Module):
         self.encoder = PatchEncoder(cfg.encoder_dims)
         self.pos_embed = PosEmbedMLP(cfg.trans_dim)
         self.drop_out = Dropout(cfg.drop_out)
-        self.blocks = MixerModel(cfg.trans_dim, cfg.depth, drop_path=cfg.drop_path,
-                                 drop_out_in_block=cfg.drop_out_in_block,
-                                 scan_impl=cfg.scan_impl, mixer=cfg.mixer,
-                                 ssd_chunk=cfg.ssd_chunk, mesh=mesh, tp_axis=cfg.tp_axis)
-        self.norm = LayerNorm(cfg.trans_dim, eps=1e-5)
+        if cfg.add_after_layer:
+            self.blocks = MixerModelAdd(cfg.trans_dim, cfg.depth, drop_path=cfg.drop_path,
+                                        drop_out_in_block=cfg.drop_out_in_block,
+                                        scan_impl=cfg.scan_impl, rms_norm=cfg.rms_norm)
+        else:
+            self.blocks = MixerModel(cfg.trans_dim, cfg.depth, drop_path=cfg.drop_path,
+                                     drop_out_in_block=cfg.drop_out_in_block,
+                                     scan_impl=cfg.scan_impl, mixer=cfg.mixer,
+                                     ssd_chunk=cfg.ssd_chunk, mesh=mesh, tp_axis=cfg.tp_axis,
+                                     rms_norm=cfg.rms_norm)
+        self.norm = LayerNorm(cfg.trans_dim, eps=1e-5)  # LayerNorm whatever rms_norm says
         self.cls_head_finetune = ClsHead(cfg.trans_dim, cfg.cls_dim, drop=cfg.cls_head_dropout)
         self.reset_parameters(generator or torch.Generator().manual_seed(0))
         if mesh is not None:
@@ -267,19 +268,32 @@ class PointMamba(nn.Module):
         return sast_sequence(eigvecs, tokens, pos, reverse=cfg.reverse, reverse_2=cfg.reverse_2)
 
     def classify(self, x, pos_seq, return_features: bool = False,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, eigvecs=None):
         """Dropout -> Mamba stack -> LayerNorm -> mean-pool -> head: logits
-        (B, cls_dim)."""
+        (B, cls_dim). With ``add_after_layer`` the stack re-sorts by
+        ``eigvecs`` (B, G, k), the ones :meth:`sequence` ordered by (rounded
+        to the activation dtype here, as there)."""
         x = self.drop_out(x, generator)
-        feat = torch.mean(self.norm(self.blocks(x, pos_seq, generator)), dim=1)
+        if self.config.add_after_layer:
+            if eigvecs is None:
+                raise ValueError("add_after_layer re-sorts by the eigenvectors: pass eigvecs")
+            eigvecs = eigvecs.to(self.dtype).to(eigvecs.dtype)
+            h = self.blocks(x, pos_seq, eigvecs, reverse=self.config.reverse,
+                            generator=generator)
+        else:
+            h = self.blocks(x, pos_seq, generator)
+        feat = torch.mean(self.norm(h), dim=1)
         logits = self.cls_head_finetune(feat, generator)
         return (logits, feat) if return_features else logits
 
     def forward(self, pts: torch.Tensor, fps_start_idx=0, return_features: bool = False,
                 generator: torch.Generator | None = None):
         tokens, pos, center = self.embed(pts, fps_start_idx)
-        x, pos_seq = self.sequence(tokens, pos, center, generator=generator)
-        return self.classify(x, pos_seq, return_features, generator)
+        eigvecs = None
+        if self.config.add_after_layer and self.config.method != "MAMBA":
+            _, eigvecs = spectral_eigvecs(center, self.config)
+        x, pos_seq = self.sequence(tokens, pos, center, eigvecs=eigvecs, generator=generator)
+        return self.classify(x, pos_seq, return_features, generator, eigvecs=eigvecs)
 
 
 def cross_entropy_loss_acc(logits: torch.Tensor, labels: torch.Tensor):

@@ -39,7 +39,7 @@ from si_mamba_tpu_torch.models.embed import (
     trunc_normal_,
 )
 from si_mamba_tpu_torch.models.grouping import group_divider
-from si_mamba_tpu_torch.models.layers import Block, LayerNorm
+from si_mamba_tpu_torch.models.layers import Block, LayerNorm, norm_layer
 from si_mamba_tpu_torch.models.ordering import hlt_sequence, sast_sequence, xyz_sequence
 from si_mamba_tpu_torch.models.point_mamba import order_noise, spectral_eigvecs
 from si_mamba_tpu_torch.ops.pointops import pairwise_sqdist
@@ -99,8 +99,6 @@ def _check_supported(cfg: PartSegConfig) -> None:
     if cfg.dtype != "float32":
         raise NotImplementedError(f"dtype={cfg.dtype!r}: the segmentation model runs float32 "
                                   f"(no shipped segmentation preset sets another)")
-    if cfg.rms_norm:
-        raise NotImplementedError("rms_norm is not ported yet (ROADMAP.md, queue 1)")
     if cfg.method not in ("HLT", "SAST", "Point_MAMBA"):
         raise ValueError(f"unknown method {cfg.method!r}")
     if cfg.mixer not in ("mamba", "ssd"):
@@ -111,19 +109,20 @@ def _check_supported(cfg: PartSegConfig) -> None:
 
 class MixerModelForSegmentation(nn.Module):
     """The Mamba (or SSD) block stack that returns ``norm_f`` of the
-    residual stream (hidden + residual) after each block of ``fetch_idx``."""
+    residual stream (hidden + residual) after each block of ``fetch_idx``;
+    every norm an RMSNorm with ``rms_norm``."""
 
     def __init__(self, d_model: int, n_layer: int, fetch_idx=(3, 7, 11), norm_eps: float = 1e-5,
                  drop_path: float = 0.0, scan_impl: str = "auto", mixer: str = "mamba",
-                 ssd_chunk: int = 128):
+                 ssd_chunk: int = 128, rms_norm: bool = False):
         super().__init__()
         self.fetch_idx = tuple(fetch_idx)
         div = math.sqrt(n_layer)
         self.layers = nn.ModuleList(
             Block(d_model, norm_eps=norm_eps, drop_path=drop_path, out_proj_div=div,
-                  scan_impl=scan_impl, mixer=mixer, ssd_chunk=ssd_chunk)
+                  scan_impl=scan_impl, mixer=mixer, ssd_chunk=ssd_chunk, rms_norm=rms_norm)
             for _ in range(n_layer))
-        self.norm_f = LayerNorm(d_model, eps=norm_eps)
+        self.norm_f = norm_layer(d_model, norm_eps, rms_norm)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for layer in self.layers:
@@ -182,7 +181,7 @@ class PartSegModel(nn.Module):
         self.blocks = MixerModelForSegmentation(D, cfg.depth, fetch_idx=cfg.fetch_idx,
                                                 drop_path=cfg.drop_path,
                                                 scan_impl=cfg.scan_impl, mixer=cfg.mixer,
-                                                ssd_chunk=cfg.ssd_chunk)
+                                                ssd_chunk=cfg.ssd_chunk, rms_norm=cfg.rms_norm)
         self.norm = LayerNorm(D, eps=1e-5)
         n_tap = len(set(cfg.fetch_idx)) * D  # one tap a block, as the stack fetches them
         self.label_conv = Linear(cfg.num_categories, 64, bias=False)

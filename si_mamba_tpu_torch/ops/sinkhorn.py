@@ -1,7 +1,10 @@
 """Differentiable sorting by entropic optimal transport (Sinkhorn) with
 hard permutations: the counterpart of ``si_mamba_tpu/ops/sinkhorn.py``'s
 ``sinkhorn_soft_perm``, ``greedy_round``, ``hungarian_round`` and
-``sinkhorn_sort_perm``, the pretraining model's traversal orders.
+``sinkhorn_sort_perm`` (the pretraining model's traversal orders),
+``sinkhorn_perm_ift`` (a soft permutation with the implicit-function
+backward), ``neural_sort_perm`` and ``plackett_luce_log_prob`` (the
+classifier's permutation policy, ``models/permute_policy.py``).
 
 The soft permutation runs the log-domain iterations; under autograd each
 iteration is recomputed in the backward from the (..., N) duals it started
@@ -100,3 +103,82 @@ def sinkhorn_sort_perm(scores: torch.Tensor, epsilon: float = 0.05, n_iters: int
     else:
         raise ValueError(f"unknown rounding {rounding!r}")
     return P_hard + P_hat - P_hat.detach(), P_hat
+
+
+def _sinkhorn_uv(C: torch.Tensor, tau: float, n_iters: int):
+    """The kernel-domain iterations u = 1/(K v), v = 1/(K^T u) on K =
+    exp(-C/tau), all-ones marginals, from u = v = 1/N: (K, u, v)."""
+    K = torch.exp(-C.float() / tau)
+    u = torch.full(C.shape[:-1], 1.0 / C.shape[-1], dtype=torch.float32, device=C.device)
+    v = u
+    for _ in range(n_iters):
+        u = 1.0 / torch.einsum("...ij,...j->...i", K, v)
+        v = 1.0 / torch.einsum("...ji,...j->...i", K, u)
+    return K, u, v
+
+
+class _SinkhornIFT(torch.autograd.Function):
+    """P = diag(u) K diag(v) forward; the backward solves the adjoint of the
+    fixed-point conditions F = (u (K v) - 1, v (K^T u) - 1) instead of
+    unrolling the iterations."""
+
+    @staticmethod
+    def forward(ctx, C, tau, n_iters):
+        K, u, v = _sinkhorn_uv(C, tau, n_iters)
+        ctx.tau = tau
+        ctx.save_for_backward(K, u, v)
+        return u[..., :, None] * K * v[..., None, :]
+
+    @staticmethod
+    def backward(ctx, gradP):
+        K, u, v = ctx.saved_tensors
+        tau = ctx.tau
+        gradP = gradP.float()
+        a = torch.einsum("...ij,...j->...i", K, v)  # K v
+        b = torch.einsum("...ji,...j->...i", K, u)  # K^T u
+        g_u = torch.sum(gradP * K * v[..., None, :], dim=-1)
+        g_v = torch.sum(gradP * K * u[..., :, None], dim=-2)
+        # F_x^T = [[diag(K v), K diag(v)], [K^T diag(u), diag(K^T u)]]
+        F_T = torch.cat([torch.cat([torch.diag_embed(a), K * v[..., None, :]], dim=-1),
+                         torch.cat([K.transpose(-1, -2) * u[..., None, :], torch.diag_embed(b)],
+                                   dim=-1)], dim=-2)
+        # the pseudo-inverse at rtol 1e-6 projects out the gauge direction
+        # (u, v) -> (c u, v / c), an exact null space of F_x
+        lam = torch.einsum("...ij,...j->...i", torch.linalg.pinv(F_T, rtol=1e-6),
+                           torch.cat([g_u, g_v], dim=-1))
+        N = K.shape[-1]
+        P = u[..., :, None] * K * v[..., None, :]
+        gradC = (P * (lam[..., :N, None] + lam[..., None, N:]) - gradP * P) / tau
+        return gradC, None, None
+
+
+def sinkhorn_perm_ift(C: torch.Tensor, tau: float = 1.0, n_iters: int = 20) -> torch.Tensor:
+    """A soft permutation (..., N, N) from the cost C (..., N, N): the
+    kernel-domain Sinkhorn iterations on K = exp(-C/tau), P = diag(u) K
+    diag(v), fp32. Its gradient comes from the implicit-function theorem (the
+    reference's new_layers.py:31-91), memory independent of ``n_iters``, with
+    the JAX package's three corrections of the reference: the adjoint
+    system is F_x^T, the direct term -gP P / tau is kept, and the singular
+    system is solved by a pseudo-inverse (rtol 1e-6)."""
+    return _SinkhornIFT.apply(C, tau, n_iters)
+
+
+def neural_sort_perm(scores: torch.Tensor, tau: float = 1.0) -> torch.Tensor:
+    """The NeuralSort relaxation (reference ``neural_sort``) with
+    straight-through greedy rounding: (..., N) -> (..., N, N), row i the
+    (i+1)-th largest score, the value of the hard permutation and the
+    gradient of the soft one."""
+    s = scores.float()
+    n = s.shape[-1]
+    Asum = torch.sum(torch.abs(s[..., :, None] - s[..., None, :]), dim=-1)
+    c = n + 1 - 2 * torch.arange(1, n + 1, dtype=s.dtype, device=s.device)
+    P_hat = torch.softmax((c[:, None] * s[..., None, :] - Asum[..., None, :]) / tau, dim=-1)
+    return greedy_round(P_hat) + P_hat - P_hat.detach()
+
+
+def plackett_luce_log_prob(logits: torch.Tensor) -> torch.Tensor:
+    """log P of the identity ordering under Plackett-Luce (reference
+    ``plackett_luce_dist``): sum_i (l_i - logsumexp(l_i, ..., l_N)) over the
+    last axis."""
+    lse = torch.logcumsumexp(logits.flip(-1), dim=-1).flip(-1)
+    return torch.sum(logits - lse, dim=-1)

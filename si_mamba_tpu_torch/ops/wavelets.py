@@ -1,8 +1,11 @@
-"""Diffusion wavelets for the pretraining model's traversal orders: the
+"""Graph wavelets for the pretraining model's traversal orders: the
 counterpart of ``_expm_neg_psd``, ``_topk_colspace``,
 ``diffusion_wavelet_bases``, ``DiffusionWaveletSGWT`` and ``scale_scores`` in
 ``si_mamba_tpu/ops/wavelets.py`` (the reference's DiffusionWavelets and
-DiffusionWaveletSGWT, models/point_mamba.py:1826-2087).
+DiffusionWaveletSGWT, models/point_mamba.py:1826-2087), and of its standalone
+transforms, which no model calls (the reference's pretraining ablations):
+``chebyshev_sgwt`` (the Meyer tight-frame Chebyshev SGWT), ``complex_meyer_sgwt``
+and ``graph_scattering``.
 
 No parameter lies upstream of the bases (they come from the centres' kNN
 graph), so they are computed without a gradient. ``DiffusionWaveletSGWT``
@@ -21,6 +24,7 @@ import torch
 import torch.nn as nn
 
 from si_mamba_tpu_torch.ops.jacobi import jacobi_eigh
+from si_mamba_tpu_torch.ops.spectral import tril_symmetrize
 from si_mamba_tpu_torch.parallel import draws
 from si_mamba_tpu_torch.parallel.collectives import psum
 from si_mamba_tpu_torch.parallel.mesh import batch_axis
@@ -220,3 +224,112 @@ def scale_scores(coeffs: torch.Tensor, k: int | None = None,
     else:
         raise ValueError(strategy)
     return score[..., ids]
+
+
+# ---------------------------------------------------------------------------
+# the standalone transforms: Chebyshev SGWT, complex Meyer SGWT, scattering
+# ---------------------------------------------------------------------------
+
+def _meyer_window(lam: torch.Tensor, lam1: float = 0.5, lam2: float = 1.0) -> torch.Tensor:
+    t = torch.clamp((lam - lam1) / (lam2 - lam1), 0.0, 1.0)
+    mid = 0.5 * (1.0 + torch.cos(math.pi * t))
+    return torch.where(lam < lam1, 1.0, torch.where(lam > lam2, 0.0, mid))
+
+
+def _chebyshev_terms(x: torch.Tensor, L: torch.Tensor, K: int) -> torch.Tensor:
+    """T_k(L - I) x for k < K: (K, B, N, F)."""
+    L_hat = L - torch.eye(L.shape[-1], dtype=x.dtype, device=x.device)
+    polys = [x, L_hat @ x]
+    for _ in range(2, K):
+        polys.append(2.0 * (L_hat @ polys[-1]) - polys[-2])
+    return torch.stack(polys[:K], dim=0)
+
+
+def chebyshev_sgwt(x: torch.Tensor, laplacian: torch.Tensor, K: int = 25, J: int = 4,
+                   tight_frame: bool = True, scales: list[float] | None = None,
+                   lam_max: float = 2.0) -> torch.Tensor:
+    """The Chebyshev-polynomial SGWT (the reference's GraphWaveletTransform):
+    x (B, N, F) on the graph of ``laplacian`` (B, N, N) -> (B, N, F (J + 1))
+    with ``tight_frame`` (the Meyer scaling kernel and J dyadic wavelets),
+    else (B, N, F len(scales)) with the kernels t lam e^(-t lam)."""
+    P = _chebyshev_terms(x, laplacian, K)
+    lam = torch.cos(math.pi * torch.arange(K, dtype=x.dtype, device=x.device) / K) + 1.0
+    if tight_frame:
+        def g(l):
+            return torch.sqrt(torch.clamp(1.0 - _meyer_window(l / lam_max) ** 2, min=0.0))
+
+        weights = [_meyer_window(lam / lam_max)] + [g(lam * 2.0 ** j) for j in range(J)]
+    else:
+        if scales is None:
+            raise ValueError("chebyshev_sgwt without tight_frame needs scales")
+        weights = [(t * lam) * torch.exp(-t * lam) for t in scales]
+    return torch.cat([torch.einsum("k,kbnf->bnf", w, P) for w in weights], dim=2)
+
+
+def _jackson_damping(K: int) -> torch.Tensor:
+    k = torch.arange(K, dtype=torch.float32)
+    a = math.pi / (K + 1)
+    return ((K - k + 1) * torch.cos(a * k) + torch.sin(a * k) / math.tan(a)) / (K + 1)
+
+
+def complex_meyer_sgwt(x: torch.Tensor, L: torch.Tensor, J: int = 3, K: int = 30,
+                       lam_max: float = 2.0, use_complex: bool = True, use_delta: bool = False,
+                       jackson: bool = False) -> torch.Tensor:
+    """The analytic complex Meyer SGWT (the reference's ComplexMeyerSGWT):
+    x (B, N, F) on the graph of L (B, N, N) -> (B, N, F, C), complex64 with
+    ``use_complex``, C = J bands (and first, with ``use_delta``, a band
+    around lambda_1, the eigenvalues from ``eigvalsh`` of L's lower
+    triangle); ``jackson`` damps the Chebyshev terms."""
+    T = _chebyshev_terms(x, L, K)
+    k_vec = torch.arange(K, dtype=x.dtype, device=x.device)
+    lam_k = (torch.cos(math.pi * k_vec / K) + 1.0) * (lam_max / 2)
+    gamma = _jackson_damping(K).to(x.device) if jackson else None
+
+    def band(real, imag=None):
+        if not use_complex:
+            return real
+        return real.to(torch.complex64) if imag is None else torch.complex(real, imag)
+
+    bands = []
+    if use_delta:
+        eigvals = torch.linalg.eigvalsh(tril_symmetrize(L))
+        lam0, lam1 = eigvals[:, 0], eigvals[:, 1]
+        eps = torch.clamp_min(torch.clamp_min((lam1 - lam0) * 0.5, 0.05 * lam_max), lam_max / K)
+        diff = lam_k[None, :] - lam1[:, None]
+        g_delta = torch.where(diff.abs() <= eps[:, None],
+                              torch.cos(0.5 * math.pi * diff / eps[:, None]), 0.0)
+        if gamma is not None:
+            g_delta = g_delta * gamma[None]
+        bands.append(band(torch.einsum("bk,kbnf->bnf", g_delta, T)))
+    for j in range(J):
+        lam1, lam2 = lam_max / 2 ** (j + 1), lam_max / 2 ** j
+        nu = torch.clamp((lam_k - lam1) / (lam2 - lam1), 0.0, 1.0)
+        gk, hk = torch.sin(0.5 * math.pi * nu), torch.cos(0.5 * math.pi * nu)
+        if gamma is not None:
+            gk, hk = gk * gamma, hk * gamma
+        real = torch.einsum("k,kbnf->bnf", gk, T)
+        bands.append(band(real, torch.einsum("k,kbnf->bnf", hk, T) if use_complex else None))
+    return torch.stack(bands, dim=-1)
+
+
+def graph_scattering(x: torch.Tensor, L: torch.Tensor, sgwt_fn, level: int = 2,
+                     nonlin=torch.abs) -> torch.Tensor:
+    """Second-order graph scattering (the reference's GraphScattering) over an
+    SGWT ``sgwt_fn(x, L)`` that returns (B, N, F, J + 1), channel 0 the
+    scaling band: [S0, |b1_j| for each j, and at ``level`` 2 |b2_jk| for
+    j < k], stacked on the last axis in their common dtype."""
+    coeffs = sgwt_fn(x, L)
+    S0, b1 = coeffs[..., 0], coeffs[..., 1:]
+    B, N, F, J = b1.shape
+    if level >= 1:
+        b1 = nonlin(b1)
+    outputs = [S0] + list(b1.movedim(-1, 0))
+    if level >= 2:
+        U1 = b1.movedim(-1, 1).reshape(B * J, N, F)
+        coeffs2 = sgwt_fn(U1, torch.repeat_interleave(L, J, dim=0))
+        b2 = nonlin(coeffs2.reshape(B, J, N, F, -1)[..., 1:])
+        outputs += [b2[:, j, :, :, k] for j in range(J) for k in range(j + 1, J)]
+    dtype = outputs[0].dtype
+    for o in outputs[1:]:
+        dtype = torch.promote_types(dtype, o.dtype)
+    return torch.stack([o.to(dtype) for o in outputs], dim=-1)

@@ -1,14 +1,15 @@
 """Weights in the reference's state-dict layout.
 
 - :func:`state_dict_from_jax` / :func:`partseg_state_dict_from_jax` /
-  :func:`point_mae_state_dict_from_jax`: the JAX package's flax variables of
-  the classifier / the part-segmentation model / the pretraining model (as
-  numpy arrays) -> this package's state dict. The layout rules
+  :func:`point_mae_state_dict_from_jax` / :func:`permute_policy_state_dict_from_jax`:
+  the JAX package's flax variables of the classifier / the part-segmentation
+  model / the pretraining model / the permutation policy (as numpy arrays)
+  -> this package's state dict. The layout rules
   are the same as the JAX package's ``utils/torch_export.py``: Dense
   kernels (in, out) transpose to Linear weights (out, in), k=1 conv kernels
   gain a trailing axis, the mixer conv (d, W) becomes (d, 1, W), BatchNorm
   scale/bias + batch_stats become weight/bias/running_mean/running_var
-  (+ ``num_batches_tracked``).
+  (+ ``num_batches_tracked``), an RMSNorm's scale its weight.
 - :func:`load_state_dict_file`: a reference-format ``.pth``
   (``{'base_model': state_dict, ...}``), with the ``module.`` /
   ``MAE_encoder.`` / ``base_model.`` prefixes stripped. An orbax directory
@@ -43,8 +44,10 @@ def _conv1x1(out, key, p) -> None:
 
 
 def _ln(out, key, p) -> None:
+    """A LayerNorm's scale and bias, or an RMSNorm's scale alone."""
     out[f"{key}.weight"] = _t(p["scale"])
-    out[f"{key}.bias"] = _t(p["bias"])
+    if "bias" in p:
+        out[f"{key}.bias"] = _t(p["bias"])
 
 
 def _bn(out, key, p, s) -> None:
@@ -77,9 +80,10 @@ def _ssd_mixer(out, key, m) -> None:
 
 
 def _stack(out, blocks, key) -> None:
-    """A MixerModel's blocks and final norm under ``key``. The depth is read
-    from the block tree, and each mixer's kind from its keys (the SSD mixer
-    has ``norm_scale``, Mamba-1 ``x_proj``)."""
+    """A MixerModel's (or MixerModelAdd's, which has the same tree) blocks
+    and final norm under ``key``. The depth is read from the block tree, and
+    each mixer's kind from its keys (the SSD mixer has ``norm_scale``,
+    Mamba-1 ``x_proj``)."""
     depth = sum(1 for k in blocks if k.startswith("layers_"))
     for i in range(depth):
         _ln(out, f"{key}.layers.{i}.norm", blocks[f"layers_{i}"]["norm"])
@@ -109,7 +113,9 @@ def state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any
                         ) -> Dict[str, torch.Tensor]:
     """The JAX ``PointMamba``'s variables (``params``, ``batch_stats``, as
     nested dicts of arrays) -> a state dict that ``PointMamba`` loads with
-    ``strict=True``."""
+    ``strict=True``; with ``rms_norm`` the stack's norms are RMSNorms, with
+    ``add_after_layer`` the stack is ``MixerModelAdd``, both under the same
+    ``blocks.*`` keys."""
     out: Dict[str, torch.Tensor] = {}
     _backbone(out, params, batch_stats)
     head, head_s = params["cls_head_finetune"], batch_stats["cls_head_finetune"]
@@ -150,7 +156,9 @@ def point_mae_state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mappin
     ``utils/torch_import.import_point_mae`` reads): ``MAE_encoder.{encoder,
     pos_embed, blocks, norm}``, ``MAE_decoder.{blocks, norm}``,
     ``mask_token``, ``increase_dim.0`` (a k=1 conv) and ``diff_sgwt.pos_embed.
-    {0,2}`` / ``diff_sgwt.mixer.{0,1,3,4,6}``. A finetune run takes the
+    {0,2}`` / ``diff_sgwt.mixer.{0,1,3,4,6}``; the legacy 'MAMBA' model has
+    ``decoder_pos_embed.{0,2}`` (the reference's key) in place of
+    ``diff_sgwt``. A finetune run takes the
     encoder's keys from it (``MAE_encoder.`` is one of the prefixes that
     :func:`_strip_prefixes` drops)."""
     out: Dict[str, torch.Tensor] = {}
@@ -159,6 +167,10 @@ def point_mae_state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mappin
     _ln(out, "MAE_decoder.norm", params["decoder_norm"])
     out["mask_token"] = _t(np.asarray(params["mask_token"]).reshape(1, 1, -1))
     _conv1x1(out, "increase_dim.0", params["increase_dim"])
+    if "decoder_pos_embed" in params:
+        _dense(out, "decoder_pos_embed.0", params["decoder_pos_embed"]["fc1"])
+        _dense(out, "decoder_pos_embed.2", params["decoder_pos_embed"]["fc2"])
+        return out
     sg = params["diff_sgwt"]
     for key, name in (("pos_embed.0", "pos_embed_fc1"), ("pos_embed.2", "pos_embed_fc2"),
                       ("mixer.0", "mixer_fc1"), ("mixer.3", "mixer_fc2"),
@@ -166,6 +178,25 @@ def point_mae_state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mappin
         _dense(out, f"diff_sgwt.{key}", sg[name])
     _ln(out, "diff_sgwt.mixer.1", sg["mixer_ln1"])
     _ln(out, "diff_sgwt.mixer.4", sg["mixer_ln2"])
+    return out
+
+
+def permute_policy_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``PermutePolicy``'s params -> a state dict that the port's
+    ``PermutePolicy`` loads with ``strict=True``. No source the port can read
+    cites the reference's torch keys for these layers, so the keys are the
+    JAX names: ``eigen_fc1``, ``eigen_fc2``, ``logit_blocks.{layers.{i},
+    norm_f}``, ``logit_norm``, ``logit_head_{fc1,ln,fc2}`` and
+    ``logit_head2_{fc1,ln,fc2}``."""
+    out: Dict[str, torch.Tensor] = {}
+    _dense(out, "eigen_fc1", params["eigen_fc1"])
+    _dense(out, "eigen_fc2", params["eigen_fc2"])
+    _stack(out, params["logit_blocks"], "logit_blocks")
+    _ln(out, "logit_norm", params["logit_norm"])
+    for head in ("logit_head", "logit_head2"):
+        _dense(out, f"{head}_fc1", params[f"{head}_fc1"])
+        _ln(out, f"{head}_ln", params[f"{head}_ln"])
+        _dense(out, f"{head}_fc2", params[f"{head}_fc2"])
     return out
 
 

@@ -148,8 +148,8 @@ def test_registry_builds_pointmamba_and_names_what_is_not_ported():
         "num_group": 16, "encoder_dims": 32, "knn_graph": 4, "not_a_field": 1}, "cpu")
     assert cfg.trans_dim == 32 and cfg.depth == 2 and len(model.blocks.layers) == 2
     # (the test's name is kept from when the pretraining model was not
-    # ported): Point_MAE_Mamba builds from its transformer_config, and its
-    # legacy 'MAMBA' path and the 'emd' loss raise with their ROADMAP item
+    # ported): Point_MAE_Mamba builds from its transformer_config, its legacy
+    # 'MAMBA' path (decoder_pos_embed, no diff_sgwt) and the 'emd' loss too
     mae, mae_cfg = build_model_from_cfg({
         "NAME": "Point_MAE_Mamba", "group_size": 8, "num_group": 16, "loss": "cdl2",
         "transformer_config": {"trans_dim": 32, "encoder_dims": 32, "depth": 2,
@@ -157,9 +157,12 @@ def test_registry_builds_pointmamba_and_names_what_is_not_ported():
         "cpu")
     assert (mae_cfg.trans_dim, mae_cfg.depth, mae_cfg.num_group) == (32, 2, 16)
     assert len(mae.MAE_encoder.blocks.layers) == 2 and len(mae.MAE_decoder.blocks.layers) == 1
-    for bad in ({"method": "MAMBA"}, {"loss": "emd"}):
-        with pytest.raises(NotImplementedError, match="M16b"):
-            build_model_from_cfg({"NAME": "Point_MAE_Mamba", "transformer_config": bad}, "cpu")
+    for more in ({"method": "MAMBA"}, {"loss": "emd"}):
+        other, other_cfg = build_model_from_cfg(
+            {"NAME": "Point_MAE_Mamba", "transformer_config": more}, "cpu")
+        assert {k: getattr(other_cfg, k) for k in more} == more
+        assert hasattr(other, "decoder_pos_embed") == (more.get("method") == "MAMBA")
+        assert hasattr(other, "diff_sgwt") != (more.get("method") == "MAMBA")
     seg, seg_cfg = build_model_from_cfg({
         "NAME": "PartSegModel", "trans_dim": 32, "encoder_dims": 32, "depth": 4,
         "fetch_idx": [1, 2, 3], "num_group": 16, "group_size": 8, "knn_graph": 4}, "cpu")

@@ -585,9 +585,8 @@ def test_cli_refuses_cuda_without_a_gpu(modelnet_tree, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("case,match", [
-    ("legacy_mae", "M16b"), ("tsne", "M21"), ("orbax_ckpts", "export_torch"),
-    ("orbax_finetune", "export_torch"), ("orbax_predictor", "export_torch"),
-    ("add_after_layer", "M14")])
+    ("tsne", "M21"), ("orbax_ckpts", "export_torch"),
+    ("orbax_finetune", "export_torch"), ("orbax_predictor", "export_torch")])
 def test_unported_paths_raise_with_their_roadmap_item(modelnet_tree, tmp_path, monkeypatch,
                                                      case, match):
     monkeypatch.chdir(tmp_path)
@@ -597,19 +596,10 @@ def test_unported_paths_raise_with_their_roadmap_item(modelnet_tree, tmp_path, m
     base = ["--device", "cpu", "--num_workers", "0"]
     cfg = str(_experiment(tmp_path, modelnet_tree))
     with pytest.raises(NotImplementedError, match=match):
-        if case == "legacy_mae":  # MAE pretraining's legacy 'MAMBA' path
-            legacy = tmp_path / "legacy.yaml"
-            legacy.write_text(f"_base_: {ROOT / 'cfgs' / 'dev' / 'tiny_pretrain_cpu.yaml'}\n"
-                              "model: {transformer_config: {method: MAMBA}}\n")
-            cli.main(["--config", str(legacy)] + base)
-        elif case == "tsne":
+        if case == "tsne":
             cli.main(["--config", cfg, "--tsne"] + base)
         elif case == "orbax_ckpts":
             cli.main(["--config", cfg, "--test", "--ckpts", str(orbax_dir)] + base)
-        elif case == "add_after_layer":  # MixerModelAdd
-            add = tmp_path / "add.yaml"
-            add.write_text(f"_base_: {cfg}\nmodel: {{add_after_layer: true}}\n")
-            cli.main(["--config", str(add)] + base)
         elif case == "orbax_finetune":
             cli.main(["--config", cfg, "--finetune_model", str(orbax_dir)] + base)
         else:

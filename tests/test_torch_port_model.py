@@ -150,8 +150,7 @@ def test_fresh_model_is_seeded_and_finite():
     assert torch.isfinite(logits).all()
 
 
-@pytest.mark.parametrize("override", [dict(add_after_layer=True),
-                                      dict(mixer="ssd", add_after_layer=True),
+@pytest.mark.parametrize("override", [dict(mixer="ssd", add_after_layer=True),
                                       dict(tp_axis="model", add_after_layer=True),
                                       dict(dtype="float16"),
                                       dict(reverse_3=True)])
