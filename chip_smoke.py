@@ -350,7 +350,25 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    seeded ModelNetFewshot pickle of 1024-point clouds written under build/fewshot/ (50
    train, 100 test): one step (K1, K3, K4, K5 12 times), the validation forwards (K1, K2 12
    times each), the head 5 wide, then ``--test`` of its ckpt-last.pth equal to the
-   validation.
+   validation;
+47. (after phase 46) the HTTP server: the published classifier (seeded weights) in a
+   ``Predictor`` (npoints 1024, max_batch 64) behind ``serve_http.make_server`` on 127.0.0.1,
+   256 requests from one client in turn, then 512 from 16 client threads (half ``.npy``,
+   half JSON): K1 and K2 12 times for each coalesced batch, every reply's label and probs (1e-4)
+   those of ``predict_proba`` of its cloud alone, a mean batch above 1 on ``/healthz``, the
+   400 and 404 paths; p50 and p99 at 1 and 16 clients;
+48. ``scan_impl='assoc'`` (the whole-sequence log-depth scan, plain PyTorch): one mixer at
+   B=32, L=512, d_inner 768, y and every gradient against the kernel route, each route's
+   time and peak; the 12-block classifier's logits under 'assoc' against 'auto' at B=32,
+   and its forward + backward at B=8 beside the kernel route's (peaks, times);
+49. (run by the two ranks of phases 11-14, after them) the Mamba-1 sequence-parallel scan at
+   layer 0's operands, B=32, L=512 (256 a rank): y and every gradient against the one-rank
+   plain scan, forward and forward + backward timed, no kernel launched;
+50. ``--tsne`` through the CLI on phase 15's tree and ckpt-last.pth (K1 and K2 12 times a
+   test batch, the t-SNE of the 80 features on the card, a PNG that decodes), the t-SNE
+   alone at 2468 seeded features, ``vis_run`` of phase 33's ckpt-last.pth on 16 seeded
+   clouds (K1 and K2 16 times a batch, the text dumps and PNG renders), and the host
+   ``native.fps_cpu`` (built with g++) equal to the device FPS on 8 clouds of 8192 points.
 
 Each path (serving, train, perf serving, perf train, SSD serving, SSD train,
 SSD perf serving, SSD perf train, fused serving, fused train, fused perf
@@ -361,17 +379,19 @@ two held seg forwards and the two seg CLI runs, the held MAE loss and feature
 forwards, the MAE stack's train pass, the two pretraining CLI runs, the hardest scan's CLI
 run and held forward, the rms_norm and add_after_layer classifiers' serving and train, the
 SSD rms_norm classifier's held step, the policy's forward and gradient, the held legacy MAE
-loss and feature forwards and its CLI run, the few-shot CLI run and its test run, and on
+loss and feature forwards and its CLI run, the few-shot CLI run and its test run, the HTTP
+server's 16 clients, the ``--tsne`` CLI run and ``vis_run``, and on
 each rank TP SSD serving,
 TP SSD train, SP, SP train, TP Mamba-1 serving, bf16 TP SSD serving and
-train, bf16 SP and SP train, bf16 TP Mamba-1 serving and train, and rank 0's DP step, DP
+train, bf16 SP and SP train, bf16 TP Mamba-1 serving and train, the Mamba-1 SP scan, and
+rank 0's DP step, DP
 forward, DP CLI run and vote, DP seg and pretraining CLI runs, pipelined forward and
 backward, and DP x TP step) is driven with every launch count set to 0 just before it and
 read just after. The last five
 lines of standard output are the harness's record, the serving, profile,
 train and gradient record of the three models (and perf mode's, the SSD
 presets' and fused perf mode's serving, profile, train and CLI records, part
-segmentation's, MAE pretraining's and phases 42-46's), the kernels' record (each one
+segmentation's, MAE pretraining's, phases 42-46's and 47-50's), the kernels' record (each one
 JSON object; every kernel names its ``main_path`` and its launches on every
 path, rank 0's for the parallel paths), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -3206,8 +3226,8 @@ def tp_mamba_rank(device, mesh, rank: int) -> tuple[dict, dict]:
 
 
 def parallel_rank(rank: int, rdzv: str, out_dir: str) -> None:
-    """One rank of phases 11-14 (a spawned process on cuda:0, gloo over the
-    loopback interface; a collective that waits 10 minutes fails)."""
+    """One rank of phases 11-14 and 49 (a spawned process on cuda:0, gloo
+    over the loopback interface; a collective that waits 10 minutes fails)."""
     import datetime
 
     import torch.distributed as dist
@@ -3233,13 +3253,15 @@ def parallel_rank(rank: int, rdzv: str, out_dir: str) -> None:
         paths["sp_bf16"], paths["sp_bf16_train"], out["sp_bf16"] = sp_bf16_rank(device, rank)
         paths["tp_mamba_perf_serving"], paths["tp_mamba_perf_train"], out["tp_mamba_perf"] = \
             tp_mamba_perf_rank(device, mesh, rank)
+        torch.cuda.empty_cache()
+        paths["sp_mamba"], out["sp_mamba"] = sp_mamba_rank(device, rank)
         torch.save({"paths": paths, "records": out}, f"{out_dir}/parallel_rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
 def parallel_phases(card: str) -> tuple[dict, dict]:
-    """Phases 11-14 on TP = 2 ranks, spawned on the one card. Returns (each
+    """Phases 11-14 and 49 on TP = 2 ranks, spawned on the one card. Returns (each
     path's launches on rank 0, the record); fails unless both ranks ran
     every phase with the same launches and the same losses, and the
     gathered B = 4 gradients match the single-process model's."""
@@ -3305,12 +3327,14 @@ def parallel_phases(card: str) -> tuple[dict, dict]:
     log(f"Mamba-1 TP: {rec['tp_mamba_serving']}; ranks' wall {wall:.1f} s")
     log(f"bf16 TP SSD: {rec['tp_ssd_perf']}; bf16 SP: {rec['sp_bf16']}")
     log(f"bf16 TP Mamba-1: {rec['tp_mamba_perf']}")
+    log(f"Mamba-1 SP scan (phase 49): {[r['records']['sp_mamba'] for r in ranks]}")
     record = {"ranks": TP, "backend": "gloo", "wall_s": wall, "card": card,
               "tp_ssd_serving": rec["tp_ssd_serving"],
               "tp_ssd_train": {f"rank{r}": t for r, t in enumerate(train)},
               "sp": rec["sp"], "tp_mamba_serving": rec["tp_mamba_serving"],
               "tp_ssd_perf": rec["tp_ssd_perf"], "sp_bf16": rec["sp_bf16"],
-              "tp_mamba_perf": rec["tp_mamba_perf"]}
+              "tp_mamba_perf": rec["tp_mamba_perf"],
+              "sp_mamba": {f"rank{r}": x["records"]["sp_mamba"] for r, x in enumerate(ranks)}}
     return ranks[0]["paths"], record
 
 
@@ -5224,6 +5248,507 @@ def options_phases(device, card: str) -> tuple[dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# the last modules (phases 47-50): the HTTP server, the associative scan, the
+# Mamba-1 sequence-parallel scan (run by the ranks of phases 11-14), the
+# utilities
+# ---------------------------------------------------------------------------
+
+SERVE_CLIENTS = 16
+SERVE_REQUESTS = 512  # from SERVE_CLIENTS threads, half .npy, half JSON
+SERVE_SINGLE = 256  # one client's requests in turn (a p99 over 256 samples, not a maximum)
+SERVE_DELAY_MS = 5.0  # the server's default max_delay_ms
+ASSOC_EVAL_BATCH = 32  # the 12-block classifier's eval forward under 'assoc'
+ASSOC_TRAIN_BATCH = 8  # its forward + backward: (b, l, d, n) fp32 tensors of every level kept
+TSNE_FEATURES = 2468  # the ModelNet40 test split's clouds
+TSNE_DIM = 256  # the classifier's pooled feature width
+VIS_SAMPLES, VIS_BATCH = 16, 8
+NATIVE_CLOUDS, NATIVE_POINTS, NATIVE_SAMPLES = 8, 8192, 1024
+
+
+def _http(url: str, path: str, data: bytes | None = None, content_type: str | None = None):
+    """(status, the JSON reply) of one request to the phase's server."""
+    import urllib.error
+    import urllib.request
+
+    headers = {"Content-Type": content_type} if content_type else {}
+    req = urllib.request.Request(url + path, data=data, headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _latency(seconds) -> dict:
+    ms = np.asarray(seconds) * 1e3
+    return {"p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+            "mean_ms": float(ms.mean()), "requests": int(ms.size)}
+
+
+def serve_http_phase(device, card: str) -> tuple[dict, dict]:
+    """Phase 47: the published classifier (12 x 384, seeded weights) in a
+    ``Predictor`` (npoints 1024, max_batch 64) behind ``serve_http.make_server``
+    on 127.0.0.1 (a free port, max_delay_ms 5): SERVE_SINGLE requests from
+    one client in turn, then SERVE_REQUESTS from SERVE_CLIENTS threads at once
+    (half ``.npy``, half JSON bodies), that run's launches counted from 0:
+    K1 and K2 12 times each for every coalesced batch, nothing else. Every
+    reply's label is ``predict_proba``'s of its cloud alone and its probs lie
+    within 1e-4 of it; ``/healthz`` reports a mean batch above 1; a malformed
+    body answers 400 and an unknown route 404. Returns ({path: launches},
+    the record)."""
+    import io
+    import threading
+
+    from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
+    from si_mamba_tpu_torch.serve_http import make_server, shutdown_server
+    from si_mamba_tpu_torch.serving import Predictor
+
+    model = PointMamba(PointMambaConfig.from_dict(MODELNET40),
+                       generator=torch.Generator().manual_seed(0))
+    cfg = model.config
+    if (cfg.trans_dim, cfg.depth, cfg.num_group) != (384, 12, 64):
+        raise AssertionError(f"the served model is not the published one: {cfg}")
+    predictor = Predictor(model, npoints=NPOINTS, max_batch=64, device=device)
+    predictor.warmup()
+    pts = clouds(SERVE_REQUESTS, seed=47)
+
+    def body(i):
+        if i % 2:
+            return json.dumps({"points": pts[i].tolist()}).encode(), "application/json"
+        buf = io.BytesIO()
+        np.save(buf, pts[i])
+        return buf.getvalue(), "application/octet-stream"
+
+    bodies = [body(i) for i in range(SERVE_REQUESTS)]
+    server = make_server(predictor.predict_proba, host="127.0.0.1", port=0, max_batch=64,
+                         max_delay_ms=SERVE_DELAY_MS)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    batcher = server.RequestHandlerClass.batcher
+
+    def post(i):
+        t = time.perf_counter()
+        status, reply = _http(url, "/predict", *bodies[i])
+        return status, reply, time.perf_counter() - t
+
+    try:
+        single = [post(i) for i in range(SERVE_SINGLE)]
+        replies: list = [None] * SERVE_REQUESTS
+
+        def client(c):
+            for i in range(c, SERVE_REQUESTS, SERVE_CLIENTS):
+                replies[i] = post(i)
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+        n_batches0, n_requests0 = batcher.n_batches, batcher.n_requests
+        torch.cuda.synchronize()
+        _reset_launch_counts()  # phase 47's path: the 16 clients' requests
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        launches = _launch_counts()
+        n_batches = batcher.n_batches - n_batches0
+        n_requests = batcher.n_requests - n_requests0
+        health = _http(url, "/healthz")
+        bad = _http(url, "/predict", b"not a cloud", "application/octet-stream")
+        missing = _http(url, "/nope")
+    finally:
+        shutdown_server(server)
+    failed = [r and r[:2] for r in replies + single if r is None or r[0] != 200]
+    if failed:
+        raise AssertionError(f"{len(failed)} requests failed: {failed[:3]}")
+    if n_requests != SERVE_REQUESTS:
+        raise AssertionError(f"the batcher took {n_requests} requests, not {SERVE_REQUESTS}")
+    want = _expect(cfg.depth * n_batches, EVAL_KERNELS)
+    if launches != want:
+        raise AssertionError(f"{n_batches} coalesced batches launched {launches}; expected {want}")
+    if health[0] != 200 or not health[1]["mean_batch_size"] > 1.0:
+        raise AssertionError(f"/healthz: {health}")
+    if bad[0] != 400 or missing[0] != 404:
+        raise AssertionError(f"the error paths answered {bad} and {missing}")
+    worst = 0.0
+    for i, (_, reply, _) in enumerate(replies):
+        alone = predictor.predict_proba(pts[i:i + 1])[0]
+        err = float(np.abs(np.asarray(reply["probs"]) - alone).max())
+        worst = max(worst, err)
+        if reply["label"] != int(alone.argmax()) or err > 1e-4:
+            raise AssertionError(f"request {i}: served {reply['label']} with probs {err} from "
+                                 f"predict_proba of the cloud alone ({int(alone.argmax())})")
+    record = {"one_client": _latency([r[2] for r in single]),
+              "clients": SERVE_CLIENTS,
+              "many_clients": _latency([r[2] for r in replies]),
+              "many_clients_wall_s": wall, "requests_per_s": SERVE_REQUESTS / wall,
+              "coalesced_batches": n_batches, "mean_batch_size": n_requests / n_batches,
+              "healthz": health[1], "max_delay_ms": SERVE_DELAY_MS,
+              "worst_prob_diff_vs_alone": worst, "card": card}
+    log(f"serve_http: 1 client p50 {record['one_client']['p50_ms']:.3f} ms, p99 "
+        f"{record['one_client']['p99_ms']:.3f} ms over {SERVE_SINGLE} requests; {SERVE_CLIENTS} "
+        f"clients p50 {record['many_clients']['p50_ms']:.3f} ms, p99 "
+        f"{record['many_clients']['p99_ms']:.3f} ms over {SERVE_REQUESTS} requests, "
+        f"in {n_batches} batches (mean "
+        f"{n_requests / n_batches:.2f}), "
+        f"{record['requests_per_s']:.1f} requests/s; probs within {worst:.2e} of each cloud "
+        f"alone; {card}")
+    return {"serve_http": launches}, record
+
+
+def _peak_run(device, fn) -> tuple[object, float, float]:
+    """(fn(), its peak allocation above what was allocated before it in GiB,
+    its wall ms to a synchronise)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, (torch.cuda.max_memory_allocated(device) - base) / 2**30, ms
+
+
+def assoc_phase(device) -> dict:
+    """Phase 48: ``impl='assoc'`` (the whole-sequence log-depth scan in plain
+    PyTorch) against the kernel route. One mixer at B=32, L=512, d_inner 768:
+    y within 1e-4 of its max and every gradient within GRAD_TOL of its max
+    from 'pallas' (K1-K5); each route's wall time (the second call) and
+    peak. The 12-block classifier's eval logits under 'assoc' against 'auto'
+    at B=ASSOC_EVAL_BATCH (atol 1e-3 max, rtol 2e-3), and its train-mode
+    forward + backward at B=ASSOC_TRAIN_BATCH beside the kernel route's: peaks
+    and times. Returns the record."""
+    from si_mamba_tpu_torch.models import PointMamba, PointMambaConfig
+    from si_mamba_tpu_torch.ops.selective_scan import mamba_mixer_apply
+
+    mixer, p, _ = mixer_inputs(device)
+    rng = np.random.default_rng(48)
+    x = torch.from_numpy(rng.standard_normal((TRAIN_BATCH, 512, MODELNET40["trans_dim"]),
+                                             dtype=np.float32)).to(device)
+    g = torch.from_numpy(rng.standard_normal(tuple(x.shape), dtype=np.float32)).to(device)
+
+    def step(impl):
+        leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+        xx = x.clone().requires_grad_()
+        y = mamba_mixer_apply(leaves, xx, d_state=mixer.d_state, dt_rank=mixer.dt_rank,
+                              impl=impl)
+        torch.sum(y * g).backward()
+        return y.detach(), {**{k: v.grad for k, v in leaves.items()}, "x": xx.grad}
+
+    mix = {}
+    for impl in ("pallas", "assoc"):
+        step(impl)  # warm: builds, allocator
+        out, peak, ms = _peak_run(device, lambda: step(impl))
+        mix[impl] = {"out": out, "peak_gib": peak, "fwd_bwd_ms": ms}
+    y_err = _rel_err(mix["assoc"]["out"][0], mix["pallas"]["out"][0])
+    g_err = {k: _rel_err(v, mix["pallas"]["out"][1][k])[1]
+             for k, v in mix["assoc"]["out"][1].items()}
+    if y_err[1] > 1e-4 or max(g_err.values()) > GRAD_TOL:
+        raise AssertionError(f"'assoc' mixer against 'pallas': y {y_err}, gradients {g_err}")
+
+    model = PointMamba(PointMambaConfig.from_dict(MODELNET40),
+                       generator=torch.Generator().manual_seed(0)).to(device)
+    assoc = PointMamba(PointMambaConfig.from_dict({**MODELNET40, "scan_impl": "assoc"})).to(device)
+    assoc.load_state_dict(model.state_dict(), strict=True)
+    pts = torch.from_numpy(clouds(ASSOC_EVAL_BATCH, seed=48)).to(device)
+    cls = {}
+    for name, m in (("auto", model), ("assoc", assoc)):
+        with torch.inference_mode():
+            m.eval()(pts)  # warm
+            out, peak, ms = _peak_run(device, lambda m=m: m.eval()(pts).float())
+        cls[name] = {"logits": out, "eval_peak_gib": peak, "eval_ms": ms}
+    ref = cls["auto"]["logits"]
+    scale = ref.abs().max().item()
+    err = (cls["assoc"]["logits"] - ref).abs().max().item()
+    if not torch.allclose(cls["assoc"]["logits"], ref, atol=1e-3 * scale, rtol=2e-3):
+        raise AssertionError(f"'assoc' logits against 'auto': max |diff| {err}, max {scale}")
+    labels = torch.arange(ASSOC_TRAIN_BATCH, device=device) % MODELNET40["cls_dim"]
+
+    def train(m):
+        m.train()
+        m.zero_grad(set_to_none=True)
+        logits = m(pts[:ASSOC_TRAIN_BATCH], generator=torch.Generator(device).manual_seed(0))
+        loss = F.cross_entropy(logits.float(), labels)
+        loss.backward()
+        return loss.item()
+
+    for name, m in (("auto", model), ("assoc", assoc)):
+        train(m)  # warm
+        loss, peak, ms = _peak_run(device, lambda m=m: train(m))
+        if not np.isfinite(loss):
+            raise AssertionError(f"{name}: the train loss is {loss}")
+        cls[name].update(train_loss=loss, train_peak_gib=peak, train_ms=ms)
+    del model, assoc
+    torch.cuda.empty_cache()
+    record = {"mixer": {"shape": dict(B=TRAIN_BATCH, L=512, d_inner=mixer.d_inner,
+                                      d_state=mixer.d_state),
+                        **{impl: {k: v for k, v in r.items() if k != "out"}
+                           for impl, r in mix.items()},
+                        "y_rel_err_of_max": y_err[1], "grad_rel_err_of_max": g_err},
+              "classifier": {"eval_batch": ASSOC_EVAL_BATCH, "train_batch": ASSOC_TRAIN_BATCH,
+                             "logits_max_abs_diff": err, "logits_max_abs": scale,
+                             **{name: {k: v for k, v in r.items() if k != "logits"}
+                                for name, r in cls.items()}}}
+    log(f"assoc mixer (B={TRAIN_BATCH}, L=512, d_inner {mixer.d_inner}): fwd+bwd "
+        f"{mix['assoc']['fwd_bwd_ms']:.1f} ms, peak {mix['assoc']['peak_gib']:.2f} GiB; 'pallas' "
+        f"{mix['pallas']['fwd_bwd_ms']:.1f} ms, {mix['pallas']['peak_gib']:.2f} GiB; y "
+        f"{y_err[1]:.2e}, "
+        f"gradients {max(g_err.values()):.2e} of max")
+    log(f"assoc classifier: eval B={ASSOC_EVAL_BATCH} {cls['assoc']['eval_ms']:.1f} ms, peak "
+        f"{cls['assoc']['eval_peak_gib']:.2f} GiB ('auto' {cls['auto']['eval_ms']:.1f} ms, "
+        f"{cls['auto']['eval_peak_gib']:.2f} GiB), logits {err:.2e} of {scale:.2e}; train "
+        f"B={ASSOC_TRAIN_BATCH} {cls['assoc']['train_ms']:.1f} ms, peak "
+        f"{cls['assoc']['train_peak_gib']:.2f} GiB ('auto' {cls['auto']['train_ms']:.1f} ms, "
+        f"{cls['auto']['train_peak_gib']:.2f} GiB)")
+    return record
+
+
+def sp_mamba_rank(device, rank: int) -> tuple[dict, dict]:
+    """Phase 49 on one of the ranks of phases 11-14:
+    ``selective_scan_seq_parallel`` (each rank's half of L scanned with the
+    associative scan from a zero state, one all-gather of the carries) on
+    layer 0's scan operands at B=32, L=512 (256 a rank), d_inner 768, n 16;
+    y within 1e-4 of its max and every gradient (A, D, the dt bias summed
+    over the ranks) within GRAD_TOL of its max from the plain chunked scan of
+    the whole L on one rank. The path is plain PyTorch (the JAX package's is
+    XLA): no kernel launches. Returns (launches, record)."""
+    from si_mamba_tpu_torch.ops.selective_scan import selective_scan_chunked
+    from si_mamba_tpu_torch.parallel import make_mesh
+    from si_mamba_tpu_torch.parallel.seq_scan import selective_scan_seq_parallel
+
+    mesh = make_mesh(("seq",), (TP,))
+    names = ("u", "delta", "A", "B", "C", "D", "z", "delta_bias")
+    seq = ("u", "delta", "B", "C", "z")
+    full = {k: v.detach().contiguous() for k, v in zip(names, scan_operands(device))}
+    L = full["u"].shape[1]
+    part = slice(rank * (L // TP), (rank + 1) * (L // TP))
+    local = {k: (v[:, part].contiguous() if k in seq else v) for k, v in full.items()}
+    w = torch.from_numpy(np.random.default_rng(49).standard_normal(
+        tuple(full["u"].shape), dtype=np.float32)).to(device)
+
+    def fwd(t):
+        return selective_scan_seq_parallel(t["u"], t["delta"], t["A"], t["B"], t["C"], D=t["D"],
+                                           z=t["z"], delta_bias=t["delta_bias"], mesh=mesh)
+
+    with torch.no_grad():
+        fwd(local)  # warm
+        torch.cuda.synchronize()
+        _reset_launch_counts()  # phase 49's path
+        y = fwd(local)
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        fwd_ms = time_ms(lambda: fwd(local), 5)
+    leaves = {k: v.clone().requires_grad_() for k, v in local.items()}
+
+    def train():
+        for v in leaves.values():
+            v.grad = None
+        out = fwd(leaves)
+        torch.sum(out * w[:, part]).backward()
+        return out
+
+    torch.cuda.reset_peak_memory_stats(device)
+    train()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    got = {k: v.grad.clone() for k, v in leaves.items()}
+    train_ms = time_ms(train, 3)
+    ref = {k: v.clone().requires_grad_() for k, v in full.items()}
+    y_ref = selective_scan_chunked(ref["u"], ref["delta"], ref["A"], ref["B"], ref["C"],
+                                   D=ref["D"], z=ref["z"], delta_bias=ref["delta_bias"])
+    torch.sum(y_ref * w).backward()
+    errs = {"y": _rel_err(y, y_ref[:, part].detach())}
+    for k in names:
+        errs[f"d{k}"] = _rel_err(got[k], ref[k].grad[:, part] if k in seq else ref[k].grad)
+    bad = {k: v for k, v in errs.items() if v[1] > (1e-4 if k == "y" else GRAD_TOL)}
+    if bad:
+        raise AssertionError(f"rank {rank}: the Mamba-1 SP scan disagrees with one rank's: {bad}")
+    if any(launches.values()):
+        raise AssertionError(f"rank {rank}: the Mamba-1 SP scan launched {launches}")
+    if rank == 0:
+        log(f"rank 0: Mamba-1 SP scan ok, forward {fwd_ms:.3f} ms, forward + backward "
+            f"{train_ms:.3f} ms, peak {peak:.2f} GiB")
+    return launches, {"shape": dict(B=full["u"].shape[0], L=L, d_inner=full["u"].shape[2],
+                                    d_state=full["A"].shape[1], ranks=TP),
+                      "fwd_ms": fwd_ms, "fwd_bwd_ms": train_ms, "fwd_bwd_peak_gib": peak,
+                      "rel_err_of_max": {k: v[1] for k, v in errs.items()}}
+
+
+class _CloudSet:
+    """Seeded clouds as a dataset of (points, label 0)."""
+
+    def __init__(self, pts: np.ndarray):
+        self.pts = pts
+
+    def __len__(self) -> int:
+        return len(self.pts)
+
+    def __getitem__(self, i):
+        return self.pts[i], 0
+
+
+def _png_size(data: bytes) -> tuple[int, int]:
+    """(width, height) of a PNG the port wrote, after checking its signature,
+    every chunk's CRC and that its pixels decode to that size."""
+    import struct
+    import zlib
+
+    from si_mamba_tpu_torch.utils.visualization import PNG_SIGNATURE
+
+    if data[:8] != PNG_SIGNATURE:
+        raise AssertionError("not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        if struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])[0] != \
+                zlib.crc32(kind + body) & 0xFFFFFFFF:
+            raise AssertionError(f"bad CRC in the {kind!r} chunk")
+        chunks[kind] = body
+        pos += 12 + length
+    w, h = struct.unpack(">II", chunks[b"IHDR"][:8])
+    if len(zlib.decompress(chunks[b"IDAT"])) != h * (1 + 3 * w):
+        raise AssertionError("the PNG's pixels do not decode to its size")
+    return w, h
+
+
+def utilities_phase(device, card: str, pretrain_ckpt: str) -> tuple[dict, dict]:
+    """Phase 50: ``--tsne`` through the CLI (the harness config and tree of
+    phase 15, its ckpt-last.pth): K1 and K2 12 times for each test batch, the
+    t-SNE of the 80 features on the card, a PNG that decodes; the t-SNE alone
+    at the ModelNet40 test split's size (TSNE_FEATURES seeded 256-wide
+    features of 40 classes); ``vis_run`` of the pretraining CLI run's
+    ckpt-last.pth over VIS_SAMPLES seeded clouds (K1 and K2 once a block for
+    every batch; the text dumps and PNG renders); ``native.fps_cpu`` equal to
+    the device FPS (``data/datasets.fps_indices``, the same arithmetic) on
+    NATIVE_CLOUDS clouds of 8192 points. Returns ({path: launches}, the
+    record)."""
+    from si_mamba_tpu_torch import native
+    from si_mamba_tpu_torch.data.datasets import fps_indices
+    from si_mamba_tpu_torch.data.loader import Loader
+    from si_mamba_tpu_torch.models.point_mae import PointMAEConfig
+    from si_mamba_tpu_torch.train import cli
+    from si_mamba_tpu_torch.train.config import get_config
+    from si_mamba_tpu_torch.train.runner_vis import vis_run
+    from si_mamba_tpu_torch.utils import visualization as vz
+
+    paths, record = {}, {"card": card}
+    work = ROOT / "build" / "harness"
+    exp_cfg = work / "harness_modelnet.yaml"
+    ckpt = work / "experiments" / "harness_modelnet" / "run" / "ckpt-last.pth"
+    config = get_config(str(exp_cfg))
+    depth = int(config.model.depth)
+    timed, real = [], vz.tsne_features
+
+    def timed_tsne(features, labels, out_path, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real(features, labels, out_path, **kw)
+        timed.append({"n": int(features.shape[0]), "device": str(features.device),
+                      "s": time.perf_counter() - t})
+        return out
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    vz.tsne_features = timed_tsne
+    try:
+        torch.cuda.synchronize()
+        _reset_launch_counts()  # phase 50's --tsne path
+        t0 = time.perf_counter()
+        png = cli.main(["--config", str(exp_cfg), "--device", "cuda", "--exp_name", "tsne",
+                        "--tsne", "--ckpts", str(ckpt)])
+        run_s = time.perf_counter() - t0
+        paths["tsne_cli"] = _launch_counts()
+    finally:
+        vz.tsne_features = real
+        os.chdir(cwd)
+    forwards = -(-HARNESS_TEST // int(config.total_bs))
+    if paths["tsne_cli"] != _expect(depth * forwards, EVAL_KERNELS):
+        raise AssertionError(f"--tsne launched {paths['tsne_cli']} for {forwards} forwards")
+    size = _png_size((work / png).read_bytes())
+    if timed[0]["n"] != HARNESS_TEST or \
+            torch.device(timed[0]["device"]).type != torch.device(device).type:
+        raise AssertionError(f"--tsne embedded {timed}")
+    record["tsne_cli"] = {"run_s": run_s, "tsne_s": timed[0]["s"], "features": timed[0]["n"],
+                          "forwards": forwards, "png": list(size)}
+
+    rng = np.random.default_rng(50)
+    centers = torch.from_numpy(3.0 * rng.standard_normal((40, TSNE_DIM), dtype=np.float32))
+    labels = np.arange(TSNE_FEATURES) % 40
+    feats = (centers[labels] + torch.from_numpy(rng.standard_normal(
+        (TSNE_FEATURES, TSNE_DIM), dtype=np.float32))).to(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb, kl = vz.tsne_embed(feats)
+    tsne_s = time.perf_counter() - t0
+    if emb.shape != (TSNE_FEATURES, 2) or not np.isfinite(emb).all() or not np.isfinite(kl):
+        raise AssertionError(f"the t-SNE at N={TSNE_FEATURES}: {emb.shape}, KL {kl}")
+    record["tsne"] = {"features": TSNE_FEATURES, "dim": TSNE_DIM, "s": tsne_s, "kl": kl}
+
+    exp = Path(pretrain_ckpt).parent
+    os.chdir(exp.parents[2])
+    try:
+        mae_cfg = PointMAEConfig.from_dict(get_config(str(exp / "config.yaml")).model)
+    finally:
+        os.chdir(cwd)
+    state = torch.load(pretrain_ckpt, map_location="cpu", weights_only=True)["base_model"]
+    loader = Loader(_CloudSet(clouds(VIS_SAMPLES, seed=50)), batch_size=VIS_BATCH, prefetch=0)
+    out_dir = ROOT / "build" / "vis"
+    torch.cuda.synchronize()
+    _reset_launch_counts()  # phase 50's vis_run path
+    t0 = time.perf_counter()
+    tags = vis_run(mae_cfg, state, loader, str(out_dir), max_samples=VIS_SAMPLES, seed=0,
+                   device=device)
+    vis_s = time.perf_counter() - t0
+    paths["vis_run"] = _launch_counts()
+    blocks = mae_cfg.depth + mae_cfg.decoder_depth
+    if paths["vis_run"] != _expect(blocks * (VIS_SAMPLES // VIS_BATCH), EVAL_KERNELS):
+        raise AssertionError(f"vis_run launched {paths['vis_run']}")
+    rebuilt = np.loadtxt(out_dir / f"{tags[-1]}_full.txt", delimiter=";")
+    if len(tags) != VIS_SAMPLES or rebuilt.shape[1] != 3 or not np.isfinite(rebuilt).all():
+        raise AssertionError(f"vis_run dumped {tags}, {rebuilt.shape}")
+    record["vis_run"] = {"samples": len(tags), "s": vis_s, "points_rebuilt": rebuilt.shape[0],
+                         "png": list(_png_size((out_dir / f"{tags[-1]}_full.png").read_bytes()))}
+
+    pts = np.random.default_rng(51).standard_normal(
+        (NATIVE_CLOUDS, NATIVE_POINTS, 3)).astype(np.float32)
+    t0 = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = native.fps_cpu(pts, NATIVE_SAMPLES)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = fps_indices(torch.from_numpy(pts).to(device), NATIVE_SAMPLES).cpu().numpy()
+    dev_s = time.perf_counter() - t0
+    if not np.array_equal(host, dev):
+        raise AssertionError(f"native fps_cpu differs from the device FPS in "
+                             f"{int((host != dev).sum())} indices")
+    record["native_fps"] = {"clouds": NATIVE_CLOUDS, "points": NATIVE_POINTS,
+                            "samples": NATIVE_SAMPLES, "gxx_build_s": build_s,
+                            "host_s": host_s, "device_s": dev_s}
+    log(f"--tsne: {forwards} forwards, t-SNE of {HARNESS_TEST} features {timed[0]['s']:.2f} s, "
+        f"PNG {size}, run {run_s:.1f} s; t-SNE of {TSNE_FEATURES} x {TSNE_DIM} on the card "
+        f"{tsne_s:.2f} s (KL {kl:.3f}); vis_run {len(tags)} samples in {vis_s:.2f} s; native FPS "
+        f"(built in {build_s:.2f} s) {host_s:.2f} s on the host, {dev_s:.2f} s on the card, "
+        f"equal; {card}")
+    return paths, record
+
+
+def last_module_phases(device, card: str, pretrain_ckpt: str) -> tuple[dict, dict]:
+    """Phases 47, 48 and 50 (phase 49 runs on the ranks of phases 11-14).
+    Returns (each path's launches, the record)."""
+    paths, record = {}, {}
+    p, record["serve_http"] = serve_http_phase(device, card)
+    paths.update(p)
+    record["assoc"] = assoc_phase(device)
+    p, record["utilities"] = utilities_phase(device, card, pretrain_ckpt)
+    paths.update(p)
+    return paths, record
+
+
+# ---------------------------------------------------------------------------
 # data parallelism and the pipeline (phases 35-40): gloo ranks on the one card
 # ---------------------------------------------------------------------------
 
@@ -6036,6 +6561,8 @@ def main() -> int:
     paths.update(mae_paths)
     options_paths, options = options_phases(device, card)
     paths.update(options_paths)
+    last_paths, last_modules = last_module_phases(device, card, mae["cli"]["ckpt_last"])
+    paths.update(last_paths)
     torch.cuda.empty_cache()  # the ranks share the card
     parallel_paths, parallel = parallel_phases(card)
     paths.update(parallel_paths)
@@ -6090,7 +6617,8 @@ def main() -> int:
                       "fused_perf": {"serving": fused_perf_serving,
                                      "profile": fused_perf_profile, "train": fused_perf_train,
                                      "cli": fused_cli},
-                      "seg": seg, "mae": mae, "options": options, "parallel": parallel,
+                      "seg": seg, "mae": mae, "options": options,
+                      "last_modules": last_modules, "parallel": parallel,
                       "dp": dp, "card": card}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)

@@ -413,6 +413,25 @@ def causal_conv1d_silu(x: torch.Tensor, weight: torch.Tensor,
     return CausalConv1dSiluFn.apply(x, weight, bias)
 
 
+PALLAS_CONV_LANES = 128
+
+
+def causal_conv1d_silu_as_jax(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                              pallas_conv: bool | None = None) -> torch.Tensor:
+    """:func:`causal_conv1d_silu` handed the conv weights that the JAX
+    package's conv reads. On the TPU its Pallas conv, which reads fp32
+    weights, takes only widths that are a multiple of 128; any other width
+    runs its XLA conv on the weights cast to the activation dtype. So where
+    ``pallas_conv`` is False (by default: where x's width is not a multiple
+    of 128) weight and bias are rounded to x's dtype and widened back to
+    fp32, the kernels' weight dtype; at fp32 they are the weights as given."""
+    if pallas_conv is None:
+        pallas_conv = x.shape[-1] % PALLAS_CONV_LANES == 0
+    if not pallas_conv:
+        weight, bias = weight.to(x.dtype).float(), bias.to(x.dtype).float()
+    return causal_conv1d_silu(x, weight, bias)
+
+
 def causal_conv1d_silu_bf16(x: torch.Tensor, weight: torch.Tensor,
                             bias: torch.Tensor) -> torch.Tensor:
     """:func:`causal_conv1d_silu` for bf16 x, which it requires.

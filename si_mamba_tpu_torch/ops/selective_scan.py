@@ -10,6 +10,10 @@ Same maths and parameter layout as ``si_mamba_tpu/ops/selective_scan.py``:
 Implementations of the scan:
 - ``selective_scan_seq``: sequential in time, the oracle (the kernel's plain
   version, :func:`~si_mamba_tpu_torch.ops.kernels.selective_scan.selective_scan_ref`);
+- ``selective_scan_assoc``: a log-depth scan of the affine maps (a, b) over
+  the whole sequence, with (a1, b1)∘(a2, b2) = (a1·a2, a2·b1 + b2) in fp32
+  (JAX's ``lax.associative_scan`` form; a plain PyTorch route, chosen only by
+  asking for it: it holds several (b, l, d, n) fp32 tensors at once);
 - ``selective_scan_chunked``: a log-depth scan inside chunks of time with the
   state carried across chunks, the default on the CPU;
 - ``impl='pallas'``, the port's counterpart of the JAX package's Pallas
@@ -31,22 +35,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_ref, causal_conv1d_silu
+from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_ref, causal_conv1d_silu_as_jax
 from si_mamba_tpu_torch.ops.kernels.fused_mixer import fused_mamba_mixer, fused_mixer_supported
 from si_mamba_tpu_torch.ops.kernels.selective_scan import selective_scan_fused, selective_scan_ref
 
 causal_conv1d = causal_conv1d_ref
 selective_scan_seq = selective_scan_ref
-
-# Scan implementations of the JAX package that the port does not have yet,
-# with the ROADMAP item that will bring each.
-_NOT_PORTED = {
-    "assoc": "ROADMAP queue 1, M6b (whole-sequence associative scan)",
-}
-
-
-def _raise_not_ported(impl: str):
-    raise NotImplementedError(f"impl={impl!r} is not ported: {_NOT_PORTED[impl]}")
 
 
 def _scan_in_chunk(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -61,6 +55,41 @@ def _scan_in_chunk(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torc
     return a, b
 
 
+def _step_sizes(delta, delta_bias, delta_softplus) -> torch.Tensor:
+    """delta (+ delta_bias) (through softplus) in fp32."""
+    delta32 = delta.float()
+    if delta_bias is not None:
+        delta32 = delta32 + delta_bias.float()
+    return F.softplus(delta32) if delta_softplus else delta32
+
+
+def _discretize(u, delta32, A, B) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dA, dBu), each (b, l, d, n) fp32: exp(delta A) and delta B u."""
+    dA = torch.exp(delta32[..., None] * A.float())
+    dBu = (delta32 * u.float())[..., None] * B.float()[:, :, None, :]
+    return dA, dBu
+
+
+def _read_out(y, u, D, z) -> torch.Tensor:
+    """y (+ D u) (* silu(z)) in u's dtype; y: (b, l, d) fp32, C . h."""
+    if D is not None:
+        y = y + u.float() * D.float()
+    if z is not None:
+        y = y * F.silu(z.float())
+    return y.to(u.dtype)
+
+
+def selective_scan_assoc(u, delta, A, B, C, D=None, z=None, delta_bias=None,
+                         delta_softplus: bool = True) -> torch.Tensor:
+    """The log-depth scan over the whole sequence (JAX's
+    ``selective_scan_assoc``): the inclusive scan of the affine maps (dA,
+    dBu) along time, then the read-out. It keeps (b, l, d, n) fp32 tensors
+    alive, about 2 log2(l) of them under autograd; 'chunked' bounds them."""
+    dA, dBu = _discretize(u, _step_sizes(delta, delta_bias, delta_softplus), A, B)
+    _, hs = _scan_in_chunk(dA, dBu)
+    return _read_out(torch.einsum("bldn,bln->bld", hs, C.float()), u, D, z)
+
+
 _CHUNK = 64
 
 
@@ -69,29 +98,19 @@ def selective_scan_chunked(u, delta, A, B, C, D=None, z=None, delta_bias=None,
     """Memory-bounded scan: chunks of 64 steps, a log-depth scan inside each,
     the (b, d, n) fp32 state carried across chunks. Live temporaries are
     (b, 64, d, n), never (b, l, d, n)."""
-    delta32 = delta.float()
-    if delta_bias is not None:
-        delta32 = delta32 + delta_bias.float()
-    if delta_softplus:
-        delta32 = F.softplus(delta32)
-    u32, A32, B32, C32 = u.float(), A.float(), B.float(), C.float()
-    b, l, d = u32.shape
-    h = u32.new_zeros((b, d, A32.shape[1]))
+    delta32 = _step_sizes(delta, delta_bias, delta_softplus)
+    b, l, d = u.shape
+    h = delta32.new_zeros((b, d, A.shape[1]))
     ys = []
     for s in range(0, l, _CHUNK):
-        d_c, u_c = delta32[:, s:s + _CHUNK], u32[:, s:s + _CHUNK]
-        dA = torch.exp(d_c[..., None] * A32)  # (b, T, d, n)
-        dBu = (d_c * u_c)[..., None] * B32[:, s:s + _CHUNK, None, :]
+        dA, dBu = _discretize(u[:, s:s + _CHUNK], delta32[:, s:s + _CHUNK], A,
+                              B[:, s:s + _CHUNK])  # (b, T, d, n)
         acc_a, acc_b = _scan_in_chunk(dA, dBu)
         hs = acc_a * h[:, None] + acc_b
-        ys.append(torch.einsum("bldn,bln->bld", hs, C32[:, s:s + _CHUNK]))
+        ys.append(torch.einsum("bldn,bln->bld", hs, C[:, s:s + _CHUNK].float()))
         h = hs[:, -1]
-    y = torch.cat(ys, dim=1) if ys else u32.new_zeros((b, 0, d))
-    if D is not None:
-        y = y + u32 * D.float()
-    if z is not None:
-        y = y * F.silu(z.float())
-    return y.to(u.dtype)
+    y = torch.cat(ys, dim=1) if ys else delta32.new_zeros((b, 0, d))
+    return _read_out(y, u, D, z)
 
 
 def _resolve(impl: str, x: torch.Tensor) -> str:
@@ -103,14 +122,14 @@ def _resolve(impl: str, x: torch.Tensor) -> str:
 
 def selective_scan(u, delta, A, B, C, D=None, z=None, delta_bias=None,
                    delta_softplus: bool = True, impl: str = "auto") -> torch.Tensor:
-    """Dispatch: 'auto' | 'pallas' | 'seq' | 'chunked'.
+    """Dispatch: 'auto' | 'pallas' | 'seq' | 'assoc' | 'chunked'.
 
     'pallas' is the fused scan of ``ops/kernels/selective_scan.py``: the CUDA
     kernels on a CUDA tensor, their plain forward and backward on the CPU. It
     takes only the full fused signature (softplus, D, z, delta_bias) and
     raises without it. 'auto' is 'pallas' on a CUDA tensor and 'chunked' on
-    the CPU. 'seq' and 'chunked' are the plain scans, chosen explicitly, on
-    any device."""
+    the CPU. 'seq', 'assoc' and 'chunked' are the plain scans, chosen
+    explicitly, on any device."""
     impl = _resolve(impl, u)
     if impl == "pallas":
         missing = [name for name, given in (
@@ -123,10 +142,10 @@ def selective_scan(u, delta, A, B, C, D=None, z=None, delta_bias=None,
         return selective_scan_fused(u, delta, A, B, C, D, z, delta_bias)
     if impl == "seq":
         return selective_scan_seq(u, delta, A, B, C, D, z, delta_bias, delta_softplus)
+    if impl == "assoc":
+        return selective_scan_assoc(u, delta, A, B, C, D, z, delta_bias, delta_softplus)
     if impl == "chunked":
         return selective_scan_chunked(u, delta, A, B, C, D, z, delta_bias, delta_softplus)
-    if impl in _NOT_PORTED:
-        _raise_not_ported(impl)
     raise ValueError(f"unknown impl {impl!r}")
 
 
@@ -147,8 +166,9 @@ def mamba_mixer_apply(params: dict, x: torch.Tensor, *, d_state: int, dt_rank: i
     x: (B, L, d_model) -> (B, L, d_model). Under 'pallas' (which 'auto' is
     on a CUDA tensor) the conv and the scan are the differentiable fused ops
     of ``ops/kernels``: their CUDA kernels on a CUDA tensor, their plain
-    forward and backward on the CPU. 'seq' and 'chunked' (which 'auto' is on
-    the CPU) compose the plain conv with that plain scan, under autograd.
+    forward and backward on the CPU. 'seq', 'assoc' and 'chunked' (which
+    'auto' is on the CPU) compose the plain conv with that plain scan, under
+    autograd, on any device.
 
     'fused' runs the whole interior between in_proj and out_proj (conv,
     x_proj/dt_proj, scan, gate) as one kernel, ``fused_mamba_mixer`` of
@@ -163,13 +183,13 @@ def mamba_mixer_apply(params: dict, x: torch.Tensor, *, d_state: int, dt_rank: i
     Mixed precision, as the JAX mixer: the matmul weights are cast to x's
     dtype (float32 or bfloat16), A, D and dt_bias stay fp32 and every scan
     keeps an fp32 state. The conv kernel route ('pallas') takes the fp32 conv
-    weight and bias, as the TPU conv kernel reads them; the plain routes take
-    them cast to x's dtype, as the JAX package's XLA conv does. The 'fused'
-    routes hand the interior the bf16 xz with every interior weight in fp32,
-    as the JAX package's ``fused_mamba_mixer`` casts them, and y comes back
-    in xz's dtype for out_proj."""
-    if impl in _NOT_PORTED:
-        _raise_not_ported(impl)
+    weight and bias where d_inner is a multiple of 128, as the TPU conv kernel
+    reads them, and at any other width the weights rounded to x's dtype, as
+    the JAX package's XLA conv reads them there (``causal_conv1d_silu_as_jax``);
+    the plain routes take them cast to x's dtype, as the JAX package's XLA
+    conv does. The 'fused' routes hand the interior the bf16 xz with every
+    interior weight in fp32, as the JAX package's ``fused_mamba_mixer`` casts
+    them, and y comes back in xz's dtype for out_proj."""
     impl = _resolve(impl, x)
     cdt = x.dtype
     if cdt not in (torch.float32, torch.bfloat16):
@@ -194,7 +214,7 @@ def mamba_mixer_apply(params: dict, x: torch.Tensor, *, d_state: int, dt_rank: i
         return y.to(cdt) @ wcast(params["out_proj_w"])
     xi, z = xz[..., :d_inner], xz[..., d_inner:]  # column views, no copy
     if impl == "pallas":
-        xi = causal_conv1d_silu(xi, params["conv_w"], params["conv_b"])
+        xi = causal_conv1d_silu_as_jax(xi, params["conv_w"], params["conv_b"])
     else:
         xi = causal_conv1d(xi, wcast(params["conv_w"]), wcast(params["conv_b"]),
                            activation="silu")

@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_ref, causal_conv1d_silu
+from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_ref, causal_conv1d_silu_as_jax
 from si_mamba_tpu_torch.ops.kernels.ssd import (
     HEAD_DIM,
     MAX_CHUNK,
@@ -174,8 +174,11 @@ def ssd_mixer_apply(params: dict, u: torch.Tensor, *, n_heads: int, d_state: int
     matmul weights are cast to bf16, softplus runs on fp32 dt_raw, A, D and
     the gated RMSNorm are fp32, and the normalised y is cast back to bf16
     before out_proj. The conv kernel route ('ssd_fused') takes the fp32 conv
-    weight and bias, as the TPU's Pallas conv reads them; 'xla' the plain conv
-    with them cast to bf16, as the JAX package's XLA conv."""
+    weight and bias where the conv width is a multiple of 128, as the TPU's
+    Pallas conv reads them, and at any other width the weights rounded to
+    bf16, as the JAX package's XLA conv reads them there
+    (``causal_conv1d_silu_as_jax``); 'xla' the plain conv with them cast to
+    bf16, as the JAX package's XLA conv."""
     cdt = u.dtype
     if cdt not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"the SSD mixer runs in float32 or bfloat16, not {cdt}")
@@ -194,7 +197,7 @@ def ssd_mixer_apply(params: dict, u: torch.Tensor, *, n_heads: int, d_state: int
     xbc = zxbcdt[..., d_inner:2 * d_inner + 2 * d_state]
     dt_raw = zxbcdt[..., 2 * d_inner + 2 * d_state:]
     if fused:
-        xbc = causal_conv1d_silu(xbc, params["conv_w"], params["conv_b"])
+        xbc = causal_conv1d_silu_as_jax(xbc, params["conv_w"], params["conv_b"])
     else:
         xbc = causal_conv1d_ref(xbc, wcast(params["conv_w"]), wcast(params["conv_b"]),
                                 activation="silu")

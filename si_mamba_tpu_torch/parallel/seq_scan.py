@@ -20,9 +20,14 @@ all-reduce the JAX package takes outside its ``shard_map``.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from si_mamba_tpu_torch.ops.kernels.ssd import ssd_chunked_split
+from si_mamba_tpu_torch.ops.selective_scan import (
+    _discretize,
+    _read_out,
+    _scan_in_chunk,
+    _step_sizes,
+)
 from si_mamba_tpu_torch.ops.ssd import ssd_chunked, ssd_fused_route
 from si_mamba_tpu_torch.parallel.collectives import all_gather, enter
 from si_mamba_tpu_torch.parallel.mesh import Mesh, MeshAxis
@@ -47,7 +52,8 @@ def selective_scan_seq_parallel(u, delta, A, B, C, D=None, z=None, delta_bias=No
     """Selective scan (softplus step sizes, fp32 state) with the time axis
     sharded over ``axis``: u, delta, z (b, L/P, d) and B, C (b, L/P, n) are
     this rank's slices; A (d, n), D, delta_bias (d,) replicated. The local
-    scan runs sequentially from a zero state."""
+    scan is the log-depth associative scan of ``selective_scan_assoc`` from
+    a zero state."""
     ax = mesh[axis]
     d = u.shape[-1]
     if D is None:
@@ -55,22 +61,12 @@ def selective_scan_seq_parallel(u, delta, A, B, C, D=None, z=None, delta_bias=No
     if delta_bias is None:
         delta_bias = u.new_zeros(d, dtype=torch.float32)
     A, D, delta_bias = (enter(t, ax) for t in (A, D, delta_bias))
-    delta32 = F.softplus(delta.float() + delta_bias.float())
-    u32 = u.float()
-    dA = torch.exp(delta32[..., None] * A.float())  # (b, l, d, n)
-    dBu = (delta32 * u32)[..., None] * B.float()[:, :, None, :]
-    hs, h = [], dBu.new_zeros(dBu[:, 0].shape)
-    for t in range(u.shape[1]):
-        h = dA[:, t] * h + dBu[:, t]
-        hs.append(h)
-    acc_b = torch.stack(hs, dim=1)  # states from zero
-    acc_a = torch.cumprod(dA, dim=1)  # decay since the slice start
+    dA, dBu = _discretize(u, _step_sizes(delta, delta_bias, True), A, B)  # (b, l, d, n) fp32
+    # decay since the slice start and states from zero, as JAX's _local_scan
+    acc_a, acc_b = _scan_in_chunk(dA, dBu)
     h_in = _compose_exclusive_prefix(acc_a[:, -1], acc_b[:, -1], ax, lambda a, h: a * h)
     states = acc_a * h_in[:, None] + acc_b
-    y = torch.einsum("bldn,bln->bld", states, C.float()) + u32 * D.float()
-    if z is not None:
-        y = y * F.silu(z.float())
-    return y.to(u.dtype)
+    return _read_out(torch.einsum("bldn,bln->bld", states, C.float()), u, D, z)
 
 
 def ssd_seq_parallel(x, dt, A, Bm, Cm, D, *, mesh: Mesh, axis: str = "seq", chunk: int = 64,

@@ -29,7 +29,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_ref, causal_conv1d_silu
+from si_mamba_tpu_torch.ops.kernels.causal_conv import (
+    causal_conv1d_ref,
+    causal_conv1d_silu,
+    causal_conv1d_silu_as_jax,
+)
 from si_mamba_tpu_torch.ops.kernels.ssd import ssd_chunked_split
 from si_mamba_tpu_torch.ops.selective_scan import selective_scan
 from si_mamba_tpu_torch.ops.ssd import ssd_chunked, ssd_fused_route
@@ -159,8 +163,8 @@ def ssd_mixer_tp(params: dict, u: torch.Tensor, *, mesh: Mesh, n_heads: int, d_s
     pad = (-l) % chunk
     fused = ssd_fused_route(impl, l + pad, chunk, d_state, di_loc // h_loc, u.device)
     if fused:
-        def conv(x, w, bias):  # the kernels read fp32 weights: JAX's bf16 ones, widened
-            return causal_conv1d_silu(x, wc(w).float(), wc(bias).float())
+        def conv(x, w, bias):  # JAX's TP mixer runs the XLA conv at every width
+            return causal_conv1d_silu_as_jax(x, w, bias, pallas_conv=False)
     else:
         def conv(x, w, bias):
             return causal_conv1d_ref(x, wc(w), wc(bias), activation="silu")

@@ -8,7 +8,9 @@ best_metrics}`` as the reference writes it, ``base_model`` in the reference's
 keys (this package's module names). ``optimizer`` is the torch optimizer's
 ``state_dict`` with what ``train/optim.py:Optimizer`` adds (its update count
 ``count``, its backward passes since the last update ``micro`` and, between
-updates, their summed gradients ``accumulated``). Two more keys make a resumed
+updates, their summed gradients ``accumulated``; one written from a JAX
+run's optax state by ``scripts/torch_export_optax_state.py`` has no
+``param_groups``). Two more keys make a resumed
 run continue bitwise: the train state's ``step`` and the state of the
 generator the steps draw from (``rng``).
 
@@ -111,8 +113,13 @@ def _per_param(optimizer, model, payload: dict, convert) -> dict:
 
 
 def _load_optimizer(optimizer, payload: dict) -> None:
+    """Load ``payload`` into ``optimizer``. A payload without
+    ``param_groups`` (one mapped from optax's state, which holds no
+    hyperparameters: ``utils/weights.adamw_state_from_jax``) keeps the
+    optimizer's own."""
+    groups = payload.get("param_groups", optimizer.torch_optimizer.state_dict()["param_groups"])
     optimizer.torch_optimizer.load_state_dict({"state": payload["state"],
-                                               "param_groups": payload["param_groups"]})
+                                               "param_groups": groups})
     optimizer.count, optimizer.micro = int(payload["count"]), int(payload["micro"])
     params = optimizer.params
     for p in params:

@@ -9,9 +9,10 @@ main.py / utils/parser.py): the same flags (--test, --vote, --resume,
 ``--device`` (default ``cuda``; ``cpu`` runs on the CPU). The finetune and
 test paths of the ``PointMamba`` classifier, MAE pretraining (``NAME:
 Point_MAE_Mamba``: ShapeNet-55 to train, the SVM probe on ModelNet40's h5
-shards) and the part-segmentation trainer (``NAME: PartSegModel``, on a
-ShapeNetPart tree at ``data_root``) run; --tsne (M21) raises with its
-ROADMAP.md item.
+shards), the part-segmentation trainer (``NAME: PartSegModel``, on a
+ShapeNetPart tree at ``data_root``) and --tsne (the test features' t-SNE,
+``<experiment_path>/tsne.png``: a PNG, where the JAX package writes the
+figure with matplotlib) run.
 Checkpoints are reference-format ``.pth`` files (``train/checkpoint.py``).
 
 Over several ranks (torchrun's launch with ``SI_MAMBA_MULTIHOST=1``:
@@ -60,7 +61,8 @@ def get_args(argv=None):
     p.add_argument("--deterministic", action="store_true")
     p.add_argument("--test", action="store_true")
     p.add_argument("--tsne", action="store_true",
-                   help="t-SNE scatter of test-set features (not ported: ROADMAP.md M21)")
+                   help="t-SNE scatter of the test-set features, written to "
+                        "<experiment_path>/tsne.png (with --ckpts, of that checkpoint)")
     p.add_argument("--vote", action="store_true")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--auto_resume", action="store_true",
@@ -109,7 +111,8 @@ def _dataset_kwargs(dcfg: ConfigDict, args, subset: str) -> tuple[str, dict]:
     arguments, and ``--seed`` for the datasets that draw a sample's points
     (ShapeNet-55, ModelNet's and ScanObjectNN's train splits): their draws then repeat run to run
     at ``--num_workers 1``. With more workers the threads take the draws in
-    the order they run (ROADMAP.md M12c)."""
+    the order they run, as in the JAX package (ROADMAP.md, M12c under
+    "Parked")."""
     base = dcfg["_base_"]
     others = dcfg.get("others", ConfigDict())
     name = base["NAME"]
@@ -254,8 +257,8 @@ def _pretrain(config, args, model, bs: int, device, logger, mesh=None):
 
 def main(argv=None):
     """Run the CLI. Returns what the run gives: the test accuracy for
-    --test, (train state, best AccMetric) for a finetune, pretraining or
-    part-segmentation run."""
+    --test, the PNG's path for --tsne, (train state, best AccMetric) for a
+    finetune, pretraining or part-segmentation run."""
     args = get_args(argv)
     # the rendezvous comes first (after the flags, which name the device):
     # a failed one raises, nothing falls back to one process
@@ -287,8 +290,6 @@ def main(argv=None):
         _archive_source(args.experiment_path)
     np.random.seed(args.seed)
 
-    if args.tsne:
-        rf.tsne_run(config, None, None, os.path.join(args.experiment_path, "tsne.png"), logger)
     if args.way > 0:  # few-shot: the classifier width equals the way count
         config.model.cls_dim = args.way
     # the run's mesh (a one-sided tensor parallelism, or a tp_size that does
@@ -301,7 +302,7 @@ def main(argv=None):
     if model_axis_size(mesh) > 1 and args.num_workers > 1:
         # the ranks of a tensor-parallel group must load the same samples: the
         # splits that draw a sample's points draw from one generator in the
-        # order the threads run (ROADMAP.md M12c), so one thread assembles them
+        # order the threads run (as in the JAX package), so one thread assembles them
         print_log(f"[ARGS] tensor parallelism: --num_workers {args.num_workers} -> 1", logger)
         args.num_workers = 1
     model, model_cfg = build_model_from_cfg(config.model, device, args.seed, mesh=mesh)
@@ -316,7 +317,7 @@ def main(argv=None):
     if config.model.NAME == "Point_MAE_Mamba":
         return _pretrain(config, args, model, bs, device, logger, mesh)
 
-    if args.test:
+    if args.test or args.tsne:
         test_loader = build_loader(config.dataset.test, args, "test", bs,
                                    shuffle=False, drop_last=False)
         if args.ckpts:
@@ -326,6 +327,9 @@ def main(argv=None):
                 sd = shard_state_dict(sd, model_cfg, tp[0].index, tp[0].size)
             model.load_state_dict(sd, strict=True)
         state = rf.TrainState(step=0, model=model, optimizer=None)
+        if args.tsne:
+            return rf.tsne_run(config, test_loader, state,
+                               os.path.join(args.experiment_path, "tsne.png"), logger)
         return rf.test_run(config, test_loader, state, vote=args.vote, logger=logger)
 
     train_loader = build_loader(config.dataset.train, args, "train", bs,

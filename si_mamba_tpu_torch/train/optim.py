@@ -50,6 +50,20 @@ def wd_mask(params) -> dict[str, bool]:
     return {name: _decays(name, p) for name, p in _named(params)}
 
 
+def adamw_param_groups(params) -> list[list[tuple[str, torch.Tensor]]]:
+    """AdamW's two parameter groups, (name, tensor) pairs in ``params``'
+    order: those without weight decay, then those with it (:func:`wd_mask`)."""
+    named = _named(params)
+    mask = wd_mask(named)
+    return [[(n, p) for n, p in named if not mask[n]], [(n, p) for n, p in named if mask[n]]]
+
+
+def adamw_param_order(params) -> list[str]:
+    """The parameter names in the order of :func:`build_optimizer`'s AdamW
+    (its state's indices)."""
+    return [n for group in adamw_param_groups(params) for n, _ in group]
+
+
 def _epoch_lag(step: int, steps_per_epoch: int) -> int:
     return max(step // steps_per_epoch - 1, 0)
 
@@ -263,9 +277,8 @@ def build_optimizer(params, *, opt_type: str = "AdamW", lr: float = 3e-4,
     named = _named(params)
     lr0 = schedule(0)
     if opt_type == "AdamW":
-        mask = wd_mask(named)
-        groups = [{"params": [p for n, p in named if not mask[n]], "weight_decay": 0.0},
-                  {"params": [p for n, p in named if mask[n]], "weight_decay": weight_decay}]
+        groups = [{"params": [p for _, p in group], "weight_decay": wd}
+                  for group, wd in zip(adamw_param_groups(named), (0.0, weight_decay))]
         opt = torch.optim.AdamW([g for g in groups if g["params"]], lr=lr0,
                                 betas=(0.9, 0.999), eps=1e-8)
     elif opt_type == "Adam":

@@ -7,7 +7,8 @@ The train step folds in the reference's input pipeline (its batch body,
 forward, loss, backward, update. It is two halves, ``make_input_pipeline``'s
 ``prepare`` and ``finetune_update``, so each can be timed on its own as the
 step runs it. ``finetune_run`` runs the epochs with validation, the vote
-protocol and checkpoints; ``test_run`` the plain or the voted test.
+protocol and checkpoints; ``test_run`` the plain or the voted test;
+``tsne_run`` the t-SNE scatter of the test features.
 
 Over several ranks (``make_run_mesh``) the step is the JAX package's step
 over its ``('data',)`` or ``('data', tp_axis)`` mesh, which is the
@@ -413,11 +414,30 @@ def finetune_run(config, train_loader, val_loader, exp_dir: str,
     return state, best_metrics
 
 
-def tsne_run(config, test_loader, state, out_path: str, logger=None):
-    """The t-SNE scatter of the test features (reference test_tsne,
-    :573-631) needs sklearn, which the GPU host does not have."""
-    raise NotImplementedError("--tsne needs sklearn's t-SNE and the visualisation utilities: "
-                              "ROADMAP.md queue 1, M21")
+def tsne_run(config, test_loader, state: TrainState, out_path: str, logger=None) -> str:
+    """The t-SNE scatter of the test features (reference test_only_tsne /
+    test_tsne, tools/runner_finetune.py:573-631): FPS from index 0 to
+    ``npoints``, the eval forward's pooled pre-head features, the labels
+    below ``cls_dim`` kept, then the port's own t-SNE on the model's device
+    (``utils/visualization.tsne_features``), written as a PNG at
+    ``out_path``. Returns ``out_path``."""
+    from si_mamba_tpu_torch.utils.visualization import tsne_features
+
+    npoints = int(config.npoints)
+    model = state.model
+    device = _model_device(model)
+    feats, labels = [], []
+    with torch.no_grad():
+        for pts, lab in test_loader.epoch(0):
+            pts = _fps_to_npoints(torch.from_numpy(pts).to(device), npoints)
+            feats.append(model.eval()(pts, return_features=True)[1].float())
+            labels.append(np.asarray(lab).reshape(-1))
+    feats = torch.cat(feats, 0)
+    labels = np.concatenate(labels, 0)
+    keep = labels < int(config.model.cls_dim)
+    tsne_features(feats[torch.from_numpy(keep).to(device)], labels[keep], out_path)
+    print_log(f"[TSNE] {int(keep.sum())} features -> {out_path}", logger)
+    return out_path
 
 
 def test_run(config, test_loader, state: TrainState, vote: bool = False, logger=None) -> float:

@@ -10,6 +10,8 @@
   gain a trailing axis, the mixer conv (d, W) becomes (d, 1, W), BatchNorm
   scale/bias + batch_stats become weight/bias/running_mean/running_var
   (+ ``num_batches_tracked``), an RMSNorm's scale its weight.
+- :func:`adamw_state_from_jax`: optax's Adam moments and count of one of
+  those models -> the port's AdamW payload (``train/checkpoint.py``).
 - :func:`load_state_dict_file`: a reference-format ``.pth``
   (``{'base_model': state_dict, ...}``), with the ``module.`` /
   ``MAE_encoder.`` / ``base_model.`` prefixes stripped. An orbax directory
@@ -50,8 +52,17 @@ def _ln(out, key, p) -> None:
         out[f"{key}.bias"] = _t(p["bias"])
 
 
+def _sub(tree, key):
+    """``tree[key]``, or None for a missing tree (moments have no statistics)."""
+    return None if tree is None else tree[key]
+
+
 def _bn(out, key, p, s) -> None:
+    """A BatchNorm's scale and bias and, given its statistics ``s``, its
+    buffers."""
     _ln(out, key, p)
+    if s is None:
+        return
     out[f"{key}.running_mean"] = _t(s["mean"])
     out[f"{key}.running_var"] = _t(s["var"])
     out[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
@@ -96,12 +107,12 @@ def _backbone(out, params, batch_stats, prefix: str = "") -> None:
     """The encoder, pos-embed, block stack and final norm, which the
     classifier, the segmentation model and the pretraining model's encoder
     (under ``prefix`` 'MAE_encoder.') share."""
-    enc, enc_s = params["encoder"], batch_stats["encoder"]
+    enc, enc_s = params["encoder"], _sub(batch_stats, "encoder")
     _conv1x1(out, f"{prefix}encoder.first_conv.0", enc["conv1"])
-    _bn(out, f"{prefix}encoder.first_conv.1", enc["bn1"], enc_s["bn1"])
+    _bn(out, f"{prefix}encoder.first_conv.1", enc["bn1"], _sub(enc_s, "bn1"))
     _conv1x1(out, f"{prefix}encoder.first_conv.3", enc["conv2"])
     _conv1x1(out, f"{prefix}encoder.second_conv.0", enc["conv3"])
-    _bn(out, f"{prefix}encoder.second_conv.1", enc["bn2"], enc_s["bn2"])
+    _bn(out, f"{prefix}encoder.second_conv.1", enc["bn2"], _sub(enc_s, "bn2"))
     _conv1x1(out, f"{prefix}encoder.second_conv.3", enc["conv4"])
     _dense(out, f"{prefix}pos_embed.0", params["pos_embed"]["fc1"])
     _dense(out, f"{prefix}pos_embed.2", params["pos_embed"]["fc2"])
@@ -109,25 +120,26 @@ def _backbone(out, params, batch_stats, prefix: str = "") -> None:
     _ln(out, f"{prefix}norm", params["norm"])
 
 
-def state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
+def state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any] | None
                         ) -> Dict[str, torch.Tensor]:
     """The JAX ``PointMamba``'s variables (``params``, ``batch_stats``, as
     nested dicts of arrays) -> a state dict that ``PointMamba`` loads with
     ``strict=True``; with ``rms_norm`` the stack's norms are RMSNorms, with
     ``add_after_layer`` the stack is ``MixerModelAdd``, both under the same
-    ``blocks.*`` keys."""
+    ``blocks.*`` keys. With ``batch_stats`` None, the parameters' entries
+    alone (a tree shaped like ``params``, such as Adam's moments)."""
     out: Dict[str, torch.Tensor] = {}
     _backbone(out, params, batch_stats)
-    head, head_s = params["cls_head_finetune"], batch_stats["cls_head_finetune"]
+    head, head_s = params["cls_head_finetune"], _sub(batch_stats, "cls_head_finetune")
     _dense(out, "cls_head_finetune.0", head["fc1"])
-    _bn(out, "cls_head_finetune.1", head["bn1"], head_s["bn1"])
+    _bn(out, "cls_head_finetune.1", head["bn1"], _sub(head_s, "bn1"))
     _dense(out, "cls_head_finetune.4", head["fc2"])
-    _bn(out, "cls_head_finetune.5", head["bn2"], head_s["bn2"])
+    _bn(out, "cls_head_finetune.5", head["bn2"], _sub(head_s, "bn2"))
     _dense(out, "cls_head_finetune.8", head["out"])
     return out
 
 
-def partseg_state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
+def partseg_state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any] | None
                                 ) -> Dict[str, torch.Tensor]:
     """The JAX ``PartSegModel``'s variables -> a state dict that the port's
     ``PartSegModel`` loads with ``strict=True``: the classifier's backbone
@@ -137,18 +149,19 @@ def partseg_state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[
     out: Dict[str, torch.Tensor] = {}
     _backbone(out, params, batch_stats)
     _dense(out, "label_conv", params["label_conv"])
-    _bn(out, "label_bn", params["label_bn"], batch_stats["label_bn"])
+    _bn(out, "label_bn", params["label_bn"], _sub(batch_stats, "label_bn"))
     for i in (1, 2):
         _dense(out, f"prop_fc{i}", params[f"prop_fc{i}"])
-        _bn(out, f"prop_bn{i}", params[f"prop_bn{i}"], batch_stats[f"prop_bn{i}"])
+        _bn(out, f"prop_bn{i}", params[f"prop_bn{i}"], _sub(batch_stats, f"prop_bn{i}"))
     for i in (1, 2, 3):
         _dense(out, f"convs{i}", params[f"convs{i}"])
     for i in (1, 2):
-        _bn(out, f"bns{i}", params[f"bns{i}"], batch_stats[f"bns{i}"])
+        _bn(out, f"bns{i}", params[f"bns{i}"], _sub(batch_stats, f"bns{i}"))
     return out
 
 
-def point_mae_state_dict_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]
+def point_mae_state_dict_from_jax(params: Mapping[str, Any],
+                                  batch_stats: Mapping[str, Any] | None
                                   ) -> Dict[str, torch.Tensor]:
     """The JAX ``PointMAEMamba``'s variables -> a state dict that the port's
     ``PointMAEMamba`` loads with ``strict=True``, in the keys of the
@@ -198,6 +211,42 @@ def permute_policy_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, t
         _ln(out, f"{head}_ln", params[f"{head}_ln"])
         _dense(out, f"{head}_fc2", params[f"{head}_fc2"])
     return out
+
+
+FROM_JAX = {"PointMamba": state_dict_from_jax, "PartSegModel": partseg_state_dict_from_jax,
+             "PointMAEMamba": point_mae_state_dict_from_jax}
+
+
+def adamw_state_from_jax(mu: Mapping[str, Any], nu: Mapping[str, Any], count: int,
+                         model: torch.nn.Module) -> dict:
+    """optax's ``ScaleByAdamState`` of a JAX model (``mu``, ``nu``: numpy trees
+    shaped like its params; ``count``: the updates made) -> the optimizer
+    payload of ``train/checkpoint.py`` for ``model`` (a ``PointMamba``,
+    ``PartSegModel`` or ``PointMAEMamba``) and the AdamW that
+    ``train/optim.build_optimizer`` makes for it: each parameter's
+    ``exp_avg`` / ``exp_avg_sq`` (the moments, mapped with the keys of
+    :func:`state_dict_from_jax` and its siblings) and ``step`` at
+    ``count``, indexed in that optimizer's parameter order, and the update
+    count. It holds no ``param_groups``: the resumed run's own optimizer
+    keeps its hyperparameters, as optax's state holds none."""
+    from si_mamba_tpu_torch.train.optim import adamw_param_order
+
+    kind = type(model).__name__
+    if kind not in FROM_JAX:
+        raise TypeError(f"no JAX mapping for {kind}; expected one of {sorted(FROM_JAX)}")
+    m, v = (FROM_JAX[kind](tree, None) for tree in (mu, nu))
+    order = adamw_param_order(model)
+    if set(order) != set(m) or set(order) != set(v):
+        raise KeyError(f"the moments' keys do not match {kind}'s parameters: missing "
+                       f"{sorted(set(order) - set(m))[:5]}, unexpected "
+                       f"{sorted(set(m) - set(order))[:5]}")
+    shapes = dict(model.named_parameters())
+    state = {}
+    for i, name in enumerate(order):
+        want = tuple(shapes[name].shape)
+        state[i] = {"step": torch.tensor(float(count)), "exp_avg": m[name].reshape(want),
+                    "exp_avg_sq": v[name].reshape(want)}
+    return {"state": state, "count": int(count), "micro": 0}
 
 
 def _strip_prefixes(sd: Mapping[str, Any]) -> Dict[str, Any]:

@@ -594,11 +594,24 @@ def test_unported_paths_raise_with_their_roadmap_item(modelnet_tree, tmp_path, m
     orbax_dir = tmp_path / "ckpt-best"
     orbax_dir.mkdir()
     base = ["--device", "cpu", "--num_workers", "0"]
+    if case == "tsne":
+        # ported since (M21): --tsne runs, on a tree whose 35 test clouds exceed
+        # the t-SNE's perplexity of 30, and writes the PNG
+        spec = importlib.util.spec_from_file_location("prep", ROOT / "scripts" / "prepare_data.py")
+        prep = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(prep)
+        prep.synthetic(str(tmp_path / "tsne_data"), n_train=1, n_test=7, npoints=1024, seed=0)
+        (tmp_path / "tsne_data" / "modelnet.yaml").write_text(
+            (modelnet_tree / "modelnet.yaml").read_text().replace(str(modelnet_tree),
+                                                                 str(tmp_path / "tsne_data")))
+        out = cli.main(["--config", str(_experiment(tmp_path, tmp_path / "tsne_data", cls_dim=5)),
+                        "--tsne"] + base)
+        assert out.endswith("tsne.png")
+        assert (tmp_path / out).read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+        return
     cfg = str(_experiment(tmp_path, modelnet_tree))
     with pytest.raises(NotImplementedError, match=match):
-        if case == "tsne":
-            cli.main(["--config", cfg, "--tsne"] + base)
-        elif case == "orbax_ckpts":
+        if case == "orbax_ckpts":
             cli.main(["--config", cfg, "--test", "--ckpts", str(orbax_dir)] + base)
         elif case == "orbax_finetune":
             cli.main(["--config", cfg, "--finetune_model", str(orbax_dir)] + base)

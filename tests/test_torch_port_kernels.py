@@ -204,8 +204,10 @@ def test_scan_dispatch():
                                   tss.selective_scan_chunked(*args, **pkw).numpy())
     np.testing.assert_array_equal(tss.selective_scan(*args, **pkw, impl="pallas").numpy(),
                                   tss.selective_scan_seq(*args, **pkw).numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tss.selective_scan(*args, **pkw, impl="assoc")
+    # 'assoc', the whole-sequence log-depth scan, equals the sequential oracle
+    np.testing.assert_allclose(tss.selective_scan(*args, **pkw, impl="assoc").numpy(),
+                               tss.selective_scan_seq(*args, **pkw).numpy(),
+                               rtol=1e-5, atol=1e-6)
     # 'fused' is a route of mamba_mixer_apply, not a scan: unknown here, as in JAX
     with pytest.raises(ValueError, match="unknown impl"):
         tss.selective_scan(*args, **pkw, impl="fused")
@@ -257,8 +259,12 @@ def test_mixer_matches_jax(impl):
 def test_mixer_rejects_unported_impls_and_dtypes():
     p = {k: _t(v) for k, v in _mixer_params().items()}
     x = torch.zeros(1, 4, 16)
-    with pytest.raises(NotImplementedError, match="M6b"):
-        tss.mamba_mixer_apply(p, x, d_state=4, dt_rank=2, impl="assoc")
+    # 'assoc' runs (the plain conv and the whole-sequence scan) and equals 'seq'
+    xr = torch.from_numpy(np.random.default_rng(5).standard_normal((1, 12, 16)).astype(np.float32))
+    np.testing.assert_allclose(
+        tss.mamba_mixer_apply(p, xr, d_state=4, dt_rank=2, impl="assoc").numpy(),
+        tss.mamba_mixer_apply(p, xr, d_state=4, dt_rank=2, impl="seq").numpy(),
+        rtol=1e-5, atol=1e-6)
     with pytest.raises(NotImplementedError, match="float16"):
         tss.mamba_mixer_apply(p, x.half(), d_state=4, dt_rank=2)
     # bf16 on the 'fused' routes is what JAX does with it: 'fused' refuses
@@ -467,3 +473,83 @@ def test_mixer_pallas_grads_on_the_cpu_match_seq():
     for k in p:
         scale = float(grads["seq"][k].abs().max())
         assert float((grads["pallas"][k] - grads["seq"][k]).abs().max()) <= 1e-4 * scale, k
+
+
+# ---------------------------------------------------------------------------
+# the conv weights the kernel routes hand K1/K5, by width
+# ---------------------------------------------------------------------------
+
+def _spy_conv(monkeypatch):
+    """Record the (weight, bias) every call of ``causal_conv1d_silu`` gets,
+    whichever module calls it."""
+    seen, real = [], kconv.causal_conv1d_silu
+
+    def spy(x, weight, bias):
+        seen.append((weight.detach().clone(), bias.detach().clone()))
+        return real(x, weight, bias)
+
+    from si_mamba_tpu_torch.ops import ssd as tssd
+
+    for mod in (kconv, tss, tssd):
+        monkeypatch.setattr(mod, "causal_conv1d_silu", spy, raising=False)
+    return seen
+
+
+def _ssd_conv_params(d_inner, d_state, n_heads, d_model=16, seed=7):
+    rng = np.random.default_rng(seed)
+    conv = d_inner + 2 * d_state
+    mk = lambda *s, sc=0.3: torch.from_numpy((rng.standard_normal(s) * sc).astype(np.float32))  # noqa: E731
+    return {"in_proj_w": mk(d_model, 2 * d_inner + 2 * d_state + n_heads), "conv_w": mk(conv, 4),
+            "conv_b": mk(conv, sc=0.1), "dt_bias": mk(n_heads, sc=0.1),
+            "A_log": mk(n_heads, sc=0.1), "D": mk(n_heads), "norm_scale": 1 + mk(d_inner, sc=0.1),
+            "out_proj_w": mk(d_inner, d_model)}
+
+
+@pytest.mark.parametrize("mixer,width", [("mamba", 96), ("mamba", 128), ("ssd", 96), ("ssd", 128)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_route_conv_weights_follow_jax_by_width(monkeypatch, mixer, width, dtype):
+    """The kernel routes ('pallas', 'ssd_fused') hand ``causal_conv1d_silu``
+    the fp32 conv weights where the conv width is a multiple of 128 (the
+    TPU's Pallas conv) and, at any other width, the weights rounded to the
+    activation dtype (JAX's XLA conv there); at fp32 the weights as given."""
+    seen = _spy_conv(monkeypatch)
+    d_model = width // 2 if mixer == "mamba" else 16
+    x = _t(np.random.default_rng(8).standard_normal((2, 24, d_model)).astype(np.float32))
+    if mixer == "mamba":
+        p = {k: _t(v) for k, v in _mixer_params(d_model=d_model, d_state=4, dt_rank=2).items()}
+        tss.mamba_mixer_apply(p, x.to(dtype), d_state=4, dt_rank=2, impl="pallas")
+    else:
+        from si_mamba_tpu_torch.ops.ssd import ssd_mixer_apply
+
+        d_state = 16  # conv width d_inner + 2 d_state
+        p = _ssd_conv_params(width - 2 * d_state, d_state, n_heads=2)
+        ssd_mixer_apply(p, x.to(dtype), n_heads=2, d_state=d_state, chunk=8, impl="ssd_fused")
+    (w, b), = seen
+    assert w.dtype == b.dtype == torch.float32
+    rounded = dtype == torch.bfloat16 and width % 128 != 0
+    want_w = p["conv_w"].to(dtype).float() if rounded else p["conv_w"]
+    want_b = p["conv_b"].to(dtype).float() if rounded else p["conv_b"]
+    assert torch.equal(w, want_w) and torch.equal(b, want_b)
+    if dtype == torch.bfloat16 and width % 128 == 0:
+        assert not torch.equal(w, p["conv_w"].to(dtype).float())  # the fp32 originals
+
+
+def test_mixer_kernel_route_at_width_96_bf16_holds_jax():
+    """At d_inner 96 and bf16 the 'pallas' route reads the conv weights that
+    JAX's mixer reads there (its XLA conv, weights cast to bf16): on the CPU
+    its output equals the port's plain 'seq' route bitwise, and both lie
+    within 8 bf16 ulps of the output's max from JAX's ``mamba_mixer_apply``.
+    JAX's XLA conv rounds every shifted add to bf16 on the CPU while the
+    port's conv (kernel and plain) accumulates in fp32, so the two frameworks
+    part by several ulps at any width (5 on these inputs)."""
+    p = _mixer_params(d_model=48, d_state=4, dt_rank=3, seed=3)
+    x = np.random.default_rng(4).standard_normal((2, 40, 48)).astype(np.float32)
+    got = {impl: tss.mamba_mixer_apply({k: _t(v) for k, v in p.items()},
+                                       torch.from_numpy(x).bfloat16(), d_state=4, dt_rank=3,
+                                       impl=impl).float().numpy() for impl in ("pallas", "seq")}
+    np.testing.assert_array_equal(got["pallas"], got["seq"])
+    want = np.asarray(jss.mamba_mixer_apply(
+        {k: jnp.asarray(v) for k, v in p.items()}, jnp.asarray(x).astype(jnp.bfloat16),
+        d_state=4, dt_rank=3, impl="seq").astype(jnp.float32))
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    assert np.abs(got["pallas"] - want).max() <= 8 * ulp

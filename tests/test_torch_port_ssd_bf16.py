@@ -299,14 +299,20 @@ def _mixer_params(d_model=64, n_heads=2, d_state=16, seed=3):
 
 def _jax_ssd_mixer_kernel_route(p, u, n_heads, d_state, chunk):
     """``ssd_mixer_apply``'s route on the TPU at bf16, both kernels in
-    interpret mode: the Pallas conv on the fp32 conv weights, the
-    boundary-fused SSD kernel, every matmul weight cast to bf16."""
+    interpret mode: the Pallas conv on the conv weights the TPU route reads
+    at this width (fp32 where the conv width is a multiple of 128; at any
+    other width JAX runs its XLA conv on the weights cast to bf16, which the
+    Pallas conv is handed here), the boundary-fused SSD kernel, every matmul
+    weight cast to bf16."""
     cdt = u.dtype
     l = u.shape[1]
     zxbcdt = u @ p["in_proj_w"].astype(cdt)
     d_inner = (zxbcdt.shape[-1] - 2 * d_state - n_heads) // 2
     z, xbc, dt_raw = jnp.split(zxbcdt, [d_inner, 2 * d_inner + 2 * d_state], axis=-1)
-    xbc = causal_conv1d_silu_pallas(xbc, p["conv_w"], p["conv_b"], interpret=True)
+    w, b = p["conv_w"], p["conv_b"]
+    if xbc.shape[-1] % 128:
+        w, b = (t.astype(cdt).astype(jnp.float32) for t in (w, b))
+    xbc = causal_conv1d_silu_pallas(xbc, w, b, interpret=True)
     dt = jax.nn.softplus(dt_raw.astype(jnp.float32) + p["dt_bias"])
     pad = ((0, 0), (0, (-l) % chunk), (0, 0))
     y = jk.ssd_chunked_pallas_xbc(jnp.pad(xbc, pad), jnp.pad(dt, pad), -jnp.exp(p["A_log"]),
@@ -329,8 +335,8 @@ def _conv_accumulating_in_fp32(x, weight, bias=None, activation="silu"):
 @pytest.mark.parametrize("impl", ["xla", "ssd_fused"])
 def test_ssd_mixer_bf16_matches_jax(impl, monkeypatch):
     """bf16 in, bf16 out, at L = 100 padded to a chunk multiple. 'ssd_fused'
-    against JAX's TPU route (the Pallas conv on the fp32 weights, the fused
-    SSD kernel) within 4e-3 of the max (two bf16 ulps at the max: the output
+    against JAX's TPU route (the conv on the weights that route reads at this
+    conv width, 160: rounded to bf16; the fused SSD kernel) within 4e-3 of the max (two bf16 ulps at the max: the output
     is a bf16 rounding of sums taken in other orders). 'xla' against JAX's XLA
     route (the plain conv on bf16-cast weights, ``ssd_chunked``) within 3e-2
     of the max: JAX's XLA conv rounds to bf16 after every shifted product and
@@ -358,22 +364,35 @@ def test_ssd_mixer_bf16_matches_jax(impl, monkeypatch):
         assert v.grad.dtype == torch.float32 and torch.isfinite(v.grad).all(), k
 
 
-@pytest.mark.parametrize("l", [100, 256])
-def test_ssd_mixer_bf16_gradients_match_jax(l):
+@pytest.mark.parametrize("d_model,l", [
+    pytest.param(48, 100, id="100"), pytest.param(48, 256, id="256"),  # conv width 128
+    pytest.param(64, 100, id="w160-100"), pytest.param(64, 256, id="w160-256")])
+def test_ssd_mixer_bf16_gradients_match_jax(d_model, l):
     """Every parameter gradient of the bf16 mixer on the presets' route
-    ('ssd_fused': K1 on the fp32 conv weights, K8/K9, plain on the CPU)
-    against JAX's TPU route (the Pallas conv and the boundary-fused SSD
-    kernel in interpret mode) for the loss sum(y r): the per-head scalars
-    (dt_bias, A_log, D) and the other vectors within 1e-3 of the leaf's max, the two
-    projection matrices within 3e-3. Both frameworks round at the same points
-    here, so the port lies within 5.1e-4 (vectors) and 2.2e-3 (matrices) of
-    JAX's bf16 gradient, while JAX's own fp32 gradient lies 4.9e-3 to 3.6e-2
-    from it: the controls assert that JAX's fp32 gradient and a zero gradient
-    both fail each leaf's bound."""
-    p = _mixer_params()
+    ('ssd_fused': K1, K8/K9, plain on the CPU) against JAX's TPU route (the
+    Pallas conv and the boundary-fused SSD kernel in interpret mode) for the
+    loss sum(y r).
+
+    At conv width 128, a multiple of 128 as the presets' 1024 (K1 on the fp32
+    conv weights): the per-head scalars (dt_bias, A_log, D) and the other
+    vectors within 1e-3 of the leaf's max, the two projection matrices
+    within 3e-3. Both frameworks round at the same points here, so the port
+    lies within 4.7e-4 (vectors) and 1.3e-3 (matrices) of JAX's bf16
+    gradient, while JAX's own fp32 gradient lies 2.6e-3 to 3.6e-2 from it.
+
+    At conv width 160 (JAX's XLA conv there: the conv weights cast to bf16,
+    so their gradients come back rounded to bf16, as the projection
+    matrices' do): those four leaves within one bf16 ulp at the leaf's max
+    (the port lies within half of one; JAX's fp32 gradient 2.1 to 4.3 ulps
+    away), the vectors within 1e-3 as above.
+
+    The controls assert that JAX's fp32 gradient and a zero gradient both
+    fail each leaf's bound."""
+    p = _mixer_params(d_model=d_model)
+    width = 2 * d_model + 2 * 16
     rng = np.random.default_rng(4)
-    u = rng.standard_normal((2, l, 64)).astype(np.float32)
-    r = rng.standard_normal((2, l, 64)).astype(np.float32)
+    u = rng.standard_normal((2, l, d_model)).astype(np.float32)
+    r = rng.standard_normal((2, l, d_model)).astype(np.float32)
     tu, ju = _bf16(u)
     leaves = {k: torch.from_numpy(v).requires_grad_() for k, v in p.items()}
     got = tssd.ssd_mixer_apply(leaves, tu, impl="ssd_fused", n_heads=2, d_state=16, chunk=32)
@@ -387,8 +406,13 @@ def test_ssd_mixer_bf16_gradients_match_jax(l):
     want, want32 = (jax.grad(loss)(jp, x) for x in (ju, ju.astype(jnp.float32)))
     for k, v in leaves.items():
         w = np.asarray(want[k])
-        tol = (3e-3 if k.endswith("proj_w") else 1e-3) * np.abs(w).max()
         assert v.grad.dtype == torch.float32, k
+        if width % 128 and (k.endswith("proj_w") or k.startswith("conv_")):
+            assert _ulps(v.grad, w, floor=1.0) <= 1, (k, _ulps(v.grad, w, floor=1.0))
+            assert _ulps(want32[k], w, floor=1.0) > 1, k  # fp32 precision fails
+            assert _ulps(np.zeros_like(w), w, floor=1.0) > 1, k  # so does a zero gradient
+            continue
+        tol = (3e-3 if k.endswith("proj_w") else 1e-3) * np.abs(w).max()
         assert np.abs(v.grad.numpy() - w).max() <= tol, (k, np.abs(v.grad.numpy() - w).max(), tol)
         assert np.abs(np.asarray(want32[k]) - w).max() > tol, k  # fp32 precision fails
         assert np.abs(w).max() > tol, k  # so does a zero gradient
