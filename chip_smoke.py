@@ -10,8 +10,9 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
 
 1. device: requires CUDA, prints ``nvidia-smi``'s name and power limit, turns
    TF32 off for matmuls and convolutions;
-2. build: the seven CUDA sources (K1-K11 each with its fp32 and bf16
-   variants), one ``nvcc`` each, in parallel, before
+2. build: the eight CUDA sources (K1-K11 each with its fp32 and bf16
+   variants, and csrc/mamba_any.cu: K1-K5 and K10/K11 at the shapes the tuned
+   kernels are not built for), one ``nvcc`` each, in parallel, before
    any rank of phases 11-14 starts;
 3. kernels: at the serving path's full-width shapes (B=32, L=512, d_inner=768,
    d_state=16, fp32, strided views as the mixer makes them) each kernel is
@@ -369,6 +370,34 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    alone at 2468 seeded features, ``vis_run`` of phase 33's ckpt-last.pth on 16 seeded
    clouds (K1 and K2 16 times a batch, the text dumps and PNG renders), and the host
    ``native.fps_cpu`` (built with g++) equal to the device FPS on 8 clouds of 8192 points.
+51. (after phase 50) K1/K5 at conv widths 1, 2, 3 and 5 (the any-width variants) on the
+   column view of xz (B=32, L=512, d_inner 768), fp32 and bf16, each against its plain
+   version (fp32 1e-5 of max; bf16 one ulp, dw and db 1e-4), the backward twice, bitwise
+   equal; timed at width 3 beside the plain versions and ``F.conv1d`` + ``F.silu``;
+52. K2-K4 at d_state 1, 8, 12, 32 and 64 (the any-state variants), fp32 and bf16, at perf
+   mode's tolerances, K3's y equal to K2's, K4 twice, bitwise equal; timed at 8 and 32;
+53. K10/K11 at d_inner 1152, 1536, 2048 and 2560, d_state 8 and 32, conv widths 2 and 3
+   (the global-memory variants) at B=4, L=256, fp32 and bf16, K11 twice, bitwise equal;
+   timed at the trans_dim-768 classifier's shape (d_inner 1536, B=32, L=512);
+54. every K8/K9 and K6/K7 entry point (lean, with states, with h_fin, with both; from 0 and
+   seeded) at chunks 8, 32, 96 (L = 512 padded to 576), 512 and 1024 (L = 1024, one chunk)
+   at B=32, fp32 and bf16, against their plain versions; the '_strip' (chunk 32) and
+   '_long' (chunk 512) variants timed at B=8, 6 heads;
+55. the paths of phases 51-54's variants: 12 ``MambaMixer`` blocks (d_model 384) at
+   (d_state 8, d_conv 3) and (32, 2), fp32 and bf16, a no-grad forward and a forward and
+   backward at B=32 (the any-width K1, K5 and any-state K2, K3, K4 12 times each, K1 24),
+   and at B=4 the same against the plain route ('seq'): output and every gradient within
+   1e-3 of max (PERF_LOGITS_TOL at bf16); the SSD cores ``ssd_chunked_xbc`` and
+   ``ssd_chunked_split`` at chunks 32 and 512, each without and with a gradient and with
+   ``return_carry``: every entry point's variant once;
+56. the SSD classifier (fp32, eigh) at ``ssd_chunk`` 32 and 512 through phase 5's serving
+   against 'xla' (K1 and the '_strip' / '_long' lean K8 12 times a forward) and
+   cfgs/finetune_modelnet_ssd_fused.yaml with that chunk through the CLI (two epochs of
+   two steps); the fused classifier at trans_dim 768 (d_inner 1536, dt_rank 48), fp32 and
+   bf16, through the serving against 'seq' and cfgs/finetune_modelnet.yaml with
+   ``scan_impl: fused`` through the CLI (the any-shape K10/K11); both part-segmentation
+   presets with ``model.dtype: bfloat16`` through the CLI as phase 29's (the bf16 K1-K5, or
+   K1/K5 and K8/K9, 12 times a step).
 
 Each path (serving, train, perf serving, perf train, SSD serving, SSD train,
 SSD perf serving, SSD perf train, fused serving, fused train, fused perf
@@ -380,7 +409,8 @@ forwards, the MAE stack's train pass, the two pretraining CLI runs, the hardest 
 run and held forward, the rms_norm and add_after_layer classifiers' serving and train, the
 SSD rms_norm classifier's held step, the policy's forward and gradient, the held legacy MAE
 loss and feature forwards and its CLI run, the few-shot CLI run and its test run, the HTTP
-server's 16 clients, the ``--tsne`` CLI run and ``vis_run``, and on
+server's 16 clients, the ``--tsne`` CLI run and ``vis_run``, phases 55-56's stacks, SSD
+cores, classifiers and seg runs, and on
 each rank TP SSD serving,
 TP SSD train, SP, SP train, TP Mamba-1 serving, bf16 TP SSD serving and
 train, bf16 SP and SP train, bf16 TP Mamba-1 serving and train, the Mamba-1 SP scan, and
@@ -399,6 +429,7 @@ path, rank 0's for the parallel paths), the card's name and power limit, and
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import pickle
@@ -2321,7 +2352,9 @@ def _wrappers() -> dict:
             "ssd_split_fwd_states_hfin": kssd.ssd_split_fwd_states_hfin,
             "ssd_split_bwd": kssd.ssd_split_bwd,
             "ssd_split_bwd_seeded": kssd.ssd_split_bwd_seeded,
-            **{name + "_bf16": getattr(kssd, name + "_bf16") for name in SSD_NAMES}}
+            **{name + "_bf16": getattr(kssd, name + "_bf16") for name in SSD_NAMES},
+            # the variants at the shapes the tuned kernels are not built for
+            **kc.ANY_LAUNCHES, **ks.ANY_LAUNCHES, **kfm.ANY_LAUNCHES, **kssd.VARIANT_LAUNCHES}
 
 
 # the SSD kernels' wrappers by name, each with a ``_bf16`` twin
@@ -3649,13 +3682,14 @@ def harness_phase(device, card: str) -> tuple[dict, dict]:
 
 
 def preset_cli_phase(device, card: str, preset: str, name: str, train_kernels, eval_kernels,
-                     model: dict, test: bool = False,
-                     override: dict | None = None) -> tuple[dict, dict]:
+                     model: dict, test: bool = False, override: dict | None = None,
+                     width: int = 384, epochs: int = 1) -> tuple[dict, dict]:
     """A shipped preset through the CLI on the tree that ``harness_phase``
     wrote (its FPS caches already built): cfgs/``preset`` at max_epoch 0
     (with the model keys of ``override`` set over it, a config of its own),
-    one epoch of HARNESS_TRAIN // TRAIN_BATCH steps and one validation. The
-    config's model must match ``model`` (and the published 12 x 384 width).
+    one epoch of HARNESS_TRAIN // TRAIN_BATCH steps and one validation (or
+    ``epochs`` of them, max_epoch ``epochs`` - 1). The config's model must
+    match ``model`` (and the published 12 x 384 width, or ``width``).
     Every step must launch each of ``train_kernels`` once a block, every
     validation forward each of ``eval_kernels``, and nothing else; the
     epoch's loss finite; ckpt-last.pth written. With ``test``, ``--test`` of
@@ -3670,7 +3704,7 @@ def preset_cli_phase(device, card: str, preset: str, name: str, train_kernels, e
     stem = "harness_" + (name if override else preset.removesuffix(".yaml"))
     exp_cfg = work / f"{stem}.yaml"
     exp_cfg.write_text(
-        f"_base_: {ROOT}/cfgs/{preset}\nmax_epoch: 0\ndataset:\n" + "".join(
+        f"_base_: {ROOT}/cfgs/{preset}\nmax_epoch: {epochs - 1}\ndataset:\n" + "".join(
             f"  {split}: {{_base_: {work}/modelnet40.yaml, others: {{subset: '{subset}'}}}}\n"
             for split, subset in (("train", "train"), ("val", "test"), ("test", "test"))) +
         ("model: {" + ", ".join(f"{k}: {v}" for k, v in override.items()) + "}\n"
@@ -3678,7 +3712,7 @@ def preset_cli_phase(device, card: str, preset: str, name: str, train_kernels, e
     config = get_config(str(exp_cfg))
     model_cfg = config.model
     got = {k: model_cfg.get(k) for k in model}
-    if (model_cfg.trans_dim, model_cfg.depth, config.total_bs) != (384, 12, TRAIN_BATCH) or \
+    if (model_cfg.trans_dim, model_cfg.depth, config.total_bs) != (width, 12, TRAIN_BATCH) or \
             got != model:
         raise AssertionError(f"the {preset} harness config is not the preset's: {model_cfg}")
     depth = int(model_cfg.depth)
@@ -3714,7 +3748,7 @@ def preset_cli_phase(device, card: str, preset: str, name: str, train_kernels, e
     finally:
         rf.validate = real
         os.chdir(cwd)
-    steps = HARNESS_TRAIN // TRAIN_BATCH
+    steps = epochs * (HARNESS_TRAIN // TRAIN_BATCH)
     if state.step != steps or state.model.config.dtype != model_cfg.dtype:
         raise AssertionError(f"the {preset} run took {state.step} steps at "
                              f"{state.model.config.dtype}, expected {steps} at {model_cfg.dtype}")
@@ -3724,12 +3758,13 @@ def preset_cli_phase(device, card: str, preset: str, name: str, train_kernels, e
         raise AssertionError(f"the {preset} run launched {paths[name]}; expected {want}")
     scalars = [json.loads(line) for line in (exp / "scalars.jsonl").read_text().splitlines()]
     losses = [r["value"] for r in scalars if r["tag"] == "Loss/Epoch/Loss"]
-    if len(losses) != 1 or not np.isfinite(losses).all() or not (exp / "ckpt-last.pth").exists():
+    if len(losses) != epochs or not np.isfinite(losses).all() or \
+            not (exp / "ckpt-last.pth").exists():
         raise AssertionError(f"the {preset} run logged {scalars}")
     val_acc = [r["value"] for r in scalars if r["tag"] == "Metric/ACC"]
-    record = {"config": f"cfgs/{preset}, max_epoch 0" + (f", model {override}" if override else ""),
-              "steps": steps,
-              "validation_forwards": n_forwards, "run_s": run_s, "epoch_loss": losses[0],
+    record = {"config": f"cfgs/{preset}, max_epoch {epochs - 1}" +
+              (f", model {override}" if override else ""), "steps": steps,
+              "validation_forwards": n_forwards, "run_s": run_s, "epoch_loss": losses[-1],
               "val_acc": val_acc, "launches": paths[name], "card": card}
     if test:
         want = {k: depth * len(forwards) * (k in eval_kernels) for k in paths[name + "_test"]}
@@ -3739,8 +3774,9 @@ def preset_cli_phase(device, card: str, preset: str, name: str, train_kernels, e
                                  f"{val_acc[-1]}")
         record.update(test_acc=test_acc, test_forwards=len(forwards),
                       test_launches=paths[name + "_test"])
-    log(f"{record['config']} through the CLI: {steps} steps and a validation of {n_forwards} "
-        f"forwards in {run_s:.1f} s, epoch loss {losses[0]:.4f}; launches {paths[name]}"
+    log(f"{record['config']} through the CLI: {steps} steps and {epochs} validation(s), "
+        f"{n_forwards} forwards in all, in {run_s:.1f} s, epoch losses {losses}; launches "
+        f"{paths[name]}; {card}"
         + (f"; --test accuracy {test_acc} over {len(forwards)} forwards" if test else ""))
     return paths, record
 
@@ -3878,7 +3914,7 @@ def write_shapenetpart_tree(root: Path, n_trainval: int, n_test: int,
 
 
 def partseg_cli_phase(device, card: str, preset: str, name: str, train_kernels,
-                      eval_kernels) -> tuple[dict, dict]:
+                      eval_kernels, dtype: str = "float32") -> tuple[dict, dict]:
     """A shipped part-segmentation preset through ``cli.main`` on a seeded
     ShapeNetPart tree (written once under build/seg/: SEG_TRAINVAL trainval
     shapes, SEG_TEST test shapes): cfgs/``preset`` at max_epoch 1, the full
@@ -3889,7 +3925,8 @@ def partseg_cli_phase(device, card: str, preset: str, name: str, train_kernels,
     and BatchNorm statistic moved from the seeded start; instance and class
     mIoU and accuracy in [0, 1]; ckpt-last.pth and ckpt-best.pth written.
     Returns ({name: launches}, the record: step p50, evaluation ms a batch,
-    peak memory)."""
+    peak memory). ``dtype``: the model's activation dtype, set over the
+    preset's (``model.dtype``) in the run's config."""
     from si_mamba_tpu_torch.models.segmentation import PartSegConfig
     from si_mamba_tpu_torch.train import cli, optim
     from si_mamba_tpu_torch.train import runner_seg as rs
@@ -3905,11 +3942,12 @@ def partseg_cli_phase(device, card: str, preset: str, name: str, train_kernels,
     if not (work / "cfgs").exists():  # the seg presets' _base_ refs are CWD-relative
         os.symlink(ROOT / "cfgs", work / "cfgs")
     exp_cfg = work / f"seg_{name}.yaml"
-    exp_cfg.write_text(f"_base_: {ROOT}/cfgs/{preset}\nmax_epoch: 1\ndata_root: {tree}\n")
+    exp_cfg.write_text(f"_base_: {ROOT}/cfgs/{preset}\nmax_epoch: 1\ndata_root: {tree}\n" +
+                       (f"model: {{dtype: {dtype}}}\n" if dtype != "float32" else ""))
     config = get_config(str(exp_cfg))
     cfg = PartSegConfig.from_dict(config.model)
     want_model = dict(trans_dim=384, depth=12, num_group=128, group_size=32, method="HLT",
-                      fetch_idx=(3, 7, 11), dtype="float32", **SEG_PRESETS[preset])
+                      fetch_idx=(3, 7, 11), dtype=dtype, **SEG_PRESETS[preset])
     if {k: getattr(cfg, k) for k in want_model} != want_model or \
             (config.total_bs, config.npoints) != (SEG_BATCH, SEG_POINTS):
         raise AssertionError(f"the {preset} config is not the preset's: {cfg}")
@@ -4014,7 +4052,9 @@ def partseg_cli_phase(device, card: str, preset: str, name: str, train_kernels,
     step_ms = [s["ms"] for s in steps]
     p50 = statistics.median(step_ms[1:])
     eval_ms = statistics.median(e["ms"] for e in evals)
-    record = {"config": f"cfgs/{preset}, max_epoch 1", "trainval_shapes": SEG_TRAINVAL,
+    record = {"config": f"cfgs/{preset}, max_epoch 1" +
+              (f", model.dtype {dtype}" if dtype != "float32" else ""),
+              "trainval_shapes": SEG_TRAINVAL,
               "test_shapes": SEG_TEST, "points": SEG_POINTS, "batch": SEG_BATCH,
               "data_write_s": write_s, "run_s": run_s, "step_ms": step_ms,
               "p50_step_ms": p50, "shapes_per_s": SEG_BATCH / (p50 / 1e3),
@@ -5749,6 +5789,730 @@ def last_module_phases(device, card: str, pretrain_ckpt: str) -> tuple[dict, dic
 
 
 # ---------------------------------------------------------------------------
+# the kernels at the shapes their Pallas kernels compile for (phases 51-56)
+# ---------------------------------------------------------------------------
+
+ANY_SOURCE = "si_mamba_tpu_torch/csrc/mamba_any.cu"
+CONV_WIDTHS = (1, 2, 3, 5)  # held alone; 3 and 2 run on the stacks' paths
+SCAN_STATES = (1, 8, 12, 32, 64, 300)  # held alone; 8 and 32 run on the stacks' paths
+STACKS = {"stack_n8_w3": dict(d_state=8, d_conv=3), "stack_n32_w2": dict(d_state=32, d_conv=2)}
+FUSED_SHAPES = (  # (d_inner, d_state, d_conv, dt_rank) held alone; 1536 is the path's
+    (1152, 16, 4, 36), (1536, 16, 4, 48), (2048, 16, 4, 64), (2560, 16, 4, 80),
+    (768, 8, 4, 24), (768, 32, 4, 24), (768, 16, 2, 24), (768, 16, 3, 24))
+FUSED_HOLD = dict(batch=4, length=256)  # the shapes held alone, at this size
+SSD_CHUNKS = (8, 32, 96, 512, 1024)  # held alone; 32 and 512 run on the classifier's paths
+SSD_HOLD_BATCH = 32
+SSD_HOLD_HEADS = 1  # heads of the held cores (the classifier's 6 on the timed shapes)
+SSD_CORE_BATCH = 8  # the small core paths that reach the carry and split entry points
+MODELNET40_768_FUSED = dict(MODELNET40, trans_dim=768, encoder_dims=768, scan_impl="fused")
+SLICE21_EPOCHS = 2  # CLI epochs of phase 56's classifiers: 4 steps on the harness tree
+
+
+def _hold(name: str, got: torch.Tensor, want: torch.Tensor, rel: float, ulps: float = 1,
+          floor: float = 1e-2) -> float:
+    """A kernel output against its plain version: fp32 within ``rel`` of the
+    max, bf16 within ``ulps`` bf16 ulps at ``floor`` of the max. Returns max |diff|."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} against the plain "
+                             f"version's {want.dtype} {tuple(want.shape)}")
+    return _check_bf16(name, got, want, ulps=ulps, floor=floor, rel=rel)
+
+
+def _timed(fn, plain, iters: int = 10, plain_iters: int = 1) -> dict:
+    """Eager and CUDA-graph device time of ``fn``, and the plain version's
+    (no warm-up: it launches no kernel of its own)."""
+    return dict(ms=time_ms(fn, iters), device_ms=graph_ms(fn, iters),
+                plain_ms=time_ms(plain, plain_iters, warmup=0))
+
+
+def _rand(device, *shape, scale=1.0, seed=0, dtype=torch.float32):
+    return (torch.from_numpy(np.random.default_rng(seed).standard_normal(shape, dtype=np.float32))
+            * scale).to(device, dtype)
+
+
+def conv_any_phase(device) -> dict:
+    """K1/K5's any-width variants: held alone at widths CONV_WIDTHS on the
+    column view of xz (B=32, L=512, d_inner 768, row stride 1536), fp32 and
+    bf16 (fp32 within 1e-5 of max; bf16 y and dx within one ulp at a floor of
+    1e-2, dw and db within 1e-4), the backward twice, bitwise equal; timed at
+    width 3 (the stack path's) beside the plain versions and the library's
+    conv + SiLU. Returns {record name: figures}."""
+    from si_mamba_tpu_torch.ops.kernels import causal_conv as kc
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        sfx = "_bf16" if dtype == torch.bfloat16 else ""
+        xz = _rand(device, 32, 512, 1536, seed=81, dtype=dtype)
+        x, g = xz[..., :768], _rand(device, 32, 512, 768, seed=82, dtype=dtype)
+        held, timed = {}, {}
+        for W in CONV_WIDTHS:
+            w, b = _rand(device, 768, W, scale=0.5, seed=W), _rand(device, 768, scale=0.1, seed=9)
+            y = kc.causal_conv1d_silu_fwd(x, w, b)
+            e1 = _hold(f"K1 any W={W}{sfx}", y, kc.causal_conv1d_ref(x, w, b), 1e-5)
+            got = kc.causal_conv1d_silu_bwd(x, w, b, g)
+            again = kc.causal_conv1d_silu_bwd(x, w, b, g)
+            if not all(torch.equal(p, q) for p, q in zip(got, again)):
+                raise AssertionError(f"two any-width conv backward runs (W={W}) differ")
+            e5 = max(_hold(f"K5 any W={W}{sfx} {nm}", a, r, 1e-4)
+                     for nm, a, r in zip(("dx", "dw", "db"), got,
+                                         kc.causal_conv1d_silu_bwd_ref(x, w, b, g)))
+            held[str(W)] = dict(fwd_err=e1, bwd_err=e5)
+            if W == 3:
+                size = x.element_size()
+                xt, w3 = x.transpose(1, 2), w[:, None, :].to(dtype)
+                bd_f = bound(2 * x.numel() * size + 768 * (W + 1) * 4, x.numel() * (2 * W + 5))
+                bd_b = bound(3 * x.numel() * size + 2 * 768 * (W + 1) * 4, x.numel() * (6 * W + 11))
+                x_lib = xt.detach().requires_grad_()
+                w_lib, b_lib = w3.detach().clone().requires_grad_(), b.to(dtype).requires_grad_()
+                y_lib = F.silu(F.conv1d(x_lib, w_lib, b_lib, padding=W - 1, groups=768)[..., :512])
+                timed = dict(
+                    fwd=dict(shape=[32, 512, 768], width=W, max_abs_err=e1,
+                             bound_ms=bd_f[0], bound_by=bd_f[1],
+                             library_ms=time_ms(lambda: F.silu(F.conv1d(
+                                 xt, w3, b.to(dtype), padding=W - 1, groups=768)[..., :512]), 10),
+                             **_timed(lambda: kc.causal_conv1d_silu_fwd(x, w, b),
+                                      lambda: kc.causal_conv1d_ref(x, w, b), 20, 5)),
+                    bwd=dict(shape=[32, 512, 768], width=W, max_abs_err=e5,
+                             bound_ms=bd_b[0], bound_by=bd_b[1],
+                             library_ms=time_ms(lambda: torch.autograd.grad(
+                                 y_lib, (x_lib, w_lib, b_lib), g.transpose(1, 2),
+                                 retain_graph=True), 10),
+                             **_timed(lambda: kc.causal_conv1d_silu_bwd(x, w, b, g),
+                                      lambda: kc.causal_conv1d_silu_bwd_ref(x, w, b, g), 20, 2)))
+        out["causal_conv1d_silu_any" + sfx] = dict(timed["fwd"], held_widths=held)
+        out["causal_conv1d_silu_bwd_any" + sfx] = dict(timed["bwd"], held_widths=held)
+    log("any-width conv: " + "; ".join(
+        f"{k} {v['ms']:.4f} ms (device {v['device_ms']:.4f}, bound {v['bound_ms']:.4f}, plain "
+        f"{v['plain_ms']:.3f}, library {v['library_ms']:.4f}), held at W {v['held_widths']}"
+        for k, v in out.items()))
+    return out
+
+
+def _scan_case(device, B, L, D, n, dtype, seed):
+    u = _rand(device, B, L, D, seed=seed, dtype=dtype)
+    delta = _rand(device, B, L, D, scale=0.5, seed=seed + 1, dtype=dtype)
+    x_dbl = _rand(device, B, L, 24 + 2 * n, seed=seed + 2, dtype=dtype)
+    A = -(torch.rand(D, n, generator=torch.Generator().manual_seed(seed)) + 0.1).to(device)
+    return (u, delta, A, x_dbl[..., 24:24 + n], x_dbl[..., 24 + n:],
+            _rand(device, D, seed=seed + 3), _rand(device, B, L, D, seed=seed + 4, dtype=dtype),
+            _rand(device, D, scale=0.1, seed=seed + 5))
+
+
+def scan_any_phase(device) -> dict:
+    """K2-K4's any-state variants: held alone at d_state SCAN_STATES (B=8 at
+    1, 12, 64 and 300, the last with its arrays in the global workspace,
+    B=32 at 8 and 32, L=512, d_inner 768; B and C column views
+    of x_dbl), fp32 and bf16, at the perf-mode tolerances (bf16 y one ulp,
+    the backward's bf16 outputs two at a floor of 2e-2, fp32 outputs 1e-4 and
+    the backward's sums 1e-3 of max); K3's y equal to K2's; K4 twice, bitwise
+    equal; timed at d_state 8, 32 and 300. Returns {record name: figures}."""
+    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        sfx = "_bf16" if dtype == torch.bfloat16 else ""
+        held = {}
+        for n in SCAN_STATES:
+            B = 32 if n in (8, 32) else 8
+            args = _scan_case(device, B, 512, 768, n, dtype, seed=90 + n)
+            y = ks.selective_scan_fwd(*args)
+            e2 = _hold(f"K2 any n={n}{sfx}", y, ks.selective_scan_ref(
+                *args[:5], D=args[5], z=args[6], delta_bias=args[7]), 1e-4)
+            y3, he = ks.selective_scan_fwd_residuals(*args)
+            if not torch.equal(y3, y):
+                raise AssertionError(f"any-state K3's y (n={n}) differs from K2's")
+            e3 = _hold(f"K3 any n={n}{sfx} h", he,
+                       ks.selective_scan_fwd_residuals_ref(*args)[1], 1e-4)
+            g = _rand(device, B, 512, 768, seed=95, dtype=dtype)
+            got = ks.selective_scan_bwd(*args, g, he)
+            if not all(torch.equal(p, q) for p, q in zip(got, ks.selective_scan_bwd(*args, g, he))):
+                raise AssertionError(f"two any-state scan backward runs (n={n}) differ")
+            e4 = max(_hold(f"K4 any n={n}{sfx} {nm}", a, r, 1e-3, ulps=2, floor=2e-2)
+                     for nm, a, r in zip(("du", "ddt", "dA", "dB", "dC", "dD", "dz", "ddtb"),
+                                         got, ks.selective_scan_bwd_ref(*args, g, he)))
+            held[str(n)] = dict(k2=e2, k3=e3, k4=e4)
+            if n not in (8, 32, 300):
+                continue
+            size, L, D = args[0].element_size(), 512, 768
+            nc = -(-L // ks.CHUNK)
+            fwd_bytes = (4 * B * L * D + 2 * B * L * n) * size + (D * n + 2 * D) * 4
+            bwd_bytes = (7 * B * L * D + 4 * B * L * n) * size + (B * nc * n * D + 2 * D * n
+                                                                  + 4 * D) * 4
+            for name, fn, plain, bd, err in (
+                    ("selective_scan_fwd_any", lambda: ks.selective_scan_fwd(*args),
+                     lambda: ks.selective_scan_ref(*args[:5], D=args[5], z=args[6],
+                                                   delta_bias=args[7]),
+                     bound(fwd_bytes, B * L * D * (10 + 7 * n)), e2),
+                    ("selective_scan_fwd_residuals_any",
+                     lambda: ks.selective_scan_fwd_residuals(*args),
+                     lambda: ks.selective_scan_fwd_residuals_ref(*args),
+                     bound(fwd_bytes + B * nc * n * D * 4, B * L * D * (10 + 7 * n)), e3),
+                    ("selective_scan_bwd_any", lambda: ks.selective_scan_bwd(*args, g, he),
+                     lambda: ks.selective_scan_bwd_ref(*args, g, he),
+                     bound(bwd_bytes, B * L * D * (20 * n + 20)), e4)):
+                out.setdefault(name + sfx, {})[str(n)] = dict(
+                    shape=[B, L, D], d_state=n, max_abs_err=err, bound_ms=bd[0], bound_by=bd[1],
+                    library_ms=None, **_timed(fn, plain))
+        for name in ("selective_scan_fwd_any", "selective_scan_fwd_residuals_any",
+                     "selective_scan_bwd_any"):
+            by_n = out[name + sfx]
+            out[name + sfx] = dict(by_n["8"], at_d_state_32=by_n["32"],
+                                   at_d_state_300=by_n["300"], held_d_states=held)
+    log("any-state scan: " + "; ".join(
+        f"{k} n=8 {v['ms']:.4f} ms (device {v['device_ms']:.4f}, bound {v['bound_ms']:.4f}, "
+        f"plain {v['plain_ms']:.2f}), n=32 {v['at_d_state_32']['ms']:.4f} ms, n=300 "
+        f"{v['at_d_state_300']['ms']:.4f} ms (device {v['at_d_state_300']['device_ms']:.4f})"
+        for k, v in out.items()))
+    return out
+
+
+def _fused_args(device, d_inner, d_state, d_conv, dt_rank, batch, length, dtype, seed):
+    """K10/K11's inputs as a freshly initialised mixer of that shape makes
+    them from a seeded x."""
+    from si_mamba_tpu_torch.models.layers import MambaMixer
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    mixer = MambaMixer(d_inner // 2, d_state=d_state, d_conv=d_conv, dt_rank=dt_rank)
+    mixer.reset_parameters(torch.Generator().manual_seed(seed))
+    p = {k: v.detach().to(device) for k, v in mixer.params().items()}
+    xz = (_rand(device, batch, length, d_inner // 2, seed=seed) @ p["in_proj_w"]).to(dtype)
+    return kfm.kernel_inputs(xz, p["conv_w"], p["conv_b"], p["x_proj_w"], p["dt_proj_w"],
+                             p["dt_proj_b"], -torch.exp(p["A_log"]), p["D"], dt_rank=dt_rank,
+                             d_state=d_state)
+
+
+def _hold_fused(name: str, args, y_states, h, g) -> tuple[float, float]:
+    """K10 (lean and with states) and K11 at ``args`` against the plain
+    versions: y and h_entries within 1e-5 of max, gradients 1e-4 (bf16 one
+    ulp at a floor of 2e-2); K10's two forwards' y equal, K11 twice bitwise
+    equal. Returns (K10's, K11's max |diff|)."""
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    y = kfm.fused_mixer_fwd(*args)
+    if not torch.equal(y_states, y):
+        raise AssertionError(f"any-shape K10 with states at {name}: y differs")
+    y_ref, h_ref = kfm.fused_mixer_fwd_ref(*args, chunk=kfm.CHUNK, emit_states=True)
+    e10 = max(_hold(f"K10 any {name}", y, y_ref, 1e-5, floor=2e-2),
+              _hold(f"K10 any {name} h", h, h_ref, 1e-5))
+    got = kfm.fused_mixer_bwd(*args, h, g)
+    if not all(torch.equal(p, q) for p, q in zip(got, kfm.fused_mixer_bwd(*args, h, g))):
+        raise AssertionError(f"two any-shape K11 runs at {name} differ")
+    e11 = max(_hold(f"K11 any {name} {i}", a, r, 1e-4, floor=2e-2)
+              for i, (a, r) in enumerate(zip(
+                  got, kfm.fused_mixer_bwd_ref(*args, h, g, chunk=kfm.CHUNK))))
+    return e10, e11
+
+
+def fused_any_phase(device) -> dict:
+    """K10/K11's any-shape variants: held alone at FUSED_SHAPES (d_inner 1152,
+    1536, 2048, 2560; d_state 8 and 32; conv widths 2 and 3) at FUSED_HOLD,
+    fp32 and bf16 (fp32 y and h_entries within 1e-5 of max, gradients 1e-4;
+    bf16 y and dxz one ulp at a floor of 2e-2, fp32 outputs 1e-4), K11 twice,
+    bitwise equal; then at the trans_dim-768 path's shape (d_inner 1536,
+    dt_rank 48, B=32, L=512) held the same way against the plain versions
+    and timed beside them. Returns {record name: figures}."""
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        sfx = "_bf16" if dtype == torch.bfloat16 else ""
+        held = {}
+        for shape in FUSED_SHAPES:
+            args = _fused_args(device, *shape, FUSED_HOLD["batch"], FUSED_HOLD["length"], dtype,
+                               seed=shape[0] + shape[1])
+            y2, h = kfm.fused_mixer_fwd_states(*args)
+            e10, e11 = _hold_fused(f"{shape}{sfx}", args, y2, h,
+                                   _rand(device, *y2.shape, seed=7, dtype=dtype))
+            held[str(shape)] = dict(k10=e10, k11=e11)
+        args = _fused_args(device, 1536, 16, 4, 48, 32, 512, dtype, seed=15)
+        work = fused_work(args)
+        y, h = kfm.fused_mixer_fwd_states(*args)
+        g = _rand(device, *y.shape, seed=8, dtype=dtype)
+        e10, e11 = _hold_fused(f"path (1536, 16, 4, 48){sfx}", args, y, h, g)
+        path = dict(k10=e10, k11=e11)
+        for name, fn, plain, (nbytes, ops), key in (
+                ("fused_mixer_fwd_any", lambda: kfm.fused_mixer_fwd(*args),
+                 lambda: kfm.fused_mixer_fwd_ref(*args, chunk=kfm.CHUNK),
+                 (work["fwd_bytes"], work["fwd_ops"]), "k10"),
+                ("fused_mixer_fwd_states_any", lambda: kfm.fused_mixer_fwd_states(*args),
+                 lambda: kfm.fused_mixer_fwd_ref(*args, chunk=kfm.CHUNK, emit_states=True),
+                 (work["fwd_bytes"] + work["hent_bytes"], work["fwd_ops"]), "k10"),
+                ("fused_mixer_bwd_any", lambda: kfm.fused_mixer_bwd(*args, h, g),
+                 lambda: kfm.fused_mixer_bwd_ref(*args, h, g, chunk=kfm.CHUNK),
+                 (work["bwd_bytes"], work["bwd_ops"]), "k11")):
+            bd = bound(nbytes, ops)
+            out[name + sfx] = dict(
+                shape=[32, 512, 1536], d_state=16, dt_rank=48, bound_ms=bd[0], bound_by=bd[1],
+                max_abs_err=path[key], library_ms=None, held_shapes=held,
+                **_timed(fn, plain, 5))
+    log("any-shape fused mixer: " + "; ".join(
+        f"{k} {v['ms']:.3f} ms (device {v['device_ms']:.3f}, bound {v['bound_ms']:.4f}, plain "
+        f"{v['plain_ms']:.1f})" for k, v in out.items()))
+    return out
+
+
+SSD_ENTRIES = {  # record name: (split, forward, states, h_fin / seeded)
+    "ssd_xbc_fwd": (False, True, False, False), "ssd_xbc_fwd_states": (False, True, True, False),
+    "ssd_xbc_fwd_hfin": (False, True, False, True),
+    "ssd_xbc_fwd_states_hfin": (False, True, True, True),
+    "ssd_xbc_bwd": (False, False, None, False), "ssd_xbc_bwd_seeded": (False, False, None, True),
+    "ssd_split_fwd": (True, True, False, False), "ssd_split_fwd_states": (True, True, True, False),
+    "ssd_split_fwd_hfin": (True, True, False, True),
+    "ssd_split_fwd_states_hfin": (True, True, True, True),
+    "ssd_split_bwd": (True, False, None, False),
+    "ssd_split_bwd_seeded": (True, False, None, True)}
+
+
+def _ssd_inputs(device, B, L, h, chunk, dtype, seed):
+    n = p = 128
+    d = h * p
+    xbc = _rand(device, B, L, d + 2 * n, scale=0.5, seed=seed, dtype=dtype)
+    rng = np.random.default_rng(seed)
+    dth = torch.from_numpy(rng.uniform(0.0, 0.05, (B, h, L // chunk, chunk))
+                           .astype(np.float32)).to(device)
+    A = -torch.from_numpy(rng.uniform(0.1, 1.0, h).astype(np.float32)).to(device)
+    S = torch.cumsum(dth * A[None, :, None, None], -1).contiguous()
+    return (xbc, dth, S, _rand(device, h, seed=seed + 1), _rand(device, B, L, d, seed=seed + 2,
+                                                               dtype=dtype),
+            _rand(device, B, h, n, p, seed=seed + 3), d)
+
+
+def _ssd_calls(xbc, dth, S, D, dy, dhf, d, chunk):
+    """{entry name: (kernel call, plain call, the plain outputs' picker)} of
+    every K8/K9 and K6/K7 entry point on these operands (K9/K7 from the
+    states of K8/K6 with states). Each plain call computes what its entry
+    point computes; the picker takes the entry point's outputs from the
+    family's one plain call with every output (``_plain_families``)."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    n = 128
+    x, Bm, Cm = xbc[..., :d], xbc[..., d:d + n], xbc[..., d + n:]
+    h_in = kssd.ssd_xbc_fwd_states(xbc, dth, S, D, d, chunk)[1]
+    hs = kssd.ssd_split_fwd_states(x, dth, S, Bm, Cm, chunk)[1]
+    calls = {}
+    for name, (split, fwd, states, flag) in SSD_ENTRIES.items():
+        fn = getattr(kssd, name)
+        if fwd and not split:
+            plain = functools.partial(kssd.ssd_xbc_fwd_ref, xbc, dth, S, D, d, chunk,
+                                      emit_states=states, emit_hfin=flag)
+            call = functools.partial(fn, xbc, dth, S, D, d, chunk)
+        elif fwd:
+            plain = functools.partial(kssd.ssd_split_fwd_ref, x, dth, S, Bm, Cm, chunk,
+                                      emit_states=states, emit_hfin=flag)
+            call = functools.partial(fn, x, dth, S, Bm, Cm, chunk)
+        elif not split:
+            plain = functools.partial(kssd.ssd_xbc_bwd_ref, xbc, dth, S, D, h_in, dy, d, chunk,
+                                      dh_fin=dhf if flag else None)
+            call = (functools.partial(fn, xbc, dth, S, D, h_in, dy, dhf, d, chunk) if flag
+                    else functools.partial(fn, xbc, dth, S, D, h_in, dy, d, chunk))
+        else:
+            plain = functools.partial(kssd.ssd_split_bwd_ref, x, dth, S, Bm, Cm, hs, dy, chunk,
+                                      dh_fin=dhf if flag else None)
+            call = (functools.partial(fn, x, dth, S, Bm, Cm, hs, dy, dhf, chunk) if flag
+                    else functools.partial(fn, x, dth, S, Bm, Cm, hs, dy, chunk))
+        pick = ((lambda out, st=states, hf=flag: [out[0]] + [out[1]] * st + [out[2]] * hf)
+                if fwd else (lambda out: list(out)))
+        calls[name] = (call, plain, pick)
+    return calls, _ssd_families(xbc, dth, S, D, dy, dhf, d, chunk, h_in, hs)
+
+
+def _ssd_families(xbc, dth, S, D, dy, dhf, d, chunk, h_in, hs) -> dict:
+    """The plain calls with every output of each entry-point family: K8, K6
+    (with states and h_fin), K9 and K7 from 0 and seeded."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    x, Bm, Cm = xbc[..., :d], xbc[..., d:d + 128], xbc[..., d + 128:]
+    xbc_b = (xbc, dth, S, D, h_in, dy, d, chunk)
+    split_b = (x, dth, S, Bm, Cm, hs, dy, chunk)
+    return {"xbc_fwd": functools.partial(kssd.ssd_xbc_fwd_ref, xbc, dth, S, D, d, chunk,
+                                         emit_states=True, emit_hfin=True),
+            "split_fwd": functools.partial(kssd.ssd_split_fwd_ref, x, dth, S, Bm, Cm, chunk,
+                                           emit_states=True, emit_hfin=True),
+            "ssd_xbc_bwd": functools.partial(kssd.ssd_xbc_bwd_ref, *xbc_b),
+            "ssd_xbc_bwd_seeded": functools.partial(kssd.ssd_xbc_bwd_ref, *xbc_b, dh_fin=dhf),
+            "ssd_split_bwd": functools.partial(kssd.ssd_split_bwd_ref, *split_b),
+            "ssd_split_bwd_seeded": functools.partial(kssd.ssd_split_bwd_ref, *split_b,
+                                                      dh_fin=dhf)}
+
+
+def _family(name: str) -> str:
+    split, fwd = SSD_ENTRIES[name][:2]
+    return ("split_fwd" if split else "xbc_fwd") if fwd else name
+
+
+def _hold_ssd(name: str, got, want, truth=None) -> float:
+    """Every output of an SSD entry point against the plain version's: at
+    fp32 (3xTF32 products) within 1e-4 of each output's max; at bf16 the fp32
+    outputs (states, ddt, dS, dD) within 1e-3 of their max and the bf16 ones
+    (y, dx, dB, dC) against ``truth``, the plain version in float64 on the
+    same bf16 inputs (``_hold_bf16_truth``, as phase 30: no further from it
+    than the plain version; with 64 chunks of 8 the carried states' bf16
+    operands flip at rounding boundaries, 2.5 bf16 ulps at the 2e-2 floor
+    apart at single elements). Returns max |diff| from the plain version."""
+    got = got if isinstance(got, tuple) else (got,)
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} outputs, the plain version {len(want)}")
+    err = 0.0
+    for i, (a, w) in enumerate(zip(got, want)):
+        if a.dtype == torch.bfloat16:
+            e = _hold_bf16_truth(f"{name} {i}", a, w, truth[i])["max_abs_err"]
+        elif truth is not None:
+            e = _hold_bf16(f"{name} {i}", a, w)
+        else:
+            e = _hold(f"{name} {i}", a, w, 1e-4)
+        err = max(err, e)
+    return err
+
+
+def _hold_ssd_entries(ops, chunk: int, where: str) -> tuple[dict, dict]:
+    """Every K8/K9 and K6/K7 entry point on ``ops`` (``_ssd_inputs``) against
+    its plain version (``_hold_ssd``; at bf16 with the float64 truth).
+    Returns (``_ssd_calls``' calls, {entry name: max |diff|})."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    calls, families = _ssd_calls(*ops, chunk)
+    plain = {k: f() for k, f in families.items()}
+    exact = None
+    if ops[0].dtype == torch.bfloat16:  # the truth: the plain versions in float64
+        d = ops[-1]
+        x64 = [t.double() if torch.is_tensor(t) else t for t in ops]
+        xbc64 = x64[0]
+        h64 = kssd.ssd_xbc_fwd_ref(*x64[:4], d, chunk, emit_states=True)[1]
+        hs64 = kssd.ssd_split_fwd_ref(xbc64[..., :d], *x64[1:3], xbc64[..., d:d + 128],
+                                      xbc64[..., d + 128:], chunk, emit_states=True)[1]
+        exact = {k: f() for k, f in _ssd_families(*x64, chunk, h64, hs64).items()}
+    errs = {}
+    for name, (call, _, pick) in calls.items():
+        fam = _family(name)
+        errs[name] = _hold_ssd(f"{name} {where}", call(), pick(plain[fam]),
+                               None if exact is None else pick(exact[fam]))
+    return calls, errs
+
+
+def ssd_any_phase(device) -> dict:
+    """Every K8/K9 and K6/K7 entry point at chunks SSD_CHUNKS (8, 32, 96 with L
+    = 512 padded to 576 as the mixer pads, 512, and 1024 at L = 1024: one
+    chunk), B=SSD_HOLD_BATCH, SSD_HOLD_HEADS heads of 128, d_state 128, fp32
+    and bf16, each against its plain version (``_hold_ssd``); the '_strip'
+    (32) and '_long' (512) variants of each entry point then timed, beside
+    the plain versions, with ``bound_ms`` from the work the chunk needs (the
+    strip layout's added rows are the kernel's cost, not the function's).
+    Timed at B=SSD_CORE_BATCH, 6 heads of 128, L=512, the classifier's and the
+    core paths' width, where every entry point is first held the same way.
+    Returns {record name: figures}."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    held = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        sfx = "_bf16" if dtype == torch.bfloat16 else ""
+        for chunk in SSD_CHUNKS:
+            L = 1024 if chunk == 1024 else 512
+            Lp = L + (-L) % chunk
+            ops = _ssd_inputs(device, SSD_HOLD_BATCH, Lp, SSD_HOLD_HEADS, chunk, dtype,
+                              seed=chunk)
+            for name, err in _hold_ssd_entries(ops, chunk, f"chunk {chunk}{sfx}")[1].items():
+                held.setdefault(name + sfx, {})[str(chunk)] = err
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        sfx = "_bf16" if dtype == torch.bfloat16 else ""
+        for chunk in (32, 512):
+            variant = kssd.chunk_variant(chunk)
+            B = SSD_CORE_BATCH
+            ops = _ssd_inputs(device, B, 512, 6, chunk, dtype, seed=chunk + 1)
+            calls, errs = _hold_ssd_entries(ops, chunk, f"6 heads chunk {chunk}{sfx}")
+            for name in SSD_ENTRIES:
+                call, plain, _ = calls[name]
+                split, fwd, states, flag = SSD_ENTRIES[name]
+                work_f, work_b = _ssd_bf16_work(B, 512, 6, chunk, d_skip=not split,
+                                                elem=2 if sfx else 4)
+                nbytes, bf, tf = work_f[(bool(states), flag)] if fwd else work_b[flag]
+                bd = bf16_tc_bound(nbytes, bf, tf) if sfx else tc_bound(nbytes, bf + tf)
+                out[kssd._variant_name(name + sfx, variant)] = dict(
+                    shape=[B, 512, 6 * 128], chunk=chunk, max_abs_err=errs[name],
+                    held_chunks=held[name + sfx], library_ms=None, **bd,
+                    **_timed(call, plain, 5))
+    log("SSD entry points at every chunk: " + "; ".join(
+        f"{k} {v['ms']:.3f} ms (device {v['device_ms']:.3f}, bound {v['bound_ms']:.4f}, plain "
+        f"{v['plain_ms']:.1f})" for k, v in out.items()))
+    return out
+
+
+def mixer_stack_phase(device, name: str, d_state: int, d_conv: int,
+                      dtype: torch.dtype) -> tuple[dict, dict]:
+    """A stack of 12 ``MambaMixer`` blocks (d_model 384, ``d_state``,
+    ``d_conv``; each block's output added to its input) in ``dtype`` on the
+    kernel route (``impl='auto'``: the any-width K1 and the any-state K2
+    without a gradient; K1 and K3 forward, K4 and K5 backward with one). The
+    path, counted from 0: a no-grad forward and a forward and backward at
+    B=32, L=512. Then at B=4 (the plain route's autograd keeps every step's
+    state) the forward and one backward of the kernel route against the
+    plain route ('seq' scan, plain conv) on the same card: the output within
+    1e-3 of its max at fp32 (PERF_LOGITS_TOL at bf16), every parameter and
+    input gradient within 1e-3 (PERF_LOGITS_TOL) of its leaf's largest.
+    Returns ({name: launches}, the record)."""
+    from si_mamba_tpu_torch.models.layers import MambaMixer
+
+    depth = 12
+    blocks = [MambaMixer(384, d_state=d_state, d_conv=d_conv) for _ in range(depth)]
+    for i, blk in enumerate(blocks):
+        blk.reset_parameters(torch.Generator().manual_seed(200 + i))
+    kernel = torch.nn.ModuleList(blocks).to(device)
+    plain = torch.nn.ModuleList(MambaMixer(384, d_state=d_state, d_conv=d_conv, scan_impl="seq")
+                                for _ in range(depth)).to(device)
+    plain.load_state_dict(kernel.state_dict())
+
+    def run(stack, inp):
+        for blk in stack:
+            inp = inp + blk(inp)
+        return inp
+
+    tol = 1e-3 if dtype == torch.float32 else PERF_LOGITS_TOL
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    x = _rand(device, 32, 512, 384, seed=d_state, dtype=dtype)
+    g = _rand(device, 32, 512, 384, seed=d_state + 1, dtype=dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_launch_counts()  # the path: a no-grad forward, then a forward and backward
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y_eval = run(kernel, x)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    y = run(kernel, x.detach().requires_grad_())
+    y.backward(g)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    want = {k: 0 for k in launches}
+    for k in ("selective_scan_fwd_any", "selective_scan_fwd_residuals_any",
+              "selective_scan_bwd_any", "causal_conv1d_silu_bwd_any"):
+        want[k + sfx] = depth
+    want["causal_conv1d_silu_any" + sfx] = 2 * depth
+    if launches != want:
+        raise AssertionError(f"{name}: the stack launched {launches}; expected {want}")
+    if not torch.equal(y_eval, y.detach()):
+        raise AssertionError(f"{name}: the no-grad forward differs from the training forward")
+    kernel.zero_grad(set_to_none=True)
+
+    xk, xp = (x[:4].detach().requires_grad_() for _ in range(2))
+    y, y_ref = run(kernel, xk), run(plain, xp)
+    y.backward(g[:4])
+    y_ref.backward(g[:4])
+    _, rel = _rel_err(y.detach().float(), y_ref.detach().float())
+    if rel > tol:
+        raise AssertionError(f"{name}: the forward is {rel:.3e} of max from the plain route")
+    worst = 0.0
+    for (pname, p), q in zip([("x", xk)] + list(kernel.named_parameters()),
+                             [xp] + list(plain.parameters())):
+        r = _rel_err(p.grad.float(), q.grad.float())[1]
+        if not torch.isfinite(p.grad).all() or r > tol:
+            raise AssertionError(f"{name}: gradient of {pname} {r:.3e} of its max from plain")
+        worst = max(worst, r)
+    record = dict(depth=depth, d_model=384, d_state=d_state, d_conv=d_conv,
+                  dtype=str(dtype).removeprefix("torch."), batch=32, length=512,
+                  forward_err_of_max=rel, worst_grad_err_of_max=worst, held_batch=4,
+                  eval_ms=eval_ms, step_ms=step_ms, max_memory_allocated_bytes=peak,
+                  launches={k: v for k, v in launches.items() if v})
+    log(f"{name}: 12 MambaMixer blocks (d_state {d_state}, d_conv {d_conv}, {record['dtype']}) "
+        f"at B=32: no-grad forward {eval_ms:.1f} ms, forward + backward {step_ms:.1f} ms, peak "
+        f"{peak / 2**30:.3f} GiB; at B=4 against the plain route: forward {rel:.3e}, gradients "
+        f"{worst:.3e} of max; launches {record['launches']}")
+    return {name: launches}, record
+
+
+def ssd_core_path(device, name: str, chunk: int, dtype: torch.dtype) -> tuple[dict, dict]:
+    """The paths that reach every SSD entry point at ``chunk`` (the
+    classifier reaches only K8 lean, K8 with states and K9): the counterparts
+    of ``ssd_chunked_pallas_xbc`` and ``ssd_chunked_pallas``
+    (``ssd_chunked_xbc``, ``ssd_chunked_split``), each without a gradient,
+    with one, and with ``return_carry`` without and with one, at
+    B=SSD_CORE_BATCH, L=512, 6 heads, in ``dtype``; each entry point launched
+    once and nothing else; y equal to the lean kernel's. Returns ({name:
+    launches}, the record)."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    xbc, dth, S, D, dy, dhf, d = _ssd_inputs(device, SSD_CORE_BATCH, 512, 6, chunk, dtype,
+                                              seed=chunk + 2)
+    dt = dth.reshape(SSD_CORE_BATCH, 6, 512).transpose(1, 2).contiguous()
+    A = -torch.linspace(0.2, 1.0, 6, device=device)
+    x = xbc[..., :d].reshape(SSD_CORE_BATCH, 512, 6, 128)
+    Bm, Cm = xbc[..., d:d + 128], xbc[..., d + 128:]
+    _reset_launch_counts()  # the path: the two cores' four calls each
+    ys = []
+    with torch.no_grad():
+        ys.append(kssd.ssd_chunked_xbc(xbc, dt, A, D, d_inner=d, chunk=chunk))
+        ys.append(kssd.ssd_chunked_xbc(xbc, dt, A, D, d_inner=d, chunk=chunk,
+                                       return_carry=True)[0])
+        kssd.ssd_chunked_split(x, dt, A, Bm, Cm, D, chunk=chunk)
+        kssd.ssd_chunked_split(x, dt, A, Bm, Cm, D, chunk=chunk, return_carry=True)
+    leaves = [t.detach().requires_grad_() for t in (xbc, dt)]
+    y = kssd.ssd_chunked_xbc(leaves[0], leaves[1], A, D, d_inner=d, chunk=chunk)
+    y.backward(dy)
+    ys.append(y.detach())
+    y, _, h_fin = kssd.ssd_chunked_xbc(leaves[0], leaves[1], A, D, d_inner=d, chunk=chunk,
+                                       return_carry=True)
+    torch.autograd.backward((y, h_fin), (dy, dhf))
+    xl = x.detach().requires_grad_()
+    y = kssd.ssd_chunked_split(xl, dt, A, Bm, Cm, D, chunk=chunk)
+    y.backward(dy.reshape(y.shape))
+    y, _, h_fin = kssd.ssd_chunked_split(xl, dt, A, Bm, Cm, D, chunk=chunk, return_carry=True)
+    torch.autograd.backward((y, h_fin), (dy.reshape(y.shape), dhf))
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    sfx = "_bf16" if dtype == torch.bfloat16 else ""
+    variant = kssd.chunk_variant(chunk)
+    want = {k: 0 for k in launches}
+    for entry in SSD_ENTRIES:
+        want[kssd._variant_name(entry + sfx, variant)] = 1
+    if launches != want:
+        raise AssertionError(f"{name}: the SSD cores launched {launches}; expected {want}")
+    if not all(torch.equal(ys[0], t) for t in ys[1:]):
+        raise AssertionError(f"{name}: the entry points' y differ")
+    log(f"{name}: chunk {chunk} ({variant}), {dtype}: every SSD entry point once")
+    return {name: launches}, {"chunk": chunk, "variant": variant,
+                              "launches": {k: v for k, v in launches.items() if v}}
+
+
+def ssd_classifier_phase(device, card: str, chunk: int) -> tuple[dict, dict]:
+    """The SSD classifier (cfgs/finetune_modelnet_ssd_fused.yaml's model at
+    fp32 with exact ``eigh``) at ``ssd_chunk`` ``chunk``: requests of 1, 20
+    and 64 clouds through ``Predictor`` (phase 5's checks against 'xla'), then
+    the preset through the CLI with ``ssd_chunk``, ``dtype: float32`` and
+    ``spectral_method: eigh`` set over it, SLICE21_EPOCHS epochs of two steps. Returns
+    (each path's launches, the record)."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    variant = kssd.chunk_variant(chunk)
+    p, serving, model, _ = serving_phase(
+        device, dict(MODELNET40_SSD, ssd_chunk=chunk), plain_impl="xla",
+        kernels=("causal_conv1d_silu", "ssd_xbc_fwd" + variant))
+    del model
+    paths = {f"ssd{chunk}_serving": p}
+    p, cli_rec = preset_cli_phase(
+        device, card, "finetune_modelnet_ssd_fused.yaml", f"ssd{chunk}_train",
+        ("causal_conv1d_silu", "ssd_xbc_fwd_states" + variant, "ssd_xbc_bwd" + variant,
+         "causal_conv1d_silu_bwd"), ("causal_conv1d_silu", "ssd_xbc_fwd" + variant),
+        {"mixer": "ssd", "ssd_chunk": chunk, "dtype": "float32"},
+        override={"ssd_chunk": chunk, "dtype": "float32", "spectral_method": "eigh"},
+        epochs=SLICE21_EPOCHS)
+    paths.update(p)
+    return paths, {"serving": serving, "cli": cli_rec}
+
+
+def fused768_phase(device, card: str, dtype: str) -> tuple[dict, dict]:
+    """The ModelNet40 classifier with ``scan_impl: fused`` at ``trans_dim``
+    768 (d_inner 1536, dt_rank 48, 80 x_dbl columns: the any-shape K10/K11) in
+    ``dtype``: requests of 1, 20 and 64 clouds through ``Predictor`` against
+    'seq' (1e-3 of max at fp32, PERF_LOGITS_TOL at bf16), then
+    cfgs/finetune_modelnet.yaml with those keys set over it through the CLI,
+    SLICE21_EPOCHS epochs of two steps at B=32. Returns (each path's launches, the record)."""
+    sfx = "_bf16" if dtype == "bfloat16" else ""
+    p, serving, model, _ = serving_phase(
+        device, dict(MODELNET40_768_FUSED, dtype=dtype), plain_impl="seq",
+        kernels=("fused_mixer_fwd_any" + sfx,), tol=PERF_LOGITS_TOL if sfx else 1e-3)
+    del model
+    paths = {"fused768_serving" + sfx: p}
+    p, cli_rec = preset_cli_phase(
+        device, card, "finetune_modelnet.yaml", "fused768_train" + sfx,
+        ("fused_mixer_fwd_states_any" + sfx, "fused_mixer_bwd_any" + sfx),
+        ("fused_mixer_fwd_any" + sfx,), {"scan_impl": "fused", "trans_dim": 768, "dtype": dtype},
+        override={"scan_impl": "fused", "trans_dim": 768, "encoder_dims": 768, "dtype": dtype},
+        width=768, epochs=SLICE21_EPOCHS)
+    paths.update(p)
+    return paths, {"serving": serving, "cli": cli_rec}
+
+
+SLICE21_SEG = (  # preset, path name, train kernels, eval kernels: at bf16
+    ("part_segmentation.yaml", "seg_bf16_cli", PERF_TRAIN_KERNELS, PERF_EVAL_KERNELS),
+    ("part_segmentation_ssd_fused.yaml", "seg_ssd_bf16_cli", SSD_PERF_TRAIN_KERNELS,
+     SSD_PERF_EVAL_KERNELS))
+
+
+def slice21_phases(device, card: str) -> tuple[dict, dict, dict]:
+    """Phases 51-56 (after phase 50): the kernels at the shapes their Pallas
+    kernels compile for (51-54: conv, scan, whole mixer, SSD), then the paths
+    that reach them (55: the 12-block MambaMixer stacks and the SSD core
+    paths; 56: the SSD classifier at chunks 32 and 512, the fused classifier
+    at trans_dim 768, both seg presets at bf16 through the CLI). Returns (the
+    new kernel records' measured figures by name, each path's launches, the
+    record)."""
+    figures = {**conv_any_phase(device), **scan_any_phase(device), **fused_any_phase(device),
+               **ssd_any_phase(device)}
+    paths, record = {}, {}
+    for name, kw in STACKS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            key = name + ("_bf16" if dtype == torch.bfloat16 else "")
+            p, record[key] = mixer_stack_phase(device, key, **kw, dtype=dtype)
+            paths.update(p)
+    for chunk in (32, 512):
+        for dtype in (torch.float32, torch.bfloat16):
+            key = f"ssd_core_chunk{chunk}" + ("_bf16" if dtype == torch.bfloat16 else "")
+            p, record[key] = ssd_core_path(device, key, chunk, dtype)
+            paths.update(p)
+    for chunk in (32, 512):
+        p, record[f"ssd_chunk{chunk}"] = ssd_classifier_phase(device, card, chunk)
+        paths.update(p)
+    for dtype in ("float32", "bfloat16"):
+        p, record["fused768" + ("_bf16" if dtype == "bfloat16" else "")] = fused768_phase(
+            device, card, dtype)
+        paths.update(p)
+    for preset, name, train_k, eval_k in SLICE21_SEG:
+        p, record[name] = partseg_cli_phase(device, card, preset, name, train_k, eval_k,
+                                            dtype="bfloat16")
+        paths.update(p)
+    return figures, paths, record
+
+
+def slice21_records(figures: dict) -> list[dict]:
+    """The kernel records of the any-shape variants: each figure set with its
+    route, source, the TPU kernel it replaces and the path it serves."""
+    replaces = "si_mamba_tpu/ops/pallas/"
+    base = {"causal_conv1d_silu_any": (ANY_SOURCE, replaces + "causal_conv_kernel.py:52"),
+            "causal_conv1d_silu_bwd_any": (ANY_SOURCE, replaces + "causal_conv_kernel.py:58"),
+            "selective_scan_fwd_any": (ANY_SOURCE, replaces + "selective_scan_kernel.py:115"),
+            "selective_scan_fwd_residuals_any": (ANY_SOURCE,
+                                                 replaces + "selective_scan_kernel.py:407"),
+            "selective_scan_bwd_any": (ANY_SOURCE, replaces + "selective_scan_kernel.py:211"),
+            "fused_mixer_fwd_any": (ANY_SOURCE, replaces + "fused_mixer_kernel.py:243"),
+            "fused_mixer_fwd_states_any": (ANY_SOURCE, replaces + "fused_mixer_kernel.py:243"),
+            "fused_mixer_bwd_any": (ANY_SOURCE, replaces + "fused_mixer_kernel.py:292")}
+    ssd_src = {True: "si_mamba_tpu_torch/csrc/ssd_xbc_fwd.cu",
+               False: "si_mamba_tpu_torch/csrc/ssd_xbc_bwd.cu"}
+    ssd_at = {(False, True): "602", (False, False): "698", (True, True): "189",
+              (True, False): "388"}
+    records = []
+    for name, fig in figures.items():
+        stem = name.removesuffix("_bf16")
+        dtype = "bfloat16" if name.endswith("_bf16") else "float32"
+        if stem in base:
+            source, rep = base[stem]
+        else:
+            entry = stem.removesuffix("_strip").removesuffix("_long")
+            split, fwd = SSD_ENTRIES[entry][:2]
+            source, rep = ssd_src[fwd], replaces + "ssd_kernel.py:" + ssd_at[(split, fwd)]
+        records.append(dict(name=name, route="cuda", source=source, replaces=rep, dtype=dtype,
+                            **fig))
+    return records
+
+
+def slice21_main_path(name: str) -> str:
+    """The path each any-shape variant serves."""
+    sfx = "_bf16" if name.endswith("_bf16") else ""
+    stem = name.removesuffix("_bf16")
+    if stem.startswith(("causal_conv1d", "selective_scan")):
+        return "stack_n8_w3" + sfx
+    if stem.startswith("fused_mixer"):
+        return ("fused768_serving" if stem == "fused_mixer_fwd_any" else "fused768_train") + sfx
+    chunk = 32 if stem.endswith("_strip") else 512
+    entry = stem.removesuffix("_strip").removesuffix("_long")
+    if not sfx and entry in ("ssd_xbc_fwd", "ssd_xbc_fwd_states", "ssd_xbc_bwd"):
+        return f"ssd{chunk}_serving" if entry == "ssd_xbc_fwd" else f"ssd{chunk}_train"
+    return f"ssd_core_chunk{chunk}" + sfx
+
+
+# ---------------------------------------------------------------------------
 # data parallelism and the pipeline (phases 35-40): gloo ranks on the one card
 # ---------------------------------------------------------------------------
 
@@ -6563,6 +7327,9 @@ def main() -> int:
     paths.update(options_paths)
     last_paths, last_modules = last_module_phases(device, card, mae["cli"]["ckpt_last"])
     paths.update(last_paths)
+    any_figures, any_paths, any_shapes = slice21_phases(device, card)
+    paths.update(any_paths)
+    records += slice21_records(any_figures)
     torch.cuda.empty_cache()  # the ranks share the card
     parallel_paths, parallel = parallel_phases(card)
     paths.update(parallel_paths)
@@ -6595,7 +7362,8 @@ def main() -> int:
                  "fused_mixer_fwd_states_bf16": "fused_perf_train",
                  "fused_mixer_bwd_bf16": "fused_perf_train",
                  **{n: "ssd_carry" for n in CARRY},
-                 **{n + "_bf16": "ssd_carry_bf16" for n in CARRY}}
+                 **{n + "_bf16": "ssd_carry_bf16" for n in CARRY},
+                 **{name: slice21_main_path(name) for name in any_figures}}
     for r in records:
         r["kernel_ms"] = r["ms"]  # the same time under the field's older name
         r["main_path"] = main_path[r["name"]]
@@ -6618,7 +7386,8 @@ def main() -> int:
                                      "profile": fused_perf_profile, "train": fused_perf_train,
                                      "cli": fused_cli},
                       "seg": seg, "mae": mae, "options": options,
-                      "last_modules": last_modules, "parallel": parallel,
+                      "last_modules": last_modules, "any_shapes": any_shapes,
+                      "parallel": parallel,
                       "dp": dp, "card": card}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(card, flush=True)

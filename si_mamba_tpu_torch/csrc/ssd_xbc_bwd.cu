@@ -124,11 +124,19 @@ using ssd_tc::zero;
 
 constexpr int kN = 128;         // d_state
 constexpr int kP = 128;         // head_dim
-constexpr int kMaxChunk = 256;  // the longest chunk the shared arrays hold
+constexpr int kArrayFloor = 256;  // the per-chunk shared arrays' least length
+constexpr int kMaxChunk = 8192;   // the longest chunk the dynamic shared memory holds
 constexpr int kNP = kN * kP;
 constexpr int kCarryParts = kNP / (kThreads * 4);  // blocks a (b, h) in bwd_carry
 constexpr int kRed = 4 * kBM;                      // row_sums' and col_sums' scratch
-constexpr int kSmemFloats = kRingFloats + 3 * kMaxChunk + kRed + kBM;
+
+// The per-chunk shared arrays' length for chunk Q (up to 256 the length they
+// always had, so the shared memory of those chunks is unchanged), and the
+// dynamic shared memory of bwd_prep, bwd_dgm, bwd_dx and bwd_dbc.
+int array_len(int Q) { return Q > kArrayFloor ? Q : kArrayFloor; }
+int smem_bytes(int QS) {
+  return static_cast<int>(sizeof(float)) * (kRingFloats + 3 * QS + kRed + kBM);
+}
 
 // One strided operand of element type T: base pointer (at its first column)
 // and the batch and row strides in elements.
@@ -170,6 +178,7 @@ struct Args {
   float* dD_part;
   float *G, *dG, *dh, *rs, *cs, *dT, *dE, *hsum;
   int B, L, H, Q;
+  int QS;  // the per-chunk shared arrays' length, array_len(Q)
   bool al_x, al_b, al_c, al_dy, al_hin;
 };
 
@@ -270,7 +279,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dgm(Args<T> a) {
   float* sSt = smem + kRingFloats;  // S of the tile's t rows, its s rows, dt of its s rows
   float* sSs = sSt + kBM;
   float* sdts = sSs + kBM;
-  float* red = sSt + 3 * kMaxChunk;
+  float* red = sSt + 3 * a.QS;
   float* sums = red + kRed;
   const int nc = a.L / a.Q, T_ = a.Q / kBM, pairs = T_ * (T_ + 1) / 2;
   const int pi = blockIdx.x % pairs, c = blockIdx.x / pairs % nc, b = blockIdx.x / pairs / nc;
@@ -341,9 +350,9 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dx(Args<T> a) {
   extern __shared__ float smem[];
   float* ring = smem;
   float* sS = smem + kRingFloats;
-  float* sdt = sS + kMaxChunk;
-  float* sTe = sdt + kMaxChunk;
-  float* red = sTe + kMaxChunk;
+  float* sdt = sS + a.QS;
+  float* sTe = sdt + a.QS;
+  float* red = sTe + a.QS;
   float* sums = red + kRed;
   const int nc = a.L / a.Q, T_ = a.Q / kBM;
   int bid = blockIdx.x;
@@ -426,7 +435,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dbc(Args<T> a) {
   float* ring = smem;
   float* sF = smem + kRingFloats;
   float* sTe = sF + kBM;
-  float* red = sF + 3 * kMaxChunk;
+  float* red = sF + 3 * a.QS;
   float* sums = red + kRed;
   const int nc = a.L / a.Q, T_ = a.Q / kBM;
   const int is_db = blockIdx.x & 1, strip = (blockIdx.x >> 1) % T_,
@@ -536,40 +545,41 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dbc(Args<T> a) {
   for_each<128>(acc, [=](int m, int n, float v) { out[m * osr + n] = from_f<T>(v); });
 }
 
-// One (b, h, chunk) a block, a thread a row: dS = rowsum(dlogM) + dE E -
-// dT T_end - colsum(dlogM), and at the chunk's last row dSend = sum(dT T_end)
-// + e^{S_end} sum(dh (.) h_in), every sum in a fixed order.
+// One (b, h, chunk) a block, a thread a row (rows i, i + 256, ... for a chunk
+// longer than 256): dS = rowsum(dlogM) + dE E - dT T_end - colsum(dlogM),
+// and at the chunk's last row dSend = sum(dT T_end) + e^{S_end} sum(dh (.)
+// h_in), every sum in a fixed order.
 template <class T, bool kSeed>
 __global__ void __launch_bounds__(kThreads) bwd_ds(Args<T> a) {
   __shared__ float red[kThreads / 32];
   const int nc = a.L / a.Q, T_ = a.Q / kBM, pairs = T_ * (T_ + 1) / 2;
   const int c = blockIdx.x % nc;
   const long long bh = blockIdx.x / nc, r0 = static_cast<long long>(c) * a.Q;
-  const int i = threadIdx.x;
   const long long at = bh * a.L + r0;
   const float send = a.S[at + a.Q - 1];
-  float v = 0.f, dtte = 0.f;
-  if (i < a.Q) {
+  float dtte = 0.f;  // this thread's rows' sum of dT T_end
+  for (int i = threadIdx.x; i < a.Q; i += kThreads) {
     const long long base = (bh * nc + c) * pairs;
     float rowsum = 0.f, colsum = 0.f;
     const int tile = i / kBM, row = i % kBM;
     for (int si = 0; si <= tile; ++si) rowsum += a.rs[(base + pair_index(tile, si)) * kBM + row];
     for (int ti = tile; ti < T_; ++ti) colsum += a.cs[(base + pair_index(ti, tile)) * kBM + row];
     const float s = a.S[at + i];
-    dtte = a.dT[at + i] * expf(send - s);
-    v = rowsum + a.dE[at + i] * expf(s) - dtte - colsum;
+    const float dt_te = a.dT[at + i] * expf(send - s);
+    dtte += dt_te;
+    a.dS[at + i] = rowsum + a.dE[at + i] * expf(s) - dt_te - colsum;
   }
   const float total = block_sum(dtte, red);
   float hs = 0.f;
   if (c <= (kSeed ? nc - 1 : nc - 2))
     for (int j = 0; j < kCarryParts; ++j) hs += a.hsum[(bh * nc + c) * kCarryParts + j];
-  if (i < a.Q) a.dS[at + i] = i == a.Q - 1 ? v + (total + expf(send) * hs) : v;
+  // the last row is its thread's last: nothing reads it in between
+  if (threadIdx.x == (a.Q - 1) % kThreads) a.dS[at + a.Q - 1] += total + expf(send) * hs;
 }
 
 template <class K>
-cudaError_t allow_smem(K* kernel) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(sizeof(float)) * kSmemFloats);
+cudaError_t allow_smem(K* kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 // The floats of the scratch that one backward needs, in the order Args
@@ -582,7 +592,8 @@ long long scratch_floats(int B, int L, int H, int Q) {
 
 template <class T, bool kD, bool kSeed>
 cudaError_t launch(Args<T> a, float* scratch, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(float)) * kSmemFloats;
+  a.QS = array_len(a.Q);
+  const int smem = smem_bytes(a.QS);
   const int nc = a.L / a.Q, T_ = a.Q / kBM, pairs = T_ * (T_ + 1) / 2;
   const long long qq = static_cast<long long>(a.B) * nc * a.Q * a.Q;
   const long long rows = static_cast<long long>(a.B) * a.H * a.L;
@@ -595,10 +606,10 @@ cudaError_t launch(Args<T> a, float* scratch, cudaStream_t stream) {
   a.dT = a.cs + tiles;
   a.dE = a.dT + rows;
   a.hsum = a.dE + rows;
-  cudaError_t err = allow_smem(bwd_prep<T>);
-  if (err == cudaSuccess) err = allow_smem(bwd_dgm<T>);
-  if (err == cudaSuccess) err = allow_smem(bwd_dx<T, kD, kSeed>);
-  if (err == cudaSuccess) err = allow_smem(bwd_dbc<T, kSeed>);
+  cudaError_t err = allow_smem(bwd_prep<T>, smem);
+  if (err == cudaSuccess) err = allow_smem(bwd_dgm<T>, smem);
+  if (err == cudaSuccess) err = allow_smem(bwd_dx<T, kD, kSeed>, smem);
+  if (err == cudaSuccess) err = allow_smem(bwd_dbc<T, kSeed>, smem);
   if (err != cudaSuccess) return err;
   bwd_prep<T><<<a.B * nc * pairs + a.B * a.H * (nc - 1) * 2, kThreads, smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

@@ -107,10 +107,16 @@ using ssd_tc::zero;
 
 constexpr int kN = 128;         // d_state
 constexpr int kP = 128;         // head_dim
-constexpr int kMaxChunk = 256;  // the longest chunk the shared arrays hold
+constexpr int kArrayFloor = 256;  // the per-chunk shared arrays' least length
+constexpr int kMaxChunk = 8192;   // the longest chunk the dynamic shared memory holds
 constexpr int kNP = kN * kP;
 constexpr int kCarryParts = kNP / (kThreads * 4);  // blocks a (b, h) in fwd_carry
-constexpr int kSmemFloats = kRingFloats + 3 * kMaxChunk;
+
+// The per-chunk shared arrays' length for chunk Q (up to 256 the length they
+// always had, so the shared memory of those chunks is unchanged), and the
+// dynamic shared memory of fwd_prep and fwd_y.
+int array_len(int Q) { return Q > kArrayFloor ? Q : kArrayFloor; }
+int smem_bytes(int QS) { return static_cast<int>(sizeof(float)) * (kRingFloats + 3 * QS); }
 
 // One operand of element type T: base pointer (at its first column) and the
 // batch and row strides in elements.
@@ -142,6 +148,7 @@ struct Args {
   float* G;
   float* h_fin;
   int B, L, H, Q, slot0;
+  int QS;  // the per-chunk shared arrays' length, array_len(Q)
   bool al_x, al_b, al_c;
 };
 
@@ -162,7 +169,7 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_prep(Args<T> a) {
   extern __shared__ float smem[];
   float* ring = smem;
   float* sF = smem + kRingFloats;
-  float* sTe = sF + kMaxChunk;
+  float* sTe = sF + a.QS;
   const int nc = a.L / a.Q, T_ = a.Q / kBM, pairs = T_ * (T_ + 1) / 2;
   int bid = blockIdx.x;
   if (bid < a.B * nc * pairs) {
@@ -260,8 +267,8 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_y(Args<T> a) {
   extern __shared__ float smem[];
   float* ring = smem;
   float* sS = smem + kRingFloats;
-  float* sdt = sS + kMaxChunk;
-  float* sE = sdt + kMaxChunk;
+  float* sdt = sS + a.QS;
+  float* sE = sdt + a.QS;
   const int nc = a.L / a.Q, T_ = a.Q / kBM;
   int bid = blockIdx.x;
   const int h = bid % a.H;
@@ -328,24 +335,24 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_y(Args<T> a) {
   for_each<128>(acc, [=](int m, int n, float v) {
     yt[m * d + n] = from_f<T>(kD ? v + skip * to_f(xt[m * xsr + n]) : v);
   });
-  if (kStates && c == 0) {
-    float* z = slot(a, b, 0, h) + ts * (kNP / T_);
-    for (int i = threadIdx.x; i < kNP / T_; i += kThreads) z[i] = 0.f;
+  if (kStates && c == 0) {  // strip ts zeroes its share of h_in[0], [e0, e1)
+    float* z = slot(a, b, 0, h);
+    const int e0 = ts * kNP / T_, e1 = (ts + 1) * kNP / T_;
+    for (int i = e0 + threadIdx.x; i < e1; i += kThreads) z[i] = 0.f;
   }
 }
 
 template <class K>
-cudaError_t allow_smem(K* kernel) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(sizeof(float)) * kSmemFloats);
+cudaError_t allow_smem(K* kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 template <class T, bool kStates, bool kHfin, bool kD>
 cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(float)) * kSmemFloats;
+  const int smem = smem_bytes(a.QS);
   const int nc = a.L / a.Q, T_ = a.Q / kBM;
-  cudaError_t err = allow_smem(fwd_prep<T, kHfin>);
-  if (err == cudaSuccess) err = allow_smem(fwd_y<T, kStates, kD>);
+  cudaError_t err = allow_smem(fwd_prep<T, kHfin>, smem);
+  if (err == cudaSuccess) err = allow_smem(fwd_y<T, kStates, kD>, smem);
   if (err != cudaSuccess) return err;
   const int n_prep = a.B * nc * T_ * (T_ + 1) / 2 + a.B * a.H * (kHfin ? nc : nc - 1) * 2;
   if (n_prep > 0) {
@@ -367,6 +374,7 @@ template <class T, bool kD>
 int checked_launch(Args<T> a, long long hin_n, bool states, long long g_n, cudaStream_t s) {
   const long long nc = a.L / a.Q;
   a.slot0 = states ? 0 : 1;
+  a.QS = array_len(a.Q);
   if (hin_n != a.B * (nc - a.slot0) * a.H * kNP || g_n != a.B * nc * a.Q * a.Q ||
       !ssd_tc::aligned16(a.hin, 0, 0) || !ssd_tc::aligned16(a.G, 0, 0))
     return cudaErrorInvalidValue;
@@ -443,7 +451,7 @@ extern "C" {
 // states entering chunks 1 .. L / Q - 1; G: a (B, L / Q, Q, Q)
 // scratch of g_n floats, 16-byte aligned. Returns a cudaError_t code
 // (cudaErrorInvalidValue for a geometry the kernels are not built for: N, P
-// other than 128, Q not a multiple of 64 up to 256, L not a multiple of Q,
+// other than 128, Q not a multiple of 64 up to 8192, L not a multiple of Q,
 // d_inner other than H * P; or for a scratch size other than the geometry's).
 int ssd_xbc_fwd(const void* xbc, const void* dt, const void* S, const void* Dp, void* y,
                 void* hin, long long hin_n, int states, void* G, long long g_n, int B, int L,

@@ -140,16 +140,21 @@ def _check_supported(cfg: PointMambaConfig, mesh: Mesh | None = None) -> None:
 
 def order_noise(batch: int, groups: int, device, training: bool,
                 generator: torch.Generator | None = None,
-                eval_key: tuple[int, int] = prng_key(0)) -> torch.Tensor:
+                eval_key: tuple[int, int] = prng_key(0),
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """HLT's U(0, 1) tie-break draw, (batch, groups) fp32 on ``device``: in
     training from ``generator`` (required); in eval ``jax.random.uniform`` of
     the raw threefry ``eval_key`` (by default ``jax.random.key(0)``'s, the JAX
-    classifier's eval draw), the same on every call and device."""
+    classifier's eval draw), the same on every call and device. At a bf16
+    ``dtype`` the draw is JAX's of that dtype, which the codes' dtype sets:
+    multiples of 1/128 below 1, exact in bf16 (in eval bit for bit JAX's)."""
+    bf16 = dtype == torch.bfloat16
     if not training:
-        return torch.from_numpy(uniform(eval_key, (batch, groups))).to(device)
+        return torch.from_numpy(uniform(eval_key, (batch, groups), bf16)).to(device)
     if generator is None:
         raise ValueError("the HLT ordering in training mode needs a torch.Generator")
-    return draws.rand((batch, groups), generator, device=device)
+    noise = draws.rand((batch, groups), generator, device=device)
+    return torch.floor(noise * 128) / 128 if bf16 else noise
 
 
 def spectral_eigvecs(center: torch.Tensor, cfg: PointMambaConfig):
@@ -261,7 +266,7 @@ class PointMamba(nn.Module):
         if cfg.method == "HLT":
             if noise is None:
                 noise = order_noise(center.shape[0], center.shape[1], center.device,
-                                    self.training, generator)
+                                    self.training, generator, dtype=self.dtype)
             return hlt_sequence(eigvecs.to(self.dtype), cfg.k_top_eigenvectors, noise, tokens,
                                 pos)
         eigvecs = eigvecs.to(self.dtype).to(eigvecs.dtype)

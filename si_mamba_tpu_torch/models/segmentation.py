@@ -18,6 +18,17 @@ HLT draw is the JAX trainer's evaluation draw (from ``EVAL_ORDER_KEY``,
 reproduced bit for bit), so evaluation repeats and equals the JAX package's
 on every device. One HLT draw orders the tokens, their positions and the
 centres alike.
+
+``config.dtype`` is the activation dtype, 'float32' or 'bfloat16', with the
+JAX model's casts: the encoder and the pos-embed run in it, the eigenvectors
+are rounded to it before the ordering, the stack and its norms hand it on.
+The head's linear layers take no dtype in the JAX model, so flax promotes
+their input to their fp32 parameters: each runs in fp32 on its input as
+given (a bf16 one widened), and each BatchNorm after one rounds its output
+to the activation dtype. The propagated features stay fp32 (the
+interpolation weights are), the points are rounded to the activation dtype
+and widened beside them, and the log-probs come back fp32. Parameters,
+BatchNorm statistics and the scan state stay fp32.
 """
 
 from __future__ import annotations
@@ -41,7 +52,7 @@ from si_mamba_tpu_torch.models.embed import (
 from si_mamba_tpu_torch.models.grouping import group_divider
 from si_mamba_tpu_torch.models.layers import Block, LayerNorm, norm_layer
 from si_mamba_tpu_torch.models.ordering import hlt_sequence, sast_sequence, xyz_sequence
-from si_mamba_tpu_torch.models.point_mamba import order_noise, spectral_eigvecs
+from si_mamba_tpu_torch.models.point_mamba import DTYPES, order_noise, spectral_eigvecs
 from si_mamba_tpu_torch.ops.pointops import pairwise_sqdist
 from si_mamba_tpu_torch.ops.spectral import fold_in, prng_key
 
@@ -96,9 +107,8 @@ class PartSegConfig:
 
 
 def _check_supported(cfg: PartSegConfig) -> None:
-    if cfg.dtype != "float32":
-        raise NotImplementedError(f"dtype={cfg.dtype!r}: the segmentation model runs float32 "
-                                  f"(no shipped segmentation preset sets another)")
+    if cfg.dtype not in DTYPES:
+        raise NotImplementedError(f"dtype={cfg.dtype!r}: the port runs {sorted(DTYPES)}")
     if cfg.method not in ("HLT", "SAST", "Point_MAMBA"):
         raise ValueError(f"unknown method {cfg.method!r}")
     if cfg.mixer not in ("mamba", "ssd"):
@@ -175,6 +185,7 @@ class PartSegModel(nn.Module):
         super().__init__()
         _check_supported(config)
         self.config = cfg = config
+        self.dtype = DTYPES[cfg.dtype]
         D = cfg.trans_dim
         self.encoder = PatchEncoder(cfg.encoder_dims)
         self.pos_embed = PosEmbedMLP(D)
@@ -213,16 +224,19 @@ class PartSegModel(nn.Module):
 
     # -- the pieces of the forward, public so that tests can compose them --
     def embed(self, pts: torch.Tensor):
-        """pts (B, N, 3) -> (tokens (B, G, C), pos (B, G, C), centres (B, G, 3))."""
+        """pts (B, N, 3) -> (tokens (B, G, C), pos (B, G, C) in the activation
+        dtype, centres (B, G, 3) in the points' dtype)."""
         cfg = self.config
         grouped = group_divider(pts, cfg.num_group, cfg.group_size)
-        return self.encoder(grouped.neighborhood), self.pos_embed(grouped.center), grouped.center
+        return (self.encoder(grouped.neighborhood.to(self.dtype)),
+                self.pos_embed(grouped.center.to(self.dtype)), grouped.center)
 
     def sequence(self, tokens, pos, center, eigvecs=None, noise=None,
                  generator: torch.Generator | None = None):
         """Order tokens, positions and centres alike: (x, pos_seq, center_seq).
-        The eigenvectors are computed from ``center`` unless given; HLT's
-        tie-break ``noise`` (B, G) is drawn by ``order_noise`` unless given."""
+        The eigenvectors are computed from ``center`` unless given and are
+        used as rounded to the activation dtype; HLT's tie-break ``noise``
+        (B, G) is drawn by ``order_noise`` unless given."""
         cfg = self.config
         xs = (tokens, pos, center)
         if cfg.method == "Point_MAMBA":
@@ -230,11 +244,12 @@ class PartSegModel(nn.Module):
         if eigvecs is None:
             _, eigvecs = spectral_eigvecs(center, cfg)
         if cfg.method == "SAST":
+            eigvecs = eigvecs.to(self.dtype).to(eigvecs.dtype)
             return sast_sequence(eigvecs, *xs, reverse=cfg.reverse)
         if noise is None:
             noise = order_noise(center.shape[0], center.shape[1], center.device,
-                                self.training, generator, EVAL_ORDER_KEY)
-        return hlt_sequence(eigvecs, cfg.k_top_eigenvectors, noise, *xs)
+                                self.training, generator, EVAL_ORDER_KEY, self.dtype)
+        return hlt_sequence(eigvecs.to(self.dtype), cfg.k_top_eigenvectors, noise, *xs)
 
     def segment(self, x, pos_seq, center_seq, pts, cls_label_onehot,
                 generator: torch.Generator | None = None, head_mask=None) -> torch.Tensor:
@@ -245,22 +260,25 @@ class PartSegModel(nn.Module):
         B, N, _ = pts.shape
         feats = self.blocks(x, pos_seq, generator)
         seq_feat = torch.cat([self.norm(f) for f in feats], dim=-1)  # (B, S, 3D)
-        lbl = F.leaky_relu(self.label_bn(self.label_conv(cls_label_onehot.to(seq_feat.dtype))),
-                           0.2)
+        act = seq_feat.dtype
+        # the head's layers run in fp32 (JAX: Dense without a dtype), each
+        # BatchNorm's output rounded to the activation dtype
+        lbl = F.leaky_relu(
+            self.label_bn(self.label_conv(cls_label_onehot.to(act).float())).to(act), 0.2)
         global_feat = torch.cat([torch.amax(seq_feat, dim=1), torch.mean(seq_feat, dim=1), lbl],
                                 dim=-1)
-        f = torch.cat([pts.to(seq_feat.dtype),
-                       feature_propagation_interp(pts, center_seq, seq_feat)], dim=-1)
-        f = F.relu(self.prop_bn1(self.prop_fc1(f)))
-        f = F.relu(self.prop_bn2(self.prop_fc2(f)))
+        f = torch.cat([pts.to(act).float(),
+                       feature_propagation_interp(pts, center_seq, seq_feat).float()], dim=-1)
+        f = F.relu(self.prop_bn1(self.prop_fc1(f)).to(act))
+        f = F.relu(self.prop_bn2(self.prop_fc2(f.float())).to(act))
         h = torch.cat([f, global_feat[:, None, :].expand(B, N, -1)], dim=-1)
-        h = F.relu(self.bns1(self.convs1(h)))
+        h = F.relu(self.bns1(self.convs1(h.float())).to(act))
         if head_mask is not None and self.training:
             h = torch.where(head_mask, h / (1.0 - HEAD_DROPOUT), torch.zeros_like(h))
         else:
             h = self.head_dropout(h, generator)
-        h = F.relu(self.bns2(self.convs2(h)))
-        return F.log_softmax(self.convs3(h), dim=-1)
+        h = F.relu(self.bns2(self.convs2(h.float())).to(act))
+        return F.log_softmax(self.convs3(h.float()), dim=-1)
 
     def forward(self, pts: torch.Tensor, cls_label_onehot: torch.Tensor,
                 generator: torch.Generator | None = None, order_noise=None,

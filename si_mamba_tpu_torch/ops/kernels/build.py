@@ -20,7 +20,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("causal_conv", "selective_scan_fwd", "selective_scan_bwd", "ssd_xbc_fwd",
-           "ssd_xbc_bwd", "fused_mixer_fwd", "fused_mixer_bwd")
+           "ssd_xbc_bwd", "fused_mixer_fwd", "fused_mixer_bwd", "mamba_any")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -78,3 +78,14 @@ def load_library(name: str) -> ctypes.CDLL:
     if not path.exists():
         build((name,))
     return ctypes.CDLL(str(path))
+
+
+class LaunchCount:
+    """The launch count of a kernel variant that has no wrapper function of
+    its own to carry it: ``.launches``, as every wrapper carries its count."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+    def __repr__(self) -> str:
+        return f"LaunchCount({self.launches})"

@@ -16,7 +16,12 @@ Kernels, both in ``csrc/causal_conv.cu``:
   chooses, the C entry point checks),
   keeps four rows of x and g in flight, and writes dw and db as per-block
   partials that a second small kernel of the same call sums in a fixed order.
-The source describes both designs.
+The source describes both designs. Both are built for width W = 4, the
+width every shipped model uses; at any other width the wrappers launch the
+variants of ``csrc/mamba_any.cu`` instead (one thread a channel and time
+tile, the W taps a runtime loop; the backward through an fp32 ds scratch and
+unpadded per-tile dw/db partials), chosen by W before the launch, with their
+own launch counts (``ANY_LAUNCHES``).
 
 Both kernels take fp32 or bf16 activations (x, g; y and dx come back in x's
 dtype) with fp32 weight and bias, and compute in fp32, as the TPU kernels
@@ -39,7 +44,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from si_mamba_tpu_torch.ops.kernels.build import load_library
+from si_mamba_tpu_torch.ops.kernels import any_shape
+from si_mamba_tpu_torch.ops.kernels.build import LaunchCount, load_library
 
 # K5's geometry (csrc/causal_conv.cu: kWarps, kBwdChannels, kU): a block is
 # BWD_WARPS warps on consecutive time tiles of the same BWD_BLOCK_CHANNELS
@@ -62,6 +68,11 @@ FWD_WARPS = (4, 2, 1)
 FWD_WARPS_PER_SM = 8  # the least warps of tiles an SM the plan's tile aims for
 # the activation dtypes the kernels are built for; weight and bias are fp32
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+TUNED_WIDTH = 4  # the conv width causal_conv.cu is built for (kW)
+# the launch counts of the any-width variants (csrc/mamba_any.cu), by name
+ANY_LAUNCHES = {name: LaunchCount() for name in (
+    "causal_conv1d_silu_any", "causal_conv1d_silu_any_bf16", "causal_conv1d_silu_bwd_any",
+    "causal_conv1d_silu_bwd_any_bf16")}
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -296,8 +307,9 @@ def _check_inputs(x, weight, bias, g=None) -> None:
                          f"do not match D={D}")
     if g is not None and g.shape != x.shape:
         raise ValueError(f"g has shape {tuple(g.shape)}, expected {tuple(x.shape)}")
-    if W != 4:
-        raise ValueError(f"the causal-conv kernels are built for width 4 (d_conv), got {W}")
+    if W < 1 or B > 65535:
+        raise ValueError(f"the causal-conv kernels take a width of at least 1 and at most "
+                         f"65535 batch rows, got W={W} and B={B}")
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -309,7 +321,53 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
 
 def _launch_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     _check_inputs(x, weight, bias)
+    if weight.shape[1] != TUNED_WIDTH:
+        return run_fwd_any(x, weight.contiguous(), bias.contiguous())
     return _run_fwd(x, _aligned16(weight), _aligned16(bias), fwd_plan(x, _sm_count(x.device)))
+
+
+def run_fwd_any(x, weight, bias) -> torch.Tensor:
+    """K1's any-width variant (``csrc/mamba_any.cu``) on checked inputs, weight
+    and bias contiguous: one launch; y contiguous in x's dtype."""
+    B, L, D = x.shape
+    y = torch.empty((B, L, D), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    bf16 = x.dtype == torch.bfloat16
+    with torch.cuda.device(x.device):
+        err = any_shape.entry("conv_any_fwd", bf16)(
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(), B, L, D,
+            weight.shape[1], x.stride(0), x.stride(1),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    any_shape.check(err, "causal-conv forward (any width)")
+    ANY_LAUNCHES["causal_conv1d_silu_any" + ("_bf16" if bf16 else "")].launches += 1
+    return y
+
+
+def run_bwd_any(x, weight, bias, g):
+    """K5's any-width variant on checked inputs, weight and bias contiguous:
+    one C call, three launches (ds, then dx with the per-tile dw/db partials,
+    then their fixed-order finish). dx in x's dtype, dw and db fp32."""
+    B, L, D = x.shape
+    W = weight.shape[1]
+    dx = torch.empty((B, L, D), dtype=x.dtype, device=x.device)
+    dw, db = torch.empty_like(weight), torch.empty_like(bias)
+    if dx.numel() == 0:
+        return dx, dw.zero_(), db.zero_()
+    lib = any_shape.library()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ds = torch.empty((B, L, D), **f32)
+    part = torch.empty(lib.conv_any_part_floats(B, L, D, W), **f32)
+    bf16 = x.dtype == torch.bfloat16
+    with torch.cuda.device(x.device):
+        err = any_shape.entry("conv_any_bwd", bf16)(
+            x.data_ptr(), weight.data_ptr(), bias.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), ds.data_ptr(), part.data_ptr(), part.numel(), B, L, D,
+            W, x.stride(0), x.stride(1), g.stride(0), g.stride(1),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    any_shape.check(err, "causal-conv backward (any width)")
+    ANY_LAUNCHES["causal_conv1d_silu_bwd_any" + ("_bf16" if bf16 else "")].launches += 1
+    return dx, dw, db
 
 
 def _run_fwd(x, weight, bias, plan: FwdPlan) -> torch.Tensor:
@@ -334,6 +392,8 @@ def _run_fwd(x, weight, bias, plan: FwdPlan) -> torch.Tensor:
 
 def _launch_bwd(x, weight, bias, g):
     _check_inputs(x, weight, bias, g)
+    if weight.shape[1] != TUNED_WIDTH:
+        return run_bwd_any(x, weight.contiguous(), bias.contiguous(), g)
     return _run_bwd(x, weight.contiguous(), bias.contiguous(), g,
                     bwd_plan(x, g, weight.shape[1], _sm_count(x.device)))
 
@@ -375,9 +435,10 @@ def causal_conv1d_silu_fwd(x: torch.Tensor, weight: torch.Tensor,
 
 def causal_conv1d_silu_bwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                            g: torch.Tensor):
-    """(dx, dw, db) for the output gradient g: the kernel (K5) on a CUDA
-    tensor (x and g float32 or bfloat16, W = 4; x and g need unit stride only
-    along channels), :func:`causal_conv1d_silu_bwd_ref` on the CPU.
+    """(dx, dw, db) for the output gradient g: the kernel (K5; at a width other
+    than 4 its any-width variant) on a CUDA tensor (x and g float32 or
+    bfloat16; x and g need unit stride only along channels),
+    :func:`causal_conv1d_silu_bwd_ref` on the CPU.
     ``causal_conv1d_silu_bwd.launches`` counts the fp32 kernel's launches,
     ``causal_conv1d_silu_bwd_bf16.launches`` the bf16 one's."""
     if x.is_cuda:
@@ -407,7 +468,8 @@ def causal_conv1d_silu(x: torch.Tensor, weight: torch.Tensor,
     """Fused causal depthwise conv + bias + SiLU, differentiable. x: (B, L, D),
     unit stride along D (any batch and row stride, e.g. a column slice of the
     mixer's xz); weight (D, W) and bias (D,) fp32. On a CUDA tensor this
-    launches the kernels (x float32 or bfloat16, W = 4) or raises; on the CPU
+    launches the kernels (x float32 or bfloat16; W = 4 the tuned ones, any
+    other width their any-width variants) or raises; on the CPU
     it is the plain versions. ``causal_conv1d_silu.launches`` counts the fp32
     forward kernel's launches."""
     return CausalConv1dSiluFn.apply(x, weight, bias)

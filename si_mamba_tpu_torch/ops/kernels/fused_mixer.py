@@ -29,8 +29,17 @@ Kernels:
 Both run the d / TILE blocks of a batch row as one thread-block cluster; the
 sources describe the designs and what bounds them. They are built for
 d_state 16, d_conv 4, dt_rank + 2 d_state up to :data:`MAX_XDBL` and a
-d_inner that is a multiple of 128 up to :data:`MAX_D_INNER`; on CUDA anything
-else raises.
+d_inner that is a multiple of 128 up to :data:`MAX_D_INNER`. At every other
+shape that ``fused_mixer_supported`` admits (d_inner any multiple of 128,
+d_state up to 32, any conv width and x_proj width) the wrappers launch the
+global-memory variants of ``csrc/mamba_any.cu`` instead, chosen by shape
+before the launch, with their own launch counts (``ANY_LAUNCHES``): the conv,
+the two projections by a tiled product kernel and the any-state scan, x_dbl
+reduced over the channels through device memory (where the tuned kernels
+exchange it in a cluster of at most 8 blocks), the backward recomputing the
+interior and running the scan and conv backward and the weight products; the
+same h_entries layout, xz and dxz in the activation dtype, everything else
+fp32.
 
 Each kernel takes xz (and K11 g) in float32 or bfloat16 with every weight in
 float32, as the TPU kernels take them at either activation dtype: y and dxz
@@ -56,7 +65,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from si_mamba_tpu_torch.ops.kernels.build import load_library
+from si_mamba_tpu_torch.ops.kernels import any_shape
+from si_mamba_tpu_torch.ops.kernels.build import LaunchCount, load_library
 
 CHUNK = 16  # tokens a chunk of both kernels, the h_entries stride (kT; checked at load)
 STATE = 16  # d_state the kernels are built for (kN)
@@ -65,7 +75,10 @@ TILE = 128  # channels a block (kTile); d_inner must be a multiple
 MAX_D_INNER = 8 * TILE  # d_inner / TILE blocks form one cluster, at most the portable 8
 MAX_XDBL = 64  # columns of x_proj, dt_rank + 2 d_state, the kernels take (kXW)
 
-_NOT_BUILT = "K10/K11: other sizes are built when a configuration needs them"
+# the launch counts of the any-shape variants (csrc/mamba_any.cu), by name
+ANY_LAUNCHES = {name + suffix: LaunchCount()
+                for name in ("fused_mixer_fwd_any", "fused_mixer_fwd_states_any",
+                             "fused_mixer_bwd_any") for suffix in ("", "_bf16")}
 # the activation dtypes the kernels are built for (xz, g); the weights are fp32
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -276,11 +289,9 @@ def _check_inputs(args, extra: dict | None = None) -> tuple[int, int, int, int]:
     if two_d % 2 or not fused_mixer_supported(di, n, l):
         raise ValueError(f"the fused mixer needs an even xz width, d_inner % 128 == 0 and "
                          f"d_state <= 32; got xz width {two_d} and d_state {n}")
-    if n != STATE or W != CONV or di > MAX_D_INNER or r + 2 * n > MAX_XDBL:
-        raise NotImplementedError(
-            f"the fused-mixer kernels are built for d_state {STATE}, d_conv {CONV}, d_inner "
-            f"up to {MAX_D_INNER} and dt_rank + 2 d_state up to {MAX_XDBL}, got {n}, {W}, "
-            f"{di} and {r + 2 * n} ({_NOT_BUILT})")
+    if b > 65535 or b * l >= 2 ** 31:
+        raise ValueError(f"the fused-mixer kernels take at most 65535 batch rows and 2^31 "
+                         f"tokens, got {b} x {l}")
     shapes = dict(xz=(b, l, 2 * di), conv_wt=(W, di), conv_b=(di,), x_proj=(di, r + 2 * n),
                   dt_proj=(r, di), dtb=(di,), at=(n, di), d=(di,), g=(b, l, di),
                   h_entries=(b, -(-l // CHUNK), n, di))
@@ -294,6 +305,70 @@ def _pointers(tensors) -> ctypes.Array:
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
+def tuned_shape(d_inner: int, d_state: int, d_conv: int, dt_rank: int) -> bool:
+    """Whether fused_mixer_{fwd,bwd}.cu serve the shape; the any-shape
+    variants serve every other one that ``fused_mixer_supported`` admits."""
+    return (d_state == STATE and d_conv == CONV and d_inner <= MAX_D_INNER
+            and dt_rank + 2 * d_state <= MAX_XDBL)
+
+
+def _geometry(args) -> tuple[int, int, int, int, int, int]:
+    xz, conv_wt, dt_proj, at = args[0], args[1], args[4], args[6]
+    b, l, two_d = xz.shape
+    return b, l, two_d // 2, at.shape[0], dt_proj.shape[0], conv_wt.shape[0]
+
+
+def _run_fwd_any(args, states: bool):
+    """The any-shape K10 (with ``states`` writing h_entries) on checked
+    inputs: one C call, four launches (conv, the two products, the scan)."""
+    b, l, di, n, r, W = _geometry(args)
+    xz = args[0]
+    f32 = dict(dtype=torch.float32, device=xz.device)
+    y = torch.empty((b, l, di), dtype=xz.dtype, device=xz.device)
+    h_entries = torch.empty((b, -(-l // CHUNK), n, di), **f32) if states else None
+    scratch = [torch.empty(shape, **f32) for shape in ((b, l, di), (b, l, r + 2 * n), (b, l, di))]
+    bf16 = xz.dtype == torch.bfloat16
+    with torch.cuda.device(xz.device):
+        err = any_shape.entry("mixer_any_fwd", bf16)(
+            any_shape.pointers(args), y.data_ptr(),
+            None if h_entries is None else h_entries.data_ptr(), any_shape.pointers(scratch),
+            b, l, di, n, r, W, torch.cuda.current_stream(xz.device).cuda_stream)
+    any_shape.check(err, "fused-mixer forward (any shape)")
+    name = "fused_mixer_fwd_states_any" if states else "fused_mixer_fwd_any"
+    ANY_LAUNCHES[name + ("_bf16" if bf16 else "")].launches += 1
+    return y, h_entries
+
+
+def _run_bwd_any(args, h_entries, g):
+    """The any-shape K11 on checked inputs: one C call (the interior's
+    recompute, the scan backward, the partial sums of dB and dC, four
+    products, the conv backward); the dA, dD and ddt_b partials summed here."""
+    b, l, di, n, r, W = _geometry(args)
+    xz = args[0]
+    lib = any_shape.library()
+    f32 = dict(dtype=torch.float32, device=xz.device)
+    xw = r + 2 * n
+    dxz = torch.empty((b, l, 2 * di), dtype=xz.dtype, device=xz.device)
+    outs = [dxz] + [torch.empty(shape, **f32) for shape in (
+        (W, di), (di,), (di, xw), (r, di), (b, di, n), (b, di), (b, di))]
+    n_blk = -(-di // lib.scan_any_block_channels())
+    scratch = [torch.empty(shape, **f32) for shape in (
+        (b, l, di), (b, l, xw), (b, l, di), (b, l, di), (b, l, di), (b, l, xw),
+        (b, n_blk, l, n), (b, n_blk, l, n), (lib.scan_any_state_floats(b, di, n),),
+        (b, l, di), (lib.conv_any_part_floats(b, l, di, W),))]
+    bf16 = xz.dtype == torch.bfloat16
+    with torch.cuda.device(xz.device):
+        err = any_shape.entry("mixer_any_bwd", bf16)(
+            any_shape.pointers((*args, h_entries, g)), any_shape.pointers(outs),
+            any_shape.pointers(scratch), b, l, di, n, r, W,
+            torch.cuda.current_stream(xz.device).cuda_stream)
+    any_shape.check(err, "fused-mixer backward (any shape)")
+    ANY_LAUNCHES["fused_mixer_bwd_any" + ("_bf16" if bf16 else "")].launches += 1
+    dxz, dconv_wt, dconv_b, dx_proj, ddt_proj, dA_part, dd_part, ddtb_part = outs
+    return (dxz, dconv_wt, dconv_b, dx_proj, ddt_proj, ddtb_part.sum(0), dA_part.sum(0).t(),
+            dd_part.sum(0))
+
+
 def _launch_fwd(args, states: bool, segments: int | None = None):
     """K10 (with ``states``, the variant that writes h_entries). ``segments``
     forces the number of segments of L (1: one pass); by default the
@@ -302,6 +377,8 @@ def _launch_fwd(args, states: bool, segments: int | None = None):
         raise ValueError(f"segments must be at least 1, got {segments}")
     b, l, di, r = _check_inputs(args)
     xz, n = args[0], args[6].shape[0]
+    if l and not tuned_shape(di, n, args[1].shape[0], r):
+        return _run_fwd_any(args, states)
     f32 = dict(dtype=torch.float32, device=xz.device)
     y = torch.empty((b, l, di), dtype=xz.dtype, device=xz.device)
     h_entries = torch.empty((b, -(-l // CHUNK), n, di), **f32) if states else None
@@ -331,6 +408,8 @@ def _launch_fwd(args, states: bool, segments: int | None = None):
 def _launch_bwd(args, h_entries, g):
     b, l, di, r = _check_inputs(args, dict(h_entries=h_entries, g=g))
     xz, n = args[0], args[6].shape[0]
+    if l and not tuned_shape(di, n, args[1].shape[0], r):
+        return _run_bwd_any(args, h_entries, g)
     f32 = dict(dtype=torch.float32, device=xz.device)
     dxz = torch.empty((b, l, 2 * di), dtype=xz.dtype, device=xz.device)
     # per-batch-row partials: dx_proj, ddt_proj, dconv_wt, dconv_b, dat, dd, ddtb

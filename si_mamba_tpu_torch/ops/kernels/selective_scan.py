@@ -19,7 +19,14 @@ Kernels:
   states from its entry state into shared memory, carries dh in registers,
   and writes the channel and batch sums as partials that ``torch.sum``
   finishes (no atomics: bitwise deterministic).
-The sources describe the designs.
+The sources describe the designs. Both are built for d_state 16, the
+width every shipped model uses; at any other d_state the wrappers launch
+the variants of ``csrc/mamba_any.cu`` instead (one warp a block, one channel
+a lane, the states and the tile's B and C in shared memory, or above
+:data:`MAX_SHARED_STATE` in a global workspace; the backward rebuilds each
+tile's states into a per-block scratch and sums dB and dC over the warp's
+channels into per-block partials), chosen by d_state before the launch, with
+their own launch counts (``ANY_LAUNCHES``) and the same h_entries layout.
 
 Each kernel takes fp32 or bf16 activations (u, delta, B, C, z and g, one
 dtype) with fp32 A, D, delta_bias and state, as the TPU kernels do at either
@@ -42,7 +49,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from si_mamba_tpu_torch.ops.kernels.build import load_library
+from si_mamba_tpu_torch.ops.kernels import any_shape
+from si_mamba_tpu_torch.ops.kernels.build import LaunchCount, load_library
 
 # Steps per tile of the forward kernels' h_entries and of the backward's
 # rebuild (kChunk in both CUDA sources; checked when they are loaded).
@@ -52,6 +60,12 @@ _NAMES = ("u", "delta", "A", "B", "C", "D", "z", "delta_bias")
 # the activation dtypes the kernels are built for; the operands below are fp32
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _FP32_OPERANDS = ("A", "D", "delta_bias", "h_entries")
+TUNED_STATE = 16  # the d_state selective_scan_{fwd,bwd}.cu are built for (kState)
+MAX_SHARED_STATE = 256  # above it the any-state variants' arrays live in a workspace (kMaxState)
+# the launch counts of the any-state variants (csrc/mamba_any.cu), by name
+ANY_LAUNCHES = {name + suffix: LaunchCount()
+                for name in ("selective_scan_fwd_any", "selective_scan_fwd_residuals_any",
+                             "selective_scan_bwd_any") for suffix in ("", "_bf16")}
 
 
 def _acc_dtype(u: torch.Tensor) -> torch.dtype:
@@ -219,6 +233,8 @@ def _check_inputs(tensors: dict, extra: dict | None = None) -> tuple[int, int, i
     u, A = tensors["u"], tensors["A"]
     bsz, L, d = u.shape
     n = A.shape[1]
+    if n < 1:
+        raise ValueError(f"the selective-scan kernels take d_state 1 or more, got {n}")
     if u.dtype not in KERNEL_DTYPES:
         raise TypeError(f"the selective-scan kernels take float32 or bfloat16 u; u is {u.dtype}")
     for name, t in (tensors | (extra or {})).items():
@@ -237,8 +253,10 @@ def _check_inputs(tensors: dict, extra: dict | None = None) -> tuple[int, int, i
     for name, t in (tensors | (extra or {})).items():
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shapes[name]}")
-    if n != 16:
-        raise ValueError(f"the selective-scan kernels are built for d_state 16, got {n}")
+    if bsz > 65535:
+        raise ValueError(f"the selective-scan kernels take at most 65535 batch rows, got {bsz}")
+    if n != TUNED_STATE:
+        return bsz, L, d, n
     widest = max([d] + [t.stride(1) for name, t in (tensors | (extra or {})).items()
                         if name in ("u", "delta", "z", "B", "C", "g")])
     if (L + CHUNK) * widest >= 2 ** 31:
@@ -266,6 +284,8 @@ def _launch_fwd(u, delta, A, B, C, D, z, delta_bias, residuals: bool,
     h_entries = torch.empty((bsz, -(-L // CHUNK), n, d), **f32) if residuals else None
     if y.numel() == 0:
         return y, h_entries
+    if n != TUNED_STATE:
+        return _run_fwd_any(u, delta, A, B, C, D, z, delta_bias, y, h_entries)
     lib = _fwd_library()
     if segments is None:
         segments = lib.selective_scan_fwd_segments(bsz, L, d)
@@ -296,11 +316,71 @@ def _launch_fwd(u, delta, A, B, C, D, z, delta_bias, residuals: bool,
     return y, h_entries
 
 
+def _any_strides(*ts) -> ctypes.Array:
+    return any_shape.longs([s for t in ts for s in (t.stride(0), t.stride(1))])
+
+
+def _workspace(bsz: int, d: int, n: int, backward: bool, device) -> torch.Tensor | None:
+    """The any-state kernels' per-block arrays in device memory, where
+    d_state is above MAX_SHARED_STATE; None (shared memory) at or below it."""
+    floats = any_shape.library().scan_any_workspace_floats(bsz, d, n, int(backward))
+    return torch.empty(floats, dtype=torch.float32, device=device) if floats else None
+
+
+def _run_fwd_any(u, delta, A, B, C, D, z, delta_bias, y, h_entries):
+    """The any-state K2 (K3 with h_entries) on checked inputs: one launch."""
+    bsz, L, d = u.shape
+    n = A.shape[1]
+    bf16 = u.dtype == torch.bfloat16
+    at = A.t().contiguous()  # the kernels take A transposed; alive until the launch
+    ins = any_shape.pointers((u, delta, at, B, C, D, z, delta_bias, _workspace(bsz, d, n, False,
+                                                                               u.device)))
+    with torch.cuda.device(u.device):
+        err = any_shape.entry("scan_any_fwd", bf16)(
+            ins, y.data_ptr(), None if h_entries is None else h_entries.data_ptr(), bsz, L, d,
+            n, _any_strides(u, delta, B, C, z), torch.cuda.current_stream(u.device).cuda_stream)
+    any_shape.check(err, "selective-scan forward (any d_state)")
+    name = "selective_scan_fwd_any" if h_entries is None else "selective_scan_fwd_residuals_any"
+    ANY_LAUNCHES[name + ("_bf16" if bf16 else "")].launches += 1
+    return y, h_entries
+
+
+def _run_bwd_any(u, delta, A, B, C, D, z, delta_bias, g, h_entries):
+    """The any-state K4 on checked inputs: one launch; the dB/dC partials of
+    its 32-channel blocks and the dA, dD, ddelta_bias ones summed here."""
+    bsz, L, d = u.shape
+    n = A.shape[1]
+    lib = any_shape.library()
+    n_blk = -(-d // lib.scan_any_block_channels())
+    f32 = dict(dtype=torch.float32, device=u.device)
+    du, ddelta, dz = (torch.empty((bsz, L, d), dtype=u.dtype, device=u.device)
+                      for _ in range(3))
+    dB_part, dC_part = (torch.empty((bsz, n_blk, L, n), **f32) for _ in range(2))
+    dA_part = torch.empty((bsz, d, n), **f32)
+    dD_part, ddb_part = (torch.empty((bsz, d), **f32) for _ in range(2))
+    states = torch.empty(lib.scan_any_state_floats(bsz, d, n), **f32)
+    at = A.t().contiguous()  # the kernels take A transposed; alive until the launch
+    ins = any_shape.pointers((u, delta, at, B, C, D, z, delta_bias, g, h_entries))
+    outs = any_shape.pointers((du, ddelta, dz, dB_part, dC_part, dA_part, dD_part, ddb_part,
+                               states, _workspace(bsz, d, n, True, u.device)))
+    bf16 = u.dtype == torch.bfloat16
+    with torch.cuda.device(u.device):
+        err = any_shape.entry("scan_any_bwd", bf16)(
+            ins, outs, states.numel(), bsz, L, d, n, _any_strides(u, delta, B, C, z, g),
+            torch.cuda.current_stream(u.device).cuda_stream)
+    any_shape.check(err, "selective-scan backward (any d_state)")
+    ANY_LAUNCHES["selective_scan_bwd_any" + ("_bf16" if bf16 else "")].launches += 1
+    return (du, ddelta, dA_part.sum(0), dB_part.sum(1).to(B.dtype), dC_part.sum(1).to(C.dtype),
+            dD_part.sum(0), dz, ddb_part.sum(0))
+
+
 def _launch_bwd(u, delta, A, B, C, D, z, delta_bias, g, h_entries):
     args = dict(zip(_NAMES, (u, delta, A, B, C, D, z, delta_bias)))
     bsz, L, d, n = _check_inputs(args, dict(g=g, h_entries=h_entries))
     A, D, delta_bias = A.contiguous(), D.contiguous(), delta_bias.contiguous()
     h_entries = h_entries.contiguous()
+    if n != TUNED_STATE and u.numel():
+        return _run_bwd_any(u, delta, A, B, C, D, z, delta_bias, g, h_entries)
     lib = _bwd_library()
     n_blk = -(-d // lib.selective_scan_bwd_block_channels())
     f32 = dict(dtype=torch.float32, device=u.device)
@@ -335,8 +415,9 @@ def selective_scan_fwd(u, delta, A, B, C, D, z, delta_bias) -> torch.Tensor:
     scan, the D skip and the silu(z) gate. Shapes as in
     :func:`selective_scan_ref`; each of u, delta, B, C, z needs unit stride
     only along its last axis. On a CUDA tensor this launches the kernel
-    (activations float32 or bfloat16, A, D and delta_bias float32, d_state
-    16) or raises; on the CPU it is :func:`selective_scan_ref`.
+    (activations float32 or bfloat16, A, D and delta_bias float32; at a
+    d_state other than 16 its any-state variant) or raises; on the CPU it is
+    :func:`selective_scan_ref`.
     ``selective_scan_fwd.launches`` counts the fp32 kernel's launches."""
     if u.is_cuda:
         return _launch_fwd(u, delta, A, B, C, D, z, delta_bias, residuals=False)[0]

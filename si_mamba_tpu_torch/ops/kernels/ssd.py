@@ -37,8 +37,18 @@ entry points each and a ``_bf16`` twin of each:
 :func:`run_split_bwd` allocate outputs and scratch and launch through a given
 library; the C side refuses scratch of another size.
 The sources describe the designs and bounds. They are built for d_state =
-head_dim = 128 and chunks that are a multiple of :data:`STRIP` up to
-:data:`MAX_CHUNK`.
+head_dim = 128 and every chunk the JAX kernels compile for, a multiple of
+:data:`CHUNK_ALIGN` (up to :data:`MAX_CHUNK`). Their bodies walk a chunk in
+64-row strips (:data:`STRIP`). A chunk that is not a multiple of the strip
+runs laid out in strips (:func:`_to_strips`): each chunk's rows followed by
+zero rows up to the next multiple of 64 (x, B, C and dy 0, dt 0, S held at
+the chunk's last value), which add nothing to G, to y, to the carry or to
+any gradient; dS of the copies of the last S is folded back onto it. A chunk
+longer than 256 sizes the kernels' per-chunk shared arrays at launch
+(dynamic shared memory) and walks the q x q G scratch in the same strips.
+Those two are the ``_strip`` and ``_long`` variants of each entry point, with
+their own launch counts (``VARIANT_LAUNCHES``), chosen by the chunk before
+the launch.
 
 Every kernel takes fp32 or bf16 activations (xbc, or x, B and C, and dy; y,
 dx, dB and dC come back in their dtype), with dt, S, D, h_in and dh_fin fp32,
@@ -65,13 +75,16 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
-from si_mamba_tpu_torch.ops.kernels.build import load_library
+from si_mamba_tpu_torch.ops.kernels.build import LaunchCount, load_library
 
 STATE = 128  # d_state the kernels are built for (kN in both sources)
 HEAD_DIM = 128  # head_dim the kernels are built for (kP)
-STRIP = 64  # rows of a time strip; the chunk must be a multiple (kStrip)
-MAX_CHUNK = 256  # the longest chunk the kernels' shared memory holds (kMaxChunk)
+STRIP = 64  # rows of a time strip (kBM); a chunk that is no multiple runs laid out in strips
+CHUNK_ALIGN = 8  # the chunk is a multiple of this, as the JAX kernels require
+TUNED_CHUNK = 256  # the longest chunk the per-chunk shared arrays always held (kArrayFloor)
+MAX_CHUNK = 8192  # the longest chunk the kernels' dynamic shared memory holds (kMaxChunk)
 CARRY_PARTS = 16  # blocks a (batch row, head) in K9's carry pass (kCarryParts)
 # the activation dtypes the kernels are built for; dt, S, D and the states are fp32
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -362,11 +375,72 @@ def _check_geometry(n: int, p: int, l: int, chunk: int) -> None:
     if n != STATE or p != HEAD_DIM:
         raise ValueError(f"the SSD kernels are built for d_state {STATE} and head_dim "
                          f"{HEAD_DIM}, got {n} and {p}")
-    if chunk % STRIP or not 0 < chunk <= MAX_CHUNK:
-        raise ValueError(f"the SSD kernels take a chunk that is a multiple of {STRIP} up to "
-                         f"{MAX_CHUNK}, got {chunk}")
+    if chunk % CHUNK_ALIGN or not 0 < chunk <= MAX_CHUNK:
+        raise ValueError(f"the SSD kernels take a chunk that is a multiple of {CHUNK_ALIGN} "
+                         f"up to {MAX_CHUNK}, got {chunk}")
     if l % chunk:
         raise ValueError(f"L={l} is not a multiple of chunk={chunk}; pad first")
+
+
+def chunk_variant(chunk: int) -> str:
+    """The variant that runs ``chunk``: '' (the strips of the tuned kernels,
+    a multiple of 64 up to 256), '_strip' (laid out in 64-row strips, any
+    chunk that is not a multiple of 64) or '_long' (a multiple of 64 above
+    256, the per-chunk arrays sized at launch)."""
+    if chunk % STRIP:
+        return "_strip"
+    return "_long" if chunk > TUNED_CHUNK else ""
+
+
+def _strip_len(chunk: int) -> int:
+    return -(-chunk // STRIP) * STRIP
+
+
+def _to_strips(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Rows (b, nc q, c) of any strides laid out in strips: (b, nc qs, c)
+    contiguous, each chunk's q rows followed by qs - q zero rows."""
+    b, l, c = t.shape
+    nc, qs = l // chunk, _strip_len(chunk)
+    out = t.new_zeros((b, nc, qs, c))
+    out[:, :, :chunk] = t.reshape(b, nc, chunk, c)
+    return out.reshape(b, nc * qs, c)
+
+
+def _from_strips(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The inverse of :func:`_to_strips` on rows (b, nc qs, c)."""
+    b, ls, c = t.shape
+    qs = _strip_len(chunk)
+    return t.reshape(b, ls // qs, qs, c)[:, :, :chunk].reshape(b, ls // qs * chunk, c)
+
+
+def _dt_s_to_strips(dt: torch.Tensor, S: torch.Tensor, chunk: int):
+    """dt and S (b, h, nc, q) in strips: dt 0 on the added rows, S held at
+    the chunk's last value (no decay, no input)."""
+    pad = _strip_len(chunk) - chunk
+    return (F.pad(dt, (0, pad)).contiguous(),
+            torch.cat([S, S[..., -1:].expand(*S.shape[:-1], pad)], dim=-1).contiguous())
+
+
+def _ds_from_strips(dS: torch.Tensor, chunk: int) -> torch.Tensor:
+    """dS (b, h, nc, qs) back to the chunk: the added rows hold copies of the
+    last S, so their cotangents add onto it."""
+    out = dS[..., :chunk].clone()
+    out[..., -1] += dS[..., chunk:].sum(-1)
+    return out
+
+
+def _strip_operands(chunk: int, dt: torch.Tensor, S: torch.Tensor, *rows: torch.Tensor):
+    """The operands of a chunk that is no multiple of STRIP, laid out in
+    strips: (the strip length to launch at, dt, S, *rows)."""
+    return (_strip_len(chunk), *_dt_s_to_strips(dt, S, chunk),
+            *(_to_strips(r, chunk) for r in rows))
+
+
+def _grads_from_strips(chunk: int, ddt: torch.Tensor, dS: torch.Tensor, *rows: torch.Tensor):
+    """A backward's outputs laid out in strips, back to the chunk: (ddt, dS,
+    *rows)."""
+    return (ddt[..., :chunk].contiguous(), _ds_from_strips(dS, chunk),
+            *(_from_strips(r, chunk) for r in rows))
 
 
 # the activation operands, which are fp32 or bf16 (one dtype a call); every
@@ -463,6 +537,10 @@ def run_fwd(lib, xbc, dt, S, D, d_inner: int, chunk: int, states: bool, stream,
     h_in or None), and with ``hfin`` (the ``ssd_xbc_fwd_hfin`` entry point)
     also h_fin (b, h, n, p). Checks nothing; :func:`_launch_fwd` checks
     first."""
+    if chunk % STRIP:
+        qs, dts, Ss, xs = _strip_operands(chunk, dt, S, xbc)
+        y, *rest = run_fwd(lib, xs, dts, Ss, D, d_inner, qs, states, stream, hfin=hfin)
+        return (_from_strips(y, chunk), *rest)
     b, l, total = xbc.shape
     h, n = dt.shape[1], (total - d_inner) // 2
     p = d_inner // h
@@ -488,6 +566,10 @@ def run_split_fwd(lib, x, dt, S, Bm, Cm, chunk: int, states: bool, hfin: bool, s
     ``lib`` (a library with :func:`fwd_interface`) on ``stream``: (y, h_in or
     None, h_fin or None). Checks nothing; :func:`_launch_split_fwd` checks
     first."""
+    if chunk % STRIP:
+        qs, dts, Ss, xs, Bs, Cs = _strip_operands(chunk, dt, S, x, Bm, Cm)
+        y, hin, h_fin = run_split_fwd(lib, xs, dts, Ss, Bs, Cs, qs, states, hfin, stream)
+        return _from_strips(y, chunk), hin, h_fin
     b, l, d = x.shape
     h, n = dt.shape[1], Bm.shape[-1]
     y, hin, G = _fwd_buffers(b, l, h, n, d // h, chunk, states, x.dtype, x.device)
@@ -510,6 +592,12 @@ def run_bwd(lib, xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int, stream, dh_f
     seeded with ``dh_fin`` (the ``ssd_xbc_bwd_seeded`` entry point) unless
     that is None: (dxbc, ddt, dS, dD). Checks nothing; :func:`_launch_bwd`
     checks first."""
+    if chunk % STRIP:
+        qs, dts, Ss, xs, dys = _strip_operands(chunk, dt, S, xbc, dy)
+        dxbc, ddt, dS, dD = run_bwd(lib, xs, dts, Ss, D, h_in, dys, d_inner, qs, stream,
+                                    dh_fin=dh_fin)
+        ddt, dS, dxbc = _grads_from_strips(chunk, ddt, dS, dxbc)
+        return dxbc, ddt, dS, dD
     b, l, total = xbc.shape
     h, nc = dt.shape[1], l // chunk
     n = (total - d_inner) // 2
@@ -538,6 +626,12 @@ def run_split_bwd(lib, x, dt, S, Bm, Cm, h_in, dy, chunk: int, dh_fin, stream):
     seeded with ``dh_fin`` unless that is None: (dx, ddt, dS, dB, dC), dB and
     dC the two halves of one (b, l, 2n) buffer. Checks nothing;
     :func:`_launch_split_bwd` checks first."""
+    if chunk % STRIP:
+        qs, dts, Ss, xs, Bs, Cs, dys = _strip_operands(chunk, dt, S, x, Bm, Cm, dy)
+        dx, ddt, dS, dB, dC = run_split_bwd(lib, xs, dts, Ss, Bs, Cs, h_in, dys, qs, dh_fin,
+                                            stream)
+        ddt, dS, dx, dB, dC = _grads_from_strips(chunk, ddt, dS, dx, dB, dC)
+        return dx, ddt, dS, dB, dC
     b, l, d = x.shape
     h, n = dt.shape[1], Bm.shape[-1]
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -565,7 +659,7 @@ def _launch_fwd(xbc, dt, S, D, d_inner: int, chunk: int, states: bool, hfin: boo
         out = run_fwd(_fwd_library(), xbc, dt, S, D, d_inner, chunk, states,
                       torch.cuda.current_stream(xbc.device).cuda_stream, hfin=hfin)
     if out[0].numel():
-        _XBC_FWD[(states, hfin, xbc.dtype == torch.bfloat16)].launches += 1
+        _count(_XBC_FWD[(states, hfin, xbc.dtype == torch.bfloat16)], chunk)
     return out
 
 
@@ -578,9 +672,9 @@ def _launch_bwd(xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int, dh_fin=None):
     if out[0].numel():
         bf16 = xbc.dtype == torch.bfloat16
         if dh_fin is None:
-            (ssd_xbc_bwd_bf16 if bf16 else ssd_xbc_bwd).launches += 1
+            _count(ssd_xbc_bwd_bf16 if bf16 else ssd_xbc_bwd, chunk)
         else:
-            (ssd_xbc_bwd_seeded_bf16 if bf16 else ssd_xbc_bwd_seeded).launches += 1
+            _count(ssd_xbc_bwd_seeded_bf16 if bf16 else ssd_xbc_bwd_seeded, chunk)
     return out
 
 
@@ -726,7 +820,7 @@ def _launch_split_fwd(x, dt, S, Bm, Cm, chunk: int, states: bool, hfin: bool):
         out = run_split_fwd(_fwd_library(), x, dt, S, Bm, Cm, chunk, states, hfin,
                             torch.cuda.current_stream(x.device).cuda_stream)
     if out[0].numel():
-        _SPLIT_FWD[(states, hfin, x.dtype == torch.bfloat16)].launches += 1
+        _count(_SPLIT_FWD[(states, hfin, x.dtype == torch.bfloat16)], chunk)
     return out
 
 
@@ -739,9 +833,9 @@ def _launch_split_bwd(x, dt, S, Bm, Cm, h_in, dy, chunk: int, dh_fin=None):
     if out[0].numel():
         bf16 = x.dtype == torch.bfloat16
         if dh_fin is None:
-            (ssd_split_bwd_bf16 if bf16 else ssd_split_bwd).launches += 1
+            _count(ssd_split_bwd_bf16 if bf16 else ssd_split_bwd, chunk)
         else:
-            (ssd_split_bwd_seeded_bf16 if bf16 else ssd_split_bwd_seeded).launches += 1
+            _count(ssd_split_bwd_seeded_bf16 if bf16 else ssd_split_bwd_seeded, chunk)
     return out
 
 
@@ -972,7 +1066,29 @@ def ssd_chunked_split(x, dt, A, Bm, Cm, D, *, chunk: int = 128, return_carry: bo
     return y
 
 
-for _fn in (*_XBC_FWD.values(), ssd_xbc_bwd, ssd_xbc_bwd_seeded, ssd_xbc_bwd_bf16,
-            ssd_xbc_bwd_seeded_bf16, *_SPLIT_FWD.values(), ssd_split_bwd, ssd_split_bwd_seeded,
-            ssd_split_bwd_bf16, ssd_split_bwd_seeded_bf16):
+_WRAPPERS = (*_XBC_FWD.values(), ssd_xbc_bwd, ssd_xbc_bwd_seeded, ssd_xbc_bwd_bf16,
+             ssd_xbc_bwd_seeded_bf16, *_SPLIT_FWD.values(), ssd_split_bwd, ssd_split_bwd_seeded,
+             ssd_split_bwd_bf16, ssd_split_bwd_seeded_bf16)
+for _fn in _WRAPPERS:
     _fn.launches = 0
+
+
+def _variant_name(wrapper_name: str, variant: str) -> str:
+    """'ssd_xbc_fwd_bf16', '_strip' -> 'ssd_xbc_fwd_strip_bf16'."""
+    base = wrapper_name.removesuffix("_bf16")
+    return base + variant + wrapper_name[len(base):]
+
+
+# the launch counts of the '_strip' and '_long' variants of every entry point
+VARIANT_LAUNCHES = {_variant_name(fn.__name__, v): LaunchCount()
+                    for fn in _WRAPPERS for v in ("_strip", "_long")}
+
+
+def _count(wrapper, chunk: int) -> None:
+    """One launch of ``wrapper``'s kernel at ``chunk``, on the count of the
+    variant that ran it."""
+    variant = chunk_variant(chunk)
+    if variant:
+        VARIANT_LAUNCHES[_variant_name(wrapper.__name__, variant)].launches += 1
+    else:
+        wrapper.launches += 1

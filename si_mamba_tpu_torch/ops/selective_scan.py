@@ -175,10 +175,11 @@ def mamba_mixer_apply(params: dict, x: torch.Tensor, *, d_state: int, dt_rank: i
     ``ops/kernels/fused_mixer.py``: K10 without a gradient, K10 with states
     and K11 with one, on a CUDA tensor; their plain versions on the CPU. It
     raises ``ValueError`` for d_inner % 128 != 0 or d_state > 32 on any
-    device, as the JAX package does, and on CUDA ``NotImplementedError`` for
-    a shape the kernels are not built for (d_state 16, d_conv 4, d_inner up
-    to 1024). 'fused_interpret' runs the plain versions of the same
-    interior on any device and at any shape, JAX's interpret mode.
+    device, as the JAX package does; on CUDA every other shape launches a
+    kernel (the tuned K10/K11 at d_state 16, d_conv 4, d_inner up to 1024,
+    their any-shape variants elsewhere). 'fused_interpret' runs the plain
+    versions of the same interior on any device and at any shape, JAX's
+    interpret mode.
 
     Mixed precision, as the JAX mixer: the matmul weights are cast to x's
     dtype (float32 or bfloat16), A, D and dt_bias stay fp32 and every scan

@@ -92,12 +92,14 @@ def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
     return int(y0[0]), int(y1[0])
 
 
-def uniform(key: tuple[int, int], shape) -> np.ndarray:
-    """U[0, 1) float32 of ``shape``, bit for bit ``jax.random.uniform`` of the
-    raw threefry ``key`` (partitionable bit generation): the 32 random bits
-    of element i are x0 ^ x1 of threefry over the 64-bit flat index i split
-    into (hi, lo); their top 23 bits as the mantissa of a float in [1, 2),
-    minus 1, are the value. Drawn on the host with numpy."""
+def uniform(key: tuple[int, int], shape, bf16: bool = False) -> np.ndarray:
+    """U[0, 1) of ``shape`` as float32, bit for bit ``jax.random.uniform`` of
+    the raw threefry ``key`` (partitionable bit generation): the 32 random
+    bits of element i are x0 ^ x1 of threefry over the 64-bit flat index i
+    split into (hi, lo); their top 23 bits as the mantissa of a float in
+    [1, 2), minus 1, are the value. With ``bf16`` the draw of dtype bfloat16
+    (7 mantissa bits, so JAX draws 8 bits): the low byte of x0 ^ x1, shifted
+    right once, over 128. Drawn on the host with numpy."""
     n = int(np.prod(shape, dtype=np.int64))
     idx = np.arange(n, dtype=np.uint64)
     with np.errstate(over="ignore"):
@@ -105,6 +107,9 @@ def uniform(key: tuple[int, int], shape) -> np.ndarray:
                                (idx >> np.uint64(32)).astype(np.uint32),
                                (idx & np.uint64(0xFFFFFFFF)).astype(np.uint32))
     bits = x0 ^ x1
+    if bf16:
+        return (((bits & np.uint32(0xFF)) >> np.uint32(1)).astype(np.float32)
+                / np.float32(128)).reshape(shape)
     u = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
     return u.reshape(shape)
 

@@ -35,10 +35,10 @@ import torch.nn.functional as F
 
 from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_ref, causal_conv1d_silu_as_jax
 from si_mamba_tpu_torch.ops.kernels.ssd import (
+    CHUNK_ALIGN,
     HEAD_DIM,
     MAX_CHUNK,
     STATE,
-    STRIP,
     _rounder,
     ssd_chunked_xbc,
     ssd_chunks_ref,
@@ -111,8 +111,9 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 64, return_carry: bool = Fa
 
 def ssd_fused_supported(l: int, chunk: int, d_state: int, head_dim: int) -> bool:
     """The geometry the SSD kernels are built for: d_state = head_dim = 128
-    and a chunk that is a multiple of 64 up to 256 and divides L."""
-    return (d_state == STATE and head_dim == HEAD_DIM and chunk % STRIP == 0
+    and every chunk that the JAX kernels compile for (``ssd_fused_supported``
+    of ssd_kernel.py: a multiple of 8, at least 8), up to 8192, dividing L."""
+    return (d_state == STATE and head_dim == HEAD_DIM and chunk % CHUNK_ALIGN == 0
             and 0 < chunk <= MAX_CHUNK and l % chunk == 0)
 
 
@@ -134,8 +135,8 @@ def ssd_fused_route(impl: str, l_padded: int, chunk: int, d_state: int, head_dim
                                                                        d_state, head_dim):
         raise ValueError(
             f"impl='ssd_fused' on CUDA runs kernels built for d_state = head_dim = {STATE} and "
-            f"a chunk that is a multiple of {STRIP} up to {MAX_CHUNK} dividing L; got d_state "
-            f"{d_state}, head_dim {head_dim}, chunk {chunk}, L {l_padded}")
+            f"a chunk that is a multiple of {CHUNK_ALIGN} up to {MAX_CHUNK} dividing L; got "
+            f"d_state {d_state}, head_dim {head_dim}, chunk {chunk}, L {l_padded}")
     return True
 
 

@@ -151,17 +151,33 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         kconv.causal_conv1d_silu(x.double(), _randn(rng, 16, 4, device=cuda),
                                  _randn(rng, 16, device=cuda))
+    # widths 3 and 5 run the any-width K1 (not the plain conv), as JAX's
+    # Pallas conv takes any width; a width of 0 raises
     for w in (3, 5):
-        with pytest.raises(ValueError, match="width 4"):
-            kconv.causal_conv1d_silu(x, _randn(rng, 16, w, device=cuda),
-                                     _randn(rng, 16, device=cuda))
+        wt, bias = _randn(rng, 16, w, device=cuda), _randn(rng, 16, device=cuda)
+        before = kconv.ANY_LAUNCHES["causal_conv1d_silu_any"].launches
+        got = kconv.causal_conv1d_silu(x, wt, bias)
+        assert kconv.ANY_LAUNCHES["causal_conv1d_silu_any"].launches == before + 1
+        _close_to_max(got, kconv.causal_conv1d_ref(x, wt, bias), 1e-5)
+    with pytest.raises(ValueError, match="width of at least 1"):
+        kconv.causal_conv1d_silu(x, _randn(rng, 16, 0, device=cuda), _randn(rng, 16, device=cuda))
     with pytest.raises(ValueError, match="one CUDA device"):
         kconv.causal_conv1d_silu(x, _randn(rng, 16, 4), _randn(rng, 16))
+    # d_state 5 and 300 (its arrays in the global workspace) run the
+    # any-state K2, as JAX's Pallas scan takes any d_state; d_state 0 raises
     u = _randn(rng, 1, 8, 16, device=cuda)
-    BC = _randn(rng, 1, 8, 5, device=cuda)
-    with pytest.raises(ValueError, match="d_state 16"):
-        kscan.selective_scan_fwd(u, u, _randn(rng, 16, 5, device=cuda), BC, BC,
-                                 _randn(rng, 16, device=cuda), u, _randn(rng, 16, device=cuda))
+    D, db = _randn(rng, 16, device=cuda), _randn(rng, 16, device=cuda)
+    for n in (5, 300):
+        BC = _randn(rng, 1, 8, n, device=cuda)
+        A = -_randn(rng, 16, n, device=cuda).abs()
+        before = kscan.ANY_LAUNCHES["selective_scan_fwd_any"].launches
+        got = kscan.selective_scan_fwd(u, u, A, BC, BC, D, u, db)
+        assert kscan.ANY_LAUNCHES["selective_scan_fwd_any"].launches == before + 1
+        _close_to_max(got, kscan.selective_scan_ref(u, u, A, BC, BC, D=D, z=u, delta_bias=db),
+                      1e-5)
+    empty = _randn(rng, 1, 8, 0, device=cuda)
+    with pytest.raises(ValueError, match="d_state 1 or more"):
+        kscan.selective_scan_fwd(u, u, _randn(rng, 16, 0, device=cuda), empty, empty, D, u, db)
 
 
 @pytest.mark.cuda
@@ -544,9 +560,15 @@ def test_ssd_kernels_reject_what_they_do_not_take(cuda):
 
     rng = np.random.default_rng(22)
     xbc, dth, S, D, d = _ssd_case(rng, 1, 128, 1, 64, cuda)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        kssd.ssd_xbc_fwd(xbc, dth.reshape(1, 1, 4, 32).contiguous(),
-                         S.reshape(1, 1, 4, 32).contiguous(), D, d, 32)
+    # chunk 32 runs laid out in strips, as JAX's kernel takes any multiple of 8;
+    # chunk 12 (no multiple of 8, refused by JAX too) raises
+    dt32, S32 = dth.reshape(1, 1, 4, 32).contiguous(), S.reshape(1, 1, 4, 32).contiguous()
+    _close_to_max(kssd.ssd_xbc_fwd(xbc, dt32, S32, D, d, 32),
+                  kssd.ssd_xbc_fwd_ref(xbc, dt32, S32, D, d, 32)[0], 1e-5)
+    dt12, S12 = (t.reshape(1, 1, 128)[..., :120].reshape(1, 1, 10, 12).contiguous()
+                 for t in (dth, S))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kssd.ssd_xbc_fwd(xbc[:, :120], dt12, S12, D, d, 12)
     small, dth2, S2, D2, d2 = _ssd_case(rng, 1, 128, 1, 64, cuda, n=64)
     with pytest.raises(ValueError, match="d_state 128"):
         kssd.ssd_xbc_fwd(small, dth2, S2, D2, d2, 64)
@@ -846,9 +868,14 @@ def test_split_kernels_reject_what_they_do_not_take(cuda):
 
     rng = np.random.default_rng(42)
     x, dth, S, Bm, Cm = _split_case(rng, 1, 128, 1, 64, cuda)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        kssd.ssd_split_fwd(x, dth.reshape(1, 1, 4, 32).contiguous(),
-                           S.reshape(1, 1, 4, 32).contiguous(), Bm, Cm, 32)
+    # chunk 32 runs laid out in strips; chunk 12 (refused by JAX too) raises
+    dt32, S32 = dth.reshape(1, 1, 4, 32).contiguous(), S.reshape(1, 1, 4, 32).contiguous()
+    _close_to_max(kssd.ssd_split_fwd(x, dt32, S32, Bm, Cm, 32),
+                  kssd.ssd_split_fwd_ref(x, dt32, S32, Bm, Cm, 32)[0], 1e-5)
+    dt12, S12 = (t.reshape(1, 1, 128)[..., :120].reshape(1, 1, 10, 12).contiguous()
+                 for t in (dth, S))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kssd.ssd_split_fwd(x[:, :120], dt12, S12, Bm[:, :120], Cm[:, :120], 12)
     xs, dth2, S2, Bs, Cs = _split_case(rng, 1, 128, 1, 64, cuda, n=64)
     with pytest.raises(ValueError, match="d_state 128"):
         kssd.ssd_split_fwd(xs, dth2, S2, Bs, Cs, 64)
@@ -1044,21 +1071,34 @@ def test_fused_mixer_bwd_reports_its_co_resident_clusters(cuda):
 
 @pytest.mark.cuda
 def test_fused_mixer_kernels_refuse_a_wide_x_proj_before_launching(cuda):
-    """dt_rank 34 at d_state 16 (R + 2N = 66 > 64): every wrapper raises and
-    nothing is launched."""
+    """dt_rank 34 at d_state 16 (R + 2N = 66, wider than the tuned kernels'
+    64): every wrapper launches its any-shape variant once, nothing of the
+    tuned kernels, and each result holds against its plain version; a
+    d_inner that is no multiple of 128, which the JAX kernel refuses too,
+    raises before any launch."""
     from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
 
     args = _fused_case(1, 32, 64, 55, cuda, dt_rank=34)
-    counts = lambda: (kfm.fused_mixer_fwd.launches,  # noqa: E731
-                      kfm.fused_mixer_fwd_states.launches, kfm.fused_mixer_bwd.launches)
-    before = counts()
-    h = torch.zeros(1, 2, 16, 128, device=cuda)
-    g = torch.zeros(1, 32, 128, device=cuda)
-    for call in (lambda: kfm.fused_mixer_fwd(*args), lambda: kfm.fused_mixer_fwd_states(*args),
-                 lambda: kfm.fused_mixer_bwd(*args, h, g)):
-        with pytest.raises(NotImplementedError, match="dt_rank \\+ 2 d_state up to 64"):
-            call()
-    assert counts() == before
+    tuned = lambda: (kfm.fused_mixer_fwd.launches,  # noqa: E731
+                     kfm.fused_mixer_fwd_states.launches, kfm.fused_mixer_bwd.launches)
+    anys = lambda: tuple(kfm.ANY_LAUNCHES[n].launches for n in (  # noqa: E731
+        "fused_mixer_fwd_any", "fused_mixer_fwd_states_any", "fused_mixer_bwd_any"))
+    before, before_any = tuned(), anys()
+    g = _randn(np.random.default_rng(56), 1, 32, 128, device=cuda)
+    y = kfm.fused_mixer_fwd(*args)
+    y_s, h = kfm.fused_mixer_fwd_states(*args)
+    grads = kfm.fused_mixer_bwd(*args, h, g)
+    assert tuned() == before and anys() == tuple(c + 1 for c in before_any)
+    y_ref, h_ref = kfm.fused_mixer_fwd_ref(*args, chunk=kfm.CHUNK, emit_states=True)
+    _close_to_max(y, y_ref, 1e-5)
+    assert torch.equal(y, y_s)
+    _close_to_max(h, h_ref, 1e-5)
+    for got, want in zip(grads, kfm.fused_mixer_bwd_ref(*args, h, g, chunk=kfm.CHUNK)):
+        _close_to_max(got, want, 1e-4)
+    narrow = (args[0][..., :192].contiguous(), *args[1:])
+    with pytest.raises(ValueError, match="d_inner % 128 == 0"):
+        kfm.fused_mixer_fwd(*narrow)
+    assert tuned() == before
 
 
 @pytest.mark.cuda
@@ -1096,18 +1136,28 @@ def test_fused_mixer_grads_match_seq(cuda):
 @pytest.mark.cuda
 def test_fused_mixer_kernels_reject_what_they_do_not_take(cuda):
     """d_state 8 is a shape 'fused' takes (d_inner % 128 == 0, d_state <=
-    32) that the kernels are not built for: on CUDA it raises, never the
-    plain path; so does float64 at the kernel wrapper."""
+    32) that the tuned kernels are not built for: on CUDA it runs their
+    any-shape variant, never the plain path, and holds against 'seq';
+    d_state 33 (the JAX kernel refuses it too) raises; float64 raises at the
+    kernel wrapper."""
     from si_mamba_tpu_torch.models.layers import MambaMixer
     from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
 
-    mixer = MambaMixer(64, d_state=8, scan_impl="fused").to(cuda)
+    mixer = MambaMixer(64, d_state=8, scan_impl="fused")
+    mixer.reset_parameters(torch.Generator().manual_seed(35))
+    plain = MambaMixer(64, d_state=8, scan_impl="seq")
+    plain.load_state_dict(mixer.state_dict())
+    mixer, plain = mixer.to(cuda), plain.to(cuda)
     x = _randn(np.random.default_rng(35), 1, 16, 64, device=cuda)
     before = kfm.fused_mixer_fwd.launches
-    with pytest.raises(NotImplementedError, match="K10/K11"):
-        with torch.no_grad():
-            mixer(x)
+    before_any = kfm.ANY_LAUNCHES["fused_mixer_fwd_any"].launches
+    with torch.no_grad():
+        _close_to_max(mixer(x), plain(x), 1e-5)
     assert kfm.fused_mixer_fwd.launches == before
+    assert kfm.ANY_LAUNCHES["fused_mixer_fwd_any"].launches == before_any + 1
+    with pytest.raises(ValueError, match="d_state <= 32"):
+        with torch.no_grad():
+            MambaMixer(64, d_state=33, scan_impl="fused").to(cuda)(x)
     args = _fused_case(1, 16, 64, 36, cuda)
     with pytest.raises(TypeError):
         kfm.fused_mixer_fwd(args[0].double(), *args[1:])
@@ -1778,3 +1828,173 @@ def test_small_seg_model_kernel_path_matches_plain(cuda):
         want = plain(pts, onehot, order_noise=noise)
     assert kconv.causal_conv1d_silu.launches == before + 4
     torch.testing.assert_close(got, want, rtol=2e-3, atol=1e-3 * want.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# the kernels at the shapes of their any-shape variants
+# ---------------------------------------------------------------------------
+
+def _ulp_or_rel(got, want, tol_fp32, tol_bf16):
+    _close_to_max(got.float(), want.float(), tol_bf16 if got.dtype == torch.bfloat16
+                  else tol_fp32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("W", [1, 2, 3, 5, 9])
+def test_conv_any_width_holds_and_repeats(cuda, W, dtype):
+    """K1/K5 at widths other than 4 (the any-width variants) on a column view
+    of xz: y, dx, dw, db against the plain versions (fp32 1e-5 of max, bf16
+    outputs one ulp, 2e-2 of max), the backward bitwise repeatable."""
+    rng = np.random.default_rng(60 + W)
+    xz = _randn(rng, 3, 70, 192, device=cuda).to(dtype)
+    x, g = xz[..., :96], _randn(rng, 3, 70, 96, device=cuda).to(dtype)
+    w, b = _randn(rng, 96, W, scale=0.4, device=cuda), _randn(rng, 96, scale=0.1, device=cuda)
+    name = "_bf16" if dtype == torch.bfloat16 else ""
+    f0 = kconv.ANY_LAUNCHES["causal_conv1d_silu_any" + name].launches
+    b0 = kconv.ANY_LAUNCHES["causal_conv1d_silu_bwd_any" + name].launches
+    _ulp_or_rel(kconv.causal_conv1d_silu_fwd(x, w, b), kconv.causal_conv1d_ref(x, w, b),
+                1e-5, 2e-2)
+    got = kconv.causal_conv1d_silu_bwd(x, w, b, g)
+    again = kconv.causal_conv1d_silu_bwd(x, w, b, g)
+    for a, r, c in zip(got, kconv.causal_conv1d_silu_bwd_ref(x, w, b, g), again):
+        _ulp_or_rel(a, r, 1e-5, 2e-2)
+        assert torch.equal(a, c)
+    assert kconv.ANY_LAUNCHES["causal_conv1d_silu_any" + name].launches == f0 + 1
+    assert kconv.ANY_LAUNCHES["causal_conv1d_silu_bwd_any" + name].launches == b0 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 8, 12, 32, 64, 300])
+def test_scan_any_state_holds_and_repeats(cuda, n, dtype):
+    """K2, K3 and K4 at d_state other than 16 (the any-state variants; at 300
+    their arrays in the global workspace): y, h_entries and every gradient
+    against the plain versions, K4 bitwise repeatable; K3's y equal to K2's."""
+    rng = np.random.default_rng(70 + n)
+    b, l, d = 2, 75, 96
+    act = lambda *s, scale=1.0: _randn(rng, *s, scale=scale, device=cuda).to(dtype)  # noqa: E731
+    u, delta, z, g = act(b, l, d), act(b, l, d, scale=0.5), act(b, l, d), act(b, l, d)
+    x_dbl = act(b, l, 2 * n + 3)
+    Bm, Cm = x_dbl[..., 3:3 + n], x_dbl[..., 3 + n:]
+    A = -(_randn(rng, d, n, device=cuda).abs() + 0.1)
+    D, db = _randn(rng, d, device=cuda), _randn(rng, d, scale=0.1, device=cuda)
+    y = kscan.selective_scan_fwd(u, delta, A, Bm, Cm, D, z, db)
+    _ulp_or_rel(y, kscan.selective_scan_ref(u, delta, A, Bm, Cm, D=D, z=z, delta_bias=db),
+                1e-5, 2e-2)
+    y3, he = kscan.selective_scan_fwd_residuals(u, delta, A, Bm, Cm, D, z, db)
+    assert torch.equal(y3, y)
+    _close_to_max(he, kscan.selective_scan_fwd_residuals_ref(u, delta, A, Bm, Cm, D, z, db)[1],
+                  1e-5)
+    got = kscan.selective_scan_bwd(u, delta, A, Bm, Cm, D, z, db, g, he)
+    again = kscan.selective_scan_bwd(u, delta, A, Bm, Cm, D, z, db, g, he)
+    want = kscan.selective_scan_bwd_ref(u, delta, A, Bm, Cm, D, z, db, g, he)
+    for a, r, c in zip(got, want, again):
+        _ulp_or_rel(a, r, 1e-4, 3e-2)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d_model,d_state,d_conv,dt_rank", [
+    (576, 16, 4, 36), (1280, 16, 4, 80), (128, 8, 3, 8), (128, 32, 2, 8)])
+def test_fused_mixer_any_shape_holds_and_repeats(cuda, d_model, d_state, d_conv, dt_rank,
+                                                 dtype):
+    """K10/K11 at d_inner 1152 and 2560, d_state 8 and 32, conv widths 3 and
+    2 (the global-memory variants): y, h_entries and the eight gradients
+    against the plain versions, K11 bitwise repeatable."""
+    from si_mamba_tpu_torch.models.layers import MambaMixer
+    from si_mamba_tpu_torch.ops.kernels import fused_mixer as kfm
+
+    mixer = MambaMixer(d_model, d_state=d_state, d_conv=d_conv, dt_rank=dt_rank)
+    mixer.reset_parameters(torch.Generator().manual_seed(d_model + d_state))
+    p = {k: v.detach().to(cuda) for k, v in mixer.params().items()}
+    rng = np.random.default_rng(d_model)
+    x = _randn(rng, 2, 40, d_model, device=cuda)
+    xz = (x @ p["in_proj_w"]).to(dtype)
+    args = kfm.kernel_inputs(xz, p["conv_w"], p["conv_b"], p["x_proj_w"], p["dt_proj_w"],
+                             p["dt_proj_b"], -torch.exp(p["A_log"]), p["D"], dt_rank=dt_rank,
+                             d_state=d_state)
+    y, h = kfm.fused_mixer_fwd_states(*args)
+    y_ref, h_ref = kfm.fused_mixer_fwd_ref(*args, chunk=kfm.CHUNK, emit_states=True)
+    _ulp_or_rel(y, y_ref, 1e-5, 2e-2)
+    _close_to_max(h, h_ref, 1e-5)
+    g = _randn(rng, 2, 40, xz.shape[-1] // 2, device=cuda).to(dtype)
+    got, again = kfm.fused_mixer_bwd(*args, h, g), kfm.fused_mixer_bwd(*args, h, g)
+    for a, r, c in zip(got, kfm.fused_mixer_bwd_ref(*args, h, g, chunk=kfm.CHUNK), again):
+        _ulp_or_rel(a, r, 1e-4, 2e-2)
+        assert torch.equal(a, c)
+
+
+def _ssd_any_case(rng, b, l, h, chunk, device, dtype):
+    """xbc in ``dtype`` (contiguous), dt and S (b, h, nc, chunk), D (h,)."""
+    n = p = 128
+    xbc = (_randn(rng, b, l, h * p + 2 * n, scale=0.5, device=device)).to(dtype)
+    dth = torch.tensor(rng.uniform(0.0, 0.05, (b, h, l // chunk, chunk)).astype(np.float32),
+                       device=device)
+    A = -torch.tensor(rng.uniform(0.1, 1.0, h).astype(np.float32), device=device)
+    S = torch.cumsum(dth * A[None, :, None, None], -1).contiguous()
+    return xbc, dth, S, _randn(rng, h, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk,l", [(8, 64), (32, 128), (96, 192), (512, 512), (1024, 1024)])
+def test_ssd_kernels_at_every_chunk_hold(cuda, chunk, l, dtype):
+    """Every K8/K9 and K6/K7 entry point at chunks that are no multiple of
+    the 64-row strip (laid out in strips) and longer than 256 (the per-chunk
+    arrays sized at launch), against the plain versions at that chunk; each
+    launch on its variant's count."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    rng = np.random.default_rng(chunk)
+    h, n = 2, 128
+    d = h * 128
+    xbc, dth, S, D = _ssd_any_case(rng, 2, l, h, chunk, cuda, dtype)
+    dy = _randn(rng, 2, l, d, device=cuda).to(dtype)
+    dh_fin = _randn(rng, 2, h, n, 128, device=cuda)
+    bf = dtype == torch.bfloat16
+    fwd_tol, st_tol, grad_tol = (2e-2, 1e-3, 3e-2) if bf else (1e-5, 1e-5, 1e-4)
+    variant = kssd.chunk_variant(chunk)
+    assert variant in ("_strip", "_long")
+    count = lambda name: kssd.VARIANT_LAUNCHES[  # noqa: E731
+        kssd._variant_name(name + ("_bf16" if bf else ""), variant)].launches
+    c0 = {k: count(k) for k in ("ssd_xbc_fwd_states_hfin", "ssd_xbc_bwd_seeded",
+                                "ssd_split_fwd_states_hfin", "ssd_split_bwd_seeded")}
+    y, h_in, h_fin = kssd.ssd_xbc_fwd_states_hfin(xbc, dth, S, D, d, chunk)
+    ry, rh, rf = kssd.ssd_xbc_fwd_ref(xbc, dth, S, D, d, chunk, emit_states=True,
+                                      emit_hfin=True)
+    _ulp_or_rel(y, ry, fwd_tol, fwd_tol)
+    _close_to_max(h_in, rh, st_tol)
+    _close_to_max(h_fin, rf, st_tol)
+    assert torch.equal(kssd.ssd_xbc_fwd(xbc, dth, S, D, d, chunk), y)
+    got = kssd.ssd_xbc_bwd_seeded(xbc, dth, S, D, h_in, dy, dh_fin, d, chunk)
+    want = kssd.ssd_xbc_bwd_ref(xbc, dth, S, D, h_in, dy, d, chunk, dh_fin=dh_fin)
+    for a, r in zip(got, want):
+        _ulp_or_rel(a, r, grad_tol, grad_tol)
+    x, Bm, Cm = xbc[..., :d], xbc[..., d:d + n], xbc[..., d + n:]
+    ys, hs, fs = kssd.ssd_split_fwd_states_hfin(x, dth, S, Bm, Cm, chunk)
+    rys, _, rfs = kssd.ssd_split_fwd_ref(x, dth, S, Bm, Cm, chunk, emit_states=True,
+                                         emit_hfin=True)
+    _ulp_or_rel(ys, rys, fwd_tol, fwd_tol)
+    _close_to_max(fs, rfs, st_tol)
+    got = kssd.ssd_split_bwd_seeded(x, dth, S, Bm, Cm, hs, dy, dh_fin, chunk)
+    want = kssd.ssd_split_bwd_ref(x, dth, S, Bm, Cm, hs, dy, chunk, dh_fin=dh_fin)
+    for a, r in zip(got, want):
+        _ulp_or_rel(a, r, grad_tol, grad_tol)
+    assert {k: count(k) - v for k, v in c0.items()} == dict.fromkeys(c0, 1)
+
+
+@pytest.mark.cuda
+def test_ssd_states_zero_the_whole_first_entry_state_at_chunk_192(cuda):
+    """K8 with states writes h_in[0] = 0 in full at chunk 192 (three strips,
+    which do not divide the 128 x 128 state evenly), whatever the allocator
+    hands it."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    junk = torch.full((1 << 26,), float("nan"), device=cuda)
+    del junk
+    xbc, dth, S, D = _ssd_any_case(np.random.default_rng(192), 2, 384, 2, 192, cuda,
+                                   torch.float32)
+    _, h_in = kssd.ssd_xbc_fwd_states(xbc, dth, S, D, 256, 192)
+    assert bool((h_in[:, 0] == 0).all())

@@ -94,6 +94,24 @@ def test_order_noise_repeats_in_eval_and_follows_the_generator_in_training():
         order_noise(2, 8, "cpu", training=True)
 
 
+@pytest.mark.parametrize("seed", [0, 7])
+def test_order_noise_at_bf16_is_jaxs_bf16_draw(seed):
+    """At bf16 the HLT codes are bf16 and JAX draws the tie-break in their
+    dtype (8 random bits, 7 of them kept): the eval draw bit for bit
+    ``jax.random.uniform(key, shape, jnp.bfloat16)``, the training draw
+    multiples of 1/128 below 1, as JAX's are. An fp32 draw rounded to bf16
+    is another order (and can reach 1.0, the next bucket's code)."""
+    got = order_noise(3, 64, "cpu", False, eval_key=prng_key(seed), dtype=torch.bfloat16)
+    want = jax.random.uniform(jax.random.key(seed), (3, 64), jnp.bfloat16)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want.astype(jnp.float32)))
+    assert not torch.equal(got, order_noise(3, 64, "cpu", False, eval_key=prng_key(seed))
+                           .to(torch.bfloat16).float())
+    t = order_noise(3, 64, "cpu", True, torch.Generator().manual_seed(seed),
+                    dtype=torch.bfloat16)
+    assert torch.equal(t * 128, torch.floor(t * 128))
+    assert t.min() >= 0 and t.max() <= 127 / 128 and len(torch.unique(t)) > 32
+
+
 def _jax_hlt(seed=0):
     cfg = JConfig(**SMALL)
     model = JPointMamba(cfg)

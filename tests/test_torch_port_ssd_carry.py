@@ -163,10 +163,13 @@ def test_carry_entry_points_take_their_declared_arguments(dtype):
     with as many arguments as ``FWD_ENTRIES`` / ``BWD_ENTRIES`` declare for
     them, h_fin right after the states flag and dh_fin right after dy, as the
     C signatures in csrc/ssd_xbc_fwd.cu and csrc/ssd_xbc_bwd.cu take them;
-    without the carry they call the plain entry points."""
+    without the carry they call the plain entry points. At chunk 64 (a
+    multiple of the kernels' 64-row strip) the operands reach the entry
+    points as they are; at CASE's chunk 32 they reach them laid out in
+    strips (``ssd._to_strips``): chunk 64, twice the rows."""
     (xbc, dt, A, D), _ = _inputs(dtype, seed=7)
-    c, kw = CASE, _kw()
-    dth = dt.transpose(1, 2).reshape(c["b"], c["h"], -1, c["chunk"]).contiguous()
+    c, kw = CASE, dict(_kw(), chunk=64)
+    dth = dt.transpose(1, 2).reshape(c["b"], c["h"], -1, kw["chunk"]).contiguous()
     S = torch.cumsum(dth * A[None, :, None, None], dim=-1)
     suffix = "_bf16" if dtype == "bfloat16" else ""
     lib = _RecordingLib()
@@ -188,3 +191,15 @@ def test_carry_entry_points_take_their_declared_arguments(dtype):
     assert fwd_hfin[7] == 1 and fwd_hfin[8] == h_fin.data_ptr() and fwd_hfin[6] == h_in.numel()
     assert bwd_seeded[5] == dy.data_ptr() and bwd_seeded[6] == dh_fin.data_ptr()
     assert h_fin.shape == (c["b"], c["h"], c["n"], c["p"]) and h_fin.dtype == torch.float32
+    dth = dt.transpose(1, 2).reshape(c["b"], c["h"], -1, c["chunk"]).contiguous()
+    S = torch.cumsum(dth * A[None, :, None, None], dim=-1)
+    strips = _RecordingLib()
+    _, h_in, _ = kssd.run_fwd(strips, xbc, dth, S, D, kw["d_inner"], c["chunk"], True, None,
+                              hfin=True)
+    assert h_in.shape[1] == c["l"] // c["chunk"]  # a state a chunk, as without the strips
+    kssd.run_bwd(strips, xbc, dth, S, D, h_in, dy, kw["d_inner"], c["chunk"], None,
+                 dh_fin=dh_fin)
+    (_, fwd_hfin), (_, bwd_seeded) = strips.calls
+    assert (fwd_hfin[12], fwd_hfin[17]) == (2 * c["l"], 64)  # L, Q of the strips
+    assert (bwd_seeded[15], bwd_seeded[20]) == (2 * c["l"], 64)
+    assert bwd_seeded[6] == dh_fin.data_ptr()

@@ -237,7 +237,12 @@ def test_fused_route_predicate():
         tssd.ssd_fused_route("auto", 512, 128, 128, 128, "cpu")
     assert tssd.ssd_fused_engaged(500, chunk=128, device="cuda")
     assert not tssd.ssd_fused_engaged(512, chunk=128, device="cpu")
-    assert not tssd.ssd_fused_engaged(512, chunk=96, device="cuda")
+    # chunk 96 (L padded to 576) runs laid out in strips; chunk 12, which the
+    # JAX kernels do not compile either (not a multiple of 8), raises
+    assert tssd.ssd_fused_engaged(512, chunk=96, device="cuda")
+    assert not tssd.ssd_fused_engaged(512, chunk=12, device="cuda")
+    with pytest.raises(ValueError, match="built for"):
+        tssd.ssd_fused_route("ssd_fused", 516, 12, 128, 128, "cuda")
 
 
 # ---------------------------------------------------------------------------
