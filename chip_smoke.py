@@ -397,7 +397,24 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    bf16, through the serving against 'seq' and cfgs/finetune_modelnet.yaml with
    ``scan_impl: fused`` through the CLI (the any-shape K10/K11); both part-segmentation
    presets with ``model.dtype: bfloat16`` through the CLI as phase 29's (the bf16 K1-K5, or
-   K1/K5 and K8/K9, 12 times a step).
+   K1/K5 and K8/K9, 12 times a step);
+57. (after phase 56) every K8/K9 and K6/K7 entry point at the wide states JAX compiles
+   (d_state, head_dim) = (256, 256), (256, 128), (128, 256) and (384, 384) at B=8, L=512,
+   chunk 256, and at (256, 256) at B=32 and chunks 32, 256 and 512, fp32 and bf16, against
+   their plain versions, every backward twice, bitwise equal; timed at B=32, chunk 256,
+   (256, 256), 3 heads. Then the paths: 12 ``SSDMixer`` blocks (d_model 384,
+   ``scan_impl='ssd_fused'``, chunk 256) at each geometry, fp32 and bf16, a no-grad
+   forward and a forward and backward at B=32 (the '_wide' K8, K8 with states and K9 12
+   times each, K1 24, K5 12) and at B=4 against the plain route: output and every gradient
+   within 1e-3 of max (PERF_LOGITS_TOL at bf16); 12 chained
+   ``ssd_chunked_xbc(return_carry=True)`` calls at (256, 256) (K8 with h_fin, with states
+   and h_fin, the seeded K9); on phase 11's ranks 12 tensor-parallel ``SSDMixer`` blocks
+   at (256, 128) (3 heads a rank: K6, K6 with states, K7) and 12 chained
+   ``ssd_seq_parallel`` calls at (256, 256) (K6 with h_fin, with states and h_fin, the
+   seeded K7), each fp32 and bf16 against the plain versions on the card;
+58. ``scripts/torch_profile_train_step.py`` at its default geometry (the Mamba-1 finetune
+   step, B=32, bf16) into chiprun_out/profiles/: the JAX script's keys, a positive leaf
+   device time, K1, K3, K4 and K5 12 calls a step.
 
 Each path (serving, train, perf serving, perf train, SSD serving, SSD train,
 SSD perf serving, SSD perf train, fused serving, fused train, fused perf
@@ -410,10 +427,11 @@ run and held forward, the rms_norm and add_after_layer classifiers' serving and 
 SSD rms_norm classifier's held step, the policy's forward and gradient, the held legacy MAE
 loss and feature forwards and its CLI run, the few-shot CLI run and its test run, the HTTP
 server's 16 clients, the ``--tsne`` CLI run and ``vis_run``, phases 55-56's stacks, SSD
-cores, classifiers and seg runs, and on
+cores, classifiers and seg runs, phase 57's wide stacks and carry chains, and on
 each rank TP SSD serving,
 TP SSD train, SP, SP train, TP Mamba-1 serving, bf16 TP SSD serving and
-train, bf16 SP and SP train, bf16 TP Mamba-1 serving and train, the Mamba-1 SP scan, and
+train, bf16 SP and SP train, bf16 TP Mamba-1 serving and train, the Mamba-1 SP scan, phase 57's wide TP stacks and SP
+chains at fp32 and bf16, and
 rank 0's DP step, DP
 forward, DP CLI run and vote, DP seg and pretraining CLI runs, pipelined forward and
 backward, and DP x TP step) is driven with every launch count set to 0 just before it and
@@ -1621,15 +1639,33 @@ def _hold_bf16_truth(name: str, got: torch.Tensor, want: torch.Tensor,
     either side of a rounding boundary at single elements (3 bf16 ulps of the
     2e-2 floor apart at one of 33.5 M elements of K9's dxbc, each 3.0e-3 of
     max from the truth), which ``_hold_bf16``'s two ulps would call a fault;
-    the distance in ulps is recorded. Returns the figures."""
+    the distance in ulps is recorded. The reverse also occurs: the kernel's
+    fp32 sums run in another order than the plain version's, so a rounded
+    intermediate (bf16 dG, x dt) can fall on the other side of its boundary
+    and carry one output element one rounding step past the plain version's
+    largest error (K7's dB at the TP path's operands, one element). So an
+    element beyond that bound passes if it is faithfully rounded: within one
+    bf16 ulp of the truth, the correctly rounded value or its neighbour; such
+    elements are counted (``faithful_flips``) and logged. Returns the
+    figures."""
     got, want, truth = got.double(), want.double(), truth.double()
     scale = truth.abs().max().item()
-    err_k, err_p = (got - truth).abs().max().item(), (want - truth).abs().max().item()
-    if not err_k <= 1.01 * err_p + 1e-6 * scale:
-        raise AssertionError(f"{name}: {err_k / scale:.3e} of max from the fp64 truth, the plain "
-                             f"version {err_p / scale:.3e}")
+    err = (got - truth).abs()
+    err_k, err_p = err.max().item(), (want - truth).abs().max().item()
+    beyond = err > 1.01 * err_p + 1e-6 * scale
+    flips = int(beyond.sum().item())
+    if flips:
+        ulp = torch.exp2(torch.floor(torch.log2(truth[beyond].abs().clamp_min(1e-30))) - 7)
+        if not bool((err[beyond] <= ulp).all()):
+            raise AssertionError(f"{name}: {err_k / scale:.3e} of max from the fp64 truth, the "
+                                 f"plain version {err_p / scale:.3e}; not faithfully rounded")
+        worst = int(err.argmax().item())
+        log(f"{name}: {flips} element(s) past the plain version's largest error, each within "
+            f"one ulp of the truth: {err_k / scale:.4e} of max against {err_p / scale:.4e}; the "
+            f"worst {got.flatten()[worst].item()!r}, the plain version "
+            f"{want.flatten()[worst].item()!r}, the truth {truth.flatten()[worst].item()!r}")
     return dict(kernel_err_of_max=err_k / scale, plain_err_of_max=err_p / scale,
-                ulps_from_plain=_bf16_ulps(got, want, 2e-2),
+                faithful_flips=flips, ulps_from_plain=_bf16_ulps(got, want, 2e-2),
                 max_abs_err=(got - want).abs().max().item())  # from the plain version
 
 
@@ -3288,6 +3324,8 @@ def parallel_rank(rank: int, rdzv: str, out_dir: str) -> None:
             tp_mamba_perf_rank(device, mesh, rank)
         torch.cuda.empty_cache()
         paths["sp_mamba"], out["sp_mamba"] = sp_mamba_rank(device, rank)
+        wide_paths, out["wide"] = wide_parallel_rank(device, mesh, rank)
+        paths.update(wide_paths)
         torch.save({"paths": paths, "records": out}, f"{out_dir}/parallel_rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -3361,13 +3399,15 @@ def parallel_phases(card: str) -> tuple[dict, dict]:
     log(f"bf16 TP SSD: {rec['tp_ssd_perf']}; bf16 SP: {rec['sp_bf16']}")
     log(f"bf16 TP Mamba-1: {rec['tp_mamba_perf']}")
     log(f"Mamba-1 SP scan (phase 49): {[r['records']['sp_mamba'] for r in ranks]}")
+    log(f"wide-state TP and SP (phase 57): {[r['records']['wide'] for r in ranks]}")
     record = {"ranks": TP, "backend": "gloo", "wall_s": wall, "card": card,
               "tp_ssd_serving": rec["tp_ssd_serving"],
               "tp_ssd_train": {f"rank{r}": t for r, t in enumerate(train)},
               "sp": rec["sp"], "tp_mamba_serving": rec["tp_mamba_serving"],
               "tp_ssd_perf": rec["tp_ssd_perf"], "sp_bf16": rec["sp_bf16"],
               "tp_mamba_perf": rec["tp_mamba_perf"],
-              "sp_mamba": {f"rank{r}": x["records"]["sp_mamba"] for r, x in enumerate(ranks)}}
+              "sp_mamba": {f"rank{r}": x["records"]["sp_mamba"] for r, x in enumerate(ranks)},
+              "wide": {f"rank{r}": x["records"]["wide"] for r, x in enumerate(ranks)}}
     return ranks[0]["paths"], record
 
 
@@ -6063,8 +6103,7 @@ SSD_ENTRIES = {  # record name: (split, forward, states, h_fin / seeded)
     "ssd_split_bwd_seeded": (True, False, None, True)}
 
 
-def _ssd_inputs(device, B, L, h, chunk, dtype, seed):
-    n = p = 128
+def _ssd_inputs(device, B, L, h, chunk, dtype, seed, n=128, p=128):
     d = h * p
     xbc = _rand(device, B, L, d + 2 * n, scale=0.5, seed=seed, dtype=dtype)
     rng = np.random.default_rng(seed)
@@ -6085,7 +6124,7 @@ def _ssd_calls(xbc, dth, S, D, dy, dhf, d, chunk):
     family's one plain call with every output (``_plain_families``)."""
     from si_mamba_tpu_torch.ops.kernels import ssd as kssd
 
-    n = 128
+    n = (xbc.shape[-1] - d) // 2
     x, Bm, Cm = xbc[..., :d], xbc[..., d:d + n], xbc[..., d + n:]
     h_in = kssd.ssd_xbc_fwd_states(xbc, dth, S, D, d, chunk)[1]
     hs = kssd.ssd_split_fwd_states(x, dth, S, Bm, Cm, chunk)[1]
@@ -6121,7 +6160,8 @@ def _ssd_families(xbc, dth, S, D, dy, dhf, d, chunk, h_in, hs) -> dict:
     (with states and h_fin), K9 and K7 from 0 and seeded."""
     from si_mamba_tpu_torch.ops.kernels import ssd as kssd
 
-    x, Bm, Cm = xbc[..., :d], xbc[..., d:d + 128], xbc[..., d + 128:]
+    n = (xbc.shape[-1] - d) // 2
+    x, Bm, Cm = xbc[..., :d], xbc[..., d:d + n], xbc[..., d + n:]
     xbc_b = (xbc, dth, S, D, h_in, dy, d, chunk)
     split_b = (x, dth, S, Bm, Cm, hs, dy, chunk)
     return {"xbc_fwd": functools.partial(kssd.ssd_xbc_fwd_ref, xbc, dth, S, D, d, chunk,
@@ -6177,9 +6217,10 @@ def _hold_ssd_entries(ops, chunk: int, where: str) -> tuple[dict, dict]:
         d = ops[-1]
         x64 = [t.double() if torch.is_tensor(t) else t for t in ops]
         xbc64 = x64[0]
+        n = (xbc64.shape[-1] - d) // 2
         h64 = kssd.ssd_xbc_fwd_ref(*x64[:4], d, chunk, emit_states=True)[1]
-        hs64 = kssd.ssd_split_fwd_ref(xbc64[..., :d], *x64[1:3], xbc64[..., d:d + 128],
-                                      xbc64[..., d + 128:], chunk, emit_states=True)[1]
+        hs64 = kssd.ssd_split_fwd_ref(xbc64[..., :d], *x64[1:3], xbc64[..., d:d + n],
+                                      xbc64[..., d + n:], chunk, emit_states=True)[1]
         exact = {k: f() for k, f in _ssd_families(*x64, chunk, h64, hs64).items()}
     errs = {}
     for name, (call, _, pick) in calls.items():
@@ -6237,19 +6278,101 @@ def ssd_any_phase(device) -> dict:
     return out
 
 
+def _stack_run(stack, inp, keep: list | None = None):
+    """Each block's output added to its input; with ``keep`` each block's
+    input is appended to it, its gradient retained."""
+    for blk in stack:
+        if keep is not None:
+            if not inp.is_leaf:
+                inp.retain_grad()
+            keep.append(inp)
+        inp = inp + blk(inp)
+    return inp
+
+
+def stack_phase(device, name: str, kernel, plain, dtype: torch.dtype, want: dict, *,
+                batch: int, seed: int, params: bool = True, own_rule=None) -> tuple[dict, dict]:
+    """A stack of mixer blocks ``kernel`` (d_model 384; each block's output
+    added to its input) in ``dtype`` against ``plain``, the same blocks with
+    the same weights on the plain route. The path, counted from 0 after a
+    warm-up at its own batch: a no-grad forward and a forward and backward at
+    B=``batch``, L=512. Its launches must be ``want`` (every other count 0),
+    and the no-grad output the training one. Then at B=4 (the plain route's
+    autograd keeps every step's state) the forward and one backward against
+    ``plain`` on the same card: the output within 1e-3 of its max at fp32
+    (PERF_LOGITS_TOL at bf16), the input's gradient and, with ``params``,
+    every parameter's within 1e-3 (PERF_LOGITS_TOL) of its largest.
+    ``own_rule(kernel, plain, leaves, inputs, g, tol)`` may hold leaves by a
+    rule of its own: it gets every leaf as (name, the kernel route's, the
+    plain route's), each block's input on the kernel stack (gradients
+    retained), the output's gradient and the tolerance, and returns {leaf
+    name: figures} of the leaves it held. Returns (launches, the record)."""
+    tol = 1e-3 if dtype == torch.float32 else PERF_LOGITS_TOL
+    x = _rand(device, batch, 512, 384, seed=seed, dtype=dtype)
+    g = _rand(device, batch, 512, 384, seed=seed + 1, dtype=dtype)
+    _stack_run(kernel, x.detach().requires_grad_()).backward(g)  # warm-up, not counted
+    kernel.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_launch_counts()  # the path: a no-grad forward, then a forward and backward
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        y_eval = _stack_run(kernel, x)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    y = _stack_run(kernel, x.detach().requires_grad_())
+    y.backward(g)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    if launches != {k: want.get(k, 0) for k in launches}:
+        raise AssertionError(f"{name}: the stack launched "
+                             f"{ {k: v for k, v in launches.items() if v} }; expected {want}")
+    if not torch.equal(y_eval, y.detach()):
+        raise AssertionError(f"{name}: the no-grad forward differs from the training forward")
+    kernel.zero_grad(set_to_none=True)
+
+    xk, xp = (x[:4].detach().requires_grad_() for _ in range(2))
+    inputs = []
+    y, y_ref = _stack_run(kernel, xk, inputs), _stack_run(plain, xp)
+    y.backward(g[:4])
+    y_ref.backward(g[:4])
+    leaves = [("y", y.detach(), y_ref.detach()), ("x", xk.grad, xp.grad)]
+    if params:
+        leaves += [(pname, prm.grad, q.grad) for (pname, prm), q in
+                   zip(kernel.named_parameters(), plain.parameters())]
+    held = {} if own_rule is None else own_rule(kernel, plain, leaves, inputs, g[:4], tol)
+    errs = {}
+    for pname, got, ref in leaves:
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: {pname} is not finite")
+        errs[pname] = _rel_err(got.float(), ref.float())[1]
+        if pname not in held and errs[pname] > tol:
+            raise AssertionError(f"{name}: {pname} {errs[pname]:.3e} of its max from the plain "
+                                 f"route")
+    rel = errs.pop("y")
+    record = dict(depth=len(kernel), d_model=384, dtype=str(dtype).removeprefix("torch."),
+                  batch=batch, length=512, forward_err_of_max=rel,
+                  worst_grad_err_of_max=max(v for k, v in errs.items() if k not in held),
+                  held_batch=4, held_by_own_rule=held, eval_ms=eval_ms, step_ms=step_ms,
+                  max_memory_allocated_bytes=peak,
+                  launches={k: v for k, v in launches.items() if v})
+    log(f"{name}: {len(kernel)} blocks ({record['dtype']}) at B={batch}: no-grad forward "
+        f"{eval_ms:.1f} ms, forward + backward {step_ms:.1f} ms, peak {peak / 2**30:.3f} GiB; at "
+        f"B=4 against the plain route: forward {rel:.3e}, gradients "
+        f"{record['worst_grad_err_of_max']:.3e} of max; launches {record['launches']}")
+    return launches, record
+
+
 def mixer_stack_phase(device, name: str, d_state: int, d_conv: int,
                       dtype: torch.dtype) -> tuple[dict, dict]:
-    """A stack of 12 ``MambaMixer`` blocks (d_model 384, ``d_state``,
-    ``d_conv``; each block's output added to its input) in ``dtype`` on the
-    kernel route (``impl='auto'``: the any-width K1 and the any-state K2
-    without a gradient; K1 and K3 forward, K4 and K5 backward with one). The
-    path, counted from 0: a no-grad forward and a forward and backward at
-    B=32, L=512. Then at B=4 (the plain route's autograd keeps every step's
-    state) the forward and one backward of the kernel route against the
-    plain route ('seq' scan, plain conv) on the same card: the output within
-    1e-3 of its max at fp32 (PERF_LOGITS_TOL at bf16), every parameter and
-    input gradient within 1e-3 (PERF_LOGITS_TOL) of its leaf's largest.
-    Returns ({name: launches}, the record)."""
+    """``stack_phase`` on 12 ``MambaMixer`` blocks (d_model 384, ``d_state``,
+    ``d_conv``) on the kernel route (``impl='auto'``: the any-width K1 and
+    the any-state K2 without a gradient; K1 and K3 forward, K4 and K5
+    backward with one) at B=32, against the plain route ('seq' scan, plain
+    conv). Returns ({name: launches}, the record)."""
     from si_mamba_tpu_torch.models.layers import MambaMixer
 
     depth = 12
@@ -6260,66 +6383,13 @@ def mixer_stack_phase(device, name: str, d_state: int, d_conv: int,
     plain = torch.nn.ModuleList(MambaMixer(384, d_state=d_state, d_conv=d_conv, scan_impl="seq")
                                 for _ in range(depth)).to(device)
     plain.load_state_dict(kernel.state_dict())
-
-    def run(stack, inp):
-        for blk in stack:
-            inp = inp + blk(inp)
-        return inp
-
-    tol = 1e-3 if dtype == torch.float32 else PERF_LOGITS_TOL
-    sfx = "_bf16" if dtype == torch.bfloat16 else ""
-    x = _rand(device, 32, 512, 384, seed=d_state, dtype=dtype)
-    g = _rand(device, 32, 512, 384, seed=d_state + 1, dtype=dtype)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
-    _reset_launch_counts()  # the path: a no-grad forward, then a forward and backward
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        y_eval = run(kernel, x)
-    torch.cuda.synchronize()
-    eval_ms = (time.perf_counter() - t0) * 1e3
-    t0 = time.perf_counter()
-    y = run(kernel, x.detach().requires_grad_())
-    y.backward(g)
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3
-    launches = _launch_counts()
-    peak = torch.cuda.max_memory_allocated(device)
-    want = {k: 0 for k in launches}
-    for k in ("selective_scan_fwd_any", "selective_scan_fwd_residuals_any",
-              "selective_scan_bwd_any", "causal_conv1d_silu_bwd_any"):
-        want[k + sfx] = depth
+    sfx = _dtype_sfx(dtype)
+    want = {k + sfx: depth for k in ("selective_scan_fwd_any", "selective_scan_fwd_residuals_any",
+                                     "selective_scan_bwd_any", "causal_conv1d_silu_bwd_any")}
     want["causal_conv1d_silu_any" + sfx] = 2 * depth
-    if launches != want:
-        raise AssertionError(f"{name}: the stack launched {launches}; expected {want}")
-    if not torch.equal(y_eval, y.detach()):
-        raise AssertionError(f"{name}: the no-grad forward differs from the training forward")
-    kernel.zero_grad(set_to_none=True)
-
-    xk, xp = (x[:4].detach().requires_grad_() for _ in range(2))
-    y, y_ref = run(kernel, xk), run(plain, xp)
-    y.backward(g[:4])
-    y_ref.backward(g[:4])
-    _, rel = _rel_err(y.detach().float(), y_ref.detach().float())
-    if rel > tol:
-        raise AssertionError(f"{name}: the forward is {rel:.3e} of max from the plain route")
-    worst = 0.0
-    for (pname, p), q in zip([("x", xk)] + list(kernel.named_parameters()),
-                             [xp] + list(plain.parameters())):
-        r = _rel_err(p.grad.float(), q.grad.float())[1]
-        if not torch.isfinite(p.grad).all() or r > tol:
-            raise AssertionError(f"{name}: gradient of {pname} {r:.3e} of its max from plain")
-        worst = max(worst, r)
-    record = dict(depth=depth, d_model=384, d_state=d_state, d_conv=d_conv,
-                  dtype=str(dtype).removeprefix("torch."), batch=32, length=512,
-                  forward_err_of_max=rel, worst_grad_err_of_max=worst, held_batch=4,
-                  eval_ms=eval_ms, step_ms=step_ms, max_memory_allocated_bytes=peak,
-                  launches={k: v for k, v in launches.items() if v})
-    log(f"{name}: 12 MambaMixer blocks (d_state {d_state}, d_conv {d_conv}, {record['dtype']}) "
-        f"at B=32: no-grad forward {eval_ms:.1f} ms, forward + backward {step_ms:.1f} ms, peak "
-        f"{peak / 2**30:.3f} GiB; at B=4 against the plain route: forward {rel:.3e}, gradients "
-        f"{worst:.3e} of max; launches {record['launches']}")
-    return {name: launches}, record
+    launches, record = stack_phase(device, name, kernel, plain, dtype, want, batch=32,
+                                   seed=d_state)
+    return {name: launches}, dict(record, d_state=d_state, d_conv=d_conv)
 
 
 def ssd_core_path(device, name: str, chunk: int, dtype: torch.dtype) -> tuple[dict, dict]:
@@ -6510,6 +6580,509 @@ def slice21_main_path(name: str) -> str:
     if not sfx and entry in ("ssd_xbc_fwd", "ssd_xbc_fwd_states", "ssd_xbc_bwd"):
         return f"ssd{chunk}_serving" if entry == "ssd_xbc_fwd" else f"ssd{chunk}_train"
     return f"ssd_core_chunk{chunk}" + sfx
+
+
+# ---------------------------------------------------------------------------
+# phases 57-58: K6-K9 at wide states, the paths over them, the train-step
+# profiler
+# ---------------------------------------------------------------------------
+
+# (d_state, head_dim): heads at d_model 384 (d_inner 768), the shapes JAX's
+# SSD kernels compile for beyond 128
+WIDE_GEOMETRIES = {(256, 256): 3, (256, 128): 6, (128, 256): 3, (384, 384): 2}
+WIDE_HOLD_BATCH = 8
+WIDE_CHUNK = 256
+WIDE_CHUNKS = (32, 256, 512)  # held at (256, 256) and B=32 too
+WIDE_DEPTH = 12
+WIDE_CORE_BATCH = 8  # the carry, TP and SP paths
+WIDE_BATCH = 32  # the stacks' batch, and the held chunks'
+WIDE_SP_CHUNK = 128  # the SP path's chunk (256 rows a rank)
+WIDE_BF16_SPREAD = 1.25  # how much further from fp32 a bf16 stack leaf may lie than plain's
+WIDE_PER_HEAD = ("A_log", "D", "dt_bias")  # an SSDMixer's per-head scalars
+WIDE_HEAD_TOL = 2 * PERF_LOGITS_TOL  # a bf16 per-head gradient's distance from its truth
+WIDE_CONTROL = (5, "dt_bias", 1.05, 1.5)  # planted faults: block, leaf, fp32 and bf16 factors
+# each path's wide entry points, and the operands (B, L, heads, n, p, chunk)
+# they meet there, a rank's on the TP and SP paths: each record is timed on them
+WIDE_PATHS = {
+    "wide_stack_n256_p256": (("ssd_xbc_fwd", "ssd_xbc_fwd_states", "ssd_xbc_bwd"),
+                             (WIDE_BATCH, 512, 3, 256, 256, WIDE_CHUNK)),
+    "wide_carry": (("ssd_xbc_fwd_hfin", "ssd_xbc_fwd_states_hfin", "ssd_xbc_bwd_seeded"),
+                   (WIDE_CORE_BATCH, 512, 3, 256, 256, WIDE_CHUNK)),
+    "wide_tp": (("ssd_split_fwd", "ssd_split_fwd_states", "ssd_split_bwd"),
+                (WIDE_CORE_BATCH, 512, 3, 256, 128, WIDE_CHUNK)),
+    "wide_sp": (("ssd_split_fwd_hfin", "ssd_split_fwd_states_hfin", "ssd_split_bwd_seeded"),
+                (WIDE_CORE_BATCH, 512 // 2, 3, 256, 256, WIDE_SP_CHUNK))}
+
+
+def _dtype_sfx(dtype) -> str:
+    return "_bf16" if dtype == torch.bfloat16 else ""
+
+
+def _wide_count(entry: str, dtype, chunk: int = WIDE_CHUNK) -> str:
+    """The launch count name of ``entry`` at a wide state and ``chunk``."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    return kssd._variant_name(entry + _dtype_sfx(dtype), kssd.kernel_variant(chunk, 256, 256))
+
+
+def _hold_wide(ops, chunk: int, where: str) -> tuple[dict, dict]:
+    """Every entry point on ``ops`` against its plain version
+    (``_hold_ssd_entries``), then each backward run twice: bitwise equal."""
+    calls, errs = _hold_ssd_entries(ops, chunk, where)
+    for name, (split, fwd, _, _) in SSD_ENTRIES.items():
+        if not fwd:
+            a, b = calls[name][0](), calls[name][0]()
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"{name} {where}: two runs differ")
+    return calls, errs
+
+
+def wide_kernel_phase(device) -> dict:
+    """Phase 57's kernels: every K8/K9 and K6/K7 entry point at the four wide
+    geometries (WIDE_GEOMETRIES: B=WIDE_HOLD_BATCH, L=512, chunk 256) and at
+    (256, 256) with 3 heads at B=32 and chunks 32, 256 and 512, fp32 and
+    bf16, each against its plain version (``_hold_ssd``), every backward run
+    twice, bitwise equal (a planted fault, K9's ddt scaled by 1.05, must fail
+    the hold); then each path's entry points held and timed on
+    the operands they meet on their path (WIDE_PATHS) beside their plain
+    versions and their bounds (``_ssd_bf16_work``). Returns {record name:
+    figures}."""
+    held, out = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        sfx = _dtype_sfx(dtype)
+        for (n, p), h in WIDE_GEOMETRIES.items():
+            ops = _ssd_inputs(device, WIDE_HOLD_BATCH, 512, h, WIDE_CHUNK, dtype, seed=n + p,
+                              n=n, p=p)
+            for name, err in _hold_wide(ops, WIDE_CHUNK, f"n{n} p{p}{sfx}")[1].items():
+                held.setdefault(name + sfx, {})[f"n{n}_p{p}_b{WIDE_HOLD_BATCH}"] = err
+        on = {}  # operands -> (calls, errors)
+        for chunk in WIDE_CHUNKS:
+            geo = (WIDE_BATCH, 512, 3, 256, 256, chunk)
+            ops = _ssd_inputs(device, *geo[:3], chunk, dtype, seed=chunk + 5, n=256, p=256)
+            on[geo] = _hold_wide(ops, chunk, f"n256 p256 B={WIDE_BATCH} chunk {chunk}{sfx}")
+            for name, err in on[geo][1].items():
+                held[name + sfx][f"n256_p256_b{WIDE_BATCH}_chunk{chunk}"] = err
+        call, plain, _ = on[(WIDE_BATCH, 512, 3, 256, 256, WIDE_CHUNK)][0]["ssd_xbc_bwd"]
+        try:  # a planted fault: K9's ddt scaled by 1.05 must fail its hold
+            _hold_bf16("K9's ddt scaled by 1.05", call()[1] * 1.05, plain()[1])
+        except AssertionError:
+            pass
+        else:
+            raise AssertionError(f"the K9{sfx} hold passes a planted fault in ddt")
+        for path, (entries, geo) in WIDE_PATHS.items():
+            B, L, h, n, p, chunk = geo
+            if geo not in on:
+                ops = _ssd_inputs(device, B, L, h, chunk, dtype, seed=L + p + chunk, n=n, p=p)
+                on[geo] = _hold_wide(ops, chunk, f"{path} operands{sfx}")
+            calls, errs = on[geo]
+            for name in entries:
+                held[name + sfx][path] = errs[name]
+                split, fwd, states, flag = SSD_ENTRIES[name]
+                work_f, work_b = _ssd_bf16_work(B, L, h, chunk, n=n, hp=p, d_skip=not split,
+                                                elem=2 if sfx else 4)
+                nbytes, bf, tf = work_f[(bool(states), flag)] if fwd else work_b[flag]
+                bd = bf16_tc_bound(nbytes, bf, tf) if sfx else tc_bound(nbytes, bf + tf)
+                out[_wide_count(name, dtype, chunk)] = dict(
+                    entry=name, path=path + sfx, shape=[B, L, h * p], d_state=n, head_dim=p, chunk=chunk,
+                    max_abs_err=errs[name], library_ms=None, held=held[name + sfx], **bd,
+                    **_timed(calls[name][0], calls[name][1], 5))
+    log("wide SSD entry points on their paths' operands: " + "; ".join(
+        f"{k} {v['shape']} n {v['d_state']} p {v['head_dim']} chunk {v['chunk']}: {v['ms']:.3f} ms "
+        f"(device {v['device_ms']:.3f}, bound {v['bound_ms']:.4f}, plain {v['plain_ms']:.1f})"
+        for k, v in out.items()))
+    return out
+
+
+def _head_truth(blk, u, dy, rounded) -> tuple:
+    """The per-head scalars' gradients of ``blk`` on its bf16 input ``u`` and
+    output gradient ``dy``, in fp32 (the plain route) with the weights
+    ``rounded`` to bf16 as a bf16 route reads them."""
+    from si_mamba_tpu_torch.ops.ssd import ssd_mixer_apply
+
+    prm = {k: v.detach().clone() for k, v in blk.params().items()}
+    for k in rounded:
+        prm[k] = prm[k].to(torch.bfloat16).float()
+    for k in WIDE_PER_HEAD:
+        prm[k].requires_grad_()
+    out = ssd_mixer_apply(prm, u.float(), n_heads=blk.n_heads, d_state=blk.d_state,
+                          chunk=blk.chunk, impl="xla")
+    return torch.autograd.grad(out, [prm[k] for k in WIDE_PER_HEAD], dy.float())
+
+
+def _per_head_figures(got, plain, truth, plain_truth) -> dict:
+    """A per-head scalar's gradient on the kernel route beside the plain bf16
+    route's, each against its truth (``_head_truth``): distances of max."""
+    return dict(from_plain=_rel_err(got.double(), plain.double())[1],
+                from_truth=_rel_err(got.double(), truth.double())[1],
+                plain_from_truth=_rel_err(plain.double(), plain_truth.double())[1])
+
+
+def _per_head_holds(fig: dict) -> bool:
+    """The bf16 per-head rule: no further from the truth than twice the plain
+    bf16 route, or than WIDE_HEAD_TOL."""
+    return fig["from_truth"] <= max(2 * fig["plain_from_truth"], WIDE_HEAD_TOL)
+
+
+def _wide_own_rule(name: str, kernel, plain, leaves, inputs, g, tol) -> dict:
+    """The wide stacks' own rule (``stack_phase``'s ``own_rule``). At fp32 a
+    planted fault (WIDE_CONTROL: block 5's dt_bias gradient scaled by 1.05)
+    must fail the stack's tolerance. At bf16: (1) The per-head scalars'
+    gradients (A_log, D, dt_bias) are held block by block, each block on its
+    own inputs: the input that the kernel stack gave it and the gradient
+    that reached its output there. On them the block's plain bf16 route
+    gives its gradients, and the plain route at fp32 the truths: with the
+    matmul weights rounded to bf16 (the kernel route's truth), and the conv
+    weights too (the plain bf16 route's). The kernel route must meet
+    ``_per_head_holds``. These sums pass through the gated RMSNorm's
+    backward, which cancels their bulk, so both bf16 routes scatter: on an
+    H100 over two weight seeds, 288 block gradients, the kernel route lay a
+    median 4.9e-3 of max from its truth (9.1e-2 at most), the plain route
+    5.7e-3 (1.09e-1 at most). So a 5 % fault is for the fp32 stacks and the
+    kernels' own holds (ddt within 1e-3), and here a planted gross fault
+    (block 5's dt_bias gradient scaled by 1.5) must fail the rule. (2) Any
+    other leaf outside PERF_LOGITS_TOL of the plain route passes if it lies
+    within PERF_LOGITS_TOL of the plain stack at fp32 (the same weights, the
+    bf16 input's values), or no more than WIDE_BF16_SPREAD times as far from
+    it as the plain bf16 stack. Returns {leaf name: figures} of every leaf
+    held here."""
+    block, kind, fault32, fault16 = WIDE_CONTROL
+    if tol < PERF_LOGITS_TOL:
+        got, want = next((a, b) for k, a, b in leaves if k == f"{block}.{kind}")
+        if _rel_err(got * fault32, want)[1] <= tol:
+            raise AssertionError(f"{name}: the stack's tolerance passes a planted fault")
+        return {}
+    held = {}
+    for i, (kb, pb) in enumerate(zip(kernel, plain)):
+        u = inputs[i].detach()
+        dy = inputs[i + 1].grad if i + 1 < len(inputs) else g
+        gp = torch.autograd.grad(pb(u), [getattr(pb, k) for k in WIDE_PER_HEAD], dy)
+        tk = _head_truth(pb, u, dy, ("in_proj_w", "out_proj_w"))
+        tp = _head_truth(pb, u, dy, ("in_proj_w", "out_proj_w", "conv_w", "conv_b"))
+        for k, a, b, t, t_p in zip(WIDE_PER_HEAD, (getattr(kb, k).grad for k in WIDE_PER_HEAD),
+                                   gp, tk, tp):
+            fig = held[f"{i}.{k}"] = _per_head_figures(a, b, t, t_p)
+            if not _per_head_holds(fig):
+                raise AssertionError(f"{name}: block {i}'s {k} gradient on its own inputs: "
+                                     f"{fig}")
+            if (i, k) == (block, kind):
+                fig["control"] = _per_head_figures(a * fault16, b, t, t_p)
+                if _per_head_holds(fig["control"]):
+                    raise AssertionError(f"{name}: the per-head rule passes a planted fault "
+                                         f"{fig['control']}")
+    x32 = inputs[0].detach().float().requires_grad_()
+    y32 = _stack_run(plain, x32)
+    truth = [y32.detach()] + list(torch.autograd.grad(y32, [x32] + list(plain.parameters()),
+                                                      g.float()))
+    for (pname, got, want), t in zip(leaves, truth):
+        r = _rel_err(got.float(), want.float())[1]
+        if pname in held or r <= PERF_LOGITS_TOL:
+            continue
+        ek, ep = (_rel_err(v.float(), t.float())[1] for v in (got, want))
+        if ek > max(WIDE_BF16_SPREAD * ep, PERF_LOGITS_TOL):
+            raise AssertionError(f"{name}: {pname} {r:.3e} of its max from the plain route; "
+                                 f"from fp32 {ek:.3e}, the plain bf16 route {ep:.3e}")
+        held[pname] = dict(from_plain=r, from_fp32=ek, plain_from_fp32=ep)
+    heads = [v for k, v in held.items() if k.rsplit(".", 1)[-1] in WIDE_PER_HEAD]
+    log(f"{name}: per-head gradients block by block, worst: from the truth "
+        f"{max(v['from_truth'] for v in heads):.3e} (the plain bf16 route "
+        f"{max(v['plain_from_truth'] for v in heads):.3e}), from the plain route "
+        f"{max(v['from_plain'] for v in heads):.3e}; the control "
+        f"{held[f'{block}.{kind}']['control']}; other leaves held against fp32: "
+        f"{ {k: v for k, v in held.items() if k.rsplit('.', 1)[-1] not in WIDE_PER_HEAD} }")
+    return held
+
+
+def wide_stack_phase(device, name: str, n: int, p: int, dtype) -> tuple[dict, dict]:
+    """``stack_phase`` on WIDE_DEPTH ``SSDMixer`` blocks (d_model 384,
+    d_state ``n``, head_dim ``p``, chunk 256, ``scan_impl='ssd_fused'``) at
+    B=WIDE_BATCH: K1 24 times, K5, the lean K8, K8 with states and K9 (their
+    '_wide' variants) 12 times each; against the plain route
+    (``scan_impl='auto'``: the plain conv and ``ssd_chunked``), at bf16 with
+    ``_wide_own_rule``. Returns ({name: launches}, the record)."""
+    from si_mamba_tpu_torch.models.layers import SSDMixer
+
+    kw = dict(d_state=n, head_dim=p, chunk=WIDE_CHUNK)
+    blocks = [SSDMixer(384, scan_impl="ssd_fused", **kw) for _ in range(WIDE_DEPTH)]
+    for i, blk in enumerate(blocks):
+        blk.reset_parameters(torch.Generator().manual_seed(400 + i))
+    kernel = torch.nn.ModuleList(blocks).to(device)
+    plain = torch.nn.ModuleList(SSDMixer(384, **kw) for _ in range(WIDE_DEPTH)).to(device)
+    plain.load_state_dict(kernel.state_dict())
+    if (blocks[0].n_heads, blocks[0].head_dim) != (WIDE_GEOMETRIES[(n, p)], p):
+        raise AssertionError(f"{name}: {blocks[0].n_heads} heads of {blocks[0].head_dim}")
+    sfx = _dtype_sfx(dtype)
+    want = {"causal_conv1d_silu" + sfx: 2 * WIDE_DEPTH, "causal_conv1d_silu_bwd" + sfx: WIDE_DEPTH,
+            **{_wide_count(e, dtype): WIDE_DEPTH
+               for e in ("ssd_xbc_fwd", "ssd_xbc_fwd_states", "ssd_xbc_bwd")}}
+    launches, record = stack_phase(device, name, kernel, plain, dtype, want, batch=WIDE_BATCH,
+                                   seed=n + p, own_rule=functools.partial(_wide_own_rule, name))
+    return {name: launches}, dict(record, d_state=n, head_dim=p, heads=blocks[0].n_heads,
+                                  chunk=WIDE_CHUNK)
+
+
+def wide_carry_path(device, name: str, dtype) -> tuple[dict, dict]:
+    """``ssd_chunked_xbc(return_carry=True)`` at (256, 256), 3 heads,
+    B=WIDE_CORE_BATCH, L=512, chunk 256, as WIDE_DEPTH chained calls (each
+    call's x columns the last's plus 0.1 of its y), in ``dtype``. The path,
+    counted from 0: the chain without a gradient (K8 with h_fin 12 times),
+    then with one, its loss reading every call's h_fin (K8 with states and
+    h_fin, and the seeded K9, 12 times each). The last y, every h_fin and the
+    gradients of xbc and dt against the same chain of the plain
+    ``ssd_chunked`` on the card: within 1e-3 of their max (PERF_LOGITS_TOL at
+    bf16). Returns ({name: launches}, the record)."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+    from si_mamba_tpu_torch.ops.ssd import ssd_chunked
+
+    B, h, n, chunk = WIDE_CORE_BATCH, 3, 256, WIDE_CHUNK
+    xbc, dth, S, D, dy, dhf, d = _ssd_inputs(device, B, 512, h, chunk, dtype, seed=71, n=n, p=n)
+    dt = dth.reshape(B, h, 512).transpose(1, 2).contiguous()
+    A = -torch.linspace(0.2, 1.0, h, device=device)
+    tol = 1e-3 if dtype == torch.float32 else PERF_LOGITS_TOL
+
+    def chain(xbc0, dt0, plain: bool):
+        cur, fins = xbc0, []
+        for _ in range(WIDE_DEPTH):
+            if plain:
+                y, _, hf = ssd_chunked(cur[..., :d].reshape(B, 512, h, n), dt0, A,
+                                       cur[..., d:d + n], cur[..., d + n:], D, chunk=chunk,
+                                       return_carry=True)
+                y = y.reshape(B, 512, d)
+            else:
+                y, _, hf = kssd.ssd_chunked_xbc(cur, dt0, A, D, d_inner=d, chunk=chunk,
+                                                return_carry=True)
+            fins.append(hf)
+            cur = torch.cat([cur[..., :d] + 0.1 * y, cur[..., d:]], dim=-1)
+        return y, fins
+
+    def loss(y, fins):
+        return torch.sum(y.float() * dy.float()) + sum(torch.sum(f * dhf) for f in fins)
+
+    _reset_launch_counts()  # the path: the chain without, then with a gradient
+    with torch.no_grad():
+        y_eval, _ = chain(xbc, dt, False)
+    leaves = [t.detach().requires_grad_() for t in (xbc, dt)]
+    y, fins = chain(*leaves, False)
+    loss(y, fins).backward()
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    want = {k: 0 for k in launches}
+    for entry in ("ssd_xbc_fwd_hfin", "ssd_xbc_fwd_states_hfin", "ssd_xbc_bwd_seeded"):
+        want[_wide_count(entry, dtype)] = WIDE_DEPTH
+    if launches != want:
+        raise AssertionError(f"{name}: launched {({k: v for k, v in launches.items() if v})}")
+    if not torch.equal(y_eval, y.detach()):
+        raise AssertionError(f"{name}: the no-grad chain differs from the training chain")
+    ref_leaves = [t.detach().float().requires_grad_() if dtype == torch.float32 else
+                  t.detach().requires_grad_() for t in (xbc, dt)]
+    y_ref, fins_ref = chain(*ref_leaves, True)
+    loss(y_ref, fins_ref).backward()
+    errs = {"y": _rel_err(y.detach().float(), y_ref.detach().float())[1],
+            "h_fin": max(_rel_err(a.detach(), b.detach())[1] for a, b in zip(fins, fins_ref)),
+            "dxbc": _rel_err(leaves[0].grad.float(), ref_leaves[0].grad.float())[1],
+            "ddt": _rel_err(leaves[1].grad, ref_leaves[1].grad)[1]}
+    if any(not np.isfinite(v) or v > tol for v in errs.values()):
+        raise AssertionError(f"{name}: against the plain chain {errs} (tolerance {tol})")
+    log(f"{name}: {WIDE_DEPTH} chained carry calls at (256, 256): {errs} of max from plain")
+    return {name: launches}, {"batch": B, "heads": h, "d_state": n, "head_dim": n,
+                              "chunk": chunk, "calls": WIDE_DEPTH,
+                              "err_of_max": errs,
+                              "launches": {k: v for k, v in launches.items() if v}}
+
+
+def wide_tp_rank(device, mesh, rank: int, dtype) -> tuple[dict, dict]:
+    """Phase 57 on a rank: ``stack_phase`` on WIDE_DEPTH tensor-parallel
+    ``SSDMixer`` blocks (d_model 384, d_state 256, head_dim 128: 6 heads, 3 a
+    rank, chunk 256, 'ssd_fused') at B=WIDE_CORE_BATCH: the conv 48 times
+    (x's and B|C's, twice), its backward 24, the lean K6, K6 with states and
+    K7 ('_wide') 12 times each; the output and the input's gradient against
+    the single-process plain stack of the same weights. Returns (launches,
+    the record)."""
+    from si_mamba_tpu_torch.models.layers import SSDMixer
+
+    kw = dict(d_state=256, head_dim=128, chunk=WIDE_CHUNK)
+    tp = torch.nn.ModuleList(SSDMixer(384, scan_impl="ssd_fused", mesh=mesh, tp_axis="model",
+                                      **kw) for _ in range(WIDE_DEPTH))
+    full = torch.nn.ModuleList(SSDMixer(384, **kw) for _ in range(WIDE_DEPTH))
+    for i in range(WIDE_DEPTH):
+        tp[i].reset_parameters(torch.Generator().manual_seed(500 + i))
+        full[i].reset_parameters(torch.Generator().manual_seed(500 + i))
+    sfx = _dtype_sfx(dtype)
+    want = {"causal_conv1d_silu" + sfx: 4 * WIDE_DEPTH,
+            "causal_conv1d_silu_bwd" + sfx: 2 * WIDE_DEPTH,
+            **{_wide_count(e, dtype): WIDE_DEPTH
+               for e in ("ssd_split_fwd", "ssd_split_fwd_states", "ssd_split_bwd")}}
+    launches, record = stack_phase(device, f"rank {rank}: wide TP", tp.to(device),
+                                   full.to(device), dtype, want, batch=WIDE_CORE_BATCH, seed=61,
+                                   params=False)
+    return launches, dict(record, heads_a_rank=3, d_state=256, head_dim=128)
+
+
+def wide_sp_rank(device, rank: int, dtype) -> tuple[dict, dict]:
+    """Phase 57 on a rank: ``ssd_seq_parallel(impl='ssd_fused')`` at (256,
+    256), 3 heads, B=WIDE_CORE_BATCH, L=512 (256 a rank), chunk 128, as
+    WIDE_DEPTH chained calls (each call's x the last's plus 0.1 of its y) in
+    ``dtype``. The path, counted from 0: the chain without a gradient (K6
+    with h_fin 12 times), then with one (K6 with states and h_fin, and the
+    seeded K7, 12 times each). The chain's y and the gradients of x and dt
+    against the same chain of the single-process plain ``ssd_chunked`` on
+    the full sequence: within 1e-3 of max (PERF_LOGITS_TOL at bf16).
+    Returns ({path: launches}, the record)."""
+    from si_mamba_tpu_torch.ops.ssd import ssd_chunked
+    from si_mamba_tpu_torch.parallel import make_mesh
+    from si_mamba_tpu_torch.parallel.seq_scan import ssd_seq_parallel
+
+    mesh = make_mesh(("seq",), (TP,))
+    B, L, h, n, chunk = WIDE_CORE_BATCH, 512, 3, 256, WIDE_SP_CHUNK
+    rng = np.random.default_rng(57)
+    host = {"x": 0.5 * rng.standard_normal((B, L, h, n), dtype=np.float32),
+            "dt": np.log1p(np.exp(rng.standard_normal((B, L, h), dtype=np.float32) - 3.0)),
+            "A": -np.exp(rng.standard_normal(h, dtype=np.float32)),
+            "Bm": 0.3 * rng.standard_normal((B, L, n), dtype=np.float32),
+            "Cm": 0.3 * rng.standard_normal((B, L, n), dtype=np.float32),
+            "D": rng.standard_normal(h, dtype=np.float32)}
+    full = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(device)
+            for k, v in host.items()}
+    for k in ("x", "Bm", "Cm"):
+        full[k] = full[k].to(dtype)
+    w = _rand(device, B, L, h, n, seed=58, dtype=dtype)
+    part = slice(rank * (L // TP), (rank + 1) * (L // TP))
+    local = {k: (v[:, part].contiguous() if v.dim() > 1 else v) for k, v in full.items()}
+    tol = 1e-3 if dtype == torch.float32 else PERF_LOGITS_TOL
+
+    def chain(args, core):
+        x = args["x"]
+        for _ in range(WIDE_DEPTH):
+            x = x + 0.1 * core(x, args["dt"], args["A"], args["Bm"], args["Cm"], args["D"])
+        return x
+
+    def sp(x, dt, A, Bm, Cm, D):
+        return ssd_seq_parallel(x, dt, A, Bm, Cm, D, mesh=mesh, chunk=chunk, impl="ssd_fused")
+
+    _reset_launch_counts()
+    with torch.no_grad():
+        y_eval = chain(local, sp)
+    leaves = {k: (v.detach().requires_grad_() if k in ("x", "dt") else v)
+              for k, v in local.items()}
+    y = chain(leaves, sp)
+    torch.sum(y.float() * w[:, part].float()).backward()
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    want = {k: 0 for k in launches}
+    for entry in ("ssd_split_fwd_hfin", "ssd_split_fwd_states_hfin", "ssd_split_bwd_seeded"):
+        want[_wide_count(entry, dtype, chunk)] = WIDE_DEPTH
+    if launches != want:
+        raise AssertionError(f"rank {rank}: wide SP launched "
+                             f"{ {k: v for k, v in launches.items() if v} }")
+    if not torch.equal(y_eval, y.detach()):
+        raise AssertionError(f"rank {rank}: wide SP no-grad chain differs")
+    ref = {k: (v.detach().requires_grad_() if k in ("x", "dt") else v) for k, v in full.items()}
+    y_ref = chain(ref, lambda *a: ssd_chunked(*a, chunk=chunk))
+    torch.sum(y_ref.float() * w.float()).backward()
+    errs = {"y": _rel_err(y.detach().float(), y_ref[:, part].detach().float())[1],
+            "dx": _rel_err(leaves["x"].grad.float(), ref["x"].grad[:, part].float())[1],
+            "ddt": _rel_err(leaves["dt"].grad, ref["dt"].grad[:, part])[1]}
+    if any(not np.isfinite(v) or v > tol for v in errs.values()):
+        raise AssertionError(f"rank {rank}: wide SP against the plain chain {errs}")
+    return launches, {"dtype": str(dtype).removeprefix("torch."), "batch": B, "heads": h,
+                      "d_state": n, "head_dim": n, "chunk": chunk, "ranks": TP,
+                      "err_of_max": errs}
+
+
+def wide_parallel_rank(device, mesh, rank: int) -> tuple[dict, dict]:
+    """Phase 57's tensor- and sequence-parallel paths on this rank, fp32 and
+    bf16. Returns ({path: launches}, {path: record})."""
+    paths, out = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        sfx = _dtype_sfx(dtype)
+        paths["wide_tp" + sfx], out["wide_tp" + sfx] = wide_tp_rank(device, mesh, rank, dtype)
+        paths["wide_sp" + sfx], out["wide_sp" + sfx] = wide_sp_rank(device, rank, dtype)
+    return paths, out
+
+
+def profile_script_phase(card: str) -> dict:
+    """Phase 58: ``scripts/torch_profile_train_step.py`` once at its default
+    geometry (the Mamba-1 finetune step, B=32, bf16, subspace) into
+    chiprun_out/profiles/, through its ``main`` as its command line calls it
+    (in this process: the kernels are loaded, the card is warm). Its JSON
+    must hold the JAX script's keys, a positive leaf device time, and K1, K3,
+    K4 and K5 (their kernels by name) 12 calls a step each. Returns the
+    record."""
+    import importlib.util
+
+    out_dir = ROOT / "chiprun_out" / "profiles"
+    spec = importlib.util.spec_from_file_location(
+        "torch_profile_train_step", ROOT / "scripts" / "torch_profile_train_step.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    t0 = time.perf_counter()
+    if script.main(["--out", str(out_dir)]) != 0:
+        raise AssertionError("the profile script failed")
+    wall = time.perf_counter() - t0
+    out = json.loads((out_dir / "profile_train_step.json").read_text())
+    keys = ["step_wall_ms", "leaf_device_ms_per_step", "control_flow_wrapper_ms_per_step",
+            "note", "categories_ms", "top_ops_ms", "top_ops_by_category"]
+    if list(out) != keys:
+        raise AssertionError(f"the profile's keys are {list(out)}, the JAX script's {keys}")
+    if not out["leaf_device_ms_per_step"] > 0:
+        raise AssertionError(f"no device time in the profile: {out['leaf_device_ms_per_step']}")
+    ops = [o for cat in out["top_ops_by_category"].values() for o in cat]
+    calls = {}
+    for kernel in ("causal_conv1d_silu_fwd_kernel", "selective_scan_fwd_kernel",
+                   "selective_scan_bwd_kernel", "causal_conv1d_silu_bwd_kernel"):
+        calls[kernel] = sum(o["calls"] for o in ops if kernel in o["op"])
+    if calls != dict.fromkeys(calls, 12.0):
+        raise AssertionError(f"the profiled step's K1/K3/K4/K5 calls a step: {calls}")
+    record = {"wall_s": wall, "card": card, "step_wall_ms": out["step_wall_ms"],
+              "leaf_device_ms_per_step": out["leaf_device_ms_per_step"],
+              "categories_ms": out["categories_ms"], "kernel_calls_per_step": calls}
+    log(f"profile script (phase 58): step {out['step_wall_ms']} ms, leaf device "
+        f"{out['leaf_device_ms_per_step']} ms a step, {out['categories_ms']}; {wall:.1f} s")
+    return record
+
+
+def slice22_phases(device, card: str) -> tuple[dict, dict, dict]:
+    """Phases 57-58 (after phase 56; 57's parallel paths run on phase 11's
+    ranks): the wide-state K6-K9 held and timed, the 12-block wide SSDMixer
+    stacks at the four geometries, fp32 and bf16, and the carry path; then
+    the train-step profiler. Returns (the new records' figures by name, each
+    path's launches, the record)."""
+    t0 = time.perf_counter()
+    figures = wide_kernel_phase(device)
+    paths, record, wall = {}, {}, {"kernels": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    for (n, p) in WIDE_GEOMETRIES:
+        for dtype in (torch.float32, torch.bfloat16):
+            key = f"wide_stack_n{n}_p{p}" + _dtype_sfx(dtype)
+            q, record[key] = wide_stack_phase(device, key, n, p, dtype)
+            paths.update(q)
+    for dtype in (torch.float32, torch.bfloat16):
+        key = "wide_carry" + _dtype_sfx(dtype)
+        q, record[key] = wide_carry_path(device, key, dtype)
+        paths.update(q)
+    wall["paths"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    record["profile_script"] = profile_script_phase(card)
+    wall["profile_script"] = time.perf_counter() - t0
+    record["wall_s"] = wall
+    log(f"phases 57-58 by part (s): {wall}")
+    return figures, paths, record
+
+
+def slice22_records(figures: dict) -> list[dict]:
+    """The kernel records of the wide-state variants, each with its route,
+    source and the TPU kernel it replaces."""
+    ssd_src = {True: "si_mamba_tpu_torch/csrc/ssd_xbc_fwd.cu",
+               False: "si_mamba_tpu_torch/csrc/ssd_xbc_bwd.cu"}
+    ssd_at = {(False, True): "602", (False, False): "698", (True, True): "189",
+              (True, False): "388"}
+    records = []
+    for name, fig in figures.items():
+        split, fwd = SSD_ENTRIES[fig["entry"]][:2]
+        records.append(dict(name=name, route="cuda", source=ssd_src[fwd],
+                            replaces="si_mamba_tpu/ops/pallas/ssd_kernel.py:" + ssd_at[(split, fwd)],
+                            dtype="bfloat16" if name.endswith("_bf16") else "float32", **fig))
+    return records
 
 
 # ---------------------------------------------------------------------------
@@ -7330,6 +7903,9 @@ def main() -> int:
     any_figures, any_paths, any_shapes = slice21_phases(device, card)
     paths.update(any_paths)
     records += slice21_records(any_figures)
+    wide_figures, wide_paths, wide_shapes = slice22_phases(device, card)
+    paths.update(wide_paths)
+    records += slice22_records(wide_figures)
     torch.cuda.empty_cache()  # the ranks share the card
     parallel_paths, parallel = parallel_phases(card)
     paths.update(parallel_paths)
@@ -7363,7 +7939,8 @@ def main() -> int:
                  "fused_mixer_bwd_bf16": "fused_perf_train",
                  **{n: "ssd_carry" for n in CARRY},
                  **{n + "_bf16": "ssd_carry_bf16" for n in CARRY},
-                 **{name: slice21_main_path(name) for name in any_figures}}
+                 **{name: slice21_main_path(name) for name in any_figures},
+                 **{name: fig["path"] for name, fig in wide_figures.items()}}
     for r in records:
         r["kernel_ms"] = r["ms"]  # the same time under the field's older name
         r["main_path"] = main_path[r["name"]]
@@ -7387,6 +7964,7 @@ def main() -> int:
                                      "cli": fused_cli},
                       "seg": seg, "mae": mae, "options": options,
                       "last_modules": last_modules, "any_shapes": any_shapes,
+                      "wide_shapes": wide_shapes,
                       "parallel": parallel,
                       "dp": dp, "card": card}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)

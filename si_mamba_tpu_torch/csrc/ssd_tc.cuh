@@ -504,18 +504,18 @@ __device__ __forceinline__ void pair_tiles(int pi, int& ti, int& si) {
   si = pi - ti * (ti + 1) / 2;
 }
 
-// G = C B^T of one 64 x 64 tile pair (ti, si) of a chunk, K = 128 state
-// channels: Cs and Bs at the chunk's first C and B rows (T: fp32, 3xTF32
-// products; bf16, bf16 products); G is written in fp32, row-major, to the
-// chunk's (q, q) block Gc. Diagonal tiles are computed whole.
+// G = C B^T of one 64 x 64 tile pair (ti, si) of a chunk, over N state
+// channels (a multiple of kBK): Cs and Bs at the chunk's first C and B rows
+// (T: fp32, 3xTF32 products; bf16, bf16 products); G is written in fp32,
+// row-major, to the chunk's (q, q) block Gc. Diagonal tiles are computed whole.
 template <class T>
 __device__ __forceinline__ void g_tile(float* ring, Src<T> Cs, Src<T> Bs, int ti, int si,
-                                       float* Gc, int Q) {
+                                       float* Gc, int Q, int N) {
   Acc<64> acc;
   zero<64>(acc);
   const int t0 = ti * kBM, s0 = si * kBM;
   gemm<64, false, true, is_bf16<T>, T, T>(
-      acc, ring, 128 / kBK,
+      acc, ring, N / kBK,
       [=](int kt) { return Src<T>{Cs.p + t0 * Cs.ld + kt * kBK, Cs.ld, Cs.al}; },
       [=](int kt) { return Src<T>{Bs.p + s0 * Bs.ld + kt * kBK, Bs.ld, Bs.al}; }, NoXform{},
       NoXform{}, AllActive{});

@@ -93,6 +93,20 @@
 // fp32. The fp32 body's products and launches are unchanged: each element
 // type is its own instantiation.
 //
+// Wide states (the kWide instantiation): d_state n and head_dim p any
+// multiples of 128, as `ssd_fused_supported` (ssd_kernel.py:70) compiles the
+// TPU kernels. Tiles and shared memory stay as they are: bwd_prep's carry
+// terms are (n / 64) x (p / 128) tiles, one block each; bwd_dgm's products over
+// p run p / 32 k-tiles; bwd_dx and bwd_dbc walk their p / 128 (dx) or n / 128
+// (dB, dC) column tiles in order inside the block, because dT, ddt, dD and dE
+// sum across them (each row by the thread that writes it, so the backward stays
+// bitwise repeatable); the contractions over n (G, B dh) run n / 32 k-tiles;
+// bwd_carry stays elementwise, n p / 1024 blocks a (b, h), and so many partials
+// of sum(dh (.) h_in) a (b, h, chunk). n = p = 128 is its own instantiation
+// (kWide false), with n and p compile-time constants, as it was built before.
+// At B=32, L=512, q=256, n = p = 256 and 3 heads K9 needs 22.6 GFLOP (0.137 ms
+// as 3xTF32), K8 10.8 (0.065 ms) against 134 MB (0.040 ms).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 
@@ -122,13 +136,19 @@ using ssd_tc::row_sums;
 using ssd_tc::Src;
 using ssd_tc::zero;
 
-constexpr int kN = 128;         // d_state
-constexpr int kP = 128;         // head_dim
+constexpr int kN = 128;         // d_state of the tuned instantiation
+constexpr int kP = 128;         // head_dim of the tuned instantiation
+constexpr int kTile = 128;      // d_state and head_dim are multiples of this
 constexpr int kArrayFloor = 256;  // the per-chunk shared arrays' least length
 constexpr int kMaxChunk = 8192;   // the longest chunk the dynamic shared memory holds
-constexpr int kNP = kN * kP;
-constexpr int kCarryParts = kNP / (kThreads * 4);  // blocks a (b, h) in bwd_carry
-constexpr int kRed = 4 * kBM;                      // row_sums' and col_sums' scratch
+constexpr int kRed = 4 * kBM;     // row_sums' and col_sums' scratch
+
+// The blocks a (b, h) of bwd_carry, and its partials of sum(dh (.) h_in) a
+// (b, h, chunk): 4 state elements a thread (16 at n = p = 128).
+__host__ __device__ inline int carry_parts(int N, int P) {
+  return static_cast<int>(static_cast<long long>(N) * P / (kThreads * 4));
+}
+constexpr int kCarryParts = kN * kP / (kThreads * 4);  // carry_parts at n = p = 128
 
 // The per-chunk shared arrays' length for chunk Q (up to 256 the length they
 // always had, so the shared memory of those chunks is unchanged), and the
@@ -147,7 +167,7 @@ struct Operand {
 };
 
 bool geometry_ok(int L, int N, int P, int Q) {
-  return N == kN && P == kP && Q % kBM == 0 && Q > 0 && Q <= kMaxChunk && L % Q == 0;
+  return N > 0 && P > 0 && N % kTile == 0 && P % kTile == 0 && Q % kBM == 0 && Q > 0 && Q <= kMaxChunk && L % Q == 0;
 }
 
 // An output with its batch and row strides (unit stride along channels).
@@ -163,7 +183,7 @@ struct Out {
 // (b, h, n, p) for kSeed, all fp32. Outputs dx, dB, dC (T); ddt, dS (b, h, L);
 // dD_part (b, h, nc, q / 64). Scratch, fp32: G and dG (b, nc, q, q); dh
 // (b, nc, h, n, p); rs, cs (b, h, nc, tile pairs, 64); dT, dE (b, h, L); hsum
-// (b, h, nc, kCarryParts).
+// (b, h, nc, carry_parts(n, p)).
 template <class T>
 struct Args {
   Operand<T> x, Bm, Cm, dy;
@@ -178,20 +198,42 @@ struct Args {
   float* dD_part;
   float *G, *dG, *dh, *rs, *cs, *dT, *dE, *hsum;
   int B, L, H, Q;
-  int QS;  // the per-chunk shared arrays' length, array_len(Q)
+  int N, P;  // d_state and head_dim, read by the wide instantiation only
+  int QS;    // the per-chunk shared arrays' length, array_len(Q)
   bool al_x, al_b, al_c, al_dy, al_hin;
 };
 
-template <class T>
+// d_state, head_dim and carry_parts in a kernel: n = p = 128, fixed at
+// compile time, in the tuned instantiation (kWide false); the launch's
+// multiples of 128 in the wide one.
+template <bool kWide, class A>
+__device__ __forceinline__ int n_of(const A& a) {
+  return kWide ? a.N : kN;
+}
+template <bool kWide, class A>
+__device__ __forceinline__ int p_of(const A& a) {
+  return kWide ? a.P : kP;
+}
+template <bool kWide, class A>
+__device__ __forceinline__ long long np_of(const A& a) {
+  return static_cast<long long>(n_of<kWide>(a)) * p_of<kWide>(a);
+}
+template <bool kWide, class A>
+__device__ __forceinline__ int parts_of(const A& a) {
+  return kWide ? carry_parts(a.N, a.P) : kCarryParts;
+}
+
+template <bool kWide, class T>
 __device__ __forceinline__ long long state_at(const Args<T>& a, int b, int c, int h) {
-  return ((static_cast<long long>(b) * (a.L / a.Q) + c) * a.H + h) * kNP;
+  return ((static_cast<long long>(b) * (a.L / a.Q) + c) * a.H + h) * np_of<kWide>(a);
 }
 
 // Blocks [0, B nc pairs): one G tile pair each. The rest: one (b, h, chunk
-// c >= 1, half of n) each, the chunk's carry term (C E)^T dy into dh's slot
-// c - 1 (bwd_carry adds the decayed carry from the chunks after it), 3xTF32
-// at either element type (a bf16 C lands widened to fp32 for the factor E).
-template <class T>
+// c >= 1, 64 x 128 tile of the (n, p) state: a 64-row half of n at n = 128)
+// each, the chunk's carry term (C E)^T dy into dh's slot c - 1 (bwd_carry
+// adds the decayed carry from the chunks after it), 3xTF32 at either element
+// type (a bf16 C lands widened to fp32 for the factor E).
+template <class T, bool kWide>
 __global__ void __launch_bounds__(kThreads, 2) bwd_prep(Args<T> a) {
   extern __shared__ float smem[];
   float* ring = smem;
@@ -205,33 +247,35 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_prep(Args<T> a) {
     const long long r0 = static_cast<long long>(c) * a.Q;
     g_tile<T>(ring, Src<T>{a.Cm.p + b * a.Cm.sb + r0 * a.Cm.sr, a.Cm.sr, a.al_c},
               Src<T>{a.Bm.p + b * a.Bm.sb + r0 * a.Bm.sr, a.Bm.sr, a.al_b}, ti, si,
-              a.G + (static_cast<long long>(b) * nc + c) * a.Q * a.Q, a.Q);
+              a.G + (static_cast<long long>(b) * nc + c) * a.Q * a.Q, a.Q, n_of<kWide>(a));
     return;
   }
   bid -= a.B * nc * pairs;
-  const int half = bid & 1, h = (bid >> 1) % a.H, c = 1 + (bid >> 1) / a.H % (nc - 1),
-            b = (bid >> 1) / a.H / (nc - 1);
+  const int P = p_of<kWide>(a), halves = n_of<kWide>(a) / kBM, tiles = halves * (P / kTile);
+  const int tile = bid % tiles, half = tile % halves, pt = tile / halves;
+  bid /= tiles;
+  const int h = bid % a.H, c = 1 + bid / a.H % (nc - 1), b = bid / a.H / (nc - 1);
   const long long bh = static_cast<long long>(b) * a.H + h, r0 = static_cast<long long>(c) * a.Q;
   for (int i = threadIdx.x; i < a.Q; i += kThreads) sF[i] = expf(a.S[bh * a.L + r0 + i]);
   Acc<128> acc;
   zero<128>(acc);
   const T* Cc = a.Cm.p + b * a.Cm.sb + r0 * a.Cm.sr + half * kBM;
-  const T* dyc = a.dy.p + b * a.dy.sb + r0 * a.dy.sr + h * kP;
+  const T* dyc = a.dy.p + b * a.dy.sb + r0 * a.dy.sr + h * P + pt * kTile;
   const long long csr = a.Cm.sr, dysr = a.dy.sr;
   const bool alc = a.al_c, aldy = a.al_dy;
   gemm<128, true, false, false, float, T>(
       acc, ring, a.Q / kBK, [=](int kt) { return Src<T>{Cc + kt * kBK * csr, csr, alc}; },
       [=](int kt) { return Src<T>{dyc + kt * kBK * dysr, dysr, aldy}; },
       [=](int kt, int, int k, float v) { return v * sF[kt * kBK + k]; }, NoXform{}, AllActive{});
-  float* dst = a.dh + state_at(a, b, c - 1, h) + half * kBM * kP;
-  for_each<128>(acc, [=](int m, int n, float v) { dst[m * kP + n] = v; });
+  float* dst = a.dh + state_at<kWide>(a, b, c - 1, h) + half * kBM * P + pt * kTile;
+  for_each<128>(acc, [=](int m, int n, float v) { dst[m * P + n] = v; });
 }
 
 // dh_out[c] = e^{S_end[c+1]} dh_out[c+1] + (the carry term in slot c), from
 // the last chunk whose dh is read (nc - 2, or nc - 1 = dh_fin with kSeed) down
 // to 0, in place; each chunk's sum(dh_out (.) h_in) over this block's 1024
-// elements goes to hsum. Grid (B h, kCarryParts), 4 elements a thread.
-template <class T, bool kSeed>
+// elements goes to hsum. Grid (B h, carry_parts(n, p)), 4 elements a thread.
+template <class T, bool kSeed, bool kWide>
 __global__ void __launch_bounds__(kThreads) bwd_carry(Args<T> a) {
   __shared__ float red[kThreads / 32];
   const int nc = a.L / a.Q, top = kSeed ? nc - 1 : nc - 2;
@@ -241,8 +285,8 @@ __global__ void __launch_bounds__(kThreads) bwd_carry(Args<T> a) {
   const int e0 = blockIdx.y * kThreads * 4 + threadIdx.x;
   float cur[4];
   for (int c = top; c >= 0; --c) {
-    float* sc = a.dh + state_at(a, b, c, h);
-    const float* hc = a.hin + state_at(a, b, c, h);
+    float* sc = a.dh + state_at<kWide>(a, b, c, h);
+    const float* hc = a.hin + state_at<kWide>(a, b, c, h);
     const float decay = c == top ? 0.f : expf(Sb[static_cast<long long>(c + 2) * a.Q - 1]);
     float part = 0.f;
 #pragma unroll
@@ -250,7 +294,7 @@ __global__ void __launch_bounds__(kThreads) bwd_carry(Args<T> a) {
       const int e = e0 + j * kThreads;
       float v;
       if (kSeed && c == nc - 1) {
-        v = a.dh_fin[bh * kNP + e];
+        v = a.dh_fin[bh * np_of<kWide>(a) + e];
         sc[e] = v;
       } else if (c == top) {
         v = sc[e];
@@ -262,7 +306,7 @@ __global__ void __launch_bounds__(kThreads) bwd_carry(Args<T> a) {
       part += v * hc[e];
     }
     const float total = block_sum(part, red);
-    if (threadIdx.x == 0) a.hsum[(bh * nc + c) * kCarryParts + blockIdx.y] = total;
+    if (threadIdx.x == 0) a.hsum[(bh * nc + c) * parts_of<kWide>(a) + blockIdx.y] = total;
   }
 }
 
@@ -271,8 +315,9 @@ __global__ void __launch_bounds__(kThreads) bwd_carry(Args<T> a) {
 // in registers (written to the dG scratch at the end, exact 0 above the
 // diagonal), and the row and column sums of dlogM = dGM (.) G (.) M into
 // rs / cs. fp32: dy x^T as 3xTF32, then the factor dt; bf16: dy bf16(x dt)^T
-// as bf16 products, each head's dG rounded to bf16 before the head sum.
-template <class T>
+// as bf16 products, each head's dG rounded to bf16 before the head sum; the
+// products over the head's p columns in p / 32 k-tiles.
+template <class T, bool kWide>
 __global__ void __launch_bounds__(kThreads, 2) bwd_dgm(Args<T> a) {
   extern __shared__ float smem[];
   float* ring = smem;
@@ -293,6 +338,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dgm(Args<T> a) {
   zero<64>(dgs);
   const long long dysr = a.dy.sr, xsr = a.x.sr;
   const bool aldy = a.al_dy, alx = a.al_x;
+  const int P = p_of<kWide>(a);
   for (int h = 0; h < a.H; ++h) {
     const long long bh = static_cast<long long>(b) * a.H + h;
     const float* Sc = a.S + bh * a.L + r0;
@@ -303,16 +349,16 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dgm(Args<T> a) {
     }
     Acc<64> acc;
     zero<64>(acc);
-    const T* dyt = a.dy.p + b * a.dy.sb + (r0 + t0) * dysr + h * kP;
-    const T* xs = a.x.p + b * a.x.sb + (r0 + s0) * xsr + h * kP;
+    const T* dyt = a.dy.p + b * a.dy.sb + (r0 + t0) * dysr + h * P;
+    const T* xs = a.x.p + b * a.x.sb + (r0 + s0) * xsr + h * P;
     auto src_dy = [=](int kt) { return Src<T>{dyt + kt * kBK, dysr, aldy}; };
     auto src_x = [=](int kt) { return Src<T>{xs + kt * kBK, xsr, alx}; };
     if constexpr (is_bf16<T>) {
       gemm<64, false, true, true, T, T>(
-          acc, ring, kP / kBK, src_dy, src_x, NoXform{},
+          acc, ring, P / kBK, src_dy, src_x, NoXform{},
           [=](int, int, int n, float v) { return v * sdts[n]; }, AllActive{});
     } else {
-      gemm<64, false, true, false, T, T>(acc, ring, kP / kBK, src_dy, src_x, NoXform{},
+      gemm<64, false, true, false, T, T>(acc, ring, P / kBK, src_dy, src_x, NoXform{},
                                          NoXform{}, AllActive{});
     }
 #pragma unroll
@@ -344,8 +390,10 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dgm(Args<T> a) {
 
 // One (b, chunk, 64-row strip, head) a block: B dh (for dT, then scaled by
 // T_end; not in a chunk whose dh is 0; 3xTF32) plus GM^T dy (bf16: bf16(GM)^T
-// dy as bf16 products), then dx, ddt and dD.
-template <class T, bool kD, bool kSeed>
+// dy as bf16 products), then dx, ddt and dD, over the head's p / 128 column
+// tiles in order (one at p = 128), dT's and ddt's row sums summed across
+// them in that order.
+template <class T, bool kD, bool kSeed, bool kWide>
 __global__ void __launch_bounds__(kThreads, 2) bwd_dx(Args<T> a) {
   extern __shared__ float smem[];
   float* ring = smem;
@@ -355,6 +403,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dx(Args<T> a) {
   float* red = sTe + a.QS;
   float* sums = red + kRed;
   const int nc = a.L / a.Q, T_ = a.Q / kBM;
+  const int N = n_of<kWide>(a), P = p_of<kWide>(a);
   int bid = blockIdx.x;
   const int h = bid % a.H;
   bid /= a.H;
@@ -373,63 +422,75 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dx(Args<T> a) {
   const int s0 = ss * kBM;
   const long long xsr = a.x.sr, dysr = a.dy.sr, bsr = a.Bm.sr;
   const bool aldy = a.al_dy, alb = a.al_b;
-  const T* xs = a.x.p + b * a.x.sb + (r0 + s0) * xsr + h * kP;
-  const T* dys = a.dy.p + b * a.dy.sb + (r0 + s0) * dysr + h * kP;
-  Acc<128> acc;
-  zero<128>(acc);
   const bool has_dh = kSeed || c < nc - 1;
-  if (has_dh) {
-    const T* Bs = a.Bm.p + b * a.Bm.sb + (r0 + s0) * bsr;
-    const float* dhc = a.dh + state_at(a, b, c, h);
-    gemm<128, false, false, false, T, float>(
-        acc, ring, kN / kBK, [=](int kt) { return Src<T>{Bs + kt * kBK, bsr, alb}; },
-        [=](int kt) { return Src<float>{dhc + kt * kBK * kP, kP, true}; }, NoXform{}, NoXform{},
-        AllActive{});
-    row_sums<128>(
-        acc, [=](int m, int n, float v) { return v * to_f(xs[m * xsr + n]) * sdt[s0 + m]; }, red,
-        sums);
-    for_each<128>(acc, [=](int m, int, float& v) { v *= sTe[s0 + m]; });
-  }
-  if (threadIdx.x < kBM) a.dT[bh * a.L + r0 + s0 + threadIdx.x] = has_dh ? sums[threadIdx.x] : 0.f;
-  const float* Gs = a.G + (static_cast<long long>(b) * nc + c) * Q * Q + s0;
-  gemm<128, true, false, is_bf16<T>, float, T>(
-      acc, ring, (a.Q - s0) / kBK,
-      [=](int kt) { return Src<float>{Gs + (s0 + kt * kBK) * Q, Q, true}; },
-      [=](int kt) { return Src<T>{dys + kt * kBK * dysr, dysr, aldy}; },
-      [=](int kt, int m, int k, float v) {
-        const int t = s0 + kt * kBK + k, s = s0 + m;
-        return t >= s ? v * expf(sS[t] - sS[s]) : 0.f;
-      },
-      NoXform{}, [=](int kt, int wm) { return kt * kBK + 31 >= wm * 32; });
-  row_sums<128>(acc, [=](int m, int n, float v) { return v * to_f(xs[m * xsr + n]); }, red, sums);
-  if (threadIdx.x < kBM) a.ddt[bh * a.L + r0 + s0 + threadIdx.x] = sums[threadIdx.x];
-  const float skip = kD ? a.Dp[h] : 0.f;
-  T* dxs = a.dx.p + b * a.dx.sb + (r0 + s0) * a.dx.sr + h * kP;
-  const long long dxsr = a.dx.sr;
   float part = 0.f;
-  for_each<128>(acc, [&](int m, int n, float v) {
-    if (kD) {
-      const float dyv = to_f(dys[m * dysr + n]);
-      dxs[m * dxsr + n] = from_f<T>(v * sdt[s0 + m] + skip * dyv);
-      part += dyv * to_f(xs[m * xsr + n]);
-    } else {
-      dxs[m * dxsr + n] = from_f<T>(v * sdt[s0 + m]);
+  for (int pt = 0; pt < P / kTile; ++pt) {
+    const T* xs = a.x.p + b * a.x.sb + (r0 + s0) * xsr + h * P + pt * kTile;
+    const T* dys = a.dy.p + b * a.dy.sb + (r0 + s0) * dysr + h * P + pt * kTile;
+    Acc<128> acc;
+    zero<128>(acc);
+    if (has_dh) {
+      const T* Bs = a.Bm.p + b * a.Bm.sb + (r0 + s0) * bsr;
+      const float* dhc = a.dh + state_at<kWide>(a, b, c, h) + pt * kTile;
+      gemm<128, false, false, false, T, float>(
+          acc, ring, N / kBK, [=](int kt) { return Src<T>{Bs + kt * kBK, bsr, alb}; },
+          [=](int kt) { return Src<float>{dhc + kt * kBK * P, P, true}; }, NoXform{}, NoXform{},
+          AllActive{});
+      row_sums<128>(
+          acc, [=](int m, int n, float v) { return v * to_f(xs[m * xsr + n]) * sdt[s0 + m]; },
+          red, sums);
+      for_each<128>(acc, [=](int m, int, float& v) { v *= sTe[s0 + m]; });
     }
-  });
+    // dT and ddt: the column tiles' row sums added in their order, each row
+    // by the one thread that writes it
+    float* dTr = a.dT + bh * a.L + r0 + s0 + threadIdx.x;
+    if (threadIdx.x < kBM) {
+      const float v = has_dh ? sums[threadIdx.x] : 0.f;
+      *dTr = pt == 0 ? v : *dTr + v;
+    }
+    const float* Gs = a.G + (static_cast<long long>(b) * nc + c) * Q * Q + s0;
+    gemm<128, true, false, is_bf16<T>, float, T>(
+        acc, ring, (a.Q - s0) / kBK,
+        [=](int kt) { return Src<float>{Gs + (s0 + kt * kBK) * Q, Q, true}; },
+        [=](int kt) { return Src<T>{dys + kt * kBK * dysr, dysr, aldy}; },
+        [=](int kt, int m, int k, float v) {
+          const int t = s0 + kt * kBK + k, s = s0 + m;
+          return t >= s ? v * expf(sS[t] - sS[s]) : 0.f;
+        },
+        NoXform{}, [=](int kt, int wm) { return kt * kBK + 31 >= wm * 32; });
+    row_sums<128>(acc, [=](int m, int n, float v) { return v * to_f(xs[m * xsr + n]); }, red,
+                  sums);
+    float* ddtr = a.ddt + bh * a.L + r0 + s0 + threadIdx.x;
+    if (threadIdx.x < kBM) *ddtr = pt == 0 ? sums[threadIdx.x] : *ddtr + sums[threadIdx.x];
+    const float skip = kD ? a.Dp[h] : 0.f;
+    T* dxs = a.dx.p + b * a.dx.sb + (r0 + s0) * a.dx.sr + h * P + pt * kTile;
+    const long long dxsr = a.dx.sr;
+    for_each<128>(acc, [&](int m, int n, float v) {
+      if (kD) {
+        const float dyv = to_f(dys[m * dysr + n]);
+        dxs[m * dxsr + n] = from_f<T>(v * sdt[s0 + m] + skip * dyv);
+        part += dyv * to_f(xs[m * xsr + n]);
+      } else {
+        dxs[m * dxsr + n] = from_f<T>(v * sdt[s0 + m]);
+      }
+    });
+  }
   if (kD) {
     const float total = block_sum(part, red);
     if (threadIdx.x == 0) a.dD_part[(bh * nc + c) * T_ + ss] = total;
   }
 }
 
-// One (b, chunk, 64-row strip) and one of dC (even blocks) or dB (odd) a block:
-//   dC = dG B + sum_h E (dy h_in^T), writing each head's dE on the way;
+// One (b, chunk, 64-row strip) and one of dC (even blocks) or dB (odd) a block,
+// over the n / 128 column tiles of dC or dB in order (one at n = 128):
+//   dC = dG B + sum_h E (dy h_in^T), writing each head's dE on the way (its
+//        row sums over the column tiles summed in their order);
 //   dB = dG^T C + sum_h (dt x T_end) dh^T;
 // the heads in order, the per-head products skipped where h_in or dh is 0.
 // bf16: dy bf16(h_in)^T as bf16 products; (bf16(x dt) dh^T) T_end with the
 // factor T_end after the product (3xTF32); dG B and dG^T C 3xTF32 on the head
 // sum of bf16(dG); the fp32 sums rounded to bf16 once.
-template <class T, bool kSeed>
+template <class T, bool kSeed, bool kWide>
 __global__ void __launch_bounds__(kThreads, 2) bwd_dbc(Args<T> a) {
   extern __shared__ float smem[];
   float* ring = smem;
@@ -438,6 +499,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dbc(Args<T> a) {
   float* red = sF + 3 * a.QS;
   float* sums = red + kRed;
   const int nc = a.L / a.Q, T_ = a.Q / kBM;
+  const int N = n_of<kWide>(a), P = p_of<kWide>(a);
   const int is_db = blockIdx.x & 1, strip = (blockIdx.x >> 1) % T_,
             c = (blockIdx.x >> 1) / T_ % nc, b = (blockIdx.x >> 1) / T_ / nc;
   const long long Q = a.Q, r0 = static_cast<long long>(c) * a.Q;
@@ -445,77 +507,33 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dbc(Args<T> a) {
   const float* dGc = a.dG + (static_cast<long long>(b) * nc + c) * Q * Q;
   const long long xsr = a.x.sr, dysr = a.dy.sr, bsr = a.Bm.sr, csr = a.Cm.sr;
   const bool alx = a.al_x, aldy = a.al_dy, alb = a.al_b, alc = a.al_c, alhin = a.al_hin;
-  Acc<128> acc;
-  zero<128>(acc);
   if (!is_db) {
-    const T* Ct = a.Cm.p + b * a.Cm.sb + (r0 + r) * csr;
-    for (int h = 0; h < a.H; ++h) {
-      const long long bh = static_cast<long long>(b) * a.H + h;
-      float* dEt = a.dE + bh * a.L + r0 + r;
-      if (c == 0) {  // h_in of the first chunk is 0
-        if (threadIdx.x < kBM) dEt[threadIdx.x] = 0.f;
-        continue;
-      }
-      __syncthreads();  // the previous head is done with sF
-      if (threadIdx.x < kBM) sF[threadIdx.x] = expf(a.S[bh * a.L + r0 + r + threadIdx.x]);
-      Acc<128> yh;
-      zero<128>(yh);
-      const T* dyt = a.dy.p + b * a.dy.sb + (r0 + r) * dysr + h * kP;
-      const float* hc = a.hin + state_at(a, b, c, h);
-      gemm<128, false, true, is_bf16<T>, T, float>(
-          yh, ring, kP / kBK, [=](int kt) { return Src<T>{dyt + kt * kBK, dysr, aldy}; },
-          [=](int kt) { return Src<float>{hc + kt * kBK, kP, alhin}; }, NoXform{}, NoXform{},
-          AllActive{});
-      row_sums<128>(yh, [=](int m, int n, float v) { return v * to_f(Ct[m * csr + n]); }, red,
-                    sums);
-      if (threadIdx.x < kBM) dEt[threadIdx.x] = sums[threadIdx.x];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < ssd_tc::Cfg<128>::kNT; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            int m, n;
-            frag_pos<128>(mi, ni, e, m, n);
-            acc[mi][ni][e] += sF[m] * yh[mi][ni][e];
-          }
-    }
-    const T* Bc = a.Bm.p + b * a.Bm.sb + r0 * bsr;
-    const float* dGt = dGc + r * Q;
-    gemm<128, false, false, false, float, T>(
-        acc, ring, (r + kBM) / kBK, [=](int kt) { return Src<float>{dGt + kt * kBK, Q, true}; },
-        [=](int kt) { return Src<T>{Bc + kt * kBK * bsr, bsr, alb}; }, NoXform{}, NoXform{},
-        [=](int kt, int wm) { return kt * kBK <= r + wm * 32 + 31; });
-    T* out = a.dC.p + b * a.dC.sb + (r0 + r) * a.dC.sr;
-    const long long osr = a.dC.sr;
-    for_each<128>(acc, [=](int m, int n, float v) { out[m * osr + n] = from_f<T>(v); });
-    return;
-  }
-  if (kSeed || c < nc - 1) {  // the last chunk's dh is 0
-    for (int h = 0; h < a.H; ++h) {
-      const long long bh = static_cast<long long>(b) * a.H + h;
-      __syncthreads();  // the previous head is done with sF
-      if (threadIdx.x < kBM) {
-        const float* Sc = a.S + bh * a.L + r0;
-        const float dtv = a.dt[bh * a.L + r0 + r + threadIdx.x];
-        const float te = expf(Sc[a.Q - 1] - Sc[r + threadIdx.x]);
-        if (is_bf16<T>) {
-          sF[threadIdx.x] = dtv;
-          sTe[threadIdx.x] = te;
-        } else {
-          sF[threadIdx.x] = dtv * te;
+    for (int nt = 0; nt < N / kTile; ++nt) {
+      Acc<128> acc;
+      zero<128>(acc);
+      const T* Ct = a.Cm.p + b * a.Cm.sb + (r0 + r) * csr + nt * kTile;
+      for (int h = 0; h < a.H; ++h) {
+        const long long bh = static_cast<long long>(b) * a.H + h;
+        float* dEt = a.dE + bh * a.L + r0 + r;
+        if (c == 0) {  // h_in of the first chunk is 0
+          if (threadIdx.x < kBM) dEt[threadIdx.x] = 0.f;
+          continue;
         }
-      }
-      const T* xs = a.x.p + b * a.x.sb + (r0 + r) * xsr + h * kP;
-      const float* dhc = a.dh + state_at(a, b, c, h);
-      auto src_x = [=](int kt) { return Src<T>{xs + kt * kBK, xsr, alx}; };
-      auto src_dh = [=](int kt) { return Src<float>{dhc + kt * kBK, kP, true}; };
-      if constexpr (is_bf16<T>) {
-        Acc<128> xh;
-        zero<128>(xh);
-        gemm<128, false, true, false, T, float>(
-            xh, ring, kP / kBK, src_x, src_dh,
-            [=](int, int m, int, float v) { return v * sF[m]; }, NoXform{}, AllActive{});
+        __syncthreads();  // the previous head is done with sF
+        if (threadIdx.x < kBM) sF[threadIdx.x] = expf(a.S[bh * a.L + r0 + r + threadIdx.x]);
+        Acc<128> yh;
+        zero<128>(yh);
+        const T* dyt = a.dy.p + b * a.dy.sb + (r0 + r) * dysr + h * P;
+        const float* hc =
+            a.hin + state_at<kWide>(a, b, c, h) + static_cast<long long>(nt) * kTile * P;
+        gemm<128, false, true, is_bf16<T>, T, float>(
+            yh, ring, P / kBK, [=](int kt) { return Src<T>{dyt + kt * kBK, dysr, aldy}; },
+            [=](int kt) { return Src<float>{hc + kt * kBK, P, alhin}; }, NoXform{}, NoXform{},
+            AllActive{});
+        row_sums<128>(yh, [=](int m, int n, float v) { return v * to_f(Ct[m * csr + n]); }, red,
+                      sums);
+        if (threadIdx.x < kBM)
+          dEt[threadIdx.x] = nt == 0 ? sums[threadIdx.x] : dEt[threadIdx.x] + sums[threadIdx.x];
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
@@ -524,32 +542,85 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_dbc(Args<T> a) {
             for (int e = 0; e < 4; ++e) {
               int m, n;
               frag_pos<128>(mi, ni, e, m, n);
-              acc[mi][ni][e] += sTe[m] * xh[mi][ni][e];
+              acc[mi][ni][e] += sF[m] * yh[mi][ni][e];
             }
-      } else {
-        gemm<128, false, true, false, T, float>(
-            acc, ring, kP / kBK, src_x, src_dh,
-            [=](int, int m, int, float v) { return v * sF[m]; }, NoXform{}, AllActive{});
+      }
+      const T* Bc = a.Bm.p + b * a.Bm.sb + r0 * bsr + nt * kTile;
+      const float* dGt = dGc + r * Q;
+      gemm<128, false, false, false, float, T>(
+          acc, ring, (r + kBM) / kBK, [=](int kt) { return Src<float>{dGt + kt * kBK, Q, true}; },
+          [=](int kt) { return Src<T>{Bc + kt * kBK * bsr, bsr, alb}; }, NoXform{}, NoXform{},
+          [=](int kt, int wm) { return kt * kBK <= r + wm * 32 + 31; });
+      T* out = a.dC.p + b * a.dC.sb + (r0 + r) * a.dC.sr + nt * kTile;
+      const long long osr = a.dC.sr;
+      for_each<128>(acc, [=](int m, int n, float v) { out[m * osr + n] = from_f<T>(v); });
+    }
+    return;
+  }
+  for (int nt = 0; nt < N / kTile; ++nt) {
+    Acc<128> acc;
+    zero<128>(acc);
+    if (kSeed || c < nc - 1) {  // the last chunk's dh is 0
+      for (int h = 0; h < a.H; ++h) {
+        const long long bh = static_cast<long long>(b) * a.H + h;
+        __syncthreads();  // the previous head is done with sF
+        if (threadIdx.x < kBM) {
+          const float* Sc = a.S + bh * a.L + r0;
+          const float dtv = a.dt[bh * a.L + r0 + r + threadIdx.x];
+          const float te = expf(Sc[a.Q - 1] - Sc[r + threadIdx.x]);
+          if (is_bf16<T>) {
+            sF[threadIdx.x] = dtv;
+            sTe[threadIdx.x] = te;
+          } else {
+            sF[threadIdx.x] = dtv * te;
+          }
+        }
+        const T* xs = a.x.p + b * a.x.sb + (r0 + r) * xsr + h * P;
+        const float* dhc =
+            a.dh + state_at<kWide>(a, b, c, h) + static_cast<long long>(nt) * kTile * P;
+        auto src_x = [=](int kt) { return Src<T>{xs + kt * kBK, xsr, alx}; };
+        auto src_dh = [=](int kt) { return Src<float>{dhc + kt * kBK, P, true}; };
+        if constexpr (is_bf16<T>) {
+          Acc<128> xh;
+          zero<128>(xh);
+          gemm<128, false, true, false, T, float>(
+              xh, ring, P / kBK, src_x, src_dh,
+              [=](int, int m, int, float v) { return v * sF[m]; }, NoXform{}, AllActive{});
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int ni = 0; ni < ssd_tc::Cfg<128>::kNT; ++ni)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                int m, n;
+                frag_pos<128>(mi, ni, e, m, n);
+                acc[mi][ni][e] += sTe[m] * xh[mi][ni][e];
+              }
+        } else {
+          gemm<128, false, true, false, T, float>(
+              acc, ring, P / kBK, src_x, src_dh,
+              [=](int, int m, int, float v) { return v * sF[m]; }, NoXform{}, AllActive{});
+        }
       }
     }
+    const T* Cc = a.Cm.p + b * a.Cm.sb + r0 * csr + nt * kTile;
+    const float* dGs = dGc + r;
+    gemm<128, true, false, false, float, T>(
+        acc, ring, (a.Q - r) / kBK,
+        [=](int kt) { return Src<float>{dGs + (r + kt * kBK) * Q, Q, true}; },
+        [=](int kt) { return Src<T>{Cc + (r + kt * kBK) * csr, csr, alc}; }, NoXform{}, NoXform{},
+        [=](int kt, int wm) { return kt * kBK + 31 >= wm * 32; });
+    T* out = a.dB.p + b * a.dB.sb + (r0 + r) * a.dB.sr + nt * kTile;
+    const long long osr = a.dB.sr;
+    for_each<128>(acc, [=](int m, int n, float v) { out[m * osr + n] = from_f<T>(v); });
   }
-  const T* Cc = a.Cm.p + b * a.Cm.sb + r0 * csr;
-  const float* dGs = dGc + r;
-  gemm<128, true, false, false, float, T>(
-      acc, ring, (a.Q - r) / kBK,
-      [=](int kt) { return Src<float>{dGs + (r + kt * kBK) * Q, Q, true}; },
-      [=](int kt) { return Src<T>{Cc + (r + kt * kBK) * csr, csr, alc}; }, NoXform{}, NoXform{},
-      [=](int kt, int wm) { return kt * kBK + 31 >= wm * 32; });
-  T* out = a.dB.p + b * a.dB.sb + (r0 + r) * a.dB.sr;
-  const long long osr = a.dB.sr;
-  for_each<128>(acc, [=](int m, int n, float v) { out[m * osr + n] = from_f<T>(v); });
 }
 
 // One (b, h, chunk) a block, a thread a row (rows i, i + 256, ... for a chunk
 // longer than 256): dS = rowsum(dlogM) + dE E - dT T_end - colsum(dlogM),
 // and at the chunk's last row dSend = sum(dT T_end) + e^{S_end} sum(dh (.)
 // h_in), every sum in a fixed order.
-template <class T, bool kSeed>
+template <class T, bool kSeed, bool kWide>
 __global__ void __launch_bounds__(kThreads) bwd_ds(Args<T> a) {
   __shared__ float red[kThreads / 32];
   const int nc = a.L / a.Q, T_ = a.Q / kBM, pairs = T_ * (T_ + 1) / 2;
@@ -572,7 +643,8 @@ __global__ void __launch_bounds__(kThreads) bwd_ds(Args<T> a) {
   const float total = block_sum(dtte, red);
   float hs = 0.f;
   if (c <= (kSeed ? nc - 1 : nc - 2))
-    for (int j = 0; j < kCarryParts; ++j) hs += a.hsum[(bh * nc + c) * kCarryParts + j];
+    for (int j = 0; j < parts_of<kWide>(a); ++j)
+      hs += a.hsum[(bh * nc + c) * parts_of<kWide>(a) + j];
   // the last row is its thread's last: nothing reads it in between
   if (threadIdx.x == (a.Q - 1) % kThreads) a.dS[at + a.Q - 1] += total + expf(send) * hs;
 }
@@ -584,13 +656,14 @@ cudaError_t allow_smem(K* kernel, int bytes) {
 
 // The floats of the scratch that one backward needs, in the order Args
 // lists it.
-long long scratch_floats(int B, int L, int H, int Q) {
+long long scratch_floats(int B, int L, int H, int Q, int N, int P) {
   const long long nc = L / Q, T_ = Q / kBM, pairs = T_ * (T_ + 1) / 2;
-  return 2 * B * nc * Q * Q + B * nc * H * kNP + 2 * B * H * nc * pairs * kBM +
-         2 * static_cast<long long>(B) * H * L + B * H * nc * kCarryParts;
+  return 2 * B * nc * Q * Q + B * nc * H * static_cast<long long>(N) * P +
+         2 * B * H * nc * pairs * kBM + 2 * static_cast<long long>(B) * H * L +
+         B * H * nc * carry_parts(N, P);
 }
 
-template <class T, bool kD, bool kSeed>
+template <class T, bool kD, bool kSeed, bool kWide>
 cudaError_t launch(Args<T> a, float* scratch, cudaStream_t stream) {
   a.QS = array_len(a.Q);
   const int smem = smem_bytes(a.QS);
@@ -601,36 +674,51 @@ cudaError_t launch(Args<T> a, float* scratch, cudaStream_t stream) {
   a.G = scratch;
   a.dG = a.G + qq;
   a.dh = a.dG + qq;
-  a.rs = a.dh + static_cast<long long>(a.B) * nc * a.H * kNP;
+  a.rs = a.dh + static_cast<long long>(a.B) * nc * a.H * a.N * a.P;
   a.cs = a.rs + tiles;
   a.dT = a.cs + tiles;
   a.dE = a.dT + rows;
   a.hsum = a.dE + rows;
-  cudaError_t err = allow_smem(bwd_prep<T>, smem);
-  if (err == cudaSuccess) err = allow_smem(bwd_dgm<T>, smem);
-  if (err == cudaSuccess) err = allow_smem(bwd_dx<T, kD, kSeed>, smem);
-  if (err == cudaSuccess) err = allow_smem(bwd_dbc<T, kSeed>, smem);
+  const int state_tiles = a.N / kBM * (a.P / kTile);
+  cudaError_t err = allow_smem(bwd_prep<T, kWide>, smem);
+  if (err == cudaSuccess) err = allow_smem(bwd_dgm<T, kWide>, smem);
+  if (err == cudaSuccess) err = allow_smem(bwd_dx<T, kD, kSeed, kWide>, smem);
+  if (err == cudaSuccess) err = allow_smem(bwd_dbc<T, kSeed, kWide>, smem);
   if (err != cudaSuccess) return err;
-  bwd_prep<T><<<a.B * nc * pairs + a.B * a.H * (nc - 1) * 2, kThreads, smem, stream>>>(a);
+  bwd_prep<T, kWide>
+      <<<a.B * nc * pairs + a.B * a.H * (nc - 1) * state_tiles, kThreads, smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if (kSeed || nc > 1) {
-    bwd_carry<T, kSeed><<<dim3(a.B * a.H, kCarryParts), kThreads, 0, stream>>>(a);
+    bwd_carry<T, kSeed, kWide>
+        <<<dim3(a.B * a.H, carry_parts(a.N, a.P)), kThreads, 0, stream>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  bwd_dgm<T><<<a.B * nc * pairs, kThreads, smem, stream>>>(a);
+  bwd_dgm<T, kWide><<<a.B * nc * pairs, kThreads, smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_dx<T, kD, kSeed><<<a.B * nc * T_ * a.H, kThreads, smem, stream>>>(a);
+  bwd_dx<T, kD, kSeed, kWide><<<a.B * nc * T_ * a.H, kThreads, smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_dbc<T, kSeed><<<a.B * nc * T_ * 2, kThreads, smem, stream>>>(a);
+  bwd_dbc<T, kSeed, kWide><<<a.B * nc * T_ * 2, kThreads, smem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  bwd_ds<T, kSeed><<<a.B * a.H * nc, kThreads, 0, stream>>>(a);
+  bwd_ds<T, kSeed, kWide><<<a.B * a.H * nc, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The tuned instantiation at n = p = 128, the wide one at any other
+// multiples of 128; the carry from 0 or seeded.
+template <class T, bool kD>
+cudaError_t launch_variant(const Args<T>& a, float* scratch, bool seeded, cudaStream_t s) {
+  if (a.N == kN && a.P == kP)
+    return seeded ? launch<T, kD, true, false>(a, scratch, s)
+                  : launch<T, kD, false, false>(a, scratch, s);
+  return seeded ? launch<T, kD, true, true>(a, scratch, s)
+                : launch<T, kD, false, true>(a, scratch, s);
 }
 
 // Whether the scratch is the geometry's size and 16-byte aligned.
 template <class T>
 bool scratch_ok(const Args<T>& a, const void* scratch, long long scratch_n) {
-  return scratch_n == scratch_floats(a.B, a.L, a.H, a.Q) && ssd_tc::aligned16(scratch, 0, 0);
+  return scratch_n == scratch_floats(a.B, a.L, a.H, a.Q, a.N, a.P) &&
+         ssd_tc::aligned16(scratch, 0, 0);
 }
 
 template <class T>
@@ -667,13 +755,15 @@ int xbc_bwd(const void* xbc, const void* dt, const void* S, const void* Dp, cons
   a.L = L;
   a.H = H;
   a.Q = Q;
+  a.N = N;
+  a.P = P;
   a.al_x = a.al_b = a.al_c = al;
   a.al_dy = ssd_tc::aligned16<T>(dy, dy_sb, dy_sr);
   a.al_hin = ssd_tc::aligned16(h_in, 0, 0);
   if (!scratch_ok(a, scratch, scratch_n)) return cudaErrorInvalidValue;
   auto* f = static_cast<float*>(scratch);
   auto s = static_cast<cudaStream_t>(stream);
-  return dh_fin != nullptr ? launch<T, true, true>(a, f, s) : launch<T, true, false>(a, f, s);
+  return launch_variant<T, true>(a, f, dh_fin != nullptr, s);
 }
 
 template <class T>
@@ -707,6 +797,8 @@ int split_bwd(const void* x, const void* Bm, const void* Cm, const void* dt, con
   a.L = L;
   a.H = H;
   a.Q = Q;
+  a.N = N;
+  a.P = P;
   a.al_x = ssd_tc::aligned16<T>(x, x_sb, x_sr);
   a.al_b = ssd_tc::aligned16<T>(Bm, b_sb, b_sr);
   a.al_c = ssd_tc::aligned16<T>(Cm, c_sb, c_sr);
@@ -715,7 +807,7 @@ int split_bwd(const void* x, const void* Bm, const void* Cm, const void* dt, con
   if (!scratch_ok(a, scratch, scratch_n)) return cudaErrorInvalidValue;
   auto* f = static_cast<float*>(scratch);
   auto s = static_cast<cudaStream_t>(stream);
-  return dh_fin != nullptr ? launch<T, false, true>(a, f, s) : launch<T, false, false>(a, f, s);
+  return launch_variant<T, false>(a, f, dh_fin != nullptr, s);
 }
 
 }  // namespace
@@ -730,9 +822,11 @@ extern "C" {
 // per-strip partials of dD. scratch: scratch_n floats, 16-byte aligned: G and
 // dG (B, L / Q, Q, Q), dh (B, L / Q, H, N, P), the row and column sums of
 // dlogM (B, H, L / Q, tile pairs, 64) each, dT and dE (B, H, L) each, and the
-// (B, H, L / Q, 16) partials of sum(dh (.) h_in), in that order. Returns a
-// cudaError_t code (cudaErrorInvalidValue for a geometry the kernels are not
-// built for, or for a dD_part or scratch size other than the geometry's).
+// (B, H, L / Q, N P / 1024) partials of sum(dh (.) h_in), in that order.
+// Returns a cudaError_t code (cudaErrorInvalidValue for a geometry the kernels
+// are not built for: N, P not positive multiples of 128, Q not a multiple of
+// 64 up to 8192, L not a multiple of Q; or for a dD_part or scratch size
+// other than the geometry's).
 int ssd_xbc_bwd(const void* xbc, const void* dt, const void* S, const void* Dp,
                 const void* h_in, const void* dy, void* dxbc, void* ddt, void* dS,
                 void* dD_part, long long dD_n, void* scratch, long long scratch_n, int B, int L,

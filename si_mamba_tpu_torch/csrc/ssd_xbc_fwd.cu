@@ -81,6 +81,19 @@
 // the states written out and h_fin stay fp32. The fp32 body's products and
 // launches are unchanged: each element type is its own instantiation.
 //
+// Wide states (the kWide instantiation): d_state n and head_dim p any
+// multiples of 128, the shapes `ssd_fused_supported` (ssd_kernel.py:70)
+// compiles the TPU kernels for. The output tile stays 64 x 128 and the shared
+// memory stays as it is; wider states take more tiles and deeper k-loops:
+// fwd_prep's chunk end states are (n / 64) x (p / 128) tiles, one block each
+// (the grid gains the tile index rather than a block looping over its tiles:
+// at B=32, L=512, q=256, n = p = 256 and 3 heads that gives 768 blocks beside
+// G's 640, where a loop would leave 192, under one a SM's two); y is p / 128
+// column tiles, one block each; the contractions over n (G = C B^T and
+// C h_in) run n / 32 k-tiles; fwd_carry stays elementwise, n p / 1024 blocks
+// a (b, h). n = p = 128 is its own instantiation (kWide false), with n and p
+// compile-time constants, as it was built before the wide one existed.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 
@@ -105,12 +118,17 @@ using ssd_tc::pair_tiles;
 using ssd_tc::Src;
 using ssd_tc::zero;
 
-constexpr int kN = 128;         // d_state
-constexpr int kP = 128;         // head_dim
+constexpr int kN = 128;         // d_state of the tuned instantiation
+constexpr int kP = 128;         // head_dim of the tuned instantiation
+constexpr int kTile = 128;      // d_state and head_dim are multiples of this
 constexpr int kArrayFloor = 256;  // the per-chunk shared arrays' least length
 constexpr int kMaxChunk = 8192;   // the longest chunk the dynamic shared memory holds
-constexpr int kNP = kN * kP;
-constexpr int kCarryParts = kNP / (kThreads * 4);  // blocks a (b, h) in fwd_carry
+
+// The blocks a (b, h) of fwd_carry: 4 state elements a thread (16 at
+// n = p = 128).
+int carry_parts(int N, int P) {
+  return static_cast<int>(static_cast<long long>(N) * P / (kThreads * 4));
+}
 
 // The per-chunk shared arrays' length for chunk Q (up to 256 the length they
 // always had, so the shared memory of those chunks is unchanged), and the
@@ -127,7 +145,7 @@ struct Operand {
 };
 
 bool geometry_ok(int L, int N, int P, int Q) {
-  return N == kN && P == kP && Q % kBM == 0 && Q > 0 && Q <= kMaxChunk && L % Q == 0;
+  return N > 0 && P > 0 && N % kTile == 0 && P % kTile == 0 && Q % kBM == 0 && Q > 0 && Q <= kMaxChunk && L % Q == 0;
 }
 
 // The operands and outputs of one forward: x, B and C (T) with their batch and
@@ -148,23 +166,40 @@ struct Args {
   float* G;
   float* h_fin;
   int B, L, H, Q, slot0;
-  int QS;  // the per-chunk shared arrays' length, array_len(Q)
+  int N, P;  // d_state and head_dim, read by the wide instantiation only
+  int QS;    // the per-chunk shared arrays' length, array_len(Q)
   bool al_x, al_b, al_c;
 };
 
-template <class T>
+// d_state and head_dim in a kernel: 128 each, fixed at compile time, in the
+// tuned instantiation (kWide false); the launch's multiples of 128 in the
+// wide one.
+template <bool kWide, class A>
+__device__ __forceinline__ int n_of(const A& a) {
+  return kWide ? a.N : kN;
+}
+template <bool kWide, class A>
+__device__ __forceinline__ int p_of(const A& a) {
+  return kWide ? a.P : kP;
+}
+template <bool kWide, class A>
+__device__ __forceinline__ long long np_of(const A& a) {
+  return static_cast<long long>(n_of<kWide>(a)) * p_of<kWide>(a);
+}
+
+template <bool kWide, class T>
 __device__ __forceinline__ float* slot(const Args<T>& a, int b, int c, int h) {
   const int held = a.L / a.Q - a.slot0;
-  return a.hin + ((static_cast<long long>(b) * held + c - a.slot0) * a.H + h) * kNP;
+  return a.hin + ((static_cast<long long>(b) * held + c - a.slot0) * a.H + h) * np_of<kWide>(a);
 }
 
 // Blocks [0, B nc pairs): one G tile pair each. The rest: one (b, h, chunk,
-// half of n) each, the chunk's local end state B^T (dt x e^{S_end - S}), for
-// every chunk whose state is read (all but the last; all with kHfin), into
-// h_in's slot c + 1 (h_fin for the last chunk). fp32: 3xTF32, the factor on B's
-// tile; bf16: B^T bf16(bf16(x dt) e^{S_end - S}), the factors and roundings on
-// x's tile.
-template <class T, bool kHfin>
+// 64 x 128 tile of the (n, p) state: a 64-row half of n at n = 128) each, the
+// chunk's local end state B^T (dt x e^{S_end - S}), for every chunk whose
+// state is read (all but the last; all with kHfin), into h_in's slot c + 1
+// (h_fin for the last chunk). fp32: 3xTF32, the factor on B's tile; bf16:
+// B^T bf16(bf16(x dt) e^{S_end - S}), the factors and roundings on x's tile.
+template <class T, bool kHfin, bool kWide>
 __global__ void __launch_bounds__(kThreads, 2) fwd_prep(Args<T> a) {
   extern __shared__ float smem[];
   float* ring = smem;
@@ -179,13 +214,15 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_prep(Args<T> a) {
     const long long r0 = static_cast<long long>(c) * a.Q;
     g_tile<T>(ring, Src<T>{a.Cm.p + b * a.Cm.sb + r0 * a.Cm.sr, a.Cm.sr, a.al_c},
               Src<T>{a.Bm.p + b * a.Bm.sb + r0 * a.Bm.sr, a.Bm.sr, a.al_b}, ti, si,
-              a.G + (static_cast<long long>(b) * nc + c) * a.Q * a.Q, a.Q);
+              a.G + (static_cast<long long>(b) * nc + c) * a.Q * a.Q, a.Q, n_of<kWide>(a));
     return;
   }
   bid -= a.B * nc * pairs;
   const int nstate = kHfin ? nc : nc - 1;
-  const int half = bid & 1, h = (bid >> 1) % a.H, c = (bid >> 1) / a.H % nstate,
-            b = (bid >> 1) / a.H / nstate;
+  const int P = p_of<kWide>(a), halves = n_of<kWide>(a) / kBM, tiles = halves * (P / kTile);
+  const int tile = bid % tiles, half = tile % halves, pt = tile / halves;
+  bid /= tiles;
+  const int h = bid % a.H, c = bid / a.H % nstate, b = bid / a.H / nstate;
   const long long bh = static_cast<long long>(b) * a.H + h, r0 = static_cast<long long>(c) * a.Q;
   const float* Sc = a.S + bh * a.L + r0;
   const float* dtc = a.dt + bh * a.L + r0;
@@ -201,7 +238,7 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_prep(Args<T> a) {
   Acc<128> acc;
   zero<128>(acc);
   const T* Bc = a.Bm.p + b * a.Bm.sb + r0 * a.Bm.sr + half * kBM;
-  const T* xc = a.x.p + b * a.x.sb + r0 * a.x.sr + h * kP;
+  const T* xc = a.x.p + b * a.x.sb + r0 * a.x.sr + h * P + pt * kTile;
   const long long bsr = a.Bm.sr, xsr = a.x.sr;
   const bool alb = a.al_b, alx = a.al_x;
   auto src_b = [=](int kt) { return Src<T>{Bc + kt * kBK * bsr, bsr, alb}; };
@@ -220,15 +257,16 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_prep(Args<T> a) {
         [=](int kt, int, int k, float v) { return v * sF[kt * kBK + k]; }, NoXform{},
         AllActive{});
   }
-  float* dst = (c + 1 < nc ? slot(a, b, c + 1, h) : a.h_fin + bh * kNP) + half * kBM * kP;
-  for_each<128>(acc, [=](int m, int n, float v) { dst[m * kP + n] = v; });
+  float* dst = (c + 1 < nc ? slot<kWide>(a, b, c + 1, h) : a.h_fin + bh * np_of<kWide>(a)) +
+               half * kBM * P + pt * kTile;
+  for_each<128>(acc, [=](int m, int n, float v) { dst[m * P + n] = v; });
 }
 
 // h_in[c] = e^{S_end[c-1]} h_in[c-1] + (the local state in slot c) for
 // c = 2 .. nc - 1 (slot 1 already holds h_in[1]); with kHfin then
-// h_fin += e^{S_end[nc-1]} h_in[nc-1]. Grid (B h, kCarryParts), 4 elements a
-// thread, fp32 at either element type.
-template <class T, bool kHfin>
+// h_fin += e^{S_end[nc-1]} h_in[nc-1]. Grid (B h, carry_parts(n, p)), 4
+// elements a thread, fp32 at either element type.
+template <class T, bool kHfin, bool kWide>
 __global__ void __launch_bounds__(kThreads) fwd_carry(Args<T> a) {
   const int nc = a.L / a.Q;
   const long long bh = blockIdx.x;
@@ -236,12 +274,12 @@ __global__ void __launch_bounds__(kThreads) fwd_carry(Args<T> a) {
   const float* Sb = a.S + bh * a.L;
   const int e0 = blockIdx.y * kThreads * 4 + threadIdx.x;
   float prev[4];
-  const float* first = slot(a, b, 1, h);
+  const float* first = slot<kWide>(a, b, 1, h);
 #pragma unroll
   for (int j = 0; j < 4; ++j) prev[j] = first[e0 + j * kThreads];
   for (int c = 2; c < nc; ++c) {
     const float decay = expf(Sb[static_cast<long long>(c) * a.Q - 1]);
-    float* sc = slot(a, b, c, h);
+    float* sc = slot<kWide>(a, b, c, h);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float v = decay * prev[j] + sc[e0 + j * kThreads];
@@ -251,18 +289,19 @@ __global__ void __launch_bounds__(kThreads) fwd_carry(Args<T> a) {
   }
   if (kHfin) {
     const float decay = expf(Sb[a.L - 1]);
-    float* hf = a.h_fin + bh * kNP;
+    float* hf = a.h_fin + bh * np_of<kWide>(a);
 #pragma unroll
     for (int j = 0; j < 4; ++j) hf[e0 + j * kThreads] += decay * prev[j];
   }
 }
 
-// One (b, chunk, 64-row strip, head) a block, the longest strips first:
-// y = (G (.) M) (dt x) + e^S C h_in [+ D x]. With kStates the first chunk's
-// blocks also write h_in[0] = 0. fp32: [(G (.) M) dt | e^S C] [x ; h_in] as
-// 3xTF32, the factors on the A tiles; bf16: e^S (C bf16(h_in)), then
-// bf16(G (.) M) bf16(x dt) into the same accumulator, bf16 products.
-template <class T, bool kStates, bool kD>
+// One (b, chunk, 64-row strip, 128 columns of the head, head) a block, the
+// longest strips first: y = (G (.) M) (dt x) + e^S C h_in [+ D x]. With
+// kStates the first chunk's blocks also write h_in[0] = 0. fp32:
+// [(G (.) M) dt | e^S C] [x ; h_in] as 3xTF32, the factors on the A tiles;
+// bf16: e^S (C bf16(h_in)), then bf16(G (.) M) bf16(x dt) into the same
+// accumulator, bf16 products.
+template <class T, bool kStates, bool kD, bool kWide>
 __global__ void __launch_bounds__(kThreads, 2) fwd_y(Args<T> a) {
   extern __shared__ float smem[];
   float* ring = smem;
@@ -270,9 +309,12 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_y(Args<T> a) {
   float* sdt = sS + a.QS;
   float* sE = sdt + a.QS;
   const int nc = a.L / a.Q, T_ = a.Q / kBM;
+  const int N = n_of<kWide>(a), P = p_of<kWide>(a), PT = P / kTile;
   int bid = blockIdx.x;
   const int h = bid % a.H;
   bid /= a.H;
+  const int pt = bid % PT;
+  bid /= PT;
   const int ts = T_ - 1 - bid % T_;
   bid /= T_;
   const int c = bid % nc, b = bid / nc;
@@ -288,24 +330,24 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_y(Args<T> a) {
   zero<128>(acc);
   if (c > 0) {  // e^S C h_in; h_in of the first chunk is 0
     const T* Ct = a.Cm.p + b * a.Cm.sb + (r0 + t0) * a.Cm.sr;
-    const float* hc = slot(a, b, c, h);
+    const float* hc = slot<kWide>(a, b, c, h) + pt * kTile;
     const long long csr = a.Cm.sr;
     const bool alc = a.al_c;
     auto src_c = [=](int kt) { return Src<T>{Ct + kt * kBK, csr, alc}; };
-    auto src_h = [=](int kt) { return Src<float>{hc + kt * kBK * kP, kP, true}; };
+    auto src_h = [=](int kt) { return Src<float>{hc + kt * kBK * P, P, true}; };
     if constexpr (is_bf16<T>) {
-      gemm<128, false, false, true, T, float>(acc, ring, kN / kBK, src_c, src_h, NoXform{},
+      gemm<128, false, false, true, T, float>(acc, ring, N / kBK, src_c, src_h, NoXform{},
                                               NoXform{}, AllActive{});
       for_each<128>(acc, [=](int m, int, float& v) { v *= sE[t0 + m]; });
     } else {
       gemm<128, false, false, false, T, float>(
-          acc, ring, kN / kBK, src_c, src_h,
+          acc, ring, N / kBK, src_c, src_h,
           [=](int, int m, int, float v) { return v * sE[t0 + m]; }, NoXform{}, AllActive{});
     }
   }
   const long long Q = a.Q;
   const float* Gt = a.G + (static_cast<long long>(b) * nc + c) * Q * Q + t0 * Q;
-  const T* xc = a.x.p + b * a.x.sb + r0 * a.x.sr + h * kP;
+  const T* xc = a.x.p + b * a.x.sb + r0 * a.x.sr + h * P + pt * kTile;
   const long long xsr = a.x.sr;
   const bool alx = a.al_x;
   auto src_g = [=](int kt) { return Src<float>{Gt + kt * kBK, Q, true}; };
@@ -329,16 +371,17 @@ __global__ void __launch_bounds__(kThreads, 2) fwd_y(Args<T> a) {
         NoXform{}, active);
   }
   const float skip = kD ? a.Dp[h] : 0.f;
-  const long long d = static_cast<long long>(a.H) * kP;
-  T* yt = a.y + (b * static_cast<long long>(a.L) + r0 + t0) * d + h * kP;
+  const long long d = static_cast<long long>(a.H) * P;
+  T* yt = a.y + (b * static_cast<long long>(a.L) + r0 + t0) * d + h * P + pt * kTile;
   const T* xt = xc + t0 * xsr;
   for_each<128>(acc, [=](int m, int n, float v) {
     yt[m * d + n] = from_f<T>(kD ? v + skip * to_f(xt[m * xsr + n]) : v);
   });
-  if (kStates && c == 0) {  // strip ts zeroes its share of h_in[0], [e0, e1)
-    float* z = slot(a, b, 0, h);
-    const int e0 = ts * kNP / T_, e1 = (ts + 1) * kNP / T_;
-    for (int i = e0 + threadIdx.x; i < e1; i += kThreads) z[i] = 0.f;
+  if (kStates && c == 0) {  // block (ts, pt) zeroes its share of h_in[0], [e0, e1)
+    float* z = slot<kWide>(a, b, 0, h);
+    const long long np = np_of<kWide>(a), parts = T_ * PT, part = ts * PT + pt;
+    const long long e0 = part * np / parts, e1 = (part + 1) * np / parts;
+    for (long long i = e0 + threadIdx.x; i < e1; i += kThreads) z[i] = 0.f;
   }
 }
 
@@ -347,40 +390,50 @@ cudaError_t allow_smem(K* kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <class T, bool kStates, bool kHfin, bool kD>
+template <class T, bool kStates, bool kHfin, bool kD, bool kWide>
 cudaError_t launch(const Args<T>& a, cudaStream_t stream) {
   const int smem = smem_bytes(a.QS);
-  const int nc = a.L / a.Q, T_ = a.Q / kBM;
-  cudaError_t err = allow_smem(fwd_prep<T, kHfin>, smem);
-  if (err == cudaSuccess) err = allow_smem(fwd_y<T, kStates, kD>, smem);
+  const int nc = a.L / a.Q, T_ = a.Q / kBM, tiles = a.N / kBM * (a.P / kTile);
+  cudaError_t err = allow_smem(fwd_prep<T, kHfin, kWide>, smem);
+  if (err == cudaSuccess) err = allow_smem(fwd_y<T, kStates, kD, kWide>, smem);
   if (err != cudaSuccess) return err;
-  const int n_prep = a.B * nc * T_ * (T_ + 1) / 2 + a.B * a.H * (kHfin ? nc : nc - 1) * 2;
+  const int n_prep = a.B * nc * T_ * (T_ + 1) / 2 + a.B * a.H * (kHfin ? nc : nc - 1) * tiles;
   if (n_prep > 0) {
-    fwd_prep<T, kHfin><<<n_prep, kThreads, smem, stream>>>(a);
+    fwd_prep<T, kHfin, kWide><<<n_prep, kThreads, smem, stream>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   if (nc > 2 || (kHfin && nc > 1)) {
-    fwd_carry<T, kHfin><<<dim3(a.B * a.H, kCarryParts), kThreads, 0, stream>>>(a);
+    fwd_carry<T, kHfin, kWide>
+        <<<dim3(a.B * a.H, carry_parts(a.N, a.P)), kThreads, 0, stream>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  fwd_y<T, kStates, kD><<<a.B * nc * T_ * a.H, kThreads, smem, stream>>>(a);
+  fwd_y<T, kStates, kD, kWide><<<a.B * nc * T_ * (a.P / kTile) * a.H, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <class T, bool kD, bool kWide>
+cudaError_t launch_variant(const Args<T>& a, bool states, bool hfin, cudaStream_t s) {
+  if (states)
+    return hfin ? launch<T, true, true, kD, kWide>(a, s) : launch<T, true, false, kD, kWide>(a, s);
+  return hfin ? launch<T, false, true, kD, kWide>(a, s) : launch<T, false, false, kD, kWide>(a, s);
 }
 
 // Checks the scratch against the geometry, then launches the variant that
 // states (h_in itself in a.hin, else the lean scratch of slots 1 .. nc - 1)
-// and a.h_fin (written unless null) name.
+// and a.h_fin (written unless null) name: the tuned instantiation at
+// n = p = 128, the wide one at any other multiples of 128.
 template <class T, bool kD>
 int checked_launch(Args<T> a, long long hin_n, bool states, long long g_n, cudaStream_t s) {
   const long long nc = a.L / a.Q;
   a.slot0 = states ? 0 : 1;
   a.QS = array_len(a.Q);
-  if (hin_n != a.B * (nc - a.slot0) * a.H * kNP || g_n != a.B * nc * a.Q * a.Q ||
-      !ssd_tc::aligned16(a.hin, 0, 0) || !ssd_tc::aligned16(a.G, 0, 0))
+  if (hin_n != a.B * (nc - a.slot0) * a.H * static_cast<long long>(a.N) * a.P ||
+      g_n != a.B * nc * a.Q * a.Q || !ssd_tc::aligned16(a.hin, 0, 0) ||
+      !ssd_tc::aligned16(a.G, 0, 0))
     return cudaErrorInvalidValue;
   const bool hfin = a.h_fin != nullptr;
-  if (states) return hfin ? launch<T, true, true, kD>(a, s) : launch<T, true, false, kD>(a, s);
-  return hfin ? launch<T, false, true, kD>(a, s) : launch<T, false, false, kD>(a, s);
+  if (a.N == kN && a.P == kP) return launch_variant<T, kD, false>(a, states, hfin, s);
+  return launch_variant<T, kD, true>(a, states, hfin, s);
 }
 
 template <class T>
@@ -407,6 +460,8 @@ int xbc_fwd(const void* xbc, const void* dt, const void* S, const void* Dp, void
   a.L = L;
   a.H = H;
   a.Q = Q;
+  a.N = N;
+  a.P = P;
   a.al_x = a.al_b = a.al_c = al;
   return checked_launch<T, true>(a, hin_n, states != 0, g_n, static_cast<cudaStream_t>(stream));
 }
@@ -434,6 +489,8 @@ int split_fwd(const void* x, const void* Bm, const void* Cm, const void* dt, con
   a.L = L;
   a.H = H;
   a.Q = Q;
+  a.N = N;
+  a.P = P;
   a.al_x = ssd_tc::aligned16<T>(x, x_sb, x_sr);
   a.al_b = ssd_tc::aligned16<T>(Bm, b_sb, b_sr);
   a.al_c = ssd_tc::aligned16<T>(Cm, c_sb, c_sr);
@@ -451,7 +508,7 @@ extern "C" {
 // states entering chunks 1 .. L / Q - 1; G: a (B, L / Q, Q, Q)
 // scratch of g_n floats, 16-byte aligned. Returns a cudaError_t code
 // (cudaErrorInvalidValue for a geometry the kernels are not built for: N, P
-// other than 128, Q not a multiple of 64 up to 8192, L not a multiple of Q,
+// not positive multiples of 128, Q not a multiple of 64 up to 8192, L not a multiple of Q,
 // d_inner other than H * P; or for a scratch size other than the geometry's).
 int ssd_xbc_fwd(const void* xbc, const void* dt, const void* S, const void* Dp, void* y,
                 void* hin, long long hin_n, int states, void* G, long long g_n, int B, int L,

@@ -36,8 +36,11 @@ entry points each and a ``_bf16`` twin of each:
 :func:`run_fwd`, :func:`run_bwd`, :func:`run_split_fwd` and
 :func:`run_split_bwd` allocate outputs and scratch and launch through a given
 library; the C side refuses scratch of another size.
-The sources describe the designs and bounds. They are built for d_state =
-head_dim = 128 and every chunk the JAX kernels compile for, a multiple of
+The sources describe the designs and bounds. They are built for every
+d_state and head_dim the JAX kernels compile for, positive multiples of
+:data:`STATE_TILE` (n = p = 128 as the tuned instantiation, any other as the
+wide one: more 64 x 128 output tiles and deeper k-loops, the same shared
+memory), and every chunk the JAX kernels compile for, a multiple of
 :data:`CHUNK_ALIGN` (up to :data:`MAX_CHUNK`). Their bodies walk a chunk in
 64-row strips (:data:`STRIP`). A chunk that is not a multiple of the strip
 runs laid out in strips (:func:`_to_strips`): each chunk's rows followed by
@@ -48,7 +51,8 @@ longer than 256 sizes the kernels' per-chunk shared arrays at launch
 (dynamic shared memory) and walks the q x q G scratch in the same strips.
 Those two are the ``_strip`` and ``_long`` variants of each entry point, with
 their own launch counts (``VARIANT_LAUNCHES``), chosen by the chunk before
-the launch.
+the launch; the wide instantiation adds ``_wide`` to the name of whichever
+of the three ran (:func:`kernel_variant`).
 
 Every kernel takes fp32 or bf16 activations (xbc, or x, B and C, and dy; y,
 dx, dB and dC come back in their dtype), with dt, S, D, h_in and dh_fin fp32,
@@ -79,13 +83,13 @@ import torch.nn.functional as F
 
 from si_mamba_tpu_torch.ops.kernels.build import LaunchCount, load_library
 
-STATE = 128  # d_state the kernels are built for (kN in both sources)
-HEAD_DIM = 128  # head_dim the kernels are built for (kP)
+STATE = 128  # d_state of the tuned instantiation (kN in both sources)
+HEAD_DIM = 128  # head_dim of the tuned instantiation (kP)
+STATE_TILE = 128  # d_state and head_dim are positive multiples of this (kTile)
 STRIP = 64  # rows of a time strip (kBM); a chunk that is no multiple runs laid out in strips
 CHUNK_ALIGN = 8  # the chunk is a multiple of this, as the JAX kernels require
 TUNED_CHUNK = 256  # the longest chunk the per-chunk shared arrays always held (kArrayFloor)
 MAX_CHUNK = 8192  # the longest chunk the kernels' dynamic shared memory holds (kMaxChunk)
-CARRY_PARTS = 16  # blocks a (batch row, head) in K9's carry pass (kCarryParts)
 # the activation dtypes the kernels are built for; dt, S, D and the states are fp32
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -359,22 +363,29 @@ def bwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
     return _declare(lib, BWD_ENTRIES, "ssd_xbc_bwd_error_string")
 
 
-def bwd_scratch_floats(b: int, l: int, h: int, chunk: int) -> int:
+def carry_parts(n: int, p: int) -> int:
+    """The blocks a (batch row, head) of the carry passes, four state
+    elements a thread (carry_parts in both sources): 16 at n = p = 128."""
+    return n * p // (256 * 4)
+
+
+def bwd_scratch_floats(b: int, l: int, h: int, chunk: int, n: int, p: int) -> int:
     """The floats of K9's and K7's scratch, in the order the C side carves
     it: G and the head sum of dG (b, nc, q, q) each, the dh carry
     (b, nc, h, n, p), the row and column sums of dlogM (b, h, nc, tile pairs,
     STRIP) each, dT and dE (b, h, l) each, and the partials of
-    sum(dh (.) h_in) (b, h, nc, CARRY_PARTS)."""
+    sum(dh (.) h_in) (b, h, nc, carry_parts(n, p))."""
     nc, t = l // chunk, chunk // STRIP
     pairs = t * (t + 1) // 2
-    return (2 * b * nc * chunk * chunk + b * nc * h * STATE * HEAD_DIM
-            + 2 * b * h * nc * pairs * STRIP + 2 * b * h * l + b * h * nc * CARRY_PARTS)
+    return (2 * b * nc * chunk * chunk + b * nc * h * n * p
+            + 2 * b * h * nc * pairs * STRIP + 2 * b * h * l + b * h * nc * carry_parts(n, p))
 
 
 def _check_geometry(n: int, p: int, l: int, chunk: int) -> None:
-    if n != STATE or p != HEAD_DIM:
-        raise ValueError(f"the SSD kernels are built for d_state {STATE} and head_dim "
-                         f"{HEAD_DIM}, got {n} and {p}")
+    if n <= 0 or p <= 0 or n % STATE_TILE or p % STATE_TILE:
+        raise ValueError(f"the SSD kernels are built for d_state and head_dim that are "
+                         f"multiples of {STATE_TILE}, as the JAX kernels compile; got "
+                         f"d_state {n} and head_dim {p}")
     if chunk % CHUNK_ALIGN or not 0 < chunk <= MAX_CHUNK:
         raise ValueError(f"the SSD kernels take a chunk that is a multiple of {CHUNK_ALIGN} "
                          f"up to {MAX_CHUNK}, got {chunk}")
@@ -390,6 +401,13 @@ def chunk_variant(chunk: int) -> str:
     if chunk % STRIP:
         return "_strip"
     return "_long" if chunk > TUNED_CHUNK else ""
+
+
+def kernel_variant(chunk: int, n: int, p: int) -> str:
+    """The variant that runs ``chunk`` at d_state ``n`` and head_dim ``p``:
+    :func:`chunk_variant`, followed by '_wide' unless n = p = 128 (the wide
+    instantiation)."""
+    return chunk_variant(chunk) + ("" if (n, p) == (STATE, HEAD_DIM) else "_wide")
 
 
 def _strip_len(chunk: int) -> int:
@@ -609,7 +627,7 @@ def run_bwd(lib, xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int, stream, dh_f
     if dxbc.numel() == 0:
         return dxbc.zero_(), ddt, dS, torch.zeros_like(D)
     dD_part = torch.empty((b, h, nc, chunk // STRIP), **f32)
-    scratch = torch.empty(bwd_scratch_floats(b, l, h, chunk), **f32)
+    scratch = torch.empty(bwd_scratch_floats(b, l, h, chunk, n, d_inner // h), **f32)
     _raise_on(lib.ssd_xbc_bwd_error_string, entry(
         xbc.data_ptr(), dt.data_ptr(), S.data_ptr(), D.data_ptr(), h_in.data_ptr(),
         dy.data_ptr(), *(() if dh_fin is None else (dh_fin.data_ptr(),)), dxbc.data_ptr(),
@@ -640,7 +658,7 @@ def run_split_bwd(lib, x, dt, S, Bm, Cm, h_in, dy, chunk: int, dh_fin, stream):
     ddt, dS = torch.empty_like(dt), torch.empty_like(S)
     entry = lib.ssd_split_bwd_bf16 if x.dtype == torch.bfloat16 else lib.ssd_split_bwd
     if dx.numel():
-        scratch = torch.empty(bwd_scratch_floats(b, l, h, chunk), **f32)
+        scratch = torch.empty(bwd_scratch_floats(b, l, h, chunk, n, d // h), **f32)
         _raise_on(lib.ssd_xbc_bwd_error_string, entry(
             x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(), S.data_ptr(),
             h_in.data_ptr(), dy.data_ptr(), None if dh_fin is None else dh_fin.data_ptr(),
@@ -654,27 +672,27 @@ def run_split_bwd(lib, x, dt, S, Bm, Cm, h_in, dy, chunk: int, dh_fin, stream):
 
 
 def _launch_fwd(xbc, dt, S, D, d_inner: int, chunk: int, states: bool, hfin: bool = False):
-    _check_inputs(xbc, dt, S, D, d_inner, chunk)
+    _, _, _, n, p = _check_inputs(xbc, dt, S, D, d_inner, chunk)
     with torch.cuda.device(xbc.device):
         out = run_fwd(_fwd_library(), xbc, dt, S, D, d_inner, chunk, states,
                       torch.cuda.current_stream(xbc.device).cuda_stream, hfin=hfin)
     if out[0].numel():
-        _count(_XBC_FWD[(states, hfin, xbc.dtype == torch.bfloat16)], chunk)
+        _count(_XBC_FWD[(states, hfin, xbc.dtype == torch.bfloat16)], chunk, n, p)
     return out
 
 
 def _launch_bwd(xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int, dh_fin=None):
     extra = dict(h_in=h_in, dy=dy) | ({} if dh_fin is None else dict(dh_fin=dh_fin))
-    _check_inputs(xbc, dt, S, D, d_inner, chunk, extra)
+    _, _, _, n, p = _check_inputs(xbc, dt, S, D, d_inner, chunk, extra)
     with torch.cuda.device(xbc.device):
         out = run_bwd(_bwd_library(), xbc, dt, S, D, h_in, dy, d_inner, chunk,
                       torch.cuda.current_stream(xbc.device).cuda_stream, dh_fin=dh_fin)
     if out[0].numel():
         bf16 = xbc.dtype == torch.bfloat16
         if dh_fin is None:
-            _count(ssd_xbc_bwd_bf16 if bf16 else ssd_xbc_bwd, chunk)
+            _count(ssd_xbc_bwd_bf16 if bf16 else ssd_xbc_bwd, chunk, n, p)
         else:
-            _count(ssd_xbc_bwd_seeded_bf16 if bf16 else ssd_xbc_bwd_seeded, chunk)
+            _count(ssd_xbc_bwd_seeded_bf16 if bf16 else ssd_xbc_bwd_seeded, chunk, n, p)
     return out
 
 
@@ -815,27 +833,27 @@ def ssd_chunked_xbc(xbc, dt, A, D, *, d_inner: int, chunk: int = 128,
 
 
 def _launch_split_fwd(x, dt, S, Bm, Cm, chunk: int, states: bool, hfin: bool):
-    _check_split(x, dt, S, Bm, Cm, chunk)
+    _, _, _, n, p = _check_split(x, dt, S, Bm, Cm, chunk)
     with torch.cuda.device(x.device):
         out = run_split_fwd(_fwd_library(), x, dt, S, Bm, Cm, chunk, states, hfin,
                             torch.cuda.current_stream(x.device).cuda_stream)
     if out[0].numel():
-        _count(_SPLIT_FWD[(states, hfin, x.dtype == torch.bfloat16)], chunk)
+        _count(_SPLIT_FWD[(states, hfin, x.dtype == torch.bfloat16)], chunk, n, p)
     return out
 
 
 def _launch_split_bwd(x, dt, S, Bm, Cm, h_in, dy, chunk: int, dh_fin=None):
     extra = dict(h_in=h_in, dy=dy) | ({} if dh_fin is None else dict(dh_fin=dh_fin))
-    _check_split(x, dt, S, Bm, Cm, chunk, extra)
+    _, _, _, n, p = _check_split(x, dt, S, Bm, Cm, chunk, extra)
     with torch.cuda.device(x.device):
         out = run_split_bwd(_bwd_library(), x, dt, S, Bm, Cm, h_in, dy, chunk, dh_fin,
                             torch.cuda.current_stream(x.device).cuda_stream)
     if out[0].numel():
         bf16 = x.dtype == torch.bfloat16
         if dh_fin is None:
-            _count(ssd_split_bwd_bf16 if bf16 else ssd_split_bwd, chunk)
+            _count(ssd_split_bwd_bf16 if bf16 else ssd_split_bwd, chunk, n, p)
         else:
-            _count(ssd_split_bwd_seeded_bf16 if bf16 else ssd_split_bwd_seeded, chunk)
+            _count(ssd_split_bwd_seeded_bf16 if bf16 else ssd_split_bwd_seeded, chunk, n, p)
     return out
 
 
@@ -1079,15 +1097,18 @@ def _variant_name(wrapper_name: str, variant: str) -> str:
     return base + variant + wrapper_name[len(base):]
 
 
-# the launch counts of the '_strip' and '_long' variants of every entry point
+# the launch counts of every entry point's variants other than the tuned
+# one: '_strip' and '_long' at n = p = 128, and each of the three chunk
+# variants of the wide instantiation
 VARIANT_LAUNCHES = {_variant_name(fn.__name__, v): LaunchCount()
-                    for fn in _WRAPPERS for v in ("_strip", "_long")}
+                    for fn in _WRAPPERS
+                    for v in ("_strip", "_long", "_wide", "_strip_wide", "_long_wide")}
 
 
-def _count(wrapper, chunk: int) -> None:
-    """One launch of ``wrapper``'s kernel at ``chunk``, on the count of the
-    variant that ran it."""
-    variant = chunk_variant(chunk)
+def _count(wrapper, chunk: int, n: int, p: int) -> None:
+    """One launch of ``wrapper``'s kernel at ``chunk``, d_state ``n`` and
+    head_dim ``p``, on the count of the variant that ran it."""
+    variant = kernel_variant(chunk, n, p)
     if variant:
         VARIANT_LAUNCHES[_variant_name(wrapper.__name__, variant)].launches += 1
     else:

@@ -36,9 +36,8 @@ import torch.nn.functional as F
 from si_mamba_tpu_torch.ops.kernels.causal_conv import causal_conv1d_ref, causal_conv1d_silu_as_jax
 from si_mamba_tpu_torch.ops.kernels.ssd import (
     CHUNK_ALIGN,
-    HEAD_DIM,
     MAX_CHUNK,
-    STATE,
+    STATE_TILE,
     _rounder,
     ssd_chunked_xbc,
     ssd_chunks_ref,
@@ -110,10 +109,12 @@ def ssd_chunked(x, dt, A, Bm, Cm, D, *, chunk: int = 64, return_carry: bool = Fa
 
 
 def ssd_fused_supported(l: int, chunk: int, d_state: int, head_dim: int) -> bool:
-    """The geometry the SSD kernels are built for: d_state = head_dim = 128
-    and every chunk that the JAX kernels compile for (``ssd_fused_supported``
-    of ssd_kernel.py: a multiple of 8, at least 8), up to 8192, dividing L."""
-    return (d_state == STATE and head_dim == HEAD_DIM and chunk % CHUNK_ALIGN == 0
+    """The geometry the SSD kernels are built for, what the JAX kernels
+    compile for (``ssd_fused_supported`` of ssd_kernel.py): d_state and
+    head_dim positive multiples of 128, a chunk that is a multiple of 8, at
+    least 8 (here also at most 8192), dividing L."""
+    return (d_state > 0 and head_dim > 0 and d_state % STATE_TILE == 0
+            and head_dim % STATE_TILE == 0 and chunk % CHUNK_ALIGN == 0
             and 0 < chunk <= MAX_CHUNK and l % chunk == 0)
 
 
@@ -134,8 +135,9 @@ def ssd_fused_route(impl: str, l_padded: int, chunk: int, d_state: int, head_dim
     if torch.device(device).type == "cuda" and not ssd_fused_supported(l_padded, chunk,
                                                                        d_state, head_dim):
         raise ValueError(
-            f"impl='ssd_fused' on CUDA runs kernels built for d_state = head_dim = {STATE} and "
-            f"a chunk that is a multiple of {CHUNK_ALIGN} up to {MAX_CHUNK} dividing L; got "
+            f"impl='ssd_fused' on CUDA runs kernels built for d_state and head_dim that are "
+            f"multiples of {STATE_TILE} and a chunk that is a multiple of {CHUNK_ALIGN} up to "
+            f"{MAX_CHUNK} dividing L; got "
             f"d_state {d_state}, head_dim {head_dim}, chunk {chunk}, L {l_padded}")
     return True
 

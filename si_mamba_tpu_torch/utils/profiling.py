@@ -14,21 +14,23 @@ import torch
 
 
 @contextlib.contextmanager
-def trace(log_dir: str):
+def trace(log_dir: str | None):
     """Profile the block with ``torch.profiler`` (the CPU, and CUDA when a
     GPU is present) and write ``<log_dir>/trace_<time>_<pid>.json``, a
-    Chrome trace (chrome://tracing, Perfetto). Yields the profiler, whose
-    ``key_averages()`` sums the events by name."""
+    Chrome trace (chrome://tracing, Perfetto), unless ``log_dir`` is None.
+    Yields the profiler, whose ``key_averages()`` sums the events by name."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
+    if log_dir is not None:
+        os.makedirs(log_dir, exist_ok=True)
     with profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(
-        log_dir, f"trace_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}.json"))
+    if log_dir is not None:
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"trace_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}.json"))
 
 
 def _fence(out) -> None:

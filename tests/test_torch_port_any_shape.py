@@ -301,14 +301,19 @@ def test_strip_layout_is_exact(chunk):
 def test_chunk_variants():
     """Which variant runs a chunk: the tuned strips at multiples of 64 up to
     256, '_strip' for any chunk that is no multiple of 64, '_long' above 256;
-    every variant of every entry point has its launch count."""
+    at a d_state or head_dim other than 128 each of them followed by
+    '_wide'; every variant of every entry point has its launch count."""
     assert [kssd.chunk_variant(c) for c in (64, 128, 192, 256)] == [""] * 4
     assert [kssd.chunk_variant(c) for c in (8, 32, 96, 200, 520)] == ["_strip"] * 5
     assert [kssd.chunk_variant(c) for c in (320, 512, 1024)] == ["_long"] * 3
     assert kssd._variant_name("ssd_xbc_fwd_states_bf16", "_strip") == \
         "ssd_xbc_fwd_states_strip_bf16"
-    assert len(kssd.VARIANT_LAUNCHES) == 2 * 24
+    assert [kssd.kernel_variant(c, 256, 128) for c in (64, 32, 512)] == \
+        ["_wide", "_strip_wide", "_long_wide"]
+    assert kssd.kernel_variant(512, 128, 128) == "_long"
+    assert len(kssd.VARIANT_LAUNCHES) == 5 * 24
     assert "ssd_split_bwd_seeded_long" in kssd.VARIANT_LAUNCHES
+    assert "ssd_xbc_fwd_states_strip_wide_bf16" in kssd.VARIANT_LAUNCHES
 
 
 @pytest.mark.parametrize("chunk", [8, 16, 24, 32, 96, 512, 1024])
@@ -316,9 +321,9 @@ def test_ssd_routing_on_cuda_admits_what_jax_compiles(chunk):
     """``ssd_fused_route`` and ``ssd_fused_engaged`` on a "cuda" device admit
     every chunk the JAX kernels compile (a multiple of 8, L padded to a
     multiple of the chunk) at d_state = head_dim = 128, as JAX's own
-    ``ssd_fused_supported`` does; d_state 64 raises by name (JAX's compiled
-    kernel refuses it too), and d_state 256, which JAX compiles, is left for
-    another slice and raises by name as well."""
+    ``ssd_fused_supported`` does; d_state 256, which JAX compiles, is admitted
+    too (the wide instantiation), and d_state 64 raises by name (JAX's
+    compiled kernel refuses it too)."""
     l = 1024 if chunk == 1024 else 512
     lp = l + (-l) % chunk
     assert jk.ssd_fused_supported(lp, chunk, 128, 128)
@@ -326,11 +331,13 @@ def test_ssd_routing_on_cuda_admits_what_jax_compiles(chunk):
     assert tssd.ssd_fused_route("ssd_fused", lp, chunk, 128, 128, "cuda")
     assert tssd.ssd_fused_engaged(l, chunk=chunk, device="cuda")
     assert not tssd.ssd_fused_engaged(l, chunk=chunk, device="cpu")
-    for d_state in (64, 256):
-        assert jk.ssd_fused_supported(lp, chunk, d_state, 128) == (d_state == 256)
-        with pytest.raises(ValueError, match="d_state = head_dim = 128"):
-            tssd.ssd_fused_route("ssd_fused", lp, chunk, d_state, 128, "cuda")
-        assert not tssd.ssd_fused_engaged(l, chunk=chunk, d_state=d_state, device="cuda")
+    assert jk.ssd_fused_supported(lp, chunk, 256, 128)
+    assert tssd.ssd_fused_route("ssd_fused", lp, chunk, 256, 128, "cuda")
+    assert tssd.ssd_fused_engaged(l, chunk=chunk, d_state=256, device="cuda")
+    assert not jk.ssd_fused_supported(lp, chunk, 64, 128)
+    with pytest.raises(ValueError, match="multiples of 128.*d_state 64"):
+        tssd.ssd_fused_route("ssd_fused", lp, chunk, 64, 128, "cuda")
+    assert not tssd.ssd_fused_engaged(l, chunk=chunk, d_state=64, device="cuda")
 
 
 def test_ssd_routing_refuses_what_jax_refuses():

@@ -569,9 +569,10 @@ def test_ssd_kernels_reject_what_they_do_not_take(cuda):
                  for t in (dth, S))
     with pytest.raises(ValueError, match="multiple of 8"):
         kssd.ssd_xbc_fwd(xbc[:, :120], dt12, S12, D, d, 12)
-    small, dth2, S2, D2, d2 = _ssd_case(rng, 1, 128, 1, 64, cuda, n=64)
-    with pytest.raises(ValueError, match="d_state 128"):
-        kssd.ssd_xbc_fwd(small, dth2, S2, D2, d2, 64)
+    for n in (64, 192):  # d_state no multiple of 128, which JAX refuses too
+        small, dth2, S2, D2, d2 = _ssd_case(rng, 1, 128, 1, 64, cuda, n=n)
+        with pytest.raises(ValueError, match=f"multiples of 128.*d_state {n} "):
+            kssd.ssd_xbc_fwd(small, dth2, S2, D2, d2, 64)
     with pytest.raises(TypeError):
         kssd.ssd_xbc_fwd(xbc.double(), dth, S, D, d, 64)
     with pytest.raises(ValueError, match="CUDA device"):
@@ -845,7 +846,7 @@ def test_split_kernels_refuse_scratch_of_another_size(cuda):
     dy = _randn(rng, 1, 128, 128, device=cuda)
     dx, dbc = torch.empty((1, 128, 128), **f32), torch.empty((1, 128, 256), **f32)
     ddt, dS = torch.empty_like(dth), torch.empty_like(S)
-    n_scratch = kssd.bwd_scratch_floats(1, 128, 1, 64)
+    n_scratch = kssd.bwd_scratch_floats(1, 128, 1, 64, 128, 128)
     scratch = torch.empty(n_scratch + 1, **f32)
 
     def bwd(scratch_n, seed):
@@ -876,9 +877,10 @@ def test_split_kernels_reject_what_they_do_not_take(cuda):
                  for t in (dth, S))
     with pytest.raises(ValueError, match="multiple of 8"):
         kssd.ssd_split_fwd(x[:, :120], dt12, S12, Bm[:, :120], Cm[:, :120], 12)
-    xs, dth2, S2, Bs, Cs = _split_case(rng, 1, 128, 1, 64, cuda, n=64)
-    with pytest.raises(ValueError, match="d_state 128"):
-        kssd.ssd_split_fwd(xs, dth2, S2, Bs, Cs, 64)
+    for n, p in ((64, 128), (192, 128), (128, 192)):  # refused by JAX too
+        xs, dth2, S2, Bs, Cs = _split_case(rng, 1, 128, 1, 64, cuda, n=n, p=p)
+        with pytest.raises(ValueError, match=f"multiples of 128.*d_state {n} and head_dim {p}"):
+            kssd.ssd_split_fwd(xs, dth2, S2, Bs, Cs, 64)
     with pytest.raises(TypeError):
         kssd.ssd_split_fwd(x.double(), dth, S, Bm, Cm, 64)
     with pytest.raises(ValueError, match="CUDA device"):
@@ -1926,9 +1928,8 @@ def test_fused_mixer_any_shape_holds_and_repeats(cuda, d_model, d_state, d_conv,
         assert torch.equal(a, c)
 
 
-def _ssd_any_case(rng, b, l, h, chunk, device, dtype):
+def _ssd_any_case(rng, b, l, h, chunk, device, dtype, n=128, p=128):
     """xbc in ``dtype`` (contiguous), dt and S (b, h, nc, chunk), D (h,)."""
-    n = p = 128
     xbc = (_randn(rng, b, l, h * p + 2 * n, scale=0.5, device=device)).to(dtype)
     dth = torch.tensor(rng.uniform(0.0, 0.05, (b, h, l // chunk, chunk)).astype(np.float32),
                        device=device)
@@ -1998,3 +1999,70 @@ def test_ssd_states_zero_the_whole_first_entry_state_at_chunk_192(cuda):
                                    torch.float32)
     _, h_in = kssd.ssd_xbc_fwd_states(xbc, dth, S, D, 256, 192)
     assert bool((h_in[:, 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [32, 256, 512])
+@pytest.mark.parametrize("n,p,h", [(256, 256, 1), (256, 128, 2), (128, 256, 1), (384, 384, 1)])
+def test_ssd_kernels_at_wide_states_hold_and_repeat(cuda, n, p, h, chunk, dtype):
+    """Every K8/K9 and K6/K7 entry point at d_state and head_dim that are
+    multiples of 128 other than 128 (the wide instantiation), at a chunk of
+    each variant, against the plain versions (fp32: 1e-5 of max forward,
+    1e-4 backward; bf16: 2e-2 and 3e-2 of max, the fp32 states 1e-3), each
+    launch on its '_wide' variant's count; every backward run twice is
+    bitwise equal."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    rng = np.random.default_rng(n + p + chunk)
+    l, d = 512, h * p
+    xbc, dth, S, D = _ssd_any_case(rng, 2, l, h, chunk, cuda, dtype, n=n, p=p)
+    dy = _randn(rng, 2, l, d, device=cuda).to(dtype)
+    dh_fin = _randn(rng, 2, h, n, p, device=cuda)
+    bf = dtype == torch.bfloat16
+    fwd_tol, st_tol, grad_tol = (2e-2, 1e-3, 3e-2) if bf else (1e-5, 1e-5, 1e-4)
+    variant = kssd.kernel_variant(chunk, n, p)
+    assert variant.endswith("_wide")
+    count = lambda name: kssd.VARIANT_LAUNCHES[  # noqa: E731
+        kssd._variant_name(name + ("_bf16" if bf else ""), variant)].launches
+    names = ("ssd_xbc_fwd", "ssd_xbc_fwd_states_hfin", "ssd_xbc_bwd", "ssd_xbc_bwd_seeded",
+             "ssd_split_fwd_hfin", "ssd_split_fwd_states", "ssd_split_bwd",
+             "ssd_split_bwd_seeded")
+    c0 = {k: count(k) for k in names}
+    y, h_in, h_fin = kssd.ssd_xbc_fwd_states_hfin(xbc, dth, S, D, d, chunk)
+    ry, rh, rf = kssd.ssd_xbc_fwd_ref(xbc, dth, S, D, d, chunk, emit_states=True,
+                                      emit_hfin=True)
+    _ulp_or_rel(y, ry, fwd_tol, fwd_tol)
+    _close_to_max(h_in, rh, st_tol)
+    _close_to_max(h_fin, rf, st_tol)
+    assert torch.equal(kssd.ssd_xbc_fwd(xbc, dth, S, D, d, chunk), y)
+    for seed in (None, dh_fin):
+        want = kssd.ssd_xbc_bwd_ref(xbc, dth, S, D, h_in, dy, d, chunk, dh_fin=seed)
+        runs = [kssd.ssd_xbc_bwd(xbc, dth, S, D, h_in, dy, d, chunk) if seed is None else
+                kssd.ssd_xbc_bwd_seeded(xbc, dth, S, D, h_in, dy, seed, d, chunk)
+                for _ in range(2)]
+        for a, b, r in zip(*runs, want):
+            _ulp_or_rel(a, r, grad_tol, grad_tol)
+            assert torch.equal(a, b)
+    x, Bm, Cm = xbc[..., :d], xbc[..., d:d + n], xbc[..., d + n:]
+    ys, hs = kssd.ssd_split_fwd_states(x, dth, S, Bm, Cm, chunk)
+    yf, fs = kssd.ssd_split_fwd_hfin(x, dth, S, Bm, Cm, chunk)
+    rys, rhs, rfs = kssd.ssd_split_fwd_ref(x, dth, S, Bm, Cm, chunk, emit_states=True,
+                                           emit_hfin=True)
+    _ulp_or_rel(ys, rys, fwd_tol, fwd_tol)
+    _close_to_max(hs, rhs, st_tol)
+    _close_to_max(fs, rfs, st_tol)
+    assert torch.equal(yf, ys)
+    for seed in (None, dh_fin):
+        want = kssd.ssd_split_bwd_ref(x, dth, S, Bm, Cm, hs, dy, chunk, dh_fin=seed)
+        runs = [kssd.ssd_split_bwd(x, dth, S, Bm, Cm, hs, dy, chunk) if seed is None else
+                kssd.ssd_split_bwd_seeded(x, dth, S, Bm, Cm, hs, dy, seed, chunk)
+                for _ in range(2)]
+        for a, b, r in zip(*runs, want):
+            _ulp_or_rel(a, r, grad_tol, grad_tol)
+            assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    launched = {k: count(k) - v for k, v in c0.items()}
+    assert launched == dict(ssd_xbc_fwd=1, ssd_xbc_fwd_states_hfin=1, ssd_xbc_bwd=2,
+                            ssd_xbc_bwd_seeded=2, ssd_split_fwd_hfin=1, ssd_split_fwd_states=1,
+                            ssd_split_bwd=2, ssd_split_bwd_seeded=2)
