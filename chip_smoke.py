@@ -10,9 +10,10 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
 
 1. device: requires CUDA, prints ``nvidia-smi``'s name and power limit, turns
    TF32 off for matmuls and convolutions;
-2. build: the eight CUDA sources (K1-K11 each with its fp32 and bf16
-   variants, and csrc/mamba_any.cu: K1-K5 and K10/K11 at the shapes the tuned
-   kernels are not built for), one ``nvcc`` each, in parallel, before
+2. build: the nine CUDA sources (K1-K11 each with its fp32 and bf16
+   variants, csrc/mamba_any.cu: K1-K5 and K10/K11 at the shapes the tuned
+   kernels are not built for, and csrc/ssd_xbc_bf16_sm90.cu: the bf16 K8/K9
+   at the bf16 SSD presets' shapes), one ``nvcc`` each, in parallel, before
    any rank of phases 11-14 starts;
 3. kernels: at the serving path's full-width shapes (B=32, L=512, d_inner=768,
    d_state=16, fp32, strided views as the mixer makes them) each kernel is
@@ -165,7 +166,10 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
 19. the SSD presets' kernels (after phase 16): the bf16 K1 and K5 at the SSD
    view (row stride 1798: rows 4-byte aligned, two channels a thread for
    K1) and at the tensor-parallel operands (384 and 256 wide), then the bf16
-   K8 (lean, also at B = 1, 20 and 64, and with states), K9, and at the
+   K8 (lean, also at B = 1, 20 and 64, and with states) and K9 on the Hopper
+   bf16 body (csrc/ssd_xbc_bf16_sm90.cu, '_sm90' in their record names and
+   launch counts; K9's ddt scaled by 1.05 must fail its hold), also at chunk
+   64, the smallest it serves (``at_chunk64``), and at the
    tensor-parallel shard and at phase 22's shapes (a rank's 256 rows, 6
    heads, chunk 128) the bf16 K6 (lean, with states, with h_fin, with
    both; the same y from each) and K7 (from 0, seeded), each backward twice,
@@ -179,7 +183,8 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    through phases 5-7: every forward launches the bf16 conv and lean bf16 K8
    12 times each and nothing else, logits and features within
    PERF_LOGITS_TOL of 'xla' at bf16; every step the bf16 conv forward and
-   backward, K8 with states and K9 12 times each; then (after phase 18)
+   backward, K8 with states and K9 12 times each (K8 and K9 on the Hopper
+   bf16 body, its '_sm90' counts); then (after phase 18)
    cfgs/finetune_modelnet_ssd_fused.yaml as the file stands through the CLI
    (one epoch of two steps and a validation) and ``--test`` of its
    ckpt-last.pth, launches counted, its accuracy the last validation's;
@@ -205,7 +210,8 @@ It needs ``nvcc`` (the CUDA toolkit) and builds the kernels from
    clouds; each record carries the fp32 kernel's times of this run;
 24. K8/K9's carry entry points (after phase 23): K8 with h_fin (lean, with
    states) and the seeded K9 at the SSD shape (width 1024, 6 heads of 128,
-   chunk 256, B=32, L=512), fp32 and bf16, each against its plain version
+   chunk 256, B=32, L=512), fp32 and bf16 (the bf16 ones on the Hopper bf16
+   body, '_sm90'), each against its plain version
    (fp32: y, h_in, h_fin within 1e-5 of their max, gradients within 4.5e-6;
    bf16: 2 ulps at a floor of 2e-2, fp32 outputs within 1e-3) and timed
    beside it; then the path that reaches them,
@@ -505,10 +511,12 @@ EVAL_KERNELS = ("causal_conv1d_silu", "selective_scan_fwd")
 PERF_TRAIN_KERNELS = ("causal_conv1d_silu_bf16", "selective_scan_fwd_residuals_bf16",
                       "selective_scan_bwd_bf16", "causal_conv1d_silu_bwd_bf16")
 PERF_EVAL_KERNELS = ("causal_conv1d_silu_bf16", "selective_scan_fwd_bf16")
-# the SSD presets' kernels: a train step's, an eval forward's
-SSD_PERF_TRAIN_KERNELS = ("causal_conv1d_silu_bf16", "ssd_xbc_fwd_states_bf16", "ssd_xbc_bwd_bf16",
-                          "causal_conv1d_silu_bwd_bf16")
-SSD_PERF_EVAL_KERNELS = ("causal_conv1d_silu_bf16", "ssd_xbc_fwd_bf16")
+# the bf16 SSD presets' kernels: a train step's, an eval forward's (K8 and K9
+# on the Hopper bf16 body, csrc/ssd_xbc_bf16_sm90.cu, at their chunks 256 and
+# 128)
+SSD_PERF_TRAIN_KERNELS = ("causal_conv1d_silu_bf16", "ssd_xbc_fwd_states_sm90_bf16",
+                          "ssd_xbc_bwd_sm90_bf16", "causal_conv1d_silu_bwd_bf16")
+SSD_PERF_EVAL_KERNELS = ("causal_conv1d_silu_bf16", "ssd_xbc_fwd_sm90_bf16")
 # the fused perf route's kernels (perf mode on scan_impl 'fused'): a train
 # step's, an eval forward's
 FUSED_PERF_TRAIN_KERNELS = ("fused_mixer_fwd_states_bf16", "fused_mixer_bwd_bf16")
@@ -1693,15 +1701,23 @@ def ssd_xbc_bf16_figures(args, length: int, truth: bool, train: bool = True,
     """The bf16 K8/K9 on ``args`` (xbc, dt, S, D, d_inner, chunk; xbc's rows
     from ``length`` on the mixer's padding): with ``infer`` the lean K8, with
     ``train`` K8 with states (its y equal to the lean y) and K9 (twice,
-    bitwise equal, for a seeded cotangent that is 0 on the padding), each
-    timed beside its plain version and held: K8's y and K9's dxbc with
-    ``truth`` against the fp64 truth (``_hold_bf16_truth``), else within 2
-    bf16 ulps of the plain version; the fp32 outputs within 1e-3 of their max
-    (``_hold_bf16``). Returns {kernel name: figures}."""
+    bitwise equal, for a seeded cotangent that is 0 on the padding; a planted
+    fault, its ddt scaled by 1.05, must fail the hold), each timed beside its
+    plain version and held: K8's y and K9's dxbc with ``truth`` against the
+    fp64 truth (``_hold_bf16_truth``), else within 2 bf16 ulps of the plain
+    version; the fp32 outputs within 1e-3 of their max (``_hold_bf16``).
+    Returns {kernel name: figures}, each name with the variant that ran it
+    (``kssd.kernel_variant``: '_sm90', the Hopper bf16 body, at the chunks it
+    serves)."""
     from si_mamba_tpu_torch.ops.kernels import ssd as kssd
 
     xbc, dth, S, D, d, chunk = args
     batch, L = xbc.shape[:2]
+    variant = kssd.kernel_variant(chunk, (xbc.shape[-1] - d) // 2, d // dth.shape[1], xbc.dtype)
+
+    def named(entry):
+        return kssd._variant_name(entry + "_bf16", variant)
+
     fwd_work, bwd_work = _ssd_bf16_work(batch, L, dth.shape[1], chunk, d_skip=True)
     where = f"B={batch}, L={L}"
     out = {}
@@ -1723,7 +1739,7 @@ def ssd_xbc_bf16_figures(args, length: int, truth: bool, train: bool = True,
     if infer:
         y_lean = kssd.ssd_xbc_fwd_bf16(*args)
         held = hold("bf16 K8 y", y_lean, kssd.ssd_xbc_fwd_ref(*args)[0], y_truth)
-        out["ssd_xbc_fwd_bf16"] = figures(lambda: kssd.ssd_xbc_fwd_bf16(*args),
+        out[named("ssd_xbc_fwd")] = figures(lambda: kssd.ssd_xbc_fwd_bf16(*args),
                                           lambda: kssd.ssd_xbc_fwd_ref(*args), held,
                                           fwd_work[(False, False)], 20)
     if not train:
@@ -1736,7 +1752,7 @@ def ssd_xbc_bf16_figures(args, length: int, truth: bool, train: bool = True,
                              f"{where}")
     held = hold("bf16 K8 y", y8, y_ref, y_truth)
     err_h = _hold_bf16(f"bf16 K8 h_in at {where}", h_in, h_ref)
-    out["ssd_xbc_fwd_states_bf16"] = figures(
+    out[named("ssd_xbc_fwd_states")] = figures(
         lambda: kssd.ssd_xbc_fwd_states_bf16(*args),
         lambda: kssd.ssd_xbc_fwd_ref(*args, emit_states=True), held, fwd_work[(True, False)],
         20, err_h)
@@ -1753,7 +1769,13 @@ def ssd_xbc_bf16_figures(args, length: int, truth: bool, train: bool = True,
                 lambda: kssd.ssd_xbc_bwd_ref(*_f64(bwd_args))[0])
     err9 = max(_hold_bf16(f"bf16 K9 {k} at {where}", a, w)
                for k, a, w in zip(("ddt", "dS", "dD"), got[1:], want[1:]))
-    out["ssd_xbc_bwd_bf16"] = figures(lambda: kssd.ssd_xbc_bwd_bf16(*bwd_args),
+    try:  # a planted fault: K9's ddt scaled by 1.05 must fail its hold
+        _hold_bf16(f"bf16 K9's ddt scaled by 1.05 at {where}", got[1] * 1.05, want[1])
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError(f"the bf16 K9 hold passes a planted fault in ddt at {where}")
+    out[named("ssd_xbc_bwd")] = figures(lambda: kssd.ssd_xbc_bwd_bf16(*bwd_args),
                                       lambda: kssd.ssd_xbc_bwd_ref(*bwd_args), held,
                                       bwd_work[False], 10, err9)
     return out
@@ -1844,16 +1866,24 @@ def ssd_bf16_kernel_phase(device) -> tuple[list[dict], dict]:
 
     def meta(name):
         fwd = "fwd" in name
+        source = ("ssd_xbc_bf16_sm90.cu" if "_sm90" in name else
+                  "ssd_xbc_" + ("fwd.cu" if fwd else "bwd.cu"))
         return dict(name=name, route="cuda", dtype="bfloat16",
-                    source="si_mamba_tpu_torch/csrc/ssd_xbc_" + ("fwd.cu" if fwd else "bwd.cu"),
+                    source="si_mamba_tpu_torch/csrc/" + source,
                     replaces="si_mamba_tpu/ops/pallas/ssd_kernel.py:" + (
                         ("540" if fwd else "623") if name.startswith("ssd_xbc") else
                         ("119" if fwd else "216")))
 
-    # K8 and K9, then the lean K8 at the serving request sizes
+    # K8 and K9 (the Hopper bf16 body at the preset's chunk 256, and at chunk
+    # 64, the smallest it serves), then the lean K8 at the serving request sizes
     _, dth, S, _, _, xbc, D, chunk = _split_operands(device, heads=6, batch=B, dtype=bf)
     records = [meta(name) | f for name, f in ssd_xbc_bf16_figures(
         (xbc, dth, S, D, d, chunk), L, truth=False).items()]
+    _, dth64, S64, _, _, xbc64, D64, _ = _split_operands(device, heads=6, batch=B, chunk=64,
+                                                         dtype=bf)
+    at64 = ssd_xbc_bf16_figures((xbc64, dth64, S64, D64, d, 64), L, truth=False)
+    for r in records:
+        r["at_chunk64"] = _keep(at64[r["name"]]) | {"chunk": 64}
     at_clouds = {}
     for batch in REQUEST_SIZES:
         a = _split_operands(device, heads=6, batch=batch, dtype=bf)
@@ -1959,8 +1989,9 @@ def ssd_carry_phase(device) -> tuple[list[dict], dict]:
     count from 0: once without a gradient (the lean K8 with h_fin), once with
     one through a loss of y and h_fin (K8 with states and h_fin, the seeded
     K9); its y and h_fin bitwise the kernels' above, its total decay
-    exp(sum of each chunk's last S), its gradients finite. Returns (the six
-    records, {"ssd_carry": launches, "ssd_carry_bf16": launches})."""
+    exp(sum of each chunk's last S), its gradients finite. At bf16 they run
+    the Hopper bf16 body ('_sm90' in their record names and counts). Returns
+    (the six records, {"ssd_carry": launches, "ssd_carry_bf16": launches})."""
     from si_mamba_tpu_torch.ops.kernels import ssd as kssd
 
     records, paths = [], {}
@@ -1977,6 +2008,8 @@ def ssd_carry_phase(device) -> tuple[list[dict], dict]:
         dh_fin = torch.from_numpy(0.1 * rng.standard_normal((B, h, 128, 128),
                                                             dtype=np.float32)).to(device)
         fwd_hfin, fwd_states_hfin, bwd_seeded = (getattr(kssd, n + sfx) for n in CARRY)
+        variant = kssd.kernel_variant(chunk, 128, 128, dtype)  # '_sm90' at bf16
+        named = {n: kssd._variant_name(n + sfx, variant) for n in CARRY}
         y_plain = kssd.ssd_xbc_fwd(*args)
         y_lean, hf_lean = fwd_hfin(*args)
         y, h_in, h_fin = fwd_states_hfin(*args)
@@ -2022,8 +2055,10 @@ def ssd_carry_phase(device) -> tuple[list[dict], dict]:
         for name, fn, plain, err, work in calls:
             fwd = "fwd" in name
             records.append(dict(
-                name=name + sfx, route="cuda", dtype=str(dtype).removeprefix("torch."),
-                source="si_mamba_tpu_torch/csrc/ssd_xbc_" + ("fwd.cu" if fwd else "bwd.cu"),
+                name=named[name], route="cuda", dtype=str(dtype).removeprefix("torch."),
+                source="si_mamba_tpu_torch/csrc/" + (
+                    "ssd_xbc_bf16_sm90.cu" if variant == "_sm90" else
+                    "ssd_xbc_" + ("fwd.cu" if fwd else "bwd.cu")),
                 replaces="si_mamba_tpu/ops/pallas/ssd_kernel.py:" + ("602" if fwd else "698"),
                 shape=dict(B=B, L=L, heads=h, chunk=chunk), max_abs_err=err,
                 ms=time_ms(fn, 20 if fwd else 10), device_ms=graph_ms(fn, 20 if fwd else 10),
@@ -2042,7 +2077,7 @@ def ssd_carry_phase(device) -> tuple[list[dict], dict]:
         torch.cuda.synchronize()
         path = "ssd_carry" + sfx
         paths[path] = _launch_counts()
-        expect = _counts_expect({n + sfx: 1 for n in CARRY}, 1)
+        expect = _counts_expect({named[n]: 1 for n in CARRY}, 1)
         if paths[path] != expect:
             raise AssertionError(f"{path} launched {paths[path]}, expected {expect}")
         dec_want = torch.exp(S[..., -1].sum(-1))
@@ -7824,7 +7859,7 @@ def main() -> int:
     bf16_records += [r for r in carry_records if r["dtype"] == "bfloat16"]
     fp32_of = {r["name"]: r for r in records}
     for r in bf16_records:  # the fp32 kernel's times from this run, beside
-        fp32 = fp32_of[r["name"].removesuffix("_bf16")]
+        fp32 = fp32_of[r["name"].removesuffix("_bf16").removesuffix("_sm90")]
         r["fp32_ms"], r["fp32_device_ms"] = fp32["ms"], fp32.get("device_ms")
     for r in bf16_records:
         if r["name"] in mae_shapes:
@@ -7927,9 +7962,10 @@ def main() -> int:
                  "selective_scan_fwd_residuals_bf16": "perf_train",
                  "selective_scan_bwd_bf16": "perf_train",
                  "causal_conv1d_silu_bwd_bf16": "perf_train",
-                 "ssd_xbc_fwd_bf16": "ssd_perf_serving",
-                 "ssd_xbc_fwd_states_bf16": "ssd_perf_train",
-                 "ssd_xbc_bwd_bf16": "ssd_perf_train", "ssd_split_fwd_bf16": "tp_ssd_perf_serving",
+                 "ssd_xbc_fwd_sm90_bf16": "ssd_perf_serving",
+                 "ssd_xbc_fwd_states_sm90_bf16": "ssd_perf_train",
+                 "ssd_xbc_bwd_sm90_bf16": "ssd_perf_train",
+                 "ssd_split_fwd_bf16": "tp_ssd_perf_serving",
                  "ssd_split_fwd_states_bf16": "tp_ssd_perf_train",
                  "ssd_split_bwd_bf16": "tp_ssd_perf_train", "ssd_split_fwd_hfin_bf16": "sp_bf16",
                  "ssd_split_fwd_states_hfin_bf16": "sp_bf16_train",
@@ -7938,7 +7974,7 @@ def main() -> int:
                  "fused_mixer_fwd_states_bf16": "fused_perf_train",
                  "fused_mixer_bwd_bf16": "fused_perf_train",
                  **{n: "ssd_carry" for n in CARRY},
-                 **{n + "_bf16": "ssd_carry_bf16" for n in CARRY},
+                 **{n + "_sm90_bf16": "ssd_carry_bf16" for n in CARRY},
                  **{name: slice21_main_path(name) for name in any_figures},
                  **{name: fig["path"] for name, fig in wide_figures.items()}}
     for r in records:

@@ -54,6 +54,15 @@ their own launch counts (``VARIANT_LAUNCHES``), chosen by the chunk before
 the launch; the wide instantiation adds ``_wide`` to the name of whichever
 of the three ran (:func:`kernel_variant`).
 
+At bf16, d_state = head_dim = 128 and a chunk of :data:`SM90_CHUNKS`, every
+K8 (lean, with states, with h_fin) and K9 (from 0 or seeded) runs a body of
+its own, ``csrc/ssd_xbc_bf16_sm90.cu`` (:data:`SM90_SOURCE`): every product a
+Hopper warpgroup ``wgmma``, G kept in registers as the next product's
+operand, the chunk carry in the accumulator, the tiles brought by the tensor
+memory accelerator (:func:`run_sm90_fwd`, :func:`run_sm90_bwd`;
+:func:`kernel_variant` names it '_sm90', its launches count on
+``VARIANT_LAUNCHES``). Every other call keeps the chunk-parallel bodies.
+
 Every kernel takes fp32 or bf16 activations (xbc, or x, B and C, and dy; y,
 dx, dB and dC come back in their dtype), with dt, S, D, h_in and dh_fin fp32,
 as the TPU kernels take them at either activation dtype. At bf16 the products
@@ -90,6 +99,8 @@ STRIP = 64  # rows of a time strip (kBM); a chunk that is no multiple runs laid 
 CHUNK_ALIGN = 8  # the chunk is a multiple of this, as the JAX kernels require
 TUNED_CHUNK = 256  # the longest chunk the per-chunk shared arrays always held (kArrayFloor)
 MAX_CHUNK = 8192  # the longest chunk the kernels' dynamic shared memory holds (kMaxChunk)
+SM90_SOURCE = "ssd_xbc_bf16_sm90"  # the Hopper bf16 K8/K9 body
+SM90_CHUNKS = (64, 128, 192, 256)  # the chunks it serves (a multiple of 64 up to kMaxChunk)
 # the activation dtypes the kernels are built for; dt, S, D and the states are fp32
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -322,6 +333,11 @@ def _bwd_library() -> ctypes.CDLL:
     return bwd_interface(load_library("ssd_xbc_bwd"))
 
 
+@functools.cache
+def _sm90_library() -> ctypes.CDLL:
+    return sm90_interface(load_library(SM90_SOURCE))
+
+
 _I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 # The C entry points of the ``ssd_xbc_fwd`` library by name, each with its
 # argument list, which its ``_bf16`` twin shares: the pointers, h_in (or the
@@ -340,6 +356,16 @@ FWD_ENTRIES = {"ssd_xbc_fwd": [_P] * 6 + [_LL, _I, _P, _LL] + [_I] * 7 + [_LL] *
 BWD_ENTRIES = {"ssd_xbc_bwd": [_P] * 10 + [_LL, _P, _LL] + [_I] * 7 + [_LL] * 4 + [_P],
                "ssd_xbc_bwd_seeded": [_P] * 11 + [_LL, _P, _LL] + [_I] * 7 + [_LL] * 4 + [_P],
                "ssd_split_bwd": [_P] * 13 + [_LL] + [_I] * 6 + [_LL] * 8 + [_P]}
+
+
+# those of the ``ssd_xbc_bf16_sm90`` library: K8 (the pointers, h_in or the
+# lean scratch with its float count, the states flag, h_fin or null, the bf16
+# copy of the states with its element count, the geometry, xbc's strides, the
+# stream) and K9 (the pointers, dh_fin or null among them, dD's partials and
+# the scratch each with its float count, the geometry, the operands' strides,
+# the stream).
+SM90_ENTRIES = {"ssd_sm90_fwd": [_P] * 6 + [_LL, _I, _P, _P, _LL] + [_I] * 7 + [_LL] * 2 + [_P],
+                "ssd_sm90_bwd": [_P] * 11 + [_LL, _P, _LL] + [_I] * 7 + [_LL] * 4 + [_P]}
 
 
 def _declare(lib: ctypes.CDLL, entries: dict, error_string: str) -> ctypes.CDLL:
@@ -363,6 +389,17 @@ def bwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
     return _declare(lib, BWD_ENTRIES, "ssd_xbc_bwd_error_string")
 
 
+def sm90_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of the Hopper bf16 K8/K9 body in a built
+    ``ssd_xbc_bf16_sm90`` library (``SM90_ENTRIES``)."""
+    for name, argtypes in SM90_ENTRIES.items():
+        getattr(lib, name).argtypes, getattr(lib, name).restype = argtypes, _I
+    lib.ssd_sm90_bwd_scratch_floats.argtypes = [_I] * 5
+    lib.ssd_sm90_bwd_scratch_floats.restype = _LL
+    lib.ssd_sm90_error_string.argtypes, lib.ssd_sm90_error_string.restype = [_I], ctypes.c_char_p
+    return lib
+
+
 def carry_parts(n: int, p: int) -> int:
     """The blocks a (batch row, head) of the carry passes, four state
     elements a thread (carry_parts in both sources): 16 at n = p = 128."""
@@ -379,6 +416,22 @@ def bwd_scratch_floats(b: int, l: int, h: int, chunk: int, n: int, p: int) -> in
     pairs = t * (t + 1) // 2
     return (2 * b * nc * chunk * chunk + b * nc * h * n * p
             + 2 * b * h * nc * pairs * STRIP + 2 * b * h * l + b * h * nc * carry_parts(n, p))
+
+
+def sm90_bwd_scratch_floats(b: int, l: int, h: int, chunk: int, seeded: bool = False) -> int:
+    """The floats of the Hopper bf16 K9's scratch, in the order the C side
+    carves it: the head sum of bf16(dG) (b, nc, q, q); the dh carry
+    (b, nc - 1, h, n, p), a slot more when ``seeded`` (dh_fin's); h_in of
+    chunks 1 .. nc - 1 in bf16 (half a float an element); the row and column
+    sums of dlogM (b, h, nc, tile pairs, STRIP) each; dT (b, h, l); dE's sums
+    over the two halves of n (2, b, h, l); the two halves' sums of dh (.) h_in
+    (b, h, nc, 2)."""
+    nc, t = l // chunk, chunk // STRIP
+    pairs = t * (t + 1) // 2
+    state = h * STATE * HEAD_DIM
+    return (b * nc * chunk * chunk + b * (nc - 1 + int(seeded)) * state
+            + b * (nc - 1) * state // 2 + 2 * b * h * nc * pairs * STRIP + 3 * b * h * l
+            + 2 * b * h * nc)
 
 
 def _check_geometry(n: int, p: int, l: int, chunk: int) -> None:
@@ -403,10 +456,20 @@ def chunk_variant(chunk: int) -> str:
     return "_long" if chunk > TUNED_CHUNK else ""
 
 
-def kernel_variant(chunk: int, n: int, p: int) -> str:
+def sm90_serves(dtype: torch.dtype, chunk: int, n: int, p: int) -> bool:
+    """Whether the Hopper bf16 body (``csrc/ssd_xbc_bf16_sm90.cu``) runs a
+    K8 or K9 call: bf16 activations, n = p = 128 and a chunk of
+    :data:`SM90_CHUNKS`, with or without h_fin or a seeded carry."""
+    return dtype == torch.bfloat16 and (n, p) == (STATE, HEAD_DIM) and chunk in SM90_CHUNKS
+
+
+def kernel_variant(chunk: int, n: int, p: int, dtype: torch.dtype | None = None) -> str:
     """The variant that runs ``chunk`` at d_state ``n`` and head_dim ``p``:
-    :func:`chunk_variant`, followed by '_wide' unless n = p = 128 (the wide
-    instantiation)."""
+    '_sm90' where the Hopper bf16 body serves a K8/K9 call at ``dtype``
+    (:func:`sm90_serves`), else :func:`chunk_variant`, followed by '_wide'
+    unless n = p = 128 (the wide instantiation). K6/K7 calls pass no dtype."""
+    if dtype is not None and sm90_serves(dtype, chunk, n, p):
+        return "_sm90"
     return chunk_variant(chunk) + ("" if (n, p) == (STATE, HEAD_DIM) else "_wide")
 
 
@@ -638,6 +701,74 @@ def run_bwd(lib, xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int, stream, dh_f
     return dxbc, ddt, dS, dD_part.sum(dim=(0, 2, 3))
 
 
+def tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (b, l, w) where the tensor memory accelerator can read its rows
+    (its start and its batch and row strides 16-byte aligned, unit stride
+    along w), else a contiguous copy of it."""
+    size = t.element_size()
+    if (t.stride(2) == 1 and t.data_ptr() % 16 == 0
+            and all(s * size % 16 == 0 for s in t.stride()[:2])):
+        return t
+    return torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+
+
+def run_sm90_fwd(lib, xbc, dt, S, D, d_inner: int, chunk: int, states: bool, stream,
+                 hfin: bool = False):
+    """Allocate the Hopper bf16 K8's outputs and scratch beside xbc and launch
+    it through ``lib`` (a library with :func:`sm90_interface`) on ``stream``:
+    (y, h_in or None), and with ``hfin`` also h_fin (b, h, n, p) fp32. Its
+    scratch: the lean forward's states entering chunks 1 .. nc - 1, and those
+    states rounded to bf16 (the operand of C h_in); no G scratch. xbc goes
+    through :func:`tma_rows`. Checks nothing else; :func:`_launch_fwd` checks
+    first."""
+    b, l, total = xbc.shape
+    h, n = dt.shape[1], (total - d_inner) // 2
+    nc, p = l // chunk, d_inner // h
+    xbc = tma_rows(xbc)
+    y = torch.empty((b, l, d_inner), dtype=xbc.dtype, device=xbc.device)
+    hin = torch.empty((b, nc if states else nc - 1, h, n, p), dtype=torch.float32,
+                      device=xbc.device)
+    hin16 = torch.empty((b, nc - 1, h, n, p), dtype=xbc.dtype, device=xbc.device)
+    h_fin = torch.empty((b, h, n, p), dtype=torch.float32, device=xbc.device) if hfin \
+        else None
+    if y.numel():
+        _raise_on(lib.ssd_sm90_error_string, lib.ssd_sm90_fwd(
+            xbc.data_ptr(), dt.data_ptr(), S.data_ptr(), D.data_ptr(), y.data_ptr(),
+            hin.data_ptr(), hin.numel(), int(states), h_fin.data_ptr() if hfin else None,
+            hin16.data_ptr(), hin16.numel(), b, l, h, d_inner, n, p, chunk, xbc.stride(0),
+            xbc.stride(1), stream), "Hopper bf16 SSD forward")
+    elif hfin:
+        h_fin.zero_()
+    out = y, (hin if states else None)
+    return (*out, h_fin) if hfin else out
+
+
+def run_sm90_bwd(lib, xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int, stream, dh_fin=None):
+    """Allocate the Hopper bf16 K9's outputs and scratch
+    (:func:`sm90_bwd_scratch_floats`) beside xbc and launch it through
+    ``lib`` on ``stream``, its carry seeded with ``dh_fin`` unless that is
+    None: (dxbc, ddt, dS, dD). xbc and dy go through :func:`tma_rows`. Checks
+    nothing else; :func:`_launch_bwd` checks first."""
+    b, l, total = xbc.shape
+    h, nc = dt.shape[1], l // chunk
+    n = (total - d_inner) // 2
+    f32 = dict(dtype=torch.float32, device=xbc.device)
+    dxbc = torch.empty((b, l, total), dtype=xbc.dtype, device=xbc.device)
+    ddt, dS = torch.empty((b, h, nc, chunk), **f32), torch.empty((b, h, nc, chunk), **f32)
+    if dxbc.numel() == 0:
+        return dxbc.zero_(), ddt, dS, torch.zeros_like(D)
+    xbc, dy = tma_rows(xbc), tma_rows(dy)
+    dD_part = torch.empty((b, h, nc, chunk // STRIP), **f32)
+    scratch = torch.empty(sm90_bwd_scratch_floats(b, l, h, chunk, dh_fin is not None), **f32)
+    _raise_on(lib.ssd_sm90_error_string, lib.ssd_sm90_bwd(
+        xbc.data_ptr(), dt.data_ptr(), S.data_ptr(), D.data_ptr(), h_in.data_ptr(),
+        dy.data_ptr(), None if dh_fin is None else dh_fin.data_ptr(), dxbc.data_ptr(),
+        ddt.data_ptr(), dS.data_ptr(), dD_part.data_ptr(), dD_part.numel(), scratch.data_ptr(),
+        scratch.numel(), b, l, h, d_inner, n, d_inner // h, chunk, xbc.stride(0),
+        xbc.stride(1), dy.stride(0), dy.stride(1), stream), "Hopper bf16 SSD backward")
+    return dxbc, ddt, dS, dD_part.sum(dim=(0, 2, 3))
+
+
 def run_split_bwd(lib, x, dt, S, Bm, Cm, h_in, dy, chunk: int, dh_fin, stream):
     """Allocate K7's outputs and scratch beside x and launch it through
     ``lib`` (a library with :func:`bwd_interface`) on ``stream``, its carry
@@ -673,26 +804,38 @@ def run_split_bwd(lib, x, dt, S, Bm, Cm, h_in, dy, chunk: int, dh_fin, stream):
 
 def _launch_fwd(xbc, dt, S, D, d_inner: int, chunk: int, states: bool, hfin: bool = False):
     _, _, _, n, p = _check_inputs(xbc, dt, S, D, d_inner, chunk)
+    variant = kernel_variant(chunk, n, p, xbc.dtype)
     with torch.cuda.device(xbc.device):
-        out = run_fwd(_fwd_library(), xbc, dt, S, D, d_inner, chunk, states,
-                      torch.cuda.current_stream(xbc.device).cuda_stream, hfin=hfin)
+        stream = torch.cuda.current_stream(xbc.device).cuda_stream
+        if variant == "_sm90":
+            out = run_sm90_fwd(_sm90_library(), xbc, dt, S, D, d_inner, chunk, states, stream,
+                               hfin=hfin)
+        else:
+            out = run_fwd(_fwd_library(), xbc, dt, S, D, d_inner, chunk, states, stream,
+                          hfin=hfin)
     if out[0].numel():
-        _count(_XBC_FWD[(states, hfin, xbc.dtype == torch.bfloat16)], chunk, n, p)
+        _count(_XBC_FWD[(states, hfin, xbc.dtype == torch.bfloat16)], variant)
     return out
 
 
 def _launch_bwd(xbc, dt, S, D, h_in, dy, d_inner: int, chunk: int, dh_fin=None):
     extra = dict(h_in=h_in, dy=dy) | ({} if dh_fin is None else dict(dh_fin=dh_fin))
     _, _, _, n, p = _check_inputs(xbc, dt, S, D, d_inner, chunk, extra)
+    variant = kernel_variant(chunk, n, p, xbc.dtype)
     with torch.cuda.device(xbc.device):
-        out = run_bwd(_bwd_library(), xbc, dt, S, D, h_in, dy, d_inner, chunk,
-                      torch.cuda.current_stream(xbc.device).cuda_stream, dh_fin=dh_fin)
+        stream = torch.cuda.current_stream(xbc.device).cuda_stream
+        if variant == "_sm90":
+            out = run_sm90_bwd(_sm90_library(), xbc, dt, S, D, h_in, dy, d_inner, chunk, stream,
+                               dh_fin=dh_fin)
+        else:
+            out = run_bwd(_bwd_library(), xbc, dt, S, D, h_in, dy, d_inner, chunk, stream,
+                          dh_fin=dh_fin)
     if out[0].numel():
         bf16 = xbc.dtype == torch.bfloat16
         if dh_fin is None:
-            _count(ssd_xbc_bwd_bf16 if bf16 else ssd_xbc_bwd, chunk, n, p)
+            _count(ssd_xbc_bwd_bf16 if bf16 else ssd_xbc_bwd, variant)
         else:
-            _count(ssd_xbc_bwd_seeded_bf16 if bf16 else ssd_xbc_bwd_seeded, chunk, n, p)
+            _count(ssd_xbc_bwd_seeded_bf16 if bf16 else ssd_xbc_bwd_seeded, variant)
     return out
 
 
@@ -838,7 +981,8 @@ def _launch_split_fwd(x, dt, S, Bm, Cm, chunk: int, states: bool, hfin: bool):
         out = run_split_fwd(_fwd_library(), x, dt, S, Bm, Cm, chunk, states, hfin,
                             torch.cuda.current_stream(x.device).cuda_stream)
     if out[0].numel():
-        _count(_SPLIT_FWD[(states, hfin, x.dtype == torch.bfloat16)], chunk, n, p)
+        _count(_SPLIT_FWD[(states, hfin, x.dtype == torch.bfloat16)],
+               kernel_variant(chunk, n, p))
     return out
 
 
@@ -851,9 +995,10 @@ def _launch_split_bwd(x, dt, S, Bm, Cm, h_in, dy, chunk: int, dh_fin=None):
     if out[0].numel():
         bf16 = x.dtype == torch.bfloat16
         if dh_fin is None:
-            _count(ssd_split_bwd_bf16 if bf16 else ssd_split_bwd, chunk, n, p)
+            _count(ssd_split_bwd_bf16 if bf16 else ssd_split_bwd, kernel_variant(chunk, n, p))
         else:
-            _count(ssd_split_bwd_seeded_bf16 if bf16 else ssd_split_bwd_seeded, chunk, n, p)
+            _count(ssd_split_bwd_seeded_bf16 if bf16 else ssd_split_bwd_seeded,
+                   kernel_variant(chunk, n, p))
     return out
 
 
@@ -1098,17 +1243,20 @@ def _variant_name(wrapper_name: str, variant: str) -> str:
 
 
 # the launch counts of every entry point's variants other than the tuned
-# one: '_strip' and '_long' at n = p = 128, and each of the three chunk
-# variants of the wide instantiation
-VARIANT_LAUNCHES = {_variant_name(fn.__name__, v): LaunchCount()
-                    for fn in _WRAPPERS
-                    for v in ("_strip", "_long", "_wide", "_strip_wide", "_long_wide")}
+# one: '_strip' and '_long' at n = p = 128, each of the three chunk variants
+# of the wide instantiation, and the Hopper bf16 body's K8 and K9 ('_sm90')
+VARIANT_LAUNCHES = {**{_variant_name(fn.__name__, v): LaunchCount()
+                       for fn in _WRAPPERS
+                       for v in ("_strip", "_long", "_wide", "_strip_wide", "_long_wide")},
+                    **{_variant_name(fn.__name__, "_sm90"): LaunchCount()
+                       for fn in (*[_XBC_FWD[(s, f, True)] for s in (False, True)
+                                    for f in (False, True)],
+                                  ssd_xbc_bwd_bf16, ssd_xbc_bwd_seeded_bf16)}}
 
 
-def _count(wrapper, chunk: int, n: int, p: int) -> None:
-    """One launch of ``wrapper``'s kernel at ``chunk``, d_state ``n`` and
-    head_dim ``p``, on the count of the variant that ran it."""
-    variant = kernel_variant(chunk, n, p)
+def _count(wrapper, variant: str) -> None:
+    """One launch of ``wrapper``'s kernel, on the count of the variant that
+    ran it (:func:`kernel_variant`)."""
     if variant:
         VARIANT_LAUNCHES[_variant_name(wrapper.__name__, variant)].launches += 1
     else:

@@ -311,7 +311,7 @@ def test_chunk_variants():
     assert [kssd.kernel_variant(c, 256, 128) for c in (64, 32, 512)] == \
         ["_wide", "_strip_wide", "_long_wide"]
     assert kssd.kernel_variant(512, 128, 128) == "_long"
-    assert len(kssd.VARIANT_LAUNCHES) == 5 * 24
+    assert len(kssd.VARIANT_LAUNCHES) == 5 * 24 + 6  # and the Hopper bf16 body's six
     assert "ssd_split_bwd_seeded_long" in kssd.VARIANT_LAUNCHES
     assert "ssd_xbc_fwd_states_strip_wide_bf16" in kssd.VARIANT_LAUNCHES
 

@@ -1392,12 +1392,17 @@ def test_bf16_model_kernel_path_matches_plain(cuda):
 # ---------------------------------------------------------------------------
 
 def _ssd_bf16_counts():
+    """({bf16 count: launches} of the bf16 wrappers and the Hopper bf16
+    body's '_sm90' counts, by the fp32 name; {fp32 count: launches})."""
     from si_mamba_tpu_torch.ops.kernels import ssd as kssd
 
     names = ("ssd_xbc_fwd", "ssd_xbc_fwd_states", "ssd_xbc_bwd", "ssd_split_fwd",
              "ssd_split_fwd_states", "ssd_split_fwd_hfin", "ssd_split_fwd_states_hfin",
              "ssd_split_bwd", "ssd_split_bwd_seeded")
-    return ({n: getattr(kssd, n + "_bf16").launches for n in names},
+    sm90 = {n + "_sm90": kssd.VARIANT_LAUNCHES[n + "_sm90_bf16"].launches
+            for n in ("ssd_xbc_fwd", "ssd_xbc_fwd_states", "ssd_xbc_fwd_hfin",
+                      "ssd_xbc_fwd_states_hfin", "ssd_xbc_bwd", "ssd_xbc_bwd_seeded")}
+    return ({n: getattr(kssd, n + "_bf16").launches for n in names} | sm90,
             {n: getattr(kssd, n).launches for n in names})
 
 
@@ -1425,8 +1430,8 @@ def test_ssd_bf16_kernels_match_plain(cuda, b, l, h, chunk, layout, decay):
     """The bf16 K8 (lean and with states) and K9 against their plain versions
     at bf16: the lean y bitwise equal to the states variant's, two K9 runs
     bitwise equal (dB and dC summed over the heads in a fixed order in fp32,
-    rounded once), each launch counted on its bf16 wrapper and none on the
-    fp32 ones."""
+    rounded once), each launch counted on the Hopper bf16 body's '_sm90'
+    count (every chunk here is one it serves) and none on the fp32 ones."""
     from si_mamba_tpu_torch.ops.kernels import ssd as kssd
 
     rng = np.random.default_rng(61)
@@ -1450,7 +1455,7 @@ def test_ssd_bf16_kernels_match_plain(cuda, b, l, h, chunk, layout, decay):
     after, fp32_after = _ssd_bf16_counts()
     assert fp32_after == fp32
     assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
-        "ssd_xbc_fwd": 1, "ssd_xbc_fwd_states": 1, "ssd_xbc_bwd": 2}
+        "ssd_xbc_fwd_sm90": 1, "ssd_xbc_fwd_states_sm90": 1, "ssd_xbc_bwd_sm90": 2}
     torch.testing.assert_close(y, y_lean, rtol=0, atol=0)
     for a, w in zip(got, again):
         torch.testing.assert_close(a, w, rtol=0, atol=0)
@@ -1460,6 +1465,143 @@ def test_ssd_bf16_kernels_match_plain(cuda, b, l, h, chunk, layout, decay):
     want = kssd.ssd_xbc_bwd_ref(xbc, dth, S, D, h_in, dy, d, chunk)
     for name, a, w in zip(("dxbc", "ddt", "dS", "dD"), got, want):
         _hold_bf16(name, a, w)
+
+
+def _sm90_operands(b, l, chunk, device):
+    """The bf16 SSD presets' K8/K9 operands at batch b, length l and chunk:
+    6 heads of 128, d_state 128, xbc a mixer's conv output, dy and a seed."""
+    rng = np.random.default_rng(chunk + b + l)
+    h, d = 6, 768
+    xbc = _ssd_mixer_xbc(rng, b, l, h, "conv", device).to(torch.bfloat16)
+    dt = torch.nn.functional.softplus(_randn(rng, b, l, h, device=device) - 1.0)
+    A = -torch.exp(_randn(rng, h, device=device))
+    dth = dt.transpose(1, 2).reshape(b, h, l // chunk, chunk).contiguous()
+    S = torch.cumsum(dth * A[None, :, None, None], dim=-1)
+    D = _randn(rng, h, device=device)
+    dy = _randn(rng, b, l, d, device=device).to(torch.bfloat16)
+    dh_fin = _randn(rng, b, h, 128, 128, scale=0.1, device=device)
+    return (xbc, dth, S, D, d, chunk), dy, dh_fin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,chunk", [(8, 512, 256), (8, 512, 128), (4, 512, 64), (4, 384, 192),
+                                       (128, 512, 128), (128, 256, 128)])
+def test_ssd_sm90_body_holds_at_the_preset_shapes(cuda, b, l, chunk):
+    """The Hopper bf16 body at the bf16 SSD presets' geometry (6 heads of
+    128, d_state 128; chunk 256 of finetune_modelnet_ssd_fused.yaml, 128 of
+    pretrain_ssd_fused.yaml, 64 the smallest it serves; 192 at L 384) on a
+    conv output of a mixer, at each block shape of bwd_dbc on an H100's 132
+    SMs: half of n a block at B 8 and 4, two strips and all of n at B 128, L
+    512, one strip and all of n at B 128, L 256. Every K8 (lean, with states,
+    with h_fin, with both) and K9 (from 0, seeded) against their plain
+    versions at bf16 (a bf16 output within 2 bf16 ulps at a floor of 2e-2 of
+    max, at B 128 against the fp64 truth as chip_smoke.py holds the
+    pretraining shapes; h_in, h_fin, ddt, dS, dD within 1e-3 of max), each K9
+    twice bitwise equal, every launch on the body's '_sm90' counts; its
+    scratch the size the C side carves."""
+    from chip_smoke import _f64, _hold_bf16_truth
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    args, dy, dh_fin = _sm90_operands(b, l, chunk, cuda)
+    xbc, dth, S, D, d, _ = args
+    lib = kssd._sm90_library()
+    for seeded in (0, 1):
+        assert lib.ssd_sm90_bwd_scratch_floats(b, l, 6, chunk, seeded) == \
+            kssd.sm90_bwd_scratch_floats(b, l, 6, chunk, bool(seeded))
+    before, _ = _ssd_bf16_counts()
+    y = kssd.ssd_xbc_fwd_bf16(*args)
+    y8, h_in = kssd.ssd_xbc_fwd_states_bf16(*args)
+    yf, h_fin = kssd.ssd_xbc_fwd_hfin_bf16(*args)
+    y8f, h_in8f, h_fin8f = kssd.ssd_xbc_fwd_states_hfin_bf16(*args)
+    bargs = (xbc, dth, S, D, h_in, dy, d, chunk)
+    runs = {seed is not None: [kssd.ssd_xbc_bwd_bf16(*bargs) if seed is None else
+                               kssd.ssd_xbc_bwd_seeded_bf16(*bargs[:6], seed, d, chunk)
+                               for _ in range(2)] for seed in (None, dh_fin)}
+    torch.cuda.synchronize()
+    after, _ = _ssd_bf16_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "ssd_xbc_fwd_sm90": 1, "ssd_xbc_fwd_states_sm90": 1, "ssd_xbc_fwd_hfin_sm90": 1,
+        "ssd_xbc_fwd_states_hfin_sm90": 1, "ssd_xbc_bwd_sm90": 2, "ssd_xbc_bwd_seeded_sm90": 2}
+    assert all(torch.equal(y, other) for other in (y8, yf, y8f))
+    assert torch.equal(h_in, h_in8f) and torch.equal(h_fin, h_fin8f)
+    for got, again in runs.values():
+        assert all(torch.equal(a, w) for a, w in zip(got, again))
+    y_ref, h_ref, hf_ref = kssd.ssd_xbc_fwd_ref(*args, emit_states=True, emit_hfin=True)
+
+    def hold16(name, got, want, truth):
+        if b == 128:
+            _hold_bf16_truth(name, got, want, truth())
+        else:
+            _hold_bf16(name, got, want)
+
+    hold16("y", y, y_ref, lambda: kssd.ssd_xbc_fwd_ref(*_f64(args))[0])
+    _hold_bf16("h_in", h_in, h_ref)
+    _hold_bf16("h_fin", h_fin, hf_ref)
+    for seed in (None, dh_fin):
+        got = runs[seed is not None][0]
+        want = kssd.ssd_xbc_bwd_ref(*bargs, dh_fin=seed)
+        tag = "seeded " if seed is not None else ""
+        hold16(tag + "dxbc", got[0], want[0], lambda: kssd.ssd_xbc_bwd_ref(
+            *_f64(bargs), dh_fin=None if seed is None else seed.double())[0])
+        for name, a, w in zip(("ddt", "dS", "dD"), got[1:], want[1:]):
+            _hold_bf16(tag + name, a, w)
+
+
+@pytest.mark.cuda
+def test_ssd_sm90_bits_do_not_depend_on_the_batch(cuda):
+    """bwd_dbc's blocks follow the batch and the card's SM count (two strips
+    and all of n a block at B 128, L 512, chunk 128; half of n at B 4), and
+    dE comes as its sums over the two halves of n at every shape: so a
+    cloud's K8 and K9 outputs are bitwise the same in a batch of 4 as in one
+    of 128 (dD, a sum over the batch, aside)."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    args, dy, dh_fin = _sm90_operands(128, 512, 128, cuda)
+    xbc, dth, S, D, d, chunk = args
+    few = (xbc[:4], dth[:4], S[:4], D, d, chunk)
+    y, h_in = kssd.ssd_xbc_fwd_states_bf16(*args)
+    y4, h_in4 = kssd.ssd_xbc_fwd_states_bf16(*few)
+    for seed in (None, dh_fin):
+        extra = () if seed is None else (seed,)
+        fn = kssd.ssd_xbc_bwd_bf16 if seed is None else kssd.ssd_xbc_bwd_seeded_bf16
+        got = fn(xbc, dth, S, D, h_in, dy, *extra, d, chunk)
+        got4 = fn(*few[:4], h_in4, dy[:4], *(e[:4] for e in extra), d, chunk)
+        torch.cuda.synchronize()
+        for name, a, w in zip(("dxbc", "ddt", "dS"), got[:3], got4[:3]):
+            assert torch.equal(a[:4], w), (name, seed is not None)
+    assert torch.equal(y[:4], y4) and torch.equal(h_in[:4], h_in4)
+
+
+@pytest.mark.cuda
+def test_ssd_sm90_body_refuses_what_it_does_not_serve(cuda):
+    """The Hopper body's C entry points refuse a geometry outside their
+    instantiation (d_state 256, chunk 96 and 320) and a scratch of another
+    size by name, before launching anything; the wrappers never hand them
+    such a call."""
+    from si_mamba_tpu_torch.ops.kernels import ssd as kssd
+
+    lib = kssd._sm90_library()
+    b, l, h, d = 1, 256, 2, 256
+    xbc = torch.zeros(b, l, d + 256, dtype=torch.bfloat16, device=cuda)
+    dt = torch.zeros(b, h, l // 128, 128, device=cuda)
+    D = torch.zeros(h, device=cuda)
+    for n, chunk in ((256, 128), (128, 96), (128, 320)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            kssd.run_sm90_fwd(lib, torch.zeros(b, 320, d + 2 * n, dtype=torch.bfloat16,
+                                               device=cuda),
+                              torch.zeros(b, h, 320 // chunk if 320 % chunk == 0 else 1, chunk,
+                                          device=cuda), dt, D, d, chunk, True,
+                              torch.cuda.current_stream().cuda_stream)
+    h_in = torch.zeros(b, 2, h, 128, 128, device=cuda)
+    scratch = torch.empty(kssd.sm90_bwd_scratch_floats(b, l, h, 128) - 4, device=cuda)
+    dD = torch.empty(b, h, 2, 2, device=cuda)
+    err = lib.ssd_sm90_bwd(xbc.data_ptr(), dt.data_ptr(), dt.data_ptr(), D.data_ptr(),
+                           h_in.data_ptr(), xbc.data_ptr(), None, xbc.data_ptr(), dt.data_ptr(),
+                           dt.data_ptr(), dD.data_ptr(), dD.numel(), scratch.data_ptr(),
+                           scratch.numel(), b, l, h, d, 128, 128, 128, xbc.stride(0),
+                           xbc.stride(1), xbc.stride(0), xbc.stride(1),
+                           torch.cuda.current_stream().cuda_stream)
+    assert lib.ssd_sm90_error_string(err).decode() == "invalid argument"
 
 
 @pytest.mark.cuda
@@ -1534,7 +1676,8 @@ def test_bf16_ssd_model_kernel_path_matches_plain(cuda):
     """A small SSD classifier at the presets' settings (bf16, subspace,
     'ssd_fused', one head of 128, chunk 64, L 128) on the card: an eval
     forward launches only the bf16 K1 and the lean bf16 K8, a train step only
-    the bf16 K1, K8 with states, K9 and K5, and the eval logits are within
+    the bf16 K1, K8 with states, K9 and K5 (K8 and K9 on the Hopper bf16
+    body, its '_sm90' counts), and the eval logits are within
     3e-2 of the max of the plain route ('xla')."""
     cfg = dict(trans_dim=64, encoder_dims=64, depth=2, cls_dim=8, num_group=16,
                group_size=16, drop_path=0.0, cls_head_dropout=0.0, dtype="bfloat16",
@@ -1553,7 +1696,7 @@ def test_bf16_ssd_model_kernel_path_matches_plain(cuda):
     assert [a - c for a, c in zip(_bf16_counts(), before)] == [2, 0, 0, 0, 0]
     ssd_after, _ = _ssd_bf16_counts()
     assert {k: ssd_after[k] - ssd_before[k] for k in ssd_after
-            if ssd_after[k] != ssd_before[k]} == {"ssd_xbc_fwd": 2}
+            if ssd_after[k] != ssd_before[k]} == {"ssd_xbc_fwd_sm90": 2}
     assert logits.dtype == torch.bfloat16
     _close_to_max(logits.float(), want.float(), 3e-2)
     before, ssd_before = _bf16_counts(), _ssd_bf16_counts()[0]
@@ -1562,7 +1705,8 @@ def test_bf16_ssd_model_kernel_path_matches_plain(cuda):
     assert [a - c for a, c in zip(_bf16_counts(), before)] == [2, 2, 0, 0, 0]
     ssd_after, ssd_fp32_after = _ssd_bf16_counts()
     assert {k: ssd_after[k] - ssd_before[k] for k in ssd_after
-            if ssd_after[k] != ssd_before[k]} == {"ssd_xbc_fwd_states": 2, "ssd_xbc_bwd": 2}
+            if ssd_after[k] != ssd_before[k]} == {"ssd_xbc_fwd_states_sm90": 2,
+                                                   "ssd_xbc_bwd_sm90": 2}
     assert _fp32_counts() == fp32 and ssd_fp32_after == ssd_fp32
     assert all(p.grad is not None and p.grad.dtype == torch.float32 and
                torch.isfinite(p.grad).all() for p in model.parameters())
@@ -1651,7 +1795,8 @@ def test_ssd_carry_kernels_match_plain(cuda, b, l, h, chunk, dtype):
     kernels' tolerances: a bf16 output within 2 ulps at a floor of 2e-2, the
     fp32 ones within 1e-3): y bitwise equal to K8's without the carry, the
     two h_fin variants bitwise equal, two seeded K9 runs bitwise equal, each
-    launch counted on its own wrapper."""
+    launch counted on its own wrapper's count of the variant that ran it (at
+    bf16 the Hopper bf16 body, '_sm90')."""
     from si_mamba_tpu_torch.ops.kernels import ssd as kssd
 
     bf16 = dtype == "bfloat16"
@@ -1663,7 +1808,15 @@ def test_ssd_carry_kernels_match_plain(cuda, b, l, h, chunk, dtype):
     if bf16:
         xbc, dy = xbc.to(torch.bfloat16), dy.to(torch.bfloat16)
     names = ("ssd_xbc_fwd_hfin", "ssd_xbc_fwd_states_hfin", "ssd_xbc_bwd_seeded")
-    before = {n: getattr(kssd, n + sfx).launches for n in names}
+    variant = kssd.kernel_variant(chunk, 128, 128, xbc.dtype)
+
+    def launches(n):
+        if variant:
+            return kssd.VARIANT_LAUNCHES[kssd._variant_name(n + sfx, variant)].launches
+        return getattr(kssd, n + sfx).launches
+
+    assert variant == ("_sm90" if bf16 else "")
+    before = {n: launches(n) for n in names}
     args = (xbc, dth, S, D, d, chunk)
     y_plain = kssd.ssd_xbc_fwd(*args)
     y_lean, hf_lean = getattr(kssd, "ssd_xbc_fwd_hfin" + sfx)(*args)
@@ -1672,7 +1825,7 @@ def test_ssd_carry_kernels_match_plain(cuda, b, l, h, chunk, dtype):
     got = seeded(xbc, dth, S, D, h_in, dy, dh_fin, d, chunk)
     again = seeded(xbc, dth, S, D, h_in, dy, dh_fin, d, chunk)
     torch.cuda.synchronize()
-    assert {n: getattr(kssd, n + sfx).launches - before[n] for n in names} == {
+    assert {n: launches(n) - before[n] for n in names} == {
         "ssd_xbc_fwd_hfin": 1, "ssd_xbc_fwd_states_hfin": 1, "ssd_xbc_bwd_seeded": 2}
     for a, w in ((y_lean, y_plain), (y, y_plain), (hf_lean, h_fin), *zip(got, again)):
         torch.testing.assert_close(a, w, rtol=0, atol=0)
