@@ -507,10 +507,11 @@ GRAD_TOL = 1e-3
 TRAIN_KERNELS = ("causal_conv1d_silu", "selective_scan_fwd_residuals", "selective_scan_bwd",
                  "causal_conv1d_silu_bwd")
 EVAL_KERNELS = ("causal_conv1d_silu", "selective_scan_fwd")
-# the bf16 variants of the same kernels, perf mode's
-PERF_TRAIN_KERNELS = ("causal_conv1d_silu_bf16", "selective_scan_fwd_residuals_bf16",
-                      "selective_scan_bwd_bf16", "causal_conv1d_silu_bwd_bf16")
-PERF_EVAL_KERNELS = ("causal_conv1d_silu_bf16", "selective_scan_fwd_bf16")
+# the bf16 variants of the same kernels, perf mode's (K2, K3 and K4 on the
+# Hopper bf16 body, csrc/selective_scan_bf16_sm90.cu)
+PERF_TRAIN_KERNELS = ("causal_conv1d_silu_bf16", "selective_scan_fwd_residuals_sm90_bf16",
+                      "selective_scan_bwd_sm90_bf16", "causal_conv1d_silu_bwd_bf16")
+PERF_EVAL_KERNELS = ("causal_conv1d_silu_bf16", "selective_scan_fwd_sm90_bf16")
 # the bf16 SSD presets' kernels: a train step's, an eval forward's (K8 and K9
 # on the Hopper bf16 body, csrc/ssd_xbc_bf16_sm90.cu, at their chunks 256 and
 # 128)
@@ -961,7 +962,9 @@ def bf16_kernel_phase(device) -> list[dict]:
     L=512, d_inner 768, d_state 16; strided bf16 views as the bf16 mixer makes
     them), each against its plain version on the same inputs and timed beside
     it: K1 and K5 also beside bf16 ``F.conv1d(groups=D)`` + ``F.silu`` and its
-    autograd; K2 also at B = 1, 20 and 64. Tolerances: a bf16 output within
+    autograd; K2 also at B = 1, 20 and 64; K2, K3 and K4 (the Hopper bf16
+    body, h_entries every ``ks.SM90_TILE`` steps) also at the
+    part-segmentation shape (``at_seg_shape``). Tolerances: a bf16 output within
     one bf16 ulp of the plain version's (both round one fp32 value; the ulp
     taken at least at 1e-2 of the output's max, 2e-2 for K4's, whose sums over
     channels and states run in other orders), two for K4's; an fp32 output
@@ -990,24 +993,23 @@ def bf16_kernel_phase(device) -> list[dict]:
     fig = bf16_scan_fwd_figures(args)
     sizes = {str(bq): bf16_scan_fwd_figures(perf_operands(device, bq)[3])
              for bq in REQUEST_SIZES}
+    seg = mamba_bf16_at(device, SEG_BATCH, SEG_LEN, conv=False)
+    source = "si_mamba_tpu_torch/csrc/selective_scan_bf16_sm90.cu"
     records.append(dict(
-        name="selective_scan_fwd_bf16", route="cuda",
-        source="si_mamba_tpu_torch/csrc/selective_scan_fwd.cu",
+        name="selective_scan_fwd_sm90_bf16", route="cuda", source=source,
         replaces="si_mamba_tpu/ops/pallas/selective_scan_kernel.py:115", dtype="bfloat16", **fig,
         plain_ms=time_ms(lambda: ks.selective_scan_ref(*args[:5], D=args[5], z=args[6],
                                                        delta_bias=args[7]), 2, warmup=1),
-        library_ms=None, at_request_sizes=sizes))
+        library_ms=None, at_request_sizes=sizes, at_seg_shape=seg["selective_scan_fwd_sm90_bf16"]))
     k3, k4 = bf16_scan_train_figures(args, g)
     records.append(dict(
-        name="selective_scan_fwd_residuals_bf16", route="cuda",
-        source="si_mamba_tpu_torch/csrc/selective_scan_fwd.cu",
+        name="selective_scan_fwd_residuals_sm90_bf16", route="cuda", source=source,
         replaces="si_mamba_tpu/ops/pallas/selective_scan_kernel.py:407", dtype="bfloat16",
-        library_ms=None, **k3))
+        library_ms=None, at_seg_shape=seg["selective_scan_fwd_residuals_sm90_bf16"], **k3))
     records.append(dict(
-        name="selective_scan_bwd_bf16", route="cuda",
-        source="si_mamba_tpu_torch/csrc/selective_scan_bwd.cu",
+        name="selective_scan_bwd_sm90_bf16", route="cuda", source=source,
         replaces="si_mamba_tpu/ops/pallas/selective_scan_kernel.py:211", dtype="bfloat16",
-        library_ms=None, **k4))
+        library_ms=None, at_seg_shape=seg["selective_scan_bwd_sm90_bf16"], **k4))
     log("bf16 scan: " + "; ".join(
         f"B={f['shape'][0]}: {f['ms']:.6f} ms, device {f['device_ms']:.6f} ms "
         f"({f['segments']} segments), max |diff| {f['max_abs_err']:.3e}"
@@ -1045,39 +1047,45 @@ def bf16_scan_fwd_figures(a) -> dict:
     return dict(shape=[Bq, L, D], max_abs_err=err,
                 ms=time_ms(lambda: ks.selective_scan_fwd_bf16(*a), 20),
                 device_ms=graph_ms(lambda: ks.selective_scan_fwd_bf16(*a), 20),
-                segments=ks._fwd_library().selective_scan_fwd_segments(Bq, L, D),
+                segments=ks._sm90_library().scan_sm90_segments(Bq, L, D),
                 bound_ms=bms, bound_by=bby)
 
 
 def bf16_scan_train_figures(args, g) -> tuple[dict, dict]:
     """The bf16 K3 (its y equal to K2's, the fp32 entry states against the
-    plain ones) and K4 (two runs bitwise equal; a bf16 output within two
-    ulps at a floor of 2e-2, fp32 sums within 1e-3 of their max) on the scan
-    args and output gradient ``g``, each timed beside its plain version."""
+    plain ones at the same tile, ``ks.entry_tile``) and K4 (two runs bitwise
+    equal; a bf16 output within two ulps at a floor of 2e-2, fp32 sums within
+    1e-3 of their max) on the scan args and output gradient ``g``, each timed
+    beside its plain version."""
     from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
 
     B, L, D = args[0].shape
     n = args[2].shape[1]
+    tile = ks.entry_tile(args[0].dtype, n)
     y3, h3 = ks.selective_scan_fwd_residuals_bf16(*args)
     y2 = ks.selective_scan_fwd_bf16(*args)
-    y_ref, h_ref = ks.selective_scan_fwd_residuals_ref(*args)
+    y_ref, h_ref = ks.selective_scan_fwd_residuals_ref(*args, tile=tile)
     torch.cuda.synchronize()
     if not torch.equal(y3, y2):
         raise AssertionError("the bf16 training scan forward's y differs from the lean one's")
     err3 = max(_check_bf16("bf16 scan forward with states: y", y3, y_ref),
                _check_bf16("bf16 scan forward with states: h_entries", h3, h_ref))
-    nc = h3.shape[1]
+    # the bounds count the entry states the function needs, one every CHUNK
+    # steps as the fp32 route writes them; the states of a body with shorter
+    # tiles (ks.SM90_TILE) are its own cost, in its time and not in its bound
+    nc = -(-L // ks.CHUNK)
     scan_bytes = (4 * B * L * D + 2 * B * L * n) * 2 + (D * n + 2 * D) * 4
     bound_ms, bound_by = bound(scan_bytes + B * nc * n * D * 4, B * L * D * (10 + 7 * n))
     k3 = dict(shape=[B, L, D], max_abs_err=err3,
               ms=time_ms(lambda: ks.selective_scan_fwd_residuals_bf16(*args), 20),
               device_ms=graph_ms(lambda: ks.selective_scan_fwd_residuals_bf16(*args), 20),
-              plain_ms=time_ms(lambda: ks.selective_scan_fwd_residuals_ref(*args), 2, warmup=1),
+              plain_ms=time_ms(lambda: ks.selective_scan_fwd_residuals_ref(*args, tile=tile), 2,
+                               warmup=1),
               bound_ms=bound_ms, bound_by=bound_by)
     bwd_args = (*args, g, h3)
     got = ks.selective_scan_bwd_bf16(*bwd_args)
     again = ks.selective_scan_bwd_bf16(*bwd_args)
-    want = ks.selective_scan_bwd_ref(*bwd_args)
+    want = ks.selective_scan_bwd_ref(*bwd_args, tile=tile)
     torch.cuda.synchronize()
     if not all(torch.equal(a, c) for a, c in zip(got, again)):
         raise AssertionError("two bf16 scan backward runs on the same inputs differ")
@@ -1091,7 +1099,8 @@ def bf16_scan_train_figures(args, g) -> tuple[dict, dict]:
     k4 = dict(shape=[B, L, D], max_abs_err=err4,
               ms=time_ms(lambda: ks.selective_scan_bwd_bf16(*bwd_args), 20),
               device_ms=graph_ms(lambda: ks.selective_scan_bwd_bf16(*bwd_args), 20),
-              plain_ms=time_ms(lambda: ks.selective_scan_bwd_ref(*bwd_args), 1, warmup=1),
+              plain_ms=time_ms(lambda: ks.selective_scan_bwd_ref(*bwd_args, tile=tile), 1,
+                               warmup=1),
               bound_ms=bound_ms, bound_by=bound_by)
     return k3, k4
 
@@ -2398,9 +2407,6 @@ def _wrappers() -> dict:
     return {"causal_conv1d_silu": kc.causal_conv1d_silu,
             "causal_conv1d_silu_bf16": kc.causal_conv1d_silu_bf16,
             "causal_conv1d_silu_bwd_bf16": kc.causal_conv1d_silu_bwd_bf16,
-            "selective_scan_fwd_bf16": ks.selective_scan_fwd_bf16,
-            "selective_scan_fwd_residuals_bf16": ks.selective_scan_fwd_residuals_bf16,
-            "selective_scan_bwd_bf16": ks.selective_scan_bwd_bf16,
             "selective_scan_fwd": ks.selective_scan_fwd,
             "selective_scan_fwd_residuals": ks.selective_scan_fwd_residuals,
             "selective_scan_bwd": ks.selective_scan_bwd,
@@ -2425,7 +2431,9 @@ def _wrappers() -> dict:
             "ssd_split_bwd_seeded": kssd.ssd_split_bwd_seeded,
             **{name + "_bf16": getattr(kssd, name + "_bf16") for name in SSD_NAMES},
             # the variants at the shapes the tuned kernels are not built for
-            **kc.ANY_LAUNCHES, **ks.ANY_LAUNCHES, **kfm.ANY_LAUNCHES, **kssd.VARIANT_LAUNCHES}
+            **kc.ANY_LAUNCHES, **ks.ANY_LAUNCHES, **kfm.ANY_LAUNCHES, **kssd.VARIANT_LAUNCHES,
+            # the Hopper bf16 bodies
+            **ks.SM90_LAUNCHES}
 
 
 # the SSD kernels' wrappers by name, each with a ``_bf16`` twin
@@ -5021,25 +5029,26 @@ POLICY_BATCH, POLICY_BLOCKS, POLICY_TAU = 32, 3, 1.0
 FEWSHOT_WAY, FEWSHOT_SHOT, FEWSHOT_FOLD, FEWSHOT_TEST = 5, 10, 0, 20  # cfgs/fewshot.yaml's run
 
 
-def mamba_bf16_at(device, batch: int, length: int) -> dict:
-    """The bf16 K1-K5 at B=batch, L=length on ``perf_operands``' views, each
-    held against its plain version at phase 16's tolerances and timed beside
-    it (K1 and K5 also beside bf16 ``F.conv1d(groups=D)`` + ``F.silu``).
-    Returns {kernel name: figures}."""
+def mamba_bf16_at(device, batch: int, length: int, conv: bool = True) -> dict:
+    """The bf16 K1-K5 (without ``conv`` K2-K4) at B=batch, L=length on
+    ``perf_operands``' views, each held against its plain version at phase
+    16's tolerances and timed beside it (K1 and K5 also beside bf16
+    ``F.conv1d(groups=D)`` + ``F.silu``). Returns {kernel name: figures}."""
     from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
 
     xz, w, b, args = perf_operands(device, batch, length)
     x = xz[..., :w.shape[0]]
     g = torch.from_numpy(np.random.default_rng(43).standard_normal(
         x.shape, dtype=np.float32)).to(device, torch.bfloat16)
-    fwd, bwd = bf16_conv_figures(x, w, b, g)
     k2 = bf16_scan_fwd_figures(args)
     k2["plain_ms"] = time_ms(lambda: ks.selective_scan_ref(
         *args[:5], D=args[5], z=args[6], delta_bias=args[7]), 2, warmup=1)
     k3, k4 = bf16_scan_train_figures(args, g)
-    out = {"causal_conv1d_silu_bf16": fwd, "causal_conv1d_silu_bwd_bf16": bwd,
-           "selective_scan_fwd_bf16": k2, "selective_scan_fwd_residuals_bf16": k3,
-           "selective_scan_bwd_bf16": k4}
+    out = {"selective_scan_fwd_sm90_bf16": k2, "selective_scan_fwd_residuals_sm90_bf16": k3,
+           "selective_scan_bwd_sm90_bf16": k4}
+    if conv:
+        fwd, bwd = bf16_conv_figures(x, w, b, g)
+        out |= {"causal_conv1d_silu_bf16": fwd, "causal_conv1d_silu_bwd_bf16": bwd}
     return {k: _keep(r) for k, r in out.items()}
 
 
@@ -7040,8 +7049,8 @@ def profile_script_phase(card: str) -> dict:
     chiprun_out/profiles/, through its ``main`` as its command line calls it
     (in this process: the kernels are loaded, the card is warm). Its JSON
     must hold the JAX script's keys, a positive leaf device time, and K1, K3,
-    K4 and K5 (their kernels by name) 12 calls a step each. Returns the
-    record."""
+    K4 and K5 (their kernels by name: K3 and K4 the Hopper bf16 body's) 12
+    calls a step each. Returns the record."""
     import importlib.util
 
     out_dir = ROOT / "chiprun_out" / "profiles"
@@ -7062,8 +7071,8 @@ def profile_script_phase(card: str) -> dict:
         raise AssertionError(f"no device time in the profile: {out['leaf_device_ms_per_step']}")
     ops = [o for cat in out["top_ops_by_category"].values() for o in cat]
     calls = {}
-    for kernel in ("causal_conv1d_silu_fwd_kernel", "selective_scan_fwd_kernel",
-                   "selective_scan_bwd_kernel", "causal_conv1d_silu_bwd_kernel"):
+    for kernel in ("causal_conv1d_silu_fwd_kernel", "::scan_fwd<true, false>(", "::scan_bwd(",
+                   "causal_conv1d_silu_bwd_kernel"):
         calls[kernel] = sum(o["calls"] for o in ops if kernel in o["op"])
     if calls != dict.fromkeys(calls, 12.0):
         raise AssertionError(f"the profiled step's K1/K3/K4/K5 calls a step: {calls}")
@@ -7958,9 +7967,9 @@ def main() -> int:
                  "ssd_split_fwd_states": "tp_ssd_train", "ssd_split_bwd": "tp_ssd_train",
                  "ssd_split_fwd_hfin": "sp", "ssd_split_fwd_states_hfin": "sp_train",
                  "ssd_split_bwd_seeded": "sp_train", "causal_conv1d_silu_bf16": "perf_serving",
-                 "selective_scan_fwd_bf16": "perf_serving",
-                 "selective_scan_fwd_residuals_bf16": "perf_train",
-                 "selective_scan_bwd_bf16": "perf_train",
+                 "selective_scan_fwd_sm90_bf16": "perf_serving",
+                 "selective_scan_fwd_residuals_sm90_bf16": "perf_train",
+                 "selective_scan_bwd_sm90_bf16": "perf_train",
                  "causal_conv1d_silu_bwd_bf16": "perf_train",
                  "ssd_xbc_fwd_sm90_bf16": "ssd_perf_serving",
                  "ssd_xbc_fwd_states_sm90_bf16": "ssd_perf_train",

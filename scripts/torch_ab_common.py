@@ -19,15 +19,17 @@ if str(ROOT) not in sys.path:
 ORDER = ("this", "other", "other", "this")
 
 
-def build(src_dir: Path, names: tuple[str, ...], tag: str) -> tuple[dict[str, ctypes.CDLL], str]:
+def build(src_dir: Path, names: tuple[str, ...], tag: str,
+          flags: tuple[str, ...] = ()) -> tuple[dict[str, ctypes.CDLL], str]:
     """Build ``<src_dir>/<name>.cu`` for each name into ``build/ab/<tag>``,
-    one nvcc each, all started together. Returns the loaded libraries and
-    ptxas' register and spill lines, each after the name of its kernel."""
+    one nvcc each with ``flags`` after the port's, all started together.
+    Returns the loaded libraries and ptxas' register and spill lines, each
+    after the name of its kernel."""
     from si_mamba_tpu_torch.ops.kernels.build import NVCC_FLAGS, _nvcc
 
     out_dir = ROOT / "build" / "ab" / tag
     out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {name: subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
+    procs = {name: subprocess.Popen([_nvcc(), *NVCC_FLAGS, *flags, "-Xptxas", "-v", "-o",
                                      str(out_dir / f"{name}.so"), str(src_dir / f"{name}.cu")],
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for name in names}

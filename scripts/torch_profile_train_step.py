@@ -52,7 +52,8 @@ K_STEPS = 10
 # the port's kernels by family first (their names are the csrc/ functions)
 CATS = [
     ("conv_kernels", lambda n: "causal_conv1d" in n or "conv_any_" in n),
-    ("scan_kernels", lambda n: "selective_scan" in n or "scan_any_" in n),
+    ("scan_kernels", lambda n: "selective_scan" in n or "scan_any_" in n
+     or "::scan_fwd<" in n or "::scan_bwd(" in n),
     ("ssd_kernels", lambda n: any(f"::{k}<" in n for k in (
         "fwd_prep", "fwd_carry", "fwd_y", "bwd_prep", "bwd_carry", "bwd_dgm", "bwd_dx",
         "bwd_dbc", "bwd_ds"))),

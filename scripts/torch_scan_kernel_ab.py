@@ -4,28 +4,48 @@ tile entry states, K4 backward) of the PyTorch port built from two source
 trees, in one process on one card.
 
     python scripts/torch_scan_kernel_ab.py --other <dir with selective_scan_fwd.cu, selective_scan_bwd.cu>
+    python scripts/torch_scan_kernel_ab.py --dtype bf16 --other <dir>
 
 ``--other`` is typically the ``si_mamba_tpu_torch/csrc`` of another commit
 unpacked with ``git archive``. Both trees are built with the port's nvcc
-flags into ``build/ab/`` (``torch_ab_common.build``). A tree whose forward has no
-``selective_scan_fwd_segments`` (the earlier one-pass forward) is called through
-its own C argument lists. The kernels run on the scan's inputs as layer 0's
-mixer makes them (``chip_smoke.scan_operands``: L=512, d_inner 768, d_state
-16, fp32, strided views): K2 at B = 1, 20 and 64 clouds (the serving request
-sizes) and 32, K3 and K4 at B=32 (the train batch), in turns this, other,
-other, this (ROUNDS times), each as device time (20 calls captured in a CUDA
-graph and replayed) and as eager time (20 back-to-back wrapper calls, host
-cost included). This tree's K2 is also timed with its segmented scan turned
-off (one segment), beside its own choice. Before timing, each tree's outputs
-are held against the plain versions at B=32. The script prints one JSON line:
-each kernel's mean time per tree and timer, the ratios, the segment counts,
-the card's name and power limit.
+flags into ``build/ab/`` (``torch_ab_common.build``).
+
+fp32 (the default): a tree whose forward has no ``selective_scan_fwd_segments``
+(the earlier one-pass forward) is called through its own C argument lists.
+The kernels run on the scan's inputs as layer 0's mixer makes them
+(``chip_smoke.scan_operands``: L=512, d_inner 768, d_state 16, fp32, strided
+views): K2 at B = 1, 20 and 64 clouds (the serving request sizes) and 32, K3
+and K4 at B=32 (the train batch). This tree's K2 is also timed with its
+segmented scan turned off (one segment), beside its own choice.
+
+bf16: this tree's Hopper body (``csrc/selective_scan_bf16_sm90.cu``) against
+the other tree's bf16 scan (the bf16 entry points of ``selective_scan_fwd.cu``
+/ ``selective_scan_bwd.cu``, h_entries every 16 steps, in trees before the
+Hopper body; else its own Hopper body), each called through its own tree's
+wrappers (``selective_scan_fwd_bf16``, ``..._residuals_bf16``,
+``selective_scan_bwd_bf16`` of the ``ops/kernels/selective_scan.py`` beside
+``--other``, loaded from that file), so that the eager times compare the two
+trees' host cost a call as a model pays it, on perf mode's operands
+(``chip_smoke.perf_operands``, bf16 views as the bf16 mixer makes them): K2 at
+B = 1, 20, 32 and 64, K3 and K4 at B=32 and at the part-segmentation shape
+(B=16, L=256). Each tree's outputs are held against the plain versions at
+``chip_smoke.bf16_kernel_phase``'s tolerances first; the script also prints
+each call's device time by kernel name at B=32 and ptxas' register and spill
+report of both trees.
+
+Either way the kernels run in turns this, other, other, this (ROUNDS times),
+each as device time (20 calls captured in a CUDA graph and replayed) and as
+eager time (20 back-to-back wrapper calls, host cost included). Before timing,
+each tree's outputs are held against the plain versions at B=32. The script
+prints one JSON line: each kernel's mean time per tree and timer, the ratios,
+the segment counts, the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import sys
 from pathlib import Path
@@ -114,12 +134,136 @@ def _check(tree: dict, args, g) -> None:
             raise AssertionError(f"{name}: max |diff| {err}, max {b.abs().max().item()}")
 
 
+BF16_SHAPES = {f"B={b}": (b, 512) for b in BATCHES} | {"seg B=16 L=256": (16, 256)}
+
+
+def _wrappers_of(csrc: Path):
+    """The ``ops/kernels/selective_scan.py`` beside the tree's ``csrc``,
+    loaded as a module of its own (its imports of the port resolve to this
+    tree's package)."""
+    path = csrc.parent / "ops" / "kernels" / "selective_scan.py"
+    spec = importlib.util.spec_from_file_location("other_selective_scan", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bf16_tree(mod, bind) -> dict:
+    """A tree's bf16 K2/K3/K4 through its own wrappers (module ``mod``, its
+    libraries set by ``bind``): the public ``selective_scan_*_bf16`` calls a
+    model makes, so the eager times carry each tree's host cost a call."""
+    tile = mod.entry_tile(torch.bfloat16, 16) if hasattr(mod, "entry_tile") else mod.CHUNK
+    return dict(bind=bind, tile=tile,
+                forward=lambda args, residuals: (mod.selective_scan_fwd_residuals_bf16(*args)
+                                                 if residuals else
+                                                 (mod.selective_scan_fwd_bf16(*args), None)),
+                backward=lambda args, g, h: mod.selective_scan_bwd_bf16(*args, g, h))
+
+
+def _other_bf16(other: Path) -> tuple[dict, str]:
+    """The bf16 K2/K3/K4 of another tree through that tree's wrappers, on the
+    libraries built from its sources: the widened fp32 bodies of
+    selective_scan_fwd.cu / selective_scan_bwd.cu, and its Hopper body where
+    it has one. Returns the tree and its ptxas report."""
+    mod = _wrappers_of(other)
+    sm90 = getattr(mod, "SM90_SOURCE", None)
+    libs, report = build(other, NAMES + ((sm90,) if sm90 else ()), "other_bf16")
+    fwd_lib, bwd_lib = mod.fwd_interface(libs[NAMES[0]]), mod.bwd_interface(libs[NAMES[1]])
+    mod._fwd_library, mod._bwd_library = (lambda: fwd_lib), (lambda: bwd_lib)
+    if sm90:
+        sm90_lib = mod.sm90_interface(libs[sm90])
+        mod._sm90_library = lambda: sm90_lib
+    return _bf16_tree(mod, lambda: None) | dict(mod=mod), report
+
+
+def _sm90(libs: dict[str, ctypes.CDLL]) -> dict:
+    """This tree's Hopper bf16 body through the port's wrappers."""
+    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
+
+    lib = ks.sm90_interface(libs[ks.SM90_SOURCE])
+
+    def bind():
+        ks._sm90_library = lambda: lib
+
+    return _bf16_tree(ks, bind) | dict(lib=lib)
+
+
+def _check_bf16_tree(tree: dict, args, g) -> None:
+    """A tree's bf16 K2, K3 and K4 against the plain versions (with its own
+    h_entries tile) at chip_smoke.bf16_kernel_phase's tolerances."""
+    import chip_smoke as cs
+    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
+
+    tree["bind"]()
+    y2, _ = tree["forward"](args, False)
+    y3, h3 = tree["forward"](args, True)
+    y_ref, h_ref = ks.selective_scan_fwd_residuals_ref(*args, tile=tree["tile"])
+    got, again = tree["backward"](args, g, h3), tree["backward"](args, g, h3)
+    want = ks.selective_scan_bwd_ref(*args, g, h3, tile=tree["tile"])
+    torch.cuda.synchronize()
+    if not torch.equal(y2, y3) or not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError("K3's y differs from K2's, or two K4 runs differ")
+    cs._check_bf16("y", y3, y_ref)
+    cs._check_bf16("h_entries", h3, h_ref)
+    for k, a, r in zip(("du", "ddelta", "dA", "dB", "dC", "dD", "dz", "ddelta_bias"), got, want):
+        cs._check_bf16(k, a, r, ulps=2, floor=2e-2, rel=1e-3)
+
+
+def main_bf16(other: Path) -> int:
+    import chip_smoke as cs
+    from si_mamba_tpu_torch.ops.kernels import selective_scan as ks
+    from torch_ab_common import by_kernel
+
+    card = cs.card_line()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    this_libs, this_report = build(ROOT / "si_mamba_tpu_torch" / "csrc", (ks.SM90_SOURCE,),
+                                   "this_bf16")
+    older, other_report = _other_bf16(other)
+    trees = {"this": _sm90(this_libs), "other": older}
+    device = torch.device("cuda", 0)
+    ops = {name: cs.perf_operands(device, b, l)[3] for name, (b, l) in BF16_SHAPES.items()}
+    grads = {name: torch.from_numpy(np.random.default_rng(3).standard_normal(
+        ops[name][0].shape, dtype=np.float32)).to(device, torch.bfloat16)
+        for name in ("B=32", "seg B=16 L=256")}
+    for name in grads:
+        for tree in trees.values():
+            _check_bf16_tree(tree, ops[name], grads[name])
+    h = {}
+    for name, tree in trees.items():
+        tree["bind"]()
+        h[name] = {shape: tree["forward"](ops[shape], True)[1] for shape in grads}
+
+    kernels = {f"K2 {name}": (lambda tree, a=ops[name]: trees[tree]["forward"](a, False))
+               for name in ops if name.startswith("B=")}
+    for name in grads:
+        kernels[f"K3 {name}"] = lambda tree, a=ops[name]: trees[tree]["forward"](a, True)
+        kernels[f"K4 {name}"] = lambda tree, a=ops[name], g=grads[name], n=name: trees[tree][
+            "backward"](a, g, h[tree][n])
+    times = round_robin({name: tree["bind"] for name, tree in trees.items()}, kernels,
+                        {"device": cs.graph_ms, "eager": cs.time_ms}, ROUNDS)
+    mean = means(times)
+    split = {}
+    for tree in ("this", "other"):
+        trees[tree]["bind"]()
+        split[tree] = {k: by_kernel(lambda k=k: kernels[k](tree))
+                       for k in ("K2 B=32", "K3 B=32", "K4 B=32")}
+    segments = {b: trees["this"]["lib"].scan_sm90_segments(b, 512, 768) for b in BATCHES}
+    print(json.dumps({"card": card, "dtype": "bf16", "rounds": ROUNDS, "segments": segments,
+                      "mean_ms": mean, "other_over_this": other_over_this(mean, kernels),
+                      "by_kernel": split, "ptxas": {"this": this_report, "other": other_report},
+                      "ms": times}), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, type=Path)
+    ap.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_scan_kernel_ab: no CUDA device")
+    if args.dtype == "bf16":
+        return main_bf16(args.other)
     import chip_smoke as cs
 
     card = cs.card_line()

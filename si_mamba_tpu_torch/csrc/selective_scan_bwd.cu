@@ -1,4 +1,4 @@
-// Mamba-1 selective scan, backward, fp32 or bf16 activations. For the forward
+// Mamba-1 selective scan, backward, fp32 activations. For the forward
 //
 //   delta_t = softplus(dt_t + dt_bias)
 //   h_t     = a_t * h_{t-1} + (delta_t * u_t) * B_t,   a_t = exp(delta_t * A)
@@ -81,14 +81,9 @@
 // registers while this one computes, as the forward does, needs more than the
 // 80 registers that three blocks an SM leave a thread.
 //
-// bf16 (template type T, the TPU kernel at a bf16 activation dtype): u, dt,
-// z, B, C and g are read as bf16 and du, ddt and dz written as bf16 (each
-// value widened as it is loaded, each result rounded once as it is stored);
-// A, D, dt_bias, h_entries, every partial and all arithmetic stay fp32. The
-// TPU kernel takes the forward's y_pre = C.h + D u stored in the activation
-// dtype; this kernel recomputes y_pre in fp32 as it steps back and rounds it
-// to T before dz = g dsilu(z) y_pre, so dz rounds as the TPU kernel's does
-// without a (B, L, d) y_pre written by the forward and read back here.
+// The element type T is fp32 here; the bf16 backward runs on its Hopper body,
+// csrc/selective_scan_bf16_sm90.cu, which replaced this body's bf16
+// instantiation.
 
 #include <cuda_runtime.h>
 
@@ -451,13 +446,6 @@ extern "C" {
 int selective_scan_bwd(const void* const* inputs, void* const* outputs, int Bsz, int L, int D,
                        int N, const long long* strides, void* stream) {
   return bwd_entry<float>(inputs, outputs, Bsz, L, D, N, strides, stream);
-}
-
-// The bf16 variant: the same arguments with u, dt, Bm, Cm, z, g and du, ddt,
-// dz bf16 (A, Dp, dt_bias, h_entries and the partials fp32).
-int selective_scan_bwd_bf16(const void* const* inputs, void* const* outputs, int Bsz, int L,
-                            int D, int N, const long long* strides, void* stream) {
-  return bwd_entry<bf16>(inputs, outputs, Bsz, L, D, N, strides, stream);
 }
 
 int selective_scan_bwd_chunk_len() { return kChunk; }

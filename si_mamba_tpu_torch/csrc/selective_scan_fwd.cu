@@ -1,4 +1,4 @@
-// Mamba-1 selective scan, forward, fp32 or bf16 activations:
+// Mamba-1 selective scan, forward, fp32 activations:
 //
 //   delta_t = softplus(dt_t + dt_bias)
 //   h_t     = exp(delta_t * A) * h_{t-1} + (delta_t * u_t) * B_t   (fp32 state)
@@ -76,13 +76,9 @@
 // double-buffered B/C tile, the special-function-unit decay, the full-tile
 // step loop and the segmented two-kernel scan at small batch.
 //
-// bf16 (template type T, the TPU kernel at a bf16 activation dtype): u, dt,
-// z, B, C and y are bf16 in device memory; A, D, dt_bias, the state,
-// h_entries and the segment scratch stay fp32, and so does all arithmetic:
-// each value is widened as it is loaded and y rounded once as it is stored.
-// The lane split is the fp32 body's, so a lane loads one 2-byte value a step
-// (a warp's row access: 8 channels, 16 bytes) and the least traffic halves
-// to about 102 MB at B=32 (K3 adds its 50.3 MB of fp32 h_entries).
+// The element type T is fp32 here; the bf16 scan runs on its Hopper body,
+// csrc/selective_scan_bf16_sm90.cu, which replaced this body's bf16
+// instantiation.
 
 #include <cuda_runtime.h>
 
@@ -397,30 +393,6 @@ int selective_scan_fwd_residuals(const void* u, const void* dt, const void* A, c
   return launch<float, true>(make_args<float>(u, dt, A, Bm, Cm, Dp, z, dt_bias, y, h_entries,
                                               h_end, dsum, L, D, strides),
                              Bsz, segments, static_cast<cudaStream_t>(stream));
-}
-
-// The bf16 variants of the two: the same arguments with u, dt, Bm, Cm, z
-// and y bf16 (A, Dp, dt_bias, h_entries, h_end and dsum fp32).
-int selective_scan_fwd_bf16(const void* u, const void* dt, const void* A, const void* Bm,
-                            const void* Cm, const void* Dp, const void* z, const void* dt_bias,
-                            void* y, void* h_end, void* dsum, int Bsz, int L, int D, int N,
-                            int segments, const long long* strides, void* stream) {
-  if (N != kState) return cudaErrorInvalidValue;
-  return launch<bf16, false>(make_args<bf16>(u, dt, A, Bm, Cm, Dp, z, dt_bias, y, nullptr,
-                                             h_end, dsum, L, D, strides),
-                             Bsz, segments, static_cast<cudaStream_t>(stream));
-}
-
-int selective_scan_fwd_residuals_bf16(const void* u, const void* dt, const void* A,
-                                      const void* Bm, const void* Cm, const void* Dp,
-                                      const void* z, const void* dt_bias, void* y,
-                                      void* h_entries, void* h_end, void* dsum, int Bsz, int L,
-                                      int D, int N, int segments, const long long* strides,
-                                      void* stream) {
-  if (N != kState) return cudaErrorInvalidValue;
-  return launch<bf16, true>(make_args<bf16>(u, dt, A, Bm, Cm, Dp, z, dt_bias, y, h_entries,
-                                            h_end, dsum, L, D, strides),
-                            Bsz, segments, static_cast<cudaStream_t>(stream));
 }
 
 // The segment count both entry points take for segments = 0.

@@ -1,7 +1,8 @@
-// Hopper's tensor memory accelerator (TMA, sm_90) for csrc/ssd_xbc_bf16_sm90.cu:
-// tiles copied from device memory into shared memory by one thread's
-// request, their arrival counted on an mbarrier, and the 128-byte swizzled
-// tile layouts that wgmma reads (csrc/wgmma.cuh reads the unswizzled ones).
+// Hopper's tensor memory accelerator (TMA, sm_90) for csrc/ssd_xbc_bf16_sm90.cu
+// and csrc/selective_scan_bf16_sm90.cu: tiles copied from device memory into
+// shared memory by one thread's request, their arrival counted on an mbarrier,
+// and the 128-byte swizzled tile layouts that wgmma reads (csrc/wgmma.cuh
+// reads the unswizzled ones).
 //
 // A tensor map (made on the host, encode()) names a tensor of rank 2 or 3,
 // its strides, a box (the tile one request copies) and a swizzle. With
@@ -26,6 +27,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
+#include <unordered_map>
 
 namespace tma {
 
@@ -133,15 +136,51 @@ inline Encode encoder() {
 // the byte strides of dims 1 .. rank - 1, copied in boxes of box (elements),
 // 128-byte swizzled (swizzle) or not. False where the driver refuses it (an
 // address or stride not 16-byte aligned, a box too large).
+//
+// A map depends on nothing but these arguments, so the maps encoded on a
+// thread are kept by their arguments, and a call with the arguments of one
+// copies it: an encode costs microseconds of host time, several a launch,
+// which shows where the host paces the card (one cloud served). Past
+// kMaxMaps the table starts again empty.
+constexpr int kKeyWords = 9;
+constexpr size_t kMaxMaps = 4096;
+
+struct MapKey {
+  uint64_t w[kKeyWords];
+  bool operator==(const MapKey& o) const { return std::memcmp(w, o.w, sizeof w) == 0; }
+};
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    uint64_t h = 1469598103934665603ull;  // FNV-1a over the words
+    for (const uint64_t x : k.w) h = (h ^ x) * 1099511628211ull;
+    return static_cast<size_t>(h ^ (h >> 32));
+  }
+};
+
 inline bool encode(CUtensorMap* map, bool bf16, int rank, const void* base, const uint64_t* dims,
                    const uint64_t* strides, const uint32_t* box, bool swizzle) {
+  if (rank < 2 || rank > 3) return false;
+  const bool r3 = rank == 3;
+  const MapKey key{{reinterpret_cast<uint64_t>(base), dims[0], dims[1], r3 ? dims[2] : 0,
+                    strides[0], r3 ? strides[1] : 0, uint64_t{box[0]} << 32 | box[1],
+                    r3 ? box[2] : 0u, uint64_t(rank) << 2 | uint64_t(bf16) << 1 | uint64_t(swizzle)}};
+  thread_local std::unordered_map<MapKey, CUtensorMap, MapKeyHash> maps;
+  const auto found = maps.find(key);
+  if (found != maps.end()) {
+    *map = found->second;
+    return true;
+  }
   const Encode fn = encoder();
   if (fn == nullptr) return false;
   const cuuint32_t ones[3] = {1, 1, 1};
-  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
-            const_cast<void*>(base), dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  if (fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+         const_cast<void*>(base), dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  if (maps.size() >= kMaxMaps) maps.clear();
+  maps.emplace(key, *map);
+  return true;
 }
 
 }  // namespace tma

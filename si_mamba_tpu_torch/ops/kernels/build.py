@@ -20,7 +20,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 SOURCES = ("causal_conv", "selective_scan_fwd", "selective_scan_bwd", "ssd_xbc_fwd",
-           "ssd_xbc_bwd", "fused_mixer_fwd", "fused_mixer_bwd", "mamba_any", "ssd_xbc_bf16_sm90")
+           "ssd_xbc_bwd", "fused_mixer_fwd", "fused_mixer_bwd", "mamba_any", "ssd_xbc_bf16_sm90",
+           "selective_scan_bf16_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,7 +1,7 @@
 """Mamba-1 selective scan, forward and backward: the CUDA kernels, their
 plain versions and the autograd Function over them.
 
-Kernels:
+Kernels (fp32 activations; bf16 below):
 - ``csrc/selective_scan_fwd.cu``, two variants of the TPU kernel
   ``_fwd_kernel`` (si_mamba_tpu/ops/pallas/selective_scan_kernel.py):
   the lean inference forward (K2, ``emit_residuals=False``), and the training
@@ -28,13 +28,24 @@ tile's states into a per-block scratch and sums dB and dC over the warp's
 channels into per-block partials), chosen by d_state before the launch, with
 their own launch counts (``ANY_LAUNCHES``) and the same h_entries layout.
 
-Each kernel takes fp32 or bf16 activations (u, delta, B, C, z and g, one
+At bf16 activations and d_state 16 (perf mode, every bf16 Mamba-1 model) the
+three run on their Hopper body instead, ``csrc/selective_scan_bf16_sm90.cu``
+(:data:`SM90_SOURCE`, :func:`sm90_serves`): tiles by the tensor memory
+accelerator, the per-step channel scalars once a tile, two channels by four
+states a lane, and a backward over :data:`SM90_TILE`-step tiles that keeps
+the rebuilt states in registers and their decays in shared memory (one ex2 a
+state element), so its K3 writes h_entries every :data:`SM90_TILE` steps
+(:func:`entry_tile`; the plain versions take the tile as an argument). Its
+launches count on ``SM90_LAUNCHES`` ('_sm90' before the dtype, as the Hopper
+K8/K9 count). Views the tensor maps cannot read go through
+:func:`tma_view`.
+
+Together they take fp32 or bf16 activations (u, delta, B, C, z and g, one
 dtype) with fp32 A, D, delta_bias and state, as the TPU kernels do at either
 activation dtype: y, du, ddelta and dz come back in the activation dtype,
 dB and dC summed in fp32 and then cast to it, dA, dD and ddelta_bias in
 fp32. The bf16 backward rounds its recomputed y_pre to bf16 before dz, as
 the TPU kernel reads the y_pre its forward stored in the activation dtype.
-Each dtype is its own variant with its own launch count (``..._bf16``).
 
 :func:`selective_scan_fused` runs K2 when no gradient is wanted and
 :class:`SelectiveScanFn` (K3 forward, K4 backward) when one is; on a CPU
@@ -55,6 +66,9 @@ from si_mamba_tpu_torch.ops.kernels.build import LaunchCount, load_library
 # Steps per tile of the forward kernels' h_entries and of the backward's
 # rebuild (kChunk in both CUDA sources; checked when they are loaded).
 CHUNK = 16
+# the same of the Hopper bf16 body (kHTile of csrc/selective_scan_bf16_sm90.cu)
+SM90_TILE = 8
+SM90_SOURCE = "selective_scan_bf16_sm90"
 
 _NAMES = ("u", "delta", "A", "B", "C", "D", "z", "delta_bias")
 # the activation dtypes the kernels are built for; the operands below are fp32
@@ -66,6 +80,25 @@ MAX_SHARED_STATE = 256  # above it the any-state variants' arrays live in a work
 ANY_LAUNCHES = {name + suffix: LaunchCount()
                 for name in ("selective_scan_fwd_any", "selective_scan_fwd_residuals_any",
                              "selective_scan_bwd_any") for suffix in ("", "_bf16")}
+# the launch counts of the Hopper bf16 body's K2, K3 and K4, by name
+SM90_LAUNCHES = {name: LaunchCount()
+                 for name in ("selective_scan_fwd_sm90_bf16",
+                              "selective_scan_fwd_residuals_sm90_bf16",
+                              "selective_scan_bwd_sm90_bf16")}
+
+
+def sm90_serves(dtype: torch.dtype, n: int) -> bool:
+    """Whether the Hopper bf16 body runs a scan of activation ``dtype`` and
+    d_state ``n``: bf16 at the tuned d_state."""
+    return dtype == torch.bfloat16 and n == TUNED_STATE
+
+
+def entry_tile(dtype: torch.dtype, n: int) -> int:
+    """The steps between the states in h_entries of a scan of activation
+    ``dtype`` and d_state ``n``: :data:`SM90_TILE` where the Hopper bf16 body
+    runs it, else :data:`CHUNK`. The plain versions keep the same contract on
+    the CPU."""
+    return SM90_TILE if sm90_serves(dtype, n) else CHUNK
 
 
 def _acc_dtype(u: torch.Tensor) -> torch.dtype:
@@ -102,10 +135,10 @@ def selective_scan_ref(u, delta, A, B, C, D=None, z=None, delta_bias=None,
     return y.to(u.dtype)
 
 
-def selective_scan_fwd_residuals_ref(u, delta, A, B, C, D, z, delta_bias):
+def selective_scan_fwd_residuals_ref(u, delta, A, B, C, D, z, delta_bias, tile: int = CHUNK):
     """Plain version of the training forward: (y, h_entries), where
-    h_entries (b, ceil(l / CHUNK), n, d) holds the state before steps 0,
-    CHUNK, 2 CHUNK, ... (fp32, or fp64 for fp64 input); y in u's dtype."""
+    h_entries (b, ceil(l / tile), n, d) holds the state before steps 0,
+    tile, 2 tile, ... (fp32, or fp64 for fp64 input); y in u's dtype."""
     acc = _acc_dtype(u)
     dl = F.softplus(delta.to(acc) + delta_bias.to(acc))
     u32, A32, B32, C32 = u.to(acc), A.to(acc), B.to(acc), C.to(acc)
@@ -113,7 +146,7 @@ def selective_scan_fwd_residuals_ref(u, delta, A, B, C, D, z, delta_bias):
     h = u32.new_zeros((b, d, A32.shape[1]))
     ys, entries = [], []
     for t in range(l):
-        if t % CHUNK == 0:
+        if t % tile == 0:
             entries.append(h.transpose(1, 2))
         dt_t = dl[:, t, :, None]
         h = torch.exp(dt_t * A32) * h + (dt_t * u32[:, t, :, None]) * B32[:, t, None, :]
@@ -125,10 +158,12 @@ def selective_scan_fwd_residuals_ref(u, delta, A, B, C, D, z, delta_bias):
     return y.to(u.dtype), h_entries
 
 
-def selective_scan_bwd_ref(u, delta, A, B, C, D, z, delta_bias, g, h_entries):
-    """Plain backward, written out as the kernel computes it: for each tile,
-    last first, a plain forward recompute of the tile's states from its entry
-    state, then the explicit reverse recurrence
+def selective_scan_bwd_ref(u, delta, A, B, C, D, z, delta_bias, g, h_entries,
+                           tile: int = CHUNK):
+    """Plain backward, written out as the kernels compute it: for each tile
+    of ``tile`` steps (h_entries' spacing), last first, a plain forward
+    recompute of the tile's states from its entry state, then the explicit
+    reverse recurrence
 
         dh_t = gy_t C_t + a_{t+1} dh_{t+1},   gy_t = g_t silu(z_t),
 
@@ -150,7 +185,7 @@ def selective_scan_bwd_ref(u, delta, A, B, C, D, z, delta_bias, g, h_entries):
     dA = torch.zeros_like(A32)
     dh = u32.new_zeros((b, d, A32.shape[1]))  # a_{t+1} dh_{t+1}
     for c in reversed(range(h_entries.shape[1])):
-        t0, t1 = c * CHUNK, min((c + 1) * CHUNK, l)
+        t0, t1 = c * tile, min((c + 1) * tile, l)
         h = h_entries[:, c].to(acc).transpose(1, 2)  # (b, d, n)
         prev = []  # the state before each step of the tile
         for t in range(t0, t1):
@@ -188,13 +223,21 @@ def _set_argtypes(fn, argtypes):
     fn.restype = ctypes.c_int
 
 
+_P, _I, _LLP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
+_FWD_TAIL = [_I] * 5 + [_LLP, _P]  # Bsz, L, D, N, segments, strides, stream
+_BWD_ARGS = [_P, _P] + [_I] * 4 + [_LLP, _P]  # inputs, outputs, Bsz, L, D, N, strides, stream
+# The C entry points of the Hopper bf16 library with their argument lists:
+# K2 (the pointers through y, h_end, dsum), K3 (h_entries after y), K4 (as
+# the fp32 backward's, 13 strides).
+SM90_ENTRIES = {"scan_sm90_fwd": [_P] * 11 + _FWD_TAIL,
+                "scan_sm90_fwd_residuals": [_P] * 12 + _FWD_TAIL,
+                "scan_sm90_bwd": _BWD_ARGS}
+
+
 def fwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a built ``csrc/selective_scan_fwd.cu``."""
-    tail = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
-    _set_argtypes(lib.selective_scan_fwd, [ctypes.c_void_p] * 11 + tail)
-    _set_argtypes(lib.selective_scan_fwd_residuals, [ctypes.c_void_p] * 12 + tail)
-    _set_argtypes(lib.selective_scan_fwd_bf16, [ctypes.c_void_p] * 11 + tail)
-    _set_argtypes(lib.selective_scan_fwd_residuals_bf16, [ctypes.c_void_p] * 12 + tail)
+    _set_argtypes(lib.selective_scan_fwd, [_P] * 11 + _FWD_TAIL)
+    _set_argtypes(lib.selective_scan_fwd_residuals, [_P] * 12 + _FWD_TAIL)
     _set_argtypes(lib.selective_scan_fwd_segments, [ctypes.c_int] * 3)
     lib.selective_scan_chunk_len.restype = ctypes.c_int
     if lib.selective_scan_chunk_len() != CHUNK:
@@ -206,9 +249,7 @@ def fwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def bwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a built ``csrc/selective_scan_bwd.cu``."""
-    for fn in (lib.selective_scan_bwd, lib.selective_scan_bwd_bf16):
-        _set_argtypes(fn, [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 +
-                      [ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p])
+    _set_argtypes(lib.selective_scan_bwd, _BWD_ARGS)
     lib.selective_scan_bwd_chunk_len.restype = ctypes.c_int
     lib.selective_scan_bwd_block_channels.restype = ctypes.c_int
     if lib.selective_scan_bwd_chunk_len() != CHUNK:
@@ -218,9 +259,29 @@ def bwd_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def sm90_interface(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built ``csrc/selective_scan_bf16_sm90.cu``
+    (``SM90_ENTRIES``)."""
+    for name, argtypes in SM90_ENTRIES.items():
+        _set_argtypes(getattr(lib, name), argtypes)
+    _set_argtypes(lib.scan_sm90_segments, [ctypes.c_int] * 3)
+    lib.scan_sm90_entry_tile.restype = ctypes.c_int
+    lib.scan_sm90_block_channels.restype = ctypes.c_int
+    if lib.scan_sm90_entry_tile() != SM90_TILE:
+        raise RuntimeError("csrc/selective_scan_bf16_sm90.cu's kHTile differs from SM90_TILE")
+    lib.scan_sm90_error_string.argtypes = [ctypes.c_int]
+    lib.scan_sm90_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 @functools.cache
 def _fwd_library() -> ctypes.CDLL:
     return fwd_interface(load_library("selective_scan_fwd"))
+
+
+@functools.cache
+def _sm90_library() -> ctypes.CDLL:
+    return sm90_interface(load_library(SM90_SOURCE))
 
 
 @functools.cache
@@ -231,13 +292,14 @@ def _bwd_library() -> ctypes.CDLL:
 def _check_inputs(tensors: dict, extra: dict | None = None) -> tuple[int, int, int, int]:
     """Raise for anything the kernels do not take; returns (b, l, d, n)."""
     u, A = tensors["u"], tensors["A"]
+    tensors = tensors | extra if extra else tensors
     bsz, L, d = u.shape
     n = A.shape[1]
     if n < 1:
         raise ValueError(f"the selective-scan kernels take d_state 1 or more, got {n}")
     if u.dtype not in KERNEL_DTYPES:
         raise TypeError(f"the selective-scan kernels take float32 or bfloat16 u; u is {u.dtype}")
-    for name, t in (tensors | (extra or {})).items():
+    for name, t in tensors.items():
         want = torch.float32 if name in _FP32_OPERANDS else u.dtype
         if t.dtype != want:
             raise TypeError(f"the selective-scan kernels take {name} in {want} for u in "
@@ -249,15 +311,15 @@ def _check_inputs(tensors: dict, extra: dict | None = None) -> tuple[int, int, i
                              f"{name}'s last axis")
     shapes = dict(u=(bsz, L, d), delta=(bsz, L, d), z=(bsz, L, d), A=(d, n), B=(bsz, L, n),
                   C=(bsz, L, n), D=(d,), delta_bias=(d,), g=(bsz, L, d),
-                  h_entries=(bsz, -(-L // CHUNK), n, d))
-    for name, t in (tensors | (extra or {})).items():
+                  h_entries=(bsz, -(-L // entry_tile(u.dtype, n)), n, d))
+    for name, t in tensors.items():
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shapes[name]}")
     if bsz > 65535:
         raise ValueError(f"the selective-scan kernels take at most 65535 batch rows, got {bsz}")
     if n != TUNED_STATE:
         return bsz, L, d, n
-    widest = max([d] + [t.stride(1) for name, t in (tensors | (extra or {})).items()
+    widest = max([d] + [t.stride(1) for name, t in tensors.items()
                         if name in ("u", "delta", "z", "B", "C", "g")])
     if (L + CHUNK) * widest >= 2 ** 31:
         raise ValueError("the selective-scan kernels address a batch row with 32-bit offsets; "
@@ -271,24 +333,78 @@ def _rows(*ts):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def _tma_ready(t: torch.Tensor) -> bool:
+    """Whether the tensor memory accelerator can read ``t`` as it lies: unit
+    stride along its last axis, its start and every stride of an axis longer
+    than 1 16-byte aligned."""
+    size, st = t.element_size(), t.stride()
+    return (st[-1] == 1 and t.data_ptr() % 16 == 0
+            and all(s * size % 16 == 0 for s, k in zip(st[:-1], t.shape[:-1]) if k > 1))
+
+
+def tma_view(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where the Hopper body's tensor maps can read it (``_tma_ready``),
+    else a copy of it whose rows are padded to 16 bytes, as a view of their
+    first ``t.shape[-1]`` elements."""
+    if _tma_ready(t):
+        return t
+    w = t.shape[-1]
+    per = 16 // t.element_size()
+    buf = torch.empty((*t.shape[:-1], -(-w // per) * per), dtype=t.dtype, device=t.device)
+    return buf[..., :w].copy_(t)
+
+
+def _tma_operands(*ts) -> tuple[list, list]:
+    """Each (b, l, w) tensor of ``ts`` through :func:`tma_view`, and the
+    (batch, row) strides of each as the tensor maps take them: a stride of an
+    axis of length 1 is never followed, so it is replaced by an aligned one.
+    One pass over the tensors: the wrappers' host time per call counts at
+    small batch."""
+    views, strides = [], []
+    for t in ts:
+        (nb, nl, w), (sb, sr, sc) = t.shape, t.stride()
+        per = 16 // t.element_size()
+        # _tma_ready, written out for (b, l, w)
+        if sc != 1 or t.data_ptr() % 16 or (nl > 1 and sr % per) or (nb > 1 and sb % per):
+            t = tma_view(t)
+            sb, sr, _ = t.stride()
+        if nl == 1:
+            sr = -(-w // per) * per
+        views.append(t)
+        strides += [sb if nb > 1 else nl * sr, sr]
+    return views, strides
+
+
 def _launch_fwd(u, delta, A, B, C, D, z, delta_bias, residuals: bool,
                 segments: int | None = None):
     """K2 (K3 with ``residuals``). ``segments`` forces the number of
     segments of L (1: the one-pass scan); by default the kernel's own choice
-    for the shape (``selective_scan_fwd_segments``)."""
+    for the shape (``selective_scan_fwd_segments``, ``scan_sm90_segments``)."""
     args = dict(zip(_NAMES, (u, delta, A, B, C, D, z, delta_bias)))
     bsz, L, d, n = _check_inputs(args)
     A, D, delta_bias = A.contiguous(), D.contiguous(), delta_bias.contiguous()
     f32 = dict(dtype=torch.float32, device=u.device)
     y = torch.empty((bsz, L, d), dtype=u.dtype, device=u.device)
-    h_entries = torch.empty((bsz, -(-L // CHUNK), n, d), **f32) if residuals else None
+    h_entries = (torch.empty((bsz, -(-L // entry_tile(u.dtype, n)), n, d), **f32)
+                 if residuals else None)
     if y.numel() == 0:
         return y, h_entries
     if n != TUNED_STATE:
         return _run_fwd_any(u, delta, A, B, C, D, z, delta_bias, y, h_entries)
-    lib = _fwd_library()
+    sm90 = sm90_serves(u.dtype, n)
+    if sm90:
+        lib, segments_of, error_string = (_sm90_library(), "scan_sm90_segments",
+                                          "scan_sm90_error_string")
+        (u, delta, B, C, z), strides = _tma_operands(u, delta, B, C, z)
+        strides = (ctypes.c_longlong * len(strides))(*strides)
+        entry = lib.scan_sm90_fwd_residuals if residuals else lib.scan_sm90_fwd
+    else:
+        lib, segments_of, error_string = (_fwd_library(), "selective_scan_fwd_segments",
+                                          "selective_scan_error_string")
+        strides = _rows(u, delta, B, C, z)
+        entry = lib.selective_scan_fwd_residuals if residuals else lib.selective_scan_fwd
     if segments is None:
-        segments = lib.selective_scan_fwd_segments(bsz, L, d)
+        segments = getattr(lib, segments_of)(bsz, L, d)
     # scratch of the segmented scan: each segment's end state and delta sum
     h_end = torch.empty((bsz, segments - 1, n, d), **f32)
     dsum = torch.empty((bsz, segments - 1, d), **f32)
@@ -296,23 +412,17 @@ def _launch_fwd(u, delta, A, B, C, D, z, delta_bias, residuals: bool,
     if residuals:
         ptrs.append(h_entries.data_ptr())
     ptrs += [h_end.data_ptr(), dsum.data_ptr()]
-    strides = _rows(u, delta, B, C, z)
     stream = torch.cuda.current_stream(u.device).cuda_stream
-    bf16 = u.dtype == torch.bfloat16
-    if residuals:
-        entry = lib.selective_scan_fwd_residuals_bf16 if bf16 else lib.selective_scan_fwd_residuals
-    else:
-        entry = lib.selective_scan_fwd_bf16 if bf16 else lib.selective_scan_fwd
     with torch.cuda.device(u.device):
         err = entry(*ptrs, bsz, L, d, n, segments, strides, stream)
     if err != 0:
-        msg = lib.selective_scan_error_string(err).decode()
+        msg = getattr(lib, error_string)(err).decode()
         raise RuntimeError(f"selective-scan forward kernel launch failed: {msg} ({err})")
-    if residuals:
-        counter = selective_scan_fwd_residuals_bf16 if bf16 else selective_scan_fwd_residuals
+    if sm90:
+        SM90_LAUNCHES["selective_scan_fwd_residuals_sm90_bf16" if residuals
+                      else "selective_scan_fwd_sm90_bf16"].launches += 1
     else:
-        counter = selective_scan_fwd_bf16 if bf16 else selective_scan_fwd
-    counter.launches += 1
+        (selective_scan_fwd_residuals if residuals else selective_scan_fwd).launches += 1
     return y, h_entries
 
 
@@ -381,6 +491,8 @@ def _launch_bwd(u, delta, A, B, C, D, z, delta_bias, g, h_entries):
     h_entries = h_entries.contiguous()
     if n != TUNED_STATE and u.numel():
         return _run_bwd_any(u, delta, A, B, C, D, z, delta_bias, g, h_entries)
+    if sm90_serves(u.dtype, n):
+        return _run_bwd_sm90(u, delta, A, B, C, D, z, delta_bias, g, h_entries)
     lib = _bwd_library()
     n_blk = -(-d // lib.selective_scan_bwd_block_channels())
     f32 = dict(dtype=torch.float32, device=u.device)
@@ -397,17 +509,51 @@ def _launch_bwd(u, delta, A, B, C, D, z, delta_bias, g, h_entries):
     outs = (ctypes.c_void_p * 8)(*(t.data_ptr() for t in (
         du, ddelta, dz, dB_part, dC_part, dA_part, dD_part, ddb_part)))
     stream = torch.cuda.current_stream(u.device).cuda_stream
-    bf16 = u.dtype == torch.bfloat16
-    entry = lib.selective_scan_bwd_bf16 if bf16 else lib.selective_scan_bwd
     with torch.cuda.device(u.device):
-        err = entry(ins, outs, bsz, L, d, n, _rows(u, delta, B, C, z, g), stream)
+        err = lib.selective_scan_bwd(ins, outs, bsz, L, d, n, _rows(u, delta, B, C, z, g), stream)
     if err != 0:
         msg = lib.selective_scan_bwd_error_string(err).decode()
         raise RuntimeError(f"selective-scan backward kernel launch failed: {msg} ({err})")
-    (selective_scan_bwd_bf16 if bf16 else selective_scan_bwd).launches += 1
+    selective_scan_bwd.launches += 1
     # dB and dC are summed in fp32, then cast to their inputs' dtype
     return (du, ddelta, dA_part.sum(0), dB_part.sum(1).to(B.dtype), dC_part.sum(1).to(C.dtype),
             dD_part.sum(0), dz, ddb_part.sum(0))
+
+
+def _run_bwd_sm90(u, delta, A, B, C, D, z, delta_bias, g, h_entries):
+    """The Hopper bf16 K4 on checked inputs: one launch, its partials packed
+    as dB | dC (b, blocks, l, 2n) and dA | dD | ddelta_bias (b, d, n + 4,
+    the last two columns 0), each finished by one torch.sum; views the tensor
+    maps cannot read go through :func:`tma_view`."""
+    bsz, L, d = u.shape
+    n = A.shape[1]
+    lib = _sm90_library()
+    n_blk = -(-d // lib.scan_sm90_block_channels())
+    f32 = dict(dtype=torch.float32, device=u.device)
+    du, ddelta, dz = (torch.empty((bsz, L, d), dtype=u.dtype, device=u.device)
+                      for _ in range(3))
+    if du.numel() == 0:
+        return (du, ddelta, torch.zeros_like(A), torch.zeros_like(B), torch.zeros_like(C),
+                torch.zeros_like(D), dz, torch.zeros_like(delta_bias))
+    dBC_part = torch.empty((bsz, n_blk, L, 2 * n), **f32)
+    dADb_part = torch.empty((bsz, d, n + 4), **f32)
+    (u, delta, B, C, z, g), strides = _tma_operands(u, delta, B, C, z, g)
+    h_entries = tma_view(h_entries)
+    strides.append(h_entries.stride(2))
+    ins = (ctypes.c_void_p * 10)(*(t.data_ptr() for t in (
+        u, delta, A, B, C, D, z, delta_bias, g, h_entries)))
+    outs = (ctypes.c_void_p * 5)(*(t.data_ptr() for t in (du, ddelta, dz, dBC_part, dADb_part)))
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    with torch.cuda.device(u.device):
+        err = lib.scan_sm90_bwd(ins, outs, bsz, L, d, n,
+                                (ctypes.c_longlong * len(strides))(*strides), stream)
+    if err != 0:
+        msg = lib.scan_sm90_error_string(err).decode()
+        raise RuntimeError(f"selective-scan backward kernel launch failed: {msg} ({err})")
+    SM90_LAUNCHES["selective_scan_bwd_sm90_bf16"].launches += 1
+    dBC = dBC_part.sum(1).to(B.dtype)  # summed in fp32, then cast to B's and C's dtype
+    dADb = dADb_part.sum(0)
+    return du, ddelta, dADb[:, :n], dBC[..., :n], dBC[..., n:], dADb[:, n], dz, dADb[:, n + 1]
 
 
 def selective_scan_fwd(u, delta, A, B, C, D, z, delta_bias) -> torch.Tensor:
@@ -415,9 +561,9 @@ def selective_scan_fwd(u, delta, A, B, C, D, z, delta_bias) -> torch.Tensor:
     scan, the D skip and the silu(z) gate. Shapes as in
     :func:`selective_scan_ref`; each of u, delta, B, C, z needs unit stride
     only along its last axis. On a CUDA tensor this launches the kernel
-    (activations float32 or bfloat16, A, D and delta_bias float32; at a
-    d_state other than 16 its any-state variant) or raises; on the CPU it is
-    :func:`selective_scan_ref`.
+    (activations float32 or bfloat16, A, D and delta_bias float32; at bf16
+    and d_state 16 the Hopper body, at a d_state other than 16 the any-state
+    variant) or raises; on the CPU it is :func:`selective_scan_ref`.
     ``selective_scan_fwd.launches`` counts the fp32 kernel's launches."""
     if u.is_cuda:
         return _launch_fwd(u, delta, A, B, C, D, z, delta_bias, residuals=False)[0]
@@ -425,24 +571,28 @@ def selective_scan_fwd(u, delta, A, B, C, D, z, delta_bias) -> torch.Tensor:
 
 
 def selective_scan_fwd_residuals(u, delta, A, B, C, D, z, delta_bias):
-    """Training forward (K3): (y, h_entries), h_entries (b, ceil(l / CHUNK),
-    n, d) fp32 the state before each tile. The kernel on a CUDA tensor,
-    :func:`selective_scan_fwd_residuals_ref` on the CPU.
-    ``selective_scan_fwd_residuals.launches`` counts kernel launches."""
+    """Training forward (K3): (y, h_entries), h_entries (b, ceil(l / T),
+    n, d) fp32 the state before each T-step tile, T = :func:`entry_tile`. The
+    kernel on a CUDA tensor, :func:`selective_scan_fwd_residuals_ref` on the
+    CPU. ``selective_scan_fwd_residuals.launches`` counts the fp32 kernel's
+    launches."""
     if u.is_cuda:
         return _launch_fwd(u, delta, A, B, C, D, z, delta_bias, residuals=True)
-    return selective_scan_fwd_residuals_ref(u, delta, A, B, C, D, z, delta_bias)
+    return selective_scan_fwd_residuals_ref(u, delta, A, B, C, D, z, delta_bias,
+                                            tile=entry_tile(u.dtype, A.shape[1]))
 
 
 def selective_scan_bwd(u, delta, A, B, C, D, z, delta_bias, g, h_entries):
     """Backward (K4): (du, ddelta, dA, dB, dC, dD, dz, ddelta_bias) for the
     output gradient g and the forward's h_entries. The kernel on a CUDA
     tensor (g and the inputs need unit stride only along their last axis),
-    :func:`selective_scan_bwd_ref` on the CPU.
-    ``selective_scan_bwd.launches`` counts kernel launches."""
+    :func:`selective_scan_bwd_ref` on the CPU, h_entries
+    :func:`entry_tile` steps apart in both.
+    ``selective_scan_bwd.launches`` counts the fp32 kernel's launches."""
     if u.is_cuda:
         return _launch_bwd(u, delta, A, B, C, D, z, delta_bias, g, h_entries)
-    return selective_scan_bwd_ref(u, delta, A, B, C, D, z, delta_bias, g, h_entries)
+    return selective_scan_bwd_ref(u, delta, A, B, C, D, z, delta_bias, g, h_entries,
+                                  tile=entry_tile(u.dtype, A.shape[1]))
 
 
 class SelectiveScanFn(torch.autograd.Function):
@@ -475,22 +625,23 @@ def selective_scan_fused(u, delta, A, B, C, D, z, delta_bias) -> torch.Tensor:
 
 def selective_scan_fwd_bf16(u, delta, A, B, C, D, z, delta_bias) -> torch.Tensor:
     """:func:`selective_scan_fwd` for bf16 activations, which it requires.
-    ``selective_scan_fwd_bf16.launches`` counts the bf16 lean kernel's
-    launches, whichever entry point reached it."""
+    At d_state 16 its launches count on
+    ``SM90_LAUNCHES['selective_scan_fwd_sm90_bf16']``, whichever entry point
+    reached the kernel."""
     _require_bf16(u)
     return selective_scan_fwd(u, delta, A, B, C, D, z, delta_bias)
 
 
 def selective_scan_fwd_residuals_bf16(u, delta, A, B, C, D, z, delta_bias):
     """:func:`selective_scan_fwd_residuals` for bf16 activations, which it
-    requires; ``.launches`` counts the bf16 training forward's launches."""
+    requires (``SM90_LAUNCHES['selective_scan_fwd_residuals_sm90_bf16']``)."""
     _require_bf16(u)
     return selective_scan_fwd_residuals(u, delta, A, B, C, D, z, delta_bias)
 
 
 def selective_scan_bwd_bf16(u, delta, A, B, C, D, z, delta_bias, g, h_entries):
-    """:func:`selective_scan_bwd` for bf16 activations, which it requires;
-    ``.launches`` counts the bf16 backward kernel's launches."""
+    """:func:`selective_scan_bwd` for bf16 activations, which it requires
+    (``SM90_LAUNCHES['selective_scan_bwd_sm90_bf16']``)."""
     _require_bf16(u)
     return selective_scan_bwd(u, delta, A, B, C, D, z, delta_bias, g, h_entries)
 
@@ -503,6 +654,3 @@ def _require_bf16(u: torch.Tensor) -> None:
 selective_scan_fwd.launches = 0
 selective_scan_fwd_residuals.launches = 0
 selective_scan_bwd.launches = 0
-selective_scan_fwd_bf16.launches = 0
-selective_scan_fwd_residuals_bf16.launches = 0
-selective_scan_bwd_bf16.launches = 0

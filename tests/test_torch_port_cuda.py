@@ -1266,9 +1266,12 @@ def _bf16_ulps(got, want, floor=1e-2):
 
 
 def _bf16_counts():
+    """The bf16 K1, K5 and the Hopper bf16 scan body's K2, K3, K4 counts."""
+    sm90 = kscan.SM90_LAUNCHES
     return (kconv.causal_conv1d_silu_bf16.launches, kconv.causal_conv1d_silu_bwd_bf16.launches,
-            kscan.selective_scan_fwd_bf16.launches,
-            kscan.selective_scan_fwd_residuals_bf16.launches, kscan.selective_scan_bwd_bf16.launches)
+            sm90["selective_scan_fwd_sm90_bf16"].launches,
+            sm90["selective_scan_fwd_residuals_sm90_bf16"].launches,
+            sm90["selective_scan_bwd_sm90_bf16"].launches)
 
 
 def _fp32_counts():
@@ -1317,35 +1320,30 @@ def test_bf16_conv_kernels_match_plain(cuda, b, l, d, row, off, vec):
     assert all(torch.equal(a, c) for a, c in zip(got, again))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("b,l,d", [(2, 512, 768), (1, 100, 200), (3, 37, 96)])
-def test_bf16_scan_kernels_match_plain(cuda, b, l, d):
-    """The bf16 K2, K3 and K4 (B and C column views of a bf16 x_dbl): y within
-    one bf16 ulp of the plain version (floor 1e-2 of max|y|), K3's y equal to
-    K2's and its fp32 entry states within 1e-4 of the plain ones; K4's bf16
-    gradients (du, ddelta, dz, dB, dC) within 2 ulps at a floor of 2e-2 of
-    their max, its fp32 ones (dA, dD, ddelta_bias) within 1e-3 of their max,
-    two runs bitwise equal."""
-    rng = np.random.default_rng(l + d)
-    n = 16
-    bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
-    x_dbl = bf(_randn(rng, b, l, 3 + 2 * n, device=cuda))
-    u, delta, z, g = (bf(_randn(rng, b, l, d, device=cuda)) for _ in range(4))
-    A = -torch.exp(_randn(rng, d, n, device=cuda))
-    D, dt_bias = _randn(rng, d, device=cuda), _randn(rng, d, scale=0.1, device=cuda)
-    args = (u, delta, A, x_dbl[..., 3:3 + n], x_dbl[..., 3 + n:], D, z, dt_bias)
+def _bf16_scan_against_plain(args, g, segments=None):
+    """The Hopper bf16 body's K2, K3 and K4 on ``args`` against the plain
+    versions at chip_smoke.bf16_kernel_phase's tolerances: y within one bf16
+    ulp of the plain version (floor 1e-2 of max|y|), K3's y equal to K2's
+    and its fp32 entry states (every ``kscan.SM90_TILE`` steps) within 1e-4
+    of the plain ones; K4's bf16 gradients (du, ddelta, dz, dB, dC) within 2
+    ulps at a floor of 2e-2 of their max, its fp32 ones (dA, dD, ddelta_bias)
+    within 1e-3 of their max, two runs bitwise equal; only the body's counts
+    move (K2 and K3 once, K4 twice)."""
+    D, z, dt_bias = args[5], args[6], args[7]
     before, fp32 = _bf16_counts(), _fp32_counts()
-    y = kscan.selective_scan_fwd_bf16(*args)
-    y3, h3 = kscan.selective_scan_fwd_residuals_bf16(*args)
+    y = kscan._launch_fwd(*args, residuals=False, segments=segments)[0]
+    y3, h3 = kscan._launch_fwd(*args, residuals=True, segments=segments)
     got = kscan.selective_scan_bwd_bf16(*args, g, h3)
     again = kscan.selective_scan_bwd(*args, g, h3)
     torch.cuda.synchronize()
     assert [a - c for a, c in zip(_bf16_counts(), before)] == [0, 0, 1, 1, 2]
     assert _fp32_counts() == fp32
     assert y.dtype == torch.bfloat16 and h3.dtype == torch.float32 and torch.equal(y3, y)
+    assert h3.shape[1] == -(-args[0].shape[1] // kscan.SM90_TILE)
     assert _bf16_ulps(y, kscan.selective_scan_ref(*args[:5], D=D, z=z, delta_bias=dt_bias)) <= 1
-    _close_to_max(h3, kscan.selective_scan_fwd_residuals_ref(*args)[1], 1e-4)
-    want = kscan.selective_scan_bwd_ref(*args, g, h3)
+    _close_to_max(h3, kscan.selective_scan_fwd_residuals_ref(*args, tile=kscan.SM90_TILE)[1],
+                  1e-4)
+    want = kscan.selective_scan_bwd_ref(*args, g, h3, tile=kscan.SM90_TILE)
     for a, r, inp in zip(got, want, args):
         assert a.dtype == inp.dtype
         if a.dtype == torch.bfloat16:
@@ -1353,6 +1351,76 @@ def test_bf16_scan_kernels_match_plain(cuda, b, l, d):
         else:
             _close_to_max(a, r, 1e-3)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+def _bf16_scan_case(rng, b, l, d, device, xoff=3, n=16):
+    """bf16 scan operands: B and C column views of a bf16 x_dbl ``xoff``
+    columns in (3: rows the tensor maps cannot read as they lie, so the
+    wrapper copies them; 24: perf mode's x_dbl, read in place), z the second
+    half of a bf16 xz; fp32 A, D, dt_bias; a bf16 output gradient."""
+    bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
+    x_dbl = bf(_randn(rng, b, l, xoff + 2 * n, device=device))
+    xz = bf(_randn(rng, b, l, 2 * d, device=device))
+    u, delta, g = (bf(_randn(rng, b, l, d, device=device)) for _ in range(3))
+    A = -torch.exp(_randn(rng, d, n, device=device))
+    D, dt_bias = _randn(rng, d, device=device), _randn(rng, d, scale=0.1, device=device)
+    return (u, delta, A, x_dbl[..., xoff:xoff + n], x_dbl[..., xoff + n:], D, xz[..., d:],
+            dt_bias), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d", [(2, 512, 768), (1, 100, 200), (3, 37, 96)])
+def test_bf16_scan_kernels_match_plain(cuda, b, l, d):
+    """The bf16 K2, K3 and K4 on the Hopper body (B and C column views of a
+    bf16 x_dbl the wrapper copies) against the plain versions."""
+    _bf16_scan_against_plain(*_bf16_scan_case(np.random.default_rng(l + d), b, l, d, cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,d", [
+    (1, 512, 768), (2, 512, 768), (20, 512, 768), (64, 512, 768),  # serving and train sizes
+    (3, 26, 768), (2, 100, 768),   # ragged L (the legacy MAE's 26, no multiple of 8 or 16)
+    (16, 256, 768),                # the part-segmentation model
+    (2, 64, 72),                   # d no multiple of the 64-channel blocks
+])
+def test_bf16_scan_kernels_at_path_shapes(cuda, b, l, d):
+    """The Hopper body at the paths' shapes on perf mode's views (x_dbl
+    dt_rank 24 + 2 d_state wide, read in place by the tensor maps)."""
+    rng = np.random.default_rng(b * l + d)
+    _bf16_scan_against_plain(*_bf16_scan_case(rng, b, l, d, cuda, xoff=24))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [1, 2, 3, 16])
+def test_bf16_scan_fwd_with_each_segment_count(cuda, segments):
+    """The Hopper body's segmented forward at a forced segment count (1 the
+    one-pass scan; 16 at L=200 leaves 13 one-tile segments)."""
+    _bf16_scan_against_plain(*_bf16_scan_case(np.random.default_rng(41), 2, 200, 96, cuda),
+                             segments=segments)
+
+
+@pytest.mark.cuda
+def test_bf16_scan_kernels_under_strong_decay(cuda):
+    """delta |A| of 10 to 100 at bf16: a state forgets within a step or two,
+    and exp(A * sum delta) of a segment underflows to 0."""
+    rng = np.random.default_rng(42)
+    args, g = _bf16_scan_case(rng, 2, 130, 72, cuda, xoff=24)
+    delta = (_randn(rng, 2, 130, 72, scale=2.0, device=cuda) + 3.0).to(torch.bfloat16)
+    A = -torch.exp(_randn(rng, 72, 16, scale=0.5, device=cuda) + 2.5)
+    args = (args[0], delta, A, *args[3:])
+    for segments in (None, 1, 4):
+        _bf16_scan_against_plain(args, g, segments=segments)
+
+
+@pytest.mark.cuda
+def test_bf16_scan_segment_choice_follows_the_batch(cuda):
+    """The Hopper body cuts L into segments by the earlier forward's rule: at
+    one cloud, not at the train batch."""
+    lib = kscan._sm90_library()
+    for b in (1, 20, 32, 64):
+        assert lib.scan_sm90_segments(b, 512, 768) == \
+            kscan._fwd_library().selective_scan_fwd_segments(b, 512, 768)
+    assert lib.scan_sm90_segments(1, 512, 768) > 1 and lib.scan_sm90_segments(32, 512, 768) == 1
 
 
 @pytest.mark.cuda

@@ -48,6 +48,11 @@ CARD_NAMES = {
     "void selective_scan_fwd_kernel<__nv_bfloat16, true, false>(ScanArgs<__nv_bfloat16>)":
         "scan_kernels",
     "void selective_scan_bwd_kernel<__nv_bfloat16>(BwdArgs<__nv_bfloat16>)": "scan_kernels",
+    "void (anonymous namespace)::scan_fwd<false, false>((anonymous namespace)::Fwd)":
+        "scan_kernels",
+    "void (anonymous namespace)::scan_fwd<true, false>((anonymous namespace)::Fwd)":
+        "scan_kernels",
+    "(anonymous namespace)::scan_bwd((anonymous namespace)::Bwd)": "scan_kernels",
     "void (anonymous namespace)::fwd_y<float, true, false, false>((anonymous namespace)::"
     "Args<float>)": "ssd_kernels",
     "void (anonymous namespace)::bwd_dbc<__nv_bfloat16, false, true>((anonymous namespace)::"
